@@ -9,7 +9,11 @@ This file imports no JAX, so it runs on a machine that has only PyTorch:
 the kernels round unnormalised probabilities to bf16 before PV where the
 plain version rounds normalised ones, and sum in another order, so outputs
 agree to a few bf16 ulps (relative error of the max below 2e-2); the fp32
-softmax statistics agree to 1e-4; the dropout masks agree exactly.
+softmax statistics agree to 1e-4; the dropout masks agree exactly. The MLM
+cross-entropy kernels (K4-K6) sum the same fp32 products in another order:
+nll and lse within 1e-3 absolute, the argmax equal wherever the plain top-2
+gap exceeds 1e-3 (first max on an exact tie), dx and dE (bf16) within 2e-2
+and db (fp32) within 1e-3 of the largest plain value.
 """
 
 import numpy as np
@@ -17,12 +21,16 @@ import pytest
 import torch
 
 from visualbert_torch.ops import flash_attention as fa
+from visualbert_torch.ops import mlm_xent as xe
 from visualbert_torch.ops.dropout import dropout_mask, dropout_mask_reference
 
 pytestmark = pytest.mark.gpu
 
 REL_TOL = 2e-2
 STATS_ATOL = 1e-4
+XENT_ATOL = 1e-3   # nll, lse (fp32, absolute)
+ARGMAX_GAP = 1e-3  # rows whose plain top-2 logit gap exceeds this must agree
+DB_REL_TOL = 1e-3  # db (fp32), share of the largest plain value
 
 
 @pytest.fixture
@@ -130,17 +138,105 @@ def test_f32_out_decoder_product(cuda):
     assert rel_err(w.grad, wr.grad) < REL_TOL
 
 
+def xent_inputs(N, V, device, seed=0, H=768):
+    """bf16 x and embedding, fp32 bias, int32 labels in [0, V) (15 % of them
+    -1 before the clamp, with g = 0 there) and a non-uniform fp32 g."""
+    rng = np.random.RandomState(seed)
+    x = torch.tensor(rng.randn(N, H), dtype=torch.bfloat16, device=device)
+    emb = torch.tensor(rng.randn(V, H) * 0.05, dtype=torch.bfloat16, device=device)
+    bias = torch.tensor(rng.randn(V) * 0.1, dtype=torch.float32, device=device)
+    labels = rng.randint(0, V, N)
+    labels[rng.rand(N) < 0.15] = -1
+    g = np.where(labels >= 0, rng.uniform(0.5, 1.5, N), 0.0)
+    return (x, emb, bias, torch.tensor(np.maximum(labels, 0), dtype=torch.int32, device=device),
+            torch.tensor(g, dtype=torch.float32, device=device))
+
+
+def top2_gap(x, emb, bias):
+    top = torch.topk(xe._logits(x, emb, bias), 2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+@pytest.mark.parametrize("N,V", [(3072, 30522), (100, 1000), (37, 30522), (257, 4099), (1, 70)])
+def test_xent_kernels_match_plain(cuda, N, V):
+    x, emb, bias, labels, g = xent_inputs(N, V, cuda)
+    nll, lse, am = xe.mlm_xent_fwd(x, emb, bias, labels)
+    nll_r, lse_r, am_r = xe.mlm_xent_fwd_reference(x, emb, bias, labels)
+    torch.cuda.synchronize()
+    assert float((nll - nll_r).abs().max()) < XENT_ATOL
+    assert float((lse - lse_r).abs().max()) < XENT_ATOL
+    clear = top2_gap(x, emb, bias) > ARGMAX_GAP
+    assert torch.equal(am[clear], am_r[clear])
+    # the backward gets the same lse on both sides
+    dx = xe.mlm_xent_dx(x, emb, bias, labels, lse_r, g)
+    de, db = xe.mlm_xent_de(x, emb, bias, labels, lse_r, g)
+    dx_r = xe.mlm_xent_dx_reference(x, emb, bias, labels, lse_r, g)
+    de_r, db_r = xe.mlm_xent_de_reference(x, emb, bias, labels, lse_r, g)
+    torch.cuda.synchronize()
+    assert dx.dtype == torch.bfloat16 and de.dtype == torch.bfloat16 and db.dtype == torch.float32
+    assert rel_err(dx, dx_r) < REL_TOL
+    assert rel_err(de, de_r) < REL_TOL
+    assert rel_err(db, db_r) < DB_REL_TOL
+
+
+def test_xent_argmax_takes_the_first_max(cuda):
+    """Equal logits in one vocabulary tile (5, 9) and in two splits (5,
+    V - 3): the lower index wins, as torch.argmax and the TPU kernel."""
+    N, V = 8, 30522
+    x, emb, bias, labels, _ = xent_inputs(N, V, cuda, seed=1)
+    u = emb[5].float() * 40
+    for v in (5, 9, V - 3):
+        emb[v] = u.to(torch.bfloat16)
+        bias[v] = 0.25
+    x[:] = emb[5]
+    _, _, am = xe.mlm_xent_fwd(x, emb, bias, labels)
+    assert am.tolist() == [5] * N
+
+
+def test_xent_autograd_through_kernels(cuda):
+    N, V = 300, 5000
+    x, emb, bias, labels, g = xent_inputs(N, V, cuda, seed=2)
+    lab = labels.long()
+    lab[g == 0] = -1
+    xg = x.clone().requires_grad_(True)
+    eg = emb.float().requires_grad_(True)  # the fp32 parameter; the op casts it
+    bg = bias.clone().requires_grad_(True)
+    counts = [f.launches for f in (xe.mlm_xent_fwd, xe.mlm_xent_dx, xe.mlm_xent_de)]
+    nll, am = xe.mlm_xent(xg, eg, bg, lab)
+    (nll * g).sum().backward()
+    assert [f.launches - c for f, c in zip((xe.mlm_xent_fwd, xe.mlm_xent_dx, xe.mlm_xent_de), counts)] == [1, 1, 1]
+    nll_r, lse_r, _ = xe.mlm_xent_fwd_reference(x, emb, bias, labels)
+    de_r, db_r = xe.mlm_xent_de_reference(x, emb, bias, labels, lse_r, g)
+    assert float((nll.detach() - nll_r).abs().max()) < XENT_ATOL
+    assert xg.grad.dtype == torch.bfloat16 and eg.grad.dtype == torch.float32
+    assert rel_err(xg.grad, xe.mlm_xent_dx_reference(x, emb, bias, labels, lse_r, g)) < REL_TOL
+    assert rel_err(eg.grad, de_r) < REL_TOL
+    assert rel_err(bg.grad, db_r) < DB_REL_TOL
+
+
+def test_xent_rejects_what_the_kernel_does_not_take(cuda):
+    x, emb, bias, labels, _ = xent_inputs(16, 100, cuda)
+    with pytest.raises(ValueError, match="hidden width"):
+        xe.mlm_xent_fwd(x[:, :64].contiguous(), emb[:, :64].contiguous(), bias, labels)
+    with pytest.raises(ValueError, match="bf16"):
+        xe.mlm_xent_fwd(x.float(), emb, bias, labels)
+    with pytest.raises(ValueError, match="int32"):
+        xe.mlm_xent_fwd(x, emb, bias, labels.long())
+
+
 def test_model_step_kernels_match_plain_with_dropout(cuda, monkeypatch):
-    """Two layers at bert-base width, dropout on: the train step through the
-    kernels and through their plain versions draws the same masks (the
-    plain versions are bit-exact twins), so loss and gradients agree."""
+    """Two layers at bert-base width, dropout on, every kernel of the main
+    path (K1-K6): the train step through the kernels and through their plain
+    versions draws the same masks (the plain versions are bit-exact twins),
+    so loss and gradients agree."""
     from visualbert_torch.config import VisualBertConfig
     from visualbert_torch.models.visualbert import VisualBertForTask
     from visualbert_torch.ops import dropout as dropout_ops
     from visualbert_torch.tools.synth import synth_batch
     from visualbert_torch.train.trainer import to_device
 
-    cfg = VisualBertConfig.base(use_flash_attention=True, fast_dropout=True, num_hidden_layers=2)
+    cfg = VisualBertConfig.base(use_flash_attention=True, fast_dropout=True, fused_mlm_xent=True,
+                                num_hidden_layers=2)
     batch = to_device(synth_batch(4, seed=2), cuda)
     runs = []
     for plain in (False, True):
@@ -148,6 +244,8 @@ def test_model_step_kernels_match_plain_with_dropout(cuda, monkeypatch):
             monkeypatch.setattr(fa, "packed_attention_fwd", fa.packed_attention_fwd_reference)
             monkeypatch.setattr(fa, "packed_attention_bwd", fa.packed_attention_bwd_reference)
             monkeypatch.setattr(dropout_ops, "dropout_mask", dropout_ops.dropout_mask_reference)
+            for k in ("fwd", "dx", "de"):
+                monkeypatch.setattr(xe, f"mlm_xent_{k}", getattr(xe, f"mlm_xent_{k}_reference"))
         model = VisualBertForTask(cfg, "pretraining").init_weights(torch.Generator().manual_seed(0)).to(cuda)
         out = model(batch, torch.Generator().manual_seed(7))
         out["loss"].backward()

@@ -151,16 +151,17 @@ def test_port_imports_no_jax():
 
 
 def test_main_path_model_block():
-    """configs/coco_pretrain.json's model block, comments stripped, with the
-    fused MLM cross-entropy off; TPU-only fields are skipped by from_dict."""
+    """configs/coco_pretrain.json's model block, comments stripped and
+    unchanged; TPU-only fields are skipped by from_dict."""
     from visualbert_torch.config import VisualBertConfig
     from visualbert_torch.tools import main_path
 
     block = main_path.model_block()
-    assert block["fused_mlm_xent"] is False
+    assert block == {"visual_embedding_dim": 2048, "use_flash_attention": True, "fused_mlm_xent": True,
+                     "fast_dropout": True}
     cfg = VisualBertConfig.from_dict(dict(block, scan_layers=False, remat=True, mesh=None))
     cfg.check_ported()
-    assert cfg.use_flash_attention and cfg.fast_dropout and cfg.packed_qkv
+    assert cfg.use_flash_attention and cfg.fast_dropout and cfg.packed_qkv and cfg.fused_mlm_xent
     assert (cfg.hidden_size, cfg.num_hidden_layers, cfg.num_attention_heads, cfg.visual_embedding_dim) == (
         768, 12, 12, 2048)
     assert not hasattr(cfg, "scan_layers")

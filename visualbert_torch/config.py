@@ -2,11 +2,11 @@
 ``visualbert_tpu/config.py``): the same model fields and defaults, torch
 dtypes.
 
-The JAX config's TPU-only execution fields (``remat``, ``scan_layers``,
-``ffn_recompute_act``, ``ffn_save_dact``, ``mesh``) change no math and have
-no counterpart here; :meth:`VisualBertConfig.from_dict` skips them in a
-config file's ``model`` block. Fields that select a kernel the port does not
-have yet raise in :meth:`VisualBertConfig.check_ported`.
+The JAX config's TPU-only execution fields (:data:`TPU_ONLY_MODEL_FIELDS`,
+:data:`TPU_ONLY_TRAIN_FIELDS`) change no math and have no counterpart here;
+:meth:`VisualBertConfig.from_dict` and ``utils/config_io.py`` skip them in a
+config file. Fields that select a kernel the port does not have yet raise in
+:meth:`VisualBertConfig.check_ported`.
 """
 
 from __future__ import annotations
@@ -15,6 +15,9 @@ import dataclasses
 from typing import Any, Optional, Tuple
 
 import torch
+
+TPU_ONLY_MODEL_FIELDS = ("remat", "scan_layers", "ffn_recompute_act", "ffn_save_dact", "mesh")
+TPU_ONLY_TRAIN_FIELDS = ("steps_per_dispatch", "mesh_shape", "compiler_options")
 
 _DTYPES = {
     "float32": torch.float32,
@@ -95,14 +98,17 @@ class VisualBertConfig:
 
     @classmethod
     def from_dict(cls, d: dict) -> "VisualBertConfig":
-        """From a config file's ``model`` block (unknown keys ignored)."""
+        """From a config file's ``model`` block: the TPU-only fields are
+        skipped, any other unknown key raises (as the JAX loader does)."""
         known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known - set(TPU_ONLY_MODEL_FIELDS)
+        if unknown:
+            raise KeyError(f"unknown VisualBertConfig keys: {sorted(unknown)}")
         return cls(**{k: v for k, v in d.items() if k in known})
 
     def check_ported(self) -> None:
         """Raise for options whose kernels are not ported yet (ROADMAP.md B)."""
         todo = {
-            "fused_mlm_xent": "the fused MLM cross-entropy kernels (K4-K6)",
             "use_fused_layer_norm": "the fused LayerNorm kernels (K7-K10)",
             "flash_save_probs": "the save-probs attention kernels (K13/K14)",
             "output_attention_weights": "attention-probability collection (probing)",
@@ -142,9 +148,17 @@ class OptimizerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Train-step settings (reference train.py:64-115); the loop's settings
-    come with ``fit`` (ROADMAP.md A5)."""
+    """Training-loop settings (reference train.py:64-115), the JAX
+    ``TrainConfig``'s defaults. Its TPU-only fields (``steps_per_dispatch``,
+    ``mesh_shape``, ``compiler_options``) have no counterpart here."""
 
-    seed: int = 42
+    train_batch_size: int = 32
+    eval_batch_size: int = 32
+    num_train_epochs: int = 10
     gradient_accumulation_steps: int = 1
+    patience: int = 100000            # early stop patience (train.py:398-400)
+    seed: int = 42
+    save_every: Optional[int] = None  # mid-epoch checkpoint cadence, in batches
+    log_every: int = 100
+    num_workers: int = 8              # Batcher threads (0 = sequential)
     nan_guard: bool = False

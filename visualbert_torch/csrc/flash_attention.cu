@@ -38,11 +38,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using vb::bf16;
+using vb::c_to_a;
+using vb::load_a;
+using vb::load_b_cols;
+using vb::load_b_rows;
+using vb::mma16816;
+using vb::pack_bf16;
+using vb::round_bf16;
 
 constexpr int D = 64;                 // head dim
 constexpr int TILE = 64;              // rows per block
@@ -51,61 +59,6 @@ constexpr int LDS = D + 8;            // padded shared-memory row stride (elemen
 constexpr int NTHREADS = 128;         // 4 warps x 16 rows
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float SCALE = 0.125f;       // 1 / sqrt(D)
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment loads from a row-major shared-memory tile with row stride LDS.
-// g = lane / 4, tq = lane % 4 (the mma.sync thread-group coordinates).
-
-// A (16x16) = X[r0 .. r0+15][k0 .. k0+15]
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* X, int r0, int k0, int g, int tq) {
-  a[0] = *reinterpret_cast<const uint32_t*>(X + (r0 + g) * LDS + k0 + 2 * tq);
-  a[1] = *reinterpret_cast<const uint32_t*>(X + (r0 + g + 8) * LDS + k0 + 2 * tq);
-  a[2] = *reinterpret_cast<const uint32_t*>(X + (r0 + g) * LDS + k0 + 2 * tq + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(X + (r0 + g + 8) * LDS + k0 + 2 * tq + 8);
-}
-
-// B (16x8) with B[k][n] = X[n0 + n][k0 + k]  (X's rows are B's columns)
-__device__ __forceinline__ void load_b_rows(uint32_t& b0, uint32_t& b1, const bf16* X, int n0, int k0,
-                                            int g, int tq) {
-  b0 = *reinterpret_cast<const uint32_t*>(X + (n0 + g) * LDS + k0 + 2 * tq);
-  b1 = *reinterpret_cast<const uint32_t*>(X + (n0 + g) * LDS + k0 + 2 * tq + 8);
-}
-
-// B (16x8) with B[k][n] = X[k0 + k][n0 + n]  (X's rows are B's rows)
-__device__ __forceinline__ void load_b_cols(uint32_t& b0, uint32_t& b1, const bf16* X, int k0, int n0,
-                                            int g, int tq) {
-  const bf16* p = X + (k0 + 2 * tq) * LDS + n0 + g;
-  b0 = pack_raw(p[0], p[LDS]);
-  b1 = pack_raw(p[8 * LDS], p[9 * LDS]);
-}
-
-// Accumulator pair (n-tiles 2c, 2c+1 of a 16-row C) -> A fragment with k = those 16 columns.
-__device__ __forceinline__ void c_to_a(uint32_t a[4], const float lo[4], const float hi[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
 
 // Copy rows [t0, t0 + nrows) of one D-wide column block of a [B*T, ld] bf16
 // matrix into shared memory, adding the deferred bias (bf16 add, rounded as
@@ -203,7 +156,7 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, const
 
   uint32_t qa[4][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) load_a(qa[kk], Qs, r0, kk * 16, g, tq);
+  for (int kk = 0; kk < 4; ++kk) load_a<LDS>(qa[kk], Qs, r0, kk * 16, g, tq);
 
   float o[8][4];
 #pragma unroll
@@ -218,7 +171,7 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, const
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         uint32_t b0, b1;
-        load_b_rows(b0, b1, Ks, k0 + nt * 8, kk * 16, g, tq);
+        load_b_rows<LDS>(b0, b1, Ks, k0 + nt * 8, kk * 16, g, tq);
         mma16816(s[nt], qa[kk], b0, b1);
       }
     }
@@ -272,7 +225,7 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, const
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         uint32_t b0, b1;
-        load_b_cols(b0, b1, Vs, k0 + c * 16, nt * 8, g, tq);
+        load_b_cols<LDS>(b0, b1, Vs, k0 + c * 16, nt * 8, g, tq);
         mma16816(o[nt], pa, b0, b1);
       }
     }
@@ -358,8 +311,8 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, co
   uint32_t qa[4][4], da[4][4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    load_a(qa[kk], Qs, r0, kk * 16, g, tq);
-    load_a(da[kk], dOs, r0, kk * 16, g, tq);
+    load_a<LDS>(qa[kk], Qs, r0, kk * 16, g, tq);
+    load_a<LDS>(da[kk], dOs, r0, kk * 16, g, tq);
   }
   float dq[8][4];
 #pragma unroll
@@ -374,9 +327,9 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, co
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         uint32_t b0, b1;
-        load_b_rows(b0, b1, Ks, k0 + nt * 8, kk * 16, g, tq);
+        load_b_rows<LDS>(b0, b1, Ks, k0 + nt * 8, kk * 16, g, tq);
         mma16816(s[nt], qa[kk], b0, b1);
-        load_b_rows(b0, b1, Vs, k0 + nt * 8, kk * 16, g, tq);
+        load_b_rows<LDS>(b0, b1, Vs, k0 + nt * 8, kk * 16, g, tq);
         mma16816(dp[nt], da[kk], b0, b1);
       }
     }
@@ -406,7 +359,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, co
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         uint32_t b0, b1;
-        load_b_cols(b0, b1, Ks, k0 + c * 16, nt * 8, g, tq);
+        load_b_cols<LDS>(b0, b1, Ks, k0 + c * 16, nt * 8, g, tq);
         mma16816(dq[nt], sa, b0, b1);
       }
     }
@@ -466,8 +419,8 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, c
   uint32_t ka[4][4], va[4][4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    load_a(ka[kk], Ks, r0, kk * 16, g, tq);
-    load_a(va[kk], Vs, r0, kk * 16, g, tq);
+    load_a<LDS>(ka[kk], Ks, r0, kk * 16, g, tq);
+    load_a<LDS>(va[kk], Vs, r0, kk * 16, g, tq);
   }
   float dk[8][4], dv[8][4];
 #pragma unroll
@@ -486,9 +439,9 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, c
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         uint32_t b0, b1;
-        load_b_rows(b0, b1, Qs, q0 + nt * 8, kk * 16, g, tq);
+        load_b_rows<LDS>(b0, b1, Qs, q0 + nt * 8, kk * 16, g, tq);
         mma16816(st[nt], ka[kk], b0, b1);
-        load_b_rows(b0, b1, dOs, q0 + nt * 8, kk * 16, g, tq);
+        load_b_rows<LDS>(b0, b1, dOs, q0 + nt * 8, kk * 16, g, tq);
         mma16816(dpt[nt], va[kk], b0, b1);
       }
     }
@@ -523,9 +476,9 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, c
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         uint32_t b0, b1;
-        load_b_cols(b0, b1, dOs, q0 + c * 16, nt * 8, g, tq);
+        load_b_cols<LDS>(b0, b1, dOs, q0 + c * 16, nt * 8, g, tq);
         mma16816(dv[nt], pa, b0, b1);
-        load_b_cols(b0, b1, Qs, q0 + c * 16, nt * 8, g, tq);
+        load_b_cols<LDS>(b0, b1, Qs, q0 + c * 16, nt * 8, g, tq);
         mma16816(dk[nt], sa, b0, b1);
       }
     }

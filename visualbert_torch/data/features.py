@@ -1,0 +1,53 @@
+"""Region-feature stores read by COCO pretraining: the per-image ``.npy``
+folder and the in-memory chunk of ``visualbert_tpu/data/features.py``,
+copied (importing the JAX package pulls in JAX). ``H5Features`` is not
+ported: ``h5py`` is not on the card's machine (ROADMAP.md A7).
+
+Readers return fp32 features [n_boxes, dim] plus optional metadata and are
+safe to share across the Batcher's threads.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import numpy as np
+
+
+class FeatureStore:
+    def get(self, image_id: str) -> Dict[str, np.ndarray]:
+        """{"features": [n_boxes, dim] fp32, ...metadata} of an image."""
+        raise NotImplementedError
+
+
+class NpyFolderFeatures(FeatureStore):
+    """Directory of ``<image_id>.npy`` feature arrays, optionally with a
+    sibling ``<image_id>_info.npy`` dict (boxes etc.)."""
+
+    def __init__(self, folder: str):
+        self.folder = folder
+
+    def get(self, image_id: str) -> Dict[str, np.ndarray]:
+        feats = np.load(os.path.join(self.folder, f"{image_id}.npy"), allow_pickle=True)
+        if feats.dtype == object:  # dict-style npy
+            d = feats.item()
+            return {k: np.asarray(v) for k, v in d.items()}
+        out = {"features": np.asarray(feats, np.float32)}
+        info_path = os.path.join(self.folder, f"{image_id}_info.npy")
+        if os.path.exists(info_path):
+            info = np.load(info_path, allow_pickle=True).item()
+            for k, v in info.items():
+                out[k] = np.asarray(v)
+        return out
+
+
+class ChunkFeatures(FeatureStore):
+    """In-memory chunk: {image_id: {features, boxes, ...}} (the reference's
+    preloaded "one giant file" pattern; the synthetic sets use it)."""
+
+    def __init__(self, chunk: Dict[str, Dict[str, np.ndarray]]):
+        self.chunk = chunk
+
+    def get(self, image_id: str) -> Dict[str, np.ndarray]:
+        return {k: np.asarray(v) for k, v in self.chunk[image_id].items()}

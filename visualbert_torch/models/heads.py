@@ -4,9 +4,11 @@ reference modeling.py:389-452).
 ``PreTrainingHeads`` is HF's ``cls``: ``predictions`` (the MLM transform,
 the decoder whose weight IS ``bert.embeddings.word_embeddings.weight``, and
 the output bias) and ``seq_relationship`` (the sentence-image alignment
-classifier). The decoder runs the unfused path of the JAX package
-(``heads.py:104-113``): compute-dtype operands, fp32 accumulation and fp32
-logits. The fused cross-entropy kernels (K4-K6) are not ported yet.
+classifier). With ``fused_mlm_xent`` and labels given, the MLM branch runs
+the fused softmax cross-entropy (``ops/mlm_xent.py``, kernels K4-K6) and
+returns per-row nll and argmax, no logits (JAX ``heads.py:86-102``);
+otherwise the decoder runs the unfused path (``heads.py:104-113``):
+compute-dtype operands, fp32 accumulation and fp32 logits.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from torch import nn
 from visualbert_torch.config import VisualBertConfig
 from visualbert_torch.models.encoder import linear
 from visualbert_torch.ops.layer_norm import layer_norm_f32
+from visualbert_torch.ops.mlm_xent import mlm_xent
 
 
 class _MatmulF32Out(torch.autograd.Function):
@@ -83,7 +86,10 @@ class LMPredictionHead(nn.Module):
 
 class PreTrainingHeads(nn.Module):
     """MLM + sentence-image alignment heads (reference modeling.py:404-452).
-    Returns ``(mlm_logits, nsp_logits)``, both fp32."""
+    Returns ``(mlm_logits, nsp_logits, mlm_nll, mlm_argmax)``: fp32 logits
+    and ``None, None`` on the unfused path; ``None`` logits and the fused
+    op's per-position nll and argmax (shaped like ``labels``) when
+    ``fused_mlm_xent`` is on and ``labels`` are given."""
 
     def __init__(self, cfg: VisualBertConfig):
         super().__init__()
@@ -91,6 +97,15 @@ class PreTrainingHeads(nn.Module):
         self.predictions = LMPredictionHead(cfg)
         self.seq_relationship = nn.Linear(cfg.hidden_size, 2)
 
-    def forward(self, sequence_output, pooled_output):
-        nsp = linear(pooled_output, self.seq_relationship, self.cfg.dtype).float()
-        return self.predictions(sequence_output), nsp
+    def forward(self, sequence_output, pooled_output, labels=None):
+        cfg = self.cfg
+        nsp = linear(pooled_output, self.seq_relationship, cfg.dtype).float()
+        if cfg.fused_mlm_xent and labels is not None:
+            pred = self.predictions
+            x = pred.transform(sequence_output)
+            # the tied decoder weight enters in the compute dtype; autograd
+            # carries d embedding through the cast into the fp32 Parameter
+            nll, am = mlm_xent(x.reshape(-1, x.shape[-1]), pred.decoder.weight.to(cfg.dtype), pred.bias,
+                               labels.reshape(-1))
+            return None, nsp, nll.view(labels.shape), am.view(labels.shape)
+        return self.predictions(sequence_output), nsp, None, None

@@ -2,10 +2,11 @@
 ``visualbert_tpu/models/visualbert.py``; reference
 ``TrainVisualBERTObjective``, modeling.py:1335-1598).
 
-This slice ports the pretraining branch (modeling.py:1400-1500, JAX
+The port has the pretraining branch (modeling.py:1400-1500, JAX
 ``visualbert.py:85-203``): MLM over the gathered ``mlm_positions`` plus the
-sentence-image alignment loss. The other head types raise; ROADMAP.md A7
-ports them.
+sentence-image alignment loss, through the fused MLM cross-entropy when
+``fused_mlm_xent`` is on (no ``logits`` in the output then). The other head
+types raise; ROADMAP.md A7 ports them.
 
 Batch keys (tensors): ``input_ids``/``token_type_ids``/``input_mask`` [B, Tt],
 ``visual_embeddings`` [B, Tv, Dv], ``image_mask``/``visual_embeddings_type``
@@ -112,17 +113,25 @@ class VisualBertForTask(nn.Module):
             gathered_labels = None if masked_lm_labels is None else torch.gather(masked_lm_labels, 1, pos)
         else:
             gathered, gathered_labels = sequence_output, masked_lm_labels
-        mlm_logits, nsp_logits = self.cls(gathered, pooled_output)
-        out["logits"] = mlm_logits
+        mlm_logits, nsp_logits, mlm_nll, mlm_pred = self.cls(gathered, pooled_output, gathered_labels)
+        if mlm_logits is not None:
+            out["logits"] = mlm_logits
         out["seq_relationship_score"] = nsp_logits
 
-        total = torch.zeros((), device=mlm_logits.device)
+        total = torch.zeros((), device=nsp_logits.device)
         if gathered_labels is not None:
             valid = gathered_labels != -1
-            mlm_loss = losses.cross_entropy_ignore_index(mlm_logits, gathered_labels)
+            if mlm_nll is not None:
+                # fused path: the same ignore_index=-1 mean over per-row nll
+                zero = torch.zeros((), device=mlm_nll.device)
+                mlm_loss = torch.where(valid, mlm_nll, zero).sum() / valid.sum().clamp_min(1)
+                pred = mlm_pred
+            else:
+                mlm_loss = losses.cross_entropy_ignore_index(mlm_logits, gathered_labels)
+                pred = mlm_logits.argmax(dim=-1)
             out["masked_lm_loss"] = mlm_loss
             total = total + mlm_loss
-            correct = valid & (mlm_logits.argmax(dim=-1) == gathered_labels)
+            correct = valid & (pred == gathered_labels)
             out["mlm_accuracy"] = correct.sum() / valid.sum().clamp_min(1)
         if batch.get("is_random_next") is not None:
             nsp_loss = losses.cross_entropy_ignore_index(

@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels and loads them with ctypes.
 
 All sources under ``visualbert_torch/csrc/`` are compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface (no PyTorch
-headers, so a build takes seconds, not minutes), at first use, into
+``sm_90a`` (one ``nvcc`` per ``.cu`` file, all started together) and linked
+into one shared library with a plain C interface (no PyTorch headers, so a
+build takes seconds, not minutes), at first use, into
 ``visualbert_torch/_build/<hash of sources and flags>/``. A missing ``nvcc``
 or a failed build raises; nothing falls back to another implementation.
 
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 LIB_NAME = "libvisualbert_kernels.so"
 
 _P = ctypes.c_void_p
@@ -39,6 +40,10 @@ _SIGNATURES = {
     "vb_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_smem_bytes": [_I],
+    "vb_xent_geometry": [_I],
+    "vb_xent_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "vb_xent_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "vb_xent_de": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
 }
 
 
@@ -95,22 +100,35 @@ def find_nvcc() -> str:
     )
 
 
+def _run_all(cmds):
+    """Run the commands at once; returns [(cmd, returncode, output)] in order."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [p.communicate()[0] for _, p in procs]  # drains each pipe: no writer blocks for long
+    return [(cmd, p.returncode, out) for (cmd, p), out in zip(procs, outs)]
+
+
 def build(out_dir: Path) -> KernelLibrary:
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    (out_dir / "build.log").write_text(log)
-    os.replace(tmp, out_dir / LIB_NAME)  # atomic: concurrent builders agree
+    work = Path(tempfile.mkdtemp(dir=out_dir))  # private to this build
+    try:
+        cu = [p for p in sources() if p.suffix == ".cu"]
+        objs = [str(work / f"{p.stem}.o") for p in cu]
+        t0 = time.perf_counter()
+        results = _run_all([[nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(p), "-o", o]
+                            for p, o in zip(cu, objs)])
+        if all(rc == 0 for _, rc, _ in results):
+            results += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(work / LIB_NAME), *objs]])
+        seconds = time.perf_counter() - t0
+        log = "".join(out for _, _, out in results)
+        for cmd, rc, out in results:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+        (out_dir / "build.log").write_text(log)
+        os.replace(work / LIB_NAME, out_dir / LIB_NAME)  # atomic: concurrent builds agree
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return KernelLibrary(out_dir / LIB_NAME, seconds, log)
 
 

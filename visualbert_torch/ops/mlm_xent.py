@@ -1,0 +1,205 @@
+"""Fused masked-LM softmax cross-entropy over the tied decoder (counterpart
+of ``visualbert_tpu/ops/mlm_xent.py::mlm_xent``).
+
+``mlm_xent(x [N, H], embedding [V, H], bias [V], labels [N])`` returns the
+per-row ``nll`` [N] fp32 and the first-max ``argmax`` [N] int32 of the
+logits ``x . embedding^T + bias``, with the JAX op's semantics: the logits
+are products of compute-dtype operands accumulated in fp32, plus the fp32
+bias; labels of -1 are computed as label 0 and the caller masks those rows;
+in the backward ``dlog = softmax - onehot`` is rounded to the compute dtype
+before each product, ``d embedding`` comes back in the embedding's compute
+dtype and ``d bias`` in fp32. On the kernel path no [N, V] tensor reaches
+device memory, forward or backward.
+
+Kernels (``csrc/mlm_xent.cu``, design notes there):
+
+* K4, :func:`mlm_xent_fwd`, replaces ``_fwd_kernel`` (nll, lse, argmax);
+* K5, :func:`mlm_xent_dx`, replaces ``_dx_kernel``;
+* K6, :func:`mlm_xent_de`, replaces ``_de_kernel`` (d embedding, d bias).
+
+On CPU tensors the wrappers compute the plain versions
+(:func:`mlm_xent_fwd_reference`, :func:`mlm_xent_dx_reference`,
+:func:`mlm_xent_de_reference`, which materialise the logits); on CUDA
+tensors they launch the kernels or raise. The JAX op's ``mesh`` argument
+has no counterpart: multi-GPU is ROADMAP.md A11.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from visualbert_torch.ops import _build
+
+
+def _logits(x, emb, bias):
+    # compute-dtype products are exact in fp32, so this is the kernels' math
+    return torch.matmul(x.float(), emb.float().t()) + bias.float()
+
+
+def _dlog(x, emb, bias, labels, lse):
+    """softmax - onehot, fp32 [N, V]."""
+    p = torch.exp(_logits(x, emb, bias) - lse[:, None])
+    rows = torch.arange(p.shape[0], device=p.device)
+    p[rows, labels.long()] -= 1.0
+    return p
+
+
+def mlm_xent_fwd_reference(x, emb, bias, labels) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K4: (nll [N] fp32, lse [N] fp32, argmax [N] int32)."""
+    logits = _logits(x, emb, bias)
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - logits.gather(1, labels.long()[:, None])[:, 0]
+    return nll, lse, logits.argmax(dim=-1).to(torch.int32)
+
+
+def mlm_xent_dx_reference(x, emb, bias, labels, lse, g) -> torch.Tensor:
+    """Plain version of K5: dx [N, H] in x's dtype."""
+    dlog = _dlog(x, emb, bias, labels, lse).to(x.dtype).float()
+    return (torch.matmul(dlog, emb.float()) * g[:, None]).to(x.dtype)
+
+
+def mlm_xent_de_reference(x, emb, bias, labels, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6: (d embedding [V, H] in emb's dtype, d bias [V] fp32)."""
+    dlog = _dlog(x, emb, bias, labels, lse) * g[:, None]
+    de = torch.matmul(dlog.to(x.dtype).float().t(), x.float()).to(emb.dtype)
+    return de, dlog.sum(dim=0)
+
+
+def _check_cuda_inputs(what, x, emb, bias, labels, *rows):
+    lib = _build.library()
+    N, H = x.shape
+    V = emb.shape[0]
+    if x.dtype != torch.bfloat16 or emb.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: the kernel takes bf16 x and embedding, got {x.dtype}, {emb.dtype}")
+    if H != lib.vb_xent_geometry(0) or emb.shape != (V, H):
+        raise ValueError(f"{what}: the kernel takes hidden width {lib.vb_xent_geometry(0)}, "
+                         f"got x {tuple(x.shape)}, embedding {tuple(emb.shape)}")
+    if bias.shape != (V,) or bias.dtype != torch.float32:
+        raise ValueError(f"{what}: bias must be [{V}] float32")
+    if labels.shape != (N,) or labels.dtype != torch.int32:
+        raise ValueError(f"{what}: labels must be [{N}] int32")
+    for r in rows:
+        if r.shape != (N,) or r.dtype != torch.float32:
+            raise ValueError(f"{what}: lse and g must be [{N}] float32")
+    for t in (x, emb, bias, labels) + rows:
+        if t.device != x.device:
+            raise ValueError(f"{what}: tensors on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: tensors must be 16-byte aligned")
+    return lib
+
+
+def _splits(n_row_blocks: int, n_tiles: int, device) -> Tuple[int, int]:
+    """(splits, tiles per split) of the vocabulary: about four blocks per SM
+    in all, no split empty."""
+    target = 4 * torch.cuda.get_device_properties(device).multi_processor_count
+    per = -(-n_tiles // max(1, min(n_tiles, -(-target // n_row_blocks))))
+    return -(-n_tiles // per), per
+
+
+def _device(x, what):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return x.device.type == "cuda"
+
+
+def mlm_xent_fwd(x, emb, bias, labels) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 wrapper: (nll [N] fp32, lse [N] fp32, argmax [N] int32)."""
+    what = "mlm xent forward (K4)"
+    if not _device(x, what):
+        return mlm_xent_fwd_reference(x, emb, bias, labels)
+    lib = _check_cuda_inputs(what, x, emb, bias, labels)
+    N, V = x.shape[0], emb.shape[0]
+    S, per = _splits(-(-N // lib.vb_xent_geometry(1)), -(-V // lib.vb_xent_geometry(3)), x.device)
+    pf = torch.empty((4, S, N), dtype=torch.float32, device=x.device)
+    pi = torch.empty((S, N), dtype=torch.int32, device=x.device)
+    nll = torch.empty(N, dtype=torch.float32, device=x.device)
+    lse = torch.empty(N, dtype=torch.float32, device=x.device)
+    am = torch.empty(N, dtype=torch.int32, device=x.device)
+    code = lib.vb_xent_fwd(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), N, V, S, per,
+                           pf.data_ptr(), pi.data_ptr(), nll.data_ptr(), lse.data_ptr(), am.data_ptr(),
+                           _build.stream_ptr(x.device))
+    lib.check(code, what)
+    mlm_xent_fwd.launches += 1
+    return nll, lse, am
+
+
+mlm_xent_fwd.launches = 0
+
+
+def mlm_xent_dx(x, emb, bias, labels, lse, g) -> torch.Tensor:
+    """K5 wrapper: dx [N, H] bf16. The kernel writes fp32 partials of dx per
+    vocabulary split; its second pass sums them in order."""
+    what = "mlm xent dx (K5)"
+    if not _device(x, what):
+        return mlm_xent_dx_reference(x, emb, bias, labels, lse, g)
+    lib = _check_cuda_inputs(what, x, emb, bias, labels, lse, g)
+    (N, H), V = x.shape, emb.shape[0]
+    S, per = _splits(-(-N // lib.vb_xent_geometry(2)), -(-V // lib.vb_xent_geometry(3)), x.device)
+    part = torch.empty((S, N, H), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    code = lib.vb_xent_dx(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                          g.data_ptr(), N, V, S, per, part.data_ptr(), dx.data_ptr(), _build.stream_ptr(x.device))
+    lib.check(code, what)
+    mlm_xent_dx.launches += 1
+    return dx
+
+
+mlm_xent_dx.launches = 0
+
+
+def mlm_xent_de(x, emb, bias, labels, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 wrapper: (d embedding [V, H] bf16, d bias [V] fp32)."""
+    what = "mlm xent dE (K6)"
+    if not _device(x, what):
+        return mlm_xent_de_reference(x, emb, bias, labels, lse, g)
+    lib = _check_cuda_inputs(what, x, emb, bias, labels, lse, g)
+    N, V = x.shape[0], emb.shape[0]
+    de = torch.empty_like(emb)
+    db = torch.empty(V, dtype=torch.float32, device=x.device)
+    code = lib.vb_xent_de(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                          g.data_ptr(), N, V, de.data_ptr(), db.data_ptr(), _build.stream_ptr(x.device))
+    lib.check(code, what)
+    mlm_xent_de.launches += 1
+    return de, db
+
+
+mlm_xent_de.launches = 0
+
+
+class _MlmXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, emb, bias, labels):
+        nll, lse, am = mlm_xent_fwd(x, emb, bias, labels)
+        ctx.save_for_backward(x, emb, bias, labels, lse)
+        ctx.mark_non_differentiable(am)
+        return nll, am
+
+    @staticmethod
+    def backward(ctx, dnll, _):
+        x, emb, bias, labels, lse = ctx.saved_tensors
+        g = dnll.float().contiguous()
+        dx = de = db = None
+        if ctx.needs_input_grad[0]:
+            dx = mlm_xent_dx(x, emb, bias, labels, lse, g)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            de, db = mlm_xent_de(x, emb, bias, labels, lse, g)
+        return dx, de, db, None
+
+
+def mlm_xent(x: torch.Tensor, embedding: torch.Tensor, bias: torch.Tensor,
+             labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row NLL and argmax of the tied-decoder softmax, fused.
+
+    x: [N, H] transformed hidden states (bf16 on the kernel path);
+    embedding: [V, H] tied word-embedding table, cast to x's dtype;
+    bias: [V] decoder bias, used in fp32; labels: [N] int (-1 entries are
+    computed as label 0 and masked by the caller).
+    Returns (nll [N] fp32, argmax [N] int32); gradients flow to x,
+    embedding and bias."""
+    return _MlmXent.apply(x.contiguous(), embedding.to(x.dtype).contiguous(), bias.float().contiguous(),
+                          labels.clamp_min(0).to(torch.int32).contiguous())

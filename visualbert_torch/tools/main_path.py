@@ -2,20 +2,20 @@
 pretraining train step at bert-base (ROADMAP.md), driven through
 ``Trainer``.
 
-The model block is ``configs/coco_pretrain.json``'s with ``fused_mlm_xent``
-off (its kernels, K4-K6, are not ported yet); the batch is
-``synth_batch``'s 96 x (128 text + 100 regions), 2048-d features, 24 MLM
-slots; BertAdam runs with the pooler frozen, schedule "none", lr 1e-4.
-``chip_smoke.py`` and ``tools/profile_step.py`` both drive this.
+The model block is ``configs/coco_pretrain.json``'s, unchanged (packed
+attention K1/K2, mask-kernel dropout K3, fused MLM cross-entropy K4-K6);
+the batch is the config's 128 pairs in ``synth_batch``'s geometry: 128 text
+tokens + 100 regions, 2048-d features, 24 MLM slots; BertAdam runs with the
+pooler frozen, schedule "none", lr 1e-4. ``chip_smoke.py`` and
+``tools/profile_step.py`` both drive this.
 """
 
 from __future__ import annotations
 
-import json
 import os
 import subprocess
 
-B, TT, TV, DV, N_PRED = 96, 128, 100, 2048, 24
+B, TT, TV, DV, N_PRED = 128, 128, 100, 2048, 24
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                       "configs", "coco_pretrain.json")
 
@@ -29,29 +29,11 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def read_model_block(path: str) -> dict:
-    """The ``model`` block of a comment-JSON config: ``//`` comments outside
-    strings are dropped before parsing."""
-    lines = []
-    with open(path) as f:
-        for line in f:
-            in_str = False
-            for i, ch in enumerate(line):
-                if ch == '"' and line[i - 1:i] != "\\":
-                    in_str = not in_str
-                elif not in_str and line.startswith("//", i):
-                    line = line[:i]
-                    break
-            lines.append(line)
-    return json.loads("".join(lines))["model"]
-
-
 def model_block() -> dict:
-    """configs/coco_pretrain.json's model block without the fused MLM
-    cross-entropy."""
-    block = read_model_block(CONFIG)
-    block["fused_mlm_xent"] = False
-    return block
+    """configs/coco_pretrain.json's model block."""
+    from visualbert_torch.utils.config_io import load_config_file
+
+    return load_config_file(CONFIG)["model"]
 
 
 def build(block: dict, device="cuda"):

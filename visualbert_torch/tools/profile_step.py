@@ -3,8 +3,8 @@
     python -m visualbert_torch.tools.profile_step
 
 Builds the main path with ``tools/main_path.py`` (the ``model`` block of
-configs/coco_pretrain.json with fused_mlm_xent off, bert-base, a synthetic
-96 x (128 + 100) batch, dropout on, BertAdam), warms up, then runs STEPS
+configs/coco_pretrain.json, bert-base, a synthetic 128 x (128 + 100) batch,
+dropout on, BertAdam), warms up, then runs STEPS
 train steps under ``torch.profiler`` and prints, per step: host
 wall time, device busy time (union of kernel intervals), the device's idle
 share, and device time by kernel group and by kernel; then the optimizer
@@ -33,6 +33,9 @@ GROUPS = (
     ("K1 attention fwd", ("attn_fwd_kernel",)),
     ("K2 attention bwd", ("attn_bwd",)),
     ("K3 dropout mask", ("dropout_mask_kernel",)),
+    ("K4 xent fwd", ("xent_fwd",)),
+    ("K5 xent dx", ("xent_dx",)),
+    ("K6 xent dE", ("xent_de_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "sm80_", "cublas")),
     ("copy / cast", ("copy", "Copy", "to_copy")),
     ("reduction", ("reduce", "Reduce", "norm", "softmax", "Softmax")),

@@ -5,7 +5,12 @@ The three quirks that ``torch.optim.AdamW`` does not have:
 
 1. no bias correction: the update is ``m / (sqrt(v) + eps)`` from step 0;
 2. each parameter tensor's gradient is clipped to ``max_grad_norm`` by its
-   own norm, inside the step (:272-273);
+   own norm, inside the step (:272-273). As in the JAX package, whose model
+   keeps each layer's Q, K and V projections as ONE tensor [E, 3, H, D]
+   (``models/encoder.py:169-185``) and clips it by one norm
+   (``train/optimizer.py:78-91``), each layer's three
+   ``attention.self.{query,key,value}.weight`` tensors are clipped by their
+   joint norm, and so are the three biases (:func:`clip_groups`);
 3. the schedule multiplier is taken at the step count BEFORE the increment,
    so under a warmup schedule the first update has learning rate 0.
 
@@ -20,7 +25,8 @@ in float32 scalars, as the JAX package's traced schedule is.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, Optional, Tuple
+import re
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +76,20 @@ def decays(name: str, no_decay: Iterable[str] = ()) -> bool:
     return not any(s.lower() in lname for s in no_decay)
 
 
+_QKV = re.compile(r"(.*attention\.self\.)(?:query|key|value)\.(weight|bias)")
+
+
+def clip_groups(names: Iterable[str]) -> List[List[str]]:
+    """Parameter names grouped by the norm their gradients are clipped by:
+    each layer's query/key/value weights together, their biases together,
+    every other parameter alone."""
+    groups: Dict[object, List[str]] = {}
+    for k in names:
+        m = _QKV.fullmatch(k)
+        groups.setdefault(m.groups() if m else k, []).append(k)
+    return list(groups.values())
+
+
 class BertAdam:
     """BertAdam over ``named_params`` (unique parameters, as
     ``module.named_parameters()`` yields them)."""
@@ -84,6 +104,7 @@ class BertAdam:
         self.decay = {k: decays(k, cfg.no_decay) for k in self.params}
         frozen = cfg.frozen or ()
         self.frozen = {k: any(s in k for s in frozen) for k in self.params}
+        self.clip_groups = clip_groups(self.params)
 
     def lr(self) -> float:
         """The learning rate of the next update."""
@@ -94,11 +115,16 @@ class BertAdam:
         """One update from the parameters' ``.grad`` (None counts as zero)."""
         cfg = self.cfg
         lr_t = self.lr()
+        grads = {k: p.grad.float() if p.grad is not None else torch.zeros_like(self.m[k])
+                 for k, p in self.params.items()}
+        scale = {}
+        if cfg.max_grad_norm > 0:
+            for group in self.clip_groups:
+                norm = torch.sqrt(sum(torch.sum(grads[k] * grads[k]) for k in group))
+                s = torch.clamp(cfg.max_grad_norm / (norm + 1e-6), max=1.0)
+                scale.update((k, s) for k in group)
         for k, p in self.params.items():
-            g = p.grad.float() if p.grad is not None else torch.zeros_like(self.m[k])
-            if cfg.max_grad_norm > 0:
-                norm = torch.sqrt(torch.sum(g * g))
-                g = g * torch.clamp(cfg.max_grad_norm / (norm + 1e-6), max=1.0)
+            g = grads[k] * scale[k] if k in scale else grads[k]
             m, v = self.m[k], self.v[k]
             m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
             v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)

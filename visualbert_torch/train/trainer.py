@@ -3,8 +3,9 @@
 The JAX Trainer compiles forward, backward, microbatch accumulation and the
 BertAdam update into one XLA program; here the same step runs eagerly:
 ``Trainer.init_state()`` builds the weights from ``TrainConfig.seed`` and the
-optimizer state, ``Trainer.train_step(batch)`` runs one update. Parameters
-and moments are fp32; compute follows ``model.cfg.dtype``.
+optimizer state, ``Trainer.train_step(batch)`` runs one update and
+``Trainer.eval_step(batch)`` one forward without dropout. Parameters and
+moments are fp32; compute follows ``model.cfg.dtype``.
 
 Dropout seeds come from one ``torch.Generator`` seeded from
 ``TrainConfig.seed``: every dropout site draws a fresh int32 seed from it at
@@ -97,3 +98,9 @@ class Trainer:
                 metrics["skipped_nonfinite"] = torch.zeros((), device=self.device)
         self.step += 1
         return metrics
+
+    @torch.no_grad()
+    def eval_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """The model's outputs on ``batch`` with dropout off and no
+        gradients (JAX ``Trainer.eval_step_fn``)."""
+        return self.model(to_device(batch, self.device))

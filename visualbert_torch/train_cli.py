@@ -1,0 +1,53 @@
+"""Training CLI of the port (counterpart of ``visualbert_tpu/train_cli.py``;
+the reference's ``python train.py -config C -folder F``, train.py:64-87):
+
+    python -m visualbert_torch.train_cli --config configs/coco_pretrain.json \\
+        [--folder runs/x] [--task coco_pretrain] [--restore runs/x/ckpt]
+
+It trains on the CUDA card when there is one (the kernels), else on the CPU
+(their plain versions), and prints one JSON line at the end:
+{"task", "best_metric", "best_epoch", "epochs_run"}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="visualbert_torch trainer")
+    p.add_argument("--config", required=True, help="comment-tolerant JSON config")
+    p.add_argument("--folder", default=None, help="output folder override")
+    p.add_argument("--task", default=None, help="task override")
+    p.add_argument("--restore", default=None, help="checkpoint directory or file to restore")
+    p.add_argument("--eval_only", action="store_true", help="skip training, eval + dump predictions")
+    args = p.parse_args(argv)
+
+    from visualbert_torch.tasks import registry
+    from visualbert_torch.utils.config_io import load_task_config
+
+    cfg = load_task_config(
+        args.config,
+        overrides={
+            "folder": args.folder,
+            "task": args.task,
+            "restore_checkpoint": args.restore,
+            "eval_only": True if args.eval_only else None,
+        },
+    )
+    trainer, result = registry.run(cfg)
+    best = result.best_metric
+    print(json.dumps({
+        "task": cfg.task,
+        # strict JSON: tasks without an eval split track no best metric
+        "best_metric": best if math.isfinite(best) else None,
+        "best_epoch": result.best_epoch,
+        "epochs_run": result.epochs_run,
+    }), flush=True)
+    return trainer, result
+
+
+if __name__ == "__main__":
+    main()
