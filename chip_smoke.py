@@ -8,8 +8,8 @@ non-zero without printing the final line:
 
 1. needs a CUDA device (there is no CPU path); prints the card's name and
    power limit as nvidia-smi reports them;
-2. builds the CUDA kernels from visualbert_torch/csrc (nvcc, sm_90a) and
-   prints the build time;
+2. builds the CUDA kernels from visualbert_torch/csrc (nvcc, sm_90a, one
+   process a source, all at once) and prints the build time;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes of the main path: K3 (dropout mask, [128, 228, 768]) must equal
    its bit-exact twin; K1 and K2 (packed attention forward and backward,
@@ -17,29 +17,49 @@ non-zero without printing the final line:
    agree within a few bf16 ulps; K4, K5 and K6 (the fused MLM
    cross-entropy: forward, dx, d embedding and d bias) at N = 128 x 24 =
    3072 rows, H=768, V=30522, bf16, 15 % of labels -1 and a non-uniform
-   cotangent, within the limits below; kernel and plain times from CUDA
-   events;
+   cotangent; K7-K10 (residual add + LayerNorm, without and with dropout,
+   forward and backward) at the main path's N = 128 x 228 = 29,184 rows,
+   H=768, bf16, K9/K10 at rate 0.1, with K10's dropped positions equal to
+   the plain version's; all within the limits below. Kernel, plain and
+   library times come from CUDA events; each kernel's bound is computed
+   from these shapes;
 4. a 2-layer model with dropout off gives the same loss through the kernels
-   (K1/K2 attention, K4-K6 cross-entropy) as through the einsum attention
-   and the unfused decoder;
-5. drives the main path, the COCO-caption pretraining train step at
-   bert-base width and depth with the `model` block of
-   configs/coco_pretrain.json unchanged: random seeded weights, a synthetic
+   (K1/K2 attention, K4-K6 cross-entropy), through the kernels with the
+   fused LayerNorm (K7/K8) and through the einsum attention and the unfused
+   decoder;
+5. drives the main path as configs/coco_pretrain.json ships it: the
+   COCO-caption pretraining train step at bert-base width and depth with
+   the config's `model` block unchanged, random seeded weights, a synthetic
    batch of the config's 128 pairs x (128 text + 100 regions), dropout on,
    bf16 compute, fp32 parameters and BertAdam state with the pooler frozen,
    schedule "none", lr 1e-4, STEPS steps on one repeated batch. Losses must
-   be finite and fall, and every step must launch exactly 12 K1, 12 K2,
-   25 K3 and one each of K4, K5 and K6;
-6. runs the training CLI (`visualbert_torch.train_cli`) on
+   be finite and fall, and every step must launch exactly 12 K1, 12 K2, 25
+   K3 and one each of K4, K5 and K6, and no K7-K10;
+6. the same with `"use_fused_layer_norm": true` added to the block, this
+   slice's main path: every step launches 12 K1, 12 K2, 1 K3 (the
+   embeddings' dropout), one each of K4-K6, 24 K9 and 24 K10 and no K7/K8;
+   then one step of that model with both dropout rates 0 (the setting of
+   __graft_entry__.py's dry run): 24 K7, 24 K8, no K3, K9 or K10;
+7. runs the training CLI (`visualbert_torch.train_cli`) on
    configs/coco_pretrain.json with its data block swapped for a synthetic
    COCO set of CLI_EXAMPLES pairs and one epoch: 4 steps at the config's
    batch of 128, through the dataset, the Batcher, the fit loop and a
    checkpoint at the end of the epoch. Its losses must be finite, every step
    must launch each kernel as in phase 5, and the checkpoint must load back
-   into a fresh model bit for bit. The run's folder is a temporary
-   directory, removed at the end;
-7. prints the kernel table as one JSON line (launches from phase 5), then
-   {"ok": true, "device": {...}} as the last line.
+   into a fresh model bit for bit;
+8. runs VQA fine-tuning through the CLI: configs/vqa_finetune.json with its
+   data block swapped for VQA_EXAMPLES synthetic questions (80 % train, 20 %
+   eval) and `"use_fused_layer_norm": true` added to its model block, one
+   epoch at its batch of 64: 5 train steps, each 12 K1, 12 K2, 1 K3, 24 K9,
+   24 K10; 2 eval batches after the epoch and 2 more for the prediction
+   dump, each 12 K1 and 24 K7. Then `--eval_only --restore` of its
+   checkpoint must give the epoch's val_ metrics within 1e-6 and the same
+   vqa_predictions.json, one entry per eval question, launching only 2 x
+   (12 K1, 24 K7). The runs' folder is a temporary directory, removed at
+   the end;
+9. prints the kernel table as one JSON line (launches from phase 6: the
+   fused-LayerNorm main path's STEPS steps, and for K7/K8 its dropout-0
+   step), then {"ok": true, "device": {...}} as the last line.
 """
 
 import contextlib
@@ -55,11 +75,13 @@ import time
 
 STEPS = 10
 CLI_EXAMPLES = 512
+VQA_EXAMPLES = 400
 REPO = os.path.dirname(os.path.abspath(__file__))
+VQA_CONFIG = os.path.join(REPO, "configs", "vqa_finetune.json")
 # Tolerances. The kernels round unnormalised probabilities to bf16 where the
 # plain version rounds normalised ones, and sum in another order. Each limit
 # is about 4x the readings of H100 runs at these shapes (in brackets; K1/K2
-# at dropout 0 and 0.1).
+# at dropout 0 and 0.1; K7-K10 without and with dropout).
 OUT_TOL = 2e-2      # K1 out, max |kernel - plain| / max |plain|  [4.9e-3, 4.4e-3]
 DQKV_TOL = 6e-3     # K2 dqkv, same measure                       [1.5e-3, 1.4e-3]
 # the qkv-bias gradient is bf16: one ulp of its largest entry is 3.9e-3 of it
@@ -71,7 +93,13 @@ ARGMAX_MARGIN = 1e-3  # K4 argmax must equal the plain one where the plain top-2
 DX_TOL = 1.2e-2     # K5 dx (bf16), max |kernel - plain| / max |plain|  [2.8e-3]
 DE_TOL = 1.8e-2     # K6 d embedding (bf16), same measure         [4.4e-3]
 DBIAS_TOL = 2e-6    # K6 d bias (fp32), same measure              [4.3e-7]
-SLICE_REL_TOL = 2e-2  # kernel path vs einsum + unfused path loss, bf16 model
+# K7-K10 compute the same fp32 values in another order (rsqrtf, shuffle
+# sums) and round y, dx, dres to bf16 once
+LN_Y_TOL = 1e-2     # K7/K9 y, K8/K10 dx and dres (bf16), max |kernel - plain| / max |plain|
+                    #   [y 2.6e-3, 2.6e-3; dx, dres 1.8e-3, 1.9e-3]
+LN_STAT_TOL = 5e-7  # K7/K9 mu and rstd (fp32), absolute       [1.2e-7, 1.2e-7]
+LN_DW_TOL = 1.2e-6  # K8/K10 dscale, dbias (fp32), relative    [3.1e-7, 2.4e-7]
+SLICE_REL_TOL = 2e-2  # kernel paths vs einsum + unfused path loss, bf16 model
 
 KERNELS = (  # name, wrapper module, source, the TPU kernel it replaces
     ("packed_attention_fwd", "flash_attention", "flash_attention.cu", "visualbert_tpu/ops/flash_attention.py:249"),
@@ -80,8 +108,28 @@ KERNELS = (  # name, wrapper module, source, the TPU kernel it replaces
     ("mlm_xent_fwd", "mlm_xent", "mlm_xent.cu", "visualbert_tpu/ops/mlm_xent.py:52"),
     ("mlm_xent_dx", "mlm_xent", "mlm_xent.cu", "visualbert_tpu/ops/mlm_xent.py:145"),
     ("mlm_xent_de", "mlm_xent", "mlm_xent.cu", "visualbert_tpu/ops/mlm_xent.py:170"),
+    ("add_layer_norm_fwd", "layer_norm", "layer_norm.cu", "visualbert_tpu/ops/layer_norm.py:28"),
+    ("add_layer_norm_bwd", "layer_norm", "layer_norm.cu", "visualbert_tpu/ops/layer_norm.py:40"),
+    ("dropout_add_layer_norm_fwd", "layer_norm", "layer_norm.cu", "visualbert_tpu/ops/layer_norm.py:171"),
+    ("dropout_add_layer_norm_bwd", "layer_norm", "layer_norm.cu", "visualbert_tpu/ops/layer_norm.py:189"),
 )
-PER_STEP = (12, 12, 25, 1, 1, 1)  # launches of K1..K6 per train step
+# launches of K1..K10 per train step (12 layers) or eval batch
+PER_STEP = (12, 12, 25, 1, 1, 1, 0, 0, 0, 0)            # the config as shipped
+FUSED_PER_STEP = (12, 12, 1, 1, 1, 1, 0, 0, 24, 24)     # with use_fused_layer_norm
+NO_DROPOUT_PER_STEP = (12, 12, 0, 1, 1, 1, 24, 24, 0, 0)  # that, both dropout rates 0
+VQA_TRAIN_PER_STEP = (12, 12, 1, 0, 0, 0, 0, 0, 24, 24)
+VQA_EVAL_PER_BATCH = (12, 0, 0, 0, 0, 0, 24, 0, 0, 0)
+# the card's peaks (NVIDIA's H100 SXM data sheet, dense): a kernel's bound is
+# the larger of its bytes over the memory rate and its operations over the
+# peak rate of their type
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12      # outside the tensor cores
+# fp32 operations per element of K7-K10 (add, two-pass statistics, affine;
+# the backward's recompute, the two row means and the parameter sums;
+# dropout's division and select)
+LN_OPS = {"add_layer_norm_fwd": 9, "dropout_add_layer_norm_fwd": 11,
+          "add_layer_norm_bwd": 16, "dropout_add_layer_norm_bwd": 19}
 
 
 def log(msg):
@@ -123,6 +171,23 @@ def rel_err(a, b):
     return float((a - b).abs().max()), float((a - b).abs().max() / b.abs().max().clamp_min(1e-6))
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved_bytes, ops, peak):
+    """The least time the card could take: bytes over the memory rate or
+    operations over their peak rate, whichever is larger (ms, and which)."""
+    t_bytes, t_ops = moved_bytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def row_line(name, r, card):
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    return (f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib}, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of bound  [{card}]")
+
+
 def check_kernels(torch, card):
     import numpy as np
 
@@ -151,7 +216,11 @@ def check_kernels(torch, card):
         f"new seed new mask {differ}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
     if err != 0 or abs(keep - (1 - rate)) > 4 * sigma or not same or not differ:
         raise SystemExit("K3 disagrees with its plain version")
-    rows["dropout_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # the library's Bernoulli draw of the same int8 mask; the bound counts the
+    # mask's bytes only (Philox is integer work, with no peak rate to set)
+    lib_ms = cuda_time_ms(lambda: torch.empty(shape, dtype=torch.int8, device=dev).bernoulli_(1 - rate), 50)
+    rows["dropout_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                **bound(nbytes(got), 0, BF16_FLOPS))
 
     # K1, K2: packed attention at the main path's shapes, padded keys
     H, D, T = 12, 64, TT + TV
@@ -193,14 +262,31 @@ def check_kernels(torch, card):
     # without dropout: what Philox costs inside K1/K2
     k1_ms0 = cuda_time_ms(lambda: fa.packed_attention_fwd(qkv, qb, key_bias, H, 0.0, 5), 20)
     k2_ms0 = cuda_time_ms(lambda: fa.packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, H, 0.0, 5), 20)
+    # the library yardstick: scaled_dot_product_attention on [B, H, T, D]
+    # views of the same biased qkv, the key bias as its mask, the same rate
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = ((qkv + qb).view(B, T, H, 3, D).unbind(3))  # head-major [h, (q, k, v), d]
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    attn_mask = key_bias.to(torch.bfloat16)[:, None, None, :]
+    with torch.no_grad():
+        k1["library_ms"] = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=attn_mask, dropout_p=rate), 20)
+    leaves = [t.detach().contiguous().requires_grad_(True) for t in (q, k, v)]
+    o = sdpa(*leaves, attn_mask=attn_mask, dropout_p=rate)
+    dout4 = dout.view(B, T, H, D).transpose(1, 2)
+    k2["library_ms"] = cuda_time_ms(lambda: torch.autograd.grad(o, leaves, dout4, retain_graph=True), 20)
+    del q, k, v, leaves, o
     # useful FLOPs: QK^T and PV forward; the backward's dV, dP, dQ, dK (its
     # S recomputations, one per pass, are extra work not counted here)
     gflop = 2.0 * B * H * T * T * D / 1e9
+    k1.update(bound(nbytes(qkv, qb, key_bias, out, stats), 2 * gflop * 1e9, BF16_FLOPS))
+    k2.update(bound(nbytes(qkv, qb, key_bias, dout, out, stats, dqkv, dqb), 4 * gflop * 1e9, BF16_FLOPS))
     for name, k, n_mm, ms0 in (("packed_attention_fwd", k1, 2, k1_ms0), ("packed_attention_bwd", k2, 4, k2_ms0)):
         log(f"{name} [{B}, {T}, {F}] dropout {rate}: kernel {k['ms']:.4f} ms "
             f"({n_mm * gflop / k['ms']:.1f} TFLOP/s useful), plain {k['plain_ms']:.4f} ms; "
             f"dropout 0: kernel {ms0:.4f} ms  [{card}]")
     rows["packed_attention_fwd"], rows["packed_attention_bwd"] = k1, k2
+    for name in ("dropout_mask", "packed_attention_fwd", "packed_attention_bwd"):
+        log(row_line(name, rows[name], card))
     return rows
 
 
@@ -265,16 +351,101 @@ def check_xent(torch, card):
                             plain_ms=cuda_time_ms(lambda: xe.mlm_xent_de_reference(x, emb, bias, lab, lse, g), 3)),
     }
     gflop = 2.0 * N * V * H / 1e9  # one N x V x H product
+    moved = {"mlm_xent_fwd": nbytes(x, emb, bias, lab, nll, lse, am),
+             "mlm_xent_dx": nbytes(x, emb, bias, lab, lse, g, dx),
+             "mlm_xent_de": nbytes(x, emb, bias, lab, lse, g, de, db)}
     for name, r in rows.items():
-        log(f"{name} [{N}, {H}] x [{V}, {H}]: kernel {r['ms']:.4f} ms ({r.pop('n_mm') * gflop / r['ms']:.1f} "
+        n_mm = r.pop("n_mm")
+        # no single PyTorch call computes a fused cross-entropy's pieces
+        r.update(library_ms=None, **bound(moved[name], n_mm * gflop * 1e9, BF16_FLOPS))
+        log(f"{name} [{N}, {H}] x [{V}, {H}]: kernel {r['ms']:.4f} ms ({n_mm * gflop / r['ms']:.1f} "
             f"TFLOP/s in its products), plain {r['plain_ms']:.4f} ms  [{card}]")
+        log(row_line(name, r, card))
+    return rows
+
+
+def check_layer_norm(torch, card):
+    """K7-K10 against their plain versions at the main path's rows: y and
+    dx/dres by max |kernel - plain| / max |plain|, mu/rstd by absolute
+    error, dscale/dbias by relative error; K10's dropped positions must be
+    the plain version's exactly (the same Philox bits). The library
+    yardstick is F.layer_norm on the precomputed bf16 sum and its autograd
+    backward; K9/K10 have no single-call counterpart."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from visualbert_torch.ops import layer_norm as ln
+    from visualbert_torch.tools.main_path import B, TT, TV
+
+    N, H, rate, seed, eps = B * (TT + TV), 768, 0.1, 4321, 1e-12
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(2)
+    x, res, dy = (torch.tensor(rng.randn(N, H), dtype=torch.bfloat16, device=dev) for _ in range(3))
+    scale = torch.tensor(1.0 + 0.1 * rng.randn(H), dtype=torch.float32, device=dev)
+    bias = torch.tensor(0.1 * rng.randn(H), dtype=torch.float32, device=dev)
+    drop = (rate, seed)
+    rows = {}
+    for fwd, bwd, args in (("add_layer_norm_fwd", "add_layer_norm_bwd", ()),
+                           ("dropout_add_layer_norm_fwd", "dropout_add_layer_norm_bwd", drop)):
+        y, mu, rstd = getattr(ln, fwd)(x, res, scale, bias, *args)
+        y_r, mu_r, rstd_r = getattr(ln, fwd + "_reference")(x, res, scale, bias, *args)
+        # the backward of both sides gets the plain mu and rstd
+        grads = getattr(ln, bwd)(x, res, scale, mu_r, rstd_r, dy, *args)
+        grads_r = getattr(ln, bwd + "_reference")(x, res, scale, mu_r, rstd_r, dy, *args)
+        torch.cuda.synchronize()
+        e_y, r_y = rel_err(y, y_r)
+        e_st = max(float((mu - mu_r).abs().max()), float((rstd - rstd_r).abs().max()))
+        errs = [rel_err(a, b) for a, b in zip(grads, grads_r)]  # dx, (dres,) dscale, dbias
+        r_d = max(r for _, r in errs[:-2])
+        r_w = max(r for _, r in errs[-2:])
+        log(f"{fwd} [{N}, {H}] bf16{' rate %g' % rate if args else ''}: y max_abs_err {e_y:.3e} "
+            f"(rel {r_y:.3e}, tol {LN_Y_TOL}); mu, rstd max_abs_err {e_st:.3e} (tol {LN_STAT_TOL})")
+        log(f"{bwd}: dx{', dres' if args else ''} rel {r_d:.3e} (tol {LN_Y_TOL}); dscale, dbias rel {r_w:.3e} "
+            f"(tol {LN_DW_TOL})")
+        if not (r_y <= LN_Y_TOL and e_st <= LN_STAT_TOL and r_d <= LN_Y_TOL and r_w <= LN_DW_TOL):
+            raise SystemExit(f"{fwd}/{bwd} disagree with their plain versions")
+        if args:
+            dropped, dropped_r = grads[0] == 0, grads_r[0] == 0
+            same = torch.equal(dropped, dropped_r)
+            share = float(dropped_r.float().mean())
+            log(f"{bwd}: dx zero at the plain version's dropped positions exactly: {same} "
+                f"(dropped share {share:.6f}, rate {rate})")
+            if not same:
+                raise SystemExit("K10's dropout mask differs from the plain version's")
+        rows[fwd] = dict(max_abs_err=max(e_y, e_st),
+                         **bound(nbytes(x, res, scale, bias, y, mu, rstd), LN_OPS[fwd] * N * H, FP32_FLOPS))
+        rows[bwd] = dict(max_abs_err=max(e for e, _ in errs),
+                         **bound(nbytes(x, res, scale, mu, rstd, dy, *grads), LN_OPS[bwd] * N * H, FP32_FLOPS))
+        del y_r, grads_r
+
+    # times at the main path's rows; the backward timings reuse K9's mu, rstd
+    fns = {
+        "add_layer_norm_fwd": lambda f: f(x, res, scale, bias),
+        "add_layer_norm_bwd": lambda f: f(x, res, scale, mu, rstd, dy),
+        "dropout_add_layer_norm_fwd": lambda f: f(x, res, scale, bias, *drop),
+        "dropout_add_layer_norm_bwd": lambda f: f(x, res, scale, mu, rstd, dy, *drop),
+    }
+    for name, call in fns.items():
+        rows[name]["ms"] = cuda_time_ms(lambda: call(getattr(ln, name)), 50)
+        rows[name]["plain_ms"] = cuda_time_ms(lambda: call(getattr(ln, name + "_reference")), 5)
+    s = x + res
+    w16, b16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+    rows["add_layer_norm_fwd"]["library_ms"] = cuda_time_ms(lambda: F.layer_norm(s, (H,), w16, b16, eps), 50)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (s, w16, b16)]
+    yl = F.layer_norm(leaves[0], (H,), leaves[1], leaves[2], eps)
+    rows["add_layer_norm_bwd"]["library_ms"] = cuda_time_ms(
+        lambda: torch.autograd.grad(yl, leaves, dy, retain_graph=True), 50)
+    rows["dropout_add_layer_norm_fwd"]["library_ms"] = rows["dropout_add_layer_norm_bwd"]["library_ms"] = None
+    for name, r in rows.items():
+        log(row_line(name, r, card))
     return rows
 
 
 def check_slice_reference(torch, model_block):
-    """The kernel path (K1/K2 attention, K4-K6 cross-entropy) vs the einsum
-    attention and the unfused decoder on the same 2-layer bert-base-wide
-    weights, dropout off: the losses must agree."""
+    """The kernel path (K1/K2 attention, K4-K6 cross-entropy), the same with
+    the fused LayerNorm (K7/K8, dropout off) and the einsum attention with
+    the unfused decoder and eager LayerNorm, on the same 2-layer
+    bert-base-wide weights, dropout off: the losses must agree."""
     from visualbert_torch.config import VisualBertConfig
     from visualbert_torch.models.visualbert import VisualBertForTask
     from visualbert_torch.tools.synth import synth_batch
@@ -282,25 +453,35 @@ def check_slice_reference(torch, model_block):
 
     cfg = VisualBertConfig.from_dict(model_block).replace(num_hidden_layers=2)
     batch = to_device(synth_batch(8, seed=3), "cuda")
+    paths = {"kernel path": dict(use_flash_attention=True, fused_mlm_xent=True, use_fused_layer_norm=False),
+             "kernel path with fused LayerNorm": dict(use_flash_attention=True, fused_mlm_xent=True,
+                                                      use_fused_layer_norm=True),
+             "einsum + unfused path": dict(use_flash_attention=False, fused_mlm_xent=False,
+                                           use_fused_layer_norm=False)}
     losses = {}
-    for kernels in (True, False):
-        m = VisualBertForTask(cfg.replace(use_flash_attention=kernels, fused_mlm_xent=kernels), "pretraining")
+    for name, flags in paths.items():
+        m = VisualBertForTask(cfg.replace(**flags), "pretraining")
         m.init_weights(torch.Generator().manual_seed(5)).to("cuda")
         with torch.no_grad():
             out = m(batch)
-        losses[kernels] = (float(out["loss"]), float(out["masked_lm_loss"]))
-    rel = [abs(a - b) / abs(b) for a, b in zip(losses[True], losses[False])]
-    log(f"slice reference (2 layers, B=8, dropout off): kernel path loss {losses[True][0]:.6f} "
-        f"(MLM {losses[True][1]:.6f}), einsum + unfused path loss {losses[False][0]:.6f} "
-        f"(MLM {losses[False][1]:.6f}), rel diff {rel[0]:.2e} / {rel[1]:.2e} (tol {SLICE_REL_TOL})")
-    if not max(rel) <= SLICE_REL_TOL:
-        raise SystemExit("kernel path and einsum + unfused path disagree")
+        losses[name] = (float(out["loss"]), float(out["masked_lm_loss"]))
+    want = losses["einsum + unfused path"]
+    worst = 0.0
+    for name, got in losses.items():
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        worst = max(worst, *rel)
+        log(f"slice reference (2 layers, B=8, dropout off): {name} loss {got[0]:.6f} (MLM {got[1]:.6f}), "
+            f"rel diff to the einsum + unfused path {rel[0]:.2e} / {rel[1]:.2e} (tol {SLICE_REL_TOL})")
+    if not worst <= SLICE_REL_TOL:
+        raise SystemExit("the kernel paths and the einsum + unfused path disagree")
 
 
-def run_slice(torch, model_block, card):
+def run_slice(torch, block, card, per_step, what):
+    """STEPS train steps of the main path built from ``block``; returns the
+    launches of K1..K10 and the step's median time, pairs/s and peak memory."""
     from visualbert_torch.tools.main_path import B, build
 
-    trainer, batch = build(model_block)
+    trainer, batch = build(block)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -316,19 +497,36 @@ def run_slice(torch, model_block, card):
     launches = read_launches()
 
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    log(f"slice losses ({STEPS} steps, one repeated batch): " + ", ".join(f"{x:.5f}" for x in losses))
-    log(f"slice launches over {STEPS} steps: "
+    log(f"{what}: losses ({STEPS} steps, one repeated batch): " + ", ".join(f"{x:.5f}" for x in losses))
+    log(f"{what}: launches over {STEPS} steps: "
         + ", ".join(f"K{i + 1} {n} ({n / STEPS:g}/step)" for i, n in enumerate(launches))
-        + f"; want {'/'.join(map(str, PER_STEP))} per step")
+        + f"; want {'/'.join(map(str, per_step))} per step")
     med = statistics.median(times[1:])
-    log(f"slice step time: median {med * 1e3:.2f} ms over steps 2..{STEPS} (first step {times[0] * 1e3:.1f} ms), "
+    log(f"{what}: step time median {med * 1e3:.2f} ms over steps 2..{STEPS} (first step {times[0] * 1e3:.1f} ms), "
         f"{B / med:.1f} pairs/s, peak memory {peak_gb:.2f} GiB  [{card}]")
     if not all(math.isfinite(x) for x in losses):
-        raise SystemExit("non-finite loss")
+        raise SystemExit(f"{what}: non-finite loss")
     if not losses[-1] < losses[0]:
-        raise SystemExit("loss did not fall on the repeated batch")
-    if launches != [n * STEPS for n in PER_STEP]:
-        raise SystemExit(f"unexpected kernel launch counts {launches}")
+        raise SystemExit(f"{what}: loss did not fall on the repeated batch")
+    if launches != [n * STEPS for n in per_step]:
+        raise SystemExit(f"{what}: unexpected kernel launch counts {launches}")
+    return launches, dict(median_ms=med * 1e3, pairs_per_s=B / med, peak_gib=peak_gb)
+
+
+def run_step_without_dropout(torch, block):
+    """One train step of the main path built from ``block`` with both
+    dropout rates 0: the fused LayerNorm runs as K7/K8."""
+    from visualbert_torch.tools.main_path import build
+
+    trainer, batch = build(dict(block, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
+    zero_launches()
+    loss = float(trainer.train_step(batch)["loss"])
+    launches = read_launches()
+    log("main path, dropout 0, one step: loss %.5f; launches " % loss
+        + ", ".join(f"K{i + 1} {n}" for i, n in enumerate(launches))
+        + f"; want {'/'.join(map(str, NO_DROPOUT_PER_STEP))}")
+    if not math.isfinite(loss) or launches != list(NO_DROPOUT_PER_STEP):
+        raise SystemExit(f"the dropout-0 step: loss {loss}, launches {launches}")
     return launches
 
 
@@ -388,6 +586,75 @@ def run_cli(torch, card):
         shutil.rmtree(folder, ignore_errors=True)
 
 
+def run_vqa_cli(torch, card):
+    """VQA fine-tuning through the CLI on a synthetic set, with the model,
+    optimizer and train blocks of configs/vqa_finetune.json and the fused
+    LayerNorm on; then --eval_only of its checkpoint."""
+    from visualbert_torch import train_cli
+    from visualbert_torch.utils.config_io import load_config_file
+
+    raw = load_config_file(VQA_CONFIG)
+    raw["data"] = {"synthetic": VQA_EXAMPLES, "max_seq_length": 128, "max_regions": 100}
+    raw["model"] = dict(raw["model"], use_fused_layer_norm=True)
+    raw["train"] = dict(raw["train"], num_train_epochs=1)
+    n_train = int(VQA_EXAMPLES * 0.8)
+    steps = n_train // raw["train"]["train_batch_size"]
+    eval_batches = -(-(VQA_EXAMPLES - n_train) // raw["train"]["eval_batch_size"])
+    folder = tempfile.mkdtemp(prefix="chip_smoke_vqa_")
+    try:
+        path = os.path.join(folder, "vqa_synthetic.json")
+        with open(path, "w") as f:
+            json.dump(raw, f)
+        run = os.path.join(folder, "run")
+        out = io.StringIO()
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            trainer, result = train_cli.main(["--config", path, "--folder", run])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        epoch = result.history[0]
+        # the epoch's evaluation and the prediction dump after fit each run the eval split
+        want = [steps * a + 2 * eval_batches * b for a, b in zip(VQA_TRAIN_PER_STEP, VQA_EVAL_PER_BATCH)]
+        log(f"vqa cli: {out.getvalue().strip()}; {trainer.step} steps at batch {raw['train']['train_batch_size']} "
+            f"on {trainer.device}, {wall:.1f} s with set-up; epoch means: "
+            + ", ".join(f"{k} {v:.6f}" for k, v in sorted(epoch.items())))
+        log("vqa cli launches: " + ", ".join(f"K{i + 1} {n}" for i, n in enumerate(launches))
+            + f"; want {steps} x {'/'.join(map(str, VQA_TRAIN_PER_STEP))} (train steps) + 2 x {eval_batches} x "
+            + f"{'/'.join(map(str, VQA_EVAL_PER_BATCH))} (eval batches)")
+        if trainer.device.type != "cuda" or trainer.step != steps:
+            raise SystemExit(f"the VQA CLI ran {trainer.step} steps on {trainer.device}")
+        if not all(math.isfinite(v) for v in epoch.values()):
+            raise SystemExit("non-finite metric in the VQA CLI run")
+        if launches != want:
+            raise SystemExit(f"unexpected kernel launch counts in the VQA CLI run {launches}")
+        with open(os.path.join(run, "vqa_predictions.json")) as f:
+            preds = json.load(f)
+        if [p["question_id"] for p in preds] != list(range(n_train, VQA_EXAMPLES)):
+            raise SystemExit("vqa_predictions.json does not hold one entry per eval question")
+        del trainer, result
+        torch.cuda.empty_cache()
+
+        again = os.path.join(folder, "eval")
+        out = io.StringIO()
+        zero_launches()
+        with contextlib.redirect_stdout(out):
+            _, result = train_cli.main(["--config", path, "--folder", again, "--eval_only",
+                                        "--restore", os.path.join(run, "ckpt")])
+        launches = read_launches()
+        metrics = result.history[0]
+        diff = max(abs(metrics[k] - epoch["val_" + k]) for k in ("loss", "accuracy"))
+        with open(os.path.join(again, "vqa_predictions.json")) as f:
+            same_preds = json.load(f) == preds
+        log(f"vqa --eval_only: {out.getvalue().strip()}; " + ", ".join(f"{k} {v:.6f}" for k, v in metrics.items())
+            + f"; max |diff| to the epoch's val_ metrics {diff:.2e} (tol 1e-6); predictions equal: {same_preds} "
+            f"({len(preds)} questions); launches " + ", ".join(f"K{i + 1} {n}" for i, n in enumerate(launches)))
+        if diff > 1e-6 or not same_preds or launches != [eval_batches * b for b in VQA_EVAL_PER_BATCH]:
+            raise SystemExit("--eval_only does not reproduce the VQA run's evaluation")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -412,15 +679,28 @@ def main():
 
     rows = check_kernels(torch, card)
     rows.update(check_xent(torch, card))
+    rows.update(check_layer_norm(torch, card))
     torch.cuda.empty_cache()
 
     block = model_block()
+    fused = dict(block, use_fused_layer_norm=True)
     log(f"model block: {json.dumps(block)}")
     check_slice_reference(torch, block)
-    launches = run_slice(torch, block, card)
+    _, shipped = run_slice(torch, block, card, PER_STEP, "main path as shipped")
+    torch.cuda.empty_cache()
+    launches, fused_stats = run_slice(torch, fused, card, FUSED_PER_STEP, "main path, fused LayerNorm")
+    torch.cuda.empty_cache()
+    for what, r in (("as shipped", shipped), ("fused LayerNorm", fused_stats)):
+        log(f"main path {what}: median step {r['median_ms']:.2f} ms, {r['pairs_per_s']:.1f} pairs/s, "
+            f"peak memory {r['peak_gib']:.2f} GiB  [{card}]")
+    no_dropout = run_step_without_dropout(torch, fused)
     torch.cuda.empty_cache()
     run_cli(torch, card)
+    torch.cuda.empty_cache()
+    run_vqa_cli(torch, card)
 
+    # launches: the fused-LayerNorm main path's STEPS steps; K7/K8 from its dropout-0 step
+    launches[6:8] = no_dropout[6:8]
     table = [dict(name=name, route="cuda", source=f"visualbert_torch/csrc/{src}", replaces=replaces, launches=n,
                   **rows[name]) for (name, _, src, replaces), n in zip(KERNELS, launches)]
     print(json.dumps({"kernels": table}), flush=True)

@@ -70,7 +70,8 @@ def test_unknown_keys_raise_and_tpu_only_fields_are_skipped():
 def tiny_trainer(seed=0, cls=Trainer, **train):
     cfg = VisualBertConfig.from_dict(TINY_MODEL)
     opt = OptimizerConfig(learning_rate=1e-3, schedule="none", frozen=("pooler",))
-    return cls(VisualBertForTask(cfg, "pretraining"), opt, TrainConfig(seed=seed, log_every=1, **train)).init_state()
+    return cls(VisualBertForTask(cfg, "pretraining"), opt, TrainConfig(seed=seed, log_every=1, **train),
+               device="cpu").init_state()
 
 
 def tiny_batcher(n=16, batch=4):
@@ -150,7 +151,7 @@ def test_cli_trains_and_restore_resumes(tmp_path, capsys):
         "train": {"train_batch_size": 8, "num_train_epochs": 2, "steps_per_dispatch": 8, "log_every": 2,
                   "num_workers": 2},
     }))
-    trainer, result = main(["--config", str(config), "--folder", str(tmp_path / "run")])
+    trainer, result = main(["--config", str(config), "--folder", str(tmp_path / "run"), "--device", "cpu"])
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary == {"task": "coco_pretrain", "best_metric": None, "best_epoch": -1, "epochs_run": 2}
     assert trainer.step == 10 and all(np.isfinite(h["train_loss"]) for h in result.history)
@@ -159,8 +160,22 @@ def test_cli_trains_and_restore_resumes(tmp_path, capsys):
     assert (tmp_path / "run" / "run_0.log").read_text().count("epoch 1:") == 1
 
     resumed, _ = main(["--config", str(config), "--folder", str(tmp_path / "run2"),
-                       "--restore", str(tmp_path / "run" / "ckpt")])
+                       "--restore", str(tmp_path / "run" / "ckpt"), "--device", "cpu"])
     assert resumed.step == 20 and resumed.optimizer.step_count == 20
     assert sorted(os.listdir(tmp_path / "run2" / "ckpt")) == ["step_15.pt", "step_20.pt"]
     with pytest.raises(NotImplementedError, match="A7"):
-        main(["--config", str(config), "--folder", str(tmp_path / "run3"), "--restore", str(tmp_path / "x.th")])
+        main(["--config", str(config), "--folder", str(tmp_path / "run3"), "--restore", str(tmp_path / "x.th"),
+              "--device", "cpu"])
+
+
+def test_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path):
+    """There is no CUDA device here: without ``--device cpu`` the CLI exits
+    with an error that says so, before it builds anything."""
+    from visualbert_torch.train_cli import main
+
+    assert not torch.cuda.is_available()
+    for device in ([], ["--device", "cuda"]):
+        with pytest.raises(SystemExit) as exc:
+            main(["--config", os.path.join(REPO, "configs", "vqa_synth.json"), "--folder", str(tmp_path), *device])
+        assert "--device cpu" in str(exc.value.code)  # a message: the process exits with status 1
+    assert not os.listdir(tmp_path)

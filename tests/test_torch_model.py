@@ -185,9 +185,37 @@ def test_fused_xent_pretraining_matches_jax(rng):
         np.testing.assert_allclose(p.grad.numpy(), want[name], atol=ATOL, rtol=RTOL, err_msg=name)
 
 
+def test_fused_layer_norm_pretraining_matches_jax(rng):
+    """use_fused_layer_norm on, dropout off (the K7/K8 branch of every
+    sublayer epilogue): loss, outputs and every parameter gradient against
+    the JAX model with the flag on, its Pallas LayerNorm in interpret mode."""
+    jcfg, tcfg = configs(use_flash_attention=True, use_fused_layer_norm=True)
+    batch = make_batch(rng, alignment=True)
+    batch["example_weight"] = np.array([1.0, 1.0, 0.0], np.float32)
+    jm = JaxTask(jcfg, head_type="pretraining")
+    params = unbox(jm.init(jax.random.PRNGKey(4), batch)["params"])
+    jbatch = jax.tree.map(jnp.asarray, batch)
+
+    def loss_fn(p):
+        out = jm.apply({"params": p}, jbatch, deterministic=True)
+        return out["loss"], out
+
+    (_, out_j), grads_j = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    model = load_state(VisualBertForTask(tcfg, "pretraining"), export_state_dict(params, jcfg))
+    out_t = model(to_torch(batch))
+    out_t["loss"].backward()
+    for k in ("loss", "masked_lm_loss", "next_sentence_loss", "mlm_accuracy"):
+        assert_close(float(out_t[k].detach()), float(out_j[k]))
+    assert_close(out_t["logits"].detach().numpy(), out_j["logits"])
+    assert_close(out_t["seq_relationship_score"].detach().numpy(), out_j["seq_relationship_score"])
+    want = export_state_dict(grads_j, jcfg)
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name], atol=ATOL, rtol=RTOL, err_msg=name)
+
+
 def test_other_heads_are_not_ported_yet():
     _, tcfg = configs()
     with pytest.raises(NotImplementedError, match="A7"):
-        VisualBertForTask(tcfg, "vqa")
-    with pytest.raises(NotImplementedError, match="K7-K10"):
-        VisualBertForTask(tcfg.replace(use_fused_layer_norm=True), "pretraining")
+        VisualBertForTask(tcfg, "nlvr")
+    with pytest.raises(NotImplementedError, match="K13/K14"):
+        VisualBertForTask(tcfg.replace(flash_save_probs=True), "pretraining")

@@ -58,7 +58,7 @@ class VisualBertConfig:
     param_dtype: Any = torch.float32   # parameter dtype
     use_flash_attention: bool = False  # K1/K2 packed attention kernels
     packed_qkv: bool = True
-    use_fused_layer_norm: bool = False
+    use_fused_layer_norm: bool = False  # K7-K10 residual add + LayerNorm kernels
     flash_save_probs: bool = False
     fused_mlm_xent: bool = False
     fast_dropout: bool = False         # K3 mask-kernel dropout
@@ -109,7 +109,6 @@ class VisualBertConfig:
     def check_ported(self) -> None:
         """Raise for options whose kernels are not ported yet (ROADMAP.md B)."""
         todo = {
-            "use_fused_layer_norm": "the fused LayerNorm kernels (K7-K10)",
             "flash_save_probs": "the save-probs attention kernels (K13/K14)",
             "output_attention_weights": "attention-probability collection (probing)",
         }

@@ -1,13 +1,15 @@
-"""Masking and sequence assembly for COCO-caption pretraining: the part of
-``visualbert_tpu/data/masking.py`` that ``CocoCaptionsDataset`` uses, copied
-(importing the JAX package pulls in JAX).
+"""Masking, sequence assembly and answer scores: the part of
+``visualbert_tpu/data/masking.py`` that ``CocoCaptionsDataset`` and
+``VQADataset`` use, copied (importing the JAX package pulls in JAX).
 
   * ``random_word``: 15% MLM masking with the 80/10/10 mask/random/keep
     split and -1 labels elsewhere (reference ``fine_tuning.py:272-308``);
   * ``truncate_seq_pair``: longest-first pair truncation
     (``fine_tuning.py:624-637``);
   * ``assemble_pair``: ``[CLS] a [SEP] (b [SEP])`` with masks and segments
-    (``bert_data_utils.py:85-140``).
+    (``bert_data_utils.py:85-140``);
+  * ``compute_answer_scores``: VQA soft scores ``min(0.3 * count, 1)``
+    (``bert_data_utils.py:421-429``).
 
 Every function takes an explicit ``numpy.random.Generator``, so a (seed,
 epoch, index) key reproduces any example, bit for bit with the JAX package.
@@ -92,18 +94,21 @@ def assemble_pair(
     tokens_b: Optional[List[str]],
     tokenizer: BertTokenizer,
     max_seq_length: int,
-    lm_labels_a: List[int],
+    lm_labels_a: Optional[List[int]] = None,
     lm_labels_b: Optional[List[int]] = None,
 ) -> EncodedText:
     """``[CLS] a [SEP] (b [SEP])`` with zero-padding to max_seq_length; the
-    MLM labels of the special tokens are -1."""
+    MLM labels of the special tokens, and of a segment given none, are -1."""
     tokens = ["[CLS]"] + list(tokens_a) + ["[SEP]"]
     segments = [0] * len(tokens)
-    labels = [MLM_IGNORE] + list(lm_labels_a) + [MLM_IGNORE]
+    labels = [MLM_IGNORE]
+    labels += list(lm_labels_a) if lm_labels_a is not None else [MLM_IGNORE] * len(tokens_a)
+    labels += [MLM_IGNORE]
     if tokens_b:
         tokens += list(tokens_b) + ["[SEP]"]
         segments += [1] * (len(tokens_b) + 1)
-        labels += list(lm_labels_b) + [MLM_IGNORE]
+        labels += list(lm_labels_b) if lm_labels_b is not None else [MLM_IGNORE] * len(tokens_b)
+        labels += [MLM_IGNORE]
 
     ids = tokenizer.convert_tokens_to_ids(tokens)
     if len(ids) > max_seq_length:
@@ -120,3 +125,8 @@ def assemble_pair(
     input_mask[:n] = 1
     lm[:n] = labels
     return EncodedText(input_ids, segment_ids, input_mask, lm)
+
+
+def compute_answer_scores(counts: np.ndarray) -> np.ndarray:
+    """VQA soft score: min(0.3 * #annotators, 1.0)."""
+    return np.minimum(0.3 * counts.astype(np.float32), 1.0)

@@ -16,8 +16,11 @@ are cast to the compute dtype before PV.
 Dropout is on exactly when a ``torch.Generator`` is passed down: each
 dropout site draws its own int32 seed from it. With ``cfg.fast_dropout`` the
 hidden-state sites use the K3 mask kernel (``ops/dropout.py``); otherwise,
-and for attention probabilities on the einsum path, ``F.dropout`` (torch's
-own generator) as the JAX package uses ``nn.Dropout``.
+and for attention probabilities on the einsum path, :func:`seeded_dropout`
+(the JAX package's ``nn.Dropout``), whose mask comes from a generator on the
+tensor's device seeded from that int32, so a run repeats from its seed. With
+``cfg.use_fused_layer_norm`` the sublayer epilogue's dropout, add and
+LayerNorm run as one kernel (K9/K10, or K7/K8 without dropout).
 """
 
 from __future__ import annotations
@@ -32,7 +35,12 @@ from torch import nn
 from visualbert_torch.config import VisualBertConfig
 from visualbert_torch.ops.dropout import fast_dropout
 from visualbert_torch.ops.flash_attention import flash_attention_packed
-from visualbert_torch.ops.layer_norm import layer_norm_f32, reference_add_layer_norm
+from visualbert_torch.ops.layer_norm import (
+    fused_add_layer_norm,
+    fused_dropout_add_layer_norm,
+    layer_norm_f32,
+    reference_add_layer_norm,
+)
 
 NEG_INF = -10000.0  # reference mask value (modeling.py:1294), not -inf
 _TRUNC_STD = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
@@ -48,13 +56,23 @@ def draw_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2**31 - 1, (), generator=generator))
 
 
+def seeded_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``nn.Dropout``: ``where(keep, x / (1 - rate), 0)``, the keep mask drawn
+    from a generator on ``x``'s device seeded by ``draw_seed(generator)``."""
+    if generator is None or rate <= 0.0:
+        return x
+    g = torch.Generator(device=x.device).manual_seed(draw_seed(generator))
+    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
             cfg: VisualBertConfig) -> torch.Tensor:
     if generator is None or rate <= 0.0:
         return x
     if cfg.fast_dropout:
         return fast_dropout(x, rate, draw_seed(generator))
-    return F.dropout(x, rate, training=True)
+    return seeded_dropout(x, rate, generator)
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -115,7 +133,9 @@ class ResidualNorm(nn.Module):
     (reference modeling.py:271-276/312-318; HF ``BertSelfOutput``/``BertOutput``).
     Its ``dense`` is the attention's output projection (JAX ``OutProj``,
     which in the packed layout is a plain [H*D, E] product) or the FFN's
-    down projection."""
+    down projection. With ``use_fused_layer_norm`` the rest is one kernel,
+    dispatched as JAX ``encoder.py:339-354``: K9/K10 with dropout on, K7/K8
+    without (evaluation, or a rate of 0)."""
 
     def __init__(self, cfg: VisualBertConfig, in_features: int):
         super().__init__()
@@ -126,8 +146,14 @@ class ResidualNorm(nn.Module):
     def forward(self, x, res, generator=None):
         cfg = self.cfg
         x = linear(x, self.dense, cfg.dtype)
-        x = dropout(x, cfg.hidden_dropout_prob, generator, cfg)
-        return reference_add_layer_norm(x, res, self.LayerNorm.weight, self.LayerNorm.bias, cfg.layer_norm_eps)
+        scale, bias, eps = self.LayerNorm.weight, self.LayerNorm.bias, cfg.layer_norm_eps
+        rate = cfg.hidden_dropout_prob if generator is not None else 0.0
+        if cfg.use_fused_layer_norm:
+            if rate > 0.0:
+                return fused_dropout_add_layer_norm(x, res, scale, bias, draw_seed(generator), rate, eps)
+            return fused_add_layer_norm(x, res, scale, bias, eps)
+        x = dropout(x, rate, generator, cfg)
+        return reference_add_layer_norm(x, res, scale, bias, eps)
 
 
 class SelfAttention(nn.Module):
@@ -157,8 +183,7 @@ class SelfAttention(nn.Module):
             scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
             scores = scores * scale + attn_bias.float()
             probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
-            if rate > 0.0:
-                probs = F.dropout(probs, rate, training=True)
+            probs = seeded_dropout(probs, rate, generator)
             ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(*hidden.shape[:-1], H * D)
         return self.output(ctx, hidden, generator)
 

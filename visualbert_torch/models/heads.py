@@ -1,5 +1,6 @@
-"""Pretraining heads (counterpart of ``visualbert_tpu/models/heads.py``;
-reference modeling.py:389-452).
+"""Pretraining and classifier heads (counterpart of
+``visualbert_tpu/models/heads.py``; reference modeling.py:389-452,
+1355-1366).
 
 ``PreTrainingHeads`` is HF's ``cls``: ``predictions`` (the MLM transform,
 the decoder whose weight IS ``bert.embeddings.word_embeddings.weight``, and
@@ -9,6 +10,9 @@ the fused softmax cross-entropy (``ops/mlm_xent.py``, kernels K4-K6) and
 returns per-row nll and argmax, no logits (JAX ``heads.py:86-102``);
 otherwise the decoder runs the unfused path (``heads.py:104-113``):
 compute-dtype operands, fp32 accumulation and fp32 logits.
+
+``Classifier`` is the VQA head's ``classifier`` (JAX ``heads.py:144-163``):
+dropout, a dense layer in the compute dtype, fp32 logits.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from visualbert_torch.config import VisualBertConfig
-from visualbert_torch.models.encoder import linear
+from visualbert_torch.models.encoder import linear, seeded_dropout
 from visualbert_torch.ops.layer_norm import layer_norm_f32
 from visualbert_torch.ops.mlm_xent import mlm_xent
 
@@ -109,3 +113,18 @@ class PreTrainingHeads(nn.Module):
                                labels.reshape(-1))
             return None, nsp, nll.view(labels.shape), am.view(labels.shape)
         return self.predictions(sequence_output), nsp, None, None
+
+
+class Classifier(nn.Linear):
+    """Dropout + linear classifier over a pooled state (JAX ``Classifier``,
+    whose dropout is a stock ``nn.Dropout``: :func:`seeded_dropout` here,
+    never the K3 kernel). A ``nn.Linear`` itself, so its parameters carry
+    the HF names ``classifier.weight`` / ``classifier.bias``."""
+
+    def __init__(self, cfg: VisualBertConfig, num_classes: int):
+        super().__init__(cfg.hidden_size, num_classes)
+        self.cfg = cfg
+
+    def forward(self, pooled, generator=None):
+        x = seeded_dropout(pooled, self.cfg.hidden_dropout_prob, generator)
+        return linear(x, self, self.cfg.dtype).float()

@@ -1,4 +1,4 @@
-"""Losses of the pretraining branch (counterpart of
+"""Losses of the pretraining and VQA branches (counterpart of
 ``visualbert_tpu/models/losses.py``): fp32 logits in, fp32 scalars out."""
 
 from __future__ import annotations
@@ -18,3 +18,34 @@ def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor, ignor
     nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
     return nll.sum() / valid.sum().clamp_min(1)
 
+
+def weighted_mean(values: torch.Tensor, weights=None) -> torch.Tensor:
+    """Mean of per-example ``values`` under optional per-example ``weights``
+    (1.0 real / 0.0 tail-pad duplicate, ``Batcher(pad_final=True)``)."""
+    values = values.float()
+    if weights is None:
+        return values.mean()
+    w = weights.float()
+    return (values * w).sum() / w.sum().clamp_min(1e-12)
+
+
+def kl_div_batchmean(log_probs: torch.Tensor, target: torch.Tensor, weights=None) -> torch.Tensor:
+    """``torch.nn.KLDivLoss(reduction='batchmean')`` with the 0 * log(0) = 0
+    convention (reference modeling.py:1517-1521); ``weights`` turn the / B
+    into a weighted per-example mean."""
+    log_probs, target = log_probs.float(), target.float()
+    zero = torch.zeros((), device=target.device)
+    safe_log_t = torch.where(target > 0, torch.log(target.clamp_min(1e-30)), zero)
+    elt = torch.where(target > 0, target * (safe_log_t - log_probs), zero)
+    return weighted_mean(elt.reshape(elt.shape[0], -1).sum(dim=-1), weights)
+
+
+def vqa_accuracy_scores(logits: torch.Tensor, soft_labels: torch.Tensor) -> torch.Tensor:
+    """Reference ``compute_score_with_logits`` (modeling.py:1697-1703):
+    softmax, class 0 (<unk>) zeroed, renormalised, argmax, and the soft label
+    mass at the argmax; per-example scores."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    probs = torch.cat([torch.zeros_like(probs[:, :1]), probs[:, 1:]], dim=1)
+    probs = probs / probs.sum(dim=1, keepdim=True).clamp_min(1e-12)
+    pred = probs.argmax(dim=-1)
+    return soft_labels.float().gather(1, pred[:, None])[:, 0]

@@ -2,17 +2,25 @@
 ``visualbert_tpu/models/visualbert.py``; reference
 ``TrainVisualBERTObjective``, modeling.py:1335-1598).
 
-The port has the pretraining branch (modeling.py:1400-1500, JAX
-``visualbert.py:85-203``): MLM over the gathered ``mlm_positions`` plus the
-sentence-image alignment loss, through the fused MLM cross-entropy when
-``fused_mlm_xent`` is on (no ``logits`` in the output then). The other head
-types raise; ROADMAP.md A7 ports them.
+The port has two branches:
+
+* ``pretraining`` (modeling.py:1400-1500, JAX ``visualbert.py:85-203``): MLM
+  over the gathered ``mlm_positions`` plus the sentence-image alignment
+  loss, through the fused MLM cross-entropy when ``fused_mlm_xent`` is on
+  (no ``logits`` in the output then);
+* ``vqa`` (modeling.py:1502-1521, JAX ``visualbert.py:217-232``): the
+  classifier over the hidden state at ``sum(input_mask) - 2`` (the ``[MASK]``
+  slot), KL-divergence batchmean against the soft ``label`` scores and the
+  soft accuracy, both weighted by ``example_weight``.
+
+The other head types raise; ROADMAP.md A7 ports them.
 
 Batch keys (tensors): ``input_ids``/``token_type_ids``/``input_mask`` [B, Tt],
 ``visual_embeddings`` [B, Tv, Dv], ``image_mask``/``visual_embeddings_type``
 [B, Tv], ``image_text_alignment`` [B, Tv, A], ``masked_lm_labels`` [B, Tt]
 (-1 unmasked), ``mlm_positions`` [B, P], ``is_random_next`` [B],
-``example_weight`` [B]; [B, C, ...] choice stacks are flattened.
+``example_weight`` [B], ``label`` [B, num_answers] (vqa); [B, C, ...]
+choice stacks are flattened.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ from torch import nn
 from visualbert_torch.config import HEAD_TYPES, VisualBertConfig
 from visualbert_torch.models import losses
 from visualbert_torch.models.encoder import VisualBertModel, init_weights
-from visualbert_torch.models.heads import PreTrainingHeads
+from visualbert_torch.models.heads import Classifier, PreTrainingHeads
 
 
 def _flatten_choices(x: Optional[torch.Tensor], extra_dims: int = 1) -> Optional[torch.Tensor]:
@@ -54,20 +62,24 @@ class VisualBertForTask(nn.Module):
     a batch dict and an optional dropout generator (dropout on iff given)
     and returns a dict with ``loss`` and scalar metrics."""
 
-    def __init__(self, cfg: VisualBertConfig, head_type: str):
+    def __init__(self, cfg: VisualBertConfig, head_type: str, num_answers: int = 3129):
         super().__init__()
         if head_type not in HEAD_TYPES:
             raise ValueError(f"unknown head_type {head_type}")
-        if head_type != "pretraining":
+        if head_type not in ("pretraining", "vqa"):
             raise NotImplementedError(
                 f"head_type {head_type!r} is not ported yet (ROADMAP.md A7: fine-tune heads)"
             )
         self.cfg = cfg
         self.head_type = head_type
         self.bert = VisualBertModel(cfg)
-        self.cls = PreTrainingHeads(cfg)
-        # the tied MLM decoder (reference modeling.py:411-414)
-        self.cls.predictions.decoder.weight = self.bert.embeddings.word_embeddings.weight
+        if head_type == "pretraining":
+            self.cls = PreTrainingHeads(cfg)
+            # the tied MLM decoder (reference modeling.py:411-414)
+            self.cls.predictions.decoder.weight = self.bert.embeddings.word_embeddings.weight
+        else:
+            # the VQA classifier width (reference modeling.py:1362)
+            self.classifier = Classifier(cfg, num_answers)
 
     def init_weights(self, generator: torch.Generator) -> "VisualBertForTask":
         init_weights(self, self.cfg, generator)
@@ -100,6 +112,8 @@ class VisualBertForTask(nn.Module):
             input_ids, token_type_ids, attention_mask, visual_embeddings, visual_types,
             image_text_alignment, generator,
         )
+        if self.head_type == "vqa":
+            return self._vqa(batch, input_mask, sequence_output, example_weight, generator)
 
         out: Dict[str, torch.Tensor] = {}
         mlm_positions = batch.get("mlm_positions")
@@ -140,4 +154,17 @@ class VisualBertForTask(nn.Module):
             out["next_sentence_loss"] = nsp_loss
             total = total + nsp_loss
         out["loss"] = total
+        return out
+
+    def _vqa(self, batch, input_mask, sequence_output, example_weight, generator):
+        # pool at sum(input_mask) - 2, the [MASK] slot before the final [SEP]
+        # (reference modeling.py:1502-1515)
+        idx = (input_mask.sum(dim=1) - 2).long()
+        pooled = torch.gather(sequence_output, 1, idx[:, None, None].expand(-1, 1, sequence_output.shape[-1]))[:, 0]
+        logits = self.classifier(pooled, generator)
+        out: Dict[str, torch.Tensor] = {"logits": logits}
+        label = batch.get("label")
+        if label is not None:
+            out["loss"] = losses.kl_div_batchmean(torch.log_softmax(logits, dim=-1), label, example_weight)
+            out["accuracy"] = losses.weighted_mean(losses.vqa_accuracy_scores(logits, label), example_weight)
         return out

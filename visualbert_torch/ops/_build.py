@@ -44,6 +44,9 @@ _SIGNATURES = {
     "vb_xent_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "vb_xent_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "vb_xent_de": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "vb_ln_geometry": [_I],
+    "vb_ln_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _U, _U, _F, _P],
+    "vb_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _P],
 }
 
 

@@ -2,9 +2,11 @@
 (counterpart of ``visualbert_tpu/tasks/registry.py``; the reference's
 ``visualbert/models/train.py`` dataset dispatch, train.py:148-191).
 
-The port has ``coco_pretrain``; the other tasks wait for their heads and
-datasets (ROADMAP.md A7). A task supports ``data: {"synthetic": N}`` for
-smoke runs and real-data paths (documented per task).
+The port has ``coco_pretrain`` and ``vqa``; the other tasks wait for their
+heads and datasets (ROADMAP.md A7). A task supports ``data: {"synthetic":
+N}`` for smoke runs and real-data paths (documented per task). Every task
+runs on the device it is given: ``"cuda"`` for the kernels, ``"cpu"`` for
+their plain versions.
 """
 
 from __future__ import annotations
@@ -14,12 +16,13 @@ import json
 import os
 from typing import Callable, Dict
 
-import torch
+import numpy as np
 
 from visualbert_torch.data.pipeline import Batcher, prefetch
 from visualbert_torch.data.tokenization import BertTokenizer
 from visualbert_torch.models.visualbert import VisualBertForTask
-from visualbert_torch.train.loop import fit
+from visualbert_torch.train import loop
+from visualbert_torch.train.loop import FitResult, fit
 from visualbert_torch.train.trainer import Trainer
 from visualbert_torch.utils.checkpoint import CheckpointManager, load_trainer_state
 from visualbert_torch.utils.config_io import TaskConfig
@@ -54,10 +57,7 @@ def _tokenizer(cfg: TaskConfig) -> BertTokenizer:
     return BertTokenizer({w: i for i, w in enumerate(words)})
 
 
-def _trainer(cfg: TaskConfig, model) -> Trainer:
-    """A Trainer on the CUDA card when there is one, else on the CPU (where
-    every kernel runs its plain version)."""
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+def _trainer(cfg: TaskConfig, model, device) -> Trainer:
     return Trainer(model, cfg.optimizer, cfg.train, device=device)
 
 
@@ -83,27 +83,61 @@ def _restore(cfg: TaskConfig, trainer: Trainer) -> Trainer:
     return trainer
 
 
-def _run_fit(cfg: TaskConfig, trainer: Trainer, train_ds):
-    """Fit ``trainer`` on ``train_ds``, checkpointing into ``<folder>/ckpt``.
-    The port's one task has no eval split, so no eval Batcher is built."""
-    if cfg.eval_only:
-        raise NotImplementedError("eval_only runs the evaluate/dump hooks, not ported yet (ROADMAP.md A7)")
+def _run_fit(cfg: TaskConfig, trainer: Trainer, train_ds, eval_ds=None, dump_hook=None, val_metric="accuracy"):
+    """Fit ``trainer`` on ``train_ds``, evaluating ``eval_ds`` after each
+    epoch and checkpointing into ``<folder>/ckpt``; then, with a
+    ``dump_hook``, write the eval split's predictions (JAX
+    ``registry.py:100-148``). With ``eval_only``: restore, evaluate, dump."""
+    if cfg.eval_only and eval_ds is None:
+        raise ValueError(f"eval_only needs an eval split; task {cfg.task} has none")
     trainer.init_state()
     if cfg.restore_checkpoint:
         _restore(cfg, trainer)
     train_b = Batcher(train_ds, cfg.train.train_batch_size, seed=cfg.train.seed, num_workers=cfg.train.num_workers)
+    eval_b = None
+    if eval_ds is not None:
+        eval_b = Batcher(eval_ds, cfg.train.eval_batch_size, shuffle=False, seed=cfg.train.seed, drop_last=False,
+                         pad_final=True, num_workers=cfg.train.num_workers)
     try:
-        result = fit(trainer, lambda e: prefetch(train_b.epoch(e)), checkpoint_dir=os.path.join(cfg.folder, "ckpt"))
+        if cfg.eval_only:
+            metrics = evaluate(trainer, eval_b, dump_hook, cfg.folder)
+            return trainer, FitResult(best_metric=metrics.get(val_metric, float("nan")), best_epoch=-1,
+                                      epochs_run=0, history=[metrics])
+        result = fit(trainer, lambda e: prefetch(train_b.epoch(e)),
+                     (lambda: eval_b.epoch(0)) if eval_b is not None else None,
+                     checkpoint_dir=os.path.join(cfg.folder, "ckpt"), val_metric=val_metric)
+        if dump_hook is not None and eval_b is not None:
+            evaluate(trainer, eval_b, dump_hook, cfg.folder)
     finally:
         train_b.close()
+        if eval_b is not None:
+            eval_b.close()
     return trainer, result
+
+
+def evaluate(trainer: Trainer, eval_b: Batcher, dump_hook, folder: str) -> Dict[str, float]:
+    """Run the eval split once: the scalar metrics, and every (batch,
+    outputs) pair, outputs as numpy, handed to ``dump_hook(collected,
+    folder)`` for the prediction files (JAX ``registry.py:151-215``, one
+    process)."""
+    collected = []
+
+    def collect(batch, out):
+        if dump_hook is not None:
+            collected.append((batch, {k: v.detach().cpu().numpy() for k, v in out.items() if v is not None}))
+
+    metrics = loop.evaluate(trainer, eval_b.epoch(0), collect)
+    if dump_hook is not None:
+        metrics.update(dump_hook(collected, folder) or {})
+    log.info("eval: %s", {k: round(v, 4) for k, v in metrics.items()})
+    return metrics
 
 
 # ---- tasks ----
 
 
 @register("coco_pretrain")
-def run_coco_pretrain(cfg: TaskConfig):
+def run_coco_pretrain(cfg: TaskConfig, device):
     """COCO-caption MLM + sentence-image alignment pretraining. Real data:
     ``annotations`` (a json list of {"image_id", "captions"}), region
     features in ``features_dir`` (``<image_id>.npy``) and ``vocab_file``."""
@@ -129,18 +163,76 @@ def run_coco_pretrain(cfg: TaskConfig):
     )
     model = VisualBertForTask(cfg.model, head_type="pretraining")
     cfg = _default_frozen_pooler(cfg)
-    return _run_fit(cfg, _trainer(cfg, model), ds)
+    return _run_fit(cfg, _trainer(cfg, model, device), ds)
 
 
-def run(cfg: TaskConfig):
-    """Run ``cfg.task``; returns (trainer, FitResult). Logs are teed into
-    ``run_N.log`` in the run folder."""
+@register("vqa")
+def run_vqa(cfg: TaskConfig, device):
+    """VQA fine-tuning with the soft-score classifier. Synthetic data is
+    split 80/20 into train and eval; real data: ``train_annotations`` and
+    ``eval_annotations`` (imdb-style json lists), region features in
+    ``features_dir`` (``<image_id>.npy``), ``answer_vocab`` (one answer a
+    line, or a json list) and ``vocab_file``. Each evaluation writes
+    ``vqa_predictions.json`` ([{"question_id", "answer"}]) into the run
+    folder after training, or alone with ``eval_only``."""
+    from visualbert_torch.data.datasets import vqa as vqa_ds
+
+    tok = _tokenizer(cfg)
+    d = cfg.data
+    if "synthetic" in d:
+        ann, feats, vocab = vqa_ds.make_synthetic(int(d["synthetic"]), tok, n_answers=int(d.get("n_answers", 16)),
+                                                  feat_dim=cfg.model.visual_embedding_dim)
+        split = int(len(ann) * 0.8)
+        train_ann, eval_ann = ann[:split], ann[split:]
+    else:
+        if "features_h5" in d:
+            raise NotImplementedError("HDF5 features are not ported (no h5py on the card's machine; ROADMAP.md A7)")
+        from visualbert_torch.data.features import NpyFolderFeatures
+
+        with open(d["train_annotations"]) as f:
+            train_ann = json.load(f)
+        with open(d["eval_annotations"]) as f:
+            eval_ann = json.load(f)
+        feats = NpyFolderFeatures(d["features_dir"])
+        vocab = vqa_ds.AnswerVocab.from_file(d["answer_vocab"])
+
+    def mk(ann):
+        return vqa_ds.VQADataset(ann, feats, tok, vocab, max_seq_length=int(d.get("max_seq_length", 128)),
+                                 max_regions=int(d.get("max_regions", 100)))
+
+    model = VisualBertForTask(cfg.model, head_type="vqa", num_answers=len(vocab))
+    return _run_fit(cfg, _trainer(cfg, model, device), mk(train_ann), mk(eval_ann), dump_hook=vqa_dump_hook(vocab))
+
+
+def vqa_dump_hook(vocab):
+    """The dump hook of ``vqa``: ``vqa_predictions.json``, the leaderboard
+    json (reference vqa_dataset.py:290-302), one entry a question. The
+    repeated tail rows of the last eval batch are not questions and are
+    left out (the JAX hook writes them too)."""
+    from visualbert_torch.data.datasets.vqa import VQAEvaluator
+
+    def dump(collected, folder):
+        qids, logits = [], []
+        for batch, out in collected:
+            n = int(batch.get("_real_count", len(batch["question_id"])))
+            qids.extend(int(q) for q in batch["question_id"][:n])
+            logits.append(np.asarray(out["logits"][:n], np.float32))
+        if logits:
+            VQAEvaluator(vocab).dump(qids, np.concatenate(logits), os.path.join(folder, "vqa_predictions.json"))
+        return {}
+
+    return dump
+
+
+def run(cfg: TaskConfig, device):
+    """Run ``cfg.task`` on ``device``; returns (trainer, FitResult). Logs are
+    teed into ``run_N.log`` in the run folder."""
     if cfg.task not in TASKS:
         raise KeyError(f"unknown task {cfg.task}; the port has {sorted(TASKS)} (ROADMAP.md A7 for the others)")
     handler = add_run_folder(cfg.folder)
     try:
-        log.info("running task %s -> %s", cfg.task, cfg.folder)
-        return TASKS[cfg.task](cfg)
+        log.info("running task %s on %s -> %s", cfg.task, device, cfg.folder)
+        return TASKS[cfg.task](cfg, device)
     finally:
         get_logger().removeHandler(handler)
         handler.close()

@@ -8,7 +8,9 @@ dropout on, BertAdam), warms up, then runs STEPS
 train steps under ``torch.profiler`` and prints, per step: host
 wall time, device busy time (union of kernel intervals), the device's idle
 share, and device time by kernel group and by kernel; then the optimizer
-step alone, timed with CUDA events.
+step alone, timed with CUDA events. It does so twice: for the block as the
+config ships it and with ``"use_fused_layer_norm": true`` (K9/K10), each
+ending in one JSON line.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ GROUPS = (
     ("K4 xent fwd", ("xent_fwd",)),
     ("K5 xent dx", ("xent_dx",)),
     ("K6 xent dE", ("xent_de_kernel",)),
+    ("K7/K9 LayerNorm fwd", ("ln_fwd_kernel",)),
+    ("K8/K10 LayerNorm bwd", ("ln_bwd",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "sm80_", "cublas")),
     ("copy / cast", ("copy", "Copy", "to_copy")),
     ("reduction", ("reduce", "Reduce", "norm", "softmax", "Softmax")),
@@ -76,7 +80,15 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
     card = main_path.card_line()
-    trainer, batch = main_path.build(main_path.model_block())
+    block = main_path.model_block()
+    for what, b in (("as shipped", block), ("fused LayerNorm", dict(block, use_fused_layer_norm=True))):
+        print(f"== main path, {what}: {json.dumps(b)}")
+        profile(card, b)
+        torch.cuda.empty_cache()
+
+
+def profile(card, block):
+    trainer, batch = main_path.build(block)
     opt_step = trainer.optimizer.step
 
     def step_in_range():
@@ -121,6 +133,7 @@ def main():
     busy_ms = busy_us(ivs) / 1e3 / n
     summary = {
         "card": card,
+        "model_block": block,
         "batch": len(batch["input_ids"]),
         "steps": n,
         "wall_ms_per_step": wall_ms,

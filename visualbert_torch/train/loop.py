@@ -70,6 +70,20 @@ def _example_count(batch) -> float:
     return float(_batch_size(batch))
 
 
+def evaluate(trainer: Trainer, batches: Iterable[Dict[str, np.ndarray]],
+             collect: Optional[Callable[[Dict, Dict], None]] = None) -> Dict[str, float]:
+    """The split-level means of ``trainer.eval_step``'s scalar outputs over
+    ``batches``, each batch weighted by its real example count;
+    ``collect(batch, outputs)`` sees every batch and its outputs."""
+    acc = MetricAccumulator()
+    for batch in batches:
+        out = trainer.eval_step(batch)
+        acc.update({k: v for k, v in out.items() if torch.is_tensor(v) and v.dim() == 0}, _example_count(batch))
+        if collect is not None:
+            collect(batch, out)
+    return acc.means()
+
+
 def fit(
     trainer: Trainer,
     train_data: Callable[[int], Iterable[Dict[str, np.ndarray]]],
@@ -93,12 +107,7 @@ def fit(
         for epoch in range(cfg.num_train_epochs):
             epoch_metrics = _train_epoch(trainer, train_data(epoch), cfg, ckpt, epoch)
             if eval_data is not None:
-                eacc = MetricAccumulator()
-                for batch in eval_data():
-                    out = trainer.eval_step(batch)
-                    eacc.update({k: v for k, v in out.items() if torch.is_tensor(v) and v.dim() == 0},
-                                _example_count(batch))
-                epoch_metrics.update({"val_" + k: v for k, v in eacc.means().items()})
+                epoch_metrics.update({"val_" + k: v for k, v in evaluate(trainer, eval_data()).items()})
             history.append(epoch_metrics)
             log.info("epoch %d: %s", epoch, {k: round(v, 4) for k, v in epoch_metrics.items()})
 

@@ -37,10 +37,12 @@ def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
 
 
 class Trainer:
-    """Owns the model, the optimizer and the dropout generator of a run."""
+    """Owns the model, the optimizer and the dropout generator of a run, on
+    ``device`` (``"cuda"`` for the kernels; ``"cpu"`` runs their plain
+    versions and must be asked for)."""
 
     def __init__(self, model: torch.nn.Module, opt_config: OptimizerConfig, train_config: TrainConfig,
-                 device="cpu"):
+                 device):
         self.model = model
         self.opt_config = opt_config
         self.train_config = train_config

@@ -2,11 +2,14 @@
 the reference's ``python train.py -config C -folder F``, train.py:64-87):
 
     python -m visualbert_torch.train_cli --config configs/coco_pretrain.json \\
-        [--folder runs/x] [--task coco_pretrain] [--restore runs/x/ckpt]
+        [--folder runs/x] [--task coco_pretrain] [--restore runs/x/ckpt] \\
+        [--eval_only] [--device cuda|cpu]
 
-It trains on the CUDA card when there is one (the kernels), else on the CPU
-(their plain versions), and prints one JSON line at the end:
-{"task", "best_metric", "best_epoch", "epochs_run"}.
+It runs on the CUDA card (the kernels) unless ``--device cpu`` asks for the
+CPU (their plain versions); without a card and without ``--device cpu`` it
+exits with an error. ``--eval_only`` restores ``--restore``, evaluates the
+task's eval split and writes its prediction file. It prints one JSON line
+at the end: {"task", "best_metric", "best_epoch", "epochs_run"}.
 """
 
 from __future__ import annotations
@@ -23,7 +26,14 @@ def main(argv=None):
     p.add_argument("--task", default=None, help="task override")
     p.add_argument("--restore", default=None, help="checkpoint directory or file to restore")
     p.add_argument("--eval_only", action="store_true", help="skip training, eval + dump predictions")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu (the kernels' plain versions)")
     args = p.parse_args(argv)
+
+    import torch
+
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"train_cli: --device {args.device} but no CUDA device is available; "
+                         "pass --device cpu to run the kernels' plain versions on the CPU")
 
     from visualbert_torch.tasks import registry
     from visualbert_torch.utils.config_io import load_task_config
@@ -37,7 +47,7 @@ def main(argv=None):
             "eval_only": True if args.eval_only else None,
         },
     )
-    trainer, result = registry.run(cfg)
+    trainer, result = registry.run(cfg, args.device)
     best = result.best_metric
     print(json.dumps({
         "task": cfg.task,
