@@ -22,11 +22,16 @@ non-zero without printing the final line:
    H=768, bf16, K9/K10 at rate 0.1, with K10's dropped positions equal to
    the plain version's; all within the limits below. Kernel, plain and
    library times come from CUDA events; each kernel's bound is computed
-   from these shapes;
+   from these shapes; K11/K12 (heads-major attention) and K13/K14 (with
+   saved probabilities) at K1's shapes, dropout 0 and 0.1, each of K13's
+   bf16 probabilities within one bf16 ulp of its plain value, and K14 fed
+   K13's own probabilities and output against the plain chain;
 4. a 2-layer model with dropout off gives the same loss through the kernels
    (K1/K2 attention, K4-K6 cross-entropy), through the kernels with the
-   fused LayerNorm (K7/K8) and through the einsum attention and the unfused
-   decoder;
+   fused LayerNorm (K7/K8), through the heads-major attention (K11/K12,
+   `"packed_qkv": false`), through the saved probabilities (K13/K14,
+   `"flash_save_probs": true`) and through the einsum attention and the
+   unfused decoder;
 5. drives the main path as configs/coco_pretrain.json ships it: the
    COCO-caption pretraining train step at bert-base width and depth with
    the config's `model` block unchanged, random seeded weights, a synthetic
@@ -34,12 +39,14 @@ non-zero without printing the final line:
    bf16 compute, fp32 parameters and BertAdam state with the pooler frozen,
    schedule "none", lr 1e-4, STEPS steps on one repeated batch. Losses must
    be finite and fall, and every step must launch exactly 12 K1, 12 K2, 25
-   K3 and one each of K4, K5 and K6, and no K7-K10;
-6. the same with `"use_fused_layer_norm": true` added to the block, this
-   slice's main path: every step launches 12 K1, 12 K2, 1 K3 (the
-   embeddings' dropout), one each of K4-K6, 24 K9 and 24 K10 and no K7/K8;
-   then one step of that model with both dropout rates 0 (the setting of
-   __graft_entry__.py's dry run): 24 K7, 24 K8, no K3, K9 or K10;
+   K3 and one each of K4, K5 and K6, and no K7-K14;
+6. the same with `"use_fused_layer_norm": true` added to the block: every
+   step launches 12 K1, 12 K2, 1 K3 (the embeddings' dropout), one each of
+   K4-K6, 24 K9 and 24 K10 and no K7/K8; that block with `"packed_qkv":
+   false` (12 K11 and 12 K12 instead of K1/K2) and with `"flash_save_probs":
+   true` (12 K13 and 12 K14 instead); then one step of the fused block with
+   both dropout rates 0 (the setting of __graft_entry__.py's dry run): 24
+   K7, 24 K8, no K3, K9 or K10;
 7. runs the training CLI (`visualbert_torch.train_cli`) on
    configs/coco_pretrain.json with its data block swapped for a synthetic
    COCO set of CLI_EXAMPLES pairs and one epoch: 4 steps at the config's
@@ -55,11 +62,24 @@ non-zero without printing the final line:
    dump, each 12 K1 and 24 K7. Then `--eval_only --restore` of its
    checkpoint must give the epoch's val_ metrics within 1e-6 and the same
    vqa_predictions.json, one entry per eval question, launching only 2 x
-   (12 K1, 24 K7). The runs' folder is a temporary directory, removed at
-   the end;
-9. prints the kernel table as one JSON line (launches from phase 6: the
-   fused-LayerNorm main path's STEPS steps, and for K7/K8 its dropout-0
-   step), then {"ok": true, "device": {...}} as the last line.
+   (12 K1, 24 K7);
+9. runs NLVR2 fine-tuning through the CLI: configs/nlvr2_finetune.json
+   with its data block swapped for NLVR2_EXAMPLES synthetic image pairs
+   (80 % train, 20 % eval; T = 128 + 2 x 72 = 272) and `"flash_save_probs":
+   true` added to its model block, one epoch at its batch of 64: 5 train
+   steps, each 12 K13, 12 K14, 25 K3; 3 eval batches of 32 after the epoch
+   and 3 more for the report, each 12 K13. nlvr2_report.csv must hold one
+   row per eval identifier, and `--eval_only --restore` must give the
+   epoch's val_ loss and accuracy within 1e-6 and the same report, launching
+   only 3 x 12 K13; its official accuracy must equal val_accuracy within
+   1e-6. The synthetic identifiers are plain indices, each pair a sentence
+   group of its own, so consistency equals the official accuracy here and
+   checks nothing more. The runs' folders are temporary directories,
+   removed at the end;
+10. prints the kernel table as one JSON line (launches from phase 6: the
+   fused-LayerNorm main path's STEPS steps, for K7/K8 its dropout-0 step,
+   for K11-K14 the runs with their settings), then {"ok": true, "device":
+   {...}} as the last line.
 """
 
 import contextlib
@@ -76,8 +96,10 @@ import time
 STEPS = 10
 CLI_EXAMPLES = 512
 VQA_EXAMPLES = 400
+NLVR2_EXAMPLES = 400
 REPO = os.path.dirname(os.path.abspath(__file__))
 VQA_CONFIG = os.path.join(REPO, "configs", "vqa_finetune.json")
+NLVR2_CONFIG = os.path.join(REPO, "configs", "nlvr2_finetune.json")
 # Tolerances. The kernels round unnormalised probabilities to bf16 where the
 # plain version rounds normalised ones, and sum in another order. Each limit
 # is about 4x the readings of H100 runs at these shapes (in brackets; K1/K2
@@ -99,6 +121,17 @@ LN_Y_TOL = 1e-2     # K7/K9 y, K8/K10 dx and dres (bf16), max |kernel - plain| /
                     #   [y 2.6e-3, 2.6e-3; dx, dres 1.8e-3, 1.9e-3]
 LN_STAT_TOL = 5e-7  # K7/K9 mu and rstd (fp32), absolute       [1.2e-7, 1.2e-7]
 LN_DW_TOL = 1.2e-6  # K8/K10 dscale, dbias (fp32), relative    [3.1e-7, 2.4e-7]
+# K11-K14 against their plain versions at the main path's shapes, each
+# limit about 4x the H100 readings in brackets (dropout 0 and 0.1):
+HM_OUT_TOL = 1.6e-2  # K11 out, max |kernel - plain| / max |plain|  [4.0e-3, 3.6e-3]
+HM_DQKV_TOL = 8e-3   # K12 dqkv, same measure                       [1.9e-3, 1.7e-3]
+SP_OUT_TOL = 8e-3    # K13 out, same measure (normalised p on both) [2.0e-3, 9.0e-4]
+SP_DQKV_TOL = 8e-3   # K14 dqkv, same measure                       [1.9e-3, 1.7e-3]
+SP_CHAIN_TOL = 8e-3  # K14 fed K13's own probs and out, against the plain chain  [1.9e-3, 1.7e-3]
+# K13's probabilities are bf16, rounded from fp32 values that agree with the
+# plain version's to a few fp32 ulps: each entry may round to the other
+# neighbour, so it must lie within one bf16 ulp of its own plain value
+PROBS_ULPS = 1
 SLICE_REL_TOL = 2e-2  # kernel paths vs einsum + unfused path loss, bf16 model
 
 KERNELS = (  # name, wrapper module, source, the TPU kernel it replaces
@@ -112,13 +145,23 @@ KERNELS = (  # name, wrapper module, source, the TPU kernel it replaces
     ("add_layer_norm_bwd", "layer_norm", "layer_norm.cu", "visualbert_tpu/ops/layer_norm.py:40"),
     ("dropout_add_layer_norm_fwd", "layer_norm", "layer_norm.cu", "visualbert_tpu/ops/layer_norm.py:171"),
     ("dropout_add_layer_norm_bwd", "layer_norm", "layer_norm.cu", "visualbert_tpu/ops/layer_norm.py:189"),
+    ("heads_major_attention_fwd", "flash_attention", "flash_attention.cu", "visualbert_tpu/ops/flash_attention.py:71"),
+    ("heads_major_attention_bwd", "flash_attention", "flash_attention.cu", "visualbert_tpu/ops/flash_attention.py:93"),
+    ("packed_attention_sp_fwd", "flash_attention", "flash_attention_sp.cu",
+     "visualbert_tpu/ops/flash_attention.py:409"),
+    ("packed_attention_sp_bwd", "flash_attention", "flash_attention_sp.cu",
+     "visualbert_tpu/ops/flash_attention.py:441"),
 )
-# launches of K1..K10 per train step (12 layers) or eval batch
-PER_STEP = (12, 12, 25, 1, 1, 1, 0, 0, 0, 0)            # the config as shipped
-FUSED_PER_STEP = (12, 12, 1, 1, 1, 1, 0, 0, 24, 24)     # with use_fused_layer_norm
-NO_DROPOUT_PER_STEP = (12, 12, 0, 1, 1, 1, 24, 24, 0, 0)  # that, both dropout rates 0
-VQA_TRAIN_PER_STEP = (12, 12, 1, 0, 0, 0, 0, 0, 24, 24)
-VQA_EVAL_PER_BATCH = (12, 0, 0, 0, 0, 0, 24, 0, 0, 0)
+# launches of K1..K14 per train step (12 layers) or eval batch
+PER_STEP = (12, 12, 25, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0)            # the config as shipped
+FUSED_PER_STEP = (12, 12, 1, 1, 1, 1, 0, 0, 24, 24, 0, 0, 0, 0)     # with use_fused_layer_norm
+NO_DROPOUT_PER_STEP = (12, 12, 0, 1, 1, 1, 24, 24, 0, 0, 0, 0, 0, 0)  # that, both dropout rates 0
+HEADS_MAJOR_PER_STEP = (0, 0, 1, 1, 1, 1, 0, 0, 24, 24, 12, 12, 0, 0)  # fused LayerNorm, packed_qkv false
+SAVE_PROBS_PER_STEP = (0, 0, 1, 1, 1, 1, 0, 0, 24, 24, 0, 0, 12, 12)   # fused LayerNorm, flash_save_probs
+VQA_TRAIN_PER_STEP = (12, 12, 1, 0, 0, 0, 0, 0, 24, 24, 0, 0, 0, 0)
+VQA_EVAL_PER_BATCH = (12, 0, 0, 0, 0, 0, 24, 0, 0, 0, 0, 0, 0, 0)
+NLVR2_TRAIN_PER_STEP = (0, 0, 25, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12, 12)
+NLVR2_EVAL_PER_BATCH = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12, 0)
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): a kernel's bound is
 # the larger of its bytes over the memory rate and its operations over the
 # peak rate of their type
@@ -137,7 +180,7 @@ def log(msg):
 
 
 def counters():
-    """The launch-counting wrappers of K1..K6."""
+    """The launch-counting wrappers of K1..K14."""
     import importlib
 
     return [getattr(importlib.import_module(f"visualbert_torch.ops.{mod}"), name) for name, mod, _, _ in KERNELS]
@@ -264,17 +307,10 @@ def check_kernels(torch, card):
     k2_ms0 = cuda_time_ms(lambda: fa.packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, H, 0.0, 5), 20)
     # the library yardstick: scaled_dot_product_attention on [B, H, T, D]
     # views of the same biased qkv, the key bias as its mask, the same rate
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v = ((qkv + qb).view(B, T, H, 3, D).unbind(3))  # head-major [h, (q, k, v), d]
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-    attn_mask = key_bias.to(torch.bfloat16)[:, None, None, :]
-    with torch.no_grad():
-        k1["library_ms"] = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=attn_mask, dropout_p=rate), 20)
-    leaves = [t.detach().contiguous().requires_grad_(True) for t in (q, k, v)]
-    o = sdpa(*leaves, attn_mask=attn_mask, dropout_p=rate)
-    dout4 = dout.view(B, T, H, D).transpose(1, 2)
-    k2["library_ms"] = cuda_time_ms(lambda: torch.autograd.grad(o, leaves, dout4, retain_graph=True), 20)
-    del q, k, v, leaves, o
+    k1["library_ms"], k2["library_ms"] = sdpa_ms(torch, *(t.transpose(1, 2) for t in (q, k, v)), key_bias,
+                                                 dout.view(B, T, H, D).transpose(1, 2), rate)
+    del q, k, v
     # useful FLOPs: QK^T and PV forward; the backward's dV, dP, dQ, dK (its
     # S recomputations, one per pass, are extra work not counted here)
     gflop = 2.0 * B * H * T * T * D / 1e9
@@ -287,6 +323,129 @@ def check_kernels(torch, card):
     rows["packed_attention_fwd"], rows["packed_attention_bwd"] = k1, k2
     for name in ("dropout_mask", "packed_attention_fwd", "packed_attention_bwd"):
         log(row_line(name, rows[name], card))
+    return rows
+
+
+def sdpa_ms(torch, q, k, v, key_bias, dout, rate):
+    """scaled_dot_product_attention's forward and backward times on
+    [B, H, T, D] q, k, v with the key bias as its mask (the attention
+    kernels' library yardstick; no path of the port calls it)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    attn_mask = key_bias.to(torch.bfloat16)[:, None, None, :]
+    with torch.no_grad():
+        fwd = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=attn_mask, dropout_p=rate), 20)
+    leaves = [t.detach().contiguous().requires_grad_(True) for t in (q, k, v)]
+    o = sdpa(*leaves, attn_mask=attn_mask, dropout_p=rate)
+    bwd = cuda_time_ms(lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True), 20)
+    return fwd, bwd
+
+
+def bf16_ulps(torch, x):
+    """One bf16 ulp at each entry of x, and at least 2^-126 (fp32's least
+    normal value: below it a kernel may flush to zero)."""
+    tiny = 2.0 ** -126
+    _, e = torch.frexp(x.float().abs().clamp_min(tiny))  # |x| in [2^(e-1), 2^e)
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8).clamp_min(tiny)
+
+
+def check_attention_variants(torch, card):
+    """K11/K12 (heads-major) and K13/K14 (saved probabilities) against their
+    plain versions at the main path's shapes: B=128, T=228, H=12, D=64,
+    bf16, padded keys, dropout 0 and 0.1; each backward gets the plain
+    forward's outputs on both sides. Each of K13's probabilities must lie
+    within one bf16 ulp of its plain value, and K14 fed K13's own
+    probabilities and output must agree with the plain chain. Kernel and
+    plain times at dropout 0.1; the library times are
+    scaled_dot_product_attention's forward and backward on the same q, k, v."""
+    from visualbert_torch.ops import flash_attention as fa
+    from visualbert_torch.tools.main_path import B, TT, TV
+
+    H, D, T = 12, 64, TT + TV
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    qkv5 = torch.randn((B, 3, H, T, D), generator=g, device=dev).to(torch.bfloat16)  # heads-major, biased
+    qkv = qkv5.permute(0, 3, 2, 1, 4).reshape(B, T, 3 * H * D)  # the same numbers packed head-major
+    dout4 = torch.randn((B, H, T, D), generator=g, device=dev).to(torch.bfloat16)
+    dout = dout4.permute(0, 2, 1, 3).reshape(B, T, H * D)
+    mask = torch.ones((B, T), device=dev)
+    mask[::3, TT - 20:TT] = 0  # some padded text
+    mask[1::4, T - 30:] = 0    # some padded regions
+    key_bias = (1.0 - mask) * -10000.0
+    rows = {name: dict(max_abs_err=0.0) for name in ("heads_major_attention_fwd", "heads_major_attention_bwd",
+                                                     "packed_attention_sp_fwd", "packed_attention_sp_bwd")}
+    for rate in (0.0, 0.1):
+        out, stats = fa.heads_major_attention_fwd(qkv5, key_bias, rate, 99)
+        out_r, stats_r = fa.heads_major_attention_fwd_reference(qkv5, key_bias, rate, 99)
+        dq = fa.heads_major_attention_bwd(qkv5, key_bias, dout4, out_r, stats_r, rate, 99)
+        dq_r = fa.heads_major_attention_bwd_reference(qkv5, key_bias, dout4, out_r, stats_r, rate, 99)
+        torch.cuda.synchronize()
+        e11, r11 = rel_err(out, out_r)
+        e_st = float((stats - stats_r).abs().max())
+        e12, r12 = rel_err(dq, dq_r)
+        del out, stats, out_r, stats_r, dq, dq_r
+        o13, probs = fa.packed_attention_sp_fwd(qkv, key_bias, H, rate, 99)
+        o13_r, probs_r = fa.packed_attention_sp_fwd_reference(qkv, key_bias, H, rate, 99)
+        d14 = fa.packed_attention_sp_bwd(qkv, probs_r, dout, o13_r, H, rate, 99)
+        d14_r = fa.packed_attention_sp_bwd_reference(qkv, probs_r, dout, o13_r, H, rate, 99)
+        d14_own = fa.packed_attention_sp_bwd(qkv, probs, dout, o13, H, rate, 99)  # the kernels' own chain
+        torch.cuda.synchronize()
+        e13, r13 = rel_err(o13, o13_r)
+        dp = (probs.float() - probs_r.float()).abs()
+        e_p = float(dp.max())
+        u_p = float((dp / bf16_ulps(torch, probs_r)).max())
+        del dp
+        e14, r14 = rel_err(d14, d14_r)
+        e_ch, r_ch = rel_err(d14_own, d14_r)
+        del o13, probs, o13_r, probs_r, d14, d14_r, d14_own
+        log(f"K11 heads-major fwd rate {rate}: out max_abs_err {e11:.3e} (rel {r11:.3e}, tol {HM_OUT_TOL}); "
+            f"stats max_abs_err {e_st:.3e} (tol {STATS_TOL})")
+        log(f"K12 heads-major bwd rate {rate}: dqkv max_abs_err {e12:.3e} (rel {r12:.3e}, tol {HM_DQKV_TOL})")
+        log(f"K13 save-probs fwd rate {rate}: out max_abs_err {e13:.3e} (rel {r13:.3e}, tol {SP_OUT_TOL}); "
+            f"probs max_abs_err {e_p:.3e}, at most {u_p:g} bf16 ulps of the entry's plain value "
+            f"(tol {PROBS_ULPS})")
+        log(f"K14 save-probs bwd rate {rate}: dqkv max_abs_err {e14:.3e} (rel {r14:.3e}, tol {SP_DQKV_TOL}); "
+            f"fed K13's probs and out: max_abs_err {e_ch:.3e} (rel {r_ch:.3e}, tol {SP_CHAIN_TOL})")
+        if not (r11 <= HM_OUT_TOL and e_st <= STATS_TOL and r12 <= HM_DQKV_TOL and r13 <= SP_OUT_TOL
+                and u_p <= PROBS_ULPS and r14 <= SP_DQKV_TOL and r_ch <= SP_CHAIN_TOL):
+            raise SystemExit(f"K11-K14 disagree with their plain versions at rate {rate}")
+        for name, e in zip(rows, (max(e11, e_st), e12, max(e13, e_p), e14)):
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
+
+    rate = 0.1  # the main path's attention dropout
+    out, stats = fa.heads_major_attention_fwd(qkv5, key_bias, rate, 5)
+    o13, probs = fa.packed_attention_sp_fwd(qkv, key_bias, H, rate, 5)
+    calls = {
+        "heads_major_attention_fwd": lambda f: f(qkv5, key_bias, rate, 5),
+        "heads_major_attention_bwd": lambda f: f(qkv5, key_bias, dout4, out, stats, rate, 5),
+        "packed_attention_sp_fwd": lambda f: f(qkv, key_bias, H, rate, 5),
+        "packed_attention_sp_bwd": lambda f: f(qkv, probs, dout, o13, H, rate, 5),
+    }
+    for name, call in calls.items():
+        rows[name]["ms"] = cuda_time_ms(lambda: call(getattr(fa, name)), 20)
+        rows[name]["plain_ms"] = cuda_time_ms(lambda: call(getattr(fa, name + "_reference")), 3)
+    hm_lib = sdpa_ms(torch, *qkv5.unbind(1), key_bias, dout4, rate)
+    q, k, v = (t.transpose(1, 2) for t in qkv.view(B, T, H, 3, D).unbind(3))
+    sp_lib = sdpa_ms(torch, q, k, v, key_bias, dout4, rate)
+    gflop = 2.0 * B * H * T * T * D / 1e9  # one [T, T] x D product over every (b, h)
+    # K11/K12's bounds count what the JAX functions move, which keep no row
+    # statistics (the backward recomputes them): qkv and the key bias in, out
+    # out; qkv, the key bias and dout in, dqkv out. K11 writing stats and K12
+    # reading them and out is the port's choice
+    for name, design in (("fwd", nbytes(qkv5, key_bias, out, stats)),
+                         ("bwd", nbytes(qkv5, key_bias, dout4, out, stats, qkv5))):
+        log(f"heads_major_attention_{name} as designed (with out and stats): {design} bytes, "
+            f"{design / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate")
+    moved = {"heads_major_attention_fwd": nbytes(qkv5, key_bias, out),
+             "heads_major_attention_bwd": nbytes(qkv5, key_bias, dout4, qkv5),
+             "packed_attention_sp_fwd": nbytes(qkv, key_bias, o13, probs),
+             "packed_attention_sp_bwd": nbytes(qkv, probs, dout, o13, qkv)}
+    libs = (hm_lib[0], hm_lib[1], sp_lib[0], sp_lib[1])
+    for (name, r), n_mm, lib_ms in zip(rows.items(), (2, 4, 2, 4), libs):
+        # useful products: QK^T and PV forward; dV, dP, dQ, dK backward
+        r.update(library_ms=lib_ms, **bound(moved[name], n_mm * gflop * 1e9, BF16_FLOPS))
+        log(f"{name} B={B} T={T} H={H} dropout {rate}: kernel {r['ms']:.4f} ms "
+            f"({n_mm * gflop / r['ms']:.1f} TFLOP/s useful), plain {r['plain_ms']:.4f} ms  [{card}]")
+        log(row_line(name, r, card))
     return rows
 
 
@@ -443,9 +602,11 @@ def check_layer_norm(torch, card):
 
 def check_slice_reference(torch, model_block):
     """The kernel path (K1/K2 attention, K4-K6 cross-entropy), the same with
-    the fused LayerNorm (K7/K8, dropout off) and the einsum attention with
-    the unfused decoder and eager LayerNorm, on the same 2-layer
-    bert-base-wide weights, dropout off: the losses must agree."""
+    the fused LayerNorm (K7/K8, dropout off), with the heads-major attention
+    (K11/K12, packed_qkv false), with the saved probabilities (K13/K14) and
+    the einsum attention with the unfused decoder and eager LayerNorm, on
+    the same 2-layer bert-base-wide weights, dropout off: the losses must
+    agree."""
     from visualbert_torch.config import VisualBertConfig
     from visualbert_torch.models.visualbert import VisualBertForTask
     from visualbert_torch.tools.synth import synth_batch
@@ -456,6 +617,8 @@ def check_slice_reference(torch, model_block):
     paths = {"kernel path": dict(use_flash_attention=True, fused_mlm_xent=True, use_fused_layer_norm=False),
              "kernel path with fused LayerNorm": dict(use_flash_attention=True, fused_mlm_xent=True,
                                                       use_fused_layer_norm=True),
+             "heads-major kernel path": dict(use_flash_attention=True, fused_mlm_xent=True, packed_qkv=False),
+             "save-probs kernel path": dict(use_flash_attention=True, fused_mlm_xent=True, flash_save_probs=True),
              "einsum + unfused path": dict(use_flash_attention=False, fused_mlm_xent=False,
                                            use_fused_layer_norm=False)}
     losses = {}
@@ -478,7 +641,7 @@ def check_slice_reference(torch, model_block):
 
 def run_slice(torch, block, card, per_step, what):
     """STEPS train steps of the main path built from ``block``; returns the
-    launches of K1..K10 and the step's median time, pairs/s and peak memory."""
+    launches of K1..K14 and the step's median time, pairs/s and peak memory."""
     from visualbert_torch.tools.main_path import B, build
 
     trainer, batch = build(block)
@@ -655,6 +818,87 @@ def run_vqa_cli(torch, card):
         shutil.rmtree(folder, ignore_errors=True)
 
 
+def run_nlvr2_cli(torch, card):
+    """NLVR2 fine-tuning through the CLI on a synthetic set of NLVR2_EXAMPLES
+    image pairs (80 % train, 20 % eval; 128 text tokens + 2 x 72 regions, T
+    = 272), with the model, optimizer and train blocks of
+    configs/nlvr2_finetune.json and `"flash_save_probs": true` added to its
+    model block; one epoch at its batch of 64. Then --eval_only of its
+    checkpoint."""
+    from visualbert_torch import train_cli
+    from visualbert_torch.utils.config_io import load_config_file
+
+    raw = load_config_file(NLVR2_CONFIG)
+    raw["data"] = {"synthetic": NLVR2_EXAMPLES, "max_seq_length": 128, "max_regions_per_image": 72}
+    raw["model"] = dict(raw["model"], flash_save_probs=True)
+    raw["train"] = dict(raw["train"], num_train_epochs=1)
+    n_train = int(NLVR2_EXAMPLES * 0.8)
+    steps = n_train // raw["train"]["train_batch_size"]
+    eval_bs = raw["train"].get("eval_batch_size", 32)  # TrainConfig's default
+    eval_batches = -(-(NLVR2_EXAMPLES - n_train) // eval_bs)
+    folder = tempfile.mkdtemp(prefix="chip_smoke_nlvr2_")
+    try:
+        path = os.path.join(folder, "nlvr2_synthetic.json")
+        with open(path, "w") as f:
+            json.dump(raw, f)
+        run = os.path.join(folder, "run")
+        out = io.StringIO()
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            trainer, result = train_cli.main(["--config", path, "--folder", run])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        epoch = result.history[0]
+        # the epoch's evaluation and the report after fit each run the eval split
+        want = [steps * a + 2 * eval_batches * b for a, b in zip(NLVR2_TRAIN_PER_STEP, NLVR2_EVAL_PER_BATCH)]
+        log(f"nlvr2 cli: {out.getvalue().strip()}; {trainer.step} steps at batch "
+            f"{raw['train']['train_batch_size']} on {trainer.device}, {wall:.1f} s with set-up; epoch means: "
+            + ", ".join(f"{k} {v:.6f}" for k, v in sorted(epoch.items())))
+        log("nlvr2 cli launches: " + ", ".join(f"K{i + 1} {n}" for i, n in enumerate(launches))
+            + f"; want {steps} x {'/'.join(map(str, NLVR2_TRAIN_PER_STEP))} (train steps) + 2 x {eval_batches} x "
+            + f"{'/'.join(map(str, NLVR2_EVAL_PER_BATCH))} (eval batches)")
+        if trainer.device.type != "cuda" or trainer.step != steps:
+            raise SystemExit(f"the NLVR2 CLI ran {trainer.step} steps on {trainer.device}")
+        if not all(math.isfinite(v) for v in epoch.values()):
+            raise SystemExit("non-finite metric in the NLVR2 CLI run")
+        if launches != want:
+            raise SystemExit(f"unexpected kernel launch counts in the NLVR2 CLI run {launches}")
+        with open(os.path.join(run, "nlvr2_report.csv")) as f:
+            report = f.read()
+        if [line.split(",")[0] for line in report.splitlines()] != sorted(map(str, range(n_train, NLVR2_EXAMPLES))):
+            raise SystemExit("nlvr2_report.csv does not hold one row per eval identifier")
+        del trainer, result
+        torch.cuda.empty_cache()
+
+        again = os.path.join(folder, "eval")
+        out = io.StringIO()
+        zero_launches()
+        with contextlib.redirect_stdout(out):
+            _, result = train_cli.main(["--config", path, "--folder", again, "--eval_only",
+                                        "--restore", os.path.join(run, "ckpt")])
+        launches = read_launches()
+        metrics = result.history[0]
+        diff = max(abs(metrics[k] - epoch["val_" + k]) for k in ("loss", "accuracy"))
+        with open(os.path.join(again, "nlvr2_report.csv")) as f:
+            same = f.read() == report
+        # the official scores are functions of the report, equal to the
+        # trained run's; on synthetic identifiers (one pair a sentence group)
+        # both must equal the epoch's weighted accuracy
+        d_off = abs(metrics["official_accuracy"] - epoch["val_accuracy"])
+        log(f"nlvr2 --eval_only: {out.getvalue().strip()}; " + ", ".join(f"{k} {v:.6f}" for k, v in metrics.items())
+            + f"; max |diff| of loss and accuracy to the epoch's val_ metrics {diff:.2e} (tol 1e-6); report equal: "
+            f"{same} ({len(report.splitlines())} rows); |official accuracy - val_accuracy| {d_off:.2e} (tol 1e-6), "
+            f"consistency equal to it: {metrics['consistency'] == metrics['official_accuracy']}; launches "
+            + ", ".join(f"K{i + 1} {n}" for i, n in enumerate(launches)))
+        if diff > 1e-6 or not same or launches != [eval_batches * b for b in NLVR2_EVAL_PER_BATCH]:
+            raise SystemExit("--eval_only does not reproduce the NLVR2 run's evaluation")
+        if d_off > 1e-6 or metrics["consistency"] != metrics["official_accuracy"]:
+            raise SystemExit("the NLVR2 official scores disagree with the weighted accuracy")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -680,17 +924,23 @@ def main():
     rows = check_kernels(torch, card)
     rows.update(check_xent(torch, card))
     rows.update(check_layer_norm(torch, card))
+    rows.update(check_attention_variants(torch, card))
     torch.cuda.empty_cache()
 
     block = model_block()
     fused = dict(block, use_fused_layer_norm=True)
     log(f"model block: {json.dumps(block)}")
     check_slice_reference(torch, block)
-    _, shipped = run_slice(torch, block, card, PER_STEP, "main path as shipped")
-    torch.cuda.empty_cache()
-    launches, fused_stats = run_slice(torch, fused, card, FUSED_PER_STEP, "main path, fused LayerNorm")
-    torch.cuda.empty_cache()
-    for what, r in (("as shipped", shipped), ("fused LayerNorm", fused_stats)):
+    runs = {}
+    for what, blk, per_step in (("as shipped", block, PER_STEP),
+                                ("fused LayerNorm", fused, FUSED_PER_STEP),
+                                ("fused LayerNorm, packed_qkv false", dict(fused, packed_qkv=False),
+                                 HEADS_MAJOR_PER_STEP),
+                                ("fused LayerNorm, flash_save_probs", dict(fused, flash_save_probs=True),
+                                 SAVE_PROBS_PER_STEP)):
+        runs[what] = run_slice(torch, blk, card, per_step, "main path, " + what)
+        torch.cuda.empty_cache()
+    for what, (_, r) in runs.items():
         log(f"main path {what}: median step {r['median_ms']:.2f} ms, {r['pairs_per_s']:.1f} pairs/s, "
             f"peak memory {r['peak_gib']:.2f} GiB  [{card}]")
     no_dropout = run_step_without_dropout(torch, fused)
@@ -698,9 +948,15 @@ def main():
     run_cli(torch, card)
     torch.cuda.empty_cache()
     run_vqa_cli(torch, card)
+    torch.cuda.empty_cache()
+    run_nlvr2_cli(torch, card)
 
-    # launches: the fused-LayerNorm main path's STEPS steps; K7/K8 from its dropout-0 step
+    # launches: the fused-LayerNorm main path's STEPS steps; K7/K8 from its
+    # dropout-0 step; K11/K12 and K13/K14 from the runs with their settings
+    launches = list(runs["fused LayerNorm"][0])
     launches[6:8] = no_dropout[6:8]
+    launches[10:12] = runs["fused LayerNorm, packed_qkv false"][0][10:12]
+    launches[12:14] = runs["fused LayerNorm, flash_save_probs"][0][12:14]
     table = [dict(name=name, route="cuda", source=f"visualbert_torch/csrc/{src}", replaces=replaces, launches=n,
                   **rows[name]) for (name, _, src, replaces), n in zip(KERNELS, launches)]
     print(json.dumps({"kernels": table}), flush=True)

@@ -17,7 +17,10 @@ and db (fp32) within 1e-3 of the largest plain value. The LayerNorm kernels
 (K7-K10) compute the plain version's fp32 values in another order and round
 once: y, dx and dres within 2e-2 of the largest plain value, mu and rstd
 within 1e-4, dscale and dbias within 1e-3; their dropout masks agree
-exactly.
+exactly. The heads-major (K11/K12) and save-probs (K13/K14) attention
+kernels are held as K1/K2 are, at small shapes and at the main path's T =
+228 and NLVR2's T = 272; each of K13's bf16 probabilities within one bf16
+ulp of its plain value, and K14 fed K13's own output as K2 is.
 """
 
 import numpy as np
@@ -99,6 +102,111 @@ def test_attention_kernels_match_plain(cuda, B, T, H, rate):
     torch.cuda.synchronize()
     assert rel_err(dqkv, dqkv_r) < REL_TOL
     assert rel_err(dqb, dqb_r) < REL_TOL
+
+
+def heads_major_inputs(B, T, H, device, seed=0):
+    rng = np.random.RandomState(seed)
+    qkv = torch.tensor(rng.randn(B, 3, H, T, 64), dtype=torch.bfloat16, device=device)
+    _, _, key_bias, _ = attention_inputs(B, T, H, device, seed)
+    dout = torch.tensor(rng.randn(B, H, T, 64), dtype=torch.bfloat16, device=device)
+    return qkv, key_bias, dout
+
+
+def bf16_ulps(x):
+    """One bf16 ulp at each entry of x, and at least 2^-126 (fp32's least
+    normal value: below it a kernel may flush to zero)."""
+    tiny = 2.0 ** -126
+    _, e = torch.frexp(x.float().abs().clamp_min(tiny))  # |x| in [2^(e-1), 2^e)
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8).clamp_min(tiny)
+
+
+VARIANT_SHAPES = [(4, 228, 12), (2, 272, 12), (2, 37, 3), (1, 64, 2), (2, 130, 4)]
+
+
+@pytest.mark.parametrize("B,T,H", VARIANT_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_heads_major_kernels_match_plain(cuda, B, T, H, rate):
+    qkv, key_bias, dout = heads_major_inputs(B, T, H, cuda)
+    out, stats = fa.heads_major_attention_fwd(qkv, key_bias, rate, 99)
+    out_r, stats_r = fa.heads_major_attention_fwd_reference(qkv, key_bias, rate, 99)
+    dqkv = fa.heads_major_attention_bwd(qkv, key_bias, dout, out_r, stats_r, rate, 99)
+    dqkv_r = fa.heads_major_attention_bwd_reference(qkv, key_bias, dout, out_r, stats_r, rate, 99)
+    torch.cuda.synchronize()
+    assert out.shape == (B, H, T, 64) and dqkv.shape == qkv.shape
+    assert rel_err(out, out_r) < REL_TOL
+    assert float((stats - stats_r).abs().max()) < STATS_ATOL
+    assert rel_err(dqkv, dqkv_r) < REL_TOL
+
+
+@pytest.mark.parametrize("B,T,H", VARIANT_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_save_probs_kernels_match_plain(cuda, B, T, H, rate):
+    qkv, qb, key_bias, dout = attention_inputs(B, T, H, cuda)
+    qkv = qkv + qb  # K13 takes the biased projection
+    out, probs = fa.packed_attention_sp_fwd(qkv, key_bias, H, rate, 99)
+    out_r, probs_r = fa.packed_attention_sp_fwd_reference(qkv, key_bias, H, rate, 99)
+    dqkv = fa.packed_attention_sp_bwd(qkv, probs_r, dout, out_r, H, rate, 99)
+    dqkv_r = fa.packed_attention_sp_bwd_reference(qkv, probs_r, dout, out_r, H, rate, 99)
+    dqkv_own = fa.packed_attention_sp_bwd(qkv, probs, dout, out, H, rate, 99)  # the kernels' own chain
+    torch.cuda.synchronize()
+    assert probs.dtype == torch.bfloat16 and probs.shape == (B, H, T, T)
+    assert rel_err(out, out_r) < REL_TOL
+    # each probability within one bf16 ulp of its own plain value
+    assert bool(((probs.float() - probs_r.float()).abs() <= bf16_ulps(probs_r)).all())
+    assert rel_err(dqkv, dqkv_r) < REL_TOL
+    assert rel_err(dqkv_own, dqkv_r) < REL_TOL
+
+
+def test_variants_equal_the_packed_kernel_without_dropout(cuda):
+    """At dropout 0 the three forward kernels compute one function of the
+    same numbers in three layouts."""
+    B, T, H = 2, 228, 12
+    qkv5, key_bias, _ = heads_major_inputs(B, T, H, cuda, seed=4)
+    packed = qkv5.permute(0, 3, 2, 1, 4).reshape(B, T, 3 * H * 64).contiguous()
+    o1, _ = fa.packed_attention_fwd(packed, torch.zeros(3 * H * 64, dtype=torch.bfloat16, device=cuda), key_bias,
+                                    H, 0.0, 0)
+    o11, _ = fa.heads_major_attention_fwd(qkv5, key_bias, 0.0, 0)
+    o13, _ = fa.packed_attention_sp_fwd(packed, key_bias, H, 0.0, 0)
+    o11 = o11.permute(0, 2, 1, 3).reshape(B, T, H * 64)
+    assert rel_err(o11, o1) < REL_TOL and rel_err(o13, o1) < REL_TOL
+
+
+@pytest.mark.parametrize("variant", ["heads_major", "save_probs"])
+def test_variant_autograd_through_kernels(cuda, variant):
+    B, T, H, rate, seed = 2, 57, 2, 0.1, 3
+    counters = (fa.heads_major_attention_fwd, fa.heads_major_attention_bwd) if variant == "heads_major" else (
+        fa.packed_attention_sp_fwd, fa.packed_attention_sp_bwd)
+    before = [c.launches for c in counters]
+    if variant == "heads_major":
+        qkv, key_bias, dout = heads_major_inputs(B, T, H, cuda, seed=1)
+        x = qkv.clone().requires_grad_(True)
+        fa.flash_attention_heads_major(x, key_bias, rate, seed).backward(dout)
+        out_r, stats_r = fa.heads_major_attention_fwd_reference(qkv, key_bias, rate, seed)
+        want = fa.heads_major_attention_bwd_reference(qkv, key_bias, dout, out_r, stats_r, rate, seed)
+        grads = [(x.grad, want)]
+    else:
+        qkv, qb, key_bias, dout = attention_inputs(B, T, H, cuda, seed=1)
+        x, b = qkv.clone().requires_grad_(True), qb.clone().requires_grad_(True)
+        fa.flash_attention_packed(x, H, key_bias, rate, seed, qkv_bias=b, save_probs=True).backward(dout)
+        out_r, probs_r = fa.packed_attention_sp_fwd_reference(qkv + qb, key_bias, H, rate, seed)
+        want = fa.packed_attention_sp_bwd_reference(qkv + qb, probs_r, dout, out_r, H, rate, seed)
+        grads = [(x.grad, want), (b.grad, want.float().sum(dim=(0, 1)))]
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1]
+    for got, ref in grads:
+        assert rel_err(got, ref) < REL_TOL
+
+
+def test_variant_kernels_take_t_up_to_512_and_refuse_more(cuda):
+    qkv5, key_bias, _ = heads_major_inputs(1, 512, 1, cuda)
+    fa.heads_major_attention_fwd(qkv5, key_bias, 0.1, 1)
+    packed = qkv5.permute(0, 3, 2, 1, 4).reshape(1, 512, 192).contiguous()
+    fa.packed_attention_sp_fwd(packed, key_bias, 1, 0.1, 1)
+    torch.cuda.synchronize()
+    big, kb, _ = heads_major_inputs(1, 1024, 1, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fa.heads_major_attention_fwd(big, kb, 0.0, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        fa.packed_attention_sp_fwd(big.permute(0, 3, 2, 1, 4).reshape(1, 1024, 192).contiguous(), kb, 1, 0.0, 0)
 
 
 def test_attention_dropout_changes_output(cuda):
@@ -262,6 +370,47 @@ def test_model_step_kernels_match_plain_with_dropout(cuda, monkeypatch):
         if k.endswith("attention.self.key.bias"):
             # identically zero in exact arithmetic (a per-query constant
             # under the softmax); both sides are rounding noise
+            assert float(grads_k[k].abs().max()) < 1e-5 and float(grads_p[k].abs().max()) < 1e-5
+            continue
+        err = rel_err(grads_k[k], grads_p[k])
+        if not err < 5e-2:
+            bad[k] = err
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("flags", [dict(packed_qkv=False), dict(flash_save_probs=True)],
+                         ids=["packed_qkv_false", "flash_save_probs"])
+def test_model_step_with_attention_variants_matches_plain(cuda, monkeypatch, flags):
+    """Two layers at bert-base width, dropout on, through K11/K12 or K13/K14
+    and through their plain versions (the same masks): loss and gradients
+    agree."""
+    from visualbert_torch.config import VisualBertConfig
+    from visualbert_torch.models.visualbert import VisualBertForTask
+    from visualbert_torch.tools.synth import synth_batch
+    from visualbert_torch.train.trainer import to_device
+
+    cfg = VisualBertConfig.base(use_flash_attention=True, num_hidden_layers=2, **flags)
+    batch = to_device(synth_batch(4, seed=2), cuda)
+    names = ("heads_major_attention_fwd", "heads_major_attention_bwd", "packed_attention_sp_fwd",
+             "packed_attention_sp_bwd")
+    runs = []
+    for plain in (False, True):
+        if plain:
+            for k in names:
+                monkeypatch.setattr(fa, k, getattr(fa, k + "_reference"))
+        counts = [getattr(getattr(fa, k), "launches", 0) for k in names]
+        model = VisualBertForTask(cfg, "pretraining").init_weights(torch.Generator().manual_seed(0)).to(cuda)
+        out = model(batch, torch.Generator().manual_seed(7))
+        out["loss"].backward()
+        if not plain:
+            want = [2, 2, 0, 0] if flags.get("packed_qkv") is False else [0, 0, 2, 2]
+            assert [getattr(fa, k).launches - c for k, c in zip(names, counts)] == want
+        runs.append((float(out["loss"]), {k: p.grad.float() for k, p in model.named_parameters()}))
+    (loss_k, grads_k), (loss_p, grads_p) = runs
+    assert abs(loss_k - loss_p) <= 1e-2 * abs(loss_p)
+    bad = {}
+    for k in grads_p:
+        if k.endswith("attention.self.key.bias"):
             assert float(grads_k[k].abs().max()) < 1e-5 and float(grads_p[k].abs().max()) < 1e-5
             continue
         err = rel_err(grads_k[k], grads_p[k])

@@ -213,9 +213,15 @@ def test_fused_layer_norm_pretraining_matches_jax(rng):
         np.testing.assert_allclose(p.grad.numpy(), want[name], atol=ATOL, rtol=RTOL, err_msg=name)
 
 
-def test_other_heads_are_not_ported_yet():
+@pytest.mark.parametrize("what", ["flickr", "multichoice", "vqa_advanced", "output_attention_weights"])
+def test_unported_heads_and_options_raise(what):
+    """The heads still to port (ROADMAP.md A7) and attention-probability
+    collection (A10) raise; nlvr, packed_qkv=False and flash_save_probs are
+    ported (tests/test_torch_nlvr2.py, tests/test_torch_attention_variants.py)."""
     _, tcfg = configs()
-    with pytest.raises(NotImplementedError, match="A7"):
-        VisualBertForTask(tcfg, "nlvr")
-    with pytest.raises(NotImplementedError, match="K13/K14"):
-        VisualBertForTask(tcfg.replace(flash_save_probs=True), "pretraining")
+    if what == "output_attention_weights":
+        with pytest.raises(NotImplementedError, match="A10"):
+            VisualBertForTask(tcfg.replace(output_attention_weights=True), "pretraining")
+    else:
+        with pytest.raises(NotImplementedError, match="A7"):
+            VisualBertForTask(tcfg, what)

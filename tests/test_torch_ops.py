@@ -87,10 +87,10 @@ def test_philox_known_answers():
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
 def test_dropout_mask_distribution_and_determinism(dtype):
     shape, rate = (6, 33, 64), 0.1
-    a = dropout_mask(shape, rate, 11, dtype)
+    a = dropout_mask(shape, rate, 11, dtype, "cpu")
     assert a.shape == shape and a.dtype == dtype
-    assert torch.equal(a, dropout_mask(shape, rate, 11, dtype))
-    assert not torch.equal(a, dropout_mask(shape, rate, 12, dtype))
+    assert torch.equal(a, dropout_mask(shape, rate, 11, dtype, "cpu"))
+    assert not torch.equal(a, dropout_mask(shape, rate, 12, dtype, "cpu"))
     keep = (a != 0).float().mean().item()
     n = a.numel()
     assert abs(keep - (1 - rate)) <= 4 * np.sqrt(rate * (1 - rate) / n)
@@ -103,7 +103,7 @@ def test_fast_dropout_gradient_is_the_mask():
     x = torch.randn(4, 9, 32, requires_grad=True)
     y = fast_dropout(x, 0.25, 3)
     y.backward(torch.ones_like(y))
-    m = dropout_mask(x.shape, 0.25, 3).float() / 0.75
+    m = dropout_mask(x.shape, 0.25, 3, torch.int8, "cpu").float() / 0.75
     torch.testing.assert_close(y, x.detach() * m)
     torch.testing.assert_close(x.grad, m)
     assert fast_dropout(x, 0.0, 3) is x

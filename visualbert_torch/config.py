@@ -5,7 +5,7 @@ dtypes.
 The JAX config's TPU-only execution fields (:data:`TPU_ONLY_MODEL_FIELDS`,
 :data:`TPU_ONLY_TRAIN_FIELDS`) change no math and have no counterpart here;
 :meth:`VisualBertConfig.from_dict` and ``utils/config_io.py`` skip them in a
-config file. Fields that select a kernel the port does not have yet raise in
+config file. Fields that select code the port does not have yet raise in
 :meth:`VisualBertConfig.check_ported`.
 """
 
@@ -56,10 +56,10 @@ class VisualBertConfig:
     # --- execution knobs ---
     dtype: Any = torch.bfloat16        # activation / compute dtype
     param_dtype: Any = torch.float32   # parameter dtype
-    use_flash_attention: bool = False  # K1/K2 packed attention kernels
-    packed_qkv: bool = True
+    use_flash_attention: bool = False  # fused attention kernels: K1/K2 packed
+    packed_qkv: bool = True             # False: K11/K12 heads-major
     use_fused_layer_norm: bool = False  # K7-K10 residual add + LayerNorm kernels
-    flash_save_probs: bool = False
+    flash_save_probs: bool = False      # packed with saved probabilities: K13/K14
     fused_mlm_xent: bool = False
     fast_dropout: bool = False         # K3 mask-kernel dropout
 
@@ -107,18 +107,11 @@ class VisualBertConfig:
         return cls(**{k: v for k, v in d.items() if k in known})
 
     def check_ported(self) -> None:
-        """Raise for options whose kernels are not ported yet (ROADMAP.md B)."""
-        todo = {
-            "flash_save_probs": "the save-probs attention kernels (K13/K14)",
-            "output_attention_weights": "attention-probability collection (probing)",
-        }
-        for name, what in todo.items():
-            if getattr(self, name):
-                raise NotImplementedError(f"{name}=True needs {what}, not ported yet (ROADMAP.md)")
-        if self.use_flash_attention and not self.packed_qkv:
+        """Raise for options whose code is not ported yet (ROADMAP.md A10)."""
+        if self.output_attention_weights:
             raise NotImplementedError(
-                "use_flash_attention with packed_qkv=False needs the heads-major "
-                "attention kernels (K11/K12), not ported yet (ROADMAP.md)"
+                "output_attention_weights=True needs attention-probability collection (probing), "
+                "not ported yet (ROADMAP.md A10)"
             )
 
 

@@ -1,23 +1,35 @@
-// K1 and K2: packed-QKV attention forward and backward. Replace
+// K1/K2: packed-QKV attention forward and backward. Replace
 // visualbert_tpu/ops/flash_attention.py::_packed_fwd_kernel and
 // ::_packed_bwd_kernel (reached through flash_attention_packed).
+// K11/K12: heads-major attention forward and backward. Replace
+// ::_fwd_kernel and ::_bwd_kernel (reached through flash_attention with
+// heads_major=True, the encoder's packed_qkv=False path).
 //
-// Layout (the JAX package's): qkv [B, T, H*3*D] bf16 packed head-major
-// [h0(q,k,v) | h1(q,k,v) | ...], each block D = 64 wide, WITHOUT the QKV
+// The four are two kernels instantiated for two layouts (attn_common.cuh):
+// K1/K2 read qkv [B, T, H*3*D] bf16 packed head-major WITHOUT the QKV
 // projection bias; qb [H*3*D] bf16 is that bias, added here when a tile is
-// loaded. key_bias [B, T] fp32 (0 or -10000). out [B, T, H*D] bf16,
-// stats [B, H, T] fp32 with stats = max_j t + log2 sum_j exp2(t - max), where
-// t = (q.k) * scale * log2(e) + key_bias * log2(e) (the base-2 convention of
-// the JAX kernel). Dropout on the probabilities uses the Philox bits of
-// philox.cuh::attn_philox, a pure function of (seed, b, h, i, j), so the
-// three kernels below draw the identical mask although they tile differently.
+// loaded, and K2 emits its gradient. K11/K12 read qkv [B, 3, H, T, D] bf16
+// with the bias already added (q, k and v are slices of that one tensor: the
+// kernels take its base pointer, never three copies) and K12 writes one
+// [B, 3, H, T, D] gradient. key_bias [B, T] fp32 (0 or -10000). out [B, T,
+// H*D] (K1) or [B, H, T, D] (K11) bf16, stats [B, H, T] fp32 with stats =
+// max_j t + log2 sum_j exp2(t - max), where t = (q.k) * scale * log2(e) +
+// key_bias * log2(e): the base-2 form of the JAX kernels' softmax (K11's
+// natural-base exp is the same function). The TPU heads-major pair keeps no
+// statistics and its backward recomputes max and sum; K11 writes the
+// statistic as K1 does, so K12 rebuilds p = exp2(t - stats) in one pass and
+// uses delta = rowsum(dO * O) for rowsum(dP * P): the same function, without
+// a second pass over the keys. Dropout on the probabilities uses the Philox
+// bits of philox.cuh::attn_philox, a pure function of (seed, b, h, i, j), so
+// the kernels below draw the identical mask although they tile differently.
 //
-// Bound on the H100: at B=96, T=228, H=12 the forward does 15 GFLOP per call
-// on 40 MB of qkv, so it is bound by math and, with dropout on, by the
-// integer work of Philox (one 10-round call per 2 probabilities). This first
-// version uses mma.sync m16n8k16 (bf16 in, fp32 accumulate) with fragments
-// read from padded shared memory (no bank conflicts, no ldmatrix, no TMA,
-// no wgmma): correct and simple first; the fast Hopper path is later work.
+// Bound on the H100: at B=128, T=228, H=12 the forward does 20 GFLOP per
+// call on 134 MB of q, k and v, so it is bound by math and, with dropout on,
+// by the integer work of Philox (one 10-round call per 2 probabilities).
+// This first version uses mma.sync m16n8k16 (bf16 in, fp32 accumulate) with
+// fragments read from padded shared memory (no bank conflicts, no ldmatrix,
+// no TMA, no wgmma): correct and simple first; the fast Hopper path is later
+// work.
 //
 // Forward (FlashAttention-2 style): one block of 4 warps per (64 query rows,
 // head, batch); the head's whole K and V (T <= ~700) sit in shared memory;
@@ -31,102 +43,27 @@
 // key-tile pass (dK, dV) that reads delta. Each recomputes P = exp2(t -
 // stats). No atomics: every output element and every bias-gradient partial
 // is written by exactly one block, so results do not depend on run order.
-// The QKV-bias gradient is emitted as fp32 partials [B, ceil(T/64), F] of
+// K2's QKV-bias gradient is emitted as fp32 partials [B, ceil(T/64), F] of
 // the column sums of the stored (bf16-rounded) dqkv; the caller sums them.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "mma.cuh"
-#include "philox.cuh"
+#include "attn_common.cuh"
 
 namespace {
 
-using vb::bf16;
+using namespace vb_attn;
 using vb::c_to_a;
 using vb::load_a;
 using vb::load_b_cols;
 using vb::load_b_rows;
 using vb::mma16816;
-using vb::pack_bf16;
-using vb::round_bf16;
 
-constexpr int D = 64;                 // head dim
-constexpr int TILE = 64;              // rows per block
-constexpr int QC = 32;                // query chunk of the key-tile pass
-constexpr int LDS = D + 8;            // padded shared-memory row stride (elements)
-constexpr int NTHREADS = 128;         // 4 warps x 16 rows
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float SCALE = 0.125f;       // 1 / sqrt(D)
-
-// Copy rows [t0, t0 + nrows) of one D-wide column block of a [B*T, ld] bf16
-// matrix into shared memory, adding the deferred bias (bf16 add, rounded as
-// the JAX kernel's bf16 `qkv + qb`); rows past T are zero.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, const bf16* __restrict__ bias,
-                                          int t0, int nrows, int T, int ld, int col) {
-  for (int idx = threadIdx.x; idx < nrows * (D / 8); idx += NTHREADS) {
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    const int t = t0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (t < T) {
-      v = *reinterpret_cast<const uint4*>(src + (size_t)t * ld + col + c);
-      if (bias != nullptr) {
-        const uint4 bv = *reinterpret_cast<const uint4*>(bias + col + c);
-        const bf16* x = reinterpret_cast<const bf16*>(&v);
-        const bf16* y = reinterpret_cast<const bf16*>(&bv);
-        uint32_t w[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          w[e] = pack_bf16(__bfloat162float(x[2 * e]) + __bfloat162float(y[2 * e]),
-                           __bfloat162float(x[2 * e + 1]) + __bfloat162float(y[2 * e + 1]));
-        v = make_uint4(w[0], w[1], w[2], w[3]);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDS + c) = v;
-  }
-}
-
-__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// Column sums over this block's 64 rows of a [16 rows/warp x 64] fragment
-// accumulator (after `scale` and bf16 rounding, valid rows only); thread
-// c < 64 of the block returns the sum for column c in *out.
-__device__ __forceinline__ void block_colsum(const float acc[8][4], float scale, bool ok0, bool ok1,
-                                             float* red /* [4][D] smem */, int warp, int g, int tq,
-                                             float* out) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v = (ok0 ? round_bf16(acc[nt][e] * scale) : 0.f) + (ok1 ? round_bf16(acc[nt][2 + e] * scale) : 0.f);
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (g == 0) red[warp * D + nt * 8 + 2 * tq + e] = v;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < D) {
-    const int c = threadIdx.x;
-    *out = red[c] + red[D + c] + red[2 * D + c] + red[3 * D + c];
-  }
-  __syncthreads();
-}
-
-// Store a [16 rows/warp x 64] fragment accumulator times `scale` as bf16.
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float acc[8][4], float scale,
-                                           int row0, int row1, bool ok0, bool ok1, int ld, int col, int tq) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int c = col + nt * 8 + 2 * tq;
-    if (ok0) *reinterpret_cast<uint32_t*>(dst + (size_t)row0 * ld + c) = pack_bf16(acc[nt][0] * scale, acc[nt][1] * scale);
-    if (ok1) *reinterpret_cast<uint32_t*>(dst + (size_t)row1 * ld + c) = pack_bf16(acc[nt][2] * scale, acc[nt][3] * scale);
-  }
+// The deferred bias of (h, j) in the packed [H*3*D] order, or none.
+__device__ __forceinline__ const bf16* bias_of(const bf16* qb, int h, int j) {
+  return qb == nullptr ? nullptr : qb + (3 * h + j) * D;
 }
 
 // ---------------------------------------------------------------- forward
 
+template <class L>
 __global__ void __launch_bounds__(NTHREADS)
 attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, const float* __restrict__ key_bias,
                 bf16* __restrict__ out, float* __restrict__ stats, int T, int H, uint32_t seed,
@@ -139,11 +76,10 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, const
   float* bias2 = reinterpret_cast<float*>(Vs + Tp * LDS);  // [Tp]
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int F = 3 * H * D, HD = H * D;
-  const bf16* base = qkv + (size_t)b * T * F;
-  load_tile(Qs, base, qb, qt * TILE, TILE, T, F, (3 * h + 0) * D);
-  load_tile(Ks, base, qb, 0, Tp, T, F, (3 * h + 1) * D);
-  load_tile(Vs, base, qb, 0, Tp, T, F, (3 * h + 2) * D);
+  const int ld = L::ld_in(H);
+  load_tile(Qs, qkv + L::in_off(b, h, 0, T, H), bias_of(qb, h, 0), qt * TILE, TILE, T, ld);
+  load_tile(Ks, qkv + L::in_off(b, h, 1, T, H), bias_of(qb, h, 1), 0, Tp, T, ld);
+  load_tile(Vs, qkv + L::in_off(b, h, 2, T, H), bias_of(qb, h, 2), 0, Tp, T, ld);
   for (int j = threadIdx.x; j < Tp; j += NTHREADS)
     bias2[j] = j < T ? key_bias[(size_t)b * T + j] * LOG2E : -INFINITY;
   __syncthreads();
@@ -240,12 +176,13 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, const
     sc[r] = inv / l[r];
     ok[r] = row[r] < T;
   }
-  bf16* ob = out + (size_t)b * T * HD;
+  bf16* ob = out + L::out_off(b, h, T, H);
+  const int ldo = L::ld_out(H);
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
-    const int c = h * D + nt * 8 + 2 * tq;
-    if (ok[0]) *reinterpret_cast<uint32_t*>(ob + (size_t)row[0] * HD + c) = pack_bf16(o[nt][0] * sc[0], o[nt][1] * sc[0]);
-    if (ok[1]) *reinterpret_cast<uint32_t*>(ob + (size_t)row[1] * HD + c) = pack_bf16(o[nt][2] * sc[1], o[nt][3] * sc[1]);
+    const int c = nt * 8 + 2 * tq;
+    if (ok[0]) *reinterpret_cast<uint32_t*>(ob + (size_t)row[0] * ldo + c) = pack_bf16(o[nt][0] * sc[0], o[nt][1] * sc[0]);
+    if (ok[1]) *reinterpret_cast<uint32_t*>(ob + (size_t)row[1] * ldo + c) = pack_bf16(o[nt][2] * sc[1], o[nt][3] * sc[1]);
   }
   if (tq == 0) {
 #pragma unroll
@@ -256,6 +193,7 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, const
 
 // ------------------------------------------------------- backward: dQ pass
 
+template <class L>
 __global__ void __launch_bounds__(NTHREADS)
 attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, const float* __restrict__ key_bias,
                    const bf16* __restrict__ dout, const bf16* __restrict__ out, const float* __restrict__ stats,
@@ -273,30 +211,19 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, co
   float* red = dl_s + TILE;                  // [4][D]
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int F = 3 * H * D, HD = H * D, nt_tiles = Tp / TILE;
-  const bf16* base = qkv + (size_t)b * T * F;
-  load_tile(Qs, base, qb, qt * TILE, TILE, T, F, (3 * h + 0) * D);
-  load_tile(dOs, dout + (size_t)b * T * HD, nullptr, qt * TILE, TILE, T, HD, h * D);
-  load_tile(Ks, base, qb, 0, Tp, T, F, (3 * h + 1) * D);
-  load_tile(Vs, base, qb, 0, Tp, T, F, (3 * h + 2) * D);
+  const int ld = L::ld_in(H), ldo = L::ld_out(H), nt_tiles = Tp / TILE;
+  const size_t oo = L::out_off(b, h, T, H);
+  const size_t sb = ((size_t)b * H + h) * T;  // (b, h)'s rows of stats and delta
+  load_tile(Qs, qkv + L::in_off(b, h, 0, T, H), bias_of(qb, h, 0), qt * TILE, TILE, T, ld);
+  load_tile(dOs, dout + oo, nullptr, qt * TILE, TILE, T, ldo);
+  load_tile(Ks, qkv + L::in_off(b, h, 1, T, H), bias_of(qb, h, 1), 0, Tp, T, ld);
+  load_tile(Vs, qkv + L::in_off(b, h, 2, T, H), bias_of(qb, h, 2), 0, Tp, T, ld);
   for (int j = threadIdx.x; j < Tp; j += NTHREADS)
     bias2[j] = j < T ? key_bias[(size_t)b * T + j] * LOG2E : -INFINITY;
-  {
-    // delta = rowsum(dO * O) in fp32: two threads per row, 32 columns each
-    const int r = threadIdx.x >> 1, half = threadIdx.x & 1, i = qt * TILE + r;
-    float acc = 0.f;
-    if (i < T) {
-      const bf16* pd = dout + ((size_t)b * T + i) * HD + h * D + half * 32;
-      const bf16* po = out + ((size_t)b * T + i) * HD + h * D + half * 32;
-#pragma unroll 8
-      for (int k = 0; k < 32; ++k) acc += __bfloat162float(pd[k]) * __bfloat162float(po[k]);
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (half == 0) {
-      dl_s[r] = acc;
-      st_s[r] = i < T ? stats[((size_t)b * H + h) * T + i] : 0.f;
-      if (i < T) delta_g[((size_t)b * H + h) * T + i] = acc;
-    }
+  row_delta(dout + oo, out + oo, ldo, dl_s, delta_g + sb, qt, T);
+  for (int r = threadIdx.x; r < TILE; r += NTHREADS) {
+    const int i = qt * TILE + r;
+    st_s[r] = i < T ? stats[sb + i] : 0.f;
   }
   __syncthreads();
 
@@ -366,15 +293,19 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, co
   }
 
   const bool ok0 = row[0] < T, ok1 = row[1] < T;
-  store_rows(dqkv + (size_t)b * T * F, dq, SCALE, row[0], row[1], ok0, ok1, F, (3 * h + 0) * D, tq);
-  float colsum = 0.f;
-  block_colsum(dq, SCALE, ok0, ok1, red, warp, g, tq, &colsum);
-  if (threadIdx.x < D)
-    db_part[((size_t)b * nt_tiles + qt) * F + (3 * h + 0) * D + threadIdx.x] = colsum;
+  store_rows(dqkv + L::in_off(b, h, 0, T, H), dq, SCALE, row[0], row[1], ok0, ok1, ld, tq);
+  if constexpr (L::kBiasGrad) {
+    const int F = 3 * H * D;
+    float colsum = 0.f;
+    block_colsum(dq, SCALE, ok0, ok1, red, warp, g, tq, &colsum);
+    if (threadIdx.x < D)
+      db_part[((size_t)b * nt_tiles + qt) * F + (3 * h + 0) * D + threadIdx.x] = colsum;
+  }
 }
 
 // --------------------------------------------------- backward: dK, dV pass
 
+template <class L>
 __global__ void __launch_bounds__(NTHREADS)
 attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, const float* __restrict__ key_bias,
                     const bf16* __restrict__ dout, const float* __restrict__ stats,
@@ -392,16 +323,16 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, c
   float* red = kb_s + TILE;                  // [4][D]
 
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int F = 3 * H * D, HD = H * D, nt_tiles = Tp / TILE;
-  const bf16* base = qkv + (size_t)b * T * F;
-  load_tile(Ks, base, qb, kt * TILE, TILE, T, F, (3 * h + 1) * D);
-  load_tile(Vs, base, qb, kt * TILE, TILE, T, F, (3 * h + 2) * D);
-  load_tile(Qs, base, qb, 0, Tp, T, F, (3 * h + 0) * D);
-  load_tile(dOs, dout + (size_t)b * T * HD, nullptr, 0, Tp, T, HD, h * D);
+  const int ld = L::ld_in(H), nt_tiles = Tp / TILE;
+  const size_t sb = ((size_t)b * H + h) * T;
+  load_tile(Ks, qkv + L::in_off(b, h, 1, T, H), bias_of(qb, h, 1), kt * TILE, TILE, T, ld);
+  load_tile(Vs, qkv + L::in_off(b, h, 2, T, H), bias_of(qb, h, 2), kt * TILE, TILE, T, ld);
+  load_tile(Qs, qkv + L::in_off(b, h, 0, T, H), bias_of(qb, h, 0), 0, Tp, T, ld);
+  load_tile(dOs, dout + L::out_off(b, h, T, H), nullptr, 0, Tp, T, L::ld_out(H));
   for (int i = threadIdx.x; i < Tp; i += NTHREADS) {
     // padded queries: stats = +inf makes their probabilities exactly 0
-    st_s[i] = i < T ? stats[((size_t)b * H + h) * T + i] : INFINITY;
-    dl_s[i] = i < T ? delta_g[((size_t)b * H + h) * T + i] : 0.f;
+    st_s[i] = i < T ? stats[sb + i] : INFINITY;
+    dl_s[i] = i < T ? delta_g[sb + i] : 0.f;
   }
   for (int r = threadIdx.x; r < TILE; r += NTHREADS) {
     const int j = kt * TILE + r;
@@ -485,15 +416,17 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, c
   }
 
   const bool ok0 = key[0] < T, ok1 = key[1] < T;
-  bf16* dst = dqkv + (size_t)b * T * F;
-  store_rows(dst, dk, SCALE, key[0], key[1], ok0, ok1, F, (3 * h + 1) * D, tq);
-  store_rows(dst, dv, 1.f, key[0], key[1], ok0, ok1, F, (3 * h + 2) * D, tq);
-  float colsum = 0.f;
-  float* part = db_part + ((size_t)b * nt_tiles + kt) * F;
-  block_colsum(dk, SCALE, ok0, ok1, red, warp, g, tq, &colsum);
-  if (threadIdx.x < D) part[(3 * h + 1) * D + threadIdx.x] = colsum;
-  block_colsum(dv, 1.f, ok0, ok1, red, warp, g, tq, &colsum);
-  if (threadIdx.x < D) part[(3 * h + 2) * D + threadIdx.x] = colsum;
+  store_rows(dqkv + L::in_off(b, h, 1, T, H), dk, SCALE, key[0], key[1], ok0, ok1, ld, tq);
+  store_rows(dqkv + L::in_off(b, h, 2, T, H), dv, 1.f, key[0], key[1], ok0, ok1, ld, tq);
+  if constexpr (L::kBiasGrad) {
+    const int F = 3 * H * D;
+    float colsum = 0.f;
+    float* part = db_part + ((size_t)b * nt_tiles + kt) * F;
+    block_colsum(dk, SCALE, ok0, ok1, red, warp, g, tq, &colsum);
+    if (threadIdx.x < D) part[(3 * h + 1) * D + threadIdx.x] = colsum;
+    block_colsum(dv, 1.f, ok0, ok1, red, warp, g, tq, &colsum);
+    if (threadIdx.x < D) part[(3 * h + 2) * D + threadIdx.x] = colsum;
+  }
 }
 
 size_t fwd_smem(int T) {
@@ -509,6 +442,45 @@ size_t dkv_smem(int T) {
   return (size_t)(2 * TILE + 2 * Tp) * LDS * sizeof(bf16) + (2 * Tp + TILE + 4 * D) * sizeof(float);
 }
 
+template <class L>
+int launch_fwd(const void* qkv, const void* qb, const void* key_bias, void* out, void* stats, int B, int T,
+               int H, unsigned int seed, unsigned int threshold, float inv, int dropout, void* stream) {
+  const size_t smem = fwd_smem(T);
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T + TILE - 1) / TILE, H, B);
+  attn_fwd_kernel<L><<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(qb), static_cast<const float*>(key_bias),
+      static_cast<bf16*>(out), static_cast<float*>(stats), T, H, seed, threshold, inv, dropout);
+  return (int)cudaGetLastError();
+}
+
+template <class L>
+int launch_bwd(const void* qkv, const void* qb, const void* key_bias, const void* dout, const void* out,
+               const void* stats, void* dqkv, void* db_part, void* delta, int B, int T, int H, unsigned int seed,
+               unsigned int threshold, float inv, int dropout, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid((T + TILE - 1) / TILE, H, B);
+  const size_t smem_dq = dq_smem(T), smem_dkv = dkv_smem(T);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_dq);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(attn_bwd_dkv_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkv);
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dq_kernel<L><<<grid, NTHREADS, smem_dq, s>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(qb), static_cast<const float*>(key_bias),
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(out), static_cast<const float*>(stats),
+      static_cast<bf16*>(dqkv), static_cast<float*>(db_part), static_cast<float*>(delta), T, H, seed,
+      threshold, inv, dropout);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dkv_kernel<L><<<grid, NTHREADS, smem_dkv, s>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(qb), static_cast<const float*>(key_bias),
+      static_cast<const bf16*>(dout), static_cast<const float*>(stats), static_cast<const float*>(delta),
+      static_cast<bf16*>(dqkv), static_cast<float*>(db_part), T, H, seed, threshold, inv, dropout);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" size_t vb_attn_smem_bytes(int T) {
@@ -520,37 +492,26 @@ extern "C" size_t vb_attn_smem_bytes(int T) {
 extern "C" int vb_attn_fwd(const void* qkv, const void* qb, const void* key_bias, void* out, void* stats,
                            int B, int T, int H, unsigned int seed, unsigned int threshold, float inv,
                            int dropout, void* stream) {
-  const size_t smem = fwd_smem(T);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + TILE - 1) / TILE, H, B);
-  attn_fwd_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(qb), static_cast<const float*>(key_bias),
-      static_cast<bf16*>(out), static_cast<float*>(stats), T, H, seed, threshold, inv, dropout);
-  return (int)cudaGetLastError();
+  return launch_fwd<PackedLayout>(qkv, qb, key_bias, out, stats, B, T, H, seed, threshold, inv, dropout, stream);
 }
 
 extern "C" int vb_attn_bwd(const void* qkv, const void* qb, const void* key_bias, const void* dout,
                            const void* out, const void* stats, void* dqkv, void* db_part, void* delta,
                            int B, int T, int H, unsigned int seed, unsigned int threshold, float inv,
                            int dropout, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((T + TILE - 1) / TILE, H, B);
-  const size_t smem_dq = dq_smem(T), smem_dkv = dkv_smem(T);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attn_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkv);
-  if (err != cudaSuccess) return (int)err;
-  attn_bwd_dq_kernel<<<grid, NTHREADS, smem_dq, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(qb), static_cast<const float*>(key_bias),
-      static_cast<const bf16*>(dout), static_cast<const bf16*>(out), static_cast<const float*>(stats),
-      static_cast<bf16*>(dqkv), static_cast<float*>(db_part), static_cast<float*>(delta), T, H, seed,
-      threshold, inv, dropout);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  attn_bwd_dkv_kernel<<<grid, NTHREADS, smem_dkv, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(qb), static_cast<const float*>(key_bias),
-      static_cast<const bf16*>(dout), static_cast<const float*>(stats), static_cast<const float*>(delta),
-      static_cast<bf16*>(dqkv), static_cast<float*>(db_part), T, H, seed, threshold, inv, dropout);
-  return (int)cudaGetLastError();
+  return launch_bwd<PackedLayout>(qkv, qb, key_bias, dout, out, stats, dqkv, db_part, delta, B, T, H, seed,
+                                  threshold, inv, dropout, stream);
+}
+
+extern "C" int vb_attn_hm_fwd(const void* qkv, const void* key_bias, void* out, void* stats, int B, int T, int H,
+                              unsigned int seed, unsigned int threshold, float inv, int dropout, void* stream) {
+  return launch_fwd<HeadsMajorLayout>(qkv, nullptr, key_bias, out, stats, B, T, H, seed, threshold, inv, dropout,
+                                      stream);
+}
+
+extern "C" int vb_attn_hm_bwd(const void* qkv, const void* key_bias, const void* dout, const void* out,
+                              const void* stats, void* dqkv, void* delta, int B, int T, int H, unsigned int seed,
+                              unsigned int threshold, float inv, int dropout, void* stream) {
+  return launch_bwd<HeadsMajorLayout>(qkv, nullptr, key_bias, dout, out, stats, dqkv, nullptr, delta, B, T, H,
+                                      seed, threshold, inv, dropout, stream);
 }

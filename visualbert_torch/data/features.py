@@ -1,7 +1,8 @@
-"""Region-feature stores read by COCO pretraining: the per-image ``.npy``
-folder and the in-memory chunk of ``visualbert_tpu/data/features.py``,
-copied (importing the JAX package pulls in JAX). ``H5Features`` is not
-ported: ``h5py`` is not on the card's machine (ROADMAP.md A7).
+"""Region-feature stores and confidence screening: the per-image ``.npy``
+folder, the in-memory chunk and ``screen_features`` of
+``visualbert_tpu/data/features.py``, copied (importing the JAX package
+pulls in JAX). ``H5Features`` is not ported: ``h5py`` is not on the card's
+machine (ROADMAP.md A7).
 
 Readers return fp32 features [n_boxes, dim] plus optional metadata and are
 safe to share across the Batcher's threads.
@@ -10,7 +11,7 @@ safe to share across the Batcher's threads.
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -51,3 +52,24 @@ class ChunkFeatures(FeatureStore):
 
     def get(self, image_id: str) -> Dict[str, np.ndarray]:
         return {k: np.asarray(v) for k, v in self.chunk[image_id].items()}
+
+
+def screen_features(
+    feats: np.ndarray,
+    conf: Optional[np.ndarray],
+    threshold: float = 0.2,
+    max_cap: int = 300,
+    min_count: int = 1,
+) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Confidence screening (reference ``bert_data_utils.py:494-525``): keep
+    the boxes with conf >= threshold in descending confidence, at least
+    ``min_count``, at most ``max_cap``; without confidences the first
+    ``max_cap``."""
+    if conf is None:
+        return feats[:max_cap], None
+    order = np.argsort(-conf)
+    keep = [i for i in order if conf[i] >= threshold]
+    if len(keep) < min_count:
+        keep = list(order[:min_count])
+    keep = np.asarray(keep[:max_cap], np.int64)
+    return feats[keep], conf[keep]

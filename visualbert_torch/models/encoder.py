@@ -34,7 +34,7 @@ from torch import nn
 
 from visualbert_torch.config import VisualBertConfig
 from visualbert_torch.ops.dropout import fast_dropout
-from visualbert_torch.ops.flash_attention import flash_attention_packed
+from visualbert_torch.ops.flash_attention import flash_attention_heads_major, flash_attention_packed
 from visualbert_torch.ops.layer_norm import (
     fused_add_layer_norm,
     fused_dropout_add_layer_norm,
@@ -102,9 +102,12 @@ def init_weights(module: nn.Module, cfg: VisualBertConfig, generator: torch.Gene
 
 class FusedQKV(nn.Module):
     """The Q, K and V projections (HF ``attention.self``), kept as three
-    weights and assembled at call time into one product: head-major packed
+    weights and assembled at call time into one product, in the layout
+    ``layout`` names (JAX ``FusedQKV``): ``"packed"``, head-major packed
     ``[B, T, H*3*D]`` with the bias returned separately (deferred into the
-    attention kernel), or ``[B, T, 3, H, D]`` with the bias added."""
+    attention kernel); ``"heads_major"``, ``[B, 3, H, T, D]`` with the bias
+    added (JAX ``einsum("bte,eshd->bshtd")``; the relayout is a copy of the
+    product); ``"split"``, ``[B, T, 3, H, D]`` with the bias added."""
 
     def __init__(self, cfg: VisualBertConfig):
         super().__init__()
@@ -114,26 +117,29 @@ class FusedQKV(nn.Module):
         self.key = nn.Linear(cfg.hidden_size, hd)
         self.value = nn.Linear(cfg.hidden_size, hd)
 
-    def forward(self, hidden: torch.Tensor, packed: bool):
+    def forward(self, hidden: torch.Tensor, layout: str):
         cfg = self.cfg
         E, H, D = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
         w = torch.stack([self.query.weight, self.key.weight, self.value.weight]).to(cfg.dtype)
         b = torch.stack([self.query.bias, self.key.bias, self.value.bias]).to(cfg.dtype)
-        if packed:
+        if layout == "packed":
             # [3, H*D, E] -> [E, H, 3, D]: head-major [h, (q,k,v), d]
             wp = w.view(3, H, D, E).permute(3, 1, 0, 2).reshape(E, 3 * H * D)
             bp = b.view(3, H, D).permute(1, 0, 2).reshape(3 * H * D)
             return torch.matmul(hidden, wp), bp
-        out = torch.matmul(hidden, w.reshape(3 * H * D, E).t()) + b.reshape(-1)
-        return out.view(*hidden.shape[:-1], 3, H, D)
+        out = (torch.matmul(hidden, w.reshape(3 * H * D, E).t()) + b.reshape(-1)).view(*hidden.shape[:-1], 3, H, D)
+        if layout == "heads_major":
+            return out.permute(0, 2, 3, 1, 4).contiguous()
+        return out
 
 
 class ResidualNorm(nn.Module):
     """``LayerNorm(dropout(dense(x)) + residual)``, the sublayer epilogue
     (reference modeling.py:271-276/312-318; HF ``BertSelfOutput``/``BertOutput``).
-    Its ``dense`` is the attention's output projection (JAX ``OutProj``,
-    which in the packed layout is a plain [H*D, E] product) or the FFN's
-    down projection. With ``use_fused_layer_norm`` the rest is one kernel,
+    Its ``dense`` is the attention's output projection (JAX ``OutProj``:
+    a plain [H*D, E] product of the packed or split context, the einsum
+    ``"bhtd,hde->bte"`` of a heads-major [B, H, T, D] one) or the FFN's down
+    projection. With ``use_fused_layer_norm`` the rest is one kernel,
     dispatched as JAX ``encoder.py:339-354``: K9/K10 with dropout on, K7/K8
     without (evaluation, or a rate of 0)."""
 
@@ -143,9 +149,14 @@ class ResidualNorm(nn.Module):
         self.dense = nn.Linear(in_features, cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, x, res, generator=None):
+    def forward(self, x, res, generator=None, heads_major: bool = False):
         cfg = self.cfg
-        x = linear(x, self.dense, cfg.dtype)
+        if heads_major:
+            H, D = x.shape[1], x.shape[3]
+            w = self.dense.weight.to(cfg.dtype).view(cfg.hidden_size, H, D)
+            x = torch.einsum("bhtd,ehd->bte", x.to(cfg.dtype), w) + self.dense.bias.to(cfg.dtype)
+        else:
+            x = linear(x, self.dense, cfg.dtype)
         scale, bias, eps = self.LayerNorm.weight, self.LayerNorm.bias, cfg.layer_norm_eps
         rate = cfg.hidden_dropout_prob if generator is not None else 0.0
         if cfg.use_fused_layer_norm:
@@ -158,9 +169,11 @@ class ResidualNorm(nn.Module):
 
 class SelfAttention(nn.Module):
     """Multi-head self-attention plus its epilogue (reference
-    modeling.py:207-276; HF ``attention`` = ``self`` + ``output``). With
-    ``use_flash_attention`` it runs the packed kernels K1/K2; otherwise the
-    einsum path with fp32 scores (JAX ``encoder.py:292-305``)."""
+    modeling.py:207-276; HF ``attention`` = ``self`` + ``output``), routed
+    as JAX ``encoder.py:256-311``: with ``use_flash_attention`` the packed
+    kernels K1/K2, or K13/K14 with ``flash_save_probs``, or the heads-major
+    K11/K12 with ``packed_qkv=False``; otherwise the einsum path with fp32
+    scores."""
 
     def __init__(self, cfg: VisualBertConfig):
         super().__init__()
@@ -173,12 +186,15 @@ class SelfAttention(nn.Module):
         H, D = cfg.num_attention_heads, cfg.head_dim
         rate = cfg.attention_probs_dropout_prob if generator is not None else 0.0
         if cfg.use_flash_attention:
-            qkv, qkv_bias = self.self(hidden, packed=True)
             seed = draw_seed(generator) if rate > 0.0 else None
-            ctx = flash_attention_packed(qkv, H, attn_bias, rate, seed, qkv_bias=qkv_bias)
+            if not cfg.packed_qkv:
+                ctx = flash_attention_heads_major(self.self(hidden, "heads_major"), attn_bias, rate, seed)
+                return self.output(ctx, hidden, generator, heads_major=True)
+            qkv, qkv_bias = self.self(hidden, "packed")
+            ctx = flash_attention_packed(qkv, H, attn_bias, rate, seed, qkv_bias=qkv_bias,
+                                         save_probs=cfg.flash_save_probs)
         else:
-            qkv = self.self(hidden, packed=False)
-            q, k, v = qkv.unbind(dim=2)  # [B, T, H, D]
+            q, k, v = self.self(hidden, "split").unbind(dim=2)  # [B, T, H, D]
             scale = 1.0 / math.sqrt(D)
             scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
             scores = scores * scale + attn_bias.float()

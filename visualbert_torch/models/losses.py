@@ -1,4 +1,4 @@
-"""Losses of the pretraining and VQA branches (counterpart of
+"""Losses of the pretraining, VQA and NLVR2 branches (counterpart of
 ``visualbert_tpu/models/losses.py``): fp32 logits in, fp32 scalars out."""
 
 from __future__ import annotations
@@ -27,6 +27,13 @@ def weighted_mean(values: torch.Tensor, weights=None) -> torch.Tensor:
         return values.mean()
     w = weights.float()
     return (values * w).sum() / w.sum().clamp_min(1e-12)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, weights=None) -> torch.Tensor:
+    """``torch.nn.CrossEntropyLoss()``: the mean NLL over the batch, weighted
+    when the batch carries ``example_weight``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return weighted_mean(-logp.gather(-1, labels[..., None].long())[..., 0], weights)
 
 
 def kl_div_batchmean(log_probs: torch.Tensor, target: torch.Tensor, weights=None) -> torch.Tensor:

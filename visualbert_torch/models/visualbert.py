@@ -2,7 +2,7 @@
 ``visualbert_tpu/models/visualbert.py``; reference
 ``TrainVisualBERTObjective``, modeling.py:1335-1598).
 
-The port has two branches:
+The port has three branches:
 
 * ``pretraining`` (modeling.py:1400-1500, JAX ``visualbert.py:85-203``): MLM
   over the gathered ``mlm_positions`` plus the sentence-image alignment
@@ -11,7 +11,10 @@ The port has two branches:
 * ``vqa`` (modeling.py:1502-1521, JAX ``visualbert.py:217-232``): the
   classifier over the hidden state at ``sum(input_mask) - 2`` (the ``[MASK]``
   slot), KL-divergence batchmean against the soft ``label`` scores and the
-  soft accuracy, both weighted by ``example_weight``.
+  soft accuracy, both weighted by ``example_weight``;
+* ``nlvr`` (JAX ``visualbert.py:80-81, 234-243``): a 2-way
+  classifier over the pooled output, cross-entropy against the 0/1
+  ``label`` and accuracy, both weighted by ``example_weight``.
 
 The other head types raise; ROADMAP.md A7 ports them.
 
@@ -19,7 +22,7 @@ Batch keys (tensors): ``input_ids``/``token_type_ids``/``input_mask`` [B, Tt],
 ``visual_embeddings`` [B, Tv, Dv], ``image_mask``/``visual_embeddings_type``
 [B, Tv], ``image_text_alignment`` [B, Tv, A], ``masked_lm_labels`` [B, Tt]
 (-1 unmasked), ``mlm_positions`` [B, P], ``is_random_next`` [B],
-``example_weight`` [B], ``label`` [B, num_answers] (vqa); [B, C, ...]
+``example_weight`` [B], ``label`` [B, num_answers] (vqa) or [B] (nlvr); [B, C, ...]
 choice stacks are flattened.
 """
 
@@ -66,7 +69,7 @@ class VisualBertForTask(nn.Module):
         super().__init__()
         if head_type not in HEAD_TYPES:
             raise ValueError(f"unknown head_type {head_type}")
-        if head_type not in ("pretraining", "vqa"):
+        if head_type not in ("pretraining", "vqa", "nlvr"):
             raise NotImplementedError(
                 f"head_type {head_type!r} is not ported yet (ROADMAP.md A7: fine-tune heads)"
             )
@@ -78,8 +81,8 @@ class VisualBertForTask(nn.Module):
             # the tied MLM decoder (reference modeling.py:411-414)
             self.cls.predictions.decoder.weight = self.bert.embeddings.word_embeddings.weight
         else:
-            # the VQA classifier width (reference modeling.py:1362)
-            self.classifier = Classifier(cfg, num_answers)
+            # the VQA classifier width (reference modeling.py:1362), or NLVR2's two classes
+            self.classifier = Classifier(cfg, num_answers if head_type == "vqa" else 2)
 
     def init_weights(self, generator: torch.Generator) -> "VisualBertForTask":
         init_weights(self, self.cfg, generator)
@@ -114,6 +117,8 @@ class VisualBertForTask(nn.Module):
         )
         if self.head_type == "vqa":
             return self._vqa(batch, input_mask, sequence_output, example_weight, generator)
+        if self.head_type == "nlvr":
+            return self._nlvr(batch, pooled_output, example_weight, generator)
 
         out: Dict[str, torch.Tensor] = {}
         mlm_positions = batch.get("mlm_positions")
@@ -167,4 +172,13 @@ class VisualBertForTask(nn.Module):
         if label is not None:
             out["loss"] = losses.kl_div_batchmean(torch.log_softmax(logits, dim=-1), label, example_weight)
             out["accuracy"] = losses.weighted_mean(losses.vqa_accuracy_scores(logits, label), example_weight)
+        return out
+
+    def _nlvr(self, batch, pooled_output, example_weight, generator):
+        logits = self.classifier(pooled_output, generator)
+        out: Dict[str, torch.Tensor] = {"logits": logits}
+        label = batch.get("label")
+        if label is not None:
+            out["loss"] = losses.cross_entropy(logits, label, example_weight)
+            out["accuracy"] = losses.weighted_mean(logits.argmax(dim=-1) == label, example_weight)
         return out

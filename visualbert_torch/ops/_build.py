@@ -40,6 +40,11 @@ _SIGNATURES = {
     "vb_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_smem_bytes": [_I],
+    "vb_attn_hm_fwd": [_P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
+    "vb_attn_hm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
+    "vb_attn_sp_smem_bytes": [_I],
+    "vb_attn_sp_fwd": [_P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
+    "vb_attn_sp_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_xent_geometry": [_I],
     "vb_xent_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "vb_xent_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
@@ -62,7 +67,7 @@ class KernelLibrary:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(self.lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_size_t if name == "vb_attn_smem_bytes" else ctypes.c_int
+            fn.restype = ctypes.c_size_t if name.endswith("_smem_bytes") else ctypes.c_int
         self.lib.vb_error_string.argtypes = [_I]
         self.lib.vb_error_string.restype = ctypes.c_char_p
 

@@ -42,9 +42,11 @@ def dropout_mask_reference(shape, rate: float, seed: int, dtype=torch.int8, devi
     return _mask_values(bits >= keep_threshold(rate), rate, dtype)
 
 
-def dropout_mask(shape, rate: float, seed: int, dtype=torch.int8, device="cpu") -> torch.Tensor:
+def dropout_mask(shape, rate: float, seed: int, dtype: torch.dtype, device) -> torch.Tensor:
     """Keep mask of ``shape``: int8 ``{0, 1}`` or ``{0, 1/(1-rate)}`` in
-    ``dtype``. ``seed`` is a Python int (one per dropout site and step)."""
+    ``dtype``, on ``device`` (no default: the plain version runs only where
+    the caller asks for the CPU). ``seed`` is a Python int (one per dropout
+    site and step)."""
     device = torch.device(device)
     if device.type == "cpu":
         return dropout_mask_reference(shape, rate, seed, dtype, device)

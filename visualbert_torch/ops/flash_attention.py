@@ -1,28 +1,41 @@
-"""Packed-QKV fused attention (counterpart of
-``visualbert_tpu/ops/flash_attention.py::flash_attention_packed``).
+"""Fused attention (counterpart of ``visualbert_tpu/ops/flash_attention.py``):
+the packed-QKV op ``flash_attention_packed`` (with and without saved
+probabilities) and the heads-major op ``flash_attention_heads_major`` (the
+JAX ``flash_attention(..., heads_major=True)`` on q, k, v stacked into one
+tensor, as the encoder builds it).
 
-The layout and semantics are the JAX package's: ``qkv`` [B, T, H*3*D] packed
-head-major ``[h0(q,k,v) | h1(q,k,v) | ...]`` without the projection bias,
-which is DEFERRED into the kernel as ``qkv_bias`` [H*3*D] (the backward emits
-its gradient directly); an additive key mask (0 valid, -10000 pad) of shape
-[B, T] or [B, 1, 1, T]; a seed for attention-probability dropout. The output
-is [B, T, H*D]. Scores and softmax are fp32 in the base-2 form
-``t = q.k * scale * log2(e) + bias * log2(e)``; the forward also emits the
-per-row statistic ``stats = max t + log2 sum exp2(t - max)`` [B, H, T], from
-which the backward rebuilds ``p = exp2(t - stats)``. Probabilities are cast to
-the compute dtype before PV; backward products take compute-dtype operands
-and accumulate in fp32.
+Layouts and semantics are the JAX package's. Packed: ``qkv`` [B, T, H*3*D]
+packed head-major ``[h0(q,k,v) | h1(q,k,v) | ...]`` without the projection
+bias, which is DEFERRED into the kernel as ``qkv_bias`` [H*3*D] (the
+backward emits its gradient directly); output [B, T, H*D]. Heads-major:
+``qkv`` [B, 3, H, T, D] with the bias added; output [B, H, T, D]. Both take
+an additive key mask (0 valid, -10000 pad) of shape [B, T] or [B, 1, 1, T]
+and a seed for attention-probability dropout. Scores and softmax are fp32
+in the base-2 form ``t = q.k * scale * log2(e) + bias * log2(e)``; the
+forward also emits the per-row statistic ``stats = max t + log2 sum exp2(t
+- max)`` [B, H, T], from which the backward rebuilds ``p = exp2(t -
+stats)``. Probabilities are cast to the compute dtype before PV; backward
+products take compute-dtype operands and accumulate in fp32.
 
-Kernels (``csrc/flash_attention.cu``):
+With ``save_probs`` the packed op adds the bias eagerly (autograd gives its
+gradient, as in JAX), its forward also writes the normalised pre-dropout
+probabilities [B, H, T, T], always bf16, and its backward reads them back
+instead of recomputing QK^T and the softmax.
+
+Kernels (``csrc/flash_attention.cu``, ``csrc/flash_attention_sp.cu``):
 
 * K1, :func:`packed_attention_fwd`, replaces ``_packed_fwd_kernel``;
-* K2, :func:`packed_attention_bwd`, replaces ``_packed_bwd_kernel``.
+* K2, :func:`packed_attention_bwd`, replaces ``_packed_bwd_kernel``;
+* K11, :func:`heads_major_attention_fwd`, replaces ``_fwd_kernel``;
+* K12, :func:`heads_major_attention_bwd`, replaces ``_bwd_kernel``;
+* K13, :func:`packed_attention_sp_fwd`, replaces ``_packed_fwd_sp_kernel``;
+* K14, :func:`packed_attention_sp_bwd`, replaces ``_packed_bwd_sp_kernel``.
 
-Both are bound by math and, with dropout on, by Philox's integer work; see
-the source for the design. On CPU tensors the wrappers compute the plain
-versions :func:`packed_attention_fwd_reference` and
-:func:`packed_attention_bwd_reference` (which follow the kernels' math step
-by step); on CUDA tensors they launch the kernels or raise.
+All are bound by math and, with dropout on, by Philox's integer work (K13
+and K14 also move the probabilities); see the sources for the designs. On
+CPU tensors the wrappers compute their plain versions (the ``*_reference``
+functions, which follow the kernels' math step by step); on CUDA tensors
+they launch the kernels or raise.
 
 The dropout keep bit of probability (b, h, i, j) is a pure function of
 (seed, b, h, i, j) — see ``csrc/philox.cuh::attn_philox`` and its twin
@@ -70,45 +83,59 @@ def _split_heads(x: torch.Tensor, n_heads: int):
     return x[0], x[1], x[2]
 
 
-def packed_attention_fwd_reference(qkv, qb, key_bias, n_heads: int, rate: float, seed: int):
-    """Plain version of K1: (out [B, T, H*D], stats [B, H, T] fp32)."""
-    B, T, F = qkv.shape
-    d = F // (3 * n_heads)
-    scale = 1.0 / math.sqrt(d)
-    x = qkv + qb  # deferred projection bias, in the compute dtype
-    q, k, v = _split_heads(x, n_heads)
+def _pack_heads(dq, dk, dv):
+    """dq, dk, dv [B, H, T, D] -> [B, T, H*3*D] packed head-major."""
+    B, H, T, d = dq.shape
+    return torch.stack([dq, dk, dv], dim=0).permute(1, 3, 2, 0, 4).reshape(B, T, 3 * H * d)
+
+
+def _merge_heads(o):
+    """[B, H, T, D] -> [B, T, H*D]."""
+    B, H, T, d = o.shape
+    return o.permute(0, 2, 1, 3).reshape(B, T, H * d)
+
+
+def _heads(x, n_heads):
+    """[B, T, H*D] -> [B, H, T, D]."""
+    B, T, F = x.shape
+    return x.view(B, T, n_heads, F // n_heads).permute(0, 2, 1, 3)
+
+
+def _keep(seed, q, rate):
+    B, H, T, _ = q.shape
+    return attention_keep_reference(seed, B, H, T, rate, q.device)
+
+
+def _scores2(q, k, key_bias):
+    """t = q.k * scale * log2(e) + key_bias * log2(e), fp32 [B, H, T, T]."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    t = s * (scale * LOG2E) + (key_bias.float() * LOG2E)[:, None, None, :]
+    return s * (scale * LOG2E) + (key_bias.float() * LOG2E)[:, None, None, :]
+
+
+def _attention_fwd(q, k, v, key_bias, rate: float, seed: int):
+    """K1's and K11's math on biased q, k, v [B, H, T, D]: (o [B, H, T, D]
+    in q's dtype, stats [B, H, T] fp32)."""
+    t = _scores2(q, k, key_bias)
     m2 = t.amax(dim=-1, keepdim=True)
     e = torch.exp2(t - m2)
     ssum = e.sum(dim=-1, keepdim=True)
     p = e * (1.0 / ssum)
     stats = (m2 + torch.log2(ssum))[..., 0]
     if rate > 0.0:
-        keep = attention_keep_reference(seed, B, n_heads, T, rate, qkv.device)
-        p = torch.where(keep, p * (1.0 / (1.0 - rate)), torch.zeros((), device=p.device))
-    o = torch.matmul(p.to(x.dtype).float(), v.float()).to(x.dtype)  # [B, H, T, D]
-    return o.permute(0, 2, 1, 3).reshape(B, T, n_heads * d), stats
+        p = torch.where(_keep(seed, q, rate), p * (1.0 / (1.0 - rate)), torch.zeros((), device=p.device))
+    return torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype), stats
 
 
-def packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: float, seed: int):
-    """Plain version of K2, following its math: P rebuilt from the stats,
-    delta = rowsum(dO * O), dQ and dK scaled at the end. Returns
-    (dqkv [B, T, H*3*D], dqb [H*3*D] in qb's dtype)."""
-    B, T, F = qkv.shape
-    d = F // (3 * n_heads)
-    scale = 1.0 / math.sqrt(d)
-    dt = qkv.dtype
-    x = qkv + qb
-    q, k, v = _split_heads(x, n_heads)
-    do = dout.view(B, T, n_heads, d).permute(0, 2, 1, 3)
-    o = out.view(B, T, n_heads, d).permute(0, 2, 1, 3)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    t = s * (scale * LOG2E) + (key_bias.float() * LOG2E)[:, None, None, :]
-    p = torch.exp2(t - stats[..., None])
+def _attention_bwd_from_p(q, k, v, do, o, p, rate: float, seed: int):
+    """The backward of every attention kernel given the pre-dropout
+    probabilities p (fp32 [B, H, T, T]): delta = rowsum(dO * O), dQ and dK
+    scaled at the end. Returns dq, dk, dv [B, H, T, D] in q's dtype."""
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1])
     zero = torch.zeros((), device=p.device)
     if rate > 0.0:
-        keep = attention_keep_reference(seed, B, n_heads, T, rate, qkv.device)
+        keep = _keep(seed, q, rate)
         p_d = torch.where(keep, p * (1.0 / (1.0 - rate)), zero).to(dt)
     else:
         p_d = p.to(dt)
@@ -120,32 +147,114 @@ def packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads:
     ds = (p * (dp - delta)).to(dt).float()
     dq = (torch.matmul(ds, k.float()) * scale).to(dt)
     dk = (torch.matmul(ds.transpose(-1, -2), q.float()) * scale).to(dt)
-    dqkv = torch.stack([dq, dk, dv], dim=0).permute(1, 3, 2, 0, 4).reshape(B, T, F)
-    dqb = dqkv.float().sum(dim=(0, 1)).to(qb.dtype)
-    return dqkv, dqb
+    return dq, dk, dv
 
 
-def _check_cuda_inputs(what, qkv, qb, key_bias, n_heads, *others):
-    if qkv.dtype != torch.bfloat16:
-        raise ValueError(f"{what}: the kernel takes bf16 qkv, got {qkv.dtype}")
-    B, T, F = qkv.shape
-    if F % (3 * n_heads) or F // (3 * n_heads) != KERNEL_HEAD_DIM:
-        raise ValueError(f"{what}: the kernel takes head dim {KERNEL_HEAD_DIM}, got F={F}, H={n_heads}")
-    if qb.shape != (F,) or qb.dtype != qkv.dtype:
-        raise ValueError(f"{what}: qkv_bias must be [{F}] {qkv.dtype}, got {tuple(qb.shape)} {qb.dtype}")
-    if key_bias.shape != (B, T) or key_bias.dtype != torch.float32:
-        raise ValueError(f"{what}: key bias must be [{B}, {T}] float32")
-    for t in (qkv, qb, key_bias) + others:
-        if t.device != qkv.device:
+def _attention_bwd(q, k, v, key_bias, do, o, stats, rate: float, seed: int):
+    """K2's and K12's math: P rebuilt from the stats."""
+    p = torch.exp2(_scores2(q, k, key_bias) - stats[..., None])
+    return _attention_bwd_from_p(q, k, v, do, o, p, rate, seed)
+
+
+def packed_attention_fwd_reference(qkv, qb, key_bias, n_heads: int, rate: float, seed: int):
+    """Plain version of K1: (out [B, T, H*D], stats [B, H, T] fp32)."""
+    q, k, v = _split_heads(qkv + qb, n_heads)  # deferred projection bias, in the compute dtype
+    o, stats = _attention_fwd(q, k, v, key_bias, rate, seed)
+    return _merge_heads(o), stats
+
+
+def packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: float, seed: int):
+    """Plain version of K2. Returns (dqkv [B, T, H*3*D], dqb [H*3*D] in
+    qb's dtype)."""
+    q, k, v = _split_heads(qkv + qb, n_heads)
+    dqkv = _pack_heads(*_attention_bwd(q, k, v, key_bias, _heads(dout, n_heads), _heads(out, n_heads), stats,
+                                       rate, seed))
+    return dqkv, dqkv.float().sum(dim=(0, 1)).to(qb.dtype)
+
+
+def heads_major_attention_fwd_reference(qkv, key_bias, rate: float, seed: int):
+    """Plain version of K11: qkv [B, 3, H, T, D] -> (out [B, H, T, D],
+    stats [B, H, T] fp32)."""
+    return _attention_fwd(*qkv.unbind(1), key_bias, rate, seed)
+
+
+def heads_major_attention_bwd_reference(qkv, key_bias, dout, out, stats, rate: float, seed: int):
+    """Plain version of K12: dqkv [B, 3, H, T, D]."""
+    return torch.stack(_attention_bwd(*qkv.unbind(1), key_bias, dout, out, stats, rate, seed), dim=1)
+
+
+def packed_attention_sp_fwd_reference(qkv, key_bias, n_heads: int, rate: float, seed: int):
+    """Plain version of K13 on the biased packed qkv: (out [B, T, H*D],
+    probs [B, H, T, T] bf16, the normalised pre-dropout p)."""
+    q, k, v = _split_heads(qkv, n_heads)
+    t = _scores2(q, k, key_bias)
+    m2 = t.amax(dim=-1, keepdim=True)
+    p = torch.exp2(t - (m2 + torch.log2(torch.exp2(t - m2).sum(dim=-1, keepdim=True))))
+    probs = p.to(torch.bfloat16)
+    if rate > 0.0:
+        p = torch.where(_keep(seed, q, rate), p * (1.0 / (1.0 - rate)), torch.zeros((), device=p.device))
+    o = torch.matmul(p.to(qkv.dtype).float(), v.float()).to(qkv.dtype)
+    return _merge_heads(o), probs
+
+
+def packed_attention_sp_bwd_reference(qkv, probs, dout, out, n_heads: int, rate: float, seed: int):
+    """Plain version of K14: dqkv [B, T, H*3*D] from the saved bf16 probs."""
+    q, k, v = _split_heads(qkv, n_heads)
+    return _pack_heads(*_attention_bwd_from_p(q, k, v, _heads(dout, n_heads), _heads(out, n_heads),
+                                              probs.float(), rate, seed))
+
+
+# --------------------------------------------------------------- wrappers
+
+
+def _on_cuda(what, x) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises on any other."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return True
+
+
+def _check(what, smem_fn, T, key_bias, B, *tensors):
+    """Device, contiguity, alignment, key bias (unless None) and shared
+    memory; returns the library."""
+    if key_bias is not None:
+        if key_bias.shape != (B, T) or key_bias.dtype != torch.float32:
+            raise ValueError(f"{what}: key bias must be [{B}, {T}] float32")
+        tensors = tensors + (key_bias,)
+    for t in tensors:
+        if t.device != tensors[0].device:
             raise ValueError(f"{what}: tensors on different devices")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: tensors must be 16-byte aligned")
     lib = _build.library()
-    if lib.vb_attn_smem_bytes(T) > MAX_SMEM_BYTES:
+    if getattr(lib, smem_fn)(T) > MAX_SMEM_BYTES:
         raise ValueError(f"{what}: T={T} needs more shared memory than a block has")
     return lib
+
+
+def _check_packed(what, qkv, key_bias, n_heads, *others, qb=None, smem_fn="vb_attn_smem_bytes"):
+    if qkv.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: the kernel takes bf16 qkv, got {qkv.dtype}")
+    B, T, F = qkv.shape
+    if F % (3 * n_heads) or F // (3 * n_heads) != KERNEL_HEAD_DIM:
+        raise ValueError(f"{what}: the kernel takes head dim {KERNEL_HEAD_DIM}, got F={F}, H={n_heads}")
+    for t in others:
+        if t.dtype != qkv.dtype or t.shape != (B, T, F // 3):
+            raise ValueError(f"{what}: dout and out must be [{B}, {T}, {F // 3}] {qkv.dtype}")
+    if qb is not None:
+        if qb.shape != (F,) or qb.dtype != qkv.dtype:
+            raise ValueError(f"{what}: qkv_bias must be [{F}] {qkv.dtype}, got {tuple(qb.shape)} {qb.dtype}")
+        others = others + (qb,)
+    return _check(what, smem_fn, T, key_bias, B, qkv, *others)
+
+
+def _check_stats(what, stats, B, H, T):
+    if stats.shape != (B, H, T) or stats.dtype != torch.float32:
+        raise ValueError(f"{what}: stats must be [{B}, {H}, {T}] float32")
 
 
 def _seed_args(rate: float, seed: int):
@@ -154,11 +263,10 @@ def _seed_args(rate: float, seed: int):
 
 def packed_attention_fwd(qkv, qb, key_bias, n_heads: int, rate: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 wrapper: (out [B, T, H*D], stats [B, H, T] fp32)."""
-    if qkv.device.type == "cpu":
+    what = "packed attention forward (K1)"
+    if not _on_cuda(what, qkv):
         return packed_attention_fwd_reference(qkv, qb, key_bias, n_heads, rate, seed)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"packed attention: unsupported device {qkv.device}")
-    lib = _check_cuda_inputs("packed attention forward (K1)", qkv, qb, key_bias, n_heads)
+    lib = _check_packed(what, qkv, key_bias, n_heads, qb=qb)
     B, T, F = qkv.shape
     out = torch.empty((B, T, F // 3), dtype=qkv.dtype, device=qkv.device)
     stats = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
@@ -166,7 +274,7 @@ def packed_attention_fwd(qkv, qb, key_bias, n_heads: int, rate: float, seed: int
         qkv.data_ptr(), qb.data_ptr(), key_bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
         B, T, n_heads, *_seed_args(rate, seed), _build.stream_ptr(qkv.device),
     )
-    lib.check(code, "packed attention forward (K1)")
+    lib.check(code, what)
     packed_attention_fwd.launches += 1
     return out, stats
 
@@ -178,17 +286,12 @@ def packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, n_heads: int, rate
     """K2 wrapper: (dqkv [B, T, H*3*D], dqb [H*3*D] in qb's dtype). The
     kernel writes fp32 per-(batch, 64-row tile) partials of the bias
     gradient; their sum here is the only reduction outside it."""
-    if qkv.device.type == "cpu":
-        return packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"packed attention: unsupported device {qkv.device}")
     what = "packed attention backward (K2)"
-    lib = _check_cuda_inputs(what, qkv, qb, key_bias, n_heads, dout, out, stats)
+    if not _on_cuda(what, qkv):
+        return packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed)
+    lib = _check_packed(what, qkv, key_bias, n_heads, dout, out, qb=qb)
     B, T, F = qkv.shape
-    if dout.shape != (B, T, F // 3) or dout.dtype != qkv.dtype or out.shape != dout.shape or out.dtype != qkv.dtype:
-        raise ValueError(f"{what}: dout and out must be [{B}, {T}, {F // 3}] {qkv.dtype}")
-    if stats.shape != (B, n_heads, T) or stats.dtype != torch.float32:
-        raise ValueError(f"{what}: stats must be [{B}, {n_heads}, {T}] float32")
+    _check_stats(what, stats, B, n_heads, T)
     n_tiles = (T + TILE - 1) // TILE
     dqkv = torch.empty_like(qkv)
     db_part = torch.empty((B, n_tiles, F), dtype=torch.float32, device=qkv.device)
@@ -204,6 +307,105 @@ def packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, n_heads: int, rate
 
 
 packed_attention_bwd.launches = 0
+
+
+def _check_heads_major(what, qkv, key_bias, *others):
+    if qkv.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: the kernel takes bf16 qkv, got {qkv.dtype}")
+    if qkv.dim() != 5 or qkv.shape[1] != 3 or qkv.shape[4] != KERNEL_HEAD_DIM:
+        raise ValueError(f"{what}: qkv must be [B, 3, H, T, {KERNEL_HEAD_DIM}], got {tuple(qkv.shape)}")
+    B, _, H, T, d = qkv.shape
+    for t in others:
+        if t.dtype != qkv.dtype or t.shape != (B, H, T, d):
+            raise ValueError(f"{what}: dout and out must be [{B}, {H}, {T}, {d}] {qkv.dtype}")
+    return _check(what, "vb_attn_smem_bytes", T, key_bias, B, qkv, *others)
+
+
+def heads_major_attention_fwd(qkv, key_bias, rate: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K11 wrapper: qkv [B, 3, H, T, D] (bias added) -> (out [B, H, T, D],
+    stats [B, H, T] fp32). q, k and v are read in place from ``qkv``."""
+    what = "heads-major attention forward (K11)"
+    if not _on_cuda(what, qkv):
+        return heads_major_attention_fwd_reference(qkv, key_bias, rate, seed)
+    lib = _check_heads_major(what, qkv, key_bias)
+    B, _, H, T, d = qkv.shape
+    out = torch.empty((B, H, T, d), dtype=qkv.dtype, device=qkv.device)
+    stats = torch.empty((B, H, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_hm_fwd(qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                              B, T, H, *_seed_args(rate, seed), _build.stream_ptr(qkv.device))
+    lib.check(code, what)
+    heads_major_attention_fwd.launches += 1
+    return out, stats
+
+
+heads_major_attention_fwd.launches = 0
+
+
+def heads_major_attention_bwd(qkv, key_bias, dout, out, stats, rate: float, seed: int) -> torch.Tensor:
+    """K12 wrapper: dqkv [B, 3, H, T, D], written as one tensor."""
+    what = "heads-major attention backward (K12)"
+    if not _on_cuda(what, qkv):
+        return heads_major_attention_bwd_reference(qkv, key_bias, dout, out, stats, rate, seed)
+    lib = _check_heads_major(what, qkv, key_bias, dout, out)
+    B, _, H, T, _ = qkv.shape
+    _check_stats(what, stats, B, H, T)
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_hm_bwd(qkv.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), out.data_ptr(),
+                              stats.data_ptr(), dqkv.data_ptr(), delta.data_ptr(),
+                              B, T, H, *_seed_args(rate, seed), _build.stream_ptr(qkv.device))
+    lib.check(code, what)
+    heads_major_attention_bwd.launches += 1
+    return dqkv
+
+
+heads_major_attention_bwd.launches = 0
+
+
+def packed_attention_sp_fwd(qkv, key_bias, n_heads: int, rate: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K13 wrapper on the biased packed qkv: (out [B, T, H*D], probs
+    [B, H, T, T] bf16)."""
+    what = "save-probs attention forward (K13)"
+    if not _on_cuda(what, qkv):
+        return packed_attention_sp_fwd_reference(qkv, key_bias, n_heads, rate, seed)
+    lib = _check_packed(what, qkv, key_bias, n_heads, smem_fn="vb_attn_sp_smem_bytes")
+    B, T, F = qkv.shape
+    out = torch.empty((B, T, F // 3), dtype=qkv.dtype, device=qkv.device)
+    probs = torch.empty((B, n_heads, T, T), dtype=torch.bfloat16, device=qkv.device)
+    code = lib.vb_attn_sp_fwd(qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), probs.data_ptr(),
+                              B, T, n_heads, *_seed_args(rate, seed), _build.stream_ptr(qkv.device))
+    lib.check(code, what)
+    packed_attention_sp_fwd.launches += 1
+    return out, probs
+
+
+packed_attention_sp_fwd.launches = 0
+
+
+def packed_attention_sp_bwd(qkv, probs, dout, out, n_heads: int, rate: float, seed: int) -> torch.Tensor:
+    """K14 wrapper: dqkv [B, T, H*3*D] from the saved probabilities."""
+    what = "save-probs attention backward (K14)"
+    if not _on_cuda(what, qkv):
+        return packed_attention_sp_bwd_reference(qkv, probs, dout, out, n_heads, rate, seed)
+    B, T, _ = qkv.shape
+    if probs.shape != (B, n_heads, T, T) or probs.dtype != torch.bfloat16 or not probs.is_contiguous():
+        raise ValueError(f"{what}: probs must be contiguous [{B}, {n_heads}, {T}, {T}] bfloat16")
+    # the key bias only enters through the saved probabilities
+    lib = _check_packed(what, qkv, None, n_heads, dout, out, smem_fn="vb_attn_sp_smem_bytes")
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_sp_bwd(qkv.data_ptr(), probs.data_ptr(), dout.data_ptr(), out.data_ptr(), dqkv.data_ptr(),
+                              delta.data_ptr(), B, T, n_heads, *_seed_args(rate, seed),
+                              _build.stream_ptr(qkv.device))
+    lib.check(code, what)
+    packed_attention_sp_bwd.launches += 1
+    return dqkv
+
+
+packed_attention_sp_bwd.launches = 0
+
+
+# ------------------------------------------------------ autograd and ops
 
 
 class _PackedAttention(torch.autograd.Function):
@@ -224,31 +426,86 @@ class _PackedAttention(torch.autograd.Function):
         return dqkv, dqb, None, None, None, None, None
 
 
-def _prepare(qkv, bias, seed, qkv_bias):
-    B, T, F = qkv.shape
+class _PackedAttentionSP(torch.autograd.Function):
+    """K13 forward, K14 backward; no key-bias gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, key_bias, n_heads, rate, seed):
+        out, probs = packed_attention_sp_fwd(qkv, key_bias, n_heads, rate, seed)
+        ctx.save_for_backward(qkv, probs, out)
+        ctx.args = (n_heads, rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, probs, out = ctx.saved_tensors
+        return packed_attention_sp_bwd(qkv, probs, dout.contiguous(), out, *ctx.args), None, None, None, None
+
+
+class _HeadsMajorAttention(torch.autograd.Function):
+    """K11 forward, K12 backward, on one [B, 3, H, T, D] tensor."""
+
+    @staticmethod
+    def forward(ctx, qkv, key_bias, rate, seed):
+        out, stats = heads_major_attention_fwd(qkv, key_bias, rate, seed)
+        ctx.save_for_backward(qkv, key_bias, out, stats)
+        ctx.args = (rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, key_bias, out, stats = ctx.saved_tensors
+        return heads_major_attention_bwd(qkv, key_bias, dout.contiguous(), out, stats, *ctx.args), None, None, None
+
+
+def _key_bias(bias):
     key_bias = bias[:, 0, 0, :] if bias.dim() == 4 else bias
-    key_bias = key_bias.to(torch.float32).contiguous()
-    qb = qkv_bias if qkv_bias is not None else torch.zeros(F, dtype=qkv.dtype, device=qkv.device)
-    return qkv.contiguous(), qb.contiguous(), key_bias, int(seed or 0)
+    return key_bias.to(torch.float32).contiguous()
+
+
+def _seed(what, rate, seed) -> int:
+    if rate > 0.0 and seed is None:
+        raise ValueError(f"{what}: dropout needs a seed")
+    return int(seed or 0)
+
+
+def _prepare(qkv, bias, qkv_bias):
+    qb = qkv_bias if qkv_bias is not None else torch.zeros(qkv.shape[-1], dtype=qkv.dtype, device=qkv.device)
+    return qkv.contiguous(), qb.contiguous(), _key_bias(bias)
 
 
 def flash_attention_packed(qkv: torch.Tensor, n_heads: int, bias: torch.Tensor, dropout_rate: float = 0.0,
-                           seed: Optional[int] = None, qkv_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused attention over a packed QKV projection (K1 forward, K2 backward).
+                           seed: Optional[int] = None, qkv_bias: Optional[torch.Tensor] = None,
+                           save_probs: bool = False) -> torch.Tensor:
+    """Fused attention over a packed QKV projection: K1 forward and K2
+    backward, or with ``save_probs`` K13 and K14.
 
     qkv: [B, T, H*3*D] head-major, bias-free when ``qkv_bias`` is given.
     bias: [B, 1, 1, T] or [B, T] additive key mask (0 valid, -10000 pad).
-    seed: int, required when ``dropout_rate > 0``. Returns [B, T, H*D]."""
-    if dropout_rate > 0.0 and seed is None:
-        raise ValueError("flash_attention_packed: dropout needs a seed")
-    qkv, qb, key_bias, seed = _prepare(qkv, bias, seed, qkv_bias)
+    seed: int, required when ``dropout_rate > 0``. With ``save_probs`` the
+    bias is added here, before the kernels, as the JAX op does, so autograd
+    produces its gradient. Returns [B, T, H*D]."""
+    seed = _seed("flash_attention_packed", dropout_rate, seed)
+    if save_probs:
+        if qkv_bias is not None:
+            qkv = qkv + qkv_bias
+        return _PackedAttentionSP.apply(qkv.contiguous(), _key_bias(bias), n_heads, float(dropout_rate), seed)
+    qkv, qb, key_bias = _prepare(qkv, bias, qkv_bias)
     return _PackedAttention.apply(qkv, qb, key_bias, n_heads, float(dropout_rate), seed, False)
 
 
 def flash_attention_packed_reference(qkv: torch.Tensor, n_heads: int, bias: torch.Tensor, dropout_rate: float = 0.0,
                                      seed: Optional[int] = None, qkv_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`flash_attention_packed` through the plain versions on any device."""
-    if dropout_rate > 0.0 and seed is None:
-        raise ValueError("flash_attention_packed_reference: dropout needs a seed")
-    qkv, qb, key_bias, seed = _prepare(qkv, bias, seed, qkv_bias)
+    seed = _seed("flash_attention_packed_reference", dropout_rate, seed)
+    qkv, qb, key_bias = _prepare(qkv, bias, qkv_bias)
     return _PackedAttention.apply(qkv, qb, key_bias, n_heads, float(dropout_rate), seed, True)
+
+
+def flash_attention_heads_major(qkv: torch.Tensor, bias: torch.Tensor, dropout_rate: float = 0.0,
+                                seed: Optional[int] = None) -> torch.Tensor:
+    """Fused attention on one heads-major [B, 3, H, T, D] tensor of biased
+    q, k, v (K11 forward, K12 backward; its gradient is one tensor of the
+    same layout). Returns [B, H, T, D]."""
+    seed = _seed("flash_attention_heads_major", dropout_rate, seed)
+    return _HeadsMajorAttention.apply(qkv.contiguous(), _key_bias(bias), float(dropout_rate), seed)

@@ -2,8 +2,8 @@
 (counterpart of ``visualbert_tpu/tasks/registry.py``; the reference's
 ``visualbert/models/train.py`` dataset dispatch, train.py:148-191).
 
-The port has ``coco_pretrain`` and ``vqa``; the other tasks wait for their
-heads and datasets (ROADMAP.md A7). A task supports ``data: {"synthetic":
+The port has ``coco_pretrain``, ``vqa`` and ``nlvr2``; the other tasks wait
+for their heads and datasets (ROADMAP.md A7). A task supports ``data: {"synthetic":
 N}`` for smoke runs and real-data paths (documented per task). Every task
 runs on the device it is given: ``"cuda"`` for the kernels, ``"cpu"`` for
 their plain versions.
@@ -219,6 +219,58 @@ def vqa_dump_hook(vocab):
             logits.append(np.asarray(out["logits"][:n], np.float32))
         if logits:
             VQAEvaluator(vocab).dump(qids, np.concatenate(logits), os.path.join(folder, "vqa_predictions.json"))
+        return {}
+
+    return dump
+
+
+@register("nlvr2")
+def run_nlvr2(cfg: TaskConfig, device):
+    """NLVR2 fine-tuning with the 2-way ``nlvr`` head. Synthetic data is
+    split 80/20 into train and eval. Real data (``train_annotations``,
+    ``eval_annotations``, ``features_h5``) needs ``H5Features``, which is not
+    ported, and raises. Each evaluation after training, or alone with
+    ``eval_only``, writes ``nlvr2_report.csv`` and returns the official
+    accuracy and consistency."""
+    from visualbert_torch.data.datasets import nlvr2 as nlvr_ds
+
+    d = cfg.data
+    if "synthetic" not in d:
+        raise NotImplementedError("NLVR2 on real data reads HDF5 features: H5Features is not ported "
+                                  "(no h5py on the card's machine; ROADMAP.md A7)")
+    tok = _tokenizer(cfg)
+    ann, feats = nlvr_ds.make_synthetic(int(d["synthetic"]), tok, feat_dim=cfg.model.visual_embedding_dim)
+    split = int(len(ann) * 0.8)
+    train_ann, eval_ann = ann[:split], ann[split:]
+
+    def mk(ann):
+        return nlvr_ds.NLVR2Dataset(ann, feats, tok, max_seq_length=int(d.get("max_seq_length", 128)),
+                                    max_regions_per_image=int(d.get("max_regions_per_image", 72)))
+
+    model = VisualBertForTask(cfg.model, head_type="nlvr")
+    return _run_fit(cfg, _trainer(cfg, model, device), mk(train_ann), mk(eval_ann),
+                    dump_hook=nlvr2_dump_hook(eval_ann))
+
+
+def nlvr2_dump_hook(eval_ann):
+    """The dump hook of ``nlvr2`` (JAX ``registry.py:496-515``):
+    ``nlvr2_report.csv``, one row an identifier, recovered through the
+    batches' ``example_index`` (the tail-pad repeats of the last batch
+    collapse in the dict), and the official accuracy and consistency when
+    the split has labels."""
+    from visualbert_torch.utils.nlvr2_eval import accuracy, consistency, write_csv_report
+
+    eval_ids = [a["identifier"] for a in eval_ann]
+    labels = {a["identifier"]: int(a["label"]) for a in eval_ann if "label" in a}
+
+    def dump(collected, folder):
+        preds = {}
+        for batch, out in collected:
+            for i, p in zip(np.asarray(batch["example_index"]), np.asarray(out["logits"]).argmax(-1)):
+                preds[eval_ids[int(i)]] = int(p)
+        write_csv_report(os.path.join(folder, "nlvr2_report.csv"), sorted(preds.items()))
+        if labels:
+            return {"official_accuracy": accuracy(preds, labels), "consistency": consistency(preds, labels)}
         return {}
 
     return dump

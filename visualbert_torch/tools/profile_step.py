@@ -8,9 +8,10 @@ dropout on, BertAdam), warms up, then runs STEPS
 train steps under ``torch.profiler`` and prints, per step: host
 wall time, device busy time (union of kernel intervals), the device's idle
 share, and device time by kernel group and by kernel; then the optimizer
-step alone, timed with CUDA events. It does so twice: for the block as the
-config ships it and with ``"use_fused_layer_norm": true`` (K9/K10), each
-ending in one JSON line.
+step alone, timed with CUDA events. It does so for the block as the config
+ships it, with ``"use_fused_layer_norm": true`` (K9/K10), and with that and
+``"packed_qkv": false`` (K11/K12) or ``"flash_save_probs": true``
+(K13/K14), each ending in one JSON line.
 """
 
 from __future__ import annotations
@@ -30,8 +31,13 @@ TOP = 30    # kernels listed by name
 # form the "optimizer (BertAdam)" group, the rest are grouped by name
 ANNOTATION = "bertadam_step"
 
-# kernel-name substrings -> group (first match wins)
+# kernel-name patterns -> group (first match wins); a pattern is a substring
+# or a tuple of substrings that must all appear
 GROUPS = (
+    ("K11 heads-major attention fwd", (("attn_fwd_kernel", "HeadsMajorLayout"),)),
+    ("K12 heads-major attention bwd", (("attn_bwd", "HeadsMajorLayout"),)),
+    ("K13 save-probs attention fwd", ("attn_sp_fwd",)),
+    ("K14 save-probs attention bwd", ("attn_sp_bwd",)),
     ("K1 attention fwd", ("attn_fwd_kernel",)),
     ("K2 attention bwd", ("attn_bwd",)),
     ("K3 dropout mask", ("dropout_mask_kernel",)),
@@ -48,8 +54,8 @@ GROUPS = (
 
 
 def group_of(name: str) -> str:
-    for group, keys in GROUPS:
-        if any(k in name for k in keys):
+    for group, patterns in GROUPS:
+        if any(all(p in name for p in ((k,) if isinstance(k, str) else k)) for k in patterns):
             return group
     return "other"
 
@@ -81,7 +87,10 @@ def main():
         raise SystemExit("profile_step: needs a CUDA device")
     card = main_path.card_line()
     block = main_path.model_block()
-    for what, b in (("as shipped", block), ("fused LayerNorm", dict(block, use_fused_layer_norm=True))):
+    fused = dict(block, use_fused_layer_norm=True)
+    for what, b in (("as shipped", block), ("fused LayerNorm", fused),
+                    ("fused LayerNorm, packed_qkv false", dict(fused, packed_qkv=False)),
+                    ("fused LayerNorm, flash_save_probs", dict(fused, flash_save_probs=True))):
         print(f"== main path, {what}: {json.dumps(b)}")
         profile(card, b)
         torch.cuda.empty_cache()
