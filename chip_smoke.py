@@ -25,7 +25,14 @@ non-zero without printing the final line:
    from these shapes; K11/K12 (heads-major attention) and K13/K14 (with
    saved probabilities) at K1's shapes, dropout 0 and 0.1, each of K13's
    bf16 probabilities within one bf16 ulp of its plain value, and K14 fed
-   K13's own probabilities and output against the plain chain;
+   K13's own probabilities and output against the plain chain; K15 (each of
+   the 13 attention experiment variants of scripts/attn_exp.py) and K16
+   (scripts/attn_hgrid.py at hg 6, 4, 2) at K1's shapes and dropout 0 and
+   0.1, by K1/K2's measures, every variant timed. Then the path of K15/K16:
+   both sweep tools (visualbert_torch.tools.attn_exp and ... attn_hgrid,
+   their default sweeps at B=96) run as a user runs them, with every launch
+   count set to 0 first; each variant must launch its kernels as the tools
+   call them, and nothing but K1/K2 (their yardstick) may launch besides;
 4. a 2-layer model with dropout off gives the same loss through the kernels
    (K1/K2 attention, K4-K6 cross-entropy), through the kernels with the
    fused LayerNorm (K7/K8), through the heads-major attention (K11/K12,
@@ -39,7 +46,7 @@ non-zero without printing the final line:
    bf16 compute, fp32 parameters and BertAdam state with the pooler frozen,
    schedule "none", lr 1e-4, STEPS steps on one repeated batch. Losses must
    be finite and fall, and every step must launch exactly 12 K1, 12 K2, 25
-   K3 and one each of K4, K5 and K6, and no K7-K14;
+   K3 and one each of K4, K5 and K6, and no K7-K16;
 6. the same with `"use_fused_layer_norm": true` added to the block: every
    step launches 12 K1, 12 K2, 1 K3 (the embeddings' dropout), one each of
    K4-K6, 24 K9 and 24 K10 and no K7/K8; that block with `"packed_qkv":
@@ -78,7 +85,8 @@ non-zero without printing the final line:
    removed at the end;
 10. prints the kernel table as one JSON line (launches from phase 6: the
    fused-LayerNorm main path's STEPS steps, for K7/K8 its dropout-0 step,
-   for K11-K14 the runs with their settings), then {"ok": true, "device":
+   for K11-K14 the runs with their settings, for K15/K16 the tools' run;
+   K15/K16's rows add every variant's time), then {"ok": true, "device":
    {...}} as the last line.
 """
 
@@ -132,6 +140,13 @@ SP_CHAIN_TOL = 8e-3  # K14 fed K13's own probs and out, against the plain chain 
 # plain version's to a few fp32 ulps: each entry may round to the other
 # neighbour, so it must lie within one bf16 ulp of its own plain value
 PROBS_ULPS = 1
+# K15/K16 (every attention experiment variant) against their plain versions
+# by K1/K2's measures, each limit about 4x the largest H100 reading over the
+# variants (in brackets; dropout 0 and 0.1)
+EXP_OUT_TOL = 2e-2     # out, max |kernel - plain| / max |plain|  [4.9e-3, 4.4e-3]
+EXP_STATS_TOL = 8e-6   # stats, absolute                       [1.9e-6 prescale, 9.5e-7 the rest]
+EXP_DQKV_TOL = 1.1e-2  # dqkv, as out              [1.5e-3, 1.4e-3; 2.7e-3 fdrop_prescale at 0.1]
+EXP_DB_TOL = 8e-3      # the qkv-bias gradient, as out          [9.5e-4, 1.9e-3]
 SLICE_REL_TOL = 2e-2  # kernel paths vs einsum + unfused path loss, bf16 model
 
 KERNELS = (  # name, wrapper module, source, the TPU kernel it replaces
@@ -151,17 +166,23 @@ KERNELS = (  # name, wrapper module, source, the TPU kernel it replaces
      "visualbert_tpu/ops/flash_attention.py:409"),
     ("packed_attention_sp_bwd", "flash_attention", "flash_attention_sp.cu",
      "visualbert_tpu/ops/flash_attention.py:441"),
+    ("attn_exp_fwd", "attention_exp", "flash_attention_exp.cu", "scripts/attn_exp.py:53"),
+    ("attn_exp_bwd", "attention_exp", "flash_attention_exp.cu", "scripts/attn_exp.py:100"),
+    ("attn_hgrid_fwd", "attention_exp", "flash_attention_exp.cu", "scripts/attn_hgrid.py:56"),
+    ("attn_hgrid_bwd", "attention_exp", "flash_attention_exp.cu", "scripts/attn_hgrid.py:90"),
 )
-# launches of K1..K14 per train step (12 layers) or eval batch
-PER_STEP = (12, 12, 25, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0)            # the config as shipped
-FUSED_PER_STEP = (12, 12, 1, 1, 1, 1, 0, 0, 24, 24, 0, 0, 0, 0)     # with use_fused_layer_norm
-NO_DROPOUT_PER_STEP = (12, 12, 0, 1, 1, 1, 24, 24, 0, 0, 0, 0, 0, 0)  # that, both dropout rates 0
-HEADS_MAJOR_PER_STEP = (0, 0, 1, 1, 1, 1, 0, 0, 24, 24, 12, 12, 0, 0)  # fused LayerNorm, packed_qkv false
-SAVE_PROBS_PER_STEP = (0, 0, 1, 1, 1, 1, 0, 0, 24, 24, 0, 0, 12, 12)   # fused LayerNorm, flash_save_probs
-VQA_TRAIN_PER_STEP = (12, 12, 1, 0, 0, 0, 0, 0, 24, 24, 0, 0, 0, 0)
-VQA_EVAL_PER_BATCH = (12, 0, 0, 0, 0, 0, 24, 0, 0, 0, 0, 0, 0, 0)
-NLVR2_TRAIN_PER_STEP = (0, 0, 25, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12, 12)
-NLVR2_EVAL_PER_BATCH = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12, 0)
+LABELS = [f"K{i + 1}" for i in range(14)] + ["K15 fwd", "K15 bwd", "K16 fwd", "K16 bwd"]
+# launches of K1..K14 and K15/K16's forward and backward per train step (12
+# layers) or eval batch: nothing on them runs K15/K16
+PER_STEP = (12, 12, 25, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)            # the config as shipped
+FUSED_PER_STEP = (12, 12, 1, 1, 1, 1, 0, 0, 24, 24, 0, 0, 0, 0, 0, 0, 0, 0)     # with use_fused_layer_norm
+NO_DROPOUT_PER_STEP = (12, 12, 0, 1, 1, 1, 24, 24, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)  # that, both dropout rates 0
+HEADS_MAJOR_PER_STEP = (0, 0, 1, 1, 1, 1, 0, 0, 24, 24, 12, 12, 0, 0, 0, 0, 0, 0)  # fused LN, packed_qkv false
+SAVE_PROBS_PER_STEP = (0, 0, 1, 1, 1, 1, 0, 0, 24, 24, 0, 0, 12, 12, 0, 0, 0, 0)   # fused LN, flash_save_probs
+VQA_TRAIN_PER_STEP = (12, 12, 1, 0, 0, 0, 0, 0, 24, 24, 0, 0, 0, 0, 0, 0, 0, 0)
+VQA_EVAL_PER_BATCH = (12, 0, 0, 0, 0, 0, 24, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+NLVR2_TRAIN_PER_STEP = (0, 0, 25, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12, 12, 0, 0, 0, 0)
+NLVR2_EVAL_PER_BATCH = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12, 0, 0, 0, 0, 0)
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): a kernel's bound is
 # the larger of its bytes over the memory rate and its operations over the
 # peak rate of their type
@@ -180,7 +201,7 @@ def log(msg):
 
 
 def counters():
-    """The launch-counting wrappers of K1..K14."""
+    """The launch-counting wrappers of K1..K14 and K15/K16's four."""
     import importlib
 
     return [getattr(importlib.import_module(f"visualbert_torch.ops.{mod}"), name) for name, mod, _, _ in KERNELS]
@@ -188,6 +209,10 @@ def counters():
 
 def read_launches():
     return [c.launches for c in counters()]
+
+
+def launch_text(launches):
+    return ", ".join(f"{label} {n}" for label, n in zip(LABELS, launches))
 
 
 def zero_launches():
@@ -231,9 +256,29 @@ def row_line(name, r, card):
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of bound  [{card}]")
 
 
-def check_kernels(torch, card):
+def packed_inputs(torch):
+    """K1/K2's inputs at the main path's shapes (B=128, T=228, H=12, D=64):
+    qkv [B, T, H*3*D], qb, a key bias with padded text and regions and dout,
+    bf16, from RandomState(0)."""
     import numpy as np
 
+    from visualbert_torch.tools.main_path import B, TT, TV
+
+    H, D, T = 12, 64, TT + TV
+    F = 3 * H * D
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(0)
+    qkv = torch.tensor(rng.randn(B, T, F), dtype=torch.bfloat16, device=dev)
+    qb = torch.tensor(rng.randn(F) * 0.1, dtype=torch.bfloat16, device=dev)
+    mask = np.ones((B, T), np.float32)
+    mask[::3, TT - 20:TT] = 0  # some padded text
+    mask[1::4, T - 30:] = 0    # some padded regions
+    key_bias = torch.tensor((1.0 - mask) * -10000.0, device=dev)
+    dout = torch.tensor(rng.randn(B, T, H * D), dtype=torch.bfloat16, device=dev)
+    return qkv, qb, key_bias, dout
+
+
+def check_kernels(torch, card):
     from visualbert_torch.ops import flash_attention as fa
     from visualbert_torch.ops.dropout import dropout_mask, dropout_mask_reference
     from visualbert_torch.tools.main_path import B, TT, TV
@@ -266,16 +311,9 @@ def check_kernels(torch, card):
                                 **bound(nbytes(got), 0, BF16_FLOPS))
 
     # K1, K2: packed attention at the main path's shapes, padded keys
-    H, D, T = 12, 64, TT + TV
-    F = 3 * H * D
-    rng = np.random.RandomState(0)
-    qkv = torch.tensor(rng.randn(B, T, F), dtype=torch.bfloat16, device=dev)
-    qb = torch.tensor(rng.randn(F) * 0.1, dtype=torch.bfloat16, device=dev)
-    mask = np.ones((B, T), np.float32)
-    mask[::3, TT - 20:TT] = 0  # some padded text
-    mask[1::4, T - 30:] = 0    # some padded regions
-    key_bias = torch.tensor((1.0 - mask) * -10000.0, device=dev)
-    dout = torch.tensor(rng.randn(B, T, H * D), dtype=torch.bfloat16, device=dev)
+    qkv, qb, key_bias, dout = packed_inputs(torch)
+    B, T, F = qkv.shape
+    H, D = 12, 64
     k1, k2 = dict(max_abs_err=0.0), dict(max_abs_err=0.0)
     for rate in (0.0, 0.1):
         out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, 99)
@@ -447,6 +485,108 @@ def check_attention_variants(torch, card):
             f"({n_mm * gflop / r['ms']:.1f} TFLOP/s useful), plain {r['plain_ms']:.4f} ms  [{card}]")
         log(row_line(name, r, card))
     return rows
+
+
+def check_attention_experiments(torch, card):
+    """K15 (every VARIANTS entry) and K16 (hg 6, 4, 2) against their plain
+    versions on K1/K2's inputs (B=128, T=228, H=12, D=64, bf16, padded keys)
+    at dropout 0 and 0.1, by K1/K2's measures: out, stats, dqkv and the bias
+    gradient; each backward gets the plain forward's outputs. Kernel times of
+    every variant at dropout 0.1 (the row's ms is "base" for K15 and hg=6
+    for K16); plain: the plain versions at make_variant's defaults (the
+    schedule knobs leave them as they are); library: scaled_dot_product_attention's
+    forward and backward on the same q, k, v; bound: K1/K2's, the same
+    function."""
+    from visualbert_torch.ops import attention_exp as ae
+
+    qkv, qb, key_bias, dout = packed_inputs(torch)
+    B, T, F = qkv.shape
+    H, D = 12, 64
+    cases = [(name, "attn_exp", ae.VARIANTS[name] or {}) for name in ae.VARIANTS]
+    cases += [(f"hg={hg}", "attn_hgrid", dict(hg=hg)) for hg in (6, 4, 2)]
+    rows = {f"{k}_{p}": dict(max_abs_err=0.0, variant_ms={}) for k in ("attn_exp", "attn_hgrid") for p in ("fwd", "bwd")}
+    rate = 0.1  # the main path's attention dropout, for the times
+    for name, kernel, kw in cases:
+        fwd, bwd = getattr(ae, kernel + "_fwd"), getattr(ae, kernel + "_bwd")
+        fwd_r, bwd_r = getattr(ae, kernel + "_fwd_reference"), getattr(ae, kernel + "_bwd_reference")
+        for r in (0.0, 0.1):
+            out, stats = fwd(qkv, qb, key_bias, H, r, 99, **kw)
+            out_r, stats_r = fwd_r(qkv, qb, key_bias, H, r, 99, **kw)
+            dqkv, dqb = bwd(qkv, qb, key_bias, dout, out_r, stats_r, H, r, 99, **kw)
+            dqkv_r, dqb_r = bwd_r(qkv, qb, key_bias, dout, out_r, stats_r, H, r, 99, **kw)
+            torch.cuda.synchronize()
+            e_out, r_out = rel_err(out, out_r)
+            e_st = float((stats - stats_r).abs().max())
+            e_dq, r_dq = rel_err(dqkv, dqkv_r)
+            e_db, r_db = rel_err(dqb, dqb_r)
+            del out, stats, out_r, stats_r, dqkv, dqkv_r
+            log(f"{kernel} {name} rate {r}: out rel {r_out:.3e} (tol {EXP_OUT_TOL}), stats max_abs_err {e_st:.3e} "
+                f"(tol {EXP_STATS_TOL}); dqkv rel {r_dq:.3e} (tol {EXP_DQKV_TOL}), dqkv_bias rel {r_db:.3e} "
+                f"(tol {EXP_DB_TOL})")
+            if not (r_out <= EXP_OUT_TOL and e_st <= EXP_STATS_TOL and r_dq <= EXP_DQKV_TOL and r_db <= EXP_DB_TOL):
+                raise SystemExit(f"{kernel} {name} disagrees with its plain version at rate {r}")
+            f, b = rows[kernel + "_fwd"], rows[kernel + "_bwd"]
+            f["max_abs_err"] = max(f["max_abs_err"], e_out, e_st)
+            b["max_abs_err"] = max(b["max_abs_err"], e_dq)
+        out, stats = fwd(qkv, qb, key_bias, H, rate, 5, **kw)
+        rows[kernel + "_fwd"]["variant_ms"][name] = cuda_time_ms(lambda: fwd(qkv, qb, key_bias, H, rate, 5, **kw), 10)
+        rows[kernel + "_bwd"]["variant_ms"][name] = cuda_time_ms(
+            lambda: bwd(qkv, qb, key_bias, dout, out, stats, H, rate, 5, **kw), 10)
+        log(f"{kernel} {name} B={B} T={T} H={H} dropout {rate}: forward {rows[kernel + '_fwd']['variant_ms'][name]:.4f} "
+            f"ms, backward {rows[kernel + '_bwd']['variant_ms'][name]:.4f} ms  [{card}]")
+
+    q, k, v = (t.transpose(1, 2) for t in (qkv + qb).view(B, T, H, 3, D).unbind(3))
+    lib = sdpa_ms(torch, q, k, v, key_bias, dout.view(B, T, H, D).transpose(1, 2), rate)
+    del q, k, v
+    gflop = 2.0 * B * H * T * T * D / 1e9  # one [T, T] x D product over every (b, h)
+    for kernel, main in (("attn_exp", "base"), ("attn_hgrid", "hg=6")):
+        kw = dict(hg=6) if kernel == "attn_hgrid" else {}
+        out, stats = getattr(ae, kernel + "_fwd_reference")(qkv, qb, key_bias, H, rate, 5, **kw)
+        dqkv, dqb = getattr(ae, kernel + "_bwd_reference")(qkv, qb, key_bias, dout, out, stats, H, rate, 5, **kw)
+        plain = (cuda_time_ms(lambda: getattr(ae, kernel + "_fwd_reference")(qkv, qb, key_bias, H, rate, 5, **kw), 3),
+                 cuda_time_ms(lambda: getattr(ae, kernel + "_bwd_reference")(qkv, qb, key_bias, dout, out, stats, H,
+                                                                            rate, 5, **kw), 3))
+        moved = (nbytes(qkv, qb, key_bias, out, stats), nbytes(qkv, qb, key_bias, dout, out, stats, dqkv, dqb))
+        for p, n_mm, plain_ms, lib_ms, nb in zip(("fwd", "bwd"), (2, 4), plain, lib, moved):
+            r = rows[f"{kernel}_{p}"]
+            r.update(ms=r["variant_ms"][main], plain_ms=plain_ms, library_ms=lib_ms,
+                     **bound(nb, n_mm * gflop * 1e9, BF16_FLOPS))
+            log(row_line(f"{kernel}_{p} ({main})", r, card))
+        del out, stats, dqkv, dqb
+    return rows
+
+
+def run_attention_tools(torch, card):
+    """The path of K15/K16: the two sweep tools' main, as a user runs them
+    (python -m visualbert_torch.tools.attn_exp and ... attn_hgrid, their
+    default sweeps), with every count set to 0 just before; each variant
+    must launch its kernels as the tools call them and nothing else may
+    launch but K1/K2, their yardstick. Returns the launches."""
+    from visualbert_torch.ops import attention_exp as ae
+    from visualbert_torch.tools import attn_exp, attn_hgrid
+
+    zero_launches()
+    t0 = time.perf_counter()
+    exp = attn_exp.main([])
+    hgrid = attn_hgrid.main([])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    # each sweep line: one forward and backward at dropout 0, then the timed
+    # runs, each with a warm-up call: forward alone, forward + backward
+    timed = 1 + attn_exp.RUNS * attn_exp.CALLS
+    fwd, bwd = 1 + 2 * timed, 1 + timed
+    n_exp, n_hg = len(ae.VARIANTS), len(hgrid) - 1
+    want = [0] * len(KERNELS)
+    want[0], want[1] = 2 * fwd, 2 * bwd  # K1/K2, one line in each tool
+    want[14:18] = [n_exp * fwd, n_exp * bwd, n_hg * fwd, n_hg * bwd]
+    log(f"attention tools ({len(exp) - 1} K15 variants, {n_hg} K16 hg values, {wall:.1f} s): launches "
+        + launch_text(launches) + f"; want {launch_text(want)}")
+    if launches != want:
+        raise SystemExit(f"the attention tools launched {launches}")
+    for name, r in list(exp.items()) + list(hgrid.items()):
+        if name != "K1/K2" and not (math.isfinite(r["max_abs_out"]) and math.isfinite(r["max_abs_dqkv"])):
+            raise SystemExit(f"the attention tools: non-finite difference for {name}")
+    return launches
 
 
 def check_xent(torch, card):
@@ -662,7 +802,7 @@ def run_slice(torch, block, card, per_step, what):
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     log(f"{what}: losses ({STEPS} steps, one repeated batch): " + ", ".join(f"{x:.5f}" for x in losses))
     log(f"{what}: launches over {STEPS} steps: "
-        + ", ".join(f"K{i + 1} {n} ({n / STEPS:g}/step)" for i, n in enumerate(launches))
+        + ", ".join(f"{label} {n} ({n / STEPS:g}/step)" for label, n in zip(LABELS, launches))
         + f"; want {'/'.join(map(str, per_step))} per step")
     med = statistics.median(times[1:])
     log(f"{what}: step time median {med * 1e3:.2f} ms over steps 2..{STEPS} (first step {times[0] * 1e3:.1f} ms), "
@@ -685,8 +825,7 @@ def run_step_without_dropout(torch, block):
     zero_launches()
     loss = float(trainer.train_step(batch)["loss"])
     launches = read_launches()
-    log("main path, dropout 0, one step: loss %.5f; launches " % loss
-        + ", ".join(f"K{i + 1} {n}" for i, n in enumerate(launches))
+    log("main path, dropout 0, one step: loss %.5f; launches " % loss + launch_text(launches)
         + f"; want {'/'.join(map(str, NO_DROPOUT_PER_STEP))}")
     if not math.isfinite(loss) or launches != list(NO_DROPOUT_PER_STEP):
         raise SystemExit(f"the dropout-0 step: loss {loss}, launches {launches}")
@@ -724,7 +863,7 @@ def run_cli(torch, card):
         log(f"cli: {out.getvalue().strip()}; {steps} steps at batch {raw['train']['train_batch_size']} on "
             f"{trainer.device}, {wall:.1f} s with set-up; epoch means: "
             + ", ".join(f"{k} {v:.5f}" for k, v in sorted(epoch.items())))
-        log("cli launches: " + ", ".join(f"K{i + 1} {n}" for i, n in enumerate(launches))
+        log("cli launches: " + launch_text(launches)
             + f"; want {'/'.join(map(str, PER_STEP))} per step")
         if trainer.device.type != "cuda" or steps != CLI_EXAMPLES // raw["train"]["train_batch_size"]:
             raise SystemExit(f"the CLI ran {steps} steps on {trainer.device}")
@@ -782,7 +921,7 @@ def run_vqa_cli(torch, card):
         log(f"vqa cli: {out.getvalue().strip()}; {trainer.step} steps at batch {raw['train']['train_batch_size']} "
             f"on {trainer.device}, {wall:.1f} s with set-up; epoch means: "
             + ", ".join(f"{k} {v:.6f}" for k, v in sorted(epoch.items())))
-        log("vqa cli launches: " + ", ".join(f"K{i + 1} {n}" for i, n in enumerate(launches))
+        log("vqa cli launches: " + launch_text(launches)
             + f"; want {steps} x {'/'.join(map(str, VQA_TRAIN_PER_STEP))} (train steps) + 2 x {eval_batches} x "
             + f"{'/'.join(map(str, VQA_EVAL_PER_BATCH))} (eval batches)")
         if trainer.device.type != "cuda" or trainer.step != steps:
@@ -811,7 +950,7 @@ def run_vqa_cli(torch, card):
             same_preds = json.load(f) == preds
         log(f"vqa --eval_only: {out.getvalue().strip()}; " + ", ".join(f"{k} {v:.6f}" for k, v in metrics.items())
             + f"; max |diff| to the epoch's val_ metrics {diff:.2e} (tol 1e-6); predictions equal: {same_preds} "
-            f"({len(preds)} questions); launches " + ", ".join(f"K{i + 1} {n}" for i, n in enumerate(launches)))
+            f"({len(preds)} questions); launches " + launch_text(launches))
         if diff > 1e-6 or not same_preds or launches != [eval_batches * b for b in VQA_EVAL_PER_BATCH]:
             raise SystemExit("--eval_only does not reproduce the VQA run's evaluation")
     finally:
@@ -855,7 +994,7 @@ def run_nlvr2_cli(torch, card):
         log(f"nlvr2 cli: {out.getvalue().strip()}; {trainer.step} steps at batch "
             f"{raw['train']['train_batch_size']} on {trainer.device}, {wall:.1f} s with set-up; epoch means: "
             + ", ".join(f"{k} {v:.6f}" for k, v in sorted(epoch.items())))
-        log("nlvr2 cli launches: " + ", ".join(f"K{i + 1} {n}" for i, n in enumerate(launches))
+        log("nlvr2 cli launches: " + launch_text(launches)
             + f"; want {steps} x {'/'.join(map(str, NLVR2_TRAIN_PER_STEP))} (train steps) + 2 x {eval_batches} x "
             + f"{'/'.join(map(str, NLVR2_EVAL_PER_BATCH))} (eval batches)")
         if trainer.device.type != "cuda" or trainer.step != steps:
@@ -890,7 +1029,7 @@ def run_nlvr2_cli(torch, card):
             + f"; max |diff| of loss and accuracy to the epoch's val_ metrics {diff:.2e} (tol 1e-6); report equal: "
             f"{same} ({len(report.splitlines())} rows); |official accuracy - val_accuracy| {d_off:.2e} (tol 1e-6), "
             f"consistency equal to it: {metrics['consistency'] == metrics['official_accuracy']}; launches "
-            + ", ".join(f"K{i + 1} {n}" for i, n in enumerate(launches)))
+            + launch_text(launches))
         if diff > 1e-6 or not same or launches != [eval_batches * b for b in NLVR2_EVAL_PER_BATCH]:
             raise SystemExit("--eval_only does not reproduce the NLVR2 run's evaluation")
         if d_off > 1e-6 or metrics["consistency"] != metrics["official_accuracy"]:
@@ -926,6 +1065,10 @@ def main():
     rows.update(check_layer_norm(torch, card))
     rows.update(check_attention_variants(torch, card))
     torch.cuda.empty_cache()
+    rows.update(check_attention_experiments(torch, card))
+    torch.cuda.empty_cache()
+    exp_launches = run_attention_tools(torch, card)
+    torch.cuda.empty_cache()
 
     block = model_block()
     fused = dict(block, use_fused_layer_norm=True)
@@ -952,11 +1095,13 @@ def main():
     run_nlvr2_cli(torch, card)
 
     # launches: the fused-LayerNorm main path's STEPS steps; K7/K8 from its
-    # dropout-0 step; K11/K12 and K13/K14 from the runs with their settings
+    # dropout-0 step; K11/K12 and K13/K14 from the runs with their settings;
+    # K15/K16 from the two attention tools
     launches = list(runs["fused LayerNorm"][0])
     launches[6:8] = no_dropout[6:8]
     launches[10:12] = runs["fused LayerNorm, packed_qkv false"][0][10:12]
     launches[12:14] = runs["fused LayerNorm, flash_save_probs"][0][12:14]
+    launches[14:18] = exp_launches[14:18]
     table = [dict(name=name, route="cuda", source=f"visualbert_torch/csrc/{src}", replaces=replaces, launches=n,
                   **rows[name]) for (name, _, src, replaces), n in zip(KERNELS, launches)]
     print(json.dumps({"kernels": table}), flush=True)

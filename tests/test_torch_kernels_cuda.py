@@ -20,13 +20,17 @@ within 1e-4, dscale and dbias within 1e-3; their dropout masks agree
 exactly. The heads-major (K11/K12) and save-probs (K13/K14) attention
 kernels are held as K1/K2 are, at small shapes and at the main path's T =
 228 and NLVR2's T = 272; each of K13's bf16 probabilities within one bf16
-ulp of its plain value, and K14 fed K13's own output as K2 is.
+ulp of its plain value, and K14 fed K13's own output as K2 is. The
+attention experiment kernels (K15 with every variant of ``VARIANTS`` and
+two more knob settings, so every compiled flag combination runs; K16 at
+every hg that divides H) are held as K1/K2 are, at dropout 0 and 0.1.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from visualbert_torch.ops import attention_exp as ae
 from visualbert_torch.ops import flash_attention as fa
 from visualbert_torch.ops import layer_norm as ln
 from visualbert_torch.ops import mlm_xent as xe
@@ -207,6 +211,56 @@ def test_variant_kernels_take_t_up_to_512_and_refuse_more(cuda):
         fa.heads_major_attention_fwd(big, kb, 0.0, 0)
     with pytest.raises(ValueError, match="shared memory"):
         fa.packed_attention_sp_fwd(big.permute(0, 3, 2, 1, 4).reshape(1, 1024, 192).contiguous(), kb, 1, 0.0, 0)
+
+
+# every VARIANTS entry, plus prescale with nomax (the fourth forward
+# instantiation) and a head group that does not divide H
+EXP_VARIANTS = dict(ae.VARIANTS, prescale_nomax=dict(prescale=True, nomax=True), g5=dict(group=5))
+EXP_SHAPES = [(4, 228, 12), (2, 37, 3), (3, 130, 4)]
+
+
+def assert_attention_close(got_fwd, want_fwd, got_bwd, want_bwd):
+    (out, stats), (out_r, stats_r) = got_fwd, want_fwd
+    (dqkv, dqb), (dqkv_r, dqb_r) = got_bwd, want_bwd
+    assert rel_err(out, out_r) < REL_TOL
+    assert float((stats - stats_r).abs().max()) < STATS_ATOL
+    assert rel_err(dqkv, dqkv_r) < REL_TOL
+    assert rel_err(dqb, dqb_r) < REL_TOL
+
+
+@pytest.mark.parametrize("B,T,H", EXP_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("name", list(EXP_VARIANTS))
+def test_attention_experiment_kernels_match_plain(cuda, name, B, T, H, rate):
+    kw = EXP_VARIANTS[name] or {}
+    bb = kw.get("bb", 1)
+    qkv, qb, key_bias, dout = attention_inputs(-(-B // bb) * bb, T, H, cuda)
+    launches = (ae.attn_exp_fwd.launches, ae.attn_exp_bwd.launches)
+    got_fwd = ae.attn_exp_fwd(qkv, qb, key_bias, H, rate, 99, **kw)
+    want_fwd = ae.attn_exp_fwd_reference(qkv, qb, key_bias, H, rate, 99, **kw)
+    # the backward gets the plain forward's out and stats on both sides
+    got_bwd = ae.attn_exp_bwd(qkv, qb, key_bias, dout, *want_fwd, H, rate, 99, **kw)
+    want_bwd = ae.attn_exp_bwd_reference(qkv, qb, key_bias, dout, *want_fwd, H, rate, 99, **kw)
+    torch.cuda.synchronize()
+    assert (ae.attn_exp_fwd.launches - launches[0], ae.attn_exp_bwd.launches - launches[1]) == (1, 1)
+    assert_attention_close(got_fwd, want_fwd, got_bwd, want_bwd)
+
+
+HGRID_CASES = [(hg, B, T, H) for B, T, H in [(4, 228, 12), (2, 272, 12), (2, 37, 3)]
+               for hg in range(1, H + 1) if H % hg == 0]
+
+
+@pytest.mark.parametrize("hg,B,T,H", HGRID_CASES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_hgrid_kernels_match_plain(cuda, hg, B, T, H, rate):
+    qkv, qb, key_bias, dout = attention_inputs(B, T, H, cuda)
+    got_fwd = ae.attn_hgrid_fwd(qkv, qb, key_bias, H, rate, 99, hg)
+    want_fwd = ae.attn_hgrid_fwd_reference(qkv, qb, key_bias, H, rate, 99, hg)
+    assert got_fwd[1].shape == (B, H // hg, hg, T)
+    got_bwd = ae.attn_hgrid_bwd(qkv, qb, key_bias, dout, *want_fwd, H, rate, 99, hg)
+    want_bwd = ae.attn_hgrid_bwd_reference(qkv, qb, key_bias, dout, *want_fwd, H, rate, 99, hg)
+    torch.cuda.synchronize()
+    assert_attention_close(got_fwd, want_fwd, got_bwd, want_bwd)
 
 
 def test_attention_dropout_changes_output(cuda):

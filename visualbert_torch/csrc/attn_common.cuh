@@ -1,8 +1,10 @@
 // Tile helpers and layouts shared by the attention kernels
-// (flash_attention.cu: K1/K2 and K11/K12; flash_attention_sp.cu: K13/K14).
+// (flash_attention.cu: K1/K2 and K11/K12; flash_attention_sp.cu: K13/K14;
+// flash_attention_exp.cu: K15/K16).
 //
-// Every kernel here works on one (batch b, head h) pair per block, with
-// D = 64 head dims, 64-row tiles and 4 warps of 16 rows. A layout says where
+// Every kernel here works on one (batch b, head h) pair at a time (K15/K16
+// walk several in one block), with D = 64 head dims, 64-row tiles and 4
+// warps of 16 rows. A layout says where
 // the rows of (b, h)'s Q, K or V (j = 0, 1, 2) start in the input and where
 // its output rows start, and their row strides (elements):
 //
@@ -55,6 +57,22 @@ struct HeadsMajorLayout {
 };
 
 __host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Dynamic shared memory of the three stats-carrying attention kernels (the
+// forward, the backward's query-tile and key-tile passes), whose layouts
+// flash_attention.cu and flash_attention_exp.cu share.
+inline size_t fwd_smem(int T) {
+  const int Tp = round_up(T, TILE);
+  return (size_t)(TILE + 2 * Tp) * LDS * sizeof(bf16) + Tp * sizeof(float);
+}
+inline size_t dq_smem(int T) {
+  const int Tp = round_up(T, TILE);
+  return (size_t)(2 * TILE + 2 * Tp) * LDS * sizeof(bf16) + (Tp + 2 * TILE + 4 * D) * sizeof(float);
+}
+inline size_t dkv_smem(int T) {
+  const int Tp = round_up(T, TILE);
+  return (size_t)(2 * TILE + 2 * Tp) * LDS * sizeof(bf16) + (2 * Tp + TILE + 4 * D) * sizeof(float);
+}
 
 // Copy rows [t0, t0 + nrows) of a D-wide row block (row t at src + t * ld)
 // into shared memory, adding the deferred bias when one is given (bf16 add,

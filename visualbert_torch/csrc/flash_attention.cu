@@ -429,19 +429,6 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, c
   }
 }
 
-size_t fwd_smem(int T) {
-  const int Tp = round_up(T, TILE);
-  return (size_t)(TILE + 2 * Tp) * LDS * sizeof(bf16) + Tp * sizeof(float);
-}
-size_t dq_smem(int T) {
-  const int Tp = round_up(T, TILE);
-  return (size_t)(2 * TILE + 2 * Tp) * LDS * sizeof(bf16) + (Tp + 2 * TILE + 4 * D) * sizeof(float);
-}
-size_t dkv_smem(int T) {
-  const int Tp = round_up(T, TILE);
-  return (size_t)(2 * TILE + 2 * Tp) * LDS * sizeof(bf16) + (2 * Tp + TILE + 4 * D) * sizeof(float);
-}
-
 template <class L>
 int launch_fwd(const void* qkv, const void* qb, const void* key_bias, void* out, void* stats, int B, int T,
                int H, unsigned int seed, unsigned int threshold, float inv, int dropout, void* stream) {

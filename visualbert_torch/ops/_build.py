@@ -45,6 +45,8 @@ _SIGNATURES = {
     "vb_attn_sp_smem_bytes": [_I],
     "vb_attn_sp_fwd": [_P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_sp_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
+    "vb_attn_exp_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
+    "vb_attn_exp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_xent_geometry": [_I],
     "vb_xent_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "vb_xent_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],

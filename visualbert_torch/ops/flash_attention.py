@@ -106,18 +106,24 @@ def _keep(seed, q, rate):
     return attention_keep_reference(seed, B, H, T, rate, q.device)
 
 
-def _scores2(q, k, key_bias):
-    """t = q.k * scale * log2(e) + key_bias * log2(e), fp32 [B, H, T, T]."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    return s * (scale * LOG2E) + (key_bias.float() * LOG2E)[:, None, None, :]
+def _scores2(q, k, key_bias, prescale: bool = False):
+    """t = q.k * scale * log2(e) + key_bias * log2(e), fp32 [B, H, T, T].
+    With ``prescale`` (K15's variant) q is first rounded to q's dtype as
+    q * scale * log2(e) and the product is not scaled again."""
+    c1 = (1.0 / math.sqrt(q.shape[-1])) * LOG2E
+    kb = (key_bias.float() * LOG2E)[:, None, None, :]
+    if prescale:
+        return torch.matmul((q.float() * c1).to(q.dtype).float(), k.float().transpose(-1, -2)) + kb
+    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * c1 + kb
 
 
-def _attention_fwd(q, k, v, key_bias, rate: float, seed: int):
+def _attention_fwd(q, k, v, key_bias, rate: float, seed: int, prescale: bool = False, nomax: bool = False):
     """K1's and K11's math on biased q, k, v [B, H, T, D]: (o [B, H, T, D]
-    in q's dtype, stats [B, H, T] fp32)."""
-    t = _scores2(q, k, key_bias)
-    m2 = t.amax(dim=-1, keepdim=True)
+    in q's dtype, stats [B, H, T] fp32). ``prescale`` and ``nomax`` are
+    K15's variants: q rounded after scaling, and no row max (stats = log2
+    sum exp2(t))."""
+    t = _scores2(q, k, key_bias, prescale)
+    m2 = torch.zeros_like(t[..., :1]) if nomax else t.amax(dim=-1, keepdim=True)
     e = torch.exp2(t - m2)
     ssum = e.sum(dim=-1, keepdim=True)
     p = e * (1.0 / ssum)
@@ -127,10 +133,12 @@ def _attention_fwd(q, k, v, key_bias, rate: float, seed: int):
     return torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype), stats
 
 
-def _attention_bwd_from_p(q, k, v, do, o, p, rate: float, seed: int):
+def _attention_bwd_from_p(q, k, v, do, o, p, rate: float, seed: int, fdrop: bool = False):
     """The backward of every attention kernel given the pre-dropout
     probabilities p (fp32 [B, H, T, T]): delta = rowsum(dO * O), dQ and dK
-    scaled at the end. Returns dq, dk, dv [B, H, T, D] in q's dtype."""
+    scaled at the end. Returns dq, dk, dv [B, H, T, D] in q's dtype.
+    ``fdrop`` (K15's variant) takes ds = p_d * dP - p * delta with the
+    dropped probabilities p_d rounded to q's dtype, at rate > 0."""
     dt = q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     zero = torch.zeros((), device=p.device)
@@ -141,19 +149,25 @@ def _attention_bwd_from_p(q, k, v, do, o, p, rate: float, seed: int):
         p_d = p.to(dt)
     dv = torch.matmul(p_d.float().transpose(-1, -2), do.float()).to(dt)
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
-    if rate > 0.0:
-        dp = torch.where(keep, dp * (1.0 / (1.0 - rate)), zero)
     delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
-    ds = (p * (dp - delta)).to(dt).float()
+    if rate > 0.0 and fdrop:
+        ds = p_d.float() * dp - p * delta
+    else:
+        if rate > 0.0:
+            dp = torch.where(keep, dp * (1.0 / (1.0 - rate)), zero)
+        ds = p * (dp - delta)
+    ds = ds.to(dt).float()
     dq = (torch.matmul(ds, k.float()) * scale).to(dt)
     dk = (torch.matmul(ds.transpose(-1, -2), q.float()) * scale).to(dt)
     return dq, dk, dv
 
 
-def _attention_bwd(q, k, v, key_bias, do, o, stats, rate: float, seed: int):
-    """K2's and K12's math: P rebuilt from the stats."""
-    p = torch.exp2(_scores2(q, k, key_bias) - stats[..., None])
-    return _attention_bwd_from_p(q, k, v, do, o, p, rate, seed)
+def _attention_bwd(q, k, v, key_bias, do, o, stats, rate: float, seed: int, prescale: bool = False,
+                   fdrop: bool = False):
+    """K2's and K12's math: P rebuilt from the stats (K15's variants as in
+    :func:`_scores2` and :func:`_attention_bwd_from_p`)."""
+    p = torch.exp2(_scores2(q, k, key_bias, prescale) - stats[..., None])
+    return _attention_bwd_from_p(q, k, v, do, o, p, rate, seed, fdrop)
 
 
 def packed_attention_fwd_reference(qkv, qb, key_bias, n_heads: int, rate: float, seed: int):
