@@ -14,10 +14,13 @@ non-zero without printing the final line:
    shapes of the main path: K3 (dropout mask, [128, 228, 768]) must equal
    its bit-exact twin; K1 and K2 (packed attention forward and backward,
    B=128, T=228, H=12, D=64, bf16, padded keys) at dropout 0 and 0.1 must
-   agree within a few bf16 ulps; K4, K5 and K6 (the fused MLM
-   cross-entropy: forward, dx, d embedding and d bias) at N = 128 x 24 =
-   3072 rows, H=768, V=30522, bf16, 15 % of labels -1 and a non-uniform
-   cotangent; K7-K10 (residual add + LayerNorm, without and with dropout,
+   agree within a few bf16 ulps, timed at both rates, with each of their
+   three kernels' head group, blocks an SM, registers and shared memory,
+   and set beside K16 (the schedule alone) at its best hg of the same call;
+   K4, K5 and K6 (the fused MLM cross-entropy: forward, dx, d embedding and
+   d bias) at N = 128 x 24 = 3072 rows, H=768, V=30522, bf16, 15 % of labels
+   -1 and a non-uniform cotangent, and again at bert-large's H=1024;
+   K7-K10 (residual add + LayerNorm, without and with dropout,
    forward and backward) at the main path's N = 128 x 228 = 29,184 rows,
    H=768, bf16, K9/K10 at rate 0.1, with K10's dropped positions equal to
    the plain version's; all within the limits below. Kernel, plain and
@@ -150,8 +153,10 @@ EXP_DB_TOL = 8e-3      # the qkv-bias gradient, as out          [9.5e-4, 1.9e-3]
 SLICE_REL_TOL = 2e-2  # kernel paths vs einsum + unfused path loss, bf16 model
 
 KERNELS = (  # name, wrapper module, source, the TPU kernel it replaces
-    ("packed_attention_fwd", "flash_attention", "flash_attention.cu", "visualbert_tpu/ops/flash_attention.py:249"),
-    ("packed_attention_bwd", "flash_attention", "flash_attention.cu", "visualbert_tpu/ops/flash_attention.py:307"),
+    ("packed_attention_fwd", "flash_attention", "flash_attention_packed.cu",
+     "visualbert_tpu/ops/flash_attention.py:249"),
+    ("packed_attention_bwd", "flash_attention", "flash_attention_packed.cu",
+     "visualbert_tpu/ops/flash_attention.py:307"),
     ("dropout_mask", "dropout", "dropout.cu", "visualbert_tpu/ops/dropout.py:61"),
     ("mlm_xent_fwd", "mlm_xent", "mlm_xent.cu", "visualbert_tpu/ops/mlm_xent.py:52"),
     ("mlm_xent_dx", "mlm_xent", "mlm_xent.cu", "visualbert_tpu/ops/mlm_xent.py:145"),
@@ -257,25 +262,11 @@ def row_line(name, r, card):
 
 
 def packed_inputs(torch):
-    """K1/K2's inputs at the main path's shapes (B=128, T=228, H=12, D=64):
-    qkv [B, T, H*3*D], qb, a key bias with padded text and regions and dout,
-    bf16, from RandomState(0)."""
-    import numpy as np
+    """K1/K2's inputs at the main path's shapes on the card
+    (tools/main_path.py::packed_attention_inputs)."""
+    from visualbert_torch.tools.main_path import packed_attention_inputs
 
-    from visualbert_torch.tools.main_path import B, TT, TV
-
-    H, D, T = 12, 64, TT + TV
-    F = 3 * H * D
-    dev = torch.device("cuda")
-    rng = np.random.RandomState(0)
-    qkv = torch.tensor(rng.randn(B, T, F), dtype=torch.bfloat16, device=dev)
-    qb = torch.tensor(rng.randn(F) * 0.1, dtype=torch.bfloat16, device=dev)
-    mask = np.ones((B, T), np.float32)
-    mask[::3, TT - 20:TT] = 0  # some padded text
-    mask[1::4, T - 30:] = 0    # some padded regions
-    key_bias = torch.tensor((1.0 - mask) * -10000.0, device=dev)
-    dout = torch.tensor(rng.randn(B, T, H * D), dtype=torch.bfloat16, device=dev)
-    return qkv, qb, key_bias, dout
+    return packed_attention_inputs(torch.device("cuda"))
 
 
 def check_kernels(torch, card):
@@ -359,9 +350,44 @@ def check_kernels(torch, card):
             f"({n_mm * gflop / k['ms']:.1f} TFLOP/s useful), plain {k['plain_ms']:.4f} ms; "
             f"dropout 0: kernel {ms0:.4f} ms  [{card}]")
     rows["packed_attention_fwd"], rows["packed_attention_bwd"] = k1, k2
+    k1["dropout0_ms"], k2["dropout0_ms"] = k1_ms0, k2_ms0
+    from visualbert_torch.ops import _build
+
+    lib = _build.library()
+    hgs = fa.packed_head_groups(lib, B, H, T, dev)
+    for k, (kernel, hg) in enumerate(zip(fa.PACKED_KERNELS, hgs)):
+        regs, local, smem, per_sm = (lib.vb_attn_packed_info(k, w, T) for w in range(4))
+        log(f"K1/K2 {kernel}: hg {hg} ({B * H // hg} blocks of one batch row x {hg} heads), {per_sm} blocks an SM, "
+            f"{regs} registers a thread, {local} bytes of local memory, {smem} bytes of shared memory at T={T}")
     for name in ("dropout_mask", "packed_attention_fwd", "packed_attention_bwd"):
         log(row_line(name, rows[name], card))
     return rows
+
+
+def compare_with_k16(torch, rows, card):
+    """The redesigned K1/K2 beside the schedule alone: K16 (K1/K2's first
+    tile code, one batch row x hg heads a block) at its best hg of this
+    call, at dropout 0.1 and 0 (the gap is what Philox costs each)."""
+    from visualbert_torch.ops import attention_exp as ae
+
+    qkv, qb, key_bias, dout = packed_inputs(torch)
+    H = 12
+    k1, k2 = rows["packed_attention_fwd"], rows["packed_attention_bwd"]
+    best = {}
+    for p in ("fwd", "bwd"):
+        name, ms = min(rows["attn_hgrid_" + p]["variant_ms"].items(), key=lambda kv: kv[1])
+        best[p] = (int(name.split("=")[1]), ms)
+    out, stats = ae.attn_hgrid_fwd(qkv, qb, key_bias, H, 0.0, 5, best["fwd"][0])
+    f0 = cuda_time_ms(lambda: ae.attn_hgrid_fwd(qkv, qb, key_bias, H, 0.0, 5, best["fwd"][0]), 10)
+    b0 = cuda_time_ms(lambda: ae.attn_hgrid_bwd(qkv, qb, key_bias, dout, out, stats.view(
+        qkv.shape[0], H // best["bwd"][0], best["bwd"][0], -1), H, 0.0, 5, best["bwd"][0]), 10)
+    for p, k, k16_0 in (("fwd", k1, f0), ("bwd", k2, b0)):
+        hg, ms = best[p]
+        log(f"K{1 if p == 'fwd' else 2} {p} against the schedule alone (K16 at its best hg {hg} in this call): "
+            f"dropout 0.1 {k['ms']:.4f} ms against {ms:.4f} ms ({k['ms'] / ms:.1%}), faster: {k['ms'] < ms}; "
+            f"dropout 0 {k['dropout0_ms']:.4f} ms against {k16_0:.4f} ms; Philox's share {k['ms'] - k['dropout0_ms']:.4f} "
+            f"ms against {ms - k16_0:.4f} ms  [{card}]")
+    del k1["dropout0_ms"], k2["dropout0_ms"]
 
 
 def sdpa_ms(torch, q, k, v, key_bias, dout, rate):
@@ -589,14 +615,16 @@ def run_attention_tools(torch, card):
     return launches
 
 
-def check_xent(torch, card):
-    """K4-K6 against their plain versions at the main path's rows."""
+def check_xent(torch, card, H=768):
+    """K4-K6 against their plain versions at the main path's rows, at hidden
+    width H (768, the main path's; 1024, bert-large's, is checked without a
+    row of the kernel table)."""
     import numpy as np
 
     from visualbert_torch.ops import mlm_xent as xe
     from visualbert_torch.tools.main_path import B, N_PRED
 
-    N, H, V = B * N_PRED, 768, 30522
+    N, V = B * N_PRED, 30522
     dev = torch.device("cuda")
     rng = np.random.RandomState(1)
     x = torch.tensor(rng.randn(N, H), dtype=torch.bfloat16, device=dev)
@@ -637,6 +665,12 @@ def check_xent(torch, card):
     if not (r_dx <= DX_TOL and r_de <= DE_TOL and r_db <= DBIAS_TOL):
         raise SystemExit("K5/K6 disagree with their plain versions")
     del dx_r, de_r, db_r
+    if H != 768:
+        for name, fn, args in (("mlm_xent_fwd", xe.mlm_xent_fwd, ()), ("mlm_xent_dx", xe.mlm_xent_dx, (lse, g)),
+                               ("mlm_xent_de", xe.mlm_xent_de, (lse, g))):
+            log(f"{name} [{N}, {H}] x [{V}, {H}]: kernel {cuda_time_ms(lambda: fn(x, emb, bias, lab, *args), 10):.4f} "
+                f"ms  [{card}]")
+        return {}
 
     rows = {
         "mlm_xent_fwd": dict(max_abs_err=max(e_nll, e_lse), n_mm=1,
@@ -1062,10 +1096,12 @@ def main():
 
     rows = check_kernels(torch, card)
     rows.update(check_xent(torch, card))
+    check_xent(torch, card, H=1024)
     rows.update(check_layer_norm(torch, card))
     rows.update(check_attention_variants(torch, card))
     torch.cuda.empty_cache()
     rows.update(check_attention_experiments(torch, card))
+    compare_with_k16(torch, rows, card)
     torch.cuda.empty_cache()
     exp_launches = run_attention_tools(torch, card)
     torch.cuda.empty_cache()

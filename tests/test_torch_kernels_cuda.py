@@ -24,6 +24,11 @@ ulp of its plain value, and K14 fed K13's own output as K2 is. The
 attention experiment kernels (K15 with every variant of ``VARIANTS`` and
 two more knob settings, so every compiled flag combination runs; K16 at
 every hg that divides H) are held as K1/K2 are, at dropout 0 and 0.1.
+K1/K2 (``csrc/flash_attention_packed.cu``) also run at T = 1, 272 and 512,
+repeat bit for bit, drop exactly the plain mask's positions, and refuse T =
+1024; ``tools/attn_steps.py``'s builds of their source with a design step
+left out give their outputs bit for bit. K4-K6 also run at bert-large's
+hidden width of 1024.
 """
 
 import numpy as np
@@ -91,7 +96,8 @@ def test_dropout_mask_seeds(cuda):
     assert not torch.equal(a, c)
 
 
-@pytest.mark.parametrize("B,T,H", [(4, 228, 12), (2, 37, 3), (1, 64, 2), (2, 130, 4)])
+@pytest.mark.parametrize("B,T,H", [(4, 228, 12), (2, 37, 3), (1, 64, 2), (2, 130, 4), (3, 1, 12), (1, 512, 16),
+                                   (5, 272, 12)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_attention_kernels_match_plain(cuda, B, T, H, rate):
     qkv, qb, key_bias, dout = attention_inputs(B, T, H, cuda)
@@ -106,6 +112,81 @@ def test_attention_kernels_match_plain(cuda, B, T, H, rate):
     torch.cuda.synchronize()
     assert rel_err(dqkv, dqkv_r) < REL_TOL
     assert rel_err(dqb, dqb_r) < REL_TOL
+
+
+def test_attention_kernels_repeat_bit_for_bit(cuda):
+    qkv, qb, key_bias, dout = attention_inputs(4, 228, 12, cuda)
+    runs = []
+    for _ in range(2):
+        out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, 12, 0.1, 7)
+        runs.append((out, stats) + fa.packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, 12, 0.1, 7))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_attention_kernels_drop_the_plain_mask(cuda):
+    """With v[j] the j-th unit vector (T = 64 = D keys, no key padding, no
+    bias) out[i, j] is the dropped, rescaled p[i, j], zero exactly where the
+    plain mask drops (every p > 0); with dout[i] the i-th unit vector the dK/dV
+    pass's dv[j, i] is the same p_d[i, j]."""
+    B, T, H, rate, seed = 3, 64, 2, 0.1, 11
+    rng = np.random.RandomState(5)
+    qkv = torch.tensor(rng.randn(B, T, H, 3, 64), dtype=torch.bfloat16, device=cuda)
+    qkv[:, :, :, 2] = torch.eye(T, dtype=torch.bfloat16, device=cuda)[None, :, None]
+    qkv = qkv.reshape(B, T, 3 * H * 64).contiguous()
+    qb = torch.zeros(3 * H * 64, dtype=torch.bfloat16, device=cuda)
+    key_bias = torch.zeros((B, T), device=cuda)
+    dout = torch.eye(T, dtype=torch.bfloat16, device=cuda)[None, :, None].expand(B, T, H, 64).reshape(B, T, H * 64)
+    out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, seed)
+    dqkv, _ = fa.packed_attention_bwd(qkv, qb, key_bias, dout.contiguous(), out, stats, H, rate, seed)
+    torch.cuda.synchronize()
+    keep = fa.attention_keep_reference(seed, B, H, T, rate, cuda)  # [B, H, i, j]
+    p_d = out.view(B, T, H, 64).permute(0, 2, 1, 3)  # [B, H, i, j]
+    dv = dqkv.view(B, T, H, 3, 64)[:, :, :, 2].permute(0, 2, 3, 1)  # [B, H, i, j] = dv[j, i]
+    assert 0.05 < 1 - float(keep.float().mean()) < 0.15
+    assert torch.equal(p_d != 0, keep)
+    assert torch.equal(dv != 0, keep)
+
+
+def test_attention_kernels_refuse_t_1024(cuda):
+    """T = 512 runs in test_attention_kernels_match_plain; 1024 needs more
+    shared memory than a block has."""
+    qkv, qb, key_bias, dout = attention_inputs(1, 1024, 1, cuda)
+    for what in (lambda: fa.packed_attention_fwd(qkv, qb, key_bias, 1, 0.0, 0),
+                 lambda: fa.packed_attention_bwd(qkv, qb, key_bias, dout, dout, key_bias.view(1, 1, -1), 1, 0.0, 0)):
+        with pytest.raises(ValueError, match="shared memory"):
+            what()
+
+
+@pytest.fixture(scope="module")
+def step_builds():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from visualbert_torch.tools import attn_steps
+
+    return attn_steps.build_all()[0]
+
+
+@pytest.mark.parametrize("B,T", [(3, 130), (2, 37), (1, 228)])
+@pytest.mark.parametrize("name", ["philox per row", "sync loads"])
+def test_design_step_builds_equal_the_kernels(cuda, step_builds, name, B, T):
+    """tools/attn_steps.py's builds of csrc/flash_attention_packed.cu with
+    step 2 (shared Philox) or step 3 (cp.async) left out draw the same mask
+    and do the same arithmetic: K1/K2's outputs bit for bit at dropout 0.1."""
+    from visualbert_torch.ops import _build
+    from visualbert_torch.tools import attn_steps
+
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    qkv, qb, key_bias, dout = attention_inputs(B, T, attn_steps.H, cuda)
+    runs = []
+    for b in (attn_steps.PackedBuild("as built", _build.library(), B, T, n_sm),
+              attn_steps.PackedBuild(name, step_builds[name], B, T, n_sm)):
+        out, stats = b.fwd(qkv, qb, key_bias, 0.1, 3)
+        runs.append((out, stats) + b.bwd(qkv, qb, key_bias, dout, out, stats, 0.1, 3))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    out_r, _ = fa.packed_attention_fwd_reference(qkv, qb, key_bias, attn_steps.H, 0.1, 3)
+    assert rel_err(runs[1][0], out_r) < REL_TOL
 
 
 def heads_major_inputs(B, T, H, device, seed=0):
@@ -344,6 +425,23 @@ def test_xent_kernels_match_plain(cuda, N, V):
     assert rel_err(dx, dx_r) < REL_TOL
     assert rel_err(de, de_r) < REL_TOL
     assert rel_err(db, db_r) < DB_REL_TOL
+
+
+@pytest.mark.parametrize("N", [3072, 37])
+def test_xent_kernels_match_plain_at_bert_large_width(cuda, N):
+    x, emb, bias, labels, g = xent_inputs(N, 30522, cuda, H=1024)
+    nll, lse, am = xe.mlm_xent_fwd(x, emb, bias, labels)
+    nll_r, lse_r, am_r = xe.mlm_xent_fwd_reference(x, emb, bias, labels)
+    dx = xe.mlm_xent_dx(x, emb, bias, labels, lse_r, g)
+    de, db = xe.mlm_xent_de(x, emb, bias, labels, lse_r, g)
+    dx_r = xe.mlm_xent_dx_reference(x, emb, bias, labels, lse_r, g)
+    de_r, db_r = xe.mlm_xent_de_reference(x, emb, bias, labels, lse_r, g)
+    torch.cuda.synchronize()
+    assert float((nll - nll_r).abs().max()) < XENT_ATOL and float((lse - lse_r).abs().max()) < XENT_ATOL
+    clear = top2_gap(x, emb, bias) > ARGMAX_GAP
+    assert torch.equal(am[clear], am_r[clear])
+    assert dx.shape == (N, 1024) and de.shape == (30522, 1024)
+    assert rel_err(dx, dx_r) < REL_TOL and rel_err(de, de_r) < REL_TOL and rel_err(db, db_r) < DB_REL_TOL
 
 
 def test_xent_argmax_takes_the_first_max(cuda):

@@ -1,0 +1,86 @@
+"""The CUDA kernels' limits, refused where a model meets its device
+(``visualbert_torch/ops/limits.py::check_kernel_limits``), and the head
+group K1/K2 take a block (``ops/flash_attention.py::head_group``). Neither
+needs a card: ``torch.device("cuda")`` is only a name here."""
+
+import math
+
+import pytest
+import torch
+
+from visualbert_torch.config import OptimizerConfig, TrainConfig, VisualBertConfig
+from visualbert_torch.ops.flash_attention import head_group
+from visualbert_torch.ops.limits import check_kernel_limits
+from visualbert_torch.tasks import registry
+from visualbert_torch.tools import main_path
+from visualbert_torch.utils.config_io import parse_task_config
+
+CUDA = torch.device("cuda")
+KERNELS_ON = dict(use_flash_attention=True, fused_mlm_xent=True, use_fused_layer_norm=True, fast_dropout=True)
+
+# (config fields, the flag and the limit the message must name)
+OUTSIDE = [
+    (dict(use_flash_attention=True, dtype="float32"), "use_flash_attention", "bf16"),
+    (dict(use_flash_attention=True, hidden_size=1024, num_attention_heads=8), "use_flash_attention", "head dim 64"),
+    (dict(use_flash_attention=True, packed_qkv=False, dtype="float16"), "use_flash_attention", "bf16"),
+    (dict(fused_mlm_xent=True, dtype="float32"), "fused_mlm_xent", "bf16"),
+    (dict(fused_mlm_xent=True, hidden_size=512, num_attention_heads=8), "fused_mlm_xent", "768 or 1024"),
+    (dict(use_fused_layer_norm=True, hidden_size=1100, num_attention_heads=11), "use_fused_layer_norm", "up to 1024"),
+    (dict(use_fused_layer_norm=True, hidden_size=1284, num_attention_heads=12), "use_fused_layer_norm", "multiple of 8"),
+]
+
+
+@pytest.mark.parametrize("fields,flag,limit", OUTSIDE, ids=[f"{c[1]}-{c[2]}" for c in OUTSIDE])
+def test_a_config_outside_a_kernel_limit_is_refused_on_cuda(fields, flag, limit):
+    cfg = VisualBertConfig(**fields)
+    with pytest.raises(ValueError, match=flag) as exc:
+        check_kernel_limits(cfg, CUDA)
+    assert limit in str(exc.value)
+    check_kernel_limits(cfg, "cpu")  # the plain versions take it
+    check_kernel_limits(cfg, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("fields", [dict(), dict(hidden_size=1024, num_attention_heads=16, intermediate_size=4096)],
+                         ids=["bert-base", "bert-large"])
+def test_the_shipped_widths_pass(fields):
+    check_kernel_limits(VisualBertConfig(**fields, **KERNELS_ON), CUDA)
+    check_kernel_limits(VisualBertConfig(**fields, **KERNELS_ON, dtype="float32"), "cpu")
+
+
+def test_flags_off_take_anything():
+    check_kernel_limits(VisualBertConfig(hidden_size=96, num_attention_heads=3, dtype="float32"), CUDA)
+
+
+def test_the_task_runner_and_the_main_path_refuse_at_build():
+    """The registry's trainer and tools/main_path.build refuse before they
+    build anything on the card (there is none here)."""
+    block = dict(main_path.model_block(), dtype="float32")
+    with pytest.raises(ValueError, match="bf16"):
+        main_path.build(block, device="cuda")
+    cfg = parse_task_config({"task": "coco_pretrain", "model": block})
+    with pytest.raises(ValueError, match="use_flash_attention"):
+        registry._trainer(cfg, None, "cuda")
+
+
+def waves(B, H, hg, slots):
+    return math.ceil(B * H // hg / slots) * hg
+
+
+@pytest.mark.parametrize("per_sm", [1, 2, 3])
+def test_head_group_divides_h_and_is_never_worse_than_all_heads(per_sm):
+    slots = 132 * per_sm
+    for B in (1, 2, 3, 5, 8, 31, 64, 96, 128, 200, 512):
+        for H in (1, 2, 3, 4, 12, 16):
+            hg = head_group(B, H, 132, per_sm)
+            assert H % hg == 0
+            assert waves(B, H, hg, slots) <= waves(B, H, H, slots)
+            assert waves(B, H, hg, slots) == min(waves(B, H, d, slots) for d in range(1, H + 1) if H % d == 0)
+
+
+def test_head_group_reproduces_the_hg_sweep_ordering():
+    """At 264 slots (two blocks an SM on 132 SMs), B=128, H=12: hg 1, 2, 3
+    and 6 tie at 6 waves-times-heads and hg 4 scores 8, so 4 is never taken
+    (ties go to the fewest blocks: 6); at B=96 hg 1 scores 5 against 6."""
+    assert head_group(128, 12, 132, 2) == 6
+    assert head_group(96, 12, 132, 2) == 1
+    assert all(head_group(B, 12, 132, 2) != 4 for B in (128, 256))

@@ -1,14 +1,13 @@
-// K1/K2: packed-QKV attention forward and backward. Replace
-// visualbert_tpu/ops/flash_attention.py::_packed_fwd_kernel and
-// ::_packed_bwd_kernel (reached through flash_attention_packed).
 // K11/K12: heads-major attention forward and backward. Replace
-// ::_fwd_kernel and ::_bwd_kernel (reached through flash_attention with
-// heads_major=True, the encoder's packed_qkv=False path).
+// visualbert_tpu/ops/flash_attention.py::_fwd_kernel and ::_bwd_kernel
+// (reached through flash_attention with heads_major=True, the encoder's
+// packed_qkv=False path).
 //
-// The four are two kernels instantiated for two layouts (attn_common.cuh):
-// K1/K2 read qkv [B, T, H*3*D] bf16 packed head-major WITHOUT the QKV
-// projection bias; qb [H*3*D] bf16 is that bias, added here when a tile is
-// loaded, and K2 emits its gradient. K11/K12 read qkv [B, 3, H, T, D] bf16
+// The templates below take a layout (attn_common.cuh); only the heads-major
+// one is instantiated here (the packed K1/K2 are flash_attention_packed.cu),
+// so their packed-layout branches (the deferred bias qb and its gradient,
+// L::kBiasGrad) compile to nothing. They stay as they were until K11/K12
+// take K1/K2's design. K11/K12 read qkv [B, 3, H, T, D] bf16
 // with the bias already added (q, k and v are slices of that one tensor: the
 // kernels take its base pointer, never three copies) and K12 writes one
 // [B, 3, H, T, D] gradient. key_bias [B, T] fp32 (0 or -10000). out [B, T,
@@ -474,20 +473,6 @@ extern "C" size_t vb_attn_smem_bytes(int T) {
   size_t a = fwd_smem(T), b = dq_smem(T), c = dkv_smem(T);
   size_t m = a > b ? a : b;
   return m > c ? m : c;
-}
-
-extern "C" int vb_attn_fwd(const void* qkv, const void* qb, const void* key_bias, void* out, void* stats,
-                           int B, int T, int H, unsigned int seed, unsigned int threshold, float inv,
-                           int dropout, void* stream) {
-  return launch_fwd<PackedLayout>(qkv, qb, key_bias, out, stats, B, T, H, seed, threshold, inv, dropout, stream);
-}
-
-extern "C" int vb_attn_bwd(const void* qkv, const void* qb, const void* key_bias, const void* dout,
-                           const void* out, const void* stats, void* dqkv, void* db_part, void* delta,
-                           int B, int T, int H, unsigned int seed, unsigned int threshold, float inv,
-                           int dropout, void* stream) {
-  return launch_bwd<PackedLayout>(qkv, qb, key_bias, dout, out, stats, dqkv, db_part, delta, B, T, H, seed,
-                                  threshold, inv, dropout, stream);
 }
 
 extern "C" int vb_attn_hm_fwd(const void* qkv, const void* key_bias, void* out, void* stats, int B, int T, int H,

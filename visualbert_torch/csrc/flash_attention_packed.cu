@@ -1,0 +1,883 @@
+// K1/K2, redesigned for Hopper: packed-QKV attention forward and backward.
+// Replace visualbert_tpu/ops/flash_attention.py::_packed_fwd_kernel (:249)
+// and ::_packed_bwd_kernel (:307), reached through flash_attention_packed.
+//
+// Function (as flash_attention.cu's first design computed it): qkv [B, T,
+// H*3*D] bf16 packed head-major WITHOUT the QKV projection bias; qb [H*3*D]
+// bf16 is that bias, added here once a tile lands in shared memory (bf16
+// add, rounded as the JAX kernel's `qkv + qb`); key_bias [B, T] fp32 (0 or
+// -10000). The forward writes out [B, T, H*D] bf16 and the base-2 row
+// statistic stats [B, H, T] fp32, stats = max_j t + log2 sum_j exp2(t - max)
+// with t = (q.k) * scale * log2(e) + key_bias * log2(e). The backward writes
+// dqkv [B, T, H*3*D] bf16, delta = rowsum(dO * O) [B, H, T] fp32 (scratch
+// the dK/dV pass reads) and the QKV-bias gradient as fp32 partials db_part
+// [B, H*3*D]: row b holds the column sums over batch row b of the stored
+// (bf16-rounded) dqkv, written by exactly one block each; the caller sums
+// the rows. Dropout keeps probability (b, h, i, j) by philox.cuh::
+// attn_philox's bit, so the mask is bit for bit K3's twin's and the plain
+// version's.
+//
+// Bound on the H100 at the main path's B=128, T=228, H=12, D=64: bytes
+// (qkv, out, stats; the backward also dout, out, stats in and dqkv out) are
+// 0.054 / 0.108 ms at 3.35 TB/s; the tensor products (2 forward, 4
+// backward, 20.4 GFLOP each) 0.04 / 0.08 ms at 989 TFLOP/s. With dropout on,
+// the Philox integer work is larger than either: one Philox4x32-10 call
+// (~70 integer instructions) per 2x2 block of probabilities, 25 M calls over
+// B*H*Tp^2/4 at Tp = 256, about 0.12 ms of the card's 32-bit multiply rate
+// once, per pass that regenerates the mask.
+//
+// The design, step by step, against that bound:
+// 1. Schedule. A block of 4 warps (one warpgroup) owns one batch row x hg
+//    heads; for each (b, h) pair it loads K and V (Q and dO in the dK/dV
+//    pass) into shared memory once, adds the deferred bias once, and walks
+//    every 64-query tile (every 64-key tile in the dK/dV pass). The first
+//    design reloaded them, bias and all, for every 64-query tile. hg is
+//    chosen by the caller from (B, H, SMs, resident blocks per SM); the key
+//    bias of the batch row is loaded once per block. The backward keeps two
+//    passes and no atomics.
+// 2. Philox once per 2x2 block. Rows i and i^1 of a fragment sit in lanes 4
+//    apart: each lane computes one call, for the row pair its own row of
+//    parity (lane / 4) & 1 belongs to, keeps its two bits and sends the
+//    other row's two to its partner by __shfl_xor_sync(.., 4). Blocks of
+//    positions past T are skipped (their probabilities are 0 or unstored).
+// 3. Asynchronous loads. Tiles arrive by cp.async, 16 bytes a thread, into
+//    shared memory in the 128-byte swizzle (a D = 64 bf16 row is one 128 B
+//    swizzle row: no padding). Loads are committed a key tile at a time, so
+//    the first product starts when the first tile lands; the next query tile
+//    (key tile in the dK/dV pass) is prefetched while the current one
+//    computes. Each thread adds the bias to the chunks it copied itself.
+// 4. wgmma. The warpgroup's 64-row tiles are wgmma's m64: S = Q K^T, dP =
+//    dO V^T (and S^T = K Q^T, dP^T = V dO^T) take both operands from shared
+//    memory; O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q take P or dS
+//    from registers (the accumulator layout converts in place) and the
+//    other operand, transposed, from shared memory. No ldmatrix is needed:
+//    wgmma reads shared memory itself. The accumulators take 64-128 fp32
+//    registers a thread.
+// tools/attn_steps.py builds this source again with step 2 or step 3 left
+// out (-DVB_PACKED_PHILOX_PER_ROW, -DVB_PACKED_SYNC_LOADS) and times each
+// build beside this one; the library never defines either.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "mma.cuh"
+#include "philox.cuh"
+
+namespace {
+
+using vb::bf16;
+using vb::pack_bf16;
+using vb::round_bf16;
+
+constexpr int D = 64;                      // head dim
+constexpr int TILE = 64;                   // rows of a tile: wgmma's m64
+constexpr int NT = 128;                    // one warpgroup
+constexpr int ROW = D * 2;                 // bytes of a row: one 128 B swizzle row
+constexpr int TILE_BYTES = TILE * ROW;     // 8 KB
+constexpr int ALIGN = 1024;                // swizzle atom: 8 rows x 128 B
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float SCALE = 0.125f;            // 1 / sqrt(D)
+
+__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
+  return p + ((ALIGN - (smem_addr(p) & (ALIGN - 1))) & (ALIGN - 1));
+}
+
+// Byte offset of 16-byte chunk c of row r in a 1024-aligned swizzled region.
+__device__ __forceinline__ uint32_t swz(int r, int c) { return (uint32_t)(r * ROW + ((c ^ (r & 7)) << 4)); }
+
+// ------------------------------------------------------------- cp.async
+
+// Built with VB_PACKED_SYNC_LOADS (step 3 left out, for tools/attn_steps.py)
+// a copy is a plain 16-byte load and store: a thread's loads of one tile are
+// in flight together, but each tile has landed when issue_tile returns, so
+// no copy overlaps a product; commit and wait do nothing.
+#ifdef VB_PACKED_SYNC_LOADS
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  const uint4 v = valid ? *static_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
+  *static_cast<uint4*>(__cvta_shared_to_generic(dst)) = v;
+}
+__device__ __forceinline__ void cp_commit() {}
+template <int N>
+__device__ __forceinline__ void cp_wait() {}
+#else
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+#endif
+// Wait until at most n groups are pending (fewer is always safe).
+__device__ __forceinline__ void cp_wait_dyn(int n) {
+  switch (n) {
+    case 0: cp_wait<0>(); break;
+    case 1: cp_wait<1>(); break;
+    case 2: cp_wait<2>(); break;
+    case 3: cp_wait<3>(); break;
+    case 4: cp_wait<4>(); break;
+    case 5: cp_wait<5>(); break;
+    case 6: cp_wait<6>(); break;
+    default: cp_wait<7>(); break;
+  }
+}
+// Generic-proxy writes (cp.async, the bias pass) before wgmma reads them.
+__device__ __forceinline__ void fence_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// Issue the copy of rows [t0, t0 + TILE) of a D-wide row block (row t at
+// src + t * ld) into the swizzled tile at shared address dst; rows past T
+// are zero. Thread x always copies chunk x % 8 of its rows.
+__device__ __forceinline__ void issue_tile(uint32_t dst, const bf16* __restrict__ src, int t0, int T, int ld) {
+#pragma unroll
+  for (int idx = threadIdx.x; idx < TILE * 8; idx += NT) {
+    const int r = idx >> 3, c = idx & 7, t = t0 + r;
+    cp_async16(dst + swz(r, c), src + (size_t)(t < T ? t : 0) * ld + c * 8, t < T);
+  }
+}
+
+// Add the bias chunk (this thread's chunk threadIdx.x % 8 of the head's
+// bias) to the chunks this thread copied into a landed tile.
+__device__ __forceinline__ void add_bias(unsigned char* tile, uint4 bias, int t0, int T) {
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&bias);
+#pragma unroll
+  for (int idx = threadIdx.x; idx < TILE * 8; idx += NT) {
+    const int r = idx >> 3, c = idx & 7;
+    if (t0 + r < T) {
+      uint4* p = reinterpret_cast<uint4*>(tile + swz(r, c));
+      uint4 v = *p;
+      __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&v);
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = __bfloat1622float2(x[e]), b = __bfloat1622float2(y[e]);
+        w[e] = pack_bf16(a.x + b.x, a.y + b.y);
+      }
+      *p = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ uint4 bias_chunk(const bf16* __restrict__ qb, int h, int j) {
+  return *reinterpret_cast<const uint4*>(qb + (3 * h + j) * D + (threadIdx.x & 7) * 8);
+}
+
+// ----------------------------------------------------------------- wgmma
+
+// Shared-memory matrix descriptor of a 1024-aligned tile in the 128 B
+// swizzle: 8-row groups 1024 B apart (both byte-offset fields; a 64-wide
+// operand has one swizzle atom along its contiguous dimension). A k-step of
+// 16 elements along a row adds 32 B, i.e. 2, to the descriptor.
+__device__ __forceinline__ uint64_t desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// After a wait: keep the compiler from reading an accumulator before it, or
+// from reusing the registers of an A operand still in flight until it.
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[c][i])::"memory");
+}
+
+#define VB_D32                                                                                                  \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),   \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),    \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define VB_R32                                                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
+  "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x 64 fp32) = (acc ? d : 0) + A B^T, A [64 x 16] and B [64 x 16]
+// both K-major in shared memory (rows of A, rows of B).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VB_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : VB_D32
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d += A B, A [64 x 16] bf16 in registers (the mma.m16n8k16 A fragment of
+// each warp's 16 rows), B [16 x 64] from shared memory rows (16 rows of 64
+// contiguous elements: the transposed, MN-major operand).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VB_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : VB_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// S (64 x 64) = A B^T over D = 64: A and B 64-row tiles at shared addresses.
+__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a, uint32_t b) {
+  const uint64_t da = desc(a), db = desc(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss(d, da + 2 * kk, db + 2 * kk, kk);
+}
+
+// Accumulator n-tiles (2c, 2c + 1) -> the A fragment of k-step c.
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&s)[32]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    a[c][0] = pack_bf16(s[8 * c + 0], s[8 * c + 1]);
+    a[c][1] = pack_bf16(s[8 * c + 2], s[8 * c + 3]);
+    a[c][2] = pack_bf16(s[8 * c + 4], s[8 * c + 5]);
+    a[c][3] = pack_bf16(s[8 * c + 6], s[8 * c + 7]);
+  }
+}
+
+// d += A B with A from registers (4 k-steps of 16) and B the 64 rows at
+// shared address b (k-step c: rows 16c .. 16c + 15, two swizzle atoms).
+__device__ __forceinline__ void product_rs(float (&d)[32], const uint32_t (&a)[4][4], uint32_t b) {
+  const uint64_t db = desc(b);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) wgmma_rs(d, a[c], db + c * (2048 >> 4));
+}
+
+__device__ __forceinline__ void zero(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+}
+
+// ---------------------------------------------------------------- Philox
+
+// The four keep bits of the Philox call of fragment row `row` and column
+// pair (col, col + 1), bit ((i & 1) << 1 | (j & 1)) for query i, key j; 0
+// where the whole 2 x 2 block lies past T (its values are unused).
+template <bool KEY_MAJOR>
+__device__ __forceinline__ uint32_t call_bits(uint32_t seed, uint32_t bh, int row, int col, bool col_ok, int T,
+                                              uint32_t thr) {
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if (col_ok && (row & ~1) < T) r = KEY_MAJOR ? vb::attn_philox(seed, bh, col, row) : vb::attn_philox(seed, bh, row, col);
+  return (uint32_t)(r.x >= thr) | ((uint32_t)(r.y >= thr) << 1) | ((uint32_t)(r.z >= thr) << 2) |
+         ((uint32_t)(r.w >= thr) << 3);
+}
+
+// The two bits (col, col + 1) of the fragment row of parity p in a call's k.
+template <bool KEY_MAJOR>
+__device__ __forceinline__ uint32_t row_bits(uint32_t k, int p) {
+  return KEY_MAJOR ? (((k >> p) & 1u) | (((k >> (2 + p)) & 1u) << 1)) : ((k >> (2 * p)) & 3u);
+}
+
+// Keep bits of this lane's 2 x 2 fragment elements at column pair (col,
+// col + 1) and rows row0 (= base + g) and row1 (= base + g + 8): bit
+// 2 r + c keeps (row r, col + c). Lanes 4 apart hold rows i and i ^ 1 of one
+// Philox call: each lane computes the call of its row of parity par =
+// g & 1 (row0 for even g, row1 for odd g) and passes the partner's two bits
+// by shuffle. KEY_MAJOR: fragment rows are keys, columns queries (the dK/dV
+// pass). col_ok: col < T. Built with VB_PACKED_PHILOX_PER_ROW (step 2 left
+// out, for tools/attn_steps.py), each lane computes both its rows' calls.
+template <bool KEY_MAJOR>
+__device__ __forceinline__ uint32_t keep_bits(uint32_t seed, uint32_t bh, int row0, int row1, int col, int par,
+                                              uint32_t thr, bool col_ok, int T) {
+#ifdef VB_PACKED_PHILOX_PER_ROW
+  return row_bits<KEY_MAJOR>(call_bits<KEY_MAJOR>(seed, bh, row0, col, col_ok, T, thr), par) |
+         (row_bits<KEY_MAJOR>(call_bits<KEY_MAJOR>(seed, bh, row1, col, col_ok, T, thr), par) << 2);
+#else
+  const uint32_t k = call_bits<KEY_MAJOR>(seed, bh, par ? row1 : row0, col, col_ok, T, thr);
+  const uint32_t mine = row_bits<KEY_MAJOR>(k, par), got = __shfl_xor_sync(0xffffffffu, row_bits<KEY_MAJOR>(k, par ^ 1), 4);
+  return par ? (got | (mine << 2)) : (mine | (got << 2));
+#endif
+}
+
+// ------------------------------------------------------------- epilogues
+
+// Store a 64 x 64 accumulator times `scale` as bf16 (this thread's rows
+// row0, row1 at dst + row * ld).
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[32], float scale, int row0,
+                                           int row1, bool ok0, bool ok1, int ld, int tq) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int c = nt * 8 + 2 * tq;
+    if (ok0)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)row0 * ld + c) = pack_bf16(acc[4 * nt] * scale, acc[4 * nt + 1] * scale);
+    if (ok1)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)row1 * ld + c) =
+          pack_bf16(acc[4 * nt + 2] * scale, acc[4 * nt + 3] * scale);
+  }
+}
+
+// Add the column sums over this warp's valid rows of bf16(acc * scale) to
+// red[warp * D + col]; the g == 0 lanes own the columns, in a fixed order.
+__device__ __forceinline__ void colsum_add(const float (&acc)[32], float scale, bool ok0, bool ok1, float* red,
+                                           int warp, int g, int tq) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = (ok0 ? round_bf16(acc[4 * nt + e] * scale) : 0.f) + (ok1 ? round_bf16(acc[4 * nt + 2 + e] * scale) : 0.f);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) red[warp * D + nt * 8 + 2 * tq + e] += v;
+    }
+  }
+}
+
+__device__ __forceinline__ void load_key_bias(float* kb, const float* __restrict__ key_bias, int T, int Tp) {
+  for (int j = threadIdx.x; j < Tp; j += NT) kb[j] = j < T ? key_bias[j] * LOG2E : -INFINITY;
+}
+
+// ---------------------------------------------------------------- forward
+
+size_t fwd_bytes(int T) {
+  const int Tp = round_up(T, TILE);
+  return ALIGN + 2 * TILE_BYTES + (size_t)2 * Tp * ROW + Tp * sizeof(float);
+}
+
+// grid (H / hg, B): block (x, b) owns heads [x * hg, (x + 1) * hg) of row b.
+__global__ void __launch_bounds__(NT)
+packed_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, const float* __restrict__ key_bias,
+                  bf16* __restrict__ out, float* __restrict__ stats, int T, int H, int hg, uint32_t seed,
+                  uint32_t thr, float inv, int dropout) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  const int Tp = round_up(T, TILE), ntl = Tp / TILE;
+  unsigned char* Qs = sm;                        // [2][TILE] query tiles
+  unsigned char* Ks = Qs + 2 * TILE_BYTES;       // [Tp] keys
+  unsigned char* Vs = Ks + (size_t)Tp * ROW;     // [Tp] values
+  float* kb = reinterpret_cast<float*>(Vs + (size_t)Tp * ROW);  // [Tp] key bias * log2(e)
+  const uint32_t sQ = smem_addr(Qs), sK = smem_addr(Ks), sV = smem_addr(Vs);
+
+  const int b = blockIdx.y, F = 3 * H * D, ldo = H * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
+  const float c1 = SCALE * LOG2E;
+  const bf16* base = qkv + (size_t)b * T * F;
+  load_key_bias(kb, key_bias + (size_t)b * T, T, Tp);
+
+  for (int h = blockIdx.x * hg; h < (blockIdx.x + 1) * hg; ++h) {
+    const bf16 *qsrc = base + 3 * h * D, *ksrc = qsrc + D, *vsrc = qsrc + 2 * D;
+    const uint4 bq = bias_chunk(qb, h, 0), bk = bias_chunk(qb, h, 1), bv = bias_chunk(qb, h, 2);
+    const uint32_t bh = (uint32_t)(b * H + h);
+    __syncthreads();  // no warp still reads the last pair's tiles
+    issue_tile(sQ, qsrc, 0, T, F);
+    cp_commit();
+    for (int kt = 0; kt < ntl; ++kt) {
+      issue_tile(sK + kt * TILE_BYTES, ksrc, kt * TILE, T, F);
+      issue_tile(sV + kt * TILE_BYTES, vsrc, kt * TILE, T, F);
+      cp_commit();
+    }
+
+    for (int qt = 0; qt < ntl; ++qt) {
+      const int buf = qt & 1;
+      if (qt > 0) __syncthreads();  // every warp is done with the buffer the prefetch overwrites
+      if (qt + 1 < ntl) issue_tile(sQ + (buf ^ 1) * TILE_BYTES, qsrc, (qt + 1) * TILE, T, F);
+      cp_commit();
+      if (qt > 0) {
+        cp_wait<1>();
+        add_bias(Qs + buf * TILE_BYTES, bq, qt * TILE, T);
+        fence_async();
+        __syncthreads();
+      }
+      const int row[2] = {qt * TILE + warp * 16 + g, qt * TILE + warp * 16 + g + 8};
+      float o[32];
+      zero(o);
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+      for (int kt = 0; kt < ntl; ++kt) {
+        if (qt == 0) {
+          // pending after key tile kt: the later key tiles and the prefetch
+          cp_wait_dyn(ntl - kt);
+          if (kt == 0) add_bias(Qs, bq, 0, T);
+          add_bias(Ks + kt * TILE_BYTES, bk, kt * TILE, T);
+          add_bias(Vs + kt * TILE_BYTES, bv, kt * TILE, T);
+          fence_async();
+          __syncthreads();
+        }
+        float s[32];
+        wg_fence();
+        product_ss(s, sQ + buf * TILE_BYTES, sK + kt * TILE_BYTES);
+        wg_commit();
+        wg_wait();
+        reg_fence(s);
+
+        const int k0 = kt * TILE;
+        float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[4 * nt + e] = s[4 * nt + e] * c1 + kb[k0 + nt * 8 + 2 * tq + (e & 1)];
+            mt[e >> 1] = fmaxf(mt[e >> 1], s[4 * nt + e]);
+          }
+        }
+        float alpha[2], mnew[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+          mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+          mnew[r] = fmaxf(m[r], mt[r]);
+          alpha[r] = exp2f(m[r] - mnew[r]);
+          m[r] = mnew[r];
+          l[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            o[4 * nt + e] *= alpha[e >> 1];
+            const float p = exp2f(s[4 * nt + e] - mnew[e >> 1]);
+            l[e >> 1] += p;
+            s[4 * nt + e] = p;
+          }
+        }
+        if (dropout) {
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const int j = k0 + nt * 8 + 2 * tq;
+            const uint32_t bits = keep_bits<false>(seed, bh, row[0], row[1], j, par, thr, j < T, T);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (!((bits >> e) & 1u)) s[4 * nt + e] = 0.f;
+          }
+        }
+        uint32_t pa[4][4];
+        to_a(pa, s);
+        wg_fence();
+        product_rs(o, pa, sV + kt * TILE_BYTES);
+        wg_commit();
+        wg_wait();
+        reg_fence(o);
+        reg_fence(pa);
+      }
+
+      float sc[2];
+      bool ok[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        sc[r] = inv / l[r];
+        ok[r] = row[r] < T;
+      }
+      bf16* ob = out + (size_t)b * T * ldo + h * D;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int c = nt * 8 + 2 * tq;
+        if (ok[0]) *reinterpret_cast<uint32_t*>(ob + (size_t)row[0] * ldo + c) = pack_bf16(o[4 * nt] * sc[0], o[4 * nt + 1] * sc[0]);
+        if (ok[1])
+          *reinterpret_cast<uint32_t*>(ob + (size_t)row[1] * ldo + c) = pack_bf16(o[4 * nt + 2] * sc[1], o[4 * nt + 3] * sc[1]);
+      }
+      if (tq == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (ok[r]) stats[(size_t)bh * T + row[r]] = m[r] + log2f(l[r]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------- backward: dQ pass
+
+size_t dq_bytes(int T) {
+  const int Tp = round_up(T, TILE);
+  return ALIGN + 4 * TILE_BYTES + (size_t)2 * Tp * ROW + (3 * Tp + 4 * D) * sizeof(float);
+}
+
+// delta = rowsum(dO * O) in fp32 for every row of the pair (two threads a
+// row, 32 columns each), into dl[Tp] and, for rows < T, delta_g.
+__device__ __forceinline__ void pair_delta(const bf16* __restrict__ dout, const bf16* __restrict__ out, int ld,
+                                           float* dl, float* __restrict__ delta_g, int T, int Tp) {
+  for (int idx = threadIdx.x; idx < 2 * Tp; idx += NT) {
+    const int i = idx >> 1, half = idx & 1;
+    float acc = 0.f;
+    if (i < T) {
+      const uint4* pd = reinterpret_cast<const uint4*>(dout + (size_t)i * ld + half * 32);
+      const uint4* po = reinterpret_cast<const uint4*>(out + (size_t)i * ld + half * 32);
+      uint4 a[4], c[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        a[k] = pd[k];
+        c[k] = po[k];
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a[k]);
+        const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&c[k]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 u = __bfloat1622float2(x[e]), v = __bfloat1622float2(y[e]);
+          acc += u.x * v.x;
+          acc += u.y * v.y;
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      dl[i] = acc;
+      if (i < T) delta_g[i] = acc;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+packed_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, const float* __restrict__ key_bias,
+                 const bf16* __restrict__ dout, const bf16* __restrict__ out, const float* __restrict__ stats,
+                 bf16* __restrict__ dqkv, float* __restrict__ db_part, float* __restrict__ delta_g, int T, int H,
+                 int hg, uint32_t seed, uint32_t thr, float inv, int dropout) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  const int Tp = round_up(T, TILE), ntl = Tp / TILE;
+  unsigned char* Qs = sm;                        // [2][TILE]
+  unsigned char* dOs = Qs + 2 * TILE_BYTES;      // [2][TILE]
+  unsigned char* Ks = dOs + 2 * TILE_BYTES;      // [Tp]
+  unsigned char* Vs = Ks + (size_t)Tp * ROW;     // [Tp]
+  float* kb = reinterpret_cast<float*>(Vs + (size_t)Tp * ROW);  // [Tp]
+  float* st = kb + Tp;                           // [Tp] stats of the pair's rows
+  float* dl = st + Tp;                           // [Tp] delta of the pair's rows
+  float* red = dl + Tp;                          // [4][D] dq column sums
+  const uint32_t sQ = smem_addr(Qs), sdO = smem_addr(dOs), sK = smem_addr(Ks), sV = smem_addr(Vs);
+
+  const int b = blockIdx.y, F = 3 * H * D, ldo = H * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
+  const float c1 = SCALE * LOG2E;
+  const bf16* base = qkv + (size_t)b * T * F;
+  load_key_bias(kb, key_bias + (size_t)b * T, T, Tp);
+
+  for (int h = blockIdx.x * hg; h < (blockIdx.x + 1) * hg; ++h) {
+    const bf16 *qsrc = base + 3 * h * D, *ksrc = qsrc + D, *vsrc = qsrc + 2 * D;
+    const bf16* dsrc = dout + (size_t)b * T * ldo + h * D;
+    const uint4 bq = bias_chunk(qb, h, 0), bk = bias_chunk(qb, h, 1), bv = bias_chunk(qb, h, 2);
+    const uint32_t bh = (uint32_t)(b * H + h);
+    const size_t sb = (size_t)bh * T;
+    __syncthreads();  // no warp still reads the last pair's tiles, statistics or sums
+    issue_tile(sQ, qsrc, 0, T, F);
+    issue_tile(sdO, dsrc, 0, T, ldo);
+    cp_commit();
+    for (int kt = 0; kt < ntl; ++kt) {
+      issue_tile(sK + kt * TILE_BYTES, ksrc, kt * TILE, T, F);
+      issue_tile(sV + kt * TILE_BYTES, vsrc, kt * TILE, T, F);
+      cp_commit();
+    }
+    // while the tiles land: the pair's statistics and delta
+    for (int i = threadIdx.x; i < Tp; i += NT) st[i] = i < T ? stats[sb + i] : 0.f;
+    pair_delta(dsrc, out + (size_t)b * T * ldo + h * D, ldo, dl, delta_g + sb, T, Tp);
+    red[threadIdx.x] = 0.f;
+    red[threadIdx.x + NT] = 0.f;
+    __syncthreads();  // statistics and delta are read below before the first tile's barrier
+
+    for (int qt = 0; qt < ntl; ++qt) {
+      const int buf = qt & 1;
+      if (qt > 0) __syncthreads();
+      if (qt + 1 < ntl) {
+        issue_tile(sQ + (buf ^ 1) * TILE_BYTES, qsrc, (qt + 1) * TILE, T, F);
+        issue_tile(sdO + (buf ^ 1) * TILE_BYTES, dsrc, (qt + 1) * TILE, T, ldo);
+      }
+      cp_commit();
+      if (qt > 0) {
+        cp_wait<1>();
+        add_bias(Qs + buf * TILE_BYTES, bq, qt * TILE, T);
+        fence_async();
+        __syncthreads();
+      }
+      const int row[2] = {qt * TILE + warp * 16 + g, qt * TILE + warp * 16 + g + 8};
+      const float strow[2] = {st[row[0]], st[row[1]]}, dlrow[2] = {dl[row[0]], dl[row[1]]};
+      float dq[32];
+      zero(dq);
+      for (int kt = 0; kt < ntl; ++kt) {
+        if (qt == 0) {
+          cp_wait_dyn(ntl - kt);
+          if (kt == 0) add_bias(Qs, bq, 0, T);
+          add_bias(Ks + kt * TILE_BYTES, bk, kt * TILE, T);
+          add_bias(Vs + kt * TILE_BYTES, bv, kt * TILE, T);
+          fence_async();
+          __syncthreads();
+        }
+        float s[32], dp[32];
+        wg_fence();
+        product_ss(s, sQ + buf * TILE_BYTES, sK + kt * TILE_BYTES);
+        product_ss(dp, sdO + buf * TILE_BYTES, sV + kt * TILE_BYTES);
+        wg_commit();
+        wg_wait();
+        reg_fence(s);
+        reg_fence(dp);
+
+        const int k0 = kt * TILE;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int j = k0 + nt * 8 + 2 * tq;
+          uint32_t bits = 0xFu;
+          if (dropout) bits = keep_bits<false>(seed, bh, row[0], row[1], j, par, thr, j < T, T);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float p = exp2f(s[4 * nt + e] * c1 + kb[j + (e & 1)] - strow[r]);
+            float d = dp[4 * nt + e];
+            if (dropout) d = ((bits >> e) & 1u) ? d * inv : 0.f;
+            s[4 * nt + e] = p * (d - dlrow[r]);  // dS (the scale goes on dQ)
+          }
+        }
+        uint32_t sa[4][4];
+        to_a(sa, s);
+        wg_fence();
+        product_rs(dq, sa, sK + kt * TILE_BYTES);
+        wg_commit();
+        wg_wait();
+        reg_fence(dq);
+        reg_fence(sa);
+      }
+
+      const bool ok0 = row[0] < T, ok1 = row[1] < T;
+      store_rows(dqkv + (size_t)b * T * F + 3 * h * D, dq, SCALE, row[0], row[1], ok0, ok1, F, tq);
+      colsum_add(dq, SCALE, ok0, ok1, red, warp, g, tq);
+    }
+    __syncthreads();
+    if (threadIdx.x < D) {
+      const int c = threadIdx.x;
+      db_part[(size_t)b * F + 3 * h * D + c] = red[c] + red[D + c] + red[2 * D + c] + red[3 * D + c];
+    }
+  }
+}
+
+// --------------------------------------------------- backward: dK, dV pass
+
+size_t dkv_bytes(int T) {
+  const int Tp = round_up(T, TILE);
+  return ALIGN + 4 * TILE_BYTES + (size_t)2 * Tp * ROW + (3 * Tp + 8 * D) * sizeof(float);
+}
+
+__global__ void __launch_bounds__(NT)
+packed_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, const float* __restrict__ key_bias,
+                  const bf16* __restrict__ dout, const float* __restrict__ stats, const float* __restrict__ delta_g,
+                  bf16* __restrict__ dqkv, float* __restrict__ db_part, int T, int H, int hg, uint32_t seed,
+                  uint32_t thr, float inv, int dropout) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  const int Tp = round_up(T, TILE), ntl = Tp / TILE;
+  unsigned char* Ks = sm;                        // [2][TILE] key tiles
+  unsigned char* Vs = Ks + 2 * TILE_BYTES;       // [2][TILE]
+  unsigned char* Qs = Vs + 2 * TILE_BYTES;       // [Tp] all queries
+  unsigned char* dOs = Qs + (size_t)Tp * ROW;    // [Tp]
+  float* kb = reinterpret_cast<float*>(dOs + (size_t)Tp * ROW);  // [Tp]
+  float* st = kb + Tp;                           // [Tp]; padded queries +inf: p = 0
+  float* dl = st + Tp;                           // [Tp]
+  float* redk = dl + Tp;                         // [4][D]
+  float* redv = redk + 4 * D;                    // [4][D]
+  const uint32_t sK = smem_addr(Ks), sV = smem_addr(Vs), sQ = smem_addr(Qs), sdO = smem_addr(dOs);
+
+  const int b = blockIdx.y, F = 3 * H * D, ldo = H * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
+  const float c1 = SCALE * LOG2E;
+  const bf16* base = qkv + (size_t)b * T * F;
+  load_key_bias(kb, key_bias + (size_t)b * T, T, Tp);
+
+  for (int h = blockIdx.x * hg; h < (blockIdx.x + 1) * hg; ++h) {
+    const bf16 *qsrc = base + 3 * h * D, *ksrc = qsrc + D, *vsrc = qsrc + 2 * D;
+    const bf16* dsrc = dout + (size_t)b * T * ldo + h * D;
+    const uint4 bq = bias_chunk(qb, h, 0), bk = bias_chunk(qb, h, 1), bv = bias_chunk(qb, h, 2);
+    const uint32_t bh = (uint32_t)(b * H + h);
+    const size_t sb = (size_t)bh * T;
+    __syncthreads();
+    issue_tile(sK, ksrc, 0, T, F);
+    issue_tile(sV, vsrc, 0, T, F);
+    cp_commit();
+    for (int qc = 0; qc < ntl; ++qc) {
+      issue_tile(sQ + qc * TILE_BYTES, qsrc, qc * TILE, T, F);
+      issue_tile(sdO + qc * TILE_BYTES, dsrc, qc * TILE, T, ldo);
+      cp_commit();
+    }
+    for (int i = threadIdx.x; i < Tp; i += NT) {
+      st[i] = i < T ? stats[sb + i] : INFINITY;
+      dl[i] = i < T ? delta_g[sb + i] : 0.f;
+    }
+    redk[threadIdx.x] = redk[threadIdx.x + NT] = 0.f;
+    redv[threadIdx.x] = redv[threadIdx.x + NT] = 0.f;
+
+    for (int kt = 0; kt < ntl; ++kt) {
+      const int buf = kt & 1;
+      if (kt > 0) __syncthreads();
+      if (kt + 1 < ntl) {
+        issue_tile(sK + (buf ^ 1) * TILE_BYTES, ksrc, (kt + 1) * TILE, T, F);
+        issue_tile(sV + (buf ^ 1) * TILE_BYTES, vsrc, (kt + 1) * TILE, T, F);
+      }
+      cp_commit();
+      if (kt > 0) {
+        cp_wait<1>();
+        add_bias(Ks + buf * TILE_BYTES, bk, kt * TILE, T);
+        add_bias(Vs + buf * TILE_BYTES, bv, kt * TILE, T);
+        fence_async();
+        __syncthreads();
+      }
+      const int key[2] = {kt * TILE + warp * 16 + g, kt * TILE + warp * 16 + g + 8};
+      const float kbr[2] = {kb[key[0]], kb[key[1]]};
+      float dk[32], dv[32];
+      zero(dk);
+      zero(dv);
+
+      for (int qc = 0; qc < ntl; ++qc) {
+        if (kt == 0) {
+          cp_wait_dyn(ntl - qc);
+          if (qc == 0) {
+            add_bias(Ks, bk, 0, T);
+            add_bias(Vs, bv, 0, T);
+          }
+          add_bias(Qs + qc * TILE_BYTES, bq, qc * TILE, T);
+          fence_async();
+          __syncthreads();
+        }
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+        float s[32], dp[32];
+        wg_fence();
+        product_ss(s, sK + buf * TILE_BYTES, sQ + qc * TILE_BYTES);
+        product_ss(dp, sV + buf * TILE_BYTES, sdO + qc * TILE_BYTES);
+        wg_commit();
+        wg_wait();
+        reg_fence(s);
+        reg_fence(dp);
+
+        const int q0 = qc * TILE;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int i0 = q0 + nt * 8 + 2 * tq;  // queries i0, i0 + 1
+          uint32_t bits = 0xFu;
+          if (dropout) bits = keep_bits<true>(seed, bh, key[0], key[1], i0, par, thr, i0 < T, T);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = i0 + (e & 1);
+            const float p = exp2f(s[4 * nt + e] * c1 + kbr[e >> 1] - st[i]);
+            float pd = p, d = dp[4 * nt + e];
+            if (dropout) {
+              const bool keep = (bits >> e) & 1u;
+              pd = keep ? p * inv : 0.f;
+              d = keep ? d * inv : 0.f;
+            }
+            s[4 * nt + e] = pd;
+            dp[4 * nt + e] = p * (d - dl[i]);
+          }
+        }
+        uint32_t pa[4][4], sa[4][4];
+        to_a(pa, s);
+        to_a(sa, dp);
+        wg_fence();
+        product_rs(dv, pa, sdO + qc * TILE_BYTES);
+        product_rs(dk, sa, sQ + qc * TILE_BYTES);
+        wg_commit();
+        wg_wait();
+        reg_fence(dv);
+        reg_fence(dk);
+        reg_fence(pa);
+        reg_fence(sa);
+      }
+
+      const bool ok0 = key[0] < T, ok1 = key[1] < T;
+      bf16* dst = dqkv + (size_t)b * T * F + 3 * h * D;
+      store_rows(dst + D, dk, SCALE, key[0], key[1], ok0, ok1, F, tq);
+      store_rows(dst + 2 * D, dv, 1.f, key[0], key[1], ok0, ok1, F, tq);
+      colsum_add(dk, SCALE, ok0, ok1, redk, warp, g, tq);
+      colsum_add(dv, 1.f, ok0, ok1, redv, warp, g, tq);
+    }
+    __syncthreads();
+    if (threadIdx.x < D) {
+      const int c = threadIdx.x;
+      float* part = db_part + (size_t)b * F;
+      part[(3 * h + 1) * D + c] = redk[c] + redk[D + c] + redk[2 * D + c] + redk[3 * D + c];
+      part[(3 * h + 2) * D + c] = redv[c] + redv[D + c] + redv[2 * D + c] + redv[3 * D + c];
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launches
+
+const void* kernel_of(int which) {
+  switch (which) {
+    case 0: return (const void*)packed_fwd_kernel;
+    case 1: return (const void*)packed_dq_kernel;
+    case 2: return (const void*)packed_dkv_kernel;
+    default: return nullptr;
+  }
+}
+
+size_t bytes_of(int which, int T) { return which == 0 ? fwd_bytes(T) : (which == 1 ? dq_bytes(T) : dkv_bytes(T)); }
+
+cudaError_t prepare(int which, int T) {
+  return cudaFuncSetAttribute(kernel_of(which), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes_of(which, T));
+}
+
+}  // namespace
+
+// The largest dynamic shared memory of the three kernels at T.
+extern "C" size_t vb_attn_packed_smem_bytes(int T) {
+  size_t m = fwd_bytes(T);
+  if (dq_bytes(T) > m) m = dq_bytes(T);
+  return dkv_bytes(T) > m ? dkv_bytes(T) : m;
+}
+
+// Kernel `which` (0 forward, 1 dQ pass, 2 dK/dV pass): `what` 0 its
+// registers a thread, 1 its local (spill) bytes a thread, 2 its dynamic
+// shared memory at T, 3 its resident blocks per SM at T. -1 on an error.
+extern "C" int vb_attn_packed_info(int which, int what, int T) {
+  const void* fn = kernel_of(which);
+  if (fn == nullptr) return -1;
+  if (what == 0 || what == 1) {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess) return -1;
+    return what == 0 ? attr.numRegs : (int)attr.localSizeBytes;
+  }
+  if (what == 2) return (int)bytes_of(which, T);
+  if (what == 3) {
+    int n = 0;
+    if (prepare(which, T) != cudaSuccess) return -1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, NT, bytes_of(which, T)) != cudaSuccess) return -1;
+    return n;
+  }
+  return -1;
+}
+
+extern "C" int vb_attn_packed_fwd(const void* qkv, const void* qb, const void* key_bias, void* out, void* stats,
+                                  int B, int T, int H, int hg, unsigned int seed, unsigned int threshold, float inv,
+                                  int dropout, void* stream) {
+  if (hg <= 0 || H % hg) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare(0, T);
+  if (err != cudaSuccess) return (int)err;
+  packed_fwd_kernel<<<dim3(H / hg, B), NT, fwd_bytes(T), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(qb), static_cast<const float*>(key_bias),
+      static_cast<bf16*>(out), static_cast<float*>(stats), T, H, hg, seed, threshold, inv, dropout);
+  return (int)cudaGetLastError();
+}
+
+// db_part [B, H*3*D] fp32 and delta [B, H, T] fp32 are scratch the caller
+// allocates; hg_dq and hg_dkv are the two passes' heads a block.
+extern "C" int vb_attn_packed_bwd(const void* qkv, const void* qb, const void* key_bias, const void* dout,
+                                  const void* out, const void* stats, void* dqkv, void* db_part, void* delta, int B,
+                                  int T, int H, int hg_dq, int hg_dkv, unsigned int seed, unsigned int threshold,
+                                  float inv, int dropout, void* stream) {
+  if (hg_dq <= 0 || H % hg_dq || hg_dkv <= 0 || H % hg_dkv) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = prepare(1, T);
+  if (err != cudaSuccess) return (int)err;
+  err = prepare(2, T);
+  if (err != cudaSuccess) return (int)err;
+  packed_dq_kernel<<<dim3(H / hg_dq, B), NT, dq_bytes(T), s>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(qb), static_cast<const float*>(key_bias),
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(out), static_cast<const float*>(stats),
+      static_cast<bf16*>(dqkv), static_cast<float*>(db_part), static_cast<float*>(delta), T, H, hg_dq, seed,
+      threshold, inv, dropout);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  packed_dkv_kernel<<<dim3(H / hg_dkv, B), NT, dkv_bytes(T), s>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(qb), static_cast<const float*>(key_bias),
+      static_cast<const bf16*>(dout), static_cast<const float*>(stats), static_cast<const float*>(delta),
+      static_cast<bf16*>(dqkv), static_cast<float*>(db_part), T, H, hg_dkv, seed, threshold, inv, dropout);
+  return (int)cudaGetLastError();
+}

@@ -2,7 +2,8 @@
 // decoder. Replace visualbert_tpu/ops/mlm_xent.py::_fwd_kernel (K4),
 // ::_dx_kernel (K5) and ::_de_kernel (K6), reached through mlm_xent.
 //
-// Inputs: x [N, HID] bf16 (the MLM transform's output rows), E [V, HID] bf16
+// Inputs, at hidden width HID of 768 (bert-base) or 1024 (bert-large), one
+// instantiation each: x [N, HID] bf16 (the MLM transform's output rows), E [V, HID] bf16
 // (the word-embedding table in the compute dtype, as the decoder weight),
 // bias [V] fp32, labels [N] int32 in [0, V) (the caller maps -1 to 0 and
 // masks those rows), and for the backward lse [N] fp32 and the cotangent
@@ -65,26 +66,35 @@ using vb::load_b_rows;
 using vb::mma16816;
 using vb::pack_bf16;
 
-constexpr int HID = 768;          // hidden width (bert-base); the wrapper checks
-constexpr int LDH = HID + 8;      // padded row stride of [*, HID] tiles (elements)
-constexpr int KSTEPS = HID / 16;  // k-steps of a logits product
 constexpr int NTHREADS = 256;     // 8 warps
 constexpr int VB = 64;            // vocabulary rows per logits tile (K4, K5)
-constexpr int FWD_ROWS = 64;      // K4 rows per block
 constexpr int DX_ROWS = 32;       // K5 rows per block
 constexpr int DE_ROWS = 64;       // K6 rows per step of its row loop
 constexpr int DE_VOCAB = 32;      // K6 vocabulary rows per block
 constexpr int LDD = 64 + 8;       // row stride of the bf16 dlog tiles
-constexpr int HW = HID / 8;       // dx / dE columns owned by each warp (96)
-constexpr int HT = HW / 8;        // ... in n8 tiles (12)
+
+// The tiling at hidden width HID (768, bert-base, and 1024, bert-large; the
+// wrapper checks). Shared memory holds [rows, HID] tiles with a padded row
+// stride: K4's 64 x-rows and 64 vocabulary rows fit at 768 (198 KB) but not
+// at 1024 (264 KB of 227), so K4 takes 32 rows a block there.
+template <int HID>
+struct Geo {
+  static constexpr int LDH = HID + 8;                   // padded row stride of [*, HID] tiles (elements)
+  static constexpr int KSTEPS = HID / 16;               // k-steps of a logits product
+  static constexpr int FWD_ROWS = HID <= 768 ? 64 : 32;  // K4 rows per block
+  static constexpr int FWD_MT = FWD_ROWS / 32;          // K4 m16 tiles per warp (2 x 4 warps)
+  static constexpr int HW = HID / 8;                    // dx / dE columns owned by each warp (96, 128)
+  static constexpr int HT = HW / 8;                     // ... in n8 tiles (12, 16)
+};
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // Copy rows [r0, r0 + nrows) of a [nvalid, HID] bf16 matrix into shared
 // memory with row stride LDH; rows past nvalid are zero.
+template <int HID>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int r0, int nrows,
                                           int nvalid) {
-  constexpr int VEC = HID / 8;  // 16-byte vectors per row
+  constexpr int VEC = HID / 8, LDH = Geo<HID>::LDH;  // 16-byte vectors per row
   for (int idx = threadIdx.x; idx < nrows * VEC; idx += NTHREADS) {
     const int r = idx / VEC, c = (idx % VEC) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
@@ -95,15 +105,16 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ sr
 
 // One warp's logits tile: C[MT m16 tiles][NT n8 tiles] = A[a0 + ..] . B[b0 + ..]^T
 // over K = HID, both operands row-major [*, HID] in shared memory.
-template <int MT, int NT>
+template <int HID, int MT, int NT>
 __device__ __forceinline__ void logits_tile(float c[MT][NT][4], const bf16* A, int a0, const bf16* B, int b0,
                                             int g, int tq) {
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j) c[i][j][0] = c[i][j][1] = c[i][j][2] = c[i][j][3] = 0.f;
+  constexpr int LDH = Geo<HID>::LDH;
 #pragma unroll 4
-  for (int kk = 0; kk < KSTEPS; ++kk) {
+  for (int kk = 0; kk < Geo<HID>::KSTEPS; ++kk) {
     uint32_t a[MT][4];
 #pragma unroll
     for (int i = 0; i < MT; ++i) load_a<LDH>(a[i], A, a0 + 16 * i, kk * 16, g, tq);
@@ -135,13 +146,16 @@ __device__ __forceinline__ void argmax_merge(float& bv, int& bi, float v2, int i
 
 // ------------------------------------------------------------------ K4
 
-// grid (cdiv(N, 64), S): rows x vocabulary splits of `vbs` tiles of 64.
-// Partials: pf [4][S][N] fp32 (max, sum of exp, label logit, best value),
-// pi [S][N] int32 (best index).
+// grid (cdiv(N, FWD_ROWS), S): rows x vocabulary splits of `vbs` tiles of
+// 64. Partials: pf [4][S][N] fp32 (max, sum of exp, label logit, best
+// value), pi [S][N] int32 (best index).
+template <int HID>
 __global__ void __launch_bounds__(NTHREADS, 1)
 xent_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const float* __restrict__ bias,
                 const int* __restrict__ labels, int N, int V, int vbs, float* __restrict__ pf,
                 int* __restrict__ pi) {
+  constexpr int LDH = Geo<HID>::LDH, FWD_ROWS = Geo<HID>::FWD_ROWS, MT = Geo<HID>::FWD_MT, RW = FWD_ROWS / 2;
+  constexpr int NR = 2 * MT;  // rows a thread holds
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Xs = reinterpret_cast<bf16*>(smem);          // [FWD_ROWS][LDH]
   bf16* Es = Xs + FWD_ROWS * LDH;                    // [VB][LDH]
@@ -154,38 +168,38 @@ xent_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const fl
   const int nvb = cdiv(V, VB);
   const int vb0 = s * vbs, vb1 = min(nvb, vb0 + vbs);
 
-  load_rows(Xs, x, row0, FWD_ROWS, N);
+  load_rows<HID>(Xs, x, row0, FWD_ROWS, N);
   for (int r = threadIdx.x; r < FWD_ROWS; r += NTHREADS) lab_s[r] = row0 + r < N ? labels[row0 + r] : -1;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps over a 64 x 64 tile: 32 rows x 16 columns each
+  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps over a FWD_ROWS x 64 tile: RW rows x 16 columns each
 
-  // per-thread state of its 4 rows (m-tile i, half h -> r = 2 i + h)
-  float m[4], l[4], ll[4], bv[4];
-  int bi[4], lab[4];
+  // per-thread state of its NR rows (m-tile i, half h -> r = 2 i + h)
+  float m[NR], l[NR], ll[NR], bv[NR];
+  int bi[NR], lab[NR];
   __syncthreads();
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < NR; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
     ll[r] = 0.f;
     bv[r] = -INFINITY;
     bi[r] = INT_MAX;
-    lab[r] = lab_s[wm * 32 + (r >> 1) * 16 + g + 8 * (r & 1)];
+    lab[r] = lab_s[wm * RW + (r >> 1) * 16 + g + 8 * (r & 1)];
   }
 
   for (int vb = vb0; vb < vb1; ++vb) {
     const int v0 = vb * VB;
     __syncthreads();  // the previous tile is consumed
-    load_rows(Es, E, v0, VB, V);
+    load_rows<HID>(Es, E, v0, VB, V);
     for (int c = threadIdx.x; c < VB; c += NTHREADS) bias_s[c] = v0 + c < V ? bias[v0 + c] : 0.f;
     __syncthreads();
 
-    float c[2][2][4];
-    logits_tile<2, 2>(c, Xs, wm * 32, Es, wn * 16, g, tq);
+    float c[MT][2][4];
+    logits_tile<HID, MT, 2>(c, Xs, wm * RW, Es, wn * 16, g, tq);
 
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < NR; ++r) {
       const int i = r >> 1, h = r & 1;
       float tm = -INFINITY;
 #pragma unroll
@@ -223,7 +237,7 @@ xent_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const fl
 
   // merge the 4 threads of a row (tq), then the 4 warp columns (wn)
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < NR; ++r) {
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
       const float m2 = __shfl_xor_sync(0xffffffffu, m[r], off), l2 = __shfl_xor_sync(0xffffffffu, l[r], off);
@@ -234,7 +248,7 @@ xent_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const fl
       argmax_merge(bv[r], bi[r], v2, i2);
     }
     if (tq == 0) {
-      float* o = red + ((size_t)wn * FWD_ROWS + wm * 32 + (r >> 1) * 16 + g + 8 * (r & 1)) * 5;
+      float* o = red + ((size_t)wn * FWD_ROWS + wm * RW + (r >> 1) * 16 + g + 8 * (r & 1)) * 5;
       o[0] = m[r];
       o[1] = l[r];
       o[2] = ll[r];
@@ -287,10 +301,12 @@ __global__ void xent_fwd_merge_kernel(const float* __restrict__ pf, const int* _
 // ------------------------------------------------------------------ K5
 
 // grid (cdiv(N, 32), S): rows x vocabulary splits. part [S][N][HID] fp32.
+template <int HID>
 __global__ void __launch_bounds__(NTHREADS, 1)
 xent_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const float* __restrict__ bias,
                const int* __restrict__ labels, const float* __restrict__ lse, int N, int V, int vbs,
                float* __restrict__ part) {
+  constexpr int LDH = Geo<HID>::LDH, HW = Geo<HID>::HW, HT = Geo<HID>::HT;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Xs = reinterpret_cast<bf16*>(smem);  // [DX_ROWS][LDH]
   bf16* Es = Xs + DX_ROWS * LDH;             // [VB][LDH]
@@ -304,7 +320,7 @@ xent_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const flo
   const int nvb = cdiv(V, VB);
   const int vb0 = s * vbs, vb1 = min(nvb, vb0 + vbs);
 
-  load_rows(Xs, x, row0, DX_ROWS, N);
+  load_rows<HID>(Xs, x, row0, DX_ROWS, N);
   for (int r = threadIdx.x; r < DX_ROWS; r += NTHREADS) {
     const bool ok = row0 + r < N;
     lse_s[r] = ok ? lse[row0 + r] : INFINITY;  // padded rows: p = 0
@@ -323,12 +339,12 @@ xent_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const flo
   for (int vb = vb0; vb < vb1; ++vb) {
     const int v0 = vb * VB;
     __syncthreads();  // Es and Ds are consumed
-    load_rows(Es, E, v0, VB, V);
+    load_rows<HID>(Es, E, v0, VB, V);
     for (int c = threadIdx.x; c < VB; c += NTHREADS) bias_s[c] = v0 + c < V ? bias[v0 + c] : 0.f;
     __syncthreads();
 
     float c[1][2][4];
-    logits_tile<1, 2>(c, Xs, wm * 16, Es, wn * 16, g, tq);
+    logits_tile<HID, 1, 2>(c, Xs, wm * 16, Es, wn * 16, g, tq);
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -370,6 +386,7 @@ xent_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const flo
 }
 
 // dx[n, :] = bf16(g[n] * sum_s part[s, n, :]), the splits summed in order.
+template <int HID>
 __global__ void xent_dx_reduce_kernel(const float* __restrict__ part, const float* __restrict__ gr, int N,
                                       int S, bf16* __restrict__ dx) {
   const size_t total = (size_t)N * HID / 4;
@@ -393,10 +410,12 @@ __global__ void xent_dx_reduce_kernel(const float* __restrict__ part, const floa
 // ------------------------------------------------------------------ K6
 
 // grid (cdiv(V, 32)): each block owns 32 vocabulary rows of dE and db.
+template <int HID>
 __global__ void __launch_bounds__(NTHREADS, 1)
 xent_de_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const float* __restrict__ bias,
                const int* __restrict__ labels, const float* __restrict__ lse, const float* __restrict__ gr,
                int N, int V, bf16* __restrict__ dE, float* __restrict__ db) {
+  constexpr int LDH = Geo<HID>::LDH, HW = Geo<HID>::HW, HT = Geo<HID>::HT;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Es = reinterpret_cast<bf16*>(smem);  // [DE_VOCAB][LDH]
   bf16* Xs = Es + DE_VOCAB * LDH;            // [DE_ROWS][LDH]
@@ -408,7 +427,7 @@ xent_de_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const flo
   float* red = reinterpret_cast<float*>(lab_s + DE_ROWS);  // [4 m-tiles][DE_VOCAB]
 
   const int v0 = blockIdx.x * DE_VOCAB;
-  load_rows(Es, E, v0, DE_VOCAB, V);
+  load_rows<HID>(Es, E, v0, DE_VOCAB, V);
   for (int c = threadIdx.x; c < DE_VOCAB; c += NTHREADS) bias_s[c] = v0 + c < V ? bias[v0 + c] : 0.f;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
@@ -423,7 +442,7 @@ xent_de_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const flo
 
   for (int row0 = 0; row0 < N; row0 += DE_ROWS) {
     __syncthreads();  // Xs, Dt and red are consumed
-    load_rows(Xs, x, row0, DE_ROWS, N);
+    load_rows<HID>(Xs, x, row0, DE_ROWS, N);
     for (int r = threadIdx.x; r < DE_ROWS; r += NTHREADS) {
       const bool ok = row0 + r < N;
       lse_s[r] = ok ? lse[row0 + r] : INFINITY;  // padded rows: p = 0 and g = 0
@@ -433,7 +452,7 @@ xent_de_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const flo
     __syncthreads();
 
     float c[1][2][4];
-    logits_tile<1, 2>(c, Xs, wm * 16, Es, wn * 16, g, tq);
+    logits_tile<HID, 1, 2>(c, Xs, wm * 16, Es, wn * 16, g, tq);
     float colsum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -492,30 +511,32 @@ xent_de_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const flo
   if (threadIdx.x < DE_VOCAB && v0 + threadIdx.x < V) db[v0 + threadIdx.x] = db_acc;
 }
 
-constexpr size_t FWD_SMEM = (size_t)(FWD_ROWS + VB) * LDH * sizeof(bf16) + VB * sizeof(float) +
-                            FWD_ROWS * sizeof(int) + 4 * FWD_ROWS * 5 * sizeof(float);
-constexpr size_t DX_SMEM = (size_t)(DX_ROWS + VB) * LDH * sizeof(bf16) + DX_ROWS * LDD * sizeof(bf16) +
-                           VB * sizeof(float) + DX_ROWS * (sizeof(float) + sizeof(int));
-constexpr size_t DE_SMEM = (size_t)(DE_VOCAB + DE_ROWS) * LDH * sizeof(bf16) + DE_VOCAB * LDD * sizeof(bf16) +
-                           DE_VOCAB * sizeof(float) + DE_ROWS * (2 * sizeof(float) + sizeof(int)) +
-                           4 * DE_VOCAB * sizeof(float);
-
-}  // namespace
-
-// The tiling the wrapper needs to check inputs and size the split partials:
-// 0 the hidden width, 1 K4's rows per block, 2 K5's rows per block, 3 the
-// vocabulary rows per tile.
-extern "C" int vb_xent_geometry(int which) {
-  const int g[4] = {HID, FWD_ROWS, DX_ROWS, VB};
-  return which >= 0 && which < 4 ? g[which] : -1;
+template <int HID>
+constexpr size_t fwd_smem() {
+  constexpr int LDH = Geo<HID>::LDH, FWD_ROWS = Geo<HID>::FWD_ROWS;
+  return (size_t)(FWD_ROWS + VB) * LDH * sizeof(bf16) + VB * sizeof(float) + FWD_ROWS * sizeof(int) +
+         4 * FWD_ROWS * 5 * sizeof(float);
 }
+template <int HID>
+constexpr size_t dx_smem() {
+  return (size_t)(DX_ROWS + VB) * Geo<HID>::LDH * sizeof(bf16) + DX_ROWS * LDD * sizeof(bf16) +
+         VB * sizeof(float) + DX_ROWS * (sizeof(float) + sizeof(int));
+}
+template <int HID>
+constexpr size_t de_smem() {
+  return (size_t)(DE_VOCAB + DE_ROWS) * Geo<HID>::LDH * sizeof(bf16) + DE_VOCAB * LDD * sizeof(bf16) +
+         DE_VOCAB * sizeof(float) + DE_ROWS * (2 * sizeof(float) + sizeof(int)) + 4 * DE_VOCAB * sizeof(float);
+}
+static_assert(fwd_smem<1024>() <= 232448 && dx_smem<1024>() <= 232448 && de_smem<1024>() <= 232448,
+              "a K4-K6 block must fit the H100's 227 KB of shared memory");
 
-extern "C" int vb_xent_fwd(const void* x, const void* E, const void* bias, const void* labels, int N, int V,
-                           int S, int vbs, void* pf, void* pi, void* nll, void* lse, void* am, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(xent_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
+template <int HID>
+int launch_fwd(const void* x, const void* E, const void* bias, const void* labels, int N, int V, int S, int vbs,
+               void* pf, void* pi, void* nll, void* lse, void* am, cudaStream_t st) {
+  constexpr size_t smem = fwd_smem<HID>();
+  cudaError_t err = cudaFuncSetAttribute(xent_fwd_kernel<HID>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  xent_fwd_kernel<<<dim3(cdiv(N, FWD_ROWS), S), NTHREADS, FWD_SMEM, st>>>(
+  xent_fwd_kernel<HID><<<dim3(cdiv(N, Geo<HID>::FWD_ROWS), S), NTHREADS, smem, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(E), static_cast<const float*>(bias),
       static_cast<const int*>(labels), N, V, vbs, static_cast<float*>(pf), static_cast<int*>(pi));
   err = cudaGetLastError();
@@ -526,30 +547,64 @@ extern "C" int vb_xent_fwd(const void* x, const void* E, const void* bias, const
   return (int)cudaGetLastError();
 }
 
-extern "C" int vb_xent_dx(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
-                          const void* g, int N, int V, int S, int vbs, void* part, void* dx, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(xent_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DX_SMEM);
+template <int HID>
+int launch_dx(const void* x, const void* E, const void* bias, const void* labels, const void* lse, const void* g,
+              int N, int V, int S, int vbs, void* part, void* dx, cudaStream_t st) {
+  constexpr size_t smem = dx_smem<HID>();
+  cudaError_t err = cudaFuncSetAttribute(xent_dx_kernel<HID>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  xent_dx_kernel<<<dim3(cdiv(N, DX_ROWS), S), NTHREADS, DX_SMEM, st>>>(
+  xent_dx_kernel<HID><<<dim3(cdiv(N, DX_ROWS), S), NTHREADS, smem, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(E), static_cast<const float*>(bias),
       static_cast<const int*>(labels), static_cast<const float*>(lse), N, V, vbs, static_cast<float*>(part));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int quads = cdiv(N * (HID / 4), 256);
-  xent_dx_reduce_kernel<<<quads < 4096 ? quads : 4096, 256, 0, st>>>(
+  xent_dx_reduce_kernel<HID><<<quads < 4096 ? quads : 4096, 256, 0, st>>>(
       static_cast<const float*>(part), static_cast<const float*>(g), N, S, static_cast<bf16*>(dx));
   return (int)cudaGetLastError();
 }
 
-extern "C" int vb_xent_de(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
-                          const void* g, int N, int V, void* dE, void* db, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(xent_de_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DE_SMEM);
+template <int HID>
+int launch_de(const void* x, const void* E, const void* bias, const void* labels, const void* lse, const void* g,
+              int N, int V, void* dE, void* db, cudaStream_t st) {
+  constexpr size_t smem = de_smem<HID>();
+  cudaError_t err = cudaFuncSetAttribute(xent_de_kernel<HID>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  xent_de_kernel<<<cdiv(V, DE_VOCAB), NTHREADS, DE_SMEM, st>>>(
+  xent_de_kernel<HID><<<cdiv(V, DE_VOCAB), NTHREADS, smem, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(E), static_cast<const float*>(bias),
       static_cast<const int*>(labels), static_cast<const float*>(lse), static_cast<const float*>(g), N, V,
       static_cast<bf16*>(dE), static_cast<float*>(db));
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The tiling the wrapper needs to check inputs and size the split partials,
+// at hidden width hid: 0 hid itself if the kernels take it (else -1), 1 K4's
+// rows per block, 2 K5's rows per block, 3 the vocabulary rows per tile.
+extern "C" int vb_xent_geometry(int which, int hid) {
+  if (hid != 768 && hid != 1024) return -1;
+  const int g[4] = {hid, hid == 768 ? Geo<768>::FWD_ROWS : Geo<1024>::FWD_ROWS, DX_ROWS, VB};
+  return which >= 0 && which < 4 ? g[which] : -1;
+}
+
+extern "C" int vb_xent_fwd(const void* x, const void* E, const void* bias, const void* labels, int N, int V,
+                           int hid, int S, int vbs, void* pf, void* pi, void* nll, void* lse, void* am, void* stream) {
+  auto* f = hid == 1024 ? launch_fwd<1024> : (hid == 768 ? launch_fwd<768> : nullptr);
+  if (f == nullptr) return (int)cudaErrorInvalidValue;
+  return f(x, E, bias, labels, N, V, S, vbs, pf, pi, nll, lse, am, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int vb_xent_dx(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
+                          const void* g, int N, int V, int hid, int S, int vbs, void* part, void* dx, void* stream) {
+  auto* f = hid == 1024 ? launch_dx<1024> : (hid == 768 ? launch_dx<768> : nullptr);
+  if (f == nullptr) return (int)cudaErrorInvalidValue;
+  return f(x, E, bias, labels, lse, g, N, V, S, vbs, part, dx, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int vb_xent_de(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
+                          const void* g, int N, int V, int hid, void* dE, void* db, void* stream) {
+  auto* f = hid == 1024 ? launch_de<1024> : (hid == 768 ? launch_de<768> : nullptr);
+  if (f == nullptr) return (int)cudaErrorInvalidValue;
+  return f(x, E, bias, labels, lse, g, N, V, dE, db, static_cast<cudaStream_t>(stream));
 }

@@ -37,8 +37,10 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
     "vb_dropout_mask": [_P, ctypes.c_longlong, _I, _U, _U, _F, _P],
-    "vb_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
-    "vb_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
+    "vb_attn_packed_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _I, _P],
+    "vb_attn_packed_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
+    "vb_attn_packed_smem_bytes": [_I],
+    "vb_attn_packed_info": [_I, _I, _I],
     "vb_attn_smem_bytes": [_I],
     "vb_attn_hm_fwd": [_P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_hm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
@@ -47,10 +49,10 @@ _SIGNATURES = {
     "vb_attn_sp_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_exp_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_exp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
-    "vb_xent_geometry": [_I],
-    "vb_xent_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "vb_xent_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "vb_xent_de": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "vb_xent_geometry": [_I, _I],
+    "vb_xent_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "vb_xent_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "vb_xent_de": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "vb_ln_geometry": [_I],
     "vb_ln_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _U, _U, _F, _P],
     "vb_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _P],

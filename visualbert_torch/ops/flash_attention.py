@@ -22,7 +22,8 @@ gradient, as in JAX), its forward also writes the normalised pre-dropout
 probabilities [B, H, T, T], always bf16, and its backward reads them back
 instead of recomputing QK^T and the softmax.
 
-Kernels (``csrc/flash_attention.cu``, ``csrc/flash_attention_sp.cu``):
+Kernels (``csrc/flash_attention_packed.cu``, ``csrc/flash_attention.cu``,
+``csrc/flash_attention_sp.cu``):
 
 * K1, :func:`packed_attention_fwd`, replaces ``_packed_fwd_kernel``;
 * K2, :func:`packed_attention_bwd`, replaces ``_packed_bwd_kernel``;
@@ -55,7 +56,6 @@ from visualbert_torch.ops.philox import MASK32, keep_threshold, philox4x32_10
 
 LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIM = 64
-TILE = 64
 MAX_SMEM_BYTES = 232448  # opt-in shared memory per block on sm_90
 
 
@@ -250,7 +250,7 @@ def _check(what, smem_fn, T, key_bias, B, *tensors):
     return lib
 
 
-def _check_packed(what, qkv, key_bias, n_heads, *others, qb=None, smem_fn="vb_attn_smem_bytes"):
+def _check_packed(what, qkv, key_bias, n_heads, *others, smem_fn, qb=None):
     if qkv.dtype != torch.bfloat16:
         raise ValueError(f"{what}: the kernel takes bf16 qkv, got {qkv.dtype}")
     B, T, F = qkv.shape
@@ -275,19 +275,77 @@ def _seed_args(rate: float, seed: int):
     return int(seed) & MASK32, keep_threshold(rate), (1.0 / (1.0 - rate) if rate > 0.0 else 1.0), int(rate > 0.0)
 
 
+def head_group(B: int, H: int, n_sm: int, per_sm: int) -> int:
+    """Heads a block of K1/K2 walks (one batch row x hg heads a block): the
+    divisor hg of H that minimises the wave estimate ceil(blocks / slots) x
+    hg, blocks = B * H / hg and slots = n_sm * per_sm (the time of a wave is
+    about that of hg pairs); ties go to the fewer blocks."""
+    slots = n_sm * per_sm
+    divisors = [hg for hg in range(1, H + 1) if H % hg == 0]
+    return min(divisors, key=lambda hg: (-(-(B * H // hg) // slots) * hg, -hg))
+
+
+# kernel index of vb_attn_packed_info: the forward, the dQ pass, the dK/dV pass
+PACKED_KERNELS = ("forward", "dQ pass", "dK/dV pass")
+_head_groups = {}
+
+
+def packed_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
+    """hg of K1's kernel and of K2's two passes at this shape on ``device``,
+    from each kernel's resident blocks per SM (the CUDA occupancy query at
+    its shared memory for T); computed once a (B, H, T, device)."""
+    key = (B, H, T, device.index)
+    if key not in _head_groups:
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        out = []
+        for k, kernel in enumerate(PACKED_KERNELS):
+            per_sm = lib.vb_attn_packed_info(k, 3, T)
+            if per_sm < 1:
+                raise RuntimeError(f"K1/K2 {kernel}: no block fits an SM at T={T}")
+            out.append(head_group(B, H, n_sm, per_sm))
+        _head_groups[key] = tuple(out)
+    return _head_groups[key]
+
+
+def launch_packed_fwd(lib, qkv, qb, key_bias, n_heads: int, rate: float, seed: int, hg: int):
+    """K1's kernel from ``lib`` (the kernel library, or another build of its
+    source) on checked inputs, hg heads a block: (CUDA code, out, stats)."""
+    B, T, F = qkv.shape
+    out = torch.empty((B, T, F // 3), dtype=qkv.dtype, device=qkv.device)
+    stats = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_packed_fwd(
+        qkv.data_ptr(), qb.data_ptr(), key_bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
+        B, T, n_heads, hg, *_seed_args(rate, seed), _build.stream_ptr(qkv.device),
+    )
+    return code, out, stats
+
+
+def launch_packed_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: float, seed: int, hg_dq: int,
+                      hg_dkv: int):
+    """K2's two kernels from ``lib`` on checked inputs: (CUDA code, dqkv,
+    dqb). The kernels write fp32 per-batch-row partials of the bias
+    gradient; their sum here is the only reduction outside them."""
+    B, T, F = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    db_part = torch.empty((B, F), dtype=torch.float32, device=qkv.device)
+    delta = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_packed_bwd(
+        qkv.data_ptr(), qb.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), out.data_ptr(),
+        stats.data_ptr(), dqkv.data_ptr(), db_part.data_ptr(), delta.data_ptr(),
+        B, T, n_heads, hg_dq, hg_dkv, *_seed_args(rate, seed), _build.stream_ptr(qkv.device),
+    )
+    return code, dqkv, db_part.sum(dim=0).to(qb.dtype)
+
+
 def packed_attention_fwd(qkv, qb, key_bias, n_heads: int, rate: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 wrapper: (out [B, T, H*D], stats [B, H, T] fp32)."""
     what = "packed attention forward (K1)"
     if not _on_cuda(what, qkv):
         return packed_attention_fwd_reference(qkv, qb, key_bias, n_heads, rate, seed)
-    lib = _check_packed(what, qkv, key_bias, n_heads, qb=qb)
-    B, T, F = qkv.shape
-    out = torch.empty((B, T, F // 3), dtype=qkv.dtype, device=qkv.device)
-    stats = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
-    code = lib.vb_attn_fwd(
-        qkv.data_ptr(), qb.data_ptr(), key_bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
-        B, T, n_heads, *_seed_args(rate, seed), _build.stream_ptr(qkv.device),
-    )
+    lib = _check_packed(what, qkv, key_bias, n_heads, qb=qb, smem_fn="vb_attn_packed_smem_bytes")
+    B, T, _ = qkv.shape
+    hg = packed_head_groups(lib, B, n_heads, T, qkv.device)[0]
+    code, out, stats = launch_packed_fwd(lib, qkv, qb, key_bias, n_heads, rate, seed, hg)
     lib.check(code, what)
     packed_attention_fwd.launches += 1
     return out, stats
@@ -297,27 +355,18 @@ packed_attention_fwd.launches = 0
 
 
 def packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: float, seed: int):
-    """K2 wrapper: (dqkv [B, T, H*3*D], dqb [H*3*D] in qb's dtype). The
-    kernel writes fp32 per-(batch, 64-row tile) partials of the bias
-    gradient; their sum here is the only reduction outside it."""
+    """K2 wrapper: (dqkv [B, T, H*3*D], dqb [H*3*D] in qb's dtype)."""
     what = "packed attention backward (K2)"
     if not _on_cuda(what, qkv):
         return packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed)
-    lib = _check_packed(what, qkv, key_bias, n_heads, dout, out, qb=qb)
-    B, T, F = qkv.shape
+    lib = _check_packed(what, qkv, key_bias, n_heads, dout, out, qb=qb, smem_fn="vb_attn_packed_smem_bytes")
+    B, T, _ = qkv.shape
     _check_stats(what, stats, B, n_heads, T)
-    n_tiles = (T + TILE - 1) // TILE
-    dqkv = torch.empty_like(qkv)
-    db_part = torch.empty((B, n_tiles, F), dtype=torch.float32, device=qkv.device)
-    delta = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
-    code = lib.vb_attn_bwd(
-        qkv.data_ptr(), qb.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), out.data_ptr(),
-        stats.data_ptr(), dqkv.data_ptr(), db_part.data_ptr(), delta.data_ptr(),
-        B, T, n_heads, *_seed_args(rate, seed), _build.stream_ptr(qkv.device),
-    )
+    _, hg_dq, hg_dkv = packed_head_groups(lib, B, n_heads, T, qkv.device)
+    code, dqkv, dqb = launch_packed_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed, hg_dq, hg_dkv)
     lib.check(code, what)
     packed_attention_bwd.launches += 1
-    return dqkv, db_part.sum(dim=(0, 1)).to(qb.dtype)
+    return dqkv, dqb
 
 
 packed_attention_bwd.launches = 0

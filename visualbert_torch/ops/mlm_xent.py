@@ -32,6 +32,8 @@ import torch
 
 from visualbert_torch.ops import _build
 
+KERNEL_WIDTHS = (768, 1024)  # the hidden widths K4-K6 are instantiated for
+
 
 def _logits(x, emb, bias):
     # compute-dtype products are exact in fp32, so this is the kernels' math
@@ -73,8 +75,8 @@ def _check_cuda_inputs(what, x, emb, bias, labels, *rows):
     V = emb.shape[0]
     if x.dtype != torch.bfloat16 or emb.dtype != torch.bfloat16:
         raise ValueError(f"{what}: the kernel takes bf16 x and embedding, got {x.dtype}, {emb.dtype}")
-    if H != lib.vb_xent_geometry(0) or emb.shape != (V, H):
-        raise ValueError(f"{what}: the kernel takes hidden width {lib.vb_xent_geometry(0)}, "
+    if H not in KERNEL_WIDTHS or emb.shape != (V, H):
+        raise ValueError(f"{what}: the kernel takes hidden width {' or '.join(map(str, KERNEL_WIDTHS))}, "
                          f"got x {tuple(x.shape)}, embedding {tuple(emb.shape)}")
     if bias.shape != (V,) or bias.dtype != torch.float32:
         raise ValueError(f"{what}: bias must be [{V}] float32")
@@ -114,13 +116,14 @@ def mlm_xent_fwd(x, emb, bias, labels) -> Tuple[torch.Tensor, torch.Tensor, torc
         return mlm_xent_fwd_reference(x, emb, bias, labels)
     lib = _check_cuda_inputs(what, x, emb, bias, labels)
     N, V = x.shape[0], emb.shape[0]
-    S, per = _splits(-(-N // lib.vb_xent_geometry(1)), -(-V // lib.vb_xent_geometry(3)), x.device)
+    H = x.shape[1]
+    S, per = _splits(-(-N // lib.vb_xent_geometry(1, H)), -(-V // lib.vb_xent_geometry(3, H)), x.device)
     pf = torch.empty((4, S, N), dtype=torch.float32, device=x.device)
     pi = torch.empty((S, N), dtype=torch.int32, device=x.device)
     nll = torch.empty(N, dtype=torch.float32, device=x.device)
     lse = torch.empty(N, dtype=torch.float32, device=x.device)
     am = torch.empty(N, dtype=torch.int32, device=x.device)
-    code = lib.vb_xent_fwd(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), N, V, S, per,
+    code = lib.vb_xent_fwd(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), N, V, H, S, per,
                            pf.data_ptr(), pi.data_ptr(), nll.data_ptr(), lse.data_ptr(), am.data_ptr(),
                            _build.stream_ptr(x.device))
     lib.check(code, what)
@@ -139,11 +142,11 @@ def mlm_xent_dx(x, emb, bias, labels, lse, g) -> torch.Tensor:
         return mlm_xent_dx_reference(x, emb, bias, labels, lse, g)
     lib = _check_cuda_inputs(what, x, emb, bias, labels, lse, g)
     (N, H), V = x.shape, emb.shape[0]
-    S, per = _splits(-(-N // lib.vb_xent_geometry(2)), -(-V // lib.vb_xent_geometry(3)), x.device)
+    S, per = _splits(-(-N // lib.vb_xent_geometry(2, H)), -(-V // lib.vb_xent_geometry(3, H)), x.device)
     part = torch.empty((S, N, H), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     code = lib.vb_xent_dx(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                          g.data_ptr(), N, V, S, per, part.data_ptr(), dx.data_ptr(), _build.stream_ptr(x.device))
+                          g.data_ptr(), N, V, H, S, per, part.data_ptr(), dx.data_ptr(), _build.stream_ptr(x.device))
     lib.check(code, what)
     mlm_xent_dx.launches += 1
     return dx
@@ -158,11 +161,11 @@ def mlm_xent_de(x, emb, bias, labels, lse, g) -> Tuple[torch.Tensor, torch.Tenso
     if not _device(x, what):
         return mlm_xent_de_reference(x, emb, bias, labels, lse, g)
     lib = _check_cuda_inputs(what, x, emb, bias, labels, lse, g)
-    N, V = x.shape[0], emb.shape[0]
+    (N, H), V = x.shape, emb.shape[0]
     de = torch.empty_like(emb)
     db = torch.empty(V, dtype=torch.float32, device=x.device)
     code = lib.vb_xent_de(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                          g.data_ptr(), N, V, de.data_ptr(), db.data_ptr(), _build.stream_ptr(x.device))
+                          g.data_ptr(), N, V, H, de.data_ptr(), db.data_ptr(), _build.stream_ptr(x.device))
     lib.check(code, what)
     mlm_xent_de.launches += 1
     return de, db

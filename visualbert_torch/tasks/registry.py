@@ -21,6 +21,7 @@ import numpy as np
 from visualbert_torch.data.pipeline import Batcher, prefetch
 from visualbert_torch.data.tokenization import BertTokenizer
 from visualbert_torch.models.visualbert import VisualBertForTask
+from visualbert_torch.ops.limits import check_kernel_limits
 from visualbert_torch.train import loop
 from visualbert_torch.train.loop import FitResult, fit
 from visualbert_torch.train.trainer import Trainer
@@ -58,6 +59,7 @@ def _tokenizer(cfg: TaskConfig) -> BertTokenizer:
 
 
 def _trainer(cfg: TaskConfig, model, device) -> Trainer:
+    check_kernel_limits(cfg.model, device)
     return Trainer(model, cfg.optimizer, cfg.train, device=device)
 
 
@@ -83,11 +85,16 @@ def _restore(cfg: TaskConfig, trainer: Trainer) -> Trainer:
     return trainer
 
 
-def _run_fit(cfg: TaskConfig, trainer: Trainer, train_ds, eval_ds=None, dump_hook=None, val_metric="accuracy"):
+def _run_fit(cfg: TaskConfig, trainer: Trainer, train_ds, eval_ds=None, dump_hook=None, val_metric="accuracy",
+             val_metric_higher_is_better=None):
     """Fit ``trainer`` on ``train_ds``, evaluating ``eval_ds`` after each
     epoch and checkpointing into ``<folder>/ckpt``; then, with a
     ``dump_hook``, write the eval split's predictions (JAX
-    ``registry.py:100-148``). With ``eval_only``: restore, evaluate, dump."""
+    ``registry.py:100-148``). With ``eval_only``: restore, evaluate, dump.
+    ``val_metric`` selects the best epoch; it counts as lower-is-better when
+    it is ``"loss"`` unless ``val_metric_higher_is_better`` says otherwise."""
+    if val_metric_higher_is_better is None:
+        val_metric_higher_is_better = val_metric != "loss"
     if cfg.eval_only and eval_ds is None:
         raise ValueError(f"eval_only needs an eval split; task {cfg.task} has none")
     trainer.init_state()
@@ -105,7 +112,8 @@ def _run_fit(cfg: TaskConfig, trainer: Trainer, train_ds, eval_ds=None, dump_hoo
                                       epochs_run=0, history=[metrics])
         result = fit(trainer, lambda e: prefetch(train_b.epoch(e)),
                      (lambda: eval_b.epoch(0)) if eval_b is not None else None,
-                     checkpoint_dir=os.path.join(cfg.folder, "ckpt"), val_metric=val_metric)
+                     checkpoint_dir=os.path.join(cfg.folder, "ckpt"), val_metric=val_metric,
+                     val_metric_higher_is_better=val_metric_higher_is_better)
         if dump_hook is not None and eval_b is not None:
             evaluate(trainer, eval_b, dump_hook, cfg.folder)
     finally:
@@ -163,7 +171,7 @@ def run_coco_pretrain(cfg: TaskConfig, device):
     )
     model = VisualBertForTask(cfg.model, head_type="pretraining")
     cfg = _default_frozen_pooler(cfg)
-    return _run_fit(cfg, _trainer(cfg, model, device), ds)
+    return _run_fit(cfg, _trainer(cfg, model, device), ds, val_metric="loss")
 
 
 @register("vqa")

@@ -36,16 +36,39 @@ def model_block() -> dict:
     return load_config_file(CONFIG)["model"]
 
 
+def packed_attention_inputs(device):
+    """K1/K2's inputs at the main path's shapes (B=128, T=228, H=12, D=64):
+    qkv [B, T, H*3*D], qb, a key bias with padded text and regions and dout,
+    bf16, from RandomState(0)."""
+    import numpy as np
+    import torch
+
+    H, D, T = 12, 64, TT + TV
+    F = 3 * H * D
+    rng = np.random.RandomState(0)
+    qkv = torch.tensor(rng.randn(B, T, F), dtype=torch.bfloat16, device=device)
+    qb = torch.tensor(rng.randn(F) * 0.1, dtype=torch.bfloat16, device=device)
+    mask = np.ones((B, T), np.float32)
+    mask[::3, TT - 20:TT] = 0  # some padded text
+    mask[1::4, T - 30:] = 0    # some padded regions
+    key_bias = torch.tensor((1.0 - mask) * -10000.0, device=device)
+    dout = torch.tensor(rng.randn(B, T, H * D), dtype=torch.bfloat16, device=device)
+    return qkv, qb, key_bias, dout
+
+
 def build(block: dict, device="cuda"):
     """A Trainer over the pretraining model at bert-base width and depth on
     ``device``, with seeded random weights, and one synthetic batch there."""
     from visualbert_torch.config import OptimizerConfig, TrainConfig, VisualBertConfig
     from visualbert_torch.models.visualbert import VisualBertForTask
+    from visualbert_torch.ops.limits import check_kernel_limits
     from visualbert_torch.tools.synth import synth_batch
     from visualbert_torch.train.trainer import Trainer, to_device
 
+    cfg = VisualBertConfig.from_dict(block)
+    check_kernel_limits(cfg, device)
     trainer = Trainer(
-        VisualBertForTask(VisualBertConfig.from_dict(block), "pretraining"),
+        VisualBertForTask(cfg, "pretraining"),
         OptimizerConfig(learning_rate=1e-4, schedule="none", frozen=("pooler",)),
         TrainConfig(seed=0),
         device=device,

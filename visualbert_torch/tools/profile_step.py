@@ -38,8 +38,8 @@ GROUPS = (
     ("K12 heads-major attention bwd", (("attn_bwd", "HeadsMajorLayout"),)),
     ("K13 save-probs attention fwd", ("attn_sp_fwd",)),
     ("K14 save-probs attention bwd", ("attn_sp_bwd",)),
-    ("K1 attention fwd", ("attn_fwd_kernel",)),
-    ("K2 attention bwd", ("attn_bwd",)),
+    ("K1 attention fwd", ("packed_fwd_kernel",)),
+    ("K2 attention bwd", ("packed_dq_kernel", "packed_dkv_kernel")),
     ("K3 dropout mask", ("dropout_mask_kernel",)),
     ("K4 xent fwd", ("xent_fwd",)),
     ("K5 xent dx", ("xent_dx",)),
