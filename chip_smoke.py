@@ -28,7 +28,12 @@ non-zero without printing the final line:
    from these shapes; K11/K12 (heads-major attention) and K13/K14 (with
    saved probabilities) at K1's shapes, dropout 0 and 0.1, each of K13's
    bf16 probabilities within one bf16 ulp of its plain value, and K14 fed
-   K13's own probabilities and output against the plain chain; K15 (each of
+   K13's own probabilities and output against the plain chain; K13's
+   probabilities must have the padded row stride K14 reads without a copy;
+   K13/K14 (on K1/K2's design) are printed with their head groups, blocks
+   an SM, registers and shared memory, K14's two passes timed apart, both
+   at dropout 0, beside their first design's times, and against K1 + K2 at
+   NLVR2's shape (B=64, T=272); K15 (each of
    the 13 attention experiment variants of scripts/attn_exp.py) and K16
    (scripts/attn_hgrid.py at hg 6, 4, 2) at K1's shapes and dropout 0 and
    0.1, by K1/K2's measures, every variant timed. Then the path of K15/K16:
@@ -139,6 +144,11 @@ HM_DQKV_TOL = 8e-3   # K12 dqkv, same measure                       [1.9e-3, 1.7
 SP_OUT_TOL = 8e-3    # K13 out, same measure (normalised p on both) [2.0e-3, 9.0e-4]
 SP_DQKV_TOL = 8e-3   # K14 dqkv, same measure                       [1.9e-3, 1.7e-3]
 SP_CHAIN_TOL = 8e-3  # K14 fed K13's own probs and out, against the plain chain  [1.9e-3, 1.7e-3]
+# K13/K14's first design (mma.sync, a block per 64-row tile, before the
+# Hopper redesign) at the main path's shapes, dropout 0.1: the least and
+# largest kernel times of this script's earlier runs on an NVIDIA H100 80GB
+# HBM3 at 700 W
+SP_FIRST_DESIGN_MS = {"packed_attention_sp_fwd": (0.6238, 0.6297), "packed_attention_sp_bwd": (1.7857, 1.7971)}
 # K13's probabilities are bf16, rounded from fp32 values that agree with the
 # plain version's to a few fp32 ulps: each entry may round to the other
 # neighbour, so it must lie within one bf16 ulp of its own plain value
@@ -478,6 +488,12 @@ def check_attention_variants(torch, card):
     rate = 0.1  # the main path's attention dropout
     out, stats = fa.heads_major_attention_fwd(qkv5, key_bias, rate, 5)
     o13, probs = fa.packed_attention_sp_fwd(qkv, key_bias, H, rate, 5)
+    # K14 reads K13's probabilities in place: the main path never copies them
+    ldp = fa.probs_layout(probs, B, H, T)
+    log(f"K13's probabilities: a [{B}, {H}, {T}, {T}] view with row stride {ldp} (K13's layout: "
+        f"{fa.probs_row_stride(T)}), read by K14 without a copy: {ldp == fa.probs_row_stride(T)}")
+    if ldp != fa.probs_row_stride(T):
+        raise SystemExit("K13's probabilities are not in the layout K14 reads in place")
     calls = {
         "heads_major_attention_fwd": lambda f: f(qkv5, key_bias, rate, 5),
         "heads_major_attention_bwd": lambda f: f(qkv5, key_bias, dout4, out, stats, rate, 5),
@@ -487,6 +503,7 @@ def check_attention_variants(torch, card):
     for name, call in calls.items():
         rows[name]["ms"] = cuda_time_ms(lambda: call(getattr(fa, name)), 20)
         rows[name]["plain_ms"] = cuda_time_ms(lambda: call(getattr(fa, name + "_reference")), 3)
+    save_probs_passes(torch, fa, rows, qkv, key_bias, dout, o13, probs, ldp, card)
     hm_lib = sdpa_ms(torch, *qkv5.unbind(1), key_bias, dout4, rate)
     q, k, v = (t.transpose(1, 2) for t in qkv.view(B, T, H, 3, D).unbind(3))
     sp_lib = sdpa_ms(torch, q, k, v, key_bias, dout4, rate)
@@ -511,6 +528,73 @@ def check_attention_variants(torch, card):
             f"({n_mm * gflop / r['ms']:.1f} TFLOP/s useful), plain {r['plain_ms']:.4f} ms  [{card}]")
         log(row_line(name, r, card))
     return rows
+
+
+def save_probs_passes(torch, fa, rows, qkv, key_bias, dout, o13, probs, ldp, card):
+    """K13/K14 as K1/K2 are reported: each kernel's head group, blocks an
+    SM, registers, local bytes and shared memory; K14's dQ and dK/dV passes
+    timed apart (dropout 0.1); both kernels at dropout 0; their first
+    design's times beside them."""
+    from visualbert_torch.ops import _build
+
+    B, T, _ = qkv.shape
+    H, rate = 12, 0.1
+    dev = qkv.device
+    lib = _build.library()
+    hgs = fa.sp_head_groups(lib, B, H, T, dev)
+    for k, (kernel, hg) in enumerate(zip(fa.PACKED_KERNELS, hgs)):
+        regs, local, smem, per_sm = (lib.vb_attn_sp_info(k, w, T) for w in range(4))
+        log(f"K13/K14 {kernel}: hg {hg} ({B * H // hg} blocks of one batch row x {hg} heads), {per_sm} blocks an "
+            f"SM, {regs} registers a thread, {local} bytes of local memory, {smem} bytes of shared memory at T={T}")
+    args = (lib, qkv, probs, ldp, dout, o13, H, rate, 5, hgs[1], hgs[2])
+    code, dqkv, delta = fa.launch_sp_bwd(*args)
+    lib.check(code, "K14")
+    passes = []
+    for p in (1, 2):
+        lib.check(fa.launch_sp_bwd(*args, passes=p, dqkv=dqkv, delta=delta)[0], f"K14 pass {p}")
+        passes.append(cuda_time_ms(lambda: fa.launch_sp_bwd(*args, passes=p, dqkv=dqkv, delta=delta), 20))
+    o0, p0 = fa.packed_attention_sp_fwd(qkv, key_bias, H, 0.0, 5)
+    ms0 = (cuda_time_ms(lambda: fa.packed_attention_sp_fwd(qkv, key_bias, H, 0.0, 5), 20),
+           cuda_time_ms(lambda: fa.packed_attention_sp_bwd(qkv, p0, dout, o0, H, 0.0, 5), 20))
+    del o0, p0, dqkv, delta
+    k13, k14 = rows["packed_attention_sp_fwd"], rows["packed_attention_sp_bwd"]
+    log(f"K14 passes, dropout {rate}: dQ pass {passes[0]:.4f} ms, dK/dV pass {passes[1]:.4f} ms (sum "
+        f"{sum(passes):.4f}, both in one call {k14['ms']:.4f} ms)  [{card}]")
+    for (name, first), k, m0 in zip(SP_FIRST_DESIGN_MS.items(), (k13, k14), ms0):
+        log(f"{name} B={B} T={T} H={H}: dropout {rate} {k['ms']:.4f} ms, dropout 0 {m0:.4f} ms; first design "
+            f"(earlier runs, dropout {rate}) {first[0]:.4f}-{first[1]:.4f} ms: faster than its least reading: "
+            f"{k['ms'] < first[0]}  [{card}]")
+
+
+def save_probs_at_nlvr2_shape(torch, card, B=64, T=272):
+    """Whether flash_save_probs pays at NLVR2's shape (phase 9's train batch
+    of 64, T = 128 + 2 x 72 = 272, 6 regions an image): K13 + K14 against
+    K1 + K2 on the same numbers, dropout 0.1, CUDA events."""
+    import numpy as np
+
+    from visualbert_torch.ops import flash_attention as fa
+
+    H, D = 12, 64
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(4)
+    qkv = torch.tensor(rng.randn(B, T, 3 * H * D), dtype=torch.bfloat16, device=dev)
+    qb = torch.tensor(rng.randn(3 * H * D) * 0.1, dtype=torch.bfloat16, device=dev)
+    mask = np.ones((B, T), np.float32)
+    mask[::2, 100:128] = 0                      # some padded text
+    mask[:, 134:200] = mask[:, 206:] = 0        # 6 regions of each image's 72
+    key_bias = torch.tensor((1.0 - mask) * -10000.0, device=dev)
+    dout = torch.tensor(rng.randn(B, T, H * D), dtype=torch.bfloat16, device=dev)
+    biased = qkv + qb  # K13 takes the biased projection, as the encoder adds it
+    out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, H, 0.1, 5)
+    o13, probs = fa.packed_attention_sp_fwd(biased, key_bias, H, 0.1, 5)
+    ms = [cuda_time_ms(fn, 20) for fn in (
+        lambda: fa.packed_attention_fwd(qkv, qb, key_bias, H, 0.1, 5),
+        lambda: fa.packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, H, 0.1, 5),
+        lambda: fa.packed_attention_sp_fwd(biased, key_bias, H, 0.1, 5),
+        lambda: fa.packed_attention_sp_bwd(biased, probs, dout, o13, H, 0.1, 5))]
+    log(f"flash_save_probs at NLVR2's B={B} T={T}, dropout 0.1, a layer: K13 {ms[2]:.4f} + K14 {ms[3]:.4f} = "
+        f"{ms[2] + ms[3]:.4f} ms against K1 {ms[0]:.4f} + K2 {ms[1]:.4f} = {ms[0] + ms[1]:.4f} ms; the saved "
+        f"probabilities hold {probs.numel() * 2 / 2**20:.1f} MiB  [{card}]")
 
 
 def check_attention_experiments(torch, card):
@@ -1099,6 +1183,7 @@ def main():
     check_xent(torch, card, H=1024)
     rows.update(check_layer_norm(torch, card))
     rows.update(check_attention_variants(torch, card))
+    save_probs_at_nlvr2_shape(torch, card)
     torch.cuda.empty_cache()
     rows.update(check_attention_experiments(torch, card))
     compare_with_k16(torch, rows, card)

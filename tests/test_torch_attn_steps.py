@@ -22,10 +22,16 @@ def test_the_tool_runs_only_on_the_card_and_takes_no_arguments(monkeypatch, args
         attn_steps.main(args)
 
 
-@pytest.mark.parametrize("name", ["philox per row", "sync loads"])
+def text_with_headers(source):
+    """A source under csrc and the text of every csrc header it includes."""
+    text = (_build.CSRC / source).read_text()
+    return text + "".join((_build.CSRC / h).read_text() for h in re.findall(r'#include "(\w+\.cuh)"', text))
+
+
+@pytest.mark.parametrize("name", ["philox per row", "sync loads", "sp sync loads"])
 def test_each_left_out_step_is_a_switch_the_library_never_sets(name):
     source, defines = attn_steps.BUILDS[name]
-    text = (_build.CSRC / source).read_text()
+    text = text_with_headers(source)
     (macro,) = [d[2:] for d in defines]
     assert len(re.findall(rf"#ifdef {macro}\b", text)) == 1
     assert not any(macro in flag for flag in _build.ARCH_FLAGS + _build.NVCC_FLAGS)

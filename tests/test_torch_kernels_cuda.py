@@ -19,15 +19,20 @@ once: y, dx and dres within 2e-2 of the largest plain value, mu and rstd
 within 1e-4, dscale and dbias within 1e-3; their dropout masks agree
 exactly. The heads-major (K11/K12) and save-probs (K13/K14) attention
 kernels are held as K1/K2 are, at small shapes and at the main path's T =
-228 and NLVR2's T = 272; each of K13's bf16 probabilities within one bf16
-ulp of its plain value, and K14 fed K13's own output as K2 is. The
+228, NLVR2's T = 272 and K13/K14's largest, 704; each of K13's bf16
+probabilities within one bf16 ulp of its plain value, and K14 fed K13's
+own output as K2 is. K13/K14 (``csrc/flash_attention_sp.cu``, on K1/K2's
+design) also repeat bit for bit, drop exactly the plain mask's positions,
+refuse T = 1024, and K14 gives the same dqkv from K13's padded-stride
+probabilities and from a contiguous copy. The
 attention experiment kernels (K15 with every variant of ``VARIANTS`` and
 two more knob settings, so every compiled flag combination runs; K16 at
 every hg that divides H) are held as K1/K2 are, at dropout 0 and 0.1.
 K1/K2 (``csrc/flash_attention_packed.cu``) also run at T = 1, 272 and 512,
 repeat bit for bit, drop exactly the plain mask's positions, and refuse T =
 1024; ``tools/attn_steps.py``'s builds of their source with a design step
-left out give their outputs bit for bit. K4-K6 also run at bert-large's
+left out, and of K13/K14's with synchronous copies, give the kernels'
+outputs bit for bit. K4-K6 also run at bert-large's
 hidden width of 1024.
 """
 
@@ -189,6 +194,26 @@ def test_design_step_builds_equal_the_kernels(cuda, step_builds, name, B, T):
     assert rel_err(runs[1][0], out_r) < REL_TOL
 
 
+@pytest.mark.parametrize("B,T", [(3, 130), (2, 37), (1, 228)])
+def test_sp_sync_loads_build_equals_the_kernels(cuda, step_builds, B, T):
+    """tools/attn_steps.py's build of csrc/flash_attention_sp.cu with
+    synchronous copies in place of cp.async: K13/K14's outputs bit for bit
+    at dropout 0.1."""
+    from visualbert_torch.ops import _build
+    from visualbert_torch.tools import attn_steps
+
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    qkv, qb, key_bias, dout = attention_inputs(B, T, attn_steps.H, cuda)
+    qkv = qkv + qb
+    runs = []
+    for b in (attn_steps.SpBuild("as built", _build.library(), B, T, n_sm),
+              attn_steps.SpBuild("sp sync loads", step_builds["sp sync loads"], B, T, n_sm)):
+        out, probs = b.fwd(qkv, key_bias, 0.1, 3)
+        runs.append((out, probs, b.bwd(qkv, probs, dout, out, 0.1, 3)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
 def heads_major_inputs(B, T, H, device, seed=0):
     rng = np.random.RandomState(seed)
     qkv = torch.tensor(rng.randn(B, 3, H, T, 64), dtype=torch.bfloat16, device=device)
@@ -223,7 +248,7 @@ def test_heads_major_kernels_match_plain(cuda, B, T, H, rate):
     assert rel_err(dqkv, dqkv_r) < REL_TOL
 
 
-@pytest.mark.parametrize("B,T,H", VARIANT_SHAPES)
+@pytest.mark.parametrize("B,T,H", VARIANT_SHAPES + [(1, 704, 2)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_save_probs_kernels_match_plain(cuda, B, T, H, rate):
     qkv, qb, key_bias, dout = attention_inputs(B, T, H, cuda)
@@ -235,6 +260,7 @@ def test_save_probs_kernels_match_plain(cuda, B, T, H, rate):
     dqkv_own = fa.packed_attention_sp_bwd(qkv, probs, dout, out, H, rate, 99)  # the kernels' own chain
     torch.cuda.synchronize()
     assert probs.dtype == torch.bfloat16 and probs.shape == (B, H, T, T)
+    assert fa.probs_layout(probs, B, H, T) == fa.probs_row_stride(T)  # K14 reads K13's p without a copy
     assert rel_err(out, out_r) < REL_TOL
     # each probability within one bf16 ulp of its own plain value
     assert bool(((probs.float() - probs_r.float()).abs() <= bf16_ulps(probs_r)).all())
@@ -282,16 +308,78 @@ def test_variant_autograd_through_kernels(cuda, variant):
 
 
 def test_variant_kernels_take_t_up_to_512_and_refuse_more(cuda):
+    """K11 takes T = 512 and K13/K14 T = 704 (the largest T whose 64-row
+    tiles fit a block's shared memory); both refuse T = 1024 before launch."""
     qkv5, key_bias, _ = heads_major_inputs(1, 512, 1, cuda)
     fa.heads_major_attention_fwd(qkv5, key_bias, 0.1, 1)
-    packed = qkv5.permute(0, 3, 2, 1, 4).reshape(1, 512, 192).contiguous()
-    fa.packed_attention_sp_fwd(packed, key_bias, 1, 0.1, 1)
+    qkv, _, key_bias, dout = attention_inputs(1, 704, 1, cuda)
+    out, probs = fa.packed_attention_sp_fwd(qkv, key_bias, 1, 0.1, 1)
+    fa.packed_attention_sp_bwd(qkv, probs, dout, out, 1, 0.1, 1)
     torch.cuda.synchronize()
+    assert fa._build.library().vb_attn_sp_smem_bytes(704) <= fa.MAX_SMEM_BYTES
+    assert fa._build.library().vb_attn_sp_smem_bytes(705) > fa.MAX_SMEM_BYTES
     big, kb, _ = heads_major_inputs(1, 1024, 1, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         fa.heads_major_attention_fwd(big, kb, 0.0, 0)
+    packed = big.permute(0, 3, 2, 1, 4).reshape(1, 1024, 192).contiguous()
     with pytest.raises(ValueError, match="shared memory"):
-        fa.packed_attention_sp_fwd(big.permute(0, 3, 2, 1, 4).reshape(1, 1024, 192).contiguous(), kb, 1, 0.0, 0)
+        fa.packed_attention_sp_fwd(packed, kb, 1, 0.0, 0)
+    dout = torch.zeros((1, 1024, 64), dtype=torch.bfloat16, device=cuda)
+    probs = torch.zeros((1, 1, 1024, 1024), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fa.packed_attention_sp_bwd(packed, probs, dout, dout, 1, 0.0, 0)
+
+
+def test_save_probs_kernels_repeat_bit_for_bit(cuda):
+    qkv, qb, key_bias, dout = attention_inputs(4, 228, 12, cuda)
+    qkv = qkv + qb
+    runs = []
+    for _ in range(2):
+        out, probs = fa.packed_attention_sp_fwd(qkv, key_bias, 12, 0.1, 7)
+        runs.append((out, probs, fa.packed_attention_sp_bwd(qkv, probs, dout, out, 12, 0.1, 7)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_save_probs_kernels_drop_the_plain_mask(cuda):
+    """K13/K14's counterpart of test_attention_kernels_drop_the_plain_mask:
+    with v[j] the j-th unit vector (T = 64 = D keys, no key padding, no
+    bias) out[i, j] is the dropped, rescaled p[i, j], zero exactly where the
+    plain mask drops (every p > 0); with dout[i] the i-th unit vector K14's
+    dv[j, i], from K13's own probabilities, is the same p_d[i, j]."""
+    B, T, H, rate, seed = 3, 64, 2, 0.1, 11
+    rng = np.random.RandomState(5)
+    qkv = torch.tensor(rng.randn(B, T, H, 3, 64), dtype=torch.bfloat16, device=cuda)
+    qkv[:, :, :, 2] = torch.eye(T, dtype=torch.bfloat16, device=cuda)[None, :, None]
+    qkv = qkv.reshape(B, T, 3 * H * 64).contiguous()
+    key_bias = torch.zeros((B, T), device=cuda)
+    dout = torch.eye(T, dtype=torch.bfloat16, device=cuda)[None, :, None].expand(B, T, H, 64).reshape(B, T, H * 64)
+    out, probs = fa.packed_attention_sp_fwd(qkv, key_bias, H, rate, seed)
+    dqkv = fa.packed_attention_sp_bwd(qkv, probs, dout.contiguous(), out, H, rate, seed)
+    torch.cuda.synchronize()
+    keep = fa.attention_keep_reference(seed, B, H, T, rate, cuda)  # [B, H, i, j]
+    p_d = out.view(B, T, H, 64).permute(0, 2, 1, 3)  # [B, H, i, j]
+    dv = dqkv.view(B, T, H, 3, 64)[:, :, :, 2].permute(0, 2, 3, 1)  # [B, H, i, j] = dv[j, i]
+    assert 0.05 < 1 - float(keep.float().mean()) < 0.15
+    assert bool((probs.float() > 0).all())
+    assert torch.equal(p_d != 0, keep)
+    assert torch.equal(dv != 0, keep)
+
+
+@pytest.mark.parametrize("B,T,H", [(2, 37, 3), (4, 228, 12), (2, 272, 12), (3, 1, 2)])
+def test_save_probs_backward_reads_any_layout_alike(cuda, B, T, H):
+    """K14 gives the same dqkv, bit for bit, from K13's padded-stride
+    probabilities and from a contiguous copy of them (copied into K13's
+    layout where T % 8 != 0, read in place where T % 8 == 0)."""
+    qkv, qb, key_bias, dout = attention_inputs(B, T, H, cuda)
+    qkv = qkv + qb
+    out, probs = fa.packed_attention_sp_fwd(qkv, key_bias, H, 0.1, 4)
+    flat = probs.contiguous()
+    assert (fa.probs_layout(flat, B, H, T) is None) == (T % 8 != 0)
+    a = fa.packed_attention_sp_bwd(qkv, probs, dout, out, H, 0.1, 4)
+    b = fa.packed_attention_sp_bwd(qkv, flat, dout, out, H, 0.1, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 # every VARIANTS entry, plus prescale with nomax (the fourth forward

@@ -1,6 +1,7 @@
-// Tile helpers and layouts shared by the attention kernels
-// (flash_attention.cu: K1/K2 and K11/K12; flash_attention_sp.cu: K13/K14;
-// flash_attention_exp.cu: K15/K16).
+// Tile helpers and layouts shared by the attention kernels of the first
+// design, mma.sync from padded shared memory (flash_attention.cu: K11/K12;
+// flash_attention_exp.cu: K15/K16). K1/K2 and K13/K14 are built on
+// hopper_attn.cuh instead.
 //
 // Every kernel here works on one (batch b, head h) pair at a time (K15/K16
 // walk several in one block), with D = 64 head dims, 64-row tiles and 4

@@ -53,96 +53,17 @@
 //    other operand, transposed, from shared memory. No ldmatrix is needed:
 //    wgmma reads shared memory itself. The accumulators take 64-128 fp32
 //    registers a thread.
+// The building blocks of steps 2-4 (swizzle, cp.async, wgmma, Philox
+// sharing, the epilogue) live in hopper_attn.cuh, which K13/K14 share.
 // tools/attn_steps.py builds this source again with step 2 or step 3 left
-// out (-DVB_PACKED_PHILOX_PER_ROW, -DVB_PACKED_SYNC_LOADS) and times each
-// build beside this one; the library never defines either.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "mma.cuh"
-#include "philox.cuh"
+// out (-DVB_PACKED_PHILOX_PER_ROW, -DVB_PACKED_SYNC_LOADS, switches of that
+// header) and times each build beside this one; the library never defines
+// either.
+#include "hopper_attn.cuh"
 
 namespace {
 
-using vb::bf16;
-using vb::pack_bf16;
-using vb::round_bf16;
-
-constexpr int D = 64;                      // head dim
-constexpr int TILE = 64;                   // rows of a tile: wgmma's m64
-constexpr int NT = 128;                    // one warpgroup
-constexpr int ROW = D * 2;                 // bytes of a row: one 128 B swizzle row
-constexpr int TILE_BYTES = TILE * ROW;     // 8 KB
-constexpr int ALIGN = 1024;                // swizzle atom: 8 rows x 128 B
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float SCALE = 0.125f;            // 1 / sqrt(D)
-
-__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
-  return p + ((ALIGN - (smem_addr(p) & (ALIGN - 1))) & (ALIGN - 1));
-}
-
-// Byte offset of 16-byte chunk c of row r in a 1024-aligned swizzled region.
-__device__ __forceinline__ uint32_t swz(int r, int c) { return (uint32_t)(r * ROW + ((c ^ (r & 7)) << 4)); }
-
-// ------------------------------------------------------------- cp.async
-
-// Built with VB_PACKED_SYNC_LOADS (step 3 left out, for tools/attn_steps.py)
-// a copy is a plain 16-byte load and store: a thread's loads of one tile are
-// in flight together, but each tile has landed when issue_tile returns, so
-// no copy overlaps a product; commit and wait do nothing.
-#ifdef VB_PACKED_SYNC_LOADS
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  const uint4 v = valid ? *static_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
-  *static_cast<uint4*>(__cvta_shared_to_generic(dst)) = v;
-}
-__device__ __forceinline__ void cp_commit() {}
-template <int N>
-__device__ __forceinline__ void cp_wait() {}
-#else
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-#endif
-// Wait until at most n groups are pending (fewer is always safe).
-__device__ __forceinline__ void cp_wait_dyn(int n) {
-  switch (n) {
-    case 0: cp_wait<0>(); break;
-    case 1: cp_wait<1>(); break;
-    case 2: cp_wait<2>(); break;
-    case 3: cp_wait<3>(); break;
-    case 4: cp_wait<4>(); break;
-    case 5: cp_wait<5>(); break;
-    case 6: cp_wait<6>(); break;
-    default: cp_wait<7>(); break;
-  }
-}
-// Generic-proxy writes (cp.async, the bias pass) before wgmma reads them.
-__device__ __forceinline__ void fence_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-
-// Issue the copy of rows [t0, t0 + TILE) of a D-wide row block (row t at
-// src + t * ld) into the swizzled tile at shared address dst; rows past T
-// are zero. Thread x always copies chunk x % 8 of its rows.
-__device__ __forceinline__ void issue_tile(uint32_t dst, const bf16* __restrict__ src, int t0, int T, int ld) {
-#pragma unroll
-  for (int idx = threadIdx.x; idx < TILE * 8; idx += NT) {
-    const int r = idx >> 3, c = idx & 7, t = t0 + r;
-    cp_async16(dst + swz(r, c), src + (size_t)(t < T ? t : 0) * ld + c * 8, t < T);
-  }
-}
+using namespace vb_hopper;
 
 // Add the bias chunk (this thread's chunk threadIdx.x % 8 of the head's
 // bias) to the chunks this thread copied into a landed tile.
@@ -170,154 +91,6 @@ __device__ __forceinline__ uint4 bias_chunk(const bf16* __restrict__ qb, int h, 
   return *reinterpret_cast<const uint4*>(qb + (3 * h + j) * D + (threadIdx.x & 7) * 8);
 }
 
-// ----------------------------------------------------------------- wgmma
-
-// Shared-memory matrix descriptor of a 1024-aligned tile in the 128 B
-// swizzle: 8-row groups 1024 B apart (both byte-offset fields; a 64-wide
-// operand has one swizzle atom along its contiguous dimension). A k-step of
-// 16 elements along a row adds 32 B, i.e. 2, to the descriptor.
-__device__ __forceinline__ uint64_t desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// After a wait: keep the compiler from reading an accumulator before it, or
-// from reusing the registers of an A operand still in flight until it.
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[c][i])::"memory");
-}
-
-#define VB_D32                                                                                                  \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),   \
-      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),    \
-      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-#define VB_R32                                                                                            \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
-  "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d (64 x 64 fp32) = (acc ? d : 0) + A B^T, A [64 x 16] and B [64 x 16]
-// both K-major in shared memory (rows of A, rows of B).
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VB_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : VB_D32
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d += A B, A [64 x 16] bf16 in registers (the mma.m16n8k16 A fragment of
-// each warp's 16 rows), B [16 x 64] from shared memory rows (16 rows of 64
-// contiguous elements: the transposed, MN-major operand).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VB_R32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : VB_D32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// S (64 x 64) = A B^T over D = 64: A and B 64-row tiles at shared addresses.
-__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a, uint32_t b) {
-  const uint64_t da = desc(a), db = desc(b);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_ss(d, da + 2 * kk, db + 2 * kk, kk);
-}
-
-// Accumulator n-tiles (2c, 2c + 1) -> the A fragment of k-step c.
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&s)[32]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    a[c][0] = pack_bf16(s[8 * c + 0], s[8 * c + 1]);
-    a[c][1] = pack_bf16(s[8 * c + 2], s[8 * c + 3]);
-    a[c][2] = pack_bf16(s[8 * c + 4], s[8 * c + 5]);
-    a[c][3] = pack_bf16(s[8 * c + 6], s[8 * c + 7]);
-  }
-}
-
-// d += A B with A from registers (4 k-steps of 16) and B the 64 rows at
-// shared address b (k-step c: rows 16c .. 16c + 15, two swizzle atoms).
-__device__ __forceinline__ void product_rs(float (&d)[32], const uint32_t (&a)[4][4], uint32_t b) {
-  const uint64_t db = desc(b);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) wgmma_rs(d, a[c], db + c * (2048 >> 4));
-}
-
-__device__ __forceinline__ void zero(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = 0.f;
-}
-
-// ---------------------------------------------------------------- Philox
-
-// The four keep bits of the Philox call of fragment row `row` and column
-// pair (col, col + 1), bit ((i & 1) << 1 | (j & 1)) for query i, key j; 0
-// where the whole 2 x 2 block lies past T (its values are unused).
-template <bool KEY_MAJOR>
-__device__ __forceinline__ uint32_t call_bits(uint32_t seed, uint32_t bh, int row, int col, bool col_ok, int T,
-                                              uint32_t thr) {
-  uint4 r = make_uint4(0u, 0u, 0u, 0u);
-  if (col_ok && (row & ~1) < T) r = KEY_MAJOR ? vb::attn_philox(seed, bh, col, row) : vb::attn_philox(seed, bh, row, col);
-  return (uint32_t)(r.x >= thr) | ((uint32_t)(r.y >= thr) << 1) | ((uint32_t)(r.z >= thr) << 2) |
-         ((uint32_t)(r.w >= thr) << 3);
-}
-
-// The two bits (col, col + 1) of the fragment row of parity p in a call's k.
-template <bool KEY_MAJOR>
-__device__ __forceinline__ uint32_t row_bits(uint32_t k, int p) {
-  return KEY_MAJOR ? (((k >> p) & 1u) | (((k >> (2 + p)) & 1u) << 1)) : ((k >> (2 * p)) & 3u);
-}
-
-// Keep bits of this lane's 2 x 2 fragment elements at column pair (col,
-// col + 1) and rows row0 (= base + g) and row1 (= base + g + 8): bit
-// 2 r + c keeps (row r, col + c). Lanes 4 apart hold rows i and i ^ 1 of one
-// Philox call: each lane computes the call of its row of parity par =
-// g & 1 (row0 for even g, row1 for odd g) and passes the partner's two bits
-// by shuffle. KEY_MAJOR: fragment rows are keys, columns queries (the dK/dV
-// pass). col_ok: col < T. Built with VB_PACKED_PHILOX_PER_ROW (step 2 left
-// out, for tools/attn_steps.py), each lane computes both its rows' calls.
-template <bool KEY_MAJOR>
-__device__ __forceinline__ uint32_t keep_bits(uint32_t seed, uint32_t bh, int row0, int row1, int col, int par,
-                                              uint32_t thr, bool col_ok, int T) {
-#ifdef VB_PACKED_PHILOX_PER_ROW
-  return row_bits<KEY_MAJOR>(call_bits<KEY_MAJOR>(seed, bh, row0, col, col_ok, T, thr), par) |
-         (row_bits<KEY_MAJOR>(call_bits<KEY_MAJOR>(seed, bh, row1, col, col_ok, T, thr), par) << 2);
-#else
-  const uint32_t k = call_bits<KEY_MAJOR>(seed, bh, par ? row1 : row0, col, col_ok, T, thr);
-  const uint32_t mine = row_bits<KEY_MAJOR>(k, par), got = __shfl_xor_sync(0xffffffffu, row_bits<KEY_MAJOR>(k, par ^ 1), 4);
-  return par ? (got | (mine << 2)) : (mine | (got << 2));
-#endif
-}
-
-// ------------------------------------------------------------- epilogues
-
-// Store a 64 x 64 accumulator times `scale` as bf16 (this thread's rows
-// row0, row1 at dst + row * ld).
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[32], float scale, int row0,
-                                           int row1, bool ok0, bool ok1, int ld, int tq) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int c = nt * 8 + 2 * tq;
-    if (ok0)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)row0 * ld + c) = pack_bf16(acc[4 * nt] * scale, acc[4 * nt + 1] * scale);
-    if (ok1)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)row1 * ld + c) =
-          pack_bf16(acc[4 * nt + 2] * scale, acc[4 * nt + 3] * scale);
-  }
-}
-
 // Add the column sums over this warp's valid rows of bf16(acc * scale) to
 // red[warp * D + col]; the g == 0 lanes own the columns, in a fixed order.
 __device__ __forceinline__ void colsum_add(const float (&acc)[32], float scale, bool ok0, bool ok1, float* red,
@@ -333,10 +106,6 @@ __device__ __forceinline__ void colsum_add(const float (&acc)[32], float scale, 
       if (g == 0) red[warp * D + nt * 8 + 2 * tq + e] += v;
     }
   }
-}
-
-__device__ __forceinline__ void load_key_bias(float* kb, const float* __restrict__ key_bias, int T, int Tp) {
-  for (int j = threadIdx.x; j < Tp; j += NT) kb[j] = j < T ? key_bias[j] * LOG2E : -INFINITY;
 }
 
 // ---------------------------------------------------------------- forward
@@ -493,42 +262,6 @@ packed_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, con
 size_t dq_bytes(int T) {
   const int Tp = round_up(T, TILE);
   return ALIGN + 4 * TILE_BYTES + (size_t)2 * Tp * ROW + (3 * Tp + 4 * D) * sizeof(float);
-}
-
-// delta = rowsum(dO * O) in fp32 for every row of the pair (two threads a
-// row, 32 columns each), into dl[Tp] and, for rows < T, delta_g.
-__device__ __forceinline__ void pair_delta(const bf16* __restrict__ dout, const bf16* __restrict__ out, int ld,
-                                           float* dl, float* __restrict__ delta_g, int T, int Tp) {
-  for (int idx = threadIdx.x; idx < 2 * Tp; idx += NT) {
-    const int i = idx >> 1, half = idx & 1;
-    float acc = 0.f;
-    if (i < T) {
-      const uint4* pd = reinterpret_cast<const uint4*>(dout + (size_t)i * ld + half * 32);
-      const uint4* po = reinterpret_cast<const uint4*>(out + (size_t)i * ld + half * 32);
-      uint4 a[4], c[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        a[k] = pd[k];
-        c[k] = po[k];
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a[k]);
-        const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&c[k]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 u = __bfloat1622float2(x[e]), v = __bfloat1622float2(y[e]);
-          acc += u.x * v.x;
-          acc += u.y * v.y;
-        }
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (half == 0) {
-      dl[i] = acc;
-      if (i < T) delta_g[i] = acc;
-    }
-  }
 }
 
 __global__ void __launch_bounds__(NT)
@@ -827,21 +560,7 @@ extern "C" size_t vb_attn_packed_smem_bytes(int T) {
 // registers a thread, 1 its local (spill) bytes a thread, 2 its dynamic
 // shared memory at T, 3 its resident blocks per SM at T. -1 on an error.
 extern "C" int vb_attn_packed_info(int which, int what, int T) {
-  const void* fn = kernel_of(which);
-  if (fn == nullptr) return -1;
-  if (what == 0 || what == 1) {
-    cudaFuncAttributes attr;
-    if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess) return -1;
-    return what == 0 ? attr.numRegs : (int)attr.localSizeBytes;
-  }
-  if (what == 2) return (int)bytes_of(which, T);
-  if (what == 3) {
-    int n = 0;
-    if (prepare(which, T) != cudaSuccess) return -1;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, NT, bytes_of(which, T)) != cudaSuccess) return -1;
-    return n;
-  }
-  return -1;
+  return kernel_info(kernel_of(which), bytes_of(which, T), what);
 }
 
 extern "C" int vb_attn_packed_fwd(const void* qkv, const void* qb, const void* key_bias, void* out, void* stats,

@@ -1,426 +1,584 @@
-// K13/K14: packed-QKV attention that saves its probabilities. Replace
-// visualbert_tpu/ops/flash_attention.py::_packed_fwd_sp_kernel and
-// ::_packed_bwd_sp_kernel (flash_attention_packed(..., save_probs=True), the
-// encoder's flash_save_probs).
+// K13/K14, redesigned for Hopper on K1/K2's design: packed-QKV attention
+// that saves its probabilities. Replace visualbert_tpu/ops/flash_attention.py
+// ::_packed_fwd_sp_kernel (:409) and ::_packed_bwd_sp_kernel (:441)
+// (flash_attention_packed(..., save_probs=True), the encoder's
+// flash_save_probs).
 //
-// Layout: qkv [B, T, H*3*D] bf16 packed head-major WITH the projection bias
-// already added (the JAX wrapper adds it eagerly before this pair, so
+// Function: qkv [B, T, H*3*D] bf16 packed head-major WITH the projection
+// bias already added (the wrapper adds it eagerly before this pair, so
 // autograd of that add gives the bias gradient and K14 writes none);
-// key_bias [B, T] fp32; out, dout [B, T, H*D] bf16; probs [B, H, T, T] bf16,
-// the normalised pre-dropout probabilities p = softmax(q.k * scale +
-// key_bias), always bf16 (as the JAX kernel stores them at every compute
-// dtype), and K14 reads those rounded values back.
+// key_bias [B, T] fp32; out, dout [B, T, H*D] bf16; probs [B, H, T, T] bf16
+// with row stride ldp (a multiple of 8 >= T, so every row starts 16-byte
+// aligned), the normalised pre-dropout probabilities p = softmax(q.k *
+// scale + key_bias), always bf16, each rounded once from its fp32 value.
+// K13 writes out and p, and drops p with the Philox bits of attn_philox
+// (seed, b*H + h) before P_d . V, as K1 does. K14 reads p back (it
+// recomputes neither QK^T nor the exponent): dV = P_d^T dO, dP = dO V^T
+// with the same mask, delta = rowsum(dO * O), dS = p (dP - delta), dQ = dS
+// K * scale, dK = dS^T Q * scale.
 //
-// K13, the forward. K1's online softmax only knows p once the last key tile
-// is seen, but every p(i, j) must be written normalised, so the kernel makes
-// two passes over the keys of its 64 query rows: the first takes the row
-// statistic stat = max t + log2 sum exp2(t - max) of t = (q.k) * scale *
-// log2(e) + key_bias * log2(e) (QK^T only); the second recomputes t, writes
-// p = exp2(t - stat) as bf16 for every i, j < T, drops it with the Philox
-// bits of attn_philox (seed, b*H + h), as K1 does, scales by 1 / (1 - rate)
-// and accumulates (p_d as bf16) . V. Columns j >= T of the ragged last tile
-// are -inf before the exponent and are not written. One block of 4 warps per
-// (64 query rows, head, batch), the head's K and V in shared memory.
+// Bound on the H100 at the main path's B=128, T=228, H=12, D=64: the bytes,
+// above all the 160 MB of probabilities a layer that K13 writes once and
+// K14 reads once per pass: 0.101 ms forward, 0.155 ms backward at 3.35
+// TB/s (the tensor products, 2 forward and 4 backward of 20.4 GFLOP each,
+// 0.04 / 0.08 ms at 989 TFLOP/s); with dropout on, Philox's integer work
+// as in K1/K2.
 //
-// K14, the backward, from the saved probabilities: dV = P_d^T dO, dP = dO
-// V^T with the same mask, delta = rowsum(dO * O), dS = p (dP - delta), dQ =
-// dS K * scale, dK = dS^T Q * scale. As K2, a query-tile pass (dQ, delta)
-// and a key-tile pass (dK, dV) with accumulators in registers and no
-// atomics; neither recomputes QK^T or the exponent: p comes from probs
-// (the key-tile pass reads it transposed, 8 consecutive keys of a row per
-// group of lanes).
-//
-// Bound on the H100: at B=128, T=228, H=12 the probabilities are 160 MB,
-// written once by K13 and read twice by K14 (once per pass); K13 does 1.5x
-// K1's products (QK^T twice), K14 5 of K2's 7 (no QK^T). mma.sync
-// m16n8k16 with fragments from padded shared memory, as K1/K2: simple and
-// right first; the probabilities are stored and loaded 4 bytes a thread
-// straight from the fragments.
-#include "attn_common.cuh"
+// The design, K1/K2's (flash_attention_packed.cu, steps 1-4) with its
+// building blocks from hopper_attn.cuh:
+// 1. Schedule. One warpgroup a block owns one batch row x hg heads (hg from
+//    the caller's wave model over vb_attn_sp_info's occupancy query) and,
+//    for each head, loads K and V (K14's dK/dV pass: Q and dO) into shared
+//    memory once and walks every 64-row tile. K14 keeps two passes (dQ with
+//    delta, then dK/dV) and no atomics.
+// 2. K13 makes two passes over the keys of a query tile: the first takes
+//    the row statistic stat = max t + log2 sum exp2(t - max) of t = (q.k) *
+//    scale * log2(e) + key_bias * log2(e) with QK^T only; the second
+//    recomputes QK^T, writes p = exp2(t - stat) as bf16, drops it and
+//    accumulates P_d . V. No unnormalised value is stored and rescaled.
+// 3. Probability tiles through shared memory. K13 writes each warp's 16 x
+//    64 p rows into its own swizzled 2 KB and stores whole rows from there,
+//    16 bytes a lane and 8 lanes a row (the last chunk of a row element by
+//    element where T cuts it), while that tile's P_d . V runs. K14 brings
+//    each 64 x 64 p tile in by cp.async, 16 bytes a thread (the columns
+//    past T zero-filled, never read), into a swizzled tile, committed and
+//    prefetched a tile ahead of its use, and reads its fragments with
+//    ldmatrix: transposed (.trans) in the dK/dV pass, whose fragment rows
+//    are keys. A swizzled row's 16-byte chunks lie in distinct banks for
+//    any 8 consecutive rows, so the writes, the row reads and ldmatrix
+//    (plain or transposed) are free of bank conflicts.
+// 4. Philox once per 2x2 block in all three kernels (keep_bits; key-major
+//    in the dK/dV pass), the bits attn_philox's, as K1/K2's.
+// 5. wgmma: S = Q K^T (K13's two passes), dP = dO V^T and dP^T = V dO^T
+//    take both operands from shared memory; O += P_d V, dQ += dS K, dV +=
+//    P_d^T dO, dK += dS^T Q take P_d or dS from registers.
+#include "hopper_attn.cuh"
 
 namespace {
 
-using namespace vb_attn;
-using vb::c_to_a;
-using vb::load_a;
-using vb::load_b_cols;
-using vb::load_b_rows;
-using vb::mma16816;
+using namespace vb_hopper;
 
-// p(row, j) and p(row, j + 1) of a [T, T] bf16 matrix (j even): one 4-byte
-// access when T is even (rows then start 4-byte aligned), else two 2-byte
-// ones; zero outside [0, T).
-__device__ __forceinline__ void load_p2(const bf16* __restrict__ pb, int row, int j, int T, float& p0, float& p1) {
-  p0 = p1 = 0.f;
-  if (row >= T || j >= T) return;
-  const bf16* src = pb + (size_t)row * T + j;
-  if ((T & 1) == 0) {
-    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(src);
-    p0 = __low2float(v);
-    p1 = __high2float(v);
-  } else {
-    p0 = __bfloat162float(src[0]);
-    if (j + 1 < T) p1 = __bfloat162float(src[1]);
+constexpr int STAGE_BYTES = 16 * ROW;  // one warp's 16 p rows of a tile
+
+// Four 8 x 8 bf16 matrices from shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8; TRANS loads each transposed.
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  if (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+}
+
+// This lane's fragment of a 64 x 64 bf16 p tile (swizzled, rows of queries,
+// columns of keys) at shared address tile: pr[nt][0] holds (row g, columns
+// 2 tq, 2 tq + 1) of n-tile nt of the warp's 16 fragment rows, pr[nt][1]
+// row g + 8. Fragment rows are the tile's rows (queries), or with TRANS
+// its columns (keys; the columns of the fragment are then queries).
+template <bool TRANS>
+__device__ __forceinline__ void load_p_frag(uint32_t (&pr)[8][2], uint32_t tile, int warp, int lane) {
+  const int m = lane >> 3, i = lane & 7;
+#pragma unroll
+  for (int ntp = 0; ntp < 4; ++ntp) {
+    const int nt = 2 * ntp + (m >> 1);
+    uint32_t r[4];
+    ldsm_x4<TRANS>(r, tile + (TRANS ? swz(nt * 8 + i, 2 * warp + (m & 1)) : swz(warp * 16 + (m & 1) * 8 + i, nt)));
+    pr[2 * ntp][0] = r[0];
+    pr[2 * ntp][1] = r[1];
+    pr[2 * ntp + 1][0] = r[2];
+    pr[2 * ntp + 1][1] = r[3];
   }
 }
 
-__device__ __forceinline__ void store_p2(bf16* __restrict__ pb, int row, int j, int T, float p0, float p1) {
-  if (row >= T || j >= T) return;
-  bf16* dst = pb + (size_t)row * T + j;
-  if ((T & 1) == 0) {
-    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(p0, p1);
-  } else {
-    dst[0] = __float2bfloat16(p0);
-    if (j + 1 < T) dst[1] = __float2bfloat16(p1);
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// Issue the copy of the p tile rows [q0, q0 + TILE) x columns [k0, k0 +
+// TILE) of one (b, h) matrix (row i at pb + i * ldp) into the swizzled tile
+// at shared address dst; rows and columns past T are zero and not read.
+__device__ __forceinline__ void issue_p(uint32_t dst, const bf16* __restrict__ pb, int q0, int k0, int T, int ldp) {
+#pragma unroll
+  for (int idx = threadIdx.x; idx < TILE * 8; idx += NT) {
+    const int r = idx >> 3, c = idx & 7, i = q0 + r, j = k0 + 8 * c;
+    const int n = (i < T && j < T) ? 2 * min(T - j, 8) : 0;
+    cp_async_n(dst + swz(r, c), pb + (n ? (size_t)i * ldp + j : 0), n);
   }
 }
 
-// S = Q K^T for this warp's 16 query rows and key tile k0.
-__device__ __forceinline__ void scores(float s[8][4], const uint32_t qa[4][4], const bf16* Ks, int k0, int g, int tq) {
+// Store a warp's 16 staged p rows (rows r0 .. r0 + 15 of the (b, h) matrix,
+// columns k0 .. k0 + 63; row i at pb + i * ldp): 16 bytes a lane, 8 lanes a
+// row, streaming (K14 reads them back much later); only columns < T.
+__device__ __forceinline__ void store_p(bf16* __restrict__ pb, const unsigned char* stage, int r0, int k0, int T,
+                                        int ldp, int lane) {
+  const int c = lane & 7, j = k0 + 8 * c;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  for (int k = 0; k < 4; ++k) {
+    const int r = 4 * k + (lane >> 3), i = r0 + r;
+    if (i < T && j < T) {
+      const uint4 v = *reinterpret_cast<const uint4*>(stage + swz(r, c));
+      bf16* dst = pb + (size_t)i * ldp + j;
+      if (j + 8 <= T) {
+        __stcs(reinterpret_cast<uint4*>(dst), v);
+      } else {
+        const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t b0, b1;
-      load_b_rows<LDS>(b0, b1, Ks, k0 + nt * 8, kk * 16, g, tq);
-      mma16816(s[nt], qa[kk], b0, b1);
+        for (int q = 0; q < 8; ++q)
+          if (q < T - j) dst[q] = e[q];
+      }
     }
   }
 }
 
 // ---------------------------------------------------------------- K13
 
-__global__ void __launch_bounds__(NTHREADS)
-attn_sp_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, bf16* __restrict__ out,
-                   bf16* __restrict__ probs, int T, int H, uint32_t seed, uint32_t threshold, float inv,
-                   int dropout) {
-  extern __shared__ __align__(16) unsigned char smem[];
+size_t fwd_bytes(int T) {
   const int Tp = round_up(T, TILE);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [TILE][LDS]
-  bf16* Ks = Qs + TILE * LDS;                // [Tp][LDS]
-  bf16* Vs = Ks + Tp * LDS;                  // [Tp][LDS]
-  float* bias2 = reinterpret_cast<float*>(Vs + Tp * LDS);  // [Tp]
+  return ALIGN + 3 * TILE_BYTES + (size_t)2 * Tp * ROW + Tp * sizeof(float);
+}
 
-  using L = PackedLayout;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int ld = L::ld_in(H);
-  load_tile(Qs, qkv + L::in_off(b, h, 0, T, H), nullptr, qt * TILE, TILE, T, ld);
-  load_tile(Ks, qkv + L::in_off(b, h, 1, T, H), nullptr, 0, Tp, T, ld);
-  load_tile(Vs, qkv + L::in_off(b, h, 2, T, H), nullptr, 0, Tp, T, ld);
-  for (int j = threadIdx.x; j < Tp; j += NTHREADS)
-    bias2[j] = j < T ? key_bias[(size_t)b * T + j] * LOG2E : -INFINITY;
-  __syncthreads();
+// grid (H / hg, B): block (x, b) owns heads [x * hg, (x + 1) * hg) of row b.
+__global__ void __launch_bounds__(NT)
+attn_sp_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, bf16* __restrict__ out,
+                   bf16* __restrict__ probs, int T, int H, int hg, int ldp, uint32_t seed, uint32_t thr, float inv,
+                   int dropout) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  const int Tp = round_up(T, TILE), ntl = Tp / TILE;
+  unsigned char* Qs = sm;                        // [2][TILE] query tiles
+  unsigned char* Ks = Qs + 2 * TILE_BYTES;       // [Tp] keys
+  unsigned char* Vs = Ks + (size_t)Tp * ROW;     // [Tp] values
+  unsigned char* Ps = Vs + (size_t)Tp * ROW;     // [4][16] each warp's staged p rows
+  float* kb = reinterpret_cast<float*>(Ps + TILE_BYTES);  // [Tp] key bias * log2(e)
+  const uint32_t sQ = smem_addr(Qs), sK = smem_addr(Ks), sV = smem_addr(Vs);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  const int r0 = warp * 16;
-  const int row[2] = {qt * TILE + r0 + g, qt * TILE + r0 + g + 8};
-  const uint32_t bh = (uint32_t)(b * H + h);
+  const int b = blockIdx.y, F = 3 * H * D, ldo = H * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
   const float c1 = SCALE * LOG2E;
+  const bf16* base = qkv + (size_t)b * T * F;
+  unsigned char* stage = Ps + warp * STAGE_BYTES;
+  load_key_bias(kb, key_bias + (size_t)b * T, T, Tp);
 
-  uint32_t qa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) load_a<LDS>(qa[kk], Qs, r0, kk * 16, g, tq);
+  for (int h = blockIdx.x * hg; h < (blockIdx.x + 1) * hg; ++h) {
+    const bf16 *qsrc = base + 3 * h * D, *ksrc = qsrc + D, *vsrc = qsrc + 2 * D;
+    const uint32_t bh = (uint32_t)(b * H + h);
+    bf16* pb = probs + (size_t)bh * T * ldp;
+    __syncthreads();  // no warp still reads the last pair's tiles
+    issue_tile(sQ, qsrc, 0, T, F);
+    cp_commit();
+    for (int kt = 0; kt < ntl; ++kt) {
+      issue_tile(sK + kt * TILE_BYTES, ksrc, kt * TILE, T, F);
+      issue_tile(sV + kt * TILE_BYTES, vsrc, kt * TILE, T, F);
+      cp_commit();
+    }
 
-  // pass 1: the row statistic (running max, rescaled sum; the max is
-  // shared by the row's 4 lanes, the sum is per lane until the end)
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < Tp; k0 += TILE) {
-    float s[8][4];
-    scores(s, qa, Ks, k0, g, tq);
-    float mt[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = s[nt][e] * c1 + bias2[k0 + nt * 8 + 2 * tq + (e & 1)];
-        mt[e >> 1] = fmaxf(mt[e >> 1], s[nt][e]);
+    for (int qt = 0; qt < ntl; ++qt) {
+      const int buf = qt & 1;
+      const uint32_t sq = sQ + buf * TILE_BYTES;
+      if (qt > 0) __syncthreads();  // every warp is done with the buffer the prefetch overwrites
+      if (qt + 1 < ntl) issue_tile(sQ + (buf ^ 1) * TILE_BYTES, qsrc, (qt + 1) * TILE, T, F);
+      cp_commit();
+      if (qt > 0) {
+        cp_wait<1>();
+        fence_async();
+        __syncthreads();
       }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      const float mnew = fmaxf(m[r], mt[r]);
-      l[r] *= exp2f(m[r] - mnew);
-      m[r] = mnew;
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(s[nt][e] - m[e >> 1]);
-    }
-  }
-  float stat[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    stat[r] = m[r] + log2f(l[r]);
-  }
+      const int r0 = qt * TILE + warp * 16;
+      const int row[2] = {r0 + g, r0 + g + 8};
 
-  // pass 2: p, its bf16 store, dropout, P_d . V
-  bf16* pb = probs + ((size_t)b * H + h) * (size_t)T * T;
-  float o[8][4];
+      // pass 1: the row statistic (the running max is shared by the row's
+      // 4 lanes, the sum is per lane until the end)
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+      for (int kt = 0; kt < ntl; ++kt) {
+        if (qt == 0) {
+          // pending after key tile kt: the later key tiles and the prefetch
+          cp_wait_dyn(ntl - kt);
+          fence_async();
+          __syncthreads();
+        }
+        float s[32];
+        wg_fence();
+        product_ss(s, sq, sK + kt * TILE_BYTES);
+        wg_commit();
+        wg_wait();
+        reg_fence(s);
+        const int k0 = kt * TILE;
+        float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-  for (int k0 = 0; k0 < Tp; k0 += TILE) {
-    float s[8][4];
-    scores(s, qa, Ks, k0, g, tq);
+        for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int j = k0 + nt * 8 + 2 * tq;  // even: (j, j+1) share one Philox call and one store
+          for (int e = 0; e < 4; ++e) {
+            s[4 * nt + e] = s[4 * nt + e] * c1 + kb[k0 + nt * 8 + 2 * tq + (e & 1)];
+            mt[e >> 1] = fmaxf(mt[e >> 1], s[4 * nt + e]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+          mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+          const float mnew = fmaxf(m[r], mt[r]);
+          l[r] *= exp2f(m[r] - mnew);
+          m[r] = mnew;
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(s[4 * nt + e] - m[e >> 1]);
+        }
+      }
+      float stat[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float p0 = exp2f(s[nt][2 * r] * c1 + bias2[j] - stat[r]);
-        const float p1 = exp2f(s[nt][2 * r + 1] * c1 + bias2[j + 1] - stat[r]);
-        store_p2(pb, row[r], j, T, p0, p1);
-        float d0 = p0 * inv, d1 = p1 * inv;
-        if (dropout) {
-          const uint4 rnd = vb::attn_philox(seed, bh, row[r], j);
-          const int w = (row[r] & 1) << 1;
-          if (vb::philox_word(rnd, w) < threshold) d0 = 0.f;
-          if (vb::philox_word(rnd, w + 1) < threshold) d1 = 0.f;
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        stat[r] = m[r] + log2f(l[r]);
+      }
+
+      // pass 2: p, its bf16 store, dropout, P_d . V
+      float o[32];
+      zero(o);
+      for (int kt = 0; kt < ntl; ++kt) {
+        float s[32];
+        wg_fence();
+        product_ss(s, sq, sK + kt * TILE_BYTES);
+        wg_commit();
+        wg_wait();
+        reg_fence(s);
+        const int k0 = kt * TILE;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[4 * nt + e] = exp2f(s[4 * nt + e] * c1 + kb[k0 + nt * 8 + 2 * tq + (e & 1)] - stat[e >> 1]);
         }
-        s[nt][2 * r] = d0;
-        s[nt][2 * r + 1] = d1;
-      }
-    }
+        __syncwarp();  // the lanes are done reading the last tile's staged rows
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      uint32_t pa[4];
-      c_to_a(pa, s[2 * c], s[2 * c + 1]);
+        for (int nt = 0; nt < 8; ++nt) {
+          *reinterpret_cast<uint32_t*>(stage + swz(g, nt) + 4 * tq) = pack_bf16(s[4 * nt], s[4 * nt + 1]);
+          *reinterpret_cast<uint32_t*>(stage + swz(g + 8, nt) + 4 * tq) = pack_bf16(s[4 * nt + 2], s[4 * nt + 3]);
+        }
+        __syncwarp();
+        if (dropout) {
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        uint32_t b0, b1;
-        load_b_cols<LDS>(b0, b1, Vs, k0 + c * 16, nt * 8, g, tq);
-        mma16816(o[nt], pa, b0, b1);
+          for (int nt = 0; nt < 8; ++nt) {
+            const int j = k0 + nt * 8 + 2 * tq;
+            const uint32_t bits = keep_bits<false>(seed, bh, row[0], row[1], j, par, thr, j < T, T);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[4 * nt + e] = ((bits >> e) & 1u) ? s[4 * nt + e] * inv : 0.f;
+          }
+        }
+        uint32_t pa[4][4];
+        to_a(pa, s);
+        wg_fence();
+        product_rs(o, pa, sV + kt * TILE_BYTES);
+        wg_commit();
+        store_p(pb, stage, r0, k0, T, ldp, lane);  // while P_d . V runs
+        wg_wait();
+        reg_fence(o);
+        reg_fence(pa);
       }
+      store_rows(out + (size_t)b * T * ldo + h * D, o, 1.f, row[0], row[1], row[0] < T, row[1] < T, ldo, tq);
     }
   }
-  store_rows(out + L::out_off(b, h, T, H), o, 1.f, row[0], row[1], row[0] < T, row[1] < T, L::ld_out(H), tq);
 }
 
 // ------------------------------------------------------- K14: dQ pass
 
-__global__ void __launch_bounds__(NTHREADS)
+size_t dq_bytes(int T) {
+  const int Tp = round_up(T, TILE);
+  return ALIGN + 4 * TILE_BYTES + (size_t)2 * Tp * ROW + Tp * sizeof(float);
+}
+
+// Step n = qt * ntl + kt walks query tile qt against key tile kt; p tile n
+// lands a step ahead (ring of two), key tile kt + 1 during step (0, kt),
+// dO tile qt + 1 during step (qt, 0).
+__global__ void __launch_bounds__(NT)
 attn_sp_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ probs, const bf16* __restrict__ dout,
                       const bf16* __restrict__ out, bf16* __restrict__ dqkv, float* __restrict__ delta_g, int T,
-                      int H, uint32_t seed, uint32_t threshold, float inv, int dropout) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Tp = round_up(T, TILE);
-  bf16* dOs = reinterpret_cast<bf16*>(smem);  // [TILE][LDS]
-  bf16* Ks = dOs + TILE * LDS;                // [Tp][LDS]
-  bf16* Vs = Ks + Tp * LDS;                   // [Tp][LDS]
-  float* dl_s = reinterpret_cast<float*>(Vs + Tp * LDS);  // [TILE]
+                      int H, int hg, int ldp, uint32_t seed, uint32_t thr, float inv, int dropout) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  const int Tp = round_up(T, TILE), ntl = Tp / TILE, nsteps = ntl * ntl;
+  unsigned char* dOs = sm;                       // [2][TILE]
+  unsigned char* Ps = dOs + 2 * TILE_BYTES;      // [2][TILE] p tiles
+  unsigned char* Ks = Ps + 2 * TILE_BYTES;       // [Tp]
+  unsigned char* Vs = Ks + (size_t)Tp * ROW;     // [Tp]
+  float* dl = reinterpret_cast<float*>(Vs + (size_t)Tp * ROW);  // [Tp] delta of the pair's rows
+  const uint32_t sdO = smem_addr(dOs), sP = smem_addr(Ps), sK = smem_addr(Ks), sV = smem_addr(Vs);
 
-  using L = PackedLayout;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int ld = L::ld_in(H), ldo = L::ld_out(H);
-  const size_t oo = L::out_off(b, h, T, H);
-  load_tile(dOs, dout + oo, nullptr, qt * TILE, TILE, T, ldo);
-  load_tile(Ks, qkv + L::in_off(b, h, 1, T, H), nullptr, 0, Tp, T, ld);
-  load_tile(Vs, qkv + L::in_off(b, h, 2, T, H), nullptr, 0, Tp, T, ld);
-  row_delta(dout + oo, out + oo, ldo, dl_s, delta_g + ((size_t)b * H + h) * T, qt, T);
-  __syncthreads();
+  const int b = blockIdx.y, F = 3 * H * D, ldo = H * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
+  const bf16* base = qkv + (size_t)b * T * F;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  const int r0 = warp * 16;
-  const int row[2] = {qt * TILE + r0 + g, qt * TILE + r0 + g + 8};
-  const float dlrow[2] = {dl_s[r0 + g], dl_s[r0 + g + 8]};
-  const uint32_t bh = (uint32_t)(b * H + h);
-  const bf16* pb = probs + ((size_t)b * H + h) * (size_t)T * T;
+  for (int h = blockIdx.x * hg; h < (blockIdx.x + 1) * hg; ++h) {
+    const bf16 *ksrc = base + (3 * h + 1) * D, *vsrc = ksrc + D;
+    const bf16* dsrc = dout + (size_t)b * T * ldo + h * D;
+    const uint32_t bh = (uint32_t)(b * H + h);
+    const bf16* pb = probs + (size_t)bh * T * ldp;
+    __syncthreads();  // no warp still reads the last pair's tiles or delta
+    issue_tile(sdO, dsrc, 0, T, ldo);
+    issue_tile(sK, ksrc, 0, T, F);
+    issue_tile(sV, vsrc, 0, T, F);
+    issue_p(sP, pb, 0, 0, T, ldp);
+    cp_commit();
+    // while the tiles land: the pair's delta (read after the first barrier)
+    pair_delta(dsrc, out + (size_t)b * T * ldo + h * D, ldo, dl, delta_g + (size_t)bh * T, T, Tp);
 
-  uint32_t da[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) load_a<LDS>(da[kk], dOs, r0, kk * 16, g, tq);
-  float dq[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.f;
-
-  for (int k0 = 0; k0 < Tp; k0 += TILE) {
-    float dp[8][4];
-    scores(dp, da, Vs, k0, g, tq);  // dP = dO V^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int j = k0 + nt * 8 + 2 * tq;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float p[2];
-        load_p2(pb, row[r], j, T, p[0], p[1]);
-        uint4 rnd;
-        if (dropout) rnd = vb::attn_philox(seed, bh, row[r], j);
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          float d = dp[nt][2 * r + c];
-          if (dropout) d = vb::philox_word(rnd, ((row[r] & 1) << 1) | c) >= threshold ? d * inv : 0.f;
-          dp[nt][2 * r + c] = p[c] * (d - dlrow[r]);  // dS (the scale goes on dQ)
-        }
+    float dq[32];
+    for (int n = 0; n < nsteps; ++n) {
+      const int qt = n / ntl, kt = n - qt * ntl;
+      __syncthreads();  // every warp is done with the buffers the copies below overwrite
+      if (n + 1 < nsteps) {
+        const int nq = (n + 1) / ntl;
+        issue_p(sP + ((n + 1) & 1) * TILE_BYTES, pb, nq * TILE, (n + 1 - nq * ntl) * TILE, T, ldp);
       }
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      uint32_t sa[4];
-      c_to_a(sa, dp[2 * c], dp[2 * c + 1]);
+      if (qt == 0 && kt + 1 < ntl) {
+        issue_tile(sK + (kt + 1) * TILE_BYTES, ksrc, (kt + 1) * TILE, T, F);
+        issue_tile(sV + (kt + 1) * TILE_BYTES, vsrc, (kt + 1) * TILE, T, F);
+      }
+      if (kt == 0 && qt + 1 < ntl) issue_tile(sdO + ((qt + 1) & 1) * TILE_BYTES, dsrc, (qt + 1) * TILE, T, ldo);
+      cp_commit();
+      cp_wait<1>();  // everything but this step's copies
+      fence_async();
+      __syncthreads();
+
+      const int row[2] = {qt * TILE + warp * 16 + g, qt * TILE + warp * 16 + g + 8};
+      const float dlrow[2] = {dl[row[0]], dl[row[1]]};
+      if (kt == 0) zero(dq);
+      float dp[32];
+      uint32_t pr[8][2];
+      wg_fence();
+      product_ss(dp, sdO + (qt & 1) * TILE_BYTES, sV + kt * TILE_BYTES);  // dP = dO V^T
+      wg_commit();
+      load_p_frag<false>(pr, sP + (n & 1) * TILE_BYTES, warp, lane);
+      wg_wait();
+      reg_fence(dp);
+
+      const int k0 = kt * TILE;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        uint32_t b0, b1;
-        load_b_cols<LDS>(b0, b1, Ks, k0 + c * 16, nt * 8, g, tq);
-        mma16816(dq[nt], sa, b0, b1);
+        const int j = k0 + nt * 8 + 2 * tq;
+        uint32_t bits = 0xFu;
+        if (dropout) bits = keep_bits<false>(seed, bh, row[0], row[1], j, par, thr, j < T, T);
+        const float2 p01 = unpack_bf16(pr[nt][0]), p23 = unpack_bf16(pr[nt][1]);
+        const float p[4] = {p01.x, p01.y, p23.x, p23.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float d = dp[4 * nt + e];
+          if (dropout) d = ((bits >> e) & 1u) ? d * inv : 0.f;
+          dp[4 * nt + e] = p[e] * (d - dlrow[e >> 1]);  // dS (the scale goes on dQ)
+        }
       }
+      uint32_t sa[4][4];
+      to_a(sa, dp);
+      wg_fence();
+      product_rs(dq, sa, sK + kt * TILE_BYTES);
+      wg_commit();
+      wg_wait();
+      reg_fence(dq);
+      reg_fence(sa);
+      if (kt == ntl - 1)
+        store_rows(dqkv + (size_t)b * T * F + 3 * h * D, dq, SCALE, row[0], row[1], row[0] < T, row[1] < T, F, tq);
     }
   }
-  store_rows(dqkv + L::in_off(b, h, 0, T, H), dq, SCALE, row[0], row[1], row[0] < T, row[1] < T, ld, tq);
 }
 
 // --------------------------------------------------- K14: dK, dV pass
 
-__global__ void __launch_bounds__(NTHREADS)
-attn_sp_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ probs,
-                       const bf16* __restrict__ dout, const float* __restrict__ delta_g, bf16* __restrict__ dqkv,
-                       int T, int H, uint32_t seed, uint32_t threshold, float inv, int dropout) {
-  extern __shared__ __align__(16) unsigned char smem[];
+size_t dkv_bytes(int T) {
   const int Tp = round_up(T, TILE);
-  bf16* Vs = reinterpret_cast<bf16*>(smem);  // [TILE][LDS] this block's keys' values
-  bf16* Qs = Vs + TILE * LDS;                // [Tp][LDS] all queries
-  bf16* dOs = Qs + Tp * LDS;                 // [Tp][LDS]
-  float* dl_s = reinterpret_cast<float*>(dOs + Tp * LDS);  // [Tp]
+  return ALIGN + 4 * TILE_BYTES + (size_t)2 * Tp * ROW + Tp * sizeof(float);
+}
 
-  using L = PackedLayout;
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int ld = L::ld_in(H);
-  const size_t sb = ((size_t)b * H + h) * T;
-  load_tile(Vs, qkv + L::in_off(b, h, 2, T, H), nullptr, kt * TILE, TILE, T, ld);
-  load_tile(Qs, qkv + L::in_off(b, h, 0, T, H), nullptr, 0, Tp, T, ld);
-  load_tile(dOs, dout + L::out_off(b, h, T, H), nullptr, 0, Tp, T, L::ld_out(H));
-  for (int i = threadIdx.x; i < Tp; i += NTHREADS) dl_s[i] = i < T ? delta_g[sb + i] : 0.f;
-  __syncthreads();
+// Step n = kt * ntl + qc walks key tile kt against query tile qc; p tile
+// (qc, kt) lands a step ahead (ring of two), query tile qc + 1 (Q and dO)
+// during step (0, qc), value tile kt + 1 during step (kt, 0).
+__global__ void __launch_bounds__(NT)
+attn_sp_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ probs, const bf16* __restrict__ dout,
+                       const float* __restrict__ delta_g, bf16* __restrict__ dqkv, int T, int H, int hg, int ldp,
+                       uint32_t seed, uint32_t thr, float inv, int dropout) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align_smem(smem_raw);
+  const int Tp = round_up(T, TILE), ntl = Tp / TILE, nsteps = ntl * ntl;
+  unsigned char* Vs = sm;                        // [2][TILE] value tiles
+  unsigned char* Ps = Vs + 2 * TILE_BYTES;       // [2][TILE] p tiles
+  unsigned char* Qs = Ps + 2 * TILE_BYTES;       // [Tp] all queries
+  unsigned char* dOs = Qs + (size_t)Tp * ROW;    // [Tp]
+  float* dl = reinterpret_cast<float*>(dOs + (size_t)Tp * ROW);  // [Tp] delta of every query
+  const uint32_t sV = smem_addr(Vs), sP = smem_addr(Ps), sQ = smem_addr(Qs), sdO = smem_addr(dOs);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  const int r0 = warp * 16;
-  const int key[2] = {kt * TILE + r0 + g, kt * TILE + r0 + g + 8};
-  const uint32_t bh = (uint32_t)(b * H + h);
-  const bf16* pb = probs + sb * T;
+  const int b = blockIdx.y, F = 3 * H * D, ldo = H * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
+  const bf16* base = qkv + (size_t)b * T * F;
 
-  uint32_t va[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) load_a<LDS>(va[kk], Vs, r0, kk * 16, g, tq);
-  float dk[8][4], dv[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    dk[nt][0] = dk[nt][1] = dk[nt][2] = dk[nt][3] = 0.f;
-    dv[nt][0] = dv[nt][1] = dv[nt][2] = dv[nt][3] = 0.f;
-  }
+  for (int h = blockIdx.x * hg; h < (blockIdx.x + 1) * hg; ++h) {
+    const bf16 *qsrc = base + 3 * h * D, *vsrc = qsrc + 2 * D;
+    const bf16* dsrc = dout + (size_t)b * T * ldo + h * D;
+    const uint32_t bh = (uint32_t)(b * H + h);
+    const bf16* pb = probs + (size_t)bh * T * ldp;
+    __syncthreads();
+    issue_tile(sV, vsrc, 0, T, F);
+    issue_tile(sQ, qsrc, 0, T, F);
+    issue_tile(sdO, dsrc, 0, T, ldo);
+    issue_p(sP, pb, 0, 0, T, ldp);
+    cp_commit();
+    for (int i = threadIdx.x; i < Tp; i += NT) dl[i] = i < T ? delta_g[(size_t)bh * T + i] : 0.f;
 
-  for (int q0 = 0; q0 < Tp; q0 += QC) {
-    // dP^T = V dO^T for this warp's 16 keys x QC queries
-    float st[QC / 8][4], dpt[QC / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < QC / 8; ++nt) {
-      dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t b0, b1;
-        load_b_rows<LDS>(b0, b1, dOs, q0 + nt * 8, kk * 16, g, tq);
-        mma16816(dpt[nt], va[kk], b0, b1);
+    float dk[32], dv[32];
+    for (int n = 0; n < nsteps; ++n) {
+      const int kt = n / ntl, qc = n - kt * ntl;
+      __syncthreads();
+      if (n + 1 < nsteps) {
+        const int nk = (n + 1) / ntl;
+        issue_p(sP + ((n + 1) & 1) * TILE_BYTES, pb, (n + 1 - nk * ntl) * TILE, nk * TILE, T, ldp);
       }
-    }
-    // element (key[r], query i): st -> P_d (dropped, scaled), dpt -> dS
-#pragma unroll
-    for (int nt = 0; nt < QC / 8; ++nt) {
-      const int i0 = q0 + nt * 8 + 2 * tq;  // even: (i0, i0+1) share one Philox call
-      uint4 rnd[2];
-      if (dropout) {
-        rnd[0] = vb::attn_philox(seed, bh, i0, key[0]);
-        rnd[1] = vb::attn_philox(seed, bh, i0, key[1]);
+      if (kt == 0 && qc + 1 < ntl) {
+        issue_tile(sQ + (qc + 1) * TILE_BYTES, qsrc, (qc + 1) * TILE, T, F);
+        issue_tile(sdO + (qc + 1) * TILE_BYTES, dsrc, (qc + 1) * TILE, T, ldo);
       }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, i = i0 + (e & 1);
-        const float p = (i < T && key[r] < T) ? __bfloat162float(pb[(size_t)i * T + key[r]]) : 0.f;
-        float pd = p * inv, d = dpt[nt][e];
-        if (dropout) {
-          const bool keep = vb::philox_word(rnd[r], ((e & 1) << 1) | (key[r] & 1)) >= threshold;
-          pd = keep ? pd : 0.f;
-          d = keep ? d * inv : 0.f;
-        }
-        st[nt][e] = pd;
-        dpt[nt][e] = p * (d - dl_s[i]);
+      if (qc == 0 && kt + 1 < ntl) issue_tile(sV + ((kt + 1) & 1) * TILE_BYTES, vsrc, (kt + 1) * TILE, T, F);
+      cp_commit();
+      cp_wait<1>();
+      fence_async();
+      __syncthreads();
+
+      const int key[2] = {kt * TILE + warp * 16 + g, kt * TILE + warp * 16 + g + 8};
+      if (qc == 0) {
+        zero(dk);
+        zero(dv);
       }
-    }
-#pragma unroll
-    for (int c = 0; c < QC / 16; ++c) {
-      uint32_t pa[4], sa[4];
-      c_to_a(pa, st[2 * c], st[2 * c + 1]);
-      c_to_a(sa, dpt[2 * c], dpt[2 * c + 1]);
+      // dP^T = V dO^T: 64 keys x 64 queries
+      float dp[32], s[32];
+      uint32_t pr[8][2];
+      wg_fence();
+      product_ss(dp, sV + (kt & 1) * TILE_BYTES, sdO + qc * TILE_BYTES);
+      wg_commit();
+      load_p_frag<true>(pr, sP + (n & 1) * TILE_BYTES, warp, lane);
+      wg_wait();
+      reg_fence(dp);
+
+      const int q0 = qc * TILE;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        uint32_t b0, b1;
-        load_b_cols<LDS>(b0, b1, dOs, q0 + c * 16, nt * 8, g, tq);
-        mma16816(dv[nt], pa, b0, b1);
-        load_b_cols<LDS>(b0, b1, Qs, q0 + c * 16, nt * 8, g, tq);
-        mma16816(dk[nt], sa, b0, b1);
+        const int i0 = q0 + nt * 8 + 2 * tq;  // queries i0, i0 + 1
+        uint32_t bits = 0xFu;
+        if (dropout) bits = keep_bits<true>(seed, bh, key[0], key[1], i0, par, thr, i0 < T, T);
+        const float2 p01 = unpack_bf16(pr[nt][0]), p23 = unpack_bf16(pr[nt][1]);
+        const float p[4] = {p01.x, p01.y, p23.x, p23.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pd = p[e], d = dp[4 * nt + e];
+          if (dropout) {
+            const bool keep = (bits >> e) & 1u;
+            pd = keep ? pd * inv : 0.f;
+            d = keep ? d * inv : 0.f;
+          }
+          s[4 * nt + e] = pd;
+          dp[4 * nt + e] = p[e] * (d - dl[i0 + (e & 1)]);
+        }
+      }
+      uint32_t pa[4][4], sa[4][4];
+      to_a(pa, s);
+      to_a(sa, dp);
+      wg_fence();
+      product_rs(dv, pa, sdO + qc * TILE_BYTES);
+      product_rs(dk, sa, sQ + qc * TILE_BYTES);
+      wg_commit();
+      wg_wait();
+      reg_fence(dv);
+      reg_fence(dk);
+      reg_fence(pa);
+      reg_fence(sa);
+      if (qc == ntl - 1) {
+        const bool ok0 = key[0] < T, ok1 = key[1] < T;
+        bf16* dst = dqkv + (size_t)b * T * F + 3 * h * D;
+        store_rows(dst + D, dk, SCALE, key[0], key[1], ok0, ok1, F, tq);
+        store_rows(dst + 2 * D, dv, 1.f, key[0], key[1], ok0, ok1, F, tq);
       }
     }
   }
-
-  const bool ok0 = key[0] < T, ok1 = key[1] < T;
-  store_rows(dqkv + L::in_off(b, h, 1, T, H), dk, SCALE, key[0], key[1], ok0, ok1, ld, tq);
-  store_rows(dqkv + L::in_off(b, h, 2, T, H), dv, 1.f, key[0], key[1], ok0, ok1, ld, tq);
 }
 
-size_t sp_fwd_smem(int T) {
-  const int Tp = round_up(T, TILE);
-  return (size_t)(TILE + 2 * Tp) * LDS * sizeof(bf16) + Tp * sizeof(float);
+// ---------------------------------------------------------------- launches
+
+const void* kernel_of(int which) {
+  switch (which) {
+    case 0: return (const void*)attn_sp_fwd_kernel;
+    case 1: return (const void*)attn_sp_bwd_dq_kernel;
+    case 2: return (const void*)attn_sp_bwd_dkv_kernel;
+    default: return nullptr;
+  }
 }
-size_t sp_dq_smem(int T) {
-  const int Tp = round_up(T, TILE);
-  return (size_t)(TILE + 2 * Tp) * LDS * sizeof(bf16) + TILE * sizeof(float);
+
+size_t bytes_of(int which, int T) { return which == 0 ? fwd_bytes(T) : (which == 1 ? dq_bytes(T) : dkv_bytes(T)); }
+
+cudaError_t prepare(int which, int T) {
+  return cudaFuncSetAttribute(kernel_of(which), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes_of(which, T));
 }
-size_t sp_dkv_smem(int T) {
-  const int Tp = round_up(T, TILE);
-  return (size_t)(TILE + 2 * Tp) * LDS * sizeof(bf16) + Tp * sizeof(float);
-}
+
+bool bad_layout(int T, int H, int hg, int ldp) { return hg <= 0 || H % hg || ldp < T || ldp % 8; }
 
 }  // namespace
 
+// The largest dynamic shared memory of the three kernels at T.
 extern "C" size_t vb_attn_sp_smem_bytes(int T) {
-  size_t a = sp_fwd_smem(T), b = sp_dq_smem(T), c = sp_dkv_smem(T);
-  size_t m = a > b ? a : b;
-  return m > c ? m : c;
+  size_t m = fwd_bytes(T);
+  if (dq_bytes(T) > m) m = dq_bytes(T);
+  return dkv_bytes(T) > m ? dkv_bytes(T) : m;
 }
 
+// Kernel `which` (0 K13, 1 K14's dQ pass, 2 its dK/dV pass): `what` 0 its
+// registers a thread, 1 its local (spill) bytes a thread, 2 its dynamic
+// shared memory at T, 3 its resident blocks per SM at T. -1 on an error.
+extern "C" int vb_attn_sp_info(int which, int what, int T) {
+  return kernel_info(kernel_of(which), bytes_of(which, T), what);
+}
+
+// probs: [B, H, T, ldp] storage of the [B, H, T, T] probabilities.
 extern "C" int vb_attn_sp_fwd(const void* qkv, const void* key_bias, void* out, void* probs, int B, int T, int H,
-                              unsigned int seed, unsigned int threshold, float inv, int dropout, void* stream) {
-  const size_t smem = sp_fwd_smem(T);
-  cudaError_t err = cudaFuncSetAttribute(attn_sp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                              int hg, int ldp, unsigned int seed, unsigned int threshold, float inv, int dropout,
+                              void* stream) {
+  if (bad_layout(T, H, hg, ldp)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare(0, T);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + TILE - 1) / TILE, H, B);
-  attn_sp_fwd_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  attn_sp_fwd_kernel<<<dim3(H / hg, B), NT, fwd_bytes(T), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(key_bias), static_cast<bf16*>(out),
-      static_cast<bf16*>(probs), T, H, seed, threshold, inv, dropout);
+      static_cast<bf16*>(probs), T, H, hg, ldp, seed, threshold, inv, dropout);
   return (int)cudaGetLastError();
 }
 
+// delta [B, H, T] fp32 is scratch the caller allocates, written by the dQ
+// pass and read by the dK/dV pass; hg_dq and hg_dkv are the two passes'
+// heads a block. passes: 1 the dQ pass alone, 2 the dK/dV pass alone (on
+// the delta of an earlier dQ pass), 3 both.
 extern "C" int vb_attn_sp_bwd(const void* qkv, const void* probs, const void* dout, const void* out, void* dqkv,
-                              void* delta, int B, int T, int H, unsigned int seed, unsigned int threshold, float inv,
-                              int dropout, void* stream) {
+                              void* delta, int B, int T, int H, int hg_dq, int hg_dkv, int ldp, int passes,
+                              unsigned int seed, unsigned int threshold, float inv, int dropout, void* stream) {
+  if (bad_layout(T, H, hg_dq, ldp) || bad_layout(T, H, hg_dkv, ldp) || passes < 1 || passes > 3)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((T + TILE - 1) / TILE, H, B);
-  const size_t smem_dq = sp_dq_smem(T), smem_dkv = sp_dkv_smem(T);
-  cudaError_t err = cudaFuncSetAttribute(attn_sp_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_dq);
+  cudaError_t err = prepare(1, T);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attn_sp_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkv);
+  err = prepare(2, T);
   if (err != cudaSuccess) return (int)err;
-  attn_sp_bwd_dq_kernel<<<grid, NTHREADS, smem_dq, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(probs), static_cast<const bf16*>(dout),
-      static_cast<const bf16*>(out), static_cast<bf16*>(dqkv), static_cast<float*>(delta), T, H, seed, threshold,
-      inv, dropout);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  attn_sp_bwd_dkv_kernel<<<grid, NTHREADS, smem_dkv, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(probs), static_cast<const bf16*>(dout),
-      static_cast<const float*>(delta), static_cast<bf16*>(dqkv), T, H, seed, threshold, inv, dropout);
+  if (passes & 1) {
+    attn_sp_bwd_dq_kernel<<<dim3(H / hg_dq, B), NT, dq_bytes(T), s>>>(
+        static_cast<const bf16*>(qkv), static_cast<const bf16*>(probs), static_cast<const bf16*>(dout),
+        static_cast<const bf16*>(out), static_cast<bf16*>(dqkv), static_cast<float*>(delta), T, H, hg_dq, ldp, seed,
+        threshold, inv, dropout);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (passes & 2) {
+    attn_sp_bwd_dkv_kernel<<<dim3(H / hg_dkv, B), NT, dkv_bytes(T), s>>>(
+        static_cast<const bf16*>(qkv), static_cast<const bf16*>(probs), static_cast<const bf16*>(dout),
+        static_cast<const float*>(delta), static_cast<bf16*>(dqkv), T, H, hg_dkv, ldp, seed, threshold, inv, dropout);
+  }
   return (int)cudaGetLastError();
 }

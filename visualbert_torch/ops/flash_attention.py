@@ -285,26 +285,38 @@ def head_group(B: int, H: int, n_sm: int, per_sm: int) -> int:
     return min(divisors, key=lambda hg: (-(-(B * H // hg) // slots) * hg, -hg))
 
 
-# kernel index of vb_attn_packed_info: the forward, the dQ pass, the dK/dV pass
+# kernel index of vb_attn_packed_info and vb_attn_sp_info: the forward, the
+# dQ pass, the dK/dV pass
 PACKED_KERNELS = ("forward", "dQ pass", "dK/dV pass")
 _head_groups = {}
 
 
-def packed_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
-    """hg of K1's kernel and of K2's two passes at this shape on ``device``,
-    from each kernel's resident blocks per SM (the CUDA occupancy query at
-    its shared memory for T); computed once a (B, H, T, device)."""
-    key = (B, H, T, device.index)
+def _kernel_head_groups(lib, info: str, label: str, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
+    """hg of a forward kernel and of its backward's two passes at this shape
+    on ``device``, from each kernel's resident blocks per SM (the CUDA
+    occupancy query ``info`` at its shared memory for T); computed once a
+    (kernel pair, B, H, T, device)."""
+    key = (info, B, H, T, device.index)
     if key not in _head_groups:
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
         out = []
         for k, kernel in enumerate(PACKED_KERNELS):
-            per_sm = lib.vb_attn_packed_info(k, 3, T)
+            per_sm = getattr(lib, info)(k, 3, T)
             if per_sm < 1:
-                raise RuntimeError(f"K1/K2 {kernel}: no block fits an SM at T={T}")
+                raise RuntimeError(f"{label} {kernel}: no block fits an SM at T={T}")
             out.append(head_group(B, H, n_sm, per_sm))
         _head_groups[key] = tuple(out)
     return _head_groups[key]
+
+
+def packed_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
+    """hg of K1's kernel and of K2's two passes (``vb_attn_packed_info``)."""
+    return _kernel_head_groups(lib, "vb_attn_packed_info", "K1/K2", B, H, T, device)
+
+
+def sp_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
+    """hg of K13's kernel and of K14's two passes (``vb_attn_sp_info``)."""
+    return _kernel_head_groups(lib, "vb_attn_sp_info", "K13/K14", B, H, T, device)
 
 
 def launch_packed_fwd(lib, qkv, qb, key_bias, n_heads: int, rate: float, seed: int, hg: int):
@@ -425,18 +437,53 @@ def heads_major_attention_bwd(qkv, key_bias, dout, out, stats, rate: float, seed
 heads_major_attention_bwd.launches = 0
 
 
+PROBS_ROW_ALIGN = 8  # elements: 16 bytes, K14's copy of a probability chunk
+
+
+def probs_row_stride(T: int) -> int:
+    """Row stride (elements) of the probabilities K13 writes: T rounded up
+    to a multiple of 8, so that every row starts 16-byte aligned."""
+    return -(-T // PROBS_ROW_ALIGN) * PROBS_ROW_ALIGN
+
+
+def probs_layout(probs, B: int, H: int, T: int) -> Optional[int]:
+    """The row stride with which K14 reads ``probs`` [B, H, T, T] bf16 in
+    place: rows a multiple of 8 elements apart in one [B, H, T, ldp] block,
+    16-byte aligned (K13's own layout, or a contiguous tensor at T % 8 ==
+    0). None for a contiguous tensor whose rows are not: the wrapper copies
+    it into K13's layout. Raises on anything else."""
+    if probs.shape != (B, H, T, T) or probs.dtype != torch.bfloat16:
+        raise ValueError(f"probs must be [{B}, {H}, {T}, {T}] bfloat16, got {tuple(probs.shape)} {probs.dtype}")
+    ldp = probs.stride(2)
+    if (probs.stride() == (H * T * ldp, T * ldp, ldp, 1) and ldp >= T and ldp % PROBS_ROW_ALIGN == 0
+            and probs.data_ptr() % 16 == 0):
+        return ldp
+    if probs.is_contiguous():
+        return None
+    raise ValueError(f"probs: rows must lie in one [B, H, T, ldp] block with ldp a multiple of "
+                     f"{PROBS_ROW_ALIGN}, or be contiguous; got strides {probs.stride()}")
+
+
+def padded_probs(probs) -> torch.Tensor:
+    """A copy of [B, H, T, T] ``probs`` in K13's layout (row stride
+    :func:`probs_row_stride`), as its [B, H, T, T] view."""
+    B, H, T, _ = probs.shape
+    buf = torch.empty((B, H, T, probs_row_stride(T)), dtype=probs.dtype, device=probs.device)
+    buf[..., :T].copy_(probs)
+    return buf[..., :T]
+
+
 def packed_attention_sp_fwd(qkv, key_bias, n_heads: int, rate: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K13 wrapper on the biased packed qkv: (out [B, T, H*D], probs
-    [B, H, T, T] bf16)."""
+    [B, H, T, T] bf16). On the card probs is the [B, H, T, T] view of a
+    [B, H, T, probs_row_stride(T)] buffer; K14 reads it in place."""
     what = "save-probs attention forward (K13)"
     if not _on_cuda(what, qkv):
         return packed_attention_sp_fwd_reference(qkv, key_bias, n_heads, rate, seed)
     lib = _check_packed(what, qkv, key_bias, n_heads, smem_fn="vb_attn_sp_smem_bytes")
-    B, T, F = qkv.shape
-    out = torch.empty((B, T, F // 3), dtype=qkv.dtype, device=qkv.device)
-    probs = torch.empty((B, n_heads, T, T), dtype=torch.bfloat16, device=qkv.device)
-    code = lib.vb_attn_sp_fwd(qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), probs.data_ptr(),
-                              B, T, n_heads, *_seed_args(rate, seed), _build.stream_ptr(qkv.device))
+    B, T, _ = qkv.shape
+    hg = sp_head_groups(lib, B, n_heads, T, qkv.device)[0]
+    code, out, probs = launch_sp_fwd(lib, qkv, key_bias, n_heads, rate, seed, hg)
     lib.check(code, what)
     packed_attention_sp_fwd.launches += 1
     return out, probs
@@ -445,21 +492,52 @@ def packed_attention_sp_fwd(qkv, key_bias, n_heads: int, rate: float, seed: int)
 packed_attention_sp_fwd.launches = 0
 
 
+def launch_sp_fwd(lib, qkv, key_bias, n_heads: int, rate: float, seed: int, hg: int):
+    """K13's kernel from ``lib`` (the kernel library, or another build of its
+    source) on checked inputs, hg heads a block: (CUDA code, out, probs),
+    probs the [B, H, T, T] view of a [B, H, T, probs_row_stride(T)] buffer."""
+    B, T, F = qkv.shape
+    ldp = probs_row_stride(T)
+    out = torch.empty((B, T, F // 3), dtype=qkv.dtype, device=qkv.device)
+    probs = torch.empty((B, n_heads, T, ldp), dtype=torch.bfloat16, device=qkv.device)
+    code = lib.vb_attn_sp_fwd(qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), probs.data_ptr(),
+                              B, T, n_heads, hg, ldp, *_seed_args(rate, seed), _build.stream_ptr(qkv.device))
+    return code, out, probs[..., :T]
+
+
+def launch_sp_bwd(lib, qkv, probs, ldp: int, dout, out, n_heads: int, rate: float, seed: int, hg_dq: int,
+                  hg_dkv: int, passes: int = 3, dqkv=None, delta=None):
+    """K14's kernels from ``lib`` on checked inputs, ``probs`` read with row
+    stride ``ldp``: ``passes`` 1 the dQ pass, 2 the dK/dV pass (on the
+    ``delta`` of an earlier dQ pass), 3 both, into ``dqkv`` and ``delta``
+    when given. Returns (CUDA code, dqkv, delta)."""
+    B, T, _ = qkv.shape
+    dqkv = torch.empty_like(qkv) if dqkv is None else dqkv
+    delta = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device) if delta is None else delta
+    code = lib.vb_attn_sp_bwd(qkv.data_ptr(), probs.data_ptr(), dout.data_ptr(), out.data_ptr(), dqkv.data_ptr(),
+                              delta.data_ptr(), B, T, n_heads, hg_dq, hg_dkv, ldp, passes, *_seed_args(rate, seed),
+                              _build.stream_ptr(qkv.device))
+    return code, dqkv, delta
+
+
 def packed_attention_sp_bwd(qkv, probs, dout, out, n_heads: int, rate: float, seed: int) -> torch.Tensor:
-    """K14 wrapper: dqkv [B, T, H*3*D] from the saved probabilities."""
+    """K14 wrapper: dqkv [B, T, H*3*D] from the saved probabilities, read in
+    place in K13's layout (a contiguous tensor at T % 8 != 0 is first copied
+    into it)."""
     what = "save-probs attention backward (K14)"
     if not _on_cuda(what, qkv):
         return packed_attention_sp_bwd_reference(qkv, probs, dout, out, n_heads, rate, seed)
     B, T, _ = qkv.shape
-    if probs.shape != (B, n_heads, T, T) or probs.dtype != torch.bfloat16 or not probs.is_contiguous():
-        raise ValueError(f"{what}: probs must be contiguous [{B}, {n_heads}, {T}, {T}] bfloat16")
     # the key bias only enters through the saved probabilities
     lib = _check_packed(what, qkv, None, n_heads, dout, out, smem_fn="vb_attn_sp_smem_bytes")
-    dqkv = torch.empty_like(qkv)
-    delta = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
-    code = lib.vb_attn_sp_bwd(qkv.data_ptr(), probs.data_ptr(), dout.data_ptr(), out.data_ptr(), dqkv.data_ptr(),
-                              delta.data_ptr(), B, T, n_heads, *_seed_args(rate, seed),
-                              _build.stream_ptr(qkv.device))
+    if probs.device != qkv.device:
+        raise ValueError(f"{what}: tensors on different devices")
+    ldp = probs_layout(probs, B, n_heads, T)
+    if ldp is None:
+        probs = padded_probs(probs)
+        ldp = probs.stride(2)
+    _, hg_dq, hg_dkv = sp_head_groups(lib, B, n_heads, T, qkv.device)
+    code, dqkv, _ = launch_sp_bwd(lib, qkv, probs, ldp, dout, out, n_heads, rate, seed, hg_dq, hg_dkv)
     lib.check(code, what)
     packed_attention_sp_bwd.launches += 1
     return dqkv

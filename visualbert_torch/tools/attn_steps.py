@@ -13,16 +13,22 @@ packed_attention_inputs``: B=128, T=228, H=12, D=64, bf16, padded keys):
   its rows, so twice the calls and no shuffle;
 * "sync loads" (step 3 left out): built with ``-DVB_PACKED_SYNC_LOADS``,
   plain 16-byte loads and stores in place of ``cp.async``, so every tile
-  lands before the products that follow it start and no copy overlaps one.
+  lands before the products that follow it start and no copy overlaps one;
+* "sp sync loads": K13/K14 (``csrc/flash_attention_sp.cu``, on the same
+  design) built with ``-DVB_PACKED_SYNC_LOADS``: K14's probability tiles
+  (and every other tile) land before their products start, so what the
+  asynchronous copies buy is the difference to K13/K14 as built, on K1/K2's
+  inputs with the bias added (K13 takes the biased projection).
 
 Steps 1 and 4 have no build of their own: step 1 alone is K16 (``chip_smoke.py``
 phase 3 times it beside K1/K2), and the design has no ``mma.sync`` path.
 
 Every build is held against the plain versions at dropout 0 and 0.1 (out,
-stats, dqkv, the bias gradient, within ``chip_smoke.py``'s limits) and the
-two others against the as-built outputs (bit for bit is printed, not
-required). Then K1 and K2 (its two kernels) are timed at dropout 0.1 and 0
-with CUDA events: ROUNDS rounds, each the best of 3 runs of 30 calls
+stats, dqkv, the bias gradient; K13/K14's out, probabilities and dqkv;
+within ``chip_smoke.py``'s limits) and against the as-built outputs (bit
+for bit is printed, not required). Then K1 and K2 (its two kernels), and
+K13 and K14 in their builds, are timed at dropout 0.1 and 0 with CUDA
+events: ROUNDS rounds, each the best of 3 runs of 30 calls
 (``tools/attn_exp.py::best_ms``), the builds in turn, in reverse in every
 other round; the least and the largest round are printed.
 
@@ -51,13 +57,21 @@ SEED = 5
 # chip_smoke.py's limits for K1/K2 (max |kernel - plain| / max |plain|,
 # statistics absolute)
 OUT_TOL, DQKV_TOL, DB_TOL, STATS_TOL = 2e-2, 6e-3, 8e-3, 1e-5
+# chip_smoke.py's limits for K13/K14 (out, dqkv as above; each probability
+# within one bf16 ulp of its plain value)
+SP_OUT_TOL, SP_DQKV_TOL = 8e-3, 8e-3
 BUILDS = {  # name: (source under csrc, nvcc defines)
     "philox per row": ("flash_attention_packed.cu", ["-DVB_PACKED_PHILOX_PER_ROW"]),
     "sync loads": ("flash_attention_packed.cu", ["-DVB_PACKED_SYNC_LOADS"]),
+    "sp sync loads": ("flash_attention_sp.cu", ["-DVB_PACKED_SYNC_LOADS"]),
     "philox rate": ("bench/philox_rate.cu", []),
 }
 PHILOX_THREADS, PHILOX_CALLS = 256, 4096
 SUB_PARTITIONS = 4  # of an SM: each issues one warp instruction a cycle
+
+
+PACKED_FNS = ("vb_attn_packed_fwd", "vb_attn_packed_bwd", "vb_attn_packed_info")
+SP_FNS = ("vb_attn_sp_fwd", "vb_attn_sp_bwd", "vb_attn_sp_info")
 
 
 def build_all():
@@ -79,8 +93,8 @@ def build_all():
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
     libs = {name: ctypes.CDLL(str(p)) for name, p in paths.items()}
-    for name in ("philox per row", "sync loads"):
-        for fn in ("vb_attn_packed_fwd", "vb_attn_packed_bwd", "vb_attn_packed_info"):
+    for name, fns in (("philox per row", PACKED_FNS), ("sync loads", PACKED_FNS), ("sp sync loads", SP_FNS)):
+        for fn in fns:
             getattr(libs[name], fn).argtypes = _build._SIGNATURES[fn]
             getattr(libs[name], fn).restype = ctypes.c_int
     bench = libs["philox rate"]
@@ -124,6 +138,92 @@ class PackedBuild:
         self._check(code, "backward")
         return dqkv, dqb
 
+    def calls(self, data, rate):
+        """(forward, backward) of this build on ``data`` at ``rate`` as
+        closures, the backward on this build's forward outputs."""
+        qkv, qb, key_bias, dout = data
+        out, stats = self.fwd(qkv, qb, key_bias, rate, SEED)
+        return (lambda: self.fwd(qkv, qb, key_bias, rate, SEED),
+                lambda: self.bwd(qkv, qb, key_bias, dout, out, stats, rate, SEED))
+
+
+class SpBuild(PackedBuild):
+    """K13/K14's three kernels from one library, called as their wrappers
+    call them, with the head groups of this build's own occupancy."""
+
+    def __init__(self, name, lib, B, T, n_sm):
+        from visualbert_torch.ops import flash_attention as fa
+
+        self.name, self.lib = name, lib
+        info = [[lib.vb_attn_sp_info(k, w, T) for w in range(4)] for k in range(3)]
+        if min(i[3] for i in info) < 1:
+            raise RuntimeError(f"{name}: a kernel fits no block an SM at T={T}")
+        self.hg = [fa.head_group(B, H, n_sm, i[3]) for i in info]
+        self.info = info
+
+    def fwd(self, qkv, key_bias, rate, seed):
+        from visualbert_torch.ops.flash_attention import launch_sp_fwd
+
+        code, out, probs = launch_sp_fwd(self.lib, qkv, key_bias, H, rate, seed, self.hg[0])
+        self._check(code, "K13")
+        return out, probs
+
+    def bwd(self, qkv, probs, dout, out, rate, seed):
+        from visualbert_torch.ops.flash_attention import launch_sp_bwd
+
+        code, dqkv, _ = launch_sp_bwd(self.lib, qkv, probs, probs.stride(2), dout, out, H, rate, seed, *self.hg[1:])
+        self._check(code, "K14")
+        return dqkv
+
+    def calls(self, data, rate):
+        qkv, key_bias, dout = data
+        out, probs = self.fwd(qkv, key_bias, rate, SEED)
+        return (lambda: self.fwd(qkv, key_bias, rate, SEED), lambda: self.bwd(qkv, probs, dout, out, rate, SEED))
+
+
+def check_sp(builds, data, card):
+    """K13/K14 as built and with synchronous copies against the plain
+    versions (out, dqkv; each probability within one bf16 ulp) and against
+    each other; raises on a disagreement with the plain versions."""
+    import torch
+
+    from visualbert_torch.ops import flash_attention as fa
+
+    qkv, key_bias, dout = data
+    errs = {b.name: {} for b in builds}
+    for rate in (0.0, 0.1):
+        out_r, probs_r = fa.packed_attention_sp_fwd_reference(qkv, key_bias, H, rate, SEED)
+        dqkv_r = fa.packed_attention_sp_bwd_reference(qkv, probs_r, dout, out_r, H, rate, SEED)
+        ulp = torch.ldexp(torch.ones_like(probs_r, dtype=torch.float32),
+                          torch.frexp(probs_r.float().abs().clamp_min(2.0 ** -126))[1] - 8).clamp_min(2.0 ** -126)
+        first = None
+        for b in builds:
+            out, probs = b.fwd(qkv, key_bias, rate, SEED)
+            dqkv = b.bwd(qkv, probs, dout, out, rate, SEED)
+            torch.cuda.synchronize()
+            e = dict(out=_rel(out, out_r), probs_ulps=float(((probs.float() - probs_r.float()).abs() / ulp).max()),
+                     dqkv=_rel(dqkv, dqkv_r))
+            same = None if first is None else all(torch.equal(x, y) for x, y in zip((out, probs, dqkv), first))
+            first = first or (out, probs, dqkv)
+            errs[b.name][f"rate {rate}"] = dict(e, same_as_built=same)
+            print(f"{b.name} K13/K14 rate {rate}: out {e['out']:.3e} (tol {SP_OUT_TOL}), probs {e['probs_ulps']:g} "
+                  f"bf16 ulps (tol 1), dqkv {e['dqkv']:.3e} (tol {SP_DQKV_TOL})"
+                  f"{'' if same is None else f'; bit for bit as built: {same}'}  [{card}]", flush=True)
+            if not (e["out"] <= SP_OUT_TOL and e["probs_ulps"] <= 1 and e["dqkv"] <= SP_DQKV_TOL):
+                raise SystemExit(f"attn_steps: {b.name} K13/K14 disagree with the plain versions at rate {rate}")
+        del out_r, probs_r, dqkv_r, ulp, first
+    return errs
+
+
+def print_times(builds, times, card, what):
+    base = times[builds[0].name]
+    for b in builds:
+        t = times[b.name]
+        text = "; ".join(f"{k} {min(v):.4f}-{max(v):.4f} ms" + ("" if b is builds[0] else
+                                                                f" ({min(v) / min(base[k]) - 1:+.1%})")
+                         for k, v in t.items())
+        print(f"{b.name} {what}: {text}  [{card}]", flush=True)
+
 
 def _rel(a, b):
     return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-6))
@@ -161,21 +261,20 @@ def check(builds, data, card):
 
 
 def time_builds(builds, data):
-    """{name: {"fwd 0.1": [ms a round], ...}}: K1 and K2 at both rates, the
-    builds in turn and reversed in every other round; a round's time is
-    tools/attn_exp.py's best of 3 runs of 30 calls."""
+    """{name: {"fwd 0.1": [ms a round], ...}}: each build's forward and
+    backward at both rates, the builds in turn and reversed in every other
+    round; a round's time is tools/attn_exp.py's best of 3 runs of 30
+    calls."""
     from visualbert_torch.tools.attn_exp import best_ms
 
-    qkv, qb, key_bias, dout = data
     times = {b.name: {} for b in builds}
     for r in range(ROUNDS):
         for b in (builds if r % 2 == 0 else builds[::-1]):
             for rate in (0.1, 0.0):
-                out, stats = b.fwd(qkv, qb, key_bias, rate, SEED)
-                times[b.name].setdefault(f"fwd {rate}", []).append(
-                    best_ms(lambda i, b=b, rate=rate: b.fwd(qkv, qb, key_bias, rate, SEED)))
-                times[b.name].setdefault(f"bwd {rate}", []).append(best_ms(
-                    lambda i, b=b, rate=rate, o=out, s=stats: b.bwd(qkv, qb, key_bias, dout, o, s, rate, SEED)))
+                fwd, bwd = b.calls(data, rate)
+                times[b.name].setdefault(f"fwd {rate}", []).append(best_ms(lambda i: fwd()))
+                times[b.name].setdefault(f"bwd {rate}", []).append(best_ms(lambda i: bwd()))
+                del fwd, bwd
     return times
 
 
@@ -245,13 +344,17 @@ def main(argv=None):
               f"dK/dV pass: {b.info}  [{card}]", flush=True)
     errors = check(builds, data, card)
     times = time_builds(builds, data)
-    base = times["as built"]
-    for b in builds:
-        t = times[b.name]
-        text = "; ".join(f"{k} {min(v):.4f}-{max(v):.4f} ms" + ("" if b is builds[0] else
-                                                                f" ({min(v) / min(base[k]) - 1:+.1%})")
-                         for k, v in t.items())
-        print(f"{b.name}: {text}  [{card}]", flush=True)
+    print_times(builds, times, card, "K1/K2")
+    qkv, qb, key_bias, dout = data
+    sp_data = (qkv + qb, key_bias, dout)  # K13 takes the biased projection
+    sp_builds = [SpBuild("as built", _build.library(), B, T, n_sm), SpBuild("sp sync loads", libs["sp sync loads"],
+                                                                          B, T, n_sm)]
+    for b in sp_builds:
+        print(f"{b.name}: K13/K14 hg {b.hg}; registers, local bytes, shared bytes, blocks an SM of the forward, dQ "
+              f"pass, dK/dV pass: {b.info}  [{card}]", flush=True)
+    sp_errors = check_sp(sp_builds, sp_data, card)
+    sp_times = time_builds(sp_builds, sp_data)
+    print_times(sp_builds, sp_times, card, "K13/K14")
     rate = philox_rate(libs["philox rate"], n_sm, card)
     alone = {name: dict(fwd=philox_alone_ms(rate, B, T, n_sm, n), bwd=2 * philox_alone_ms(rate, B, T, n_sm, n))
              for name, n in (("as built", 1), ("philox per row", 2))}
@@ -260,7 +363,9 @@ def main(argv=None):
         print(f"{name}: its Philox calls alone at that rate {a['fwd']:.4f} ms forward, {a['bwd']:.4f} ms backward; "
               f"dropout 0.1 - dropout 0 {share['fwd']:.4f} / {share['bwd']:.4f} ms  [{card}]", flush=True)
     result = dict(card=card, shape=dict(B=B, T=T, H=H, D=D), errors=errors, times=times,
-                  builds={b.name: dict(hg=b.hg, info=b.info) for b in builds}, philox=dict(rate, alone=alone))
+                  builds={b.name: dict(hg=b.hg, info=b.info) for b in builds}, philox=dict(rate, alone=alone),
+                  save_probs=dict(errors=sp_errors, times=sp_times,
+                                  builds={b.name: dict(hg=b.hg, info=b.info) for b in sp_builds}))
     print(json.dumps(result), flush=True)
     return result
 
