@@ -30,9 +30,11 @@ non-zero without printing the final line:
    bf16 probabilities within one bf16 ulp of its plain value, and K14 fed
    K13's own probabilities and output against the plain chain; K13's
    probabilities must have the padded row stride K14 reads without a copy;
-   K13/K14 (on K1/K2's design) are printed with their head groups, blocks
-   an SM, registers and shared memory, K14's two passes timed apart, both
-   at dropout 0, beside their first design's times, and against K1 + K2 at
+   K11/K12 and K13/K14 (on K1/K2's design) are printed with their head
+   groups, blocks an SM, registers and shared memory (K11/K12 must not
+   spill), timed at dropout 0 too, beside their first design's times
+   (K14's two passes timed apart); K11/K12 must equal K1/K2 bit for bit on
+   the same numbers with a zero QKV bias; K13/K14 run against K1 + K2 at
    NLVR2's shape (B=64, T=272); K15 (each of
    the 13 attention experiment variants of scripts/attn_exp.py) and K16
    (scripts/attn_hgrid.py at hg 6, 4, 2) at K1's shapes and dropout 0 and
@@ -149,6 +151,9 @@ SP_CHAIN_TOL = 8e-3  # K14 fed K13's own probs and out, against the plain chain 
 # largest kernel times of this script's earlier runs on an NVIDIA H100 80GB
 # HBM3 at 700 W
 SP_FIRST_DESIGN_MS = {"packed_attention_sp_fwd": (0.6238, 0.6297), "packed_attention_sp_bwd": (1.7857, 1.7971)}
+# K11/K12's first design likewise (mma.sync, a block per 64-query tile), the
+# least and largest of this script's earlier readings on that card
+HM_FIRST_DESIGN_MS = {"heads_major_attention_fwd": (0.4740, 0.4814), "heads_major_attention_bwd": (1.2044, 1.2168)}
 # K13's probabilities are bf16, rounded from fp32 values that agree with the
 # plain version's to a few fp32 ulps: each entry may round to the other
 # neighbour, so it must lie within one bf16 ulp of its own plain value
@@ -527,6 +532,9 @@ def check_attention_variants(torch, card):
         log(f"{name} B={B} T={T} H={H} dropout {rate}: kernel {r['ms']:.4f} ms "
             f"({n_mm * gflop / r['ms']:.1f} TFLOP/s useful), plain {r['plain_ms']:.4f} ms  [{card}]")
         log(row_line(name, r, card))
+    del out, stats, o13, probs
+    heads_major_passes(torch, fa, rows, qkv5, key_bias, dout4, card)
+    heads_major_equals_packed(torch, fa, qkv5, qkv, key_bias, dout4, dout, card)
     return rows
 
 
@@ -564,6 +572,59 @@ def save_probs_passes(torch, fa, rows, qkv, key_bias, dout, o13, probs, ldp, car
         log(f"{name} B={B} T={T} H={H}: dropout {rate} {k['ms']:.4f} ms, dropout 0 {m0:.4f} ms; first design "
             f"(earlier runs, dropout {rate}) {first[0]:.4f}-{first[1]:.4f} ms: faster than its least reading: "
             f"{k['ms'] < first[0]}  [{card}]")
+
+
+def heads_major_passes(torch, fa, rows, qkv5, key_bias, dout4, card):
+    """K11/K12 as K1/K2 are reported: each kernel's head group, blocks an
+    SM, registers, local bytes and shared memory (none of the three may
+    spill); both kernels at dropout 0; their first design's times beside
+    them."""
+    from visualbert_torch.ops import _build
+
+    B, _, H, T, _ = qkv5.shape
+    rate = 0.1
+    lib = _build.library()
+    hgs = fa.hm_head_groups(lib, B, H, T, qkv5.device)
+    spills = []
+    for k, (kernel, hg) in enumerate(zip(fa.PACKED_KERNELS, hgs)):
+        regs, local, smem, per_sm = (lib.vb_attn_hm_info(k, w, T) for w in range(4))
+        log(f"K11/K12 {kernel}: hg {hg} ({B * H // hg} blocks of one batch row x {hg} heads), {per_sm} blocks an "
+            f"SM, {regs} registers a thread, {local} bytes of local memory, {smem} bytes of shared memory at T={T}")
+        spills += [kernel] if local else []
+    if spills:
+        raise SystemExit(f"K11/K12 spill to local memory in the {', '.join(spills)}")
+    o0, s0 = fa.heads_major_attention_fwd(qkv5, key_bias, 0.0, 5)
+    ms0 = (cuda_time_ms(lambda: fa.heads_major_attention_fwd(qkv5, key_bias, 0.0, 5), 20),
+           cuda_time_ms(lambda: fa.heads_major_attention_bwd(qkv5, key_bias, dout4, o0, s0, 0.0, 5), 20))
+    del o0, s0
+    for (name, first), m0, most in zip(HM_FIRST_DESIGN_MS.items(), ms0, (0.40, 1.00)):
+        k = rows[name]
+        log(f"{name} B={B} T={T} H={H}: dropout {rate} {k['ms']:.4f} ms (at most {most:.2f}: {k['ms'] <= most}), "
+            f"dropout 0 {m0:.4f} ms; first design (earlier runs, dropout {rate}) {first[0]:.4f}-{first[1]:.4f} ms: "
+            f"faster than its least reading: {k['ms'] < first[0]}; library {k['library_ms']:.4f} ms, "
+            f"{k['ms'] / k['library_ms']:.2f}x  [{card}]")
+
+
+def heads_major_equals_packed(torch, fa, qkv5, qkv, key_bias, dout4, dout, card):
+    """K11/K12 are K1/K2's kernels on the heads-major layout: on the same
+    numbers (qkv the packed copy of qkv5, dout of dout4) with K1/K2's
+    deferred bias zero, out, stats and dqkv must agree bit for bit, at
+    dropout 0 and 0.1."""
+    B, _, H, T, D = qkv5.shape
+    qb = torch.zeros(3 * H * D, dtype=qkv.dtype, device=qkv.device)
+    for rate in (0.0, 0.1):
+        o1, s1 = fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, 6)
+        d2, _ = fa.packed_attention_bwd(qkv, qb, key_bias, dout, o1, s1, H, rate, 6)
+        o11, s11 = fa.heads_major_attention_fwd(qkv5, key_bias, rate, 6)
+        d12 = fa.heads_major_attention_bwd(qkv5, key_bias, dout4, o11, s11, rate, 6)
+        torch.cuda.synchronize()
+        same = (torch.equal(o11.permute(0, 2, 1, 3).reshape(o1.shape), o1), torch.equal(s11, s1),
+                torch.equal(d12.permute(0, 3, 2, 1, 4).reshape(d2.shape), d2))
+        log(f"K11/K12 against K1/K2 on the same numbers, zero QKV bias, dropout {rate}: out, stats, dqkv bit for "
+            f"bit: {same}")
+        del o1, s1, d2, o11, s11, d12
+        if not all(same):
+            raise SystemExit(f"K11/K12 differ from K1/K2 on the same numbers at dropout {rate}")
 
 
 def save_probs_at_nlvr2_shape(torch, card, B=64, T=272):

@@ -84,3 +84,40 @@ def test_packed_head_groups_query_the_occupancy_once_a_shape(monkeypatch):
     assert queries == [(k, 3, 228) for k in range(3)]
     assert fa.packed_head_groups(Lib(), 96, 12, 228, dev) == (1, 1, 1)
     assert len(queries) == 6
+
+
+@pytest.mark.parametrize("args,match", [(["/nonexistent"], "another checkout"), ([], "another checkout"),
+                                        ([".", "."], "another checkout")])
+def test_the_ab_tool_takes_one_checkout(args, match):
+    from visualbert_torch.tools import attn_ab
+
+    with pytest.raises(SystemExit, match=match):
+        attn_ab.main(args)
+
+
+def test_the_ab_tool_needs_a_card(monkeypatch):
+    from visualbert_torch.tools import attn_ab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        attn_ab.main([str(_build.CSRC.parent.parent)])
+
+
+def test_the_ab_tool_reads_each_kernels_sass_apart():
+    """Instructions keyed by kernel, addresses and encodings dropped, branch
+    labels renumbered within each function (two builds number them apart)."""
+    from visualbert_torch.tools import attn_ab
+
+    text = """
+        Function : _ZN9vb_hopper12_GLOBAL__N_114attn_dq_kernelINS0_12PackedLayoutEEEvPK
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+                                                                     /* 0x000fe40000000800 */
+        /*0010*/              @P0 BRA `(.L_x_7) ;                  /* 0x0000000000000947 */
+        /*0020*/                   BRA `(.L_x_9) ;                 /* 0x0000000000000947 */
+        Function : _ZN12_GLOBAL__N_117packed_fwd_kernelEPK13__nv_bfloat16
+        /*0000*/                   BRA `(.L_x_2) ;                 /* 0x0000000000000947 */
+        Function : _Z5otherv
+        /*0000*/                   EXIT ;                          /* 0x000000000000794d */
+    """
+    assert attn_ab.sass_of(text) == {"dQ pass": ["LDC R1, c[0x0][0x28]", "@P0 BRA `(.L0)", "BRA `(.L1)"],
+                                     "forward": ["BRA `(.L0)"]}

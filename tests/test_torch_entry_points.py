@@ -1,0 +1,139 @@
+"""The C entry points of ``visualbert_torch/csrc/*.cu`` against the ctypes
+signatures ``ops/_build.py`` binds them with, without a card.
+
+A mismatch (an entry point renamed, an argument added on one side only, an
+``int`` bound as a pointer) shows on the card only as a failed lookup or a
+ctypes crash; here each ``extern "C"`` definition is parsed from the
+sources the library is built from and held against ``_SIGNATURES``: the
+same names, the same argument types in order, the same return type. The
+Python launches are held to the same signatures with a library that
+records their calls."""
+
+import ctypes
+import re
+
+import pytest
+import torch
+
+from visualbert_torch.ops import _build
+from visualbert_torch.ops import flash_attention as fa
+
+# C parameter type -> ctypes type as _build binds it
+C_TYPES = {"int": ctypes.c_int, "unsigned int": ctypes.c_uint, "float": ctypes.c_float,
+           "long long": ctypes.c_longlong, "size_t": ctypes.c_size_t, "const char*": ctypes.c_char_p}
+DEFINITION = re.compile(r'extern "C"\s+([\w\s\*]+?)\s*\b(vb_\w+)\s*\(([^)]*)\)\s*\{')
+
+
+def c_type(decl: str):
+    """The ctypes type of a C type (a parameter without its name, or a
+    return type): every pointer a void pointer except ``const char*``."""
+    decl = " ".join(decl.replace("*", " * ").split()).replace(" *", "*")
+    if decl in C_TYPES:
+        return C_TYPES[decl]
+    if decl.endswith("*"):
+        return ctypes.c_void_p
+    raise ValueError(f"no ctypes type for {decl!r}")
+
+
+def split_parameter(param: str):
+    """``const void* qkv`` -> (the ctypes type of ``const void*``, "qkv")."""
+    ctype, name = re.fullmatch(r"(.*?)\s*\b(\w+)", param.strip()).groups()
+    return c_type(ctype), name
+
+
+def definitions():
+    """{name: (source, ctypes return type, [ctypes argument types],
+    [parameter names])} of every ``extern "C"`` definition in the library's
+    sources."""
+    out = {}
+    for path in _build.sources():
+        if path.suffix != ".cu":
+            continue
+        for ret, name, params in DEFINITION.findall(path.read_text()):
+            assert name not in out, f"{name} is defined in {out[name][0]} and {path.name}"
+            args = [split_parameter(p) for p in params.split(",") if p.strip()]
+            out[name] = (path.name, c_type(ret), [a for a, _ in args], [n for _, n in args])
+    return out
+
+
+DEFINED = definitions()
+
+
+def test_the_sources_define_entry_points():
+    assert len(DEFINED) >= 20
+    assert {"vb_attn_hm_fwd", "vb_attn_hm_bwd", "vb_attn_hm_info", "vb_attn_hm_smem_bytes"} <= set(DEFINED)
+
+
+@pytest.mark.parametrize("name", sorted(DEFINED))
+def test_each_entry_point_is_bound_as_defined(name):
+    source, ret, args, _ = DEFINED[name]
+    assert name in _build._SIGNATURES, f"{name} ({source}) has no ctypes signature"
+    assert _build._SIGNATURES[name] == args, f"{name} ({source}): bound {_build._SIGNATURES[name]}, defined {args}"
+    assert _build.restype(name) == ret
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_each_signature_has_a_definition(name):
+    assert name in DEFINED, f"_SIGNATURES binds {name}, which no source under csrc defines"
+
+
+class RecordingLib:
+    """Records each entry point's call and answers 0 (success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+
+        return call
+
+
+B, T, H, D = 2, 37, 6, 64
+HG, HG_DQ, HG_DKV = 3, 2, 1
+
+
+def launches():
+    """Each Python launch of an attention entry point, on CPU tensors of the
+    shapes the wrappers check, with head groups HG (forward) and HG_DQ,
+    HG_DKV (backward): {entry point: call on a library}."""
+    qkv = torch.zeros((B, T, 3 * H * D), dtype=torch.bfloat16)
+    qb = torch.zeros(3 * H * D, dtype=torch.bfloat16)
+    out = torch.zeros((B, T, H * D), dtype=torch.bfloat16)
+    key_bias = torch.zeros((B, T))
+    stats = torch.zeros((B, H, T))
+    qkv5 = torch.zeros((B, 3, H, T, D), dtype=torch.bfloat16)
+    out5 = torch.zeros((B, H, T, D), dtype=torch.bfloat16)
+    probs = torch.zeros((B, H, T, fa.probs_row_stride(T)), dtype=torch.bfloat16)[..., :T]
+    return {
+        "vb_attn_packed_fwd": lambda lib: fa.launch_packed_fwd(lib, qkv, qb, key_bias, H, 0.1, 3, HG),
+        "vb_attn_packed_bwd": lambda lib: fa.launch_packed_bwd(lib, qkv, qb, key_bias, out, out, stats, H, 0.1, 3,
+                                                               HG_DQ, HG_DKV),
+        "vb_attn_hm_fwd": lambda lib: fa.launch_hm_fwd(lib, qkv5, key_bias, 0.1, 3, HG),
+        "vb_attn_hm_bwd": lambda lib: fa.launch_hm_bwd(lib, qkv5, key_bias, out5, out5, stats, 0.1, 3, HG_DQ,
+                                                       HG_DKV),
+        "vb_attn_sp_fwd": lambda lib: fa.launch_sp_fwd(lib, qkv, key_bias, H, 0.1, 3, HG),
+        "vb_attn_sp_bwd": lambda lib: fa.launch_sp_bwd(lib, qkv, probs, probs.stride(2), out, out, H, 0.1, 3, HG_DQ,
+                                                       HG_DKV),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(launches()))
+def test_each_attention_launch_passes_its_signatures_arguments(monkeypatch, name):
+    """The launches hand the entry point one value per declared argument,
+    an int for every pointer and integer and a float for a float, and the
+    shape and head groups in the parameters of those names."""
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    lib = RecordingLib()
+    launches()[name](lib)
+    ((called, args),) = lib.calls
+    assert called == name
+    assert len(args) == len(_build._SIGNATURES[name])
+    for value, argtype in zip(args, _build._SIGNATURES[name]):
+        assert type(value) is (float if argtype is ctypes.c_float else int), (value, argtype)
+    given = dict(zip(DEFINED[name][3], args))
+    want = dict(B=B, T=T, H=H, hg=HG, hg_dq=HG_DQ, hg_dkv=HG_DKV)
+    assert {k: given[k] for k in want if k in given} == {k: v for k, v in want.items() if k in given}
+    assert {"B", "T", "H"} <= set(given) and ({"hg"} <= set(given) or {"hg_dq", "hg_dkv"} <= set(given))

@@ -19,12 +19,14 @@ once: y, dx and dres within 2e-2 of the largest plain value, mu and rstd
 within 1e-4, dscale and dbias within 1e-3; their dropout masks agree
 exactly. The heads-major (K11/K12) and save-probs (K13/K14) attention
 kernels are held as K1/K2 are, at small shapes and at the main path's T =
-228, NLVR2's T = 272 and K13/K14's largest, 704; each of K13's bf16
+228, NLVR2's T = 272 and their largest, 704; each of K13's bf16
 probabilities within one bf16 ulp of its plain value, and K14 fed K13's
-own output as K2 is. K13/K14 (``csrc/flash_attention_sp.cu``, on K1/K2's
-design) also repeat bit for bit, drop exactly the plain mask's positions,
-refuse T = 1024, and K14 gives the same dqkv from K13's padded-stride
-probabilities and from a contiguous copy. The
+own output as K2 is. Both pairs (``csrc/flash_attention.cu`` and
+``csrc/flash_attention_sp.cu``, on K1/K2's design) also repeat bit for bit,
+drop exactly the plain mask's positions and refuse T = 1024; K11/K12 give
+K1/K2's outputs bit for bit on the same numbers with a zero QKV bias, and
+K14 gives the same dqkv from K13's padded-stride probabilities and from a
+contiguous copy. The
 attention experiment kernels (K15 with every variant of ``VARIANTS`` and
 two more knob settings, so every compiled flag combination runs; K16 at
 every hg that divides H) are held as K1/K2 are, at dropout 0 and 0.1.
@@ -233,7 +235,7 @@ def bf16_ulps(x):
 VARIANT_SHAPES = [(4, 228, 12), (2, 272, 12), (2, 37, 3), (1, 64, 2), (2, 130, 4)]
 
 
-@pytest.mark.parametrize("B,T,H", VARIANT_SHAPES)
+@pytest.mark.parametrize("B,T,H", VARIANT_SHAPES + [(1, 704, 2)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_heads_major_kernels_match_plain(cuda, B, T, H, rate):
     qkv, key_bias, dout = heads_major_inputs(B, T, H, cuda)
@@ -307,20 +309,23 @@ def test_variant_autograd_through_kernels(cuda, variant):
         assert rel_err(got, ref) < REL_TOL
 
 
-def test_variant_kernels_take_t_up_to_512_and_refuse_more(cuda):
-    """K11 takes T = 512 and K13/K14 T = 704 (the largest T whose 64-row
-    tiles fit a block's shared memory); both refuse T = 1024 before launch."""
-    qkv5, key_bias, _ = heads_major_inputs(1, 512, 1, cuda)
-    fa.heads_major_attention_fwd(qkv5, key_bias, 0.1, 1)
+def test_variant_kernels_take_t_up_to_704_and_refuse_more(cuda):
+    """K11/K12 and K13/K14 take T = 704 (the largest T whose 64-row tiles
+    fit a block's shared memory) and refuse T = 1024 before launch."""
+    qkv5, key_bias, dout5 = heads_major_inputs(1, 704, 1, cuda)
+    out5, stats = fa.heads_major_attention_fwd(qkv5, key_bias, 0.1, 1)
+    fa.heads_major_attention_bwd(qkv5, key_bias, dout5, out5, stats, 0.1, 1)
     qkv, _, key_bias, dout = attention_inputs(1, 704, 1, cuda)
     out, probs = fa.packed_attention_sp_fwd(qkv, key_bias, 1, 0.1, 1)
     fa.packed_attention_sp_bwd(qkv, probs, dout, out, 1, 0.1, 1)
     torch.cuda.synchronize()
-    assert fa._build.library().vb_attn_sp_smem_bytes(704) <= fa.MAX_SMEM_BYTES
-    assert fa._build.library().vb_attn_sp_smem_bytes(705) > fa.MAX_SMEM_BYTES
-    big, kb, _ = heads_major_inputs(1, 1024, 1, cuda)
+    for smem in (fa._build.library().vb_attn_hm_smem_bytes, fa._build.library().vb_attn_sp_smem_bytes):
+        assert smem(704) <= fa.MAX_SMEM_BYTES < smem(705)
+    big, kb, bigd = heads_major_inputs(1, 1024, 1, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         fa.heads_major_attention_fwd(big, kb, 0.0, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        fa.heads_major_attention_bwd(big, kb, bigd, bigd, kb.view(1, 1, -1), 0.0, 0)
     packed = big.permute(0, 3, 2, 1, 4).reshape(1, 1024, 192).contiguous()
     with pytest.raises(ValueError, match="shared memory"):
         fa.packed_attention_sp_fwd(packed, kb, 1, 0.0, 0)
@@ -328,6 +333,59 @@ def test_variant_kernels_take_t_up_to_512_and_refuse_more(cuda):
     probs = torch.zeros((1, 1, 1024, 1024), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         fa.packed_attention_sp_bwd(packed, probs, dout, dout, 1, 0.0, 0)
+
+
+def test_heads_major_kernels_repeat_bit_for_bit(cuda):
+    qkv, key_bias, dout = heads_major_inputs(4, 228, 12, cuda)
+    runs = []
+    for _ in range(2):
+        out, stats = fa.heads_major_attention_fwd(qkv, key_bias, 0.1, 7)
+        runs.append((out, stats, fa.heads_major_attention_bwd(qkv, key_bias, dout, out, stats, 0.1, 7)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_heads_major_kernels_drop_the_plain_mask(cuda):
+    """K11/K12's counterpart of test_attention_kernels_drop_the_plain_mask:
+    with v[j] the j-th unit vector (T = 64 = D keys, no key padding) out[i,
+    j] is the dropped, rescaled p[i, j], zero exactly where the plain mask
+    drops (every p > 0); with dout[i] the i-th unit vector the dK/dV pass's
+    dv[j, i] is the same p_d[i, j]."""
+    B, T, H, rate, seed = 3, 64, 2, 0.1, 11
+    rng = np.random.RandomState(5)
+    qkv = torch.tensor(rng.randn(B, 3, H, T, 64), dtype=torch.bfloat16, device=cuda)
+    eye = torch.eye(T, dtype=torch.bfloat16, device=cuda)
+    qkv[:, 2] = eye
+    key_bias = torch.zeros((B, T), device=cuda)
+    dout = eye.expand(B, H, T, 64).contiguous()
+    out, stats = fa.heads_major_attention_fwd(qkv, key_bias, rate, seed)
+    dqkv = fa.heads_major_attention_bwd(qkv, key_bias, dout, out, stats, rate, seed)
+    torch.cuda.synchronize()
+    keep = fa.attention_keep_reference(seed, B, H, T, rate, cuda)  # [B, H, i, j]
+    dv = dqkv[:, 2].transpose(-1, -2)  # [B, H, i, j] = dv[j, i]
+    assert 0.05 < 1 - float(keep.float().mean()) < 0.15
+    assert torch.equal(out != 0, keep)
+    assert torch.equal(dv != 0, keep)
+
+
+@pytest.mark.parametrize("B,T,H", [(4, 228, 12), (2, 37, 3), (3, 130, 4), (1, 704, 2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_heads_major_kernels_equal_the_packed_kernels_bit_for_bit(cuda, B, T, H, rate):
+    """K11/K12 are K1/K2's kernels on another layout: on the same numbers,
+    with K1/K2's deferred bias zero (bf16 x + 0 is exact), out, stats and
+    dqkv agree bit for bit."""
+    qkv5, key_bias, dout5 = heads_major_inputs(B, T, H, cuda, seed=4)
+    packed = qkv5.permute(0, 3, 2, 1, 4).reshape(B, T, 3 * H * 64).contiguous()
+    dout = dout5.permute(0, 2, 1, 3).reshape(B, T, H * 64).contiguous()
+    qb = torch.zeros(3 * H * 64, dtype=torch.bfloat16, device=cuda)
+    o1, s1 = fa.packed_attention_fwd(packed, qb, key_bias, H, rate, 5)
+    d2, _ = fa.packed_attention_bwd(packed, qb, key_bias, dout, o1, s1, H, rate, 5)
+    o11, s11 = fa.heads_major_attention_fwd(qkv5, key_bias, rate, 5)
+    d12 = fa.heads_major_attention_bwd(qkv5, key_bias, dout5, o11, s11, rate, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(o11.permute(0, 2, 1, 3).reshape(B, T, H * 64), o1)
+    assert torch.equal(s11, s1)
+    assert torch.equal(d12.permute(0, 3, 2, 1, 4).reshape(B, T, 3 * H * 64), d2)
 
 
 def test_save_probs_kernels_repeat_bit_for_bit(cuda):

@@ -86,6 +86,10 @@ class OccupancyLib:
         self.queries.append(("sp", which, what, T))
         return self.per_sm
 
+    def vb_attn_hm_info(self, which, what, T):
+        self.queries.append(("hm", which, what, T))
+        return self.per_sm
+
 
 @pytest.fixture
 def card(monkeypatch):
@@ -110,6 +114,19 @@ def test_sp_and_packed_head_groups_are_kept_apart(card):
     fa.sp_head_groups(lib, 128, 12, 272, card)
     fa.packed_head_groups(lib, 128, 12, 272, card)
     assert [q[0] for q in lib.queries] == ["sp"] * 3 + ["packed"] * 3
+
+
+@pytest.mark.parametrize("B,per_sm,hg", [(128, 2, 6), (64, 2, 3), (128, 1, 12)])
+def test_hm_head_groups_follow_the_wave_model_apart_from_the_others(card, B, per_sm, hg):
+    """K11/K12 (csrc/flash_attention.cu) pick their head groups as K1/K2 do,
+    from their own occupancy query, memoised apart from K1/K2's and K13/K14's."""
+    lib = OccupancyLib(per_sm)
+    assert fa.hm_head_groups(lib, B, 12, 228, card) == (hg, hg, hg)
+    fa.packed_head_groups(lib, B, 12, 228, card)
+    assert fa.hm_head_groups(lib, B, 12, 228, card) == (hg, hg, hg)
+    assert lib.queries == [("hm", k, 3, 228) for k in range(3)] + [("packed", k, 3, 228) for k in range(3)]
+    with pytest.raises(RuntimeError, match="K11/K12 forward: no block fits"):
+        fa.hm_head_groups(OccupancyLib(0), B, 12, 704, card)
 
 
 def test_no_block_fitting_an_sm_raises(card):

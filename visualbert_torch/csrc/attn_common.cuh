@@ -1,18 +1,15 @@
-// Tile helpers and layouts shared by the attention kernels of the first
-// design, mma.sync from padded shared memory (flash_attention.cu: K11/K12;
-// flash_attention_exp.cu: K15/K16). K1/K2 and K13/K14 are built on
-// hopper_attn.cuh instead.
+// Tile helpers of the attention experiment kernels K15/K16
+// (flash_attention_exp.cu), the first design of K1/K2 kept as the instrument
+// that scripts/attn_exp.py and scripts/attn_hgrid.py measured: mma.sync
+// m16n8k16 with fragments read from padded shared memory. Every other
+// attention kernel (K1/K2, K11/K12, K13/K14) is built on hopper_attn.cuh.
 //
 // Every kernel here works on one (batch b, head h) pair at a time (K15/K16
 // walk several in one block), with D = 64 head dims, 64-row tiles and 4
-// warps of 16 rows. A layout says where
-// the rows of (b, h)'s Q, K or V (j = 0, 1, 2) start in the input and where
-// its output rows start, and their row strides (elements):
-//
-// * PackedLayout: qkv [B, T, H*3*D] packed head-major [h0(q,k,v) | h1 ...],
-//   out / dout [B, T, H*D] (flash_attention_packed);
-// * HeadsMajorLayout: qkv [B, 3, H, T, D], out / dout [B, H, T, D]
-//   (flash_attention with heads_major=True).
+// warps of 16 rows. PackedLayout says where the rows of (b, h)'s Q, K or V
+// (j = 0, 1, 2) start in qkv [B, T, H*3*D] packed head-major [h0(q,k,v) |
+// h1 ...] and where its rows of out / dout [B, T, H*D] start, and their row
+// strides (elements).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,7 +35,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float SCALE = 0.125f;       // 1 / sqrt(D)
 
 struct PackedLayout {
-  static constexpr bool kBiasGrad = true;  // K2 emits the deferred qkv-bias gradient
   __device__ static size_t in_off(int b, int h, int j, int T, int H) {
     return (size_t)b * T * 3 * H * D + (size_t)(3 * h + j) * D;
   }
@@ -47,21 +43,10 @@ struct PackedLayout {
   __device__ static int ld_out(int H) { return H * D; }
 };
 
-struct HeadsMajorLayout {
-  static constexpr bool kBiasGrad = false;
-  __device__ static size_t in_off(int b, int h, int j, int T, int H) {
-    return (((size_t)b * 3 + j) * H + h) * (size_t)T * D;
-  }
-  __device__ static int ld_in(int) { return D; }
-  __device__ static size_t out_off(int b, int h, int T, int H) { return ((size_t)b * H + h) * (size_t)T * D; }
-  __device__ static int ld_out(int) { return D; }
-};
-
 __host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// Dynamic shared memory of the three stats-carrying attention kernels (the
-// forward, the backward's query-tile and key-tile passes), whose layouts
-// flash_attention.cu and flash_attention_exp.cu share.
+// Dynamic shared memory of the three stats-carrying kernels (the forward,
+// the backward's query-tile and key-tile passes).
 inline size_t fwd_smem(int T) {
   const int Tp = round_up(T, TILE);
   return (size_t)(TILE + 2 * Tp) * LDS * sizeof(bf16) + Tp * sizeof(float);

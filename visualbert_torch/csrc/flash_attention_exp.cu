@@ -3,7 +3,7 @@
 // pallas_calls :234 and :249); K16 replaces scripts/attn_hgrid.py::make_hgrid
 // (fwd_kernel :56, bwd_kernel :90, pallas_calls :172 and :189).
 //
-// Both compute K1/K2's function (flash_attention.cu) on packed qkv
+// Both compute K1/K2's function (flash_attention_packed.cu) on packed qkv
 // [B, T, H*3*D] bf16 with the deferred QKV bias qb [H*3*D], the key bias
 // [B, T] fp32 and a dropout seed: out [B, T, H*D], the base-2 row statistic
 // stats [B, H, T] (K16's [B, H/hg, hg, T] is the same memory), dqkv [B, T,
@@ -25,8 +25,8 @@
 //   and loads that pair's K and V (Q and dO in the dK/dV pass) into shared
 //   memory once. K15's forward runs rows = bb, heads = H; its backward rows
 //   = bb, heads = group (1 for nostack); K16 runs rows = 1, heads = hg in
-//   both passes. Production K1/K2 run one (64-query tile, head, batch row)
-//   a block and reload the pair's K and V for every tile. So the TPU's
+//   both passes. K1/K2's first design ran one (64-query tile, head, batch
+//   row) a block and reloaded the pair's K and V for every tile. The TPU's
 //   backward head group and its 2-D (batch, head-group) grid are one knob
 //   here, the heads of a block: K15 at bb = 1 and group = g runs K16 at
 //   hg = g's backward.
@@ -584,8 +584,16 @@ int launch_bwd(const void* qkv, const void* qb, const void* key_bias, const void
 
 }  // namespace
 
+// The largest dynamic shared memory of the three kernels at T (the same for
+// every variant and head group).
+extern "C" size_t vb_attn_exp_smem_bytes(int T) {
+  size_t a = fwd_smem(T), b = dq_smem(T), c = dkv_smem(T);
+  size_t m = a > b ? a : b;
+  return m > c ? m : c;
+}
+
 // rows x heads (batch row, head) pairs a block; prescale and nomax select
-// the instantiation. The shared memory is K1's (vb_attn_smem_bytes).
+// the instantiation.
 extern "C" int vb_attn_exp_fwd(const void* qkv, const void* qb, const void* key_bias, void* out, void* stats,
                                int B, int T, int H, int rows, int heads, int prescale, int nomax, unsigned int seed,
                                unsigned int threshold, float inv, int dropout, void* stream) {

@@ -1,5 +1,6 @@
 // Hopper building blocks of the attention kernels designed for sm_90a
-// (flash_attention_packed.cu: K1/K2; flash_attention_sp.cu: K13/K14).
+// (flash_attention_packed.cu: K1/K2; flash_attention.cu: K11/K12;
+// flash_attention_sp.cu: K13/K14).
 //
 // A block is one warpgroup (4 warps, 128 threads). Every D = 64 bf16 row is
 // one 128-byte swizzle row, and a tile is 64 such rows (wgmma's m64) in a

@@ -35,19 +35,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
-_SIGNATURES = {
+_SIGNATURES = {  # every C entry point of the sources: its argument types
+    "vb_error_string": [_I],
     "vb_dropout_mask": [_P, ctypes.c_longlong, _I, _U, _U, _F, _P],
     "vb_attn_packed_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_packed_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_packed_smem_bytes": [_I],
     "vb_attn_packed_info": [_I, _I, _I],
-    "vb_attn_smem_bytes": [_I],
-    "vb_attn_hm_fwd": [_P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
-    "vb_attn_hm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _F, _I, _P],
+    "vb_attn_hm_smem_bytes": [_I],
+    "vb_attn_hm_info": [_I, _I, _I],
+    "vb_attn_hm_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _I, _P],
+    "vb_attn_hm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_sp_smem_bytes": [_I],
     "vb_attn_sp_info": [_I, _I, _I],
     "vb_attn_sp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_sp_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
+    "vb_attn_exp_smem_bytes": [_I],
     "vb_attn_exp_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_exp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_xent_geometry": [_I, _I],
@@ -58,6 +61,14 @@ _SIGNATURES = {
     "vb_ln_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _U, _U, _F, _P],
     "vb_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _P],
 }
+
+
+def restype(name: str):
+    """The return type of C entry point ``name``: a CUDA error code for a
+    launch or a query, a byte count for a shared-memory size."""
+    if name == "vb_error_string":
+        return ctypes.c_char_p
+    return ctypes.c_size_t if name.endswith("_smem_bytes") else ctypes.c_int
 
 
 class KernelLibrary:
@@ -72,9 +83,7 @@ class KernelLibrary:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(self.lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_size_t if name.endswith("_smem_bytes") else ctypes.c_int
-        self.lib.vb_error_string.argtypes = [_I]
-        self.lib.vb_error_string.restype = ctypes.c_char_p
+            fn.restype = restype(name)
 
     def __getattr__(self, name):
         return getattr(self.lib, name)

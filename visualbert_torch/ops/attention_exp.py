@@ -112,7 +112,7 @@ def attn_hgrid_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads: int, 
 
 
 def _launch_fwd(what, qkv, qb, key_bias, n_heads, rate, seed, rows, heads, prescale=False, nomax=False):
-    lib = fa._check_packed(what, qkv, key_bias, n_heads, qb=qb, smem_fn="vb_attn_smem_bytes")
+    lib = fa._check_packed(what, qkv, key_bias, n_heads, qb=qb, smem_fn="vb_attn_exp_smem_bytes")
     B, T, F = qkv.shape
     out = torch.empty((B, T, F // 3), dtype=qkv.dtype, device=qkv.device)
     stats = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
@@ -129,7 +129,7 @@ def _launch_bwd(what, qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed, 
                 fdrop=False):
     """stats [B, H, T]; the kernel writes fp32 per-block partials of the
     bias gradient, whose sum here is the only reduction outside it."""
-    lib = fa._check_packed(what, qkv, key_bias, n_heads, dout, out, qb=qb, smem_fn="vb_attn_smem_bytes")
+    lib = fa._check_packed(what, qkv, key_bias, n_heads, dout, out, qb=qb, smem_fn="vb_attn_exp_smem_bytes")
     B, T, F = qkv.shape
     fa._check_stats(what, stats, B, n_heads, T)
     if not stats.is_contiguous() or stats.device != qkv.device:

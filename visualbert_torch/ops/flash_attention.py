@@ -23,7 +23,7 @@ probabilities [B, H, T, T], always bf16, and its backward reads them back
 instead of recomputing QK^T and the softmax.
 
 Kernels (``csrc/flash_attention_packed.cu``, ``csrc/flash_attention.cu``,
-``csrc/flash_attention_sp.cu``):
+``csrc/flash_attention_sp.cu``, all on ``csrc/hopper_attn.cuh``):
 
 * K1, :func:`packed_attention_fwd`, replaces ``_packed_fwd_kernel``;
 * K2, :func:`packed_attention_bwd`, replaces ``_packed_bwd_kernel``;
@@ -33,10 +33,12 @@ Kernels (``csrc/flash_attention_packed.cu``, ``csrc/flash_attention.cu``,
 * K14, :func:`packed_attention_sp_bwd`, replaces ``_packed_bwd_sp_kernel``.
 
 All are bound by math and, with dropout on, by Philox's integer work (K13
-and K14 also move the probabilities); see the sources for the designs. On
-CPU tensors the wrappers compute their plain versions (the ``*_reference``
-functions, which follow the kernels' math step by step); on CUDA tensors
-they launch the kernels or raise.
+and K14 also move the probabilities); see the sources for the designs. Each
+block owns one batch row x hg heads, hg from :func:`head_group` over the
+kernel's occupancy (:func:`packed_head_groups`, :func:`hm_head_groups`,
+:func:`sp_head_groups`). On CPU tensors the wrappers compute their plain
+versions (the ``*_reference`` functions, which follow the kernels' math
+step by step); on CUDA tensors they launch the kernels or raise.
 
 The dropout keep bit of probability (b, h, i, j) is a pure function of
 (seed, b, h, i, j) — see ``csrc/philox.cuh::attn_philox`` and its twin
@@ -276,17 +278,18 @@ def _seed_args(rate: float, seed: int):
 
 
 def head_group(B: int, H: int, n_sm: int, per_sm: int) -> int:
-    """Heads a block of K1/K2 walks (one batch row x hg heads a block): the
-    divisor hg of H that minimises the wave estimate ceil(blocks / slots) x
-    hg, blocks = B * H / hg and slots = n_sm * per_sm (the time of a wave is
-    about that of hg pairs); ties go to the fewer blocks."""
+    """Heads a block of K1/K2, K11/K12 or K13/K14 walks (one batch row x hg
+    heads a block): the divisor hg of H that minimises the wave estimate
+    ceil(blocks / slots) x hg, blocks = B * H / hg and slots = n_sm * per_sm
+    (the time of a wave is about that of hg pairs); ties go to the fewer
+    blocks."""
     slots = n_sm * per_sm
     divisors = [hg for hg in range(1, H + 1) if H % hg == 0]
     return min(divisors, key=lambda hg: (-(-(B * H // hg) // slots) * hg, -hg))
 
 
-# kernel index of vb_attn_packed_info and vb_attn_sp_info: the forward, the
-# dQ pass, the dK/dV pass
+# kernel index of vb_attn_packed_info, vb_attn_hm_info and vb_attn_sp_info:
+# the forward, the dQ pass, the dK/dV pass
 PACKED_KERNELS = ("forward", "dQ pass", "dK/dV pass")
 _head_groups = {}
 
@@ -312,6 +315,11 @@ def _kernel_head_groups(lib, info: str, label: str, B: int, H: int, T: int, devi
 def packed_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
     """hg of K1's kernel and of K2's two passes (``vb_attn_packed_info``)."""
     return _kernel_head_groups(lib, "vb_attn_packed_info", "K1/K2", B, H, T, device)
+
+
+def hm_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
+    """hg of K11's kernel and of K12's two passes (``vb_attn_hm_info``)."""
+    return _kernel_head_groups(lib, "vb_attn_hm_info", "K11/K12", B, H, T, device)
 
 
 def sp_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
@@ -393,7 +401,29 @@ def _check_heads_major(what, qkv, key_bias, *others):
     for t in others:
         if t.dtype != qkv.dtype or t.shape != (B, H, T, d):
             raise ValueError(f"{what}: dout and out must be [{B}, {H}, {T}, {d}] {qkv.dtype}")
-    return _check(what, "vb_attn_smem_bytes", T, key_bias, B, qkv, *others)
+    return _check(what, "vb_attn_hm_smem_bytes", T, key_bias, B, qkv, *others)
+
+
+def launch_hm_fwd(lib, qkv, key_bias, rate: float, seed: int, hg: int):
+    """K11's kernel from ``lib`` (the kernel library, or another build of its
+    source) on checked inputs, hg heads a block: (CUDA code, out, stats)."""
+    B, _, H, T, d = qkv.shape
+    out = torch.empty((B, H, T, d), dtype=qkv.dtype, device=qkv.device)
+    stats = torch.empty((B, H, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_hm_fwd(qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                              B, T, H, hg, *_seed_args(rate, seed), _build.stream_ptr(qkv.device))
+    return code, out, stats
+
+
+def launch_hm_bwd(lib, qkv, key_bias, dout, out, stats, rate: float, seed: int, hg_dq: int, hg_dkv: int):
+    """K12's two kernels from ``lib`` on checked inputs: (CUDA code, dqkv)."""
+    B, _, H, T, _ = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_hm_bwd(qkv.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), out.data_ptr(),
+                              stats.data_ptr(), dqkv.data_ptr(), delta.data_ptr(),
+                              B, T, H, hg_dq, hg_dkv, *_seed_args(rate, seed), _build.stream_ptr(qkv.device))
+    return code, dqkv
 
 
 def heads_major_attention_fwd(qkv, key_bias, rate: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -403,11 +433,9 @@ def heads_major_attention_fwd(qkv, key_bias, rate: float, seed: int) -> Tuple[to
     if not _on_cuda(what, qkv):
         return heads_major_attention_fwd_reference(qkv, key_bias, rate, seed)
     lib = _check_heads_major(what, qkv, key_bias)
-    B, _, H, T, d = qkv.shape
-    out = torch.empty((B, H, T, d), dtype=qkv.dtype, device=qkv.device)
-    stats = torch.empty((B, H, T), dtype=torch.float32, device=qkv.device)
-    code = lib.vb_attn_hm_fwd(qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
-                              B, T, H, *_seed_args(rate, seed), _build.stream_ptr(qkv.device))
+    B, _, H, T, _ = qkv.shape
+    hg = hm_head_groups(lib, B, H, T, qkv.device)[0]
+    code, out, stats = launch_hm_fwd(lib, qkv, key_bias, rate, seed, hg)
     lib.check(code, what)
     heads_major_attention_fwd.launches += 1
     return out, stats
@@ -424,11 +452,8 @@ def heads_major_attention_bwd(qkv, key_bias, dout, out, stats, rate: float, seed
     lib = _check_heads_major(what, qkv, key_bias, dout, out)
     B, _, H, T, _ = qkv.shape
     _check_stats(what, stats, B, H, T)
-    dqkv = torch.empty_like(qkv)
-    delta = torch.empty((B, H, T), dtype=torch.float32, device=qkv.device)
-    code = lib.vb_attn_hm_bwd(qkv.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), out.data_ptr(),
-                              stats.data_ptr(), dqkv.data_ptr(), delta.data_ptr(),
-                              B, T, H, *_seed_args(rate, seed), _build.stream_ptr(qkv.device))
+    _, hg_dq, hg_dkv = hm_head_groups(lib, B, H, T, qkv.device)
+    code, dqkv = launch_hm_bwd(lib, qkv, key_bias, dout, out, stats, rate, seed, hg_dq, hg_dkv)
     lib.check(code, what)
     heads_major_attention_bwd.launches += 1
     return dqkv

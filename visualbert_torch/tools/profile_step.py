@@ -34,8 +34,8 @@ ANNOTATION = "bertadam_step"
 # kernel-name patterns -> group (first match wins); a pattern is a substring
 # or a tuple of substrings that must all appear
 GROUPS = (
-    ("K11 heads-major attention fwd", (("attn_fwd_kernel", "HeadsMajorLayout"),)),
-    ("K12 heads-major attention bwd", (("attn_bwd", "HeadsMajorLayout"),)),
+    ("K11 heads-major attention fwd", ("hm_fwd_kernel",)),
+    ("K12 heads-major attention bwd", ("hm_dq_kernel", "hm_dkv_kernel")),
     ("K13 save-probs attention fwd", ("attn_sp_fwd",)),
     ("K14 save-probs attention bwd", ("attn_sp_bwd",)),
     ("K1 attention fwd", ("packed_fwd_kernel",)),
