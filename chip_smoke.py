@@ -19,7 +19,11 @@ non-zero without printing the final line:
    and set beside K16 (the schedule alone) at its best hg of the same call;
    K4, K5 and K6 (the fused MLM cross-entropy: forward, dx, d embedding and
    d bias) at N = 128 x 24 = 3072 rows, H=768, V=30522, bf16, 15 % of labels
-   -1 and a non-uniform cotangent, and again at bert-large's H=1024;
+   -1 and a non-uniform cotangent, and again at bert-large's H=1024; K5
+   and K6 (one wgmma kernel on two roles) printed at both widths with their
+   registers, local bytes, shared bytes, blocks an SM, grid and splits
+   (neither may spill) and the TFLOP/s of their products, beside their
+   first design's times and the same two products through torch.matmul;
    K7-K10 (residual add + LayerNorm, without and with dropout,
    forward and backward) at the main path's N = 128 x 228 = 29,184 rows,
    H=768, bf16, K9/K10 at rate 0.1, with K10's dropped positions equal to
@@ -154,6 +158,9 @@ SP_FIRST_DESIGN_MS = {"packed_attention_sp_fwd": (0.6238, 0.6297), "packed_atten
 # K11/K12's first design likewise (mma.sync, a block per 64-query tile), the
 # least and largest of this script's earlier readings on that card
 HM_FIRST_DESIGN_MS = {"heads_major_attention_fwd": (0.4740, 0.4814), "heads_major_attention_bwd": (1.2044, 1.2168)}
+# K5/K6's first design likewise (mma.sync, 32-row / 32-vocabulary-row
+# blocks, synchronous copies) at the main path's shapes, width 768
+XENT_FIRST_DESIGN_MS = {"mlm_xent_dx": (2.8493, 2.8914), "mlm_xent_de": (2.3475, 2.3708)}
 # K13's probabilities are bf16, rounded from fp32 values that agree with the
 # plain version's to a few fp32 ulps: each entry may round to the other
 # neighbour, so it must lie within one bf16 ulp of its own plain value
@@ -810,6 +817,7 @@ def check_xent(torch, card, H=768):
     if not (r_dx <= DX_TOL and r_de <= DE_TOL and r_db <= DBIAS_TOL):
         raise SystemExit("K5/K6 disagree with their plain versions")
     del dx_r, de_r, db_r
+    xent_backward_design(torch, xe, x, emb, bias, lab, lse, g, card)
     if H != 768:
         for name, fn, args in (("mlm_xent_fwd", xe.mlm_xent_fwd, ()), ("mlm_xent_dx", xe.mlm_xent_dx, (lse, g)),
                                ("mlm_xent_de", xe.mlm_xent_de, (lse, g))):
@@ -839,7 +847,46 @@ def check_xent(torch, card, H=768):
         log(f"{name} [{N}, {H}] x [{V}, {H}]: kernel {r['ms']:.4f} ms ({n_mm * gflop / r['ms']:.1f} "
             f"TFLOP/s in its products), plain {r['plain_ms']:.4f} ms  [{card}]")
         log(row_line(name, r, card))
+    for name, first in XENT_FIRST_DESIGN_MS.items():
+        log(f"{name} [{N}, {H}] x [{V}, {H}]: {rows[name]['ms']:.4f} ms; first design (earlier runs) "
+            f"{first[0]:.4f}-{first[1]:.4f} ms: faster than its least reading: {rows[name]['ms'] < first[0]}  [{card}]")
+    # yardstick, not the fused function and not library_ms: the same two
+    # bf16 products of each kernel through torch.matmul (cuBLAS), with a
+    # materialised [N, V] bf16 dlog
+    p = torch.empty((N, V), dtype=torch.bfloat16, device=dev).normal_()
+    ms_dx = cuda_time_ms(lambda: (torch.matmul(x, emb.t()), torch.matmul(p, emb)), 10)
+    ms_de = cuda_time_ms(lambda: (torch.matmul(x, emb.t()), torch.matmul(p.t(), x)), 10)
+    del p
+    for name, ms in (("mlm_xent_dx", ms_dx), ("mlm_xent_de", ms_de)):
+        log(f"{name}'s two products as cuBLAS products (x E^T, then dlog E or dlog^T x; not the fused function): "
+            f"{ms:.4f} ms ({2 * gflop / ms:.1f} TFLOP/s); the kernel {rows[name]['ms']:.4f} ms  [{card}]")
     return rows
+
+
+def xent_backward_design(torch, xe, x, emb, bias, lab, lse, g, card):
+    """K5/K6's design facts at these shapes: registers, local bytes, shared
+    bytes and blocks an SM of each kernel (neither may spill), the grid, K5's
+    vocabulary splits, and the TFLOP/s of each kernel's two products."""
+    from visualbert_torch.ops import _build
+
+    lib = _build.library()
+    (N, H), V = x.shape, emb.shape[0]
+    rows, tile, cols = (lib.vb_xent_geometry(w, H) for w in (2, 4, 5))
+    dx_plan = xe.dx_plan(N, V, H, rows, tile, cols, xe.sm_count(x.device))
+    de_plan = xe.de_plan(V, H, rows, cols)
+    gflop = 2.0 * N * V * H / 1e9
+    for k, (name, fn, args, grid) in enumerate((
+            ("mlm_xent_dx", xe.mlm_xent_dx, (lse, g), f"grid {dx_plan['grid']} (row blocks, column parts, "
+             f"splits of {dx_plan['per']} tiles of {tile} vocabulary rows)"),
+            ("mlm_xent_de", xe.mlm_xent_de, (lse, g), f"grid {de_plan['grid']} (vocabulary blocks, column parts; "
+             f"x in tiles of {tile} rows)"))):
+        regs, local, smem, per_sm = (lib.vb_xent_info(k, w, H) for w in range(4))
+        ms = cuda_time_ms(lambda: fn(x, emb, bias, lab, *args), 10)
+        log(f"K{5 + k} {name} at width {H}: {regs} registers a thread, {local} bytes of local memory, {smem} bytes "
+            f"of shared memory, {per_sm} blocks an SM, {grid}, {cols} columns a block; {ms:.4f} ms, "
+            f"{2 * gflop / ms:.1f} TFLOP/s in its products  [{card}]")
+        if local:
+            raise SystemExit(f"K{5 + k} spills to local memory at width {H}")
 
 
 def check_layer_norm(torch, card):

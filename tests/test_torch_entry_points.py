@@ -137,3 +137,41 @@ def test_each_attention_launch_passes_its_signatures_arguments(monkeypatch, name
     want = dict(B=B, T=T, H=H, hg=HG, hg_dq=HG_DQ, hg_dkv=HG_DKV)
     assert {k: given[k] for k in want if k in given} == {k: v for k, v in want.items() if k in given}
     assert {"B", "T", "H"} <= set(given) and ({"hg"} <= set(given) or {"hg_dq", "hg_dkv"} <= set(given))
+
+
+class XentLib(RecordingLib):
+    """A recording library that also answers ``vb_xent_geometry`` with the
+    kernels' tiling at width 768 (row block 64, vocabulary tile 32, all 768
+    columns a block)."""
+
+    def vb_xent_geometry(self, which, hid):
+        return (hid, 64, 64, 64, 32, 768)[which]
+
+
+@pytest.mark.parametrize("name", ["vb_xent_dx", "vb_xent_de"])
+def test_each_xent_backward_launch_passes_its_signatures_arguments(monkeypatch, name):
+    """K5/K6's launches hand their entry point one int per declared argument,
+    the shape in the parameters of those names, and K5 its plan's splits and
+    a partials buffer of the plan's shape."""
+    from visualbert_torch.ops import mlm_xent as xe
+
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    N, V, H, SMS = 100, 1000, 768, 132
+    x = torch.zeros((N, H), dtype=torch.bfloat16)
+    emb = torch.zeros((V, H), dtype=torch.bfloat16)
+    rows = torch.zeros(N)
+    args = (x, emb, torch.zeros(V), torch.zeros(N, dtype=torch.int32), rows, rows)
+    lib = XentLib()
+    out = xe.launch_dx(lib, *args, SMS) if name == "vb_xent_dx" else xe.launch_de(lib, *args)
+    ((called, values),) = lib.calls
+    assert called == name and out[0] == 0
+    assert len(values) == len(_build._SIGNATURES[name])
+    assert all(type(v) is int for v in values)
+    given = dict(zip(DEFINED[name][3], values))
+    assert (given["N"], given["V"], given["hid"]) == (N, V, H)
+    if name == "vb_xent_dx":
+        plan = xe.dx_plan(N, V, H, 64, 32, 768, SMS)
+        assert (given["S"], given["vbs"]) == (plan["grid"][2], plan["per"])
+        assert out[1].shape == (N, H) and out[1].dtype == torch.bfloat16
+    else:
+        assert out[1].shape == (V, H) and out[2].shape == (V,)

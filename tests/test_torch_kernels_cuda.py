@@ -35,7 +35,11 @@ repeat bit for bit, drop exactly the plain mask's positions, and refuse T =
 1024; ``tools/attn_steps.py``'s builds of their source with a design step
 left out, and of K13/K14's with synchronous copies, give the kernels'
 outputs bit for bit. K4-K6 also run at bert-large's
-hidden width of 1024.
+hidden width of 1024. K5/K6 (``xent_bwd_kernel``: wgmma, cp.async) run at
+every ragged, single and whole row block, vocabulary tile and split of N in
+{3072, 37, 257, 1, 65} and V in {30522, 4099, 70} (width 1024 at N in
+{3072, 37}), repeat bit for bit, do not spill, and have the tiling that
+``tests/test_torch_xent_geometry.py`` plans their grids with.
 """
 
 import numpy as np
@@ -588,6 +592,59 @@ def test_xent_kernels_match_plain_at_bert_large_width(cuda, N):
     assert torch.equal(am[clear], am_r[clear])
     assert dx.shape == (N, 1024) and de.shape == (30522, 1024)
     assert rel_err(dx, dx_r) < REL_TOL and rel_err(de, de_r) < REL_TOL and rel_err(db, db_r) < DB_REL_TOL
+
+
+XENT_BWD_CASES = ([(768, N, V) for N in (3072, 37, 257, 1, 65) for V in (30522, 4099, 70)]
+                  + [(1024, N, V) for N in (3072, 37) for V in (30522, 4099, 70)])
+
+
+@pytest.mark.parametrize("H,N,V", XENT_BWD_CASES)
+def test_xent_backward_kernels_match_plain(cuda, H, N, V):
+    """K5/K6 against their plain versions where a row block, a vocabulary
+    tile and a split are ragged, single or whole (the vocabulary tile is 32
+    rows at 768 and 16 at 1024, the row block 64)."""
+    x, emb, bias, labels, g = xent_inputs(N, V, cuda, seed=3, H=H)
+    _, lse_r, _ = xe.mlm_xent_fwd_reference(x, emb, bias, labels)
+    dx = xe.mlm_xent_dx(x, emb, bias, labels, lse_r, g)
+    de, db = xe.mlm_xent_de(x, emb, bias, labels, lse_r, g)
+    dx_r = xe.mlm_xent_dx_reference(x, emb, bias, labels, lse_r, g)
+    de_r, db_r = xe.mlm_xent_de_reference(x, emb, bias, labels, lse_r, g)
+    torch.cuda.synchronize()
+    assert dx.shape == (N, H) and de.shape == (V, H) and db.shape == (V,)
+    assert rel_err(dx, dx_r) < REL_TOL
+    assert rel_err(de, de_r) < REL_TOL
+    assert rel_err(db, db_r) < DB_REL_TOL
+
+
+@pytest.mark.parametrize("H", [768, 1024])
+def test_xent_backward_kernels_repeat_bit_for_bit(cuda, H):
+    """No atomics: the blocks' order cannot change a bit of dx, dE or db."""
+    x, emb, bias, labels, g = xent_inputs(1000, 30522, cuda, seed=4, H=H)
+    _, lse, _ = xe.mlm_xent_fwd(x, emb, bias, labels)
+    first = (xe.mlm_xent_dx(x, emb, bias, labels, lse, g),) + xe.mlm_xent_de(x, emb, bias, labels, lse, g)
+    again = (xe.mlm_xent_dx(x, emb, bias, labels, lse, g),) + xe.mlm_xent_de(x, emb, bias, labels, lse, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("H", [768, 1024])
+@pytest.mark.parametrize("kernel", [0, 1])
+def test_xent_backward_kernels_do_not_spill(cuda, kernel, H):
+    from visualbert_torch.ops import _build
+
+    lib = _build.library()
+    regs, local, smem, per_sm = (lib.vb_xent_info(kernel, w, H) for w in range(4))
+    assert 0 < regs <= 255 and local == 0
+    assert 0 < smem <= 232448 and per_sm == 1
+
+
+def test_xent_geometry_is_the_one_the_plans_are_tested_with(cuda):
+    """tests/test_torch_xent_geometry.py holds the grid plans at this tiling."""
+    from visualbert_torch.ops import _build
+
+    lib = _build.library()
+    got = {H: tuple(lib.vb_xent_geometry(w, H) for w in range(6)) for H in (768, 1024)}
+    assert got == {768: (768, 64, 64, 64, 32, 768), 1024: (1024, 32, 64, 64, 16, 512)}
+    assert lib.vb_xent_geometry(0, 512) == -1 and lib.vb_xent_info(0, 0, 512) == -1
 
 
 def test_xent_argmax_takes_the_first_max(cuda):

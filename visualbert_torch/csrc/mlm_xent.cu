@@ -1,6 +1,7 @@
 // K4, K5, K6: the fused masked-LM softmax cross-entropy over the tied
-// decoder. Replace visualbert_tpu/ops/mlm_xent.py::_fwd_kernel (K4),
-// ::_dx_kernel (K5) and ::_de_kernel (K6), reached through mlm_xent.
+// decoder. Replace visualbert_tpu/ops/mlm_xent.py::_fwd_kernel (K4, :52),
+// ::_dx_kernel (K5, :145) and ::_de_kernel (K6, :170), reached through
+// mlm_xent.
 //
 // Inputs, at hidden width HID of 768 (bert-base) or 1024 (bert-large), one
 // instantiation each: x [N, HID] bf16 (the MLM transform's output rows), E [V, HID] bf16
@@ -15,65 +16,102 @@
 //   db = sum_rows g * (p - onehot)                     [V] fp32
 // with p = exp(logits - lse): dlog is rounded to bf16 before each product,
 // as the JAX kernels do. No [N, V] tensor is ever written to device memory:
-// each kernel recomputes its logits tile in registers.
+// each kernel recomputes its logits tile on chip.
 //
 // Bound on the H100. At the main path's N = 128 * 24 = 3072 rows, V = 30522
 // and HID = 768 each of the five N x V x HID products (K4: 1, K5: 2, K6: 2)
 // is 144 GFLOP, against 4.7 MB of x and 47 MB of E: all three kernels are
-// bound by math. This first version uses mma.sync m16n8k16 with fragments
-// read 32 bits at a time from padded shared memory (rows 4 banks apart, no
-// bank conflicts; no ldmatrix, cp.async, TMA or wgmma), and loads each tile
-// synchronously: right and simple first.
+// bound by math, K5 and K6 by 288 GFLOP each (0.29 ms at 989 TFLOP/s).
 //
-// What the TPU kernels keep in VMEM does not fit an SM (227 KB of shared
-// memory, 255 registers a thread), and an H100 runs its blocks in parallel
-// in no order, where the TPU runs its grid in sequence. So:
-// - K4 splits the vocabulary across blocks as well as the rows (one block of
-//   8 warps per 64 rows x one vocabulary split): at N = 3072 a row split
-//   alone gives 48 blocks for 132 SMs. Each block writes, per row, its
-//   partial (max, sum of exp, label logit, best value, best index); a merge
-//   kernel combines the splits in vocabulary order, so on equal values the
-//   lower index wins (first-max, as the TPU kernel and torch.argmax).
-// - K5's fp32 [rows, 768] accumulator, resident across the whole vocabulary
-//   loop on the TPU (2.4 MB at 768 rows), is cut to 32 rows per block (96
-//   fp32 registers a thread over 8 warps). To keep enough blocks in flight
-//   the vocabulary is split as well, and each block writes an fp32 partial
-//   dx of its split; a second kernel sums the partials in split order,
-//   scales by g and rounds. Nothing is recomputed beyond the logits tile the
-//   TPU kernel recomputes too; the partials cost S * N * HID * 4 bytes.
-// - K6: each block owns 32 vocabulary rows of dE (all 768 columns, in
-//   registers) and of db, and walks over every row block itself. No atomics
-//   and no partials: the result does not depend on the order blocks run in.
-// - Ragged edges (V = 30522 is not a multiple of 64, N need not be either)
-//   are masked here: rows of x and E past the end are zero in shared memory,
-//   columns past V take no part in the max, the sum or the argmax, rows past
-//   N are never stored. E is read in place; it is never copied to a padded
-//   30720-row tensor.
+// K4 is the first design: mma.sync m16n8k16 with fragments read 32 bits at a
+// time from padded shared memory, tiles loaded synchronously. What the TPU
+// kernel keeps in VMEM does not fit an SM (227 KB of shared memory, 255
+// registers a thread), and an H100 runs its blocks in parallel in no order,
+// so K4 splits the vocabulary across blocks as well as the rows (one block
+// of 8 warps per 64 rows x one vocabulary split: at N = 3072 a row split
+// alone gives 48 blocks for 132 SMs). Each block writes, per row, its
+// partial (max, sum of exp, label logit, best value, best index); a merge
+// kernel combines the splits in vocabulary order, so on equal values the
+// lower index wins (first-max, as the TPU kernel and torch.argmax).
+//
+// K5 and K6 are one Hopper kernel on two roles (xent_bwd_kernel, DE false /
+// true); they are mirror images. A block of two warpgroups keeps a
+// RESIDENT tile of 64 rows (wgmma's m64) x HID in shared memory and walks a
+// STREAMED matrix in tiles of T rows:
+//   K5: resident = 64 rows of x, streamed = E (the vocabulary tiles of one
+//       split); S = X E_t^T, then dX += bf16(p - onehot) . E_t.
+//   K6: resident = 64 vocabulary rows of E, streamed = every row tile of x;
+//       S^T = E X_t^T, then dE += bf16(g (p - onehot))^T . X_t, db += the
+//       fp32 values before rounding.
+// - Tiles. Every [rows, HID] tile is HID / 64 panels of rows x 128 B in the
+//   128 B swizzle (one 64-column panel is hopper_attn.cuh's tile layout), so
+//   one copy serves both products: the logits read it K-major (B = the
+//   streamed rows), the second product MN-major (B transposed, N = its
+//   columns). Copies are cp.async, 16 bytes a thread.
+// - Ring. Shared memory holds the resident tile (96 KB at 768) and two
+//   streamed tiles: T = 32 rows at 768 (2 x 48 KB), 16 at 1024 (2 x 32 KB,
+//   beside 128 KB resident), 210-215 KB in all. Tile t + 1 is issued right
+//   after the barrier that opens tile t, with its rows' values (K5: bias;
+//   K6: lse, label, g, by 4-byte cp.async), so its copy runs under both of
+//   tile t's products and no register holds them during the logits.
+// - Products, all wgmma from shared memory. The logits are split by K: each
+//   warpgroup multiplies half of HID's panels into the whole 64 x T tile
+//   (m64n32 at 768, n16 at 1024), hands the other warpgroup its partial
+//   sums of that warpgroup's half of the columns through shared memory, and
+//   finishes its own half. It writes their bf16 dlog into one shared 64 x T
+//   tile (K-major, swizzled), and after a barrier both warpgroups multiply
+//   that whole tile by the streamed tile, each into its own columns: the
+//   logits are computed once, in half as many, twice as wide, instructions
+//   as a split by columns (m64n16 a warpgroup), which also read the
+//   resident tile twice.
+// - Accumulator. 64 rows x 768 fp32 is 384 registers a thread for one
+//   warpgroup: each of the two owns 384 columns, six m64n64 accumulators
+//   (192 registers). At 1024 a block owns 512 of the columns (four n64
+//   accumulators a warpgroup) and the other half is a second block that
+//   recomputes the same logits: the grid's y.
+// - Grid. K5: x = 64-row blocks, y = column halves, z = vocabulary splits of
+//   `vbs` tiles (blocks run in index order, so the blocks in flight read the
+//   same E range and E comes from L2); each writes an fp32 partial dx of its
+//   split and xent_dx_reduce_kernel sums the partials in split order, scales
+//   by g and rounds. K6: x = 64-vocabulary-row blocks (477 at the main path),
+//   y = column halves; no splits, no partials: x (4.7 MB) stays in L2.
+// What bounds this design (tools/xent_steps.py: the source built with a
+// step left out, timed beside the kernels as built): the logits' chain of
+// dependent wgmmas and the one streamed tile in flight per SM take about
+// the same time alone, and overlap; the products add the rest. The four
+// switches of that tool (VB_XENT_NO_COPY: no tile after the first is
+// copied; VB_XENT_NO_LOGITS: the logits are zeros; VB_XENT_NO_PRODUCT: no
+// second product; VB_XENT_NO_DLOG: no dlog math and no dlog tile) give
+// wrong results, for timing only; the kernel library never defines them.
+// No atomics anywhere: the results do not depend on the order in which
+// blocks run, and two calls agree bit for bit. Ragged edges (V = 30522 is not
+// a multiple of 64, N need not be either) are masked here: rows past the end
+// are zero in shared memory, columns past V and rows past N give dlog 0, and
+// nothing past them is stored. E is read in place; it is never copied to a
+// padded tensor.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_attn.cuh"
 #include "mma.cuh"
 
 namespace {
 
 using vb::bf16;
 using vb::load_a;
-using vb::load_b_cols;
 using vb::load_b_rows;
 using vb::mma16816;
 using vb::pack_bf16;
+using vb_hopper::smem_addr;
+using vb_hopper::swz;
 
-constexpr int NTHREADS = 256;     // 8 warps
-constexpr int VB = 64;            // vocabulary rows per logits tile (K4, K5)
-constexpr int DX_ROWS = 32;       // K5 rows per block
-constexpr int DE_ROWS = 64;       // K6 rows per step of its row loop
-constexpr int DE_VOCAB = 32;      // K6 vocabulary rows per block
-constexpr int LDD = 64 + 8;       // row stride of the bf16 dlog tiles
+constexpr int NTHREADS = 256;     // 8 warps: K4's block; K5/K6's two warpgroups
+constexpr int VB = 64;            // vocabulary rows per K4 logits tile
 
-// The tiling at hidden width HID (768, bert-base, and 1024, bert-large; the
+// K4's tiling at hidden width HID (768, bert-base, and 1024, bert-large; the
 // wrapper checks). Shared memory holds [rows, HID] tiles with a padded row
 // stride: K4's 64 x-rows and 64 vocabulary rows fit at 768 (198 KB) but not
 // at 1024 (264 KB of 227), so K4 takes 32 rows a block there.
@@ -83,8 +121,6 @@ struct Geo {
   static constexpr int KSTEPS = HID / 16;               // k-steps of a logits product
   static constexpr int FWD_ROWS = HID <= 768 ? 64 : 32;  // K4 rows per block
   static constexpr int FWD_MT = FWD_ROWS / 32;          // K4 m16 tiles per warp (2 x 4 warps)
-  static constexpr int HW = HID / 8;                    // dx / dE columns owned by each warp (96, 128)
-  static constexpr int HT = HW / 8;                     // ... in n8 tiles (12, 16)
 };
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -298,91 +334,287 @@ __global__ void xent_fwd_merge_kernel(const float* __restrict__ pf, const int* _
   am[row] = bi;
 }
 
-// ------------------------------------------------------------------ K5
+// ------------------------------------------------------------------ K5, K6
 
-// grid (cdiv(N, 32), S): rows x vocabulary splits. part [S][N][HID] fp32.
+constexpr int RES = 64;           // resident rows a block: wgmma's m64
+constexpr int PANEL = RES * 128;  // bytes of a resident panel (64 columns)
+constexpr int P_BYTES = 64 * 128; // the dlog tile: 64 rows x T (<= 64) columns, swizzled
+constexpr int NV = 3;             // values of a streamed row: K5 the bias; K6 lse, label, g
+
+// K5/K6's tiling at hidden width HID (see the header comment).
 template <int HID>
-__global__ void __launch_bounds__(NTHREADS, 1)
-xent_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const float* __restrict__ bias,
-               const int* __restrict__ labels, const float* __restrict__ lse, int N, int V, int vbs,
-               float* __restrict__ part) {
-  constexpr int LDH = Geo<HID>::LDH, HW = Geo<HID>::HW, HT = Geo<HID>::HT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem);  // [DX_ROWS][LDH]
-  bf16* Es = Xs + DX_ROWS * LDH;             // [VB][LDH]
-  bf16* Ds = Es + VB * LDH;                  // [DX_ROWS][LDD] bf16(p - onehot)
-  float* bias_s = reinterpret_cast<float*>(Ds + DX_ROWS * LDD);  // [VB]
-  float* lse_s = bias_s + VB;                // [DX_ROWS]
-  int* lab_s = reinterpret_cast<int*>(lse_s + DX_ROWS);  // [DX_ROWS]
+struct Bwd {
+  static constexpr int NP = HID / 64;                 // 128 B panels of a [*, HID] row
+  static constexpr int KP = NP / 2;                   // ... in each warpgroup's half of the logits
+  static constexpr int T = HID == 768 ? 32 : 16;       // streamed rows a tile: the logits' n
+  static constexpr int COLS = HID == 768 ? 768 : 512;  // result columns a block owns
+  static constexpr int CW = COLS / 2;                  // ... a warpgroup owns
+  static constexpr int NC = CW / 64;                   // ... in m64n64 accumulators (6, 4)
+  static constexpr int TN = T / 2;                     // logits columns a warpgroup finishes
+  static constexpr int XV = TN / 2;                    // partial logits a thread hands the other warpgroup
+  static constexpr int RES_BYTES = RES * HID * 2;
+  static constexpr int TILE_BYTES = T * HID * 2;       // one streamed tile: NP panels of T rows
+  static constexpr size_t SMEM = vb_hopper::ALIGN + RES_BYTES + 2 * TILE_BYTES + P_BYTES +
+                                 (2 * XV * 128 + 2 * NV * T + 2 * RES) * sizeof(float);
+};
+static_assert(Bwd<768>::SMEM <= 232448 && Bwd<1024>::SMEM <= 232448,
+              "a K5/K6 block must fit the H100's 227 KB of shared memory");
 
-  const int rb = blockIdx.x, s = blockIdx.y;
-  const int row0 = rb * DX_ROWS;
-  const int nvb = cdiv(V, VB);
-  const int vb0 = s * vbs, vb1 = min(nvb, vb0 + vbs);
-
-  load_rows<HID>(Xs, x, row0, DX_ROWS, N);
-  for (int r = threadIdx.x; r < DX_ROWS; r += NTHREADS) {
-    const bool ok = row0 + r < N;
-    lse_s[r] = ok ? lse[row0 + r] : INFINITY;  // padded rows: p = 0
-    lab_s[r] = ok ? labels[row0 + r] : -1;
+// Issue the copy of rows [r0, r0 + NR) of a [nvalid, HID] bf16 matrix into NP
+// swizzled panels of NR rows at shared address dst (panel p at dst + p * NR
+// * 128); rows past nvalid are zero. Neighbouring threads copy neighbouring
+// 16-byte chunks of a row.
+template <int HID, int NR>
+__device__ __forceinline__ void issue_rows(uint32_t dst, const bf16* __restrict__ src, int r0, int nvalid) {
+  constexpr int CH = HID / 8;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < NR * CH; idx += NTHREADS) {
+    const int r = idx / CH, c = idx - r * CH, row = r0 + r;
+    const bool ok = row < nvalid;
+    vb_hopper::cp_async16(dst + (c >> 3) * (NR * 128) + swz(r, c & 7), src + (size_t)(ok ? row : 0) * HID + c * 8,
+                          ok);
   }
+}
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // logits: 2 x 4 warps over 32 x 64, 16 x 16 each
+// 4 bytes, or zeros where !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
 
-  float acc[2][HT][4];  // dx partial, rows 0..31, columns warp * HW ..
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < HT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+// wgmma forms of K5/K6 (hopper_attn.cuh has n64 with both operands K-major
+// or A in registers; those are the attention kernels' machine code and stay
+// as they are). d (64 x N fp32) = (acc ? d : 0) + A B^T, both K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, "
+      "0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(acc));
+}
+// d (64 x 64) += A B, A [64 x 16] K-major and B [16 x 64] MN-major (16 rows
+// of 64 contiguous columns: imm-trans-b), both in shared memory.
+__device__ __forceinline__ void wgmma_n64_tb(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VB_R32 ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : VB_D32
+      : "l"(a), "l"(b), "r"(1));
+}
 
-  for (int vb = vb0; vb < vb1; ++vb) {
-    const int v0 = vb * VB;
-    __syncthreads();  // Es and Ds are consumed
-    load_rows<HID>(Es, E, v0, VB, V);
-    for (int c = threadIdx.x; c < VB; c += NTHREADS) bias_s[c] = v0 + c < V ? bias[v0 + c] : 0.f;
-    __syncthreads();
+// After a wait: keep the compiler from reading an accumulator before it.
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-    float c[1][2][4];
-    logits_tile<HID, 1, 2>(c, Xs, wm * 16, Es, wn * 16, g, tq);
+// This warpgroup's half of the logits: s (64 x T) = R Q^T over panels [p0,
+// p0 + KP), R the resident tile at shared address r (64-row panels), Q the
+// streamed tile at q (panels of T rows).
+template <int HID>
+__device__ __forceinline__ void logits(float (&s)[Bwd<HID>::T / 2], uint32_t r, uint32_t q, int p0) {
+  using G = Bwd<HID>;
+  const uint64_t dr = vb_hopper::desc(r + p0 * PANEL), dq = vb_hopper::desc(q + p0 * G::T * 128);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+  for (int p = 0; p < G::KP; ++p)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int lr = wm * 16 + g + 8 * (q >> 1), lc = wn * 16 + j * 8 + 2 * tq + (q & 1), col = v0 + lc;
-        float d = 0.f;
-        if (col < V) d = expf(c[0][j][q] + bias_s[lc] - lse_s[lr]) - (col == lab_s[lr] ? 1.f : 0.f);
-        Ds[lr * LDD + lc] = __float2bfloat16(d);
-      }
-    __syncthreads();
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t a = dr + ((p * PANEL) >> 4) + 2 * kk, b = dq + ((p * G::T * 128) >> 4) + 2 * kk;
+      if constexpr (G::T == 32)
+        wgmma_n32(s, a, b, p | kk);
+      else
+        wgmma_n16(s, a, b, p | kk);
+    }
+}
 
+// K5 (DE false): grid (cdiv(N, 64), HID / COLS, S); block (x, y, z) keeps x
+// rows [64 x, 64 x + 64), walks the vocabulary tiles [z vbs, z vbs + vbs) of
+// T rows, and writes columns [y COLS, y COLS + COLS) of the fp32 partial
+// part [S][N][HID]. K6 (DE true): grid (cdiv(V, 64), HID / COLS); block (x,
+// y) keeps E rows [64 x, 64 x + 64), walks every x tile, and writes those
+// rows of dE (its columns) and, for y = 0, of db.
+template <int HID, bool DE>
+__global__ void __launch_bounds__(NTHREADS, 1)
+xent_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const float* __restrict__ bias,
+                const int* __restrict__ labels, const float* __restrict__ lse, const float* __restrict__ gr, int N,
+                int V, int vbs, float* __restrict__ part, bf16* __restrict__ dE, float* __restrict__ db) {
+  using G = Bwd<HID>;
+  constexpr int T = G::T, TN = G::TN, NC = G::NC, XV = G::XV;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = vb_hopper::align_smem(smem_raw);
+  unsigned char* Pt = sm + G::RES_BYTES + 2 * G::TILE_BYTES;  // the bf16 dlog tile
+  float* xch = reinterpret_cast<float*>(Pt + P_BYTES);       // [2 to][XV][128]: partial logits for the other warpgroup
+  float* cols = xch + 2 * XV * 128;                           // [2 buffers][NV][T]: the streamed rows' values
+  float* red = cols + 2 * NV * T;                             // [2][RES]: K6's db over each warpgroup's columns
+  const uint32_t sR = smem_addr(sm), sQ = sR + G::RES_BYTES, sP = smem_addr(Pt), sC = smem_addr(cols);
+
+  const int r0 = blockIdx.x * RES;
+  const int nres = DE ? V : N, nstr = DE ? N : V;
+  const bf16* res = DE ? E : x;
+  const bf16* str = DE ? x : E;
+  const int ntiles = cdiv(nstr, T);
+  const int t0 = DE ? 0 : blockIdx.z * vbs, t1 = DE ? ntiles : min(ntiles, t0 + vbs);
+
+  const int tid = threadIdx.x & 127, wg = threadIdx.x >> 7, warp = tid >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int i0 = warp * 16 + g;                              // this thread's resident rows: i0, i0 + 8
+  const int pc = (blockIdx.y * G::COLS + wg * G::CW) / 64;  // the panel of this warpgroup's first column
+
+  // Tile t into buffer b: its rows, and its rows' values (K5: the bias of
+  // each vocabulary row; K6: the lse, label and g of each x row; zero past
+  // the end, where the row's dlog is 0 anyway).
+  auto issue_tile = [&](int t, int b) {
+    issue_rows<HID, T>(sQ + b * G::TILE_BYTES, str, t * T, nstr);
+    if (threadIdx.x < (DE ? NV : 1) * T) {
+      const int k = threadIdx.x / T, j = t * T + threadIdx.x % T, jj = j < nstr ? j : 0;
+      const void* src = DE ? (k == 0 ? (const void*)(lse + jj) : k == 1 ? (const void*)(labels + jj)
+                                                                         : (const void*)(gr + jj))
+                           : (const void*)(bias + jj);
+      cp_async4(sC + 4 * ((b * NV + k) * T + threadIdx.x % T), src, j < nstr);
+    }
+  };
+
+  issue_rows<HID, RES>(sR, res, r0, nres);
+  issue_tile(t0, 0);
+  vb_hopper::cp_commit();
+
+  // per resident row h: K5 the lse and label of x row r0 + i; K6 the bias of
+  // vocabulary row r0 + i (rid: the row's vocabulary id, or its label)
+  float rv[2];
+  int rid[2];
 #pragma unroll
-    for (int kk = 0; kk < VB / 16; ++kk) {
-      uint32_t a[2][4];
-      load_a<LDD>(a[0], Ds, 0, kk * 16, g, tq);
-      load_a<LDD>(a[1], Ds, 16, kk * 16, g, tq);
-#pragma unroll
-      for (int j = 0; j < HT; ++j) {
-        uint32_t b0, b1;
-        load_b_cols<LDH>(b0, b1, Es, kk * 16, warp * HW + j * 8, g, tq);
-        mma16816(acc[0][j], a[0], b0, b1);
-        mma16816(acc[1][j], a[1], b0, b1);
-      }
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + i0 + 8 * h;
+    if (DE) {
+      rv[h] = r < V ? bias[r] : 0.f;
+      rid[h] = r;
+    } else {
+      rv[h] = r < N ? lse[r] : INFINITY;  // padded rows: p = 0
+      rid[h] = r < N ? labels[r] : -1;
     }
   }
-
-  float* dst = part + (size_t)blockIdx.y * N * HID;
+  float acc[NC][32];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < NC; ++j) vb_hopper::zero(acc[j]);
+  float dsum[2] = {0.f, 0.f};  // K6: db of rows i0, i0 + 8 over this thread's columns
+
+  for (int t = t0; t < t1; ++t) {
+    const int b = (t - t0) & 1;
+    const uint32_t sQb = sQ + b * G::TILE_BYTES;
+    vb_hopper::cp_wait<0>();
+    vb_hopper::fence_async();
+    __syncthreads();  // tile t landed; both warpgroups are done with tile t - 1, the dlog tile and xch
+#ifndef VB_XENT_NO_COPY
+    if (t + 1 < t1) {
+      issue_tile(t + 1, b ^ 1);
+      vb_hopper::cp_commit();
+    }
+#endif
+
+    // the logits over this warpgroup's half of the panels; it finishes the
+    // columns [wg TN, wg TN + TN) (n-tiles wg TN / 8 ..) and hands the
+    // other warpgroup its partial sums of the other half
+    float s[T / 2], mine[XV];
+    vb_hopper::wg_fence();
+#ifndef VB_XENT_NO_LOGITS
+    logits<HID>(s, sR, sQb, wg * G::KP);
+#else
+#pragma unroll
+    for (int i = 0; i < T / 2; ++i) s[i] = 0.f;
+#endif
+    vb_hopper::wg_commit();
+    vb_hopper::wg_wait();
+    hold(s);
+#pragma unroll
+    for (int k = 0; k < XV; ++k) {
+      mine[k] = wg ? s[XV + k] : s[k];
+      xch[((wg ^ 1) * XV + k) * 128 + tid] = wg ? s[k] : s[XV + k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < XV; ++k) mine[k] += xch[(wg * XV + k) * 128 + tid];
+
+#ifndef VB_XENT_NO_DLOG
+    const float* cv = cols + b * NV * T;  // [NV][T] of tile t
+#pragma unroll
+    for (int nt = 0; nt < TN / 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float d[2];
+        const int c = wg * TN + nt * 8 + 2 * tq;  // tile column of e = 0
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float z = mine[4 * nt + 2 * h + e];
+          const int j = t * T + c + e;
+          if (DE) {  // row: vocabulary id rid; column: x row j
+            const bool ok = rid[h] < V && j < N;
+            const int lab = __float_as_int(cv[T + c + e]);
+            d[e] = ok ? (expf(z + rv[h] - cv[c + e]) - (lab == rid[h] ? 1.f : 0.f)) * cv[2 * T + c + e] : 0.f;
+            dsum[h] += d[e];
+          } else {   // row: x row with label rid; column: vocabulary id j
+            d[e] = j < V ? expf(z + cv[c + e] - rv[h]) - (rid[h] == j ? 1.f : 0.f) : 0.f;
+          }
+        }
+        *reinterpret_cast<uint32_t*>(Pt + swz(i0 + 8 * h, c >> 3) + (c & 7) * 2) = pack_bf16(d[0], d[1]);
+      }
+#endif
+    vb_hopper::fence_async();
+    __syncthreads();  // the whole dlog tile is written
+
+    const uint64_t dp = vb_hopper::desc(sP), dq = vb_hopper::desc(sQb);
+    vb_hopper::wg_fence();
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk)
+#ifndef VB_XENT_NO_PRODUCT
+        wgmma_n64_tb(acc[j], dp + 2 * kk, dq + (uint64_t)(((pc + j) * T * 128 + kk * 2048) >> 4));
+#endif
+    vb_hopper::wg_commit();
+    vb_hopper::wg_wait();
+#pragma unroll
+    for (int j = 0; j < NC; ++j) hold(acc[j]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + i0 + 8 * h;
+    if (r >= nres) continue;
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = (pc + j) * 64 + nt * 8 + 2 * tq;
+        const float a = acc[j][4 * nt + 2 * h], b = acc[j][4 * nt + 2 * h + 1];
+        if (DE)
+          *reinterpret_cast<uint32_t*>(dE + (size_t)r * HID + col) = pack_bf16(a, b);
+        else
+          *reinterpret_cast<float2*>(part + ((size_t)blockIdx.z * N + r) * HID + col) = make_float2(a, b);
+      }
+  }
+  if (DE) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = row0 + i * 16 + g + 8 * h;
-      if (row >= N) continue;
-#pragma unroll
-      for (int j = 0; j < HT; ++j)
-        *reinterpret_cast<float2*>(dst + (size_t)row * HID + warp * HW + j * 8 + 2 * tq) =
-            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      float v = dsum[h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (tq == 0) red[wg * RES + i0 + 8 * h] = v;
     }
+    __syncthreads();
+    const int i = threadIdx.x;
+    if (blockIdx.y == 0 && i < RES && r0 + i < V) db[r0 + i] = red[i] + red[RES + i];
+  }
 }
 
 // dx[n, :] = bf16(g[n] * sum_s part[s, n, :]), the splits summed in order.
@@ -407,128 +639,13 @@ __global__ void xent_dx_reduce_kernel(const float* __restrict__ part, const floa
   }
 }
 
-// ------------------------------------------------------------------ K6
-
-// grid (cdiv(V, 32)): each block owns 32 vocabulary rows of dE and db.
-template <int HID>
-__global__ void __launch_bounds__(NTHREADS, 1)
-xent_de_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const float* __restrict__ bias,
-               const int* __restrict__ labels, const float* __restrict__ lse, const float* __restrict__ gr,
-               int N, int V, bf16* __restrict__ dE, float* __restrict__ db) {
-  constexpr int LDH = Geo<HID>::LDH, HW = Geo<HID>::HW, HT = Geo<HID>::HT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Es = reinterpret_cast<bf16*>(smem);  // [DE_VOCAB][LDH]
-  bf16* Xs = Es + DE_VOCAB * LDH;            // [DE_ROWS][LDH]
-  bf16* Dt = Xs + DE_ROWS * LDH;             // [DE_VOCAB][LDD] bf16(g * (p - onehot)), transposed
-  float* bias_s = reinterpret_cast<float*>(Dt + DE_VOCAB * LDD);  // [DE_VOCAB]
-  float* lse_s = bias_s + DE_VOCAB;          // [DE_ROWS]
-  float* g_s = lse_s + DE_ROWS;              // [DE_ROWS]
-  int* lab_s = reinterpret_cast<int*>(g_s + DE_ROWS);  // [DE_ROWS]
-  float* red = reinterpret_cast<float*>(lab_s + DE_ROWS);  // [4 m-tiles][DE_VOCAB]
-
-  const int v0 = blockIdx.x * DE_VOCAB;
-  load_rows<HID>(Es, E, v0, DE_VOCAB, V);
-  for (int c = threadIdx.x; c < DE_VOCAB; c += NTHREADS) bias_s[c] = v0 + c < V ? bias[v0 + c] : 0.f;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;  // logits: 4 x 2 warps over 64 x 32, 16 x 16 each
-
-  float acc[2][HT][4];  // dE rows 0..31, columns warp * HW ..
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < HT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-  float db_acc = 0.f;  // thread c < DE_VOCAB: db of column c
-
-  for (int row0 = 0; row0 < N; row0 += DE_ROWS) {
-    __syncthreads();  // Xs, Dt and red are consumed
-    load_rows<HID>(Xs, x, row0, DE_ROWS, N);
-    for (int r = threadIdx.x; r < DE_ROWS; r += NTHREADS) {
-      const bool ok = row0 + r < N;
-      lse_s[r] = ok ? lse[row0 + r] : INFINITY;  // padded rows: p = 0 and g = 0
-      g_s[r] = ok ? gr[row0 + r] : 0.f;
-      lab_s[r] = ok ? labels[row0 + r] : -1;
-    }
-    __syncthreads();
-
-    float c[1][2][4];
-    logits_tile<HID, 1, 2>(c, Xs, wm * 16, Es, wn * 16, g, tq);
-    float colsum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int lr = wm * 16 + g + 8 * (q >> 1), lc = wn * 16 + j * 8 + 2 * tq + (q & 1), col = v0 + lc;
-        float d = 0.f;
-        if (col < V)
-          d = (expf(c[0][j][q] + bias_s[lc] - lse_s[lr]) - (col == lab_s[lr] ? 1.f : 0.f)) * g_s[lr];
-        colsum[j][q & 1] += d;
-        Dt[lc * LDD + lr] = __float2bfloat16(d);
-      }
-    // db: column sums over the warp's 16 rows (the 8 g lanes), then over the 4 m-tile warps
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float v = colsum[j][e];
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (g == 0) red[wm * DE_VOCAB + wn * 16 + j * 8 + 2 * tq + e] = v;
-      }
-    __syncthreads();
-    if (threadIdx.x < DE_VOCAB) {
-      const int cl = threadIdx.x;
-      db_acc += red[cl] + red[DE_VOCAB + cl] + red[2 * DE_VOCAB + cl] + red[3 * DE_VOCAB + cl];
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < DE_ROWS / 16; ++kk) {
-      uint32_t a[2][4];
-      load_a<LDD>(a[0], Dt, 0, kk * 16, g, tq);
-      load_a<LDD>(a[1], Dt, 16, kk * 16, g, tq);
-#pragma unroll
-      for (int j = 0; j < HT; ++j) {
-        uint32_t b0, b1;
-        load_b_cols<LDH>(b0, b1, Xs, kk * 16, warp * HW + j * 8, g, tq);
-        mma16816(acc[0][j], a[0], b0, b1);
-        mma16816(acc[1][j], a[1], b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int v = v0 + i * 16 + g + 8 * h;
-      if (v >= V) continue;
-#pragma unroll
-      for (int j = 0; j < HT; ++j)
-        *reinterpret_cast<uint32_t*>(dE + (size_t)v * HID + warp * HW + j * 8 + 2 * tq) =
-            pack_bf16(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-    }
-  if (threadIdx.x < DE_VOCAB && v0 + threadIdx.x < V) db[v0 + threadIdx.x] = db_acc;
-}
-
 template <int HID>
 constexpr size_t fwd_smem() {
   constexpr int LDH = Geo<HID>::LDH, FWD_ROWS = Geo<HID>::FWD_ROWS;
   return (size_t)(FWD_ROWS + VB) * LDH * sizeof(bf16) + VB * sizeof(float) + FWD_ROWS * sizeof(int) +
          4 * FWD_ROWS * 5 * sizeof(float);
 }
-template <int HID>
-constexpr size_t dx_smem() {
-  return (size_t)(DX_ROWS + VB) * Geo<HID>::LDH * sizeof(bf16) + DX_ROWS * LDD * sizeof(bf16) +
-         VB * sizeof(float) + DX_ROWS * (sizeof(float) + sizeof(int));
-}
-template <int HID>
-constexpr size_t de_smem() {
-  return (size_t)(DE_VOCAB + DE_ROWS) * Geo<HID>::LDH * sizeof(bf16) + DE_VOCAB * LDD * sizeof(bf16) +
-         DE_VOCAB * sizeof(float) + DE_ROWS * (2 * sizeof(float) + sizeof(int)) + 4 * DE_VOCAB * sizeof(float);
-}
-static_assert(fwd_smem<1024>() <= 232448 && dx_smem<1024>() <= 232448 && de_smem<1024>() <= 232448,
-              "a K4-K6 block must fit the H100's 227 KB of shared memory");
+static_assert(fwd_smem<1024>() <= 232448, "a K4 block must fit the H100's 227 KB of shared memory");
 
 template <int HID>
 int launch_fwd(const void* x, const void* E, const void* bias, const void* labels, int N, int V, int S, int vbs,
@@ -547,15 +664,26 @@ int launch_fwd(const void* x, const void* E, const void* bias, const void* label
   return (int)cudaGetLastError();
 }
 
+// K5 (kernel 0) or K6 (kernel 1) at width hid, or nullptr.
+const void* bwd_kernel_of(int kernel, int hid) {
+  if (hid == 768) return kernel == 0 ? (const void*)xent_bwd_kernel<768, false>
+                                     : (kernel == 1 ? (const void*)xent_bwd_kernel<768, true> : nullptr);
+  if (hid == 1024) return kernel == 0 ? (const void*)xent_bwd_kernel<1024, false>
+                                      : (kernel == 1 ? (const void*)xent_bwd_kernel<1024, true> : nullptr);
+  return nullptr;
+}
+
 template <int HID>
 int launch_dx(const void* x, const void* E, const void* bias, const void* labels, const void* lse, const void* g,
               int N, int V, int S, int vbs, void* part, void* dx, cudaStream_t st) {
-  constexpr size_t smem = dx_smem<HID>();
-  cudaError_t err = cudaFuncSetAttribute(xent_dx_kernel<HID>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using G = Bwd<HID>;
+  cudaError_t err = cudaFuncSetAttribute(xent_bwd_kernel<HID, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)G::SMEM);
   if (err != cudaSuccess) return (int)err;
-  xent_dx_kernel<HID><<<dim3(cdiv(N, DX_ROWS), S), NTHREADS, smem, st>>>(
+  xent_bwd_kernel<HID, false><<<dim3(cdiv(N, RES), HID / G::COLS, S), NTHREADS, G::SMEM, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(E), static_cast<const float*>(bias),
-      static_cast<const int*>(labels), static_cast<const float*>(lse), N, V, vbs, static_cast<float*>(part));
+      static_cast<const int*>(labels), static_cast<const float*>(lse), nullptr, N, V, vbs,
+      static_cast<float*>(part), nullptr, nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int quads = cdiv(N * (HID / 4), 256);
@@ -567,25 +695,52 @@ int launch_dx(const void* x, const void* E, const void* bias, const void* labels
 template <int HID>
 int launch_de(const void* x, const void* E, const void* bias, const void* labels, const void* lse, const void* g,
               int N, int V, void* dE, void* db, cudaStream_t st) {
-  constexpr size_t smem = de_smem<HID>();
-  cudaError_t err = cudaFuncSetAttribute(xent_de_kernel<HID>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using G = Bwd<HID>;
+  cudaError_t err = cudaFuncSetAttribute(xent_bwd_kernel<HID, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)G::SMEM);
   if (err != cudaSuccess) return (int)err;
-  xent_de_kernel<HID><<<cdiv(V, DE_VOCAB), NTHREADS, smem, st>>>(
+  xent_bwd_kernel<HID, true><<<dim3(cdiv(V, RES), HID / G::COLS), NTHREADS, G::SMEM, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(E), static_cast<const float*>(bias),
-      static_cast<const int*>(labels), static_cast<const float*>(lse), static_cast<const float*>(g), N, V,
-      static_cast<bf16*>(dE), static_cast<float*>(db));
+      static_cast<const int*>(labels), static_cast<const float*>(lse), static_cast<const float*>(g), N, V, 0,
+      nullptr, static_cast<bf16*>(dE), static_cast<float*>(db));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The tiling the wrapper needs to check inputs and size the split partials,
-// at hidden width hid: 0 hid itself if the kernels take it (else -1), 1 K4's
-// rows per block, 2 K5's rows per block, 3 the vocabulary rows per tile.
+// The tiling the wrapper needs to check inputs and size the grids and the
+// split partials, at hidden width hid: 0 hid itself if the kernels take it
+// (else -1), 1 K4's rows per block, 2 K5/K6's resident rows per block, 3
+// K4's vocabulary rows per tile, 4 K5/K6's streamed rows per tile, 5 the
+// result columns a K5/K6 block owns.
 extern "C" int vb_xent_geometry(int which, int hid) {
   if (hid != 768 && hid != 1024) return -1;
-  const int g[4] = {hid, hid == 768 ? Geo<768>::FWD_ROWS : Geo<1024>::FWD_ROWS, DX_ROWS, VB};
-  return which >= 0 && which < 4 ? g[which] : -1;
+  const bool base = hid == 768;
+  const int g[6] = {hid, base ? Geo<768>::FWD_ROWS : Geo<1024>::FWD_ROWS, RES, VB,
+                    base ? Bwd<768>::T : Bwd<1024>::T, base ? Bwd<768>::COLS : Bwd<1024>::COLS};
+  return which >= 0 && which < 6 ? g[which] : -1;
+}
+
+// K5 (kernel 0) or K6 (kernel 1) at width hid: `what` 0 its registers a
+// thread, 1 its local (spill) bytes a thread, 2 its dynamic shared memory, 3
+// its resident blocks per SM. -1 on an error.
+extern "C" int vb_xent_info(int kernel, int what, int hid) {
+  const void* fn = bwd_kernel_of(kernel, hid);
+  if (fn == nullptr) return -1;
+  const size_t bytes = hid == 768 ? Bwd<768>::SMEM : Bwd<1024>::SMEM;
+  if (what == 0 || what == 1) {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess) return -1;
+    return what == 0 ? attr.numRegs : (int)attr.localSizeBytes;
+  }
+  if (what == 2) return (int)bytes;
+  if (what == 3) {
+    int n = 0;
+    if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) != cudaSuccess) return -1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, NTHREADS, bytes) != cudaSuccess) return -1;
+    return n;
+  }
+  return -1;
 }
 
 extern "C" int vb_xent_fwd(const void* x, const void* E, const void* bias, const void* labels, int N, int V,
@@ -595,6 +750,8 @@ extern "C" int vb_xent_fwd(const void* x, const void* E, const void* bias, const
   return f(x, E, bias, labels, N, V, S, vbs, pf, pi, nll, lse, am, static_cast<cudaStream_t>(stream));
 }
 
+// part [S][N][hid] fp32 is scratch the caller allocates: S vocabulary splits
+// of vbs streamed tiles each.
 extern "C" int vb_xent_dx(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
                           const void* g, int N, int V, int hid, int S, int vbs, void* part, void* dx, void* stream) {
   auto* f = hid == 1024 ? launch_dx<1024> : (hid == 768 ? launch_dx<768> : nullptr);

@@ -54,6 +54,7 @@ _SIGNATURES = {  # every C entry point of the sources: its argument types
     "vb_attn_exp_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_exp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_xent_geometry": [_I, _I],
+    "vb_xent_info": [_I, _I, _I],
     "vb_xent_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "vb_xent_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "vb_xent_de": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],

@@ -13,9 +13,21 @@ device memory, forward or backward.
 
 Kernels (``csrc/mlm_xent.cu``, design notes there):
 
-* K4, :func:`mlm_xent_fwd`, replaces ``_fwd_kernel`` (nll, lse, argmax);
-* K5, :func:`mlm_xent_dx`, replaces ``_dx_kernel``;
-* K6, :func:`mlm_xent_de`, replaces ``_de_kernel`` (d embedding, d bias).
+* K4, :func:`mlm_xent_fwd`, replaces ``_fwd_kernel`` (nll, lse, argmax):
+  ``mma.sync`` tiles, 64 rows x a vocabulary split a block.
+* K5, :func:`mlm_xent_dx`, replaces ``_dx_kernel``; K6,
+  :func:`mlm_xent_de`, replaces ``_de_kernel`` (d embedding, d bias). Both
+  are one Hopper kernel, bound by their two N x V x H products (288 GFLOP
+  at the main path's N = 3072, V = 30522, H = 768): a block of two
+  warpgroups keeps 64 rows (K5: of x; K6: of the embedding) in 128 B-swizzled
+  shared memory and streams the other matrix in tiles that ``cp.async``
+  brings a tile ahead; ``wgmma`` computes each tile's logits once (each
+  warpgroup over half of H, partial sums exchanged in shared memory), then,
+  from one shared bf16 dlog tile, each warpgroup's half of the result
+  columns. At width 1024 a block owns
+  512 of the columns (:func:`dx_plan`, :func:`de_plan`). K5 splits the
+  vocabulary so that about four blocks per SM run (:func:`splits`): its
+  blocks write fp32 partials of dx, which a second pass sums in split order.
 
 On CPU tensors the wrappers compute the plain versions
 (:func:`mlm_xent_fwd_reference`, :func:`mlm_xent_dx_reference`,
@@ -95,12 +107,34 @@ def _check_cuda_inputs(what, x, emb, bias, labels, *rows):
     return lib
 
 
-def _splits(n_row_blocks: int, n_tiles: int, device) -> Tuple[int, int]:
-    """(splits, tiles per split) of the vocabulary: about four blocks per SM
-    in all, no split empty."""
-    target = 4 * torch.cuda.get_device_properties(device).multi_processor_count
-    per = -(-n_tiles // max(1, min(n_tiles, -(-target // n_row_blocks))))
+def splits(n_blocks: int, n_tiles: int, sms: int) -> Tuple[int, int]:
+    """(splits, tiles per split) of n_tiles vocabulary tiles over n_blocks
+    blocks a split: about four blocks per SM in all, no split empty."""
+    target = 4 * sms
+    per = -(-n_tiles // max(1, min(n_tiles, -(-target // n_blocks))))
     return -(-n_tiles // per), per
+
+
+def dx_plan(N: int, V: int, H: int, rows: int, tile: int, cols: int, sms: int) -> dict:
+    """K5's launch at N rows, V vocabulary rows and width H, for the
+    kernel's tiling (``rows`` rows of x a block, ``tile`` vocabulary rows a
+    tile, ``cols`` columns a block: ``vb_xent_geometry`` 2, 4, 5) on a card
+    of ``sms`` SMs: the grid (row blocks, column parts, splits), the tiles a
+    split (``per``; split s takes tiles [s per, s per + per)) and the shape
+    of the fp32 partials the kernel writes, [splits, N, H]."""
+    row_blocks, parts, n_tiles = -(-N // rows), H // cols, -(-V // tile)
+    S, per = splits(row_blocks * parts, n_tiles, sms)
+    return dict(grid=(row_blocks, parts, S), per=per, tiles=n_tiles, part_shape=(S, N, H))
+
+
+def de_plan(V: int, H: int, rows: int, cols: int) -> dict:
+    """K6's grid (vocabulary blocks of ``rows``, column parts of ``cols``):
+    each block walks every row tile of x itself, so nothing is split."""
+    return dict(grid=(-(-V // rows), H // cols))
+
+
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _device(x, what):
@@ -117,7 +151,7 @@ def mlm_xent_fwd(x, emb, bias, labels) -> Tuple[torch.Tensor, torch.Tensor, torc
     lib = _check_cuda_inputs(what, x, emb, bias, labels)
     N, V = x.shape[0], emb.shape[0]
     H = x.shape[1]
-    S, per = _splits(-(-N // lib.vb_xent_geometry(1, H)), -(-V // lib.vb_xent_geometry(3, H)), x.device)
+    S, per = splits(-(-N // lib.vb_xent_geometry(1, H)), -(-V // lib.vb_xent_geometry(3, H)), sm_count(x.device))
     pf = torch.empty((4, S, N), dtype=torch.float32, device=x.device)
     pi = torch.empty((S, N), dtype=torch.int32, device=x.device)
     nll = torch.empty(N, dtype=torch.float32, device=x.device)
@@ -134,6 +168,18 @@ def mlm_xent_fwd(x, emb, bias, labels) -> Tuple[torch.Tensor, torch.Tensor, torc
 mlm_xent_fwd.launches = 0
 
 
+def launch_dx(lib, x, emb, bias, labels, lse, g, sms):
+    """Launch K5 on checked inputs: (the entry point's code, dx)."""
+    (N, H), V = x.shape, emb.shape[0]
+    plan = dx_plan(N, V, H, lib.vb_xent_geometry(2, H), lib.vb_xent_geometry(4, H), lib.vb_xent_geometry(5, H), sms)
+    part = torch.empty(plan["part_shape"], dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    code = lib.vb_xent_dx(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                          g.data_ptr(), N, V, H, plan["grid"][2], plan["per"], part.data_ptr(), dx.data_ptr(),
+                          _build.stream_ptr(x.device))
+    return code, dx
+
+
 def mlm_xent_dx(x, emb, bias, labels, lse, g) -> torch.Tensor:
     """K5 wrapper: dx [N, H] bf16. The kernel writes fp32 partials of dx per
     vocabulary split; its second pass sums them in order."""
@@ -141,12 +187,7 @@ def mlm_xent_dx(x, emb, bias, labels, lse, g) -> torch.Tensor:
     if not _device(x, what):
         return mlm_xent_dx_reference(x, emb, bias, labels, lse, g)
     lib = _check_cuda_inputs(what, x, emb, bias, labels, lse, g)
-    (N, H), V = x.shape, emb.shape[0]
-    S, per = _splits(-(-N // lib.vb_xent_geometry(2, H)), -(-V // lib.vb_xent_geometry(3, H)), x.device)
-    part = torch.empty((S, N, H), dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
-    code = lib.vb_xent_dx(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                          g.data_ptr(), N, V, H, S, per, part.data_ptr(), dx.data_ptr(), _build.stream_ptr(x.device))
+    code, dx = launch_dx(lib, x, emb, bias, labels, lse, g, sm_count(x.device))
     lib.check(code, what)
     mlm_xent_dx.launches += 1
     return dx
@@ -155,17 +196,23 @@ def mlm_xent_dx(x, emb, bias, labels, lse, g) -> torch.Tensor:
 mlm_xent_dx.launches = 0
 
 
+def launch_de(lib, x, emb, bias, labels, lse, g):
+    """Launch K6 on checked inputs: (the entry point's code, d embedding, d bias)."""
+    (N, H), V = x.shape, emb.shape[0]
+    de = torch.empty_like(emb)
+    db = torch.empty(V, dtype=torch.float32, device=x.device)
+    code = lib.vb_xent_de(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                          g.data_ptr(), N, V, H, de.data_ptr(), db.data_ptr(), _build.stream_ptr(x.device))
+    return code, de, db
+
+
 def mlm_xent_de(x, emb, bias, labels, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6 wrapper: (d embedding [V, H] bf16, d bias [V] fp32)."""
     what = "mlm xent dE (K6)"
     if not _device(x, what):
         return mlm_xent_de_reference(x, emb, bias, labels, lse, g)
     lib = _check_cuda_inputs(what, x, emb, bias, labels, lse, g)
-    (N, H), V = x.shape, emb.shape[0]
-    de = torch.empty_like(emb)
-    db = torch.empty(V, dtype=torch.float32, device=x.device)
-    code = lib.vb_xent_de(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                          g.data_ptr(), N, V, H, de.data_ptr(), db.data_ptr(), _build.stream_ptr(x.device))
+    code, de, db = launch_de(lib, x, emb, bias, labels, lse, g)
     lib.check(code, what)
     mlm_xent_de.launches += 1
     return de, db

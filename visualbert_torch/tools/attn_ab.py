@@ -63,11 +63,11 @@ def build(trees):
     return libs
 
 
-def sass_of(text):
+def sass_of(text, kernels=KERNELS):
     """{kernel: [instructions]} from ``cuobjdump -sass`` output: each
     function's instructions without their addresses and encodings, its
-    branch labels renumbered in order of use, keyed by the KERNELS role its
-    (mangled) name names."""
+    branch labels renumbered in order of use, keyed by the role in
+    ``kernels`` ({role: part of the mangled name}) its name names."""
     out, cur, labels = {}, None, {}
 
     def label(m):
@@ -76,7 +76,7 @@ def sass_of(text):
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            cur = next((k for k, pat in KERNELS.items() if pat in m.group(1)), None)
+            cur = next((k for k, pat in kernels.items() if pat in m.group(1)), None)
             labels = {}
             if cur is not None:
                 out[cur] = []

@@ -42,8 +42,8 @@ GROUPS = (
     ("K2 attention bwd", ("packed_dq_kernel", "packed_dkv_kernel")),
     ("K3 dropout mask", ("dropout_mask_kernel",)),
     ("K4 xent fwd", ("xent_fwd",)),
-    ("K5 xent dx", ("xent_dx",)),
-    ("K6 xent dE", ("xent_de_kernel",)),
+    ("K5 xent dx", ("xent_dx", ("xent_bwd_kernel", "false"))),  # xent_bwd_kernel<HID, false> and its reduce
+    ("K6 xent dE", (("xent_bwd_kernel", "true"),)),
     ("K7/K9 LayerNorm fwd", ("ln_fwd_kernel",)),
     ("K8/K10 LayerNorm bwd", ("ln_bwd",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "sm80_", "cublas")),
