@@ -26,8 +26,12 @@ non-zero without printing the final line:
    first design's times and the same two products through torch.matmul;
    K7-K10 (residual add + LayerNorm, without and with dropout,
    forward and backward) at the main path's N = 128 x 228 = 29,184 rows,
-   H=768, bf16, K9/K10 at rate 0.1, with K10's dropped positions equal to
-   the plain version's; all within the limits below. Kernel, plain and
+   H=768, bf16, K9/K10 at rate 0.1, with K9's saved keep bits and K10's
+   dropped positions equal to the plain version's, K10 timed on K9's bits;
+   K9/K10 printed with registers, local bytes (neither may spill), shared
+   bytes, blocks an SM, ring stages and achieved TB/s, beside their first
+   design's times and a device-to-device copy of K10's bytes; all within
+   the limits below. Kernel, plain and
    library times come from CUDA events; each kernel's bound is computed
    from these shapes; K11/K12 (heads-major attention) and K13/K14 (with
    saved probabilities) at K1's shapes, dropout 0 and 0.1, each of K13's
@@ -161,6 +165,10 @@ HM_FIRST_DESIGN_MS = {"heads_major_attention_fwd": (0.4740, 0.4814), "heads_majo
 # K5/K6's first design likewise (mma.sync, 32-row / 32-vocabulary-row
 # blocks, synchronous copies) at the main path's shapes, width 768
 XENT_FIRST_DESIGN_MS = {"mlm_xent_dx": (2.8493, 2.8914), "mlm_xent_de": (2.3475, 2.3708)}
+# K9/K10's first design likewise (K10 regenerating its mask with Philox, a
+# warp a row with no copies in flight, 128 registers) at the main path's
+# rows, bf16, rate 0.1
+LN_FIRST_DESIGN_MS = {"dropout_add_layer_norm_fwd": (0.0550, 0.0568), "dropout_add_layer_norm_bwd": (0.1382, 0.1403)}
 # K13's probabilities are bf16, rounded from fp32 values that agree with the
 # plain version's to a few fp32 ulps: each entry may round to the other
 # neighbour, so it must lie within one bf16 ulp of its own plain value
@@ -259,6 +267,19 @@ def cuda_time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us_a_call(torch, fn, iters):
+    """The host's time a call of fn, enqueueing only (the card is idle
+    first and nothing waits for it inside the loop), in microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def rel_err(a, b):
@@ -892,31 +913,34 @@ def xent_backward_design(torch, xe, x, emb, bias, lab, lse, g, card):
 def check_layer_norm(torch, card):
     """K7-K10 against their plain versions at the main path's rows: y and
     dx/dres by max |kernel - plain| / max |plain|, mu/rstd by absolute
-    error, dscale/dbias by relative error; K10's dropped positions must be
-    the plain version's exactly (the same Philox bits). The library
-    yardstick is F.layer_norm on the precomputed bf16 sum and its autograd
-    backward; K9/K10 have no single-call counterpart."""
-    import numpy as np
+    error, dscale/dbias by relative error; K9's keep bits must equal the
+    plain bits and K10's dropped positions the plain version's exactly (the
+    same Philox bits). K10 runs on K9's saved bits, as the model does. The
+    library yardstick is F.layer_norm on the precomputed bf16 sum and its
+    autograd backward; K9/K10 have no single-call counterpart. K9/K10 are
+    printed with their registers, local bytes (neither may spill), shared
+    bytes, blocks an SM, the backward's ring stages and achieved TB/s,
+    beside their first design's times and a device-to-device copy of K10's
+    byte count."""
     import torch.nn.functional as F
 
+    from visualbert_torch.ops import _build
     from visualbert_torch.ops import layer_norm as ln
-    from visualbert_torch.tools.main_path import B, TT, TV
+    from visualbert_torch.tools.main_path import layer_norm_inputs
 
-    N, H, rate, seed, eps = B * (TT + TV), 768, 0.1, 4321, 1e-12
+    rate, seed, eps = 0.1, 4321, 1e-12
     dev = torch.device("cuda")
-    rng = np.random.RandomState(2)
-    x, res, dy = (torch.tensor(rng.randn(N, H), dtype=torch.bfloat16, device=dev) for _ in range(3))
-    scale = torch.tensor(1.0 + 0.1 * rng.randn(H), dtype=torch.float32, device=dev)
-    bias = torch.tensor(0.1 * rng.randn(H), dtype=torch.float32, device=dev)
+    x, res, dy, scale, bias = layer_norm_inputs(dev)
+    N, H = x.shape
     drop = (rate, seed)
     rows = {}
     for fwd, bwd, args in (("add_layer_norm_fwd", "add_layer_norm_bwd", ()),
                            ("dropout_add_layer_norm_fwd", "dropout_add_layer_norm_bwd", drop)):
-        y, mu, rstd = getattr(ln, fwd)(x, res, scale, bias, *args)
-        y_r, mu_r, rstd_r = getattr(ln, fwd + "_reference")(x, res, scale, bias, *args)
-        # the backward of both sides gets the plain mu and rstd
-        grads = getattr(ln, bwd)(x, res, scale, mu_r, rstd_r, dy, *args)
-        grads_r = getattr(ln, bwd + "_reference")(x, res, scale, mu_r, rstd_r, dy, *args)
+        y, mu, rstd, *bits = getattr(ln, fwd)(x, res, scale, bias, *args)
+        y_r, mu_r, rstd_r, *bits_r = getattr(ln, fwd + "_reference")(x, res, scale, bias, *args)
+        # the backward of both sides gets the plain mu and rstd, K10 K9's bits
+        grads = getattr(ln, bwd)(x, res, scale, mu_r, rstd_r, dy, *((bits[0], rate) if args else ()))
+        grads_r = getattr(ln, bwd + "_reference")(x, res, scale, mu_r, rstd_r, dy, *((bits_r[0], rate) if args else ()))
         torch.cuda.synchronize()
         e_y, r_y = rel_err(y, y_r)
         e_st = max(float((mu - mu_r).abs().max()), float((rstd - rstd_r).abs().max()))
@@ -930,29 +954,41 @@ def check_layer_norm(torch, card):
         if not (r_y <= LN_Y_TOL and e_st <= LN_STAT_TOL and r_d <= LN_Y_TOL and r_w <= LN_DW_TOL):
             raise SystemExit(f"{fwd}/{bwd} disagree with their plain versions")
         if args:
+            same_bits = torch.equal(bits[0], bits_r[0])
             dropped, dropped_r = grads[0] == 0, grads_r[0] == 0
             same = torch.equal(dropped, dropped_r)
             share = float(dropped_r.float().mean())
+            log(f"{fwd}: keep bits [{N}, {H // 8}] uint8 equal to the plain version's packed mask: {same_bits}")
             log(f"{bwd}: dx zero at the plain version's dropped positions exactly: {same} "
                 f"(dropped share {share:.6f}, rate {rate})")
-            if not same:
-                raise SystemExit("K10's dropout mask differs from the plain version's")
+            if not (same and same_bits):
+                raise SystemExit("K9/K10's dropout mask differs from the plain version's")
         rows[fwd] = dict(max_abs_err=max(e_y, e_st),
                          **bound(nbytes(x, res, scale, bias, y, mu, rstd), LN_OPS[fwd] * N * H, FP32_FLOPS))
+        # K10's bound counts the JAX function's bytes; the keep bits are the design's own traffic
         rows[bwd] = dict(max_abs_err=max(e for e, _ in errs),
                          **bound(nbytes(x, res, scale, mu, rstd, dy, *grads), LN_OPS[bwd] * N * H, FP32_FLOPS))
         del y_r, grads_r
 
-    # times at the main path's rows; the backward timings reuse K9's mu, rstd
+    # times at the main path's rows; the backward timings reuse K9's mu,
+    # rstd and K10 K9's saved keep bits
+    _, mu, rstd, bits = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, *drop)
     fns = {
         "add_layer_norm_fwd": lambda f: f(x, res, scale, bias),
         "add_layer_norm_bwd": lambda f: f(x, res, scale, mu, rstd, dy),
         "dropout_add_layer_norm_fwd": lambda f: f(x, res, scale, bias, *drop),
-        "dropout_add_layer_norm_bwd": lambda f: f(x, res, scale, mu, rstd, dy, *drop),
+        "dropout_add_layer_norm_bwd": lambda f: f(x, res, scale, mu, rstd, dy, bits, rate),
     }
+    host_us = {}
     for name, call in fns.items():
         rows[name]["ms"] = cuda_time_ms(lambda: call(getattr(ln, name)), 50)
         rows[name]["plain_ms"] = cuda_time_ms(lambda: call(getattr(ln, name + "_reference")), 5)
+        host_us[name] = host_us_a_call(torch, lambda: call(getattr(ln, name)), 50)
+    # a wrapper's host time a call at or above its kernel's time makes the
+    # events above time the host
+    log("K7-K10 wrappers' host time a call (enqueue only): " + ", ".join(
+        f"{name} {us:.1f} us against {rows[name]['ms'] * 1e3:.1f} us timed" for name, us in host_us.items())
+        + f"  [{card}]")
     s = x + res
     w16, b16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
     rows["add_layer_norm_fwd"]["library_ms"] = cuda_time_ms(lambda: F.layer_norm(s, (H,), w16, b16, eps), 50)
@@ -961,8 +997,36 @@ def check_layer_norm(torch, card):
     rows["add_layer_norm_bwd"]["library_ms"] = cuda_time_ms(
         lambda: torch.autograd.grad(yl, leaves, dy, retain_graph=True), 50)
     rows["dropout_add_layer_norm_fwd"]["library_ms"] = rows["dropout_add_layer_norm_bwd"]["library_ms"] = None
+    del s, leaves, yl
     for name, r in rows.items():
         log(row_line(name, r, card))
+
+    # the design's facts, beside the first design's times and a copy of K10's bytes
+    lib = _build.library()
+    # y like x; dx, dres, dscale, dbias like x, res, scale, bias
+    moved = {"dropout_add_layer_norm_fwd": nbytes(x, res, scale, bias, x, mu, rstd, bits),
+             "dropout_add_layer_norm_bwd": nbytes(x, res, scale, mu, rstd, dy, bits, x, res, scale, bias)}
+    for kernel, name in ((9, "dropout_add_layer_norm_fwd"), (10, "dropout_add_layer_norm_bwd")):
+        regs, local, smem, per_sm = (lib.vb_ln_info(kernel, w, H, 0) for w in range(4))
+        stages = lib.vb_ln_geometry(2) if kernel == 10 else 0
+        ms, first = rows[name]["ms"], LN_FIRST_DESIGN_MS[name]
+        log(f"K{kernel} {name} [{N}, {H}] bf16: {regs} registers a thread, {local} bytes of local memory, {smem} "
+            f"bytes of shared memory, {per_sm} blocks an SM, {stages} ring stages a warp; {ms:.4f} ms, "
+            f"{moved[name] / ms / 1e9:.3f} TB/s achieved (its {moved[name] / 1e6:.1f} MB, keep bits included); "
+            f"first design (earlier runs) {first[0]:.4f}-{first[1]:.4f} ms: faster than its least reading: "
+            f"{ms < first[0]}  [{card}]")
+        if local:
+            raise SystemExit(f"K{kernel} spills to local memory")
+    # yardstick, not the function and not library_ms: a device-to-device
+    # copy that moves K10's bytes (half read, half written)
+    src = torch.empty(moved["dropout_add_layer_norm_bwd"] // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    ms_copy = cuda_time_ms(lambda: dst.copy_(src), 50)
+    ms10 = rows["dropout_add_layer_norm_bwd"]["ms"]
+    log(f"yardstick: a device-to-device copy of K10's {2 * src.numel() / 1e6:.1f} MB (not the function): "
+        f"{ms_copy:.4f} ms, {2 * src.numel() / ms_copy / 1e9:.3f} TB/s; K10 {ms10:.4f} ms, "
+        f"{ms_copy / ms10:.1%} of the copy's rate  [{card}]")
+    del src, dst
     return rows
 
 

@@ -175,3 +175,79 @@ def test_each_xent_backward_launch_passes_its_signatures_arguments(monkeypatch, 
         assert out[1].shape == (N, H) and out[1].dtype == torch.bfloat16
     else:
         assert out[1].shape == (V, H) and out[2].shape == (V,)
+
+
+class LnLib(RecordingLib):
+    """A recording library that also answers ``vb_ln_geometry`` (rows up to
+    1024 wide, 4 rows a block) and ``vb_ln_info``'s blocks an SM (PER_SM)."""
+
+    PER_SM = 3
+
+    def vb_ln_geometry(self, which):
+        return (1024, 4, 3)[which]
+
+    def vb_ln_info(self, kernel, what, H, dtype):
+        self.calls.append(("vb_ln_info", (kernel, what, H, dtype)))
+        return self.PER_SM if what == 3 else 0
+
+
+LN_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+@pytest.mark.parametrize("H", [8, 200, 768, 1024])
+@pytest.mark.parametrize("dtype", list(LN_DTYPES), ids=str)
+@pytest.mark.parametrize("kernel", [7, 8, 9, 10])
+def test_each_layer_norm_launch_passes_its_signatures_arguments(monkeypatch, kernel, dtype, H):
+    """K7-K10's launches hand their entry point one value per declared
+    argument (a null pointer only for K7/K8's bits and K8's dres), the shape
+    and dtype code, and for K8/K10 a grid of the blocks that fit on the card
+    at once (the occupancy query's answer for that kernel, width and dtype,
+    times a stubbed SM count), capped at one block a 4 rows, with a
+    partials buffer of that many rows; K9 returns its bits as [N, H / 8]
+    uint8."""
+    from visualbert_torch.ops import layer_norm as ln
+
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    SMS = 132
+    for N in (1, 37, 4099):
+        x = torch.zeros((N, H), dtype=dtype)
+        rows = torch.zeros(N)
+        scale = torch.zeros(H)
+        bits = torch.zeros((N, H // 8), dtype=torch.uint8)
+        lib = LnLib()
+        if kernel in (7, 9):
+            code, y, mu, rstd, out_bits = ln.launch_fwd(lib, x, x, scale, scale, 1e-12, kernel == 9, 0.1, 5)
+            name = "vb_ln_fwd"
+            assert y.shape == x.shape and y.dtype == dtype and mu.shape == rstd.shape == (N,)
+            assert (out_bits is None) == (kernel == 7)
+            if kernel == 9:
+                assert out_bits.shape == (N, H // 8) and out_bits.dtype == torch.uint8
+        else:
+            code, dx, dres, dscale, dbias = ln.launch_bwd(lib, x, x, scale, rows, rows, x,
+                                                          bits if kernel == 10 else None, 0.1, SMS)
+            name = "vb_ln_bwd"
+            assert dx.shape == x.shape and (dres is None) == (kernel == 8) and dscale.shape == dbias.shape == (H,)
+        assert code == 0
+        launches = [(n, a) for n, a in lib.calls if n == name]
+        ((_, values),) = launches
+        assert len(values) == len(_build._SIGNATURES[name])
+        given = dict(zip(DEFINED[name][3], values))
+        nullable = {"bits"} | ({"dres"} if kernel == 8 else set())
+        for pname, value, argtype in zip(DEFINED[name][3], values, _build._SIGNATURES[name]):
+            if pname in nullable and value is None:
+                continue
+            assert type(value) is (float if argtype is ctypes.c_float else int), (pname, value, argtype)
+        assert (given["N"], given["H"], given["dtype"], given["dropout"]) == (N, H, LN_DTYPES[dtype], kernel in (9, 10))
+        assert (given["bits"] is None) == (kernel in (7, 8))
+        if kernel in (8, 10):
+            assert ("vb_ln_info", (kernel, 3, H, LN_DTYPES[dtype])) in lib.calls
+            assert given["P"] == max(1, min(LnLib.PER_SM * SMS, -(-N // 4)))
+            assert given["P"] == ln.bwd_blocks(N, 4, LnLib.PER_SM, SMS)
+
+
+def test_layer_norm_grid_refuses_a_failed_occupancy_query():
+    from visualbert_torch.ops import layer_norm as ln
+
+    with pytest.raises(RuntimeError, match="occupancy"):
+        ln.bwd_blocks(100, 4, -1, 132)
+    assert ln.bwd_blocks(1, 4, 3, 132) == 1 and ln.bwd_blocks(29184, 4, 3, 132) == 396

@@ -17,7 +17,13 @@ and db (fp32) within 1e-3 of the largest plain value. The LayerNorm kernels
 (K7-K10) compute the plain version's fp32 values in another order and round
 once: y, dx and dres within 2e-2 of the largest plain value, mu and rstd
 within 1e-4, dscale and dbias within 1e-3; their dropout masks agree
-exactly. The heads-major (K11/K12) and save-probs (K13/K14) attention
+exactly: K9's saved keep bits equal the plain bits, and K10 on them drops
+exactly the plain positions, at every dtype, rates 0.1 and 0.5, widths
+whose bits rows are no multiple of 16 or 4 bytes and row counts that leave
+the backward's ring partly filled. K7-K10 repeat bit for bit and do not
+spill (``vb_ln_info``); ``tools/ln_steps.py``'s builds of K8/K10 that draw
+the mask again or copy rows synchronously give their outputs bit for bit.
+The heads-major (K11/K12) and save-probs (K13/K14) attention
 kernels are held as K1/K2 are, at small shapes and at the main path's T =
 228, NLVR2's T = 272 and their largest, 704; each of K13's bf16
 probabilities within one bf16 ulp of its plain value, and K14 fed K13's
@@ -814,13 +820,109 @@ def test_layer_norm_kernels_match_plain(cuda, N, H, rate):
     # K9/K10, at rate 0 the same function as K7/K8
     fwd = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, rate, 77)
     fwd_r = ln.dropout_add_layer_norm_fwd_reference(x, res, scale, bias, rate, 77)
-    _, mu, rstd = fwd_r
-    bwd = ln.dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy, rate, 77)
-    bwd_r = ln.dropout_add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy, rate, 77)
+    _, mu, rstd, bits = fwd_r
+    bwd = ln.dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy, fwd[3], rate)
+    bwd_r = ln.dropout_add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy, bits, rate)
     torch.cuda.synchronize()
-    assert_fwd_close(fwd, fwd_r)
+    assert_fwd_close(fwd[:3], fwd_r[:3])
+    assert torch.equal(fwd[3], bits)
     assert_bwd_close(bwd, bwd_r)
     assert torch.equal(bwd[0] == 0, bwd_r[0] == 0)  # the same dropped positions
+
+
+LN_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+@pytest.mark.parametrize("N", [29184, 17408, 1, 37, 1001, 4099])
+@pytest.mark.parametrize("H", [768, 1024, 256, 64, 200])
+@pytest.mark.parametrize("dtype", list(LN_DTYPES), ids=str)
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_layer_norm_kernels_match_plain(cuda, N, H, dtype, rate):
+    """K9's bits are the plain bits (K3's mask, packed) exactly; K10 on them
+    matches its plain version, at the main path's rows, NLVR2's, rows that
+    leave a warp's ring partly filled, widths whose bits rows are no
+    multiple of 16 bytes (64, 200) or 4 (200: 25 bytes a row, so rows start
+    at every byte offset of a word), and every dtype; dx is zero at every
+    dropped position, and elsewhere only where a value underflows."""
+    x, res, dy, scale, bias = ln_inputs(N, H, cuda, dtype=dtype, seed=5)
+    fwd = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, rate, 123)
+    fwd_r = ln.dropout_add_layer_norm_fwd_reference(x, res, scale, bias, rate, 123)
+    _, mu, rstd, bits = fwd_r
+    torch.cuda.synchronize()
+    assert fwd[3].shape == (N, H // 8) and fwd[3].dtype == torch.uint8 and torch.equal(fwd[3], bits)
+    assert_fwd_close(fwd[:3], fwd_r[:3])
+    bwd = ln.dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy, fwd[3], rate)
+    bwd_r = ln.dropout_add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy, bits, rate)
+    torch.cuda.synchronize()
+    assert_bwd_close(bwd, bwd_r)
+    dropped = ~ln.unpack_bits(bits)
+    assert not bool(bwd[0][dropped].any()) and not bool(bwd_r[0][dropped].any())
+    # a kept dx is zero on one side only where it underflows (fp16 below 2^-24)
+    differ = (bwd[0] == 0) != (bwd_r[0] == 0)
+    largest = torch.maximum(bwd[0].float().abs(), bwd_r[0].float().abs())[differ]
+    assert largest.numel() == 0 or float(largest.max()) < torch.finfo(dtype).tiny
+
+
+@pytest.mark.parametrize("N,H", [(29184, 768), (4099, 200), (37, 1024)])
+def test_layer_norm_kernels_repeat_bit_for_bit(cuda, N, H):
+    """No atomics, and the grid is fixed for a card and shape: K7-K10 give
+    the same bits twice."""
+    x, res, dy, scale, bias = ln_inputs(N, H, cuda, seed=6)
+    runs = []
+    for _ in range(2):
+        y7, mu, rstd = ln.add_layer_norm_fwd(x, res, scale, bias)
+        k8 = ln.add_layer_norm_bwd(x, res, scale, mu, rstd, dy)
+        k9 = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, 0.1, 3)
+        k10 = ln.dropout_add_layer_norm_bwd(x, res, scale, k9[1], k9[2], dy, k9[3], 0.1)
+        runs.append((y7, mu, rstd) + tuple(k8) + tuple(k9) + tuple(k10))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("H", [64, 200, 256, 768, 1024])
+@pytest.mark.parametrize("dtype", list(LN_DTYPES), ids=str)
+def test_layer_norm_kernels_do_not_spill(cuda, dtype, H):
+    """K7-K10 keep every value in registers (no local memory) and fit at
+    least one block an SM; the backward's shared memory is its ring's."""
+    from visualbert_torch.ops import _build
+
+    lib = _build.library()
+    for kernel in (7, 8, 9, 10):
+        regs, local, smem, per_sm = (lib.vb_ln_info(kernel, w, H, LN_DTYPES[dtype]) for w in range(4))
+        assert 0 < regs <= 255 and local == 0, (kernel, regs, local)
+        assert per_sm >= 1 and 0 <= smem <= 232448
+        assert (smem > 0) == (kernel in (8, 10))
+    assert lib.vb_ln_info(10, 0, 1032, 0) == -1 and lib.vb_ln_info(11, 0, 768, 0) == -1
+    assert lib.vb_ln_info(10, 4, 768, 0) == -1 and lib.vb_ln_info(10, 0, 768, 3) == -1
+
+
+@pytest.fixture(scope="module")
+def ln_step_builds():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from visualbert_torch.tools import ln_steps
+
+    return ln_steps.build_all()[0]
+
+
+@pytest.mark.parametrize("N,H", [(4099, 768), (37, 200), (1, 1024)])
+@pytest.mark.parametrize("name", ["regen mask", "sync loads"])
+def test_ln_step_builds_equal_the_kernels(cuda, ln_step_builds, name, N, H):
+    """tools/ln_steps.py's builds of csrc/layer_norm.cu that draw the mask
+    again from the seed or copy rows synchronously give K8's and K10's
+    outputs bit for bit."""
+    from visualbert_torch.ops import _build
+    from visualbert_torch.tools import ln_steps
+
+    sms = _build.sm_count(cuda)
+    x, res, dy, scale, bias = ln_inputs(N, H, cuda, seed=7)
+    _, mu, rstd, bits = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, ln_steps.RATE, ln_steps.SEED)
+    runs = []
+    for b in (ln_steps.Build("as built", _build.library()), ln_step_builds[name]):
+        runs.append(b.bwd(x, res, scale, mu, rstd, dy, bits, True, sms)
+                    + b.bwd(x, res, scale, mu, rstd, dy, None, False, sms))
+    torch.cuda.synchronize()
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
@@ -828,26 +930,29 @@ def test_layer_norm_kernels_take_fp16_and_fp32(cuda, dtype):
     x, res, dy, scale, bias = ln_inputs(300, 512, cuda, dtype=dtype, seed=1)
     fwd = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, 0.2, 5)
     fwd_r = ln.dropout_add_layer_norm_fwd_reference(x, res, scale, bias, 0.2, 5)
-    _, mu, rstd = fwd_r
-    bwd = ln.dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy, 0.2, 5)
-    bwd_r = ln.dropout_add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy, 0.2, 5)
+    _, mu, rstd, bits = fwd_r
+    bwd = ln.dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy, fwd[3], 0.2)
+    bwd_r = ln.dropout_add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy, bits, 0.2)
     torch.cuda.synchronize()
-    assert_fwd_close(fwd, fwd_r)
+    assert_fwd_close(fwd[:3], fwd_r[:3])
+    assert torch.equal(fwd[3], bits)
     assert_bwd_close(bwd, bwd_r)
 
 
 def test_layer_norm_dropout_mask_is_k3s(cuda):
     """K9 drops exactly K3's zeros: where the mask keeps, y is the plain
-    add + LayerNorm of x / (1 - rate) + res; the same seed repeats."""
+    add + LayerNorm of x / (1 - rate) + res; the same seed repeats; and the
+    bits it saves are K3's mask packed."""
     x, res, _, scale, bias = ln_inputs(64, 768, cuda, seed=2)
     keep = ln.keep_mask(x.shape, 0.1, 9, cuda)
     assert torch.equal(keep, dropout_mask((64, 768), 0.1, 9, torch.int8, cuda).bool())
-    y, _, _ = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, 0.1, 9)
-    y2, _, _ = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, 0.1, 9)
-    y3, _, _ = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, 0.1, 10)
+    y, _, _, bits = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, 0.1, 9)
+    y2, _, _, _ = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, 0.1, 9)
+    y3, _, _, _ = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, 0.1, 10)
     want = ln.reference_add_layer_norm(torch.where(keep, x.float() / 0.9, 0.0), res.float(), scale, bias)
     assert torch.equal(y, y2) and not torch.equal(y, y3)
     assert rel_err(y, want) < REL_TOL
+    assert torch.equal(bits, ln.pack_bits(keep)) and torch.equal(ln.unpack_bits(bits), keep)
 
 
 @pytest.mark.parametrize("dropout", [False, True])
@@ -864,9 +969,9 @@ def test_layer_norm_autograd_through_kernels(cuda, dropout):
         y = ln.fused_add_layer_norm(*leaves)
     y.backward(dy.view(4, 57, 768))
     assert [w.launches - c for w, c in zip(wrappers, counts)] == ([0, 0, 1, 1] if dropout else [1, 1, 0, 0])
-    _, mu, rstd = ln.dropout_add_layer_norm_fwd_reference(x, res, scale, bias, rate, 11)
-    assert rel_err(y.view(-1, 768), ln.dropout_add_layer_norm_fwd_reference(x, res, scale, bias, rate, 11)[0]) < REL_TOL
-    want = ln.dropout_add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy, rate, 11)
+    y_r, mu, rstd, bits = ln.dropout_add_layer_norm_fwd_reference(x, res, scale, bias, rate, 11)
+    assert rel_err(y.view(-1, 768), y_r) < REL_TOL
+    want = ln.dropout_add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy, bits, rate)
     assert_bwd_close([t.grad.reshape(w.shape) for t, w in zip(leaves, want)], want)
 
 

@@ -129,10 +129,10 @@ def test_dropout_forward_and_backward_share_the_mask(rng):
     x, res, dy = (torch.tensor(rng.randn(40, 32), dtype=torch.float32) for _ in range(3))
     scale, bias = torch.rand(32) + 0.5, torch.randn(32) * 0.1
     keep = ln.keep_mask(x.shape, rate, seed, "cpu")
-    y, mu, rstd = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, rate, seed)
+    y, mu, rstd, bits = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, rate, seed)
     xd = torch.where(keep, x / torch.tensor(1 - rate), 0.0)
     torch.testing.assert_close(y, ln.reference_add_layer_norm(xd, res, scale, bias), atol=FWD_ATOL, rtol=0)
-    dx, dres, _, _ = ln.dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy, rate, seed)
+    dx, dres, _, _ = ln.dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy, bits, rate)
     torch.testing.assert_close(dx, torch.where(keep, dres / torch.tensor(1 - rate), 0.0), atol=0, rtol=0)
 
 
@@ -148,8 +148,8 @@ def test_autograd_functions_equal_their_plain_backward(rng, dropout):
     y, grads = torch_vjp(fn, (x, res, scale, bias), dy)
     x2, r2, dy2 = x.reshape(-1, 48), res.reshape(-1, 48), dy.reshape(-1, 48)
     if dropout:
-        y_p, mu, rstd = ln.dropout_add_layer_norm_fwd_reference(x2, r2, scale, bias, rate, seed)
-        want = ln.dropout_add_layer_norm_bwd_reference(x2, r2, scale, mu, rstd, dy2, rate, seed)
+        y_p, mu, rstd, bits = ln.dropout_add_layer_norm_fwd_reference(x2, r2, scale, bias, rate, seed)
+        want = ln.dropout_add_layer_norm_bwd_reference(x2, r2, scale, mu, rstd, dy2, bits, rate)
     else:
         y_p, mu, rstd = ln.add_layer_norm_fwd_reference(x2, r2, scale, bias)
         dx, dscale, dbias = ln.add_layer_norm_bwd_reference(x2, r2, scale, mu, rstd, dy2)
@@ -168,6 +168,102 @@ def test_cpu_wrappers_run_the_plain_versions_and_count_nothing(rng):
     y, mu, rstd = ln.add_layer_norm_fwd(x, res, scale, bias)
     assert torch.equal(y, ln.add_layer_norm_fwd_reference(x, res, scale, bias)[0])
     ln.add_layer_norm_bwd(x, res, scale, mu, rstd, dy)
-    ln.dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy, 0.1, 3)
-    ln.dropout_add_layer_norm_fwd(x, res, scale, bias, 0.1, 3)
+    _, _, _, bits = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, 0.1, 3)
+    ln.dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy, bits, 0.1)
     assert [w.launches for w in wrappers] == before
+
+
+# ---- K9's saved keep bits and K10 on them ----
+
+BITS_SHAPES = [(24, 64), (13, 32), (37, 64), (5, 200), (3, 8), (1, 768), (1001, 256)]
+
+
+def regenerating_bwd_reference(x, res, scale, mu, rstd, dy, rate, seed):
+    """K10's plain version as it was before K9 saved its bits: the mask
+    drawn again from the seed."""
+    keep = ln.keep_mask(x.shape, rate, seed, x.device)
+    kp = torch.tensor(1.0 - rate, dtype=torch.float32)
+    xd = torch.where(keep, x.float() / kp, 0.0)
+    ds, dscale, dbias = ln._bwd_plain(xd + res.float(), scale, mu, rstd, dy)
+    dx = torch.where(keep, ds / kp, 0.0)
+    return dx.to(x.dtype), ds.to(res.dtype), dscale, dbias
+
+
+@pytest.mark.parametrize("shape", BITS_SHAPES, ids=str)
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_plain_k9_bits_are_the_keep_mask_packed(rng, shape, rate):
+    """Byte j of a row holds elements 8 j .. 8 j + 7, element 8 j + k in bit
+    k (numpy's little-endian packbits), for any H a multiple of 8."""
+    x, res = (torch.tensor(rng.randn(*shape), dtype=torch.float32) for _ in range(2))
+    scale, bias = torch.ones(shape[1]), torch.zeros(shape[1])
+    *_, bits = ln.dropout_add_layer_norm_fwd_reference(x, res, scale, bias, rate, 21)
+    keep = ln.keep_mask(shape, rate, 21, "cpu")
+    assert bits.dtype == torch.uint8 and bits.shape == (shape[0], shape[1] // 8)
+    assert np.array_equal(bits.numpy(), np.packbits(keep.numpy(), axis=-1, bitorder="little"))
+    assert torch.equal(bits, ln.pack_bits(keep)) and torch.equal(ln.unpack_bits(bits), keep)
+
+
+@pytest.mark.parametrize("shape", BITS_SHAPES, ids=str)
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=str)
+def test_plain_k10_on_the_saved_bits_equals_the_regenerating_one(rng, shape, rate, dtype):
+    """Fed K9's bits, the plain K10 gives the regenerating version's dx,
+    dres, dscale and dbias bit for bit."""
+    x, res, dy = (torch.tensor(rng.randn(*shape), dtype=dtype) for _ in range(3))
+    scale = torch.tensor(rng.rand(shape[1]) + 0.5, dtype=torch.float32)
+    bias = torch.tensor(rng.randn(shape[1]) * 0.1, dtype=torch.float32)
+    _, mu, rstd, bits = ln.dropout_add_layer_norm_fwd_reference(x, res, scale, bias, rate, 8)
+    got = ln.dropout_add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy, bits, rate)
+    want = regenerating_bwd_reference(x, res, scale, mu, rstd, dy, rate, 8)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_dropout_autograd_saves_the_bits_and_backs_through_them(rng):
+    """_DropoutAddLayerNorm saves K9's bits (not the seed) and its backward
+    is the plain backward on them."""
+    rate, seed = 0.2, 31
+    x, res, dy = (torch.tensor(rng.randn(4, 5, 40), dtype=torch.float32) for _ in range(3))
+    scale, bias = torch.rand(40) + 0.5, torch.randn(40) * 0.1
+    leaves = [t.clone().requires_grad_(True) for t in (x, res, scale, bias)]
+    y = ln.fused_dropout_add_layer_norm(*leaves, seed, rate)
+    node = y.grad_fn.next_functions[0][0]
+    saved = node.saved_tensors
+    keep = ln.keep_mask((20, 40), rate, seed, "cpu")
+    assert len(saved) == 6 and saved[-1].dtype == torch.uint8 and torch.equal(saved[-1], ln.pack_bits(keep))
+    y.backward(dy)
+    x2, r2, dy2 = x.reshape(20, 40), res.reshape(20, 40), dy.reshape(20, 40)
+    _, mu, rstd, bits = ln.dropout_add_layer_norm_fwd_reference(x2, r2, scale, bias, rate, seed)
+    want = ln.dropout_add_layer_norm_bwd_reference(x2, r2, scale, mu, rstd, dy2, bits, rate)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad.reshape(w.shape), w)
+    assert torch.equal(leaves[0].grad.reshape(20, 40) == 0, ~keep)
+
+
+def _round_f32(value):
+    """The float32 nearest to a Fraction (ties to even)."""
+    from fractions import Fraction
+
+    a = np.float32(float(value))
+    cands = (np.nextafter(a, np.float32(-np.inf)), a, np.nextafter(a, np.float32(np.inf)))
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - value), int(np.float32(c).view(np.uint32)) & 1))
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5, 0.25, 0.05, 0.9])
+def test_k10s_division_is_the_ieee_quotient(rate):
+    """csrc/layer_norm.cu::div_by divides by 1 - rate as q = x * r, then
+    q + fma(-q, kp, x) * r with r = 1 / kp rounded (Markstein's
+    correction): the correctly rounded quotient, as x / (1 - rate) in fp32,
+    here emulated exactly for normal-range x."""
+    from fractions import Fraction
+
+    kp = float(ln._keep_prob(rate))
+    r = _round_f32(1 / Fraction(kp))
+    rng = np.random.RandomState(int(rate * 100))
+    xs = np.concatenate([rng.randn(300), rng.randn(100) * 1e-20, rng.randn(100) * 1e20]).astype(np.float32)
+    for x in xs:
+        fx, fk, fr = Fraction(float(x)), Fraction(kp), Fraction(float(r))
+        q = _round_f32(fx * fr)
+        rem = _round_f32(-Fraction(float(q)) * fk + fx)
+        got = _round_f32(Fraction(float(rem)) * fr + Fraction(float(q)))
+        assert got == _round_f32(fx / fk) == np.float32(x) / np.float32(kp), x

@@ -1,8 +1,8 @@
 // K7, K8, K9, K10: the residual add + LayerNorm epilogue of every
 // transformer sublayer, with and without dropout. Replace
-// visualbert_tpu/ops/layer_norm.py::_fwd_kernel (K7) and ::_bwd_kernel (K8)
-// of fused_add_layer_norm, ::_dfwd_kernel (K9) and ::_dbwd_kernel (K10) of
-// fused_dropout_add_layer_norm.
+// visualbert_tpu/ops/layer_norm.py::_fwd_kernel (K7, :28) and ::_bwd_kernel
+// (K8, :40) of fused_add_layer_norm, ::_dfwd_kernel (K9, :171) and
+// ::_dbwd_kernel (K10, :189) of fused_dropout_add_layer_norm.
 //
 // On rows of x, res [N, H] (bf16, fp16 or fp32, one dtype) with fp32 scale
 // and bias [H]:
@@ -16,44 +16,93 @@
 //   dscale = sum_rows dy * xhat, dbias = sum_rows dy   (fp32)
 // The keep bit of element e of the flattened [N, H] tensor is K3's
 // (csrc/dropout.cu): word e % 4 of philox(ctr = (e / 4 low, e / 4 high, 0,
-// 1), key = (seed, 0)) >= threshold, so the plain version (ops/layer_norm.py)
-// draws the same mask from ops/philox.py.
+// 1), key = (seed, 0)) >= threshold. K9 draws it and also writes it out,
+// one bit an element: bits [N, H / 8] uint8, bit k of byte j of row n for
+// element (n, 8 j + k). K10 reads those bits and draws nothing; the JAX
+// kernel regenerates its mask from the seed, and the function is the same
+// because the bits are. The plain versions (ops/layer_norm.py) draw the same
+// mask from ops/philox.py and pack it the same way.
 //
-// Bound on the H100: device memory. Each element costs about ten fp32
-// operations against 6 (K7, K9), 8 (K8) or 10 (K10) bytes moved at bf16; the
-// card does 67 TFLOP/s of fp32 outside the tensor cores against 3.35 TB/s, so
-// the bytes bound every kernel by far. At the main path's N = 128 * 228 =
-// 29,184 rows and H = 768: K7 and K9 move 134.7 MB (40 us), K8 179.5 MB (54
-// us), K10 224 MB (67 us). K9/K10's Philox (two calls per 8 elements) is what
-// K3 spends on the same count.
+// Bound on the H100: device memory. Each element costs 10-20 fp32
+// operations against 6 (K7, K9), 8 (K8) or 10 (K10) bytes moved at bf16;
+// the card does 67 TFLOP/s of fp32 outside the tensor cores against 3.35
+// TB/s, so the bytes bound every kernel by far. At the main path's N = 128 *
+// 228 = 29,184 rows and H = 768 the JAX functions move: K7 and K9 134.7 MB
+// (40 us), K8 179.5 MB (54 us), K10 224 MB (67 us). The keep bits add 2.8 MB
+// to K9's writes and K10's reads (2 %).
 //
-// Design, right and simple first: one warp per row, each lane holding its
-// 8-element chunks (three 16-byte loads a tensor at H = 768 in bf16) in
-// registers; the row sums are warp shuffles, so the forward needs no shared
-// memory. The backward runs a grid of BWD_BLOCKS_PER_SM blocks per SM that
-// loops over rows; each warp keeps its dscale/dbias partials in registers,
-// the block adds its warps' partials in warp order in shared memory and
-// writes one fp32 partial row, and a second kernel sums the partial rows in a
-// fixed order: deterministic, no atomics (as K2's qkv-bias gradient). Its
-// launch bounds cap it at 128 registers so that 16 warps an SM are resident
-// (a few spilled words): at 147 registers only 8 fit, and K10, whose Philox
-// work needs warps in flight to hide, took 1.7x as long on an H100. Small
-// blocks (4 warps) keep a block of the previous launch that still runs on an
-// SM from taking half of it.
+// Forward (K7, K9): one warp per row, each lane holding its 8-element
+// chunks (three 16-byte loads a tensor at H = 768 in bf16) in registers; the
+// row sums are warp shuffles, so it needs no shared memory. K9 adds one byte
+// store a chunk (its 8 keep bits) after its other stores: a byte store may
+// alias the loads, and inside the load loop it held each chunk's loads back
+// behind the previous chunk's Philox calls. K7's code has no such store.
+//
+// Backward (K8, K10), the Hopper design. The first design (one warp a row
+// walking its rows with plain loads, two Philox calls a lane chunk drawing
+// K10's mask again, 128 registers with a few spilled) read 0.14 ms for K10
+// at the main path's shape, twice its bound: no bytes were in flight while a
+// warp computed, and the Philox work needed warps in flight to hide it.
+// - No Philox. K10 reads K9's bits (one byte a lane chunk) where the first
+//   design made 5.6 M philox4x32_10 calls a launch. Built with
+//   VB_LN_REGEN_MASK (for tools/ln_steps.py only) K10 draws them again from
+//   the seed: the same bits, so the same results.
+// - A ring of row copies. A block's grid-stride loop gives each warp its
+//   own rows; each warp owns STAGES ring stages in shared memory, each one
+//   row's x, res and dy, its mu and rstd and its keep bits. While a warp
+//   computes row i, the copies of rows i + 1 .. i + STAGES - 1 are in flight
+//   (cp.async: 16 bytes a lane for the rows, 4 for mu, rstd and the bits'
+//   words; one commit group a row). A bits row is H / 8 bytes, a 16-byte
+//   multiple only when H % 128 == 0, and starts at any byte offset; the warp
+//   copies the 4-byte words that cover it (the last one cut at the tensor's
+//   end) and reads each lane's byte at its offset. Each lane copies and
+//   reads its own chunks of x, res and dy; the bits, mu and rstd cross lanes,
+//   so a __syncwarp follows each wait and precedes each refill. By Little's
+//   law the card needs 3.35 TB/s x ~1 us over 132 SMs, ~25 KB in flight an
+//   SM; at H = 768 bf16 a stage holds 4.7 KB and each of an SM's 12 warps
+//   keeps two ahead (~113 KB). Built with VB_LN_SYNC_LOADS (for
+//   tools/ln_steps.py only) every copy is a plain load and store: the same
+//   results, nothing in flight across rows. VB_LN_STAGES sets the depth.
+// - Arithmetic. The division by 1 - rate is a product by its reciprocal
+//   and one fma correction (div_by), which rounds as the division does, in
+//   place of a reciprocal, its refinement and a range check with a branch
+//   for every element.
+// - Registers, no cap. A lane keeps its dscale/dbias partials (2 x 8 x NC
+//   fp32: 48 at H = 768) and the row's xhat (8 x NC: 24) across the row's
+//   two passes; g = dy * scale is recomputed in the second pass from the
+//   staged dy and the block's copy of scale in shared memory. At H = 768 in
+//   bf16 that is 128 registers (K8 119), no spill; with 59.9 KB of shared
+//   memory a block, 3 blocks (12 warps) fit an SM. A 2- or 4-stage ring (4
+//   or 2 blocks an SM) reads the same (tools/ln_steps.py).
+// - Determinism, no atomics: each warp keeps its partials in registers, the
+//   block adds its warps' partials in warp order in shared memory (over the
+//   drained ring) and writes one fp32 partial row; a second kernel sums the
+//   partial rows in a fixed order. The grid is the blocks that fit on the
+//   card at once (vb_ln_info(kernel, 3, ...) x the SMs), so the partial-row
+//   count is fixed for a given card and shape and repeats are bit for bit.
+//   Small blocks (4 warps) keep a block of the previous launch that still
+//   runs on an SM from taking a large share of it.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "philox.cuh"
+
+#ifndef VB_LN_STAGES
+#define VB_LN_STAGES 3
+#endif
 
 namespace {
 
 enum LnDtype { kBf16 = 0, kFp16 = 1, kFp32 = 2 };
-constexpr int WARPS = 4;          // rows in flight per block
-constexpr int BWD_BLOCKS_PER_SM = 4;  // the backward's grid and launch bounds
+constexpr int WARPS = 4;          // rows in flight per block (forward); warps per block (both)
+constexpr int STAGES = VB_LN_STAGES;  // the backward's ring stages a warp
 constexpr int MAX_CHUNKS = 4;     // 8-element chunks per lane: H <= 32 * 8 * 4 = 1024
 constexpr int REDUCE_ROWS = 16;    // thread rows of the partial-row sum
+static_assert(STAGES >= 2, "the ring needs a stage to compute and one in flight");
 
 struct LnArgs {
   const void* x;
@@ -72,7 +121,22 @@ struct LnArgs {
   uint32_t seed;
   uint32_t threshold;
   float keep_prob;     // 1 - rate
+  uint8_t* bits;       // [N, H / 8] keep bits: K9 writes them, K10 reads them
 };
+
+// Bytes of one backward ring stage: x, res, dy rows in the input dtype, mu
+// and rstd (16 bytes), and with dropout the 4-byte words that cover a keep-bit
+// row (H / 8 bytes at a byte offset of up to 3), rounded up to 16.
+__host__ __device__ constexpr int stage_bytes(int H, int elt, bool dropout) {
+  return 3 * H * elt + 16 + (dropout ? (H / 8 + 8 + 15) / 16 * 16 : 0);
+}
+
+// Dynamic shared memory of a backward block: scale [H] fp32 and the warps'
+// rings (at least 4 x 2 x 6 H bytes, so the drained ring holds the block's
+// [2, H] fp32 partials).
+__host__ __device__ constexpr int bwd_smem_bytes(int H, int elt, bool dropout) {
+  return 4 * H + WARPS * STAGES * stage_bytes(H, elt, dropout);
+}
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
@@ -168,12 +232,13 @@ __global__ void __launch_bounds__(WARPS * 32) ln_fwd_kernel(const LnArgs a) {
   if (row >= a.N) return;  // the whole warp
   const int chunks = a.H >> 3;
   float s[NC][8];
+  unsigned kb[NC];
   float sum = 0.f;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const int ch = lane + 32 * c;
     if (ch < chunks) {
-      residual8<T, DROPOUT>(a, row * a.H + ch * 8, s[c]);
+      kb[c] = residual8<T, DROPOUT>(a, row * a.H + ch * 8, s[c]);
 #pragma unroll
       for (int k = 0; k < 8; ++k) sum += s[c][k];
     }
@@ -203,45 +268,182 @@ __global__ void __launch_bounds__(WARPS * 32) ln_fwd_kernel(const LnArgs a) {
       store8(static_cast<T*>(a.y) + row * a.H + ch * 8, out);
     }
   }
+  if (DROPOUT) {
+    // K9's keep bits, for K10: stored last, since a byte store may alias
+    // the loads above and would hold back those that follow it
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int ch = lane + 32 * c;
+      if (ch < chunks) a.bits[row * chunks + ch] = (uint8_t)kb[c];
+    }
+  }
   if (lane == 0) {
     a.mu[row] = mu;
     a.rstd[row] = rstd;
   }
 }
 
+// x / kp rounded as an IEEE division, given rcp = 1 / kp rounded: the
+// product and Markstein's correction (the remainder is exact in an fma; for
+// a correctly rounded rcp the result is the correctly rounded quotient
+// outside the subnormal and overflow ranges). Three instructions where a
+// division is a reciprocal, its refinement and a range check with a branch.
+__device__ __forceinline__ float div_by(float x, float kp, float rcp) {
+  const float q = __fmul_rn(x, rcp);
+  return __fmaf_rn(__fmaf_rn(-q, kp, x), rcp, q);
+}
+
+// ------------------------------------------------ the backward's row copies
+
+// cp16 copies 16 bytes, cp4 the first n (1-4) of 4 bytes and zeros the rest;
+// each lane commits one group a row. Built with VB_LN_SYNC_LOADS a copy is a
+// plain load and store that has landed when it returns, and commit and wait
+// do nothing.
+#ifdef VB_LN_SYNC_LOADS
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  *static_cast<uint4*>(dst) = *static_cast<const uint4*>(src);
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, int n) {
+  uint8_t* d = static_cast<uint8_t*>(dst);
+  const uint8_t* s = static_cast<const uint8_t*>(src);
+  if (n == 4) {
+    *reinterpret_cast<uint32_t*>(d) = *reinterpret_cast<const uint32_t*>(s);
+    return;
+  }
+  for (int b = 0; b < 4; ++b) d[b] = b < n ? s[b] : 0;
+}
+__device__ __forceinline__ void cp_commit() {}
+template <int N>
+__device__ __forceinline__ void cp_wait() {}
+#else
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(__cvta_generic_to_global(src)), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+#endif
+
+// Where a backward ring stage keeps each piece of its row.
+template <typename T>
+struct Stage {
+  uint8_t* base;
+  int H;
+  __device__ __forceinline__ T* x() const { return reinterpret_cast<T*>(base); }
+  __device__ __forceinline__ T* res() const { return x() + H; }
+  __device__ __forceinline__ T* dy() const { return x() + 2 * H; }
+  __device__ __forceinline__ float* stats() const { return reinterpret_cast<float*>(dy() + H); }  // mu, rstd
+  __device__ __forceinline__ uint8_t* bits() const { return reinterpret_cast<uint8_t*>(stats() + 4); }
+};
+
+// Issue the copies of `row` (when it is a row) into stage `st`, and commit
+// them as one group either way, so every lane counts one group a row.
 template <typename T, int NC, bool DROPOUT>
-__global__ void __launch_bounds__(WARPS * 32, BWD_BLOCKS_PER_SM) ln_bwd_kernel(const LnArgs a) {
-  extern __shared__ float red[];  // [2, H]: the block's dscale, dbias
+__device__ __forceinline__ void issue_row(const LnArgs& a, long long row, const Stage<T>& st, int lane) {
+  if (row < a.N) {
+    const int chunks = a.H >> 3;
+    const T* src[3] = {static_cast<const T*>(a.x), static_cast<const T*>(a.res), static_cast<const T*>(a.dy)};
+    T* dst[3] = {st.x(), st.res(), st.dy()};
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int ch = lane + 32 * c;
+      if (ch < chunks) {
+#pragma unroll
+        for (int t = 0; t < 3; ++t)
+#pragma unroll
+          for (int p = 0; p < (int)sizeof(T) / 2; ++p)  // 8 elements: 16 or 32 bytes
+            cp16(dst[t] + ch * 8 + p * (16 / sizeof(T)), src[t] + row * a.H + ch * 8 + p * (16 / sizeof(T)));
+      }
+    }
+    if (lane < 2) cp4(st.stats() + lane, (lane ? a.rstd : a.mu) + row, 4);
+#ifndef VB_LN_REGEN_MASK
+    if (DROPOUT) {
+      // the words covering bytes [row * chunks, (row + 1) * chunks) of the bits
+      const long long first = row * chunks, total = (long long)a.N * chunks;
+      const long long w0 = first >> 2;
+      const int words = (int)(((first + chunks + 3) >> 2) - w0);
+      for (int w = lane; w < words; w += 32) {
+        const long long at = (w0 + w) * 4;
+        cp4(st.bits() + 4 * w, a.bits + at, (int)(total - at < 4 ? total - at : 4));
+      }
+    }
+#endif
+  }
+  cp_commit();
+}
+
+// K8 (DROPOUT false) and K10: dx (and dres), and the block's partial row of
+// dscale, dbias. Dynamic shared memory: bwd_smem_bytes(H, sizeof(T), DROPOUT).
+template <typename T, int NC, bool DROPOUT>
+__global__ void __launch_bounds__(WARPS * 32) ln_bwd_kernel(const LnArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int chunks = a.H >> 3;
+  const int sb = stage_bytes(a.H, sizeof(T), DROPOUT);
+  float* sc_s = reinterpret_cast<float*>(smem);     // [H] scale
+  uint8_t* ring = smem + 4 * a.H + warp * STAGES * sb;
+  const long long stride = (long long)gridDim.x * WARPS;
+  const long long first = (long long)blockIdx.x * WARPS + warp;
+  const float rcp = 1.f / a.keep_prob;
+
+  // the ring's first STAGES - 1 rows go out before anything waits
+#pragma unroll
+  for (int k = 0; k < STAGES - 1; ++k) issue_row<T, NC, DROPOUT>(a, first + k * stride, Stage<T>{ring + k * sb, a.H}, lane);
+  for (int i = threadIdx.x; i < a.H; i += blockDim.x) sc_s[i] = a.scale[i];
+  __syncthreads();
+
   float gs[NC][8], gb[NC][8];
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
     for (int k = 0; k < 8; ++k) gs[c][k] = gb[c][k] = 0.f;
 
-  for (long long row = (long long)blockIdx.x * WARPS + warp; row < a.N; row += (long long)gridDim.x * WARPS) {
-    const float m = a.mu[row], r = a.rstd[row];
-    float xh[NC][8], g[NC][8];
+  int s = 0;  // the stage of `row`
+  for (long long row = first; row < a.N; row += stride) {
+    // refill the stage the previous row left (every lane has passed its
+    // closing __syncwarp), then wait for this row's group
+    const int fill = s == 0 ? STAGES - 1 : s - 1;
+    issue_row<T, NC, DROPOUT>(a, row + (STAGES - 1) * stride, Stage<T>{ring + fill * sb, a.H}, lane);
+    cp_wait<STAGES - 1>();
+    __syncwarp();
+    const Stage<T> st{ring + s * sb, a.H};
+    const float m = st.stats()[0], r = st.stats()[1];
+    float xh[NC][8];
     unsigned kb[NC];
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int ch = lane + 32 * c;
       if (ch < chunks) {
-        const long long off = row * a.H + ch * 8;
-        float s[8], dy[8], sc[8];
-        kb[c] = residual8<T, DROPOUT>(a, off, s);
-        load8(static_cast<const T*>(a.dy) + off, dy);
-        load8(a.scale + ch * 8, sc);
+        float xv[8], rv[8], dv[8], sc[8];
+        load8(st.x() + ch * 8, xv);
+        load8(st.res() + ch * 8, rv);
+        load8(st.dy() + ch * 8, dv);
+        load8(sc_s + ch * 8, sc);
+#ifdef VB_LN_REGEN_MASK
+        kb[c] = DROPOUT ? keep_bits(row * a.H + ch * 8, a.seed, a.threshold) : 0xffu;
+#else
+        // the row's bits start (row * chunks) % 4 bytes into its first word
+        kb[c] = DROPOUT ? (unsigned)st.bits()[(int)((row * chunks) & 3) + ch] : 0xffu;
+#endif
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
-          xh[c][k] = (s[k] - m) * r;
-          g[c][k] = dy[k] * sc[k];
-          s1 += g[c][k];
-          s2 += g[c][k] * xh[c][k];
-          gs[c][k] += dy[k] * xh[c][k];
-          gb[c][k] += dy[k];
+          const float v = DROPOUT ? ((kb[c] >> k & 1u) ? div_by(xv[k], a.keep_prob, rcp) : 0.f) : xv[k];
+          xh[c][k] = (v + rv[k] - m) * r;
+          const float g = __fmul_rn(dv[k], sc[k]);  // rounded, as the plain version's g
+          s1 += g;
+          s2 += g * xh[c][k];
+          gs[c][k] += dv[k] * xh[c][k];
+          gb[c][k] += dv[k];
         }
       }
     }
@@ -251,19 +453,27 @@ __global__ void __launch_bounds__(WARPS * 32, BWD_BLOCKS_PER_SM) ln_bwd_kernel(c
       const int ch = lane + 32 * c;
       if (ch < chunks) {
         const long long off = row * a.H + ch * 8;
-        float ds[8], dx[8];
+        float dv[8], sc[8], ds[8], dx[8];
+        load8(st.dy() + ch * 8, dv);
+        load8(sc_s + ch * 8, sc);
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
-          ds[k] = r * (g[c][k] - m1 - xh[c][k] * m2);
-          dx[k] = DROPOUT ? ((kb[c] >> k & 1u) ? ds[k] / a.keep_prob : 0.f) : ds[k];
+          ds[k] = r * (__fmul_rn(dv[k], sc[k]) - m1 - xh[c][k] * m2);
+          dx[k] = DROPOUT ? ((kb[c] >> k & 1u) ? div_by(ds[k], a.keep_prob, rcp) : 0.f) : ds[k];
         }
         store8(static_cast<T*>(a.y) + off, dx);
         if (a.dres != nullptr) store8(static_cast<T*>(a.dres) + off, ds);
       }
     }
+    __syncwarp();  // every lane is done with stage s before it is refilled
+    s = s + 1 == STAGES ? 0 : s + 1;
   }
 
-  // the block's partial row: its warps' partials added in warp order
+  // the block's partial row over the drained ring: its warps' partials
+  // added in warp order
+  cp_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem + 4 * a.H);  // [2, H]
   for (int w = 0; w < WARPS; ++w) {
     if (warp == w) {
 #pragma unroll
@@ -311,36 +521,13 @@ __global__ void __launch_bounds__(32 * REDUCE_ROWS) ln_bwd_reduce_kernel(const f
 template <template <typename, int> class L, typename T, typename... Args>
 int dispatch_nc(int H, Args... args) {
   switch ((H + 255) / 256) {
-    case 1: L<T, 1>::run(args...); break;
-    case 2: L<T, 2>::run(args...); break;
-    case 3: L<T, 3>::run(args...); break;
-    case 4: L<T, 4>::run(args...); break;
+    case 1: return L<T, 1>::run(args...);
+    case 2: return L<T, 2>::run(args...);
+    case 3: return L<T, 3>::run(args...);
+    case 4: return L<T, 4>::run(args...);
     default: return (int)cudaErrorInvalidValue;
   }
-  return 0;
 }
-
-template <typename T, int NC>
-struct Fwd {
-  static void run(const LnArgs& a, bool dropout, cudaStream_t st) {
-    const unsigned blocks = (unsigned)((a.N + WARPS - 1) / WARPS);
-    if (dropout)
-      ln_fwd_kernel<T, NC, true><<<blocks, WARPS * 32, 0, st>>>(a);
-    else
-      ln_fwd_kernel<T, NC, false><<<blocks, WARPS * 32, 0, st>>>(a);
-  }
-};
-
-template <typename T, int NC>
-struct Bwd {
-  static void run(const LnArgs& a, int P, bool dropout, cudaStream_t st) {
-    const size_t smem = 2 * (size_t)a.H * sizeof(float);
-    if (dropout)
-      ln_bwd_kernel<T, NC, true><<<P, WARPS * 32, smem, st>>>(a);
-    else
-      ln_bwd_kernel<T, NC, false><<<P, WARPS * 32, smem, st>>>(a);
-  }
-};
 
 template <template <typename, int> class L, typename... Args>
 int dispatch(int dtype, int H, Args... args) {
@@ -353,42 +540,131 @@ int dispatch(int dtype, int H, Args... args) {
   }
 }
 
+// The backward kernel's shared memory allowed above 48 KB, up to its widest
+// row (H = 256 NC), with the SM's memory given to shared memory first: set
+// once a device, since the launch's host time is of the order of its
+// device time.
+template <typename T, int NC, bool DROPOUT>
+cudaError_t bwd_attributes() {
+  constexpr int kDevices = 64;
+  static std::atomic<bool> ready[kDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kDevices && ready[dev].load(std::memory_order_acquire))) return err;
+  const void* fn = (const void*)ln_bwd_kernel<T, NC, DROPOUT>;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bwd_smem_bytes(32 * 8 * NC, sizeof(T), DROPOUT));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < kDevices) ready[dev].store(true, std::memory_order_release);
+  return err;
+}
+
+template <typename T, int NC>
+struct Fwd {
+  static int run(const LnArgs& a, bool dropout, cudaStream_t st) {
+    const unsigned blocks = (unsigned)((a.N + WARPS - 1) / WARPS);
+    if (dropout)
+      ln_fwd_kernel<T, NC, true><<<blocks, WARPS * 32, 0, st>>>(a);
+    else
+      ln_fwd_kernel<T, NC, false><<<blocks, WARPS * 32, 0, st>>>(a);
+    return 0;
+  }
+};
+
+template <typename T, int NC>
+struct Bwd {
+  static int run(const LnArgs& a, int P, bool dropout, cudaStream_t st) {
+    const size_t smem = bwd_smem_bytes(a.H, sizeof(T), dropout);
+    const cudaError_t err = dropout ? bwd_attributes<T, NC, true>() : bwd_attributes<T, NC, false>();
+    if (err != cudaSuccess) return (int)err;
+    if (dropout)
+      ln_bwd_kernel<T, NC, true><<<P, WARPS * 32, smem, st>>>(a);
+    else
+      ln_bwd_kernel<T, NC, false><<<P, WARPS * 32, smem, st>>>(a);
+    return 0;
+  }
+};
+
+// One of K7-K10 at width H in dtype: registers, local bytes, dynamic shared
+// bytes or blocks an SM (`what` 0-3), -1 where there is no such kernel.
+template <typename T, int NC>
+struct Info {
+  static int run(int kernel, int what, int H) {
+    const bool bwd = kernel == 8 || kernel == 10, dropout = kernel == 9 || kernel == 10;
+    const void* fn = kernel == 7    ? (const void*)ln_fwd_kernel<T, NC, false>
+                     : kernel == 8  ? (const void*)ln_bwd_kernel<T, NC, false>
+                     : kernel == 9  ? (const void*)ln_fwd_kernel<T, NC, true>
+                                    : (const void*)ln_bwd_kernel<T, NC, true>;
+    const int smem = bwd ? bwd_smem_bytes(H, sizeof(T), dropout) : 0;
+    if (what == 0 || what == 1) {
+      cudaFuncAttributes attr;
+      if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess) return -1;
+      return what == 0 ? attr.numRegs : (int)attr.localSizeBytes;
+    }
+    if (what == 2) return smem;
+    if (what == 3) {
+      if (bwd && (dropout ? bwd_attributes<T, NC, true>() : bwd_attributes<T, NC, false>()) != cudaSuccess)
+        return -1;
+      int n = 0;
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, WARPS * 32, smem) != cudaSuccess) return -1;
+      return n;
+    }
+    return -1;
+  }
+};
+
 }  // namespace
 
-// What the wrapper needs to check inputs and size the backward's grid and
-// partials: 0 the widest row the kernels take, 1 the rows (warps) of a
-// block, 2 the backward's blocks per SM.
+// What the wrapper needs to check inputs and plan the backward: 0 the
+// widest row the kernels take, 1 the rows (warps) of a block, 2 the
+// backward's ring stages a warp.
 extern "C" int vb_ln_geometry(int which) {
-  const int g[3] = {32 * 8 * MAX_CHUNKS, WARPS, BWD_BLOCKS_PER_SM};
+  const int g[3] = {32 * 8 * MAX_CHUNKS, WARPS, STAGES};
   return which >= 0 && which < 3 ? g[which] : -1;
 }
 
-// K7 (dropout = 0) and K9 (dropout = 1): y, mu, rstd.
+// K7-K10 (kernel 7-10) at width H in dtype: 0 registers a thread, 1 local
+// (spilled) bytes a thread, 2 dynamic shared bytes a block, 3 blocks an SM
+// (the backward's grid is that times the SMs); -1 for anything else.
+extern "C" int vb_ln_info(int kernel, int what, int H, int dtype) {
+  if (kernel < 7 || kernel > 10 || what < 0 || what > 3 || H <= 0 || H % 8 || H > 32 * 8 * MAX_CHUNKS ||
+      dtype < kBf16 || dtype > kFp32)
+    return -1;
+  return dispatch<Info>(dtype, H, kernel, what, H);
+}
+
+// K7 (dropout = 0) and K9 (dropout = 1): y, mu, rstd, and K9's keep bits
+// [N, H / 8] uint8.
 extern "C" int vb_ln_fwd(const void* x, const void* res, const void* scale, const void* bias, void* y, void* mu,
-                         void* rstd, int N, int H, int dtype, float eps, int dropout, unsigned int seed,
+                         void* rstd, void* bits, int N, int H, int dtype, float eps, int dropout, unsigned int seed,
                          unsigned int threshold, float keep_prob, void* stream) {
   LnArgs a{};
   a.x = x; a.res = res; a.scale = static_cast<const float*>(scale); a.bias = static_cast<const float*>(bias);
   a.y = y; a.mu = static_cast<float*>(mu); a.rstd = static_cast<float*>(rstd);
   a.N = N; a.H = H; a.eps = eps; a.seed = seed; a.threshold = threshold; a.keep_prob = keep_prob;
+  a.bits = static_cast<uint8_t*>(bits);
+  if (dropout != 0 && bits == nullptr) return (int)cudaErrorInvalidValue;
   const int code = dispatch<Fwd>(dtype, H, a, dropout != 0, static_cast<cudaStream_t>(stream));
   if (code != 0) return code;
   return (int)cudaGetLastError();
 }
 
-// K8 (dropout = 0, dres may be null) and K10 (dropout = 1): dx, dres, and
-// dscale, dbias through P partial rows in `part` ([P, 2, H] fp32).
+// K8 (dropout = 0, dres may be null) and K10 (dropout = 1, K9's bits): dx,
+// dres, and dscale, dbias through P partial rows in `part` ([P, 2, H] fp32).
+// seed and threshold are read only by a build with VB_LN_REGEN_MASK.
 extern "C" int vb_ln_bwd(const void* x, const void* res, const void* scale, const void* mu, const void* rstd,
-                         const void* dy, void* dx, void* dres, void* part, void* dscale, void* dbias, int N, int H,
-                         int P, int dtype, int dropout, unsigned int seed, unsigned int threshold, float keep_prob,
-                         void* stream) {
+                         const void* dy, const void* bits, void* dx, void* dres, void* part, void* dscale, void* dbias,
+                         int N, int H, int P, int dtype, int dropout, unsigned int seed, unsigned int threshold,
+                         float keep_prob, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   LnArgs a{};
   a.x = x; a.res = res; a.scale = static_cast<const float*>(scale); a.dy = dy;
   a.mu = const_cast<float*>(static_cast<const float*>(mu)); a.rstd = const_cast<float*>(static_cast<const float*>(rstd));
   a.y = dx; a.dres = dres; a.part = static_cast<float*>(part);
   a.N = N; a.H = H; a.seed = seed; a.threshold = threshold; a.keep_prob = keep_prob;
-  if (P < 1) return (int)cudaErrorInvalidValue;
+  a.bits = const_cast<uint8_t*>(static_cast<const uint8_t*>(bits));
+  if (P < 1 || (dropout != 0 && bits == nullptr)) return (int)cudaErrorInvalidValue;
   const int code = dispatch<Bwd>(dtype, H, a, P, dropout != 0, st);
   if (code != 0) return code;
   const cudaError_t err = cudaGetLastError();

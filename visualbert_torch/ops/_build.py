@@ -59,8 +59,9 @@ _SIGNATURES = {  # every C entry point of the sources: its argument types
     "vb_xent_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "vb_xent_de": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "vb_ln_geometry": [_I],
-    "vb_ln_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _U, _U, _F, _P],
-    "vb_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _P],
+    "vb_ln_info": [_I, _I, _I, _I],
+    "vb_ln_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _U, _U, _F, _P],
+    "vb_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _P],
 }
 
 
@@ -174,3 +175,10 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device) -> int:
+    """The card's SM count (the grids that fill the card are planned from it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count

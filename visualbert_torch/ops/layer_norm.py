@@ -13,22 +13,35 @@ flattened ``[N, H]`` tensor keeps word ``e % 4`` of Philox at counter
 ``(e / 4, 0, 1)`` under key ``(seed, 0)``), so the plain versions here draw
 the kernels' mask bit for bit.
 
+The forward with dropout also returns the mask it drew, packed one bit an
+element (:func:`pack_bits`: ``uint8 [N, H / 8]``, bit ``k`` of byte ``j`` for
+element ``8 j + k``), and the backward takes those bits in place of the
+seed: :class:`_DropoutAddLayerNorm` saves them (2.8 MB a call at the main
+path's 29,184 x 768) where the JAX package regenerates the mask from the
+seed. The function is the same, because the bits are.
+
 Kernels (``csrc/layer_norm.cu``, design notes and bounds there):
 
 * K7, :func:`add_layer_norm_fwd`, replaces ``_fwd_kernel`` (y, mu, rstd);
 * K8, :func:`add_layer_norm_bwd`, replaces ``_bwd_kernel`` (dx, dscale, dbias);
-* K9, :func:`dropout_add_layer_norm_fwd`, replaces ``_dfwd_kernel``;
+* K9, :func:`dropout_add_layer_norm_fwd`, replaces ``_dfwd_kernel`` (and
+  writes the keep bits);
 * K10, :func:`dropout_add_layer_norm_bwd`, replaces ``_dbwd_kernel`` (dx,
-  dres, dscale, dbias).
+  dres, dscale, dbias from K9's bits).
 
-On CPU tensors the wrappers compute the plain versions (the ``*_reference``
-functions); on CUDA tensors they launch the kernels or raise.
-:func:`reference_add_layer_norm` and :func:`layer_norm_f32` are the unfused
-path's eager math.
+K8 and K10 are one Hopper kernel: each warp's rows arrive through a ring
+of asynchronous row copies in shared memory, and the grid is as many blocks
+as fit on the card at once (:func:`bwd_blocks`, from the kernel's occupancy
+query ``vb_ln_info``), each writing one fp32 partial row of dscale and dbias
+that a second pass sums in a fixed order. On CPU tensors the wrappers
+compute the plain versions (the ``*_reference`` functions); on CUDA tensors
+they launch the kernels or raise. :func:`reference_add_layer_norm` and
+:func:`layer_norm_f32` are the unfused path's eager math.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -60,6 +73,21 @@ def reference_add_layer_norm(x, res, scale, bias, eps: float = 1e-12):
 def keep_mask(shape, rate: float, seed: int, device) -> torch.Tensor:
     """The kernels' keep mask of ``shape`` (bool), K3's bits."""
     return dropout_mask_reference(shape, rate, seed, torch.int8, device).bool()
+
+
+def pack_bits(keep: torch.Tensor) -> torch.Tensor:
+    """A bool ``[N, H]`` mask (H a multiple of 8) as ``uint8 [N, H / 8]``:
+    bit ``k`` of byte ``j`` is element ``8 j + k``, the layout K9 writes."""
+    N, H = keep.shape
+    weights = torch.tensor([1 << k for k in range(8)], dtype=torch.int32, device=keep.device)
+    return (keep.reshape(N, H // 8, 8).to(torch.int32) * weights).sum(-1).to(torch.uint8)
+
+
+def unpack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_bits`'s inverse: ``uint8 [N, H / 8]`` -> bool ``[N, H]``."""
+    N, B = bits.shape
+    shifts = torch.arange(8, dtype=torch.int32, device=bits.device)
+    return ((bits.to(torch.int32)[:, :, None] >> shifts) & 1).bool().reshape(N, 8 * B)
 
 
 def _keep_prob(rate: float) -> torch.Tensor:
@@ -104,15 +132,18 @@ def add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy):
 
 
 def dropout_add_layer_norm_fwd_reference(x, res, scale, bias, rate: float, seed: int, eps: float = 1e-12):
-    """Plain version of K9: (y, mu, rstd) of ``LN(where(keep, x / (1 - rate), 0) + res)``."""
-    xd, _ = _dropped(x, rate, seed)
-    return _fwd_plain(xd + res.float(), scale, bias, eps, x.dtype)
-
-
-def dropout_add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy, rate: float, seed: int):
-    """Plain version of K10: (dx, dres, dscale, dbias) with ``dres = ds`` and
-    ``dx = where(keep, ds / (1 - rate), 0)`` under the forward's mask."""
+    """Plain version of K9: (y, mu, rstd, bits) of ``LN(where(keep, x / (1 -
+    rate), 0) + res)``, with the keep mask packed by :func:`pack_bits`."""
     xd, keep = _dropped(x, rate, seed)
+    return _fwd_plain(xd + res.float(), scale, bias, eps, x.dtype) + (pack_bits(keep),)
+
+
+def dropout_add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy, bits, rate: float):
+    """Plain version of K10: (dx, dres, dscale, dbias) with ``dres = ds`` and
+    ``dx = where(keep, ds / (1 - rate), 0)`` under the forward's mask, read
+    from its packed ``bits``."""
+    keep = unpack_bits(bits)
+    xd = torch.where(keep, x.float() / _keep_prob(rate).to(x.device), 0.0)
     ds, dscale, dbias = _bwd_plain(xd + res.float(), scale, mu, rstd, dy)
     dx = torch.where(keep, ds / _keep_prob(rate).to(x.device), 0.0)
     return dx.to(x.dtype), ds.to(res.dtype), dscale, dbias
@@ -128,7 +159,7 @@ def _on_cuda(x, what) -> bool:
 
 
 def _check_cuda_inputs(what, x, res, scale, *others):
-    """Raise on what the kernels do not take; returns (library, dtype code)."""
+    """Raise on what the kernels do not take; returns the library."""
     lib = _build.library()
     if x.dim() != 2:
         raise ValueError(f"{what}: the kernel takes [N, H] rows, got {tuple(x.shape)}")
@@ -148,51 +179,94 @@ def _check_cuda_inputs(what, x, res, scale, *others):
             raise ValueError(f"{what}: tensors must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: tensors must be 16-byte aligned")
-    return lib, _DTYPE_CODES[x.dtype]
+    return lib
 
 
-def _dropout_args(rate: float, seed: int):
-    if not 0.0 <= rate < 1.0:
-        raise ValueError(f"dropout rate {rate} outside [0, 1)")
-    return int(rate > 0.0), int(seed) & MASK32, keep_threshold(rate), float(_keep_prob(rate))
-
-
-def _fwd(what, x, res, scale, bias, eps, rate, seed):
-    lib, code = _check_cuda_inputs(what, x, res, scale, bias)
+def _check_fwd(what, x, res, scale, bias):
+    lib = _check_cuda_inputs(what, x, res, scale, bias)
     if bias.shape != scale.shape or bias.dtype != torch.float32:
         raise ValueError(f"{what}: scale and bias must be [{x.shape[1]}] float32")
-    N, H = x.shape
-    y = torch.empty_like(x)
-    mu = torch.empty(N, dtype=torch.float32, device=x.device)
-    rstd = torch.empty(N, dtype=torch.float32, device=x.device)
-    err = lib.vb_ln_fwd(x.data_ptr(), res.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-                        mu.data_ptr(), rstd.data_ptr(), N, H, code, float(eps), *_dropout_args(rate, seed),
-                        _build.stream_ptr(x.device))
-    lib.check(err, what)
-    return y, mu, rstd
+    return lib
 
 
-def _bwd(what, x, res, scale, mu, rstd, dy, rate, seed, with_dres):
-    lib, code = _check_cuda_inputs(what, x, res, scale, mu, rstd, dy)
+def _check_bwd(what, x, res, scale, mu, rstd, dy, *bits):
+    lib = _check_cuda_inputs(what, x, res, scale, mu, rstd, dy, *bits)
     N, H = x.shape
     if mu.shape != (N,) or rstd.shape != (N,) or mu.dtype != torch.float32 or rstd.dtype != torch.float32:
         raise ValueError(f"{what}: mu and rstd must be [{N}] float32")
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"{what}: dy must be [{N}, {H}] {x.dtype}")
-    # as many blocks per SM as the kernel's launch bounds keep resident
-    per_sm, rows = lib.vb_ln_geometry(2), lib.vb_ln_geometry(1)
-    blocks = max(1, min(per_sm * torch.cuda.get_device_properties(x.device).multi_processor_count, -(-N // rows)))
+    if bits and (bits[0].shape != (N, H // 8) or bits[0].dtype != torch.uint8):
+        raise ValueError(f"{what}: the keep bits must be [{N}, {H // 8}] uint8, as the forward returns them")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _keep_args(rate: float):
+    """(threshold, keep probability in fp32) of a dropout rate: a pure
+    function of the rate, computed once (the wrappers' host time is of the
+    order of K9's and K10's device time)."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate {rate} outside [0, 1)")
+    return keep_threshold(rate), float(_keep_prob(rate))
+
+
+def _dropout_args(rate: float, seed: int):
+    """(seed, threshold, keep probability) as the entry points take them."""
+    return (int(seed) & MASK32,) + _keep_args(float(rate))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_geometry(lib, kernel: int, H: int, code: int):
+    """(rows a block, blocks an SM) of K8 (kernel 8) or K10 at width H in
+    dtype ``code``: fixed for a library and a card, so queried once."""
+    return lib.vb_ln_geometry(1), lib.vb_ln_info(kernel, 3, H, code)
+
+
+def launch_fwd(lib, x, res, scale, bias, eps: float, dropout: bool, rate: float = 0.0, seed: int = 0):
+    """Launch K7 (``dropout`` false) or K9 on checked inputs: (the entry
+    point's code, y, mu, rstd, and K9's keep bits or None). K9 runs at rate
+    0 too, keeping every element."""
+    N, H = x.shape
+    y = torch.empty_like(x)
+    mu = torch.empty(N, dtype=torch.float32, device=x.device)
+    rstd = torch.empty(N, dtype=torch.float32, device=x.device)
+    bits = torch.empty((N, H // 8), dtype=torch.uint8, device=x.device) if dropout else None
+    code = lib.vb_ln_fwd(x.data_ptr(), res.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                         mu.data_ptr(), rstd.data_ptr(), None if bits is None else bits.data_ptr(), N, H,
+                         _DTYPE_CODES[x.dtype], float(eps), int(dropout), *_dropout_args(rate, seed),
+                         _build.stream_ptr(x.device))
+    return code, y, mu, rstd, bits
+
+
+def bwd_blocks(N: int, rows: int, per_sm: int, sms: int) -> int:
+    """The backward's grid: the blocks that fit on the card at once
+    (``per_sm`` from the kernel's occupancy query, times the SMs), and no
+    more than one for every ``rows`` rows (a block's warps)."""
+    if per_sm < 1:
+        raise RuntimeError(f"LayerNorm backward: the occupancy query answered {per_sm} blocks an SM")
+    return max(1, min(per_sm * sms, -(-N // rows)))
+
+
+def launch_bwd(lib, x, res, scale, mu, rstd, dy, bits, rate: float, sms: int, seed: int = 0):
+    """Launch K10 (``bits`` from K9) or K8 (``bits`` None: no dropout, dx
+    only) on checked inputs: (the entry point's code, dx, dres or None,
+    dscale, dbias). ``seed`` is read only by a build of csrc/layer_norm.cu
+    with -DVB_LN_REGEN_MASK (tools/ln_steps.py)."""
+    N, H = x.shape
+    dropout, code = bits is not None, _DTYPE_CODES[x.dtype]
+    blocks = bwd_blocks(N, *_bwd_geometry(lib, 10 if dropout else 8, H, code), sms)
     dx = torch.empty_like(x)
-    dres = torch.empty_like(res) if with_dres else None
+    dres = torch.empty_like(res) if dropout else None
     part = torch.empty((blocks, 2, H), dtype=torch.float32, device=x.device)
     dscale = torch.empty(H, dtype=torch.float32, device=x.device)
     dbias = torch.empty(H, dtype=torch.float32, device=x.device)
     err = lib.vb_ln_bwd(x.data_ptr(), res.data_ptr(), scale.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
-                        dy.data_ptr(), dx.data_ptr(), None if dres is None else dres.data_ptr(), part.data_ptr(),
-                        dscale.data_ptr(), dbias.data_ptr(), N, H, blocks, code, *_dropout_args(rate, seed),
+                        dy.data_ptr(), None if bits is None else bits.data_ptr(), dx.data_ptr(),
+                        None if dres is None else dres.data_ptr(), part.data_ptr(), dscale.data_ptr(),
+                        dbias.data_ptr(), N, H, blocks, code, int(dropout), *_dropout_args(rate, seed),
                         _build.stream_ptr(x.device))
-    lib.check(err, what)
-    return dx, dres, dscale, dbias
+    return err, dx, dres, dscale, dbias
 
 
 def add_layer_norm_fwd(x, res, scale, bias, eps: float = 1e-12) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -200,9 +274,11 @@ def add_layer_norm_fwd(x, res, scale, bias, eps: float = 1e-12) -> Tuple[torch.T
     what = "add + LayerNorm forward (K7)"
     if not _on_cuda(x, what):
         return add_layer_norm_fwd_reference(x, res, scale, bias, eps)
-    out = _fwd(what, x, res, scale, bias, eps, 0.0, 0)
+    lib = _check_fwd(what, x, res, scale, bias)
+    code, y, mu, rstd, _ = launch_fwd(lib, x, res, scale, bias, eps, False)
+    lib.check(code, what)
     add_layer_norm_fwd.launches += 1
-    return out
+    return y, mu, rstd
 
 
 add_layer_norm_fwd.launches = 0
@@ -213,7 +289,9 @@ def add_layer_norm_bwd(x, res, scale, mu, rstd, dy) -> Tuple[torch.Tensor, torch
     what = "add + LayerNorm backward (K8)"
     if not _on_cuda(x, what):
         return add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy)
-    dx, _, dscale, dbias = _bwd(what, x, res, scale, mu, rstd, dy, 0.0, 0, with_dres=False)
+    lib = _check_bwd(what, x, res, scale, mu, rstd, dy)
+    code, dx, _, dscale, dbias = launch_bwd(lib, x, res, scale, mu, rstd, dy, None, 0.0, _build.sm_count(x.device))
+    lib.check(code, what)
     add_layer_norm_bwd.launches += 1
     return dx, dscale, dbias
 
@@ -221,28 +299,32 @@ def add_layer_norm_bwd(x, res, scale, mu, rstd, dy) -> Tuple[torch.Tensor, torch
 add_layer_norm_bwd.launches = 0
 
 
-def dropout_add_layer_norm_fwd(x, res, scale, bias, rate: float, seed: int,
-                               eps: float = 1e-12) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K9 wrapper: (y, mu, rstd) of ``LN(dropout(x) + res)``."""
+def dropout_add_layer_norm_fwd(x, res, scale, bias, rate: float, seed: int, eps: float = 1e-12):
+    """K9 wrapper: (y, mu, rstd, keep bits [N, H / 8] uint8) of
+    ``LN(dropout(x) + res)``."""
     what = "dropout + add + LayerNorm forward (K9)"
     if not _on_cuda(x, what):
         return dropout_add_layer_norm_fwd_reference(x, res, scale, bias, rate, seed, eps)
-    out = _fwd(what, x, res, scale, bias, eps, rate, seed)
+    lib = _check_fwd(what, x, res, scale, bias)
+    code, y, mu, rstd, bits = launch_fwd(lib, x, res, scale, bias, eps, True, rate, seed)
+    lib.check(code, what)
     dropout_add_layer_norm_fwd.launches += 1
-    return out
+    return y, mu, rstd, bits
 
 
 dropout_add_layer_norm_fwd.launches = 0
 
 
-def dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy, rate: float, seed: int):
-    """K10 wrapper: (dx, dres, dscale, dbias), the mask regenerated from ``seed``."""
+def dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy, bits, rate: float):
+    """K10 wrapper: (dx, dres, dscale, dbias) under the mask of K9's ``bits``."""
     what = "dropout + add + LayerNorm backward (K10)"
     if not _on_cuda(x, what):
-        return dropout_add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy, rate, seed)
-    out = _bwd(what, x, res, scale, mu, rstd, dy, rate, seed, with_dres=True)
+        return dropout_add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy, bits, rate)
+    lib = _check_bwd(what, x, res, scale, mu, rstd, dy, bits)
+    code, *out = launch_bwd(lib, x, res, scale, mu, rstd, dy, bits, rate, _build.sm_count(x.device))
+    lib.check(code, what)
     dropout_add_layer_norm_bwd.launches += 1
-    return out
+    return tuple(out)
 
 
 dropout_add_layer_norm_bwd.launches = 0
@@ -268,19 +350,20 @@ class _AddLayerNorm(torch.autograd.Function):
 
 
 class _DropoutAddLayerNorm(torch.autograd.Function):
-    """K9 forward, K10 backward (JAX ``_dfused_fwd``/``_dfused_bwd``)."""
+    """K9 forward, K10 backward (JAX ``_dfused_fwd``/``_dfused_bwd``): the
+    forward's keep bits are saved for the backward."""
 
     @staticmethod
     def forward(ctx, x, res, scale, bias, seed, rate, eps):
-        y, mu, rstd = dropout_add_layer_norm_fwd(x, res, scale, bias, rate, seed, eps)
-        ctx.save_for_backward(x, res, scale, mu, rstd)
-        ctx.args = (rate, seed)
+        y, mu, rstd, bits = dropout_add_layer_norm_fwd(x, res, scale, bias, rate, seed, eps)
+        ctx.save_for_backward(x, res, scale, mu, rstd, bits)
+        ctx.rate = rate
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, res, scale, mu, rstd = ctx.saved_tensors
-        dx, dres, dscale, dbias = dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy.contiguous(), *ctx.args)
+        x, res, scale, mu, rstd, bits = ctx.saved_tensors
+        dx, dres, dscale, dbias = dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy.contiguous(), bits, ctx.rate)
         return dx, dres, dscale, dbias, None, None, None
 
 

@@ -43,6 +43,7 @@ from typing import Tuple
 import torch
 
 from visualbert_torch.ops import _build
+from visualbert_torch.ops._build import sm_count
 
 KERNEL_WIDTHS = (768, 1024)  # the hidden widths K4-K6 are instantiated for
 
@@ -131,10 +132,6 @@ def de_plan(V: int, H: int, rows: int, cols: int) -> dict:
     """K6's grid (vocabulary blocks of ``rows``, column parts of ``cols``):
     each block walks every row tile of x itself, so nothing is split."""
     return dict(grid=(-(-V // rows), H // cols))
-
-
-def sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _device(x, what):

@@ -56,6 +56,20 @@ def packed_attention_inputs(device):
     return qkv, qb, key_bias, dout
 
 
+def layer_norm_inputs(device, N=B * (TT + TV), H=768):
+    """K7-K10's inputs at the main path's rows (N = 128 x 228 = 29,184, H =
+    768): x, res, dy bf16 [N, H] and fp32 scale, bias [H], from
+    RandomState(2)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(2)
+    x, res, dy = (torch.tensor(rng.randn(N, H), dtype=torch.bfloat16, device=device) for _ in range(3))
+    scale = torch.tensor(1.0 + 0.1 * rng.randn(H), dtype=torch.float32, device=device)
+    bias = torch.tensor(0.1 * rng.randn(H), dtype=torch.float32, device=device)
+    return x, res, dy, scale, bias
+
+
 def build(block: dict, device="cuda"):
     """A Trainer over the pretraining model at bert-base width and depth on
     ``device``, with seeded random weights, and one synthetic batch there."""

@@ -8,10 +8,11 @@ dropout on, BertAdam), warms up, then runs STEPS
 train steps under ``torch.profiler`` and prints, per step: host
 wall time, device busy time (union of kernel intervals), the device's idle
 share, and device time by kernel group and by kernel; then the optimizer
-step alone, timed with CUDA events. It does so for the block as the config
-ships it, with ``"use_fused_layer_norm": true`` (K9/K10), and with that and
-``"packed_qkv": false`` (K11/K12) or ``"flash_save_probs": true``
-(K13/K14), each ending in one JSON line.
+step alone, timed with CUDA events, and the peak device memory of the
+steps (``torch.cuda.max_memory_allocated``). It does so for the block as
+the config ships it, with ``"use_fused_layer_norm": true`` (K9/K10), and
+with that and ``"packed_qkv": false`` (K11/K12) or ``"flash_save_probs":
+true`` (K13/K14), each ending in one JSON line.
 """
 
 from __future__ import annotations
@@ -105,6 +106,8 @@ def profile(card, block):
             opt_step()
 
     trainer.optimizer.step = step_in_range
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(WARMUP):
         float(trainer.train_step(batch)["loss"])
     torch.cuda.synchronize()
@@ -151,12 +154,13 @@ def profile(card, block):
         "kernels_per_step": len(ivs) / n,
         "pairs_per_s": len(batch["input_ids"]) / (wall_ms / 1e3),
         "optimizer_ms_cuda_events": opt_ms,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "groups_ms_per_step": {k: v / 1e3 / n for k, v in sorted(by_group.items(), key=lambda kv: -kv[1])},
     }
     print(f"card: {card}")
     print(f"step: wall {wall_ms:.2f} ms (median of {n}), device busy {busy_ms:.2f} ms, "
           f"idle share {summary['device_idle_share']:.3f}, {summary['kernels_per_step']:.0f} kernels/step")
-    print(f"  optimizer step alone (CUDA events): {opt_ms:.3f} ms")
+    print(f"  optimizer step alone (CUDA events): {opt_ms:.3f} ms; peak memory {summary['peak_memory_gib']:.3f} GiB")
     for g, v in summary["groups_ms_per_step"].items():
         print(f"  {g:24s} {v:9.3f} ms/step  {v / busy_ms:6.1%} of busy")
     print(f"top {TOP} kernels by device time (ms/step):")
