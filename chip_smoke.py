@@ -19,11 +19,15 @@ non-zero without printing the final line:
    and set beside K16 (the schedule alone) at its best hg of the same call;
    K4, K5 and K6 (the fused MLM cross-entropy: forward, dx, d embedding and
    d bias) at N = 128 x 24 = 3072 rows, H=768, V=30522, bf16, 15 % of labels
-   -1 and a non-uniform cotangent, and again at bert-large's H=1024; K5
-   and K6 (one wgmma kernel on two roles) printed at both widths with their
-   registers, local bytes, shared bytes, blocks an SM, grid and splits
-   (neither may spill) and the TFLOP/s of their products, beside their
-   first design's times and the same two products through torch.matmul;
+   -1 and a non-uniform cotangent, and again at bert-large's H=1024; K4
+   (x in wgmma A fragments, a cp.async ring) and K5 and K6 (one wgmma
+   kernel on two roles) printed at both widths with their registers, local
+   bytes, shared bytes, blocks an SM, grid and splits (none may spill) and
+   the TFLOP/s of their products, beside their first design's times and
+   the same products through torch.matmul (K4's also at the vocabulary
+   padded to a 16-byte row), K4 with its wrapper's host time a call; K3's
+   bound times its Philox calls at the rate csrc/bench/philox_rate.cu
+   measures on K3's counter form, beside the instruction counts;
    K7-K10 (residual add + LayerNorm, without and with dropout,
    forward and backward) at the main path's N = 128 x 228 = 29,184 rows,
    H=768, bf16, K9/K10 at rate 0.1, with K9's saved keep bits and K10's
@@ -162,9 +166,11 @@ SP_FIRST_DESIGN_MS = {"packed_attention_sp_fwd": (0.6238, 0.6297), "packed_atten
 # K11/K12's first design likewise (mma.sync, a block per 64-query tile), the
 # least and largest of this script's earlier readings on that card
 HM_FIRST_DESIGN_MS = {"heads_major_attention_fwd": (0.4740, 0.4814), "heads_major_attention_bwd": (1.2044, 1.2168)}
-# K5/K6's first design likewise (mma.sync, 32-row / 32-vocabulary-row
-# blocks, synchronous copies) at the main path's shapes, width 768
-XENT_FIRST_DESIGN_MS = {"mlm_xent_dx": (2.8493, 2.8914), "mlm_xent_de": (2.3475, 2.3708)}
+# K4-K6's first design likewise (mma.sync; K4 64 rows a block, K5/K6 32-row
+# / 32-vocabulary-row blocks; synchronous copies) at the main path's shapes,
+# width 768
+XENT_FIRST_DESIGN_MS = {"mlm_xent_fwd": (1.4999, 1.5268), "mlm_xent_dx": (2.8493, 2.8914),
+                        "mlm_xent_de": (2.3475, 2.3708)}
 # K9/K10's first design likewise (K10 regenerating its mask with Philox, a
 # warp a row with no copies in flight, 128 registers) at the main path's
 # rows, bf16, rate 0.1
@@ -224,6 +230,20 @@ NLVR2_EVAL_PER_BATCH = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12, 0, 0, 0, 0, 0)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12      # outside the tensor cores
+# K3's Philox work, three readings (times the SMs and the card's largest SM
+# clock, nvidia-smi): PHILOX_INSTRUCTIONS a call (a round's two
+# 32x32->64-bit multiplies, one IMAD.WIDE each, and its two three-input xors,
+# one LOP3 each; the key schedule runs on (seed, 0), the same in every
+# thread, so it is uniform or folded) at the SM's issue rate, four warp
+# schedulers of one instruction a clock (128 a clock an SM; NVIDIA's H100
+# architecture whitepaper), and at the CUDA C++ Programming Guide's 64
+# results a clock an SM for 32-bit integer multiply-add and for bitwise work
+# (compute capability 9.0) on one pipe; and K3's own calls at the rate
+# csrc/bench/philox_rate.cu measures on K3's counter form, which is the
+# bound's reading
+PHILOX_INSTRUCTIONS = 10 * (2 + 2)
+ISSUE_PER_SM_CLOCK = 4 * 32
+INT32_OPS_PER_SM_CLOCK = 64
 # fp32 operations per element of K7-K10 (add, two-pass statistics, affine;
 # the backward's recompute, the two row means and the parameter sums;
 # dropout's division and select)
@@ -233,6 +253,15 @@ LN_OPS = {"add_layer_norm_fwd": 9, "dropout_add_layer_norm_fwd": 11,
 
 def log(msg):
     print(msg, flush=True)
+
+
+def max_sm_hz():
+    """The card's largest SM clock, as nvidia-smi reports it, in Hz."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
 
 
 def counters():
@@ -315,6 +344,7 @@ def packed_inputs(torch):
 def check_kernels(torch, card):
     from visualbert_torch.ops import flash_attention as fa
     from visualbert_torch.ops.dropout import dropout_mask, dropout_mask_reference
+    from visualbert_torch.tools import attn_steps
     from visualbert_torch.tools.main_path import B, TT, TV
 
     dev = torch.device("cuda")
@@ -338,11 +368,24 @@ def check_kernels(torch, card):
         f"new seed new mask {differ}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
     if err != 0 or abs(keep - (1 - rate)) > 4 * sigma or not same or not differ:
         raise SystemExit("K3 disagrees with its plain version")
-    # the library's Bernoulli draw of the same int8 mask; the bound counts the
-    # mask's bytes only (Philox is integer work, with no peak rate to set)
+    # the library's Bernoulli draw of the same int8 mask; the bound is the
+    # larger of the mask's bytes and its Philox calls' time (one call a 4
+    # elements) at the rate the card makes K3's calls
     lib_ms = cuda_time_ms(lambda: torch.empty(shape, dtype=torch.int8, device=dev).bernoulli_(1 - rate), 50)
+    calls, hz, n_sm = -(-got.numel() // 4), max_sm_hz(), torch.cuda.get_device_properties(dev).multi_processor_count
+    k3_rate = attn_steps.philox_rate(attn_steps.build_philox_bench(), n_sm, card, "mask")
+    clocks = calls / 32 / (n_sm * attn_steps.SUB_PARTITIONS) * k3_rate["cycles_per_warp_call"]
     rows["dropout_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                **bound(nbytes(got), 0, BF16_FLOPS))
+                                **bound(nbytes(got), clocks, hz))
+    count_ms = {r: calls * PHILOX_INSTRUCTIONS / (r * n_sm * hz) * 1e3 for r in (ISSUE_PER_SM_CLOCK,
+                                                                                 INT32_OPS_PER_SM_CLOCK)}
+    log(f"K3's bound: its bytes {nbytes(got) / HBM_BYTES_PER_S * 1e3:.4f} ms; its {calls} Philox calls at "
+        f"{hz / 1e6:.0f} MHz: x {PHILOX_INSTRUCTIONS} instructions at the issue rate ({ISSUE_PER_SM_CLOCK} a clock an "
+        f"SM) {count_ms[ISSUE_PER_SM_CLOCK]:.4f} ms, at the guide's {INT32_OPS_PER_SM_CLOCK} a clock an SM "
+        f"{count_ms[INT32_OPS_PER_SM_CLOCK]:.4f} ms; at the measured rate of K3's counter form "
+        f"({k3_rate['cycles_per_warp_call']:.2f} cycles a warp call a sub-partition) {clocks / hz * 1e3:.4f} ms, "
+        f"the bound's reading: {rows['dropout_mask']['bound_ms']:.4f} ms; K3 at "
+        f"{rows['dropout_mask']['bound_ms'] / ms * 100:.1f} % of it  [{card}]")
 
     # K1, K2: packed attention at the main path's shapes, padded keys
     qkv, qb, key_bias, dout = packed_inputs(torch)
@@ -838,7 +881,7 @@ def check_xent(torch, card, H=768):
     if not (r_dx <= DX_TOL and r_de <= DE_TOL and r_db <= DBIAS_TOL):
         raise SystemExit("K5/K6 disagree with their plain versions")
     del dx_r, de_r, db_r
-    xent_backward_design(torch, xe, x, emb, bias, lab, lse, g, card)
+    xent_design(torch, xe, x, emb, bias, lab, lse, g, card)
     if H != 768:
         for name, fn, args in (("mlm_xent_fwd", xe.mlm_xent_fwd, ()), ("mlm_xent_dx", xe.mlm_xent_dx, (lse, g)),
                                ("mlm_xent_de", xe.mlm_xent_de, (lse, g))):
@@ -875,39 +918,63 @@ def check_xent(torch, card, H=768):
     # bf16 products of each kernel through torch.matmul (cuBLAS), with a
     # materialised [N, V] bf16 dlog
     p = torch.empty((N, V), dtype=torch.bfloat16, device=dev).normal_()
+    ms_fwd = cuda_time_ms(lambda: torch.matmul(x, emb.t()), 10)
     ms_dx = cuda_time_ms(lambda: (torch.matmul(x, emb.t()), torch.matmul(p, emb)), 10)
     ms_de = cuda_time_ms(lambda: (torch.matmul(x, emb.t()), torch.matmul(p.t(), x)), 10)
     del p
+    # a bf16 row of V = 30522 logits is 61,044 B, not a multiple of 16 B:
+    # the same product at V padded to the next multiple of 8 (zero rows)
+    V_pad = -(-V // 8) * 8
+    emb_pad = torch.zeros((V_pad, H), dtype=emb.dtype, device=dev)
+    emb_pad[:V] = emb
+    ms_pad = cuda_time_ms(lambda: torch.matmul(x, emb_pad.t()), 10)
+    del emb_pad
+    k4_ms = rows["mlm_xent_fwd"]["ms"]
+    log(f"mlm_xent_fwd's product as a cuBLAS product (x E^T; not the fused function): {ms_fwd:.4f} ms "
+        f"({gflop / ms_fwd:.1f} TFLOP/s), at V padded to {V_pad} {ms_pad:.4f} ms "
+        f"({gflop * V_pad / V / ms_pad:.1f} TFLOP/s); the kernel {k4_ms:.4f} ms, {k4_ms / ms_fwd:.2f}x and "
+        f"{k4_ms / ms_pad:.2f}x  [{card}]")
     for name, ms in (("mlm_xent_dx", ms_dx), ("mlm_xent_de", ms_de)):
         log(f"{name}'s two products as cuBLAS products (x E^T, then dlog E or dlog^T x; not the fused function): "
             f"{ms:.4f} ms ({2 * gflop / ms:.1f} TFLOP/s); the kernel {rows[name]['ms']:.4f} ms  [{card}]")
+    # a wrapper's host time a call at or above its kernel's time makes the
+    # events above time the host
+    log(f"K4 wrapper's host time a call (enqueue only): "
+        f"{host_us_a_call(torch, lambda: xe.mlm_xent_fwd(x, emb, bias, lab), 50):.1f} us against "
+        f"{rows['mlm_xent_fwd']['ms'] * 1e3:.1f} us timed  [{card}]")
     return rows
 
 
-def xent_backward_design(torch, xe, x, emb, bias, lab, lse, g, card):
-    """K5/K6's design facts at these shapes: registers, local bytes, shared
-    bytes and blocks an SM of each kernel (neither may spill), the grid, K5's
-    vocabulary splits, and the TFLOP/s of each kernel's two products."""
+def xent_design(torch, xe, x, emb, bias, lab, lse, g, card):
+    """K4's and K5/K6's design facts at these shapes: registers, local bytes,
+    shared bytes and blocks an SM of each kernel (none may spill), the grid,
+    K4's and K5's vocabulary splits, and the TFLOP/s of each kernel's
+    products."""
     from visualbert_torch.ops import _build
 
     lib = _build.library()
     (N, H), V = x.shape, emb.shape[0]
+    sms = xe.sm_count(x.device)
     rows, tile, cols = (lib.vb_xent_geometry(w, H) for w in (2, 4, 5))
-    dx_plan = xe.dx_plan(N, V, H, rows, tile, cols, xe.sm_count(x.device))
+    fwd_rows, fwd_tile = lib.vb_xent_geometry(1, H), lib.vb_xent_geometry(3, H)
+    fwd_plan = xe.fwd_plan(N, V, H, fwd_rows, fwd_tile, sms)
+    dx_plan = xe.dx_plan(N, V, H, rows, tile, cols, sms)
     de_plan = xe.de_plan(V, H, rows, cols)
     gflop = 2.0 * N * V * H / 1e9
-    for k, (name, fn, args, grid) in enumerate((
-            ("mlm_xent_dx", xe.mlm_xent_dx, (lse, g), f"grid {dx_plan['grid']} (row blocks, column parts, "
-             f"splits of {dx_plan['per']} tiles of {tile} vocabulary rows)"),
-            ("mlm_xent_de", xe.mlm_xent_de, (lse, g), f"grid {de_plan['grid']} (vocabulary blocks, column parts; "
-             f"x in tiles of {tile} rows)"))):
+    for k, number, name, fn, args, n_mm, grid in (
+            (2, 4, "mlm_xent_fwd", xe.mlm_xent_fwd, (), 1, f"grid {fwd_plan['grid']} (blocks of {fwd_rows} rows, "
+             f"splits of {fwd_plan['per']} tiles of {fwd_tile} vocabulary rows)"),
+            (0, 5, "mlm_xent_dx", xe.mlm_xent_dx, (lse, g), 2, f"grid {dx_plan['grid']} (row blocks, column parts, "
+             f"splits of {dx_plan['per']} tiles of {tile} vocabulary rows), {cols} columns a block"),
+            (1, 6, "mlm_xent_de", xe.mlm_xent_de, (lse, g), 2, f"grid {de_plan['grid']} (vocabulary blocks, column "
+             f"parts; x in tiles of {tile} rows), {cols} columns a block")):
         regs, local, smem, per_sm = (lib.vb_xent_info(k, w, H) for w in range(4))
         ms = cuda_time_ms(lambda: fn(x, emb, bias, lab, *args), 10)
-        log(f"K{5 + k} {name} at width {H}: {regs} registers a thread, {local} bytes of local memory, {smem} bytes "
-            f"of shared memory, {per_sm} blocks an SM, {grid}, {cols} columns a block; {ms:.4f} ms, "
-            f"{2 * gflop / ms:.1f} TFLOP/s in its products  [{card}]")
+        log(f"K{number} {name} at width {H}: {regs} registers a thread, {local} bytes of local memory, {smem} bytes "
+            f"of shared memory, {per_sm} blocks an SM, {grid}; {ms:.4f} ms, "
+            f"{n_mm * gflop / ms:.1f} TFLOP/s in its products  [{card}]")
         if local:
-            raise SystemExit(f"K{5 + k} spills to local memory at width {H}")
+            raise SystemExit(f"K{number} spills to local memory at width {H}")
 
 
 def check_layer_norm(torch, card):

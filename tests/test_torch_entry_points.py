@@ -141,11 +141,36 @@ def test_each_attention_launch_passes_its_signatures_arguments(monkeypatch, name
 
 class XentLib(RecordingLib):
     """A recording library that also answers ``vb_xent_geometry`` with the
-    kernels' tiling at width 768 (row block 64, vocabulary tile 32, all 768
-    columns a block)."""
+    kernels' tiling at width 768 (K4: 128 rows a block, vocabulary tiles of
+    32; K5/K6: row block 64, vocabulary tile 32, all 768 columns a block)."""
 
     def vb_xent_geometry(self, which, hid):
-        return (hid, 64, 64, 64, 32, 768)[which]
+        return (hid, 128, 64, 32, 32, 768)[which]
+
+
+@pytest.mark.parametrize("N,V", [(100, 1000), (3072, 30522), (1, 70)])
+def test_the_xent_forward_launch_passes_its_signatures_arguments(monkeypatch, N, V):
+    """K4's launch hands its entry point one int per declared argument, the
+    shape in the parameters of those names, its plan's splits and tiles a
+    split, and partials of the plan's shapes."""
+    from visualbert_torch.ops import mlm_xent as xe
+
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    H, SMS = 768, 132
+    x = torch.zeros((N, H), dtype=torch.bfloat16)
+    emb = torch.zeros((V, H), dtype=torch.bfloat16)
+    lib = XentLib()
+    code, nll, lse, am = xe.launch_fwd(lib, x, emb, torch.zeros(V), torch.zeros(N, dtype=torch.int32), SMS)
+    ((called, values),) = lib.calls
+    assert called == "vb_xent_fwd" and code == 0
+    assert len(values) == len(_build._SIGNATURES[called])
+    assert all(type(v) is int for v in values)
+    given = dict(zip(DEFINED[called][3], values))
+    plan = xe.fwd_plan(N, V, H, 128, 32, SMS)
+    assert (given["N"], given["V"], given["hid"]) == (N, V, H)
+    assert (given["S"], given["vbs"]) == (plan["grid"][1], plan["per"])
+    assert nll.shape == lse.shape == am.shape == (N,)
+    assert nll.dtype == lse.dtype == torch.float32 and am.dtype == torch.int32
 
 
 @pytest.mark.parametrize("name", ["vb_xent_dx", "vb_xent_de"])

@@ -41,11 +41,13 @@ repeat bit for bit, drop exactly the plain mask's positions, and refuse T =
 1024; ``tools/attn_steps.py``'s builds of their source with a design step
 left out, and of K13/K14's with synchronous copies, give the kernels'
 outputs bit for bit. K4-K6 also run at bert-large's
-hidden width of 1024. K5/K6 (``xent_bwd_kernel``: wgmma, cp.async) run at
+hidden width of 1024. K4 (``xent_fwd_kernel``: x in wgmma A fragments,
+cp.async ring) and K5/K6 (``xent_bwd_kernel``: wgmma, cp.async) run at
 every ragged, single and whole row block, vocabulary tile and split of N in
 {3072, 37, 257, 1, 65} and V in {30522, 4099, 70} (width 1024 at N in
-{3072, 37}), repeat bit for bit, do not spill, and have the tiling that
-``tests/test_torch_xent_geometry.py`` plans their grids with.
+{3072, 37} for K5/K6, at every N for K4), repeat bit for bit, do not spill,
+and have the tiling that ``tests/test_torch_xent_geometry.py`` plans their
+grids with; K4's argmax takes the first of equal maxima.
 """
 
 import numpy as np
@@ -600,6 +602,46 @@ def test_xent_kernels_match_plain_at_bert_large_width(cuda, N):
     assert rel_err(dx, dx_r) < REL_TOL and rel_err(de, de_r) < REL_TOL and rel_err(db, db_r) < DB_REL_TOL
 
 
+XENT_FWD_CASES = [(H, N, V) for H in (768, 1024) for N in (3072, 37, 257, 1, 65) for V in (30522, 4099, 70)]
+
+
+@pytest.mark.parametrize("H,N,V", XENT_FWD_CASES)
+def test_xent_forward_kernel_matches_plain(cuda, H, N, V):
+    """K4 against its plain version where a row block (128 rows at 768, 64 at
+    1024), a vocabulary tile (32 rows) and a split are ragged, single or
+    whole: nll and lse within chip_smoke.py's 3e-5 absolute, the argmax equal
+    wherever the plain top-2 gap exceeds 1e-3."""
+    x, emb, bias, labels, _ = xent_inputs(N, V, cuda, seed=5, H=H)
+    nll, lse, am = xe.mlm_xent_fwd(x, emb, bias, labels)
+    nll_r, lse_r, am_r = xe.mlm_xent_fwd_reference(x, emb, bias, labels)
+    torch.cuda.synchronize()
+    assert nll.shape == lse.shape == am.shape == (N,)
+    assert float((nll - nll_r).abs().max()) < 3e-5
+    assert float((lse - lse_r).abs().max()) < 3e-5
+    clear = top2_gap(x, emb, bias) > ARGMAX_GAP
+    assert torch.equal(am[clear], am_r[clear])
+
+
+@pytest.mark.parametrize("H", [768, 1024])
+def test_xent_forward_kernel_repeats_bit_for_bit(cuda, H):
+    """No atomics: the blocks' order cannot change a bit of nll, lse or the
+    argmax."""
+    x, emb, bias, labels, _ = xent_inputs(1000, 30522, cuda, seed=6, H=H)
+    first = xe.mlm_xent_fwd(x, emb, bias, labels)
+    again = xe.mlm_xent_fwd(x, emb, bias, labels)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("H", [768, 1024])
+def test_xent_forward_kernel_does_not_spill(cuda, H):
+    from visualbert_torch.ops import _build
+
+    lib = _build.library()
+    regs, local, smem, per_sm = (lib.vb_xent_info(2, w, H) for w in range(4))
+    assert 0 < regs <= 255 and local == 0
+    assert 0 < smem <= 232448 and per_sm == 1
+
+
 XENT_BWD_CASES = ([(768, N, V) for N in (3072, 37, 257, 1, 65) for V in (30522, 4099, 70)]
                   + [(1024, N, V) for N in (3072, 37) for V in (30522, 4099, 70)])
 
@@ -649,8 +691,9 @@ def test_xent_geometry_is_the_one_the_plans_are_tested_with(cuda):
 
     lib = _build.library()
     got = {H: tuple(lib.vb_xent_geometry(w, H) for w in range(6)) for H in (768, 1024)}
-    assert got == {768: (768, 64, 64, 64, 32, 768), 1024: (1024, 32, 64, 64, 16, 512)}
+    assert got == {768: (768, 128, 64, 32, 32, 768), 1024: (1024, 64, 64, 32, 16, 512)}
     assert lib.vb_xent_geometry(0, 512) == -1 and lib.vb_xent_info(0, 0, 512) == -1
+    assert lib.vb_xent_info(2, 0, 512) == -1 and lib.vb_xent_info(3, 0, 768) == -1
 
 
 def test_xent_argmax_takes_the_first_max(cuda):

@@ -87,8 +87,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
-
+#include "once_a_device.cuh"
 #include "philox.cuh"
 
 #ifndef VB_LN_STAGES
@@ -546,18 +545,14 @@ int dispatch(int dtype, int H, Args... args) {
 // device time.
 template <typename T, int NC, bool DROPOUT>
 cudaError_t bwd_attributes() {
-  constexpr int kDevices = 64;
-  static std::atomic<bool> ready[kDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < kDevices && ready[dev].load(std::memory_order_acquire))) return err;
-  const void* fn = (const void*)ln_bwd_kernel<T, NC, DROPOUT>;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bwd_smem_bytes(32 * 8 * NC, sizeof(T), DROPOUT));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess && dev < kDevices) ready[dev].store(true, std::memory_order_release);
-  return err;
+  return vb::once_a_device([] {
+    const void* fn = (const void*)ln_bwd_kernel<T, NC, DROPOUT>;
+    cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           bwd_smem_bytes(32 * 8 * NC, sizeof(T), DROPOUT));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    return err;
+  });
 }
 
 template <typename T, int NC>

@@ -21,18 +21,73 @@
 // Bound on the H100. At the main path's N = 128 * 24 = 3072 rows, V = 30522
 // and HID = 768 each of the five N x V x HID products (K4: 1, K5: 2, K6: 2)
 // is 144 GFLOP, against 4.7 MB of x and 47 MB of E: all three kernels are
-// bound by math, K5 and K6 by 288 GFLOP each (0.29 ms at 989 TFLOP/s).
+// bound by math, K4 by 144 GFLOP (0.146 ms at 989 TFLOP/s), K5 and K6 by 288
+// GFLOP each (0.29 ms).
 //
-// K4 is the first design: mma.sync m16n8k16 with fragments read 32 bits at a
-// time from padded shared memory, tiles loaded synchronously. What the TPU
-// kernel keeps in VMEM does not fit an SM (227 KB of shared memory, 255
-// registers a thread), and an H100 runs its blocks in parallel in no order,
-// so K4 splits the vocabulary across blocks as well as the rows (one block
-// of 8 warps per 64 rows x one vocabulary split: at N = 3072 a row split
-// alone gives 48 blocks for 132 SMs). Each block writes, per row, its
-// partial (max, sum of exp, label logit, best value, best index); a merge
-// kernel combines the splits in vocabulary order, so on equal values the
-// lower index wins (first-max, as the TPU kernel and torch.argmax).
+// K4 (xent_fwd_kernel) is built on K5's tiling: the same 128 B-swizzled
+// streamed tiles of T = 32 vocabulary rows, issued by cp.async ahead of use
+// with their bias beside them (cp_async4), and the logits S = X E_t^T + b
+// from wgmma, a block of two warpgroups. In place of K5's dlog
+// math and second product each thread keeps an online (max, sum of exp,
+// label logit, best value, best index) over its columns. Per tile it takes
+// the max of its values first; only a max above the best so far looks for
+// its first column (columns ascend within a thread: the first maximum, as
+// a strict > over them), and the label's column and the edge at V are
+// checked once a tile.
+// - Registers. K4 holds no 64 x HID accumulator, so its registers hold x
+//   instead: each warpgroup keeps its 64 rows as wgmma A fragments (64 x 768
+//   bf16 = 192 registers a thread) and multiplies the whole of K from them
+//   (m64n32k16 with A in registers, 48 k-steps). The two warpgroups own
+//   different rows and share every E tile, so a block keeps 128 rows: E is
+//   read from L2 once for every 128 rows of x, not every 64 (1.1 GB in all at
+//   the main path, not K5's 2.25 GB), and no partial logits cross between
+//   the warpgroups. The shared memory that x no longer takes holds a deeper
+//   ring: 4 tiles of 48 KB, three in flight.
+//   The x rows arrive first, by cp.async into the ring's space (swizzled
+//   panels of all the block's rows), and ldmatrix turns them into the
+//   fragments; loaded from device memory one word a register, each with its
+//   own 64-bit address, they spilled.
+// - At 1024 the fragments of 64 x 1024 would need 256 registers, so both
+//   warpgroups keep the same 64 rows, each half of K (128 registers), and
+//   form the logits exactly as K5 does: each multiplies its half into the
+//   whole 64 x T tile, hands the other warpgroup its partial sums of that
+//   warpgroup's half of the columns through shared memory and finishes its
+//   own half; the two warpgroups' statistics of a row meet at the end. The
+//   ring is 3 tiles of 64 KB. Built with VB_XENT_FWD_SPLIT_K (for
+//   tools/xent_steps.py), 768 takes this form too: 64 rows a block.
+// - The same numbers as K5? No: the design gives that up for registers. A
+//   logit here is the bias plus one chain of products (at 1024, the bias
+//   plus one half-K chain, then the other half's), where K5 adds two
+//   half-K chains and then the bias: the same fp32 products in another
+//   order, so K4's lse may differ from K5's recomputed logits in the last
+//   bits (K5's dlog rounds to bf16 anyway).
+// - Ring. Tile t + 3 (t + 2 at 1024) is issued right after the barrier that
+//   opens tile t, into the slot tile t - 1 has freed; cp_wait, fence_async,
+//   __syncthreads as in K5; past the last tile the commit groups are empty.
+//   Thread x copies chunk x % 8 of row x / 8 of every 64-column panel of a
+//   tile, its addresses a constant apart (issue_rows' loop over a thread's
+//   chunks keeps more addresses in registers than K4 has to spare).
+// - Bias. Each tile's products start from its bias in the accumulator
+//   (wgmma's scale-d 1 from the first k-step), so no register holds it.
+// - Splits. An H100 runs its blocks in parallel in no order, so K4 splits
+//   the vocabulary across blocks as well as the rows (24 row blocks at the
+//   main path for 132 SMs; ops/mlm_xent.py::fwd_plan chooses the splits
+//   that give the fewest tiles on the busiest SM: 11 there, two waves).
+//   Each block writes, per row, its partial (max, sum of exp, label logit,
+//   best value, best index); xent_fwd_merge_kernel combines the splits in
+//   vocabulary order, and every merge (the 4 threads of a row, the two
+//   warpgroups, the splits) takes the lower index on equal values:
+//   first-max, as the TPU kernel and torch.argmax.
+// - Ragged edges. x rows past N are zero fragments and write nothing;
+//   vocabulary rows past V are zero in shared memory and their columns
+//   -inf, so they count in no statistic.
+// Switches for tools/xent_steps.py, which the kernel library never defines
+// (wrong results, timing only unless said): VB_XENT_FWD_SYNC_LOADS, plain
+// loads and stores in place of cp.async, so each thread waits for its copy
+// of a tile before its next products (right results);
+// VB_XENT_FWD_SPLIT_K, 768 on the 1024 form (right results);
+// VB_XENT_FWD_NO_STATS, the logits only; VB_XENT_FWD_NO_LOGITS, the
+// statistics of the bias alone, no wgmma.
 //
 // K5 and K6 are one Hopper kernel on two roles (xent_bwd_kernel, DE false /
 // true); they are mirror images. A block of two warpgroups keeps a
@@ -97,72 +152,18 @@
 
 #include "hopper_attn.cuh"
 #include "mma.cuh"
+#include "once_a_device.cuh"
 
 namespace {
 
 using vb::bf16;
-using vb::load_a;
-using vb::load_b_rows;
-using vb::mma16816;
 using vb::pack_bf16;
 using vb_hopper::smem_addr;
 using vb_hopper::swz;
 
-constexpr int NTHREADS = 256;     // 8 warps: K4's block; K5/K6's two warpgroups
-constexpr int VB = 64;            // vocabulary rows per K4 logits tile
-
-// K4's tiling at hidden width HID (768, bert-base, and 1024, bert-large; the
-// wrapper checks). Shared memory holds [rows, HID] tiles with a padded row
-// stride: K4's 64 x-rows and 64 vocabulary rows fit at 768 (198 KB) but not
-// at 1024 (264 KB of 227), so K4 takes 32 rows a block there.
-template <int HID>
-struct Geo {
-  static constexpr int LDH = HID + 8;                   // padded row stride of [*, HID] tiles (elements)
-  static constexpr int KSTEPS = HID / 16;               // k-steps of a logits product
-  static constexpr int FWD_ROWS = HID <= 768 ? 64 : 32;  // K4 rows per block
-  static constexpr int FWD_MT = FWD_ROWS / 32;          // K4 m16 tiles per warp (2 x 4 warps)
-};
+constexpr int NTHREADS = 256;     // 8 warps: two warpgroups (K4, K5, K6)
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// Copy rows [r0, r0 + nrows) of a [nvalid, HID] bf16 matrix into shared
-// memory with row stride LDH; rows past nvalid are zero.
-template <int HID>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int r0, int nrows,
-                                          int nvalid) {
-  constexpr int VEC = HID / 8, LDH = Geo<HID>::LDH;  // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < nrows * VEC; idx += NTHREADS) {
-    const int r = idx / VEC, c = (idx % VEC) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < nvalid) v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * HID + c);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = v;
-  }
-}
-
-// One warp's logits tile: C[MT m16 tiles][NT n8 tiles] = A[a0 + ..] . B[b0 + ..]^T
-// over K = HID, both operands row-major [*, HID] in shared memory.
-template <int HID, int MT, int NT>
-__device__ __forceinline__ void logits_tile(float c[MT][NT][4], const bf16* A, int a0, const bf16* B, int b0,
-                                            int g, int tq) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) c[i][j][0] = c[i][j][1] = c[i][j][2] = c[i][j][3] = 0.f;
-  constexpr int LDH = Geo<HID>::LDH;
-#pragma unroll 4
-  for (int kk = 0; kk < Geo<HID>::KSTEPS; ++kk) {
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) load_a<LDH>(a[i], A, a0 + 16 * i, kk * 16, g, tq);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t b0r, b1r;
-      load_b_rows<LDH>(b0r, b1r, B, b0 + 8 * j, kk * 16, g, tq);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) mma16816(c[i][j], a[i], b0r, b1r);
-    }
-  }
-}
 
 // Online (max, sum of exp) merge of (m2, l2) into (m, l); -inf means empty.
 __device__ __forceinline__ void lse_merge(float& m, float& l, float m2, float l2) {
@@ -178,160 +179,6 @@ __device__ __forceinline__ void argmax_merge(float& bv, int& bi, float v2, int i
     bv = v2;
     bi = i2;
   }
-}
-
-// ------------------------------------------------------------------ K4
-
-// grid (cdiv(N, FWD_ROWS), S): rows x vocabulary splits of `vbs` tiles of
-// 64. Partials: pf [4][S][N] fp32 (max, sum of exp, label logit, best
-// value), pi [S][N] int32 (best index).
-template <int HID>
-__global__ void __launch_bounds__(NTHREADS, 1)
-xent_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const float* __restrict__ bias,
-                const int* __restrict__ labels, int N, int V, int vbs, float* __restrict__ pf,
-                int* __restrict__ pi) {
-  constexpr int LDH = Geo<HID>::LDH, FWD_ROWS = Geo<HID>::FWD_ROWS, MT = Geo<HID>::FWD_MT, RW = FWD_ROWS / 2;
-  constexpr int NR = 2 * MT;  // rows a thread holds
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem);          // [FWD_ROWS][LDH]
-  bf16* Es = Xs + FWD_ROWS * LDH;                    // [VB][LDH]
-  float* bias_s = reinterpret_cast<float*>(Es + VB * LDH);  // [VB]
-  int* lab_s = reinterpret_cast<int*>(bias_s + VB);  // [FWD_ROWS]
-  float* red = reinterpret_cast<float*>(lab_s + FWD_ROWS);  // [4 warp columns][FWD_ROWS][5]: m, l, ll, bv, bi (int)
-
-  const int rb = blockIdx.x, s = blockIdx.y, S = gridDim.y;
-  const int row0 = rb * FWD_ROWS;
-  const int nvb = cdiv(V, VB);
-  const int vb0 = s * vbs, vb1 = min(nvb, vb0 + vbs);
-
-  load_rows<HID>(Xs, x, row0, FWD_ROWS, N);
-  for (int r = threadIdx.x; r < FWD_ROWS; r += NTHREADS) lab_s[r] = row0 + r < N ? labels[row0 + r] : -1;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps over a FWD_ROWS x 64 tile: RW rows x 16 columns each
-
-  // per-thread state of its NR rows (m-tile i, half h -> r = 2 i + h)
-  float m[NR], l[NR], ll[NR], bv[NR];
-  int bi[NR], lab[NR];
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < NR; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-    ll[r] = 0.f;
-    bv[r] = -INFINITY;
-    bi[r] = INT_MAX;
-    lab[r] = lab_s[wm * RW + (r >> 1) * 16 + g + 8 * (r & 1)];
-  }
-
-  for (int vb = vb0; vb < vb1; ++vb) {
-    const int v0 = vb * VB;
-    __syncthreads();  // the previous tile is consumed
-    load_rows<HID>(Es, E, v0, VB, V);
-    for (int c = threadIdx.x; c < VB; c += NTHREADS) bias_s[c] = v0 + c < V ? bias[v0 + c] : 0.f;
-    __syncthreads();
-
-    float c[MT][2][4];
-    logits_tile<HID, MT, 2>(c, Xs, wm * RW, Es, wn * 16, g, tq);
-
-#pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      const int i = r >> 1, h = r & 1;
-      float tm = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int lc = wn * 16 + j * 8 + 2 * tq + e, col = v0 + lc;
-          float& z = c[i][j][2 * h + e];
-          if (col < V) {
-            z += bias_s[lc];
-            tm = fmaxf(tm, z);
-            if (col == lab[r]) ll[r] += z;
-            if (z > bv[r]) {  // columns ascend within the thread: strict > keeps the first
-              bv[r] = z;
-              bi[r] = col;
-            }
-          } else {
-            z = -INFINITY;
-          }
-        }
-      if (tm == -INFINITY) continue;
-      const float mn = fmaxf(m[r], tm);
-      float acc = l[r] * expf(m[r] - mn);  // m = -inf only while l = 0
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float z = c[i][j][2 * h + e];
-          if (z != -INFINITY) acc += expf(z - mn);
-        }
-      l[r] = acc;
-      m[r] = mn;
-    }
-  }
-
-  // merge the 4 threads of a row (tq), then the 4 warp columns (wn)
-#pragma unroll
-  for (int r = 0; r < NR; ++r) {
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m[r], off), l2 = __shfl_xor_sync(0xffffffffu, l[r], off);
-      const float ll2 = __shfl_xor_sync(0xffffffffu, ll[r], off), v2 = __shfl_xor_sync(0xffffffffu, bv[r], off);
-      const int i2 = __shfl_xor_sync(0xffffffffu, bi[r], off);
-      lse_merge(m[r], l[r], m2, l2);
-      ll[r] += ll2;
-      argmax_merge(bv[r], bi[r], v2, i2);
-    }
-    if (tq == 0) {
-      float* o = red + ((size_t)wn * FWD_ROWS + wm * RW + (r >> 1) * 16 + g + 8 * (r & 1)) * 5;
-      o[0] = m[r];
-      o[1] = l[r];
-      o[2] = ll[r];
-      o[3] = bv[r];
-      reinterpret_cast<int*>(o)[4] = bi[r];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < FWD_ROWS) {
-    const int r = threadIdx.x, row = row0 + r;
-    float mm = -INFINITY, sl = 0.f, sll = 0.f, best = -INFINITY;
-    int besti = INT_MAX;
-    for (int w = 0; w < 4; ++w) {
-      const float* o = red + ((size_t)w * FWD_ROWS + r) * 5;
-      lse_merge(mm, sl, o[0], o[1]);
-      sll += o[2];
-      argmax_merge(best, besti, o[3], reinterpret_cast<const int*>(o)[4]);
-    }
-    if (row < N) {
-      const size_t at = (size_t)s * N + row, plane = (size_t)S * N;
-      pf[at] = mm;
-      pf[plane + at] = sl;
-      pf[2 * plane + at] = sll;
-      pf[3 * plane + at] = best;
-      pi[at] = besti;
-    }
-  }
-}
-
-// One thread per row: combine the S splits in vocabulary order.
-__global__ void xent_fwd_merge_kernel(const float* __restrict__ pf, const int* __restrict__ pi, int N, int S,
-                                      float* __restrict__ nll, float* __restrict__ lse, int* __restrict__ am) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= N) return;
-  const size_t plane = (size_t)S * N;
-  float m = -INFINITY, l = 0.f, ll = 0.f, bv = -INFINITY;
-  int bi = INT_MAX;
-  for (int s = 0; s < S; ++s) {
-    const size_t at = (size_t)s * N + row;
-    lse_merge(m, l, pf[at], pf[plane + at]);
-    ll += pf[2 * plane + at];
-    argmax_merge(bv, bi, pf[3 * plane + at], pi[at]);
-  }
-  const float z = m + logf(l);
-  lse[row] = z;
-  nll[row] = z - ll;
-  am[row] = bi;
 }
 
 // ------------------------------------------------------------------ K5, K6
@@ -639,21 +486,352 @@ __global__ void xent_dx_reduce_kernel(const float* __restrict__ part, const floa
   }
 }
 
+// ------------------------------------------------------------------ K4
+
+constexpr float LOG2E_F = 1.4426950408889634f;
+
+// K4's tiling at hidden width HID (see the header comment).
 template <int HID>
-constexpr size_t fwd_smem() {
-  constexpr int LDH = Geo<HID>::LDH, FWD_ROWS = Geo<HID>::FWD_ROWS;
-  return (size_t)(FWD_ROWS + VB) * LDH * sizeof(bf16) + VB * sizeof(float) + FWD_ROWS * sizeof(int) +
-         4 * FWD_ROWS * 5 * sizeof(float);
+struct Fwd {
+#ifndef VB_XENT_FWD_SPLIT_K
+  static constexpr bool SPLIT = HID != 768;          // the warpgroups split K over the same rows
+#else
+  static constexpr bool SPLIT = true;
+#endif
+  static constexpr int NP = HID / 64;                  // 128 B panels of an E row
+  static constexpr int KP = SPLIT ? NP / 2 : NP;       // ... a warpgroup multiplies
+  static constexpr int KS = 4 * KP;                    // its k-steps: A fragments of 4 registers each
+  static constexpr int ROWS = SPLIT ? RES : 2 * RES;   // x rows a block
+  static constexpr int T = 32;                         // vocabulary rows a tile: the logits' n
+  static constexpr int NTC = SPLIT ? 2 : 4;            // n8 tiles of a tile's logits a warpgroup finishes
+  static constexpr int XV = T / 4;                     // SPLIT: partial logits a thread hands the other warpgroup
+  static constexpr int TILE_BYTES = T * HID * 2;       // one tile: NP panels of T rows
+  static constexpr int STAGES = 196608 / TILE_BYTES < 4 ? 196608 / TILE_BYTES : 4;  // 4 at 768, 3 at 1024
+  static constexpr size_t SMEM = vb_hopper::ALIGN + STAGES * TILE_BYTES +
+                                 (STAGES * T + (SPLIT ? 2 * XV * 128 + 2 * RES * 5 : 0)) * sizeof(float);
+};
+static_assert(Fwd<768>::SMEM <= 232448 && Fwd<1024>::SMEM <= 232448,
+              "a K4 block must fit the H100's 227 KB of shared memory");
+static_assert(Fwd<768>::STAGES >= 2 && Fwd<1024>::STAGES >= 2, "the ring needs a tile to use and one in flight");
+static_assert(Fwd<768>::T * 8 == NTHREADS, "a tile's panel is one 16-byte chunk a thread");
+
+// d (64 x 32 fp32) += A B^T, A [64 x 16] bf16 in registers (the
+// mma.m16n8k16 A fragment of each warp's 16 rows), B [32 x 16] K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, {%16, %17, %18, %19}, %20, 1, 1, 1, 0;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
-static_assert(fwd_smem<1024>() <= 232448, "a K4 block must fit the H100's 227 KB of shared memory");
+
+// After a wait: the A fragments stay in their registers until the products
+// that read them are done.
+template <int KS>
+__device__ __forceinline__ void keep(const uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int k = 0; k < KS; ++k) asm volatile("" ::"r"(a[k][0]), "r"(a[k][1]), "r"(a[k][2]), "r"(a[k][3]) : "memory");
+}
+
+// This warpgroup's logits of a tile: s (64 x T) += X Q^T over its KP panels
+// from p0 on, X the fragments a, Q the tile at shared address q.
+template <int HID>
+__device__ __forceinline__ void fwd_logits(float (&s)[16], const uint32_t (&a)[Fwd<HID>::KS][4], uint32_t q,
+                                           int p0) {
+  using G = Fwd<HID>;
+  const uint64_t dq = vb_hopper::desc(q + p0 * G::T * 128);
+#pragma unroll
+  for (int p = 0; p < G::KP; ++p)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n32(s, a[4 * p + kk], dq + ((p * G::T * 128) >> 4) + 2 * kk);
+}
+
+// Tile t (rows [t T, t T + T) of E, zero past V) into NP swizzled panels of
+// T rows at shared address dst, as issue_rows lays them out, and its bias
+// (zero past V) to shared address bias_dst: thread x copies chunk x % 8 of
+// row x / 8 in every panel, so its addresses differ from panel to panel by
+// constants. cp.async; plain loads and stores with VB_XENT_FWD_SYNC_LOADS.
+template <int HID>
+__device__ __forceinline__ void copy_tile(uint32_t dst, uint32_t bias_dst, const bf16* __restrict__ E,
+                                          const float* __restrict__ bias, int t, int V) {
+  constexpr int T = Fwd<HID>::T;
+  const int r = threadIdx.x >> 3, c = threadIdx.x & 7, row = t * T + r, j = t * T + threadIdx.x;
+  const bool ok = row < V;
+  const bf16* src = E + (size_t)(ok ? row : 0) * HID + c * 8;
+  dst += swz(r, c);
+#ifndef VB_XENT_FWD_SYNC_LOADS
+#pragma unroll
+  for (int p = 0; p < HID / 64; ++p) vb_hopper::cp_async16(dst + p * T * 128, src + p * 64, ok);
+  if (threadIdx.x < T) cp_async4(bias_dst + 4 * threadIdx.x, bias + (j < V ? j : 0), j < V);
+#else
+#pragma unroll
+  for (int p = 0; p < HID / 64; ++p)
+    *static_cast<uint4*>(__cvta_shared_to_generic(dst + p * T * 128)) =
+        ok ? *reinterpret_cast<const uint4*>(src + p * 64) : make_uint4(0u, 0u, 0u, 0u);
+  if (threadIdx.x < T) *static_cast<float*>(__cvta_shared_to_generic(bias_dst + 4 * threadIdx.x)) = j < V ? bias[j] : 0.f;
+#endif
+}
+
+// One thread's online statistics of its two rows (h = 0, 1: rows g, g + 8 of
+// its warp's 16). add() takes a tile's logits z (NTC n8 tiles: z[4 nt + 2 h
+// + e] is row h, vocabulary id v0 + 8 nt + 2 tq + e).
+template <int NTC>
+struct RowStats {
+  float m[2], l[2], ll[2], bv[2];  // max, sum of exp(z - max), label logit, best value
+  int bi[2], lab[2];               // best index, label (-1: no row)
+
+  __device__ __forceinline__ void add(const float (&z)[4 * NTC], int v0, int V, int tq) {
+    const int c0 = v0 + 2 * tq;             // column of value i: c0 + 8 (i / 2) + i % 2, ascending with i
+    const bool full = v0 + 8 * NTC <= V;    // every tile but the last
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float w[2 * NTC];
+      float tm = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 2 * NTC; ++i) {
+        w[i] = full || c0 + 8 * (i / 2) + i % 2 < V ? z[4 * (i / 2) + 2 * h + i % 2] : -INFINITY;
+        tm = fmaxf(tm, w[i]);
+      }
+      if (tm == -INFINITY) continue;  // every column past V
+      const int d = lab[h] - c0;  // the label among these columns: d = 8 (i / 2) + i % 2
+      if (d >= 0 && d < 8 * NTC && (d & 6) == 0)
+#pragma unroll
+        for (int i = 0; i < 2 * NTC; ++i)
+          if (d == 8 * (i / 2) + i % 2) ll[h] = w[i];
+      if (tm > bv[h]) {  // a new best: the first of its equal values, as a strict > over ascending columns
+        bv[h] = tm;
+#pragma unroll
+        for (int i = 2 * NTC - 1; i >= 0; --i)
+          if (w[i] == tm) bi[h] = c0 + 8 * (i / 2) + i % 2;
+      }
+      const float mn = fmaxf(m[h], tm);
+      float acc = l[h] * exp2f((m[h] - mn) * LOG2E_F);  // m = -inf only while l = 0
+#pragma unroll
+      for (int i = 0; i < 2 * NTC; ++i) acc += exp2f((w[i] - mn) * LOG2E_F);  // -inf: 0
+      l[h] = acc;
+      m[h] = mn;
+    }
+  }
+
+  // Merge the 4 threads of each row (lanes tq = 0..3).
+  __device__ __forceinline__ void merge_quad() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float m2 = __shfl_xor_sync(0xffffffffu, m[h], off), l2 = __shfl_xor_sync(0xffffffffu, l[h], off);
+        const float ll2 = __shfl_xor_sync(0xffffffffu, ll[h], off), v2 = __shfl_xor_sync(0xffffffffu, bv[h], off);
+        const int i2 = __shfl_xor_sync(0xffffffffu, bi[h], off);
+        lse_merge(m[h], l[h], m2, l2);
+        ll[h] += ll2;
+        argmax_merge(bv[h], bi[h], v2, i2);
+      }
+  }
+};
+
+// Write a row's partials: pf [4][S][N] fp32 (max, sum of exp, label logit,
+// best value), pi [S][N] int32 (best index); at = split * N + row.
+__device__ __forceinline__ void store_partial(float* __restrict__ pf, int* __restrict__ pi, size_t plane, size_t at,
+                                              float m, float l, float ll, float bv, int bi) {
+  pf[at] = m;
+  pf[plane + at] = l;
+  pf[2 * plane + at] = ll;
+  pf[3 * plane + at] = bv;
+  pi[at] = bi;
+}
+
+// grid (cdiv(N, ROWS), S): row blocks x vocabulary splits of `vbs` tiles of
+// T rows.
+template <int HID>
+__global__ void __launch_bounds__(NTHREADS, 1)
+xent_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const float* __restrict__ bias,
+                const int* __restrict__ labels, int N, int V, int vbs, float* __restrict__ pf,
+                int* __restrict__ pi) {
+  using G = Fwd<HID>;
+  constexpr int T = G::T, ST = G::STAGES, XV = G::XV, NTC = G::NTC;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = vb_hopper::align_smem(smem_raw);
+  float* cols = reinterpret_cast<float*>(sm + ST * G::TILE_BYTES);  // [ST][T]: each tile's bias
+  float* xch = cols + ST * T;                                     // SPLIT: [2 to][XV][128] partial logits
+  float* red = xch + 2 * XV * 128;                                // SPLIT: [2][RES][5] each warpgroup's statistics
+  const uint32_t sQ = smem_addr(sm), sC = smem_addr(cols);
+
+  const int tid = threadIdx.x & 127, wg = threadIdx.x >> 7, warp = tid >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int i0 = warp * 16 + g;                                            // this thread's rows of its 64: i0, i0 + 8
+  const int r0 = blockIdx.x * G::ROWS + (G::SPLIT ? 0 : wg * RES) + i0;  // ... in x
+  const int ntiles = cdiv(V, T);
+  const int t0 = blockIdx.y * vbs, t1 = min(ntiles, t0 + vbs);
+
+  // tile t and its bias into slot b
+  auto issue = [&](int t, int b) { copy_tile<HID>(sQ + b * G::TILE_BYTES, sC + 4 * b * T, E, bias, t, V); };
+
+  // this warpgroup's x rows as A fragments: k-step k holds its columns 16 k
+  // + 2 tq, + 1 (registers 0, 1: rows i0, i0 + 8) and + 8, + 9 (2, 3)
+  uint32_t a[G::KS][4];
+  RowStats<NTC> st;
+  {
+    // the block's x rows into the ring's space (NP swizzled panels of ROWS
+    // rows, zero past N), then each warpgroup's fragments by ldmatrix: lane
+    // l gives the address of row l % 16 of its warp's 16, chunk l / 16 of
+    // the k-step
+    issue_rows<HID, G::ROWS>(sQ, x, blockIdx.x * G::ROWS, N);
+    vb_hopper::cp_commit();
+    vb_hopper::cp_wait<0>();
+    __syncthreads();
+    const int row = (G::SPLIT ? 0 : wg * RES) + warp * 16 + (lane & 15), p0 = G::SPLIT ? wg * G::KP : 0;
+#pragma unroll
+    for (int k = 0; k < G::KS; ++k) {
+      const uint32_t at = sQ + (p0 + k / 4) * (G::ROWS * 128) + swz(row, 2 * (k % 4) + (lane >> 4));
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(a[k][0]), "=r"(a[k][1]), "=r"(a[k][2]), "=r"(a[k][3])
+                   : "r"(at));
+    }
+    __syncthreads();  // the ring's space is free again
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const bool ok = r < N;
+      st.m[h] = -INFINITY;
+      st.l[h] = 0.f;
+      st.ll[h] = 0.f;
+      st.bv[h] = -INFINITY;
+      st.bi[h] = INT_MAX;
+      st.lab[h] = ok ? labels[r] : -1;
+    }
+  }
+
+  // the logits of tile t (in slot b) into this thread's statistics: the
+  // products start from the bias (at SPLIT, on this warpgroup's columns
+  // only, so that the exchanged sums hold it once)
+  auto tile = [&](int t, int b) {
+    float s[16];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float2 bb = G::SPLIT && (nt >> 1) != wg ? make_float2(0.f, 0.f)
+                                                      : *reinterpret_cast<const float2*>(cols + b * T + 8 * nt + 2 * tq);
+      s[4 * nt] = s[4 * nt + 2] = bb.x;
+      s[4 * nt + 1] = s[4 * nt + 3] = bb.y;
+    }
+#ifndef VB_XENT_FWD_NO_LOGITS
+    vb_hopper::wg_fence();
+    fwd_logits<HID>(s, a, sQ + b * G::TILE_BYTES, G::SPLIT ? wg * G::KP : 0);
+    vb_hopper::wg_commit();
+    vb_hopper::wg_wait();
+    hold(s);
+    keep(a);
+#endif
+    float z[4 * G::NTC];
+    if constexpr (G::SPLIT) {  // finish the columns [wg T / 2, wg T / 2 + T / 2)
+#pragma unroll
+      for (int k = 0; k < XV; ++k) {
+        z[k] = wg ? s[XV + k] : s[k];
+        xch[((wg ^ 1) * XV + k) * 128 + tid] = wg ? s[k] : s[XV + k];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < XV; ++k) z[k] += xch[(wg * XV + k) * 128 + tid];
+    } else {
+#pragma unroll
+      for (int k = 0; k < 16; ++k) z[k] = s[k];
+    }
+#ifndef VB_XENT_FWD_NO_STATS
+    st.add(z, t * T + (G::SPLIT ? wg * (T / 2) : 0), V, tq);
+#else
+#pragma unroll
+    for (int k = 0; k < 4 * G::NTC; ++k) st.ll[0] += z[k];
+#endif
+  };
+
+  for (int j = 0; j < ST - 1; ++j) {  // tiles t0 .. t0 + ST - 2, one commit group each
+    if (t0 + j < t1) issue(t0 + j, j);
+    vb_hopper::cp_commit();
+  }
+  for (int t = t0, b = 0; t < t1; ++t) {
+    vb_hopper::cp_wait<ST - 2>();
+    vb_hopper::fence_async();
+    __syncthreads();  // tile t landed; every thread is done with tile t - 1 (its slot, xch)
+    if (t + ST - 1 < t1) issue(t + ST - 1, b == 0 ? ST - 1 : b - 1);
+    vb_hopper::cp_commit();
+    tile(t, b);
+    b = b + 1 == ST ? 0 : b + 1;
+  }
+
+  st.merge_quad();
+  const size_t plane = (size_t)gridDim.y * N, at = (size_t)blockIdx.y * N;
+  if constexpr (!G::SPLIT) {
+    if (tq == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (r0 + 8 * h < N)
+          store_partial(pf, pi, plane, at + r0 + 8 * h, st.m[h], st.l[h], st.ll[h], st.bv[h], st.bi[h]);
+  } else {  // the two warpgroups' columns of a row meet here
+    if (tq == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* o = red + ((size_t)wg * RES + i0 + 8 * h) * 5;
+        o[0] = st.m[h];
+        o[1] = st.l[h];
+        o[2] = st.ll[h];
+        o[3] = st.bv[h];
+        reinterpret_cast<int*>(o)[4] = st.bi[h];
+      }
+    __syncthreads();
+    const int i = threadIdx.x, r = blockIdx.x * RES + i;
+    if (i < RES && r < N) {
+      float m = -INFINITY, l = 0.f, ll = 0.f, bv = -INFINITY;
+      int bi = INT_MAX;
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        const float* o = red + ((size_t)w * RES + i) * 5;
+        lse_merge(m, l, o[0], o[1]);
+        ll += o[2];
+        argmax_merge(bv, bi, o[3], reinterpret_cast<const int*>(o)[4]);
+      }
+      store_partial(pf, pi, plane, at + r, m, l, ll, bv, bi);
+    }
+  }
+}
+
+// One thread per row: combine the S splits in vocabulary order.
+__global__ void xent_fwd_merge_kernel(const float* __restrict__ pf, const int* __restrict__ pi, int N, int S,
+                                      float* __restrict__ nll, float* __restrict__ lse, int* __restrict__ am) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= N) return;
+  const size_t plane = (size_t)S * N;
+  float m = -INFINITY, l = 0.f, ll = 0.f, bv = -INFINITY;
+  int bi = INT_MAX;
+  for (int s = 0; s < S; ++s) {
+    const size_t at = (size_t)s * N + row;
+    lse_merge(m, l, pf[at], pf[plane + at]);
+    ll += pf[2 * plane + at];
+    argmax_merge(bv, bi, pf[3 * plane + at], pi[at]);
+  }
+  const float z = m + logf(l);
+  lse[row] = z;
+  nll[row] = z - ll;
+  am[row] = bi;
+}
+
+// K4's shared memory allowed above 48 KB: set once a device, since the
+// launch's host time counts beside its device time.
+template <int HID>
+cudaError_t fwd_attributes() {
+  return vb::once_a_device([] {
+    return cudaFuncSetAttribute(xent_fwd_kernel<HID>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)Fwd<HID>::SMEM);
+  });
+}
 
 template <int HID>
 int launch_fwd(const void* x, const void* E, const void* bias, const void* labels, int N, int V, int S, int vbs,
                void* pf, void* pi, void* nll, void* lse, void* am, cudaStream_t st) {
-  constexpr size_t smem = fwd_smem<HID>();
-  cudaError_t err = cudaFuncSetAttribute(xent_fwd_kernel<HID>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using G = Fwd<HID>;
+  cudaError_t err = fwd_attributes<HID>();
   if (err != cudaSuccess) return (int)err;
-  xent_fwd_kernel<HID><<<dim3(cdiv(N, Geo<HID>::FWD_ROWS), S), NTHREADS, smem, st>>>(
+  xent_fwd_kernel<HID><<<dim3(cdiv(N, G::ROWS), S), NTHREADS, G::SMEM, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(E), static_cast<const float*>(bias),
       static_cast<const int*>(labels), N, V, vbs, static_cast<float*>(pf), static_cast<int*>(pi));
   err = cudaGetLastError();
@@ -664,13 +842,18 @@ int launch_fwd(const void* x, const void* E, const void* bias, const void* label
   return (int)cudaGetLastError();
 }
 
-// K5 (kernel 0) or K6 (kernel 1) at width hid, or nullptr.
-const void* bwd_kernel_of(int kernel, int hid) {
-  if (hid == 768) return kernel == 0 ? (const void*)xent_bwd_kernel<768, false>
-                                     : (kernel == 1 ? (const void*)xent_bwd_kernel<768, true> : nullptr);
-  if (hid == 1024) return kernel == 0 ? (const void*)xent_bwd_kernel<1024, false>
-                                      : (kernel == 1 ? (const void*)xent_bwd_kernel<1024, true> : nullptr);
-  return nullptr;
+// K5 (kernel 0), K6 (kernel 1) or K4 (kernel 2) at width hid and its dynamic
+// shared memory, or nullptr.
+const void* kernel_of(int kernel, int hid, size_t* bytes) {
+  if (hid != 768 && hid != 1024) return nullptr;
+  const bool base = hid == 768;
+  *bytes = kernel == 2 ? (base ? Fwd<768>::SMEM : Fwd<1024>::SMEM) : (base ? Bwd<768>::SMEM : Bwd<1024>::SMEM);
+  switch (kernel) {
+    case 0: return base ? (const void*)xent_bwd_kernel<768, false> : (const void*)xent_bwd_kernel<1024, false>;
+    case 1: return base ? (const void*)xent_bwd_kernel<768, true> : (const void*)xent_bwd_kernel<1024, true>;
+    case 2: return base ? (const void*)xent_fwd_kernel<768> : (const void*)xent_fwd_kernel<1024>;
+    default: return nullptr;
+  }
 }
 
 template <int HID>
@@ -710,24 +893,24 @@ int launch_de(const void* x, const void* E, const void* bias, const void* labels
 
 // The tiling the wrapper needs to check inputs and size the grids and the
 // split partials, at hidden width hid: 0 hid itself if the kernels take it
-// (else -1), 1 K4's rows per block, 2 K5/K6's resident rows per block, 3
+// (else -1), 1 K4's x rows per block, 2 K5/K6's resident rows per block, 3
 // K4's vocabulary rows per tile, 4 K5/K6's streamed rows per tile, 5 the
 // result columns a K5/K6 block owns.
 extern "C" int vb_xent_geometry(int which, int hid) {
   if (hid != 768 && hid != 1024) return -1;
   const bool base = hid == 768;
-  const int g[6] = {hid, base ? Geo<768>::FWD_ROWS : Geo<1024>::FWD_ROWS, RES, VB,
+  const int g[6] = {hid, base ? Fwd<768>::ROWS : Fwd<1024>::ROWS, RES, base ? Fwd<768>::T : Fwd<1024>::T,
                     base ? Bwd<768>::T : Bwd<1024>::T, base ? Bwd<768>::COLS : Bwd<1024>::COLS};
   return which >= 0 && which < 6 ? g[which] : -1;
 }
 
-// K5 (kernel 0) or K6 (kernel 1) at width hid: `what` 0 its registers a
-// thread, 1 its local (spill) bytes a thread, 2 its dynamic shared memory, 3
-// its resident blocks per SM. -1 on an error.
+// K5 (kernel 0), K6 (kernel 1) or K4 (kernel 2) at width hid: `what` 0 its
+// registers a thread, 1 its local (spill) bytes a thread, 2 its dynamic
+// shared memory, 3 its resident blocks per SM. -1 on an error.
 extern "C" int vb_xent_info(int kernel, int what, int hid) {
-  const void* fn = bwd_kernel_of(kernel, hid);
+  size_t bytes = 0;
+  const void* fn = kernel_of(kernel, hid, &bytes);
   if (fn == nullptr) return -1;
-  const size_t bytes = hid == 768 ? Bwd<768>::SMEM : Bwd<1024>::SMEM;
   if (what == 0 || what == 1) {
     cudaFuncAttributes attr;
     if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess) return -1;
@@ -743,6 +926,8 @@ extern "C" int vb_xent_info(int kernel, int what, int hid) {
   return -1;
 }
 
+// pf [4][S][N] fp32 and pi [S][N] int32 are scratch the caller allocates: S
+// vocabulary splits of vbs tiles each.
 extern "C" int vb_xent_fwd(const void* x, const void* E, const void* bias, const void* labels, int N, int V,
                            int hid, int S, int vbs, void* pf, void* pi, void* nll, void* lse, void* am, void* stream) {
   auto* f = hid == 1024 ? launch_fwd<1024> : (hid == 768 ? launch_fwd<768> : nullptr);

@@ -13,8 +13,13 @@ device memory, forward or backward.
 
 Kernels (``csrc/mlm_xent.cu``, design notes there):
 
-* K4, :func:`mlm_xent_fwd`, replaces ``_fwd_kernel`` (nll, lse, argmax):
-  ``mma.sync`` tiles, 64 rows x a vocabulary split a block.
+* K4, :func:`mlm_xent_fwd`, replaces ``_fwd_kernel`` (nll, lse, argmax),
+  on K5's tiling: a block of two warpgroups keeps 128 rows of x (64 at
+  width 1024) as ``wgmma`` A fragments in registers, streams the embedding
+  in 32-row tiles through a ring of ``cp.async`` copies, and keeps an online
+  (max, sum of exp, label logit, first-max argmax) per row; the vocabulary
+  is split across blocks (:func:`fwd_plan`) and a second pass merges the
+  splits in order.
 * K5, :func:`mlm_xent_dx`, replaces ``_dx_kernel``; K6,
   :func:`mlm_xent_de`, replaces ``_de_kernel`` (d embedding, d bias). Both
   are one Hopper kernel, bound by their two N x V x H products (288 GFLOP
@@ -38,6 +43,7 @@ has no counterpart: multi-GPU is ROADMAP.md A11.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -108,12 +114,38 @@ def _check_cuda_inputs(what, x, emb, bias, labels, *rows):
     return lib
 
 
+# K4's fixed cost of a block (its x rows loaded, the ring filled), in tiles'
+# time: the plan weighs more splits against it
+FWD_BLOCK_TILES = 4
+
+
 def splits(n_blocks: int, n_tiles: int, sms: int) -> Tuple[int, int]:
     """(splits, tiles per split) of n_tiles vocabulary tiles over n_blocks
     blocks a split: about four blocks per SM in all, no split empty."""
     target = 4 * sms
     per = -(-n_tiles // max(1, min(n_tiles, -(-target // n_blocks))))
     return -(-n_tiles // per), per
+
+
+def fwd_plan(N: int, V: int, H: int, rows: int, tile: int, sms: int) -> dict:
+    """K4's launch at N rows, V vocabulary rows and width H, for the
+    kernel's tiling (``rows`` rows of x a block, ``tile`` vocabulary rows a
+    tile: ``vb_xent_geometry`` 1, 3) on a card of ``sms`` SMs, one block an
+    SM: the splits that give the busiest SM the least work (its waves of
+    blocks times a block's tiles and FWD_BLOCK_TILES), the fewest on a tie.
+    Returns the grid (row blocks, splits), the tiles a split (``per``; split
+    s takes tiles [s per, s per + per)) and the shapes of the partials the
+    kernel writes, [4, splits, N] fp32 and [splits, N] int32."""
+    row_blocks, n_tiles = -(-N // rows), -(-V // tile)
+    best = None
+    for want in range(1, min(n_tiles, 8 * sms) + 1):
+        per = -(-n_tiles // want)
+        S = -(-n_tiles // per)  # no split empty
+        cost = -(-row_blocks * S // sms) * (per + FWD_BLOCK_TILES)
+        if best is None or cost < best[0]:
+            best = (cost, S, per)
+    _, S, per = best
+    return dict(grid=(row_blocks, S), per=per, tiles=n_tiles, pf_shape=(4, S, N), pi_shape=(S, N))
 
 
 def dx_plan(N: int, V: int, H: int, rows: int, tile: int, cols: int, sms: int) -> dict:
@@ -140,23 +172,38 @@ def _device(x, what):
     return x.device.type == "cuda"
 
 
+@functools.lru_cache(maxsize=None)
+def _fwd_plan_of(lib, N: int, V: int, H: int, sms: int) -> dict:
+    """K4's plan for a library's tiling: a pure function of the shape and
+    the card, worked out once (the wrapper's host time counts beside K4's)."""
+    return fwd_plan(N, V, H, lib.vb_xent_geometry(1, H), lib.vb_xent_geometry(3, H), sms)
+
+
+def launch_fwd(lib, x, emb, bias, labels, sms):
+    """Launch K4 on checked inputs: (the entry point's code, nll, lse,
+    argmax)."""
+    (N, H), V = x.shape, emb.shape[0]
+    plan = _fwd_plan_of(lib, N, V, H, sms)
+    pf = torch.empty(plan["pf_shape"], dtype=torch.float32, device=x.device)
+    pi = torch.empty(plan["pi_shape"], dtype=torch.int32, device=x.device)
+    nll = torch.empty(N, dtype=torch.float32, device=x.device)
+    lse = torch.empty(N, dtype=torch.float32, device=x.device)
+    am = torch.empty(N, dtype=torch.int32, device=x.device)
+    code = lib.vb_xent_fwd(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), N, V, H,
+                           plan["grid"][1], plan["per"], pf.data_ptr(), pi.data_ptr(), nll.data_ptr(),
+                           lse.data_ptr(), am.data_ptr(), _build.stream_ptr(x.device))
+    return code, nll, lse, am
+
+
 def mlm_xent_fwd(x, emb, bias, labels) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K4 wrapper: (nll [N] fp32, lse [N] fp32, argmax [N] int32)."""
+    """K4 wrapper: (nll [N] fp32, lse [N] fp32, argmax [N] int32). The kernel
+    writes per-split partial statistics; its second pass merges them in
+    vocabulary order."""
     what = "mlm xent forward (K4)"
     if not _device(x, what):
         return mlm_xent_fwd_reference(x, emb, bias, labels)
     lib = _check_cuda_inputs(what, x, emb, bias, labels)
-    N, V = x.shape[0], emb.shape[0]
-    H = x.shape[1]
-    S, per = splits(-(-N // lib.vb_xent_geometry(1, H)), -(-V // lib.vb_xent_geometry(3, H)), sm_count(x.device))
-    pf = torch.empty((4, S, N), dtype=torch.float32, device=x.device)
-    pi = torch.empty((S, N), dtype=torch.int32, device=x.device)
-    nll = torch.empty(N, dtype=torch.float32, device=x.device)
-    lse = torch.empty(N, dtype=torch.float32, device=x.device)
-    am = torch.empty(N, dtype=torch.int32, device=x.device)
-    code = lib.vb_xent_fwd(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), N, V, H, S, per,
-                           pf.data_ptr(), pi.data_ptr(), nll.data_ptr(), lse.data_ptr(), am.data_ptr(),
-                           _build.stream_ptr(x.device))
+    code, nll, lse, am = launch_fwd(lib, x, emb, bias, labels, sm_count(x.device))
     lib.check(code, what)
     mlm_xent_fwd.launches += 1
     return nll, lse, am

@@ -36,7 +36,8 @@ The Philox rate: ``csrc/bench/philox_rate.cu`` runs ``attn_philox`` with the
 kernels' four keep-bit compares in one wave of resident blocks and reads
 each block's SM clock (``clock64``): the cycles one warp's call takes a
 sub-partition, and from them what K1's and K2's warp calls at this shape
-would take alone. Every line carries the card's name and power limit; the
+would take alone. (Its second form, K3's counter and key, gives
+``chip_smoke.py`` K3's Philox bound.) Every line carries the card's name and power limit; the
 last line is the numbers as one JSON object. Runs only on the card: without
 one it exits with an error.
 """
@@ -67,6 +68,9 @@ BUILDS = {  # name: (source under csrc, nvcc defines)
     "philox rate": ("bench/philox_rate.cu", []),
 }
 PHILOX_THREADS, PHILOX_CALLS = 256, 4096
+# csrc/bench/philox_rate.cu's forms: attention dropout's calls (K1/K2), the
+# dropout mask's (K3)
+PHILOX_FORMS = {"attention": 0, "mask": 1}
 SUB_PARTITIONS = 4  # of an SM: each issues one warp instruction a cycle
 
 
@@ -97,13 +101,35 @@ def build_all():
         for fn in fns:
             getattr(libs[name], fn).argtypes = _build._SIGNATURES[fn]
             getattr(libs[name], fn).restype = ctypes.c_int
-    bench = libs["philox rate"]
-    bench.vb_philox_blocks_per_sm.argtypes = [ctypes.c_int]
-    bench.vb_philox_rate.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
-                                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    libs["philox rate"] = bind_philox_bench(paths["philox rate"])
+    return libs, seconds, "".join(text for _, _, text in results)
+
+
+def bind_philox_bench(path):
+    """Load a build of csrc/bench/philox_rate.cu with its entry points typed."""
+    bench = ctypes.CDLL(str(path))
+    bench.vb_philox_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    bench.vb_philox_rate.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+                                     ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     for fn in (bench.vb_philox_blocks_per_sm, bench.vb_philox_rate):
         fn.restype = ctypes.c_int
-    return libs, seconds, "".join(text for _, _, text in results)
+    return bench
+
+
+def build_philox_bench():
+    """csrc/bench/philox_rate.cu built alone (one nvcc, no PyTorch headers:
+    seconds) into ``_build/philox_bench/``; returns it loaded and typed."""
+    src, defines = BUILDS["philox rate"]
+    out = _build.BUILD_ROOT / "philox_bench"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    path = out / "philox_rate.so"
+    [(cmd, rc, text)] = _build._run_all([[_build.find_nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, *defines,
+                                          "-shared", "-I", str(_build.CSRC), str(_build.CSRC / src), "-o",
+                                          str(path)]])
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+    return bind_philox_bench(path)
 
 
 class PackedBuild:
@@ -278,22 +304,23 @@ def time_builds(builds, data):
     return times
 
 
-def philox_rate(lib, n_sm, card):
-    """Cycles one warp's attn_philox call (with its compares) takes an SM
-    sub-partition, and the effective SM clock, from one wave of blocks."""
+def philox_rate(lib, n_sm, card, form="attention"):
+    """Cycles one warp's Philox call of ``form`` (PHILOX_FORMS; with its
+    compares) takes an SM sub-partition, and the effective SM clock, from
+    one wave of blocks."""
     import torch
 
     from visualbert_torch.ops.philox import keep_threshold
 
-    per_sm = lib.vb_philox_blocks_per_sm(PHILOX_THREADS)
+    per_sm = lib.vb_philox_blocks_per_sm(PHILOX_FORMS[form], PHILOX_THREADS)
     if per_sm < 1:
-        raise RuntimeError("philox rate: no block fits an SM")
+        raise RuntimeError(f"philox rate ({form}): no block fits an SM")
     blocks = n_sm * per_sm
     dev = torch.device("cuda")
     sink = torch.empty(blocks * PHILOX_THREADS, dtype=torch.int32, device=dev)
     cycles = torch.empty(blocks, dtype=torch.int64, device=dev)
-    args = (blocks, PHILOX_THREADS, PHILOX_CALLS, SEED, keep_threshold(0.1), sink.data_ptr(), cycles.data_ptr(),
-            _build.stream_ptr(dev))
+    args = (PHILOX_FORMS[form], blocks, PHILOX_THREADS, PHILOX_CALLS, SEED, keep_threshold(0.1), sink.data_ptr(),
+            cycles.data_ptr(), _build.stream_ptr(dev))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for _ in range(2):  # the first launch warms up
         start.record()
@@ -301,13 +328,13 @@ def philox_rate(lib, n_sm, card):
         end.record()
         torch.cuda.synchronize()
         if code != 0:
-            raise RuntimeError(f"philox rate: CUDA error {code}")
+            raise RuntimeError(f"philox rate ({form}): CUDA error {code}")
     cyc = statistics.median(cycles.tolist())
     warp_calls = per_sm * PHILOX_THREADS // 32 * PHILOX_CALLS / SUB_PARTITIONS
     res = dict(blocks_per_sm=per_sm, cycles_per_warp_call=cyc / warp_calls, ms=start.elapsed_time(end),
                sm_ghz=cyc / (start.elapsed_time(end) * 1e6))
-    print(f"philox rate: {res['cycles_per_warp_call']:.2f} cycles a warp call a sub-partition ({per_sm} blocks of "
-          f"{PHILOX_THREADS} an SM, {PHILOX_CALLS} calls a thread, {res['ms']:.4f} ms, SM clock "
+    print(f"philox rate ({form}): {res['cycles_per_warp_call']:.2f} cycles a warp call a sub-partition ({per_sm} "
+          f"blocks of {PHILOX_THREADS} an SM, {PHILOX_CALLS} calls a thread, {res['ms']:.4f} ms, SM clock "
           f"{res['sm_ghz']:.3f} GHz by clock64 over the events)  [{card}]", flush=True)
     return res
 

@@ -1,11 +1,26 @@
-"""The steps of K5/K6's design (``csrc/mlm_xent.cu::xent_bwd_kernel``), left
-out in turn and timed beside the kernels as built, on one CUDA card:
+"""The steps of K4's and K5/K6's designs (``csrc/mlm_xent.cu::xent_fwd_kernel``
+and ``::xent_bwd_kernel``), left out in turn and timed beside the kernels as
+built, on one CUDA card:
 
     python -m visualbert_torch.tools.xent_steps [OTHER_CHECKOUT]
 
 At the main path's shapes and inputs (``chip_smoke.py``'s: N = 128 x 24 =
 3072 rows, V = 30522, H = 768, bf16, seeded), each build of
-``csrc/mlm_xent.cu`` alone with the switches of BUILDS:
+``csrc/mlm_xent.cu`` alone with the switches of BUILDS. K4's (FWD_BUILDS):
+
+* "fwd sync loads": ``-DVB_XENT_FWD_SYNC_LOADS``, plain loads and stores in
+  place of ``cp.async``: each thread waits for its copy of a tile before
+  its products of the tile three back, so no copy runs under them (right
+  results);
+* "fwd split K": ``-DVB_XENT_FWD_SPLIT_K``, width 768 on the form width 1024
+  takes: both warpgroups on the same 64 rows of x, each half of K, partial
+  logits exchanged in shared memory (K5's split), so a block keeps 64 rows
+  and reads E from L2 twice as often (right results);
+* "fwd no stats": ``-DVB_XENT_FWD_NO_STATS``, the logits only;
+* "fwd no logits": ``-DVB_XENT_FWD_NO_LOGITS``, the statistics of the bias
+  alone, no ``wgmma``: the copies and the statistics.
+
+K5/K6's:
 
 * "no copy": ``-DVB_XENT_NO_COPY``, no streamed tile after a block's first
   is copied (the kernel reads the first again): what the copies cost that
@@ -22,19 +37,29 @@ At the main path's shapes and inputs (``chip_smoke.py``'s: N = 128 x 24 =
 
 Given the root of another tree of the repository (an earlier commit
 unpacked with ``git archive``), the tool also builds that tree's
-``mlm_xent.cu`` alone and compares the machine code (SASS, ``cuobjdump``,
-as ``tools/attn_ab.py`` does) of the kernels whose source both trees share
-(K4's, at both widths, and K5's reduce pass) instruction by instruction.
+``mlm_xent.cu`` alone, compares the machine code (SASS, ``cuobjdump``, as
+``tools/attn_ab.py`` does) of the kernels whose source both trees share
+(K5's and K6's, at both widths, K5's reduce pass and K4's merge pass)
+instruction by instruction, and times that tree's K4 beside this one's in
+the same rounds ("other K4"), launched as its wrapper launched it (its own
+tiling from its ``vb_xent_geometry``, splits for four blocks an SM).
 
-A build with a step left out gives wrong results: the tool only times it,
-and holds the kernels as built against their plain versions first. K5 (its
-kernel and the reduce pass) and K6 are timed with CUDA events: ROUNDS
-rounds, each the best of 3 runs of 30 calls (``tools/attn_exp.py::
-best_ms``), the builds in turn, in reverse in every other round; the least
-and the largest round are printed, with each build's registers, local
-bytes, shared bytes and blocks an SM. Every line carries the card's name
-and power limit; the last line is the numbers as one JSON object. Runs only
-on the card: without one it exits with an error.
+K4 as built is also timed on the splits that fill one to four waves of
+one block an SM, at both widths ("K4 splits"), each printed with the
+busiest SM's tiles as ``ops/mlm_xent.py::fwd_plan`` models them (a block's
+tiles plus FWD_BLOCK_TILES, times its waves) and which one the plan takes.
+
+A build with a step left out may give wrong results: the tool holds the
+kernels as built against their plain versions first, and the builds marked
+right above against the kernels as built. K4 (its kernel and the merge
+pass), K5 (its kernel and the reduce pass) and K6 are timed with CUDA
+events: ROUNDS rounds, each the best of 3 runs of 30 calls
+(``tools/attn_exp.py::best_ms``), the builds in turn, in reverse in every
+other round; K4 in the K4 builds, K5/K6 in theirs, all three as built. The
+least and the largest round are printed, with each build's registers, local
+bytes, shared bytes and blocks an SM. Every line carries the card's name and
+power limit; the last line is the numbers as one JSON object. Runs only on
+the card: without one it exits with an error.
 """
 
 from __future__ import annotations
@@ -48,7 +73,15 @@ from visualbert_torch.ops import _build
 ROUNDS = 3
 H = 768
 DX_TOL, DE_TOL, DBIAS_TOL = 1.2e-2, 1.8e-2, 2e-6  # chip_smoke.py's limits for K5/K6
-BUILDS = {
+XENT_TOL = 3e-5  # chip_smoke.py's limit for K4's nll and lse (absolute)
+FWD_BUILDS = {
+    "fwd sync loads": ["-DVB_XENT_FWD_SYNC_LOADS"],
+    "fwd split K": ["-DVB_XENT_FWD_SPLIT_K"],
+    "fwd no stats": ["-DVB_XENT_FWD_NO_STATS"],
+    "fwd no logits": ["-DVB_XENT_FWD_NO_LOGITS"],
+}
+EXACT_FWD_BUILDS = ("fwd sync loads", "fwd split K")  # right results: held against K4 as built
+BWD_BUILDS = {
     "no copy": ["-DVB_XENT_NO_COPY"],
     "no logits": ["-DVB_XENT_NO_LOGITS"],
     "no product": ["-DVB_XENT_NO_PRODUCT"],
@@ -58,12 +91,23 @@ BUILDS = {
     "no copy, no logits, no product, no dlog": ["-DVB_XENT_NO_COPY", "-DVB_XENT_NO_LOGITS", "-DVB_XENT_NO_PRODUCT",
                                                 "-DVB_XENT_NO_DLOG"],
 }
-FNS = ("vb_xent_geometry", "vb_xent_info", "vb_xent_dx", "vb_xent_de")
+BUILDS = {**FWD_BUILDS, **BWD_BUILDS}
+FNS = ("vb_xent_geometry", "vb_xent_info", "vb_xent_fwd", "vb_xent_dx", "vb_xent_de")
 SHARED_KERNELS = {  # the kernels of mlm_xent.cu that an earlier tree may share: part of each mangled name
-    "K4 forward, 768": "xent_fwd_kernelILi768", "K4 forward, 1024": "xent_fwd_kernelILi1024",
-    "K4 merge": "xent_fwd_merge_kernel", "K5 reduce, 768": "xent_dx_reduce_kernelILi768",
-    "K5 reduce, 1024": "xent_dx_reduce_kernelILi1024",
+    "K5, 768": "xent_bwd_kernelILi768ELb0E", "K6, 768": "xent_bwd_kernelILi768ELb1E",
+    "K5, 1024": "xent_bwd_kernelILi1024ELb0E", "K6, 1024": "xent_bwd_kernelILi1024ELb1E",
+    "K5 reduce, 768": "xent_dx_reduce_kernelILi768", "K5 reduce, 1024": "xent_dx_reduce_kernelILi1024",
+    "K4 merge": "xent_fwd_merge_kernel",
 }
+
+
+def bind(path):
+    """Load a build of csrc/mlm_xent.cu with the entry points of FNS typed."""
+    lib = ctypes.CDLL(str(path))
+    for fn in FNS:
+        getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
 
 
 def build_all():
@@ -84,27 +128,20 @@ def build_all():
     for cmd, rc, text in results:
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
-    libs = {name: ctypes.CDLL(str(p)) for name, p in paths.items()}
-    for lib in libs.values():
-        for fn in FNS:
-            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-    return libs, seconds
+    return {name: bind(p) for name, p in paths.items()}, seconds
 
 
 def compare_sass(other, card):
     """Build ``other``'s mlm_xent.cu alone and compare the SASS of
-    SHARED_KERNELS with this tree's; {kernel: (same, instructions here,
-    instructions there)}, or None without cuobjdump."""
+    SHARED_KERNELS with this tree's; ({kernel: (same, instructions here,
+    instructions there)}, or None without cuobjdump; the other tree's
+    library)."""
     import subprocess
     from pathlib import Path
 
     from visualbert_torch.tools.attn_ab import sass_of
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
-        print(f"sass: no cuobjdump, not compared  [{card}]", flush=True)
-        return None
     out = _build.BUILD_ROOT / "xent_steps"
     trees = {"this": _build.CSRC, "other": Path(other) / "visualbert_torch" / "csrc"}
     paths = {name: out / f"sass_{name}.so" for name in trees}
@@ -113,6 +150,9 @@ def compare_sass(other, card):
                                           for name, src in trees.items()]):
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+    if not Path(tool).exists():
+        print(f"sass: no cuobjdump, not compared  [{card}]", flush=True)
+        return None, bind(paths["other"])
     sass = {name: sass_of(subprocess.run([tool, "-sass", str(p)], capture_output=True, text=True,
                                          check=True).stdout, SHARED_KERNELS) for name, p in paths.items()}
     res = {}
@@ -121,12 +161,12 @@ def compare_sass(other, card):
         res[k] = (bool(a) and a == b, len(a), len(b))
         print(f"sass of {k}: {len(a)} instructions here, {len(b)} in {other}, the same: {res[k][0]}  [{card}]",
               flush=True)
-    return res
+    return res, bind(paths["other"])
 
 
-def inputs(torch, device):
-    """chip_smoke.py's K4-K6 inputs at width H: x, embedding, bias, labels,
-    g, and the plain lse."""
+def inputs(torch, device, width=H):
+    """chip_smoke.py's K4-K6 inputs at ``width``: x, embedding, bias,
+    labels, g, and the plain lse."""
     import numpy as np
 
     from visualbert_torch.ops import mlm_xent as xe
@@ -134,8 +174,8 @@ def inputs(torch, device):
 
     N, V = B * N_PRED, 30522
     rng = np.random.RandomState(1)
-    x = torch.tensor(rng.randn(N, H), dtype=torch.bfloat16, device=device)
-    emb = torch.tensor(rng.randn(V, H) * 0.05, dtype=torch.bfloat16, device=device)
+    x = torch.tensor(rng.randn(N, width), dtype=torch.bfloat16, device=device)
+    emb = torch.tensor(rng.randn(V, width) * 0.05, dtype=torch.bfloat16, device=device)
     bias = torch.tensor(rng.randn(V) * 0.1, dtype=torch.float32, device=device)
     labels = rng.randint(0, V, N)
     labels[rng.rand(N) < 0.15] = -1
@@ -145,13 +185,83 @@ def inputs(torch, device):
     return x, emb, bias, lab, lse, g
 
 
+def check(code, what):
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def fwd_on(lib, data, S, per):
+    """K4 from one library on S vocabulary splits of ``per`` tiles, its
+    partials allocated here as its wrapper allocates them."""
+    import torch
+
+    x, emb, bias, lab = data[:4]
+    (N, H_), V = x.shape, emb.shape[0]
+    pf = torch.empty((4, S, N), dtype=torch.float32, device=x.device)
+    pi = torch.empty((S, N), dtype=torch.int32, device=x.device)
+    out = [torch.empty(N, dtype=dt, device=x.device) for dt in (torch.float32, torch.float32, torch.int32)]
+    stream = _build.stream_ptr(x.device)
+
+    def fwd(_):
+        check(lib.vb_xent_fwd(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), lab.data_ptr(), N, V, H_, S, per,
+                              pf.data_ptr(), pi.data_ptr(), *(t.data_ptr() for t in out), stream), "K4")
+        return out
+
+    return fwd
+
+
+def first_design_call(lib, data, sms):
+    """K4 of a library launched as K4's first design's wrapper launched it:
+    the library's own tiling, splits for about four blocks an SM."""
+    from visualbert_torch.ops import mlm_xent as xe
+
+    (N, H_), V = data[0].shape, data[1].shape[0]
+    rows, tile = lib.vb_xent_geometry(1, H_), lib.vb_xent_geometry(3, H_)
+    return fwd_on(lib, data, *xe.splits(-(-N // rows), -(-V // tile), sms))
+
+
+def sweep_splits(N, V, rows, tile, sms):
+    """The vocabulary splits of K4 at N rows and V vocabulary rows, for a
+    tiling of ``rows`` x rows a block and ``tile`` vocabulary rows a tile,
+    that fill one to four waves of one block an SM on ``sms`` SMs: a list of
+    (splits, tiles a split, waves, the busiest SM's tiles as
+    ops/mlm_xent.py::fwd_plan models them)."""
+    from visualbert_torch.ops import mlm_xent as xe
+
+    row_blocks, n_tiles = -(-N // rows), -(-V // tile)
+    out = []
+    for waves in range(1, 5):
+        per = -(-n_tiles // max(1, waves * sms // row_blocks))
+        S = -(-n_tiles // per)  # no split empty
+        w = -(-row_blocks * S // sms)
+        out.append((S, per, w, w * (per + xe.FWD_BLOCK_TILES)))
+    return out
+
+
+def split_sweep(lib, data, sms):
+    """K4 of a library on each of :func:`sweep_splits` at ``data``'s shape:
+    ({name: launch}, {name: its sweep_splits entry})."""
+    (N, H_), V = data[0].shape, data[1].shape[0]
+    facts = {f"{H_}: {f[0]} splits": f
+             for f in sweep_splits(N, V, lib.vb_xent_geometry(1, H_), lib.vb_xent_geometry(3, H_), sms)}
+    return {name: fwd_on(lib, data, f[0], f[1]) for name, f in facts.items()}, facts
+
+
+def fwd_call(lib, data, sms):
+    """K4 from one library, launched as its wrapper launches it."""
+    from visualbert_torch.ops import mlm_xent as xe
+
+    def fwd(_):
+        code, *out = xe.launch_fwd(lib, *data[:4], sms)
+        check(code, "K4")
+        return out
+
+    return fwd
+
+
 def calls(lib, data, sms):
     """K5 and K6 from one library, launched as their wrappers launch them."""
     from visualbert_torch.ops import mlm_xent as xe
-
-    def check(code, what):
-        if code != 0:
-            raise RuntimeError(f"{what}: CUDA error {code}")
 
     def dx(_):
         code, out = xe.launch_dx(lib, *data, sms)
@@ -191,33 +301,69 @@ def main(argv=None):
     N, V = data[0].shape[0], data[1].shape[0]
     print(f"xent_steps: N={N} V={V} H={H}; {len(BUILDS)} builds in {seconds:.1f} s  [{card}]", flush=True)
 
-    dx_fn, de_fn = calls(builds["as built"], data, sms)
+    built = builds["as built"]
+    dx_fn, de_fn = calls(built, data, sms)
     dx, (de, db) = dx_fn(0), de_fn(0)
+    nll, lse, am = fwd_call(built, data, sms)(0)
+    nll_r, lse_r, _ = xe.mlm_xent_fwd_reference(*data[:4])
     errors = (rel(dx, xe.mlm_xent_dx_reference(*data)),) + tuple(
         rel(a, b) for a, b in zip((de, db), xe.mlm_xent_de_reference(*data)))
+    e_fwd = max(float((nll - nll_r).abs().max()), float((lse - lse_r).abs().max()))
     torch.cuda.synchronize()
-    print(f"as built against the plain versions: dx {errors[0]:.3e} (tol {DX_TOL}), dE {errors[1]:.3e} (tol "
-          f"{DE_TOL}), db {errors[2]:.3e} (tol {DBIAS_TOL})  [{card}]", flush=True)
-    if not (errors[0] <= DX_TOL and errors[1] <= DE_TOL and errors[2] <= DBIAS_TOL):
+    print(f"as built against the plain versions: nll, lse {e_fwd:.3e} (tol {XENT_TOL}, absolute), dx {errors[0]:.3e} "
+          f"(tol {DX_TOL}), dE {errors[1]:.3e} (tol {DE_TOL}), db {errors[2]:.3e} (tol {DBIAS_TOL})  [{card}]",
+          flush=True)
+    if not (e_fwd <= XENT_TOL and errors[0] <= DX_TOL and errors[1] <= DE_TOL and errors[2] <= DBIAS_TOL):
         raise SystemExit("xent_steps: the kernels as built disagree with their plain versions")
-    del dx, de, db
+    for name in EXACT_FWD_BUILDS:
+        same = all(torch.equal(a, b) for a, b in zip(fwd_call(builds[name], data, sms)(0), (nll, lse, am)))
+        print(f"{name}: nll, lse and argmax equal K4's as built: {same}  [{card}]", flush=True)
+        if name != "fwd split K" and not same:  # the same sums in the same order: the same bits
+            raise SystemExit(f"xent_steps: {name} differs from K4 as built")
+        if name == "fwd split K":
+            got = fwd_call(builds[name], data, sms)(0)
+            e = max(float((got[0] - nll_r).abs().max()), float((got[1] - lse_r).abs().max()))
+            if e > XENT_TOL:
+                raise SystemExit(f"xent_steps: {name} disagrees with the plain version ({e:.3e})")
+    del dx, de, db, nll, lse, am
 
-    info = {name: [[lib.vb_xent_info(k, w, H) for w in range(4)] for k in (0, 1)] for name, lib in builds.items()}
-    fns = {name: calls(lib, data, sms) for name, lib in builds.items()}
-    times = {name: ([], []) for name in builds}
-    order = list(builds)
-    for r in range(ROUNDS):
-        for name in (order if r % 2 == 0 else order[::-1]):
-            for k, fn in enumerate(fns[name]):
-                times[name][k].append(best_ms(fn))
-    for name in builds:
-        k5, k6 = times[name]
-        print(f"{name}: K5 {min(k5):.4f}-{max(k5):.4f} ms, K6 {min(k6):.4f}-{max(k6):.4f} ms; registers, local "
-              f"bytes, shared bytes, blocks an SM of K5 and K6: {info[name]}  [{card}]", flush=True)
-    result = dict(card=card, errors=errors, info=info,
-                  ms={name: dict(K5=times[name][0], K6=times[name][1]) for name in builds})
+    sass = other_lib = None
     if argv:
-        result["sass"] = compare_sass(argv[0], card)
+        sass, other_lib = compare_sass(argv[0], card)
+    # kernel -> {build: launch}: K4 in its builds, K5/K6 in theirs, all three as built
+    fns = {"K4": {name: fwd_call(builds[name], data, sms) for name in ("as built", *FWD_BUILDS)},
+           "K5": {}, "K6": {}}
+    for name in ("as built", *BWD_BUILDS):
+        fns["K5"][name], fns["K6"][name] = calls(builds[name], data, sms)
+    if other_lib is not None:  # the other tree's K4 as its wrapper launched it
+        fns["K4"]["other K4"] = first_design_call(other_lib, data, sms)
+        builds["other K4"] = other_lib
+    # K4 as built on other splits, at both widths: what FWD_BLOCK_TILES models
+    fns["K4 splits"], splits = {}, {}
+    for width_data in (data, inputs(torch, dev, 1024)):
+        sweep, facts = split_sweep(built, width_data, sms)
+        fns["K4 splits"].update(sweep)
+        splits.update(facts)
+    info = {name: [[lib.vb_xent_info(k, w, H) for w in range(4)] for k in (0, 1, 2)] for name, lib in builds.items()}
+    jobs = [(k, name) for k in fns for name in fns[k]]
+    times = {k: {name: [] for name in fns[k]} for k in fns}
+    for r in range(ROUNDS):
+        for k, name in (jobs if r % 2 == 0 else jobs[::-1]):
+            times[k][name].append(best_ms(fns[k][name]))
+    for k in fns:
+        for name, ms in times[k].items():
+            if k == "K4 splits":
+                S, per, w, tiles = splits[name]
+                width = int(name.split(":")[0])
+                chosen = xe.fwd_plan(N, V, width, built.vb_xent_geometry(1, width), built.vb_xent_geometry(3, width),
+                                     sms)["grid"][1] == S
+                print(f"{k} {name} of {per} tiles, {w} waves, the busiest SM's modelled tiles {tiles}"
+                      f"{' (fwd_plan takes it)' if chosen else ''}: {min(ms):.4f}-{max(ms):.4f} ms  [{card}]",
+                      flush=True)
+                continue
+            print(f"{k} {name}: {min(ms):.4f}-{max(ms):.4f} ms; registers, local bytes, shared bytes, blocks an SM of "
+                  f"K5, K6, K4: {info[name]}  [{card}]", flush=True)
+    result = dict(card=card, errors=errors, fwd_error=e_fwd, info=info, ms=times, sass=sass, splits=splits)
     print(json.dumps(result), flush=True)
     return result
 
