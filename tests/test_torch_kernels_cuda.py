@@ -33,9 +33,14 @@ drop exactly the plain mask's positions and refuse T = 1024; K11/K12 give
 K1/K2's outputs bit for bit on the same numbers with a zero QKV bias, and
 K14 gives the same dqkv from K13's padded-stride probabilities and from a
 contiguous copy. The
-attention experiment kernels (K15 with every variant of ``VARIANTS`` and
+attention experiment kernels (``csrc/flash_attention_exp.cu``, K1/K2's
+design in bodies of their own: K15 with every variant of ``VARIANTS`` and
 two more knob settings, so every compiled flag combination runs; K16 at
-every hg that divides H) are held as K1/K2 are, at dropout 0 and 0.1.
+every hg that divides H) are held as K1/K2 are, at dropout 0 and 0.1; each
+numerics flag also at T in {1, 37, 228, 272} and its largest T (704, 448
+for prescale's backward, refused one past it); with the flags off every
+schedule gives K1/K2's out, stats and dqkv bit for bit; they repeat bit for
+bit and none of their 12 kernels spills (``vb_attn_exp_info``).
 K1/K2 (``csrc/flash_attention_packed.cu``) also run at T = 1, 272 and 512,
 repeat bit for bit, drop exactly the plain mask's positions, and refuse T =
 1024; ``tools/attn_steps.py``'s builds of their source with a design step
@@ -54,6 +59,7 @@ import numpy as np
 import pytest
 import torch
 
+from visualbert_torch.ops import _build
 from visualbert_torch.ops import attention_exp as ae
 from visualbert_torch.ops import flash_attention as fa
 from visualbert_torch.ops import layer_norm as ln
@@ -500,6 +506,97 @@ def test_hgrid_kernels_match_plain(cuda, hg, B, T, H, rate):
     want_bwd = ae.attn_hgrid_bwd_reference(qkv, qb, key_bias, dout, *want_fwd, H, rate, 99, hg)
     torch.cuda.synchronize()
     assert_attention_close(got_fwd, want_fwd, got_bwd, want_bwd)
+
+
+NUMERICS = ("prescale", "nomax", "fdrop")
+# the schedules without a numerics flag: each must be K1/K2 bit for bit
+EXP_SCHEDULES = ([("attn_exp", name, kw or {}) for name, kw in ae.VARIANTS.items() if not set(kw or {}) & set(NUMERICS)]
+                 + [("attn_hgrid", f"hg={hg}", dict(hg=hg)) for hg in (1, 2, 3, 4, 6, 12)])
+
+
+@pytest.mark.parametrize("B,T", [(8, 228), (8, 37)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("kernel,name,kw", EXP_SCHEDULES, ids=[n for _, n, _ in EXP_SCHEDULES])
+def test_experiment_schedules_equal_k1_k2_bit_for_bit(cuda, kernel, name, kw, B, T, rate):
+    """K15/K16 run K1/K2's tile code and sums in K1/K2's order whatever the
+    schedule: out, stats and dqkv equal K1/K2's (the bias gradient is summed
+    over other blocks and held to a tolerance elsewhere)."""
+    H = 12
+    qkv, qb, key_bias, dout = attention_inputs(B, T, H, cuda)
+    o1, s1 = fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, 7)
+    d2, _ = fa.packed_attention_bwd(qkv, qb, key_bias, dout, o1, s1, H, rate, 7)
+    fwd, bwd = getattr(ae, kernel + "_fwd"), getattr(ae, kernel + "_bwd")
+    o, s = fwd(qkv, qb, key_bias, H, rate, 7, **kw)
+    d, _ = bwd(qkv, qb, key_bias, dout, o1, s1.view(s.shape), H, rate, 7, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o1)
+    assert torch.equal(s.reshape(s1.shape), s1)
+    assert torch.equal(d, d2)
+
+
+EXP_FLAGS = {name: kw for name, kw in EXP_VARIANTS.items() if set(kw or {}) & set(NUMERICS)}
+
+
+@pytest.mark.parametrize("T", [1, 37, 228, 272, "largest"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("name", list(EXP_FLAGS))
+def test_each_numerics_flag_matches_plain_at_every_t(cuda, name, T, rate):
+    kw = EXP_FLAGS[name]
+    if T == "largest":
+        T = ae.PRESCALE_MAX_T if kw.get("prescale") else 704
+    B, H = 2, 2
+    qkv, qb, key_bias, dout = attention_inputs(B, T, H, cuda)
+    # a row whose every key is masked (row 1 at T = 1) has no defined nomax
+    # output: its sum underflows to 0 and out is 0 / 0 in the JAX variant
+    # and the plain version alike, so every row keeps its first key
+    key_bias[:, 0] = 0.0
+    got_fwd = ae.attn_exp_fwd(qkv, qb, key_bias, H, rate, 99, **kw)
+    want_fwd = ae.attn_exp_fwd_reference(qkv, qb, key_bias, H, rate, 99, **kw)
+    got_bwd = ae.attn_exp_bwd(qkv, qb, key_bias, dout, *want_fwd, H, rate, 99, **kw)
+    want_bwd = ae.attn_exp_bwd_reference(qkv, qb, key_bias, dout, *want_fwd, H, rate, 99, **kw)
+    torch.cuda.synchronize()
+    assert_attention_close(got_fwd, want_fwd, got_bwd, want_bwd)
+
+
+def test_experiment_kernels_refuse_past_their_largest_t(cuda):
+    """Prescale's dK/dV pass keeps a second, scaled copy of the queries: its
+    backward takes T up to PRESCALE_MAX_T, the shared memory
+    vb_attn_exp_info reports; every other kernel takes T up to 704."""
+    lib = _build.library()
+    assert lib.vb_attn_exp_info(2, 2, ae.PRESCALE_MAX_T, 1, 0) <= fa.MAX_SMEM_BYTES
+    assert lib.vb_attn_exp_info(2, 2, ae.PRESCALE_MAX_T + 1, 1, 0) > fa.MAX_SMEM_BYTES
+    assert lib.vb_attn_exp_smem_bytes(704) <= fa.MAX_SMEM_BYTES < lib.vb_attn_exp_smem_bytes(705)
+    T = ae.PRESCALE_MAX_T + 1
+    qkv, qb, key_bias, dout = attention_inputs(1, T, 1, cuda)
+    out, stats = ae.attn_exp_fwd(qkv, qb, key_bias, 1, 0.1, 3, prescale=True)
+    with pytest.raises(ValueError, match=f"T up to {ae.PRESCALE_MAX_T}"):
+        ae.attn_exp_bwd(qkv, qb, key_bias, dout, out, stats, 1, 0.1, 3, prescale=True)
+    qkv, qb, key_bias, dout = attention_inputs(1, 705, 1, cuda)
+    with pytest.raises(ValueError, match="more shared memory"):
+        ae.attn_hgrid_fwd(qkv, qb, key_bias, 1, 0.1, 3, 1)
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+@pytest.mark.parametrize("prescale", [0, 1])
+@pytest.mark.parametrize("flag", [0, 1])
+def test_experiment_kernels_do_not_spill(cuda, which, prescale, flag):
+    lib = _build.library()
+    for T in (228, ae.PRESCALE_MAX_T if prescale else 704):
+        regs, local, smem, per_sm = (lib.vb_attn_exp_info(which, w, T, prescale, flag) for w in range(4))
+        assert 0 < regs <= 255 and local == 0 and 0 < smem <= fa.MAX_SMEM_BYTES and per_sm >= 1
+
+
+@pytest.mark.parametrize("name", ["prescale_nomax", "fdrop_prescale", "nomax", "bb2_g6", "nostack", "g5"])
+def test_experiment_kernels_repeat_bit_for_bit(cuda, name):
+    kw = EXP_VARIANTS[name] or {}
+    qkv, qb, key_bias, dout = attention_inputs(4, 228, 12, cuda)
+    runs = []
+    for _ in range(2):
+        out, stats = ae.attn_exp_fwd(qkv, qb, key_bias, 12, 0.1, 7, **kw)
+        dqkv, dqb = ae.attn_exp_bwd(qkv, qb, key_bias, dout, out, stats, 12, 0.1, 7, **kw)
+        torch.cuda.synchronize()
+        runs.append((out, stats, dqkv, dqb))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_attention_dropout_changes_output(cuda):

@@ -54,7 +54,8 @@
 //    wgmma reads shared memory itself. The accumulators take 64-128 fp32
 //    registers a thread.
 // The building blocks of steps 2-4 (swizzle, cp.async, wgmma, Philox
-// sharing, the epilogue) live in hopper_attn.cuh, which K13/K14 share.
+// sharing, the bias add, the epilogue) live in hopper_attn.cuh, which
+// K11-K16 share.
 // tools/attn_steps.py builds this source again with step 2 or step 3 left
 // out (-DVB_PACKED_PHILOX_PER_ROW, -DVB_PACKED_SYNC_LOADS, switches of that
 // header) and times each build beside this one; the library never defines
@@ -64,49 +65,6 @@
 namespace {
 
 using namespace vb_hopper;
-
-// Add the bias chunk (this thread's chunk threadIdx.x % 8 of the head's
-// bias) to the chunks this thread copied into a landed tile.
-__device__ __forceinline__ void add_bias(unsigned char* tile, uint4 bias, int t0, int T) {
-  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&bias);
-#pragma unroll
-  for (int idx = threadIdx.x; idx < TILE * 8; idx += NT) {
-    const int r = idx >> 3, c = idx & 7;
-    if (t0 + r < T) {
-      uint4* p = reinterpret_cast<uint4*>(tile + swz(r, c));
-      uint4 v = *p;
-      __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&v);
-      uint32_t w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 a = __bfloat1622float2(x[e]), b = __bfloat1622float2(y[e]);
-        w[e] = pack_bf16(a.x + b.x, a.y + b.y);
-      }
-      *p = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
-}
-
-__device__ __forceinline__ uint4 bias_chunk(const bf16* __restrict__ qb, int h, int j) {
-  return *reinterpret_cast<const uint4*>(qb + (3 * h + j) * D + (threadIdx.x & 7) * 8);
-}
-
-// Add the column sums over this warp's valid rows of bf16(acc * scale) to
-// red[warp * D + col]; the g == 0 lanes own the columns, in a fixed order.
-__device__ __forceinline__ void colsum_add(const float (&acc)[32], float scale, bool ok0, bool ok1, float* red,
-                                           int warp, int g, int tq) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v = (ok0 ? round_bf16(acc[4 * nt + e] * scale) : 0.f) + (ok1 ? round_bf16(acc[4 * nt + 2 + e] * scale) : 0.f);
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (g == 0) red[warp * D + nt * 8 + 2 * tq + e] += v;
-    }
-  }
-}
 
 // ---------------------------------------------------------------- forward
 

@@ -1,6 +1,6 @@
 // Hopper building blocks of the attention kernels designed for sm_90a
 // (flash_attention_packed.cu: K1/K2; flash_attention.cu: K11/K12;
-// flash_attention_sp.cu: K13/K14).
+// flash_attention_sp.cu: K13/K14; flash_attention_exp.cu: K15/K16).
 //
 // A block is one warpgroup (4 warps, 128 threads). Every D = 64 bf16 row is
 // one 128-byte swizzle row, and a tile is 64 such rows (wgmma's m64) in a
@@ -253,6 +253,49 @@ __device__ __forceinline__ uint32_t keep_bits(uint32_t seed, uint32_t bh, int ro
 }
 
 // ------------------------------------------------------------- epilogues
+
+// Add the bias chunk (this thread's chunk threadIdx.x % 8 of the head's
+// bias) to the chunks this thread copied into a landed tile.
+__device__ __forceinline__ void add_bias(unsigned char* tile, uint4 bias, int t0, int T) {
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&bias);
+#pragma unroll
+  for (int idx = threadIdx.x; idx < TILE * 8; idx += NT) {
+    const int r = idx >> 3, c = idx & 7;
+    if (t0 + r < T) {
+      uint4* p = reinterpret_cast<uint4*>(tile + swz(r, c));
+      uint4 v = *p;
+      __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&v);
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = __bfloat1622float2(x[e]), b = __bfloat1622float2(y[e]);
+        w[e] = pack_bf16(a.x + b.x, a.y + b.y);
+      }
+      *p = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ uint4 bias_chunk(const bf16* __restrict__ qb, int h, int j) {
+  return *reinterpret_cast<const uint4*>(qb + (3 * h + j) * D + (threadIdx.x & 7) * 8);
+}
+
+// Add the column sums over this warp's valid rows of bf16(acc * scale) to
+// red[warp * D + col]; the g == 0 lanes own the columns, in a fixed order.
+__device__ __forceinline__ void colsum_add(const float (&acc)[32], float scale, bool ok0, bool ok1, float* red,
+                                           int warp, int g, int tq) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = (ok0 ? round_bf16(acc[4 * nt + e] * scale) : 0.f) + (ok1 ? round_bf16(acc[4 * nt + 2 + e] * scale) : 0.f);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) red[warp * D + nt * 8 + 2 * tq + e] += v;
+    }
+  }
+}
 
 // Store a 64 x 64 accumulator times `scale` as bf16 (this thread's rows
 // row0, row1 at dst + row * ld).

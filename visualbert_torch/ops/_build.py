@@ -51,6 +51,7 @@ _SIGNATURES = {  # every C entry point of the sources: its argument types
     "vb_attn_sp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_sp_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_exp_smem_bytes": [_I],
+    "vb_attn_exp_info": [_I, _I, _I, _I, _I],
     "vb_attn_exp_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_exp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_xent_geometry": [_I, _I],

@@ -21,15 +21,23 @@ with other numerics or another schedule.
   ``make_hgrid``'s: one batch row x ``hg`` heads a block in both passes;
   their statistic is [B, H/hg, hg, T], the same memory as K1's [B, H, T].
 
-All four are ``csrc/flash_attention_exp.cu`` (see it for the design); they
-draw K1's dropout bits, a pure function of (seed, b, h, i, j), whatever the
-grouping. The backward wrappers return the bias gradient summed, as
-:func:`~visualbert_torch.ops.flash_attention.packed_attention_bwd` does. On
-CPU tensors the wrappers compute the plain versions (the ``*_reference``
-functions: K1/K2's plain math with the variant's roundings); on CUDA tensors
-they launch the kernels or raise. Nothing on the train step calls this
-module: ``python -m visualbert_torch.tools.attn_exp`` and ``... attn_hgrid``
-drive it.
+:func:`schedules` gives each kernel's (batch rows, heads) a block, its grid
+(``ceil(B / rows)``, ``ceil(H / heads)``) and the rows of its bias-gradient
+partials. All four are ``csrc/flash_attention_exp.cu``: K1/K2's Hopper
+design (one warpgroup a block, ``cp.async`` into swizzled tiles, ``wgmma``
+for every product, Philox once per 2x2 block) in kernels of their own,
+which walk their block's (batch row, head) pairs. With the numerics flags
+off they give K1/K2's out, stats and dqkv bit for bit at any schedule.
+``prescale``'s backward keeps a second, scaled copy of the queries in
+shared memory, so it takes T up to :data:`PRESCALE_MAX_T` and raises above.
+They draw K1's dropout bits, a pure function of (seed, b, h, i, j),
+whatever the grouping. The backward wrappers return the bias gradient
+summed, as :func:`~visualbert_torch.ops.flash_attention.packed_attention_bwd`
+does. On CPU tensors the wrappers compute the plain versions (the
+``*_reference`` functions: K1/K2's plain math with the variant's
+roundings); on CUDA tensors they launch the kernels or raise. Nothing on
+the train step calls this module: ``python -m
+visualbert_torch.tools.attn_exp`` and ``... attn_hgrid`` drive it.
 """
 
 from __future__ import annotations
@@ -59,13 +67,14 @@ VARIANTS = {
 
 
 def _variant(what, B, H, prescale=False, group=12, nostack=False, bb=1, fdrop=False, nomax=False):
-    """(batch rows, forward heads, backward heads) of a K15 block, and the
-    numerics flags."""
+    """A K15 variant's {"forward": (batch rows, heads), "backward": (batch
+    rows, heads)} a block, and its numerics flags."""
     if bb < 1 or B % bb:
         raise ValueError(f"{what}: bb={bb} must divide the batch of {B}")
     if group < 1:
         raise ValueError(f"{what}: group must be at least 1, got {group}")
-    return (bb, H, 1 if nostack else min(group, H)), dict(prescale=prescale, nomax=nomax, fdrop=fdrop)
+    return ({"forward": (bb, H), "backward": (bb, 1 if nostack else min(group, H))},
+            dict(prescale=prescale, nomax=nomax, fdrop=fdrop))
 
 
 def _check_hg(what, H, hg):
@@ -110,9 +119,28 @@ def attn_hgrid_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads: int, 
 
 # --------------------------------------------------------------- wrappers
 
+PRESCALE_MAX_T = 448  # the largest T whose prescale dK/dV pass fits a block's shared memory
 
-def _launch_fwd(what, qkv, qb, key_bias, n_heads, rate, seed, rows, heads, prescale=False, nomax=False):
-    lib = fa._check_packed(what, qkv, key_bias, n_heads, qb=qb, smem_fn="vb_attn_exp_smem_bytes")
+
+def grid(B: int, H: int, rows: int, heads: int) -> Tuple[int, int]:
+    """The kernels' grid for ``rows`` batch rows x ``heads`` heads a block
+    (``csrc/flash_attention_exp.cu::grid_of``); block (x, y) writes row x
+    of the bias-gradient partials."""
+    return -(-B // rows), -(-H // heads)
+
+
+def schedules(B: int, H: int, **variant):
+    """{"forward": (rows, heads), "backward": (rows, heads)} of a K15
+    variant (keywords of :data:`VARIANTS`) or of K16 (``hg``)."""
+    if "hg" in variant:
+        _check_hg("2-D grid attention", H, variant["hg"])
+        return {"forward": (1, variant["hg"]), "backward": (1, variant["hg"])}
+    return _variant("attention experiment", B, H, **variant)[0]
+
+
+def launch_exp_fwd(lib, qkv, qb, key_bias, n_heads, rate, seed, rows, heads, prescale=False, nomax=False):
+    """K15/K16's forward from ``lib`` on checked inputs, ``rows`` x
+    ``heads`` pairs a block: (CUDA code, out, stats [B, H, T])."""
     B, T, F = qkv.shape
     out = torch.empty((B, T, F // 3), dtype=qkv.dtype, device=qkv.device)
     stats = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
@@ -121,27 +149,47 @@ def _launch_fwd(what, qkv, qb, key_bias, n_heads, rate, seed, rows, heads, presc
         B, T, n_heads, rows, heads, int(prescale), int(nomax), *fa._seed_args(rate, seed),
         _build.stream_ptr(qkv.device),
     )
-    lib.check(code, what)
-    return out, stats
+    return code, out, stats
 
 
-def _launch_bwd(what, qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed, rows, heads, prescale=False,
-                fdrop=False):
-    """stats [B, H, T]; the kernel writes fp32 per-block partials of the
-    bias gradient, whose sum here is the only reduction outside it."""
-    lib = fa._check_packed(what, qkv, key_bias, n_heads, dout, out, qb=qb, smem_fn="vb_attn_exp_smem_bytes")
+def launch_exp_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed, rows, heads, prescale=False,
+                   fdrop=False):
+    """K15/K16's two backward passes from ``lib`` on checked inputs (stats
+    [B, H, T]): (CUDA code, dqkv, db_part [ceil(B / rows), H*3*D] fp32, the
+    per-block partials of the bias gradient)."""
     B, T, F = qkv.shape
-    fa._check_stats(what, stats, B, n_heads, T)
-    if not stats.is_contiguous() or stats.device != qkv.device:
-        raise ValueError(f"{what}: stats must be contiguous, on qkv's device")
     dqkv = torch.empty_like(qkv)
-    db_part = torch.empty((B // rows, F), dtype=torch.float32, device=qkv.device)
+    db_part = torch.empty((grid(B, n_heads, rows, heads)[0], F), dtype=torch.float32, device=qkv.device)
     delta = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
     code = lib.vb_attn_exp_bwd(
         qkv.data_ptr(), qb.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), out.data_ptr(), stats.data_ptr(),
         dqkv.data_ptr(), db_part.data_ptr(), delta.data_ptr(), B, T, n_heads, rows, heads, int(prescale),
         int(fdrop), *fa._seed_args(rate, seed), _build.stream_ptr(qkv.device),
     )
+    return code, dqkv, db_part
+
+
+def _forward(what, qkv, qb, key_bias, n_heads, rate, seed, rows, heads, prescale=False, nomax=False):
+    lib = fa._check_packed(what, qkv, key_bias, n_heads, qb=qb, smem_fn="vb_attn_exp_smem_bytes")
+    code, out, stats = launch_exp_fwd(lib, qkv, qb, key_bias, n_heads, rate, seed, rows, heads, prescale, nomax)
+    lib.check(code, what)
+    return out, stats
+
+
+def _backward(what, qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed, rows, heads, prescale=False,
+              fdrop=False):
+    """(dqkv, dqb): the kernels' per-block partials of the bias gradient
+    summed here, the only reduction outside them."""
+    lib = fa._check_packed(what, qkv, key_bias, n_heads, dout, out, qb=qb, smem_fn="vb_attn_exp_smem_bytes")
+    B, T, _ = qkv.shape
+    fa._check_stats(what, stats, B, n_heads, T)
+    if not stats.is_contiguous() or stats.device != qkv.device:
+        raise ValueError(f"{what}: stats must be contiguous, on qkv's device")
+    if prescale and T > PRESCALE_MAX_T:
+        raise ValueError(f"{what}: prescale's backward keeps a second, scaled copy of the queries in shared "
+                         f"memory and takes T up to {PRESCALE_MAX_T}, got T={T}")
+    code, dqkv, db_part = launch_exp_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed, rows,
+                                         heads, prescale, fdrop)
     lib.check(code, what)
     return dqkv, db_part.sum(dim=0).to(qb.dtype)
 
@@ -150,11 +198,11 @@ def attn_exp_fwd(qkv, qb, key_bias, n_heads: int, rate: float, seed: int, **vari
     """K15 forward wrapper: (out [B, T, H*D], stats [B, H, T] fp32); each
     block takes ``bb`` batch rows x all heads."""
     what = "attention experiment forward (K15)"
-    (rows, heads, _), flags = _variant(what, qkv.shape[0], n_heads, **variant)
+    sched, flags = _variant(what, qkv.shape[0], n_heads, **variant)
     if not fa._on_cuda(what, qkv):
         return attn_exp_fwd_reference(qkv, qb, key_bias, n_heads, rate, seed, **variant)
-    out, stats = _launch_fwd(what, qkv, qb, key_bias, n_heads, rate, seed, rows, heads, flags["prescale"],
-                             flags["nomax"])
+    out, stats = _forward(what, qkv, qb, key_bias, n_heads, rate, seed, *sched["forward"], flags["prescale"],
+                          flags["nomax"])
     attn_exp_fwd.launches += 1
     return out, stats
 
@@ -167,11 +215,11 @@ def attn_exp_bwd(qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: float,
     dtype); each block takes ``bb`` batch rows x ``group`` heads (one with
     ``nostack``)."""
     what = "attention experiment backward (K15)"
-    (rows, _, heads), flags = _variant(what, qkv.shape[0], n_heads, **variant)
+    sched, flags = _variant(what, qkv.shape[0], n_heads, **variant)
     if not fa._on_cuda(what, qkv):
         return attn_exp_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed, **variant)
-    grads = _launch_bwd(what, qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed, rows, heads,
-                        flags["prescale"], flags["fdrop"])
+    grads = _backward(what, qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed, *sched["backward"],
+                      flags["prescale"], flags["fdrop"])
     attn_exp_bwd.launches += 1
     return grads
 
@@ -186,7 +234,7 @@ def attn_hgrid_fwd(qkv, qb, key_bias, n_heads: int, rate: float, seed: int, hg: 
     _check_hg(what, n_heads, hg)
     if not fa._on_cuda(what, qkv):
         return attn_hgrid_fwd_reference(qkv, qb, key_bias, n_heads, rate, seed, hg)
-    out, stats = _launch_fwd(what, qkv, qb, key_bias, n_heads, rate, seed, 1, hg)
+    out, stats = _forward(what, qkv, qb, key_bias, n_heads, rate, seed, 1, hg)
     attn_hgrid_fwd.launches += 1
     B, _, T = stats.shape
     return out, stats.view(B, n_heads // hg, hg, T)
@@ -205,8 +253,7 @@ def attn_hgrid_bwd(qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: floa
     B, T, _ = qkv.shape
     if stats.shape != (B, n_heads // hg, hg, T):
         raise ValueError(f"{what}: stats must be [{B}, {n_heads // hg}, {hg}, {T}]")
-    grads = _launch_bwd(what, qkv, qb, key_bias, dout, out, stats.reshape(B, n_heads, T), n_heads, rate, seed, 1,
-                        hg)
+    grads = _backward(what, qkv, qb, key_bias, dout, out, stats.reshape(B, n_heads, T), n_heads, rate, seed, 1, hg)
     attn_hgrid_bwd.launches += 1
     return grads
 
