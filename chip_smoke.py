@@ -11,8 +11,16 @@ non-zero without printing the final line:
 2. builds the CUDA kernels from visualbert_torch/csrc (nvcc, sm_90a, one
    process a source, all at once) and prints the build time;
 3. holds each kernel against its plain PyTorch version on the card at the
-   shapes of the main path: K3 (dropout mask, [128, 228, 768]) must equal
-   its bit-exact twin; K1 and K2 (packed attention forward and backward,
+   shapes of the main path: K3 (dropout mask, [128, 228, 768], int8 and
+   bf16) must equal its bit-exact twin; the dropout site's forward and
+   backward (K3's body, csrc/dropout.cu) at that shape and at NLVR2's
+   [64, 272, 768], bf16, rate 0.1, must give y, the packed keep bits and dx
+   bit for bit with their plain versions, keep a NaN planted at a dropped
+   position NaN, and keep within 4 sigma of 0.9; the three are timed
+   launched on preallocated tensors (the wrappers' host time beside) and
+   printed with registers, local bytes (none may spill), blocks an SM, grid
+   and TB/s, beside bernoulli_, F.dropout and
+   aten.native_dropout_backward; K1 and K2 (packed attention forward and backward,
    B=128, T=228, H=12, D=64, bf16, padded keys) at dropout 0 and 0.1 must
    agree within a few bf16 ulps, timed at both rates, with each of their
    three kernels' head group, blocks an SM, registers and shared memory,
@@ -27,8 +35,9 @@ non-zero without printing the final line:
    the TFLOP/s of their products, beside their first design's times and
    the same products through torch.matmul (K4's also at the vocabulary
    padded to a 16-byte row), K4 with its wrapper's host time a call; K3's
-   bound times its Philox calls at the rate csrc/bench/philox_rate.cu
-   measures on K3's counter form, beside the instruction counts;
+   bound (and the site forward's, beside its bytes) times its Philox calls
+   at the rate csrc/bench/philox_rate.cu measures on K3's counter form,
+   beside the instruction counts;
    K7-K10 (residual add + LayerNorm, without and with dropout,
    forward and backward) at the main path's N = 128 x 228 = 29,184 rows,
    H=768, bf16, K9/K10 at rate 0.1, with K9's saved keep bits and K10's
@@ -58,7 +67,12 @@ non-zero without printing the final line:
    both sweep tools (visualbert_torch.tools.attn_exp and ... attn_hgrid,
    their default sweeps at B=96) run as a user runs them, with every launch
    count set to 0 first; each variant must launch its kernels as the tools
-   call them, and nothing but K1/K2 (their yardstick) may launch besides;
+   call them, and nothing but K1/K2 (their yardstick) may launch besides.
+   Then the path of K3's mask, which no training path launches since the
+   site kernels took its place: visualbert_torch.tools.dropout_steps run as
+   a user runs it (its builds with a design step left out must give the
+   kernels' bits), with every count set to 0 first: it must launch K3 and
+   the site kernels through their wrappers and nothing else;
 4. a 2-layer model with dropout off gives the same loss through the kernels
    (K1/K2 attention, K4-K6 cross-entropy), through the kernels with the
    fused LayerNorm (K7/K8), through the heads-major attention (K11/K12,
@@ -72,14 +86,17 @@ non-zero without printing the final line:
    bf16 compute, fp32 parameters and BertAdam state with the pooler frozen,
    schedule "none", lr 1e-4, STEPS steps on one repeated batch. Losses must
    be finite and fall, and every step must launch exactly 12 K1, 12 K2, 25
-   K3 and one each of K4, K5 and K6, and no K7-K16;
+   dropout site forwards and 25 backwards (the embeddings' site and two a
+   layer), one each of K4, K5 and K6, and no K3 mask and no K7-K16; its
+   peak memory is printed beside the 14.43 GiB it took when each site saved
+   a bf16 multiplier;
 6. the same with `"use_fused_layer_norm": true` added to the block: every
-   step launches 12 K1, 12 K2, 1 K3 (the embeddings' dropout), one each of
-   K4-K6, 24 K9 and 24 K10 and no K7/K8; that block with `"packed_qkv":
+   step launches 12 K1, 12 K2, one site forward and backward (the
+   embeddings' dropout), one each of K4-K6, 24 K9 and 24 K10 and no K7/K8; that block with `"packed_qkv":
    false` (12 K11 and 12 K12 instead of K1/K2) and with `"flash_save_probs":
    true` (12 K13 and 12 K14 instead); then one step of the fused block with
    both dropout rates 0 (the setting of __graft_entry__.py's dry run): 24
-   K7, 24 K8, no K3, K9 or K10;
+   K7, 24 K8, no K3 site, K9 or K10;
 7. runs the training CLI (`visualbert_torch.train_cli`) on
    configs/coco_pretrain.json with its data block swapped for a synthetic
    COCO set of CLI_EXAMPLES pairs and one epoch: 4 steps at the config's
@@ -90,8 +107,8 @@ non-zero without printing the final line:
 8. runs VQA fine-tuning through the CLI: configs/vqa_finetune.json with its
    data block swapped for VQA_EXAMPLES synthetic questions (80 % train, 20 %
    eval) and `"use_fused_layer_norm": true` added to its model block, one
-   epoch at its batch of 64: 5 train steps, each 12 K1, 12 K2, 1 K3, 24 K9,
-   24 K10; 2 eval batches after the epoch and 2 more for the prediction
+   epoch at its batch of 64: 5 train steps, each 12 K1, 12 K2, one site
+   forward and backward, 24 K9, 24 K10; 2 eval batches after the epoch and 2 more for the prediction
    dump, each 12 K1 and 24 K7. Then `--eval_only --restore` of its
    checkpoint must give the epoch's val_ metrics within 1e-6 and the same
    vqa_predictions.json, one entry per eval question, launching only 2 x
@@ -100,7 +117,7 @@ non-zero without printing the final line:
    with its data block swapped for NLVR2_EXAMPLES synthetic image pairs
    (80 % train, 20 % eval; T = 128 + 2 x 72 = 272) and `"flash_save_probs":
    true` added to its model block, one epoch at its batch of 64: 5 train
-   steps, each 12 K13, 12 K14, 25 K3; 3 eval batches of 32 after the epoch
+   steps, each 12 K13, 12 K14, 25 site forwards and 25 backwards; 3 eval batches of 32 after the epoch
    and 3 more for the report, each 12 K13. nlvr2_report.csv must hold one
    row per eval identifier, and `--eval_only --restore` must give the
    epoch's val_ loss and accuracy within 1e-6 and the same report, launching
@@ -111,8 +128,10 @@ non-zero without printing the final line:
    removed at the end;
 10. prints the kernel table as one JSON line (launches from phase 6: the
    fused-LayerNorm main path's STEPS steps, for K7/K8 its dropout-0 step,
-   for K11-K14 the runs with their settings, for K15/K16 the tools' run;
-   K15/K16's rows add every variant's time), then {"ok": true, "device":
+   for K11-K14 the runs with their settings, for K15/K16 the tools' run,
+   for K3's mask tools/dropout_steps.py's run, for the site kernels the
+   as-shipped steps; K15/K16's rows add every variant's time; K3 is three
+   rows: mask, site forward, site backward), then {"ok": true, "device":
    {...}} as the last line.
 """
 
@@ -221,19 +240,29 @@ KERNELS = (  # name, wrapper module, source, the TPU kernel it replaces
     ("attn_exp_bwd", "attention_exp", "flash_attention_exp.cu", "scripts/attn_exp.py:100"),
     ("attn_hgrid_fwd", "attention_exp", "flash_attention_exp.cu", "scripts/attn_hgrid.py:56"),
     ("attn_hgrid_bwd", "attention_exp", "flash_attention_exp.cu", "scripts/attn_hgrid.py:90"),
+    ("dropout_fwd", "dropout", "dropout.cu", "visualbert_tpu/ops/dropout.py:61"),
+    ("dropout_bwd", "dropout", "dropout.cu", "visualbert_tpu/ops/dropout.py:61"),
 )
-LABELS = [f"K{i + 1}" for i in range(14)] + ["K15 fwd", "K15 bwd", "K16 fwd", "K16 bwd"]
-# launches of K1..K14 and K15/K16's forward and backward per train step (12
-# layers) or eval batch: nothing on them runs K15/K16
-PER_STEP = (12, 12, 25, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)            # the config as shipped
-FUSED_PER_STEP = (12, 12, 1, 1, 1, 1, 0, 0, 24, 24, 0, 0, 0, 0, 0, 0, 0, 0)     # with use_fused_layer_norm
-NO_DROPOUT_PER_STEP = (12, 12, 0, 1, 1, 1, 24, 24, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)  # that, both dropout rates 0
-HEADS_MAJOR_PER_STEP = (0, 0, 1, 1, 1, 1, 0, 0, 24, 24, 12, 12, 0, 0, 0, 0, 0, 0)  # fused LN, packed_qkv false
-SAVE_PROBS_PER_STEP = (0, 0, 1, 1, 1, 1, 0, 0, 24, 24, 0, 0, 12, 12, 0, 0, 0, 0)   # fused LN, flash_save_probs
-VQA_TRAIN_PER_STEP = (12, 12, 1, 0, 0, 0, 0, 0, 24, 24, 0, 0, 0, 0, 0, 0, 0, 0)
-VQA_EVAL_PER_BATCH = (12, 0, 0, 0, 0, 0, 24, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
-NLVR2_TRAIN_PER_STEP = (0, 0, 25, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12, 12, 0, 0, 0, 0)
-NLVR2_EVAL_PER_BATCH = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12, 0, 0, 0, 0, 0)
+LABELS = (["K1", "K2", "K3 mask"] + [f"K{i + 1}" for i in range(3, 14)] + ["K15 fwd", "K15 bwd", "K16 fwd", "K16 bwd"]
+          + ["K3 site fwd", "K3 site bwd"])
+# launches of K1..K14, K15/K16's forward and backward and the dropout site's
+# forward and backward (K3's body) per train step (12 layers) or eval batch:
+# nothing on them runs K15/K16, and no path launches K3's mask since the
+# site kernels took its place (each fast_dropout site: one forward, one
+# backward; as shipped 25 sites a step, the embeddings' and two a layer)
+PER_STEP = (12, 12, 0, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 25, 25)            # the config as shipped
+FUSED_PER_STEP = (12, 12, 0, 1, 1, 1, 0, 0, 24, 24, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1)     # with use_fused_layer_norm
+NO_DROPOUT_PER_STEP = (12, 12, 0, 1, 1, 1, 24, 24, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)  # that, both dropout rates 0
+HEADS_MAJOR_PER_STEP = (0, 0, 0, 1, 1, 1, 0, 0, 24, 24, 12, 12, 0, 0, 0, 0, 0, 0, 1, 1)  # fused LN, packed_qkv false
+SAVE_PROBS_PER_STEP = (0, 0, 0, 1, 1, 1, 0, 0, 24, 24, 0, 0, 12, 12, 0, 0, 0, 0, 1, 1)   # fused LN, flash_save_probs
+VQA_TRAIN_PER_STEP = (12, 12, 0, 0, 0, 0, 0, 0, 24, 24, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1)
+VQA_EVAL_PER_BATCH = (12, 0, 0, 0, 0, 0, 24, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+NLVR2_TRAIN_PER_STEP = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12, 12, 0, 0, 0, 0, 25, 25)
+NLVR2_EVAL_PER_BATCH = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12, 0, 0, 0, 0, 0, 0, 0)
+# the as-shipped step's peak memory before the site kernels, when each site
+# saved a bf16 multiplier (this script's last run before them, on an NVIDIA
+# H100 80GB HBM3 at 700 W)
+SHIPPED_PEAK_GIB_BEFORE = 14.43
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense): a kernel's bound is
 # the larger of its bytes over the memory rate and its operations over the
 # peak rate of their type
@@ -351,51 +380,156 @@ def packed_inputs(torch):
     return packed_attention_inputs(torch.device("cuda"))
 
 
-def check_kernels(torch, card):
-    from visualbert_torch.ops import flash_attention as fa
-    from visualbert_torch.ops.dropout import dropout_mask, dropout_mask_reference
+def check_dropout(torch, card):
+    """K3 (the keep mask) and the dropout site's two kernels against their
+    plain versions on the card. K3 at the main path's hidden-state shape:
+    int8 and bf16 bit for bit with its twin, the same mask for the same seed
+    and another for another, the keep rate within 4 sigma. The site forward
+    and backward at that shape and at NLVR2's [64, 272, 768], bf16, rate
+    0.1: y, the bits and dx bit for bit with the plain versions (y where the
+    plain y is not NaN, and NaN where it is), the keep rate within 4 sigma,
+    and a NaN planted in x at a dropped position NaN in y. Times at the main
+    path's shape: each kernel launched directly on preallocated tensors
+    (the wrappers' host time a call printed beside it), the plain versions,
+    and one library call of the same function, never on the path: K3
+    bernoulli_ on an int8 tensor, the forward F.dropout, the backward
+    aten.native_dropout_backward on F.dropout's mask. Bounds: K3 the larger
+    of its mask's bytes and its Philox calls at the rate
+    csrc/bench/philox_rate.cu measures on K3's counter form; the forward the
+    larger of its bytes (x, y, the bits) and the same calls; the backward its
+    bytes (dy, the bits, dx). Returns the three rows."""
+    import torch.nn.functional as F
+
+    from visualbert_torch.ops import _build
+    from visualbert_torch.ops import dropout as dr
     from visualbert_torch.tools import attn_steps
     from visualbert_torch.tools.main_path import B, TT, TV
 
     dev = torch.device("cuda")
+    lib = _build.library()
+    sms = _build.sm_count(dev)
+    rate, seed = 0.1, 1234
+    shape = (B, TT + TV, 768)
     rows = {}
 
-    # K3: dropout mask at the hidden-state shape
-    shape, rate = (B, TT + TV, 768), 0.1
-    got = dropout_mask(shape, rate, 1234, torch.int8, dev)
-    want = dropout_mask_reference(shape, rate, 1234, torch.int8, dev)
+    def keep_ok(share, n):
+        return abs(share - (1 - rate)) <= 4 * (rate * (1 - rate) / n) ** 0.5
+
+    # K3
+    got = dr.dropout_mask(shape, rate, seed, torch.int8, dev)
+    want = dr.dropout_mask_reference(shape, rate, seed, torch.int8, dev)
+    same_bf16 = torch.equal(dr.dropout_mask(shape, rate, seed, torch.bfloat16, dev),
+                            dr.dropout_mask_reference(shape, rate, seed, torch.bfloat16, dev))
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     keep = float(got.float().mean())
     n = got.numel()
-    sigma = (rate * (1 - rate) / n) ** 0.5
-    same = torch.equal(got, dropout_mask(shape, rate, 1234, torch.int8, dev))
-    differ = not torch.equal(got, dropout_mask(shape, rate, 1235, torch.int8, dev))
-    ms = cuda_time_ms(lambda: dropout_mask(shape, rate, 7, torch.int8, dev), 50)
-    plain_ms = cuda_time_ms(lambda: dropout_mask_reference(shape, rate, 7, torch.int8, dev), 5)
-    log(f"K3 dropout mask {list(shape)}: max_abs_err {err} (tol 0, bit-exact twin); keep rate {keep:.6f} "
-        f"(|{keep - (1 - rate):.2e}| <= 4 sigma {4 * sigma:.2e}); same seed same mask {same}; "
-        f"new seed new mask {differ}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
-    if err != 0 or abs(keep - (1 - rate)) > 4 * sigma or not same or not differ:
+    same = torch.equal(got, dr.dropout_mask(shape, rate, seed, torch.int8, dev))
+    differ = not torch.equal(got, dr.dropout_mask(shape, rate, seed + 1, torch.int8, dev))
+    log(f"K3 dropout mask {list(shape)}: int8 max_abs_err {err} (tol 0, bit-exact twin), bf16 mask equal: "
+        f"{same_bf16}; keep rate {keep:.6f} (within 4 sigma of {1 - rate}: {keep_ok(keep, n)}); same seed same "
+        f"mask {same}; new seed new mask {differ}  [{card}]")
+    if err != 0 or not same_bf16 or not keep_ok(keep, n) or not same or not differ:
         raise SystemExit("K3 disagrees with its plain version")
-    # the library's Bernoulli draw of the same int8 mask; the bound is the
-    # larger of the mask's bytes and its Philox calls' time (one call a 4
-    # elements) at the rate the card makes K3's calls
-    lib_ms = cuda_time_ms(lambda: torch.empty(shape, dtype=torch.int8, device=dev).bernoulli_(1 - rate), 50)
-    calls, hz, n_sm = -(-got.numel() // 4), max_sm_hz(), torch.cuda.get_device_properties(dev).multi_processor_count
-    k3_rate = attn_steps.philox_rate(attn_steps.build_philox_bench(), n_sm, card, "mask")
-    clocks = calls / 32 / (n_sm * attn_steps.SUB_PARTITIONS) * k3_rate["cycles_per_warp_call"]
-    rows["dropout_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                **bound(nbytes(got), clocks, hz))
-    count_ms = {r: calls * PHILOX_INSTRUCTIONS / (r * n_sm * hz) * 1e3 for r in (ISSUE_PER_SM_CLOCK,
-                                                                                 INT32_OPS_PER_SM_CLOCK)}
-    log(f"K3's bound: its bytes {nbytes(got) / HBM_BYTES_PER_S * 1e3:.4f} ms; its {calls} Philox calls at "
-        f"{hz / 1e6:.0f} MHz: x {PHILOX_INSTRUCTIONS} instructions at the issue rate ({ISSUE_PER_SM_CLOCK} a clock an "
-        f"SM) {count_ms[ISSUE_PER_SM_CLOCK]:.4f} ms, at the guide's {INT32_OPS_PER_SM_CLOCK} a clock an SM "
+    del want
+
+    # the site forward and backward at the main path's and NLVR2's shapes
+    errs = {"dropout_fwd": 0.0, "dropout_bwd": 0.0}
+    for shp in (shape, (64, 272, 768)):
+        g = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn(shp, generator=g, device=dev).to(torch.bfloat16)
+        dy = torch.randn(shp, generator=g, device=dev).to(torch.bfloat16)
+        m = x.numel()
+        keep_r = dr.dropout_mask_reference(shp, rate, seed, torch.int8, dev).reshape(-1)
+        dropped = int(torch.nonzero(keep_r == 0)[0, 0])
+        del keep_r
+        x.view(-1)[dropped] = float("nan")
+        y, bits = dr.dropout_fwd(x, rate, seed)
+        y_r, bits_r = dr.dropout_fwd_reference(x, rate, seed)
+        dx = dr.dropout_bwd(dy, bits, rate)
+        dx_r = dr.dropout_bwd_reference(dy, bits_r, rate)
+        torch.cuda.synchronize()
+        nan_r = torch.isnan(y_r)
+        same_y = (torch.equal(torch.isnan(y), nan_r)
+                  and torch.equal(y.view(torch.int16)[~nan_r], y_r.view(torch.int16)[~nan_r]))
+        same_bits = torch.equal(bits, bits_r)
+        same_dx = torch.equal(dx.view(torch.int16), dx_r.view(torch.int16))
+        nan_stays = bool(torch.isnan(y.view(-1)[dropped]))
+        share = float(dr.unpack_keep(bits, m).float().mean())
+        errs["dropout_fwd"] = max(errs["dropout_fwd"], float((y.float() - y_r.float())[~nan_r].abs().max()))
+        errs["dropout_bwd"] = max(errs["dropout_bwd"], float((dx.float() - dx_r.float()).abs().max()))
+        log(f"K3 site {list(shp)} bf16 rate {rate}: y bit for bit {same_y}, bits [{bits.numel()}] uint8 equal "
+            f"{same_bits}, dx bit for bit {same_dx}; a NaN at dropped element {dropped} NaN in y: {nan_stays}; "
+            f"keep rate {share:.6f} (within 4 sigma: {keep_ok(share, m)})  [{card}]")
+        if not (same_y and same_bits and same_dx and nan_stays and keep_ok(share, m)):
+            raise SystemExit(f"the dropout site kernels disagree with their plain versions at {list(shp)}")
+        del x, dy, y, y_r, dx, dx_r, bits, bits_r
+
+    # times at the main path's shape
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    out, y, dx = torch.empty(shape, dtype=torch.int8, device=dev), torch.empty_like(x), torch.empty_like(x)
+    bits = torch.empty(-(-n // 8), dtype=torch.uint8, device=dev)
+    launches = {"dropout_mask": lambda: dr.launch_mask(lib, out, rate, 7, sms),
+                "dropout_fwd": lambda: dr.launch_fwd(lib, x, y, bits, rate, 7, sms),
+                "dropout_bwd": lambda: dr.launch_bwd(lib, dy, bits, dx, rate, sms)}
+    for name, fn in launches.items():
+        lib.check(fn(), name)
+    plain = {"dropout_mask": lambda: dr.dropout_mask_reference(shape, rate, 7, torch.int8, dev),
+             "dropout_fwd": lambda: dr.dropout_fwd_reference(x, rate, 7),
+             "dropout_bwd": lambda: dr.dropout_bwd_reference(dy, bits, rate)}
+    wrapped = {"dropout_mask": lambda: dr.dropout_mask(shape, rate, 7, torch.int8, dev),
+               "dropout_fwd": lambda: dr.dropout_fwd(x, rate, 7),
+               "dropout_bwd": lambda: dr.dropout_bwd(dy, bits, rate)}
+    lib_keep = F.dropout(x, rate, training=True) != 0
+    library = {"dropout_mask": lambda: torch.empty(shape, dtype=torch.int8, device=dev).bernoulli_(1 - rate),
+               "dropout_fwd": lambda: F.dropout(x, rate, training=True),
+               "dropout_bwd": lambda: torch.ops.aten.native_dropout_backward(dy, lib_keep, 1.0 / (1.0 - rate))}
+    # the Philox calls (one a 4 elements) at the rate the card makes K3's
+    calls, hz = -(-n // 4), max_sm_hz()
+    k3_rate = attn_steps.philox_rate(attn_steps.build_philox_bench(), sms, card, "mask")
+    clocks = calls / 32 / (sms * attn_steps.SUB_PARTITIONS) * k3_rate["cycles_per_warp_call"]
+    moved = {"dropout_mask": nbytes(out), "dropout_fwd": nbytes(x, y, bits), "dropout_bwd": nbytes(dy, bits, dx)}
+    work = {"dropout_mask": (clocks, hz), "dropout_fwd": (clocks, hz), "dropout_bwd": (0, 1.0)}
+    host_us = {}
+    for name in launches:
+        rows[name] = dict(max_abs_err=err if name == "dropout_mask" else errs[name],
+                          ms=cuda_time_ms(launches[name], 50), plain_ms=cuda_time_ms(plain[name], 5),
+                          library_ms=cuda_time_ms(library[name], 50), **bound(moved[name], *work[name]))
+        host_us[name] = host_us_a_call(torch, wrapped[name], 50)
+    count_ms = {r: calls * PHILOX_INSTRUCTIONS / (r * sms * hz) * 1e3 for r in (ISSUE_PER_SM_CLOCK,
+                                                                                INT32_OPS_PER_SM_CLOCK)}
+    log(f"K3's bound: its bytes {moved['dropout_mask'] / HBM_BYTES_PER_S * 1e3:.4f} ms; its {calls} Philox calls "
+        f"at {hz / 1e6:.0f} MHz: x {PHILOX_INSTRUCTIONS} instructions at the issue rate ({ISSUE_PER_SM_CLOCK} a "
+        f"clock an SM) {count_ms[ISSUE_PER_SM_CLOCK]:.4f} ms, at the guide's {INT32_OPS_PER_SM_CLOCK} a clock an SM "
         f"{count_ms[INT32_OPS_PER_SM_CLOCK]:.4f} ms; at the measured rate of K3's counter form "
         f"({k3_rate['cycles_per_warp_call']:.2f} cycles a warp call a sub-partition) {clocks / hz * 1e3:.4f} ms, "
-        f"the bound's reading: {rows['dropout_mask']['bound_ms']:.4f} ms; K3 at "
-        f"{rows['dropout_mask']['bound_ms'] / ms * 100:.1f} % of it  [{card}]")
+        f"the bound's reading: {rows['dropout_mask']['bound_ms']:.4f} ms; the site forward's bound: its "
+        f"{moved['dropout_fwd'] / 1e6:.1f} MB {moved['dropout_fwd'] / HBM_BYTES_PER_S * 1e3:.4f} ms against the "
+        f"same calls' {clocks / hz * 1e3:.4f} ms  [{card}]")
+    for kernel, name, code in ((dr.MASK, "dropout_mask", 0), (dr.SITE_FWD, "dropout_fwd", 1),
+                               (dr.SITE_BWD, "dropout_bwd", 1)):
+        regs, local, smem, per_sm = (lib.vb_dropout_info(kernel, w, code) for w in range(4))
+        per, threads, _ = dr._geometry(lib, kernel, code)
+        blocks = dr.blocks_for(lib, kernel, code, n, sms)
+        r = rows[name]
+        log(f"{name} {list(shape)}: {regs} registers a thread, {local} bytes of local memory, {per_sm} blocks an SM, "
+            f"grid {blocks} blocks of {threads} ({-(-n // (per * threads * blocks))} rounds of {per} elements a "
+            f"thread); {r['ms']:.4f} ms, {moved[name] / r['ms'] / 1e9:.3f} TB/s; the wrapper's host time "
+            f"{host_us[name]:.1f} us a call (enqueue only)  [{card}]")
+        if local:
+            raise SystemExit(f"{name} spills to local memory")
+    for name in launches:
+        log(row_line(name, rows[name], card))
+    return rows
+
+
+def check_kernels(torch, card):
+    from visualbert_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    rows = {}
 
     # K1, K2: packed attention at the main path's shapes, padded keys
     qkv, qb, key_bias, dout = packed_inputs(torch)
@@ -454,7 +588,7 @@ def check_kernels(torch, card):
         regs, local, smem, per_sm = (lib.vb_attn_packed_info(k, w, T) for w in range(4))
         log(f"K1/K2 {kernel}: hg {hg} ({B * H // hg} blocks of one batch row x {hg} heads), {per_sm} blocks an SM, "
             f"{regs} registers a thread, {local} bytes of local memory, {smem} bytes of shared memory at T={T}")
-    for name in ("dropout_mask", "packed_attention_fwd", "packed_attention_bwd"):
+    for name in ("packed_attention_fwd", "packed_attention_bwd"):
         log(row_line(name, rows[name], card))
     return rows
 
@@ -893,6 +1027,27 @@ def run_attention_tools(torch, card):
     for name, r in list(exp.items()) + list(hgrid.items()):
         if name != "K1/K2" and not (math.isfinite(r["max_abs_out"]) and math.isfinite(r["max_abs_dqkv"])):
             raise SystemExit(f"the attention tools: non-finite difference for {name}")
+    return launches
+
+
+def run_dropout_tool(torch, card):
+    """The path of K3's mask since the site kernels took its place on every
+    training path: tools/dropout_steps.py's main, as a user runs it (no
+    other checkout), with every count set to 0 just before. Its builds with
+    a design step left out must give the kernels' bits, and its wrapper
+    timings launch K3 and the site kernels through their wrappers; nothing
+    else may launch. Returns the launches."""
+    from visualbert_torch.tools import dropout_steps
+
+    zero_launches()
+    t0 = time.perf_counter()
+    dropout_steps.main([])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"dropout_steps ({wall:.1f} s with its builds): launches " + launch_text(launches))
+    k3 = [2, len(KERNELS) - 2, len(KERNELS) - 1]
+    if not all(launches[i] > 0 for i in k3) or any(n for i, n in enumerate(launches) if i not in k3):
+        raise SystemExit(f"tools/dropout_steps.py launched {launches}")
     return launches
 
 
@@ -1482,7 +1637,8 @@ def main():
         if "registers" in line or "spill" in line or "entry function" in line:
             log("  ptxas: " + line.strip())
 
-    rows = check_kernels(torch, card)
+    rows = check_dropout(torch, card)
+    rows.update(check_kernels(torch, card))
     rows.update(check_xent(torch, card))
     check_xent(torch, card, H=1024)
     rows.update(check_layer_norm(torch, card))
@@ -1493,6 +1649,8 @@ def main():
     k16_twin(torch, rows, card)
     torch.cuda.empty_cache()
     exp_launches = run_attention_tools(torch, card)
+    torch.cuda.empty_cache()
+    mask_launches = run_dropout_tool(torch, card)
     torch.cuda.empty_cache()
 
     block = model_block()
@@ -1511,6 +1669,9 @@ def main():
     for what, (_, r) in runs.items():
         log(f"main path {what}: median step {r['median_ms']:.2f} ms, {r['pairs_per_s']:.1f} pairs/s, "
             f"peak memory {r['peak_gib']:.2f} GiB  [{card}]")
+    log(f"main path as shipped: peak memory {runs['as shipped'][1]['peak_gib']:.2f} GiB with the site kernels "
+        f"(each site saves its bits), {SHIPPED_PEAK_GIB_BEFORE:.2f} GiB before them (each site saved a bf16 "
+        f"multiplier)  [{card}]")
     no_dropout = run_step_without_dropout(torch, fused)
     torch.cuda.empty_cache()
     run_cli(torch, card)
@@ -1521,12 +1682,15 @@ def main():
 
     # launches: the fused-LayerNorm main path's STEPS steps; K7/K8 from its
     # dropout-0 step; K11/K12 and K13/K14 from the runs with their settings;
-    # K15/K16 from the two attention tools
+    # K15/K16 from the two attention tools; K3's mask from
+    # tools/dropout_steps.py, the site kernels from the as-shipped steps
     launches = list(runs["fused LayerNorm"][0])
+    launches[2] = mask_launches[2]
     launches[6:8] = no_dropout[6:8]
     launches[10:12] = runs["fused LayerNorm, packed_qkv false"][0][10:12]
     launches[12:14] = runs["fused LayerNorm, flash_save_probs"][0][12:14]
     launches[14:18] = exp_launches[14:18]
+    launches[18:20] = runs["as shipped"][0][18:20]
     table = [dict(name=name, route="cuda", source=f"visualbert_torch/csrc/{src}", replaces=replaces, launches=n,
                   **rows[name]) for (name, _, src, replaces), n in zip(KERNELS, launches)]
     print(json.dumps({"kernels": table}), flush=True)

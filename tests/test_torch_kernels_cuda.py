@@ -9,7 +9,12 @@ This file imports no JAX, so it runs on a machine that has only PyTorch:
 the kernels round unnormalised probabilities to bf16 before PV where the
 plain version rounds normalised ones, and sum in another order, so outputs
 agree to a few bf16 ulps (relative error of the max below 2e-2); the fp32
-softmax statistics agree to 1e-4; the dropout masks agree exactly. The MLM
+softmax statistics agree to 1e-4; the dropout masks agree exactly, and
+the dropout site's forward and backward (K3's body) give y, the packed
+keep bits and dx bit for bit at the main path's, NLVR2's and small shapes,
+every tail length up to 17, bf16, fp16 and fp32, keep NaN at a dropped
+position NaN, do not spill, and so do ``tools/dropout_steps.py``'s builds
+with a design step left out. The MLM
 cross-entropy kernels (K4-K6) sum the same fp32 products in another order:
 nll and lse within 1e-3 absolute, the argmax equal wherever the plain top-2
 gap exceeds 1e-3 (first max on an exact tie), dx and dE (bf16) within 2e-2
@@ -61,6 +66,7 @@ import torch
 
 from visualbert_torch.ops import _build
 from visualbert_torch.ops import attention_exp as ae
+from visualbert_torch.ops import dropout as dropout_ops
 from visualbert_torch.ops import flash_attention as fa
 from visualbert_torch.ops import layer_norm as ln
 from visualbert_torch.ops import mlm_xent as xe
@@ -102,7 +108,7 @@ def attention_inputs(B, T, H, device, seed=0):
 
 
 @pytest.mark.parametrize("shape", [(96, 228, 768), (1001,), (3, 5, 7)])
-@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32, torch.float16])
 def test_dropout_mask_matches_twin(cuda, shape, dtype):
     got = dropout_mask(shape, 0.1, 1234, dtype, cuda)
     want = dropout_mask_reference(shape, 0.1, 1234, dtype, cuda)
@@ -119,6 +125,124 @@ def test_dropout_mask_seeds(cuda):
     c = dropout_mask((96, 228, 768), 0.1, 8, torch.int8, cuda)
     assert torch.equal(a, b)
     assert not torch.equal(a, c)
+
+
+SITE_SHAPES = [(128, 228, 768), (64, 272, 768), (6, 33, 64), (1001,), (3, 5, 7)]
+SITE_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+INT_VIEW = {torch.bfloat16: torch.int16, torch.float16: torch.int16, torch.float32: torch.int32}
+
+
+def same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(INT_VIEW[a.dtype]), b.view(INT_VIEW[b.dtype]))
+
+
+def site_inputs(shape, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    return tuple(torch.tensor(rng.randn(*shape), dtype=torch.float32).to(dtype).to(device) for _ in range(2))
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.25])
+@pytest.mark.parametrize("dtype", SITE_DTYPES, ids=str)
+@pytest.mark.parametrize("shape", SITE_SHAPES, ids=str)
+def test_dropout_site_kernels_match_plain(cuda, shape, dtype, rate):
+    """The site forward's y and bits and the backward's dx equal the plain
+    versions in every bit, and repeat bit for bit."""
+    x, dy = site_inputs(shape, dtype, cuda)
+    y, bits = dropout_ops.dropout_fwd(x, rate, 99)
+    dx = dropout_ops.dropout_bwd(dy, bits, rate)
+    y_r, bits_r = dropout_ops.dropout_fwd_reference(x, rate, 99)
+    dx_r = dropout_ops.dropout_bwd_reference(dy, bits_r, rate)
+    y2, bits2 = dropout_ops.dropout_fwd(x, rate, 99)
+    torch.cuda.synchronize()
+    assert bits.dtype == torch.uint8 and bits.shape == (-(-x.numel() // 8),)
+    assert same_bits(y, y_r) and torch.equal(bits, bits_r) and same_bits(dx, dx_r)
+    assert same_bits(y2, y) and torch.equal(bits2, bits)
+    keep = float(dropout_ops.unpack_keep(bits, x.numel()).float().mean())
+    assert abs(keep - (1 - rate)) <= 4 * np.sqrt(rate * (1 - rate) / x.numel()) + 1e-9
+
+
+@pytest.mark.parametrize("n", list(range(1, 18)))
+@pytest.mark.parametrize("dtype", SITE_DTYPES, ids=str)
+def test_dropout_kernels_at_tail_lengths(cuda, dtype, n):
+    """n elements, n not a multiple of 16 (the tail path) or 16: the site
+    kernels and K3 (int8 and in the dtype) as the plain versions, the bits'
+    tail byte padded with zeros."""
+    x, dy = site_inputs((n,), dtype, cuda, seed=n)
+    y, bits = dropout_ops.dropout_fwd(x, 0.5, 3)
+    dx = dropout_ops.dropout_bwd(dy, bits, 0.5)
+    y_r, bits_r = dropout_ops.dropout_fwd_reference(x, 0.5, 3)
+    torch.cuda.synchronize()
+    assert same_bits(y, y_r) and torch.equal(bits, bits_r)
+    assert same_bits(dx, dropout_ops.dropout_bwd_reference(dy, bits_r, 0.5))
+    assert int(bits[-1]) >> (n % 8 or 8) == 0
+    for mdt in (torch.int8, dtype):
+        assert torch.equal(dropout_mask((n,), 0.5, 3, mdt, cuda), dropout_mask_reference((n,), 0.5, 3, mdt, cuda))
+
+
+@pytest.mark.parametrize("dtype", SITE_DTYPES, ids=str)
+def test_dropout_site_keeps_a_nan_at_a_dropped_position(cuda, dtype):
+    """The forward multiplies: NaN and inf at dropped positions give NaN in
+    y (as the eager composition and the JAX package do); so does a NaN of dy
+    in dx."""
+    shape, rate, seed = (6, 33, 64), 0.25, 9
+    keep = dropout_mask_reference(shape, rate, seed, torch.int8, cuda).reshape(-1)
+    dropped = torch.nonzero(keep == 0)[:2, 0]
+    x, dy = site_inputs(shape, dtype, cuda)
+    x.view(-1)[dropped[0]] = float("nan")
+    x.view(-1)[dropped[1]] = float("inf")
+    dy.view(-1)[dropped[0]] = float("nan")
+    y, bits = dropout_ops.dropout_fwd(x, rate, seed)
+    dx = dropout_ops.dropout_bwd(dy, bits, rate)
+    torch.cuda.synchronize()
+    assert torch.isnan(y.view(-1)[dropped]).all() and int(torch.isnan(y).sum()) == 2
+    assert torch.isnan(dx.view(-1)[dropped[0]]) and int(torch.isnan(dx).sum()) == 1
+
+
+def test_dropout_kernels_fill_the_card_and_do_not_spill(cuda):
+    """K3 (every dtype) and the site kernels (bf16, fp16, fp32): no local
+    memory, at least one block an SM; K3's grid at the main path's shape no
+    larger than the blocks that fit at once, every thread taking the same
+    rounds; the site kernels' one group a thread."""
+    lib = _build.library()
+    sms = _build.sm_count(cuda)
+    n = 128 * 228 * 768
+    for kernel, codes in ((dropout_ops.MASK, (0, 1, 2, 3)), (dropout_ops.SITE_FWD, (1, 2, 3)),
+                          (dropout_ops.SITE_BWD, (1, 2, 3))):
+        for code in codes:
+            regs, local, _, per_sm = (lib.vb_dropout_info(kernel, w, code) for w in range(4))
+            assert regs > 0 and local == 0 and per_sm >= 1, (kernel, code, regs, local, per_sm)
+            per, threads, _ = dropout_ops._geometry(lib, kernel, code)
+            blocks = dropout_ops.blocks_for(lib, kernel, code, n, sms)
+            rounds = -(-n // (per * threads * blocks))
+            if kernel == dropout_ops.MASK:
+                assert blocks <= per_sm * sms and -(-n // (per * threads * rounds)) == blocks
+            else:
+                assert rounds == 1 and blocks == -(-n // (per * threads))
+    assert lib.vb_dropout_info(dropout_ops.SITE_FWD, 0, 0) == -1  # the site takes no int8
+
+
+def test_dropout_refuses_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(64, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="bf16, fp16 or fp32"):
+        dropout_ops.dropout_fwd(x, 0.1, 1)
+    y = torch.zeros(65, dtype=torch.bfloat16, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dropout_ops.dropout_fwd(y, 0.1, 1)
+    with pytest.raises(ValueError, match="keep bits"):
+        dropout_ops.dropout_bwd(y.clone(), torch.zeros(4, dtype=torch.uint8, device=cuda), 0.1)
+    with pytest.raises(ValueError, match="outside"):
+        dropout_ops.dropout_fwd(y.clone(), 1.0, 1)
+
+
+def test_dropout_steps_builds_give_the_kernels_bits(cuda):
+    """tools/dropout_steps.py's builds with a design step left out (one
+    Philox call a thread, one-shot blocks, the mask drawn again in the
+    backward) give K3's and the site kernels' outputs bit for bit."""
+    from visualbert_torch.tools import dropout_steps
+
+    builds, _ = dropout_steps.build_all()
+    d = dropout_steps.data(cuda)
+    dropout_steps.check(builds, d, _build.sm_count(cuda), "card test")
 
 
 @pytest.mark.parametrize("B,T,H", [(4, 228, 12), (2, 37, 3), (1, 64, 2), (2, 130, 4), (3, 1, 12), (1, 512, 16),
@@ -845,7 +969,6 @@ def test_model_step_kernels_match_plain_with_dropout(cuda, monkeypatch):
     so loss and gradients agree."""
     from visualbert_torch.config import VisualBertConfig
     from visualbert_torch.models.visualbert import VisualBertForTask
-    from visualbert_torch.ops import dropout as dropout_ops
     from visualbert_torch.tools.synth import synth_batch
     from visualbert_torch.train.trainer import to_device
 
@@ -858,6 +981,8 @@ def test_model_step_kernels_match_plain_with_dropout(cuda, monkeypatch):
             monkeypatch.setattr(fa, "packed_attention_fwd", fa.packed_attention_fwd_reference)
             monkeypatch.setattr(fa, "packed_attention_bwd", fa.packed_attention_bwd_reference)
             monkeypatch.setattr(dropout_ops, "dropout_mask", dropout_ops.dropout_mask_reference)
+            monkeypatch.setattr(dropout_ops, "dropout_fwd", dropout_ops.dropout_fwd_reference)
+            monkeypatch.setattr(dropout_ops, "dropout_bwd", dropout_ops.dropout_bwd_reference)
             for k in ("fwd", "dx", "de"):
                 monkeypatch.setattr(xe, f"mlm_xent_{k}", getattr(xe, f"mlm_xent_{k}_reference"))
         model = VisualBertForTask(cfg, "pretraining").init_weights(torch.Generator().manual_seed(0)).to(cuda)
@@ -1141,7 +1266,6 @@ def test_model_step_with_fused_layer_norm_matches_plain(cuda, monkeypatch):
     dropout-free forward runs K7."""
     from visualbert_torch.config import VisualBertConfig
     from visualbert_torch.models.visualbert import VisualBertForTask
-    from visualbert_torch.ops import dropout as dropout_ops
     from visualbert_torch.tools.synth import synth_batch
     from visualbert_torch.train.trainer import to_device
 
@@ -1159,6 +1283,8 @@ def test_model_step_with_fused_layer_norm_matches_plain(cuda, monkeypatch):
             monkeypatch.setattr(fa, "packed_attention_fwd", fa.packed_attention_fwd_reference)
             monkeypatch.setattr(fa, "packed_attention_bwd", fa.packed_attention_bwd_reference)
             monkeypatch.setattr(dropout_ops, "dropout_mask", dropout_ops.dropout_mask_reference)
+            monkeypatch.setattr(dropout_ops, "dropout_fwd", dropout_ops.dropout_fwd_reference)
+            monkeypatch.setattr(dropout_ops, "dropout_bwd", dropout_ops.dropout_bwd_reference)
             for k in ("fwd", "dx", "de"):
                 monkeypatch.setattr(xe, f"mlm_xent_{k}", getattr(xe, f"mlm_xent_{k}_reference"))
             for k in ("add_layer_norm_fwd", "add_layer_norm_bwd", "dropout_add_layer_norm_fwd",

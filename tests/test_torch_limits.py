@@ -27,6 +27,7 @@ OUTSIDE = [
     (dict(fused_mlm_xent=True, hidden_size=512, num_attention_heads=8), "fused_mlm_xent", "768 or 1024"),
     (dict(use_fused_layer_norm=True, hidden_size=1100, num_attention_heads=11), "use_fused_layer_norm", "up to 1024"),
     (dict(use_fused_layer_norm=True, hidden_size=1284, num_attention_heads=12), "use_fused_layer_norm", "multiple of 8"),
+    (dict(fast_dropout=True, dtype=torch.float64), "fast_dropout", "bf16, fp16 or fp32"),
 ]
 
 

@@ -61,7 +61,7 @@ class VisualBertConfig:
     use_fused_layer_norm: bool = False  # K7-K10 residual add + LayerNorm kernels
     flash_save_probs: bool = False      # packed with saved probabilities: K13/K14
     fused_mlm_xent: bool = False
-    fast_dropout: bool = False         # K3 mask-kernel dropout
+    fast_dropout: bool = False         # dropout site kernels on K3's Philox body
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", _dtype(self.dtype))

@@ -15,7 +15,9 @@ are cast to the compute dtype before PV.
 
 Dropout is on exactly when a ``torch.Generator`` is passed down: each
 dropout site draws its own int32 seed from it. With ``cfg.fast_dropout`` the
-hidden-state sites use the K3 mask kernel (``ops/dropout.py``); otherwise,
+hidden-state sites run the dropout site kernels on K3's Philox body
+(``ops/dropout.py::fast_dropout``: one kernel forward, one backward from
+the saved keep bits); otherwise,
 and for attention probabilities on the einsum path, :func:`seeded_dropout`
 (the JAX package's ``nn.Dropout``), whose mask comes from a generator on the
 tensor's device seeded from that int32, so a run repeats from its seed. With

@@ -47,7 +47,7 @@ from typing import Optional, Tuple
 import torch
 
 from visualbert_torch.ops import _build
-from visualbert_torch.ops.dropout import dropout_mask_reference
+from visualbert_torch.ops.dropout import dropout_mask_reference, pack_keep, unpack_keep
 from visualbert_torch.ops.philox import MASK32, keep_threshold
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -77,17 +77,16 @@ def keep_mask(shape, rate: float, seed: int, device) -> torch.Tensor:
 
 def pack_bits(keep: torch.Tensor) -> torch.Tensor:
     """A bool ``[N, H]`` mask (H a multiple of 8) as ``uint8 [N, H / 8]``:
-    bit ``k`` of byte ``j`` is element ``8 j + k``, the layout K9 writes."""
+    bit ``k`` of byte ``j`` is element ``8 j + k``, the layout K9 writes
+    (the dropout site's, ``ops/dropout.py::pack_keep``, row by row)."""
     N, H = keep.shape
-    weights = torch.tensor([1 << k for k in range(8)], dtype=torch.int32, device=keep.device)
-    return (keep.reshape(N, H // 8, 8).to(torch.int32) * weights).sum(-1).to(torch.uint8)
+    return pack_keep(keep).reshape(N, H // 8)
 
 
 def unpack_bits(bits: torch.Tensor) -> torch.Tensor:
     """:func:`pack_bits`'s inverse: ``uint8 [N, H / 8]`` -> bool ``[N, H]``."""
     N, B = bits.shape
-    shifts = torch.arange(8, dtype=torch.int32, device=bits.device)
-    return ((bits.to(torch.int32)[:, :, None] >> shifts) & 1).bool().reshape(N, 8 * B)
+    return unpack_keep(bits.reshape(-1), N * 8 * B).reshape(N, 8 * B)
 
 
 def _keep_prob(rate: float) -> torch.Tensor:

@@ -3,10 +3,11 @@ pretraining train step at bert-base (ROADMAP.md), driven through
 ``Trainer``.
 
 The model block is ``configs/coco_pretrain.json``'s, unchanged (packed
-attention K1/K2, mask-kernel dropout K3, fused MLM cross-entropy K4-K6);
-the batch is the config's 128 pairs in ``synth_batch``'s geometry: 128 text
-tokens + 100 regions, 2048-d features, 24 MLM slots; BertAdam runs with the
-pooler frozen, schedule "none", lr 1e-4. ``chip_smoke.py`` and
+attention K1/K2, the dropout site kernels on K3's body, fused MLM
+cross-entropy K4-K6); the batch is the config's 128 pairs in
+``synth_batch``'s geometry: 128 text tokens + 100 regions, 2048-d
+features, 24 MLM slots; BertAdam runs with the pooler frozen, schedule
+"none", lr 1e-4. ``chip_smoke.py`` and
 ``tools/profile_step.py`` both drive this.
 """
 

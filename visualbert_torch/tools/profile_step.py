@@ -42,6 +42,7 @@ GROUPS = (
     ("K1 attention fwd", ("packed_fwd_kernel",)),
     ("K2 attention bwd", ("packed_dq_kernel", "packed_dkv_kernel")),
     ("K3 dropout mask", ("dropout_mask_kernel",)),
+    ("K3 dropout site fwd / bwd", ("dropout_fwd_kernel", "dropout_bwd_kernel")),
     ("K4 xent fwd", ("xent_fwd",)),
     ("K5 xent dx", ("xent_dx", ("xent_bwd_kernel", "false"))),  # xent_bwd_kernel<HID, false> and its reduce
     ("K6 xent dE", (("xent_bwd_kernel", "true"),)),
