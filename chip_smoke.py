@@ -129,8 +129,9 @@ non-zero without printing the final line:
 10. prints the kernel table as one JSON line (launches from phase 6: the
    fused-LayerNorm main path's STEPS steps, for K7/K8 its dropout-0 step,
    for K11-K14 the runs with their settings, for K15/K16 the tools' run,
-   for K3's mask tools/dropout_steps.py's run, for the site kernels the
-   as-shipped steps; K15/K16's rows add every variant's time; K3 is three
+   for K3's mask the calls of its wrapper in tools/dropout_steps.py's run
+   (the tool's checks and timing rounds launch K3 directly and are not
+   counted), for the site kernels the as-shipped steps; K15/K16's rows add every variant's time; K3 is three
    rows: mask, site forward, site backward), then {"ok": true, "device":
    {...}} as the last line.
 """
@@ -471,9 +472,9 @@ def check_dropout(torch, card):
     dy = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
     out, y, dx = torch.empty(shape, dtype=torch.int8, device=dev), torch.empty_like(x), torch.empty_like(x)
     bits = torch.empty(-(-n // 8), dtype=torch.uint8, device=dev)
-    launches = {"dropout_mask": lambda: dr.launch_mask(lib, out, rate, 7, sms),
-                "dropout_fwd": lambda: dr.launch_fwd(lib, x, y, bits, rate, 7, sms),
-                "dropout_bwd": lambda: dr.launch_bwd(lib, dy, bits, dx, rate, sms)}
+    launches = {"dropout_mask": lambda: dr.launch_mask(lib, out, rate, 7),
+                "dropout_fwd": lambda: dr.launch_fwd(lib, x, y, bits, rate, 7),
+                "dropout_bwd": lambda: dr.launch_bwd(lib, dy, bits, dx, rate)}
     for name, fn in launches.items():
         lib.check(fn(), name)
     plain = {"dropout_mask": lambda: dr.dropout_mask_reference(shape, rate, 7, torch.int8, dev),
@@ -511,12 +512,10 @@ def check_dropout(torch, card):
     for kernel, name, code in ((dr.MASK, "dropout_mask", 0), (dr.SITE_FWD, "dropout_fwd", 1),
                                (dr.SITE_BWD, "dropout_bwd", 1)):
         regs, local, smem, per_sm = (lib.vb_dropout_info(kernel, w, code) for w in range(4))
-        per, threads, _ = dr._geometry(lib, kernel, code)
-        blocks = dr.blocks_for(lib, kernel, code, n, sms)
         r = rows[name]
         log(f"{name} {list(shape)}: {regs} registers a thread, {local} bytes of local memory, {per_sm} blocks an SM, "
-            f"grid {blocks} blocks of {threads} ({-(-n // (per * threads * blocks))} rounds of {per} elements a "
-            f"thread); {r['ms']:.4f} ms, {moved[name] / r['ms'] / 1e9:.3f} TB/s; the wrapper's host time "
+            f"one group of 16 elements a thread ({-(-n // (16 * 256))} blocks of 256); "
+            f"{r['ms']:.4f} ms, {moved[name] / r['ms'] / 1e9:.3f} TB/s; the wrapper's host time "
             f"{host_us[name]:.1f} us a call (enqueue only)  [{card}]")
         if local:
             raise SystemExit(f"{name} spills to local memory")
@@ -1036,7 +1035,9 @@ def run_dropout_tool(torch, card):
     other checkout), with every count set to 0 just before. Its builds with
     a design step left out must give the kernels' bits, and its wrapper
     timings launch K3 and the site kernels through their wrappers; nothing
-    else may launch. Returns the launches."""
+    else may launch. The counts are those wrapper calls: the tool's checks
+    and timing rounds launch the kernels through ops/dropout.py::launch_*,
+    which count nothing. Returns the launches."""
     from visualbert_torch.tools import dropout_steps
 
     zero_launches()
@@ -1682,8 +1683,9 @@ def main():
 
     # launches: the fused-LayerNorm main path's STEPS steps; K7/K8 from its
     # dropout-0 step; K11/K12 and K13/K14 from the runs with their settings;
-    # K15/K16 from the two attention tools; K3's mask from
-    # tools/dropout_steps.py, the site kernels from the as-shipped steps
+    # K15/K16 from the two attention tools; K3's mask from its wrapper's
+    # calls in tools/dropout_steps.py, the site kernels from the as-shipped
+    # steps
     launches = list(runs["fused LayerNorm"][0])
     launches[2] = mask_launches[2]
     launches[6:8] = no_dropout[6:8]

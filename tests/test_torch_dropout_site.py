@@ -9,8 +9,10 @@ its autograd gradient; the packed bits must be ``pack_bits`` of K3's plain
 mask; autograd must save nothing but those bits. Against the JAX package's
 ``fast_dropout`` (Pallas in interpret mode, threefry bits, so another mask)
 the kept values, the keep rate (within 4 sigma) and the gradient's zeros
-are compared. The launches are held to the entry points' signatures with a
-recording library. The kernels themselves run on the card
+are compared; a 2-layer pretraining step with fast_dropout on gives the
+JAX model's loss and gradients once the JAX mask kernel's masks are
+replaced by K3's. The launches are held to the entry points' signatures
+with a recording library. The kernels themselves run on the card
 (``tests/test_torch_kernels_cuda.py``).
 """
 
@@ -204,28 +206,74 @@ def test_two_layer_step_equals_the_eager_composition(monkeypatch, dtype):
     assert all(torch.equal(grads_a[k], grads_b[k]) for k in grads_a)
 
 
-class DropoutLib:
-    """A recording library that answers ``vb_dropout_geometry`` (256 threads
-    a block, 16 elements a thread) and ``vb_dropout_info``'s blocks an SM."""
+@pytest.mark.parametrize("flash", [True, False])
+def test_two_layer_step_with_fast_dropout_matches_jax(monkeypatch, rng, flash):
+    """A 2-layer pretraining step in fp32 with fast_dropout at rate 0.1 at
+    each of its 5 sites (attention-probability dropout 0), against the JAX
+    model's step with its fast_dropout: the JAX mask kernel's bits come from
+    threefry, so its dropout_mask is replaced, site by site in the order the
+    sites run, by K3's plain mask at the seed the port drew there. The loss,
+    the outputs and every parameter gradient must agree to
+    tests/test_torch_model.py's tolerance, the one its dropout-off steps meet."""
+    import visualbert_tpu.ops.dropout as jax_dropout
+    from test_torch_model import ATOL, RTOL, make_batch, to_torch
+    from visualbert_tpu.config import VisualBertConfig as JaxConfig
+    from visualbert_tpu.models.visualbert import VisualBertForTask as JaxTask
+    from visualbert_tpu.tools.export_torch import export_state_dict
+    from visualbert_tpu.train.trainer import unbox
+    from visualbert_torch.config import VisualBertConfig
+    from visualbert_torch.models import encoder
+    from visualbert_torch.models.visualbert import VisualBertForTask
+    from visualbert_torch.tools.weights import load_state
 
-    PER_SM = 6
+    kw = dict(SMALL, attention_probs_dropout_prob=0.0, use_flash_attention=flash)
+    jcfg = JaxConfig(**kw, dtype=jnp.float32, scan_layers=False)  # one trace a layer: one mask a site
+    batch = make_batch(rng, alignment=True)
+    batch["example_weight"] = np.array([1.0, 1.0, 0.0], np.float32)
+    jm = JaxTask(jcfg, head_type="pretraining")
+    params = unbox(jm.init(jax.random.PRNGKey(3), batch)["params"])
 
-    def __init__(self):
-        self.calls = []
+    sites = []
 
-    def vb_dropout_geometry(self, which):
-        return (256, 16, 16)[which]
+    def recorded(x, rate, seed):
+        sites.append((tuple(x.shape), rate, seed))
+        return dr.fast_dropout(x, rate, seed)
 
-    def vb_dropout_info(self, kernel, what, dtype):
-        self.calls.append(("vb_dropout_info", (kernel, what, dtype)))
-        return self.PER_SM if what == 3 else 0
+    monkeypatch.setattr(encoder, "fast_dropout", recorded)
+    model = load_state(VisualBertForTask(VisualBertConfig(**kw, dtype=torch.float32), "pretraining"),
+                       export_state_dict(params, jcfg))
+    out_t = model(to_torch(batch), torch.Generator().manual_seed(7))
+    out_t["loss"].backward()
+    assert len(sites) == 1 + 2 * SMALL["num_hidden_layers"]
+    assert all(rate == 0.1 for _, rate, _ in sites)
 
-    def __getattr__(self, name):
-        def call(*args):
-            self.calls.append((name, args))
-            return 0
+    masks = iter([jnp.asarray(dr.dropout_mask_reference(s, r, seed, torch.int8).numpy()) for s, r, seed in sites])
+    drawn = []
 
-        return call
+    def k3_mask(shape, rate, seed, dtype=jnp.bfloat16, mesh=None):
+        mask = next(masks)
+        assert mask.shape == tuple(shape) and dtype == jnp.int8 and rate == 0.1
+        drawn.append(shape)
+        return mask
+
+    monkeypatch.setattr(jax_dropout, "dropout_mask", k3_mask)
+    jbatch = jax.tree.map(jnp.asarray, batch)
+
+    def loss_fn(p):
+        out = jm.apply({"params": p}, jbatch, deterministic=False, rngs={"dropout": jax.random.PRNGKey(9)})
+        return out["loss"], out
+
+    (_, out_j), grads_j = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    assert [tuple(s) for s in drawn] == [s for s, _, _ in sites]
+    for k in ("loss", "masked_lm_loss", "next_sentence_loss", "mlm_accuracy"):
+        np.testing.assert_allclose(float(out_t[k].detach()), float(out_j[k]), atol=ATOL, rtol=RTOL, err_msg=k)
+    np.testing.assert_allclose(out_t["logits"].detach().numpy(), out_j["logits"], atol=ATOL, rtol=RTOL)
+    want = export_state_dict(grads_j, jcfg)
+    names = dict(model.named_parameters())
+    assert set(names) <= set(want)
+    for name, p in names.items():
+        assert p.grad is not None, name
+        np.testing.assert_allclose(p.grad.numpy(), want[name], atol=ATOL, rtol=RTOL, err_msg=name)
 
 
 CODES = {torch.int8: 0, torch.bfloat16: 1, torch.float16: 2, torch.float32: 3}
@@ -237,54 +285,29 @@ CODES = {torch.int8: 0, torch.bfloat16: 1, torch.float16: 2, torch.float32: 3}
 def test_each_dropout_launch_passes_its_signatures_arguments(monkeypatch, kernel, dtype, n):
     """The launches hand their entry point one value per declared argument
     (an int for every pointer and integer, a float for the rescale), n, the
-    dtype code, the threshold and rescale of the rate, and a grid: for K3
-    the blocks that fit on the card at once (the occupancy query's answer
-    for that kernel and dtype times a stubbed SM count), no more than n
-    needs; for the site kernels one group of 16 a thread."""
-    from test_torch_entry_points import DEFINED
+    dtype code, the seed's low 32 bits, and the threshold and rescale of the
+    rate; the grid is the entry point's own."""
+    from test_torch_entry_points import DEFINED, RecordingLib
 
     monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
-    dr._geometry.cache_clear()
-    SMS, rate = 132, 0.1
+    rate = 0.1
     x = torch.empty(n, dtype=dtype) if n < 10**6 else torch.empty(1, dtype=dtype).expand(n)
     bits = torch.empty(-(-n // 8), dtype=torch.uint8)
-    lib = DropoutLib()
-    number = {"vb_dropout_mask": dr.MASK, "vb_dropout_fwd": dr.SITE_FWD, "vb_dropout_bwd": dr.SITE_BWD}[kernel]
+    lib = RecordingLib()
     if kernel == "vb_dropout_mask":
-        code = dr.launch_mask(lib, x, rate, 2**32 + 5, SMS)
+        code = dr.launch_mask(lib, x, rate, 2**32 + 5)
     elif kernel == "vb_dropout_fwd":
-        code = dr.launch_fwd(lib, x, x, bits, rate, 2**32 + 5, SMS)
+        code = dr.launch_fwd(lib, x, x, bits, rate, 2**32 + 5)
     else:
-        code = dr.launch_bwd(lib, x, bits, x, rate, SMS)
+        code = dr.launch_bwd(lib, x, bits, x, rate)
     assert code == 0
-    ((_, values),) = [c for c in lib.calls if c[0] == kernel]
-    assert len(values) == len(_build._SIGNATURES[kernel])
+    ((name, values),) = lib.calls
+    assert name == kernel and len(values) == len(_build._SIGNATURES[kernel])
     for value, argtype in zip(values, _build._SIGNATURES[kernel]):
         assert type(value) is (float if argtype is ctypes.c_float else int), (value, argtype)
     given = dict(zip(DEFINED[kernel][3], values))
+    assert "blocks" not in given
     assert (given["n"], given["dtype"]) == (n, CODES[dtype])
     assert given["threshold"] == int(rate * 2**32) and given["scale"] == 1.0 / (1.0 - rate)
     if kernel != "vb_dropout_bwd":
         assert given["seed"] == 5
-    assert ("vb_dropout_info", (number, 3, CODES[dtype])) in lib.calls
-    groups = -(-n // 16)
-    if kernel == "vb_dropout_mask":  # resident blocks, every thread the same rounds
-        rounds = -(-groups // (DropoutLib.PER_SM * SMS * 256))
-        assert given["blocks"] == -(-groups // (256 * rounds)) <= DropoutLib.PER_SM * SMS
-        assert given["blocks"] == dr.resident_blocks(n, 16, 256, DropoutLib.PER_SM, SMS)
-    else:  # one group of 16 a thread
-        assert given["blocks"] == -(-groups // 256) == dr.one_shot_blocks(n, 16, 256)
-
-
-def test_the_grid_refuses_a_failed_occupancy_query():
-    with pytest.raises(RuntimeError, match="occupancy"):
-        dr.resident_blocks(100, 16, 256, 0, 132)
-    assert dr.resident_blocks(1, 16, 256, 6, 132) == 1
-    assert dr.resident_blocks(4096 * 3, 16, 256, 6, 132) == 3
-    # the main path's sites: 1,400,832 groups of 16 over 792 resident blocks
-    # take 7 rounds; 782 blocks give every thread 7
-    assert dr.resident_blocks(128 * 228 * 768, 16, 256, 6, 132) == 782
-    assert dr.resident_blocks(128 * 228 * 768, 16, 256, 8, 132) == 912
-    assert dr.one_shot_blocks(128 * 228 * 768, 16, 256) == 5472
-    assert dr.one_shot_blocks(1, 16, 256) == 1 and dr.one_shot_blocks(4097, 16, 256) == 2
-

@@ -21,7 +21,11 @@
 // - The site backward reads dy and those bits and writes dx = dy * m, the
 //   same product; it draws nothing. Built with VB_DROPOUT_REGEN_MASK (for
 //   tools/dropout_steps.py only) it draws the bits again from the seed: the
-//   same bits, so the same dx.
+//   same bits, so the same dx. The shipped path, reading the bits, measured
+//   the slower of the two at the main path's shape: 0.0353-0.0359 ms
+//   against 0.0338-0.0345 ms for the redraw (H100 80GB HBM3, 700 W,
+//   tools/dropout_steps.py); it stays while a step's saved bits and peak
+//   memory are not weighed against the redraw (ROADMAP.md B7).
 //
 // Bound on the H100. K3 at [128, 228, 768] writes 22.4 MB of int8 (6.7 us
 // of HBM time) but makes 5.6 M Philox calls, 20 32x32->64-bit multiplies
@@ -34,23 +38,24 @@
 //
 // The design, against the first (one 4 B store and one Philox call a
 // thread in 21,888 one-shot blocks, a 64-bit index loop):
-// - 16 elements a thread an iteration: 4 independent Philox calls, whose
-//   rounds interleave, and 16 B stores (one for the int8 mask, two or four
-//   for bf16/fp16 or fp32); the site kernels issue their 16 B loads of x
-//   or dy before they draw or use the bits, so the loads are in flight
-//   during the Philox work, and store two bytes of bits a thread. Built
-//   with VB_DROPOUT_ONE_CALL (tools/dropout_steps.py) K3 makes one call and
-//   one 4-element store a thread an iteration.
-// - Every kernel walks its groups of 16 with a grid-stride loop; the
-//   wrapper picks the grid (ops/dropout.py::blocks_for). K3, bound by its
-//   Philox work, runs on a grid of resident blocks, as many as fit on the
-//   card at once (the occupancy query vb_dropout_info x the SMs), the
-//   fewest that give every thread the same number of rounds. The site
-//   kernels, bound by their bytes, run one group a thread (5,472 blocks at
-//   the main path): there a resident grid took 0.038-0.040 ms against
-//   0.035-0.036 ms, a copy of the same bytes 0.034 ms (H100 80GB HBM3,
-//   700 W, tools/dropout_steps.py): a resident thread's next loads wait
-//   for its stores, while fresh blocks issue theirs at once.
+// - 16 elements a thread: 4 independent Philox calls, whose rounds
+//   interleave, and 16 B stores (one for the int8 mask, two or four for
+//   bf16/fp16 or fp32); the site kernels issue their 16 B loads of x or dy
+//   before they draw or use the bits, so the loads are in flight during the
+//   Philox work, and store two bytes of bits a thread. Built with
+//   VB_DROPOUT_ONE_CALL (tools/dropout_steps.py) K3 makes one call and one
+//   4-element store a thread.
+// - One grid rule for the three kernels, worked out at launch (grid_of):
+//   one group of 16 a thread, 5,472 blocks at the main path. Each kernel
+//   walks its groups with a grid-stride loop, so a build with
+//   VB_DROPOUT_RESIDENT (tools/dropout_steps.py) runs them on a grid of
+//   resident blocks instead (the occupancy query x the SMs, the fewest that
+//   give every thread the same number of rounds). That grid bought K3
+//   nothing (0.0191-0.0195 ms against 0.0193-0.0195 ms) and cost the site
+//   kernels 8-14 % (0.038-0.040 against 0.035-0.036 ms; a copy of the same
+//   bytes 0.034 ms) (H100 80GB HBM3, 700 W, tools/dropout_steps.py): a
+//   resident thread's next loads wait for its stores, while fresh blocks
+//   issue theirs at once.
 // - 32-bit index arithmetic when n < 2^31 (every tensor of the main
 //   path); 64-bit otherwise.
 // - A tail path for n not a multiple of 16: the last group is written
@@ -69,9 +74,9 @@ namespace {
 enum Dtype { kInt8 = 0, kBf16 = 1, kFp16 = 2, kFp32 = 3 };
 
 constexpr int kThreads = 256;  // a block
-constexpr int kSitePer = 16;   // site elements a thread an iteration: 4 Philox calls
+constexpr int kSitePer = 16;   // site elements a thread: 4 Philox calls
 #ifdef VB_DROPOUT_ONE_CALL
-constexpr int kMaskPer = 4;    // K3 elements a thread an iteration: 1 Philox call
+constexpr int kMaskPer = 4;    // K3 elements a thread: 1 Philox call
 #else
 constexpr int kMaskPer = 16;
 #endif
@@ -300,38 +305,69 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr long long kMax32 = 0x7fffffffLL;  // n below this takes the 32-bit index kernels
 
+// The grid of `kernel` over n elements, `per` a thread: one group a thread;
+// built with VB_DROPOUT_RESIDENT, no more blocks than fit on the card at
+// once, the fewest of those that give every thread the same rounds.
+template <typename K>
+int grid_of(K kernel, long long n, int per) {
+  const long long groups = (n + per - 1) / per;
+  long long blocks = (groups + kThreads - 1) / kThreads;
+#ifdef VB_DROPOUT_RESIDENT
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  const long long fit = (long long)per_sm * sms;
+  if (fit > 0) {
+    const long long rounds = (blocks + fit - 1) / fit;
+    blocks = (groups + kThreads * rounds - 1) / (kThreads * rounds);
+  }
+#else
+  (void)kernel;
+#endif
+  return (int)(blocks < kMax32 ? blocks : kMax32);
+}
+
 template <typename T>
-void launch_mask(void* out, long long n, uint32_t seed, uint32_t threshold, float scale, int blocks,
-                 cudaStream_t st) {
+void launch_mask(void* out, long long n, uint32_t seed, uint32_t threshold, float scale, cudaStream_t st) {
   T* p = static_cast<T*>(out);
-  if (n < kMax32)
-    dropout_mask_kernel<T, uint32_t><<<blocks, kThreads, 0, st>>>(p, (uint32_t)n, seed, threshold, scale);
-  else
-    dropout_mask_kernel<T, unsigned long long><<<blocks, kThreads, 0, st>>>(p, n, seed, threshold, scale);
+  if (n < kMax32) {
+    auto k = dropout_mask_kernel<T, uint32_t>;
+    k<<<grid_of(k, n, kMaskPer), kThreads, 0, st>>>(p, (uint32_t)n, seed, threshold, scale);
+  } else {
+    auto k = dropout_mask_kernel<T, unsigned long long>;
+    k<<<grid_of(k, n, kMaskPer), kThreads, 0, st>>>(p, n, seed, threshold, scale);
+  }
 }
 
 template <typename T>
 void launch_fwd(const void* x, void* y, void* bits, long long n, uint32_t seed, uint32_t threshold, float scale,
-                int blocks, cudaStream_t st) {
+                cudaStream_t st) {
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
   uint8_t* bp = static_cast<uint8_t*>(bits);
-  if (n < kMax32)
-    dropout_fwd_kernel<T, uint32_t><<<blocks, kThreads, 0, st>>>(xp, yp, bp, (uint32_t)n, seed, threshold, scale);
-  else
-    dropout_fwd_kernel<T, unsigned long long><<<blocks, kThreads, 0, st>>>(xp, yp, bp, n, seed, threshold, scale);
+  if (n < kMax32) {
+    auto k = dropout_fwd_kernel<T, uint32_t>;
+    k<<<grid_of(k, n, kSitePer), kThreads, 0, st>>>(xp, yp, bp, (uint32_t)n, seed, threshold, scale);
+  } else {
+    auto k = dropout_fwd_kernel<T, unsigned long long>;
+    k<<<grid_of(k, n, kSitePer), kThreads, 0, st>>>(xp, yp, bp, n, seed, threshold, scale);
+  }
 }
 
 template <typename T>
 void launch_bwd(const void* dy, const void* bits, void* dx, long long n, uint32_t seed, uint32_t threshold,
-                float scale, int blocks, cudaStream_t st) {
+                float scale, cudaStream_t st) {
   const T* dyp = static_cast<const T*>(dy);
   const uint8_t* bp = static_cast<const uint8_t*>(bits);
   T* dxp = static_cast<T*>(dx);
-  if (n < kMax32)
-    dropout_bwd_kernel<T, uint32_t><<<blocks, kThreads, 0, st>>>(dyp, bp, dxp, (uint32_t)n, seed, threshold, scale);
-  else
-    dropout_bwd_kernel<T, unsigned long long><<<blocks, kThreads, 0, st>>>(dyp, bp, dxp, n, seed, threshold, scale);
+  if (n < kMax32) {
+    auto k = dropout_bwd_kernel<T, uint32_t>;
+    k<<<grid_of(k, n, kSitePer), kThreads, 0, st>>>(dyp, bp, dxp, (uint32_t)n, seed, threshold, scale);
+  } else {
+    auto k = dropout_bwd_kernel<T, unsigned long long>;
+    k<<<grid_of(k, n, kSitePer), kThreads, 0, st>>>(dyp, bp, dxp, n, seed, threshold, scale);
+  }
 }
 
 // The 32-bit index instantiation of kernel 0 (K3), 1 (site forward) or 2
@@ -366,13 +402,6 @@ extern "C" const char* vb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// What the wrapper plans a grid from: 0 threads a block, 1 K3's elements a
-// thread an iteration, 2 the site kernels'; -1 for anything else.
-extern "C" int vb_dropout_geometry(int which) {
-  const int g[3] = {kThreads, kMaskPer, kSitePer};
-  return which >= 0 && which < 3 ? g[which] : -1;
-}
-
 // Kernel 0 (K3), 1 (site forward) or 2 (site backward) in dtype (K3: int8,
 // bf16, fp16, fp32; the site: bf16, fp16, fp32), its 32-bit index build: 0
 // registers a thread, 1 local (spilled) bytes a thread, 2 shared bytes a
@@ -391,17 +420,16 @@ extern "C" int vb_dropout_info(int kernel, int what, int dtype) {
   return per_sm;
 }
 
-// K3: the mask of n elements into out (16-byte aligned) as dtype, on
-// `blocks` blocks.
+// K3: the mask of n elements into out (16-byte aligned) as dtype.
 extern "C" int vb_dropout_mask(void* out, long long n, int dtype, unsigned int seed, unsigned int threshold,
-                               float scale, int blocks, void* stream) {
-  if (n < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+                               float scale, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kInt8: launch_mask<int8_t>(out, n, seed, threshold, 1.f, blocks, s); break;
-    case kBf16: launch_mask<__nv_bfloat16>(out, n, seed, threshold, scale, blocks, s); break;
-    case kFp16: launch_mask<__half>(out, n, seed, threshold, scale, blocks, s); break;
-    case kFp32: launch_mask<float>(out, n, seed, threshold, scale, blocks, s); break;
+    case kInt8: launch_mask<int8_t>(out, n, seed, threshold, 1.f, s); break;
+    case kBf16: launch_mask<__nv_bfloat16>(out, n, seed, threshold, scale, s); break;
+    case kFp16: launch_mask<__half>(out, n, seed, threshold, scale, s); break;
+    case kFp32: launch_mask<float>(out, n, seed, threshold, scale, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -410,13 +438,13 @@ extern "C" int vb_dropout_mask(void* out, long long n, int dtype, unsigned int s
 // The site forward: y = x * m and the keep bits (ceil(n / 8) bytes) of n
 // elements; x and y 16-byte aligned, bits 2-byte aligned.
 extern "C" int vb_dropout_fwd(const void* x, void* y, void* bits, long long n, int dtype, unsigned int seed,
-                              unsigned int threshold, float scale, int blocks, void* stream) {
-  if (n < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+                              unsigned int threshold, float scale, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kBf16: launch_fwd<__nv_bfloat16>(x, y, bits, n, seed, threshold, scale, blocks, s); break;
-    case kFp16: launch_fwd<__half>(x, y, bits, n, seed, threshold, scale, blocks, s); break;
-    case kFp32: launch_fwd<float>(x, y, bits, n, seed, threshold, scale, blocks, s); break;
+    case kBf16: launch_fwd<__nv_bfloat16>(x, y, bits, n, seed, threshold, scale, s); break;
+    case kFp16: launch_fwd<__half>(x, y, bits, n, seed, threshold, scale, s); break;
+    case kFp32: launch_fwd<float>(x, y, bits, n, seed, threshold, scale, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -425,13 +453,13 @@ extern "C" int vb_dropout_fwd(const void* x, void* y, void* bits, long long n, i
 // The site backward: dx = dy * m from the forward's bits. seed and
 // threshold are read only by a build with VB_DROPOUT_REGEN_MASK.
 extern "C" int vb_dropout_bwd(const void* dy, const void* bits, void* dx, long long n, int dtype, unsigned int seed,
-                              unsigned int threshold, float scale, int blocks, void* stream) {
-  if (n < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+                              unsigned int threshold, float scale, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kBf16: launch_bwd<__nv_bfloat16>(dy, bits, dx, n, seed, threshold, scale, blocks, s); break;
-    case kFp16: launch_bwd<__half>(dy, bits, dx, n, seed, threshold, scale, blocks, s); break;
-    case kFp32: launch_bwd<float>(dy, bits, dx, n, seed, threshold, scale, blocks, s); break;
+    case kBf16: launch_bwd<__nv_bfloat16>(dy, bits, dx, n, seed, threshold, scale, s); break;
+    case kFp16: launch_bwd<__half>(dy, bits, dx, n, seed, threshold, scale, s); break;
+    case kFp32: launch_bwd<float>(dy, bits, dx, n, seed, threshold, scale, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

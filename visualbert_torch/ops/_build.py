@@ -37,11 +37,10 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {  # every C entry point of the sources: its argument types
     "vb_error_string": [_I],
-    "vb_dropout_geometry": [_I],
     "vb_dropout_info": [_I, _I, _I],
-    "vb_dropout_mask": [_P, ctypes.c_longlong, _I, _U, _U, _F, _I, _P],
-    "vb_dropout_fwd": [_P, _P, _P, ctypes.c_longlong, _I, _U, _U, _F, _I, _P],
-    "vb_dropout_bwd": [_P, _P, _P, ctypes.c_longlong, _I, _U, _U, _F, _I, _P],
+    "vb_dropout_mask": [_P, ctypes.c_longlong, _I, _U, _U, _F, _P],
+    "vb_dropout_fwd": [_P, _P, _P, ctypes.c_longlong, _I, _U, _U, _F, _P],
+    "vb_dropout_bwd": [_P, _P, _P, ctypes.c_longlong, _I, _U, _U, _F, _P],
     "vb_attn_packed_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_packed_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_packed_smem_bytes": [_I],

@@ -22,16 +22,14 @@ which saves only the bits, one site backward: the JAX package's mask kernel
 plus the multiply XLA fuses after it, and ``nn.Dropout``'s gradient. Each
 wrapper computes its plain version (``*_reference``: the eager composition
 ``x * (mask.to(x.dtype) * (1 / (1 - rate)))``, bit for bit) on a CPU
-tensor, and on a CUDA tensor launches its kernel or raises: K3 on a grid
-of resident blocks (:func:`resident_blocks`, from the occupancy query
-``vb_dropout_info``), the site kernels one group of 16 elements a thread
-(:func:`one_shot_blocks`).
+tensor, and on a CUDA tensor launches its kernel or raises. Each launch
+works out its grid itself (one group of 16 elements a thread);
+``vb_dropout_info`` reports a kernel's registers, spills and blocks an SM.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import torch
 
@@ -100,45 +98,6 @@ def dropout_bwd_reference(dy: torch.Tensor, bits: torch.Tensor, rate: float) -> 
 # ---- kernel wrappers ----
 
 
-def resident_blocks(n: int, per_thread: int, threads: int, per_sm: int, sms: int) -> int:
-    """K3's grid: no more blocks than fit on the card at once (``per_sm``
-    from its occupancy query, times the SMs), and of those the fewest that
-    give every thread the same number of grid-stride rounds over the ``n``
-    elements at ``per_thread`` a thread a round, ``threads`` a block (at
-    [128, 228, 768] a full grid would leave 4 of 5 threads idle in the last
-    round)."""
-    if per_sm < 1:
-        raise RuntimeError(f"dropout kernels: the occupancy query answered {per_sm} blocks an SM")
-    groups = -(-n // per_thread)
-    rounds = -(-groups // (per_sm * sms * threads))
-    return max(1, -(-groups // (threads * rounds)))
-
-
-def one_shot_blocks(n: int, per_thread: int, threads: int) -> int:
-    """The site kernels' grid: one group of ``per_thread`` elements a
-    thread, so each block streams its share once and retires (bound by
-    bytes, they ran 8-14 % slower on K3's resident grid; csrc/dropout.cu)."""
-    groups = -(-n // per_thread)
-    return max(1, -(-groups // threads))
-
-
-@functools.lru_cache(maxsize=None)
-def _geometry(lib, kernel: int, code: int):
-    """(elements a thread, threads a block, blocks an SM) of ``kernel`` in
-    dtype ``code``: fixed for a library and a card, so queried once."""
-    return (lib.vb_dropout_geometry(1 if kernel == MASK else 2), lib.vb_dropout_geometry(0),
-            lib.vb_dropout_info(kernel, 3, code))
-
-
-def blocks_for(lib, kernel: int, code: int, n: int, sms: int) -> int:
-    """The grid of ``kernel`` over ``n`` elements: K3's resident blocks,
-    the site kernels' one group a thread."""
-    per, threads, per_sm = _geometry(lib, kernel, code)
-    if kernel == MASK:
-        return resident_blocks(n, per, threads, per_sm, sms)
-    return one_shot_blocks(n, per, threads)
-
-
 @functools.lru_cache(maxsize=None)
 def _keep_args(rate: float):
     """(threshold, 1 / (1 - rate)) of a dropout rate, computed once."""
@@ -166,33 +125,27 @@ def _check_site(what: str, *tensors) -> None:
             raise ValueError(f"{what}: tensors must be {ALIGNMENT}-byte aligned")
 
 
-def launch_mask(lib, out: torch.Tensor, rate: float, seed: int, sms: int, blocks: Optional[int] = None) -> int:
-    """Launch K3 into ``out`` (checked) on ``blocks`` blocks (by default
-    :func:`blocks_for`'s); returns the entry point's code."""
+def launch_mask(lib, out: torch.Tensor, rate: float, seed: int) -> int:
+    """Launch K3 into ``out`` (checked); returns the entry point's code."""
     code, n = _DTYPE_CODES[out.dtype], out.numel()
-    blocks = blocks_for(lib, MASK, code, n, sms) if blocks is None else blocks
-    return lib.vb_dropout_mask(out.data_ptr(), n, code, int(seed) & MASK32, *_keep_args(float(rate)), blocks,
+    return lib.vb_dropout_mask(out.data_ptr(), n, code, int(seed) & MASK32, *_keep_args(float(rate)),
                                _build.stream_ptr(out.device))
 
 
-def launch_fwd(lib, x: torch.Tensor, y: torch.Tensor, bits: torch.Tensor, rate: float, seed: int, sms: int,
-               blocks: Optional[int] = None) -> int:
+def launch_fwd(lib, x: torch.Tensor, y: torch.Tensor, bits: torch.Tensor, rate: float, seed: int) -> int:
     """Launch the site forward on checked tensors, as :func:`launch_mask`."""
     code, n = _DTYPE_CODES[x.dtype], x.numel()
-    blocks = blocks_for(lib, SITE_FWD, code, n, sms) if blocks is None else blocks
     return lib.vb_dropout_fwd(x.data_ptr(), y.data_ptr(), bits.data_ptr(), n, code, int(seed) & MASK32,
-                              *_keep_args(float(rate)), blocks, _build.stream_ptr(x.device))
+                              *_keep_args(float(rate)), _build.stream_ptr(x.device))
 
 
-def launch_bwd(lib, dy: torch.Tensor, bits: torch.Tensor, dx: torch.Tensor, rate: float, sms: int,
-               seed: int = 0, blocks: Optional[int] = None) -> int:
+def launch_bwd(lib, dy: torch.Tensor, bits: torch.Tensor, dx: torch.Tensor, rate: float, seed: int = 0) -> int:
     """Launch the site backward on checked tensors, as :func:`launch_mask`.
     ``seed`` is read only by a build of csrc/dropout.cu with
     -DVB_DROPOUT_REGEN_MASK (tools/dropout_steps.py)."""
     code, n = _DTYPE_CODES[dy.dtype], dy.numel()
-    blocks = blocks_for(lib, SITE_BWD, code, n, sms) if blocks is None else blocks
     return lib.vb_dropout_bwd(dy.data_ptr(), bits.data_ptr(), dx.data_ptr(), n, code, int(seed) & MASK32,
-                              *_keep_args(float(rate)), blocks, _build.stream_ptr(dy.device))
+                              *_keep_args(float(rate)), _build.stream_ptr(dy.device))
 
 
 def dropout_mask(shape, rate: float, seed: int, dtype: torch.dtype, device) -> torch.Tensor:
@@ -215,7 +168,7 @@ def dropout_mask(shape, rate: float, seed: int, dtype: torch.dtype, device) -> t
         raise ValueError(f"{what}: output not {ALIGNMENT}-byte aligned")
     if out.numel() == 0:
         return out
-    lib.check(launch_mask(lib, out, rate, seed, _build.sm_count(device)), what)
+    lib.check(launch_mask(lib, out, rate, seed), what)
     dropout_mask.launches += 1
     return out
 
@@ -236,7 +189,7 @@ def dropout_fwd(x: torch.Tensor, rate: float, seed: int):
     bits = torch.empty(-(-x.numel() // 8), dtype=torch.uint8, device=x.device)
     if x.numel() == 0:
         return y, bits
-    lib.check(launch_fwd(lib, x, y, bits, rate, seed, _build.sm_count(x.device)), what)
+    lib.check(launch_fwd(lib, x, y, bits, rate, seed), what)
     dropout_fwd.launches += 1
     return y, bits
 
@@ -257,7 +210,7 @@ def dropout_bwd(dy: torch.Tensor, bits: torch.Tensor, rate: float) -> torch.Tens
     dx = torch.empty_like(dy)
     if dy.numel() == 0:
         return dx
-    lib.check(launch_bwd(lib, dy, bits, dx, rate, _build.sm_count(dy.device)), what)
+    lib.check(launch_bwd(lib, dy, bits, dx, rate), what)
     dropout_bwd.launches += 1
     return dx
 

@@ -8,37 +8,32 @@ K3's mask int8), each build of ``csrc/dropout.cu`` alone with the switches
 of BUILDS, into ``visualbert_torch/_build/dropout_steps/``:
 
 * "one call": ``-DVB_DROPOUT_ONE_CALL``, K3 makes one Philox call and one
-  4-element store a thread a round, as the first design did, on the
-  resident grid: what 4 calls and 16 B stores a thread buy;
+  4-element store a thread, as the first design did: what 4 calls and 16 B
+  stores a thread buy;
+* "resident grid": ``-DVB_DROPOUT_RESIDENT``, the three kernels on a grid of
+  resident blocks (the occupancy query x the SMs) in place of one group of
+  16 a thread;
 * "regen mask": ``-DVB_DROPOUT_REGEN_MASK``, the site backward draws its bits
-  again from the seed in place of reading the forward's;
+  again from the seed in place of reading the forward's.
 
-and the library as built on the other grid of each kernel (the entry
-points take the grid):
-
-* "one-shot mask": K3 one group of 16 a thread in place of its resident
-  grid;
-* "resident site": the site kernels on resident blocks (as K3's grid is
-  planned, ``ops/dropout.py::resident_blocks``) in place of one group a
-  thread.
-
-Every variant must give the kernels' outputs bit for bit (the same bits,
-the same products). Beside them, timed in the same rounds: the eager site the
+Every build must give the kernels' outputs bit for bit (the same bits, the
+same products). Beside them, timed in the same rounds: the eager site the
 port ran before the site kernels (K3 as built, then the cast, the rescale
 and the product; its backward ``dy * m``), ``F.dropout`` and
 ``aten.native_dropout_backward`` (the library's dropout, never on the
 path), and a device-to-device copy of the site forward's bytes. The public
 wrappers are also called as a caller calls them (each call allocating its
-outputs), with their host time a call: those launches are the tool's own
-use of K3's mask, which no training path launches since the site kernels
-took its place.
+outputs), with their host time a call: those calls are the only launches
+the wrappers' counts see here (the builds' checks and the timing rounds
+launch through ``ops/dropout.py::launch_*``, uncounted), and the tool's
+calls of K3's wrapper are the only ones since no training path launches
+K3's mask.
 
 Given the root of another tree of the repository (an earlier commit
 unpacked with ``git archive``), the tool also builds that tree's
 ``dropout.cu`` alone and times its K3 in the same rounds; a tree from
-before this design (``FIRST_DESIGN_SIGNATURES``: no grid argument, one
-Philox call a thread in one-shot blocks) is launched with its own
-signature.
+before the site kernels (no ``vb_dropout_fwd``: one Philox call a thread in
+one-shot blocks) has K3's entry point alone, with this tree's signature.
 
 Kernels are timed with CUDA events, launched directly on preallocated
 tensors (a wrapper's host time a call is of the order of K3's device time
@@ -64,16 +59,13 @@ ROUNDS = 3
 RATE, SEED = 0.1, 4321
 BUILDS = {
     "one call": ["-DVB_DROPOUT_ONE_CALL"],
+    "resident grid": ["-DVB_DROPOUT_RESIDENT"],
     "regen mask": ["-DVB_DROPOUT_REGEN_MASK"],
 }
-GRIDS = {"one-shot mask": {"mask": "one shot"}, "resident site": {"fwd": "resident", "bwd": "resident"}}
-# the kernels each variant is timed on: what its step changes
-TIMED = {"one call": ("mask",), "regen mask": ("bwd",), "one-shot mask": ("mask",), "resident site": ("fwd", "bwd")}
-FNS = ("vb_dropout_geometry", "vb_dropout_info", "vb_dropout_mask", "vb_dropout_fwd", "vb_dropout_bwd")
 KERNELS = ("mask", "fwd", "bwd")  # K3, the site forward, the site backward
-_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-# K3's entry point before the resident grid: no blocks argument
-FIRST_DESIGN_SIGNATURES = {"vb_dropout_mask": [_P, ctypes.c_longlong, _I, _U, _U, _F, _P]}
+# the kernels each build is timed on: what its step changes
+TIMED = {"one call": ("mask",), "resident grid": KERNELS, "regen mask": ("bwd",)}
+FNS = ("vb_dropout_info", "vb_dropout_mask", "vb_dropout_fwd", "vb_dropout_bwd")
 
 
 def _compile(jobs, out):
@@ -114,33 +106,19 @@ def build_all(other=None):
     seconds = time.perf_counter() - t0
     builds = {name: Build(name, _load(paths[name], {fn: _build._SIGNATURES[fn] for fn in FNS})) for name in BUILDS}
     if other is not None:
-        first = "vb_dropout_info" not in (Path(other) / "visualbert_torch" / "csrc" / "dropout.cu").read_text()
-        sig = FIRST_DESIGN_SIGNATURES if first else {fn: _build._SIGNATURES[fn] for fn in FNS}
-        builds["other"] = Build("other", _load(paths["other"], sig), first_design=first)
+        first = "vb_dropout_fwd" not in (Path(other) / "visualbert_torch" / "csrc" / "dropout.cu").read_text()
+        fns = ("vb_dropout_mask",) if first else FNS
+        builds["other"] = Build("other", _load(paths["other"], {fn: _build._SIGNATURES[fn] for fn in fns}),
+                                first_design=first)
     return builds, seconds
 
 
 class Build:
     """K3 and the site kernels of one library, launched as this checkout's
-    wrappers launch them, or on the other grid of the kernels in ``grids``
-    ({kernel: "resident" or "one shot"}); a first-design library: K3 alone,
-    as its wrapper did."""
+    wrappers launch them; a first-design library: K3 alone."""
 
-    def __init__(self, name, lib, first_design=False, grids=None):
-        self.name, self.lib, self.first_design, self.grids = name, lib, first_design, grids or {}
-
-    def blocks(self, kernel, code, n, sms):
-        """The grid of ``kernel`` ("mask", "fwd", "bwd"), or None for the wrappers'."""
-        from visualbert_torch.ops import dropout as dr
-
-        grid = self.grids.get(kernel)
-        if grid is None:
-            return None
-        number = {"mask": dr.MASK, "fwd": dr.SITE_FWD, "bwd": dr.SITE_BWD}[kernel]
-        per, threads, per_sm = dr._geometry(self.lib, number, code)
-        if grid == "one shot":
-            return dr.one_shot_blocks(n, per, threads)
-        return dr.resident_blocks(n, per, threads, per_sm, sms)
+    def __init__(self, name, lib, first_design=False):
+        self.name, self.lib, self.first_design = name, lib, first_design
 
     def _check(self, code, what):
         if code != 0:
@@ -159,30 +137,22 @@ class Build:
         return {k: [self.lib.vb_dropout_info(n, w, code) for w in range(4)]
                 for k, n, code in (("mask", dr.MASK, 0), ("fwd", dr.SITE_FWD, 1), ("bwd", dr.SITE_BWD, 1))}
 
-    def mask(self, out, sms):
+    def mask(self, out):
         from visualbert_torch.ops import dropout as dr
 
-        if not self.first_design:
-            blocks = self.blocks("mask", dr._DTYPE_CODES[out.dtype], out.numel(), sms)
-            self._check(dr.launch_mask(self.lib, out, RATE, SEED, sms, blocks), "K3")
-            return out
-        thr, scale = dr._keep_args(RATE)
-        self._check(self.lib.vb_dropout_mask(out.data_ptr(), out.numel(), dr._DTYPE_CODES[out.dtype], SEED, thr,
-                                             scale, _build.stream_ptr(out.device)), "K3")
+        self._check(dr.launch_mask(self.lib, out, RATE, SEED), "K3")
         return out
 
-    def fwd(self, x, y, bits, sms):
+    def fwd(self, x, y, bits):
         from visualbert_torch.ops import dropout as dr
 
-        blocks = self.blocks("fwd", dr._DTYPE_CODES[x.dtype], x.numel(), sms)
-        self._check(dr.launch_fwd(self.lib, x, y, bits, RATE, SEED, sms, blocks), "site forward")
+        self._check(dr.launch_fwd(self.lib, x, y, bits, RATE, SEED), "site forward")
         return y, bits
 
-    def bwd(self, dy, bits, dx, sms):
+    def bwd(self, dy, bits, dx):
         from visualbert_torch.ops import dropout as dr
 
-        blocks = self.blocks("bwd", dr._DTYPE_CODES[dy.dtype], dy.numel(), sms)
-        self._check(dr.launch_bwd(self.lib, dy, bits, dx, RATE, sms, SEED, blocks), "site backward")
+        self._check(dr.launch_bwd(self.lib, dy, bits, dx, RATE, SEED), "site backward")
         return dx
 
 
@@ -202,7 +172,7 @@ def data(dev):
     return dict(x=x, dy=dy, mask=out, y=torch.empty_like(x), bits=bits, dx=torch.empty_like(x))
 
 
-def check(builds, d, sms, card):
+def check(builds, d, card):
     """Every build's kernels against the plain versions, bit for bit."""
     import torch
 
@@ -212,11 +182,11 @@ def check(builds, d, sms, card):
     y_r, bits_r = dr.dropout_fwd_reference(d["x"], RATE, SEED)
     dx_r = dr.dropout_bwd_reference(d["dy"], bits_r, RATE)
     for name, b in builds.items():
-        same = {"mask": torch.equal(b.mask(torch.empty_like(d["mask"]), sms), mask_r)}
+        same = {"mask": torch.equal(b.mask(torch.empty_like(d["mask"])), mask_r)}
         if not b.first_design:
-            y, bits = b.fwd(d["x"], torch.empty_like(d["y"]), torch.empty_like(d["bits"]), sms)
+            y, bits = b.fwd(d["x"], torch.empty_like(d["y"]), torch.empty_like(d["bits"]))
             same["fwd"] = torch.equal(y, y_r) and torch.equal(bits, bits_r)
-            same["bwd"] = torch.equal(b.bwd(d["dy"], bits_r, torch.empty_like(d["dx"]), sms), dx_r)
+            same["bwd"] = torch.equal(b.bwd(d["dy"], bits_r, torch.empty_like(d["dx"])), dx_r)
         torch.cuda.synchronize()
         print(f"{name}: bit for bit with the plain versions: {same}  [{card}]", flush=True)
         if not all(same.values()):
@@ -272,16 +242,15 @@ def yardsticks(d):
 
     x, dy = d["x"], d["dy"]
     lib = _build.library()
-    sms = _build.sm_count(x.device)
     mask = d["mask"]
-    dr.launch_mask(lib, mask, RATE, SEED, sms)
+    dr.launch_mask(lib, mask, RATE, SEED)
     m = mask.to(x.dtype) * (1.0 / (1.0 - RATE))
     keep = F.dropout(x, RATE, training=True) != 0
     src = torch.empty(moved_bytes(d)["fwd"] // 2, dtype=torch.uint8, device=x.device)
     dst = torch.empty_like(src)
 
     def eager_fwd(_):
-        dr.launch_mask(lib, mask, RATE, SEED, sms)
+        dr.launch_mask(lib, mask, RATE, SEED)
         return x * (mask.to(x.dtype) * (1.0 / (1.0 - RATE)))
 
     return {"eager site fwd": eager_fwd,
@@ -307,30 +276,24 @@ def main(argv=None):
         raise SystemExit("dropout_steps: no CUDA device; the kernels run only on the card")
     card = card_line()
     dev = torch.device("cuda")
-    sms = _build.sm_count(dev)
     d = data(dev)
     other = argv[0] if argv else None
     libs, seconds = build_all(other)
     lib = _build.library()
-    builds = {"as built": Build("as built", lib), **libs,
-              **{name: Build(name, lib, grids=grids) for name, grids in GRIDS.items()}}
+    builds = {"as built": Build("as built", lib), **libs}
     print(f"dropout_steps: {list(d['x'].shape)} bf16 rate {RATE}; {len(libs)} builds in {seconds:.1f} s  [{card}]",
           flush=True)
-    for name, b in builds.items():
-        if not b.first_design:
-            grids = {k: b.blocks(k, 0 if k == "mask" else 1, d["x"].numel(), sms) for k in KERNELS}
-            print(f"{name}: grids of K3, site fwd, site bwd (None: the wrappers') {grids}  [{card}]", flush=True)
     info = {name: b.info() for name, b in builds.items()}
     for name, i in info.items():
         print(f"{name}: registers, local bytes, shared bytes, blocks an SM of K3, site fwd, site bwd: {i}  [{card}]",
               flush=True)
         if i is not None and any(k[1] for k in i.values()):
             raise SystemExit(f"dropout_steps: {name} spills to local memory")
-    check(builds, d, sms, card)
+    check(builds, d, card)
 
-    fns = {name: {"mask": lambda _, b=b: b.mask(d["mask"], sms),
-                  "fwd": lambda _, b=b: b.fwd(d["x"], d["y"], d["bits"], sms),
-                  "bwd": lambda _, b=b: b.bwd(d["dy"], d["bits"], d["dx"], sms)} for name, b in builds.items()}
+    fns = {name: {"mask": lambda _, b=b: b.mask(d["mask"]),
+                  "fwd": lambda _, b=b: b.fwd(d["x"], d["y"], d["bits"]),
+                  "bwd": lambda _, b=b: b.bwd(d["dy"], d["bits"], d["dx"])} for name, b in builds.items()}
     timed = {name: TIMED.get(name, b.kernels()) for name, b in builds.items()}
     fns["yardsticks"] = yardsticks(d)
     timed["yardsticks"] = tuple(fns["yardsticks"])
