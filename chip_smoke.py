@@ -28,7 +28,9 @@ non-zero without printing the final line:
    dqkv bit for bit, times in the same call) and at K16's best hg;
    K4, K5 and K6 (the fused MLM cross-entropy: forward, dx, d embedding and
    d bias) at N = 128 x 24 = 3072 rows, H=768, V=30522, bf16, 15 % of labels
-   -1 and a non-uniform cotangent, and again at bert-large's H=1024; K4
+   -1 and a non-uniform cotangent, again at bert-large's H=1024 and at
+   vqa_advanced's N = 64 x 4 = 256 rows (timed beside their bounds and
+   cuBLAS's products there, with their grids and splits); K4
    (x in wgmma A fragments, a cp.async ring) and K5 and K6 (one wgmma
    kernel on two roles) printed at both widths with their registers, local
    bytes, shared bytes, blocks an SM, grid and splits (none may spill) and
@@ -124,9 +126,30 @@ non-zero without printing the final line:
    only 3 x 12 K13; its official accuracy must equal val_accuracy within
    1e-6. The synthetic identifiers are plain indices, each pair a sentence
    group of its own, so consistency equals the official accuracy here and
-   checks nothing more. The runs' folders are temporary directories,
-   removed at the end;
-10. prints the kernel table as one JSON line (launches from phase 6: the
+   checks nothing more;
+10. runs VQA answer-as-MLM through the CLI: configs/vqa_finetune.json with
+   `"task": "vqa_advanced"`, `"fused_mlm_xent": true` and
+   `"use_fused_layer_norm": true` added, VQA_EXAMPLES synthetic questions,
+   one epoch at batch 64: 5 train steps of the fused main path's launches
+   (K4/K5/K6 1/1/1 a step, on 256 rows); 2 + 2 eval batches of 12 K1 and
+   24 K7 and no K4-K6 (evaluation decodes the logits). `--eval_only
+   --restore` must give the epoch's val_ metrics within 1e-6 and the same
+   vqa_advanced_predictions.json, one entry per eval question;
+11. runs Flickr30k grounding through the CLI: configs/flickr_finetune.json
+   with its data block swapped for FLICKR_EXAMPLES synthetic captions (128
+   text tokens + 100 regions, 16 entity slots), one epoch at its batch of
+   32: 5 steps of 12 K1, 12 K2, 25 site forwards and 25 backwards; 2 + 2
+   eval batches of 12 K1. Its losses must be finite; `--eval_only
+   --restore` must give the epoch's val_ metrics within 1e-6 and R@1/5/10
+   in [0, 1], not falling in k;
+12. runs the attention probe through the CLI: configs/flickr_probe.json
+   with that data block, --restore of phase 11's checkpoint, eval batches
+   of 16 (the last one padded). flickr_probe.json must hold one entry per
+   layer (12), the probe must launch no kernel (the einsum attention), and
+   its per-layer hits must equal a recount from one [L, B, H, T, T]
+   collection of the whole split; its peak memory is printed. The runs'
+   folders are temporary directories, removed at the end;
+13. prints the kernel table as one JSON line (launches from phase 6: the
    fused-LayerNorm main path's STEPS steps, for K7/K8 its dropout-0 step,
    for K11-K14 the runs with their settings, for K15/K16 the tools' run,
    for K3's mask the calls of its wrapper in tools/dropout_steps.py's run
@@ -154,6 +177,11 @@ NLVR2_EXAMPLES = 400
 REPO = os.path.dirname(os.path.abspath(__file__))
 VQA_CONFIG = os.path.join(REPO, "configs", "vqa_finetune.json")
 NLVR2_CONFIG = os.path.join(REPO, "configs", "nlvr2_finetune.json")
+FLICKR_CONFIG = os.path.join(REPO, "configs", "flickr_finetune.json")
+PROBE_CONFIG = os.path.join(REPO, "configs", "flickr_probe.json")
+FLICKR_EXAMPLES = 200
+FLICKR_DATA = {"synthetic": FLICKR_EXAMPLES, "max_seq_length": 128, "max_regions": 100, "max_entities": 16}
+VQA_ADVANCED_XENT_ROWS = 64 * 4  # vqa_advanced's batch x its max_answer_tokens slots
 # Tolerances. The kernels round unnormalised probabilities to bf16 where the
 # plain version rounds normalised ones, and sum in another order. Each limit
 # is about 4x the readings of H100 runs at these shapes (in brackets; K1/K2
@@ -260,6 +288,9 @@ VQA_TRAIN_PER_STEP = (12, 12, 0, 0, 0, 0, 0, 0, 24, 24, 0, 0, 0, 0, 0, 0, 0, 0, 
 VQA_EVAL_PER_BATCH = (12, 0, 0, 0, 0, 0, 24, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
 NLVR2_TRAIN_PER_STEP = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12, 12, 0, 0, 0, 0, 25, 25)
 NLVR2_EVAL_PER_BATCH = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12, 0, 0, 0, 0, 0, 0, 0)
+VQA_ADVANCED_TRAIN_PER_STEP = FUSED_PER_STEP  # the fused cross-entropy in training; evaluation as VQA's
+FLICKR_TRAIN_PER_STEP = (12, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 25, 25)
+FLICKR_EVAL_PER_BATCH = (12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
 # the as-shipped step's peak memory before the site kernels, when each site
 # saved a bf16 multiplier (this script's last run before them, on an NVIDIA
 # H100 80GB HBM3 at 700 W)
@@ -1052,16 +1083,19 @@ def run_dropout_tool(torch, card):
     return launches
 
 
-def check_xent(torch, card, H=768):
-    """K4-K6 against their plain versions at the main path's rows, at hidden
-    width H (768, the main path's; 1024, bert-large's, is checked without a
-    row of the kernel table)."""
+def check_xent(torch, card, H=768, N=None):
+    """K4-K6 against their plain versions at the main path's rows (N = 128 x
+    24 = 3072), at hidden width H (768, the main path's; 1024, bert-large's,
+    is checked without a row of the kernel table), or at N rows and width
+    768 (vqa_advanced's 64 x 4 = 256: checked, timed and set beside their
+    bounds and cuBLAS's products, without a row of the kernel table)."""
     import numpy as np
 
     from visualbert_torch.ops import mlm_xent as xe
     from visualbert_torch.tools.main_path import B, N_PRED
 
-    N, V = B * N_PRED, 30522
+    main_rows = N is None
+    N, V = (B * N_PRED if main_rows else N), 30522
     dev = torch.device("cuda")
     rng = np.random.RandomState(1)
     x = torch.tensor(rng.randn(N, H), dtype=torch.bfloat16, device=dev)
@@ -1132,7 +1166,7 @@ def check_xent(torch, card, H=768):
         log(f"{name} [{N}, {H}] x [{V}, {H}]: kernel {r['ms']:.4f} ms ({n_mm * gflop / r['ms']:.1f} "
             f"TFLOP/s in its products), plain {r['plain_ms']:.4f} ms  [{card}]")
         log(row_line(name, r, card))
-    for name, first in XENT_FIRST_DESIGN_MS.items():
+    for name, first in XENT_FIRST_DESIGN_MS.items() if main_rows else ():
         log(f"{name} [{N}, {H}] x [{V}, {H}]: {rows[name]['ms']:.4f} ms; first design (earlier runs) "
             f"{first[0]:.4f}-{first[1]:.4f} ms: faster than its least reading: {rows[name]['ms'] < first[0]}  [{card}]")
     # yardstick, not the fused function and not library_ms: the same two
@@ -1151,16 +1185,18 @@ def check_xent(torch, card, H=768):
     ms_pad = cuda_time_ms(lambda: torch.matmul(x, emb_pad.t()), 10)
     del emb_pad
     k4_ms = rows["mlm_xent_fwd"]["ms"]
-    log(f"mlm_xent_fwd's product as a cuBLAS product (x E^T; not the fused function): {ms_fwd:.4f} ms "
+    log(f"mlm_xent_fwd's product [{N}, {H}] x [{V}, {H}] as a cuBLAS product (x E^T; not the fused function): "
+        f"{ms_fwd:.4f} ms "
         f"({gflop / ms_fwd:.1f} TFLOP/s), at V padded to {V_pad} {ms_pad:.4f} ms "
         f"({gflop * V_pad / V / ms_pad:.1f} TFLOP/s); the kernel {k4_ms:.4f} ms, {k4_ms / ms_fwd:.2f}x and "
         f"{k4_ms / ms_pad:.2f}x  [{card}]")
     for name, ms in (("mlm_xent_dx", ms_dx), ("mlm_xent_de", ms_de)):
-        log(f"{name}'s two products as cuBLAS products (x E^T, then dlog E or dlog^T x; not the fused function): "
+        log(f"{name}'s two products at N = {N} as cuBLAS products (x E^T, then dlog E or dlog^T x; not the fused "
+            f"function): "
             f"{ms:.4f} ms ({2 * gflop / ms:.1f} TFLOP/s); the kernel {rows[name]['ms']:.4f} ms  [{card}]")
     # a wrapper's host time a call at or above its kernel's time makes the
     # events above time the host
-    log(f"K4 wrapper's host time a call (enqueue only): "
+    log(f"K4 wrapper's host time a call at N = {N} (enqueue only): "
         f"{host_us_a_call(torch, lambda: xe.mlm_xent_fwd(x, emb, bias, lab), 50):.1f} us against "
         f"{rows['mlm_xent_fwd']['ms'] * 1e3:.1f} us timed  [{card}]")
     return rows
@@ -1616,6 +1652,223 @@ def run_nlvr2_cli(torch, card):
         shutil.rmtree(folder, ignore_errors=True)
 
 
+def run_cli_quiet(argv):
+    """train_cli.main(argv) with its stdout captured: (trainer, result, the
+    printed summary line)."""
+    from visualbert_torch import train_cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        trainer, result = train_cli.main(argv)
+    return trainer, result, out.getvalue().strip()
+
+
+def write_config(folder, name, raw):
+    path = os.path.join(folder, name)
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def run_vqa_advanced_cli(torch, card):
+    """VQA answer-as-MLM through the CLI: configs/vqa_finetune.json with
+    `"task": "vqa_advanced"`, `"fused_mlm_xent": true` and
+    `"use_fused_layer_norm": true` added, on VQA_EXAMPLES synthetic
+    questions, one epoch at its batch of 64; then --eval_only of its
+    checkpoint."""
+    from visualbert_torch.utils.config_io import load_config_file
+
+    raw = load_config_file(VQA_CONFIG)
+    raw["task"] = "vqa_advanced"
+    raw["data"] = {"synthetic": VQA_EXAMPLES, "max_seq_length": 128, "max_regions": 100}
+    raw["model"] = dict(raw["model"], fused_mlm_xent=True, use_fused_layer_norm=True)
+    raw["train"] = dict(raw["train"], num_train_epochs=1)
+    n_train = int(VQA_EXAMPLES * 0.8)
+    steps = n_train // raw["train"]["train_batch_size"]
+    eval_batches = -(-(VQA_EXAMPLES - n_train) // raw["train"]["eval_batch_size"])
+    folder = tempfile.mkdtemp(prefix="chip_smoke_vqa_advanced_")
+    try:
+        path = write_config(folder, "vqa_advanced_synthetic.json", raw)
+        run = os.path.join(folder, "run")
+        zero_launches()
+        t0 = time.perf_counter()
+        trainer, result, printed = run_cli_quiet(["--config", path, "--folder", run])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        epoch = result.history[0]
+        # the epoch's evaluation and the prediction dump after fit each run the eval split
+        want = [steps * a + 2 * eval_batches * b for a, b in zip(VQA_ADVANCED_TRAIN_PER_STEP, VQA_EVAL_PER_BATCH)]
+        log(f"vqa_advanced cli: {printed}; {trainer.step} steps at batch {raw['train']['train_batch_size']} on "
+            f"{trainer.device}, {wall:.1f} s with set-up; epoch means: "
+            + ", ".join(f"{k} {v:.6f}" for k, v in sorted(epoch.items())))
+        log("vqa_advanced cli launches: " + launch_text(launches)
+            + f"; want {steps} x {'/'.join(map(str, VQA_ADVANCED_TRAIN_PER_STEP))} (train steps: K4/K5/K6 1/1/1) "
+            + f"+ 2 x {eval_batches} x {'/'.join(map(str, VQA_EVAL_PER_BATCH))} (eval batches: no K4-K6)")
+        if trainer.device.type != "cuda" or trainer.step != steps:
+            raise SystemExit(f"the vqa_advanced CLI ran {trainer.step} steps on {trainer.device}")
+        if not all(math.isfinite(v) for v in epoch.values()):
+            raise SystemExit("non-finite metric in the vqa_advanced CLI run")
+        if launches != want:
+            raise SystemExit(f"unexpected kernel launch counts in the vqa_advanced CLI run {launches}")
+        with open(os.path.join(run, "vqa_advanced_predictions.json")) as f:
+            preds = json.load(f)
+        if [p["question_id"] for p in preds] != list(range(n_train, VQA_EXAMPLES)):
+            raise SystemExit("vqa_advanced_predictions.json does not hold one entry per eval question")
+        del trainer, result
+        torch.cuda.empty_cache()
+
+        again = os.path.join(folder, "eval")
+        zero_launches()
+        _, result, printed = run_cli_quiet(["--config", path, "--folder", again, "--eval_only",
+                                            "--restore", os.path.join(run, "ckpt")])
+        launches = read_launches()
+        metrics = result.history[0]
+        diff = max(abs(metrics[k] - epoch["val_" + k]) for k in ("loss", "masked_lm_loss", "mlm_accuracy"))
+        with open(os.path.join(again, "vqa_advanced_predictions.json")) as f:
+            same_preds = json.load(f) == preds
+        log(f"vqa_advanced --eval_only: {printed}; " + ", ".join(f"{k} {v:.6f}" for k, v in metrics.items())
+            + f"; max |diff| to the epoch's val_ metrics {diff:.2e} (tol 1e-6); predictions equal: {same_preds} "
+            f"({len(preds)} questions); launches " + launch_text(launches))
+        if diff > 1e-6 or not same_preds or launches != [eval_batches * b for b in VQA_EVAL_PER_BATCH]:
+            raise SystemExit("--eval_only does not reproduce the vqa_advanced run's evaluation")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def run_flickr_cli(torch, card, folder):
+    """Flickr30k grounding through the CLI: configs/flickr_finetune.json with
+    its data block swapped for FLICKR_EXAMPLES synthetic captions (80 %
+    train, 20 % eval; 128 text tokens + 100 regions, 16 entity slots), one
+    epoch at its batch of 32; then --eval_only of its checkpoint. Returns
+    the checkpoint directory."""
+    from visualbert_torch.utils.config_io import load_config_file
+
+    raw = load_config_file(FLICKR_CONFIG)
+    raw["data"] = FLICKR_DATA
+    raw["train"] = dict(raw["train"], num_train_epochs=1)
+    n_train = int(FLICKR_EXAMPLES * 0.8)
+    steps = n_train // raw["train"]["train_batch_size"]
+    eval_batches = -(-(FLICKR_EXAMPLES - n_train) // raw["train"]["eval_batch_size"])
+    path = write_config(folder, "flickr_synthetic.json", raw)
+    run = os.path.join(folder, "run")
+    zero_launches()
+    t0 = time.perf_counter()
+    trainer, result, printed = run_cli_quiet(["--config", path, "--folder", run])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    epoch = result.history[0]
+    want = [steps * a + 2 * eval_batches * b for a, b in zip(FLICKR_TRAIN_PER_STEP, FLICKR_EVAL_PER_BATCH)]
+    log(f"flickr cli: {printed}; {trainer.step} steps at batch {raw['train']['train_batch_size']} on "
+        f"{trainer.device}, {wall:.1f} s with set-up; epoch means: "
+        + ", ".join(f"{k} {v:.6f}" for k, v in sorted(epoch.items())))
+    log("flickr cli launches: " + launch_text(launches)
+        + f"; want {steps} x {'/'.join(map(str, FLICKR_TRAIN_PER_STEP))} (train steps) + 2 x {eval_batches} x "
+        + f"{'/'.join(map(str, FLICKR_EVAL_PER_BATCH))} (eval batches)")
+    if trainer.device.type != "cuda" or trainer.step != steps:
+        raise SystemExit(f"the flickr CLI ran {trainer.step} steps on {trainer.device}")
+    if not all(math.isfinite(v) for v in epoch.values()):
+        raise SystemExit("non-finite metric in the flickr CLI run")
+    if launches != want:
+        raise SystemExit(f"unexpected kernel launch counts in the flickr CLI run {launches}")
+    del trainer, result
+    torch.cuda.empty_cache()
+
+    zero_launches()
+    _, result, printed = run_cli_quiet(["--config", path, "--folder", os.path.join(folder, "eval"), "--eval_only",
+                                        "--restore", os.path.join(run, "ckpt")])
+    launches = read_launches()
+    metrics = result.history[0]
+    diff = max(abs(metrics[k] - epoch["val_" + k]) for k in ("loss", "accuracy", "upperbound_accuracy"))
+    recall = [metrics[f"recall_at_{k}"] for k in (1, 5, 10)]
+    log(f"flickr --eval_only: {printed}; " + ", ".join(f"{k} {v:.6f}" for k, v in metrics.items())
+        + f"; max |diff| to the epoch's val_ metrics {diff:.2e} (tol 1e-6); R@1/5/10 {recall} in [0, 1] and "
+        f"not falling in k: {all(0 <= r <= 1 for r in recall) and recall == sorted(recall)}; launches "
+        + launch_text(launches))
+    if diff > 1e-6 or launches != [eval_batches * b for b in FLICKR_EVAL_PER_BATCH]:
+        raise SystemExit("--eval_only does not reproduce the flickr run's evaluation")
+    if not (all(0 <= r <= 1 for r in recall) and recall == sorted(recall)):
+        raise SystemExit(f"flickr R@1/5/10 out of order or range: {recall}")
+    return os.path.join(run, "ckpt")
+
+
+def run_flickr_probe_cli(torch, card, folder, ckpt):
+    """The attention probe through the CLI: configs/flickr_probe.json with
+    the flickr phase's synthetic data block (the whole set is the split, in
+    eval batches of 16: the last one padded), --restore the flickr phase's
+    checkpoint. Its per-layer hits must equal a recomputation from one
+    [L, B, H, T, T] collection of the whole split, and it must launch no
+    kernel (einsum attention, no dropout)."""
+    import numpy as np
+
+    from visualbert_torch.data.datasets import flickr
+    from visualbert_torch.data.pipeline import Batcher
+    from visualbert_torch.tasks import registry
+    from visualbert_torch.tasks.probing import entity_region_attention, grounding_counts_from_era
+    from visualbert_torch.utils.config_io import load_config_file, parse_task_config
+
+    raw = load_config_file(PROBE_CONFIG)
+    raw["data"] = FLICKR_DATA
+    path = write_config(folder, "flickr_probe_synthetic.json", raw)
+    out = os.path.join(folder, "probe")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    trainer, result, printed = run_cli_quiet(["--config", path, "--folder", out, "--restore", ckpt])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(out, "flickr_probe.json")) as f:
+        probe = json.load(f)
+    layers = [probe[f"layer_{i}"] for i in range(sum(k.startswith("layer_") for k in probe))]
+    bs = raw["train"]["eval_batch_size"]
+    log(f"flickr_probe cli: {printed}; {FLICKR_EXAMPLES} captions in eval batches of {bs} on {trainer.device}, "
+        f"{wall:.1f} s with set-up, peak memory {peak:.2f} GiB  [{card}]; {probe['entities']} entities, accuracy "
+        "by layer " + ", ".join(f"{a:.4f}" for a in layers) + "; launches " + launch_text(launches))
+    if trainer.device.type != "cuda" or len(layers) != trainer.model.cfg.num_hidden_layers:
+        raise SystemExit(f"flickr_probe.json has {len(layers)} layers (on {trainer.device})")
+    if any(launches):
+        raise SystemExit(f"the probe launched kernels: {launches}")
+
+    # the whole split's [L, B, H, T, T], collected batch by batch at the
+    # probe's batch shape without the repeated tail rows, counted at once
+    cfg = parse_task_config(raw)
+    tok = registry._tokenizer(cfg)
+    ann, feats = flickr.make_synthetic(FLICKR_EXAMPLES, tok, feat_dim=cfg.model.visual_embedding_dim)
+    ds = flickr.Flickr30kDataset(ann, feats, tok, max_seq_length=FLICKR_DATA["max_seq_length"],
+                                 max_regions=FLICKR_DATA["max_regions"], max_entities=FLICKR_DATA["max_entities"])
+    parts, position, label = [], [], []
+    for batch in Batcher(ds, bs, shuffle=False, drop_last=False, pad_final=True).epoch(0):
+        n = int(batch["_real_count"])
+        parts.append(trainer.eval_step(batch, output_attention_probs=True)["attention_weights"][:, :n])
+        position.append(batch["flickr_position"][:n])
+        label.append(batch["label"][:n])
+    whole = torch.cat(parts, dim=1)
+    del parts
+    position, label = np.concatenate(position), np.concatenate(label)
+    era = entity_region_attention(whole, torch.as_tensor(position), FLICKR_DATA["max_seq_length"],
+                                  FLICKR_DATA["max_regions"]).cpu().numpy()
+    hits, total = grounding_counts_from_era(era, position, label)
+    again = [float(h) / total for h in hits]
+    log(f"flickr_probe recomputed from one {list(whole.shape)} {str(whole.dtype).replace('torch.', '')} collection "
+        f"({whole.numel() * whole.element_size() / 2**30:.2f} GiB): {total} entities, hits "
+        + ", ".join(map(str, hits)) + f"; equal to flickr_probe.json: {again == layers and total == probe['entities']}")
+    del whole
+    torch.cuda.empty_cache()
+    if again != layers or total != probe["entities"] or result.best_metric != max(layers):
+        raise SystemExit("flickr_probe.json disagrees with the whole-split recomputation")
+
+
+def run_flickr_phases(torch, card):
+    folder = tempfile.mkdtemp(prefix="chip_smoke_flickr_")
+    try:
+        ckpt = run_flickr_cli(torch, card, folder)
+        torch.cuda.empty_cache()
+        run_flickr_probe_cli(torch, card, folder, ckpt)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -1642,6 +1895,7 @@ def main():
     rows.update(check_kernels(torch, card))
     rows.update(check_xent(torch, card))
     check_xent(torch, card, H=1024)
+    check_xent(torch, card, N=VQA_ADVANCED_XENT_ROWS)
     rows.update(check_layer_norm(torch, card))
     rows.update(check_attention_variants(torch, card))
     save_probs_at_nlvr2_shape(torch, card)
@@ -1680,6 +1934,10 @@ def main():
     run_vqa_cli(torch, card)
     torch.cuda.empty_cache()
     run_nlvr2_cli(torch, card)
+    torch.cuda.empty_cache()
+    run_vqa_advanced_cli(torch, card)
+    torch.cuda.empty_cache()
+    run_flickr_phases(torch, card)
 
     # launches: the fused-LayerNorm main path's STEPS steps; K7/K8 from its
     # dropout-0 step; K11/K12 and K13/K14 from the runs with their settings;

@@ -163,7 +163,7 @@ def test_cli_trains_and_restore_resumes(tmp_path, capsys):
                        "--restore", str(tmp_path / "run" / "ckpt"), "--device", "cpu"])
     assert resumed.step == 20 and resumed.optimizer.step_count == 20
     assert sorted(os.listdir(tmp_path / "run2" / "ckpt")) == ["step_15.pt", "step_20.pt"]
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A6"):
         main(["--config", str(config), "--folder", str(tmp_path / "run3"), "--restore", str(tmp_path / "x.th"),
               "--device", "cpu"])
 

@@ -101,7 +101,7 @@ def test_visualbert_model_matches_jax(rng, flash, alignment):
     model = load_state(VisualBertModel(tcfg), export_state_dict({"bert": params}, jcfg, prefix=""))
     t = {k: v for k, v in to_torch(batch).items()}
     with torch.no_grad():
-        seq_t, pooled_t = model(t["input_ids"], t["token_type_ids"], torch.tensor(mask), t["visual_embeddings"],
+        seq_t, pooled_t, _ = model(t["input_ids"], t["token_type_ids"], torch.tensor(mask), t["visual_embeddings"],
                                 t["visual_embeddings_type"], t.get("image_text_alignment"))
     assert_close(seq_t.numpy(), seq_j)
     assert_close(pooled_t.numpy(), pooled_j)
@@ -125,7 +125,7 @@ def test_bypass_transformer_matches_jax(rng):
     model = load_state(VisualBertModel(tcfg), sd)
     t = to_torch(batch)
     with torch.no_grad():
-        seq_t, pooled_t = model(t["input_ids"], t["token_type_ids"], torch.tensor(mask), t["visual_embeddings"])
+        seq_t, pooled_t, _ = model(t["input_ids"], t["token_type_ids"], torch.tensor(mask), t["visual_embeddings"])
     assert_close(seq_t.numpy(), seq_j)
     assert_close(pooled_t.numpy(), pooled_j)
 
@@ -213,15 +213,12 @@ def test_fused_layer_norm_pretraining_matches_jax(rng):
         np.testing.assert_allclose(p.grad.numpy(), want[name], atol=ATOL, rtol=RTOL, err_msg=name)
 
 
-@pytest.mark.parametrize("what", ["flickr", "multichoice", "vqa_advanced", "output_attention_weights"])
+@pytest.mark.parametrize("what", ["multichoice"])
 def test_unported_heads_and_options_raise(what):
-    """The heads still to port (ROADMAP.md A7) and attention-probability
-    collection (A10) raise; nlvr, packed_qkv=False and flash_save_probs are
-    ported (tests/test_torch_nlvr2.py, tests/test_torch_attention_variants.py)."""
+    """The head still to port, VCR's multichoice, raises and names its
+    slice (ROADMAP.md A7, the detector); vqa_advanced, flickr and
+    output_attention_weights are ported (tests/test_torch_vqa_advanced.py,
+    tests/test_torch_flickr.py, tests/test_torch_probing.py)."""
     _, tcfg = configs()
-    if what == "output_attention_weights":
-        with pytest.raises(NotImplementedError, match="A10"):
-            VisualBertForTask(tcfg.replace(output_attention_weights=True), "pretraining")
-    else:
-        with pytest.raises(NotImplementedError, match="A7"):
-            VisualBertForTask(tcfg, what)
+    with pytest.raises(NotImplementedError, match="A7: the detector"):
+        VisualBertForTask(tcfg, what)

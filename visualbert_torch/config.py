@@ -5,7 +5,7 @@ dtypes.
 The JAX config's TPU-only execution fields (:data:`TPU_ONLY_MODEL_FIELDS`,
 :data:`TPU_ONLY_TRAIN_FIELDS`) change no math and have no counterpart here;
 :meth:`VisualBertConfig.from_dict` and ``utils/config_io.py`` skip them in a
-config file. Fields that select code the port does not have yet raise in
+config file. A field that selects code the port does not have raises in
 :meth:`VisualBertConfig.check_ported`.
 """
 
@@ -107,12 +107,10 @@ class VisualBertConfig:
         return cls(**{k: v for k, v in d.items() if k in known})
 
     def check_ported(self) -> None:
-        """Raise for options whose code is not ported yet (ROADMAP.md A10)."""
-        if self.output_attention_weights:
-            raise NotImplementedError(
-                "output_attention_weights=True needs attention-probability collection (probing), "
-                "not ported yet (ROADMAP.md A10)"
-            )
+        """Raise for options whose code is not ported: the port's FFN has the
+        reference's exact-erf GELU only."""
+        if self.hidden_act != "gelu":
+            raise NotImplementedError(f"hidden_act {self.hidden_act!r}: the port has the exact-erf gelu")
 
 
 HEAD_TYPES = ("pretraining", "multichoice", "vqa", "vqa_advanced", "nlvr", "flickr")

@@ -2,7 +2,7 @@
 ``visualbert/dataloaders/coco_dataset.py``): ``CocoCaptionsDataset`` and
 ``make_synthetic`` of ``visualbert_tpu/data/datasets/coco.py``, copied
 (importing the JAX package pulls in JAX). The raw-image detector variant
-waits with the detector (ROADMAP.md A8).
+waits with the detector (ROADMAP.md A7).
 
 Two text modes:
   * ``two_sentence`` (coco_dataset.py:195-208): caption A from the image,

@@ -2,7 +2,7 @@
 folder, the in-memory chunk and ``screen_features`` of
 ``visualbert_tpu/data/features.py``, copied (importing the JAX package
 pulls in JAX). ``H5Features`` is not ported: ``h5py`` is not on the card's
-machine (ROADMAP.md A7).
+machine (ROADMAP.md A6).
 
 Readers return fp32 features [n_boxes, dim] plus optional metadata and are
 safe to share across the Batcher's threads.

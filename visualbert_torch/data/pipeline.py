@@ -11,7 +11,7 @@ JAX); its batches are byte-identical to the JAX package's.
     batches while the device runs.
 
 The JAX Batcher's process mode (forked workers filling shared memory) and
-its multi-host ``process_shard`` are not ported (ROADMAP.md A7, A11).
+its multi-host ``process_shard`` are not ported (ROADMAP.md A6, A9).
 """
 
 from __future__ import annotations

@@ -13,6 +13,12 @@ autocast): parameters stay in ``cfg.param_dtype`` and are cast at use;
 LayerNorm statistics, attention scores and softmax are fp32; probabilities
 are cast to the compute dtype before PV.
 
+Attention probabilities are collected (JAX ``encoder.py:258, 465``) when
+the caller asks (``output_attention_probs``) or ``cfg.output_attention_weights``
+is set: each layer then takes the einsum path, whatever
+``use_flash_attention`` says, and hands back its fp32 softmax before the
+cast and the dropout; the encoder stacks them to ``[L, B, H, T, T]``.
+
 Dropout is on exactly when a ``torch.Generator`` is passed down: each
 dropout site draws its own int32 seed from it. With ``cfg.fast_dropout`` the
 hidden-state sites run the dropout site kernels on K3's Philox body
@@ -174,8 +180,10 @@ class SelfAttention(nn.Module):
     modeling.py:207-276; HF ``attention`` = ``self`` + ``output``), routed
     as JAX ``encoder.py:256-311``: with ``use_flash_attention`` the packed
     kernels K1/K2, or K13/K14 with ``flash_save_probs``, or the heads-major
-    K11/K12 with ``packed_qkv=False``; otherwise the einsum path with fp32
-    scores."""
+    K11/K12 with ``packed_qkv=False``; otherwise, and whenever
+    ``output_probs`` asks for the probabilities, the einsum path with fp32
+    scores. Returns ``(out, probs)``: the fp32 softmax ``[B, H, T, T]`` with
+    ``output_probs``, else None."""
 
     def __init__(self, cfg: VisualBertConfig):
         super().__init__()
@@ -183,15 +191,16 @@ class SelfAttention(nn.Module):
         self.self = FusedQKV(cfg)
         self.output = ResidualNorm(cfg, cfg.num_attention_heads * cfg.head_dim)
 
-    def forward(self, hidden, attn_bias, generator=None):
+    def forward(self, hidden, attn_bias, generator=None, output_probs: bool = False):
         cfg = self.cfg
         H, D = cfg.num_attention_heads, cfg.head_dim
         rate = cfg.attention_probs_dropout_prob if generator is not None else 0.0
-        if cfg.use_flash_attention:
+        probs = None
+        if cfg.use_flash_attention and not output_probs:
             seed = draw_seed(generator) if rate > 0.0 else None
             if not cfg.packed_qkv:
                 ctx = flash_attention_heads_major(self.self(hidden, "heads_major"), attn_bias, rate, seed)
-                return self.output(ctx, hidden, generator, heads_major=True)
+                return self.output(ctx, hidden, generator, heads_major=True), None
             qkv, qkv_bias = self.self(hidden, "packed")
             ctx = flash_attention_packed(qkv, H, attn_bias, rate, seed, qkv_bias=qkv_bias,
                                          save_probs=cfg.flash_save_probs)
@@ -200,10 +209,10 @@ class SelfAttention(nn.Module):
             scale = 1.0 / math.sqrt(D)
             scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
             scores = scores * scale + attn_bias.float()
-            probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
-            probs = seeded_dropout(probs, rate, generator)
-            ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(*hidden.shape[:-1], H * D)
-        return self.output(ctx, hidden, generator)
+            probs = torch.softmax(scores, dim=-1)
+            p = seeded_dropout(probs.to(cfg.dtype), rate, generator)
+            ctx = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(*hidden.shape[:-1], H * D)
+        return self.output(ctx, hidden, generator), (probs if output_probs else None)
 
 
 class Intermediate(nn.Module):
@@ -212,8 +221,6 @@ class Intermediate(nn.Module):
     def __init__(self, cfg: VisualBertConfig):
         super().__init__()
         self.cfg = cfg
-        if cfg.hidden_act != "gelu":
-            raise NotImplementedError(f"hidden_act {cfg.hidden_act!r}: the port has the exact-erf gelu")
         self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
 
     def forward(self, hidden):
@@ -221,7 +228,8 @@ class Intermediate(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    """Post-LN BERT layer: attention -> add&norm -> FFN -> add&norm."""
+    """Post-LN BERT layer: attention -> add&norm -> FFN -> add&norm. Returns
+    ``(hidden, probs)``, probs as :class:`SelfAttention` gives them."""
 
     def __init__(self, cfg: VisualBertConfig):
         super().__init__()
@@ -229,22 +237,29 @@ class TransformerLayer(nn.Module):
         self.intermediate = Intermediate(cfg)
         self.output = ResidualNorm(cfg, cfg.intermediate_size)
 
-    def forward(self, hidden, attn_bias, generator=None):
-        hidden = self.attention(hidden, attn_bias, generator)
-        return self.output(self.intermediate(hidden), hidden, generator)
+    def forward(self, hidden, attn_bias, generator=None, output_probs: bool = False):
+        hidden, probs = self.attention(hidden, attn_bias, generator, output_probs)
+        return self.output(self.intermediate(hidden), hidden, generator), probs
 
 
 class TransformerEncoder(nn.Module):
-    """The layer stack, a plain list (reference modeling.py:344-371)."""
+    """The layer stack, a plain list (reference modeling.py:344-371).
+    Returns ``(hidden, probs)``: the layers' probabilities stacked to
+    ``[L, B, H, T, T]`` when collected (``output_probs`` or
+    ``cfg.output_attention_weights``), else None."""
 
     def __init__(self, cfg: VisualBertConfig):
         super().__init__()
+        self.cfg = cfg
         self.layer = nn.ModuleList(TransformerLayer(cfg) for _ in range(cfg.num_hidden_layers))
 
-    def forward(self, hidden, attn_bias, generator=None):
+    def forward(self, hidden, attn_bias, generator=None, output_probs: bool = False):
+        collect = output_probs or self.cfg.output_attention_weights
+        all_probs = []
         for layer in self.layer:
-            hidden = layer(hidden, attn_bias, generator)
-        return hidden
+            hidden, probs = layer(hidden, attn_bias, generator, collect)
+            all_probs.append(probs)
+        return hidden, (torch.stack(all_probs) if collect else None)
 
 
 class VisualBertEmbeddings(nn.Module):
@@ -317,7 +332,10 @@ class VisualBertModel(nn.Module):
     """Embeddings + encoder + pooler (reference ``BertVisualModel``,
     modeling.py:1260-1333), with the ``bypass_transformer`` split path: text
     through the whole stack alone, then one joint layer (:1299-1314).
-    Returns ``(sequence_output, pooled_output)``."""
+    Returns ``(sequence_output, pooled_output, attention_probs)``, the last
+    ``[L, B, H, T, T]`` fp32 when collected (see :class:`TransformerEncoder`),
+    else None. The split path has no joint probabilities to give, and
+    raises when they are asked for (JAX returns None there)."""
 
     def __init__(self, cfg: VisualBertConfig):
         super().__init__()
@@ -330,7 +348,9 @@ class VisualBertModel(nn.Module):
             self.additional_layer = TransformerLayer(cfg)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None, visual_embeddings=None,
-                visual_token_type_ids=None, image_text_alignment=None, generator=None):
+                visual_token_type_ids=None, image_text_alignment=None, generator=None,
+                output_attention_probs: bool = False):
+        cfg = self.cfg
         B, Tt = input_ids.shape
         Tv = 0 if visual_embeddings is None else visual_embeddings.shape[1]
         if attention_mask is None:
@@ -338,10 +358,13 @@ class VisualBertModel(nn.Module):
         hidden = self.embeddings(input_ids, token_type_ids, visual_embeddings, visual_token_type_ids,
                                  image_text_alignment, generator)
         attn_bias = mask_to_bias(attention_mask)
-        if self.cfg.bypass_transformer and visual_embeddings is not None:
-            text_out = self.encoder(hidden[:, :Tt], attn_bias[..., :Tt], generator)
+        if cfg.bypass_transformer and visual_embeddings is not None:
+            if output_attention_probs or cfg.output_attention_weights:
+                raise ValueError("bypass_transformer has no joint attention probabilities to collect; "
+                                 "turn off output_attention_probs / output_attention_weights")
+            text_out, _ = self.encoder(hidden[:, :Tt], attn_bias[..., :Tt], generator)
             joint = torch.cat([text_out, hidden[:, Tt:]], dim=1)
-            seq_out = self.additional_layer(joint, attn_bias, generator)
+            seq_out, probs = self.additional_layer(joint, attn_bias, generator)
         else:
-            seq_out = self.encoder(hidden, attn_bias, generator)
-        return seq_out, self.pooler(seq_out)
+            seq_out, probs = self.encoder(hidden, attn_bias, generator, output_attention_probs)
+        return seq_out, self.pooler(seq_out), probs

@@ -11,18 +11,23 @@ returns per-row nll and argmax, no logits (JAX ``heads.py:86-102``);
 otherwise the decoder runs the unfused path (``heads.py:104-113``):
 compute-dtype operands, fp32 accumulation and fp32 logits.
 
+``FlickrAttention`` is the ``flickr`` head's entity-to-region scorer (JAX
+``heads.py:117-141``, reference modeling.py:1602-1646).
+
 ``Classifier`` is the VQA head's ``classifier`` (JAX ``heads.py:144-163``):
 dropout, a dense layer in the compute dtype, fp32 logits.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from visualbert_torch.config import VisualBertConfig
-from visualbert_torch.models.encoder import linear, seeded_dropout
+from visualbert_torch.models.encoder import NEG_INF, linear, seeded_dropout
 from visualbert_torch.ops.layer_norm import layer_norm_f32
 from visualbert_torch.ops.mlm_xent import mlm_xent
 
@@ -113,6 +118,30 @@ class PreTrainingHeads(nn.Module):
                                labels.reshape(-1))
             return None, nsp, nll.view(labels.shape), am.view(labels.shape)
         return self.predictions(sequence_output), nsp, None, None
+
+
+class FlickrAttention(nn.Module):
+    """One-head scaled QK attention of entity states over the visual
+    tokens: ``query`` and ``key`` dense layers in the compute dtype, scores
+    summed in fp32 from their compute-dtype products (JAX
+    ``preferred_element_type=jnp.float32``), scaled by ``sqrt(hidden /
+    num_heads)`` although one head attends (the reference's quirk), padded
+    regions at -10000. Returns [B, E, R] fp32."""
+
+    def __init__(self, cfg: VisualBertConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.query = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.key = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+
+    def forward(self, entity_states, visual_states, image_mask):
+        cfg = self.cfg
+        q = linear(entity_states, self.query, cfg.dtype)  # [B, E, H]
+        k = linear(visual_states, self.key, cfg.dtype)    # [B, R, H]
+        # products of compute-dtype values are exact in fp32: this is the
+        # mixed-precision product, its output never rounded to cfg.dtype
+        scores = torch.matmul(q.float(), k.float().transpose(1, 2)) / math.sqrt(cfg.head_dim)
+        return scores + ((1.0 - image_mask.float()) * NEG_INF)[:, None, :]
 
 
 class Classifier(nn.Linear):

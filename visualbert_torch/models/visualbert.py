@@ -2,27 +2,42 @@
 ``visualbert_tpu/models/visualbert.py``; reference
 ``TrainVisualBERTObjective``, modeling.py:1335-1598).
 
-The port has three branches:
+The port has five branches:
 
 * ``pretraining`` (modeling.py:1400-1500, JAX ``visualbert.py:85-203``): MLM
   over the gathered ``mlm_positions`` plus the sentence-image alignment
   loss, through the fused MLM cross-entropy when ``fused_mlm_xent`` is on
   (no ``logits`` in the output then);
+* ``vqa_advanced`` (modeling.py:1527-1554, JAX ``visualbert.py:72-203``): VQA
+  answer-as-MLM, the same tied head and MLM loss with no alignment loss;
+  the fused cross-entropy takes the labels only in training (a dropout
+  generator given), so evaluation returns the ``[B, P, V]`` logits that the
+  answer dump decodes;
 * ``vqa`` (modeling.py:1502-1521, JAX ``visualbert.py:217-232``): the
   classifier over the hidden state at ``sum(input_mask) - 2`` (the ``[MASK]``
   slot), KL-divergence batchmean against the soft ``label`` scores and the
   soft accuracy, both weighted by ``example_weight``;
 * ``nlvr`` (JAX ``visualbert.py:80-81, 234-243``): a 2-way
   classifier over the pooled output, cross-entropy against the 0/1
-  ``label`` and accuracy, both weighted by ``example_weight``.
+  ``label`` and accuracy, both weighted by ``example_weight``;
+* ``flickr`` (modeling.py:1568-1598, JAX ``visualbert.py:245-279``): entity
+  grounding, ``FlickrAttention`` scores of the entity states at
+  ``flickr_position`` over the visual tokens, KL-divergence batchmean
+  against the [B, E, R] ``label`` distribution weighted by
+  ``example_weight``, and the accuracy, reachable-mass upper bound and
+  entity count over the real entities of real rows. It has no ``cls``: the
+  Flax module declares one but never calls it, so it has no parameters.
 
-The other head types raise; ROADMAP.md A7 ports them.
+``multichoice`` raises; it waits for the detector slice (ROADMAP.md A7).
+With ``output_attention_probs`` the output also holds
+``attention_weights``, the encoder's ``[L, B, H, T, T]`` fp32 probabilities.
 
 Batch keys (tensors): ``input_ids``/``token_type_ids``/``input_mask`` [B, Tt],
 ``visual_embeddings`` [B, Tv, Dv], ``image_mask``/``visual_embeddings_type``
 [B, Tv], ``image_text_alignment`` [B, Tv, A], ``masked_lm_labels`` [B, Tt]
 (-1 unmasked), ``mlm_positions`` [B, P], ``is_random_next`` [B],
-``example_weight`` [B], ``label`` [B, num_answers] (vqa) or [B] (nlvr); [B, C, ...]
+``example_weight`` [B], ``flickr_position`` [B, E] (-1 pad), ``label``
+[B, num_answers] (vqa), [B] (nlvr) or [B, E, Tv] (flickr); [B, C, ...]
 choice stacks are flattened.
 """
 
@@ -36,7 +51,7 @@ from torch import nn
 from visualbert_torch.config import HEAD_TYPES, VisualBertConfig
 from visualbert_torch.models import losses
 from visualbert_torch.models.encoder import VisualBertModel, init_weights
-from visualbert_torch.models.heads import Classifier, PreTrainingHeads
+from visualbert_torch.models.heads import Classifier, FlickrAttention, PreTrainingHeads
 
 
 def _flatten_choices(x: Optional[torch.Tensor], extra_dims: int = 1) -> Optional[torch.Tensor]:
@@ -69,17 +84,19 @@ class VisualBertForTask(nn.Module):
         super().__init__()
         if head_type not in HEAD_TYPES:
             raise ValueError(f"unknown head_type {head_type}")
-        if head_type not in ("pretraining", "vqa", "nlvr"):
+        if head_type == "multichoice":
             raise NotImplementedError(
-                f"head_type {head_type!r} is not ported yet (ROADMAP.md A7: fine-tune heads)"
+                "head_type 'multichoice' is not ported yet (ROADMAP.md A7: the detector slice, VCR)"
             )
         self.cfg = cfg
         self.head_type = head_type
         self.bert = VisualBertModel(cfg)
-        if head_type == "pretraining":
+        if head_type in ("pretraining", "vqa_advanced"):
             self.cls = PreTrainingHeads(cfg)
             # the tied MLM decoder (reference modeling.py:411-414)
             self.cls.predictions.decoder.weight = self.bert.embeddings.word_embeddings.weight
+        elif head_type == "flickr":
+            self.flickr_attention = FlickrAttention(cfg)
         else:
             # the VQA classifier width (reference modeling.py:1362), or NLVR2's two classes
             self.classifier = Classifier(cfg, num_answers if head_type == "vqa" else 2)
@@ -88,7 +105,8 @@ class VisualBertForTask(nn.Module):
         init_weights(self, self.cfg, generator)
         return self
 
-    def forward(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None):
+    def forward(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+                output_attention_probs: bool = False):
         input_ids = _flatten_choices(batch["input_ids"])
         token_type_ids = _flatten_choices(batch.get("token_type_ids"))
         input_mask = _flatten_choices(batch["input_mask"])
@@ -111,16 +129,26 @@ class VisualBertForTask(nn.Module):
         if visual_types is None and image_mask is not None:
             visual_types = torch.zeros_like(image_mask, dtype=torch.long)
 
-        sequence_output, pooled_output = self.bert(
+        sequence_output, pooled_output, attn_probs = self.bert(
             input_ids, token_type_ids, attention_mask, visual_embeddings, visual_types,
-            image_text_alignment, generator,
+            image_text_alignment, generator, output_attention_probs,
         )
         if self.head_type == "vqa":
-            return self._vqa(batch, input_mask, sequence_output, example_weight, generator)
-        if self.head_type == "nlvr":
-            return self._nlvr(batch, pooled_output, example_weight, generator)
+            out = self._vqa(batch, input_mask, sequence_output, example_weight, generator)
+        elif self.head_type == "nlvr":
+            out = self._nlvr(batch, pooled_output, example_weight, generator)
+        elif self.head_type == "flickr":
+            out = self._flickr(batch, input_mask, image_mask, sequence_output, example_weight)
+        else:
+            out = self._mlm(batch, sequence_output, pooled_output, masked_lm_labels, example_weight,
+                            training=generator is not None)
+        if output_attention_probs:
+            out["attention_weights"] = attn_probs
+        return out
 
+    def _mlm(self, batch, sequence_output, pooled_output, masked_lm_labels, example_weight, training):
         out: Dict[str, torch.Tensor] = {}
+        pretraining = self.head_type == "pretraining"
         mlm_positions = batch.get("mlm_positions")
         if mlm_positions is not None:
             # decode only the <= P masked slots: the CE ignores every other
@@ -130,9 +158,15 @@ class VisualBertForTask(nn.Module):
                 sequence_output, 1, pos[..., None].expand(-1, -1, sequence_output.shape[-1])
             )
             gathered_labels = None if masked_lm_labels is None else torch.gather(masked_lm_labels, 1, pos)
+            # vqa_advanced's evaluation decodes answers from the logits, which
+            # the fused path does not make (JAX visualbert.py:156-170)
+            fuse = pretraining or training
         else:
             gathered, gathered_labels = sequence_output, masked_lm_labels
-        mlm_logits, nsp_logits, mlm_nll, mlm_pred = self.cls(gathered, pooled_output, gathered_labels)
+            fuse = pretraining
+        mlm_logits, nsp_logits, mlm_nll, mlm_pred = self.cls(
+            gathered, pooled_output, gathered_labels if fuse else None
+        )
         if mlm_logits is not None:
             out["logits"] = mlm_logits
         out["seq_relationship_score"] = nsp_logits
@@ -152,7 +186,7 @@ class VisualBertForTask(nn.Module):
             total = total + mlm_loss
             correct = valid & (pred == gathered_labels)
             out["mlm_accuracy"] = correct.sum() / valid.sum().clamp_min(1)
-        if batch.get("is_random_next") is not None:
+        if pretraining and batch.get("is_random_next") is not None:
             nsp_loss = losses.cross_entropy_ignore_index(
                 nsp_logits, _drop_zero_weight_labels(batch["is_random_next"].reshape(-1), example_weight)
             )
@@ -181,4 +215,30 @@ class VisualBertForTask(nn.Module):
         if label is not None:
             out["loss"] = losses.cross_entropy(logits, label, example_weight)
             out["accuracy"] = losses.weighted_mean(logits.argmax(dim=-1) == label, example_weight)
+        return out
+
+    def _flickr(self, batch, input_mask, image_mask, sequence_output, example_weight):
+        flickr_position = batch.get("flickr_position")
+        if flickr_position is None:
+            return {}
+        pos_mask = flickr_position != -1
+        if example_weight is not None:
+            # tail-pad duplicate rows contribute no entities
+            pos_mask = pos_mask & (example_weight > 0)[:, None]
+        # the entities' hidden states (reference modeling.py:1573-1581)
+        safe = flickr_position.clamp_min(0).long()
+        selected = torch.gather(sequence_output, 1, safe[..., None].expand(-1, -1, sequence_output.shape[-1]))
+        scores = self.flickr_attention(selected, sequence_output[:, input_mask.shape[1]:], image_mask)
+        label = batch["label"].float()
+        out: Dict[str, torch.Tensor] = {
+            "logits": scores,
+            "loss": losses.kl_div_batchmean(torch.log_softmax(scores, dim=-1), label, example_weight),
+        }
+        # a hit: the argmax region carries gold mass (reference modeling.py:1648-1676)
+        hit = torch.gather(label, 2, scores.argmax(dim=-1, keepdim=True))[..., 0] > 0
+        n_entities = pos_mask.sum().clamp_min(1)
+        out["accuracy"] = (hit & pos_mask).sum() / n_entities
+        # the gold mass within the kept regions caps the accuracy (upper_bound_labels, :1595-1596, 1652)
+        out["upperbound_accuracy"] = torch.where(pos_mask, label.sum(dim=-1), 0.0).sum() / n_entities
+        out["entity_num"] = pos_mask.sum()
         return out

@@ -38,7 +38,7 @@ On CPU tensors the wrappers compute the plain versions
 (:func:`mlm_xent_fwd_reference`, :func:`mlm_xent_dx_reference`,
 :func:`mlm_xent_de_reference`, which materialise the logits); on CUDA
 tensors they launch the kernels or raise. The JAX op's ``mesh`` argument
-has no counterpart: multi-GPU is ROADMAP.md A11.
+has no counterpart: multi-GPU is ROADMAP.md A9.
 """
 
 from __future__ import annotations

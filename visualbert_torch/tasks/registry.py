@@ -2,11 +2,12 @@
 (counterpart of ``visualbert_tpu/tasks/registry.py``; the reference's
 ``visualbert/models/train.py`` dataset dispatch, train.py:148-191).
 
-The port has ``coco_pretrain``, ``vqa`` and ``nlvr2``; the other tasks wait
-for their heads and datasets (ROADMAP.md A7). A task supports ``data: {"synthetic":
-N}`` for smoke runs and real-data paths (documented per task). Every task
-runs on the device it is given: ``"cuda"`` for the kernels, ``"cpu"`` for
-their plain versions.
+The port has six of the JAX registry's tasks: ``coco_pretrain``, ``vqa``,
+``vqa_advanced``, ``nlvr2``, ``flickr`` and ``flickr_probe``; the others
+wait for their slices (ROADMAP.md A6-A8). A task supports ``data:
+{"synthetic": N}`` for smoke runs and real-data paths (documented per
+task). Every task runs on the device it is given: ``"cuda"`` for the
+kernels, ``"cpu"`` for their plain versions.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 from typing import Callable, Dict
 
 import numpy as np
+import torch
 
 from visualbert_torch.data.pipeline import Batcher, prefetch
 from visualbert_torch.data.tokenization import BertTokenizer
@@ -46,7 +48,7 @@ def _tokenizer(cfg: TaskConfig) -> BertTokenizer:
     vocab_file = cfg.data.get("vocab_file")
     if vocab_file:
         # the pure-Python tokenizer; the JAX package's native fast path is
-        # byte-exact with it and is not ported (ROADMAP.md A7)
+        # byte-exact with it and is not ported (ROADMAP.md A6)
         return BertTokenizer.from_file(vocab_file)
     if "synthetic" not in cfg.data:
         # training over the toy vocabulary would silently produce garbage
@@ -77,7 +79,7 @@ def _restore(cfg: TaskConfig, trainer: Trainer) -> Trainer:
     step) or one ``step_<N>.pt`` / ``best.pt`` file."""
     path = cfg.restore_checkpoint
     if path.endswith((".th", ".pth", ".bin")):
-        raise NotImplementedError(f"{path}: importing reference torch checkpoints is not ported yet (ROADMAP.md A7)")
+        raise NotImplementedError(f"{path}: importing reference torch checkpoints is not ported yet (ROADMAP.md A6)")
     if os.path.isdir(path):
         path = CheckpointManager(path).path()
     load_trainer_state(trainer, path)
@@ -86,13 +88,14 @@ def _restore(cfg: TaskConfig, trainer: Trainer) -> Trainer:
 
 
 def _run_fit(cfg: TaskConfig, trainer: Trainer, train_ds, eval_ds=None, dump_hook=None, val_metric="accuracy",
-             val_metric_higher_is_better=None):
+             val_metric_higher_is_better=None, out_select=None):
     """Fit ``trainer`` on ``train_ds``, evaluating ``eval_ds`` after each
     epoch and checkpointing into ``<folder>/ckpt``; then, with a
     ``dump_hook``, write the eval split's predictions (JAX
     ``registry.py:100-148``). With ``eval_only``: restore, evaluate, dump.
     ``val_metric`` selects the best epoch; it counts as lower-is-better when
-    it is ``"loss"`` unless ``val_metric_higher_is_better`` says otherwise."""
+    it is ``"loss"`` unless ``val_metric_higher_is_better`` says otherwise.
+    ``out_select`` is :func:`evaluate`'s."""
     if val_metric_higher_is_better is None:
         val_metric_higher_is_better = val_metric != "loss"
     if cfg.eval_only and eval_ds is None:
@@ -107,7 +110,7 @@ def _run_fit(cfg: TaskConfig, trainer: Trainer, train_ds, eval_ds=None, dump_hoo
                          pad_final=True, num_workers=cfg.train.num_workers)
     try:
         if cfg.eval_only:
-            metrics = evaluate(trainer, eval_b, dump_hook, cfg.folder)
+            metrics = evaluate(trainer, eval_b, dump_hook, cfg.folder, out_select)
             return trainer, FitResult(best_metric=metrics.get(val_metric, float("nan")), best_epoch=-1,
                                       epochs_run=0, history=[metrics])
         result = fit(trainer, lambda e: prefetch(train_b.epoch(e)),
@@ -115,7 +118,7 @@ def _run_fit(cfg: TaskConfig, trainer: Trainer, train_ds, eval_ds=None, dump_hoo
                      checkpoint_dir=os.path.join(cfg.folder, "ckpt"), val_metric=val_metric,
                      val_metric_higher_is_better=val_metric_higher_is_better)
         if dump_hook is not None and eval_b is not None:
-            evaluate(trainer, eval_b, dump_hook, cfg.folder)
+            evaluate(trainer, eval_b, dump_hook, cfg.folder, out_select)
     finally:
         train_b.close()
         if eval_b is not None:
@@ -123,15 +126,19 @@ def _run_fit(cfg: TaskConfig, trainer: Trainer, train_ds, eval_ds=None, dump_hoo
     return trainer, result
 
 
-def evaluate(trainer: Trainer, eval_b: Batcher, dump_hook, folder: str) -> Dict[str, float]:
+def evaluate(trainer: Trainer, eval_b: Batcher, dump_hook, folder: str, out_select=None) -> Dict[str, float]:
     """Run the eval split once: the scalar metrics, and every (batch,
     outputs) pair, outputs as numpy, handed to ``dump_hook(collected,
     folder)`` for the prediction files (JAX ``registry.py:151-215``, one
-    process)."""
+    process). ``out_select(outputs) -> outputs`` reduces the outputs on
+    their device before the host copy (``vqa_advanced``'s argmax over
+    [B, P, 30522] logits)."""
     collected = []
 
     def collect(batch, out):
         if dump_hook is not None:
+            if out_select is not None:
+                out = out_select(out)
             collected.append((batch, {k: v.detach().cpu().numpy() for k, v in out.items() if v is not None}))
 
     metrics = loop.evaluate(trainer, eval_b.epoch(0), collect)
@@ -157,7 +164,7 @@ def run_coco_pretrain(cfg: TaskConfig, device):
         ann, feats = coco_ds.make_synthetic(int(d["synthetic"]), tok, feat_dim=cfg.model.visual_embedding_dim)
     else:
         if "features_h5" in d:
-            raise NotImplementedError("HDF5 features are not ported (no h5py on the card's machine; ROADMAP.md A7)")
+            raise NotImplementedError("HDF5 features are not ported (no h5py on the card's machine; ROADMAP.md A6)")
         from visualbert_torch.data.features import NpyFolderFeatures
 
         with open(d["annotations"]) as f:
@@ -194,7 +201,7 @@ def run_vqa(cfg: TaskConfig, device):
         train_ann, eval_ann = ann[:split], ann[split:]
     else:
         if "features_h5" in d:
-            raise NotImplementedError("HDF5 features are not ported (no h5py on the card's machine; ROADMAP.md A7)")
+            raise NotImplementedError("HDF5 features are not ported (no h5py on the card's machine; ROADMAP.md A6)")
         from visualbert_torch.data.features import NpyFolderFeatures
 
         with open(d["train_annotations"]) as f:
@@ -232,6 +239,81 @@ def vqa_dump_hook(vocab):
     return dump
 
 
+@register("vqa_advanced")
+def run_vqa_advanced(cfg: TaskConfig, device):
+    """VQA answer-as-MLM (reference head modeling.py:1527-1554, dataset mode
+    vqa_dataset.py:158-184): the answer's wordpieces sit in ``[MASK]`` slots
+    after the question and the tied MLM head predicts them, through the
+    fused cross-entropy (K4-K6) in training and the decoder's logits in
+    evaluation. The best epoch is the one of the highest masked-token
+    accuracy (``mlm_accuracy``). Synthetic data is split 80/20; real data as
+    ``vqa``'s, without ``answer_vocab`` (the answer is ``answer_str``, else
+    the first of ``answers``). Each evaluation after training, or alone
+    with ``eval_only``, writes ``vqa_advanced_predictions.json``."""
+    from visualbert_torch.data.datasets import vqa as vqa_ds
+
+    tok = _tokenizer(cfg)
+    d = cfg.data
+    if "synthetic" in d:
+        ann, feats, _ = vqa_ds.make_synthetic(int(d["synthetic"]), tok, n_answers=int(d.get("n_answers", 8)),
+                                              feat_dim=cfg.model.visual_embedding_dim)
+        split = int(len(ann) * 0.8)
+        train_ann, eval_ann = ann[:split], ann[split:]
+    else:
+        if "features_h5" in d:
+            raise NotImplementedError("HDF5 features are not ported (no h5py on the card's machine; ROADMAP.md A6)")
+        from visualbert_torch.data.features import NpyFolderFeatures
+
+        with open(d["train_annotations"]) as f:
+            train_ann = json.load(f)
+        with open(d["eval_annotations"]) as f:
+            eval_ann = json.load(f)
+        feats = NpyFolderFeatures(d["features_dir"])
+
+    def mk(ann):
+        return vqa_ds.VQADataset(ann, feats, tok, None, advanced=True,
+                                 max_seq_length=int(d.get("max_seq_length", 128)),
+                                 max_regions=int(d.get("max_regions", 100)))
+
+    model = VisualBertForTask(cfg.model, head_type="vqa_advanced")
+    return _run_fit(cfg, _trainer(cfg, model, device), mk(train_ann), mk(eval_ann),
+                    dump_hook=vqa_advanced_dump_hook(tok), val_metric="mlm_accuracy",
+                    out_select=vqa_advanced_select)
+
+
+def vqa_advanced_select(out):
+    """The argmax of the [B, P, V] logits on their device (JAX
+    ``registry.py:332-336``): ``pred_ids`` [B, P] in place of ``logits``."""
+    out = dict(out)
+    out["pred_ids"] = out.pop("logits").argmax(dim=-1)
+    return out
+
+
+def vqa_advanced_dump_hook(tokenizer):
+    """The dump hook of ``vqa_advanced`` (JAX ``registry.py:338-361``):
+    ``vqa_advanced_predictions.json``, [{"question_id", "answer"}], the
+    answer the predicted wordpieces at the slots whose label is not -1,
+    joined with their ``##`` continuations. The repeated tail rows of the
+    last eval batch are not questions and are left out (the JAX hook
+    writes them too)."""
+    inv_vocab = {v: k for k, v in tokenizer.vocab.items()}
+
+    def dump(collected, folder):
+        preds = []
+        for batch, out in collected:
+            labels, positions = np.asarray(batch["masked_lm_labels"]), np.asarray(batch["mlm_positions"])
+            for b in range(int(batch.get("_real_count", len(out["pred_ids"])))):
+                slots = np.flatnonzero(labels[b][positions[b]] != -1)
+                toks = [inv_vocab.get(int(out["pred_ids"][b, j]), "[UNK]") for j in slots]
+                preds.append({"question_id": int(batch["question_id"][b]),
+                              "answer": " ".join(toks).replace(" ##", "")})
+        with open(os.path.join(folder, "vqa_advanced_predictions.json"), "w") as f:
+            json.dump(preds, f)
+        return {}
+
+    return dump
+
+
 @register("nlvr2")
 def run_nlvr2(cfg: TaskConfig, device):
     """NLVR2 fine-tuning with the 2-way ``nlvr`` head. Synthetic data is
@@ -245,7 +327,7 @@ def run_nlvr2(cfg: TaskConfig, device):
     d = cfg.data
     if "synthetic" not in d:
         raise NotImplementedError("NLVR2 on real data reads HDF5 features: H5Features is not ported "
-                                  "(no h5py on the card's machine; ROADMAP.md A7)")
+                                  "(no h5py on the card's machine; ROADMAP.md A6)")
     tok = _tokenizer(cfg)
     ann, feats = nlvr_ds.make_synthetic(int(d["synthetic"]), tok, feat_dim=cfg.model.visual_embedding_dim)
     split = int(len(ann) * 0.8)
@@ -284,11 +366,111 @@ def nlvr2_dump_hook(eval_ann):
     return dump
 
 
+def _flickr_dataset(cfg: TaskConfig, ann, feats, tok):
+    from visualbert_torch.data.datasets import flickr as flickr_ds
+
+    d = cfg.data
+    return flickr_ds.Flickr30kDataset(ann, feats, tok, max_seq_length=int(d.get("max_seq_length", 128)),
+                                      max_regions=int(d.get("max_regions", 100)),
+                                      max_entities=int(d.get("max_entities", 16)))
+
+
+def _flickr_synthetic(cfg: TaskConfig):
+    """(annotations, features, tokenizer) of a synthetic Flickr30k set; real
+    data reads HDF5 features, which are not ported, and raises."""
+    from visualbert_torch.data.datasets import flickr as flickr_ds
+
+    d = cfg.data
+    if "synthetic" not in d:
+        raise NotImplementedError("Flickr30k on real data reads HDF5 features: H5Features is not ported "
+                                  "(no h5py on the card's machine; ROADMAP.md A6)")
+    tok = _tokenizer(cfg)
+    ann, feats = flickr_ds.make_synthetic(int(d["synthetic"]), tok, feat_dim=cfg.model.visual_embedding_dim)
+    return ann, feats, tok
+
+
+@register("flickr")
+def run_flickr(cfg: TaskConfig, device):
+    """Flickr30k Entities grounding with the ``flickr`` head. Synthetic data
+    is split 80/20 into train and eval; real data (``features_h5``) raises.
+    Each evaluation after training, or alone with ``eval_only``, adds the
+    R@1/5/10 of :func:`flickr_dump_hook` to the metrics."""
+    ann, feats, tok = _flickr_synthetic(cfg)
+    split = int(len(ann) * 0.8)
+    model = VisualBertForTask(cfg.model, head_type="flickr")
+    return _run_fit(cfg, _trainer(cfg, model, device), _flickr_dataset(cfg, ann[:split], feats, tok),
+                    _flickr_dataset(cfg, ann[split:], feats, tok), dump_hook=flickr_dump_hook)
+
+
+def flickr_dump_hook(collected, folder):
+    """R@1/5/10 of ``flickr``: the share of real entities whose k best-scored
+    regions hold gold mass, the paper's grounding metric (reference
+    compute_score_with_logits_flickr, modeling.py:1648-1676; JAX
+    ``registry.py:548-563``). The repeated tail rows of the last eval batch
+    are left out (the JAX hook counts them)."""
+    hits = {1: 0, 5: 0, 10: 0}
+    total = 0
+    for batch, out in collected:
+        n = int(batch.get("_real_count", len(batch["label"])))
+        scores = np.asarray(out["logits"][:n], np.float32)  # [n, E, R]
+        label = np.asarray(batch["label"][:n], np.float32)
+        valid = np.asarray(batch["flickr_position"][:n]) >= 0
+        order = np.argsort(-scores, axis=-1)
+        for k in hits:
+            topk = np.take_along_axis(label, order[..., :k], axis=-1).sum(-1) > 0
+            hits[k] += int(topk[valid].sum())
+        total += int(valid.sum())
+    return {f"recall_at_{k}": hits[k] / max(total, 1) for k in hits}
+
+
+@register("flickr_probe")
+def run_flickr_probe(cfg: TaskConfig, device):
+    """Attention probing (ACL 2020 "What Does BERT with Vision Look At?";
+    JAX ``registry.py:568-657``): restore a ``flickr`` checkpoint
+    (``--restore``), run the Flickr30k eval split once with the encoder's
+    attention probabilities collected (the einsum attention, whatever the
+    config's ``use_flash_attention``), gather each entity's attention over
+    the regions on the device and count, layer by layer, the entities whose
+    most-attended region (mean over heads) holds gold mass. The whole
+    synthetic set is the split; real data (``features_h5``) raises. Writes
+    ``<folder>/flickr_probe.json`` = {"entities": n, "layer_0": acc, ...};
+    the task's metric is the best layer's accuracy."""
+    from visualbert_torch.tasks.probing import entity_region_attention, grounding_counts_from_era
+
+    ann, feats, tok = _flickr_synthetic(cfg)
+    ds = _flickr_dataset(cfg, ann, feats, tok)
+    trainer = _trainer(cfg, VisualBertForTask(cfg.model, head_type="flickr"), device)
+    trainer.init_state()
+    if cfg.restore_checkpoint:
+        _restore(cfg, trainer)
+    eval_b = Batcher(ds, cfg.train.eval_batch_size, shuffle=False, seed=cfg.train.seed, drop_last=False,
+                     pad_final=True, num_workers=cfg.train.num_workers)
+    hits, total = None, 0
+    try:
+        for batch in eval_b.epoch(0):
+            probs = trainer.eval_step(batch, output_attention_probs=True)["attention_weights"]
+            era = entity_region_attention(probs, torch.as_tensor(batch["flickr_position"]), ds.max_seq_length,
+                                          ds.max_regions).cpu().numpy()
+            del probs
+            h, t = grounding_counts_from_era(era, batch["flickr_position"], batch["label"],
+                                             row_mask=batch["example_weight"] > 0)
+            hits = h if hits is None else hits + h
+            total += t
+    finally:
+        eval_b.close()
+    accs = {f"layer_{layer}": float(hits[layer]) / max(total, 1) for layer in range(len(hits))}
+    path = os.path.join(cfg.folder, "flickr_probe.json")
+    with open(path, "w") as f:
+        json.dump({"entities": total, **accs}, f, indent=1)
+    log.info("flickr_probe over %d entities -> %s: %s", total, path, {k: round(v, 4) for k, v in accs.items()})
+    return trainer, FitResult(best_metric=max(accs.values()), best_epoch=-1, epochs_run=0, history=[accs])
+
+
 def run(cfg: TaskConfig, device):
     """Run ``cfg.task`` on ``device``; returns (trainer, FitResult). Logs are
     teed into ``run_N.log`` in the run folder."""
     if cfg.task not in TASKS:
-        raise KeyError(f"unknown task {cfg.task}; the port has {sorted(TASKS)} (ROADMAP.md A7 for the others)")
+        raise KeyError(f"unknown task {cfg.task}; the port has {sorted(TASKS)} (ROADMAP.md A6-A8 for the others)")
     handler = add_run_folder(cfg.folder)
     try:
         log.info("running task %s on %s -> %s", cfg.task, device, cfg.folder)

@@ -3,7 +3,9 @@
 Flax params, loaded into a port module with ``strict=True``.
 
 The port never imports the JAX package; whoever holds a Flax checkpoint
-exports it on the JAX side and hands the arrays over.
+exports it on the JAX side and hands the arrays over. ``export_state_dict``
+emits no ``flickr_attention`` entries: :func:`flickr_attention_state` turns
+that Flax subtree into them, with numpy only.
 """
 
 from __future__ import annotations
@@ -22,3 +24,18 @@ def load_state(module: torch.nn.Module, state: Mapping[str, np.ndarray]) -> torc
     module.load_state_dict(tensors, strict=True)
     return module
 
+
+def flickr_attention_state(subtree: Mapping) -> Dict[str, np.ndarray]:
+    """The Flax ``flickr_attention`` params (``{"query"|"key": {"kernel",
+    "bias"}}``, leaves plain or boxed) as the reference-named entries
+    ``flickr_attention.{query,key}.{weight,bias}`` (the names
+    ``visualbert_tpu/tools/import_torch.py`` reads); a kernel [in, out]
+    becomes a weight [out, in]."""
+    out = {}
+    for name in ("query", "key"):
+        dense = subtree[name]
+        out[f"flickr_attention.{name}.weight"] = np.asarray(getattr(dense["kernel"], "value", dense["kernel"]),
+                                                            np.float32).T
+        out[f"flickr_attention.{name}.bias"] = np.asarray(getattr(dense["bias"], "value", dense["bias"]),
+                                                          np.float32)
+    return out

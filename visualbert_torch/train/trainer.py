@@ -102,7 +102,9 @@ class Trainer:
         return metrics
 
     @torch.no_grad()
-    def eval_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
+    def eval_step(self, batch: Dict, output_attention_probs: bool = False) -> Dict[str, torch.Tensor]:
         """The model's outputs on ``batch`` with dropout off and no
-        gradients (JAX ``Trainer.eval_step_fn``)."""
-        return self.model(to_device(batch, self.device))
+        gradients (JAX ``Trainer.eval_step_fn``); with
+        ``output_attention_probs`` also the encoder's ``attention_weights``
+        ``[L, B, H, T, T]``."""
+        return self.model(to_device(batch, self.device), output_attention_probs=output_attention_probs)

@@ -66,7 +66,7 @@ def load_config_file(path: str) -> Dict:
 class TaskConfig:
     """Top-level run configuration."""
 
-    task: str                      # a task of tasks/registry.py (ROADMAP.md A7 for the others)
+    task: str                      # a task of tasks/registry.py (ROADMAP.md A6-A8 for the others)
     folder: str = "runs/default"   # output folder (checkpoints + logs)
     data: Dict[str, Any] = dataclasses.field(default_factory=dict)
     model: VisualBertConfig = dataclasses.field(default_factory=VisualBertConfig.base)
