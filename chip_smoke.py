@@ -13,8 +13,9 @@ non-zero without printing the final line:
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes of the main path: K3 (dropout mask, [128, 228, 768], int8 and
    bf16) must equal its bit-exact twin; the dropout site's forward and
-   backward (K3's body, csrc/dropout.cu) at that shape and at NLVR2's
-   [64, 272, 768], bf16, rate 0.1, must give y, the packed keep bits and dx
+   backward (K3's body, csrc/dropout.cu) at that shape, at NLVR2's
+   [64, 272, 768] and at the VCR step's [128, 148, 768], bf16, rate 0.1,
+   must give y, the packed keep bits and dx
    bit for bit with their plain versions, keep a NaN planted at a dropped
    position NaN, and keep within 4 sigma of 0.9; the three are timed
    launched on preallocated tensors (the wrappers' host time beside) and
@@ -25,7 +26,11 @@ non-zero without printing the final line:
    agree within a few bf16 ulps, timed at both rates, with each of their
    three kernels' head group, blocks an SM, registers and shared memory,
    and set beside their twin K16 at their own head groups (out, stats and
-   dqkv bit for bit, times in the same call) and at K16's best hg;
+   dqkv bit for bit, times in the same call) and at K16's best hg; K1 and
+   K2 again at the VCR step's shapes (128 rows = 32 questions x 4 choices,
+   T = 128 text + 20 boxes, each row's text and some rows' boxes padded) at
+   dropout 0 and 0.1 within the same limits, timed beside
+   scaled_dot_product_attention and their bound;
    K4, K5 and K6 (the fused MLM cross-entropy: forward, dx, d embedding and
    d bias) at N = 128 x 24 = 3072 rows, H=768, V=30522, bf16, 15 % of labels
    -1 and a non-uniform cotangent, again at bert-large's H=1024 and at
@@ -149,7 +154,30 @@ non-zero without printing the final line:
    its per-layer hits must equal a recount from one [L, B, H, T, T]
    collection of the whole split; its peak memory is printed. The runs'
    folders are temporary directories, removed at the end;
-13. prints the kernel table as one JSON line (launches from phase 6: the
+13. drives the VCR train step at configs/vcr_finetune_qa.json's full size
+   (visualbert_torch/tools/vcr_path.py): the ResNet50 detector (7 x 7 stem,
+   FrozenBN, RoIAlign, layer4 over 20 boxes an image) and bert-base with the
+   multichoice head, the config's model block unchanged, its optimizer
+   block with schedule "none", seeded weights, 32 uint8 768 x 768 images
+   whose content extent lies below 768 (so the padding is re-zeroed on the
+   card), 4 choices x 128 tokens, STEPS steps on one repeated batch. The
+   losses and cnn_regularization_loss must be finite, the loss must fall,
+   and every step must launch exactly 12 K1, 12 K2, 25 site forwards and 25
+   backwards and nothing else of K1-K16; the median step, images/s, peak
+   memory and the detector's forward alone are printed;
+14. runs VCR through the CLI: configs/vcr_finetune_qa.json with its data
+   block swapped for VCR_EXAMPLES synthetic questions (32 x 32 images, 3
+   boxes padded to 20), one epoch at its batch of 32: 5 steps of 12 K1, 12
+   K2, 25 site forwards and backwards; 2 + 2 eval batches (the second
+   padded) of 12 K1. `--eval_only --restore` must give the epoch's val_
+   metrics within 1e-6 and the same vcr_logits.npy (one row per eval
+   question) within 1e-5 with equal argmax;
+15. runs vcr_coco_pretrain through the CLI: configs/coco_pretrain.json's
+   model, optimizer and train blocks with `"task": "vcr_coco_pretrain"` and
+   VCR_COCO_EXAMPLES synthetic captioned images, one epoch at batch 128: 4
+   steps of the main path's launches (12/12 K1/K2, 1/1/1 K4-K6, 25 sites),
+   4 eval batches of 12 K1 and one K4; its metrics must be finite;
+16. prints the kernel table as one JSON line (launches from phase 6: the
    fused-LayerNorm main path's STEPS steps, for K7/K8 its dropout-0 step,
    for K11-K14 the runs with their settings, for K15/K16 the tools' run,
    for K3's mask the calls of its wrapper in tools/dropout_steps.py's run
@@ -182,6 +210,9 @@ PROBE_CONFIG = os.path.join(REPO, "configs", "flickr_probe.json")
 FLICKR_EXAMPLES = 200
 FLICKR_DATA = {"synthetic": FLICKR_EXAMPLES, "max_seq_length": 128, "max_regions": 100, "max_entities": 16}
 VQA_ADVANCED_XENT_ROWS = 64 * 4  # vqa_advanced's batch x its max_answer_tokens slots
+VCR_EXAMPLES = 200  # 160 train (5 steps of 32), 40 eval (32 + a padded batch of 8)
+VCR_COCO_EXAMPLES = 640  # 512 train (4 steps of 128), 128 eval (one batch)
+VCR_ROWS, VCR_T = 32 * 4, 128 + 20  # K1/K2 on the VCR step: 32 questions x 4 choices, 128 tokens + 20 boxes
 # Tolerances. The kernels round unnormalised probabilities to bf16 where the
 # plain version rounds normalised ones, and sum in another order. Each limit
 # is about 4x the readings of H100 runs at these shapes (in brackets; K1/K2
@@ -291,6 +322,14 @@ NLVR2_EVAL_PER_BATCH = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12, 0, 0, 0, 0, 0, 0
 VQA_ADVANCED_TRAIN_PER_STEP = FUSED_PER_STEP  # the fused cross-entropy in training; evaluation as VQA's
 FLICKR_TRAIN_PER_STEP = (12, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 25, 25)
 FLICKR_EVAL_PER_BATCH = (12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+# configs/vcr_finetune_qa.json's model block: no fused LayerNorm, no fused
+# cross-entropy; the detector runs no kernel of the port
+VCR_TRAIN_PER_STEP = (12, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 25, 25)
+VCR_EVAL_PER_BATCH = (12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+# vcr_coco_pretrain with configs/coco_pretrain.json's model block: the main
+# path's kernels; its evaluation decodes through the fused forward (K4)
+VCR_COCO_TRAIN_PER_STEP = PER_STEP
+VCR_COCO_EVAL_PER_BATCH = (12, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
 # the as-shipped step's peak memory before the site kernels, when each site
 # saved a bf16 multiplier (this script's last run before them, on an NVIDIA
 # H100 80GB HBM3 at 700 W)
@@ -356,17 +395,9 @@ def zero_launches():
 
 
 def cuda_time_ms(fn, iters):
-    import torch
+    from visualbert_torch.tools.main_path import cuda_ms
 
-    fn()  # warm-up
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return cuda_ms(fn, iters)
 
 
 def host_us_a_call(torch, fn, iters):
@@ -417,7 +448,8 @@ def check_dropout(torch, card):
     plain versions on the card. K3 at the main path's hidden-state shape:
     int8 and bf16 bit for bit with its twin, the same mask for the same seed
     and another for another, the keep rate within 4 sigma. The site forward
-    and backward at that shape and at NLVR2's [64, 272, 768], bf16, rate
+    and backward at that shape, at NLVR2's [64, 272, 768] and at the VCR
+    step's [VCR_ROWS, VCR_T, 768], bf16, rate
     0.1: y, the bits and dx bit for bit with the plain versions (y where the
     plain y is not NaN, and NaN where it is), the keep rate within 4 sigma,
     and a NaN planted in x at a dropped position NaN in y. Times at the main
@@ -465,9 +497,9 @@ def check_dropout(torch, card):
         raise SystemExit("K3 disagrees with its plain version")
     del want
 
-    # the site forward and backward at the main path's and NLVR2's shapes
+    # the site forward and backward at the main path's, NLVR2's and the VCR step's shapes
     errs = {"dropout_fwd": 0.0, "dropout_bwd": 0.0}
-    for shp in (shape, (64, 272, 768)):
+    for shp in (shape, (64, 272, 768), (VCR_ROWS, VCR_T, 768)):
         g = torch.Generator(device=dev).manual_seed(5)
         x = torch.randn(shp, generator=g, device=dev).to(torch.bfloat16)
         dy = torch.randn(shp, generator=g, device=dev).to(torch.bfloat16)
@@ -1869,6 +1901,242 @@ def run_flickr_phases(torch, card):
         shutil.rmtree(folder, ignore_errors=True)
 
 
+def vcr_attention_inputs(torch):
+    """K1/K2's inputs at the VCR step's shapes (128 rows = 32 questions x 4
+    choices, T = 128 text + 20 boxes, H = 12, D = 64, bf16): each row's
+    text padded after its own length, some rows' last boxes padded, from
+    RandomState(1)."""
+    import numpy as np
+
+    H, D = 12, 64
+    F = 3 * H * D
+    rng = np.random.RandomState(1)
+    dev = torch.device("cuda")
+    qkv = torch.tensor(rng.randn(VCR_ROWS, VCR_T, F), dtype=torch.bfloat16, device=dev)
+    qb = torch.tensor(rng.randn(F) * 0.1, dtype=torch.bfloat16, device=dev)
+    mask = np.ones((VCR_ROWS, VCR_T), np.float32)
+    for r in range(VCR_ROWS):
+        mask[r, rng.randint(24, 129):128] = 0  # the choice's text ends
+        if r % 3 == 0:
+            mask[r, VCR_T - rng.randint(1, 6):] = 0  # padded boxes
+    key_bias = torch.tensor((1.0 - mask) * -10000.0, device=dev)
+    dout = torch.tensor(rng.randn(VCR_ROWS, VCR_T, H * D), dtype=torch.bfloat16, device=dev)
+    return qkv, qb, key_bias, dout
+
+
+def check_packed_at_vcr_shape(torch, card):
+    """K1/K2 at the VCR step's shapes, dropout 0 and 0.1, against their
+    plain versions at the main path's limits; timed beside
+    scaled_dot_product_attention and their bound."""
+    from visualbert_torch.ops import flash_attention as fa
+
+    qkv, qb, key_bias, dout = vcr_attention_inputs(torch)
+    B, T, F = qkv.shape
+    H, D = 12, 64
+    for rate in (0.0, 0.1):
+        out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, 7)
+        out_r, stats_r = fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, 7)
+        dqkv, dqb = fa.packed_attention_bwd(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 7)
+        dqkv_r, dqb_r = fa.packed_attention_bwd_reference(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 7)
+        torch.cuda.synchronize()
+        e_out, r_out = rel_err(out, out_r)
+        e_st = float((stats - stats_r).abs().max())
+        e_dq, r_dq = rel_err(dqkv, dqkv_r)
+        e_db, r_db = rel_err(dqb, dqb_r)
+        log(f"K1 at VCR's [{B}, {T}, {F}] rate {rate}: out max_abs_err {e_out:.3e} (rel {r_out:.3e}, tol {OUT_TOL}); "
+            f"stats max_abs_err {e_st:.3e} (tol {STATS_TOL}); K2: dqkv max_abs_err {e_dq:.3e} (rel {r_dq:.3e}, "
+            f"tol {DQKV_TOL}); dqkv_bias max_abs_err {e_db:.3e} (rel {r_db:.3e}, tol {DB_TOL})")
+        if not (r_out <= OUT_TOL and e_st <= STATS_TOL and r_dq <= DQKV_TOL and r_db <= DB_TOL):
+            raise SystemExit(f"K1/K2 disagree with their plain versions at VCR's shape, rate {rate}")
+    del out_r, dqkv_r
+    rate = 0.1
+    k1 = dict(ms=cuda_time_ms(lambda: fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, 5), 20),
+              plain_ms=cuda_time_ms(lambda: fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, 5), 3))
+    k2 = dict(ms=cuda_time_ms(lambda: fa.packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, H, rate, 5), 20),
+              plain_ms=cuda_time_ms(
+                  lambda: fa.packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, H, rate, 5), 3))
+    q, k, v = ((qkv + qb).view(B, T, H, 3, D).unbind(3))
+    k1["library_ms"], k2["library_ms"] = sdpa_ms(torch, *(t.transpose(1, 2) for t in (q, k, v)), key_bias,
+                                                 dout.view(B, T, H, D).transpose(1, 2), rate)
+    del q, k, v
+    gflop = 2.0 * B * H * T * T * D / 1e9
+    k1.update(bound(nbytes(qkv, qb, key_bias, out, stats), 2 * gflop * 1e9, BF16_FLOPS))
+    k2.update(bound(nbytes(qkv, qb, key_bias, dout, out, stats, dqkv, dqb), 4 * gflop * 1e9, BF16_FLOPS))
+    for name, r in (("packed_attention_fwd at VCR's shape", k1), ("packed_attention_bwd at VCR's shape", k2)):
+        log(row_line(name, r, card))
+    return k1, k2
+
+
+def run_vcr_step(torch, card):
+    """STEPS train steps of the VCR model at configs/vcr_finetune_qa.json's
+    full size (tools/vcr_path.py) on one repeated batch; then the detector's
+    forward alone."""
+    from visualbert_torch.tools import vcr_path
+
+    raw = vcr_path.config()
+    log(f"vcr step: model block {json.dumps(raw['model'])}, optimizer {json.dumps(raw['optimizer'])} with schedule "
+        f"none, data {json.dumps({k: raw['data'][k] for k in ('max_seq_length', 'max_boxes', 'final_dim', 'cnn_loss_ratio', 'image_size')})}")
+    trainer, batch = vcr_path.build(raw=raw)
+    B = batch["images"].shape[0]
+    log(f"vcr step batch: {B} questions, images {list(batch['images'].shape)} {batch['images'].dtype} (content "
+        f"{int(batch['image_hw'].min())}-{int(batch['image_hw'].max())} px), {int(batch['box_mask'].sum())} real boxes "
+        f"of {batch['box_mask'].numel()}, text {list(batch['input_ids'].shape)}; "
+        f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.1f} M parameters in "
+        f"{sum(1 for _ in trainer.model.parameters())} tensors")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    losses, cnn, times = [], [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        losses.append(float(metrics["loss"]))
+        cnn.append(float(metrics["cnn_regularization_loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(times[1:])
+    log(f"vcr step: losses ({STEPS} steps, one repeated batch): " + ", ".join(f"{x:.5f}" for x in losses)
+        + "; cnn_regularization_loss " + ", ".join(f"{x:.5f}" for x in cnn))
+    log(f"vcr step: launches over {STEPS} steps: "
+        + ", ".join(f"{label} {n} ({n / STEPS:g}/step)" for label, n in zip(LABELS, launches))
+        + f"; want {'/'.join(map(str, VCR_TRAIN_PER_STEP))} per step")
+    log(f"vcr step: median {med * 1e3:.2f} ms over steps 2..{STEPS} (first step {times[0] * 1e3:.1f} ms), "
+        f"{B / med:.2f} images/s ({4 * B / med:.1f} question-choice rows/s), peak memory {peak:.2f} GiB  [{card}]")
+    if not all(math.isfinite(x) for x in losses + cnn):
+        raise SystemExit("vcr step: non-finite loss")
+    if not losses[-1] < losses[0]:
+        raise SystemExit("vcr step: the loss did not fall on the repeated batch")
+    if launches != [n * STEPS for n in VCR_TRAIN_PER_STEP]:
+        raise SystemExit(f"vcr step: unexpected kernel launch counts {launches}")
+    det = trainer.model.detector
+    keys = ("images", "boxes", "box_mask", "classes", "segms")
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(lambda: det(*(batch[k] for k in keys), None, batch["image_hw"]), 5)
+    log(f"vcr detector forward alone (no grad, {B} images of {batch['images'].shape[1]} x "
+        f"{batch['images'].shape[2]}, {batch['boxes'].shape[1]} boxes each): "
+        f"{fwd_ms:.2f} ms  [{card}]")
+    del trainer, batch
+    return dict(median_ms=med * 1e3, images_per_s=B / med, peak_gib=peak, detector_forward_ms=fwd_ms)
+
+
+def vcr_cli_raw():
+    """configs/vcr_finetune_qa.json with its data block's files swapped for
+    VCR_EXAMPLES synthetic questions (32 x 32 images, 3 boxes padded to the
+    config's 20), one epoch."""
+    from visualbert_torch.tools import vcr_path
+
+    raw = vcr_path.config()
+    d = raw["data"]
+    raw["data"] = dict({k: d[k] for k in ("max_seq_length", "max_boxes", "final_dim", "cnn_loss_ratio")},
+                       synthetic=VCR_EXAMPLES)
+    raw["train"] = dict(raw["train"], num_train_epochs=1)
+    return raw
+
+
+def run_vcr_cli(torch, card):
+    """VCR through the CLI: one epoch, then --eval_only of its checkpoint,
+    which must give the epoch's val_ metrics within 1e-6 and the same
+    vcr_logits.npy within 1e-5 (equal argmax), one row per eval question."""
+    import numpy as np
+
+    raw = vcr_cli_raw()
+    n_train = int(VCR_EXAMPLES * 0.8)
+    steps = n_train // raw["train"]["train_batch_size"]
+    eval_batches = -(-(VCR_EXAMPLES - n_train) // raw["train"]["eval_batch_size"])
+    folder = tempfile.mkdtemp(prefix="chip_smoke_vcr_")
+    try:
+        path = write_config(folder, "vcr_synthetic.json", raw)
+        run = os.path.join(folder, "run")
+        zero_launches()
+        t0 = time.perf_counter()
+        trainer, result, printed = run_cli_quiet(["--config", path, "--folder", run])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        epoch = result.history[0]
+        want = [steps * a + 2 * eval_batches * b for a, b in zip(VCR_TRAIN_PER_STEP, VCR_EVAL_PER_BATCH)]
+        log(f"vcr cli: {printed}; {trainer.step} steps at batch {raw['train']['train_batch_size']} on "
+            f"{trainer.device}, {wall:.1f} s with set-up; epoch means: "
+            + ", ".join(f"{k} {v:.6f}" for k, v in sorted(epoch.items())))
+        log("vcr cli launches: " + launch_text(launches)
+            + f"; want {steps} x {'/'.join(map(str, VCR_TRAIN_PER_STEP))} (train steps) + 2 x {eval_batches} x "
+            + f"{'/'.join(map(str, VCR_EVAL_PER_BATCH))} (eval batches)")
+        if trainer.device.type != "cuda" or trainer.step != steps:
+            raise SystemExit(f"the vcr CLI ran {trainer.step} steps on {trainer.device}")
+        if not all(math.isfinite(v) for v in epoch.values()):
+            raise SystemExit("non-finite metric in the vcr CLI run")
+        if launches != want:
+            raise SystemExit(f"unexpected kernel launch counts in the vcr CLI run {launches}")
+        logits = np.load(os.path.join(run, "vcr_logits.npy"))
+        if logits.shape != (VCR_EXAMPLES - n_train, 4) or not np.isfinite(logits).all():
+            raise SystemExit(f"vcr_logits.npy holds {logits.shape}, not one finite row of 4 per eval question")
+        del trainer, result
+        torch.cuda.empty_cache()
+
+        again = os.path.join(folder, "eval")
+        zero_launches()
+        _, result, printed = run_cli_quiet(["--config", path, "--folder", again, "--eval_only",
+                                            "--restore", os.path.join(run, "ckpt")])
+        launches = read_launches()
+        metrics = result.history[0]
+        diff = max(abs(metrics[k] - epoch["val_" + k]) for k in ("loss", "accuracy", "cnn_regularization_loss"))
+        logits2 = np.load(os.path.join(again, "vcr_logits.npy"))
+        l_diff = float(np.abs(logits2 - logits).max()) if logits2.shape == logits.shape else float("inf")
+        same_argmax = logits2.shape == logits.shape and (logits2.argmax(-1) == logits.argmax(-1)).all()
+        log(f"vcr --eval_only: {printed}; " + ", ".join(f"{k} {v:.6f}" for k, v in metrics.items())
+            + f"; max |diff| to the epoch's val_ metrics {diff:.2e} (tol 1e-6); vcr_logits.npy {list(logits2.shape)}, "
+            f"max |diff| {l_diff:.2e} (tol 1e-5), argmax equal: {bool(same_argmax)}; launches " + launch_text(launches))
+        if diff > 1e-6 or l_diff > 1e-5 or not same_argmax:
+            raise SystemExit("--eval_only does not reproduce the vcr run's evaluation")
+        if launches != [eval_batches * b for b in VCR_EVAL_PER_BATCH]:
+            raise SystemExit(f"unexpected kernel launch counts in the vcr --eval_only run {launches}")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def run_vcr_coco_cli(torch, card):
+    """vcr_coco_pretrain through the CLI: configs/coco_pretrain.json's model,
+    optimizer and train blocks with "task": "vcr_coco_pretrain" and
+    VCR_COCO_EXAMPLES synthetic captioned images (32 x 32, 3 boxes and the
+    window row, padded to 20), one epoch."""
+    from visualbert_torch.tools.main_path import CONFIG
+    from visualbert_torch.utils.config_io import load_config_file, parse_task_config
+
+    raw = load_config_file(CONFIG)
+    raw["task"] = "vcr_coco_pretrain"
+    raw["data"] = {"synthetic": VCR_COCO_EXAMPLES, "max_seq_length": 128, "max_boxes": 20, "two_sentence": True}
+    raw["train"] = dict(raw["train"], num_train_epochs=1)
+    train = parse_task_config(raw).train
+    n_train = int(VCR_COCO_EXAMPLES * 0.8)
+    steps = n_train // train.train_batch_size
+    eval_batches = -(-(VCR_COCO_EXAMPLES - n_train) // train.eval_batch_size)
+    folder = tempfile.mkdtemp(prefix="chip_smoke_vcr_coco_")
+    try:
+        path = write_config(folder, "vcr_coco_synthetic.json", raw)
+        zero_launches()
+        t0 = time.perf_counter()
+        trainer, result, printed = run_cli_quiet(["--config", path, "--folder", os.path.join(folder, "run")])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        epoch = result.history[0]
+        want = [steps * a + eval_batches * b for a, b in zip(VCR_COCO_TRAIN_PER_STEP, VCR_COCO_EVAL_PER_BATCH)]
+        log(f"vcr_coco_pretrain cli: {printed}; {trainer.step} steps at batch {train.train_batch_size} on "
+            f"{trainer.device}, {wall:.1f} s with set-up; epoch means: "
+            + ", ".join(f"{k} {v:.6f}" for k, v in sorted(epoch.items())))
+        log("vcr_coco_pretrain cli launches: " + launch_text(launches)
+            + f"; want {steps} x {'/'.join(map(str, VCR_COCO_TRAIN_PER_STEP))} (train steps) + {eval_batches} x "
+            + f"{'/'.join(map(str, VCR_COCO_EVAL_PER_BATCH))} (eval batches)")
+        if trainer.device.type != "cuda" or trainer.step != steps:
+            raise SystemExit(f"the vcr_coco_pretrain CLI ran {trainer.step} steps on {trainer.device}")
+        if not all(math.isfinite(v) for v in epoch.values()):
+            raise SystemExit("non-finite metric in the vcr_coco_pretrain CLI run")
+        if launches != want:
+            raise SystemExit(f"unexpected kernel launch counts in the vcr_coco_pretrain CLI run {launches}")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -1893,6 +2161,8 @@ def main():
 
     rows = check_dropout(torch, card)
     rows.update(check_kernels(torch, card))
+    check_packed_at_vcr_shape(torch, card)
+    torch.cuda.empty_cache()
     rows.update(check_xent(torch, card))
     check_xent(torch, card, H=1024)
     check_xent(torch, card, N=VQA_ADVANCED_XENT_ROWS)
@@ -1938,6 +2208,14 @@ def main():
     run_vqa_advanced_cli(torch, card)
     torch.cuda.empty_cache()
     run_flickr_phases(torch, card)
+    torch.cuda.empty_cache()
+    vcr = run_vcr_step(torch, card)
+    torch.cuda.empty_cache()
+    log(f"vcr step: median {vcr['median_ms']:.2f} ms, {vcr['images_per_s']:.2f} images/s, peak memory "
+        f"{vcr['peak_gib']:.2f} GiB, detector forward alone {vcr['detector_forward_ms']:.2f} ms  [{card}]")
+    run_vcr_cli(torch, card)
+    torch.cuda.empty_cache()
+    run_vcr_coco_cli(torch, card)
 
     # launches: the fused-LayerNorm main path's STEPS steps; K7/K8 from its
     # dropout-0 step; K11/K12 and K13/K14 from the runs with their settings;

@@ -211,14 +211,3 @@ def test_fused_layer_norm_pretraining_matches_jax(rng):
     want = export_state_dict(grads_j, jcfg)
     for name, p in model.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), want[name], atol=ATOL, rtol=RTOL, err_msg=name)
-
-
-@pytest.mark.parametrize("what", ["multichoice"])
-def test_unported_heads_and_options_raise(what):
-    """The head still to port, VCR's multichoice, raises and names its
-    slice (ROADMAP.md A7, the detector); vqa_advanced, flickr and
-    output_attention_weights are ported (tests/test_torch_vqa_advanced.py,
-    tests/test_torch_flickr.py, tests/test_torch_probing.py)."""
-    _, tcfg = configs()
-    with pytest.raises(NotImplementedError, match="A7: the detector"):
-        VisualBertForTask(tcfg, what)

@@ -2,7 +2,7 @@
 ``visualbert_tpu/models/visualbert.py``; reference
 ``TrainVisualBERTObjective``, modeling.py:1335-1598).
 
-The port has five branches:
+The port has six branches:
 
 * ``pretraining`` (modeling.py:1400-1500, JAX ``visualbert.py:85-203``): MLM
   over the gathered ``mlm_positions`` plus the sentence-image alignment
@@ -20,6 +20,11 @@ The port has five branches:
 * ``nlvr`` (JAX ``visualbert.py:80-81, 234-243``): a 2-way
   classifier over the pooled output, cross-entropy against the 0/1
   ``label`` and accuracy, both weighted by ``example_weight``;
+* ``multichoice`` (VCR, JAX ``visualbert.py:75-76, 205-215``):
+  a one-logit classifier over the pooled output of each flattened
+  [B*C, T] row, reshaped to ``logits`` [B, C]; cross-entropy
+  against the choice ``label`` and accuracy, both weighted by
+  ``example_weight``;
 * ``flickr`` (modeling.py:1568-1598, JAX ``visualbert.py:245-279``): entity
   grounding, ``FlickrAttention`` scores of the entity states at
   ``flickr_position`` over the visual tokens, KL-divergence batchmean
@@ -28,7 +33,6 @@ The port has five branches:
   entity count over the real entities of real rows. It has no ``cls``: the
   Flax module declares one but never calls it, so it has no parameters.
 
-``multichoice`` raises; it waits for the detector slice (ROADMAP.md A7).
 With ``output_attention_probs`` the output also holds
 ``attention_weights``, the encoder's ``[L, B, H, T, T]`` fp32 probabilities.
 
@@ -37,8 +41,8 @@ Batch keys (tensors): ``input_ids``/``token_type_ids``/``input_mask`` [B, Tt],
 [B, Tv], ``image_text_alignment`` [B, Tv, A], ``masked_lm_labels`` [B, Tt]
 (-1 unmasked), ``mlm_positions`` [B, P], ``is_random_next`` [B],
 ``example_weight`` [B], ``flickr_position`` [B, E] (-1 pad), ``label``
-[B, num_answers] (vqa), [B] (nlvr) or [B, E, Tv] (flickr); [B, C, ...]
-choice stacks are flattened.
+[B, num_answers] (vqa), [B] (nlvr, multichoice) or [B, E, Tv] (flickr);
+[B, C, ...] choice stacks are flattened.
 """
 
 from __future__ import annotations
@@ -84,10 +88,6 @@ class VisualBertForTask(nn.Module):
         super().__init__()
         if head_type not in HEAD_TYPES:
             raise ValueError(f"unknown head_type {head_type}")
-        if head_type == "multichoice":
-            raise NotImplementedError(
-                "head_type 'multichoice' is not ported yet (ROADMAP.md A7: the detector slice, VCR)"
-            )
         self.cfg = cfg
         self.head_type = head_type
         self.bert = VisualBertModel(cfg)
@@ -98,8 +98,9 @@ class VisualBertForTask(nn.Module):
         elif head_type == "flickr":
             self.flickr_attention = FlickrAttention(cfg)
         else:
-            # the VQA classifier width (reference modeling.py:1362), or NLVR2's two classes
-            self.classifier = Classifier(cfg, num_answers if head_type == "vqa" else 2)
+            # the VQA classifier width (reference modeling.py:1362), NLVR2's two
+            # classes, or one logit a VCR choice (modeling.py:1358)
+            self.classifier = Classifier(cfg, {"vqa": num_answers, "nlvr": 2, "multichoice": 1}[head_type])
 
     def init_weights(self, generator: torch.Generator) -> "VisualBertForTask":
         init_weights(self, self.cfg, generator)
@@ -135,8 +136,8 @@ class VisualBertForTask(nn.Module):
         )
         if self.head_type == "vqa":
             out = self._vqa(batch, input_mask, sequence_output, example_weight, generator)
-        elif self.head_type == "nlvr":
-            out = self._nlvr(batch, pooled_output, example_weight, generator)
+        elif self.head_type in ("nlvr", "multichoice"):
+            out = self._classify(batch, pooled_output, example_weight, generator)
         elif self.head_type == "flickr":
             out = self._flickr(batch, input_mask, image_mask, sequence_output, example_weight)
         else:
@@ -208,8 +209,12 @@ class VisualBertForTask(nn.Module):
             out["accuracy"] = losses.weighted_mean(losses.vqa_accuracy_scores(logits, label), example_weight)
         return out
 
-    def _nlvr(self, batch, pooled_output, example_weight, generator):
+    def _classify(self, batch, pooled_output, example_weight, generator):
+        """nlvr's two logits a row, or multichoice's one logit a [B*C] choice
+        row reshaped to the batch's [B, C]; CE against ``label`` and accuracy."""
         logits = self.classifier(pooled_output, generator)
+        if self.head_type == "multichoice":
+            logits = logits.reshape(batch["input_ids"].shape[:2])
         out: Dict[str, torch.Tensor] = {"logits": logits}
         label = batch.get("label")
         if label is not None:

@@ -2,9 +2,10 @@
 (counterpart of ``visualbert_tpu/tasks/registry.py``; the reference's
 ``visualbert/models/train.py`` dataset dispatch, train.py:148-191).
 
-The port has six of the JAX registry's tasks: ``coco_pretrain``, ``vqa``,
-``vqa_advanced``, ``nlvr2``, ``flickr`` and ``flickr_probe``; the others
-wait for their slices (ROADMAP.md A6-A8). A task supports ``data:
+The port has eight of the JAX registry's eleven tasks: ``coco_pretrain``,
+``vcr_coco_pretrain``, ``vqa``, ``vqa_advanced``, ``nlvr2``, ``flickr``,
+``flickr_probe`` and ``vcr``; ``unsup_pretrain``, ``text_pretrain`` and
+``unsup_vqa`` wait for their slice (ROADMAP.md A8). A task supports ``data:
 {"synthetic": N}`` for smoke runs and real-data paths (documented per
 task). Every task runs on the device it is given: ``"cuda"`` for the
 kernels, ``"cpu"`` for their plain versions.
@@ -179,6 +180,129 @@ def run_coco_pretrain(cfg: TaskConfig, device):
     model = VisualBertForTask(cfg.model, head_type="pretraining")
     cfg = _default_frozen_pooler(cfg)
     return _run_fit(cfg, _trainer(cfg, model, device), ds, val_metric="loss")
+
+
+def _detector_store(d):
+    """A detector task's real-data image store: raw jpgs with json metadata
+    in ``images_dir`` (``ImageFolderStore``, which reads them with PIL;
+    ``class_names`` one a line), or ``<image_id>.npy`` dicts of the same
+    fields in ``preprocessed_dir`` (``NpyFolderFeatures``)."""
+    if "images_dir" not in d:
+        from visualbert_torch.data.features import NpyFolderFeatures
+
+        return NpyFolderFeatures(d["preprocessed_dir"])
+    from visualbert_torch.utils.images import ImageFolderStore
+
+    class_names = None
+    if "class_names" in d:
+        with open(d["class_names"]) as f:
+            class_names = [line.strip() for line in f if line.strip()]
+    return ImageFolderStore(d["images_dir"], target=int(d.get("image_size", 768)), class_names=class_names)
+
+
+def _detector_model(cfg: TaskConfig, head_type: str):
+    """``VisualBertDetectorModel`` with the detector knobs of the data block
+    (``final_dim``, ``cnn_loss_ratio``, ``trunk_blocks``, ``layer4_blocks``,
+    ``width_div``), as the JAX registry reads them."""
+    from visualbert_torch.models.vcr import VisualBertDetectorModel
+
+    d = cfg.data
+    return VisualBertDetectorModel(
+        cfg.model, head_type=head_type, final_dim=int(d.get("final_dim", 512)),
+        cnn_loss_ratio=float(d.get("cnn_loss_ratio", 0.1)), trunk_blocks=tuple(d.get("trunk_blocks", (3, 4, 6))),
+        layer4_blocks=int(d.get("layer4_blocks", 3)), width_div=int(d.get("width_div", 1)),
+    )
+
+
+@register("vcr_coco_pretrain")
+def run_vcr_coco_pretrain(cfg: TaskConfig, device):
+    """COCO-caption MLM + alignment pretraining through the detector (the
+    VCR pipeline's pretraining stage: reference r2c mode,
+    coco_dataset.py:235-340, configs/vcr/coco-pre-train.json). Synthetic
+    data (32 x 32 images, 3 boxes) is split 80/20; real data:
+    ``train_annotations`` and optionally ``eval_annotations`` (json lists of
+    {"image_id", "captions"}), ``images_dir`` (``ImageFolderStore``) or
+    ``preprocessed_dir`` (``<image_id>.npy`` dicts of the store's fields),
+    ``vocab_file``, and the reference's ``expand_coco`` (train + val minus
+    ``minival_image_ids``). The pooler is frozen unless the config says
+    otherwise; the best epoch is the one of the lowest val loss."""
+    from visualbert_torch.data.datasets import coco as coco_ds
+
+    tok = _tokenizer(cfg)
+    d = cfg.data
+    if "synthetic" in d:
+        ann, images = coco_ds.make_synthetic_detector(int(d["synthetic"]), tok)
+        split = int(len(ann) * 0.8)
+        train_ann, eval_ann = ann[:split], ann[split:]
+    else:
+        with open(d["train_annotations"]) as f:
+            train_ann = json.load(f)
+        eval_ann = None
+        if "eval_annotations" in d:
+            with open(d["eval_annotations"]) as f:
+                eval_ann = json.load(f)
+        if d.get("expand_coco") and eval_ann is not None:
+            with open(d["minival_image_ids"]) as f:
+                mini = json.load(f)
+            train_ann, eval_ann = coco_ds.expand_coco(train_ann, eval_ann, mini,
+                                                      exclude_minival=bool(d.get("exclude_minival", True)))
+        images = _detector_store(d)
+
+    def mk(ann):
+        return coco_ds.CocoDetectorDataset(ann, images, tok, max_boxes=int(d.get("max_boxes", 20)),
+                                           max_seq_length=int(d.get("max_seq_length", 128)),
+                                           two_sentence=bool(d.get("two_sentence", True)))
+
+    model = _detector_model(cfg, "pretraining")
+    cfg = _default_frozen_pooler(cfg)
+    return _run_fit(cfg, _trainer(cfg, model, device), mk(train_ann), mk(eval_ann) if eval_ann else None,
+                    val_metric="loss")
+
+
+@register("vcr")
+def run_vcr(cfg: TaskConfig, device):
+    """VCR Q->A (or QA->R) fine-tuning end to end: the detector over the
+    raw image and the ``multichoice`` head over 4 choices. Synthetic data
+    (32 x 32 images, 3 boxes, the bright box names the answer) is split
+    80/20; real data: ``train_annotations`` and ``eval_annotations`` (json
+    lists of {"image_id", "question", "choices", "label", "objects"}),
+    ``images_dir`` (raw jpgs + json metadata, ``ImageFolderStore``) or
+    ``preprocessed_dir`` (``NpyFolderFeatures``), ``class_names`` and
+    ``vocab_file``. Each evaluation after training, or alone with
+    ``eval_only``, writes ``vcr_logits.npy`` ([questions, 4] fp32)."""
+    from visualbert_torch.data.datasets import vcr as vcr_ds
+
+    tok = _tokenizer(cfg)
+    d = cfg.data
+    if "synthetic" in d:
+        ann, images = vcr_ds.make_synthetic(int(d["synthetic"]), tok)
+        split = int(len(ann) * 0.8)
+        train_ann, eval_ann = ann[:split], ann[split:]
+    else:
+        with open(d["train_annotations"]) as f:
+            train_ann = json.load(f)
+        with open(d["eval_annotations"]) as f:
+            eval_ann = json.load(f)
+        images = _detector_store(d)
+
+    def mk(ann):
+        return vcr_ds.VCRDataset(ann, images, tok, max_seq_length=int(d.get("max_seq_length", 128)),
+                                 max_boxes=int(d.get("max_boxes", 20)))
+
+    model = _detector_model(cfg, "multichoice")
+    return _run_fit(cfg, _trainer(cfg, model, device), mk(train_ann), mk(eval_ann), dump_hook=vcr_dump_hook)
+
+
+def vcr_dump_hook(collected, folder):
+    """The dump hook of ``vcr``: ``vcr_logits.npy``, the per-choice logits
+    of each eval question for the leaderboard tooling (reference
+    train.py:352-368). The repeated tail rows of the last eval batch are not
+    questions and are left out (the JAX hook writes them too)."""
+    logits = [np.asarray(out["logits"][: int(batch.get("_real_count", len(out["logits"])))], np.float32)
+              for batch, out in collected]
+    if logits:
+        np.save(os.path.join(folder, "vcr_logits.npy"), np.concatenate(logits))
+    return {}
 
 
 @register("vqa")
@@ -470,7 +594,7 @@ def run(cfg: TaskConfig, device):
     """Run ``cfg.task`` on ``device``; returns (trainer, FitResult). Logs are
     teed into ``run_N.log`` in the run folder."""
     if cfg.task not in TASKS:
-        raise KeyError(f"unknown task {cfg.task}; the port has {sorted(TASKS)} (ROADMAP.md A6-A8 for the others)")
+        raise KeyError(f"unknown task {cfg.task}; the port has {sorted(TASKS)} (ROADMAP.md A8 for the others)")
     handler = add_run_folder(cfg.folder)
     try:
         log.info("running task %s on %s -> %s", cfg.task, device, cfg.folder)

@@ -30,6 +30,22 @@ def card_line() -> str:
     return out[0].strip()
 
 
+def cuda_ms(fn, iters: int) -> float:
+    """Milliseconds a call of ``fn`` on the current CUDA stream, from CUDA
+    events around ``iters`` calls after one warm-up call."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def model_block() -> dict:
     """configs/coco_pretrain.json's model block."""
     from visualbert_torch.utils.config_io import load_config_file

@@ -5,7 +5,10 @@ Flax params, loaded into a port module with ``strict=True``.
 The port never imports the JAX package; whoever holds a Flax checkpoint
 exports it on the JAX side and hands the arrays over. ``export_state_dict``
 emits no ``flickr_attention`` entries: :func:`flickr_attention_state` turns
-that Flax subtree into them, with numpy only.
+that Flax subtree into them, with numpy only. :func:`detector_model_state`
+joins the two exports of a Flax ``VisualBertDetectorModel`` (its ``bert``
+subtree through ``export_state_dict``, its ``detector`` subtree through
+``export_resnet50_state_dict``) under the port model's prefixes.
 """
 
 from __future__ import annotations
@@ -38,4 +41,17 @@ def flickr_attention_state(subtree: Mapping) -> Dict[str, np.ndarray]:
                                                             np.float32).T
         out[f"flickr_attention.{name}.bias"] = np.asarray(getattr(dense["bias"], "value", dense["bias"]),
                                                           np.float32)
+    return out
+
+
+def detector_model_state(bert_state: Mapping[str, np.ndarray],
+                         detector_state: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The state dict of the port's ``VisualBertDetectorModel`` from the two
+    exports of a Flax one: ``bert_state`` is ``export_state_dict`` of its
+    ``bert`` subtree (keys ``bert.*`` and the head's ``classifier.*`` or
+    ``cls.*``), ``detector_state`` is ``export_resnet50_state_dict`` of its
+    ``detector`` subtree (torchvision keys). They land under ``bert.`` and
+    ``detector.``."""
+    out = {f"bert.{k}": np.asarray(v) for k, v in bert_state.items()}
+    out.update((f"detector.{k}", np.asarray(v)) for k, v in detector_state.items())
     return out

@@ -14,8 +14,9 @@ The three quirks that ``torch.optim.AdamW`` does not have:
 3. the schedule multiplier is taken at the step count BEFORE the increment,
    so under a warmup schedule the first update has learning rate 0.
 
-Weight decay is decoupled and masked by name (no decay for biases and
-LayerNorms, model_wrapper.py:106-110). Parameters whose name contains a
+Weight decay is decoupled and masked by name (no decay for biases,
+LayerNorms and the detector's batch-norm scales, model_wrapper.py:106-110;
+JAX ``default_decay_mask``). Parameters whose name contains a
 ``frozen`` substring (the pooler in COCO pretraining, JAX
 ``tasks/registry.py:87-96``) get no update, while their moments still move
 (JAX ``optimizer.py:214-224``). Moments are fp32. The schedule is evaluated
@@ -67,11 +68,19 @@ def make_schedule(name: Optional[str], warmup: float, t_total: int) -> Callable[
     raise ValueError(f"unknown schedule {name}")
 
 
+# a FrozenBatchNorm's scale under its torchvision name: ``bnK.weight`` or a
+# downsample branch's ``downsample.1.weight`` (JAX ``.../bnK/scale``)
+_BN_SCALE = re.compile(r"(?:^|.*\.)(?:bn\d+|downsample\.1)\.weight")
+
+
 def decays(name: str, no_decay: Iterable[str] = ()) -> bool:
-    """Whether a parameter gets weight decay: not for biases or norms
-    (JAX ``default_decay_mask``), nor any ``no_decay`` substring."""
+    """Whether a parameter gets weight decay, as JAX's
+    ``default_decay_mask`` decides on its paths: not for biases, norms or
+    batch-norm scales (a Flax path ending in ``/bias`` or ``/scale`` or
+    holding ``norm``), nor any ``no_decay`` substring. A batch norm's
+    running mean and var do decay, as they do in JAX."""
     lname = name.lower()
-    if "bias" in lname or "norm" in lname:
+    if "bias" in lname or "norm" in lname or _BN_SCALE.fullmatch(name):
         return False
     return not any(s.lower() in lname for s in no_decay)
 

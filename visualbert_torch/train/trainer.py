@@ -24,13 +24,15 @@ from visualbert_torch.train.optimizer import BertAdam
 
 def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     """numpy/tensor batch -> device tensors; integer arrays become int64
-    (torch's index type); keys starting with '_' are host metadata."""
+    (torch's index type), except ``images``, which keeps its wire dtype
+    (uint8 pixels, normalized on the device, or fp32); keys starting with
+    '_' are host metadata."""
     out = {}
     for k, v in batch.items():
         if v is None or k.startswith("_"):
             continue
         t = torch.as_tensor(v)
-        if t.dtype in (torch.int8, torch.int16, torch.int32, torch.uint8):
+        if k != "images" and t.dtype in (torch.int8, torch.int16, torch.int32, torch.uint8):
             t = t.long()
         out[k] = t.to(device, non_blocking=True)
     return out
