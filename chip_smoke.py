@@ -14,7 +14,8 @@ non-zero without printing the final line:
    shapes of the main path: K3 (dropout mask, [128, 228, 768], int8 and
    bf16) must equal its bit-exact twin; the dropout site's forward and
    backward (K3's body, csrc/dropout.cu) at that shape, at NLVR2's
-   [64, 272, 768] and at the VCR step's [128, 148, 768], bf16, rate 0.1,
+   [64, 272, 768], at the VCR step's [128, 148, 768] and at the
+   unsupervised step's [144, 102, 768] and [144, 64, 768], bf16, rate 0.1,
    must give y, the packed keep bits and dx
    bit for bit with their plain versions, keep a NaN planted at a dropped
    position NaN, and keep within 4 sigma of 0.9; the three are timed
@@ -30,12 +31,17 @@ non-zero without printing the final line:
    K2 again at the VCR step's shapes (128 rows = 32 questions x 4 choices,
    T = 128 text + 20 boxes, each row's text and some rows' boxes padded) at
    dropout 0 and 0.1 within the same limits, timed beside
-   scaled_dot_product_attention and their bound;
+   scaled_dot_product_attention and their bound; and at the unsupervised
+   step's (144 rows, T = 30 text + 36 tags + 36 regions = 102 and T = 64
+   text-only, each row's text padded after its length) likewise;
    K4, K5 and K6 (the fused MLM cross-entropy: forward, dx, d embedding and
    d bias) at N = 128 x 24 = 3072 rows, H=768, V=30522, bf16, 15 % of labels
    -1 and a non-uniform cotangent, again at bert-large's H=1024 and at
-   vqa_advanced's N = 64 x 4 = 256 rows (timed beside their bounds and
-   cuBLAS's products there, with their grids and splits); K4
+   vqa_advanced's N = 64 x 4 = 256 rows and at the unsupervised step's
+   N = 144 x 30 = 4320 (V&L) and 144 x 64 = 9216 (text-only) rows, with
+   that step's own labels, most of them -1 (timed beside their bounds and
+   cuBLAS's products there, with their grids and splits; the site kernels
+   at the unsupervised shapes likewise beside F.dropout); K4
    (x in wgmma A fragments, a cp.async ring) and K5 and K6 (one wgmma
    kernel on two roles) printed at both widths with their registers, local
    bytes, shared bytes, blocks an SM, grid and splits (none may spill) and
@@ -177,7 +183,34 @@ non-zero without printing the final line:
    VCR_COCO_EXAMPLES synthetic captioned images, one epoch at batch 128: 4
    steps of the main path's launches (12/12 K1/K2, 1/1/1 K4-K6, 25 sites),
    4 eval batches of 12 K1 and one K4; its metrics must be finite;
-16. prints the kernel table as one JSON line (launches from phase 6: the
+16. drives the unsupervised pretraining step at configs/unsup_pretrain.json's
+   full width (visualbert_torch/tools/unsup_path.py): UnsupervisedVisualBert
+   with the config's model block unchanged, 1600 objects and 400
+   attributes, its optimizer block with schedule "none", seeded weights,
+   STEPS steps alternating a V&L batch (144 rows of 30 text tokens, 36 tags,
+   36 regions of 2048-d features) and a text-only batch (144 x 64). Each
+   source's losses must be finite and fall, and every step of either
+   source must launch exactly 12 K1, 12 K2, one each of K4-K6, 24 site
+   forwards and 24 backwards (the embeddings' dropout is no site) and
+   nothing else of K1-K16; each source's median step, pairs/s and the peak
+   memory are printed;
+17. runs unsup_pretrain through the CLI: configs/unsup_pretrain.json with
+   its data block swapped for UNSUP_EXAMPLES synthetic images (36 regions,
+   2048-d), a PackedCorpus of UNSUP_PASSAGES passages that the phase builds
+   and saves as the text_corpus, and UNSUP_VAL val images, one epoch at its
+   batch of 144: 2 V&L and 2 text-only steps of phase 16's launches, one
+   eval batch of 12 K1 and one K4; its metrics must be finite;
+18. runs text_pretrain through the CLI: configs/coco_pretrain.json's model,
+   optimizer and train blocks with "task": "text_pretrain" and
+   TEXT_PRETRAIN_EXAMPLES synthetic passages of 64 tokens, one epoch at
+   batch 128: 3 steps of the main path's launches (the fused cross-entropy
+   over every text row); its losses must be finite;
+19. runs unsup_vqa through the CLI: configs/unsup_pretrain.json's model
+   block, UNSUP_VQA_EXAMPLES synthetic questions (20 tokens, 36 tags, 36
+   regions), one epoch at batch 144: 2 steps of 12 K1, 12 K2 and 24 sites;
+   one eval batch of 12 K1. `--eval_only --restore` must give the epoch's
+   val_ metrics within 1e-6, launching only that eval batch's kernels;
+20. prints the kernel table as one JSON line (launches from phase 6: the
    fused-LayerNorm main path's STEPS steps, for K7/K8 its dropout-0 step,
    for K11-K14 the runs with their settings, for K15/K16 the tools' run,
    for K3's mask the calls of its wrapper in tools/dropout_steps.py's run
@@ -213,6 +246,15 @@ VQA_ADVANCED_XENT_ROWS = 64 * 4  # vqa_advanced's batch x its max_answer_tokens 
 VCR_EXAMPLES = 200  # 160 train (5 steps of 32), 40 eval (32 + a padded batch of 8)
 VCR_COCO_EXAMPLES = 640  # 512 train (4 steps of 128), 128 eval (one batch)
 VCR_ROWS, VCR_T = 32 * 4, 128 + 20  # K1/K2 on the VCR step: 32 questions x 4 choices, 128 tokens + 20 boxes
+# the unsupervised step: the config's 144 rows; V&L 30 text + 36 tags + 36
+# regions, text-only 64 tokens
+UNSUP_ROWS, UNSUP_TT, UNSUP_N, UNSUP_TEXT_T = 144, 30, 36, 64
+UNSUP_VL_T = UNSUP_TT + 2 * UNSUP_N
+UNSUP_EXAMPLES = 288          # 2 V&L steps of 144
+UNSUP_PASSAGES = 288          # 2 text-only steps
+UNSUP_VAL = 144               # one eval batch
+TEXT_PRETRAIN_EXAMPLES = 384  # 3 steps of 128
+UNSUP_VQA_EXAMPLES = 360      # 288 train (2 steps of 144), 72 eval (one padded batch of 144)
 # Tolerances. The kernels round unnormalised probabilities to bf16 where the
 # plain version rounds normalised ones, and sum in another order. Each limit
 # is about 4x the readings of H100 runs at these shapes (in brackets; K1/K2
@@ -330,6 +372,13 @@ VCR_EVAL_PER_BATCH = (12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 
 # path's kernels; its evaluation decodes through the fused forward (K4)
 VCR_COCO_TRAIN_PER_STEP = PER_STEP
 VCR_COCO_EVAL_PER_BATCH = (12, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+# the unsupervised step (either source): 24 sites, the embeddings' dropout
+# being a stock one; its evaluation runs the fused cross-entropy's forward
+UNSUP_PER_STEP = (12, 12, 0, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 24, 24)
+UNSUP_EVAL_PER_BATCH = VCR_COCO_EVAL_PER_BATCH
+TEXT_PRETRAIN_PER_STEP = PER_STEP
+UNSUP_VQA_TRAIN_PER_STEP = (12, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 24, 24)
+UNSUP_VQA_EVAL_PER_BATCH = FLICKR_EVAL_PER_BATCH
 # the as-shipped step's peak memory before the site kernels, when each site
 # saved a bf16 multiplier (this script's last run before them, on an NVIDIA
 # H100 80GB HBM3 at 700 W)
@@ -499,7 +548,8 @@ def check_dropout(torch, card):
 
     # the site forward and backward at the main path's, NLVR2's and the VCR step's shapes
     errs = {"dropout_fwd": 0.0, "dropout_bwd": 0.0}
-    for shp in (shape, (64, 272, 768), (VCR_ROWS, VCR_T, 768)):
+    for shp in (shape, (64, 272, 768), (VCR_ROWS, VCR_T, 768), (UNSUP_ROWS, UNSUP_VL_T, 768),
+                (UNSUP_ROWS, UNSUP_TEXT_T, 768)):
         g = torch.Generator(device=dev).manual_seed(5)
         x = torch.randn(shp, generator=g, device=dev).to(torch.bfloat16)
         dy = torch.randn(shp, generator=g, device=dev).to(torch.bfloat16)
@@ -584,7 +634,47 @@ def check_dropout(torch, card):
             raise SystemExit(f"{name} spills to local memory")
     for name in launches:
         log(row_line(name, rows[name], card))
+    del x, dy, out, y, dx, bits
+    for shp in ((UNSUP_ROWS, UNSUP_VL_T, 768), (UNSUP_ROWS, UNSUP_TEXT_T, 768)):
+        site_times_at(torch, card, lib, shp, rate, k3_rate, sms, hz)
     return rows
+
+
+def site_times_at(torch, card, lib, shape, rate, k3_rate, sms, hz):
+    """The site forward and backward at ``shape`` (bf16), launched on
+    preallocated tensors, beside their plain versions, F.dropout /
+    aten.native_dropout_backward and their bounds (the forward's bytes or
+    its Philox calls at K3's measured rate, the backward's bytes)."""
+    import torch.nn.functional as F
+
+    from visualbert_torch.ops import dropout as dr
+    from visualbert_torch.tools import attn_steps
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    n = x.numel()
+    y, dx = torch.empty_like(x), torch.empty_like(x)
+    bits = torch.empty(-(-n // 8), dtype=torch.uint8, device=dev)
+    fwd, bwd = (lambda: dr.launch_fwd(lib, x, y, bits, rate, 7)), (lambda: dr.launch_bwd(lib, dy, bits, dx, rate))
+    lib.check(fwd(), "dropout_fwd")
+    lib.check(bwd(), "dropout_bwd")
+    keep = F.dropout(x, rate, training=True) != 0
+    clocks = -(-n // 4) / 32 / (sms * attn_steps.SUB_PARTITIONS) * k3_rate["cycles_per_warp_call"]
+    rows = {
+        "dropout_fwd": dict(ms=cuda_time_ms(fwd, 50),
+                            plain_ms=cuda_time_ms(lambda: dr.dropout_fwd_reference(x, rate, 7), 5),
+                            library_ms=cuda_time_ms(lambda: F.dropout(x, rate, training=True), 50),
+                            **bound(nbytes(x, y, bits), clocks, hz)),
+        "dropout_bwd": dict(ms=cuda_time_ms(bwd, 50),
+                            plain_ms=cuda_time_ms(lambda: dr.dropout_bwd_reference(dy, bits, rate), 5),
+                            library_ms=cuda_time_ms(
+                                lambda: torch.ops.aten.native_dropout_backward(dy, keep, 1.0 / (1.0 - rate)), 50),
+                            **bound(nbytes(dy, bits, dx), 0, 1.0)),
+    }
+    for name, r in rows.items():
+        log(row_line(f"{name} at the unsupervised step's {list(shape)}", r, card))
 
 
 def check_kernels(torch, card):
@@ -1115,17 +1205,20 @@ def run_dropout_tool(torch, card):
     return launches
 
 
-def check_xent(torch, card, H=768, N=None):
+def check_xent(torch, card, H=768, N=None, labels=None):
     """K4-K6 against their plain versions at the main path's rows (N = 128 x
     24 = 3072), at hidden width H (768, the main path's; 1024, bert-large's,
     is checked without a row of the kernel table), or at N rows and width
     768 (vqa_advanced's 64 x 4 = 256: checked, timed and set beside their
-    bounds and cuBLAS's products, without a row of the kernel table)."""
+    bounds and cuBLAS's products, without a row of the kernel table), or on
+    a path's own ``labels`` (-1 ignored) at their N rows, likewise."""
     import numpy as np
 
     from visualbert_torch.ops import mlm_xent as xe
     from visualbert_torch.tools.main_path import B, N_PRED
 
+    if labels is not None:
+        N = len(labels)
     main_rows = N is None
     N, V = (B * N_PRED if main_rows else N), 30522
     dev = torch.device("cuda")
@@ -1133,8 +1226,12 @@ def check_xent(torch, card, H=768, N=None):
     x = torch.tensor(rng.randn(N, H), dtype=torch.bfloat16, device=dev)
     emb = torch.tensor(rng.randn(V, H) * 0.05, dtype=torch.bfloat16, device=dev)
     bias = torch.tensor(rng.randn(V) * 0.1, dtype=torch.float32, device=dev)
-    labels = rng.randint(0, V, N)
-    labels[rng.rand(N) < 0.15] = -1
+    if labels is None:
+        labels = rng.randint(0, V, N)
+        labels[rng.rand(N) < 0.15] = -1
+    else:
+        log(f"K4-K6 on a path's labels: {int((labels < 0).sum())} of {N} rows -1 "
+            f"({float((labels < 0).mean()):.1%})")
     g = torch.tensor(np.where(labels >= 0, rng.uniform(0.5, 1.5, N), 0.0), dtype=torch.float32, device=dev)
     lab = torch.tensor(np.maximum(labels, 0), dtype=torch.int32, device=dev)  # -1 computed as 0, as mlm_xent does
 
@@ -1924,13 +2021,34 @@ def vcr_attention_inputs(torch):
     return qkv, qb, key_bias, dout
 
 
-def check_packed_at_vcr_shape(torch, card):
-    """K1/K2 at the VCR step's shapes, dropout 0 and 0.1, against their
-    plain versions at the main path's limits; timed beside
+def unsup_attention_inputs(torch, T, text_len):
+    """K1/K2's inputs at the unsupervised step's shapes (UNSUP_ROWS rows of
+    T, H = 12, D = 64, bf16): each row's first ``text_len`` keys (its text)
+    padded after a drawn length, the tags and regions after them real,
+    from RandomState(3)."""
+    import numpy as np
+
+    H, D = 12, 64
+    F = 3 * H * D
+    rng = np.random.RandomState(3)
+    dev = torch.device("cuda")
+    qkv = torch.tensor(rng.randn(UNSUP_ROWS, T, F), dtype=torch.bfloat16, device=dev)
+    qb = torch.tensor(rng.randn(F) * 0.1, dtype=torch.bfloat16, device=dev)
+    mask = np.ones((UNSUP_ROWS, T), np.float32)
+    for r in range(UNSUP_ROWS):
+        mask[r, rng.randint(6, text_len + 1):text_len] = 0
+    key_bias = torch.tensor((1.0 - mask) * -10000.0, device=dev)
+    dout = torch.tensor(rng.randn(UNSUP_ROWS, T, H * D), dtype=torch.bfloat16, device=dev)
+    return qkv, qb, key_bias, dout
+
+
+def check_packed_at(torch, card, where, inputs):
+    """K1/K2 on ``inputs`` (a path's shapes), dropout 0 and 0.1, against
+    their plain versions at the main path's limits; timed beside
     scaled_dot_product_attention and their bound."""
     from visualbert_torch.ops import flash_attention as fa
 
-    qkv, qb, key_bias, dout = vcr_attention_inputs(torch)
+    qkv, qb, key_bias, dout = inputs
     B, T, F = qkv.shape
     H, D = 12, 64
     for rate in (0.0, 0.1):
@@ -1943,11 +2061,11 @@ def check_packed_at_vcr_shape(torch, card):
         e_st = float((stats - stats_r).abs().max())
         e_dq, r_dq = rel_err(dqkv, dqkv_r)
         e_db, r_db = rel_err(dqb, dqb_r)
-        log(f"K1 at VCR's [{B}, {T}, {F}] rate {rate}: out max_abs_err {e_out:.3e} (rel {r_out:.3e}, tol {OUT_TOL}); "
+        log(f"K1 at {where} [{B}, {T}, {F}] rate {rate}: out max_abs_err {e_out:.3e} (rel {r_out:.3e}, tol {OUT_TOL}); "
             f"stats max_abs_err {e_st:.3e} (tol {STATS_TOL}); K2: dqkv max_abs_err {e_dq:.3e} (rel {r_dq:.3e}, "
             f"tol {DQKV_TOL}); dqkv_bias max_abs_err {e_db:.3e} (rel {r_db:.3e}, tol {DB_TOL})")
         if not (r_out <= OUT_TOL and e_st <= STATS_TOL and r_dq <= DQKV_TOL and r_db <= DB_TOL):
-            raise SystemExit(f"K1/K2 disagree with their plain versions at VCR's shape, rate {rate}")
+            raise SystemExit(f"K1/K2 disagree with their plain versions at {where} shape, rate {rate}")
     del out_r, dqkv_r
     rate = 0.1
     k1 = dict(ms=cuda_time_ms(lambda: fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, 5), 20),
@@ -1962,7 +2080,8 @@ def check_packed_at_vcr_shape(torch, card):
     gflop = 2.0 * B * H * T * T * D / 1e9
     k1.update(bound(nbytes(qkv, qb, key_bias, out, stats), 2 * gflop * 1e9, BF16_FLOPS))
     k2.update(bound(nbytes(qkv, qb, key_bias, dout, out, stats, dqkv, dqb), 4 * gflop * 1e9, BF16_FLOPS))
-    for name, r in (("packed_attention_fwd at VCR's shape", k1), ("packed_attention_bwd at VCR's shape", k2)):
+    for name, r in ((f"packed_attention_fwd at {where} [{B}, {T}]", k1),
+                    (f"packed_attention_bwd at {where} [{B}, {T}]", k2)):
         log(row_line(name, r, card))
     return k1, k2
 
@@ -2137,6 +2256,184 @@ def run_vcr_coco_cli(torch, card):
         shutil.rmtree(folder, ignore_errors=True)
 
 
+def unsup_xent_labels():
+    """The MLM labels of the unsupervised step's two batches, one row a
+    text token: (V&L [144 x 30], text-only [144 x 64]), flattened."""
+    from visualbert_torch.tools import unsup_path
+
+    raw = unsup_path.config()
+    vl, text = unsup_path.synth_batches(UNSUP_ROWS, int(raw["data"]["max_seq_length"]), int(raw["data"]["n_regions"]))
+    return vl["masked_lm_labels"].reshape(-1), text["masked_lm_labels"].reshape(-1)
+
+
+def run_unsup_step(torch, card):
+    """STEPS train steps of the unsupervised model at configs/
+    unsup_pretrain.json's full width (tools/unsup_path.py), alternating its
+    V&L and text-only batches; each step's launches are read on their own."""
+    from visualbert_torch.tools import unsup_path
+
+    raw = unsup_path.config()
+    log(f"unsup step: model block {json.dumps(raw['model'])}, optimizer {json.dumps(raw['optimizer'])} with "
+        f"schedule none, data {json.dumps({k: raw['data'][k] for k in ('max_seq_length', 'n_regions')})}")
+    trainer, batches = unsup_path.build(raw=raw)
+    shapes = {k: {n: list(v.shape) for n, v in b.items() if n in ("input_ids", "visual_tags", "visual_feats")}
+              for k, b in batches.items()}
+    log(f"unsup step batches: {json.dumps(shapes)}; "
+        f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.1f} M parameters in "
+        f"{sum(1 for _ in trainer.model.parameters())} tensors")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, bad = {k: [] for k in batches}, {k: [] for k in batches}, []
+    for i in range(STEPS):
+        source = ("vl", "text")[i % 2]
+        zero_launches()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batches[source])
+        losses[source].append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times[source].append(time.perf_counter() - t0)
+        launches = read_launches()
+        if launches != list(UNSUP_PER_STEP):
+            bad.append((i, source, launches))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {}
+    for source in batches:
+        B = len(batches[source]["input_ids"])
+        med = statistics.median(times[source][1:])
+        out[source] = dict(median_ms=med * 1e3, pairs_per_s=B / med)
+        log(f"unsup step, {source} batch: losses " + ", ".join(f"{x:.5f}" for x in losses[source])
+            + f"; median {med * 1e3:.2f} ms over its steps 2..{len(times[source])} (first "
+              f"{times[source][0] * 1e3:.1f} ms), {B / med:.1f} pairs/s  [{card}]")
+    log(f"unsup step: launches of every step {'/'.join(map(str, UNSUP_PER_STEP))} (K1..K16, site fwd/bwd) "
+        f"wanted; steps that differ: {bad}; peak memory {peak:.2f} GiB  [{card}]")
+    for source, ls in losses.items():
+        if not all(math.isfinite(x) for x in ls):
+            raise SystemExit(f"unsup step: non-finite loss on the {source} batch")
+        if not ls[-1] < ls[0]:
+            raise SystemExit(f"unsup step: the loss did not fall on the repeated {source} batch")
+    if bad:
+        raise SystemExit(f"unsup step: unexpected kernel launch counts {bad}")
+    del trainer, batches
+    return dict(out, peak_gib=peak)
+
+
+def run_counted_cli(name, argv, want, steps):
+    """train_cli on ``argv`` with the launch counts set to 0 first; the
+    run must be on the card, take ``steps`` steps, give finite metrics and
+    launch ``want``. Returns (trainer, result)."""
+    zero_launches()
+    t0 = time.perf_counter()
+    trainer, result, printed = run_cli_quiet(argv)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    metrics = result.history[0]
+    log(f"{name}: {printed}; {trainer.step} steps on {trainer.device}, {wall:.1f} s with set-up; "
+        + ", ".join(f"{k} {v:.6f}" for k, v in sorted(metrics.items())))
+    log(f"{name} launches: {launch_text(launches)}; want {launch_text(want)}")
+    if trainer.device.type != "cuda" or (steps is not None and trainer.step != steps):
+        raise SystemExit(f"{name} ran {trainer.step} steps on {trainer.device}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise SystemExit(f"non-finite metric in the {name} run")
+    if launches != list(want):
+        raise SystemExit(f"unexpected kernel launch counts in the {name} run {launches}")
+    return trainer, result
+
+
+def counts(*terms):
+    """The launches of (n, per-step counts) terms, summed."""
+    return [sum(n * c[i] for n, c in terms) for i in range(len(LABELS))]
+
+
+def run_unsup_cli(torch, card):
+    """unsup_pretrain through the CLI: configs/unsup_pretrain.json with a
+    synthetic data block, a PackedCorpus built and saved here as its
+    text_corpus, a val split, one epoch."""
+    from visualbert_torch.data.text_corpus import PackedCorpus
+    from visualbert_torch.tasks.registry import _tokenizer
+    from visualbert_torch.tools import unsup_path
+    from visualbert_torch.utils.config_io import parse_task_config
+
+    raw = unsup_path.config()
+    d = raw["data"]
+    raw["data"] = dict({k: d[k] for k in ("max_seq_length", "n_regions", "matched_prob", "text_ratio")},
+                       synthetic=UNSUP_EXAMPLES, val_synthetic=UNSUP_VAL)
+    raw["train"] = dict(raw["train"], num_train_epochs=1, eval_batch_size=raw["train"]["train_batch_size"])
+    cfg = parse_task_config(raw)
+    B = cfg.train.train_batch_size
+    folder = tempfile.mkdtemp(prefix="chip_smoke_unsup_")
+    try:
+        tok = _tokenizer(cfg)
+        words = [w for w in tok.vocab if not w.startswith("[")]
+        passages = [[" ".join(words[(7 * i + j) % len(words)] for j in range(k, k + 12)) for k in range(0, 60, 12)]
+                    for i in range(UNSUP_PASSAGES)]
+        raw["data"]["text_corpus"] = os.path.join(folder, "corpus.npz")
+        PackedCorpus.build(passages, tok).save(raw["data"]["text_corpus"])
+        path = write_config(folder, "unsup_synthetic.json", raw)
+        vl_steps, text_steps = UNSUP_EXAMPLES // B, UNSUP_PASSAGES // B
+        want = counts((vl_steps + text_steps, UNSUP_PER_STEP), (UNSUP_VAL // B, UNSUP_EVAL_PER_BATCH))
+        _, result = run_counted_cli("unsup_pretrain cli", ["--config", path, "--folder", os.path.join(folder, "run")],
+                                    want, vl_steps + text_steps)
+        keys = {"train_masked_lm_loss", "train_matched_loss", "train_obj_loss", "train_masked_tag_loss", "val_loss"}
+        if not keys <= set(result.history[0]):
+            raise SystemExit(f"the unsup_pretrain CLI run lacks {sorted(keys - set(result.history[0]))}")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def run_text_pretrain_cli(torch, card):
+    """text_pretrain through the CLI: configs/coco_pretrain.json's model,
+    optimizer and train blocks, a synthetic corpus, one epoch."""
+    from visualbert_torch.tools.main_path import CONFIG
+    from visualbert_torch.utils.config_io import load_config_file, parse_task_config
+
+    raw = load_config_file(CONFIG)
+    raw["task"] = "text_pretrain"
+    raw["data"] = {"synthetic": TEXT_PRETRAIN_EXAMPLES, "max_seq_length": 64}
+    raw["train"] = dict(raw["train"], num_train_epochs=1)
+    steps = TEXT_PRETRAIN_EXAMPLES // parse_task_config(raw).train.train_batch_size
+    folder = tempfile.mkdtemp(prefix="chip_smoke_text_")
+    try:
+        path = write_config(folder, "text_synthetic.json", raw)
+        run_counted_cli("text_pretrain cli", ["--config", path, "--folder", os.path.join(folder, "run")],
+                        counts((steps, TEXT_PRETRAIN_PER_STEP)), steps)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def run_unsup_vqa_cli(torch, card):
+    """unsup_vqa through the CLI with configs/unsup_pretrain.json's model
+    block on a synthetic set, one epoch; then --eval_only of its
+    checkpoint, which must give the epoch's val_ metrics within 1e-6."""
+    from visualbert_torch.tools import unsup_path
+
+    shipped = unsup_path.config()
+    B = shipped["train"]["train_batch_size"]
+    raw = {"task": "unsup_vqa", "model": shipped["model"], "optimizer": shipped["optimizer"],
+           "data": {"synthetic": UNSUP_VQA_EXAMPLES, "n_regions": UNSUP_N, "max_seq_length": 20},
+           "train": {"train_batch_size": B, "eval_batch_size": B, "num_train_epochs": 1}}
+    n_train = int(UNSUP_VQA_EXAMPLES * 0.8)
+    steps, eval_batches = n_train // B, -(-(UNSUP_VQA_EXAMPLES - n_train) // B)
+    folder = tempfile.mkdtemp(prefix="chip_smoke_unsup_vqa_")
+    try:
+        path = write_config(folder, "unsup_vqa_synthetic.json", raw)
+        run = os.path.join(folder, "run")
+        _, result = run_counted_cli("unsup_vqa cli", ["--config", path, "--folder", run],
+                                    counts((steps, UNSUP_VQA_TRAIN_PER_STEP),
+                                           (eval_batches, UNSUP_VQA_EVAL_PER_BATCH)), steps)
+        epoch = result.history[0]
+        torch.cuda.empty_cache()
+        _, again = run_counted_cli("unsup_vqa --eval_only",
+                                   ["--config", path, "--folder", os.path.join(folder, "eval"), "--eval_only",
+                                    "--restore", os.path.join(run, "ckpt")],
+                                   counts((eval_batches, UNSUP_VQA_EVAL_PER_BATCH)), None)
+        diff = max(abs(again.history[0][k] - epoch["val_" + k]) for k in ("loss", "accuracy"))
+        log(f"unsup_vqa --eval_only: max |diff| to the epoch's val_ metrics {diff:.2e} (tol 1e-6)")
+        if diff > 1e-6:
+            raise SystemExit("--eval_only does not reproduce the unsup_vqa run's evaluation")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -2161,11 +2458,16 @@ def main():
 
     rows = check_dropout(torch, card)
     rows.update(check_kernels(torch, card))
-    check_packed_at_vcr_shape(torch, card)
+    check_packed_at(torch, card, "VCR's", vcr_attention_inputs(torch))
+    check_packed_at(torch, card, "the unsupervised V&L", unsup_attention_inputs(torch, UNSUP_VL_T, UNSUP_TT))
+    check_packed_at(torch, card, "the unsupervised text-only", unsup_attention_inputs(torch, UNSUP_TEXT_T,
+                                                                                        UNSUP_TEXT_T))
     torch.cuda.empty_cache()
     rows.update(check_xent(torch, card))
     check_xent(torch, card, H=1024)
     check_xent(torch, card, N=VQA_ADVANCED_XENT_ROWS)
+    for labels in unsup_xent_labels():
+        check_xent(torch, card, labels=labels)
     rows.update(check_layer_norm(torch, card))
     rows.update(check_attention_variants(torch, card))
     save_probs_at_nlvr2_shape(torch, card)
@@ -2216,6 +2518,17 @@ def main():
     run_vcr_cli(torch, card)
     torch.cuda.empty_cache()
     run_vcr_coco_cli(torch, card)
+    torch.cuda.empty_cache()
+    unsup = run_unsup_step(torch, card)
+    torch.cuda.empty_cache()
+    log(f"unsup step: V&L median {unsup['vl']['median_ms']:.2f} ms ({unsup['vl']['pairs_per_s']:.1f} pairs/s), "
+        f"text-only median {unsup['text']['median_ms']:.2f} ms ({unsup['text']['pairs_per_s']:.1f} rows/s), peak "
+        f"memory {unsup['peak_gib']:.2f} GiB  [{card}]")
+    run_unsup_cli(torch, card)
+    torch.cuda.empty_cache()
+    run_text_pretrain_cli(torch, card)
+    torch.cuda.empty_cache()
+    run_unsup_vqa_cli(torch, card)
 
     # launches: the fused-LayerNorm main path's STEPS steps; K7/K8 from its
     # dropout-0 step; K11/K12 and K13/K14 from the runs with their settings;

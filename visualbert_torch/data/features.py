@@ -1,8 +1,8 @@
-"""Region-feature stores and confidence screening: the per-image ``.npy``
-folder, the in-memory chunk and ``screen_features`` of
-``visualbert_tpu/data/features.py``, copied (importing the JAX package
-pulls in JAX). ``H5Features`` is not ported: ``h5py`` is not on the card's
-machine (ROADMAP.md A6).
+"""Region-feature stores, confidence screening and box normalisation: the
+per-image ``.npy`` folder, the in-memory chunk, ``screen_features`` and
+``normalize_boxes`` of ``visualbert_tpu/data/features.py``, copied
+(importing the JAX package pulls in JAX). ``H5Features`` is not ported:
+``h5py`` is not on the card's machine (ROADMAP.md A6).
 
 Readers return fp32 features [n_boxes, dim] plus optional metadata and are
 safe to share across the Batcher's threads.
@@ -73,3 +73,13 @@ def screen_features(
         keep = list(order[:min_count])
     keep = np.asarray(keep[:max_cap], np.int64)
     return feats[keep], conf[keep]
+
+
+def normalize_boxes(boxes: np.ndarray, img_h: float, img_w: float) -> np.ndarray:
+    """(x1, y1, x2, y2) pixel boxes -> [0, 1] coordinates, clipped (the
+    unsupervised stack's contract, reference ``lxmert_data.py:483-490``)."""
+    out = boxes.astype(np.float32).copy()
+    out[:, (0, 2)] /= img_w
+    out[:, (1, 3)] /= img_h
+    np.clip(out, 0.0, 1.0 + 1e-5, out)
+    return out

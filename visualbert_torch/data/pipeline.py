@@ -37,7 +37,10 @@ class Batcher:
     samples of each batch through a thread pool, bit-identical to the
     sequential path. ``pad_final`` repeats indices to fill the last batch
     and marks every batch with ``example_weight`` (0 on the repeats) and the
-    host-side ``_real_count``."""
+    host-side ``_real_count``. A dataset's ``batch_transform(batch, rng)``,
+    when it has one, runs on each finished batch with a Generator keyed by
+    (seed, epoch, start, 1), as in the JAX package (the in-batch random
+    feature replacement of ``data/masking.py``)."""
 
     def __init__(
         self,
@@ -118,7 +121,18 @@ class Batcher:
                 weights[:n_real] = 1.0
                 batch["example_weight"] = weights
                 batch["_real_count"] = float(n_real)  # '_' keys never reach the device
+            transform = getattr(self.dataset, "batch_transform", None)
+            if transform is not None:
+                # the trailing 1 keeps the key apart from the samples' (seed, epoch, index)
+                batch = transform(batch, np.random.default_rng((self.seed, epoch, start, 1)))
             yield batch
+
+    def num_batches(self) -> int:
+        """Batches an epoch yields."""
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
 
 
 def prefetch(iterator: Iterator, size: int = 2) -> Iterator:

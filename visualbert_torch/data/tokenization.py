@@ -158,6 +158,7 @@ class BertTokenizer:
 
     def __init__(self, vocab: Dict[str, int]):
         self.vocab = vocab
+        self.ids_to_tokens = {i: t for t, i in vocab.items()}
         self.basic = BasicTokenizer()
         self.wordpiece = WordpieceTokenizer(vocab)
 
@@ -173,3 +174,26 @@ class BertTokenizer:
 
     def convert_tokens_to_ids(self, tokens: List[str]) -> List[int]:
         return [self.vocab[t] for t in tokens]
+
+    def convert_ids_to_tokens(self, ids: List[int]) -> List[str]:
+        return [self.ids_to_tokens[i] for i in ids]
+
+    def encode(self, text: str) -> List[int]:
+        return self.convert_tokens_to_ids(self.tokenize(text))
+
+    # the special ids
+    @property
+    def cls_id(self) -> int:
+        return self.vocab["[CLS]"]
+
+    @property
+    def sep_id(self) -> int:
+        return self.vocab["[SEP]"]
+
+    @property
+    def mask_id(self) -> int:
+        return self.vocab["[MASK]"]
+
+    @property
+    def pad_id(self) -> int:
+        return self.vocab.get("[PAD]", 0)

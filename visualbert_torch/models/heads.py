@@ -21,6 +21,7 @@ dropout, a dense layer in the compute dtype, fp32 logits.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -78,15 +79,17 @@ class MLMTransform(nn.Module):
 
 
 class LMPredictionHead(nn.Module):
-    """MLM transform + tied decoder + output bias (HF ``cls.predictions``).
-    ``decoder.weight`` is replaced by the word-embedding Parameter by the
+    """MLM transform + tied decoder + output bias (HF ``cls.predictions``),
+    over ``vocab_size`` entries (default the word vocabulary).
+    ``decoder.weight`` is replaced by the embedding table's Parameter by the
     owning model, so the tie cannot drift."""
 
-    def __init__(self, cfg: VisualBertConfig):
+    def __init__(self, cfg: VisualBertConfig, vocab_size: Optional[int] = None):
         super().__init__()
+        vocab_size = cfg.vocab_size if vocab_size is None else vocab_size
         self.transform = MLMTransform(cfg)
-        self.decoder = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
-        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+        self.decoder = nn.Linear(cfg.hidden_size, vocab_size, bias=False)
+        self.bias = nn.Parameter(torch.zeros(vocab_size))
 
     def forward(self, hidden):
         x = self.transform(hidden)

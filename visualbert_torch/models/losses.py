@@ -1,9 +1,19 @@
-"""Losses of the pretraining, VQA and NLVR2 branches (counterpart of
+"""Losses of the task heads and of the unsupervised stack (counterpart of
 ``visualbert_tpu/models/losses.py``): fp32 logits in, fp32 scalars out."""
 
 from __future__ import annotations
 
 import torch
+
+
+def masked_nll_mean(nll: torch.Tensor, labels: torch.Tensor, ignore_index: int = -1) -> torch.Tensor:
+    """The mean of per-position NLLs over the labels that are not
+    ``ignore_index``: ``CrossEntropyLoss(ignore_index=-1)``'s reduction of
+    the NLLs the fused cross-entropy returns."""
+    labels = labels.reshape(-1)
+    valid = labels != ignore_index
+    nll = torch.where(valid, nll.reshape(-1), torch.zeros((), device=nll.device))
+    return nll.sum() / valid.sum().clamp_min(1)
 
 
 def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -1) -> torch.Tensor:
@@ -45,6 +55,22 @@ def kl_div_batchmean(log_probs: torch.Tensor, target: torch.Tensor, weights=None
     safe_log_t = torch.where(target > 0, torch.log(target.clamp_min(1e-30)), zero)
     elt = torch.where(target > 0, target * (safe_log_t - log_probs), zero)
     return weighted_mean(elt.reshape(elt.shape[0], -1).sum(dim=-1), weights)
+
+
+def binary_cross_entropy_with_logits(logits: torch.Tensor, target: torch.Tensor, weights=None) -> torch.Tensor:
+    """``torch.nn.BCEWithLogitsLoss()``, the mean over every element (the
+    unsupervised stack's VQA loss, reference tasks/vqa.py:106), in the
+    stable form ``max(x, 0) - x t + log(1 + exp(-|x|))``; ``weights`` make
+    the mean over rows a weighted one."""
+    logits, target = logits.float(), target.float()
+    loss = logits.clamp_min(0) - logits * target + torch.log1p(torch.exp(-logits.abs()))
+    return weighted_mean(loss.reshape(loss.shape[0], -1).mean(dim=-1), weights)
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Elementwise ``torch.nn.SmoothL1Loss(reduction='none')``, beta 1."""
+    diff = (pred.float() - target.float()).abs()
+    return torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5)
 
 
 def vqa_accuracy_scores(logits: torch.Tensor, soft_labels: torch.Tensor) -> torch.Tensor:

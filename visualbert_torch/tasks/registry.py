@@ -2,13 +2,13 @@
 (counterpart of ``visualbert_tpu/tasks/registry.py``; the reference's
 ``visualbert/models/train.py`` dataset dispatch, train.py:148-191).
 
-The port has eight of the JAX registry's eleven tasks: ``coco_pretrain``,
+The port has all eleven tasks of the JAX registry: ``coco_pretrain``,
 ``vcr_coco_pretrain``, ``vqa``, ``vqa_advanced``, ``nlvr2``, ``flickr``,
-``flickr_probe`` and ``vcr``; ``unsup_pretrain``, ``text_pretrain`` and
-``unsup_vqa`` wait for their slice (ROADMAP.md A8). A task supports ``data:
-{"synthetic": N}`` for smoke runs and real-data paths (documented per
-task). Every task runs on the device it is given: ``"cuda"`` for the
-kernels, ``"cpu"`` for their plain versions.
+``flickr_probe``, ``vcr``, ``text_pretrain``, ``unsup_pretrain`` and
+``unsup_vqa``. A task supports ``data: {"synthetic": N}`` for smoke runs and
+real-data paths (documented per task; HDF5 features wait for ROADMAP.md A6).
+Every task runs on the device it is given: ``"cuda"`` for the kernels,
+``"cpu"`` for their plain versions.
 """
 
 from __future__ import annotations
@@ -590,11 +590,197 @@ def run_flickr_probe(cfg: TaskConfig, device):
     return trainer, FitResult(best_metric=max(accs.values()), best_epoch=-1, epochs_run=0, history=[accs])
 
 
+def _symbolic_vocab(d):
+    """The BUTD object and attribute vocabularies (``objects_vocab``,
+    ``attributes_vocab``), or the synthetic sets' 32 + 8 classes."""
+    from visualbert_torch.data.symbolic import SymbolicVocab
+
+    if "objects_vocab" in d:
+        return SymbolicVocab.from_files(d["objects_vocab"], d["attributes_vocab"])
+    return SymbolicVocab([f"obj{i}" for i in range(32)], [f"attr{i}" for i in range(8)])
+
+
+def _refuse_h5(task: str):
+    raise NotImplementedError(f"{task} on real data reads HDF5 features: H5Features is not ported "
+                              "(no h5py on the card's machine; ROADMAP.md A6)")
+
+
+@register("text_pretrain")
+def run_text_pretrain(cfg: TaskConfig, device):
+    """Text-only MLM pretraining over a packed corpus (the reference's
+    BERTDataset path, fine_tuning.py:47-270, on ``PackedCorpus`` with
+    whole-word masking; JAX ``registry.py:858-883``): the ``pretraining``
+    head with no visual stream, its fused cross-entropy over every text
+    row. Real data: ``text_corpus`` (a ``PackedCorpus.save`` file) and
+    ``vocab_file``; the synthetic corpus repeats one word a passage. No eval
+    split; the pooler trains. The model holds the visual embeddings, which
+    text batches never reach (the JAX tree, built from a text batch, has
+    none)."""
+    from visualbert_torch.data.text_corpus import PackedCorpus, TextOnlyDataset
+
+    tok = _tokenizer(cfg)
+    d = cfg.data
+    if "synthetic" in d:
+        words = [w for w in tok.vocab if not w.startswith("[")]
+        rng = np.random.default_rng(0)
+        passages = []
+        for _ in range(int(d["synthetic"])):
+            w = words[int(rng.integers(len(words)))]
+            passages.append([" ".join([w] * 8) for _ in range(2)])
+        corpus = PackedCorpus.build(passages, tok)
+    else:
+        corpus = PackedCorpus.load(d["text_corpus"])
+    ds = TextOnlyDataset(corpus, tok, max_seq_length=int(d.get("max_seq_length", 64)))
+    model = VisualBertForTask(cfg.model, head_type="pretraining")
+    return _run_fit(cfg, _trainer(cfg, model, device), ds, None, val_metric="loss")
+
+
+@register("unsup_pretrain")
+def run_unsup_pretrain(cfg: TaskConfig, device):
+    """Unsupervised V&L pretraining (NAACL 2021; JAX ``registry.py:717-855``,
+    reference lxmert_pretrain.py): ``UnsupervisedVisualBert`` over a hybrid
+    of sources, each batch from one (``HybridBatcher``): the V&L set, an
+    image-only view of it with ``image_only_ratio`` (or of
+    ``image_only_annotations``) and a ``text_corpus`` (a ``PackedCorpus``
+    file, ``text_seq_length`` tokens, ``text_ratio``). ``task_qa`` adds the
+    QA head, its string answers mapped through ``answer_table``. An eval
+    split (``val_synthetic`` or ``val_annotations``) gives each epoch's val
+    loss, and the best checkpoint is the lowest; the pooler trains.
+    Synthetic data has ``n_regions`` regions an image (the JAX task builds
+    its 6-region set whatever ``n_regions`` says, and fails unless it is 6).
+    Real data reads HDF5 features and raises (ROADMAP.md A6). ``--restore``
+    resumes; ``--eval_only`` evaluates the eval split."""
+    from visualbert_torch.data.datasets import unsup_pretrain as up
+    from visualbert_torch.data.hybrid import HybridBatcher
+    from visualbert_torch.data.text_corpus import PackedCorpus, TextOnlyDataset
+    from visualbert_torch.models.unsupervised import UnsupervisedConfig, UnsupervisedVisualBert
+
+    tok = _tokenizer(cfg)
+    d = cfg.data
+    sym = _symbolic_vocab(d)
+    # the QA co-training answers arrive as strings and map through the
+    # normalised AnswerTable, unmapped to -1 (lxmert_data.py:105-141)
+    answer_table = None
+    num_answers = int(d.get("num_answers", 9500))
+    if d.get("answer_table"):
+        from visualbert_torch.data.answer_table import AnswerTable
+
+        answer_table = AnswerTable.from_json(d["answer_table"])
+        num_answers = len(answer_table)
+    ucfg = UnsupervisedConfig(bert=cfg.model, visual_feat_dim=cfg.model.visual_embedding_dim, obj_id_num=sym.n_obj,
+                              attr_id_num=sym.n_attr, symbolic_vocab_size=sym.size,
+                              task_qa=bool(d.get("task_qa", False)), num_answers=num_answers)
+    n_regions = int(d.get("n_regions", 36))
+    if "synthetic" not in d:
+        _refuse_h5("unsup_pretrain")
+    ann, feats = up.make_synthetic(int(d["synthetic"]), tok, sym, n_regions=n_regions,
+                                   feat_dim=cfg.model.visual_embedding_dim,
+                                   answers=int(d.get("synthetic_answers", 0)))
+    if answer_table is not None:
+        for item in ann:
+            a = item.get("ans")
+            if isinstance(a, str):
+                mapped = answer_table.ans_to_id(a)
+                item["ans"] = -1 if mapped is None else int(mapped)
+    elif ucfg.task_qa and any(isinstance(it.get("ans"), str) for it in ann):
+        # without a table every string answer would be ignored and QA
+        # co-training silently a no-op
+        raise ValueError("task_qa is on and the annotations carry string answers, but no data.answer_table is "
+                         "configured: every answer would map to -1 (ignored)")
+
+    ds_kw = dict(max_seq_length=int(d.get("max_seq_length", 30)), n_regions=n_regions)
+    workers, seed = cfg.train.num_workers, cfg.train.seed
+    vl = up.UnsupervisedPretrainDataset(ann, feats, tok, sym, matched_prob=float(d.get("matched_prob", 0.5)), **ds_kw)
+    sources = [Batcher(vl, cfg.train.train_batch_size, seed=seed, num_workers=workers)]
+    ratios = [1.0]
+    if d.get("image_only_ratio"):
+        # the V&L entries without their text (reference image_only_splits,
+        # lxmert_pretrain.py:126-139)
+        img_ann = ann
+        if "image_only_annotations" in d:
+            with open(d["image_only_annotations"]) as f:
+                img_ann = json.load(f)
+        img_only = up.UnsupervisedPretrainDataset(img_ann, feats, tok, sym, image_only=True, **ds_kw)
+        sources.append(Batcher(img_only, cfg.train.train_batch_size, seed=seed + 1, num_workers=workers))
+        ratios.append(float(d["image_only_ratio"]))
+    if "text_corpus" in d:
+        txt = TextOnlyDataset(PackedCorpus.load(d["text_corpus"]), tok,
+                              max_seq_length=int(d.get("text_seq_length", 64)),
+                              matched_objective=bool(d.get("text_matched_objective", False)))
+        sources.append(Batcher(txt, cfg.train.train_batch_size, seed=seed, num_workers=workers))
+        ratios.append(float(d.get("text_ratio", 1.0)))
+    hybrid = HybridBatcher(sources, ratios, seed=seed)
+
+    # the eval split: each epoch's val loss and the best checkpoint (the
+    # reference's BEST_EVAL_LOSS loop, lxmert_pretrain.py:379-412)
+    val_b = None
+    if "val_annotations" in d or d.get("val_synthetic"):
+        if "val_annotations" in d:
+            with open(d["val_annotations"]) as f:
+                val_ann = json.load(f)
+            val_feats = feats
+        else:
+            val_ann, val_feats = up.make_synthetic(int(d["val_synthetic"]), tok, sym, n_regions=n_regions,
+                                                   feat_dim=cfg.model.visual_embedding_dim, seed=1)
+        val = up.UnsupervisedPretrainDataset(val_ann, val_feats, tok, sym,
+                                             matched_prob=float(d.get("matched_prob", 0.5)), **ds_kw)
+        val_b = Batcher(val, cfg.train.eval_batch_size, seed=seed, num_workers=workers)
+
+    trainer = _trainer(cfg, UnsupervisedVisualBert(ucfg), device).init_state()
+    if cfg.restore_checkpoint:
+        _restore(cfg, trainer)
+    try:
+        if cfg.eval_only:
+            if val_b is None:
+                raise ValueError("eval_only needs an eval split: set data.val_synthetic or data.val_annotations")
+            metrics = evaluate(trainer, val_b, None, cfg.folder)
+            return trainer, FitResult(best_metric=metrics.get("loss", float("nan")), best_epoch=-1, epochs_run=0,
+                                      history=[metrics])
+        result = fit(trainer, lambda e: prefetch(hybrid.epoch(e)),
+                     (lambda: prefetch(val_b.epoch(0))) if val_b is not None else None,
+                     checkpoint_dir=os.path.join(cfg.folder, "ckpt"), val_metric="loss",
+                     val_metric_higher_is_better=False)
+    finally:
+        hybrid.close()
+        if val_b is not None:
+            val_b.close()
+    return trainer, result
+
+
+@register("unsup_vqa")
+def run_unsup_vqa(cfg: TaskConfig, device):
+    """VQA fine-tuning of the unsupervised stack (JAX ``registry.py:885-931``;
+    reference tasks/vqa.py): ``UnsupervisedVQAModel``, BCE x answers against
+    soft scores, the best epoch the one of the highest accuracy. Synthetic
+    data (``n_regions`` regions an image, as ``unsup_pretrain``'s) is split
+    80/20; real data reads HDF5 features and raises (ROADMAP.md A6)."""
+    from visualbert_torch.data.datasets import unsup_vqa as uv
+    from visualbert_torch.models.unsupervised import UnsupervisedConfig, UnsupervisedVQAModel
+
+    tok = _tokenizer(cfg)
+    d = cfg.data
+    sym = _symbolic_vocab(d)
+    if "synthetic" not in d:
+        _refuse_h5("unsup_vqa")
+    n_regions = int(d.get("n_regions", 36))
+    ann, feats, answers = uv.make_synthetic(int(d["synthetic"]), tok, sym, n_answers=int(d.get("n_answers", 8)),
+                                            n_regions=n_regions, feat_dim=cfg.model.visual_embedding_dim)
+    split = int(len(ann) * 0.8)
+    ucfg = UnsupervisedConfig(bert=cfg.model, visual_feat_dim=cfg.model.visual_embedding_dim, obj_id_num=sym.n_obj,
+                              attr_id_num=sym.n_attr, symbolic_vocab_size=sym.size, num_answers=len(answers))
+
+    def mk(a):
+        return uv.UnsupVQADataset(a, feats, tok, sym, answers, max_seq_length=int(d.get("max_seq_length", 20)),
+                                  n_regions=n_regions)
+
+    return _run_fit(cfg, _trainer(cfg, UnsupervisedVQAModel(ucfg), device), mk(ann[:split]), mk(ann[split:]))
+
+
 def run(cfg: TaskConfig, device):
     """Run ``cfg.task`` on ``device``; returns (trainer, FitResult). Logs are
     teed into ``run_N.log`` in the run folder."""
     if cfg.task not in TASKS:
-        raise KeyError(f"unknown task {cfg.task}; the port has {sorted(TASKS)} (ROADMAP.md A8 for the others)")
+        raise KeyError(f"unknown task {cfg.task}; known: {sorted(TASKS)}")
     handler = add_run_folder(cfg.folder)
     try:
         log.info("running task %s on %s -> %s", cfg.task, device, cfg.folder)

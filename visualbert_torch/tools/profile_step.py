@@ -1,6 +1,6 @@
 """Where the time of the port's train step goes, on one CUDA card.
 
-    python -m visualbert_torch.tools.profile_step [--path main|vcr]
+    python -m visualbert_torch.tools.profile_step [--path main|vcr|unsup]
 
 ``--path main`` (the default) builds the main path with ``tools/main_path.py`` (the ``model`` block of
 configs/coco_pretrain.json, bert-base, a synthetic 128 x (128 + 100) batch,
@@ -27,6 +27,12 @@ from the layer shapes and their rate; RoIAlign's forward and backward
 alone at the step's shapes (CUDA events); what is left of the detector's
 time; and the encoder's share as the step's busy time less the
 detector's and the optimizer's. It ends in one JSON line.
+
+``--path unsup`` builds the unsupervised pretraining step of
+``tools/unsup_path.py`` (configs/unsup_pretrain.json at its full width: 144
+rows, bert-base, 1600 objects / 400 attributes) and profiles it the same
+way on each source of the hybrid mix: the V&L batch (30 text tokens + 36
+tags + 36 regions) and the text-only batch (64 tokens), one JSON line each.
 """
 
 from __future__ import annotations
@@ -105,14 +111,18 @@ def busy_us(intervals):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description="device time of the port's train step by kernel group")
-    p.add_argument("--path", choices=("main", "vcr"), default="main",
-                   help="main: COCO pretraining at bert-base; vcr: the VCR step with the detector")
+    p.add_argument("--path", choices=("main", "vcr", "unsup"), default="main",
+                   help="main: COCO pretraining at bert-base; vcr: the VCR step with the detector; unsup: the "
+                        "unsupervised pretraining step on its V&L and text-only batches")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
     card = main_path.card_line()
     if args.path == "vcr":
         profile_vcr(card)
+        return
+    if args.path == "unsup":
+        profile_unsup(card)
         return
     block = main_path.model_block()
     fused = dict(block, use_fused_layer_norm=True)
@@ -278,6 +288,24 @@ def calls_alone(calls, kind):
         groups[group_of(name)] = groups.get(group_of(name), 0.0) + (e - s) / 1e3
     return (busy_us(ivs) / 1e3, dict(sorted(groups.items(), key=lambda kv: -kv[1])), sum(c[6] for c in mine),
             sum(math.prod(c[2]) for c in mine))
+
+
+def profile_unsup(card):
+    """The unsupervised step (tools/unsup_path.py) profiled on each source's
+    batch."""
+    from visualbert_torch.tools import unsup_path
+
+    raw = unsup_path.config()
+    print(f"== unsupervised step: model block {json.dumps(raw['model'])}, optimizer {json.dumps(raw['optimizer'])} "
+          f"(schedule none)")
+    trainer, batches = unsup_path.build(raw=raw)
+    for source, batch in batches.items():
+        T = sum(batch[k].shape[1] for k in ("input_ids", "visual_tags", "visual_feats") if k in batch)
+        print(f"-- source {source}: {len(batch['input_ids'])} rows, T = {T}")
+        summary = profile_trainer(card, trainer, batch)
+        summary.update(path="unsup", source=source, seq_len=T)
+        print(json.dumps(summary))
+        torch.cuda.empty_cache()
 
 
 def profile_vcr(card):

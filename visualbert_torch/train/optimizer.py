@@ -16,7 +16,9 @@ The three quirks that ``torch.optim.AdamW`` does not have:
 
 Weight decay is decoupled and masked by name (no decay for biases,
 LayerNorms and the detector's batch-norm scales, model_wrapper.py:106-110;
-JAX ``default_decay_mask``). Parameters whose name contains a
+JAX ``default_decay_mask``). A model whose names do not carry JAX's
+decision (the unsupervised stack's LXRT names, ROADMAP.md C9) hands its own
+``decays(name, no_decay)``. Parameters whose name contains a
 ``frozen`` substring (the pooler in COCO pretraining, JAX
 ``tasks/registry.py:87-96``) get no update, while their moments still move
 (JAX ``optimizer.py:214-224``). Moments are fp32. The schedule is evaluated
@@ -101,16 +103,19 @@ def clip_groups(names: Iterable[str]) -> List[List[str]]:
 
 class BertAdam:
     """BertAdam over ``named_params`` (unique parameters, as
-    ``module.named_parameters()`` yields them)."""
+    ``module.named_parameters()`` yields them); ``decay(name, no_decay)``
+    decides weight decay, :func:`decays` by default."""
 
-    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]], cfg: OptimizerConfig):
+    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]], cfg: OptimizerConfig,
+                 decay: Optional[Callable[[str, Iterable[str]], bool]] = None):
         self.cfg = cfg
         self.params: Dict[str, torch.nn.Parameter] = dict(named_params)
         self.schedule = make_schedule(cfg.schedule, cfg.warmup, cfg.t_total)
         self.step_count = 0
         self.m = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in self.params.items()}
         self.v = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in self.params.items()}
-        self.decay = {k: decays(k, cfg.no_decay) for k in self.params}
+        decay = decays if decay is None else decay
+        self.decay = {k: decay(k, cfg.no_decay) for k in self.params}
         frozen = cfg.frozen or ()
         self.frozen = {k: any(s in k for s in frozen) for k in self.params}
         self.clip_groups = clip_groups(self.params)

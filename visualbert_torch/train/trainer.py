@@ -60,7 +60,8 @@ class Trainer:
         if init_weights:
             self.model.init_weights(torch.Generator().manual_seed(seed))
         self.model.to(self.device)
-        self.optimizer = BertAdam(self.model.named_parameters(), self.opt_config)
+        self.optimizer = BertAdam(self.model.named_parameters(), self.opt_config,
+                                  decay=getattr(self.model, "decays", None))
         self.step = 0
         self.dropout_generator = torch.Generator().manual_seed(seed + 1)
         return self
