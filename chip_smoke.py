@@ -14,8 +14,9 @@ non-zero without printing the final line:
    shapes of the main path: K3 (dropout mask, [128, 228, 768], int8 and
    bf16) must equal its bit-exact twin; the dropout site's forward and
    backward (K3's body, csrc/dropout.cu) at that shape, at NLVR2's
-   [64, 272, 768], at the VCR step's [128, 148, 768] and at the
-   unsupervised step's [144, 102, 768] and [144, 64, 768], bf16, rate 0.1,
+   [64, 272, 768], at the VCR step's [128, 148, 768], at the unsupervised
+   step's [144, 102, 768], [144, 64, 768] and [144, 72, 768] and at the
+   end-to-end step's [32, 102, 768], bf16, rate 0.1,
    must give y, the packed keep bits and dx
    bit for bit with their plain versions, keep a NaN planted at a dropped
    position NaN, and keep within 4 sigma of 0.9; the three are timed
@@ -32,14 +33,16 @@ non-zero without printing the final line:
    T = 128 text + 20 boxes, each row's text and some rows' boxes padded) at
    dropout 0 and 0.1 within the same limits, timed beside
    scaled_dot_product_attention and their bound; and at the unsupervised
-   step's (144 rows, T = 30 text + 36 tags + 36 regions = 102 and T = 64
-   text-only, each row's text padded after its length) likewise;
+   step's (144 rows, T = 30 text + 36 tags + 36 regions = 102, T = 64
+   text-only and T = 36 + 36 = 72 image-only, each row's text padded after
+   its length) and at the end-to-end step's (32 rows, T = 102) likewise;
    K4, K5 and K6 (the fused MLM cross-entropy: forward, dx, d embedding and
    d bias) at N = 128 x 24 = 3072 rows, H=768, V=30522, bf16, 15 % of labels
    -1 and a non-uniform cotangent, again at bert-large's H=1024 and at
    vqa_advanced's N = 64 x 4 = 256 rows and at the unsupervised step's
-   N = 144 x 30 = 4320 (V&L) and 144 x 64 = 9216 (text-only) rows, with
-   that step's own labels, most of them -1 (timed beside their bounds and
+   N = 144 x 30 = 4320 (V&L) and 144 x 64 = 9216 (text-only) rows and the
+   end-to-end step's 32 x 30 = 960, with each step's own labels, most of
+   them -1 (timed beside their bounds and
    cuBLAS's products there, with their grids and splits; the site kernels
    at the unsupervised shapes likewise beside F.dropout); K4
    (x in wgmma A fragments, a cp.async ring) and K5 and K6 (one wgmma
@@ -187,13 +190,15 @@ non-zero without printing the final line:
    full width (visualbert_torch/tools/unsup_path.py): UnsupervisedVisualBert
    with the config's model block unchanged, 1600 objects and 400
    attributes, its optimizer block with schedule "none", seeded weights,
-   STEPS steps alternating a V&L batch (144 rows of 30 text tokens, 36 tags,
-   36 regions of 2048-d features) and a text-only batch (144 x 64). Each
-   source's losses must be finite and fall, and every step of either
-   source must launch exactly 12 K1, 12 K2, one each of K4-K6, 24 site
-   forwards and 24 backwards (the embeddings' dropout is no site) and
-   nothing else of K1-K16; each source's median step, pairs/s and the peak
-   memory are printed;
+   UNSUP_STEPS steps taking in turn a V&L batch (144 rows of 30 text
+   tokens, 36 tags, 36 regions of 2048-d features), a text-only batch
+   (144 x 64) and an image-only batch (the V&L batch's tags and regions,
+   T = 72), the hybrid mix's three sources. Each source's losses must be
+   finite and fall, and every V&L and text-only step must launch exactly
+   12 K1, 12 K2, one each of K4-K6, 24 site forwards and 24 backwards (the
+   embeddings' dropout is no site), every image-only step the same without
+   K4-K6, and nothing else of K1-K16; each source's median step, rows/s and
+   the peak memory are printed;
 17. runs unsup_pretrain through the CLI: configs/unsup_pretrain.json with
    its data block swapped for UNSUP_EXAMPLES synthetic images (36 regions,
    2048-d), a PackedCorpus of UNSUP_PASSAGES passages that the phase builds
@@ -210,7 +215,38 @@ non-zero without printing the final line:
    regions), one epoch at batch 144: 2 steps of 12 K1, 12 K2 and 24 sites;
    one eval batch of 12 K1. `--eval_only --restore` must give the epoch's
    val_ metrics within 1e-6, launching only that eval batch's kernels;
-20. prints the kernel table as one JSON line (launches from phase 6: the
+20. drives the end-to-end unsupervised step (tools/unsup_e2e_path.py,
+   BASELINE.json config 5): UnsupervisedEndToEnd with the full ResNet50
+   detector (7 x 7 stem, layers (3, 4, 6), layer4 of 3 blocks) in the
+   training graph feeding configs/unsup_pretrain.json's model block
+   unchanged, E2E_ROWS uint8 768 x 768 images (the config's 144 rows cut to
+   32: the detector over 144 such images does not fit one card) of 36
+   boxes, 30 text tokens, features and tags masked jointly at 15 %, STEPS
+   train steps through Trainer.train_step on one repeated batch. The
+   losses must be finite, masked_lm_loss, matched_loss, obj_loss,
+   feat_loss and masked_tag_loss must all be there, all but feat_loss must
+   fall (feat_loss regresses the detector's own features, whose scale the
+   updates move: the step prints that scale after each update beside it),
+   the detector's first convolution must get a non-zero gradient every step,
+   and every step must launch exactly 12 K1, 12 K2, one each of K4-K6 and
+   24 site forwards and backwards (the encoder's; the embeddings' and the
+   detector's dropout are stock) and nothing else of K1-K16; the median
+   step, images/s and peak memory are printed;
+21. restores a reference torch checkpoint through the CLI: a VQA run of
+   TH_EXAMPLES synthetic questions (configs/vqa_finetune.json with the
+   fused LayerNorm, one epoch) whose parameters are saved in the reference
+   layout (`module.` prefix, LayerNorm gamma/beta) as a .th file; `--eval_only
+   --restore` of that file must load every parameter equal to its source
+   and give the epoch's val_ metrics within 1e-6;
+22. builds the native WordPiece tokenizer (visualbert_torch/csrc/
+   wordpiece.cpp, g++ into visualbert_torch/_build/) and holds it against
+   the Python tokenizer on TOKENIZER_TEXTS, non-ASCII ones included, one
+   string at a time and batched (equal ids), and times both on the host;
+23. compares the Batcher's process workers with its thread workers on
+   phase 7's COCO synthetic set (two epochs of batches of 128, 4 workers):
+   every batch bit for bit. HDF5 features are not driven here: the card's
+   machine has no h5py;
+24. prints the kernel table as one JSON line (launches from phase 6: the
    fused-LayerNorm main path's STEPS steps, for K7/K8 its dropout-0 step,
    for K11-K14 the runs with their settings, for K15/K16 the tools' run,
    for K3's mask the calls of its wrapper in tools/dropout_steps.py's run
@@ -250,6 +286,16 @@ VCR_ROWS, VCR_T = 32 * 4, 128 + 20  # K1/K2 on the VCR step: 32 questions x 4 ch
 # regions, text-only 64 tokens
 UNSUP_ROWS, UNSUP_TT, UNSUP_N, UNSUP_TEXT_T = 144, 30, 36, 64
 UNSUP_VL_T = UNSUP_TT + 2 * UNSUP_N
+UNSUP_IMAGE_T = 2 * UNSUP_N   # the image-only source: 36 tags + 36 regions
+UNSUP_STEPS = 12              # phase 16: four steps of each source in turn
+E2E_ROWS = 32                 # the end-to-end step's batch, cut from the config's 144 (tools/unsup_e2e_path.py)
+TH_EXAMPLES = 160             # the .th restore's VQA run: 128 train (2 steps of 64), 32 eval (one padded batch)
+# the native tokenizer's check: ASCII and non-ASCII strings over a small vocabulary
+TOKENIZER_VOCAB = ("[PAD] [UNK] [CLS] [SEP] [MASK] the quick brown fox jump ##s ##ed over a lazy dog ! , . un "
+                   "##want run ##ning 1 2 3 ##0 hello world cafe ' s naive").split()
+TOKENIZER_TEXTS = ["The quick brown fox jumps over the lazy dog!", "unwanted running",
+                   "  weird   whitespace\tand\nnewlines ", "UNWANTED, RUNNING.", "120 30", "dog's",
+                   "zzz unknownword", "", "!!!", "a" * 150, "café naïve", "中国 hello", "Ünwanted résumé, running!"]
 UNSUP_EXAMPLES = 288          # 2 V&L steps of 144
 UNSUP_PASSAGES = 288          # 2 text-only steps
 UNSUP_VAL = 144               # one eval batch
@@ -375,6 +421,10 @@ VCR_COCO_EVAL_PER_BATCH = (12, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0
 # the unsupervised step (either source): 24 sites, the embeddings' dropout
 # being a stock one; its evaluation runs the fused cross-entropy's forward
 UNSUP_PER_STEP = (12, 12, 0, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 24, 24)
+UNSUP_IMAGE_PER_STEP = (12, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 24, 24)  # no text: no K4-K6
+# the end-to-end step: the encoder's 24 sites (its embeddings' dropout and
+# the detector's are stock dropout), K4-K6 over every text row
+E2E_PER_STEP = UNSUP_PER_STEP
 UNSUP_EVAL_PER_BATCH = VCR_COCO_EVAL_PER_BATCH
 TEXT_PRETRAIN_PER_STEP = PER_STEP
 UNSUP_VQA_TRAIN_PER_STEP = (12, 12, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 24, 24)
@@ -549,7 +599,7 @@ def check_dropout(torch, card):
     # the site forward and backward at the main path's, NLVR2's and the VCR step's shapes
     errs = {"dropout_fwd": 0.0, "dropout_bwd": 0.0}
     for shp in (shape, (64, 272, 768), (VCR_ROWS, VCR_T, 768), (UNSUP_ROWS, UNSUP_VL_T, 768),
-                (UNSUP_ROWS, UNSUP_TEXT_T, 768)):
+                (UNSUP_ROWS, UNSUP_TEXT_T, 768), (UNSUP_ROWS, UNSUP_IMAGE_T, 768), (E2E_ROWS, UNSUP_VL_T, 768)):
         g = torch.Generator(device=dev).manual_seed(5)
         x = torch.randn(shp, generator=g, device=dev).to(torch.bfloat16)
         dy = torch.randn(shp, generator=g, device=dev).to(torch.bfloat16)
@@ -635,12 +685,15 @@ def check_dropout(torch, card):
     for name in launches:
         log(row_line(name, rows[name], card))
     del x, dy, out, y, dx, bits
-    for shp in ((UNSUP_ROWS, UNSUP_VL_T, 768), (UNSUP_ROWS, UNSUP_TEXT_T, 768)):
-        site_times_at(torch, card, lib, shp, rate, k3_rate, sms, hz)
+    for where, shp in (("the unsupervised step's", (UNSUP_ROWS, UNSUP_VL_T, 768)),
+                       ("the unsupervised step's", (UNSUP_ROWS, UNSUP_TEXT_T, 768)),
+                       ("the unsupervised step's", (UNSUP_ROWS, UNSUP_IMAGE_T, 768)),
+                       ("the end-to-end step's", (E2E_ROWS, UNSUP_VL_T, 768))):
+        site_times_at(torch, card, lib, shp, rate, k3_rate, sms, hz, where)
     return rows
 
 
-def site_times_at(torch, card, lib, shape, rate, k3_rate, sms, hz):
+def site_times_at(torch, card, lib, shape, rate, k3_rate, sms, hz, where):
     """The site forward and backward at ``shape`` (bf16), launched on
     preallocated tensors, beside their plain versions, F.dropout /
     aten.native_dropout_backward and their bounds (the forward's bytes or
@@ -674,7 +727,7 @@ def site_times_at(torch, card, lib, shape, rate, k3_rate, sms, hz):
                             **bound(nbytes(dy, bits, dx), 0, 1.0)),
     }
     for name, r in rows.items():
-        log(row_line(f"{name} at the unsupervised step's {list(shape)}", r, card))
+        log(row_line(f"{name} at {where} {list(shape)}", r, card))
 
 
 def check_kernels(torch, card):
@@ -2021,10 +2074,10 @@ def vcr_attention_inputs(torch):
     return qkv, qb, key_bias, dout
 
 
-def unsup_attention_inputs(torch, T, text_len):
-    """K1/K2's inputs at the unsupervised step's shapes (UNSUP_ROWS rows of
-    T, H = 12, D = 64, bf16): each row's first ``text_len`` keys (its text)
-    padded after a drawn length, the tags and regions after them real,
+def unsup_attention_inputs(torch, T, text_len, rows=UNSUP_ROWS):
+    """K1/K2's inputs at the unsupervised step's shapes (``rows`` rows of T,
+    H = 12, D = 64, bf16): each row's first ``text_len`` keys (its text, if
+    any) padded after a drawn length, the tags and regions after them real,
     from RandomState(3)."""
     import numpy as np
 
@@ -2032,13 +2085,13 @@ def unsup_attention_inputs(torch, T, text_len):
     F = 3 * H * D
     rng = np.random.RandomState(3)
     dev = torch.device("cuda")
-    qkv = torch.tensor(rng.randn(UNSUP_ROWS, T, F), dtype=torch.bfloat16, device=dev)
+    qkv = torch.tensor(rng.randn(rows, T, F), dtype=torch.bfloat16, device=dev)
     qb = torch.tensor(rng.randn(F) * 0.1, dtype=torch.bfloat16, device=dev)
-    mask = np.ones((UNSUP_ROWS, T), np.float32)
-    for r in range(UNSUP_ROWS):
+    mask = np.ones((rows, T), np.float32)
+    for r in range(rows if text_len else 0):
         mask[r, rng.randint(6, text_len + 1):text_len] = 0
     key_bias = torch.tensor((1.0 - mask) * -10000.0, device=dev)
-    dout = torch.tensor(rng.randn(UNSUP_ROWS, T, H * D), dtype=torch.bfloat16, device=dev)
+    dout = torch.tensor(rng.randn(rows, T, H * D), dtype=torch.bfloat16, device=dev)
     return qkv, qb, key_bias, dout
 
 
@@ -2267,9 +2320,10 @@ def unsup_xent_labels():
 
 
 def run_unsup_step(torch, card):
-    """STEPS train steps of the unsupervised model at configs/
-    unsup_pretrain.json's full width (tools/unsup_path.py), alternating its
-    V&L and text-only batches; each step's launches are read on their own."""
+    """UNSUP_STEPS train steps of the unsupervised model at configs/
+    unsup_pretrain.json's full width (tools/unsup_path.py), its V&L,
+    text-only and image-only batches in turn; each step's launches are read
+    on their own."""
     from visualbert_torch.tools import unsup_path
 
     raw = unsup_path.config()
@@ -2284,8 +2338,9 @@ def run_unsup_step(torch, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times, bad = {k: [] for k in batches}, {k: [] for k in batches}, []
-    for i in range(STEPS):
-        source = ("vl", "text")[i % 2]
+    want = {"vl": UNSUP_PER_STEP, "text": UNSUP_PER_STEP, "image": UNSUP_IMAGE_PER_STEP}
+    for i in range(UNSUP_STEPS):
+        source = ("vl", "text", "image")[i % 3]
         zero_launches()
         t0 = time.perf_counter()
         metrics = trainer.train_step(batches[source])
@@ -2293,19 +2348,20 @@ def run_unsup_step(torch, card):
         torch.cuda.synchronize()
         times[source].append(time.perf_counter() - t0)
         launches = read_launches()
-        if launches != list(UNSUP_PER_STEP):
+        if launches != list(want[source]):
             bad.append((i, source, launches))
     peak = torch.cuda.max_memory_allocated() / 2**30
     out = {}
     for source in batches:
-        B = len(batches[source]["input_ids"])
+        B = len(batches[source]["visual_tags" if source == "image" else "input_ids"])
         med = statistics.median(times[source][1:])
         out[source] = dict(median_ms=med * 1e3, pairs_per_s=B / med)
         log(f"unsup step, {source} batch: losses " + ", ".join(f"{x:.5f}" for x in losses[source])
             + f"; median {med * 1e3:.2f} ms over its steps 2..{len(times[source])} (first "
               f"{times[source][0] * 1e3:.1f} ms), {B / med:.1f} pairs/s  [{card}]")
-    log(f"unsup step: launches of every step {'/'.join(map(str, UNSUP_PER_STEP))} (K1..K16, site fwd/bwd) "
-        f"wanted; steps that differ: {bad}; peak memory {peak:.2f} GiB  [{card}]")
+    log(f"unsup step: launches of every V&L and text-only step {'/'.join(map(str, UNSUP_PER_STEP))}, of every "
+        f"image-only step {'/'.join(map(str, UNSUP_IMAGE_PER_STEP))} (K1..K16, site fwd/bwd) wanted; steps that "
+        f"differ: {bad}; peak memory {peak:.2f} GiB  [{card}]")
     for source, ls in losses.items():
         if not all(math.isfinite(x) for x in ls):
             raise SystemExit(f"unsup step: non-finite loss on the {source} batch")
@@ -2315,6 +2371,208 @@ def run_unsup_step(torch, card):
         raise SystemExit(f"unsup step: unexpected kernel launch counts {bad}")
     del trainer, batches
     return dict(out, peak_gib=peak)
+
+
+def e2e_xent_labels():
+    """The MLM labels of the end-to-end step's batch, one row a text token
+    ([32 x 30], flattened)."""
+    from visualbert_torch.tools import unsup_e2e_path
+
+    raw = unsup_e2e_path.config()
+    host = unsup_e2e_path.synth_batch(E2E_ROWS, unsup_e2e_path.IMAGE_SIZE, UNSUP_N, int(raw["data"]["max_seq_length"]))
+    return host["masked_lm_labels"].reshape(-1)
+
+
+def run_e2e_step(torch, card):
+    """STEPS train steps of the end-to-end unsupervised model
+    (tools/unsup_e2e_path.py: the full ResNet50 detector in the graph,
+    configs/unsup_pretrain.json's model block, E2E_ROWS uint8 768 x 768
+    images of 36 boxes) on one repeated batch through Trainer.train_step."""
+    from visualbert_torch.tools import unsup_e2e_path
+
+    raw = unsup_e2e_path.config()
+    log(f"e2e step: model block {json.dumps(raw['model'])}, optimizer {json.dumps(raw['optimizer'])} with schedule "
+        f"none, data {json.dumps({k: raw['data'][k] for k in ('max_seq_length', 'n_regions')})}; the ResNet50 "
+        f"detector (7 x 7 stem, layers (3, 4, 6), layer4 of 3 blocks); batch {unsup_e2e_path.BATCH} "
+        f"(the config's {raw['train']['train_batch_size']} cut to fit the detector on one card)")
+    trainer, batch = unsup_e2e_path.build(raw=raw)
+    B = batch["images"].shape[0]
+    log(f"e2e step batch: images {list(batch['images'].shape)} {batch['images'].dtype}, boxes "
+        f"{list(batch['boxes'].shape)}, text {list(batch['input_ids'].shape)}, "
+        f"{int((batch['masked_lm_labels'] >= 0).sum())} MLM labels, {int(batch['feat_mask'].sum())} masked "
+        f"regions and tags; {sum(p.numel() for p in trainer.model.parameters()) / 1e6:.1f} M parameters in "
+        f"{sum(1 for _ in trainer.model.parameters())} tensors")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    keys = ("loss", "masked_lm_loss", "matched_loss", "obj_loss", "feat_loss", "masked_tag_loss")
+    losses, times, bad = {k: [] for k in keys}, [], []
+    det = trainer.model.detector
+    conv1_grad, feat_scale = [], []
+    for i in range(STEPS):
+        zero_launches()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        for k in keys:
+            if k not in metrics:
+                raise SystemExit(f"e2e step: {k} missing from the step's outputs {sorted(metrics)}")
+            losses[k].append(float(metrics[k]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = read_launches()
+        if launches != list(E2E_PER_STEP):
+            bad.append((i, launches))
+        conv1_grad.append(float(det.conv1.weight.grad.abs().sum()) if det.conv1.weight.grad is not None else 0.0)
+        with torch.no_grad():  # the scale of the features, after the update: feat_loss's target
+            feat_scale.append(float(det(batch["images"], batch["boxes"], batch["box_mask"])["obj_reps_raw"]
+                                    .float().abs().mean()))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(times[1:])
+    for k in keys:
+        log(f"e2e step {k}: " + ", ".join(f"{x:.5f}" for x in losses[k]))
+    log(f"e2e step: |grad| of the detector's first convolution summed: "
+        + ", ".join(f"{x:.4e}" for x in conv1_grad))
+    log(f"e2e step: mean |feature| of the detector after each update (feat_loss's target): "
+        + ", ".join(f"{x:.4f}" for x in feat_scale))
+    log(f"e2e step: launches of every step {'/'.join(map(str, E2E_PER_STEP))} (K1..K16, site fwd/bwd) wanted; "
+        f"steps that differ: {bad}")
+    log(f"e2e step: median {med * 1e3:.2f} ms over steps 2..{STEPS} (first step {times[0] * 1e3:.1f} ms), "
+        f"{B / med:.2f} images/s, peak memory {peak:.2f} GiB (batch {B}, cut from 144)  [{card}]")
+    if not all(math.isfinite(x) for v in losses.values() for x in v):
+        raise SystemExit("e2e step: non-finite loss")
+    # the objectives whose targets are the batch's or the detector's classes
+    # must fall; feat_loss regresses the detector's own features, whose scale
+    # the end-to-end updates move (it rises with it, in JAX as here)
+    falling = ("masked_lm_loss", "matched_loss", "obj_loss", "masked_tag_loss")
+    if not all(losses[k][-1] < losses[k][0] for k in falling):
+        raise SystemExit(f"e2e step: {[k for k in falling if not losses[k][-1] < losses[k][0]]} did not fall on the "
+                         f"repeated batch")
+    if not all(g > 0 for g in conv1_grad):
+        raise SystemExit("e2e step: the detector's first convolution got no gradient")
+    if bad:
+        raise SystemExit(f"e2e step: unexpected kernel launch counts {bad}")
+    del trainer, batch
+    return dict(median_ms=med * 1e3, images_per_s=B / med, peak_gib=peak,
+                loss=(losses["loss"][0], losses["loss"][-1]), feat_scale=(feat_scale[0], feat_scale[-1]))
+
+
+def run_th_restore_cli(torch, card):
+    """A reference torch checkpoint through the CLI: a VQA run (configs/
+    vqa_finetune.json with the fused LayerNorm, TH_EXAMPLES synthetic
+    questions, one epoch) whose parameters are saved in the reference
+    layout (a DataParallel ``module.`` prefix, LayerNorm ``gamma``/``beta``)
+    as a .th file; ``--eval_only --restore`` of that file must load every
+    parameter equal to its source and reproduce the epoch's val_ metrics."""
+    from visualbert_torch.utils.config_io import load_config_file
+
+    raw = load_config_file(VQA_CONFIG)
+    raw["data"] = {"synthetic": TH_EXAMPLES, "max_seq_length": 128, "max_regions": 100}
+    raw["model"] = dict(raw["model"], use_fused_layer_norm=True)
+    raw["train"] = dict(raw["train"], num_train_epochs=1)
+    n_train = int(TH_EXAMPLES * 0.8)
+    steps = n_train // raw["train"]["train_batch_size"]
+    eval_batches = -(-(TH_EXAMPLES - n_train) // raw["train"]["eval_batch_size"])
+    folder = tempfile.mkdtemp(prefix="chip_smoke_th_")
+    try:
+        path = write_config(folder, "vqa_synthetic.json", raw)
+        trainer, result = run_counted_cli(
+            "vqa cli for the .th restore", ["--config", path, "--folder", os.path.join(folder, "run")],
+            counts((steps, VQA_TRAIN_PER_STEP), (2 * eval_batches, VQA_EVAL_PER_BATCH)), steps)
+        epoch = result.history[0]
+        source = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+        ref = {"module." + k.replace("LayerNorm.weight", "LayerNorm.gamma").replace("LayerNorm.bias", "LayerNorm.beta"):
+               v for k, v in source.items()}
+        th = os.path.join(folder, "reference.th")
+        torch.save(ref, th)
+        del trainer, result
+        torch.cuda.empty_cache()
+        restored, again = run_counted_cli(
+            "vqa --eval_only --restore reference.th",
+            ["--config", path, "--folder", os.path.join(folder, "eval"), "--eval_only", "--restore", th],
+            counts((eval_batches, VQA_EVAL_PER_BATCH)), None)
+        got = restored.model.state_dict()
+        unequal = [k for k, v in source.items() if not torch.equal(got[k].cpu(), v)]
+        diff = max(abs(again.history[0][k] - epoch["val_" + k]) for k in ("loss", "accuracy"))
+        log(f".th restore: {len(ref)} reference-layout tensors ({os.path.getsize(th) / 2**20:.1f} MiB); "
+            f"{len(source) - len(unequal)} of {len(source)} parameters equal to their source, on "
+            f"{restored.device}; max |diff| to the epoch's val_ metrics {diff:.2e} (tol 1e-6)")
+        if unequal or diff > 1e-6 or restored.device.type != "cuda":
+            raise SystemExit(f"the .th restore did not reproduce the run: parameters differ {unequal[:5]}, "
+                             f"metrics |diff| {diff:.2e}")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def run_tokenizer_check(card):
+    """The native WordPiece tokenizer (csrc/wordpiece.cpp), built with g++
+    into visualbert_torch/_build/ here, against the Python tokenizer on
+    TOKENIZER_TEXTS (non-ASCII ones go to the Python path), one string at a
+    time and batched; then both timed on 20,000 ASCII strings."""
+    from visualbert_torch.data import fast_tokenizer
+    from visualbert_torch.data.tokenization import BertTokenizer
+
+    vocab = {w: i for i, w in enumerate(TOKENIZER_VOCAB)}
+    built = fast_tokenizer.library_path().exists()
+    t0 = time.perf_counter()
+    fast = fast_tokenizer.FastBertTokenizer(vocab)
+    ready = time.perf_counter() - t0
+    plain = BertTokenizer(vocab)
+    bad = [t for t in TOKENIZER_TEXTS if fast.encode(t) != plain.encode(t) or fast.tokenize(t) != plain.tokenize(t)]
+    out, lens = fast.encode_batch(TOKENIZER_TEXTS, 16)
+    bad += [t for i, t in enumerate(TOKENIZER_TEXTS) if list(out[i, :lens[i]]) != plain.encode(t)[:16]]
+    texts = ["the quick brown fox jumps over the lazy dog"] * 20000
+    t0 = time.perf_counter()
+    fast.encode_batch(texts, 16)
+    fast_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for t in texts:
+        plain.encode(t)
+    plain_s = time.perf_counter() - t0
+    log(f"native tokenizer: {fast_tokenizer.library_path().relative_to(REPO)} "
+        f"{'already built' if built else 'built by g++'}, ready after {ready:.2f} s; native path on: "
+        f"{fast.native_available}; {len(TOKENIZER_TEXTS)} strings ({sum(not t.isascii() for t in TOKENIZER_TEXTS)} "
+        f"non-ASCII) equal to the Python tokenizer's, one at a time and batched: {not bad}; 20,000 strings in "
+        f"{fast_s * 1e3:.1f} ms batched against {plain_s * 1e3:.1f} ms in Python (host)")
+    if bad or not fast.native_available:
+        raise SystemExit(f"the native tokenizer differs from the Python one on {bad}")
+
+
+def run_process_batches(card):
+    """The Batcher's process workers against its thread workers on the COCO
+    synthetic set of phase 7 (CLI_EXAMPLES pairs, 128 tokens + 100 regions
+    of 2048-d features, batch 128, 4 workers): two epochs, every batch bit
+    for bit, each process-mode batch held until the end."""
+    from visualbert_torch.data.datasets import coco
+    from visualbert_torch.data.pipeline import Batcher
+    from visualbert_torch.tasks.registry import _tokenizer
+    from visualbert_torch.utils.config_io import parse_task_config
+
+    tok = _tokenizer(parse_task_config({"task": "coco_pretrain", "data": {"synthetic": CLI_EXAMPLES}}))
+    ann, feats = coco.make_synthetic(CLI_EXAMPLES, tok, feat_dim=2048)
+    ds = coco.CocoCaptionsDataset(ann, feats, tok, max_seq_length=128, max_regions=100)
+    thread = Batcher(ds, 128, seed=0, num_workers=4)
+    proc = Batcher(ds, 128, seed=0, num_workers=4, worker_mode="process")
+    bad, n, walls = [], 0, {"thread": 0.0, "process": 0.0}
+    try:
+        for epoch in (0, 1):
+            t0 = time.perf_counter()
+            held = list(proc.epoch(epoch))
+            walls["process"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = list(thread.epoch(epoch))
+            walls["thread"] += time.perf_counter() - t0
+            if len(held) != len(want):
+                bad.append((epoch, "batch count"))
+            for i, (a, b) in enumerate(zip(want, held)):
+                n += 1
+                if set(a) != set(b) or any(a[k].tobytes() != b[k].tobytes() or a[k].dtype != b[k].dtype for k in a):
+                    bad.append((epoch, i))
+    finally:
+        thread.close()
+        proc.close()
+    log(f"process workers: {n} batches of 128 over two epochs equal to the thread workers' bit for bit: {not bad}; "
+        f"host wall {walls['process']:.2f} s (process) against {walls['thread']:.2f} s (thread), 4 workers each")
+    if bad or n == 0:
+        raise SystemExit(f"process-mode batches differ from thread-mode batches: {bad}")
 
 
 def run_counted_cli(name, argv, want, steps):
@@ -2462,11 +2720,13 @@ def main():
     check_packed_at(torch, card, "the unsupervised V&L", unsup_attention_inputs(torch, UNSUP_VL_T, UNSUP_TT))
     check_packed_at(torch, card, "the unsupervised text-only", unsup_attention_inputs(torch, UNSUP_TEXT_T,
                                                                                         UNSUP_TEXT_T))
+    check_packed_at(torch, card, "the unsupervised image-only", unsup_attention_inputs(torch, UNSUP_IMAGE_T, 0))
+    check_packed_at(torch, card, "the end-to-end", unsup_attention_inputs(torch, UNSUP_VL_T, UNSUP_TT, E2E_ROWS))
     torch.cuda.empty_cache()
     rows.update(check_xent(torch, card))
     check_xent(torch, card, H=1024)
     check_xent(torch, card, N=VQA_ADVANCED_XENT_ROWS)
-    for labels in unsup_xent_labels():
+    for labels in unsup_xent_labels() + (e2e_xent_labels(),):
         check_xent(torch, card, labels=labels)
     rows.update(check_layer_norm(torch, card))
     rows.update(check_attention_variants(torch, card))
@@ -2522,13 +2782,23 @@ def main():
     unsup = run_unsup_step(torch, card)
     torch.cuda.empty_cache()
     log(f"unsup step: V&L median {unsup['vl']['median_ms']:.2f} ms ({unsup['vl']['pairs_per_s']:.1f} pairs/s), "
-        f"text-only median {unsup['text']['median_ms']:.2f} ms ({unsup['text']['pairs_per_s']:.1f} rows/s), peak "
+        f"text-only median {unsup['text']['median_ms']:.2f} ms ({unsup['text']['pairs_per_s']:.1f} rows/s), "
+        f"image-only median {unsup['image']['median_ms']:.2f} ms ({unsup['image']['pairs_per_s']:.1f} rows/s), peak "
         f"memory {unsup['peak_gib']:.2f} GiB  [{card}]")
     run_unsup_cli(torch, card)
     torch.cuda.empty_cache()
     run_text_pretrain_cli(torch, card)
     torch.cuda.empty_cache()
     run_unsup_vqa_cli(torch, card)
+    torch.cuda.empty_cache()
+    e2e = run_e2e_step(torch, card)
+    torch.cuda.empty_cache()
+    log(f"e2e step: median {e2e['median_ms']:.2f} ms, {e2e['images_per_s']:.2f} images/s, peak memory "
+        f"{e2e['peak_gib']:.2f} GiB, batch {E2E_ROWS} (cut from 144)  [{card}]")
+    run_th_restore_cli(torch, card)
+    torch.cuda.empty_cache()
+    run_tokenizer_check(card)
+    run_process_batches(card)
 
     # launches: the fused-LayerNorm main path's STEPS steps; K7/K8 from its
     # dropout-0 step; K11/K12 and K13/K14 from the runs with their settings;

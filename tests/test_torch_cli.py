@@ -163,9 +163,18 @@ def test_cli_trains_and_restore_resumes(tmp_path, capsys):
                        "--restore", str(tmp_path / "run" / "ckpt"), "--device", "cpu"])
     assert resumed.step == 20 and resumed.optimizer.step_count == 20
     assert sorted(os.listdir(tmp_path / "run2" / "ckpt")) == ["step_15.pt", "step_20.pt"]
-    with pytest.raises(NotImplementedError, match="A6"):
-        main(["--config", str(config), "--folder", str(tmp_path / "run3"), "--restore", str(tmp_path / "x.th"),
-              "--device", "cpu"])
+    # a reference-layout .th of the resumed run's weights (DataParallel
+    # prefix, gamma/beta names) restores every parameter through the CLI
+    # before any step is taken
+    ref = {"module." + k.replace("LayerNorm.weight", "LayerNorm.gamma").replace("LayerNorm.bias", "LayerNorm.beta"): v
+           for k, v in resumed.model.state_dict().items()}
+    torch.save(ref, tmp_path / "x.th")
+    config.write_text(config.read_text().replace('"num_train_epochs": 2', '"num_train_epochs": 0'))
+    restored, _ = main(["--config", str(config), "--folder", str(tmp_path / "run3"), "--restore",
+                        str(tmp_path / "x.th"), "--device", "cpu"])
+    assert restored.step == 0
+    for (k, a), b in zip(resumed.model.state_dict().items(), restored.model.state_dict().values()):
+        assert torch.equal(a, b), k
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path):

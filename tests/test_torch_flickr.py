@@ -341,8 +341,21 @@ def test_cli_trains_flickr_and_eval_only_reproduces_it(tmp_path, capsys):
     assert recalls[0] == pytest.approx(metrics["accuracy"], abs=1e-6)  # R@1 is the head's accuracy
 
 
-def test_flickr_real_data_is_not_ported(tmp_path):
-    """configs/flickr_finetune.json as shipped reads HDF5 features."""
-    cfg = load_task_config(os.path.join(REPO, "configs", "flickr_finetune.json"), {"folder": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="H5Features"):
-        registry.run(cfg, "cpu")
+def test_flickr_real_data_runs_from_the_shipped_config(tmp_path):
+    """configs/flickr_finetune.json as shipped reads HDF5 features: its data
+    block's files (annotations, vocab.txt, an HDF5 file and its sidecar),
+    written here at a tiny size, train and evaluate one epoch on the CPU."""
+    from test_torch_real_data import real_raw
+
+    shipped = load_task_config(os.path.join(REPO, "configs", "flickr_finetune.json"), {"folder": str(tmp_path)})
+    raw = real_raw("flickr", tmp_path)
+    files = {k for k, v in shipped.data.items() if isinstance(v, str)}
+    assert files == {"train_annotations", "eval_annotations", "features_h5", "vocab_file"}
+    assert files <= set(raw["data"])
+    raw["train"] = dict(raw["train"], num_train_epochs=1)
+    cfg = dataclasses.replace(parse_task_config(dict(raw, data=dict(shipped.data, **raw["data"]))),
+                              folder=str(tmp_path / "run"))
+    trainer, result = registry.run(cfg, "cpu")
+    h = result.history[0]
+    assert trainer.step == 4 and all(np.isfinite(v) for v in h.values())
+    assert h["val_entity_num"] > 0 and 0 <= h["val_accuracy"] <= h["val_upperbound_accuracy"] <= 1

@@ -238,10 +238,25 @@ def test_cli_trains_nlvr2_and_eval_only_reproduces_it(tmp_path, capsys):
     assert metrics["consistency"] == metrics["official_accuracy"]
 
 
-def test_nlvr2_real_data_is_not_ported(tmp_path):
-    """configs/nlvr2_finetune.json as shipped reads HDF5 features."""
-    from visualbert_torch.utils.config_io import load_task_config
+def test_nlvr2_real_data_runs_from_the_shipped_config(tmp_path):
+    """configs/nlvr2_finetune.json as shipped reads JSON-lines annotations
+    and HDF5 features: its data block's files, written here at a tiny size,
+    train and evaluate one epoch on the CPU and write the report."""
+    import dataclasses
 
-    cfg = load_task_config(os.path.join(REPO, "configs", "nlvr2_finetune.json"), {"folder": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="H5Features"):
-        registry.run(cfg, "cpu")
+    from visualbert_torch.utils.config_io import load_task_config, parse_task_config
+    from test_torch_real_data import real_raw
+
+    shipped = load_task_config(os.path.join(REPO, "configs", "nlvr2_finetune.json"), {"folder": str(tmp_path)})
+    raw = real_raw("nlvr2", tmp_path)
+    files = {k for k, v in shipped.data.items() if isinstance(v, str)}
+    assert files == {"train_annotations", "eval_annotations", "features_h5", "vocab_file"}
+    assert files <= set(raw["data"]) and raw["data"]["train_annotations"].endswith(".jsonl")
+    raw["train"] = dict(raw["train"], num_train_epochs=1)
+    cfg = dataclasses.replace(parse_task_config(dict(raw, data=dict(shipped.data, **raw["data"]))),
+                              folder=str(tmp_path / "run"))
+    trainer, result = registry.run(cfg, "cpu")
+    h = result.history[0]
+    assert trainer.step == 4 and all(np.isfinite(v) for v in h.values())
+    rows = (tmp_path / "run" / "nlvr2_report.csv").read_text().strip().splitlines()
+    assert len(rows) == 8 and 0 <= h["val_accuracy"] <= 1

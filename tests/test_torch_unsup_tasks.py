@@ -198,12 +198,16 @@ def test_cli_text_pretrain_trains_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("task", ["unsup_pretrain", "unsup_vqa"])
-def test_hdf5_features_refused_naming_a6(tmp_path, task):
-    data = {"annotations": "a.json", "train_annotations": "a.json", "eval_annotations": "b.json",
-            "features_h5": "f.h5", "vocab_file": str(tmp_path / "vocab.txt")}
-    (tmp_path / "vocab.txt").write_text("\n".join(WORDS) + "\n")
-    cfg = parse_task_config({"task": task, "folder": str(tmp_path / "run"), "data": data, "model": MODEL})
-    with pytest.raises(NotImplementedError, match="A6"):
+def test_hdf5_features_without_h5py_raise_naming_it(tmp_path, monkeypatch, task):
+    """Real data reads HDF5 features; where h5py is not installed (the
+    card's machine) the run stops with an ImportError that names it."""
+    import sys
+
+    from test_torch_real_data import real_raw
+
+    cfg = dataclasses.replace(parse_task_config(real_raw(task, tmp_path)), folder=str(tmp_path / "run"))
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError, match="h5py"):
         registry.run(cfg, "cpu")
 
 

@@ -6,7 +6,8 @@ The port has all eleven tasks of the JAX registry: ``coco_pretrain``,
 ``vcr_coco_pretrain``, ``vqa``, ``vqa_advanced``, ``nlvr2``, ``flickr``,
 ``flickr_probe``, ``vcr``, ``text_pretrain``, ``unsup_pretrain`` and
 ``unsup_vqa``. A task supports ``data: {"synthetic": N}`` for smoke runs and
-real-data paths (documented per task; HDF5 features wait for ROADMAP.md A6).
+real-data paths (documented per task; HDF5 features through ``H5Features``,
+which needs h5py).
 Every task runs on the device it is given: ``"cuda"`` for the kernels,
 ``"cpu"`` for their plain versions.
 """
@@ -48,9 +49,11 @@ def register(name):
 def _tokenizer(cfg: TaskConfig) -> BertTokenizer:
     vocab_file = cfg.data.get("vocab_file")
     if vocab_file:
-        # the pure-Python tokenizer; the JAX package's native fast path is
-        # byte-exact with it and is not ported (ROADMAP.md A6)
-        return BertTokenizer.from_file(vocab_file)
+        # the native WordPiece path, byte-exact with the Python tokenizer
+        # (non-ASCII strings go to the Python one)
+        from visualbert_torch.data.fast_tokenizer import FastBertTokenizer
+
+        return FastBertTokenizer.from_file(vocab_file)
     if "synthetic" not in cfg.data:
         # training over the toy vocabulary would silently produce garbage
         raise ValueError(
@@ -76,16 +79,36 @@ def _default_frozen_pooler(cfg: TaskConfig) -> TaskConfig:
 
 
 def _restore(cfg: TaskConfig, trainer: Trainer) -> Trainer:
-    """Load the port's own checkpoint: a checkpoint directory (its latest
-    step) or one ``step_<N>.pt`` / ``best.pt`` file."""
+    """Load a checkpoint: a reference torch file (``.th``/``.pth``/``.bin``),
+    into the parameters that the JAX registry's ``_restore`` loads from it
+    (``tools/import_torch.py::restore_torch_file``), or the port's own, a
+    checkpoint directory (its latest step) or one ``step_<N>.pt`` /
+    ``best.pt`` file."""
     path = cfg.restore_checkpoint
     if path.endswith((".th", ".pth", ".bin")):
-        raise NotImplementedError(f"{path}: importing reference torch checkpoints is not ported yet (ROADMAP.md A6)")
+        from visualbert_torch.tools.import_torch import restore_torch_file
+
+        loaded = restore_torch_file(trainer.model, path, cfg.model)
+        log.info("restored torch checkpoint %s: %d leaves of the Flax layout loaded", path, len(loaded))
+        return trainer
     if os.path.isdir(path):
         path = CheckpointManager(path).path()
     load_trainer_state(trainer, path)
     log.info("restored checkpoint %s (step %d)", path, trainer.step)
     return trainer
+
+
+def _features(d):
+    """A task's region features: ``features_h5`` (``H5Features``, an HDF5
+    file with its id sidecar) or ``features_dir`` (``<image_id>.npy``)."""
+    from visualbert_torch.data.features import H5Features, NpyFolderFeatures
+
+    return H5Features(d["features_h5"]) if "features_h5" in d else NpyFolderFeatures(d["features_dir"])
+
+
+def _json(path):
+    with open(path) as f:
+        return json.load(f)
 
 
 def _run_fit(cfg: TaskConfig, trainer: Trainer, train_ds, eval_ds=None, dump_hook=None, val_metric="accuracy",
@@ -156,7 +179,7 @@ def evaluate(trainer: Trainer, eval_b: Batcher, dump_hook, folder: str, out_sele
 def run_coco_pretrain(cfg: TaskConfig, device):
     """COCO-caption MLM + sentence-image alignment pretraining. Real data:
     ``annotations`` (a json list of {"image_id", "captions"}), region
-    features in ``features_dir`` (``<image_id>.npy``) and ``vocab_file``."""
+    features in ``features_h5`` or ``features_dir`` and ``vocab_file``."""
     from visualbert_torch.data.datasets import coco as coco_ds
 
     tok = _tokenizer(cfg)
@@ -164,13 +187,7 @@ def run_coco_pretrain(cfg: TaskConfig, device):
     if "synthetic" in d:
         ann, feats = coco_ds.make_synthetic(int(d["synthetic"]), tok, feat_dim=cfg.model.visual_embedding_dim)
     else:
-        if "features_h5" in d:
-            raise NotImplementedError("HDF5 features are not ported (no h5py on the card's machine; ROADMAP.md A6)")
-        from visualbert_torch.data.features import NpyFolderFeatures
-
-        with open(d["annotations"]) as f:
-            ann = json.load(f)
-        feats = NpyFolderFeatures(d["features_dir"])
+        ann, feats = _json(d["annotations"]), _features(d)
     ds = coco_ds.CocoCaptionsDataset(
         ann, feats, tok,
         max_seq_length=int(d.get("max_seq_length", 128)),
@@ -235,16 +252,10 @@ def run_vcr_coco_pretrain(cfg: TaskConfig, device):
         split = int(len(ann) * 0.8)
         train_ann, eval_ann = ann[:split], ann[split:]
     else:
-        with open(d["train_annotations"]) as f:
-            train_ann = json.load(f)
-        eval_ann = None
-        if "eval_annotations" in d:
-            with open(d["eval_annotations"]) as f:
-                eval_ann = json.load(f)
+        train_ann = _json(d["train_annotations"])
+        eval_ann = _json(d["eval_annotations"]) if "eval_annotations" in d else None
         if d.get("expand_coco") and eval_ann is not None:
-            with open(d["minival_image_ids"]) as f:
-                mini = json.load(f)
-            train_ann, eval_ann = coco_ds.expand_coco(train_ann, eval_ann, mini,
+            train_ann, eval_ann = coco_ds.expand_coco(train_ann, eval_ann, _json(d["minival_image_ids"]),
                                                       exclude_minival=bool(d.get("exclude_minival", True)))
         images = _detector_store(d)
 
@@ -279,10 +290,7 @@ def run_vcr(cfg: TaskConfig, device):
         split = int(len(ann) * 0.8)
         train_ann, eval_ann = ann[:split], ann[split:]
     else:
-        with open(d["train_annotations"]) as f:
-            train_ann = json.load(f)
-        with open(d["eval_annotations"]) as f:
-            eval_ann = json.load(f)
+        train_ann, eval_ann = _json(d["train_annotations"]), _json(d["eval_annotations"])
         images = _detector_store(d)
 
     def mk(ann):
@@ -310,7 +318,7 @@ def run_vqa(cfg: TaskConfig, device):
     """VQA fine-tuning with the soft-score classifier. Synthetic data is
     split 80/20 into train and eval; real data: ``train_annotations`` and
     ``eval_annotations`` (imdb-style json lists), region features in
-    ``features_dir`` (``<image_id>.npy``), ``answer_vocab`` (one answer a
+    ``features_h5`` or ``features_dir``, ``answer_vocab`` (one answer a
     line, or a json list) and ``vocab_file``. Each evaluation writes
     ``vqa_predictions.json`` ([{"question_id", "answer"}]) into the run
     folder after training, or alone with ``eval_only``."""
@@ -324,15 +332,7 @@ def run_vqa(cfg: TaskConfig, device):
         split = int(len(ann) * 0.8)
         train_ann, eval_ann = ann[:split], ann[split:]
     else:
-        if "features_h5" in d:
-            raise NotImplementedError("HDF5 features are not ported (no h5py on the card's machine; ROADMAP.md A6)")
-        from visualbert_torch.data.features import NpyFolderFeatures
-
-        with open(d["train_annotations"]) as f:
-            train_ann = json.load(f)
-        with open(d["eval_annotations"]) as f:
-            eval_ann = json.load(f)
-        feats = NpyFolderFeatures(d["features_dir"])
+        train_ann, eval_ann, feats = _json(d["train_annotations"]), _json(d["eval_annotations"]), _features(d)
         vocab = vqa_ds.AnswerVocab.from_file(d["answer_vocab"])
 
     def mk(ann):
@@ -384,15 +384,7 @@ def run_vqa_advanced(cfg: TaskConfig, device):
         split = int(len(ann) * 0.8)
         train_ann, eval_ann = ann[:split], ann[split:]
     else:
-        if "features_h5" in d:
-            raise NotImplementedError("HDF5 features are not ported (no h5py on the card's machine; ROADMAP.md A6)")
-        from visualbert_torch.data.features import NpyFolderFeatures
-
-        with open(d["train_annotations"]) as f:
-            train_ann = json.load(f)
-        with open(d["eval_annotations"]) as f:
-            eval_ann = json.load(f)
-        feats = NpyFolderFeatures(d["features_dir"])
+        train_ann, eval_ann, feats = _json(d["train_annotations"]), _json(d["eval_annotations"]), _features(d)
 
     def mk(ann):
         return vqa_ds.VQADataset(ann, feats, tok, None, advanced=True,
@@ -441,21 +433,27 @@ def vqa_advanced_dump_hook(tokenizer):
 @register("nlvr2")
 def run_nlvr2(cfg: TaskConfig, device):
     """NLVR2 fine-tuning with the 2-way ``nlvr`` head. Synthetic data is
-    split 80/20 into train and eval. Real data (``train_annotations``,
-    ``eval_annotations``, ``features_h5``) needs ``H5Features``, which is not
-    ported, and raises. Each evaluation after training, or alone with
+    split 80/20 into train and eval. Real data: ``train_annotations`` and
+    ``eval_annotations`` (JSON lines, one example a line), ``features_h5``
+    and ``vocab_file``. Each evaluation after training, or alone with
     ``eval_only``, writes ``nlvr2_report.csv`` and returns the official
     accuracy and consistency."""
     from visualbert_torch.data.datasets import nlvr2 as nlvr_ds
+    from visualbert_torch.data.features import H5Features
 
-    d = cfg.data
-    if "synthetic" not in d:
-        raise NotImplementedError("NLVR2 on real data reads HDF5 features: H5Features is not ported "
-                                  "(no h5py on the card's machine; ROADMAP.md A6)")
     tok = _tokenizer(cfg)
-    ann, feats = nlvr_ds.make_synthetic(int(d["synthetic"]), tok, feat_dim=cfg.model.visual_embedding_dim)
-    split = int(len(ann) * 0.8)
-    train_ann, eval_ann = ann[:split], ann[split:]
+    d = cfg.data
+    if "synthetic" in d:
+        ann, feats = nlvr_ds.make_synthetic(int(d["synthetic"]), tok, feat_dim=cfg.model.visual_embedding_dim)
+        split = int(len(ann) * 0.8)
+        train_ann, eval_ann = ann[:split], ann[split:]
+    else:
+        def read_jsonl(path):
+            with open(path) as f:
+                return [json.loads(line) for line in f if line.strip()]
+
+        train_ann, eval_ann = read_jsonl(d["train_annotations"]), read_jsonl(d["eval_annotations"])
+        feats = H5Features(d["features_h5"])
 
     def mk(ann):
         return nlvr_ds.NLVR2Dataset(ann, feats, tok, max_seq_length=int(d.get("max_seq_length", 128)),
@@ -499,31 +497,34 @@ def _flickr_dataset(cfg: TaskConfig, ann, feats, tok):
                                       max_entities=int(d.get("max_entities", 16)))
 
 
-def _flickr_synthetic(cfg: TaskConfig):
-    """(annotations, features, tokenizer) of a synthetic Flickr30k set; real
-    data reads HDF5 features, which are not ported, and raises."""
+def _flickr_synthetic(cfg: TaskConfig, tok):
+    """(annotations, features) of a synthetic Flickr30k set."""
     from visualbert_torch.data.datasets import flickr as flickr_ds
 
-    d = cfg.data
-    if "synthetic" not in d:
-        raise NotImplementedError("Flickr30k on real data reads HDF5 features: H5Features is not ported "
-                                  "(no h5py on the card's machine; ROADMAP.md A6)")
-    tok = _tokenizer(cfg)
-    ann, feats = flickr_ds.make_synthetic(int(d["synthetic"]), tok, feat_dim=cfg.model.visual_embedding_dim)
-    return ann, feats, tok
+    return flickr_ds.make_synthetic(int(cfg.data["synthetic"]), tok, feat_dim=cfg.model.visual_embedding_dim)
 
 
 @register("flickr")
 def run_flickr(cfg: TaskConfig, device):
     """Flickr30k Entities grounding with the ``flickr`` head. Synthetic data
-    is split 80/20 into train and eval; real data (``features_h5``) raises.
+    is split 80/20 into train and eval; real data: ``train_annotations`` and
+    ``eval_annotations`` (json lists), ``features_h5`` and ``vocab_file``.
     Each evaluation after training, or alone with ``eval_only``, adds the
     R@1/5/10 of :func:`flickr_dump_hook` to the metrics."""
-    ann, feats, tok = _flickr_synthetic(cfg)
-    split = int(len(ann) * 0.8)
+    from visualbert_torch.data.features import H5Features
+
+    tok = _tokenizer(cfg)
+    d = cfg.data
+    if "synthetic" in d:
+        ann, feats = _flickr_synthetic(cfg, tok)
+        split = int(len(ann) * 0.8)
+        train_ann, eval_ann = ann[:split], ann[split:]
+    else:
+        train_ann, eval_ann = _json(d["train_annotations"]), _json(d["eval_annotations"])
+        feats = H5Features(d["features_h5"])
     model = VisualBertForTask(cfg.model, head_type="flickr")
-    return _run_fit(cfg, _trainer(cfg, model, device), _flickr_dataset(cfg, ann[:split], feats, tok),
-                    _flickr_dataset(cfg, ann[split:], feats, tok), dump_hook=flickr_dump_hook)
+    return _run_fit(cfg, _trainer(cfg, model, device), _flickr_dataset(cfg, train_ann, feats, tok),
+                    _flickr_dataset(cfg, eval_ann, feats, tok), dump_hook=flickr_dump_hook)
 
 
 def flickr_dump_hook(collected, folder):
@@ -556,12 +557,18 @@ def run_flickr_probe(cfg: TaskConfig, device):
     config's ``use_flash_attention``), gather each entity's attention over
     the regions on the device and count, layer by layer, the entities whose
     most-attended region (mean over heads) holds gold mass. The whole
-    synthetic set is the split; real data (``features_h5``) raises. Writes
+    synthetic set is the split; real data: ``eval_annotations``,
+    ``features_h5`` and ``vocab_file``. Writes
     ``<folder>/flickr_probe.json`` = {"entities": n, "layer_0": acc, ...};
     the task's metric is the best layer's accuracy."""
+    from visualbert_torch.data.features import H5Features
     from visualbert_torch.tasks.probing import entity_region_attention, grounding_counts_from_era
 
-    ann, feats, tok = _flickr_synthetic(cfg)
+    tok = _tokenizer(cfg)
+    if "synthetic" in cfg.data:
+        ann, feats = _flickr_synthetic(cfg, tok)
+    else:
+        ann, feats = _json(cfg.data["eval_annotations"]), H5Features(cfg.data["features_h5"])
     ds = _flickr_dataset(cfg, ann, feats, tok)
     trainer = _trainer(cfg, VisualBertForTask(cfg.model, head_type="flickr"), device)
     trainer.init_state()
@@ -598,11 +605,6 @@ def _symbolic_vocab(d):
     if "objects_vocab" in d:
         return SymbolicVocab.from_files(d["objects_vocab"], d["attributes_vocab"])
     return SymbolicVocab([f"obj{i}" for i in range(32)], [f"attr{i}" for i in range(8)])
-
-
-def _refuse_h5(task: str):
-    raise NotImplementedError(f"{task} on real data reads HDF5 features: H5Features is not ported "
-                              "(no h5py on the card's machine; ROADMAP.md A6)")
 
 
 @register("text_pretrain")
@@ -648,8 +650,10 @@ def run_unsup_pretrain(cfg: TaskConfig, device):
     loss, and the best checkpoint is the lowest; the pooler trains.
     Synthetic data has ``n_regions`` regions an image (the JAX task builds
     its 6-region set whatever ``n_regions`` says, and fails unless it is 6).
-    Real data reads HDF5 features and raises (ROADMAP.md A6). ``--restore``
-    resumes; ``--eval_only`` evaluates the eval split."""
+    Real data: ``annotations`` (a json list of {"image_id", "sentence"[,
+    "ans"]}), ``features_h5``, ``vocab_file`` and the BUTD
+    ``objects_vocab`` / ``attributes_vocab``. ``--restore`` resumes;
+    ``--eval_only`` evaluates the eval split."""
     from visualbert_torch.data.datasets import unsup_pretrain as up
     from visualbert_torch.data.hybrid import HybridBatcher
     from visualbert_torch.data.text_corpus import PackedCorpus, TextOnlyDataset
@@ -671,11 +675,14 @@ def run_unsup_pretrain(cfg: TaskConfig, device):
                               attr_id_num=sym.n_attr, symbolic_vocab_size=sym.size,
                               task_qa=bool(d.get("task_qa", False)), num_answers=num_answers)
     n_regions = int(d.get("n_regions", 36))
-    if "synthetic" not in d:
-        _refuse_h5("unsup_pretrain")
-    ann, feats = up.make_synthetic(int(d["synthetic"]), tok, sym, n_regions=n_regions,
-                                   feat_dim=cfg.model.visual_embedding_dim,
-                                   answers=int(d.get("synthetic_answers", 0)))
+    if "synthetic" in d:
+        ann, feats = up.make_synthetic(int(d["synthetic"]), tok, sym, n_regions=n_regions,
+                                       feat_dim=cfg.model.visual_embedding_dim,
+                                       answers=int(d.get("synthetic_answers", 0)))
+    else:
+        from visualbert_torch.data.features import H5Features
+
+        ann, feats = _json(d["annotations"]), H5Features(d["features_h5"])
     if answer_table is not None:
         for item in ann:
             a = item.get("ans")
@@ -698,8 +705,7 @@ def run_unsup_pretrain(cfg: TaskConfig, device):
         # lxmert_pretrain.py:126-139)
         img_ann = ann
         if "image_only_annotations" in d:
-            with open(d["image_only_annotations"]) as f:
-                img_ann = json.load(f)
+            img_ann = _json(d["image_only_annotations"])
         img_only = up.UnsupervisedPretrainDataset(img_ann, feats, tok, sym, image_only=True, **ds_kw)
         sources.append(Batcher(img_only, cfg.train.train_batch_size, seed=seed + 1, num_workers=workers))
         ratios.append(float(d["image_only_ratio"]))
@@ -716,9 +722,7 @@ def run_unsup_pretrain(cfg: TaskConfig, device):
     val_b = None
     if "val_annotations" in d or d.get("val_synthetic"):
         if "val_annotations" in d:
-            with open(d["val_annotations"]) as f:
-                val_ann = json.load(f)
-            val_feats = feats
+            val_ann, val_feats = _json(d["val_annotations"]), feats
         else:
             val_ann, val_feats = up.make_synthetic(int(d["val_synthetic"]), tok, sym, n_regions=n_regions,
                                                    feat_dim=cfg.model.visual_embedding_dim, seed=1)
@@ -753,19 +757,27 @@ def run_unsup_vqa(cfg: TaskConfig, device):
     reference tasks/vqa.py): ``UnsupervisedVQAModel``, BCE x answers against
     soft scores, the best epoch the one of the highest accuracy. Synthetic
     data (``n_regions`` regions an image, as ``unsup_pretrain``'s) is split
-    80/20; real data reads HDF5 features and raises (ROADMAP.md A6)."""
+    80/20; real data: ``train_annotations`` and ``eval_annotations`` (json
+    lists of {"question_id", "image_id", "sent"[, "label"]}),
+    ``features_h5``, ``answer_list`` (a json list), ``vocab_file`` and the
+    BUTD vocabularies."""
     from visualbert_torch.data.datasets import unsup_vqa as uv
     from visualbert_torch.models.unsupervised import UnsupervisedConfig, UnsupervisedVQAModel
 
     tok = _tokenizer(cfg)
     d = cfg.data
     sym = _symbolic_vocab(d)
-    if "synthetic" not in d:
-        _refuse_h5("unsup_vqa")
     n_regions = int(d.get("n_regions", 36))
-    ann, feats, answers = uv.make_synthetic(int(d["synthetic"]), tok, sym, n_answers=int(d.get("n_answers", 8)),
-                                            n_regions=n_regions, feat_dim=cfg.model.visual_embedding_dim)
-    split = int(len(ann) * 0.8)
+    if "synthetic" in d:
+        ann, feats, answers = uv.make_synthetic(int(d["synthetic"]), tok, sym, n_answers=int(d.get("n_answers", 8)),
+                                                n_regions=n_regions, feat_dim=cfg.model.visual_embedding_dim)
+        split = int(len(ann) * 0.8)
+        train_ann, eval_ann = ann[:split], ann[split:]
+    else:
+        from visualbert_torch.data.features import H5Features
+
+        train_ann, eval_ann = _json(d["train_annotations"]), _json(d["eval_annotations"])
+        feats, answers = H5Features(d["features_h5"]), _json(d["answer_list"])
     ucfg = UnsupervisedConfig(bert=cfg.model, visual_feat_dim=cfg.model.visual_embedding_dim, obj_id_num=sym.n_obj,
                               attr_id_num=sym.n_attr, symbolic_vocab_size=sym.size, num_answers=len(answers))
 
@@ -773,7 +785,7 @@ def run_unsup_vqa(cfg: TaskConfig, device):
         return uv.UnsupVQADataset(a, feats, tok, sym, answers, max_seq_length=int(d.get("max_seq_length", 20)),
                                   n_regions=n_regions)
 
-    return _run_fit(cfg, _trainer(cfg, UnsupervisedVQAModel(ucfg), device), mk(ann[:split]), mk(ann[split:]))
+    return _run_fit(cfg, _trainer(cfg, UnsupervisedVQAModel(ucfg), device), mk(train_ann), mk(eval_ann))
 
 
 def run(cfg: TaskConfig, device):

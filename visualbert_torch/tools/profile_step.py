@@ -1,6 +1,6 @@
 """Where the time of the port's train step goes, on one CUDA card.
 
-    python -m visualbert_torch.tools.profile_step [--path main|vcr|unsup]
+    python -m visualbert_torch.tools.profile_step [--path main|vcr|unsup|unsup_e2e]
 
 ``--path main`` (the default) builds the main path with ``tools/main_path.py`` (the ``model`` block of
 configs/coco_pretrain.json, bert-base, a synthetic 128 x (128 + 100) batch,
@@ -32,7 +32,15 @@ detector's and the optimizer's. It ends in one JSON line.
 ``tools/unsup_path.py`` (configs/unsup_pretrain.json at its full width: 144
 rows, bert-base, 1600 objects / 400 attributes) and profiles it the same
 way on each source of the hybrid mix: the V&L batch (30 text tokens + 36
-tags + 36 regions) and the text-only batch (64 tokens), one JSON line each.
+tags + 36 regions), the text-only batch (64 tokens) and the image-only batch
+(36 tags + 36 regions), one JSON line each.
+
+``--path unsup_e2e`` builds the end-to-end unsupervised step of
+``tools/unsup_e2e_path.py`` (the detector in the training graph: ResNet50
+over 32 uint8 768 x 768 images, 36 boxes each, feeding the bert-base
+three-stream encoder; the batch cut from the config's 144 to 32) and
+profiles it the same way, then the detector's forward and backward alone,
+and ends in one JSON line.
 """
 
 from __future__ import annotations
@@ -111,9 +119,10 @@ def busy_us(intervals):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description="device time of the port's train step by kernel group")
-    p.add_argument("--path", choices=("main", "vcr", "unsup"), default="main",
+    p.add_argument("--path", choices=("main", "vcr", "unsup", "unsup_e2e"), default="main",
                    help="main: COCO pretraining at bert-base; vcr: the VCR step with the detector; unsup: the "
-                        "unsupervised pretraining step on its V&L and text-only batches")
+                        "unsupervised pretraining step on its V&L, text-only and image-only batches; unsup_e2e: the "
+                        "unsupervised step with the detector in the graph")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
@@ -124,6 +133,9 @@ def main(argv=None):
     if args.path == "unsup":
         profile_unsup(card)
         return
+    if args.path == "unsup_e2e":
+        profile_unsup_e2e(card)
+        return
     block = main_path.model_block()
     fused = dict(block, use_fused_layer_norm=True)
     for what, b in (("as shipped", block), ("fused LayerNorm", fused),
@@ -132,6 +144,11 @@ def main(argv=None):
         print(f"== main path, {what}: {json.dumps(b)}")
         profile(card, b)
         torch.cuda.empty_cache()
+
+
+def rows(batch) -> int:
+    """The batch's leading dimension."""
+    return len(next(iter(batch.values())))
 
 
 def profile(card, block):
@@ -175,13 +192,13 @@ def profile_trainer(card, trainer, batch):
     busy_ms = busy_us(ivs) / 1e3 / n
     summary = {
         "card": card,
-        "batch": len(batch["input_ids"]),
+        "batch": rows(batch),
         "steps": n,
         "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "kernels_per_step": len(ivs) / n,
-        "pairs_per_s": len(batch["input_ids"]) / (wall_ms / 1e3),
+        "pairs_per_s": rows(batch) / (wall_ms / 1e3),
         "optimizer_ms_cuda_events": opt_ms,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "groups_ms_per_step": {k: v / 1e3 / n for k, v in sorted(by_group.items(), key=lambda kv: -kv[1])},
@@ -301,11 +318,61 @@ def profile_unsup(card):
     trainer, batches = unsup_path.build(raw=raw)
     for source, batch in batches.items():
         T = sum(batch[k].shape[1] for k in ("input_ids", "visual_tags", "visual_feats") if k in batch)
-        print(f"-- source {source}: {len(batch['input_ids'])} rows, T = {T}")
+        print(f"-- source {source}: {rows(batch)} rows, T = {T}")
         summary = profile_trainer(card, trainer, batch)
         summary.update(path="unsup", source=source, seq_len=T)
         print(json.dumps(summary))
         torch.cuda.empty_cache()
+
+
+def detector_alone(card, det_step):
+    """``det_step`` (the detector's forward and backward) alone, STEPS
+    times under the profiler: (device busy ms a step, device ms by group)."""
+    det_step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(STEPS):
+            det_step()
+        torch.cuda.synchronize()
+    ivs, by_group, by_name = grouped(prof)
+    busy = busy_us(ivs) / 1e3 / STEPS
+    groups = {k: v / 1e3 / STEPS for k, v in sorted(by_group.items(), key=lambda kv: -kv[1])}
+    print(f"detector forward + backward alone: device busy {busy:.2f} ms  [{card}]")
+    for g, v in groups.items():
+        print(f"  {g:24s} {v:9.3f} ms  {v / busy:6.1%} of the detector's busy time")
+    print_top(by_name, STEPS)
+    return busy, groups
+
+
+def profile_unsup_e2e(card):
+    """The end-to-end unsupervised step (tools/unsup_e2e_path.py) profiled,
+    then its detector alone."""
+    from visualbert_torch.tools import unsup_e2e_path
+
+    raw = unsup_e2e_path.config()
+    print(f"== end-to-end unsupervised step: model block {json.dumps(raw['model'])}, optimizer "
+          f"{json.dumps(raw['optimizer'])} (schedule none), {unsup_e2e_path.BATCH} images of "
+          f"{unsup_e2e_path.IMAGE_SIZE} x {unsup_e2e_path.IMAGE_SIZE} (the config's 144 cut to fit the card)")
+    trainer, batch = unsup_e2e_path.build(raw=raw)
+    summary = profile_trainer(card, trainer, batch)
+    det = trainer.model.detector
+
+    def det_step():
+        out = det(batch["images"], batch["boxes"], batch["box_mask"], generator=trainer.dropout_generator)
+        (out["obj_reps_raw"].float().mean() + out["obj_logits"].mean()).backward()
+
+    for p in trainer.model.parameters():
+        p.grad = None
+    busy, groups = detector_alone(card, det_step)
+    for p in trainer.model.parameters():
+        p.grad = None
+    opt = summary["groups_ms_per_step"].get("optimizer (BertAdam)", 0.0)
+    summary.update(path="unsup_e2e", images_per_s=summary["pairs_per_s"], detector_busy_ms=busy,
+                   detector_groups_ms=groups,
+                   encoder_and_heads_ms=summary["device_busy_ms_per_step"] - busy - opt)
+    print(f"encoder and heads (step busy - detector - optimizer): {summary['encoder_and_heads_ms']:.2f} ms  [{card}]")
+    print(json.dumps(summary))
 
 
 def profile_vcr(card):
@@ -327,20 +394,7 @@ def profile_vcr(card):
 
     for p in trainer.model.parameters():
         p.grad = None
-    det_step()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(STEPS):
-            det_step()
-        torch.cuda.synchronize()
-    ivs, by_group, by_name = grouped(prof)
-    det_busy = busy_us(ivs) / 1e3 / STEPS
-    det_groups = {k: v / 1e3 / STEPS for k, v in sorted(by_group.items(), key=lambda kv: -kv[1])}
-    print(f"detector forward + backward alone: device busy {det_busy:.2f} ms  [{card}]")
-    for g, v in det_groups.items():
-        print(f"  {g:24s} {v:9.3f} ms  {v / det_busy:6.1%} of the detector's busy time")
-    print_top(by_name, STEPS)
+    det_busy, det_groups = detector_alone(card, det_step)
 
     calls = detector_calls(det, batch, trainer.dropout_generator)
     parts = {}

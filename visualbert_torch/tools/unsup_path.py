@@ -10,7 +10,9 @@ row), the BUTD vocabularies' sizes that the synthetic names stand in for
 seeded random weights; BertAdam has the config's ``optimizer`` block with
 schedule "none". Two batches of the config's 144 rows make the hybrid mix:
 a V&L batch of 30 text tokens (ragged), 36 tags and 36 regions (T = 102),
-and a text-only batch at the task's default ``text_seq_length`` of 64.
+a text-only batch at the task's default ``text_seq_length`` of 64, and the
+image-only batch (the V&L batch's tags and regions without its text, T =
+72), the three sources of the hybrid mix.
 ``chip_smoke.py`` and ``tools/profile_step.py --path unsup`` both drive
 this.
 """
@@ -35,7 +37,7 @@ def config() -> dict:
     return load_config_file(CONFIG)
 
 
-def _text(rng, B, T, lengths, vocab):
+def text_rows(rng, B, T, lengths, vocab):
     """[CLS] tokens [SEP] rows of the given lengths, MLM labels on 15% of
     the tokens between (-1 elsewhere, padding included)."""
     ids = np.zeros((B, T), np.int32)
@@ -60,7 +62,7 @@ def synth_batches(batch: int, seq_len: int, n_regions: int, feat_dim: int = 2048
     tags with 15% masked, half the pairs mismatched."""
     rng = np.random.RandomState(seed)
     B, T, N = batch, seq_len, n_regions
-    vl = _text(rng, B, T, rng.randint(6, T + 1, B), vocab)
+    vl = text_rows(rng, B, T, rng.randint(6, T + 1, B), vocab)
     feats = rng.randn(B, N, feat_dim).astype(np.float32)
     fm = (rng.rand(B, N) < MASK_PROB).astype(np.float32)
     obj, attr = rng.randint(0, N_OBJ, (B, N)), rng.randint(0, N_ATTR, (B, N))
@@ -78,15 +80,16 @@ def synth_batches(batch: int, seq_len: int, n_regions: int, feat_dim: int = 2048
         visual_tags_objective=np.where(tag_masked, tags, -1).astype(np.int32),
         matched_label=rng.randint(0, 2, B).astype(np.int32),
     )
-    text = _text(rng, B, TEXT_SEQ_LENGTH, rng.randint(TEXT_SEQ_LENGTH // 2, TEXT_SEQ_LENGTH + 1, B), vocab)
+    text = text_rows(rng, B, TEXT_SEQ_LENGTH, rng.randint(TEXT_SEQ_LENGTH // 2, TEXT_SEQ_LENGTH + 1, B), vocab)
     return vl, text
 
 
 def build(device="cuda", batch=None, raw=None):
     """A Trainer over ``UnsupervisedVisualBert`` of ``raw`` (default the
-    config file) on ``device``, with seeded random weights, and the V&L and
-    text-only batches of the config's shape there (``batch`` rows, default
-    the config's): ``(trainer, {"vl": ..., "text": ...})``."""
+    config file) on ``device``, with seeded random weights, and the V&L,
+    text-only and image-only batches of the config's shape there (``batch``
+    rows, default the config's): ``(trainer, {"vl": ..., "text": ...,
+    "image": ...})``."""
     from visualbert_torch.config import OptimizerConfig, TrainConfig, VisualBertConfig
     from visualbert_torch.models.unsupervised import UnsupervisedConfig, UnsupervisedVisualBert
     from visualbert_torch.ops.limits import check_kernel_limits
@@ -103,4 +106,5 @@ def build(device="cuda", batch=None, raw=None):
     B = raw["train"]["train_batch_size"] if batch is None else batch
     vl, text = synth_batches(B, int(d["max_seq_length"]), int(d["n_regions"]), feat_dim=cfg.visual_embedding_dim,
                              vocab=cfg.vocab_size)
-    return trainer, {"vl": to_device(vl, device), "text": to_device(text, device)}
+    image = {k: v for k, v in vl.items() if k not in text and k != "matched_label"}
+    return trainer, {"vl": to_device(vl, device), "text": to_device(text, device), "image": to_device(image, device)}

@@ -11,7 +11,8 @@ subtree through ``export_state_dict``, its ``detector`` subtree through
 ``export_resnet50_state_dict``) under the port model's prefixes.
 :func:`unsupervised_state` turns the Flax tree of an
 ``UnsupervisedVisualBert`` or ``UnsupervisedVQAModel`` into the port
-model's state dict, with numpy only.
+model's state dict, with numpy only; :func:`unsup_e2e_state` joins it with a
+detector export for the end-to-end model.
 """
 
 from __future__ import annotations
@@ -57,6 +58,17 @@ def detector_model_state(bert_state: Mapping[str, np.ndarray],
     ``detector.``."""
     out = {f"bert.{k}": np.asarray(v) for k, v in bert_state.items()}
     out.update((f"detector.{k}", np.asarray(v)) for k, v in detector_state.items())
+    return out
+
+
+def unsup_e2e_state(detector_state: Mapping[str, np.ndarray], trunk_params: Mapping) -> Dict[str, np.ndarray]:
+    """The state dict of the port's ``UnsupervisedEndToEnd`` from a Flax
+    one: ``detector_state`` is ``export_resnet50_state_dict`` of its
+    ``detector`` subtree (torchvision keys, the heads included),
+    ``trunk_params`` its ``trunk`` subtree. They land under ``detector.``
+    (as :func:`detector_model_state` lands them) and ``trunk.``."""
+    out = detector_model_state({}, detector_state)
+    out.update((f"trunk.{k}", v) for k, v in unsupervised_state(trunk_params).items())
     return out
 
 
