@@ -35,14 +35,16 @@ non-zero without printing the final line:
    scaled_dot_product_attention and their bound; and at the unsupervised
    step's (144 rows, T = 30 text + 36 tags + 36 regions = 102, T = 64
    text-only and T = 36 + 36 = 72 image-only, each row's text padded after
-   its length) and at the end-to-end step's (32 rows, T = 102) likewise;
+   its length) and at the end-to-end step's (32 rows, T = 102) likewise,
+   and on a phase-25 mesh rank's share of the main path's inputs: (2, 1)'s
+   64 rows of 12 heads and (1, 2)'s 128 rows of 6 heads;
    K4, K5 and K6 (the fused MLM cross-entropy: forward, dx, d embedding and
    d bias) at N = 128 x 24 = 3072 rows, H=768, V=30522, bf16, 15 % of labels
    -1 and a non-uniform cotangent, again at bert-large's H=1024 and at
    vqa_advanced's N = 64 x 4 = 256 rows and at the unsupervised step's
    N = 144 x 30 = 4320 (V&L) and 144 x 64 = 9216 (text-only) rows and the
    end-to-end step's 32 x 30 = 960, with each step's own labels, most of
-   them -1 (timed beside their bounds and
+   them -1, and at a phase-25 mesh rank's N = 64 x 24 = 1536 (timed beside their bounds and
    cuBLAS's products there, with their grids and splits; the site kernels
    at the unsupervised shapes likewise beside F.dropout); K4
    (x in wgmma A fragments, a cp.async ring) and K5 and K6 (one wgmma
@@ -246,7 +248,29 @@ non-zero without printing the final line:
    phase 7's COCO synthetic set (two epochs of batches of 128, 4 workers):
    every batch bit for bit. HDF5 features are not driven here: the card's
    machine has no h5py;
-24. prints the kernel table as one JSON line (launches from phase 6: the
+25. the (data, model) mesh (visualbert_torch/parallel) on the one card. (a)
+   Two ranks over gloo (visualbert_torch/tools/mesh_path.py, each a process
+   of its own; NCCL refuses two ranks on one device) run the main path at
+   full width with the fused LayerNorm and both dropout rates 0,
+   MESH_STEPS steps on the config's 128 pairs: on mesh (2, 1) (64 rows a
+   rank) and on (1, 2) (6 heads and 1536 FFN columns a rank, the
+   cross-entropy's rows split). Each must give the one-process run's
+   losses within MESH_LOSS_TOL and every parameter's update within
+   MESH_UPDATE_TOL (below), and every rank must launch 12 K1, 12 K2, one
+   each of K4-K6, 24 K7 and 24 K8 a step. Then MESH_DROPOUT_STEPS steps on
+   (1, 2) with dropout 0.1 (the embeddings' K3 site, K9/K10): every
+   parameter that both ranks hold whole must stay bit-equal, and, before
+   the trainer's broadcast of those gradients from model rank 0, model
+   rank 1's whole-held gradients must be within MESH_GRAD_GAP_TOL of rank
+   0's every step (peers that drew different hidden-state masks would be
+   apart by the gradients' size). Each rank prints its launches a step,
+   K1/K2's time on its heads, its median step, peak memory and its
+   collectives' calls, time and bytes a step (the ranks share the card: no
+   scaling is measured). (b)
+   `torchrun --standalone --nproc_per_node 1 -m visualbert_torch.train_cli`
+   (NCCL) on phase 7's COCO synthetic config with `"mesh_shape": [1, 1]`:
+   one epoch of 4 steps whose checkpoint must load back;
+26. prints the kernel table as one JSON line (launches from phase 6: the
    fused-LayerNorm main path's STEPS steps, for K7/K8 its dropout-0 step,
    for K11-K14 the runs with their settings, for K15/K16 the tools' run,
    for K3's mask the calls of its wrapper in tools/dropout_steps.py's run
@@ -364,6 +388,29 @@ EXP_DB_TOL = 8e-3      # the qkv-bias gradient, as out          [9.5e-4, 1.9e-3]
 EXP_FIRST_DESIGN_MS = {"attn_exp_fwd": (0.7859, 0.8029), "attn_exp_bwd": (1.9802, 2.0180),
                        "attn_hgrid_fwd": (0.4891, 0.4997), "attn_hgrid_bwd": (1.2654, 1.2776)}
 SLICE_REL_TOL = 2e-2  # kernel paths vs einsum + unfused path loss, bf16 model
+# phase 25: the mesh's runs against the one-process run on the same seeded
+# weights and batch (bf16 model; the ranks sum in another order), each limit
+# about 4x the H100 readings in brackets ((2, 1), (1, 2))
+MESH_STEPS = 2
+MESH_DROPOUT_STEPS = 3
+MESH_LOSS_TOL = 1e-4    # |loss - one-process loss| / one-process loss, every step  [2.4e-5, 2.2e-5]
+# each parameter tensor's update (final - initial) against the one-process
+# update: ||u_mesh - u_one|| / ||u_one||, the worst tensor; BertAdam turns
+# bf16 rounding in a gradient near zero into a full-size step of either sign
+MESH_UPDATE_TOL = 0.16  # [3.9e-2 token-type table, 3.3e-2 position table]
+# dropout 0.1 on (1, 2): before the trainer's broadcast, each whole-held
+# gradient on model rank 1 against model rank 0's, max |g1 - g0| / max |g0|,
+# the worst tensor of every step (peers that drew different hidden-state
+# masks would be apart by the gradient's own size; only the two token-type
+# tables, whose embedding backward adds in no fixed order, are apart)
+MESH_GRAD_GAP_TOL = 5e-6  # [1.24e-6, 1.04e-6, 8.0e-7 over the three steps]
+# the cross-entropy's rows on a rank of either mesh: 64 pairs x 24
+MESH_XENT_ROWS = 1536
+# launches a step on every rank at dropout 0 (K1, K2, K4, K5, K6, K7, K8) and
+# at dropout 0.1 (K1, K2, K4-K6, K9, K10, site forward and backward)
+MESH_PER_STEP = {"K1": 12, "K2": 12, "K4": 1, "K5": 1, "K6": 1, "K7": 24, "K8": 24, "K9": 0, "K10": 0,
+                 "K3 site fwd": 0, "K3 site bwd": 0}
+MESH_DROPOUT_PER_STEP = dict(MESH_PER_STEP, K7=0, K8=0, K9=24, K10=24, **{"K3 site fwd": 1, "K3 site bwd": 1})
 
 KERNELS = (  # name, wrapper module, source, the TPU kernel it replaces
     ("packed_attention_fwd", "flash_attention", "flash_attention_packed.cu",
@@ -1262,8 +1309,9 @@ def check_xent(torch, card, H=768, N=None, labels=None):
     """K4-K6 against their plain versions at the main path's rows (N = 128 x
     24 = 3072), at hidden width H (768, the main path's; 1024, bert-large's,
     is checked without a row of the kernel table), or at N rows and width
-    768 (vqa_advanced's 64 x 4 = 256: checked, timed and set beside their
-    bounds and cuBLAS's products, without a row of the kernel table), or on
+    768 (vqa_advanced's 64 x 4 = 256, a mesh rank's MESH_XENT_ROWS =
+    1536: checked, timed and set beside their bounds and cuBLAS's products,
+    without a row of the kernel table), or on
     a path's own ``labels`` (-1 ignored) at their N rows, likewise."""
     import numpy as np
 
@@ -2095,15 +2143,28 @@ def unsup_attention_inputs(torch, T, text_len, rows=UNSUP_ROWS):
     return qkv, qb, key_bias, dout
 
 
-def check_packed_at(torch, card, where, inputs):
-    """K1/K2 on ``inputs`` (a path's shapes), dropout 0 and 0.1, against
-    their plain versions at the main path's limits; timed beside
-    scaled_dot_product_attention and their bound."""
+def mesh_attention_inputs(torch, shape):
+    """K1/K2's inputs on the second rank of a two-rank mesh ``shape`` of the
+    main path: the main path's inputs (packed_inputs) cut to the rank's
+    share, (2, 1) rows 64-127 of 12 heads, (1, 2) the 128 rows' heads 6-11
+    (a block of the head-major packing is whole heads)."""
+    qkv, qb, key_bias, dout = packed_inputs(torch)
+    d, m = shape
+    rows = slice(qkv.shape[0] // d * (d - 1), None)
+    f, o = qkv.shape[2] // m, dout.shape[2] // m
+    return (qkv[rows, :, f * (m - 1):].contiguous(), qb[f * (m - 1):].contiguous(),
+            key_bias[rows].contiguous(), dout[rows, :, o * (m - 1):].contiguous())
+
+
+def check_packed_at(torch, card, where, inputs, H=12):
+    """K1/K2 on ``inputs`` (a path's shapes, H heads of 64), dropout 0 and
+    0.1, against their plain versions at the main path's limits; timed
+    beside scaled_dot_product_attention and their bound."""
     from visualbert_torch.ops import flash_attention as fa
 
     qkv, qb, key_bias, dout = inputs
     B, T, F = qkv.shape
-    H, D = 12, 64
+    D = 64
     for rate in (0.0, 0.1):
         out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, 7)
         out_r, stats_r = fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, 7)
@@ -2133,8 +2194,8 @@ def check_packed_at(torch, card, where, inputs):
     gflop = 2.0 * B * H * T * T * D / 1e9
     k1.update(bound(nbytes(qkv, qb, key_bias, out, stats), 2 * gflop * 1e9, BF16_FLOPS))
     k2.update(bound(nbytes(qkv, qb, key_bias, dout, out, stats, dqkv, dqb), 4 * gflop * 1e9, BF16_FLOPS))
-    for name, r in ((f"packed_attention_fwd at {where} [{B}, {T}]", k1),
-                    (f"packed_attention_bwd at {where} [{B}, {T}]", k2)):
+    for name, r in ((f"packed_attention_fwd at {where} [{B}, {T}, {F}]", k1),
+                    (f"packed_attention_bwd at {where} [{B}, {T}, {F}]", k2)):
         log(row_line(name, r, card))
     return k1, k2
 
@@ -2692,6 +2753,155 @@ def run_unsup_vqa_cli(torch, card):
         shutil.rmtree(folder, ignore_errors=True)
 
 
+def update_gaps(start, want, got):
+    """||u_got - u_want|| / ||u_want|| of each parameter tensor, u = final -
+    start (for a tensor the one-process step left unchanged, the frozen
+    pooler, the largest |u_got|), largest first. The key biases are left
+    out: their gradient is zero but for rounding (softmax is
+    shift-invariant), so BertAdam steps them by noise on either side."""
+    gaps = []
+    for k, w in want.items():
+        if k.endswith("attention.self.key.bias"):
+            continue
+        u_want, u_got = w - start[k], got[k] - start[k]
+        norm = float(u_want.norm())
+        gaps.append((float((u_got - u_want).norm()) / norm if norm > 0 else float(u_got.abs().max()), k))
+    return sorted(gaps, reverse=True)
+
+
+def mesh_rank_lines(what, res, per_step, steps, card):
+    """Log each rank's numbers; raise unless every rank launched ``per_step``
+    a step."""
+    for r in res:
+        heads, fwd, bwd = r["attention"]
+        got = {k: n / steps for k, n in r["launches"].items()}
+        log(f"{what} rank {r['index']}: {r['rows']} rows, launches a step "
+            + ", ".join(f"{k} {v:g}" for k, v in got.items())
+            + f"; K1 {fwd:.4f} ms, K2 {bwd:.4f} ms on {heads} heads x {r['rows']} rows (rate 0.1); median step "
+            f"{r['median_ms']:.1f} ms (both ranks on the card, gloo through the host), peak memory "
+            f"{r['peak_gib']:.2f} GiB  [{card}]")
+        coll = r["collectives"]
+        log(f"{what} rank {r['index']}: collectives a step (host clock, the card synchronized before and after "
+            f"each, a peer's wait included) " + ", ".join(
+                f"{k} {c['calls']:g} calls {c['ms']:.1f} ms {c['bytes'] / 1e6:.1f} MB" for k, c in coll.items())
+            + f"; {sum(c['ms'] for c in coll.values()):.1f} of the mean step's {statistics.mean(r['step_ms']):.1f} "
+            f"ms  [{card}]")
+        if got != per_step:
+            raise SystemExit(f"{what} rank {r['index']}: launches a step {got}, want {per_step}")
+
+
+def run_mesh_path(torch, card):
+    """Phase 25 (a): the main path on meshes (2, 1) and (1, 2) of two gloo
+    ranks sharing the card against one process, then dropout on (1, 2)."""
+    from visualbert_torch.tools import mesh_path
+    from visualbert_torch.tools.main_path import build, model_block
+
+    block = dict(model_block(), use_fused_layer_norm=True)
+    still = dict(block, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    trainer, batch = build(still)
+    start = {k: p.detach().float().cpu() for k, p in trainer.model.named_parameters()}
+    want_losses = [float(trainer.train_step(batch)["loss"]) for _ in range(MESH_STEPS)]
+    want = {k: p.detach().float().cpu() for k, p in trainer.model.named_parameters()}
+    del trainer, batch
+    torch.cuda.empty_cache()
+    log("mesh: one process, dropout 0, losses " + ", ".join(f"{x:.6f}" for x in want_losses))
+    folder = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        for shape in ((2, 1), (1, 2)):
+            what = f"mesh {shape}"
+            t0 = time.perf_counter()
+            res = mesh_path.launch(dict(block=still, mesh=shape, steps=MESH_STEPS, gather=True), 2,
+                                   os.path.join(folder, f"{shape[0]}x{shape[1]}"))
+            wall = time.perf_counter() - t0
+            losses = res[0]["losses"]
+            loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+            gaps = update_gaps(start, want, res[0]["params"])
+            gap = gaps[0][0]
+            log(f"{what}: two gloo ranks, {wall:.1f} s with start-up; losses " + ", ".join(f"{x:.6f}" for x in losses)
+                + f", max rel diff to one process {loss_gap:.2e} (tol {MESH_LOSS_TOL}); parameter update gaps "
+                + ", ".join(f"{g:.3e} ({k})" for g, k in gaps[:3]) + f", median {gaps[len(gaps) // 2][0]:.3e} over "
+                f"{len(gaps)} tensors (tol {MESH_UPDATE_TOL})")
+            mesh_rank_lines(what, res, MESH_PER_STEP, MESH_STEPS, card)
+            if any(r["losses"] != losses for r in res):
+                raise SystemExit(f"{what}: the ranks report different losses")
+            if not loss_gap <= MESH_LOSS_TOL or not gap <= MESH_UPDATE_TOL:
+                raise SystemExit(f"{what}: the mesh's steps differ from the one-process steps")
+            del res
+        res = mesh_path.launch(dict(block=block, mesh=(1, 2), steps=MESH_DROPOUT_STEPS, replicas=True), 2,
+                               os.path.join(folder, "dropout"))
+        a, b = (r["replicas"] for r in res)
+        apart = {k: float((v.float() - b[k].float()).abs().max()) for k, v in a.items() if not torch.equal(v, b[k])}
+        log(f"mesh (1, 2), dropout 0.1, {MESH_DROPOUT_STEPS} steps: losses "
+            + ", ".join(f"{x:.5f}" for x in res[0]["losses"])
+            + f"; {len(a) - len(apart)} of {len(a)} whole-held parameters bit-equal on both ranks"
+            + "".join(f"; {k} apart by up to {d:.3e}" for k, d in apart.items()))
+        equal = len(a) - len(apart)
+        # the gradients before the broadcast that makes the parameters equal
+        worst = []
+        for i, step in enumerate(res[1]["grad_gaps"]):
+            off = sorted(((g, k) for k, g in step.items() if g > 0), reverse=True)
+            worst.append(off[0][0] if off else 0.0)
+            log(f"mesh (1, 2) with dropout, step {i + 1}: whole-held gradients on model rank 1 against rank 0 "
+                f"before the broadcast: {len(step) - len(off)} of {len(step)} bit-equal"
+                + "".join(f"; {k} {g:.3e}" for g, k in off[:4]) + f" (tol {MESH_GRAD_GAP_TOL})")
+        mesh_rank_lines("mesh (1, 2) with dropout", res, MESH_DROPOUT_PER_STEP, MESH_DROPOUT_STEPS, card)
+        if set(a) != set(b) or equal != len(a) or not all(math.isfinite(x) for x in res[0]["losses"]):
+            raise SystemExit("mesh (1, 2) with dropout: the replicas drifted apart")
+        if len(worst) != MESH_DROPOUT_STEPS or not max(worst) <= MESH_GRAD_GAP_TOL:
+            raise SystemExit("mesh (1, 2) with dropout: the model peers' whole-held gradients differ (their "
+                             "hidden-state dropout masks?)")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def run_torchrun_cli(torch, card):
+    """Phase 25 (b): one NCCL rank through torchrun and the training CLI on
+    phase 7's COCO synthetic config with "mesh_shape": [1, 1]; its
+    checkpoint must load back."""
+    import subprocess
+
+    from visualbert_torch.models.visualbert import VisualBertForTask
+    from visualbert_torch.tools.main_path import CONFIG
+    from visualbert_torch.train.trainer import Trainer
+    from visualbert_torch.utils.checkpoint import CheckpointManager
+    from visualbert_torch.utils.config_io import load_config_file, load_task_config
+
+    raw = load_config_file(CONFIG)
+    d = raw["data"]
+    raw["data"] = dict({k: d[k] for k in ("max_seq_length", "max_regions", "two_sentence")}, synthetic=CLI_EXAMPLES)
+    raw["train"] = dict(raw["train"], num_train_epochs=1, mesh_shape=[1, 1])
+    folder = tempfile.mkdtemp(prefix="chip_smoke_torchrun_")
+    try:
+        path = write_config(folder, "coco_mesh.json", raw)
+        run = os.path.join(folder, "run")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+               "-m", "visualbert_torch.train_cli", "--config", path, "--folder", run]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        up = [line for line in proc.stderr.splitlines() if "torch.distributed up" in line]
+        printed = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+        log(f"torchrun cli: exit {proc.returncode}, {wall:.1f} s; {up[-1].split(': ', 1)[-1] if up else 'no init line'}"
+            f"; {printed}")
+        if proc.returncode != 0 or not up or "backend nccl" not in up[-1]:
+            raise SystemExit("torchrun cli failed:\n" + proc.stderr[-4000:])
+        summary = json.loads(printed)
+        cfg = load_task_config(path)
+        fresh = Trainer(VisualBertForTask(cfg.model, "pretraining"), cfg.optimizer, cfg.train,
+                        device="cuda").init_state()
+        ckpt = CheckpointManager(os.path.join(run, "ckpt"))
+        ckpt.restore(fresh)
+        steps = CLI_EXAMPLES // cfg.train.train_batch_size
+        finite = all(bool(torch.isfinite(p).all()) for p in fresh.model.parameters())
+        log(f"torchrun cli checkpoint {os.path.basename(ckpt.path())}: loaded strict, step {fresh.step}, "
+            f"optimizer step {fresh.optimizer.step_count}, parameters finite {finite}")
+        if summary["epochs_run"] != 1 or fresh.step != steps or fresh.optimizer.step_count != steps or not finite:
+            raise SystemExit("the torchrun CLI run's checkpoint does not load back")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -2722,8 +2932,11 @@ def main():
                                                                                         UNSUP_TEXT_T))
     check_packed_at(torch, card, "the unsupervised image-only", unsup_attention_inputs(torch, UNSUP_IMAGE_T, 0))
     check_packed_at(torch, card, "the end-to-end", unsup_attention_inputs(torch, UNSUP_VL_T, UNSUP_TT, E2E_ROWS))
+    for shape in ((2, 1), (1, 2)):
+        check_packed_at(torch, card, f"a mesh {shape} rank's", mesh_attention_inputs(torch, shape), H=12 // shape[1])
     torch.cuda.empty_cache()
     rows.update(check_xent(torch, card))
+    check_xent(torch, card, N=MESH_XENT_ROWS)
     check_xent(torch, card, H=1024)
     check_xent(torch, card, N=VQA_ADVANCED_XENT_ROWS)
     for labels in unsup_xent_labels() + (e2e_xent_labels(),):
@@ -2799,6 +3012,9 @@ def main():
     torch.cuda.empty_cache()
     run_tokenizer_check(card)
     run_process_batches(card)
+    run_mesh_path(torch, card)
+    torch.cuda.empty_cache()
+    run_torchrun_cli(torch, card)
 
     # launches: the fused-LayerNorm main path's STEPS steps; K7/K8 from its
     # dropout-0 step; K11/K12 and K13/K14 from the runs with their settings;

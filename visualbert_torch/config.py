@@ -17,7 +17,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 TPU_ONLY_MODEL_FIELDS = ("remat", "scan_layers", "ffn_recompute_act", "ffn_save_dact", "mesh")
-TPU_ONLY_TRAIN_FIELDS = ("steps_per_dispatch", "mesh_shape", "compiler_options")
+TPU_ONLY_TRAIN_FIELDS = ("steps_per_dispatch", "compiler_options")
 
 _DTYPES = {
     "float32": torch.float32,
@@ -140,7 +140,10 @@ class OptimizerConfig:
 class TrainConfig:
     """Training-loop settings (reference train.py:64-115), the JAX
     ``TrainConfig``'s defaults. Its TPU-only fields (``steps_per_dispatch``,
-    ``mesh_shape``, ``compiler_options``) have no counterpart here."""
+    ``compiler_options``) have no counterpart here. ``mesh_shape`` is the
+    (data, model) mesh over the launch's ranks (``parallel/mesh.py``); its
+    product must be the number of ranks, else every rank goes on the data
+    axis."""
 
     train_batch_size: int = 32
     eval_batch_size: int = 32
@@ -152,3 +155,7 @@ class TrainConfig:
     log_every: int = 100
     num_workers: int = 8              # Batcher threads (0 = sequential)
     nan_guard: bool = False
+    mesh_shape: Tuple[int, int] = (1, 1)  # (data, model) ranks
+
+    def __post_init__(self):
+        object.__setattr__(self, "mesh_shape", tuple(int(x) for x in self.mesh_shape))

@@ -13,8 +13,8 @@ the JAX package's.
   * **Prefetch**: one background thread keeps a bounded queue of ready
     batches while the device runs.
 
-The JAX Batcher's multi-host ``process_shard`` is not ported (ROADMAP.md
-A9).
+Under a multi-rank launch each rank keeps its contiguous slice of every
+global batch (``process_shard``), as the JAX Batcher does for each host.
 """
 
 from __future__ import annotations
@@ -100,7 +100,15 @@ class Batcher:
     host-side ``_real_count``. A dataset's ``batch_transform(batch, rng)``,
     when it has one, runs on each finished batch with a Generator keyed by
     (seed, epoch, start, 1), as in the JAX package (the in-batch random
-    feature replacement of ``data/masking.py``)."""
+    feature replacement of ``data/masking.py``).
+
+    ``batch_size`` is always the GLOBAL batch size. ``process_shard=(pi,
+    pn)`` (``parallel.mesh.Mesh.batch_shard``) walks the same global
+    schedule (same shuffle, same per-sample keys) and keeps rows ``[pi *
+    per, (pi + 1) * per)`` of each batch, ``per = batch_size // pn``: bit
+    for bit those rows of the one-process batch. ``example_weight`` is cut
+    the same way and ``_real_count`` stays the global count; a batch
+    transform sees the rank's slice as the batch."""
 
     def __init__(
         self,
@@ -113,9 +121,19 @@ class Batcher:
         pad_final: bool = False,
         num_workers: int = 0,
         worker_mode: str = "thread",
+        process_shard: Optional[tuple] = None,
     ):
         if worker_mode not in ("thread", "process"):
             raise ValueError(f"worker_mode {worker_mode!r}: 'thread' or 'process'")
+        if process_shard is not None:
+            pi, pn = process_shard
+            if batch_size % pn or not 0 <= pi < pn:
+                raise ValueError(f"process_shard {process_shard}: the batch of {batch_size} must split into "
+                                 f"{pn} equal slices, and the index lie in [0, {pn})")
+            if not (drop_last or pad_final):
+                # a short tail batch that is not padded cannot split evenly
+                raise ValueError("process_shard needs drop_last or pad_final")
+        self.process_shard = process_shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -253,6 +271,18 @@ class Batcher:
                 if self.pad_final:
                     # repeat the last indices so shapes stay static
                     idx = np.resize(idx, self.batch_size)
+            weights = None
+            if self.pad_final:
+                weights = np.zeros(len(idx), np.float32)
+                weights[:n_real] = 1.0
+            if self.process_shard is not None:
+                # this rank's contiguous slice of the global batch (the
+                # __init__ checks make len(idx) == batch_size here)
+                pi, pn = self.process_shard
+                per = self.batch_size // pn
+                idx = idx[pi * per: (pi + 1) * per]
+                if weights is not None:
+                    weights = weights[pi * per: (pi + 1) * per]
 
             # fill-into-buffer collate: each sample is written straight into
             # the batch arrays (the workers parallelise the visual-feature
@@ -280,11 +310,10 @@ class Batcher:
                 else:
                     for j in range(1, len(idx)):
                         fill(j)
-            if self.pad_final:
-                weights = np.zeros(len(idx), np.float32)
-                weights[:n_real] = 1.0
+            if weights is not None:
                 batch["example_weight"] = weights
-                batch["_real_count"] = float(n_real)  # '_' keys never reach the device
+                # the GLOBAL real count ('_' keys never reach the device)
+                batch["_real_count"] = float(n_real)
             transform = getattr(self.dataset, "batch_transform", None)
             if transform is not None:
                 # the trailing 1 keeps the key apart from the samples' (seed, epoch, index)

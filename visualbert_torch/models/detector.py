@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from visualbert_torch.models import losses
 from visualbert_torch.models.encoder import _TRUNC_STD, linear, seeded_dropout
 from visualbert_torch.ops.roi_align import roi_align
 from visualbert_torch.utils.images import IMAGENET_MEAN, IMAGENET_STD
@@ -150,6 +151,8 @@ class SimpleDetector(ResNet50Trunk):
     torchvision keys. ``semantic`` adds the mask injection and the class
     embedding (and their parameters), and needs ``classes``."""
 
+    mesh = None
+
     def __init__(self, final_dim: int = 512, semantic: bool = True, num_classes: int = 81, mask_dims: int = 32,
                  dtype: torch.dtype = torch.bfloat16, dropout_rate: float = 0.1, trunk_blocks=(3, 4, 6),
                  layer4_blocks: int = 3, width_div: int = 1):
@@ -231,7 +234,7 @@ class SimpleDetector(ResNet50Trunk):
             # masked CE over the real boxes (detector.py:128-131)
             ce = -torch.log_softmax(obj_logits, dim=-1).gather(1, labels[:, None])[:, 0]
             valid = box_mask.reshape(-1).float()
-            out["cnn_regularization_loss"] = (ce * valid).sum() / valid.sum().clamp_min(1.0)
-        feats = seeded_dropout(feats, self.dropout_rate, generator)
+            out["cnn_regularization_loss"] = (ce * valid).sum() / losses.denominator(valid.sum()).clamp_min(1.0)
+        feats = seeded_dropout(feats, self.dropout_rate, generator, self.mesh)
         out["obj_reps"] = F.relu(linear(feats, self.obj_downsample, dt)).reshape(B, N, self.final_dim)
         return out

@@ -29,6 +29,21 @@ and for attention probabilities on the einsum path, :func:`seeded_dropout`
 tensor's device seeded from that int32, so a run repeats from its seed. With
 ``cfg.use_fused_layer_norm`` the sublayer epilogue's dropout, add and
 LayerNorm run as one kernel (K9/K10, or K7/K8 without dropout).
+
+Tensor parallel (``parallel/mesh.py``; Megatron's column/row split): under
+a mesh whose model axis is m > 1, ``shard_module`` leaves each layer with
+its model rank's block of the Q/K/V rows (whole heads of the head-major
+packing, ``H / m`` of them) and of the FFN's up-projection rows, and the
+matching input columns of the attention output and FFN down projections.
+The input of each column-parallel product goes through ``copy_to_model``
+(identity forward, all-reduce backward); each row-parallel product's
+partial sums, fp32, go through ``reduce_from_model`` (one all-reduce)
+before the bias, the dropout, the add and the LayerNorm, which run on the
+replicated hidden state. The attention kernels run on the local heads with
+their seed offset by the data and model index; the hidden-state dropout
+sites (K3's body, K9) take a seed offset by the data index only, so model
+peers keep equal replicas. Collected attention probabilities are gathered
+over the heads.
 """
 
 from __future__ import annotations
@@ -49,6 +64,7 @@ from visualbert_torch.ops.layer_norm import (
     layer_norm_f32,
     reference_add_layer_norm,
 )
+from visualbert_torch.parallel.mesh import copy_to_model, gather_slices, reduce_from_model
 
 NEG_INF = -10000.0  # reference mask value (modeling.py:1294), not -inf
 _TRUNC_STD = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
@@ -64,29 +80,68 @@ def draw_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2**31 - 1, (), generator=generator))
 
 
-def seeded_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def seeded_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], mesh=None,
+                   per_model: bool = False) -> torch.Tensor:
     """``nn.Dropout``: ``where(keep, x / (1 - rate), 0)``, the keep mask drawn
-    from a generator on ``x``'s device seeded by ``draw_seed(generator)``."""
+    from a generator on ``x``'s device seeded by ``draw_seed(generator)``,
+    offset under a ``mesh`` by the data index (and by the model index too
+    with ``per_model``, for a tensor split over the model group)."""
     if generator is None or rate <= 0.0:
         return x
-    g = torch.Generator(device=x.device).manual_seed(draw_seed(generator))
+    seed = draw_seed(generator)
+    if mesh is not None:
+        seed = mesh.shard_seed(seed) if per_model else mesh.data_seed(seed)
+    g = torch.Generator(device=x.device).manual_seed(seed)
     keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-            cfg: VisualBertConfig) -> torch.Tensor:
+            cfg: VisualBertConfig, mesh=None) -> torch.Tensor:
+    """A hidden-state dropout site: the site kernels with ``cfg.fast_dropout``,
+    else :func:`seeded_dropout`; one mask across the model group."""
     if generator is None or rate <= 0.0:
         return x
     if cfg.fast_dropout:
-        return fast_dropout(x, rate, draw_seed(generator))
-    return seeded_dropout(x, rate, generator)
+        seed = draw_seed(generator)
+        return fast_dropout(x, rate, seed) if mesh is None else fast_dropout(x, rate, seed, mesh=mesh)
+    return seeded_dropout(x, rate, generator, mesh)
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """``nn.Dense(dtype=dtype)``: weight and bias cast to the compute dtype."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """``x @ w.T`` for 2-D half-precision ``x`` and ``w`` on a CUDA device,
+    accumulated and returned in fp32 (JAX's ``preferred_element_type``).
+    The backward rounds the fp32 cotangent to the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g16 = g.to(x.dtype)
+        return torch.mm(g16, w), torch.mm(g16.t(), x, out_dtype=torch.float32).to(w.dtype)
+
+
+def matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[..., E] x [V, E] -> [..., V] fp32, operands in ``x.dtype``."""
+    w = w.to(x.dtype)
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+        out = _MatmulF32Out.apply(x2, w)
+    else:
+        # products of half-precision values are exact in fp32, so this is
+        # the same math on a device without a mixed-precision product
+        out = torch.mm(x2.float(), w.float().t())
+    return out.view(*x.shape[:-1], w.shape[0])
 
 
 def init_weights(module: nn.Module, cfg: VisualBertConfig, generator: torch.Generator) -> None:
@@ -127,7 +182,8 @@ class FusedQKV(nn.Module):
 
     def forward(self, hidden: torch.Tensor, layout: str):
         cfg = self.cfg
-        E, H, D = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
+        E, D = cfg.hidden_size, cfg.head_dim
+        H = self.query.weight.shape[0] // D  # this model rank's heads
         w = torch.stack([self.query.weight, self.key.weight, self.value.weight]).to(cfg.dtype)
         b = torch.stack([self.query.bias, self.key.bias, self.value.bias]).to(cfg.dtype)
         if layout == "packed":
@@ -149,7 +205,10 @@ class ResidualNorm(nn.Module):
     ``"bhtd,hde->bte"`` of a heads-major [B, H, T, D] one) or the FFN's down
     projection. With ``use_fused_layer_norm`` the rest is one kernel,
     dispatched as JAX ``encoder.py:339-354``: K9/K10 with dropout on, K7/K8
-    without (evaluation, or a rate of 0)."""
+    without (evaluation, or a rate of 0). Under tensor parallelism
+    ``dense`` is row-parallel (see the module docstring)."""
+
+    mesh = None
 
     def __init__(self, cfg: VisualBertConfig, in_features: int):
         super().__init__()
@@ -159,7 +218,12 @@ class ResidualNorm(nn.Module):
 
     def forward(self, x, res, generator=None, heads_major: bool = False):
         cfg = self.cfg
-        if heads_major:
+        if self.mesh is not None and self.mesh.model_size > 1:
+            if heads_major:  # [B, H/m, T, D] -> [B, T, H/m * D]
+                x = x.permute(0, 2, 1, 3).reshape(x.shape[0], x.shape[2], -1)
+            partial = matmul_f32_out(x.to(cfg.dtype), self.dense.weight)
+            x = (reduce_from_model(partial, self.mesh) + self.dense.bias.float()).to(cfg.dtype)
+        elif heads_major:
             H, D = x.shape[1], x.shape[3]
             w = self.dense.weight.to(cfg.dtype).view(cfg.hidden_size, H, D)
             x = torch.einsum("bhtd,ehd->bte", x.to(cfg.dtype), w) + self.dense.bias.to(cfg.dtype)
@@ -169,9 +233,12 @@ class ResidualNorm(nn.Module):
         rate = cfg.hidden_dropout_prob if generator is not None else 0.0
         if cfg.use_fused_layer_norm:
             if rate > 0.0:
-                return fused_dropout_add_layer_norm(x, res, scale, bias, draw_seed(generator), rate, eps)
+                seed = draw_seed(generator)
+                if self.mesh is not None:
+                    seed = self.mesh.data_seed(seed)
+                return fused_dropout_add_layer_norm(x, res, scale, bias, seed, rate, eps)
             return fused_add_layer_norm(x, res, scale, bias, eps)
-        x = dropout(x, rate, generator, cfg)
+        x = dropout(x, rate, generator, cfg, self.mesh)
         return reference_add_layer_norm(x, res, scale, bias, eps)
 
 
@@ -183,7 +250,10 @@ class SelfAttention(nn.Module):
     K11/K12 with ``packed_qkv=False``; otherwise, and whenever
     ``output_probs`` asks for the probabilities, the einsum path with fp32
     scores. Returns ``(out, probs)``: the fp32 softmax ``[B, H, T, T]`` with
-    ``output_probs``, else None."""
+    ``output_probs``, else None. Under tensor parallelism the rank computes
+    its own heads (see the module docstring)."""
+
+    mesh = None
 
     def __init__(self, cfg: VisualBertConfig):
         super().__init__()
@@ -192,31 +262,38 @@ class SelfAttention(nn.Module):
         self.output = ResidualNorm(cfg, cfg.num_attention_heads * cfg.head_dim)
 
     def forward(self, hidden, attn_bias, generator=None, output_probs: bool = False):
-        cfg = self.cfg
-        H, D = cfg.num_attention_heads, cfg.head_dim
+        cfg, mesh = self.cfg, self.mesh
+        D = cfg.head_dim
+        H = self.self.query.weight.shape[0] // D  # this model rank's heads
         rate = cfg.attention_probs_dropout_prob if generator is not None else 0.0
+        x = copy_to_model(hidden, mesh)
         probs = None
         if cfg.use_flash_attention and not output_probs:
             seed = draw_seed(generator) if rate > 0.0 else None
             if not cfg.packed_qkv:
-                ctx = flash_attention_heads_major(self.self(hidden, "heads_major"), attn_bias, rate, seed)
+                ctx = flash_attention_heads_major(self.self(x, "heads_major"), attn_bias, rate, seed, mesh=mesh)
                 return self.output(ctx, hidden, generator, heads_major=True), None
-            qkv, qkv_bias = self.self(hidden, "packed")
+            qkv, qkv_bias = self.self(x, "packed")
             ctx = flash_attention_packed(qkv, H, attn_bias, rate, seed, qkv_bias=qkv_bias,
-                                         save_probs=cfg.flash_save_probs)
+                                         save_probs=cfg.flash_save_probs, mesh=mesh)
         else:
-            q, k, v = self.self(hidden, "split").unbind(dim=2)  # [B, T, H, D]
+            q, k, v = self.self(x, "split").unbind(dim=2)  # [B, T, H, D]
             scale = 1.0 / math.sqrt(D)
             scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
             scores = scores * scale + attn_bias.float()
             probs = torch.softmax(scores, dim=-1)
-            p = seeded_dropout(probs.to(cfg.dtype), rate, generator)
+            p = seeded_dropout(probs.to(cfg.dtype), rate, generator, mesh, per_model=True)
             ctx = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(*hidden.shape[:-1], H * D)
+            if output_probs and mesh is not None and mesh.model_size > 1:
+                probs = gather_slices(probs.detach(), 1, mesh.model_index, mesh.model_size, mesh.model_group)
         return self.output(ctx, hidden, generator), (probs if output_probs else None)
 
 
 class Intermediate(nn.Module):
-    """FFN up projection and exact-erf GELU (reference modeling.py:295-305)."""
+    """FFN up projection and exact-erf GELU (reference modeling.py:295-305);
+    column-parallel under tensor parallelism."""
+
+    mesh = None
 
     def __init__(self, cfg: VisualBertConfig):
         super().__init__()
@@ -224,7 +301,7 @@ class Intermediate(nn.Module):
         self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
 
     def forward(self, hidden):
-        return F.gelu(linear(hidden, self.dense, self.cfg.dtype))
+        return F.gelu(linear(copy_to_model(hidden, self.mesh), self.dense, self.cfg.dtype))
 
 
 class TransformerLayer(nn.Module):
@@ -270,6 +347,8 @@ class VisualBertEmbeddings(nn.Module):
     ``image_text_alignment`` [B, Tv, A] (-1 pad) is given, the mean of the
     aligned words' text position embeddings (modeling.py:1223-1245)."""
 
+    mesh = None
+
     def __init__(self, cfg: VisualBertConfig):
         super().__init__()
         self.cfg = cfg
@@ -313,7 +392,7 @@ class VisualBertEmbeddings(nn.Module):
                 vis = vis + vis_pos0
             text = torch.cat([text, vis], dim=1)
         out = layer_norm_f32(text, self.LayerNorm.weight, self.LayerNorm.bias, cfg.layer_norm_eps).to(cfg.dtype)
-        return dropout(out, cfg.hidden_dropout_prob, generator, cfg)
+        return dropout(out, cfg.hidden_dropout_prob, generator, cfg, self.mesh)
 
 
 class Pooler(nn.Module):

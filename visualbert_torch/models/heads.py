@@ -28,39 +28,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from visualbert_torch.config import VisualBertConfig
-from visualbert_torch.models.encoder import NEG_INF, linear, seeded_dropout
+from visualbert_torch.models.encoder import NEG_INF, linear, matmul_f32_out, seeded_dropout
 from visualbert_torch.ops.layer_norm import layer_norm_f32
-from visualbert_torch.ops.mlm_xent import mlm_xent
-
-
-class _MatmulF32Out(torch.autograd.Function):
-    """``x @ w.T`` for 2-D half-precision ``x`` and ``w`` on a CUDA device,
-    accumulated and returned in fp32 (JAX's ``preferred_element_type``).
-    The backward rounds the fp32 cotangent to the operands' dtype."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return torch.mm(x, w.t(), out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g16 = g.to(x.dtype)
-        return torch.mm(g16, w), torch.mm(g16.t(), x, out_dtype=torch.float32).to(w.dtype)
-
-
-def matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[..., E] x [V, E] -> [..., V] fp32, operands in ``x.dtype``."""
-    w = w.to(x.dtype)
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
-        out = _MatmulF32Out.apply(x2, w)
-    else:
-        # products of half-precision values are exact in fp32, so this is
-        # the same math on a device without a mixed-precision product
-        out = torch.mm(x2.float(), w.float().t())
-    return out.view(*x.shape[:-1], w.shape[0])
+from visualbert_torch.ops.mlm_xent import mlm_xent, supports_mesh
 
 
 class MLMTransform(nn.Module):
@@ -101,7 +71,11 @@ class PreTrainingHeads(nn.Module):
     Returns ``(mlm_logits, nsp_logits, mlm_nll, mlm_argmax)``: fp32 logits
     and ``None, None`` on the unfused path; ``None`` logits and the fused
     op's per-position nll and argmax (shaped like ``labels``) when
-    ``fused_mlm_xent`` is on and ``labels`` are given."""
+    ``fused_mlm_xent`` is on and ``labels`` are given. Under a mesh whose
+    model axis splits the rows, the fused op splits them there (JAX
+    ``heads.py:86-101``); otherwise the unfused decoder runs."""
+
+    mesh = None
 
     def __init__(self, cfg: VisualBertConfig):
         super().__init__()
@@ -112,13 +86,13 @@ class PreTrainingHeads(nn.Module):
     def forward(self, sequence_output, pooled_output, labels=None):
         cfg = self.cfg
         nsp = linear(pooled_output, self.seq_relationship, cfg.dtype).float()
-        if cfg.fused_mlm_xent and labels is not None:
+        if cfg.fused_mlm_xent and labels is not None and supports_mesh(labels.numel(), self.mesh):
             pred = self.predictions
             x = pred.transform(sequence_output)
             # the tied decoder weight enters in the compute dtype; autograd
             # carries d embedding through the cast into the fp32 Parameter
             nll, am = mlm_xent(x.reshape(-1, x.shape[-1]), pred.decoder.weight.to(cfg.dtype), pred.bias,
-                               labels.reshape(-1))
+                               labels.reshape(-1), mesh=self.mesh)
             return None, nsp, nll.view(labels.shape), am.view(labels.shape)
         return self.predictions(sequence_output), nsp, None, None
 
@@ -153,10 +127,12 @@ class Classifier(nn.Linear):
     never the K3 kernel). A ``nn.Linear`` itself, so its parameters carry
     the HF names ``classifier.weight`` / ``classifier.bias``."""
 
+    mesh = None
+
     def __init__(self, cfg: VisualBertConfig, num_classes: int):
         super().__init__(cfg.hidden_size, num_classes)
         self.cfg = cfg
 
     def forward(self, pooled, generator=None):
-        x = seeded_dropout(pooled, self.cfg.hidden_dropout_prob, generator)
+        x = seeded_dropout(pooled, self.cfg.hidden_dropout_prob, generator, self.mesh)
         return linear(x, self, self.cfg.dtype).float()

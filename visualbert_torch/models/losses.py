@@ -1,9 +1,54 @@
 """Losses of the task heads and of the unsupervised stack (counterpart of
-``visualbert_tpu/models/losses.py``): fp32 logits in, fp32 scalars out."""
+``visualbert_tpu/models/losses.py``): fp32 logits in, fp32 scalars out.
+
+Every mean over the batch divides by :func:`denominator`. On several data
+ranks (``Trainer`` runs the model inside :func:`global_denominators` of
+its data group) that is the count summed over the group (detached), so
+each rank's mean is its own numerator over the GLOBAL count, and the sum of
+the ranks' values, which the Trainer takes for the gradients and the
+metrics, is the mean over the global batch that the JAX package computes.
+Averaging the ranks' own means would weight a rank with few labelled rows
+as much as one with many. On one rank nothing changes.
+"""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.distributed as dist
+
+_DATA_GROUP = None
+
+
+@contextlib.contextmanager
+def global_denominators(group):
+    """Within the block, :func:`denominator` sums over ``group`` (None:
+    this rank alone)."""
+    global _DATA_GROUP
+    previous, _DATA_GROUP = _DATA_GROUP, group
+    try:
+        yield
+    finally:
+        _DATA_GROUP = previous
+
+
+def denominator(count: torch.Tensor) -> torch.Tensor:
+    """The denominator of a batch mean: ``count`` (an element or label
+    count, a weight sum) itself on one rank, its sum over the data group
+    (fp32, no gradient) inside :func:`global_denominators`."""
+    if _DATA_GROUP is None:
+        return count
+    total = count.detach().float().clone()
+    dist.all_reduce(total, group=_DATA_GROUP)
+    return total
+
+
+def batch_mean(values: torch.Tensor) -> torch.Tensor:
+    """``values.mean()`` over the global batch."""
+    if _DATA_GROUP is None:
+        return values.mean()
+    return values.sum() / denominator(torch.tensor(values.numel(), device=values.device))
 
 
 def masked_nll_mean(nll: torch.Tensor, labels: torch.Tensor, ignore_index: int = -1) -> torch.Tensor:
@@ -13,7 +58,7 @@ def masked_nll_mean(nll: torch.Tensor, labels: torch.Tensor, ignore_index: int =
     labels = labels.reshape(-1)
     valid = labels != ignore_index
     nll = torch.where(valid, nll.reshape(-1), torch.zeros((), device=nll.device))
-    return nll.sum() / valid.sum().clamp_min(1)
+    return nll.sum() / denominator(valid.sum()).clamp_min(1)
 
 
 def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -1) -> torch.Tensor:
@@ -26,7 +71,7 @@ def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor, ignor
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(1, labels.clamp_min(0)[:, None])[:, 0]
     nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
-    return nll.sum() / valid.sum().clamp_min(1)
+    return nll.sum() / denominator(valid.sum()).clamp_min(1)
 
 
 def weighted_mean(values: torch.Tensor, weights=None) -> torch.Tensor:
@@ -34,9 +79,9 @@ def weighted_mean(values: torch.Tensor, weights=None) -> torch.Tensor:
     (1.0 real / 0.0 tail-pad duplicate, ``Batcher(pad_final=True)``)."""
     values = values.float()
     if weights is None:
-        return values.mean()
+        return batch_mean(values)
     w = weights.float()
-    return (values * w).sum() / w.sum().clamp_min(1e-12)
+    return (values * w).sum() / denominator(w.sum()).clamp_min(1e-12)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, weights=None) -> torch.Tensor:

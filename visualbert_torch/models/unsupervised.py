@@ -46,7 +46,7 @@ from visualbert_torch.models.encoder import (Pooler, TransformerEncoder, init_we
                                              seeded_dropout)
 from visualbert_torch.models.heads import LMPredictionHead, MLMTransform, PreTrainingHeads
 from visualbert_torch.ops.layer_norm import layer_norm_f32
-from visualbert_torch.ops.mlm_xent import mlm_xent
+from visualbert_torch.ops.mlm_xent import mlm_xent, supports_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +80,8 @@ class ThreeStreamEmbeddings(nn.Module):
     """Text, tag and region tokens, each stream under its own LayerNorm
     (one joint LayerNorm with ``joint_layer_norm``), concatenated and
     dropped out."""
+
+    mesh = None
 
     def __init__(self, ucfg: UnsupervisedConfig):
         super().__init__()
@@ -139,7 +141,7 @@ class ThreeStreamEmbeddings(nn.Module):
         out = torch.cat(parts, dim=1)
         if ucfg.joint_layer_norm:
             out = self._norm(out, self.LayerNorm)
-        return seeded_dropout(out, cfg.hidden_dropout_prob, generator)
+        return seeded_dropout(out, cfg.hidden_dropout_prob, generator, self.mesh)
 
 
 class LXRTModel(nn.Module):
@@ -209,7 +211,7 @@ def _masked_ce(logits, labels, conf):
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     nll = torch.where(labels >= 0, nll, torch.zeros((), device=nll.device))
-    return (nll * conf.float()).mean()
+    return losses.batch_mean(nll * conf.float())
 
 
 class UnsupervisedVisualBert(nn.Module):
@@ -227,6 +229,8 @@ class UnsupervisedVisualBert(nn.Module):
     ``obj_labels``/``attr_labels`` [B, Nv], ``obj_conf``/``attr_conf``,
     ``feat_target`` [B, Nv, Df], ``feat_mask`` [B, Nv]; ``matched_label``
     [B] and ``ans`` [B] (-1 ignored)."""
+
+    mesh = None
 
     def __init__(self, ucfg: UnsupervisedConfig):
         super().__init__()
@@ -285,11 +289,13 @@ class UnsupervisedVisualBert(nn.Module):
             labels = batch.get("masked_lm_labels")
             out["matched_logits"] = matched_logits = linear(pooled, self.cls.seq_relationship, cfg.dtype).float()
             pred = self.cls.predictions
-            if cfg.fused_mlm_xent and ucfg.task_mask_lm and labels is not None:
-                # every text row, -1 labels included, through K4-K6
+            if (cfg.fused_mlm_xent and ucfg.task_mask_lm and labels is not None
+                    and supports_mesh(labels.numel(), self.mesh)):
+                # every text row, -1 labels included, through K4-K6 (rows
+                # split over the model group under a mesh, JAX :310-330)
                 x = pred.transform(lang_out)
                 nll, _ = mlm_xent(x.reshape(-1, x.shape[-1]), pred.decoder.weight.to(cfg.dtype), pred.bias,
-                                  labels.reshape(-1))
+                                  labels.reshape(-1), mesh=self.mesh)
                 out["masked_lm_loss"] = loss = losses.masked_nll_mean(nll, labels)
                 total = total + loss
             else:
@@ -307,7 +313,8 @@ class UnsupervisedVisualBert(nn.Module):
                 total = total + loss
                 # over the labelled rows (reference LXMERTEvaluator, lxmert_data.py:892-946)
                 valid = ans >= 0
-                out["qa_accuracy"] = ((ans_logits.argmax(dim=-1) == ans) & valid).sum() / valid.sum().clamp_min(1)
+                out["qa_accuracy"] = (((ans_logits.argmax(dim=-1) == ans) & valid).sum()
+                                     / losses.denominator(valid.sum()).clamp_min(1))
 
         if ucfg.task_obj_predict and visn_out is not None and batch.get("obj_labels") is not None:
             preds = self.obj_predict_head(visn_out)
@@ -315,7 +322,7 @@ class UnsupervisedVisualBert(nn.Module):
             out["obj_loss"] = _masked_ce(preds["obj"], batch["obj_labels"], batch["obj_conf"]) * w
             out["attr_loss"] = _masked_ce(preds["attr"], batch["attr_labels"], batch["attr_conf"]) * w
             feat_l = losses.smooth_l1(preds["feat"], batch["feat_target"]).mean(dim=-1)
-            out["feat_loss"] = (feat_l * batch["feat_mask"].float()).mean() * w
+            out["feat_loss"] = losses.batch_mean(feat_l * batch["feat_mask"].float()) * w
             total = total + out["obj_loss"] + out["attr_loss"] + out["feat_loss"]
 
         if ucfg.task_obj_predict and tags_out is not None and batch.get("visual_tags_objective") is not None:

@@ -178,7 +178,7 @@ class VisualBertForTask(nn.Module):
             if mlm_nll is not None:
                 # fused path: the same ignore_index=-1 mean over per-row nll
                 zero = torch.zeros((), device=mlm_nll.device)
-                mlm_loss = torch.where(valid, mlm_nll, zero).sum() / valid.sum().clamp_min(1)
+                mlm_loss = torch.where(valid, mlm_nll, zero).sum() / losses.denominator(valid.sum()).clamp_min(1)
                 pred = mlm_pred
             else:
                 mlm_loss = losses.cross_entropy_ignore_index(mlm_logits, gathered_labels)
@@ -186,7 +186,7 @@ class VisualBertForTask(nn.Module):
             out["masked_lm_loss"] = mlm_loss
             total = total + mlm_loss
             correct = valid & (pred == gathered_labels)
-            out["mlm_accuracy"] = correct.sum() / valid.sum().clamp_min(1)
+            out["mlm_accuracy"] = correct.sum() / losses.denominator(valid.sum()).clamp_min(1)
         if pretraining and batch.get("is_random_next") is not None:
             nsp_loss = losses.cross_entropy_ignore_index(
                 nsp_logits, _drop_zero_weight_labels(batch["is_random_next"].reshape(-1), example_weight)
@@ -241,7 +241,7 @@ class VisualBertForTask(nn.Module):
         }
         # a hit: the argmax region carries gold mass (reference modeling.py:1648-1676)
         hit = torch.gather(label, 2, scores.argmax(dim=-1, keepdim=True))[..., 0] > 0
-        n_entities = pos_mask.sum().clamp_min(1)
+        n_entities = losses.denominator(pos_mask.sum()).clamp_min(1)
         out["accuracy"] = (hit & pos_mask).sum() / n_entities
         # the gold mass within the kept regions caps the accuracy (upper_bound_labels, :1595-1596, 1652)
         out["upperbound_accuracy"] = torch.where(pos_mask, label.sum(dim=-1), 0.0).sum() / n_entities

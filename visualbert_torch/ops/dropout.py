@@ -235,11 +235,16 @@ class _FastDropout(torch.autograd.Function):
         return dropout_bwd(dy.contiguous(), bits, ctx.rate), None, None
 
 
-def fast_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def fast_dropout(x: torch.Tensor, rate: float, seed: int, mesh=None) -> torch.Tensor:
     """Dropout on the mask kernel's bits with ``nn.Dropout``'s gradient
     (``visualbert_tpu/ops/dropout.py:148-161``): ``x * m``, the rescale
     rounded to ``x.dtype`` first as the JAX package does; ``seed`` is a
-    Python int, one per site and step. Rate 0 returns ``x`` itself."""
+    Python int, one per site and step. Rate 0 returns ``x`` itself.
+    ``mesh``: this rank's (data, model) mesh, ``x`` its rows; the seed is
+    offset by the data index only (``Mesh.data_seed``, JAX ``:140``), so
+    model peers, whose hidden states are replicated, draw one mask."""
     if rate <= 0.0:
         return x
+    if mesh is not None:
+        seed = mesh.data_seed(seed)
     return _FastDropout.apply(x.contiguous(), float(rate), int(seed))

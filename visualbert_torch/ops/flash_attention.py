@@ -44,6 +44,13 @@ The dropout keep bit of probability (b, h, i, j) is a pure function of
 (seed, b, h, i, j) — see ``csrc/philox.cuh::attn_philox`` and its twin
 :func:`attention_keep_reference` — so forward and backward draw the same
 mask, and kernel and plain version draw it bit for bit.
+
+Under a (data, model) mesh (``parallel/mesh.py``) each rank calls the ops
+on its own shard: its rows of the batch and its whole heads (``H / m``,
+a contiguous block of the head-major packing). The ``mesh`` argument offsets
+the dropout seed by the data and model index (``Mesh.shard_seed``; JAX
+``:740``/``:761`` offset theirs inside ``shard_map``), so every rank draws
+its own probabilities' mask.
 """
 
 from __future__ import annotations
@@ -629,10 +636,11 @@ def _key_bias(bias):
     return key_bias.to(torch.float32).contiguous()
 
 
-def _seed(what, rate, seed) -> int:
+def _seed(what, rate, seed, mesh=None) -> int:
     if rate > 0.0 and seed is None:
         raise ValueError(f"{what}: dropout needs a seed")
-    return int(seed or 0)
+    seed = int(seed or 0)
+    return mesh.shard_seed(seed) if mesh is not None and rate > 0.0 else seed
 
 
 def _prepare(qkv, bias, qkv_bias):
@@ -642,7 +650,7 @@ def _prepare(qkv, bias, qkv_bias):
 
 def flash_attention_packed(qkv: torch.Tensor, n_heads: int, bias: torch.Tensor, dropout_rate: float = 0.0,
                            seed: Optional[int] = None, qkv_bias: Optional[torch.Tensor] = None,
-                           save_probs: bool = False) -> torch.Tensor:
+                           save_probs: bool = False, mesh=None) -> torch.Tensor:
     """Fused attention over a packed QKV projection: K1 forward and K2
     backward, or with ``save_probs`` K13 and K14.
 
@@ -650,8 +658,9 @@ def flash_attention_packed(qkv: torch.Tensor, n_heads: int, bias: torch.Tensor, 
     bias: [B, 1, 1, T] or [B, T] additive key mask (0 valid, -10000 pad).
     seed: int, required when ``dropout_rate > 0``. With ``save_probs`` the
     bias is added here, before the kernels, as the JAX op does, so autograd
-    produces its gradient. Returns [B, T, H*D]."""
-    seed = _seed("flash_attention_packed", dropout_rate, seed)
+    produces its gradient. ``mesh``: this rank's (data, model) mesh; the
+    tensors are its shard. Returns [B, T, H*D]."""
+    seed = _seed("flash_attention_packed", dropout_rate, seed, mesh)
     if save_probs:
         if qkv_bias is not None:
             qkv = qkv + qkv_bias
@@ -669,9 +678,10 @@ def flash_attention_packed_reference(qkv: torch.Tensor, n_heads: int, bias: torc
 
 
 def flash_attention_heads_major(qkv: torch.Tensor, bias: torch.Tensor, dropout_rate: float = 0.0,
-                                seed: Optional[int] = None) -> torch.Tensor:
+                                seed: Optional[int] = None, mesh=None) -> torch.Tensor:
     """Fused attention on one heads-major [B, 3, H, T, D] tensor of biased
     q, k, v (K11 forward, K12 backward; its gradient is one tensor of the
-    same layout). Returns [B, H, T, D]."""
-    seed = _seed("flash_attention_heads_major", dropout_rate, seed)
+    same layout); ``mesh`` as :func:`flash_attention_packed`'s. Returns
+    [B, H, T, D]."""
+    seed = _seed("flash_attention_heads_major", dropout_rate, seed, mesh)
     return _HeadsMajorAttention.apply(qkv.contiguous(), _key_bias(bias), float(dropout_rate), seed)

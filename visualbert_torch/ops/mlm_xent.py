@@ -37,8 +37,16 @@ Kernels (``csrc/mlm_xent.cu``, design notes there):
 On CPU tensors the wrappers compute the plain versions
 (:func:`mlm_xent_fwd_reference`, :func:`mlm_xent_dx_reference`,
 :func:`mlm_xent_de_reference`, which materialise the logits); on CUDA
-tensors they launch the kernels or raise. The JAX op's ``mesh`` argument
-has no counterpart: multi-GPU is ROADMAP.md A9.
+tensors they launch the kernels or raise.
+
+Under a (data, model) mesh (``parallel/mesh.py``) the rows split over data
+x model, as in JAX's ``shard_map`` (``ops/mlm_xent.py:312-350``): a data
+rank holds its batch's rows already, and with ``mesh`` of model size m
+each model rank runs K4-K6 on its ``N / m`` block of those (replicated)
+rows; the table and the bias stay whole. nll and argmax are gathered over
+the model group, dx likewise, and d embedding and d bias are summed there.
+:func:`supports_mesh` says when the rows split; callers take the unfused
+decoder otherwise.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ import torch
 
 from visualbert_torch.ops import _build
 from visualbert_torch.ops._build import sm_count
+from visualbert_torch.parallel.mesh import all_reduce, gather_slices
 
 KERNEL_WIDTHS = (768, 1024)  # the hidden widths K4-K6 are instantiated for
 
@@ -285,15 +294,63 @@ class _MlmXent(torch.autograd.Function):
         return dx, de, db, None
 
 
+class _MlmXentRows(torch.autograd.Function):
+    """The op on this model rank's block of the rows; nll and argmax (as
+    fp32, exact below 2^24) gathered in one collective, dx gathered, d
+    embedding and d bias summed over the model group."""
+
+    @staticmethod
+    def forward(ctx, x, emb, bias, labels, mesh):
+        n = x.shape[0] // mesh.model_size
+        rows = slice(mesh.model_index * n, (mesh.model_index + 1) * n)
+        xl, ll = x[rows].contiguous(), labels[rows].contiguous()
+        nll, lse, am = mlm_xent_fwd(xl, emb, bias, ll)
+        both = gather_slices(torch.stack([nll, am.float()], dim=1), 0, mesh.model_index, mesh.model_size,
+                             mesh.model_group)
+        ctx.save_for_backward(xl, emb, bias, ll, lse)
+        ctx.mesh, ctx.rows = mesh, rows
+        am = both[:, 1].to(torch.int32)
+        ctx.mark_non_differentiable(am)
+        return both[:, 0].contiguous(), am
+
+    @staticmethod
+    def backward(ctx, dnll, _):
+        xl, emb, bias, ll, lse = ctx.saved_tensors
+        mesh = ctx.mesh
+        g = dnll[ctx.rows].float().contiguous()
+        dx = de = db = None
+        if ctx.needs_input_grad[0]:
+            dx = gather_slices(mlm_xent_dx(xl, emb, bias, ll, lse, g), 0, mesh.model_index, mesh.model_size,
+                               mesh.model_group)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            de, db = mlm_xent_de(xl, emb, bias, ll, lse, g)
+            all_reduce(de, mesh.model_group)
+            all_reduce(db, mesh.model_group)
+        return dx, de, db, None, None
+
+
+def supports_mesh(n_rows: int, mesh) -> bool:
+    """Whether :func:`mlm_xent` can take ``mesh``: this rank's ``n_rows``
+    must split evenly over its model group (JAX's predicate, whose global
+    rows split over data x model, on the rows a data rank holds)."""
+    return mesh is None or mesh.model_size == 1 or n_rows % mesh.model_size == 0
+
+
 def mlm_xent(x: torch.Tensor, embedding: torch.Tensor, bias: torch.Tensor,
-             labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+             labels: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row NLL and argmax of the tied-decoder softmax, fused.
 
     x: [N, H] transformed hidden states (bf16 on the kernel path);
     embedding: [V, H] tied word-embedding table, cast to x's dtype;
     bias: [V] decoder bias, used in fp32; labels: [N] int (-1 entries are
     computed as label 0 and masked by the caller).
+    ``mesh``: this rank's (data, model) mesh, ``x`` its rows, replicated
+    over the model group; the rows split there (:func:`supports_mesh`).
     Returns (nll [N] fp32, argmax [N] int32); gradients flow to x,
     embedding and bias."""
+    if mesh is not None and mesh.model_size > 1:
+        assert supports_mesh(x.shape[0], mesh), (x.shape[0], mesh.model_size)
+        return _MlmXentRows.apply(x.contiguous(), embedding.to(x.dtype).contiguous(), bias.float().contiguous(),
+                                  labels.clamp_min(0).to(torch.int32).contiguous(), mesh)
     return _MlmXent.apply(x.contiguous(), embedding.to(x.dtype).contiguous(), bias.float().contiguous(),
                           labels.clamp_min(0).to(torch.int32).contiguous())

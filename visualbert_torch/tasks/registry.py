@@ -10,6 +10,16 @@ real-data paths (documented per task; HDF5 features through ``H5Features``,
 which needs h5py).
 Every task runs on the device it is given: ``"cuda"`` for the kernels,
 ``"cpu"`` for their plain versions.
+
+Under a multi-rank launch (``parallel/distributed.py``) every task builds
+its Trainer on ``create_mesh(cfg.train.mesh_shape)`` (JAX ``:69-84``) and
+every Batcher keeps the rank's data slice of each global batch. Evaluation
+metrics are global and exact; each rank dumps its own slice of the eval
+split (its real rows only) into ``<folder>/rank_<r>``, as JAX documents
+for its hosts (``docs/DISTRIBUTED.md`` "Caveats"), so a dump file, and the
+numbers a dump hook adds (NLVR2's official accuracy, Flickr30k's recall),
+cover that rank's slice; ``--eval_only`` on one process gives one file.
+Rank 0 writes the checkpoints and the run log.
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ from visualbert_torch.data.pipeline import Batcher, prefetch
 from visualbert_torch.data.tokenization import BertTokenizer
 from visualbert_torch.models.visualbert import VisualBertForTask
 from visualbert_torch.ops.limits import check_kernel_limits
+from visualbert_torch.parallel import distributed
+from visualbert_torch.parallel.mesh import all_reduce_numbers, create_mesh
 from visualbert_torch.train import loop
 from visualbert_torch.train.loop import FitResult, fit
 from visualbert_torch.train.trainer import Trainer
@@ -65,8 +77,16 @@ def _tokenizer(cfg: TaskConfig) -> BertTokenizer:
 
 
 def _trainer(cfg: TaskConfig, model, device) -> Trainer:
+    """The task's Trainer on this rank's place in ``cfg.train.mesh_shape``
+    (collective: every rank calls it once)."""
     check_kernel_limits(cfg.model, device)
-    return Trainer(model, cfg.optimizer, cfg.train, device=device)
+    return Trainer(model, cfg.optimizer, cfg.train, device=device, mesh=create_mesh(cfg.train.mesh_shape))
+
+
+def _process_shard(trainer: Trainer):
+    """``Batcher(process_shard=...)`` of this rank: its data slice of every
+    global batch, or None on one data rank (or a Trainer without a mesh)."""
+    return None if trainer.mesh is None else trainer.mesh.batch_shard()
 
 
 def _default_frozen_pooler(cfg: TaskConfig) -> TaskConfig:
@@ -88,7 +108,8 @@ def _restore(cfg: TaskConfig, trainer: Trainer) -> Trainer:
     if path.endswith((".th", ".pth", ".bin")):
         from visualbert_torch.tools.import_torch import restore_torch_file
 
-        loaded = restore_torch_file(trainer.model, path, cfg.model)
+        with trainer.gathered():  # the reference layout holds whole tensors
+            loaded = restore_torch_file(trainer.model, path, cfg.model)
         log.info("restored torch checkpoint %s: %d leaves of the Flax layout loaded", path, len(loaded))
         return trainer
     if os.path.isdir(path):
@@ -127,11 +148,13 @@ def _run_fit(cfg: TaskConfig, trainer: Trainer, train_ds, eval_ds=None, dump_hoo
     trainer.init_state()
     if cfg.restore_checkpoint:
         _restore(cfg, trainer)
-    train_b = Batcher(train_ds, cfg.train.train_batch_size, seed=cfg.train.seed, num_workers=cfg.train.num_workers)
+    shard = _process_shard(trainer)
+    train_b = Batcher(train_ds, cfg.train.train_batch_size, seed=cfg.train.seed, num_workers=cfg.train.num_workers,
+                      process_shard=shard)
     eval_b = None
     if eval_ds is not None:
         eval_b = Batcher(eval_ds, cfg.train.eval_batch_size, shuffle=False, seed=cfg.train.seed, drop_last=False,
-                         pad_final=True, num_workers=cfg.train.num_workers)
+                         pad_final=True, num_workers=cfg.train.num_workers, process_shard=shard)
     try:
         if cfg.eval_only:
             metrics = evaluate(trainer, eval_b, dump_hook, cfg.folder, out_select)
@@ -156,17 +179,26 @@ def evaluate(trainer: Trainer, eval_b: Batcher, dump_hook, folder: str, out_sele
     folder)`` for the prediction files (JAX ``registry.py:151-215``, one
     process). ``out_select(outputs) -> outputs`` reduces the outputs on
     their device before the host copy (``vqa_advanced``'s argmax over
-    [B, P, 30522] logits)."""
+    [B, P, 30522] logits). Under a multi-rank launch the scalar metrics are
+    global; the hook sees this rank's rows, each batch's ``_real_count``
+    the rank's own real rows (the tail-pad repeats trimmed per rank), and
+    writes into ``<folder>/rank_<r>``."""
     collected = []
+    sharded = eval_b.process_shard is not None
 
     def collect(batch, out):
         if dump_hook is not None:
             if out_select is not None:
                 out = out_select(out)
+            if sharded:
+                batch = dict(batch, _real_count=float(np.sum(batch["example_weight"])))
             collected.append((batch, {k: v.detach().cpu().numpy() for k, v in out.items() if v is not None}))
 
     metrics = loop.evaluate(trainer, eval_b.epoch(0), collect)
     if dump_hook is not None:
+        if distributed.is_distributed():
+            folder = os.path.join(folder, f"rank_{distributed.rank()}")
+            os.makedirs(folder, exist_ok=True)
         metrics.update(dump_hook(collected, folder) or {})
     log.info("eval: %s", {k: round(v, 4) for k, v in metrics.items()})
     return metrics
@@ -575,7 +607,7 @@ def run_flickr_probe(cfg: TaskConfig, device):
     if cfg.restore_checkpoint:
         _restore(cfg, trainer)
     eval_b = Batcher(ds, cfg.train.eval_batch_size, shuffle=False, seed=cfg.train.seed, drop_last=False,
-                     pad_final=True, num_workers=cfg.train.num_workers)
+                     pad_final=True, num_workers=cfg.train.num_workers, process_shard=_process_shard(trainer))
     hits, total = None, 0
     try:
         for batch in eval_b.epoch(0):
@@ -589,10 +621,14 @@ def run_flickr_probe(cfg: TaskConfig, device):
             total += t
     finally:
         eval_b.close()
+    # the split's counts: every data rank's hits and entities summed
+    counts = all_reduce_numbers(np.append(hits, total), trainer.data_group, trainer.device)
+    hits, total = counts[:-1].astype(np.int64), int(counts[-1])
     accs = {f"layer_{layer}": float(hits[layer]) / max(total, 1) for layer in range(len(hits))}
     path = os.path.join(cfg.folder, "flickr_probe.json")
-    with open(path, "w") as f:
-        json.dump({"entities": total, **accs}, f, indent=1)
+    if distributed.rank() == 0:
+        with open(path, "w") as f:
+            json.dump({"entities": total, **accs}, f, indent=1)
     log.info("flickr_probe over %d entities -> %s: %s", total, path, {k: round(v, 4) for k, v in accs.items()})
     return trainer, FitResult(best_metric=max(accs.values()), best_epoch=-1, epochs_run=0, history=[accs])
 
@@ -697,8 +733,10 @@ def run_unsup_pretrain(cfg: TaskConfig, device):
 
     ds_kw = dict(max_seq_length=int(d.get("max_seq_length", 30)), n_regions=n_regions)
     workers, seed = cfg.train.num_workers, cfg.train.seed
+    trainer = _trainer(cfg, UnsupervisedVisualBert(ucfg), device).init_state()
+    shard = _process_shard(trainer)
     vl = up.UnsupervisedPretrainDataset(ann, feats, tok, sym, matched_prob=float(d.get("matched_prob", 0.5)), **ds_kw)
-    sources = [Batcher(vl, cfg.train.train_batch_size, seed=seed, num_workers=workers)]
+    sources = [Batcher(vl, cfg.train.train_batch_size, seed=seed, num_workers=workers, process_shard=shard)]
     ratios = [1.0]
     if d.get("image_only_ratio"):
         # the V&L entries without their text (reference image_only_splits,
@@ -707,13 +745,14 @@ def run_unsup_pretrain(cfg: TaskConfig, device):
         if "image_only_annotations" in d:
             img_ann = _json(d["image_only_annotations"])
         img_only = up.UnsupervisedPretrainDataset(img_ann, feats, tok, sym, image_only=True, **ds_kw)
-        sources.append(Batcher(img_only, cfg.train.train_batch_size, seed=seed + 1, num_workers=workers))
+        sources.append(Batcher(img_only, cfg.train.train_batch_size, seed=seed + 1, num_workers=workers,
+                               process_shard=shard))
         ratios.append(float(d["image_only_ratio"]))
     if "text_corpus" in d:
         txt = TextOnlyDataset(PackedCorpus.load(d["text_corpus"]), tok,
                               max_seq_length=int(d.get("text_seq_length", 64)),
                               matched_objective=bool(d.get("text_matched_objective", False)))
-        sources.append(Batcher(txt, cfg.train.train_batch_size, seed=seed, num_workers=workers))
+        sources.append(Batcher(txt, cfg.train.train_batch_size, seed=seed, num_workers=workers, process_shard=shard))
         ratios.append(float(d.get("text_ratio", 1.0)))
     hybrid = HybridBatcher(sources, ratios, seed=seed)
 
@@ -728,9 +767,8 @@ def run_unsup_pretrain(cfg: TaskConfig, device):
                                                    feat_dim=cfg.model.visual_embedding_dim, seed=1)
         val = up.UnsupervisedPretrainDataset(val_ann, val_feats, tok, sym,
                                              matched_prob=float(d.get("matched_prob", 0.5)), **ds_kw)
-        val_b = Batcher(val, cfg.train.eval_batch_size, seed=seed, num_workers=workers)
+        val_b = Batcher(val, cfg.train.eval_batch_size, seed=seed, num_workers=workers, process_shard=shard)
 
-    trainer = _trainer(cfg, UnsupervisedVisualBert(ucfg), device).init_state()
     if cfg.restore_checkpoint:
         _restore(cfg, trainer)
     try:
@@ -793,10 +831,12 @@ def run(cfg: TaskConfig, device):
     teed into ``run_N.log`` in the run folder."""
     if cfg.task not in TASKS:
         raise KeyError(f"unknown task {cfg.task}; known: {sorted(TASKS)}")
-    handler = add_run_folder(cfg.folder)
+    device = distributed.rank_device(device)
+    handler = add_run_folder(cfg.folder) if distributed.rank() == 0 else None
     try:
         log.info("running task %s on %s -> %s", cfg.task, device, cfg.folder)
         return TASKS[cfg.task](cfg, device)
     finally:
-        get_logger().removeHandler(handler)
-        handler.close()
+        if handler is not None:
+            get_logger().removeHandler(handler)
+            handler.close()

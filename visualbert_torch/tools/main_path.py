@@ -87,9 +87,11 @@ def layer_norm_inputs(device, N=B * (TT + TV), H=768):
     return x, res, dy, scale, bias
 
 
-def build(block: dict, device="cuda"):
+def build(block: dict, device="cuda", mesh=None):
     """A Trainer over the pretraining model at bert-base width and depth on
-    ``device``, with seeded random weights, and one synthetic batch there."""
+    ``device``, with seeded random weights, and one synthetic batch there;
+    under a (data, model) ``mesh``, this rank's shard of both (the batch's
+    rows of its data index)."""
     from visualbert_torch.config import OptimizerConfig, TrainConfig, VisualBertConfig
     from visualbert_torch.models.visualbert import VisualBertForTask
     from visualbert_torch.ops.limits import check_kernel_limits
@@ -103,5 +105,10 @@ def build(block: dict, device="cuda"):
         OptimizerConfig(learning_rate=1e-4, schedule="none", frozen=("pooler",)),
         TrainConfig(seed=0),
         device=device,
+        mesh=mesh,
     ).init_state()
-    return trainer, to_device(synth_batch(B, tt=TT, tv=TV, dv=DV, n_pred=N_PRED), device)
+    batch = synth_batch(B, tt=TT, tv=TV, dv=DV, n_pred=N_PRED)
+    if mesh is not None:
+        per = B // mesh.data_size
+        batch = {k: v[mesh.data_index * per: (mesh.data_index + 1) * per] for k, v in batch.items()}
+    return trainer, to_device(batch, device)

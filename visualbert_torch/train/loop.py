@@ -8,6 +8,11 @@ Datasets are callables that build iterables of numpy batch dicts (see
 package. One train step runs per batch: the JAX loop's
 ``steps_per_dispatch`` fuses steps into one TPU dispatch and has no
 counterpart here.
+
+Under a mesh every rank runs this loop on its slice of each batch; the
+Trainer hands every rank the global metrics, so every rank keeps the same
+epoch history and makes the same early-stop, best-epoch and
+``save_every`` decisions.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from visualbert_torch.config import TrainConfig
+from visualbert_torch.parallel import distributed
 from visualbert_torch.train.trainer import Trainer
 from visualbert_torch.utils.checkpoint import CheckpointManager
 from visualbert_torch.utils.logging import get_logger
@@ -122,8 +128,10 @@ def fit(
                 log.info("early stop at epoch %d (best %.4f @ %d)", epoch, best, best_epoch)
                 break
     except (KeyboardInterrupt, Exception):
-        # checkpoint-on-failure, then re-raise (reference train.py:404-414)
-        if ckpt is not None:
+        # checkpoint-on-failure, then re-raise (reference train.py:404-414);
+        # not under a multi-rank launch, whose save is collective and would
+        # wait for ranks that did not fail
+        if ckpt is not None and not distributed.is_distributed():
             log.warning("interrupted/failed: checkpoint saved to %s", ckpt.save(trainer.step, trainer))
         raise
     return FitResult(best_metric=float(best), best_epoch=best_epoch, epochs_run=len(history), history=history)

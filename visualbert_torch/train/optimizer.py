@@ -23,6 +23,11 @@ decision (the unsupervised stack's LXRT names, ROADMAP.md C9) hands its own
 ``tasks/registry.py:87-96``) get no update, while their moments still move
 (JAX ``optimizer.py:214-224``). Moments are fp32. The schedule is evaluated
 in float32 scalars, as the JAX package's traced schedule is.
+
+Under tensor parallelism each rank holds a block of some tensors
+(``parallel/mesh.py``); their clip norm is that of the WHOLE tensor (of the
+whole Q/K/V group), so the squared norms of those clip groups are summed
+over the model group, in one all-reduce, before the clip.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from visualbert_torch.config import OptimizerConfig
 
@@ -104,10 +110,12 @@ def clip_groups(names: Iterable[str]) -> List[List[str]]:
 class BertAdam:
     """BertAdam over ``named_params`` (unique parameters, as
     ``module.named_parameters()`` yields them); ``decay(name, no_decay)``
-    decides weight decay, :func:`decays` by default."""
+    decides weight decay, :func:`decays` by default. ``split`` names the
+    parameters that this rank holds a block of, split over ``model_group``."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]], cfg: OptimizerConfig,
-                 decay: Optional[Callable[[str, Iterable[str]], bool]] = None):
+                 decay: Optional[Callable[[str, Iterable[str]], bool]] = None, split: Iterable[str] = (),
+                 model_group=None):
         self.cfg = cfg
         self.params: Dict[str, torch.nn.Parameter] = dict(named_params)
         self.schedule = make_schedule(cfg.schedule, cfg.warmup, cfg.t_total)
@@ -119,6 +127,10 @@ class BertAdam:
         frozen = cfg.frozen or ()
         self.frozen = {k: any(s in k for s in frozen) for k in self.params}
         self.clip_groups = clip_groups(self.params)
+        split = set(split)
+        self.model_group = model_group if split else None
+        # a clip group is split whole or not at all (Q, K and V alike)
+        self.split_groups = [i for i, g in enumerate(self.clip_groups) if split & set(g)]
 
     def lr(self) -> float:
         """The learning rate of the next update."""
@@ -133,9 +145,15 @@ class BertAdam:
                  for k, p in self.params.items()}
         scale = {}
         if cfg.max_grad_norm > 0:
-            for group in self.clip_groups:
-                norm = torch.sqrt(sum(torch.sum(grads[k] * grads[k]) for k in group))
-                s = torch.clamp(cfg.max_grad_norm / (norm + 1e-6), max=1.0)
+            sq = [sum(torch.sum(grads[k] * grads[k]) for k in group) for group in self.clip_groups]
+            if self.model_group is not None and self.split_groups:
+                # the whole tensors' squared norms: one all-reduce
+                total = torch.stack([sq[i] for i in self.split_groups])
+                dist.all_reduce(total, group=self.model_group)
+                for j, i in enumerate(self.split_groups):
+                    sq[i] = total[j]
+            for group, sq_norm in zip(self.clip_groups, sq):
+                s = torch.clamp(cfg.max_grad_norm / (torch.sqrt(sq_norm) + 1e-6), max=1.0)
                 scale.update((k, s) for k in group)
         for k, p in self.params.items():
             g = grads[k] * scale[k] if k in scale else grads[k]

@@ -10,6 +10,16 @@ CPU (their plain versions); without a card and without ``--device cpu`` it
 exits with an error. ``--eval_only`` restores ``--restore``, evaluates the
 task's eval split and writes its prediction file. It prints one JSON line
 at the end: {"task", "best_metric", "best_epoch", "epochs_run"}.
+
+On several GPUs, one process each:
+
+    torchrun --nproc_per_node N -m visualbert_torch.train_cli --config C --folder F
+
+with ``"train": {"mesh_shape": [d, m]}`` (d * m = N; data-parallel d,
+tensor-parallel m; ``train_batch_size`` stays the global batch).
+``torch.distributed`` comes up first, from torchrun's RANK / WORLD_SIZE /
+LOCAL_RANK / MASTER_ADDR (NCCL on CUDA, gloo with ``--device cpu``), and a
+launch that fails to come up raises. Rank 0 prints the JSON line.
 """
 
 from __future__ import annotations
@@ -35,6 +45,10 @@ def main(argv=None):
         raise SystemExit(f"train_cli: --device {args.device} but no CUDA device is available; "
                          "pass --device cpu to run the kernels' plain versions on the CPU")
 
+    from visualbert_torch.parallel import distributed
+
+    distributed.initialize_distributed(torch.device(args.device).type)
+
     from visualbert_torch.tasks import registry
     from visualbert_torch.utils.config_io import load_task_config
 
@@ -49,6 +63,8 @@ def main(argv=None):
     )
     trainer, result = registry.run(cfg, args.device)
     best = result.best_metric
+    if distributed.rank() != 0:
+        return trainer, result
     print(json.dumps({
         "task": cfg.task,
         # strict JSON: tasks without an eval split track no best metric

@@ -7,6 +7,13 @@ validation metric, resume from the latest, the oldest removed beyond
 ``max_to_keep``. A checkpoint file ``step_<N>.pt`` holds the model's state
 dict, BertAdam's moments and step count, the trainer's step and the state of
 its dropout generator, so a restored trainer continues the same run.
+
+Under a (data, model) mesh (JAX ``:21-76``) a checkpoint is still one full
+file: every rank takes part in gathering the tensors split over the model
+axis (``parallel/mesh.py::gather_params``), rank 0 writes, and barriers
+fence the write; every rank reads the whole file and keeps its shard
+(``Trainer.reshard_state``), so a checkpoint written at one mesh shape
+restores at any other.
 """
 
 from __future__ import annotations
@@ -18,23 +25,32 @@ from typing import Optional
 
 import torch
 
+from visualbert_torch.parallel import distributed
+from visualbert_torch.parallel.mesh import gather_params
+
 _STEP_FILE = re.compile(r"step_(\d+)\.pt")
 
 
 def trainer_state(trainer) -> dict:
-    opt = trainer.optimizer
+    """The trainer's full state; collective over the model group under a
+    mesh (the split tensors are gathered)."""
+    opt, mesh = trainer.optimizer, trainer.mesh
     return {
         "step": trainer.step,
-        "model": trainer.model.state_dict(),
-        "optimizer": {"step_count": opt.step_count, "m": opt.m, "v": opt.v},
+        "model": gather_params(trainer.model.state_dict(), mesh),
+        "optimizer": {"step_count": opt.step_count, "m": gather_params(opt.m, mesh),
+                      "v": gather_params(opt.v, mesh)},
         "dropout_generator": trainer.dropout_generator.get_state(),
     }
 
 
 def load_trainer_state(trainer, path: str):
     """Load the checkpoint file ``path`` into ``trainer`` (built and
-    ``init_state``-ed with the same model and optimizer settings)."""
+    ``init_state``-ed with the same model and optimizer settings, at any
+    mesh shape)."""
     state = torch.load(path, map_location=trainer.device, weights_only=True)
+    if trainer.mesh is not None:
+        state = trainer.reshard_state(state)
     trainer.model.load_state_dict(state["model"], strict=True)
     opt = trainer.optimizer
     with torch.no_grad():
@@ -69,14 +85,20 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, trainer, is_best: bool = False) -> str:
+        """Write ``step_<step>.pt`` (and ``best.pt`` with ``is_best``); under
+        a multi-rank launch every rank calls this, rank 0 writes."""
         path = self._path(step)
-        tmp = path + ".tmp"
-        torch.save(trainer_state(trainer), tmp)
-        os.replace(tmp, path)  # a crash mid-write leaves the previous file whole
-        if is_best:
-            shutil.copyfile(path, os.path.join(self.directory, "best.pt"))
-        for s in self._steps()[: -self.max_to_keep]:
-            os.remove(self._path(s))
+        state = trainer_state(trainer)
+        distributed.barrier()
+        if distributed.rank() == 0:
+            tmp = path + ".tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, path)  # a crash mid-write leaves the previous file whole
+            if is_best:
+                shutil.copyfile(path, os.path.join(self.directory, "best.pt"))
+            for s in self._steps()[: -self.max_to_keep]:
+                os.remove(self._path(s))
+        distributed.barrier()
         return path
 
     def path(self, step: Optional[int] = None) -> str:
