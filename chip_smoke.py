@@ -90,13 +90,27 @@ non-zero without printing the final line:
    site kernels took its place: visualbert_torch.tools.dropout_steps run as
    a user runs it (its builds with a design step left out must give the
    kernels' bits), with every count set to 0 first: it must launch K3 and
-   the site kernels through their wrappers and nothing else;
+   the site kernels through their wrappers and nothing else.
+   Then K1/K2's and K4-K6's other forms: K1/K2 (ATTENTION_FORMS) in fp16
+   and fp32 at the main path's [128, 228, 12 x 64], and in bf16, fp16 and
+   fp32 at head dim 16 (bf16 and fp16 zero-padded to 64) and 128, at
+   dropout 0 and 0.1, fp32 within F32_REL_TOL / F32_ABS_TOL of its plain
+   version and the rest within the bf16 limits, each timed beside its
+   plain version, scaled_dot_product_attention in its dtype and its bound,
+   with each kernel's registers, local bytes, shared bytes and blocks an
+   SM and the padding's own time; K4-K6 (XENT_FORMS) in bf16 at widths
+   128, 256 and 512, in fp16 and fp32 at 768 and in bf16 and fp16 at 384
+   (zero-padded to 512, the copy of E timed alone) at the main path's N =
+   3072 and V = 30522, likewise (none may spill), beside cuBLAS's products
+   in the same dtype;
 4. a 2-layer model with dropout off gives the same loss through the kernels
    (K1/K2 attention, K4-K6 cross-entropy), through the kernels with the
    fused LayerNorm (K7/K8), through the heads-major attention (K11/K12,
    `"packed_qkv": false`), through the saved probabilities (K13/K14,
    `"flash_save_probs": true`) and through the einsum attention and the
-   unfused decoder;
+   unfused decoder; then the same at bert-base width in fp32 (within
+   SLICE_F32_REL_TOL) and fp16 and at BERT-Small's (L = 4, H = 512, A = 8)
+   in bf16 (K11-K14's paths in bf16 at head dim 64 only);
 5. drives the main path as configs/coco_pretrain.json ships it: the
    COCO-caption pretraining train step at bert-base width and depth with
    the config's `model` block unchanged, random seeded weights, a synthetic
@@ -270,14 +284,27 @@ non-zero without printing the final line:
    `torchrun --standalone --nproc_per_node 1 -m visualbert_torch.train_cli`
    (NCCL) on phase 7's COCO synthetic config with `"mesh_shape": [1, 1]`:
    one epoch of 4 steps whose checkpoint must load back;
+27. (run before 26's table) trains GEOMETRY_EXAMPLES / 128 = 3 steps of
+   coco_pretrain through the CLI on synthetic data with
+   configs/coco_pretrain.json's blocks and flags in three model
+   geometries: the JAX package's tiny() (fp32, head dim 16, width 64, with
+   the fused LayerNorm: all four kernel flags), bert-base in fp16 and
+   BERT-Small (Turc et al. 2019: L = 4, H = 512, A = 8, I = 2048) in bf16;
+   each run must be on the card, its losses finite, its launches those of
+   its depth (K1/K2 L a step, K4-K6 one, the dropout sites or K9/K10), all
+   of K1/K2 and K4-K6 in the kernel form of its dtype and widths; each
+   prints its median step time and peak memory;
 26. prints the kernel table as one JSON line (launches from phase 6: the
    fused-LayerNorm main path's STEPS steps, for K7/K8 its dropout-0 step,
    for K11-K14 the runs with their settings, for K15/K16 the tools' run,
    for K3's mask the calls of its wrapper in tools/dropout_steps.py's run
    (the tool's checks and timing rounds launch K3 directly and are not
    counted), for the site kernels the as-shipped steps; K15/K16's rows add every variant's time; K3 is three
-   rows: mask, site forward, site backward), then {"ok": true, "device":
-   {...}} as the last line.
+   rows: mask, site forward, site backward; the fp32 kernels of K1/K2 and
+   K4-K6 (csrc/flash_attention_f32.cu, csrc/mlm_xent_f32.cu) are five rows
+   more, timed at the main path's shapes in fp32, their launches from
+   phase 27's tiny() run), then {"ok": true, "device": {...}} as the last
+   line.
 """
 
 import contextlib
@@ -388,6 +415,41 @@ EXP_DB_TOL = 8e-3      # the qkv-bias gradient, as out          [9.5e-4, 1.9e-3]
 EXP_FIRST_DESIGN_MS = {"attn_exp_fwd": (0.7859, 0.8029), "attn_exp_bwd": (1.9802, 2.0180),
                        "attn_hgrid_fwd": (0.4891, 0.4997), "attn_hgrid_bwd": (1.2654, 1.2776)}
 SLICE_REL_TOL = 2e-2  # kernel paths vs einsum + unfused path loss, bf16 model
+# K1/K2 and K4-K6 in their other forms against their plain versions: fp16
+# and bf16 at a padded or 128 head dim or a padded width are held to the
+# bf16 limits above (fp16 keeps 3 more mantissa bits than bf16); fp32 only
+# sums in another order than its plain version
+F32_REL_TOL = 1e-4   # fp32 out, dqkv, dqkv_bias, dx, dE, db: max |kernel - plain| / max |plain|
+F32_ABS_TOL = 1e-4   # fp32 stats, nll and lse, absolute
+SLICE_F32_REL_TOL = 1e-4  # the dropout-off loss check in fp32
+# the forms of phase 3: (dtype, head dim) of K1/K2 at the main path's B, T
+# and 12 heads; (dtype, width) of K4-K6 at its N and V
+ATTENTION_FORMS = (("float16", 64), ("float32", 64), ("bfloat16", 16), ("float16", 16), ("float32", 16),
+                   ("bfloat16", 128), ("float16", 128), ("float32", 128))
+XENT_FORMS = (("bfloat16", 128), ("bfloat16", 256), ("bfloat16", 512), ("float16", 768), ("float32", 768),
+              ("bfloat16", 384), ("float16", 384))
+# the geometry phase: (label, fields over coco_pretrain.json's model block);
+# each trains GEOMETRY_EXAMPLES / 128 steps
+GEOMETRY_EXAMPLES = 384
+GEOMETRIES = (
+    ("the JAX package's tiny (fp32, D=16, H=64), all four kernel flags",
+     dict(vocab_size=512, hidden_size=64, num_hidden_layers=2, num_attention_heads=4, intermediate_size=128,
+          max_position_embeddings=128, dtype="float32", use_fused_layer_norm=True)),
+    ("bert-base in fp16", dict(dtype="float16")),
+    ("BERT-Small (L=4, H=512, A=8, I=2048) in bf16",
+     dict(hidden_size=512, num_hidden_layers=4, num_attention_heads=8, intermediate_size=2048)),
+)
+# the kernel table's rows of the fp32 kernels: (row name, wrapper module,
+# wrapper, source, the TPU kernel it replaces); launches from the tiny run
+F32_KERNELS = (
+    ("packed_attention_fwd (fp32)", "flash_attention", "packed_attention_fwd", "flash_attention_f32.cu",
+     "visualbert_tpu/ops/flash_attention.py:249"),
+    ("packed_attention_bwd (fp32)", "flash_attention", "packed_attention_bwd", "flash_attention_f32.cu",
+     "visualbert_tpu/ops/flash_attention.py:307"),
+    ("mlm_xent_fwd (fp32)", "mlm_xent", "mlm_xent_fwd", "mlm_xent_f32.cu", "visualbert_tpu/ops/mlm_xent.py:52"),
+    ("mlm_xent_dx (fp32)", "mlm_xent", "mlm_xent_dx", "mlm_xent_f32.cu", "visualbert_tpu/ops/mlm_xent.py:145"),
+    ("mlm_xent_de (fp32)", "mlm_xent", "mlm_xent_de", "mlm_xent_f32.cu", "visualbert_tpu/ops/mlm_xent.py:170"),
+)
 # phase 25: the mesh's runs against the one-process run on the same seeded
 # weights and batch (bf16 model; the ranks sum in another order), each limit
 # about 4x the H100 readings in brackets ((2, 1), (1, 2))
@@ -538,6 +600,14 @@ def launch_text(launches):
 def zero_launches():
     for c in counters():
         c.launches = 0
+        if hasattr(c, "forms"):
+            c.forms.clear()
+
+
+def read_forms():
+    """{wrapper name: {form: launches}} of the wrappers that count forms (K1,
+    K2, K4-K6)."""
+    return {name: dict(c.forms) for (name, _, _, _), c in zip(KERNELS, counters()) if hasattr(c, "forms")}
 
 
 def cuda_time_ms(fn, iters):
@@ -1464,6 +1534,327 @@ def xent_design(torch, xe, x, emb, bias, lab, lse, g, card):
             raise SystemExit(f"K{number} spills to local memory at width {H}")
 
 
+def card_device(torch):
+    """The device the phases that hold the kernels' other forms run on."""
+    return torch.device("cuda")
+
+
+def form_tols(dtype):
+    """(out, stats, dqkv, bias gradient) limits of a K1/K2 form in
+    ``dtype``: fp32's own, bf16's for bf16 and fp16."""
+    if dtype == "float32":
+        return F32_REL_TOL, F32_ABS_TOL, F32_REL_TOL, F32_REL_TOL
+    return OUT_TOL, STATS_TOL, DQKV_TOL, DB_TOL
+
+
+def attention_inputs_at(torch, dtype, D, H=12):
+    """K1/K2's inputs at the main path's B, T and key bias
+    (tools/main_path.py::packed_attention_inputs) in ``dtype`` at head dim
+    D: qkv [B, T, H*3*D], qb, key_bias, dout, from RandomState(0)."""
+    import numpy as np
+
+    from visualbert_torch.tools import main_path
+
+    B, TT, T = main_path.B, main_path.TT, main_path.TT + main_path.TV
+    F = 3 * H * D
+    dev, dt = card_device(torch), getattr(torch, dtype)
+    rng = np.random.RandomState(0)
+    qkv = torch.tensor(rng.randn(B, T, F), dtype=dt, device=dev)
+    qb = torch.tensor(rng.randn(F) * 0.1, dtype=dt, device=dev)
+    mask = np.ones((B, T), np.float32)
+    mask[::3, TT - 20:TT] = 0
+    mask[1::4, T - 30:] = 0
+    key_bias = torch.tensor((1.0 - mask) * -10000.0, device=dev)
+    dout = torch.tensor(rng.randn(B, T, H * D), dtype=dt, device=dev)
+    return qkv, qb, key_bias, dout
+
+
+def sdpa_ms_in(torch, qkv, qb, key_bias, dout, H, rate):
+    """scaled_dot_product_attention's forward and backward times on the same
+    biased q, k, v in their own dtype, the key bias as its mask."""
+    B, T, F = qkv.shape
+    D = F // (3 * H)
+    q, k, v = (qkv + qb).view(B, T, H, 3, D).unbind(3)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    attn_mask = key_bias.to(qkv.dtype)[:, None, None, :]
+    with torch.no_grad():
+        fwd = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=attn_mask, dropout_p=rate), 20)
+    leaves = [t.detach().contiguous().requires_grad_(True) for t in (q, k, v)]
+    o = sdpa(*leaves, attn_mask=attn_mask, dropout_p=rate)
+    g = dout.view(B, T, H, D).transpose(1, 2)
+    bwd = cuda_time_ms(lambda: torch.autograd.grad(o, leaves, g, retain_graph=True), 20)
+    return fwd, bwd
+
+
+def check_attention_forms(torch, card):
+    """K1/K2 in the forms of ATTENTION_FORMS at the main path's B, T and 12
+    heads, dropout 0 and 0.1, against their plain versions (fp32 at
+    F32_REL_TOL / F32_ABS_TOL, the rest at bf16's limits); each timed at
+    dropout 0.1 beside its plain version, scaled_dot_product_attention in
+    the same dtype and its bound (the unpadded head dim's bytes and
+    products), with each bf16/fp16 kernel's registers, local bytes, shared
+    bytes and blocks an SM. Returns the fp32 kernels' table rows at D = 64."""
+    from visualbert_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 plain versions in fp32 (PyTorch's default)
+    H, rows = 12, {}
+    for dtype, D in ATTENTION_FORMS:
+        qkv, qb, key_bias, dout = attention_inputs_at(torch, dtype, D, H)
+        B, T, F = qkv.shape
+        form = fa.attention_form(qkv.dtype, D)
+        t_out, t_st, t_dq, t_db = form_tols(dtype)
+        where = f"{dtype} D={D} [{B}, {T}, {F}] (form {form})"
+        k1, k2 = dict(max_abs_err=0.0), dict(max_abs_err=0.0)
+        for rate in (0.0, 0.1):
+            out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, 99)
+            out_r, stats_r = fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, 99)
+            dqkv, dqb = fa.packed_attention_bwd(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 99)
+            dqkv_r, dqb_r = fa.packed_attention_bwd_reference(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 99)
+            torch.cuda.synchronize()
+            e_out, r_out = rel_err(out, out_r)
+            e_st = float((stats - stats_r).abs().max())
+            e_dq, r_dq = rel_err(dqkv, dqkv_r)
+            e_db, r_db = rel_err(dqb, dqb_r)
+            log(f"K1 {where} rate {rate}: out max_abs_err {e_out:.3e} (rel {r_out:.3e}, tol {t_out}); stats "
+                f"max_abs_err {e_st:.3e} (tol {t_st}); K2: dqkv max_abs_err {e_dq:.3e} (rel {r_dq:.3e}, tol {t_dq}); "
+                f"dqkv_bias max_abs_err {e_db:.3e} (rel {r_db:.3e}, tol {t_db})")
+            if not (r_out <= t_out and e_st <= t_st and r_dq <= t_dq and r_db <= t_db):
+                raise SystemExit(f"K1/K2 {where} disagree with their plain versions at rate {rate}")
+            k1["max_abs_err"] = max(k1["max_abs_err"], e_out)
+            k2["max_abs_err"] = max(k2["max_abs_err"], e_dq)
+        del out_r, dqkv_r, dqkv
+        rate = 0.1
+        k1["ms"] = cuda_time_ms(lambda: fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, 5), 10)
+        k1["plain_ms"] = cuda_time_ms(lambda: fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, 5), 3)
+        k2["ms"] = cuda_time_ms(lambda: fa.packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, H, rate, 5), 10)
+        k2["plain_ms"] = cuda_time_ms(
+            lambda: fa.packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, H, rate, 5), 3)
+        k1["library_ms"], k2["library_ms"] = sdpa_ms_in(torch, qkv, qb, key_bias, dout, H, rate)
+        gflop = 2.0 * B * H * T * T * D / 1e9
+        peak = FP32_FLOPS if dtype == "float32" else BF16_FLOPS
+        k1.update(bound(nbytes(qkv, qb, key_bias, out, stats), 2 * gflop * 1e9, peak))
+        # K2 writes dqkv and dqb: qkv's and qb's sizes
+        k2.update(bound(nbytes(qkv, qb, key_bias, dout, out, stats, qkv, qb), 4 * gflop * 1e9, peak))
+        if dtype != "float32":
+            from visualbert_torch.ops import _build
+
+            lib, dp = _build.library(), fa.kernel_head_dim(D)
+            code = 0 if dtype == "bfloat16" else 1
+            hgs = fa.packed_x_head_groups(lib, qkv.dtype, dp, B, H, T, qkv.device)
+            for k, (kernel, hg) in enumerate(zip(fa.PACKED_KERNELS, hgs)):
+                regs, local, smem, per_sm = (lib.vb_attn_packed_x_info(code, dp, k, w, T) for w in range(4))
+                log(f"K1/K2 {dtype} at head dim {dp} {kernel}: hg {hg}, {per_sm} blocks an SM, {regs} registers a "
+                    f"thread, {local} bytes of local memory, {smem} bytes of shared memory at T={T}")
+            if dp != D:
+                pad_ms = cuda_time_ms(lambda: fa.pad_heads(qkv, H, 3, dp), 10)
+                log(f"K1/K2 {where}: the wrapper's zero-padding of qkv to D={dp} alone {pad_ms:.4f} ms  [{card}]")
+        else:
+            from visualbert_torch.ops import _build
+
+            lib = _build.library()
+            for k, kernel in enumerate(fa.PACKED_KERNELS):
+                regs, local, smem, per_sm = (lib.vb_attn_f32_info(k, w, D) for w in range(4))
+                log(f"K1/K2 fp32 at D={D} {kernel}: {per_sm} blocks an SM, {regs} registers a thread, {local} bytes "
+                    f"of local memory, {smem} bytes of shared memory")
+        for name, r in (("packed_attention_fwd", k1), ("packed_attention_bwd", k2)):
+            log(row_line(f"{name} {where}", r, card))
+        if dtype == "float32" and D == 64:
+            rows["packed_attention_fwd (fp32)"], rows["packed_attention_bwd (fp32)"] = k1, k2
+        del qkv, qb, key_bias, dout, out, stats
+        torch.cuda.empty_cache()
+    return rows
+
+
+def xent_inputs_at(torch, dtype, H, N, V=30522):
+    """K4-K6's inputs as check_xent makes them (RandomState(1), 15 % of
+    labels -1 and computed as 0, a non-uniform cotangent) in ``dtype`` at
+    width H: x, emb, bias, lab, g."""
+    import numpy as np
+
+    dev, dt = card_device(torch), getattr(torch, dtype)
+    rng = np.random.RandomState(1)
+    x = torch.tensor(rng.randn(N, H), dtype=dt, device=dev)
+    emb = torch.tensor(rng.randn(V, H) * 0.05, dtype=dt, device=dev)
+    bias = torch.tensor(rng.randn(V) * 0.1, dtype=torch.float32, device=dev)
+    labels = rng.randint(0, V, N)
+    labels[rng.rand(N) < 0.15] = -1
+    g = torch.tensor(np.where(labels >= 0, rng.uniform(0.5, 1.5, N), 0.0), dtype=torch.float32, device=dev)
+    lab = torch.tensor(np.maximum(labels, 0), dtype=torch.int32, device=dev)
+    return x, emb, bias, lab, g
+
+
+def check_xent_forms(torch, card):
+    """K4-K6 in the forms of XENT_FORMS at the main path's N = 3072 rows and
+    V = 30522, against their plain versions (fp32 at F32_ABS_TOL /
+    F32_REL_TOL, the rest at bf16's limits; argmax as check_xent holds it);
+    each timed beside its plain version, cuBLAS's products of the same
+    dtype (x E^T; with dlog E or dlog^T x) and its bound, with its
+    registers, local bytes (none may spill), shared bytes and blocks an SM;
+    a padded width also with the [V, H_pad] copy of E it makes. Returns the
+    fp32 kernels' table rows at H = 768."""
+    from visualbert_torch.ops import _build
+    from visualbert_torch.ops import mlm_xent as xe
+    from visualbert_torch.tools.main_path import B, N_PRED
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib, N, V, rows = _build.library(), B * N_PRED, 30522, {}
+    for dtype, H in XENT_FORMS:
+        x, emb, bias, lab, g = xent_inputs_at(torch, dtype, H, N, V)
+        form = xe.xent_form(x.dtype, H)
+        if dtype == "float32":
+            t_lse, t_dx, t_de, t_db = F32_ABS_TOL, F32_REL_TOL, F32_REL_TOL, F32_REL_TOL
+        else:
+            t_lse, t_dx, t_de, t_db = XENT_TOL, DX_TOL, DE_TOL, DBIAS_TOL
+        where = f"{dtype} H={H} [{N}, {H}] x [{V}, {H}] (form {form})"
+        nll, lse, am = xe.mlm_xent_fwd(x, emb, bias, lab)
+        nll_r, lse_r, am_r = xe.mlm_xent_fwd_reference(x, emb, bias, lab)
+        top = torch.topk(xe._logits(x, emb, bias), 2, dim=-1).values
+        bad_clear = int(((am != am_r) & ((top[:, 0] - top[:, 1]) > ARGMAX_MARGIN)).sum())
+        del top
+        e_nll, e_lse = float((nll - nll_r).abs().max()), float((lse - lse_r).abs().max())
+        dx = xe.mlm_xent_dx(x, emb, bias, lab, lse_r, g)
+        dx_r = xe.mlm_xent_dx_reference(x, emb, bias, lab, lse_r, g)
+        de, db = xe.mlm_xent_de(x, emb, bias, lab, lse_r, g)
+        de_r, db_r = xe.mlm_xent_de_reference(x, emb, bias, lab, lse_r, g)
+        torch.cuda.synchronize()
+        e_dx, r_dx = rel_err(dx, dx_r)
+        e_de, r_de = rel_err(de, de_r)
+        e_db, r_db = rel_err(db, db_r)
+        del dx_r, de_r, db_r
+        log(f"K4 {where}: nll max_abs_err {e_nll:.3e}, lse max_abs_err {e_lse:.3e} (tol {t_lse}); argmax differs on "
+            f"{bad_clear} rows with top-2 gap > {ARGMAX_MARGIN} (must be 0); K5 dx max_abs_err {e_dx:.3e} (rel "
+            f"{r_dx:.3e}, tol {t_dx}); K6 dE max_abs_err {e_de:.3e} (rel {r_de:.3e}, tol {t_de}), db max_abs_err "
+            f"{e_db:.3e} (rel {r_db:.3e}, tol {t_db})")
+        if not (e_nll <= t_lse and e_lse <= t_lse and bad_clear == 0 and r_dx <= t_dx and r_de <= t_de
+                and r_db <= t_db):
+            raise SystemExit(f"K4-K6 {where} disagree with their plain versions")
+        fns = {"mlm_xent_fwd": (xe.mlm_xent_fwd, xe.mlm_xent_fwd_reference, (), max(e_nll, e_lse), 1),
+               "mlm_xent_dx": (xe.mlm_xent_dx, xe.mlm_xent_dx_reference, (lse, g), e_dx, 2),
+               "mlm_xent_de": (xe.mlm_xent_de, xe.mlm_xent_de_reference, (lse, g), max(e_de, e_db), 2)}
+        moved = {"mlm_xent_fwd": nbytes(x, emb, bias, lab, nll, lse, am), "mlm_xent_dx": nbytes(x, emb, bias, lab, lse, g, dx),
+                 "mlm_xent_de": nbytes(x, emb, bias, lab, lse, g, de, db)}
+        gflop = 2.0 * N * V * H / 1e9
+        peak = FP32_FLOPS if dtype == "float32" else BF16_FLOPS
+        p = torch.empty((N, V), dtype=x.dtype, device=x.device).normal_()
+        products = {"mlm_xent_fwd": lambda: torch.matmul(x, emb.t()),
+                    "mlm_xent_dx": lambda: (torch.matmul(x, emb.t()), torch.matmul(p, emb)),
+                    "mlm_xent_de": lambda: (torch.matmul(x, emb.t()), torch.matmul(p.t(), x))}
+        for name, (fn, ref, extra, err, n_mm) in fns.items():
+            r = dict(max_abs_err=err, ms=cuda_time_ms(lambda: fn(x, emb, bias, lab, *extra), 5),
+                     plain_ms=cuda_time_ms(lambda: ref(x, emb, bias, lab, *extra), 2), library_ms=None,
+                     **bound(moved[name], n_mm * gflop * 1e9, peak))
+            cublas = cuda_time_ms(products[name], 5)
+            log(row_line(f"{name} {where}", r, card)
+                + f"; cuBLAS's {n_mm} product(s) in {dtype} (not the fused function) {cublas:.4f} ms")
+            if dtype == "float32" and H == 768:
+                rows[f"{name} (fp32)"] = r
+        del p
+        info = {"bfloat16": "vb_xent_info", "float16": "vb_xent_f16_info", "float32": "vb_xent_f32_info"}[dtype]
+        hk = H if dtype == "float32" else xe.kernel_width(H)
+        for k, kernel in enumerate(("K5", "K6", "K4")):
+            regs, local, smem, per_sm = (getattr(lib, info)(k, w, hk) for w in range(4))
+            log(f"{kernel} {dtype} at width {hk}: {regs} registers a thread, {local} bytes of local memory, {smem} "
+                f"bytes of shared memory, {per_sm} blocks an SM")
+            if local != 0:
+                raise SystemExit(f"{kernel} {dtype} at width {hk} spills ({local} bytes of local memory)")
+        if dtype != "float32" and hk != H:
+            copy_ms = cuda_time_ms(lambda: xe.pad_width(emb, hk), 10)
+            log(f"K4-K6 {where}: each call's [{V}, {hk}] zero-padded copy of E alone {copy_ms:.4f} ms  [{card}]")
+        del x, emb, bias, lab, g, nll, lse, am, dx, de, db
+        torch.cuda.empty_cache()
+    return rows
+
+
+def geometry_per_step(cfg):
+    """Launches of K1..K14, K15/K16 and the site kernels a train step of
+    coco_pretrain at ``cfg``'s depth L (the LABELS order): K1/K2 L each,
+    K4-K6 one each; with the fused LayerNorm 2L K9/K10 and one dropout site
+    (the embeddings'), without it 2L + 1 sites."""
+    L = cfg.num_hidden_layers
+    n = [0] * len(LABELS)
+    n[0] = n[1] = L
+    n[3] = n[4] = n[5] = 1
+    if cfg.use_fused_layer_norm:
+        n[8] = n[9] = 2 * L
+        n[18] = n[19] = 1
+    else:
+        n[18] = n[19] = 2 * L + 1
+    return n
+
+
+def run_geometry_cli(torch, card):
+    """Phase 27: GEOMETRY_EXAMPLES / 128 train steps of coco_pretrain through
+    the CLI on synthetic data, with configs/coco_pretrain.json's blocks and
+    flags, in each model geometry of GEOMETRIES: the run must be on cuda,
+    its losses finite, its launches geometry_per_step's, each K1/K2 and
+    K4-K6 launch in the form of its dtype and widths. Prints each run's
+    median step time (steps 2.., a step timed with a synchronise on either
+    side) and peak memory. Returns {label: (config, forms)}."""
+    from visualbert_torch.ops.flash_attention import attention_form
+    from visualbert_torch.ops.mlm_xent import xent_form
+    from visualbert_torch.tools.main_path import CONFIG
+    from visualbert_torch.train.trainer import Trainer
+    from visualbert_torch.utils.config_io import load_config_file
+
+    out = {}
+    for label, fields in GEOMETRIES:
+        raw = load_config_file(CONFIG)
+        d = raw["data"]
+        raw["data"] = dict({k: d[k] for k in ("max_seq_length", "max_regions", "two_sentence")},
+                           synthetic=GEOMETRY_EXAMPLES)
+        raw["model"] = dict(raw["model"], **fields)
+        raw["train"] = dict(raw["train"], num_train_epochs=1)
+        folder = tempfile.mkdtemp(prefix="chip_smoke_geometry_")
+        times, train_step = [], Trainer.train_step
+
+        def timed(self, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = train_step(self, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return metrics
+
+        Trainer.train_step = timed
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            trainer, result, summary = run_cli_quiet(["--config", write_config(folder, "geometry.json", raw),
+                                                      "--folder", os.path.join(folder, "run")])
+            launches, forms = read_launches(), read_forms()
+        finally:
+            Trainer.train_step = train_step
+            shutil.rmtree(folder, ignore_errors=True)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cfg, steps = trainer.model.cfg, trainer.step
+        epoch = result.history[0]
+        want = [n * steps for n in geometry_per_step(cfg)]
+        a_form, x_form = attention_form(cfg.dtype, cfg.head_dim), xent_form(cfg.dtype, cfg.hidden_size)
+        want_forms = {"packed_attention_fwd": {a_form: want[0]}, "packed_attention_bwd": {a_form: want[1]},
+                      "mlm_xent_fwd": {x_form: want[3]}, "mlm_xent_dx": {x_form: want[4]},
+                      "mlm_xent_de": {x_form: want[5]}}
+        med = statistics.median(times[1:]) if len(times) > 1 else times[0]
+        log(f"geometry {label}: {summary}; {steps} steps at batch {raw['train']['train_batch_size']} on "
+            f"{trainer.device}, {cfg.dtype}, hidden {cfg.hidden_size}, {cfg.num_attention_heads} heads of "
+            f"{cfg.head_dim}, {cfg.num_hidden_layers} layers; epoch means: "
+            + ", ".join(f"{k} {v:.5f}" for k, v in sorted(epoch.items())))
+        log(f"geometry {label}: launches " + launch_text(launches) + f"; want {'/'.join(map(str, want))}; forms "
+            f"{json.dumps(forms)}")
+        log(f"geometry {label}: step time median {med * 1e3:.2f} ms over steps 2..{steps} (first "
+            f"{times[0] * 1e3:.1f} ms), peak memory {peak:.2f} GiB  [{card}]")
+        if trainer.device.type != "cuda" or steps != GEOMETRY_EXAMPLES // raw["train"]["train_batch_size"]:
+            raise SystemExit(f"geometry {label}: {steps} steps on {trainer.device}")
+        if not all(math.isfinite(v) for v in epoch.values()):
+            raise SystemExit(f"geometry {label}: non-finite loss")
+        if launches != want or forms != want_forms:
+            raise SystemExit(f"geometry {label}: launches {launches}, forms {forms}; want {want}, {want_forms}")
+        out[label] = (cfg, forms)
+        del trainer, result
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_layer_norm(torch, card):
     """K7-K10 against their plain versions at the main path's rows: y and
     dx/dres by max |kernel - plain| / max |plain|, mu/rstd by absolute
@@ -1584,20 +1975,21 @@ def check_layer_norm(torch, card):
     return rows
 
 
-def check_slice_reference(torch, model_block):
+def check_slice_reference(torch, model_block, what="bert-base bf16", tol=SLICE_REL_TOL):
     """The kernel path (K1/K2 attention, K4-K6 cross-entropy), the same with
     the fused LayerNorm (K7/K8, dropout off), with the heads-major attention
     (K11/K12, packed_qkv false), with the saved probabilities (K13/K14) and
     the einsum attention with the unfused decoder and eager LayerNorm, on
-    the same 2-layer bert-base-wide weights, dropout off: the losses must
-    agree."""
+    the same 2-layer weights of ``model_block``'s width, dropout off: the
+    losses must agree within ``tol``. K11-K14 take bf16 at head dim 64
+    only: in another dtype or head dim their two paths are left out."""
     from visualbert_torch.config import VisualBertConfig
     from visualbert_torch.models.visualbert import VisualBertForTask
     from visualbert_torch.tools.synth import synth_batch
     from visualbert_torch.train.trainer import to_device
 
     cfg = VisualBertConfig.from_dict(model_block).replace(num_hidden_layers=2)
-    batch = to_device(synth_batch(8, seed=3), "cuda")
+    batch = to_device(synth_batch(8, seed=3, vocab=cfg.vocab_size), "cuda")
     paths = {"kernel path": dict(use_flash_attention=True, fused_mlm_xent=True, use_fused_layer_norm=False),
              "kernel path with fused LayerNorm": dict(use_flash_attention=True, fused_mlm_xent=True,
                                                       use_fused_layer_norm=True),
@@ -1605,6 +1997,8 @@ def check_slice_reference(torch, model_block):
              "save-probs kernel path": dict(use_flash_attention=True, fused_mlm_xent=True, flash_save_probs=True),
              "einsum + unfused path": dict(use_flash_attention=False, fused_mlm_xent=False,
                                            use_fused_layer_norm=False)}
+    if cfg.dtype != torch.bfloat16 or cfg.head_dim != 64:
+        del paths["heads-major kernel path"], paths["save-probs kernel path"]
     losses = {}
     for name, flags in paths.items():
         m = VisualBertForTask(cfg.replace(**flags), "pretraining")
@@ -1617,10 +2011,10 @@ def check_slice_reference(torch, model_block):
     for name, got in losses.items():
         rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
         worst = max(worst, *rel)
-        log(f"slice reference (2 layers, B=8, dropout off): {name} loss {got[0]:.6f} (MLM {got[1]:.6f}), "
-            f"rel diff to the einsum + unfused path {rel[0]:.2e} / {rel[1]:.2e} (tol {SLICE_REL_TOL})")
-    if not worst <= SLICE_REL_TOL:
-        raise SystemExit("the kernel paths and the einsum + unfused path disagree")
+        log(f"slice reference ({what}, 2 layers, B=8, dropout off): {name} loss {got[0]:.6f} (MLM {got[1]:.6f}), "
+            f"rel diff to the einsum + unfused path {rel[0]:.2e} / {rel[1]:.2e} (tol {tol})")
+    if not worst <= tol:
+        raise SystemExit(f"the kernel paths and the einsum + unfused path disagree ({what})")
 
 
 def run_slice(torch, block, card, per_step, what):
@@ -2941,6 +3335,9 @@ def main():
     check_xent(torch, card, N=VQA_ADVANCED_XENT_ROWS)
     for labels in unsup_xent_labels() + (e2e_xent_labels(),):
         check_xent(torch, card, labels=labels)
+    torch.cuda.empty_cache()
+    rows.update(check_attention_forms(torch, card))
+    rows.update(check_xent_forms(torch, card))
     rows.update(check_layer_norm(torch, card))
     rows.update(check_attention_variants(torch, card))
     save_probs_at_nlvr2_shape(torch, card)
@@ -2957,6 +3354,9 @@ def main():
     fused = dict(block, use_fused_layer_norm=True)
     log(f"model block: {json.dumps(block)}")
     check_slice_reference(torch, block)
+    check_slice_reference(torch, dict(block, dtype="float32"), "bert-base fp32", SLICE_F32_REL_TOL)
+    check_slice_reference(torch, dict(block, dtype="float16"), "bert-base fp16")
+    check_slice_reference(torch, dict(block, **GEOMETRIES[2][1]), "BERT-Small bf16")
     runs = {}
     for what, blk, per_step in (("as shipped", block, PER_STEP),
                                 ("fused LayerNorm", fused, FUSED_PER_STEP),
@@ -3015,6 +3415,8 @@ def main():
     run_mesh_path(torch, card)
     torch.cuda.empty_cache()
     run_torchrun_cli(torch, card)
+    torch.cuda.empty_cache()
+    geometries = run_geometry_cli(torch, card)
 
     # launches: the fused-LayerNorm main path's STEPS steps; K7/K8 from its
     # dropout-0 step; K11/K12 and K13/K14 from the runs with their settings;
@@ -3030,6 +3432,11 @@ def main():
     launches[18:20] = runs["as shipped"][0][18:20]
     table = [dict(name=name, route="cuda", source=f"visualbert_torch/csrc/{src}", replaces=replaces, launches=n,
                   **rows[name]) for (name, _, src, replaces), n in zip(KERNELS, launches)]
+    # the fp32 kernels: launches from the tiny geometry's run (fp32)
+    _, tiny_forms = geometries[GEOMETRIES[0][0]]
+    table += [dict(name=name, route="cuda", source=f"visualbert_torch/csrc/{src}", replaces=replaces,
+                   launches=tiny_forms[wrapper].get("fp32", 0), **rows[name])
+              for name, _, wrapper, src, replaces in F32_KERNELS]
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -202,6 +202,67 @@ def test_each_xent_backward_launch_passes_its_signatures_arguments(monkeypatch, 
         assert out[1].shape == (V, H) and out[2].shape == (V,)
 
 
+def form_launches():
+    """The launches of the bf16/fp16 and fp32 forms of K1/K2 (fp16 at head
+    dim 64, fp32 at 48) and K4-K6 (fp16 at width 768, fp32 at 200) on CPU
+    tensors: {entry point: (call on a library, the values its parameters
+    must be given)}."""
+    from visualbert_torch.ops import mlm_xent as xe
+
+    qkv16 = torch.zeros((B, T, 3 * H * D), dtype=torch.float16)
+    qb16 = torch.zeros(3 * H * D, dtype=torch.float16)
+    out16 = torch.zeros((B, T, H * D), dtype=torch.float16)
+    qkv32 = torch.zeros((B, T, 3 * H * 48))
+    qb32 = torch.zeros(3 * H * 48)
+    out32 = torch.zeros((B, T, H * 48))
+    key_bias, stats = torch.zeros((B, T)), torch.zeros((B, H, T))
+    N, V = 100, 1000
+    x16, e16 = torch.zeros((N, 768), dtype=torch.float16), torch.zeros((V, 768), dtype=torch.float16)
+    x32, e32 = torch.zeros((N, 200)), torch.zeros((V, 200))
+    rows, lab = torch.zeros(N), torch.zeros(N, dtype=torch.int32)
+    attn = dict(B=B, T=T, H=H)
+    return {
+        "vb_attn_packed_x_fwd": (lambda lib: fa.launch_packed_x_fwd(lib, qkv16, qb16, key_bias, H, 0.1, 3, HG, 0.25),
+                                 dict(attn, hg=HG, dtype=1, dh=D, scale=0.25)),
+        "vb_attn_packed_x_bwd": (lambda lib: fa.launch_packed_x_bwd(lib, qkv16, qb16, key_bias, out16, out16, stats,
+                                                                    H, 0.1, 3, HG_DQ, HG_DKV, 0.25),
+                                 dict(attn, hg_dq=HG_DQ, hg_dkv=HG_DKV, dtype=1, dh=D, scale=0.25)),
+        "vb_attn_f32_fwd": (lambda lib: fa.launch_f32_fwd(lib, qkv32, qb32, key_bias, H, 0.1, 3),
+                            dict(attn, D=48, scale=48 ** -0.5)),
+        "vb_attn_f32_bwd": (lambda lib: fa.launch_f32_bwd(lib, qkv32, qb32, key_bias, out32, out32, stats, H, 0.1, 3),
+                            dict(attn, D=48, scale=48 ** -0.5)),
+        "vb_xent_f16_fwd": (lambda lib: xe.launch_fwd(lib, x16, e16, torch.zeros(V), lab, 132), dict(N=N, V=V, hid=768)),
+        "vb_xent_f16_dx": (lambda lib: xe.launch_dx(lib, x16, e16, torch.zeros(V), lab, rows, rows, 132),
+                           dict(N=N, V=V, hid=768)),
+        "vb_xent_f16_de": (lambda lib: xe.launch_de(lib, x16, e16, torch.zeros(V), lab, rows, rows),
+                           dict(N=N, V=V, hid=768)),
+        "vb_xent_f32_fwd": (lambda lib: xe.launch_f32_fwd(lib, x32, e32, torch.zeros(V), lab), dict(N=N, V=V, H=200)),
+        "vb_xent_f32_dx": (lambda lib: xe.launch_f32_dx(lib, x32, e32, torch.zeros(V), lab, rows, rows),
+                           dict(N=N, V=V, H=200)),
+        "vb_xent_f32_de": (lambda lib: xe.launch_f32_de(lib, x32, e32, torch.zeros(V), lab, rows, rows),
+                           dict(N=N, V=V, H=200)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(form_launches()))
+def test_each_form_launch_passes_its_signatures_arguments(monkeypatch, name):
+    """The launches of the other forms hand their entry point one value per
+    declared argument, an int for every pointer and integer and a float for
+    a float, with the shape, head groups, element type, head dim or width
+    and softmax scale in the parameters of those names."""
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    launch, want = form_launches()[name]
+    lib = XentLib()
+    out = launch(lib)
+    called, values = lib.calls[-1]
+    assert called == name and out[0] == 0
+    assert len(values) == len(_build._SIGNATURES[name])
+    for value, argtype in zip(values, _build._SIGNATURES[name]):
+        assert type(value) is (float if argtype is ctypes.c_float else int), (value, argtype)
+    given = dict(zip(DEFINED[name][3], values))
+    assert {k: given[k] for k in want} == pytest.approx(want)
+
+
 class LnLib(RecordingLib):
     """A recording library that also answers ``vb_ln_geometry`` (rows up to
     1024 wide, 4 rows a block) and ``vb_ln_info``'s blocks an SM (PER_SM)."""

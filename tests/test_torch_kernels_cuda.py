@@ -58,6 +58,18 @@ every ragged, single and whole row block, vocabulary tile and split of N in
 {3072, 37} for K5/K6, at every N for K4), repeat bit for bit, do not spill,
 and have the tiling that ``tests/test_torch_xent_geometry.py`` plans their
 grids with; K4's argmax takes the first of equal maxima.
+
+The other forms of K1/K2 and K4-K6 (``tests/test_torch_kernel_dtypes.py``
+holds their plain versions against JAX on the CPU): K1/K2 in bf16, fp16
+and fp32 at head dims 8, 16, 32, 64, 96 and 128 (bf16 and fp16 zero-padded
+to the kernels' 64 or 128), dropout 0 and 0.1, against the plain versions
+as above (fp32 within 1e-4 relative, its stats within 1e-4), repeating bit
+for bit, dropping exactly the plain mask's positions, and at D = 128
+taking T up to 256 and refusing 257 (fp32 has no such limit: T = 1024
+runs); K4-K6 in bf16 and fp16 at widths 32 to 1024 (every instantiated
+width and padded ones between) and in fp32 at any width, as above (fp32's
+dx, dE and db within 1e-4 of the largest plain value, nll and lse within
+1e-4), repeating bit for bit, none spilling.
 """
 
 import numpy as np
@@ -901,10 +913,13 @@ def test_xent_geometry_is_the_one_the_plans_are_tested_with(cuda):
     from visualbert_torch.ops import _build
 
     lib = _build.library()
-    got = {H: tuple(lib.vb_xent_geometry(w, H) for w in range(6)) for H in (768, 1024)}
-    assert got == {768: (768, 128, 64, 32, 32, 768), 1024: (1024, 64, 64, 32, 16, 512)}
-    assert lib.vb_xent_geometry(0, 512) == -1 and lib.vb_xent_info(0, 0, 512) == -1
-    assert lib.vb_xent_info(2, 0, 512) == -1 and lib.vb_xent_info(3, 0, 768) == -1
+    got = {H: tuple(lib.vb_xent_geometry(w, H) for w in range(6)) for H in xe.KERNEL_WIDTHS}
+    assert got == {128: (128, 128, 64, 32, 32, 128), 256: (256, 128, 64, 32, 32, 256),
+                   512: (512, 128, 64, 32, 32, 512), 768: (768, 128, 64, 32, 32, 768),
+                   1024: (1024, 64, 64, 32, 16, 512)}
+    assert lib.vb_xent_geometry(0, 640) == -1 and lib.vb_xent_info(0, 0, 640) == -1
+    assert lib.vb_xent_info(2, 0, 640) == -1 and lib.vb_xent_info(3, 0, 768) == -1
+    assert lib.vb_xent_f16_info(2, 0, 640) == -1 and lib.vb_xent_f32_info(0, 0, 1025) == -1
 
 
 def test_xent_argmax_takes_the_first_max(cuda):
@@ -943,9 +958,12 @@ def test_xent_autograd_through_kernels(cuda):
 
 
 def test_xent_rejects_what_the_kernel_does_not_take(cuda):
+    """Widths above 1024 (every width up to it runs, padded where needed),
+    x and E of different dtypes, labels not int32."""
     x, emb, bias, labels, _ = xent_inputs(16, 100, cuda)
+    wide = torch.zeros((16, 1100), dtype=x.dtype, device=cuda)
     with pytest.raises(ValueError, match="hidden width"):
-        xe.mlm_xent_fwd(x[:, :64].contiguous(), emb[:, :64].contiguous(), bias, labels)
+        xe.mlm_xent_fwd(wide, torch.zeros((100, 1100), dtype=x.dtype, device=cuda), bias, labels)
     with pytest.raises(ValueError, match="bf16"):
         xe.mlm_xent_fwd(x.float(), emb, bias, labels)
     with pytest.raises(ValueError, match="int32"):
@@ -1298,3 +1316,183 @@ def test_model_step_with_fused_layer_norm_matches_plain(cuda, monkeypatch):
         if not err < 5e-2:
             bad[k] = err
     assert not bad, bad
+
+
+# --------------------------------------------------- the other forms of K1/K2, K4-K6
+
+F32_REL_TOL = 1e-4  # fp32 forms: outputs and gradients, share of the largest plain value
+F32_ABS_TOL = 1e-4  # fp32 forms: stats, nll, lse
+
+
+def form_attention_inputs(B, T, H, D, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    F = 3 * H * D
+    qkv = torch.tensor(rng.randn(B, T, F), dtype=dtype, device=device)
+    qb = torch.tensor(rng.randn(F) * 0.1, dtype=dtype, device=device)
+    mask = np.ones((B, T), np.float32)
+    mask[0, T - T // 3:] = 0
+    if B > 1:
+        mask[1, -1:] = 0
+    key_bias = torch.tensor((1.0 - mask) * -10000.0, device=device)
+    dout = torch.tensor(rng.randn(B, T, H * D), dtype=dtype, device=device)
+    return qkv, qb, key_bias, dout
+
+
+FORM_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+@pytest.mark.parametrize("B,T,H", [(2, 130, 4), (4, 228, 12), (1, 1, 2)])
+@pytest.mark.parametrize("D", [8, 16, 32, 64, 96, 128])
+@pytest.mark.parametrize("dtype", FORM_DTYPES, ids=str)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_forms_match_plain(cuda, dtype, D, B, T, H, rate):
+    qkv, qb, key_bias, dout = form_attention_inputs(B, T, H, D, dtype, cuda)
+    fwd = fa.packed_attention_fwd.forms.get(fa.attention_form(dtype, D), 0)
+    out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, 99)
+    out_r, stats_r = fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, 99)
+    dqkv, dqb = fa.packed_attention_bwd(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 99)
+    dqkv_r, dqb_r = fa.packed_attention_bwd_reference(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 99)
+    torch.cuda.synchronize()
+    assert fa.packed_attention_fwd.forms[fa.attention_form(dtype, D)] == fwd + 1
+    assert out.dtype == dtype and out.shape == out_r.shape and dqkv.shape == qkv.shape and dqb.shape == qb.shape
+    rel, st = (F32_REL_TOL, F32_ABS_TOL) if dtype == torch.float32 else (REL_TOL, STATS_ATOL)
+    assert rel_err(out, out_r) < rel
+    assert float((stats - stats_r).abs().max()) < st
+    assert rel_err(dqkv, dqkv_r) < rel
+    assert rel_err(dqb, dqb_r) < rel
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.bfloat16, 128), (torch.float16, 16),
+                                     (torch.float32, 64), (torch.float32, 96)], ids=str)
+def test_attention_forms_repeat_bit_for_bit(cuda, dtype, D):
+    qkv, qb, key_bias, dout = form_attention_inputs(4, 228, 6, D, dtype, cuda)
+    runs = []
+    for _ in range(2):
+        out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, 6, 0.1, 7)
+        runs.append((out, stats) + fa.packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, 6, 0.1, 7))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.float16, 128), (torch.float32, 64),
+                                     (torch.float32, 32), (torch.bfloat16, 128)], ids=str)
+def test_attention_forms_drop_the_plain_mask(cuda, dtype, D):
+    """As test_attention_kernels_drop_the_plain_mask, at T = D keys in every
+    form: out[i, j] is the dropped p[i, j] and the dK/dV pass's dv[j, i] the
+    same, zero exactly where the plain mask drops."""
+    B, T, H, rate, seed = 3, D, 2, 0.1, 11
+    rng = np.random.RandomState(5)
+    qkv = torch.tensor(rng.randn(B, T, H, 3, D), dtype=dtype, device=cuda)
+    qkv[:, :, :, 2] = torch.eye(T, dtype=dtype, device=cuda)[None, :, None]
+    qkv = qkv.reshape(B, T, 3 * H * D).contiguous()
+    qb = torch.zeros(3 * H * D, dtype=dtype, device=cuda)
+    key_bias = torch.zeros((B, T), device=cuda)
+    dout = torch.eye(T, dtype=dtype, device=cuda)[None, :, None].expand(B, T, H, D).reshape(B, T, H * D)
+    out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, seed)
+    dqkv, _ = fa.packed_attention_bwd(qkv, qb, key_bias, dout.contiguous(), out, stats, H, rate, seed)
+    torch.cuda.synchronize()
+    keep = fa.attention_keep_reference(seed, B, H, T, rate, cuda)
+    p_d = out.view(B, T, H, D).permute(0, 2, 1, 3)
+    dv = dqkv.view(B, T, H, 3, D)[:, :, :, 2].permute(0, 2, 3, 1)
+    assert torch.equal(p_d != 0, keep)
+    assert torch.equal(dv != 0, keep)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_attention_at_head_dim_128_takes_t_up_to_256(cuda, dtype):
+    """At D = 128 a K/V row takes twice D = 64's shared memory: T = 256
+    runs, 257 is refused with the limit named; fp32 has no such limit."""
+    qkv, qb, key_bias, dout = form_attention_inputs(1, 256, 2, 128, dtype, cuda)
+    out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, 2, 0.0, 0)
+    out_r, _ = fa.packed_attention_fwd_reference(qkv, qb, key_bias, 2, 0.0, 0)
+    torch.cuda.synchronize()
+    assert rel_err(out, out_r) < REL_TOL
+    qkv, qb, key_bias, dout = form_attention_inputs(1, 257, 2, 128, dtype, cuda)
+    for what in (lambda: fa.packed_attention_fwd(qkv, qb, key_bias, 2, 0.0, 0),
+                 lambda: fa.packed_attention_bwd(qkv, qb, key_bias, dout, dout, key_bias.view(1, 1, -1).expand(1, 2, 257)
+                                                 .contiguous(), 2, 0.0, 0)):
+        with pytest.raises(ValueError, match="T up to 256"):
+            what()
+    qkv, qb, key_bias, dout = form_attention_inputs(1, 1024, 1, 128, torch.float32, cuda)
+    out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, 1, 0.0, 0)
+    out_r, stats_r = fa.packed_attention_fwd_reference(qkv, qb, key_bias, 1, 0.0, 0)
+    torch.cuda.synchronize()
+    assert rel_err(out, out_r) < F32_REL_TOL and float((stats - stats_r).abs().max()) < F32_ABS_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8], ids=str)
+def test_attention_forms_refuse_what_no_kernel_takes(cuda, dtype):
+    if dtype == torch.float16:  # head dim 160 > 128
+        qkv, qb, key_bias, _ = form_attention_inputs(1, 8, 1, 160, dtype, cuda)
+        with pytest.raises(ValueError, match="head dims up to 128"):
+            fa.packed_attention_fwd(qkv, qb, key_bias, 1, 0.0, 0)
+        return
+    qkv = torch.zeros((1, 8, 3 * 64), dtype=dtype, device=cuda)
+    with pytest.raises(ValueError, match="bf16, fp16 or fp32"):
+        fa.packed_attention_fwd(qkv, qkv[0, 0], torch.zeros((1, 8), device=cuda), 1, 0.0, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_attention_half_forms_at_head_dim_64_do_not_spill(cuda, dtype, which):
+    lib = _build.library()
+    code = 0 if dtype == torch.bfloat16 else 1
+    regs, local, smem, per_sm = (lib.vb_attn_packed_x_info(code, 64, which, w, 228) for w in range(4))
+    assert 0 < regs <= 255 and local == 0 and per_sm >= 1
+
+
+def form_xent_inputs(N, V, H, dtype, device, seed=0):
+    x, emb, bias, labels, g = xent_inputs(N, V, device, seed=seed, H=H)
+    return x.to(dtype), emb.to(dtype), bias, labels, g
+
+
+XENT_FORM_CASES = ([(dt, H) for dt in (torch.bfloat16, torch.float16)
+                    for H in (32, 64, 128, 200, 256, 384, 512, 640, 768, 1000, 1024)]
+                   + [(torch.float32, H) for H in (32, 64, 200, 768, 1024)])
+
+
+@pytest.mark.parametrize("N,V", [(257, 4099), (37, 30522), (1, 70)])
+@pytest.mark.parametrize("dtype,H", XENT_FORM_CASES, ids=str)
+def test_xent_forms_match_plain(cuda, dtype, H, N, V):
+    x, emb, bias, labels, g = form_xent_inputs(N, V, H, dtype, cuda)
+    nll, lse, am = xe.mlm_xent_fwd(x, emb, bias, labels)
+    nll_r, lse_r, am_r = xe.mlm_xent_fwd_reference(x, emb, bias, labels)
+    torch.cuda.synchronize()
+    atol = F32_ABS_TOL if dtype == torch.float32 else XENT_ATOL
+    assert float((nll - nll_r).abs().max()) < atol
+    assert float((lse - lse_r).abs().max()) < atol
+    clear = top2_gap(x, emb, bias) > ARGMAX_GAP
+    assert torch.equal(am[clear], am_r[clear])
+    dx = xe.mlm_xent_dx(x, emb, bias, labels, lse_r, g)
+    de, db = xe.mlm_xent_de(x, emb, bias, labels, lse_r, g)
+    dx_r = xe.mlm_xent_dx_reference(x, emb, bias, labels, lse_r, g)
+    de_r, db_r = xe.mlm_xent_de_reference(x, emb, bias, labels, lse_r, g)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and de.dtype == dtype and dx.shape == x.shape and de.shape == emb.shape
+    rel, db_rel = (F32_REL_TOL, F32_REL_TOL) if dtype == torch.float32 else (REL_TOL, DB_REL_TOL)
+    assert rel_err(dx, dx_r) < rel
+    assert rel_err(de, de_r) < rel
+    assert rel_err(db, db_r) < db_rel
+
+
+@pytest.mark.parametrize("dtype,H", [(torch.float16, 768), (torch.bfloat16, 256), (torch.bfloat16, 384),
+                                     (torch.float32, 64), (torch.float32, 768)], ids=str)
+def test_xent_forms_repeat_bit_for_bit(cuda, dtype, H):
+    x, emb, bias, labels, g = form_xent_inputs(3072, 30522, H, dtype, cuda)
+    runs = []
+    for _ in range(2):
+        nll, lse, am = xe.mlm_xent_fwd(x, emb, bias, labels)
+        runs.append((nll, lse, am, xe.mlm_xent_dx(x, emb, bias, labels, lse, g))
+                    + xe.mlm_xent_de(x, emb, bias, labels, lse, g))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("info,H", [(i, H) for i in ("vb_xent_info", "vb_xent_f16_info") for H in xe.KERNEL_WIDTHS]
+                         + [("vb_xent_f32_info", H) for H in (32, 768, 1024)])
+@pytest.mark.parametrize("kernel", [0, 1, 2])
+def test_xent_forms_do_not_spill(cuda, info, H, kernel):
+    lib = _build.library()
+    regs, local, smem, per_sm = (getattr(lib, info)(kernel, w, H) for w in range(4))
+    assert 0 < regs <= 255 and local == 0
+    assert 0 < smem <= 232448 and per_sm >= 1

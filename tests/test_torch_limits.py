@@ -20,11 +20,11 @@ KERNELS_ON = dict(use_flash_attention=True, fused_mlm_xent=True, use_fused_layer
 
 # (config fields, the flag and the limit the message must name)
 OUTSIDE = [
-    (dict(use_flash_attention=True, dtype="float32"), "use_flash_attention", "bf16"),
-    (dict(use_flash_attention=True, hidden_size=1024, num_attention_heads=8), "use_flash_attention", "head dim 64"),
     (dict(use_flash_attention=True, packed_qkv=False, dtype="float16"), "use_flash_attention", "bf16"),
-    (dict(fused_mlm_xent=True, dtype="float32"), "fused_mlm_xent", "bf16"),
-    (dict(fused_mlm_xent=True, hidden_size=512, num_attention_heads=8), "fused_mlm_xent", "768 or 1024"),
+    (dict(use_flash_attention=True, flash_save_probs=True, dtype="float32"), "flash_save_probs", "bf16"),
+    (dict(use_flash_attention=True, hidden_size=1024, num_attention_heads=4), "use_flash_attention",
+     "head dims up to 128"),
+    (dict(fused_mlm_xent=True, hidden_size=1280, num_attention_heads=20), "fused_mlm_xent", "up to 1024"),
     (dict(use_fused_layer_norm=True, hidden_size=1100, num_attention_heads=11), "use_fused_layer_norm", "up to 1024"),
     (dict(use_fused_layer_norm=True, hidden_size=1284, num_attention_heads=12), "use_fused_layer_norm", "multiple of 8"),
     (dict(fast_dropout=True, dtype=torch.float64), "fast_dropout", "bf16, fp16 or fp32"),
@@ -41,6 +41,35 @@ def test_a_config_outside_a_kernel_limit_is_refused_on_cuda(fields, flag, limit)
     check_kernel_limits(cfg, torch.device("cpu"))
 
 
+# configs that were refused before the kernels took fp16, fp32, head dims
+# up to 128 and cross-entropy widths up to 1024
+NOW_TAKEN = [
+    dict(use_flash_attention=True, dtype="float32"),
+    dict(use_flash_attention=True, hidden_size=1024, num_attention_heads=8),
+    dict(fused_mlm_xent=True, dtype="float32"),
+    dict(fused_mlm_xent=True, hidden_size=512, num_attention_heads=8),
+]
+
+
+@pytest.mark.parametrize("fields", NOW_TAKEN, ids=["K1K2-fp32", "K1K2-head-dim-128", "K4K6-fp32", "K4K6-512"])
+def test_a_config_the_kernels_now_take_is_accepted_on_cuda(fields):
+    check_kernel_limits(VisualBertConfig(**fields), CUDA)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("head_dim", [8, 16, 32, 64, 96, 128])
+def test_the_packed_attention_takes_every_dtype_and_head_dim_up_to_128(dtype, head_dim):
+    cfg = VisualBertConfig(hidden_size=4 * head_dim, num_attention_heads=4, dtype=dtype, use_flash_attention=True)
+    check_kernel_limits(cfg, CUDA)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("width", [32, 64, 128, 200, 256, 384, 512, 640, 768, 1000, 1024])
+def test_the_fused_cross_entropy_takes_every_dtype_and_width_up_to_1024(dtype, width):
+    cfg = VisualBertConfig(hidden_size=width, num_attention_heads=1, dtype=dtype, fused_mlm_xent=True)
+    check_kernel_limits(cfg, CUDA)
+
+
 @pytest.mark.parametrize("fields", [dict(), dict(hidden_size=1024, num_attention_heads=16, intermediate_size=4096)],
                          ids=["bert-base", "bert-large"])
 def test_the_shipped_widths_pass(fields):
@@ -55,7 +84,7 @@ def test_flags_off_take_anything():
 def test_the_task_runner_and_the_main_path_refuse_at_build():
     """The registry's trainer and tools/main_path.build refuse before they
     build anything on the card (there is none here)."""
-    block = dict(main_path.model_block(), dtype="float32")
+    block = dict(main_path.model_block(), dtype="float32", flash_save_probs=True)
     with pytest.raises(ValueError, match="bf16"):
         main_path.build(block, device="cuda")
     cfg = parse_task_config({"task": "coco_pretrain", "model": block})

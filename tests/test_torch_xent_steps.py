@@ -52,7 +52,7 @@ def test_k4s_switches_lie_inside_the_forward_kernel(macro):
 
 
 def test_the_sass_parse_keys_the_shared_kernels_by_their_mangled_names():
-    from visualbert_torch.tools.attn_ab import sass_of
+    from visualbert_torch.tools.attn_ab import OTHER_FORMS, sass_of
 
     text = """
         Function : _ZN44_GLOBAL__N__x15xent_bwd_kernelILi768ELb0EEEvPK13__nv_bfloat16
@@ -62,8 +62,10 @@ def test_the_sass_parse_keys_the_shared_kernels_by_their_mangled_names():
         /*0000*/                   EXIT ;                                  /* 0x000000000000794d */
         Function : _ZN44_GLOBAL__N__x15xent_bwd_kernelILi1024ELb1EEEvPK13__nv_bfloat16
         /*0000*/                   EXIT ;                                  /* 0x000000000000794d */
+        Function : _ZN44_GLOBAL__N__x15xent_bwd_kernelILi768ELb0E6__halfEEvPKT1_
+        /*0000*/                   NOP ;                                   /* 0x0000000000007918 */
     """
-    got = sass_of(text, xent_steps.SHARED_KERNELS)
+    got = sass_of(text, xent_steps.SHARED_KERNELS, OTHER_FORMS)
     assert got == {"K5, 768": ["MOV R1, c[0x0][0x28]", "BRA `(.L0)"], "K6, 1024": ["EXIT"]}
     assert not any("fwd_kernel" in key for key in xent_steps.SHARED_KERNELS.values())
 

@@ -82,6 +82,18 @@ class VisualBertConfig:
         return cls(**kw)
 
     @classmethod
+    def large(cls, **kw) -> "VisualBertConfig":
+        """bert-large geometry (the JAX package's ``large``)."""
+        defaults = dict(
+            hidden_size=1024,
+            num_hidden_layers=24,
+            num_attention_heads=16,
+            intermediate_size=4096,
+        )
+        defaults.update(kw)
+        return cls(**defaults)
+
+    @classmethod
     def tiny(cls, **kw) -> "VisualBertConfig":
         """A small config for CPU tests (the JAX package's ``tiny``)."""
         defaults = dict(

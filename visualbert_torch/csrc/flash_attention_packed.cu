@@ -6,7 +6,8 @@
 // H*3*D] bf16 packed head-major WITHOUT the QKV projection bias; qb [H*3*D]
 // bf16 is that bias, added here once a tile lands in shared memory (bf16
 // add, rounded as the JAX kernel's `qkv + qb`); key_bias [B, T] fp32 (0 or
-// -10000). The forward writes out [B, T, H*D] bf16 and the base-2 row
+// -10000). (bf16 and D = 64 stand for the element type and head dim of
+// step 5 below.) The forward writes out [B, T, H*D] bf16 and the base-2 row
 // statistic stats [B, H, T] fp32, stats = max_j t + log2 sum_j exp2(t - max)
 // with t = (q.k) * scale * log2(e) + key_bias * log2(e). The backward writes
 // dqkv [B, T, H*3*D] bf16, delta = rowsum(dO * O) [B, H, T] fp32 (scratch
@@ -56,6 +57,20 @@
 // The building blocks of steps 2-4 (swizzle, cp.async, wgmma, Philox
 // sharing, the bias add, the epilogue) live in hopper_attn.cuh, which
 // K11-K16 share.
+// 5. Element types and head dims. The kernels are templates on the element
+//    type E (bf16 or fp16: wgmma's .bf16 or .f16, the same shapes and
+//    swizzle; probabilities and dS are rounded to E before their products,
+//    as the JAX kernel's p.astype(x.dtype)) and the head dim DH (64 or 128:
+//    a row is DH / 64 swizzled 128 B panels, every product loops over them,
+//    and the accumulators of O, dQ, dK and dV are DH / 64 m64n64 tiles).
+//    The wrapper zero-pads a head dim below 64 to 64 and one in (64, 128)
+//    to 128 (ops/flash_attention.py::pad_heads) and passes the softmax
+//    scale 1 / sqrt(D) of the unpadded D: zero columns add nothing to QK^T
+//    and give zero output columns, and the dropout bits are indexed by (b,
+//    h, i, j), not by D. At DH = 128 a K/V row takes 512 B of shared memory
+//    a pair, so T is limited to about half of DH = 64's; the wrapper checks
+//    vb_attn_packed_x_smem_bytes. fp32 has its own kernels
+//    (flash_attention_f32.cu): wgmma's TF32 would not hold fp32's tolerance.
 // tools/attn_steps.py builds this source again with step 2 or step 3 left
 // out (-DVB_PACKED_PHILOX_PER_ROW, -DVB_PACKED_SYNC_LOADS, switches of that
 // header) and times each build beside this one; the library never defines
@@ -68,73 +83,78 @@ using namespace vb_hopper;
 
 // ---------------------------------------------------------------- forward
 
+template <int DH>
 size_t fwd_bytes(int T) {
   const int Tp = round_up(T, TILE);
-  return ALIGN + 2 * TILE_BYTES + (size_t)2 * Tp * ROW + Tp * sizeof(float);
+  return ALIGN + 2 * Tile<DH>::BYTES + (size_t)2 * Tp * Tile<DH>::ROWB + Tp * sizeof(float);
 }
 
 // grid (H / hg, B): block (x, b) owns heads [x * hg, (x + 1) * hg) of row b.
+template <typename E, int DH>
 __global__ void __launch_bounds__(NT)
-packed_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, const float* __restrict__ key_bias,
-                  bf16* __restrict__ out, float* __restrict__ stats, int T, int H, int hg, uint32_t seed,
-                  uint32_t thr, float inv, int dropout) {
+packed_fwd_kernel(const E* __restrict__ qkv, const E* __restrict__ qb, const float* __restrict__ key_bias,
+                  E* __restrict__ out, float* __restrict__ stats, int T, int H, int hg, uint32_t seed,
+                  uint32_t thr, float inv, int dropout, float scale) {
+  using L = Tile<DH>;
+  constexpr int TB = L::BYTES, NP = L::NP;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align_smem(smem_raw);
   const int Tp = round_up(T, TILE), ntl = Tp / TILE;
-  unsigned char* Qs = sm;                        // [2][TILE] query tiles
-  unsigned char* Ks = Qs + 2 * TILE_BYTES;       // [Tp] keys
-  unsigned char* Vs = Ks + (size_t)Tp * ROW;     // [Tp] values
-  float* kb = reinterpret_cast<float*>(Vs + (size_t)Tp * ROW);  // [Tp] key bias * log2(e)
+  unsigned char* Qs = sm;                           // [2][TILE] query tiles
+  unsigned char* Ks = Qs + 2 * TB;                  // [Tp] keys
+  unsigned char* Vs = Ks + (size_t)Tp * L::ROWB;    // [Tp] values
+  float* kb = reinterpret_cast<float*>(Vs + (size_t)Tp * L::ROWB);  // [Tp] key bias * log2(e)
   const uint32_t sQ = smem_addr(Qs), sK = smem_addr(Ks), sV = smem_addr(Vs);
 
-  const int b = blockIdx.y, F = 3 * H * D, ldo = H * D;
+  const int b = blockIdx.y, F = 3 * H * DH, ldo = H * DH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
-  const float c1 = SCALE * LOG2E;
-  const bf16* base = qkv + (size_t)b * T * F;
+  const float c1 = scale * LOG2E;
+  const E* base = qkv + (size_t)b * T * F;
   load_key_bias(kb, key_bias + (size_t)b * T, T, Tp);
 
   for (int h = blockIdx.x * hg; h < (blockIdx.x + 1) * hg; ++h) {
-    const bf16 *qsrc = base + 3 * h * D, *ksrc = qsrc + D, *vsrc = qsrc + 2 * D;
-    const uint4 bq = bias_chunk(qb, h, 0), bk = bias_chunk(qb, h, 1), bv = bias_chunk(qb, h, 2);
+    const E *qsrc = base + 3 * h * DH, *ksrc = qsrc + DH, *vsrc = qsrc + 2 * DH;
+    const uint4 bq = bias_chunk_t<E, DH>(qb, h, 0), bk = bias_chunk_t<E, DH>(qb, h, 1),
+                bv = bias_chunk_t<E, DH>(qb, h, 2);
     const uint32_t bh = (uint32_t)(b * H + h);
     __syncthreads();  // no warp still reads the last pair's tiles
-    issue_tile(sQ, qsrc, 0, T, F);
+    issue_tile_t<E, DH>(sQ, qsrc, 0, T, F);
     cp_commit();
     for (int kt = 0; kt < ntl; ++kt) {
-      issue_tile(sK + kt * TILE_BYTES, ksrc, kt * TILE, T, F);
-      issue_tile(sV + kt * TILE_BYTES, vsrc, kt * TILE, T, F);
+      issue_tile_t<E, DH>(sK + kt * TB, ksrc, kt * TILE, T, F);
+      issue_tile_t<E, DH>(sV + kt * TB, vsrc, kt * TILE, T, F);
       cp_commit();
     }
 
     for (int qt = 0; qt < ntl; ++qt) {
       const int buf = qt & 1;
       if (qt > 0) __syncthreads();  // every warp is done with the buffer the prefetch overwrites
-      if (qt + 1 < ntl) issue_tile(sQ + (buf ^ 1) * TILE_BYTES, qsrc, (qt + 1) * TILE, T, F);
+      if (qt + 1 < ntl) issue_tile_t<E, DH>(sQ + (buf ^ 1) * TB, qsrc, (qt + 1) * TILE, T, F);
       cp_commit();
       if (qt > 0) {
         cp_wait<1>();
-        add_bias(Qs + buf * TILE_BYTES, bq, qt * TILE, T);
+        add_bias_t<E, DH>(Qs + buf * TB, bq, qt * TILE, T);
         fence_async();
         __syncthreads();
       }
       const int row[2] = {qt * TILE + warp * 16 + g, qt * TILE + warp * 16 + g + 8};
-      float o[32];
-      zero(o);
+      float o[NP][32];
+      zero_t(o);
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
       for (int kt = 0; kt < ntl; ++kt) {
         if (qt == 0) {
           // pending after key tile kt: the later key tiles and the prefetch
           cp_wait_dyn(ntl - kt);
-          if (kt == 0) add_bias(Qs, bq, 0, T);
-          add_bias(Ks + kt * TILE_BYTES, bk, kt * TILE, T);
-          add_bias(Vs + kt * TILE_BYTES, bv, kt * TILE, T);
+          if (kt == 0) add_bias_t<E, DH>(Qs, bq, 0, T);
+          add_bias_t<E, DH>(Ks + kt * TB, bk, kt * TILE, T);
+          add_bias_t<E, DH>(Vs + kt * TB, bv, kt * TILE, T);
           fence_async();
           __syncthreads();
         }
         float s[32];
         wg_fence();
-        product_ss(s, sQ + buf * TILE_BYTES, sK + kt * TILE_BYTES);
+        product_ss_t<E, DH>(s, sQ + buf * TB, sK + kt * TB);
         wg_commit();
         wg_wait();
         reg_fence(s);
@@ -163,10 +183,11 @@ packed_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, con
         for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            o[4 * nt + e] *= alpha[e >> 1];
-            const float p = exp2f(s[4 * nt + e] - mnew[e >> 1]);
-            l[e >> 1] += p;
-            s[4 * nt + e] = p;
+#pragma unroll
+            for (int p = 0; p < NP; ++p) o[p][4 * nt + e] *= alpha[e >> 1];
+            const float pr = exp2f(s[4 * nt + e] - mnew[e >> 1]);
+            l[e >> 1] += pr;
+            s[4 * nt + e] = pr;
           }
         }
         if (dropout) {
@@ -180,12 +201,12 @@ packed_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, con
           }
         }
         uint32_t pa[4][4];
-        to_a(pa, s);
+        to_a_t<E>(pa, s);
         wg_fence();
-        product_rs(o, pa, sV + kt * TILE_BYTES);
+        product_rs_t<E, DH>(o, pa, sV + kt * TB);
         wg_commit();
         wg_wait();
-        reg_fence(o);
+        reg_fence_t(o);
         reg_fence(pa);
       }
 
@@ -198,14 +219,19 @@ packed_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, con
         sc[r] = inv / l[r];
         ok[r] = row[r] < T;
       }
-      bf16* ob = out + (size_t)b * T * ldo + h * D;
+      E* ob = out + (size_t)b * T * ldo + h * DH;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int c = nt * 8 + 2 * tq;
-        if (ok[0]) *reinterpret_cast<uint32_t*>(ob + (size_t)row[0] * ldo + c) = pack_bf16(o[4 * nt] * sc[0], o[4 * nt + 1] * sc[0]);
-        if (ok[1])
-          *reinterpret_cast<uint32_t*>(ob + (size_t)row[1] * ldo + c) = pack_bf16(o[4 * nt + 2] * sc[1], o[4 * nt + 3] * sc[1]);
-      }
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int c = p * 64 + nt * 8 + 2 * tq;
+          if (ok[0])
+            *reinterpret_cast<uint32_t*>(ob + (size_t)row[0] * ldo + c) =
+                vb::Elem<E>::pack(o[p][4 * nt] * sc[0], o[p][4 * nt + 1] * sc[0]);
+          if (ok[1])
+            *reinterpret_cast<uint32_t*>(ob + (size_t)row[1] * ldo + c) =
+                vb::Elem<E>::pack(o[p][4 * nt + 2] * sc[1], o[p][4 * nt + 3] * sc[1]);
+        }
       if (tq == 0) {
 #pragma unroll
         for (int r = 0; r < 2; ++r)
@@ -217,88 +243,92 @@ packed_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, con
 
 // ------------------------------------------------------- backward: dQ pass
 
+template <int DH>
 size_t dq_bytes(int T) {
   const int Tp = round_up(T, TILE);
-  return ALIGN + 4 * TILE_BYTES + (size_t)2 * Tp * ROW + (3 * Tp + 4 * D) * sizeof(float);
+  return ALIGN + 4 * Tile<DH>::BYTES + (size_t)2 * Tp * Tile<DH>::ROWB + (3 * Tp + 4 * DH) * sizeof(float);
 }
 
+template <typename E, int DH>
 __global__ void __launch_bounds__(NT)
-packed_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, const float* __restrict__ key_bias,
-                 const bf16* __restrict__ dout, const bf16* __restrict__ out, const float* __restrict__ stats,
-                 bf16* __restrict__ dqkv, float* __restrict__ db_part, float* __restrict__ delta_g, int T, int H,
-                 int hg, uint32_t seed, uint32_t thr, float inv, int dropout) {
+packed_dq_kernel(const E* __restrict__ qkv, const E* __restrict__ qb, const float* __restrict__ key_bias,
+                 const E* __restrict__ dout, const E* __restrict__ out, const float* __restrict__ stats,
+                 E* __restrict__ dqkv, float* __restrict__ db_part, float* __restrict__ delta_g, int T, int H,
+                 int hg, uint32_t seed, uint32_t thr, float inv, int dropout, float scale) {
+  using L = Tile<DH>;
+  constexpr int TB = L::BYTES, NP = L::NP;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align_smem(smem_raw);
   const int Tp = round_up(T, TILE), ntl = Tp / TILE;
-  unsigned char* Qs = sm;                        // [2][TILE]
-  unsigned char* dOs = Qs + 2 * TILE_BYTES;      // [2][TILE]
-  unsigned char* Ks = dOs + 2 * TILE_BYTES;      // [Tp]
-  unsigned char* Vs = Ks + (size_t)Tp * ROW;     // [Tp]
-  float* kb = reinterpret_cast<float*>(Vs + (size_t)Tp * ROW);  // [Tp]
-  float* st = kb + Tp;                           // [Tp] stats of the pair's rows
-  float* dl = st + Tp;                           // [Tp] delta of the pair's rows
-  float* red = dl + Tp;                          // [4][D] dq column sums
+  unsigned char* Qs = sm;                           // [2][TILE]
+  unsigned char* dOs = Qs + 2 * TB;                 // [2][TILE]
+  unsigned char* Ks = dOs + 2 * TB;                 // [Tp]
+  unsigned char* Vs = Ks + (size_t)Tp * L::ROWB;    // [Tp]
+  float* kb = reinterpret_cast<float*>(Vs + (size_t)Tp * L::ROWB);  // [Tp]
+  float* st = kb + Tp;                              // [Tp] stats of the pair's rows
+  float* dl = st + Tp;                              // [Tp] delta of the pair's rows
+  float* red = dl + Tp;                             // [4][DH] dq column sums
   const uint32_t sQ = smem_addr(Qs), sdO = smem_addr(dOs), sK = smem_addr(Ks), sV = smem_addr(Vs);
 
-  const int b = blockIdx.y, F = 3 * H * D, ldo = H * D;
+  const int b = blockIdx.y, F = 3 * H * DH, ldo = H * DH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
-  const float c1 = SCALE * LOG2E;
-  const bf16* base = qkv + (size_t)b * T * F;
+  const float c1 = scale * LOG2E;
+  const E* base = qkv + (size_t)b * T * F;
   load_key_bias(kb, key_bias + (size_t)b * T, T, Tp);
 
   for (int h = blockIdx.x * hg; h < (blockIdx.x + 1) * hg; ++h) {
-    const bf16 *qsrc = base + 3 * h * D, *ksrc = qsrc + D, *vsrc = qsrc + 2 * D;
-    const bf16* dsrc = dout + (size_t)b * T * ldo + h * D;
-    const uint4 bq = bias_chunk(qb, h, 0), bk = bias_chunk(qb, h, 1), bv = bias_chunk(qb, h, 2);
+    const E *qsrc = base + 3 * h * DH, *ksrc = qsrc + DH, *vsrc = qsrc + 2 * DH;
+    const E* dsrc = dout + (size_t)b * T * ldo + h * DH;
+    const uint4 bq = bias_chunk_t<E, DH>(qb, h, 0), bk = bias_chunk_t<E, DH>(qb, h, 1),
+                bv = bias_chunk_t<E, DH>(qb, h, 2);
     const uint32_t bh = (uint32_t)(b * H + h);
     const size_t sb = (size_t)bh * T;
     __syncthreads();  // no warp still reads the last pair's tiles, statistics or sums
-    issue_tile(sQ, qsrc, 0, T, F);
-    issue_tile(sdO, dsrc, 0, T, ldo);
+    issue_tile_t<E, DH>(sQ, qsrc, 0, T, F);
+    issue_tile_t<E, DH>(sdO, dsrc, 0, T, ldo);
     cp_commit();
     for (int kt = 0; kt < ntl; ++kt) {
-      issue_tile(sK + kt * TILE_BYTES, ksrc, kt * TILE, T, F);
-      issue_tile(sV + kt * TILE_BYTES, vsrc, kt * TILE, T, F);
+      issue_tile_t<E, DH>(sK + kt * TB, ksrc, kt * TILE, T, F);
+      issue_tile_t<E, DH>(sV + kt * TB, vsrc, kt * TILE, T, F);
       cp_commit();
     }
     // while the tiles land: the pair's statistics and delta
     for (int i = threadIdx.x; i < Tp; i += NT) st[i] = i < T ? stats[sb + i] : 0.f;
-    pair_delta(dsrc, out + (size_t)b * T * ldo + h * D, ldo, dl, delta_g + sb, T, Tp);
-    red[threadIdx.x] = 0.f;
-    red[threadIdx.x + NT] = 0.f;
+    pair_delta_t<E, DH>(dsrc, out + (size_t)b * T * ldo + h * DH, ldo, dl, delta_g + sb, T, Tp);
+    for (int i = threadIdx.x; i < 4 * DH; i += NT) red[i] = 0.f;
     __syncthreads();  // statistics and delta are read below before the first tile's barrier
 
     for (int qt = 0; qt < ntl; ++qt) {
       const int buf = qt & 1;
       if (qt > 0) __syncthreads();
       if (qt + 1 < ntl) {
-        issue_tile(sQ + (buf ^ 1) * TILE_BYTES, qsrc, (qt + 1) * TILE, T, F);
-        issue_tile(sdO + (buf ^ 1) * TILE_BYTES, dsrc, (qt + 1) * TILE, T, ldo);
+        issue_tile_t<E, DH>(sQ + (buf ^ 1) * TB, qsrc, (qt + 1) * TILE, T, F);
+        issue_tile_t<E, DH>(sdO + (buf ^ 1) * TB, dsrc, (qt + 1) * TILE, T, ldo);
       }
       cp_commit();
       if (qt > 0) {
         cp_wait<1>();
-        add_bias(Qs + buf * TILE_BYTES, bq, qt * TILE, T);
+        add_bias_t<E, DH>(Qs + buf * TB, bq, qt * TILE, T);
         fence_async();
         __syncthreads();
       }
       const int row[2] = {qt * TILE + warp * 16 + g, qt * TILE + warp * 16 + g + 8};
       const float strow[2] = {st[row[0]], st[row[1]]}, dlrow[2] = {dl[row[0]], dl[row[1]]};
-      float dq[32];
-      zero(dq);
+      float dq[NP][32];
+      zero_t(dq);
       for (int kt = 0; kt < ntl; ++kt) {
         if (qt == 0) {
           cp_wait_dyn(ntl - kt);
-          if (kt == 0) add_bias(Qs, bq, 0, T);
-          add_bias(Ks + kt * TILE_BYTES, bk, kt * TILE, T);
-          add_bias(Vs + kt * TILE_BYTES, bv, kt * TILE, T);
+          if (kt == 0) add_bias_t<E, DH>(Qs, bq, 0, T);
+          add_bias_t<E, DH>(Ks + kt * TB, bk, kt * TILE, T);
+          add_bias_t<E, DH>(Vs + kt * TB, bv, kt * TILE, T);
           fence_async();
           __syncthreads();
         }
         float s[32], dp[32];
         wg_fence();
-        product_ss(s, sQ + buf * TILE_BYTES, sK + kt * TILE_BYTES);
-        product_ss(dp, sdO + buf * TILE_BYTES, sV + kt * TILE_BYTES);
+        product_ss_t<E, DH>(s, sQ + buf * TB, sK + kt * TB);
+        product_ss_t<E, DH>(dp, sdO + buf * TB, sV + kt * TB);
         wg_commit();
         wg_wait();
         reg_fence(s);
@@ -320,118 +350,122 @@ packed_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, cons
           }
         }
         uint32_t sa[4][4];
-        to_a(sa, s);
+        to_a_t<E>(sa, s);
         wg_fence();
-        product_rs(dq, sa, sK + kt * TILE_BYTES);
+        product_rs_t<E, DH>(dq, sa, sK + kt * TB);
         wg_commit();
         wg_wait();
-        reg_fence(dq);
+        reg_fence_t(dq);
         reg_fence(sa);
       }
 
       const bool ok0 = row[0] < T, ok1 = row[1] < T;
-      store_rows(dqkv + (size_t)b * T * F + 3 * h * D, dq, SCALE, row[0], row[1], ok0, ok1, F, tq);
-      colsum_add(dq, SCALE, ok0, ok1, red, warp, g, tq);
+      store_rows_t<E, DH>(dqkv + (size_t)b * T * F + 3 * h * DH, dq, scale, row[0], row[1], ok0, ok1, F, tq);
+      colsum_add_t<E, DH>(dq, scale, ok0, ok1, red, warp, g, tq);
     }
     __syncthreads();
-    if (threadIdx.x < D) {
+    if (threadIdx.x < DH) {
       const int c = threadIdx.x;
-      db_part[(size_t)b * F + 3 * h * D + c] = red[c] + red[D + c] + red[2 * D + c] + red[3 * D + c];
+      db_part[(size_t)b * F + 3 * h * DH + c] = red[c] + red[DH + c] + red[2 * DH + c] + red[3 * DH + c];
     }
   }
 }
 
 // --------------------------------------------------- backward: dK, dV pass
 
+template <int DH>
 size_t dkv_bytes(int T) {
   const int Tp = round_up(T, TILE);
-  return ALIGN + 4 * TILE_BYTES + (size_t)2 * Tp * ROW + (3 * Tp + 8 * D) * sizeof(float);
+  return ALIGN + 4 * Tile<DH>::BYTES + (size_t)2 * Tp * Tile<DH>::ROWB + (3 * Tp + 8 * DH) * sizeof(float);
 }
 
+template <typename E, int DH>
 __global__ void __launch_bounds__(NT)
-packed_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, const float* __restrict__ key_bias,
-                  const bf16* __restrict__ dout, const float* __restrict__ stats, const float* __restrict__ delta_g,
-                  bf16* __restrict__ dqkv, float* __restrict__ db_part, int T, int H, int hg, uint32_t seed,
-                  uint32_t thr, float inv, int dropout) {
+packed_dkv_kernel(const E* __restrict__ qkv, const E* __restrict__ qb, const float* __restrict__ key_bias,
+                  const E* __restrict__ dout, const float* __restrict__ stats, const float* __restrict__ delta_g,
+                  E* __restrict__ dqkv, float* __restrict__ db_part, int T, int H, int hg, uint32_t seed,
+                  uint32_t thr, float inv, int dropout, float scale) {
+  using L = Tile<DH>;
+  constexpr int TB = L::BYTES, NP = L::NP;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align_smem(smem_raw);
   const int Tp = round_up(T, TILE), ntl = Tp / TILE;
-  unsigned char* Ks = sm;                        // [2][TILE] key tiles
-  unsigned char* Vs = Ks + 2 * TILE_BYTES;       // [2][TILE]
-  unsigned char* Qs = Vs + 2 * TILE_BYTES;       // [Tp] all queries
-  unsigned char* dOs = Qs + (size_t)Tp * ROW;    // [Tp]
-  float* kb = reinterpret_cast<float*>(dOs + (size_t)Tp * ROW);  // [Tp]
-  float* st = kb + Tp;                           // [Tp]; padded queries +inf: p = 0
-  float* dl = st + Tp;                           // [Tp]
-  float* redk = dl + Tp;                         // [4][D]
-  float* redv = redk + 4 * D;                    // [4][D]
+  unsigned char* Ks = sm;                           // [2][TILE] key tiles
+  unsigned char* Vs = Ks + 2 * TB;                  // [2][TILE]
+  unsigned char* Qs = Vs + 2 * TB;                  // [Tp] all queries
+  unsigned char* dOs = Qs + (size_t)Tp * L::ROWB;   // [Tp]
+  float* kb = reinterpret_cast<float*>(dOs + (size_t)Tp * L::ROWB);  // [Tp]
+  float* st = kb + Tp;                              // [Tp]; padded queries +inf: p = 0
+  float* dl = st + Tp;                              // [Tp]
+  float* redk = dl + Tp;                            // [4][DH]
+  float* redv = redk + 4 * DH;                      // [4][DH]
   const uint32_t sK = smem_addr(Ks), sV = smem_addr(Vs), sQ = smem_addr(Qs), sdO = smem_addr(dOs);
 
-  const int b = blockIdx.y, F = 3 * H * D, ldo = H * D;
+  const int b = blockIdx.y, F = 3 * H * DH, ldo = H * DH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
-  const float c1 = SCALE * LOG2E;
-  const bf16* base = qkv + (size_t)b * T * F;
+  const float c1 = scale * LOG2E;
+  const E* base = qkv + (size_t)b * T * F;
   load_key_bias(kb, key_bias + (size_t)b * T, T, Tp);
 
   for (int h = blockIdx.x * hg; h < (blockIdx.x + 1) * hg; ++h) {
-    const bf16 *qsrc = base + 3 * h * D, *ksrc = qsrc + D, *vsrc = qsrc + 2 * D;
-    const bf16* dsrc = dout + (size_t)b * T * ldo + h * D;
-    const uint4 bq = bias_chunk(qb, h, 0), bk = bias_chunk(qb, h, 1), bv = bias_chunk(qb, h, 2);
+    const E *qsrc = base + 3 * h * DH, *ksrc = qsrc + DH, *vsrc = qsrc + 2 * DH;
+    const E* dsrc = dout + (size_t)b * T * ldo + h * DH;
+    const uint4 bq = bias_chunk_t<E, DH>(qb, h, 0), bk = bias_chunk_t<E, DH>(qb, h, 1),
+                bv = bias_chunk_t<E, DH>(qb, h, 2);
     const uint32_t bh = (uint32_t)(b * H + h);
     const size_t sb = (size_t)bh * T;
     __syncthreads();
-    issue_tile(sK, ksrc, 0, T, F);
-    issue_tile(sV, vsrc, 0, T, F);
+    issue_tile_t<E, DH>(sK, ksrc, 0, T, F);
+    issue_tile_t<E, DH>(sV, vsrc, 0, T, F);
     cp_commit();
     for (int qc = 0; qc < ntl; ++qc) {
-      issue_tile(sQ + qc * TILE_BYTES, qsrc, qc * TILE, T, F);
-      issue_tile(sdO + qc * TILE_BYTES, dsrc, qc * TILE, T, ldo);
+      issue_tile_t<E, DH>(sQ + qc * TB, qsrc, qc * TILE, T, F);
+      issue_tile_t<E, DH>(sdO + qc * TB, dsrc, qc * TILE, T, ldo);
       cp_commit();
     }
     for (int i = threadIdx.x; i < Tp; i += NT) {
       st[i] = i < T ? stats[sb + i] : INFINITY;
       dl[i] = i < T ? delta_g[sb + i] : 0.f;
     }
-    redk[threadIdx.x] = redk[threadIdx.x + NT] = 0.f;
-    redv[threadIdx.x] = redv[threadIdx.x + NT] = 0.f;
+    for (int i = threadIdx.x; i < 4 * DH; i += NT) redk[i] = redv[i] = 0.f;
 
     for (int kt = 0; kt < ntl; ++kt) {
       const int buf = kt & 1;
       if (kt > 0) __syncthreads();
       if (kt + 1 < ntl) {
-        issue_tile(sK + (buf ^ 1) * TILE_BYTES, ksrc, (kt + 1) * TILE, T, F);
-        issue_tile(sV + (buf ^ 1) * TILE_BYTES, vsrc, (kt + 1) * TILE, T, F);
+        issue_tile_t<E, DH>(sK + (buf ^ 1) * TB, ksrc, (kt + 1) * TILE, T, F);
+        issue_tile_t<E, DH>(sV + (buf ^ 1) * TB, vsrc, (kt + 1) * TILE, T, F);
       }
       cp_commit();
       if (kt > 0) {
         cp_wait<1>();
-        add_bias(Ks + buf * TILE_BYTES, bk, kt * TILE, T);
-        add_bias(Vs + buf * TILE_BYTES, bv, kt * TILE, T);
+        add_bias_t<E, DH>(Ks + buf * TB, bk, kt * TILE, T);
+        add_bias_t<E, DH>(Vs + buf * TB, bv, kt * TILE, T);
         fence_async();
         __syncthreads();
       }
       const int key[2] = {kt * TILE + warp * 16 + g, kt * TILE + warp * 16 + g + 8};
       const float kbr[2] = {kb[key[0]], kb[key[1]]};
-      float dk[32], dv[32];
-      zero(dk);
-      zero(dv);
+      float dk[NP][32], dv[NP][32];
+      zero_t(dk);
+      zero_t(dv);
 
       for (int qc = 0; qc < ntl; ++qc) {
         if (kt == 0) {
           cp_wait_dyn(ntl - qc);
           if (qc == 0) {
-            add_bias(Ks, bk, 0, T);
-            add_bias(Vs, bv, 0, T);
+            add_bias_t<E, DH>(Ks, bk, 0, T);
+            add_bias_t<E, DH>(Vs, bv, 0, T);
           }
-          add_bias(Qs + qc * TILE_BYTES, bq, qc * TILE, T);
+          add_bias_t<E, DH>(Qs + qc * TB, bq, qc * TILE, T);
           fence_async();
           __syncthreads();
         }
         // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
         float s[32], dp[32];
         wg_fence();
-        product_ss(s, sK + buf * TILE_BYTES, sQ + qc * TILE_BYTES);
-        product_ss(dp, sV + buf * TILE_BYTES, sdO + qc * TILE_BYTES);
+        product_ss_t<E, DH>(s, sK + buf * TB, sQ + qc * TB);
+        product_ss_t<E, DH>(dp, sV + buf * TB, sdO + qc * TB);
         wg_commit();
         wg_wait();
         reg_fence(s);
@@ -458,79 +492,139 @@ packed_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qb, con
           }
         }
         uint32_t pa[4][4], sa[4][4];
-        to_a(pa, s);
-        to_a(sa, dp);
+        to_a_t<E>(pa, s);
+        to_a_t<E>(sa, dp);
         wg_fence();
-        product_rs(dv, pa, sdO + qc * TILE_BYTES);
-        product_rs(dk, sa, sQ + qc * TILE_BYTES);
+        product_rs_t<E, DH>(dv, pa, sdO + qc * TB);
+        product_rs_t<E, DH>(dk, sa, sQ + qc * TB);
         wg_commit();
         wg_wait();
-        reg_fence(dv);
-        reg_fence(dk);
+        reg_fence_t(dv);
+        reg_fence_t(dk);
         reg_fence(pa);
         reg_fence(sa);
       }
 
       const bool ok0 = key[0] < T, ok1 = key[1] < T;
-      bf16* dst = dqkv + (size_t)b * T * F + 3 * h * D;
-      store_rows(dst + D, dk, SCALE, key[0], key[1], ok0, ok1, F, tq);
-      store_rows(dst + 2 * D, dv, 1.f, key[0], key[1], ok0, ok1, F, tq);
-      colsum_add(dk, SCALE, ok0, ok1, redk, warp, g, tq);
-      colsum_add(dv, 1.f, ok0, ok1, redv, warp, g, tq);
+      E* dst = dqkv + (size_t)b * T * F + 3 * h * DH;
+      store_rows_t<E, DH>(dst + DH, dk, scale, key[0], key[1], ok0, ok1, F, tq);
+      store_rows_t<E, DH>(dst + 2 * DH, dv, 1.f, key[0], key[1], ok0, ok1, F, tq);
+      colsum_add_t<E, DH>(dk, scale, ok0, ok1, redk, warp, g, tq);
+      colsum_add_t<E, DH>(dv, 1.f, ok0, ok1, redv, warp, g, tq);
     }
     __syncthreads();
-    if (threadIdx.x < D) {
+    if (threadIdx.x < DH) {
       const int c = threadIdx.x;
       float* part = db_part + (size_t)b * F;
-      part[(3 * h + 1) * D + c] = redk[c] + redk[D + c] + redk[2 * D + c] + redk[3 * D + c];
-      part[(3 * h + 2) * D + c] = redv[c] + redv[D + c] + redv[2 * D + c] + redv[3 * D + c];
+      part[(3 * h + 1) * DH + c] = redk[c] + redk[DH + c] + redk[2 * DH + c] + redk[3 * DH + c];
+      part[(3 * h + 2) * DH + c] = redv[c] + redv[DH + c] + redv[2 * DH + c] + redv[3 * DH + c];
     }
   }
 }
 
 // ---------------------------------------------------------------- launches
 
+template <typename E, int DH>
 const void* kernel_of(int which) {
   switch (which) {
-    case 0: return (const void*)packed_fwd_kernel;
-    case 1: return (const void*)packed_dq_kernel;
-    case 2: return (const void*)packed_dkv_kernel;
+    case 0: return (const void*)packed_fwd_kernel<E, DH>;
+    case 1: return (const void*)packed_dq_kernel<E, DH>;
+    case 2: return (const void*)packed_dkv_kernel<E, DH>;
     default: return nullptr;
   }
 }
 
-size_t bytes_of(int which, int T) { return which == 0 ? fwd_bytes(T) : (which == 1 ? dq_bytes(T) : dkv_bytes(T)); }
+template <int DH>
+size_t bytes_of(int which, int T) {
+  return which == 0 ? fwd_bytes<DH>(T) : (which == 1 ? dq_bytes<DH>(T) : dkv_bytes<DH>(T));
+}
 
+template <int DH>
+size_t smem_bytes(int T) {
+  size_t m = fwd_bytes<DH>(T);
+  if (dq_bytes<DH>(T) > m) m = dq_bytes<DH>(T);
+  return dkv_bytes<DH>(T) > m ? dkv_bytes<DH>(T) : m;
+}
+
+template <typename E, int DH>
 cudaError_t prepare(int which, int T) {
-  return cudaFuncSetAttribute(kernel_of(which), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes_of(which, T));
+  return cudaFuncSetAttribute(kernel_of<E, DH>(which), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes_of<DH>(which, T));
+}
+
+template <typename E, int DH>
+int launch_fwd(const void* qkv, const void* qb, const void* key_bias, void* out, void* stats, int B, int T, int H,
+               int hg, unsigned int seed, unsigned int threshold, float inv, int dropout, float scale,
+               cudaStream_t s) {
+  if (hg <= 0 || H % hg) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare<E, DH>(0, T);
+  if (err != cudaSuccess) return (int)err;
+  packed_fwd_kernel<E, DH><<<dim3(H / hg, B), NT, fwd_bytes<DH>(T), s>>>(
+      static_cast<const E*>(qkv), static_cast<const E*>(qb), static_cast<const float*>(key_bias),
+      static_cast<E*>(out), static_cast<float*>(stats), T, H, hg, seed, threshold, inv, dropout, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename E, int DH>
+int launch_bwd(const void* qkv, const void* qb, const void* key_bias, const void* dout, const void* out,
+               const void* stats, void* dqkv, void* db_part, void* delta, int B, int T, int H, int hg_dq, int hg_dkv,
+               unsigned int seed, unsigned int threshold, float inv, int dropout, float scale, cudaStream_t s) {
+  if (hg_dq <= 0 || H % hg_dq || hg_dkv <= 0 || H % hg_dkv) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare<E, DH>(1, T);
+  if (err != cudaSuccess) return (int)err;
+  err = prepare<E, DH>(2, T);
+  if (err != cudaSuccess) return (int)err;
+  packed_dq_kernel<E, DH><<<dim3(H / hg_dq, B), NT, dq_bytes<DH>(T), s>>>(
+      static_cast<const E*>(qkv), static_cast<const E*>(qb), static_cast<const float*>(key_bias),
+      static_cast<const E*>(dout), static_cast<const E*>(out), static_cast<const float*>(stats),
+      static_cast<E*>(dqkv), static_cast<float*>(db_part), static_cast<float*>(delta), T, H, hg_dq, seed,
+      threshold, inv, dropout, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  packed_dkv_kernel<E, DH><<<dim3(H / hg_dkv, B), NT, dkv_bytes<DH>(T), s>>>(
+      static_cast<const E*>(qkv), static_cast<const E*>(qb), static_cast<const float*>(key_bias),
+      static_cast<const E*>(dout), static_cast<const float*>(stats), static_cast<const float*>(delta),
+      static_cast<E*>(dqkv), static_cast<float*>(db_part), T, H, hg_dkv, seed, threshold, inv, dropout, scale);
+  return (int)cudaGetLastError();
+}
+
+// The instantiation of element type `dtype` (0 bf16, 1 fp16) and head dim
+// DH (64, 128): 0 bf16/64, 1 bf16/128, 2 fp16/64, 3 fp16/128; -1 for any other.
+int form(int dtype, int dh) {
+  if ((dtype != 0 && dtype != 1) || (dh != 64 && dh != 128)) return -1;
+  return 2 * dtype + (dh == 128);
+}
+
+const void* kernel_of_form(int f, int which) {
+  switch (f) {
+    case 0: return kernel_of<bf16, 64>(which);
+    case 1: return kernel_of<bf16, 128>(which);
+    case 2: return kernel_of<__half, 64>(which);
+    case 3: return kernel_of<__half, 128>(which);
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
-// The largest dynamic shared memory of the three kernels at T.
-extern "C" size_t vb_attn_packed_smem_bytes(int T) {
-  size_t m = fwd_bytes(T);
-  if (dq_bytes(T) > m) m = dq_bytes(T);
-  return dkv_bytes(T) > m ? dkv_bytes(T) : m;
-}
+// The largest dynamic shared memory of the three kernels at T (bf16, D = 64).
+extern "C" size_t vb_attn_packed_smem_bytes(int T) { return smem_bytes<64>(T); }
 
-// Kernel `which` (0 forward, 1 dQ pass, 2 dK/dV pass): `what` 0 its
-// registers a thread, 1 its local (spill) bytes a thread, 2 its dynamic
-// shared memory at T, 3 its resident blocks per SM at T. -1 on an error.
+// Kernel `which` (0 forward, 1 dQ pass, 2 dK/dV pass) of bf16 at D = 64:
+// `what` 0 its registers a thread, 1 its local (spill) bytes a thread, 2 its
+// dynamic shared memory at T, 3 its resident blocks per SM at T. -1 on an
+// error.
 extern "C" int vb_attn_packed_info(int which, int what, int T) {
-  return kernel_info(kernel_of(which), bytes_of(which, T), what);
+  return kernel_info(kernel_of<bf16, 64>(which), bytes_of<64>(which, T), what);
 }
 
+// The bf16, D = 64 entry points (scale 1 / 8); tools that build an earlier
+// tree's source launch them with these signatures.
 extern "C" int vb_attn_packed_fwd(const void* qkv, const void* qb, const void* key_bias, void* out, void* stats,
                                   int B, int T, int H, int hg, unsigned int seed, unsigned int threshold, float inv,
                                   int dropout, void* stream) {
-  if (hg <= 0 || H % hg) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare(0, T);
-  if (err != cudaSuccess) return (int)err;
-  packed_fwd_kernel<<<dim3(H / hg, B), NT, fwd_bytes(T), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(qb), static_cast<const float*>(key_bias),
-      static_cast<bf16*>(out), static_cast<float*>(stats), T, H, hg, seed, threshold, inv, dropout);
-  return (int)cudaGetLastError();
+  return launch_fwd<bf16, 64>(qkv, qb, key_bias, out, stats, B, T, H, hg, seed, threshold, inv, dropout, 0.125f,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // db_part [B, H*3*D] fp32 and delta [B, H, T] fp32 are scratch the caller
@@ -539,22 +633,53 @@ extern "C" int vb_attn_packed_bwd(const void* qkv, const void* qb, const void* k
                                   const void* out, const void* stats, void* dqkv, void* db_part, void* delta, int B,
                                   int T, int H, int hg_dq, int hg_dkv, unsigned int seed, unsigned int threshold,
                                   float inv, int dropout, void* stream) {
-  if (hg_dq <= 0 || H % hg_dq || hg_dkv <= 0 || H % hg_dkv) return (int)cudaErrorInvalidValue;
+  return launch_bwd<bf16, 64>(qkv, qb, key_bias, dout, out, stats, dqkv, db_part, delta, B, T, H, hg_dq, hg_dkv, seed,
+                              threshold, inv, dropout, 0.125f, static_cast<cudaStream_t>(stream));
+}
+
+// Every form: dtype 0 bf16, 1 fp16; dh the kernel's head dim, 64 or 128 (the
+// caller zero-pads the heads to it); scale the softmax scale of the unpadded
+// head dim. The largest dynamic shared memory of the three kernels at dh and
+// T (0 for a dh not built).
+extern "C" size_t vb_attn_packed_x_smem_bytes(int dh, int T) {
+  return dh == 64 ? smem_bytes<64>(T) : (dh == 128 ? smem_bytes<128>(T) : 0);
+}
+
+extern "C" int vb_attn_packed_x_info(int dtype, int dh, int which, int what, int T) {
+  const int f = form(dtype, dh);
+  if (f < 0) return -1;
+  return kernel_info(kernel_of_form(f, which), dh == 64 ? bytes_of<64>(which, T) : bytes_of<128>(which, T), what);
+}
+
+extern "C" int vb_attn_packed_x_fwd(const void* qkv, const void* qb, const void* key_bias, void* out, void* stats,
+                                    int B, int T, int H, int hg, unsigned int seed, unsigned int threshold, float inv,
+                                    int dropout, int dtype, int dh, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = prepare(1, T);
-  if (err != cudaSuccess) return (int)err;
-  err = prepare(2, T);
-  if (err != cudaSuccess) return (int)err;
-  packed_dq_kernel<<<dim3(H / hg_dq, B), NT, dq_bytes(T), s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(qb), static_cast<const float*>(key_bias),
-      static_cast<const bf16*>(dout), static_cast<const bf16*>(out), static_cast<const float*>(stats),
-      static_cast<bf16*>(dqkv), static_cast<float*>(db_part), static_cast<float*>(delta), T, H, hg_dq, seed,
-      threshold, inv, dropout);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  packed_dkv_kernel<<<dim3(H / hg_dkv, B), NT, dkv_bytes(T), s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(qb), static_cast<const float*>(key_bias),
-      static_cast<const bf16*>(dout), static_cast<const float*>(stats), static_cast<const float*>(delta),
-      static_cast<bf16*>(dqkv), static_cast<float*>(db_part), T, H, hg_dkv, seed, threshold, inv, dropout);
-  return (int)cudaGetLastError();
+#define VB_FWD(E, D) launch_fwd<E, D>(qkv, qb, key_bias, out, stats, B, T, H, hg, seed, threshold, inv, dropout, scale, s)
+  switch (form(dtype, dh)) {
+    case 0: return VB_FWD(bf16, 64);
+    case 1: return VB_FWD(bf16, 128);
+    case 2: return VB_FWD(__half, 64);
+    case 3: return VB_FWD(__half, 128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VB_FWD
+}
+
+extern "C" int vb_attn_packed_x_bwd(const void* qkv, const void* qb, const void* key_bias, const void* dout,
+                                    const void* out, const void* stats, void* dqkv, void* db_part, void* delta, int B,
+                                    int T, int H, int hg_dq, int hg_dkv, unsigned int seed, unsigned int threshold,
+                                    float inv, int dropout, int dtype, int dh, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VB_BWD(E, D)                                                                                                \
+  launch_bwd<E, D>(qkv, qb, key_bias, dout, out, stats, dqkv, db_part, delta, B, T, H, hg_dq, hg_dkv, seed, threshold, \
+                   inv, dropout, scale, s)
+  switch (form(dtype, dh)) {
+    case 0: return VB_BWD(bf16, 64);
+    case 1: return VB_BWD(bf16, 128);
+    case 2: return VB_BWD(__half, 64);
+    case 3: return VB_BWD(__half, 128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VB_BWD
 }

@@ -10,6 +10,11 @@
 // (lane g = lane / 4 holds rows g and g + 8 of its warp's 16, columns
 // 2 tq, 2 tq + 1 of every 8-column n-tile, tq = lane % 4).
 //
+// K1/K2 also take fp16 and a head dim of 128 (the templates at the end of
+// this header): a row of DH elements is DH / 64 panels of 128 B, each panel
+// of a tile the layout above, and wgmma's element type is the kernel's
+// (.f16 in place of .bf16, the same shapes and swizzle: both are 2 bytes).
+//
 // Two switches leave a design step out for tools/attn_steps.py's builds;
 // the kernel library never defines either: VB_PACKED_SYNC_LOADS makes every
 // copy a plain load and store, VB_PACKED_PHILOX_PER_ROW makes every lane
@@ -20,6 +25,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma.cuh"
 #include "philox.cuh"
@@ -339,6 +346,205 @@ __device__ __forceinline__ void pair_delta(const bf16* __restrict__ dout, const 
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float2 u = __bfloat1622float2(x[e]), v = __bfloat1622float2(y[e]);
+          acc += u.x * v.x;
+          acc += u.y * v.y;
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      dl[i] = acc;
+      if (i < T) delta_g[i] = acc;
+    }
+  }
+}
+
+// ------------------------------------ element types and head dims (K1/K2)
+//
+// Tile<DH>: a tile of 64 rows x DH elements is NP = DH / 64 panels of 64
+// rows x 128 B (each the 8 KB layout above), panel p at + p * TILE_BYTES;
+// chunk c of a row (c < DH / 8) lies in panel c / 8 at swz(r, c % 8). An
+// accumulator over DH output columns is NP 64 x 64 accumulators.
+
+template <int DH>
+struct Tile {
+  static_assert(DH % 64 == 0 && DH <= 128, "K1/K2 take head dims of 64 and 128");
+  static constexpr int NP = DH / 64;                 // panels of a row
+  static constexpr int CH = DH / 8;                  // 16-byte chunks of a row
+  static constexpr int ROWB = DH * 2;                // bytes of a row
+  static constexpr int BYTES = NP * TILE_BYTES;      // bytes of a 64-row tile
+};
+
+template <typename E>
+__device__ __forceinline__ void wgmma_ss_e(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  if constexpr (std::is_same<E, __half>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " VB_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : VB_D32
+        : "l"(a), "l"(b), "r"(acc));
+  } else {
+    wgmma_ss(d, a, b, acc);
+  }
+}
+
+template <typename E>
+__device__ __forceinline__ void wgmma_rs_e(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (std::is_same<E, __half>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " VB_R32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : VB_D32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else {
+    wgmma_rs(d, a, b);
+  }
+}
+
+// S (64 x 64) = A B^T over DH: A and B 64-row tiles of DH at shared addresses.
+template <typename E, int DH>
+__device__ __forceinline__ void product_ss_t(float (&d)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int p = 0; p < Tile<DH>::NP; ++p) {
+    const uint64_t da = desc(a + p * TILE_BYTES), db = desc(b + p * TILE_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss_e<E>(d, da + 2 * kk, db + 2 * kk, p | kk);
+  }
+}
+
+// d[p] += A B[:, panel p] for every output panel p: A from registers (4
+// k-steps of 16 rows of B), B the 64-row tile of DH at shared address b.
+template <typename E, int DH>
+__device__ __forceinline__ void product_rs_t(float (&d)[Tile<DH>::NP][32], const uint32_t (&a)[4][4], uint32_t b) {
+#pragma unroll
+  for (int p = 0; p < Tile<DH>::NP; ++p) {
+    const uint64_t db = desc(b + p * TILE_BYTES);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) wgmma_rs_e<E>(d[p], a[c], db + c * (2048 >> 4));
+  }
+}
+
+// Accumulator n-tiles (2c, 2c + 1) -> the A fragment of k-step c, in E.
+template <typename E>
+__device__ __forceinline__ void to_a_t(uint32_t (&a)[4][4], const float (&s)[32]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    a[c][0] = vb::Elem<E>::pack(s[8 * c + 0], s[8 * c + 1]);
+    a[c][1] = vb::Elem<E>::pack(s[8 * c + 2], s[8 * c + 3]);
+    a[c][2] = vb::Elem<E>::pack(s[8 * c + 4], s[8 * c + 5]);
+    a[c][3] = vb::Elem<E>::pack(s[8 * c + 6], s[8 * c + 7]);
+  }
+}
+
+template <int NP>
+__device__ __forceinline__ void reg_fence_t(float (&d)[NP][32]) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) reg_fence(d[p]);
+}
+
+template <int NP>
+__device__ __forceinline__ void zero_t(float (&d)[NP][32]) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) zero(d[p]);
+}
+
+// issue_tile for rows of DH elements: thread x copies chunk x % CH of its rows.
+template <typename E, int DH>
+__device__ __forceinline__ void issue_tile_t(uint32_t dst, const E* __restrict__ src, int t0, int T, int ld) {
+  constexpr int CH = Tile<DH>::CH;
+#pragma unroll
+  for (int idx = threadIdx.x; idx < TILE * CH; idx += NT) {
+    const int r = idx / CH, c = idx % CH, t = t0 + r;
+    cp_async16(dst + (c >> 3) * TILE_BYTES + swz(r, c & 7), src + (size_t)(t < T ? t : 0) * ld + c * 8, t < T);
+  }
+}
+
+// add_bias for rows of DH elements in E (the chunks issue_tile_t gave this thread).
+template <typename E, int DH>
+__device__ __forceinline__ void add_bias_t(unsigned char* tile, uint4 bias, int t0, int T) {
+  constexpr int CH = Tile<DH>::CH;
+  const uint32_t* y = reinterpret_cast<const uint32_t*>(&bias);
+#pragma unroll
+  for (int idx = threadIdx.x; idx < TILE * CH; idx += NT) {
+    const int r = idx / CH, c = idx % CH;
+    if (t0 + r < T) {
+      uint4* p = reinterpret_cast<uint4*>(tile + (c >> 3) * TILE_BYTES + swz(r, c & 7));
+      uint4 v = *p;
+      uint32_t* x = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = vb::Elem<E>::unpack(x[e]), b = vb::Elem<E>::unpack(y[e]);
+        x[e] = vb::Elem<E>::pack(a.x + b.x, a.y + b.y);
+      }
+      *p = v;
+    }
+  }
+}
+
+template <typename E, int DH>
+__device__ __forceinline__ uint4 bias_chunk_t(const E* __restrict__ qb, int h, int j) {
+  return *reinterpret_cast<const uint4*>(qb + (3 * h + j) * DH + (threadIdx.x % Tile<DH>::CH) * 8);
+}
+
+// colsum_add over DH columns: red[warp * DH + col] += the column sums over
+// this warp's valid rows of E(acc * scale); the g == 0 lanes own the columns.
+template <typename E, int DH>
+__device__ __forceinline__ void colsum_add_t(const float (&acc)[Tile<DH>::NP][32], float scale, bool ok0, bool ok1,
+                                             float* red, int warp, int g, int tq) {
+#pragma unroll
+  for (int p = 0; p < Tile<DH>::NP; ++p)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = (ok0 ? vb::Elem<E>::round(acc[p][4 * nt + e] * scale) : 0.f) +
+                  (ok1 ? vb::Elem<E>::round(acc[p][4 * nt + 2 + e] * scale) : 0.f);
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (g == 0) red[warp * DH + p * 64 + nt * 8 + 2 * tq + e] += v;
+      }
+    }
+}
+
+// store_rows over DH columns, in E.
+template <typename E, int DH>
+__device__ __forceinline__ void store_rows_t(E* __restrict__ dst, const float (&acc)[Tile<DH>::NP][32], float scale,
+                                             int row0, int row1, bool ok0, bool ok1, int ld, int tq) {
+#pragma unroll
+  for (int p = 0; p < Tile<DH>::NP; ++p)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int c = p * 64 + nt * 8 + 2 * tq;
+      if (ok0)
+        *reinterpret_cast<uint32_t*>(dst + (size_t)row0 * ld + c) =
+            vb::Elem<E>::pack(acc[p][4 * nt] * scale, acc[p][4 * nt + 1] * scale);
+      if (ok1)
+        *reinterpret_cast<uint32_t*>(dst + (size_t)row1 * ld + c) =
+            vb::Elem<E>::pack(acc[p][4 * nt + 2] * scale, acc[p][4 * nt + 3] * scale);
+    }
+}
+
+// pair_delta over DH columns in E (two threads a row, DH / 2 columns each).
+template <typename E, int DH>
+__device__ __forceinline__ void pair_delta_t(const E* __restrict__ dout, const E* __restrict__ out, int ld, float* dl,
+                                             float* __restrict__ delta_g, int T, int Tp) {
+  constexpr int NQ = DH / 16;  // 16-byte chunks of a half row
+  for (int idx = threadIdx.x; idx < 2 * Tp; idx += NT) {
+    const int i = idx >> 1, half = idx & 1;
+    float acc = 0.f;
+    if (i < T) {
+      const uint4* pd = reinterpret_cast<const uint4*>(dout + (size_t)i * ld + half * (DH / 2));
+      const uint4* po = reinterpret_cast<const uint4*>(out + (size_t)i * ld + half * (DH / 2));
+#pragma unroll
+      for (int k = 0; k < NQ; ++k) {
+        const uint4 a = pd[k], c = po[k];
+        const uint32_t* x = reinterpret_cast<const uint32_t*>(&a);
+        const uint32_t* y = reinterpret_cast<const uint32_t*>(&c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 u = vb::Elem<E>::unpack(x[e]), v = vb::Elem<E>::unpack(y[e]);
           acc += u.x * v.x;
           acc += u.y * v.y;
         }

@@ -4,7 +4,8 @@
 // mlm_xent.
 //
 // Inputs, at hidden width HID of 768 (bert-base) or 1024 (bert-large), one
-// instantiation each: x [N, HID] bf16 (the MLM transform's output rows), E [V, HID] bf16
+// instantiation each (and 128, 256, 512: see "Widths and element types"
+// below): x [N, HID] bf16 (the MLM transform's output rows), E [V, HID] bf16
 // (the word-embedding table in the compute dtype, as the decoder weight),
 // bias [V] fp32, labels [N] int32 in [0, V) (the caller maps -1 to 0 and
 // masks those rows), and for the backward lse [N] fp32 and the cotangent
@@ -144,6 +145,19 @@
 // are zero in shared memory, columns past V and rows past N give dlog 0, and
 // nothing past them is stored. E is read in place; it is never copied to a
 // padded tensor.
+//
+// Widths and element types. Every kernel is a template on HID and on the
+// element type ET (bf16 or fp16: wgmma's .bf16 or .f16 with the same shapes
+// and swizzle, dlog and the outputs rounded to ET). Below 768 the tiling is
+// 768's: K4 keeps 128 rows of x a block as A fragments (HID / 4 registers a
+// thread: 32, 64, 128 at 128, 256, 512) and a 4-tile ring of 32 rows (the
+// ring's space is the block's x rows, 256 HID bytes); K5/K6 stream 32-row
+// tiles (m64n32 logits, each warpgroup over HID / 128 panels) and a block
+// owns every column (HID / 128 m64n64 accumulators a warpgroup). The
+// wrapper zero-pads any other width up to the next instantiated one
+// (ops/mlm_xent.py::pad_width; a zero column adds nothing to a logit) and
+// drops the padded columns of dx and dE. fp32 has its own kernels
+// (mlm_xent_f32.cu).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -157,7 +171,6 @@
 namespace {
 
 using vb::bf16;
-using vb::pack_bf16;
 using vb_hopper::smem_addr;
 using vb_hopper::swz;
 
@@ -191,12 +204,12 @@ constexpr int NV = 3;             // values of a streamed row: K5 the bias; K6 l
 // K5/K6's tiling at hidden width HID (see the header comment).
 template <int HID>
 struct Bwd {
-  static constexpr int NP = HID / 64;                 // 128 B panels of a [*, HID] row
-  static constexpr int KP = NP / 2;                   // ... in each warpgroup's half of the logits
-  static constexpr int T = HID == 768 ? 32 : 16;       // streamed rows a tile: the logits' n
-  static constexpr int COLS = HID == 768 ? 768 : 512;  // result columns a block owns
+  static constexpr int NP = HID / 64;                  // 128 B panels of a [*, HID] row
+  static constexpr int KP = NP / 2;                    // ... in each warpgroup's half of the logits
+  static constexpr int T = HID <= 768 ? 32 : 16;       // streamed rows a tile: the logits' n
+  static constexpr int COLS = HID <= 768 ? HID : 512;  // result columns a block owns
   static constexpr int CW = COLS / 2;                  // ... a warpgroup owns
-  static constexpr int NC = CW / 64;                   // ... in m64n64 accumulators (6, 4)
+  static constexpr int NC = CW / 64;                   // ... in m64n64 accumulators (1, 2, 4, 6, 4)
   static constexpr int TN = T / 2;                     // logits columns a warpgroup finishes
   static constexpr int XV = TN / 2;                    // partial logits a thread hands the other warpgroup
   static constexpr int RES_BYTES = RES * HID * 2;
@@ -204,15 +217,16 @@ struct Bwd {
   static constexpr size_t SMEM = vb_hopper::ALIGN + RES_BYTES + 2 * TILE_BYTES + P_BYTES +
                                  (2 * XV * 128 + 2 * NV * T + 2 * RES) * sizeof(float);
 };
-static_assert(Bwd<768>::SMEM <= 232448 && Bwd<1024>::SMEM <= 232448,
+static_assert(Bwd<128>::SMEM <= 232448 && Bwd<256>::SMEM <= 232448 && Bwd<512>::SMEM <= 232448 &&
+                  Bwd<768>::SMEM <= 232448 && Bwd<1024>::SMEM <= 232448,
               "a K5/K6 block must fit the H100's 227 KB of shared memory");
 
 // Issue the copy of rows [r0, r0 + NR) of a [nvalid, HID] bf16 matrix into NP
 // swizzled panels of NR rows at shared address dst (panel p at dst + p * NR
 // * 128); rows past nvalid are zero. Neighbouring threads copy neighbouring
 // 16-byte chunks of a row.
-template <int HID, int NR>
-__device__ __forceinline__ void issue_rows(uint32_t dst, const bf16* __restrict__ src, int r0, int nvalid) {
+template <int HID, int NR, typename ET>
+__device__ __forceinline__ void issue_rows(uint32_t dst, const ET* __restrict__ src, int r0, int nvalid) {
   constexpr int CH = HID / 8;
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < NR * CH; idx += NTHREADS) {
@@ -232,31 +246,54 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool va
 // or A in registers; those are the attention kernels' machine code and stay
 // as they are). d (64 x N fp32) = (acc ? d : 0) + A B^T, both K-major in
 // shared memory.
+// Each form in bf16 (ET = bf16) or fp16 (ET = __half): the same shapes.
+#define VB_XENT_N32(TY)                                                                                           \
+  asm volatile(                                                                                                   \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                                                                \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+      "%12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"                                                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),  \
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])                    \
+      : "l"(a), "l"(b), "r"(acc))
+template <typename ET>
 __device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
-        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(acc));
+  if constexpr (std::is_same<ET, __half>::value)
+    VB_XENT_N32("f16");
+  else
+    VB_XENT_N32("bf16");
 }
+#undef VB_XENT_N32
+#define VB_XENT_N16(TY)                                                                                        \
+  asm volatile(                                                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                                                             \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, " \
+      "0, 0;\n}\n"                                                                                              \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])            \
+      : "l"(a), "l"(b), "r"(acc))
+template <typename ET>
 __device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, "
-      "0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(a), "l"(b), "r"(acc));
+  if constexpr (std::is_same<ET, __half>::value)
+    VB_XENT_N16("f16");
+  else
+    VB_XENT_N16("bf16");
 }
+#undef VB_XENT_N16
 // d (64 x 64) += A B, A [64 x 16] K-major and B [16 x 64] MN-major (16 rows
 // of 64 contiguous columns: imm-trans-b), both in shared memory.
+template <typename ET>
 __device__ __forceinline__ void wgmma_n64_tb(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VB_R32 ", %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : VB_D32
-      : "l"(a), "l"(b), "r"(1));
+  if constexpr (std::is_same<ET, __half>::value)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " VB_R32 ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : VB_D32
+        : "l"(a), "l"(b), "r"(1));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VB_R32 ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : VB_D32
+        : "l"(a), "l"(b), "r"(1));
 }
 
 // After a wait: keep the compiler from reading an accumulator before it.
@@ -269,7 +306,7 @@ __device__ __forceinline__ void hold(float (&d)[N]) {
 // This warpgroup's half of the logits: s (64 x T) = R Q^T over panels [p0,
 // p0 + KP), R the resident tile at shared address r (64-row panels), Q the
 // streamed tile at q (panels of T rows).
-template <int HID>
+template <int HID, typename ET>
 __device__ __forceinline__ void logits(float (&s)[Bwd<HID>::T / 2], uint32_t r, uint32_t q, int p0) {
   using G = Bwd<HID>;
   const uint64_t dr = vb_hopper::desc(r + p0 * PANEL), dq = vb_hopper::desc(q + p0 * G::T * 128);
@@ -279,9 +316,9 @@ __device__ __forceinline__ void logits(float (&s)[Bwd<HID>::T / 2], uint32_t r, 
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t a = dr + ((p * PANEL) >> 4) + 2 * kk, b = dq + ((p * G::T * 128) >> 4) + 2 * kk;
       if constexpr (G::T == 32)
-        wgmma_n32(s, a, b, p | kk);
+        wgmma_n32<ET>(s, a, b, p | kk);
       else
-        wgmma_n16(s, a, b, p | kk);
+        wgmma_n16<ET>(s, a, b, p | kk);
     }
 }
 
@@ -291,11 +328,11 @@ __device__ __forceinline__ void logits(float (&s)[Bwd<HID>::T / 2], uint32_t r, 
 // part [S][N][HID]. K6 (DE true): grid (cdiv(V, 64), HID / COLS); block (x,
 // y) keeps E rows [64 x, 64 x + 64), walks every x tile, and writes those
 // rows of dE (its columns) and, for y = 0, of db.
-template <int HID, bool DE>
+template <int HID, bool DE, typename ET>
 __global__ void __launch_bounds__(NTHREADS, 1)
-xent_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const float* __restrict__ bias,
+xent_bwd_kernel(const ET* __restrict__ x, const ET* __restrict__ E, const float* __restrict__ bias,
                 const int* __restrict__ labels, const float* __restrict__ lse, const float* __restrict__ gr, int N,
-                int V, int vbs, float* __restrict__ part, bf16* __restrict__ dE, float* __restrict__ db) {
+                int V, int vbs, float* __restrict__ part, ET* __restrict__ dE, float* __restrict__ db) {
   using G = Bwd<HID>;
   constexpr int T = G::T, TN = G::TN, NC = G::NC, XV = G::XV;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -308,8 +345,8 @@ xent_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const fl
 
   const int r0 = blockIdx.x * RES;
   const int nres = DE ? V : N, nstr = DE ? N : V;
-  const bf16* res = DE ? E : x;
-  const bf16* str = DE ? x : E;
+  const ET* res = DE ? E : x;
+  const ET* str = DE ? x : E;
   const int ntiles = cdiv(nstr, T);
   const int t0 = DE ? 0 : blockIdx.z * vbs, t1 = DE ? ntiles : min(ntiles, t0 + vbs);
 
@@ -375,7 +412,7 @@ xent_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const fl
     float s[T / 2], mine[XV];
     vb_hopper::wg_fence();
 #ifndef VB_XENT_NO_LOGITS
-    logits<HID>(s, sR, sQb, wg * G::KP);
+    logits<HID, ET>(s, sR, sQb, wg * G::KP);
 #else
 #pragma unroll
     for (int i = 0; i < T / 2; ++i) s[i] = 0.f;
@@ -413,7 +450,7 @@ xent_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const fl
             d[e] = j < V ? expf(z + cv[c + e] - rv[h]) - (rid[h] == j ? 1.f : 0.f) : 0.f;
           }
         }
-        *reinterpret_cast<uint32_t*>(Pt + swz(i0 + 8 * h, c >> 3) + (c & 7) * 2) = pack_bf16(d[0], d[1]);
+        *reinterpret_cast<uint32_t*>(Pt + swz(i0 + 8 * h, c >> 3) + (c & 7) * 2) = vb::Elem<ET>::pack(d[0], d[1]);
       }
 #endif
     vb_hopper::fence_async();
@@ -426,7 +463,7 @@ xent_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const fl
 #pragma unroll
       for (int kk = 0; kk < T / 16; ++kk)
 #ifndef VB_XENT_NO_PRODUCT
-        wgmma_n64_tb(acc[j], dp + 2 * kk, dq + (uint64_t)(((pc + j) * T * 128 + kk * 2048) >> 4));
+        wgmma_n64_tb<ET>(acc[j], dp + 2 * kk, dq + (uint64_t)(((pc + j) * T * 128 + kk * 2048) >> 4));
 #endif
     vb_hopper::wg_commit();
     vb_hopper::wg_wait();
@@ -445,7 +482,7 @@ xent_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const fl
         const int col = (pc + j) * 64 + nt * 8 + 2 * tq;
         const float a = acc[j][4 * nt + 2 * h], b = acc[j][4 * nt + 2 * h + 1];
         if (DE)
-          *reinterpret_cast<uint32_t*>(dE + (size_t)r * HID + col) = pack_bf16(a, b);
+          *reinterpret_cast<uint32_t*>(dE + (size_t)r * HID + col) = vb::Elem<ET>::pack(a, b);
         else
           *reinterpret_cast<float2*>(part + ((size_t)blockIdx.z * N + r) * HID + col) = make_float2(a, b);
       }
@@ -464,10 +501,10 @@ xent_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const fl
   }
 }
 
-// dx[n, :] = bf16(g[n] * sum_s part[s, n, :]), the splits summed in order.
-template <int HID>
+// dx[n, :] = ET(g[n] * sum_s part[s, n, :]), the splits summed in order.
+template <int HID, typename ET>
 __global__ void xent_dx_reduce_kernel(const float* __restrict__ part, const float* __restrict__ gr, int N,
-                                      int S, bf16* __restrict__ dx) {
+                                      int S, ET* __restrict__ dx) {
   const size_t total = (size_t)N * HID / 4;
   for (size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x; q < total; q += (size_t)gridDim.x * blockDim.x) {
     float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -480,8 +517,8 @@ __global__ void xent_dx_reduce_kernel(const float* __restrict__ part, const floa
     }
     const float gn = gr[q * 4 / HID];
     uint2 out;
-    out.x = pack_bf16(sum.x * gn, sum.y * gn);
-    out.y = pack_bf16(sum.z * gn, sum.w * gn);
+    out.x = vb::Elem<ET>::pack(sum.x * gn, sum.y * gn);
+    out.y = vb::Elem<ET>::pack(sum.z * gn, sum.w * gn);
     reinterpret_cast<uint2*>(dx)[q] = out;
   }
 }
@@ -494,7 +531,7 @@ constexpr float LOG2E_F = 1.4426950408889634f;
 template <int HID>
 struct Fwd {
 #ifndef VB_XENT_FWD_SPLIT_K
-  static constexpr bool SPLIT = HID != 768;          // the warpgroups split K over the same rows
+  static constexpr bool SPLIT = HID > 768;           // the warpgroups split K over the same rows
 #else
   static constexpr bool SPLIT = true;
 #endif
@@ -506,26 +543,38 @@ struct Fwd {
   static constexpr int NTC = SPLIT ? 2 : 4;            // n8 tiles of a tile's logits a warpgroup finishes
   static constexpr int XV = T / 4;                     // SPLIT: partial logits a thread hands the other warpgroup
   static constexpr int TILE_BYTES = T * HID * 2;       // one tile: NP panels of T rows
-  static constexpr int STAGES = 196608 / TILE_BYTES < 4 ? 196608 / TILE_BYTES : 4;  // 4 at 768, 3 at 1024
+  static constexpr int STAGES = 196608 / TILE_BYTES < 4 ? 196608 / TILE_BYTES : 4;  // 4 up to 768, 3 at 1024
   static constexpr size_t SMEM = vb_hopper::ALIGN + STAGES * TILE_BYTES +
                                  (STAGES * T + (SPLIT ? 2 * XV * 128 + 2 * RES * 5 : 0)) * sizeof(float);
 };
-static_assert(Fwd<768>::SMEM <= 232448 && Fwd<1024>::SMEM <= 232448,
+static_assert(Fwd<128>::SMEM <= 232448 && Fwd<256>::SMEM <= 232448 && Fwd<512>::SMEM <= 232448 &&
+                  Fwd<768>::SMEM <= 232448 && Fwd<1024>::SMEM <= 232448,
               "a K4 block must fit the H100's 227 KB of shared memory");
-static_assert(Fwd<768>::STAGES >= 2 && Fwd<1024>::STAGES >= 2, "the ring needs a tile to use and one in flight");
+static_assert(Fwd<128>::STAGES >= 2 && Fwd<768>::STAGES >= 2 && Fwd<1024>::STAGES >= 2,
+              "the ring needs a tile to use and one in flight");
+static_assert(Fwd<128>::STAGES * Fwd<128>::TILE_BYTES >= Fwd<128>::ROWS * 128 * 2 &&
+                  Fwd<512>::STAGES * Fwd<512>::TILE_BYTES >= Fwd<512>::ROWS * 512 * 2,
+              "the block's x rows arrive in the ring's space");
 static_assert(Fwd<768>::T * 8 == NTHREADS, "a tile's panel is one 16-byte chunk a thread");
 
 // d (64 x 32 fp32) += A B^T, A [64 x 16] bf16 in registers (the
 // mma.m16n8k16 A fragment of each warp's 16 rows), B [32 x 16] K-major in
 // shared memory.
+#define VB_XENT_RS_N32(TY)                                                                                        \
+  asm volatile(                                                                                                   \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+      "%12, %13, %14, %15}, {%16, %17, %18, %19}, %20, 1, 1, 1, 0;\n"                                              \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),  \
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b))
+template <typename ET>
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15}, {%16, %17, %18, %19}, %20, 1, 1, 1, 0;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
-        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  if constexpr (std::is_same<ET, __half>::value)
+    VB_XENT_RS_N32("f16");
+  else
+    VB_XENT_RS_N32("bf16");
 }
+#undef VB_XENT_RS_N32
 
 // After a wait: the A fragments stay in their registers until the products
 // that read them are done.
@@ -537,7 +586,7 @@ __device__ __forceinline__ void keep(const uint32_t (&a)[KS][4]) {
 
 // This warpgroup's logits of a tile: s (64 x T) += X Q^T over its KP panels
 // from p0 on, X the fragments a, Q the tile at shared address q.
-template <int HID>
+template <int HID, typename ET>
 __device__ __forceinline__ void fwd_logits(float (&s)[16], const uint32_t (&a)[Fwd<HID>::KS][4], uint32_t q,
                                            int p0) {
   using G = Fwd<HID>;
@@ -545,7 +594,7 @@ __device__ __forceinline__ void fwd_logits(float (&s)[16], const uint32_t (&a)[F
 #pragma unroll
   for (int p = 0; p < G::KP; ++p)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n32(s, a[4 * p + kk], dq + ((p * G::T * 128) >> 4) + 2 * kk);
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n32<ET>(s, a[4 * p + kk], dq + ((p * G::T * 128) >> 4) + 2 * kk);
 }
 
 // Tile t (rows [t T, t T + T) of E, zero past V) into NP swizzled panels of
@@ -553,13 +602,13 @@ __device__ __forceinline__ void fwd_logits(float (&s)[16], const uint32_t (&a)[F
 // (zero past V) to shared address bias_dst: thread x copies chunk x % 8 of
 // row x / 8 in every panel, so its addresses differ from panel to panel by
 // constants. cp.async; plain loads and stores with VB_XENT_FWD_SYNC_LOADS.
-template <int HID>
-__device__ __forceinline__ void copy_tile(uint32_t dst, uint32_t bias_dst, const bf16* __restrict__ E,
+template <int HID, typename ET>
+__device__ __forceinline__ void copy_tile(uint32_t dst, uint32_t bias_dst, const ET* __restrict__ E,
                                           const float* __restrict__ bias, int t, int V) {
   constexpr int T = Fwd<HID>::T;
   const int r = threadIdx.x >> 3, c = threadIdx.x & 7, row = t * T + r, j = t * T + threadIdx.x;
   const bool ok = row < V;
-  const bf16* src = E + (size_t)(ok ? row : 0) * HID + c * 8;
+  const ET* src = E + (size_t)(ok ? row : 0) * HID + c * 8;
   dst += swz(r, c);
 #ifndef VB_XENT_FWD_SYNC_LOADS
 #pragma unroll
@@ -644,9 +693,9 @@ __device__ __forceinline__ void store_partial(float* __restrict__ pf, int* __res
 
 // grid (cdiv(N, ROWS), S): row blocks x vocabulary splits of `vbs` tiles of
 // T rows.
-template <int HID>
+template <int HID, typename ET>
 __global__ void __launch_bounds__(NTHREADS, 1)
-xent_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const float* __restrict__ bias,
+xent_fwd_kernel(const ET* __restrict__ x, const ET* __restrict__ E, const float* __restrict__ bias,
                 const int* __restrict__ labels, int N, int V, int vbs, float* __restrict__ pf,
                 int* __restrict__ pi) {
   using G = Fwd<HID>;
@@ -666,7 +715,7 @@ xent_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const fl
   const int t0 = blockIdx.y * vbs, t1 = min(ntiles, t0 + vbs);
 
   // tile t and its bias into slot b
-  auto issue = [&](int t, int b) { copy_tile<HID>(sQ + b * G::TILE_BYTES, sC + 4 * b * T, E, bias, t, V); };
+  auto issue = [&](int t, int b) { copy_tile<HID, ET>(sQ + b * G::TILE_BYTES, sC + 4 * b * T, E, bias, t, V); };
 
   // this warpgroup's x rows as A fragments: k-step k holds its columns 16 k
   // + 2 tq, + 1 (registers 0, 1: rows i0, i0 + 8) and + 8, + 9 (2, 3)
@@ -717,7 +766,7 @@ xent_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ E, const fl
     }
 #ifndef VB_XENT_FWD_NO_LOGITS
     vb_hopper::wg_fence();
-    fwd_logits<HID>(s, a, sQ + b * G::TILE_BYTES, G::SPLIT ? wg * G::KP : 0);
+    fwd_logits<HID, ET>(s, a, sQ + b * G::TILE_BYTES, G::SPLIT ? wg * G::KP : 0);
     vb_hopper::wg_commit();
     vb_hopper::wg_wait();
     hold(s);
@@ -817,22 +866,22 @@ __global__ void xent_fwd_merge_kernel(const float* __restrict__ pf, const int* _
 
 // K4's shared memory allowed above 48 KB: set once a device, since the
 // launch's host time counts beside its device time.
-template <int HID>
+template <int HID, typename ET>
 cudaError_t fwd_attributes() {
   return vb::once_a_device([] {
-    return cudaFuncSetAttribute(xent_fwd_kernel<HID>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    return cudaFuncSetAttribute(xent_fwd_kernel<HID, ET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)Fwd<HID>::SMEM);
   });
 }
 
-template <int HID>
+template <int HID, typename ET>
 int launch_fwd(const void* x, const void* E, const void* bias, const void* labels, int N, int V, int S, int vbs,
                void* pf, void* pi, void* nll, void* lse, void* am, cudaStream_t st) {
   using G = Fwd<HID>;
-  cudaError_t err = fwd_attributes<HID>();
+  cudaError_t err = fwd_attributes<HID, ET>();
   if (err != cudaSuccess) return (int)err;
-  xent_fwd_kernel<HID><<<dim3(cdiv(N, G::ROWS), S), NTHREADS, G::SMEM, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(E), static_cast<const float*>(bias),
+  xent_fwd_kernel<HID, ET><<<dim3(cdiv(N, G::ROWS), S), NTHREADS, G::SMEM, st>>>(
+      static_cast<const ET*>(x), static_cast<const ET*>(E), static_cast<const float*>(bias),
       static_cast<const int*>(labels), N, V, vbs, static_cast<float*>(pf), static_cast<int*>(pi));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -842,75 +891,84 @@ int launch_fwd(const void* x, const void* E, const void* bias, const void* label
   return (int)cudaGetLastError();
 }
 
-// K5 (kernel 0), K6 (kernel 1) or K4 (kernel 2) at width hid and its dynamic
-// shared memory, or nullptr.
-const void* kernel_of(int kernel, int hid, size_t* bytes) {
-  if (hid != 768 && hid != 1024) return nullptr;
-  const bool base = hid == 768;
-  *bytes = kernel == 2 ? (base ? Fwd<768>::SMEM : Fwd<1024>::SMEM) : (base ? Bwd<768>::SMEM : Bwd<1024>::SMEM);
-  switch (kernel) {
-    case 0: return base ? (const void*)xent_bwd_kernel<768, false> : (const void*)xent_bwd_kernel<1024, false>;
-    case 1: return base ? (const void*)xent_bwd_kernel<768, true> : (const void*)xent_bwd_kernel<1024, true>;
-    case 2: return base ? (const void*)xent_fwd_kernel<768> : (const void*)xent_fwd_kernel<1024>;
-    default: return nullptr;
-  }
-}
-
-template <int HID>
+template <int HID, typename ET>
 int launch_dx(const void* x, const void* E, const void* bias, const void* labels, const void* lse, const void* g,
               int N, int V, int S, int vbs, void* part, void* dx, cudaStream_t st) {
   using G = Bwd<HID>;
-  cudaError_t err = cudaFuncSetAttribute(xent_bwd_kernel<HID, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)G::SMEM);
+  cudaError_t err = cudaFuncSetAttribute(xent_bwd_kernel<HID, false, ET>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM);
   if (err != cudaSuccess) return (int)err;
-  xent_bwd_kernel<HID, false><<<dim3(cdiv(N, RES), HID / G::COLS, S), NTHREADS, G::SMEM, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(E), static_cast<const float*>(bias),
+  xent_bwd_kernel<HID, false, ET><<<dim3(cdiv(N, RES), HID / G::COLS, S), NTHREADS, G::SMEM, st>>>(
+      static_cast<const ET*>(x), static_cast<const ET*>(E), static_cast<const float*>(bias),
       static_cast<const int*>(labels), static_cast<const float*>(lse), nullptr, N, V, vbs,
       static_cast<float*>(part), nullptr, nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int quads = cdiv(N * (HID / 4), 256);
-  xent_dx_reduce_kernel<HID><<<quads < 4096 ? quads : 4096, 256, 0, st>>>(
-      static_cast<const float*>(part), static_cast<const float*>(g), N, S, static_cast<bf16*>(dx));
+  xent_dx_reduce_kernel<HID, ET><<<quads < 4096 ? quads : 4096, 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<const float*>(g), N, S, static_cast<ET*>(dx));
   return (int)cudaGetLastError();
 }
 
-template <int HID>
+template <int HID, typename ET>
 int launch_de(const void* x, const void* E, const void* bias, const void* labels, const void* lse, const void* g,
               int N, int V, void* dE, void* db, cudaStream_t st) {
   using G = Bwd<HID>;
-  cudaError_t err = cudaFuncSetAttribute(xent_bwd_kernel<HID, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(xent_bwd_kernel<HID, true, ET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)G::SMEM);
   if (err != cudaSuccess) return (int)err;
-  xent_bwd_kernel<HID, true><<<dim3(cdiv(V, RES), HID / G::COLS), NTHREADS, G::SMEM, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(E), static_cast<const float*>(bias),
+  xent_bwd_kernel<HID, true, ET><<<dim3(cdiv(V, RES), HID / G::COLS), NTHREADS, G::SMEM, st>>>(
+      static_cast<const ET*>(x), static_cast<const ET*>(E), static_cast<const float*>(bias),
       static_cast<const int*>(labels), static_cast<const float*>(lse), static_cast<const float*>(g), N, V, 0,
-      nullptr, static_cast<bf16*>(dE), static_cast<float*>(db));
+      nullptr, static_cast<ET*>(dE), static_cast<float*>(db));
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+// The widths the kernels are instantiated for, in order.
+constexpr int WIDTHS[] = {128, 256, 512, 768, 1024};
 
-// The tiling the wrapper needs to check inputs and size the grids and the
-// split partials, at hidden width hid: 0 hid itself if the kernels take it
-// (else -1), 1 K4's x rows per block, 2 K5/K6's resident rows per block, 3
-// K4's vocabulary rows per tile, 4 K5/K6's streamed rows per tile, 5 the
-// result columns a K5/K6 block owns.
-extern "C" int vb_xent_geometry(int which, int hid) {
-  if (hid != 768 && hid != 1024) return -1;
-  const bool base = hid == 768;
-  const int g[6] = {hid, base ? Fwd<768>::ROWS : Fwd<1024>::ROWS, RES, base ? Fwd<768>::T : Fwd<1024>::T,
-                    base ? Bwd<768>::T : Bwd<1024>::T, base ? Bwd<768>::COLS : Bwd<1024>::COLS};
-  return which >= 0 && which < 6 ? g[which] : -1;
+// Everything the entry points need of one (width, element type): the three
+// kernels (K5, K6, K4), their shared memory and launches, the tiling.
+struct Form {
+  const void* kernel[3];
+  size_t bytes[3];
+  int geometry[6];
+  int (*fwd)(const void*, const void*, const void*, const void*, int, int, int, int, void*, void*, void*, void*,
+             void*, cudaStream_t);
+  int (*dx)(const void*, const void*, const void*, const void*, const void*, const void*, int, int, int, int, void*,
+            void*, cudaStream_t);
+  int (*de)(const void*, const void*, const void*, const void*, const void*, const void*, int, int, void*, void*,
+            cudaStream_t);
+};
+
+template <int HID, typename ET>
+Form form_of() {
+  return Form{{(const void*)xent_bwd_kernel<HID, false, ET>, (const void*)xent_bwd_kernel<HID, true, ET>,
+               (const void*)xent_fwd_kernel<HID, ET>},
+              {Bwd<HID>::SMEM, Bwd<HID>::SMEM, Fwd<HID>::SMEM},
+              {HID, Fwd<HID>::ROWS, RES, Fwd<HID>::T, Bwd<HID>::T, Bwd<HID>::COLS},
+              launch_fwd<HID, ET>,
+              launch_dx<HID, ET>,
+              launch_de<HID, ET>};
 }
 
-// K5 (kernel 0), K6 (kernel 1) or K4 (kernel 2) at width hid: `what` 0 its
-// registers a thread, 1 its local (spill) bytes a thread, 2 its dynamic
-// shared memory, 3 its resident blocks per SM. -1 on an error.
-extern "C" int vb_xent_info(int kernel, int what, int hid) {
-  size_t bytes = 0;
-  const void* fn = kernel_of(kernel, hid, &bytes);
-  if (fn == nullptr) return -1;
+// The form of width hid in bf16 (dtype 0) or fp16 (1), or nullptr.
+const Form* form(int dtype, int hid) {
+  static const Form forms[2][5] = {
+      {form_of<128, bf16>(), form_of<256, bf16>(), form_of<512, bf16>(), form_of<768, bf16>(), form_of<1024, bf16>()},
+      {form_of<128, __half>(), form_of<256, __half>(), form_of<512, __half>(), form_of<768, __half>(),
+       form_of<1024, __half>()}};
+  if (dtype != 0 && dtype != 1) return nullptr;
+  for (int w = 0; w < 5; ++w)
+    if (WIDTHS[w] == hid) return &forms[dtype][w];
+  return nullptr;
+}
+
+int info(int dtype, int kernel, int what, int hid) {
+  const Form* f = form(dtype, hid);
+  if (f == nullptr || kernel < 0 || kernel > 2) return -1;
+  const void* fn = f->kernel[kernel];
+  const size_t bytes = f->bytes[kernel];
   if (what == 0 || what == 1) {
     cudaFuncAttributes attr;
     if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess) return -1;
@@ -926,27 +984,79 @@ extern "C" int vb_xent_info(int kernel, int what, int hid) {
   return -1;
 }
 
+int fwd(int dtype, const void* x, const void* E, const void* bias, const void* labels, int N, int V, int hid, int S,
+        int vbs, void* pf, void* pi, void* nll, void* lse, void* am, void* stream) {
+  const Form* f = form(dtype, hid);
+  if (f == nullptr) return (int)cudaErrorInvalidValue;
+  return f->fwd(x, E, bias, labels, N, V, S, vbs, pf, pi, nll, lse, am, static_cast<cudaStream_t>(stream));
+}
+
+int dx(int dtype, const void* x, const void* E, const void* bias, const void* labels, const void* lse, const void* g,
+       int N, int V, int hid, int S, int vbs, void* part, void* out, void* stream) {
+  const Form* f = form(dtype, hid);
+  if (f == nullptr) return (int)cudaErrorInvalidValue;
+  return f->dx(x, E, bias, labels, lse, g, N, V, S, vbs, part, out, static_cast<cudaStream_t>(stream));
+}
+
+int de(int dtype, const void* x, const void* E, const void* bias, const void* labels, const void* lse, const void* g,
+       int N, int V, int hid, void* dE, void* db, void* stream) {
+  const Form* f = form(dtype, hid);
+  if (f == nullptr) return (int)cudaErrorInvalidValue;
+  return f->de(x, E, bias, labels, lse, g, N, V, dE, db, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// The tiling the wrapper needs to check inputs and size the grids and the
+// split partials, at hidden width hid (the same in bf16 and fp16): 0 hid
+// itself if the kernels take it (else -1), 1 K4's x rows per block, 2
+// K5/K6's resident rows per block, 3 K4's vocabulary rows per tile, 4
+// K5/K6's streamed rows per tile, 5 the result columns a K5/K6 block owns.
+extern "C" int vb_xent_geometry(int which, int hid) {
+  const Form* f = form(0, hid);
+  return f != nullptr && which >= 0 && which < 6 ? f->geometry[which] : -1;
+}
+
+// K5 (kernel 0), K6 (kernel 1) or K4 (kernel 2) at width hid in bf16: `what`
+// 0 its registers a thread, 1 its local (spill) bytes a thread, 2 its
+// dynamic shared memory, 3 its resident blocks per SM. -1 on an error.
+extern "C" int vb_xent_info(int kernel, int what, int hid) { return info(0, kernel, what, hid); }
+
 // pf [4][S][N] fp32 and pi [S][N] int32 are scratch the caller allocates: S
 // vocabulary splits of vbs tiles each.
 extern "C" int vb_xent_fwd(const void* x, const void* E, const void* bias, const void* labels, int N, int V,
                            int hid, int S, int vbs, void* pf, void* pi, void* nll, void* lse, void* am, void* stream) {
-  auto* f = hid == 1024 ? launch_fwd<1024> : (hid == 768 ? launch_fwd<768> : nullptr);
-  if (f == nullptr) return (int)cudaErrorInvalidValue;
-  return f(x, E, bias, labels, N, V, S, vbs, pf, pi, nll, lse, am, static_cast<cudaStream_t>(stream));
+  return fwd(0, x, E, bias, labels, N, V, hid, S, vbs, pf, pi, nll, lse, am, stream);
 }
 
 // part [S][N][hid] fp32 is scratch the caller allocates: S vocabulary splits
 // of vbs streamed tiles each.
 extern "C" int vb_xent_dx(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
                           const void* g, int N, int V, int hid, int S, int vbs, void* part, void* dx, void* stream) {
-  auto* f = hid == 1024 ? launch_dx<1024> : (hid == 768 ? launch_dx<768> : nullptr);
-  if (f == nullptr) return (int)cudaErrorInvalidValue;
-  return f(x, E, bias, labels, lse, g, N, V, S, vbs, part, dx, static_cast<cudaStream_t>(stream));
+  return ::dx(0, x, E, bias, labels, lse, g, N, V, hid, S, vbs, part, dx, stream);
 }
 
 extern "C" int vb_xent_de(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
                           const void* g, int N, int V, int hid, void* dE, void* db, void* stream) {
-  auto* f = hid == 1024 ? launch_de<1024> : (hid == 768 ? launch_de<768> : nullptr);
-  if (f == nullptr) return (int)cudaErrorInvalidValue;
-  return f(x, E, bias, labels, lse, g, N, V, dE, db, static_cast<cudaStream_t>(stream));
+  return de(0, x, E, bias, labels, lse, g, N, V, hid, dE, db, stream);
+}
+
+// The same entry points in fp16 (x, E, dx and dE fp16).
+extern "C" int vb_xent_f16_info(int kernel, int what, int hid) { return info(1, kernel, what, hid); }
+
+extern "C" int vb_xent_f16_fwd(const void* x, const void* E, const void* bias, const void* labels, int N, int V,
+                               int hid, int S, int vbs, void* pf, void* pi, void* nll, void* lse, void* am,
+                               void* stream) {
+  return fwd(1, x, E, bias, labels, N, V, hid, S, vbs, pf, pi, nll, lse, am, stream);
+}
+
+extern "C" int vb_xent_f16_dx(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
+                              const void* g, int N, int V, int hid, int S, int vbs, void* part, void* dx,
+                              void* stream) {
+  return ::dx(1, x, E, bias, labels, lse, g, N, V, hid, S, vbs, part, dx, stream);
+}
+
+extern "C" int vb_xent_f16_de(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
+                              const void* g, int N, int V, int hid, void* dE, void* db, void* stream) {
+  return de(1, x, E, bias, labels, lse, g, N, V, hid, dE, db, stream);
 }

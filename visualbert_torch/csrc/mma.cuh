@@ -2,9 +2,12 @@
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) and its fragment loads from
 // row-major shared-memory tiles with a padded row stride LD (elements).
 // g = lane / 4, tq = lane % 4 are the mma.sync thread-group coordinates.
+// pack_f16 / round_f16 are pack_bf16 / round_bf16 for fp16, and Elem<E>
+// names the pair of an element type (the Hopper kernels that take both).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace vb {
@@ -16,6 +19,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float round_f16(float x) { return __half2float(__float2half_rn(x)); }
+
 __device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
@@ -23,6 +33,27 @@ __device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
+
+// The two 16-bit element types of the Hopper kernels: pack two floats
+// (round to nearest even), round one, and unpack a packed pair.
+template <typename E>
+struct Elem;
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) { return pack_bf16(lo, hi); }
+  static __device__ __forceinline__ float round(float x) { return round_bf16(x); }
+  static __device__ __forceinline__ float2 unpack(uint32_t w) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  }
+};
+template <>
+struct Elem<__half> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) { return pack_f16(lo, hi); }
+  static __device__ __forceinline__ float round(float x) { return round_f16(x); }
+  static __device__ __forceinline__ float2 unpack(uint32_t w) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  }
+};
 
 __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
   asm volatile(

@@ -45,6 +45,13 @@ _SIGNATURES = {  # every C entry point of the sources: its argument types
     "vb_attn_packed_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_packed_smem_bytes": [_I],
     "vb_attn_packed_info": [_I, _I, _I],
+    "vb_attn_packed_x_smem_bytes": [_I, _I],
+    "vb_attn_packed_x_info": [_I, _I, _I, _I, _I],
+    "vb_attn_packed_x_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _I, _I, _I, _F, _P],
+    "vb_attn_packed_x_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I, _I, _I, _F, _P],
+    "vb_attn_f32_info": [_I, _I, _I],
+    "vb_attn_f32_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _I, _F, _P],
+    "vb_attn_f32_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _I, _F, _P],
     "vb_attn_hm_smem_bytes": [_I],
     "vb_attn_hm_info": [_I, _I, _I],
     "vb_attn_hm_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _I, _P],
@@ -62,6 +69,14 @@ _SIGNATURES = {  # every C entry point of the sources: its argument types
     "vb_xent_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "vb_xent_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "vb_xent_de": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "vb_xent_f16_info": [_I, _I, _I],
+    "vb_xent_f16_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "vb_xent_f16_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "vb_xent_f16_de": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "vb_xent_f32_info": [_I, _I, _I],
+    "vb_xent_f32_fwd": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "vb_xent_f32_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "vb_xent_f32_de": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "vb_ln_geometry": [_I],
     "vb_ln_info": [_I, _I, _I, _I],
     "vb_ln_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _U, _U, _F, _P],

@@ -23,7 +23,8 @@ probabilities [B, H, T, T], always bf16, and its backward reads them back
 instead of recomputing QK^T and the softmax.
 
 Kernels (``csrc/flash_attention_packed.cu``, ``csrc/flash_attention.cu``,
-``csrc/flash_attention_sp.cu``, all on ``csrc/hopper_attn.cuh``):
+``csrc/flash_attention_sp.cu``, all on ``csrc/hopper_attn.cuh``, and
+``csrc/flash_attention_f32.cu``):
 
 * K1, :func:`packed_attention_fwd`, replaces ``_packed_fwd_kernel``;
 * K2, :func:`packed_attention_bwd`, replaces ``_packed_bwd_kernel``;
@@ -39,6 +40,15 @@ kernel's occupancy (:func:`packed_head_groups`, :func:`hm_head_groups`,
 :func:`sp_head_groups`). On CPU tensors the wrappers compute their plain
 versions (the ``*_reference`` functions, which follow the kernels' math
 step by step); on CUDA tensors they launch the kernels or raise.
+
+K1 and K2 take every dtype and head dim the JAX kernels take up to D = 128
+(the JAX wrapper asserts only ``F % 3H == 0``): bf16 and fp16 on the Hopper
+kernels, instantiated at D = 64 and 128, a head dim below either
+zero-padded to it (:func:`kernel_head_dim`, :func:`pad_heads`,
+:func:`unpad_heads`; exact, and the softmax scale stays 1/sqrt(D) of the
+unpadded D), and fp32 on the SIMT pair of ``flash_attention_f32.cu`` at any
+D <= 128. Each wrapper counts its launches in ``launches`` and, by form
+(:func:`attention_form`), in ``forms``. K11-K14 take bf16 at D = 64 only.
 
 The dropout keep bit of probability (b, h, i, j) is a pure function of
 (seed, b, h, i, j) — see ``csrc/philox.cuh::attn_philox`` and its twin
@@ -64,8 +74,46 @@ from visualbert_torch.ops import _build
 from visualbert_torch.ops.philox import MASK32, keep_threshold, philox4x32_10
 
 LOG2E = 1.4426950408889634
-KERNEL_HEAD_DIM = 64
+KERNEL_HEAD_DIM = 64  # K11-K14's head dim (bf16 only)
+PACKED_HEAD_DIMS = (64, 128)  # K1/K2's bf16 and fp16 instantiations
+MAX_HEAD_DIM = 128  # K1/K2 in every dtype
+PACKED_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}  # csrc/flash_attention_packed.cu's dtype argument
 MAX_SMEM_BYTES = 232448  # opt-in shared memory per block on sm_90
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim at which K1/K2's bf16 and fp16 kernels run heads of dim
+    d (<= MAX_HEAD_DIM): the smallest instantiation that holds it."""
+    return next(dp for dp in PACKED_HEAD_DIMS if d <= dp)
+
+
+def pad_heads(x: torch.Tensor, n_heads: int, parts: int, dp: int) -> torch.Tensor:
+    """[..., H*parts*D] packed head-major -> [..., H*parts*dp], each head's
+    ``parts`` blocks of D columns (q, k, v: 3; an output: 1) zero-padded to
+    dp columns (``x`` itself when D = dp)."""
+    d = x.shape[-1] // (n_heads * parts)
+    if d == dp:
+        return x
+    lead = x.shape[:-1]
+    return torch.nn.functional.pad(x.reshape(*lead, n_heads, parts, d), (0, dp - d)).reshape(*lead, -1)
+
+
+def unpad_heads(x: torch.Tensor, n_heads: int, parts: int, d: int) -> torch.Tensor:
+    """The inverse of :func:`pad_heads`: [..., H*parts*dp] -> [..., H*parts*d]."""
+    dp = x.shape[-1] // (n_heads * parts)
+    if d == dp:
+        return x
+    lead = x.shape[:-1]
+    return x.reshape(*lead, n_heads, parts, dp)[..., :d].reshape(*lead, n_heads * parts * d)
+
+
+def attention_form(dtype, d: int) -> str:
+    """The kernel form K1/K2 run heads of dim d in ``dtype`` on: "fp32" (the
+    SIMT pair) or "<dtype> D<instantiated head dim>"."""
+    if dtype == torch.float32:
+        return "fp32"
+    return f"{'bf16' if dtype == torch.bfloat16 else 'fp16'} D{kernel_head_dim(d)}"
 
 
 def attention_keep_reference(seed: int, B: int, H: int, T: int, rate: float, device="cpu") -> torch.Tensor:
@@ -115,23 +163,25 @@ def _keep(seed, q, rate):
     return attention_keep_reference(seed, B, H, T, rate, q.device)
 
 
-def _scores2(q, k, key_bias, prescale: bool = False):
-    """t = q.k * scale * log2(e) + key_bias * log2(e), fp32 [B, H, T, T].
-    With ``prescale`` (K15's variant) q is first rounded to q's dtype as
-    q * scale * log2(e) and the product is not scaled again."""
-    c1 = (1.0 / math.sqrt(q.shape[-1])) * LOG2E
+def _scores2(q, k, key_bias, prescale: bool = False, scale: Optional[float] = None):
+    """t = q.k * scale * log2(e) + key_bias * log2(e), fp32 [B, H, T, T];
+    scale 1/sqrt(D) unless given (heads zero-padded past their D keep their
+    own). With ``prescale`` (K15's variant) q is first rounded to q's dtype
+    as q * scale * log2(e) and the product is not scaled again."""
+    c1 = (1.0 / math.sqrt(q.shape[-1]) if scale is None else scale) * LOG2E
     kb = (key_bias.float() * LOG2E)[:, None, None, :]
     if prescale:
         return torch.matmul((q.float() * c1).to(q.dtype).float(), k.float().transpose(-1, -2)) + kb
     return torch.matmul(q.float(), k.float().transpose(-1, -2)) * c1 + kb
 
 
-def _attention_fwd(q, k, v, key_bias, rate: float, seed: int, prescale: bool = False, nomax: bool = False):
+def _attention_fwd(q, k, v, key_bias, rate: float, seed: int, prescale: bool = False, nomax: bool = False,
+                   scale: Optional[float] = None):
     """K1's and K11's math on biased q, k, v [B, H, T, D]: (o [B, H, T, D]
     in q's dtype, stats [B, H, T] fp32). ``prescale`` and ``nomax`` are
     K15's variants: q rounded after scaling, and no row max (stats = log2
-    sum exp2(t))."""
-    t = _scores2(q, k, key_bias, prescale)
+    sum exp2(t)); ``scale`` as :func:`_scores2`'s."""
+    t = _scores2(q, k, key_bias, prescale, scale)
     m2 = torch.zeros_like(t[..., :1]) if nomax else t.amax(dim=-1, keepdim=True)
     e = torch.exp2(t - m2)
     ssum = e.sum(dim=-1, keepdim=True)
@@ -142,14 +192,16 @@ def _attention_fwd(q, k, v, key_bias, rate: float, seed: int, prescale: bool = F
     return torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype), stats
 
 
-def _attention_bwd_from_p(q, k, v, do, o, p, rate: float, seed: int, fdrop: bool = False):
+def _attention_bwd_from_p(q, k, v, do, o, p, rate: float, seed: int, fdrop: bool = False,
+                          scale: Optional[float] = None):
     """The backward of every attention kernel given the pre-dropout
     probabilities p (fp32 [B, H, T, T]): delta = rowsum(dO * O), dQ and dK
-    scaled at the end. Returns dq, dk, dv [B, H, T, D] in q's dtype.
-    ``fdrop`` (K15's variant) takes ds = p_d * dP - p * delta with the
-    dropped probabilities p_d rounded to q's dtype, at rate > 0."""
+    scaled at the end (by 1/sqrt(D) unless ``scale`` is given). Returns dq,
+    dk, dv [B, H, T, D] in q's dtype. ``fdrop`` (K15's variant) takes ds =
+    p_d * dP - p * delta with the dropped probabilities p_d rounded to q's
+    dtype, at rate > 0."""
     dt = q.dtype
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     zero = torch.zeros((), device=p.device)
     if rate > 0.0:
         keep = _keep(seed, q, rate)
@@ -172,26 +224,30 @@ def _attention_bwd_from_p(q, k, v, do, o, p, rate: float, seed: int, fdrop: bool
 
 
 def _attention_bwd(q, k, v, key_bias, do, o, stats, rate: float, seed: int, prescale: bool = False,
-                   fdrop: bool = False):
-    """K2's and K12's math: P rebuilt from the stats (K15's variants as in
-    :func:`_scores2` and :func:`_attention_bwd_from_p`)."""
-    p = torch.exp2(_scores2(q, k, key_bias, prescale) - stats[..., None])
-    return _attention_bwd_from_p(q, k, v, do, o, p, rate, seed, fdrop)
+                   fdrop: bool = False, scale: Optional[float] = None):
+    """K2's and K12's math: P rebuilt from the stats (K15's variants and
+    ``scale`` as in :func:`_scores2` and :func:`_attention_bwd_from_p`)."""
+    p = torch.exp2(_scores2(q, k, key_bias, prescale, scale) - stats[..., None])
+    return _attention_bwd_from_p(q, k, v, do, o, p, rate, seed, fdrop, scale)
 
 
-def packed_attention_fwd_reference(qkv, qb, key_bias, n_heads: int, rate: float, seed: int):
-    """Plain version of K1: (out [B, T, H*D], stats [B, H, T] fp32)."""
+def packed_attention_fwd_reference(qkv, qb, key_bias, n_heads: int, rate: float, seed: int,
+                                   scale: Optional[float] = None):
+    """Plain version of K1: (out [B, T, H*D], stats [B, H, T] fp32); the
+    softmax scale 1/sqrt(D) unless ``scale`` is given (the padded heads'
+    kernel call keeps the unpadded D's)."""
     q, k, v = _split_heads(qkv + qb, n_heads)  # deferred projection bias, in the compute dtype
-    o, stats = _attention_fwd(q, k, v, key_bias, rate, seed)
+    o, stats = _attention_fwd(q, k, v, key_bias, rate, seed, scale=scale)
     return _merge_heads(o), stats
 
 
-def packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: float, seed: int):
+def packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: float, seed: int,
+                                   scale: Optional[float] = None):
     """Plain version of K2. Returns (dqkv [B, T, H*3*D], dqb [H*3*D] in
-    qb's dtype)."""
+    qb's dtype); ``scale`` as the forward's."""
     q, k, v = _split_heads(qkv + qb, n_heads)
     dqkv = _pack_heads(*_attention_bwd(q, k, v, key_bias, _heads(dout, n_heads), _heads(out, n_heads), stats,
-                                       rate, seed))
+                                       rate, seed, scale=scale))
     return dqkv, dqkv.float().sum(dim=(0, 1)).to(qb.dtype)
 
 
@@ -241,7 +297,8 @@ def _on_cuda(what, x) -> bool:
 
 def _check(what, smem_fn, T, key_bias, B, *tensors):
     """Device, contiguity, alignment, key bias (unless None) and shared
-    memory; returns the library."""
+    memory (``smem_fn(lib, T)``: the kernels' bytes at T; None for kernels
+    whose shared memory does not grow with T); returns the library."""
     if key_bias is not None:
         if key_bias.shape != (B, T) or key_bias.dtype != torch.float32:
             raise ValueError(f"{what}: key bias must be [{B}, {T}] float32")
@@ -254,12 +311,16 @@ def _check(what, smem_fn, T, key_bias, B, *tensors):
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: tensors must be 16-byte aligned")
     lib = _build.library()
-    if getattr(lib, smem_fn)(T) > MAX_SMEM_BYTES:
-        raise ValueError(f"{what}: T={T} needs more shared memory than a block has")
+    if smem_fn is not None and smem_fn(lib, T) > MAX_SMEM_BYTES:
+        longest = max(t for t in range(1, T) if smem_fn(lib, t) <= MAX_SMEM_BYTES)
+        raise ValueError(f"{what}: T={T} needs more shared memory than a block has; the kernel takes T up to "
+                         f"{longest}")
     return lib
 
 
 def _check_packed(what, qkv, key_bias, n_heads, *others, smem_fn, qb=None):
+    """The checks of the bf16, head dim 64 packed kernels (K13/K14, K15/K16),
+    their shared memory from the entry point ``smem_fn`` of T."""
     if qkv.dtype != torch.bfloat16:
         raise ValueError(f"{what}: the kernel takes bf16 qkv, got {qkv.dtype}")
     B, T, F = qkv.shape
@@ -272,7 +333,27 @@ def _check_packed(what, qkv, key_bias, n_heads, *others, smem_fn, qb=None):
         if qb.shape != (F,) or qb.dtype != qkv.dtype:
             raise ValueError(f"{what}: qkv_bias must be [{F}] {qkv.dtype}, got {tuple(qb.shape)} {qb.dtype}")
         others = others + (qb,)
-    return _check(what, smem_fn, T, key_bias, B, qkv, *others)
+    return _check(what, lambda lib, t: getattr(lib, smem_fn)(t), T, key_bias, B, qkv, *others)
+
+
+def _check_packed_any(what, qkv, key_bias, n_heads, *others, qb):
+    """K1/K2's checks in every form: a dtype of PACKED_DTYPES, head dim up
+    to MAX_HEAD_DIM, shapes, and (bf16, fp16) the shared memory of T at the
+    instantiated head dim."""
+    if qkv.dtype not in PACKED_DTYPES:
+        raise ValueError(f"{what}: the kernels take bf16, fp16 or fp32 qkv, got {qkv.dtype}")
+    B, T, F = qkv.shape
+    if F % (3 * n_heads) or F // (3 * n_heads) > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: the kernels take head dims up to {MAX_HEAD_DIM}, got F={F}, H={n_heads}")
+    d = F // (3 * n_heads)
+    for t in others:
+        if t.dtype != qkv.dtype or t.shape != (B, T, F // 3):
+            raise ValueError(f"{what}: dout and out must be [{B}, {T}, {F // 3}] {qkv.dtype}")
+    if qb.shape != (F,) or qb.dtype != qkv.dtype:
+        raise ValueError(f"{what}: qkv_bias must be [{F}] {qkv.dtype}, got {tuple(qb.shape)} {qb.dtype}")
+    dp = kernel_head_dim(d)
+    smem = None if qkv.dtype == torch.float32 else (lambda lib, t: lib.vb_attn_packed_x_smem_bytes(dp, t))
+    return _check(what, smem, T, key_bias, B, qkv, *others, qb)
 
 
 def _check_stats(what, stats, B, H, T):
@@ -301,17 +382,18 @@ PACKED_KERNELS = ("forward", "dQ pass", "dK/dV pass")
 _head_groups = {}
 
 
-def _kernel_head_groups(lib, info: str, label: str, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
+def _kernel_head_groups(lib, info: str, label: str, B: int, H: int, T: int, device, form=()) -> Tuple[int, int, int]:
     """hg of a forward kernel and of its backward's two passes at this shape
     on ``device``, from each kernel's resident blocks per SM (the CUDA
-    occupancy query ``info`` at its shared memory for T); computed once a
-    (kernel pair, B, H, T, device)."""
-    key = (info, B, H, T, device.index)
+    occupancy query ``info``, after the ``form`` arguments it takes, at its
+    shared memory for T); computed once a (kernel pair, form, B, H, T,
+    device)."""
+    key = (info, form, B, H, T, device.index)
     if key not in _head_groups:
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
         out = []
         for k, kernel in enumerate(PACKED_KERNELS):
-            per_sm = getattr(lib, info)(k, 3, T)
+            per_sm = getattr(lib, info)(*form, k, 3, T)
             if per_sm < 1:
                 raise RuntimeError(f"{label} {kernel}: no block fits an SM at T={T}")
             out.append(head_group(B, H, n_sm, per_sm))
@@ -322,6 +404,12 @@ def _kernel_head_groups(lib, info: str, label: str, B: int, H: int, T: int, devi
 def packed_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
     """hg of K1's kernel and of K2's two passes (``vb_attn_packed_info``)."""
     return _kernel_head_groups(lib, "vb_attn_packed_info", "K1/K2", B, H, T, device)
+
+
+def packed_x_head_groups(lib, dtype, dp: int, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
+    """hg of K1's kernel and of K2's two passes in bf16 or fp16 at the
+    instantiated head dim dp (``vb_attn_packed_x_info``)."""
+    return _kernel_head_groups(lib, "vb_attn_packed_x_info", "K1/K2", B, H, T, device, (_DTYPE_CODE[dtype], dp))
 
 
 def hm_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
@@ -335,8 +423,11 @@ def sp_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
 
 
 def launch_packed_fwd(lib, qkv, qb, key_bias, n_heads: int, rate: float, seed: int, hg: int):
-    """K1's kernel from ``lib`` (the kernel library, or another build of its
-    source) on checked inputs, hg heads a block: (CUDA code, out, stats)."""
+    """K1's kernel in bf16 at D = 64 from ``lib`` (the kernel library, or
+    another build of its source: the tools that time an earlier tree launch
+    this entry point, whose signature every tree shares) on checked inputs,
+    hg heads a block: (CUDA code, out, stats). The wrapper launches every
+    bf16 and fp16 form through :func:`launch_packed_x_fwd`."""
     B, T, F = qkv.shape
     out = torch.empty((B, T, F // 3), dtype=qkv.dtype, device=qkv.device)
     stats = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
@@ -349,9 +440,10 @@ def launch_packed_fwd(lib, qkv, qb, key_bias, n_heads: int, rate: float, seed: i
 
 def launch_packed_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: float, seed: int, hg_dq: int,
                       hg_dkv: int):
-    """K2's two kernels from ``lib`` on checked inputs: (CUDA code, dqkv,
-    dqb). The kernels write fp32 per-batch-row partials of the bias
-    gradient; their sum here is the only reduction outside them."""
+    """K2's two kernels in bf16 at D = 64 from ``lib`` on checked inputs, as
+    :func:`launch_packed_fwd`: (CUDA code, dqkv, dqb). The kernels write
+    fp32 per-batch-row partials of the bias gradient; their sum here is the
+    only reduction outside them."""
     B, T, F = qkv.shape
     dqkv = torch.empty_like(qkv)
     db_part = torch.empty((B, F), dtype=torch.float32, device=qkv.device)
@@ -364,39 +456,126 @@ def launch_packed_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads: int, ra
     return code, dqkv, db_part.sum(dim=0).to(qb.dtype)
 
 
+def launch_packed_x_fwd(lib, qkv, qb, key_bias, n_heads: int, rate: float, seed: int, hg: int, scale: float):
+    """K1's kernel in bf16 or fp16 at the instantiated head dim of qkv (the
+    heads already padded to it), softmax scale ``scale``: (CUDA code, out,
+    stats)."""
+    B, T, F = qkv.shape
+    out = torch.empty((B, T, F // 3), dtype=qkv.dtype, device=qkv.device)
+    stats = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_packed_x_fwd(
+        qkv.data_ptr(), qb.data_ptr(), key_bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
+        B, T, n_heads, hg, *_seed_args(rate, seed), _DTYPE_CODE[qkv.dtype], F // (3 * n_heads), float(scale),
+        _build.stream_ptr(qkv.device),
+    )
+    return code, out, stats
+
+
+def launch_packed_x_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: float, seed: int, hg_dq: int,
+                        hg_dkv: int, scale: float):
+    """K2's two kernels in bf16 or fp16 at the instantiated head dim, as
+    :func:`launch_packed_x_fwd`: (CUDA code, dqkv, dqb)."""
+    B, T, F = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    db_part = torch.empty((B, F), dtype=torch.float32, device=qkv.device)
+    delta = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_packed_x_bwd(
+        qkv.data_ptr(), qb.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), out.data_ptr(),
+        stats.data_ptr(), dqkv.data_ptr(), db_part.data_ptr(), delta.data_ptr(),
+        B, T, n_heads, hg_dq, hg_dkv, *_seed_args(rate, seed), _DTYPE_CODE[qkv.dtype], F // (3 * n_heads),
+        float(scale), _build.stream_ptr(qkv.device),
+    )
+    return code, dqkv, db_part.sum(dim=0).to(qb.dtype)
+
+
+def launch_f32_fwd(lib, qkv, qb, key_bias, n_heads: int, rate: float, seed: int):
+    """K1's fp32 kernel (``csrc/flash_attention_f32.cu``) on checked inputs,
+    any head dim up to MAX_HEAD_DIM: (CUDA code, out, stats)."""
+    B, T, F = qkv.shape
+    d = F // (3 * n_heads)
+    out = torch.empty((B, T, F // 3), dtype=qkv.dtype, device=qkv.device)
+    stats = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_f32_fwd(qkv.data_ptr(), qb.data_ptr(), key_bias.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                               B, T, n_heads, d, *_seed_args(rate, seed), 1.0 / math.sqrt(d),
+                               _build.stream_ptr(qkv.device))
+    return code, out, stats
+
+
+def launch_f32_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: float, seed: int):
+    """K2's two fp32 kernels on checked inputs: (CUDA code, dqkv, dqb)."""
+    B, T, F = qkv.shape
+    d = F // (3 * n_heads)
+    dqkv = torch.empty_like(qkv)
+    db_part = torch.empty((B, F), dtype=torch.float32, device=qkv.device)
+    delta = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_f32_bwd(qkv.data_ptr(), qb.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), out.data_ptr(),
+                               stats.data_ptr(), dqkv.data_ptr(), db_part.data_ptr(), delta.data_ptr(),
+                               B, T, n_heads, d, *_seed_args(rate, seed), 1.0 / math.sqrt(d),
+                               _build.stream_ptr(qkv.device))
+    return code, dqkv, db_part.sum(dim=0)
+
+
+def _counted(fn, form: str) -> None:
+    fn.launches += 1
+    fn.forms[form] = fn.forms.get(form, 0) + 1
+
+
 def packed_attention_fwd(qkv, qb, key_bias, n_heads: int, rate: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 wrapper: (out [B, T, H*D], stats [B, H, T] fp32)."""
+    """K1 wrapper: (out [B, T, H*D], stats [B, H, T] fp32). bf16 and fp16
+    heads below an instantiated head dim are zero-padded to it here and the
+    output cut back; fp32 runs the SIMT kernel."""
     what = "packed attention forward (K1)"
     if not _on_cuda(what, qkv):
         return packed_attention_fwd_reference(qkv, qb, key_bias, n_heads, rate, seed)
-    lib = _check_packed(what, qkv, key_bias, n_heads, qb=qb, smem_fn="vb_attn_packed_smem_bytes")
-    B, T, _ = qkv.shape
-    hg = packed_head_groups(lib, B, n_heads, T, qkv.device)[0]
-    code, out, stats = launch_packed_fwd(lib, qkv, qb, key_bias, n_heads, rate, seed, hg)
+    lib = _check_packed_any(what, qkv, key_bias, n_heads, qb=qb)
+    B, T, F = qkv.shape
+    d = F // (3 * n_heads)
+    form = attention_form(qkv.dtype, d)
+    if qkv.dtype == torch.float32:
+        code, out, stats = launch_f32_fwd(lib, qkv, qb, key_bias, n_heads, rate, seed)
+    else:
+        dp = kernel_head_dim(d)
+        hg = packed_x_head_groups(lib, qkv.dtype, dp, B, n_heads, T, qkv.device)[0]
+        code, out, stats = launch_packed_x_fwd(lib, pad_heads(qkv, n_heads, 3, dp), pad_heads(qb, n_heads, 3, dp),
+                                               key_bias, n_heads, rate, seed, hg, 1.0 / math.sqrt(d))
+        out = unpad_heads(out, n_heads, 1, d)
     lib.check(code, what)
-    packed_attention_fwd.launches += 1
+    _counted(packed_attention_fwd, form)
     return out, stats
 
 
 packed_attention_fwd.launches = 0
+packed_attention_fwd.forms = {}
 
 
 def packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: float, seed: int):
-    """K2 wrapper: (dqkv [B, T, H*3*D], dqb [H*3*D] in qb's dtype)."""
+    """K2 wrapper: (dqkv [B, T, H*3*D], dqb [H*3*D] in qb's dtype), in the
+    forms of :func:`packed_attention_fwd`."""
     what = "packed attention backward (K2)"
     if not _on_cuda(what, qkv):
         return packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed)
-    lib = _check_packed(what, qkv, key_bias, n_heads, dout, out, qb=qb, smem_fn="vb_attn_packed_smem_bytes")
-    B, T, _ = qkv.shape
+    lib = _check_packed_any(what, qkv, key_bias, n_heads, dout, out, qb=qb)
+    B, T, F = qkv.shape
     _check_stats(what, stats, B, n_heads, T)
-    _, hg_dq, hg_dkv = packed_head_groups(lib, B, n_heads, T, qkv.device)
-    code, dqkv, dqb = launch_packed_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed, hg_dq, hg_dkv)
+    d = F // (3 * n_heads)
+    form = attention_form(qkv.dtype, d)
+    if qkv.dtype == torch.float32:
+        code, dqkv, dqb = launch_f32_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed)
+    else:
+        dp = kernel_head_dim(d)
+        _, hg_dq, hg_dkv = packed_x_head_groups(lib, qkv.dtype, dp, B, n_heads, T, qkv.device)
+        code, dqkv, dqb = launch_packed_x_bwd(
+            lib, pad_heads(qkv, n_heads, 3, dp), pad_heads(qb, n_heads, 3, dp), key_bias,
+            pad_heads(dout, n_heads, 1, dp), pad_heads(out, n_heads, 1, dp), stats, n_heads, rate, seed, hg_dq,
+            hg_dkv, 1.0 / math.sqrt(d))
+        dqkv, dqb = unpad_heads(dqkv, n_heads, 3, d), unpad_heads(dqb, n_heads, 3, d)
     lib.check(code, what)
-    packed_attention_bwd.launches += 1
+    _counted(packed_attention_bwd, form)
     return dqkv, dqb
 
 
 packed_attention_bwd.launches = 0
+packed_attention_bwd.forms = {}
 
 
 def _check_heads_major(what, qkv, key_bias, *others):
@@ -408,7 +587,7 @@ def _check_heads_major(what, qkv, key_bias, *others):
     for t in others:
         if t.dtype != qkv.dtype or t.shape != (B, H, T, d):
             raise ValueError(f"{what}: dout and out must be [{B}, {H}, {T}, {d}] {qkv.dtype}")
-    return _check(what, "vb_attn_hm_smem_bytes", T, key_bias, B, qkv, *others)
+    return _check(what, lambda lib, t: lib.vb_attn_hm_smem_bytes(t), T, key_bias, B, qkv, *others)
 
 
 def launch_hm_fwd(lib, qkv, key_bias, rate: float, seed: int, hg: int):

@@ -34,6 +34,15 @@ Kernels (``csrc/mlm_xent.cu``, design notes there):
   vocabulary so that about four blocks per SM run (:func:`splits`): its
   blocks write fp32 partials of dx, which a second pass sums in split order.
 
+The kernels take every dtype and width the JAX kernels take up to H =
+1024: bf16 and fp16 on the Hopper kernels, instantiated at widths 128, 256,
+512, 768 and 1024 (``KERNEL_WIDTHS``), any other width zero-padded to the
+next of them (:func:`kernel_width`, :func:`pad_width`: a zero column adds
+nothing to a logit; the padded columns of dx and dE are dropped), and fp32
+on the SIMT kernels of ``csrc/mlm_xent_f32.cu`` at any width. Each wrapper
+counts its launches in ``launches`` and, by form (:func:`xent_form`), in
+``forms``.
+
 On CPU tensors the wrappers compute the plain versions
 (:func:`mlm_xent_fwd_reference`, :func:`mlm_xent_dx_reference`,
 :func:`mlm_xent_de_reference`, which materialise the logits); on CUDA
@@ -60,7 +69,30 @@ from visualbert_torch.ops import _build
 from visualbert_torch.ops._build import sm_count
 from visualbert_torch.parallel.mesh import all_reduce, gather_slices
 
-KERNEL_WIDTHS = (768, 1024)  # the hidden widths K4-K6 are instantiated for
+KERNEL_WIDTHS = (128, 256, 512, 768, 1024)  # the hidden widths K4-K6 are instantiated for (bf16, fp16)
+MAX_WIDTH = KERNEL_WIDTHS[-1]  # every dtype
+KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+_ENTRY = {torch.bfloat16: "vb_xent_", torch.float16: "vb_xent_f16_"}  # the entry points of csrc/mlm_xent.cu
+
+
+def kernel_width(h: int) -> int:
+    """The width at which the bf16 and fp16 kernels run rows of width h
+    (<= MAX_WIDTH): the smallest instantiation that holds it."""
+    return next(w for w in KERNEL_WIDTHS if h <= w)
+
+
+def pad_width(t: torch.Tensor, w: int) -> torch.Tensor:
+    """``t`` [rows, h] with its columns zero-padded to w (``t`` itself at h = w)."""
+    h = t.shape[-1]
+    return t if h == w else torch.nn.functional.pad(t, (0, w - h))
+
+
+def xent_form(dtype, h: int) -> str:
+    """The kernel form K4-K6 run rows of width h in ``dtype`` on: "fp32" (the
+    SIMT kernels) or "<dtype> H<instantiated width>"."""
+    if dtype == torch.float32:
+        return "fp32"
+    return f"{'bf16' if dtype == torch.bfloat16 else 'fp16'} H{kernel_width(h)}"
 
 
 def _logits(x, emb, bias):
@@ -101,10 +133,11 @@ def _check_cuda_inputs(what, x, emb, bias, labels, *rows):
     lib = _build.library()
     N, H = x.shape
     V = emb.shape[0]
-    if x.dtype != torch.bfloat16 or emb.dtype != torch.bfloat16:
-        raise ValueError(f"{what}: the kernel takes bf16 x and embedding, got {x.dtype}, {emb.dtype}")
-    if H not in KERNEL_WIDTHS or emb.shape != (V, H):
-        raise ValueError(f"{what}: the kernel takes hidden width {' or '.join(map(str, KERNEL_WIDTHS))}, "
+    if x.dtype not in KERNEL_DTYPES or emb.dtype != x.dtype:
+        raise ValueError(f"{what}: the kernels take bf16, fp16 or fp32 x and an embedding of its dtype, got "
+                         f"{x.dtype}, {emb.dtype}")
+    if H > MAX_WIDTH or emb.shape != (V, H):
+        raise ValueError(f"{what}: the kernels take hidden widths up to {MAX_WIDTH}, "
                          f"got x {tuple(x.shape)}, embedding {tuple(emb.shape)}")
     if bias.shape != (V,) or bias.dtype != torch.float32:
         raise ValueError(f"{what}: bias must be [{V}] float32")
@@ -198,27 +231,51 @@ def launch_fwd(lib, x, emb, bias, labels, sms):
     nll = torch.empty(N, dtype=torch.float32, device=x.device)
     lse = torch.empty(N, dtype=torch.float32, device=x.device)
     am = torch.empty(N, dtype=torch.int32, device=x.device)
-    code = lib.vb_xent_fwd(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), N, V, H,
-                           plan["grid"][1], plan["per"], pf.data_ptr(), pi.data_ptr(), nll.data_ptr(),
-                           lse.data_ptr(), am.data_ptr(), _build.stream_ptr(x.device))
+    code = getattr(lib, _ENTRY[x.dtype] + "fwd")(
+        x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), N, V, H, plan["grid"][1], plan["per"],
+        pf.data_ptr(), pi.data_ptr(), nll.data_ptr(), lse.data_ptr(), am.data_ptr(), _build.stream_ptr(x.device))
     return code, nll, lse, am
 
 
+def launch_f32_fwd(lib, x, emb, bias, labels):
+    """Launch K4's fp32 kernel (``csrc/mlm_xent_f32.cu``) on checked inputs:
+    (the entry point's code, nll, lse, argmax)."""
+    (N, H), V = x.shape, emb.shape[0]
+    nll = torch.empty(N, dtype=torch.float32, device=x.device)
+    lse = torch.empty(N, dtype=torch.float32, device=x.device)
+    am = torch.empty(N, dtype=torch.int32, device=x.device)
+    code = lib.vb_xent_f32_fwd(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), N, V, H,
+                               nll.data_ptr(), lse.data_ptr(), am.data_ptr(), _build.stream_ptr(x.device))
+    return code, nll, lse, am
+
+
+def _counted(fn, form: str) -> None:
+    fn.launches += 1
+    fn.forms[form] = fn.forms.get(form, 0) + 1
+
+
 def mlm_xent_fwd(x, emb, bias, labels) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K4 wrapper: (nll [N] fp32, lse [N] fp32, argmax [N] int32). The kernel
-    writes per-split partial statistics; its second pass merges them in
-    vocabulary order."""
+    """K4 wrapper: (nll [N] fp32, lse [N] fp32, argmax [N] int32). The bf16
+    and fp16 kernel writes per-split partial statistics; its second pass
+    merges them in vocabulary order. A width between the instantiated ones
+    runs on x and E zero-padded to the next (a copy of E each call)."""
     what = "mlm xent forward (K4)"
     if not _device(x, what):
         return mlm_xent_fwd_reference(x, emb, bias, labels)
     lib = _check_cuda_inputs(what, x, emb, bias, labels)
-    code, nll, lse, am = launch_fwd(lib, x, emb, bias, labels, sm_count(x.device))
+    form = xent_form(x.dtype, x.shape[1])
+    if x.dtype == torch.float32:
+        code, nll, lse, am = launch_f32_fwd(lib, x, emb, bias, labels)
+    else:
+        w = kernel_width(x.shape[1])
+        code, nll, lse, am = launch_fwd(lib, pad_width(x, w), pad_width(emb, w), bias, labels, sm_count(x.device))
     lib.check(code, what)
-    mlm_xent_fwd.launches += 1
+    _counted(mlm_xent_fwd, form)
     return nll, lse, am
 
 
 mlm_xent_fwd.launches = 0
+mlm_xent_fwd.forms = {}
 
 
 def launch_dx(lib, x, emb, bias, labels, lse, g, sms):
@@ -227,26 +284,44 @@ def launch_dx(lib, x, emb, bias, labels, lse, g, sms):
     plan = dx_plan(N, V, H, lib.vb_xent_geometry(2, H), lib.vb_xent_geometry(4, H), lib.vb_xent_geometry(5, H), sms)
     part = torch.empty(plan["part_shape"], dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    code = lib.vb_xent_dx(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                          g.data_ptr(), N, V, H, plan["grid"][2], plan["per"], part.data_ptr(), dx.data_ptr(),
-                          _build.stream_ptr(x.device))
+    code = getattr(lib, _ENTRY[x.dtype] + "dx")(
+        x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(), N, V, H,
+        plan["grid"][2], plan["per"], part.data_ptr(), dx.data_ptr(), _build.stream_ptr(x.device))
+    return code, dx
+
+
+def launch_f32_dx(lib, x, emb, bias, labels, lse, g):
+    """Launch K5's fp32 kernel on checked inputs: (the entry point's code, dx)."""
+    (N, H), V = x.shape, emb.shape[0]
+    dx = torch.empty_like(x)
+    code = lib.vb_xent_f32_dx(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                              g.data_ptr(), N, V, H, dx.data_ptr(), _build.stream_ptr(x.device))
     return code, dx
 
 
 def mlm_xent_dx(x, emb, bias, labels, lse, g) -> torch.Tensor:
-    """K5 wrapper: dx [N, H] bf16. The kernel writes fp32 partials of dx per
-    vocabulary split; its second pass sums them in order."""
+    """K5 wrapper: dx [N, H] in x's dtype. The bf16 and fp16 kernel writes
+    fp32 partials of dx per vocabulary split; its second pass sums them in
+    order. Widths are padded as :func:`mlm_xent_fwd`'s, and dx cut back."""
     what = "mlm xent dx (K5)"
     if not _device(x, what):
         return mlm_xent_dx_reference(x, emb, bias, labels, lse, g)
     lib = _check_cuda_inputs(what, x, emb, bias, labels, lse, g)
-    code, dx = launch_dx(lib, x, emb, bias, labels, lse, g, sm_count(x.device))
+    H = x.shape[1]
+    form = xent_form(x.dtype, H)
+    if x.dtype == torch.float32:
+        code, dx = launch_f32_dx(lib, x, emb, bias, labels, lse, g)
+    else:
+        w = kernel_width(H)
+        code, dx = launch_dx(lib, pad_width(x, w), pad_width(emb, w), bias, labels, lse, g, sm_count(x.device))
+        dx = dx if w == H else dx[:, :H].contiguous()
     lib.check(code, what)
-    mlm_xent_dx.launches += 1
+    _counted(mlm_xent_dx, form)
     return dx
 
 
 mlm_xent_dx.launches = 0
+mlm_xent_dx.forms = {}
 
 
 def launch_de(lib, x, emb, bias, labels, lse, g):
@@ -254,24 +329,45 @@ def launch_de(lib, x, emb, bias, labels, lse, g):
     (N, H), V = x.shape, emb.shape[0]
     de = torch.empty_like(emb)
     db = torch.empty(V, dtype=torch.float32, device=x.device)
-    code = lib.vb_xent_de(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                          g.data_ptr(), N, V, H, de.data_ptr(), db.data_ptr(), _build.stream_ptr(x.device))
+    code = getattr(lib, _ENTRY[x.dtype] + "de")(
+        x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(), N, V, H,
+        de.data_ptr(), db.data_ptr(), _build.stream_ptr(x.device))
+    return code, de, db
+
+
+def launch_f32_de(lib, x, emb, bias, labels, lse, g):
+    """Launch K6's fp32 kernel on checked inputs: (the entry point's code, d
+    embedding, d bias)."""
+    (N, H), V = x.shape, emb.shape[0]
+    de = torch.empty_like(emb)
+    db = torch.empty(V, dtype=torch.float32, device=x.device)
+    code = lib.vb_xent_f32_de(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                              g.data_ptr(), N, V, H, de.data_ptr(), db.data_ptr(), _build.stream_ptr(x.device))
     return code, de, db
 
 
 def mlm_xent_de(x, emb, bias, labels, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K6 wrapper: (d embedding [V, H] bf16, d bias [V] fp32)."""
+    """K6 wrapper: (d embedding [V, H] in the embedding's dtype, d bias [V]
+    fp32). Widths are padded as :func:`mlm_xent_fwd`'s, and dE cut back."""
     what = "mlm xent dE (K6)"
     if not _device(x, what):
         return mlm_xent_de_reference(x, emb, bias, labels, lse, g)
     lib = _check_cuda_inputs(what, x, emb, bias, labels, lse, g)
-    code, de, db = launch_de(lib, x, emb, bias, labels, lse, g)
+    H = x.shape[1]
+    form = xent_form(x.dtype, H)
+    if x.dtype == torch.float32:
+        code, de, db = launch_f32_de(lib, x, emb, bias, labels, lse, g)
+    else:
+        w = kernel_width(H)
+        code, de, db = launch_de(lib, pad_width(x, w), pad_width(emb, w), bias, labels, lse, g)
+        de = de if w == H else de[:, :H].contiguous()
     lib.check(code, what)
-    mlm_xent_de.launches += 1
+    _counted(mlm_xent_de, form)
     return de, db
 
 
 mlm_xent_de.launches = 0
+mlm_xent_de.forms = {}
 
 
 class _MlmXent(torch.autograd.Function):
@@ -340,7 +436,7 @@ def mlm_xent(x: torch.Tensor, embedding: torch.Tensor, bias: torch.Tensor,
              labels: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row NLL and argmax of the tied-decoder softmax, fused.
 
-    x: [N, H] transformed hidden states (bf16 on the kernel path);
+    x: [N, H] transformed hidden states (bf16, fp16 or fp32 on the kernel path, H up to 1024);
     embedding: [V, H] tied word-embedding table, cast to x's dtype;
     bias: [V] decoder bias, used in fp32; labels: [N] int (-1 entries are
     computed as label 0 and masked by the caller).

@@ -139,7 +139,7 @@ def compare_sass(other, card):
     import subprocess
     from pathlib import Path
 
-    from visualbert_torch.tools.attn_ab import sass_of
+    from visualbert_torch.tools.attn_ab import OTHER_FORMS, sass_of
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = _build.BUILD_ROOT / "xent_steps"
@@ -154,7 +154,7 @@ def compare_sass(other, card):
         print(f"sass: no cuobjdump, not compared  [{card}]", flush=True)
         return None, bind(paths["other"])
     sass = {name: sass_of(subprocess.run([tool, "-sass", str(p)], capture_output=True, text=True,
-                                         check=True).stdout, SHARED_KERNELS) for name, p in paths.items()}
+                                         check=True).stdout, SHARED_KERNELS, OTHER_FORMS) for name, p in paths.items()}
     res = {}
     for k in SHARED_KERNELS:
         a, b = sass["this"].get(k, []), sass["other"].get(k, [])
