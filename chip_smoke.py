@@ -102,7 +102,19 @@ non-zero without printing the final line:
    128, 256 and 512, in fp16 and fp32 at 768 and in bf16 and fp16 at 384
    (zero-padded to 512, the copy of E timed alone) at the main path's N =
    3072 and V = 30522, likewise (none may spill), beside cuBLAS's products
-   in the same dtype;
+   in the same dtype. Then K11/K12 and K13/K14 in the same forms
+   (ATTENTION_FORMS) at the main path's [128, 228, 12 heads], dropout 0 and
+   0.1, held as K1/K2's forms and K11-K14 are (K13's bf16 probabilities
+   within one bf16 ulp in every dtype, K14 fed K13's own output), each
+   timed beside its plain version, scaled_dot_product_attention in its
+   dtype and its bound, with each kernel's registers, local bytes, shared
+   bytes and blocks an SM; and K7-K10 (LN_FORMS) at the main path's 29,184
+   rows in bf16 at widths 64, 100, 1030 and 2048, fp16 at 2048 and fp32 at
+   100 and 4096 (the warp and block forms, 16-byte and element loads),
+   held as K7-K10 are (K9's bits [N, ceil(H / 8)] bit for bit), each timed
+   beside its plain version, F.layer_norm in its dtype (K7/K8) and its
+   bound, with registers, local bytes, shared bytes and blocks an SM; the
+   two print their time;
 4. a 2-layer model with dropout off gives the same loss through the kernels
    (K1/K2 attention, K4-K6 cross-entropy), through the kernels with the
    fused LayerNorm (K7/K8), through the heads-major attention (K11/K12,
@@ -286,14 +298,21 @@ non-zero without printing the final line:
    one epoch of 4 steps whose checkpoint must load back;
 27. (run before 26's table) trains GEOMETRY_EXAMPLES / 128 = 3 steps of
    coco_pretrain through the CLI on synthetic data with
-   configs/coco_pretrain.json's blocks and flags in three model
+   configs/coco_pretrain.json's blocks and flags in six model
    geometries: the JAX package's tiny() (fp32, head dim 16, width 64, with
-   the fused LayerNorm: all four kernel flags), bert-base in fp16 and
-   BERT-Small (Turc et al. 2019: L = 4, H = 512, A = 8, I = 2048) in bf16;
-   each run must be on the card, its losses finite, its launches those of
-   its depth (K1/K2 L a step, K4-K6 one, the dropout sites or K9/K10), all
-   of K1/K2 and K4-K6 in the kernel form of its dtype and widths; each
-   prints its median step time and peak memory;
+   the fused LayerNorm: all four kernel flags), bert-base in fp16,
+   BERT-Small (Turc et al. 2019: L = 4, H = 512, A = 8, I = 2048) in bf16,
+   bert-base in fp16 with `"packed_qkv": false` and the fused LayerNorm
+   (K11/K12 in fp16), tiny() with `"flash_save_probs": true` (K13/K14 in
+   fp32) and Megatron-BERT 1.3B's widths (Shoeybi et al. 2019, Table 4: H
+   = 2048, A = 32, I = 8192; L cut from 24 to 2) in bf16 with the fused
+   LayerNorm and fast_dropout (K9/K10 a block a row) and
+   `"fused_mlm_xent": false` (its width is above K4-K6's 1024); each run
+   must be on the card, its losses finite, its launches those of its depth
+   and flags (the attention pair L a step, K4-K6 one, the dropout sites or
+   K9/K10), every launch of K1/K2, K4-K14 in the kernel form of its dtype
+   and widths; each prints its median step time and peak memory, and the
+   phase its time;
 26. prints the kernel table as one JSON line (launches from phase 6: the
    fused-LayerNorm main path's STEPS steps, for K7/K8 its dropout-0 step,
    for K11-K14 the runs with their settings, for K15/K16 the tools' run,
@@ -303,8 +322,10 @@ non-zero without printing the final line:
    rows: mask, site forward, site backward; the fp32 kernels of K1/K2 and
    K4-K6 (csrc/flash_attention_f32.cu, csrc/mlm_xent_f32.cu) are five rows
    more, timed at the main path's shapes in fp32, their launches from
-   phase 27's tiny() run), then {"ok": true, "device": {...}} as the last
-   line.
+   phase 27's tiny() run; the forms of K11/K12 (fp16), K13/K14 (fp32) and
+   K9/K10 (bf16, a block a row) that phase 27 drives are six rows more
+   (FORM_KERNELS), timed at phase 3's shapes, their launches from their
+   geometry's run), then {"ok": true, "device": {...}} as the last line.
 """
 
 import contextlib
@@ -428,6 +449,12 @@ ATTENTION_FORMS = (("float16", 64), ("float32", 64), ("bfloat16", 16), ("float16
                    ("bfloat16", 128), ("float16", 128), ("float32", 128))
 XENT_FORMS = (("bfloat16", 128), ("bfloat16", 256), ("bfloat16", 512), ("float16", 768), ("float32", 768),
               ("bfloat16", 384), ("float16", 384))
+# K11-K14 take the forms of ATTENTION_FORMS; K7-K10 at the main path's rows
+# in these (dtype, width) forms: below 64 and odd widths on the element
+# forms, above 1024 on the block forms (Megatron-BERT's 2048, ALBERT-
+# xxlarge's 4096)
+LN_FORMS = (("bfloat16", 64), ("bfloat16", 100), ("float32", 100), ("bfloat16", 1030), ("bfloat16", 2048),
+            ("float16", 2048), ("float32", 4096))
 # the geometry phase: (label, fields over coco_pretrain.json's model block);
 # each trains GEOMETRY_EXAMPLES / 128 steps
 GEOMETRY_EXAMPLES = 384
@@ -438,6 +465,16 @@ GEOMETRIES = (
     ("bert-base in fp16", dict(dtype="float16")),
     ("BERT-Small (L=4, H=512, A=8, I=2048) in bf16",
      dict(hidden_size=512, num_hidden_layers=4, num_attention_heads=8, intermediate_size=2048)),
+    ("bert-base in fp16, packed_qkv false, the fused LayerNorm",
+     dict(dtype="float16", packed_qkv=False, use_fused_layer_norm=True)),
+    ("the JAX package's tiny (fp32, D=16, H=64), flash_save_probs, the fused LayerNorm",
+     dict(vocab_size=512, hidden_size=64, num_hidden_layers=2, num_attention_heads=4, intermediate_size=128,
+          max_position_embeddings=128, dtype="float32", use_fused_layer_norm=True, flash_save_probs=True)),
+    # depth cut from 24 to 2 layers to fit the phase's time; widths as published
+    ("Megatron-BERT 1.3B's widths (Shoeybi et al. 2019, Table 4: H=2048, A=32, I=8192) at L=2 (cut from 24) in "
+     "bf16, the fused LayerNorm, fast_dropout, fused_mlm_xent false (above K4-K6's 1024, ROADMAP C5c)",
+     dict(hidden_size=2048, num_hidden_layers=2, num_attention_heads=32, intermediate_size=8192,
+          use_fused_layer_norm=True, fast_dropout=True, fused_mlm_xent=False)),
 )
 # the kernel table's rows of the fp32 kernels: (row name, wrapper module,
 # wrapper, source, the TPU kernel it replaces); launches from the tiny run
@@ -449,6 +486,23 @@ F32_KERNELS = (
     ("mlm_xent_fwd (fp32)", "mlm_xent", "mlm_xent_fwd", "mlm_xent_f32.cu", "visualbert_tpu/ops/mlm_xent.py:52"),
     ("mlm_xent_dx (fp32)", "mlm_xent", "mlm_xent_dx", "mlm_xent_f32.cu", "visualbert_tpu/ops/mlm_xent.py:145"),
     ("mlm_xent_de (fp32)", "mlm_xent", "mlm_xent_de", "mlm_xent_f32.cu", "visualbert_tpu/ops/mlm_xent.py:170"),
+)
+# the kernel table's rows of K7-K14's forms that phase 27 drives: (row name,
+# wrapper module, wrapper, source, the TPU kernel it replaces, the geometry
+# whose run gives its launches, the phase-3 form whose numbers it takes)
+FORM_KERNELS = (
+    ("heads_major_attention_fwd (fp16 D64)", "flash_attention", "heads_major_attention_fwd", "flash_attention.cu",
+     "visualbert_tpu/ops/flash_attention.py:71", 3, ("float16", 64)),
+    ("heads_major_attention_bwd (fp16 D64)", "flash_attention", "heads_major_attention_bwd", "flash_attention.cu",
+     "visualbert_tpu/ops/flash_attention.py:93", 3, ("float16", 64)),
+    ("packed_attention_sp_fwd (fp32)", "flash_attention", "packed_attention_sp_fwd", "flash_attention_f32.cu",
+     "visualbert_tpu/ops/flash_attention.py:409", 4, ("float32", 64)),
+    ("packed_attention_sp_bwd (fp32)", "flash_attention", "packed_attention_sp_bwd", "flash_attention_f32.cu",
+     "visualbert_tpu/ops/flash_attention.py:441", 4, ("float32", 64)),
+    ("dropout_add_layer_norm_fwd (bf16 block, 16-byte)", "layer_norm", "dropout_add_layer_norm_fwd",
+     "layer_norm.cu", "visualbert_tpu/ops/layer_norm.py:171", 5, ("bfloat16", 2048)),
+    ("dropout_add_layer_norm_bwd (bf16 block, 16-byte)", "layer_norm", "dropout_add_layer_norm_bwd",
+     "layer_norm.cu", "visualbert_tpu/ops/layer_norm.py:189", 5, ("bfloat16", 2048)),
 )
 # phase 25: the mesh's runs against the one-process run on the same seeded
 # weights and batch (bf16 model; the ranks sum in another order), each limit
@@ -1766,15 +1820,227 @@ def check_xent_forms(torch, card):
     return rows
 
 
+def variant_inputs_at(torch, variant, dtype, D, H=12):
+    """K11/K12's ("heads_major": the biased q, k, v [B, 3, H, T, D], dout
+    [B, H, T, D]) or K13/K14's ("save_probs": the biased packed qkv, dout
+    [B, T, H*D]) inputs from attention_inputs_at's numbers, with its key
+    bias, and its packed qkv, qkv bias and dout (for the library's SDPA)."""
+    qkv, qb, key_bias, dout = attention_inputs_at(torch, dtype, D, H)
+    B, T, _ = qkv.shape
+    x = qkv + qb
+    if variant == "heads_major":
+        x = x.view(B, T, H, 3, D).permute(0, 3, 2, 1, 4).contiguous()
+        dout_v = dout.view(B, T, H, D).permute(0, 2, 1, 3).contiguous()
+    else:
+        x, dout_v = x.contiguous(), dout
+    return x, key_bias, dout_v, qkv, qb, dout
+
+
+def variant_info(lib, fa, variant, dtype, D, T):
+    """[registers, local bytes, shared bytes, blocks an SM] of the forward,
+    dQ pass and dK/dV pass of a K11-K14 form."""
+    if dtype == "float32":
+        info = lib.vb_attn_f32_info if variant == "heads_major" else lib.vb_attn_f32_sp_info
+        return [[info(k, w, D) for w in range(4)] for k in range(3)]
+    dp = fa.kernel_head_dim(D)
+    info = lib.vb_attn_hm_x_info if variant == "heads_major" else lib.vb_attn_sp_x_info
+    return [[info(0 if dtype == "bfloat16" else 1, dp, k, w, T) for w in range(4)] for k in range(3)]
+
+
+def check_variant_forms(torch, card):
+    """K11/K12 and K13/K14 in the forms of ATTENTION_FORMS at the main
+    path's B, T and 12 heads, dropout 0 and 0.1, against their plain
+    versions (fp32 at F32_REL_TOL / F32_ABS_TOL, the rest at K11-K14's bf16
+    limits; K13's bf16 probabilities within PROBS_ULPS of their plain
+    values in every dtype, and K14 fed K13's own probabilities and output
+    within SP_CHAIN_TOL); each timed at dropout 0.1 beside its plain
+    version, scaled_dot_product_attention in the same dtype and its bound
+    (the unpadded head dim's bytes, as the JAX functions move them, and
+    products), printed with each kernel's registers, local bytes, shared
+    bytes and blocks an SM. Returns {(wrapper name, dtype, D): table row}."""
+    from visualbert_torch.ops import _build
+    from visualbert_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib, H, rows = _build.library(), 12, {}
+    for variant, fwd, bwd in (("heads_major", "heads_major_attention_fwd", "heads_major_attention_bwd"),
+                              ("save_probs", "packed_attention_sp_fwd", "packed_attention_sp_bwd")):
+        k_fwd, k_bwd = ("K11", "K12") if variant == "heads_major" else ("K13", "K14")
+        for dtype, D in ATTENTION_FORMS:
+            x, key_bias, dout, qkv, qb, dout_p = variant_inputs_at(torch, variant, dtype, D, H)
+            B, T = key_bias.shape
+            f32 = dtype == "float32"
+            if variant == "heads_major":
+                t_out, t_bwd = (F32_REL_TOL, F32_REL_TOL) if f32 else (HM_OUT_TOL, HM_DQKV_TOL)
+            else:
+                t_out, t_bwd = (F32_REL_TOL, F32_REL_TOL) if f32 else (SP_OUT_TOL, SP_DQKV_TOL)
+            t_st = F32_ABS_TOL if f32 else STATS_TOL
+            where = f"{dtype} D={D} B={B} T={T} H={H} (form {fa.attention_form(x.dtype, D)})"
+            r_f, r_b = dict(max_abs_err=0.0), dict(max_abs_err=0.0)
+            for rate in (0.0, 0.1):
+                r_own = 0.0
+                if variant == "heads_major":
+                    out, second = fa.heads_major_attention_fwd(x, key_bias, rate, 99)
+                    out_r, second_r = fa.heads_major_attention_fwd_reference(x, key_bias, rate, 99)
+                    dq = fa.heads_major_attention_bwd(x, key_bias, dout, out_r, second_r, rate, 99)
+                    dq_r = fa.heads_major_attention_bwd_reference(x, key_bias, dout, out_r, second_r, rate, 99)
+                else:
+                    out, second = fa.packed_attention_sp_fwd(x, key_bias, H, rate, 99)
+                    out_r, second_r = fa.packed_attention_sp_fwd_reference(x, key_bias, H, rate, 99)
+                    dq = fa.packed_attention_sp_bwd(x, second_r, dout, out_r, H, rate, 99)
+                    dq_r = fa.packed_attention_sp_bwd_reference(x, second_r, dout, out_r, H, rate, 99)
+                    r_own = rel_err(fa.packed_attention_sp_bwd(x, second, dout, out, H, rate, 99), dq_r)[1]
+                torch.cuda.synchronize()
+                e_out, r_out = rel_err(out, out_r)
+                if variant == "heads_major":
+                    e_2 = float((second - second_r).abs().max())
+                    ok2, what2 = e_2 <= t_st, f"stats max_abs_err {e_2:.3e} (tol {t_st})"
+                else:
+                    dp = (second.float() - second_r.float()).abs()
+                    e_2, u_2 = float(dp.max()), float((dp / bf16_ulps(torch, second_r)).max())
+                    ok2 = u_2 <= PROBS_ULPS
+                    what2 = f"bf16 probs max_abs_err {e_2:.3e}, at most {u_2:g} bf16 ulps (tol {PROBS_ULPS})"
+                    del dp
+                e_dq, r_dq = rel_err(dq, dq_r)
+                log(f"{k_fwd}/{k_bwd} {where} rate {rate}: out max_abs_err {e_out:.3e} (rel {r_out:.3e}, tol "
+                    f"{t_out}); {what2}; dqkv max_abs_err {e_dq:.3e} (rel {r_dq:.3e}, tol {t_bwd})"
+                    + ("" if variant == "heads_major" else f"; fed K13's own: rel {r_own:.3e} (tol {SP_CHAIN_TOL})"))
+                if not (r_out <= t_out and ok2 and r_dq <= t_bwd and r_own <= SP_CHAIN_TOL):
+                    raise SystemExit(f"{k_fwd}/{k_bwd} {where} disagree with their plain versions at rate {rate}")
+                r_f["max_abs_err"] = max(r_f["max_abs_err"], e_out, e_2)
+                r_b["max_abs_err"] = max(r_b["max_abs_err"], e_dq)
+                del out, second, out_r, second_r, dq, dq_r
+            rate = 0.1
+            if variant == "heads_major":
+                out, second = fa.heads_major_attention_fwd(x, key_bias, rate, 5)
+                calls = {fwd: lambda f: f(x, key_bias, rate, 5),
+                         bwd: lambda f: f(x, key_bias, dout, out, second, rate, 5)}
+                moved = {fwd: nbytes(x, key_bias, out), bwd: nbytes(x, key_bias, dout, x)}
+            else:
+                out, second = fa.packed_attention_sp_fwd(x, key_bias, H, rate, 5)
+                calls = {fwd: lambda f: f(x, key_bias, H, rate, 5),
+                         bwd: lambda f: f(x, second, dout, out, H, rate, 5)}
+                probs_bytes = B * H * T * T * 2  # the [B, H, T, T] bf16 probabilities, not K13's padded rows
+                moved = {fwd: nbytes(x, key_bias, out) + probs_bytes, bwd: nbytes(x, dout, out, x) + probs_bytes}
+            for name, r in ((fwd, r_f), (bwd, r_b)):
+                r["ms"] = cuda_time_ms(lambda: calls[name](getattr(fa, name)), 10)
+                r["plain_ms"] = cuda_time_ms(lambda: calls[name](getattr(fa, name + "_reference")), 3)
+            r_f["library_ms"], r_b["library_ms"] = sdpa_ms_in(torch, qkv, qb, key_bias, dout_p, H, rate)
+            gflop = 2.0 * B * H * T * T * D / 1e9
+            peak = FP32_FLOPS if f32 else BF16_FLOPS
+            r_f.update(bound(moved[fwd], 2 * gflop * 1e9, peak))
+            r_b.update(bound(moved[bwd], 4 * gflop * 1e9, peak))
+            for kernel, i in zip(fa.PACKED_KERNELS, variant_info(lib, fa, variant, dtype, D, T)):
+                log(f"{k_fwd}/{k_bwd} {where} {kernel}: {i[0]} registers a thread, {i[1]} bytes of local memory, "
+                    f"{i[2]} bytes of shared memory, {i[3]} blocks an SM")
+            for name, r in ((fwd, r_f), (bwd, r_b)):
+                log(row_line(f"{name} {where}", r, card))
+                rows[(name, dtype, D)] = r
+            del x, key_bias, dout, qkv, qb, dout_p, out, second
+            torch.cuda.empty_cache()
+    return rows
+
+
+def layer_norm_inputs_at(torch, dtype, H, N):
+    """K7-K10's inputs at N rows of width H in ``dtype``: x, res, dy and
+    fp32 scale, bias, from a seeded generator on the device."""
+    dev, dt = card_device(torch), getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(H)
+    x, res, dy = (torch.randn((N, H), generator=g, device=dev).to(dt) for _ in range(3))
+    scale = 1.0 + 0.1 * torch.randn(H, generator=g, device=dev)
+    bias = 0.1 * torch.randn(H, generator=g, device=dev)
+    return x, res, dy, scale, bias
+
+
+def check_layer_norm_forms(torch, card):
+    """K7-K10 in the forms of LN_FORMS at the main path's N = 29,184 rows,
+    held as check_layer_norm holds them (y, dx, dres within LN_Y_TOL; mu,
+    rstd within LN_STAT_TOL; dscale, dbias within LN_DW_TOL; K9's bits [N,
+    ceil(H / 8)] bit for bit and K10 zero exactly at the plain version's
+    zeros), each timed beside its plain version, F.layer_norm on the summed
+    input in the form's dtype (K7, K8; none for K9, K10) and its bound,
+    printed with each kernel's registers, local bytes, shared bytes and
+    blocks an SM. Returns {(wrapper name, dtype, H): table row}."""
+    import torch.nn.functional as F
+
+    from visualbert_torch.ops import _build
+    from visualbert_torch.ops import layer_norm as ln
+    from visualbert_torch.tools.main_path import B, TT, TV
+
+    lib, N, rate, seed, eps, rows = _build.library(), B * (TT + TV), 0.1, 4321, 1e-12, {}
+    drop = (rate, seed)
+    for dtype, H in LN_FORMS:
+        x, res, dy, scale, bias = layer_norm_inputs_at(torch, dtype, H, N)
+        code = {"bfloat16": 0, "float16": 1, "float32": 2}[dtype]
+        where = f"[{N}, {H}] {dtype} (form {ln.layer_norm_form(x.dtype, H)})"
+        for fwd, bwd, args in (("add_layer_norm_fwd", "add_layer_norm_bwd", ()),
+                               ("dropout_add_layer_norm_fwd", "dropout_add_layer_norm_bwd", drop)):
+            y, mu, rstd, *bits = getattr(ln, fwd)(x, res, scale, bias, *args)
+            y_r, mu_r, rstd_r, *bits_r = getattr(ln, fwd + "_reference")(x, res, scale, bias, *args)
+            grads = getattr(ln, bwd)(x, res, scale, mu_r, rstd_r, dy, *((bits[0], rate) if args else ()))
+            grads_r = getattr(ln, bwd + "_reference")(x, res, scale, mu_r, rstd_r, dy,
+                                                      *((bits_r[0], rate) if args else ()))
+            torch.cuda.synchronize()
+            e_y, r_y = rel_err(y, y_r)
+            e_st = max(float((mu - mu_r).abs().max()), float((rstd - rstd_r).abs().max()))
+            errs = [rel_err(a, b) for a, b in zip(grads, grads_r)]
+            r_d, r_w = max(r for _, r in errs[:-2]), max(r for _, r in errs[-2:])
+            same = True
+            if args:
+                same = (tuple(bits[0].shape) == (N, ln.bits_width(H)) and torch.equal(bits[0], bits_r[0])
+                        and torch.equal(grads[0] == 0, grads_r[0] == 0))
+            log(f"{fwd}/{bwd} {where}{' rate %g' % rate if args else ''}: y rel {r_y:.3e} (tol {LN_Y_TOL}); mu, "
+                f"rstd max_abs_err {e_st:.3e} (tol {LN_STAT_TOL}); dx{', dres' if args else ''} rel {r_d:.3e} "
+                f"(tol {LN_Y_TOL}); dscale, dbias rel {r_w:.3e} (tol {LN_DW_TOL})"
+                + (f"; keep bits and dropped positions the plain version's: {same}" if args else ""))
+            if not (r_y <= LN_Y_TOL and e_st <= LN_STAT_TOL and r_d <= LN_Y_TOL and r_w <= LN_DW_TOL and same):
+                raise SystemExit(f"{fwd}/{bwd} {where} disagree with their plain versions")
+            rows[(fwd, dtype, H)] = dict(max_abs_err=max(e_y, e_st), **bound(
+                nbytes(x, res, scale, bias, y, mu, rstd), LN_OPS[fwd] * N * H, FP32_FLOPS))
+            rows[(bwd, dtype, H)] = dict(max_abs_err=max(e for e, _ in errs), **bound(
+                nbytes(x, res, scale, mu, rstd, dy, *grads), LN_OPS[bwd] * N * H, FP32_FLOPS))
+            del y, y_r, grads, grads_r
+        _, mu, rstd, bits = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, *drop)
+        calls = {"add_layer_norm_fwd": lambda f: f(x, res, scale, bias),
+                 "add_layer_norm_bwd": lambda f: f(x, res, scale, mu, rstd, dy),
+                 "dropout_add_layer_norm_fwd": lambda f: f(x, res, scale, bias, *drop),
+                 "dropout_add_layer_norm_bwd": lambda f: f(x, res, scale, mu, rstd, dy, bits, rate)}
+        for name, call in calls.items():
+            rows[(name, dtype, H)]["ms"] = cuda_time_ms(lambda: call(getattr(ln, name)), 20)
+            rows[(name, dtype, H)]["plain_ms"] = cuda_time_ms(lambda: call(getattr(ln, name + "_reference")), 3)
+        s_in = x + res
+        w, b = scale.to(x.dtype), bias.to(x.dtype)
+        rows[("add_layer_norm_fwd", dtype, H)]["library_ms"] = cuda_time_ms(
+            lambda: F.layer_norm(s_in, (H,), w, b, eps), 20)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (s_in, w, b)]
+        yl = F.layer_norm(leaves[0], (H,), leaves[1], leaves[2], eps)
+        rows[("add_layer_norm_bwd", dtype, H)]["library_ms"] = cuda_time_ms(
+            lambda: torch.autograd.grad(yl, leaves, dy, retain_graph=True), 20)
+        for name in ("dropout_add_layer_norm_fwd", "dropout_add_layer_norm_bwd"):
+            rows[(name, dtype, H)]["library_ms"] = None
+        for kernel, name in zip((7, 8, 9, 10), calls):
+            regs, local, smem, per_sm = (lib.vb_ln_info(kernel, what, H, code) for what in range(4))
+            log(f"K{kernel} {where}: {regs} registers a thread, {local} bytes of local memory, {smem} bytes of "
+                f"shared memory, {per_sm} blocks an SM")
+            log(row_line(f"{name} {where}", rows[(name, dtype, H)], card))
+        del x, res, dy, scale, bias, mu, rstd, bits, s_in, leaves, yl
+        torch.cuda.empty_cache()
+    return rows
+
+
 def geometry_per_step(cfg):
     """Launches of K1..K14, K15/K16 and the site kernels a train step of
-    coco_pretrain at ``cfg``'s depth L (the LABELS order): K1/K2 L each,
-    K4-K6 one each; with the fused LayerNorm 2L K9/K10 and one dropout site
-    (the embeddings'), without it 2L + 1 sites."""
+    coco_pretrain at ``cfg``'s depth L (the LABELS order): L each of the
+    attention pair its flags select (K1/K2; K11/K12 with packed_qkv false;
+    K13/K14 with flash_save_probs), K4-K6 one each with fused_mlm_xent; with
+    the fused LayerNorm 2L K9/K10 and one dropout site (the embeddings'),
+    without it 2L + 1 sites."""
     L = cfg.num_hidden_layers
     n = [0] * len(LABELS)
-    n[0] = n[1] = L
-    n[3] = n[4] = n[5] = 1
+    fwd = 10 if not cfg.packed_qkv else (12 if cfg.flash_save_probs else 0)
+    n[fwd] = n[fwd + 1] = L
+    if cfg.fused_mlm_xent:
+        n[3] = n[4] = n[5] = 1
     if cfg.use_fused_layer_norm:
         n[8] = n[9] = 2 * L
         n[18] = n[19] = 1
@@ -1783,16 +2049,30 @@ def geometry_per_step(cfg):
     return n
 
 
+def geometry_forms(cfg, want):
+    """{wrapper name: {form: launches}} that a run of ``want`` launches (the
+    LABELS order) at ``cfg``'s dtype and widths must count, for every
+    wrapper that counts forms (K1, K2, K4-K14)."""
+    from visualbert_torch.ops.flash_attention import attention_form
+    from visualbert_torch.ops.layer_norm import layer_norm_form
+    from visualbert_torch.ops.mlm_xent import xent_form
+
+    a_form, l_form = attention_form(cfg.dtype, cfg.head_dim), layer_norm_form(cfg.dtype, cfg.hidden_size)
+    x_form = xent_form(cfg.dtype, cfg.hidden_size) if cfg.fused_mlm_xent else None  # no form above 1024
+    form_of = {0: a_form, 1: a_form, 3: x_form, 4: x_form, 5: x_form, 6: l_form, 7: l_form, 8: l_form, 9: l_form,
+               10: a_form, 11: a_form, 12: a_form, 13: a_form}
+    return {KERNELS[i][0]: ({f: want[i]} if want[i] else {}) for i, f in form_of.items()}
+
+
 def run_geometry_cli(torch, card):
     """Phase 27: GEOMETRY_EXAMPLES / 128 train steps of coco_pretrain through
     the CLI on synthetic data, with configs/coco_pretrain.json's blocks and
     flags, in each model geometry of GEOMETRIES: the run must be on cuda,
-    its losses finite, its launches geometry_per_step's, each K1/K2 and
-    K4-K6 launch in the form of its dtype and widths. Prints each run's
+    its losses finite, its launches geometry_per_step's, each launch of
+    K1/K2, K4-K6, K7-K10 and K11-K14 in the form of its dtype and widths
+    (geometry_forms). Prints each run's
     median step time (steps 2.., a step timed with a synchronise on either
     side) and peak memory. Returns {label: (config, forms)}."""
-    from visualbert_torch.ops.flash_attention import attention_form
-    from visualbert_torch.ops.mlm_xent import xent_form
     from visualbert_torch.tools.main_path import CONFIG
     from visualbert_torch.train.trainer import Trainer
     from visualbert_torch.utils.config_io import load_config_file
@@ -1830,10 +2110,7 @@ def run_geometry_cli(torch, card):
         cfg, steps = trainer.model.cfg, trainer.step
         epoch = result.history[0]
         want = [n * steps for n in geometry_per_step(cfg)]
-        a_form, x_form = attention_form(cfg.dtype, cfg.head_dim), xent_form(cfg.dtype, cfg.hidden_size)
-        want_forms = {"packed_attention_fwd": {a_form: want[0]}, "packed_attention_bwd": {a_form: want[1]},
-                      "mlm_xent_fwd": {x_form: want[3]}, "mlm_xent_dx": {x_form: want[4]},
-                      "mlm_xent_de": {x_form: want[5]}}
+        want_forms = geometry_forms(cfg, want)
         med = statistics.median(times[1:]) if len(times) > 1 else times[0]
         log(f"geometry {label}: {summary}; {steps} steps at batch {raw['train']['train_batch_size']} on "
             f"{trainer.device}, {cfg.dtype}, hidden {cfg.hidden_size}, {cfg.num_attention_heads} heads of "
@@ -3338,6 +3615,12 @@ def main():
     torch.cuda.empty_cache()
     rows.update(check_attention_forms(torch, card))
     rows.update(check_xent_forms(torch, card))
+    t_forms = time.perf_counter()
+    form_rows = check_variant_forms(torch, card)
+    torch.cuda.empty_cache()
+    form_rows.update(check_layer_norm_forms(torch, card))
+    torch.cuda.empty_cache()
+    log(f"phase 3, K11-K14 and K7-K10 in their other forms: {time.perf_counter() - t_forms:.1f} s  [{card}]")
     rows.update(check_layer_norm(torch, card))
     rows.update(check_attention_variants(torch, card))
     save_probs_at_nlvr2_shape(torch, card)
@@ -3416,7 +3699,9 @@ def main():
     torch.cuda.empty_cache()
     run_torchrun_cli(torch, card)
     torch.cuda.empty_cache()
+    t_geo = time.perf_counter()
     geometries = run_geometry_cli(torch, card)
+    log(f"phase 27, {len(GEOMETRIES)} geometries: {time.perf_counter() - t_geo:.1f} s  [{card}]")
 
     # launches: the fused-LayerNorm main path's STEPS steps; K7/K8 from its
     # dropout-0 step; K11/K12 and K13/K14 from the runs with their settings;
@@ -3437,6 +3722,14 @@ def main():
     table += [dict(name=name, route="cuda", source=f"visualbert_torch/csrc/{src}", replaces=replaces,
                    launches=tiny_forms[wrapper].get("fp32", 0), **rows[name])
               for name, _, wrapper, src, replaces in F32_KERNELS]
+    # K7-K14's other forms that phase 27 drives: launches from their geometry's run
+    for name, _, wrapper, src, replaces, g, (dtype, width) in FORM_KERNELS:
+        form = name[name.index("(") + 1:-1]
+        launched = geometries[GEOMETRIES[g][0]][1][wrapper].get(form, 0)
+        if launched == 0:
+            raise SystemExit(f"{name}: no launch in phase 27's {GEOMETRIES[g][0]} run")
+        table.append(dict(name=name, route="cuda", source=f"visualbert_torch/csrc/{src}", replaces=replaces,
+                          launches=launched, **form_rows[(wrapper, dtype, width)]))
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -203,10 +203,10 @@ def test_each_xent_backward_launch_passes_its_signatures_arguments(monkeypatch, 
 
 
 def form_launches():
-    """The launches of the bf16/fp16 and fp32 forms of K1/K2 (fp16 at head
-    dim 64, fp32 at 48) and K4-K6 (fp16 at width 768, fp32 at 200) on CPU
-    tensors: {entry point: (call on a library, the values its parameters
-    must be given)}."""
+    """The launches of the bf16/fp16 and fp32 forms of K1/K2, K11-K14 (fp16
+    at head dim 64, fp32 at 48) and K4-K6 (fp16 at width 768, fp32 at 200)
+    on CPU tensors: {entry point: (call on a library, the values its
+    parameters must be given)}."""
     from visualbert_torch.ops import mlm_xent as xe
 
     qkv16 = torch.zeros((B, T, 3 * H * D), dtype=torch.float16)
@@ -216,6 +216,10 @@ def form_launches():
     qb32 = torch.zeros(3 * H * 48)
     out32 = torch.zeros((B, T, H * 48))
     key_bias, stats = torch.zeros((B, T)), torch.zeros((B, H, T))
+    qkv5_16, out5_16 = torch.zeros((B, 3, H, T, D), dtype=torch.float16), torch.zeros((B, H, T, D), dtype=torch.float16)
+    qkv5_32, out5_32 = torch.zeros((B, 3, H, T, 48)), torch.zeros((B, H, T, 48))
+    probs = torch.zeros((B, H, T, fa.probs_row_stride(T)), dtype=torch.bfloat16)[..., :T]
+    ldp = fa.probs_row_stride(T)
     N, V = 100, 1000
     x16, e16 = torch.zeros((N, 768), dtype=torch.float16), torch.zeros((V, 768), dtype=torch.float16)
     x32, e32 = torch.zeros((N, 200)), torch.zeros((V, 200))
@@ -231,6 +235,24 @@ def form_launches():
                             dict(attn, D=48, scale=48 ** -0.5)),
         "vb_attn_f32_bwd": (lambda lib: fa.launch_f32_bwd(lib, qkv32, qb32, key_bias, out32, out32, stats, H, 0.1, 3),
                             dict(attn, D=48, scale=48 ** -0.5)),
+        "vb_attn_hm_x_fwd": (lambda lib: fa.launch_hm_x_fwd(lib, qkv5_16, key_bias, 0.1, 3, HG, 0.25),
+                             dict(attn, hg=HG, dtype=1, dh=D, scale=0.25)),
+        "vb_attn_hm_x_bwd": (lambda lib: fa.launch_hm_x_bwd(lib, qkv5_16, key_bias, out5_16, out5_16, stats, 0.1, 3,
+                                                            HG_DQ, HG_DKV, 0.25),
+                             dict(attn, hg_dq=HG_DQ, hg_dkv=HG_DKV, dtype=1, dh=D, scale=0.25)),
+        "vb_attn_sp_x_fwd": (lambda lib: fa.launch_sp_x_fwd(lib, qkv16, key_bias, H, 0.1, 3, HG, 0.25),
+                             dict(attn, hg=HG, ldp=ldp, dtype=1, dh=D, scale=0.25)),
+        "vb_attn_sp_x_bwd": (lambda lib: fa.launch_sp_x_bwd(lib, qkv16, probs, ldp, out16, out16, H, 0.1, 3, HG_DQ,
+                                                            HG_DKV, 0.25),
+                             dict(attn, hg_dq=HG_DQ, hg_dkv=HG_DKV, ldp=ldp, passes=3, dtype=1, dh=D, scale=0.25)),
+        "vb_attn_f32_hm_fwd": (lambda lib: fa.launch_f32_hm_fwd(lib, qkv5_32, key_bias, 0.1, 3),
+                               dict(attn, D=48, scale=48 ** -0.5)),
+        "vb_attn_f32_hm_bwd": (lambda lib: fa.launch_f32_hm_bwd(lib, qkv5_32, key_bias, out5_32, out5_32, stats, 0.1,
+                                                                3), dict(attn, D=48, scale=48 ** -0.5)),
+        "vb_attn_f32_sp_fwd": (lambda lib: fa.launch_f32_sp_fwd(lib, qkv32, key_bias, H, 0.1, 3),
+                               dict(attn, D=48, ldp=ldp, scale=48 ** -0.5)),
+        "vb_attn_f32_sp_bwd": (lambda lib: fa.launch_f32_sp_bwd(lib, qkv32, probs, ldp, out32, out32, H, 0.1, 3),
+                               dict(attn, D=48, ldp=ldp, scale=48 ** -0.5)),
         "vb_xent_f16_fwd": (lambda lib: xe.launch_fwd(lib, x16, e16, torch.zeros(V), lab, 132), dict(N=N, V=V, hid=768)),
         "vb_xent_f16_dx": (lambda lib: xe.launch_dx(lib, x16, e16, torch.zeros(V), lab, rows, rows, 132),
                            dict(N=N, V=V, hid=768)),
@@ -337,3 +359,27 @@ def test_layer_norm_grid_refuses_a_failed_occupancy_query():
     with pytest.raises(RuntimeError, match="occupancy"):
         ln.bwd_blocks(100, 4, -1, 132)
     assert ln.bwd_blocks(1, 4, 3, 132) == 1 and ln.bwd_blocks(29184, 4, 3, 132) == 396
+
+
+@pytest.mark.parametrize("H", [1, 7, 100, 1030, 2048, 4096])
+@pytest.mark.parametrize("kernel", [9, 10])
+def test_layer_norm_launch_at_any_width_plans_rows_and_bits(monkeypatch, kernel, H):
+    """At a width no multiple of 8 or above the widest row a warp owns
+    (``vb_ln_geometry(0)``), K9 returns ``ceil(H / 8)`` bytes of keep bits a
+    row, and K10's grid counts a warp's rows a block up to that width and
+    one row a block above it."""
+    from visualbert_torch.ops import layer_norm as ln
+
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    SMS, N = 132, 1000  # 250 blocks of 4 rows, or 396 (3 an SM) of one
+    x, rows, scale = torch.zeros((N, H), dtype=torch.bfloat16), torch.zeros(N), torch.zeros(H)
+    lib = LnLib()
+    if kernel == 9:
+        code, _, _, _, bits = ln.launch_fwd(lib, x, x, scale, scale, 1e-12, True, 0.1, 5)
+        assert code == 0 and bits.shape == (N, -(-H // 8)) == (N, ln.bits_width(H))
+        return
+    bits = torch.zeros((N, ln.bits_width(H)), dtype=torch.uint8)
+    ln.launch_bwd(lib, x, x, scale, rows, rows, x, bits, 0.1, SMS)
+    ((_, values),) = [(n, a) for n, a in lib.calls if n == "vb_ln_bwd"]
+    given = dict(zip(DEFINED["vb_ln_bwd"][3], values))
+    assert given["P"] == (250 if H <= 1024 else 396) and given["H"] == H

@@ -1165,8 +1165,8 @@ def test_layer_norm_kernels_do_not_spill(cuda, dtype, H):
         assert 0 < regs <= 255 and local == 0, (kernel, regs, local)
         assert per_sm >= 1 and 0 <= smem <= 232448
         assert (smem > 0) == (kernel in (8, 10))
-    assert lib.vb_ln_info(10, 0, 1032, 0) == -1 and lib.vb_ln_info(11, 0, 768, 0) == -1
-    assert lib.vb_ln_info(10, 4, 768, 0) == -1 and lib.vb_ln_info(10, 0, 768, 3) == -1
+    assert lib.vb_ln_info(10, 0, 4104, 0) == -1 and lib.vb_ln_info(11, 0, 768, 0) == -1
+    assert lib.vb_ln_info(10, 5, 768, 0) == -1 and lib.vb_ln_info(10, 0, 768, 3) == -1
 
 
 @pytest.fixture(scope="module")
@@ -1250,11 +1250,12 @@ def test_layer_norm_autograd_through_kernels(cuda, dropout):
 
 def test_layer_norm_rejects_what_the_kernel_does_not_take(cuda):
     x, res, dy, scale, bias = ln_inputs(16, 768, cuda)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        ln.add_layer_norm_fwd(x[:, :60].contiguous(), res[:, :60].contiguous(), scale[:60], bias[:60])
-    with pytest.raises(ValueError, match="multiple of 8"):
-        wide = torch.zeros(4, 2048, dtype=torch.bfloat16, device=cuda)
-        ln.add_layer_norm_fwd(wide, wide, torch.ones(2048, device=cuda), torch.zeros(2048, device=cuda))
+    with pytest.raises(ValueError, match="up to 4096"):
+        wide = torch.zeros(4, 4104, dtype=torch.bfloat16, device=cuda)
+        ln.add_layer_norm_fwd(wide, wide, torch.ones(4104, device=cuda), torch.zeros(4104, device=cuda))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(16 * 768 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(16, 768)
+        ln.add_layer_norm_fwd(flat, res, scale, bias)
     with pytest.raises(ValueError, match="one dtype"):
         ln.add_layer_norm_fwd(x.double(), res.double(), scale, bias)
     with pytest.raises(ValueError, match="one dtype"):
@@ -1496,3 +1497,252 @@ def test_xent_forms_do_not_spill(cuda, info, H, kernel):
     regs, local, smem, per_sm = (getattr(lib, info)(kernel, w, H) for w in range(4))
     assert 0 < regs <= 255 and local == 0
     assert 0 < smem <= 232448 and per_sm >= 1
+
+
+# ---- K11-K14 and K7-K10 in every dtype, head dim and width ----
+
+
+def variant_inputs(variant, B, T, H, D, dtype, device, seed=0):
+    """(qkv, key_bias, dout) of K11/K12 ([B, 3, H, T, D], dout [B, H, T, D])
+    or K13/K14 (the biased packed [B, T, H*3*D], dout [B, T, H*D])."""
+    qkv, qb, key_bias, dout = form_attention_inputs(B, T, H, D, dtype, device, seed)
+    if variant == "heads_major":
+        qkv = qkv.view(B, T, H, 3, D).permute(0, 3, 2, 1, 4).contiguous()
+        return qkv, key_bias, dout.view(B, T, H, D).permute(0, 2, 1, 3).contiguous()
+    return (qkv + qb).contiguous(), key_bias, dout
+
+
+def variant_run(variant, qkv, key_bias, dout, H, rate, seed, plain=False):
+    """(forward outputs, dqkv) of the variant's kernels (or plain versions);
+    the backward on the plain forward's outputs."""
+    if variant == "heads_major":
+        fwd = fa.heads_major_attention_fwd_reference if plain else fa.heads_major_attention_fwd
+        bwd = fa.heads_major_attention_bwd_reference if plain else fa.heads_major_attention_bwd
+        out, stats = fwd(qkv, key_bias, rate, seed)
+        out_r, stats_r = fa.heads_major_attention_fwd_reference(qkv, key_bias, rate, seed)
+        return (out, stats), bwd(qkv, key_bias, dout, out_r, stats_r, rate, seed)
+    fwd = fa.packed_attention_sp_fwd_reference if plain else fa.packed_attention_sp_fwd
+    bwd = fa.packed_attention_sp_bwd_reference if plain else fa.packed_attention_sp_bwd
+    out, probs = fwd(qkv, key_bias, H, rate, seed)
+    out_r, probs_r = fa.packed_attention_sp_fwd_reference(qkv, key_bias, H, rate, seed)
+    return (out, probs), bwd(qkv, probs_r, dout, out_r, H, rate, seed)
+
+
+VARIANTS = ["heads_major", "save_probs"]
+
+
+@pytest.mark.parametrize("B,T,H", [(2, 130, 4), (4, 228, 12), (1, 1, 2)])
+@pytest.mark.parametrize("D", [8, 16, 32, 64, 96, 128])
+@pytest.mark.parametrize("dtype", FORM_DTYPES, ids=str)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_variant_attention_forms_match_plain(cuda, variant, dtype, D, B, T, H, rate):
+    """K11/K12 and K13/K14 in every dtype and head dim against their plain
+    versions, as K1/K2's forms: out and dqkv (fp32 within 1e-4, the rest
+    within bf16's limit), K11's stats, and K13's bf16 probabilities each
+    within one bf16 ulp of its plain value in every dtype; K14 fed K13's own
+    probabilities and output within bf16's limit in every dtype (a
+    probability one bf16 ulp from the plain one moves dqkv by more than
+    fp32's bar); each launch counted in its form."""
+    qkv, key_bias, dout = variant_inputs(variant, B, T, H, D, dtype, cuda)
+    fwd_fn = fa.heads_major_attention_fwd if variant == "heads_major" else fa.packed_attention_sp_fwd
+    form = fa.attention_form(dtype, D)
+    before = fwd_fn.forms.get(form, 0)
+    (out, second), dqkv = variant_run(variant, qkv, key_bias, dout, H, rate, 99)
+    (out_r, second_r), dqkv_r = variant_run(variant, qkv, key_bias, dout, H, rate, 99, plain=True)
+    torch.cuda.synchronize()
+    assert fwd_fn.forms[form] == before + 1
+    assert out.dtype == dtype and out.shape == out_r.shape and dqkv.dtype == dtype and dqkv.shape == qkv.shape
+    rel, st = (F32_REL_TOL, F32_ABS_TOL) if dtype == torch.float32 else (REL_TOL, STATS_ATOL)
+    assert rel_err(out, out_r) < rel
+    assert rel_err(dqkv, dqkv_r) < rel
+    if variant == "heads_major":
+        assert float((second - second_r).abs().max()) < st
+    else:
+        assert second.dtype == torch.bfloat16 and second.shape == (B, H, T, T)
+        assert bool(((second.float() - second_r.float()).abs() <= bf16_ulps(second_r)).all())
+        dqkv_own = fa.packed_attention_sp_bwd(qkv, second, dout, out, H, rate, 99)  # the kernels' own chain
+        assert rel_err(dqkv_own, dqkv_r) < REL_TOL
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.bfloat16, 128), (torch.float16, 16),
+                                     (torch.float32, 64), (torch.float32, 96)], ids=str)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_variant_attention_forms_repeat_bit_for_bit(cuda, variant, dtype, D):
+    qkv, key_bias, dout = variant_inputs(variant, 4, 228, 6, D, dtype, cuda)
+    runs = [variant_run(variant, qkv, key_bias, dout, 6, 0.1, 7) for _ in range(2)]
+    torch.cuda.synchronize()
+    (f1, b1), (f2, b2) = runs
+    assert all(torch.equal(a, b) for a, b in zip(f1 + (b1,), f2 + (b2,)))
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.float16, 128), (torch.float32, 64),
+                                     (torch.float32, 32), (torch.bfloat16, 128), (torch.bfloat16, 16)], ids=str)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_variant_attention_forms_drop_the_plain_mask(cuda, variant, dtype, D):
+    """At T = 64 keys, V and dO the identity on their first 64 columns (D >=
+    64) or the rows' first D keys (D < 64, T = D): out[i, j] is the dropped
+    p[i, j] and dv[j, i] the same, zero exactly where the plain mask drops."""
+    B, H, rate, seed = 3, 2, 0.1, 11
+    T = min(D, 64)
+    rng = np.random.RandomState(5)
+    x = torch.tensor(rng.randn(B, T, H, 3, D), dtype=dtype, device=cuda)
+    x[:, :, :, 2] = torch.eye(T, D, dtype=dtype, device=cuda)[None, :, None]
+    key_bias = torch.zeros((B, T), device=cuda)
+    dout = torch.eye(T, D, dtype=dtype, device=cuda)[None, :, None].expand(B, T, H, D)
+    if variant == "heads_major":
+        qkv = x.permute(0, 3, 2, 1, 4).contiguous()
+        dout = dout.permute(0, 2, 1, 3).contiguous()
+        out, stats = fa.heads_major_attention_fwd(qkv, key_bias, rate, seed)
+        dqkv = fa.heads_major_attention_bwd(qkv, key_bias, dout, out, stats, rate, seed)
+        p_d, dv = out[..., :T], dqkv[:, 2, ..., :T].transpose(-1, -2)
+    else:
+        qkv = x.reshape(B, T, 3 * H * D).contiguous()
+        dout = dout.reshape(B, T, H * D).contiguous()
+        out, probs = fa.packed_attention_sp_fwd(qkv, key_bias, H, rate, seed)
+        dqkv = fa.packed_attention_sp_bwd(qkv, probs, dout, out, H, rate, seed)
+        p_d = out.view(B, T, H, D).permute(0, 2, 1, 3)[..., :T]
+        dv = dqkv.view(B, T, H, 3, D)[:, :, :, 2].permute(0, 2, 3, 1)[:, :, :T]
+    torch.cuda.synchronize()
+    keep = fa.attention_keep_reference(seed, B, H, T, rate, cuda)
+    assert torch.equal(p_d != 0, keep)
+    assert torch.equal(dv != 0, keep)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_variant_attention_at_head_dim_128_takes_t_up_to_its_shared_memory(cuda, variant, dtype):
+    """At D = 128 a K/V row takes twice D = 64's shared memory: the longest
+    T whose tiles fit runs, one more is refused with the limit named; fp32
+    has no such limit (T = 1024 runs)."""
+    lib = _build.library()
+    smem = lib.vb_attn_hm_x_smem_bytes if variant == "heads_major" else lib.vb_attn_sp_x_smem_bytes
+    longest = max(t for t in range(1, 1024) if smem(128, t) <= fa.MAX_SMEM_BYTES)
+    assert longest >= 256
+    qkv, key_bias, dout = variant_inputs(variant, 1, longest, 2, 128, dtype, cuda)
+    (out, _), dqkv = variant_run(variant, qkv, key_bias, dout, 2, 0.0, 0)
+    (out_r, _), dqkv_r = variant_run(variant, qkv, key_bias, dout, 2, 0.0, 0, plain=True)
+    torch.cuda.synchronize()
+    assert rel_err(out, out_r) < REL_TOL and rel_err(dqkv, dqkv_r) < REL_TOL
+    qkv, key_bias, dout = variant_inputs(variant, 1, longest + 1, 2, 128, dtype, cuda)
+    with pytest.raises(ValueError, match=f"T up to {longest}"):
+        variant_run(variant, qkv, key_bias, dout, 2, 0.0, 0)
+    qkv, key_bias, dout = variant_inputs(variant, 1, 1024, 1, 128, torch.float32, cuda)
+    (out, _), dqkv = variant_run(variant, qkv, key_bias, dout, 1, 0.0, 0)
+    (out_r, _), dqkv_r = variant_run(variant, qkv, key_bias, dout, 1, 0.0, 0, plain=True)
+    torch.cuda.synchronize()
+    assert rel_err(out, out_r) < F32_REL_TOL and rel_err(dqkv, dqkv_r) < F32_REL_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int8], ids=str)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_variant_attention_refuses_what_no_kernel_takes(cuda, variant, dtype):
+    qkv, key_bias, dout = variant_inputs(variant, 1, 8, 1, 160, torch.float16, cuda)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        variant_run(variant, qkv, key_bias, dout, 1, 0.0, 0)
+    qkv, key_bias, dout = variant_inputs(variant, 1, 8, 1, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="bf16, fp16 or fp32"):
+        variant_run(variant, qkv.to(dtype), key_bias, dout.to(dtype), 1, 0.0, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("info", ["vb_attn_hm_x_info", "vb_attn_sp_x_info"])
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_variant_half_forms_at_head_dim_64_do_not_spill(cuda, info, dtype, which):
+    lib = _build.library()
+    code = 0 if dtype == torch.bfloat16 else 1
+    regs, local, smem, per_sm = (getattr(lib, info)(code, 64, which, w, 228) for w in range(4))
+    assert 0 < regs <= 255 and local == 0 and per_sm >= 1
+
+
+@pytest.mark.parametrize("info", ["vb_attn_hm_info", "vb_attn_sp_info"])
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_variant_main_forms_do_not_spill(cuda, info, which):
+    """The bf16, D = 64 forms (the scale a constant) beside the same kernels
+    with the scale an argument: the same shared memory, no spill."""
+    lib = _build.library()
+    main = [getattr(lib, info)(which, w, 228) for w in range(4)]
+    x = [getattr(lib, info.replace("_info", "_x_info"))(0, 64, which, w, 228) for w in range(4)]
+    assert 0 < main[0] <= 255 and main[1] == 0 and main[2] == x[2] and main[3] >= 1
+
+
+# widths: below 8, odd, the main path's, a multiple of 8 and not of 16 up to
+# 1024, above 1024 and not a multiple of 8, Megatron-BERT's, ALBERT-xxlarge's
+ANY_WIDTHS = [1, 7, 63, 100, 768, 1000, 1030, 2048, 2560, 4095, 4096]
+
+
+@pytest.mark.parametrize("N", [1001, 37])
+@pytest.mark.parametrize("H", ANY_WIDTHS)
+@pytest.mark.parametrize("dtype", list(LN_DTYPES), ids=str)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_layer_norm_forms_match_plain_at_any_width(cuda, N, H, dtype, rate):
+    """K7-K10 at every width in every form against their plain versions, as
+    test_layer_norm_kernels_match_plain: K9's bits [N, ceil(H / 8)] equal
+    the plain packed mask (the tail bits 0) and K10 on them drops exactly
+    the plain positions; each launch counted in its form."""
+    x, res, dy, scale, bias = ln_inputs(N, H, cuda, dtype=dtype, seed=H)
+    form = ln.layer_norm_form(dtype, H)
+    before = ln.dropout_add_layer_norm_fwd.forms.get(form, 0)
+    if rate == 0.0:
+        fwd = ln.add_layer_norm_fwd(x, res, scale, bias)
+        fwd_r = ln.add_layer_norm_fwd_reference(x, res, scale, bias)
+        _, mu, rstd = fwd_r
+        bwd = ln.add_layer_norm_bwd(x, res, scale, mu, rstd, dy)
+        bwd_r = ln.add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy)
+        torch.cuda.synchronize()
+        assert_fwd_close(fwd, fwd_r)
+        assert_bwd_close(bwd, bwd_r)
+    fwd = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, rate, 77)
+    fwd_r = ln.dropout_add_layer_norm_fwd_reference(x, res, scale, bias, rate, 77)
+    _, mu, rstd, bits = fwd_r
+    bwd = ln.dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy, fwd[3], rate)
+    bwd_r = ln.dropout_add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy, bits, rate)
+    torch.cuda.synchronize()
+    assert ln.dropout_add_layer_norm_fwd.forms[form] == before + 1
+    assert fwd[3].shape == (N, -(-H // 8)) and torch.equal(fwd[3], bits)
+    assert_fwd_close(fwd[:3], fwd_r[:3])
+    assert_bwd_close(bwd, bwd_r)
+    dropped = ~ln.unpack_bits(bits, H)
+    assert not bool(bwd[0][dropped].any())
+    differ = (bwd[0] == 0) != (bwd_r[0] == 0)
+    largest = torch.maximum(bwd[0].float().abs(), bwd_r[0].float().abs())[differ]
+    assert largest.numel() == 0 or float(largest.max()) < torch.finfo(dtype).tiny
+
+
+@pytest.mark.parametrize("N,H", [(4099, 100), (37, 1030), (1001, 2048), (29184, 1030)])
+def test_layer_norm_forms_repeat_bit_for_bit(cuda, N, H):
+    x, res, dy, scale, bias = ln_inputs(N, H, cuda)
+    runs = []
+    for _ in range(2):
+        y, mu, rstd, bits = ln.dropout_add_layer_norm_fwd(x, res, scale, bias, 0.1, 5)
+        runs.append((y, mu, rstd, bits) + ln.dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy, bits, 0.1)
+                    + ln.add_layer_norm_bwd(x, res, scale, mu, rstd, dy))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("H", [7, 100, 1000, 1030, 2048, 4095, 4096])
+@pytest.mark.parametrize("dtype", list(LN_DTYPES), ids=str)
+def test_layer_norm_forms_do_not_spill(cuda, dtype, H):
+    lib = _build.library()
+    for kernel in (7, 8, 9, 10):
+        regs, local, smem, per_sm, rows = (lib.vb_ln_info(kernel, w, H, LN_DTYPES[dtype]) for w in range(5))
+        assert 0 < regs <= 255 and local == 0 and per_sm >= 1, (kernel, regs, local, per_sm)
+        assert rows == (4 if H <= 1024 else 1)
+
+
+def test_layer_norm_element_forms_take_unaligned_rows(cuda):
+    """A width that is no multiple of 8 loads element by element: rows
+    that start anywhere run; the main path's width keeps its form."""
+    N, H = 37, 100
+    x, res, dy, scale, bias = ln_inputs(N, H, cuda)
+    flat = torch.empty(N * H + 1, dtype=torch.bfloat16, device=cuda)[1:].view(N, H)
+    flat.copy_(x)
+    assert flat.data_ptr() % 16 and flat.is_contiguous()
+    y, mu, rstd = ln.add_layer_norm_fwd(flat, res, scale, bias)
+    torch.cuda.synchronize()
+    assert_fwd_close((y, mu, rstd), ln.add_layer_norm_fwd_reference(x, res, scale, bias))
+    assert ln.layer_norm_form(torch.bfloat16, 768) == "bf16 warp, 16-byte"
+    assert ln.layer_norm_form(torch.float32, 100) == "fp32 warp, element"
+    assert ln.layer_norm_form(torch.float16, 2048) == "fp16 block, 16-byte"
+    assert ln.layer_norm_form(torch.bfloat16, 1030) == "bf16 block, element"

@@ -18,20 +18,26 @@ from visualbert_torch.utils.config_io import parse_task_config
 CUDA = torch.device("cuda")
 KERNELS_ON = dict(use_flash_attention=True, fused_mlm_xent=True, use_fused_layer_norm=True, fast_dropout=True)
 
+# Megatron-BERT 1.3B's widths (Shoeybi et al. 2019, Table 4)
+MEGATRON_1_3B = dict(hidden_size=2048, num_attention_heads=32, intermediate_size=8192)
+
 # (config fields, the flag and the limit the message must name)
 OUTSIDE = [
-    (dict(use_flash_attention=True, packed_qkv=False, dtype="float16"), "use_flash_attention", "bf16"),
-    (dict(use_flash_attention=True, flash_save_probs=True, dtype="float32"), "flash_save_probs", "bf16"),
+    (dict(use_flash_attention=True, packed_qkv=False, hidden_size=1024, num_attention_heads=4),
+     "use_flash_attention", "heads-major attention kernels (K11/K12, packed_qkv false) take head dims up to 128"),
+    (dict(use_flash_attention=True, flash_save_probs=True, hidden_size=1024, num_attention_heads=4),
+     "flash_save_probs", "take head dims up to 128"),
     (dict(use_flash_attention=True, hidden_size=1024, num_attention_heads=4), "use_flash_attention",
      "head dims up to 128"),
     (dict(fused_mlm_xent=True, hidden_size=1280, num_attention_heads=20), "fused_mlm_xent", "up to 1024"),
-    (dict(use_fused_layer_norm=True, hidden_size=1100, num_attention_heads=11), "use_fused_layer_norm", "up to 1024"),
-    (dict(use_fused_layer_norm=True, hidden_size=1284, num_attention_heads=12), "use_fused_layer_norm", "multiple of 8"),
+    (dict(fused_mlm_xent=True, use_fused_layer_norm=True, **MEGATRON_1_3B), "fused_mlm_xent", "up to 1024"),
+    (dict(use_fused_layer_norm=True, hidden_size=4104, num_attention_heads=8), "use_fused_layer_norm", "up to 4096"),
     (dict(fast_dropout=True, dtype=torch.float64), "fast_dropout", "bf16, fp16 or fp32"),
 ]
 
 
-@pytest.mark.parametrize("fields,flag,limit", OUTSIDE, ids=[f"{c[1]}-{c[2]}" for c in OUTSIDE])
+@pytest.mark.parametrize("fields,flag,limit", OUTSIDE, ids=[f"{c[1]}-{c[2][-20:]}-{c[0].get('hidden_size', 768)}"
+                                                          for c in OUTSIDE])
 def test_a_config_outside_a_kernel_limit_is_refused_on_cuda(fields, flag, limit):
     cfg = VisualBertConfig(**fields)
     with pytest.raises(ValueError, match=flag) as exc:
@@ -42,18 +48,47 @@ def test_a_config_outside_a_kernel_limit_is_refused_on_cuda(fields, flag, limit)
 
 
 # configs that were refused before the kernels took fp16, fp32, head dims
-# up to 128 and cross-entropy widths up to 1024
+# up to 128, cross-entropy widths up to 1024 and LayerNorm widths up to
+# 4096 that are not a multiple of 8
 NOW_TAKEN = [
     dict(use_flash_attention=True, dtype="float32"),
     dict(use_flash_attention=True, hidden_size=1024, num_attention_heads=8),
     dict(fused_mlm_xent=True, dtype="float32"),
     dict(fused_mlm_xent=True, hidden_size=512, num_attention_heads=8),
+    dict(use_flash_attention=True, packed_qkv=False, dtype="float16"),
+    dict(use_flash_attention=True, flash_save_probs=True, dtype="float32"),
+    dict(use_fused_layer_norm=True, hidden_size=1100, num_attention_heads=11),
+    dict(use_fused_layer_norm=True, hidden_size=1284, num_attention_heads=12),
 ]
 
 
-@pytest.mark.parametrize("fields", NOW_TAKEN, ids=["K1K2-fp32", "K1K2-head-dim-128", "K4K6-fp32", "K4K6-512"])
+@pytest.mark.parametrize("fields", NOW_TAKEN, ids=["K1K2-fp32", "K1K2-head-dim-128", "K4K6-fp32", "K4K6-512",
+                                                   "K11K12-fp16", "K13K14-fp32", "K7K10-1100", "K7K10-1284"])
 def test_a_config_the_kernels_now_take_is_accepted_on_cuda(fields):
     check_kernel_limits(VisualBertConfig(**fields), CUDA)
+
+
+@pytest.mark.parametrize("variant", [dict(packed_qkv=False), dict(flash_save_probs=True)],
+                         ids=["heads-major", "save-probs"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("head_dim", [8, 16, 32, 64, 96, 128])
+def test_the_variant_attention_takes_every_dtype_and_head_dim_up_to_128(variant, dtype, head_dim):
+    cfg = VisualBertConfig(hidden_size=4 * head_dim, num_attention_heads=4, dtype=dtype, use_flash_attention=True,
+                           **variant)
+    check_kernel_limits(cfg, CUDA)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("width", [1, 7, 64, 100, 768, 1024, 1030, 2048, 2560, 4096])
+def test_the_fused_layer_norm_takes_every_dtype_and_width_up_to_4096(dtype, width):
+    cfg = VisualBertConfig(hidden_size=width, num_attention_heads=1, dtype=dtype, use_fused_layer_norm=True)
+    check_kernel_limits(cfg, CUDA)
+
+
+def test_megatron_widths_pass_with_the_unfused_cross_entropy():
+    """Megatron-BERT 1.3B's widths with every kernel flag but the fused
+    cross-entropy (above its 1024, ROADMAP C5c)."""
+    check_kernel_limits(VisualBertConfig(**MEGATRON_1_3B, **dict(KERNELS_ON, fused_mlm_xent=False)), CUDA)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
@@ -84,8 +119,8 @@ def test_flags_off_take_anything():
 def test_the_task_runner_and_the_main_path_refuse_at_build():
     """The registry's trainer and tools/main_path.build refuse before they
     build anything on the card (there is none here)."""
-    block = dict(main_path.model_block(), dtype="float32", flash_save_probs=True)
-    with pytest.raises(ValueError, match="bf16"):
+    block = dict(main_path.model_block(), hidden_size=1536, num_attention_heads=8, flash_save_probs=True)
+    with pytest.raises(ValueError, match="head dims up to 128"):
         main_path.build(block, device="cuda")
     cfg = parse_task_config({"task": "coco_pretrain", "model": block})
     with pytest.raises(ValueError, match="use_flash_attention"):

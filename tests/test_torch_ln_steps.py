@@ -1,8 +1,9 @@
 """``visualbert_torch/tools/ln_steps.py`` (K8/K10's design steps left out in
-turn and timed; K7's SASS and K7-K10's times against another checkout),
+turn and timed; K7-K10's SASS and times against another checkout),
 without a card: what runs here is the tool's refusals, its switches in the
-source, each one the kernel library never sets, and the SASS keys of K7's
-twelve instantiations and the reduce pass."""
+source, each one the kernel library never sets, and the SASS keys of K7-K10's
+48 vector-form instantiations and the reduce pass (the any-width forms'
+kernels are keyed by none)."""
 
 import re
 
@@ -51,8 +52,12 @@ def test_the_sass_parse_keys_k7_and_the_reduce_pass_by_their_mangled_names():
         /*0000*/                   BRA `(.L_x_3) ;                         /* 0x0000000000007947 */
         Function : _ZN40_GLOBAL__N__ab20ln_bwd_reduce_kernelEPKfiiPfS2_
         /*0000*/                   NOP ;                                   /* 0x0000000000007918 */
+        Function : _ZN40_GLOBAL__N__ab17ln_fwd_any_kernelI6__halfLb0ELb1ELi1EEEvNS_6LnArgsE
+        /*0000*/                   EXIT ;                                  /* 0x000000000000794d */
+        Function : _ZN40_GLOBAL__N__ab13ln_bwd_kernelI6__halfLi1ELb1EEEvNS_6LnArgsE
+        /*0000*/                   RET ;                                   /* 0x000000000000794d */
     """
     got = sass_of(text, ln_steps.SHARED_KERNELS)
-    assert got == {"K7 bf16 NC=3": ["MOV R1, c[0x0][0x28]"], "K7 fp32 NC=4": ["BRA `(.L0)"],
-                   "K8/K10 reduce": ["NOP"]}
-    assert len(ln_steps.SHARED_KERNELS) == 13
+    assert got == {"K7 bf16 NC=3": ["MOV R1, c[0x0][0x28]"], "K9 bf16 NC=3": ["EXIT"], "K7 fp32 NC=4": ["BRA `(.L0)"],
+                   "K8/K10 reduce": ["NOP"], "K10 fp16 NC=1": ["RET"]}
+    assert len(ln_steps.SHARED_KERNELS) == 49

@@ -37,60 +37,88 @@
 // packed layout, such a template compiled K1/K2 to other machine code (on an
 // H100: the dK/dV pass 248 registers instead of 250, K1 at dropout 0 2-3 %
 // slower).
+//
+// Element types and head dims (K1/K2's step 5): the bodies are templates on
+// the element type E (bf16 or fp16) and the head dim DH (64 or 128), on
+// hopper_attn.cuh's Tile<DH> and *_t helpers; the wrapper zero-pads a
+// smaller head dim to the next ([B, 3, H, T, D] -> [..., DH]) and passes the
+// unpadded D's softmax scale. FIXED instantiates bf16 at DH = 64 with the
+// scale 1 / 8 a constant, and at bf16, DH = 64 the bodies call the helpers
+// they called before the templates (hopper_attn.cuh's *_v): the main
+// path's form (vb_attn_hm_fwd / _bwd) compiles as it did before
+// (tools/attn_ab.py compares its machine code with another checkout's). The other
+// forms (vb_attn_hm_x_*) take the scale as an argument. fp32 runs
+// flash_attention_f32.cu's SIMT kernels on this layout's strides.
 #include "hopper_attn.cuh"
 
 namespace {
 
 using namespace vb_hopper;
 
-// (b, h)'s first q row in qkv or dqkv [B, 3, H, T, D]; its k and v rows are
+// (b, h)'s first q row in qkv or dqkv [B, 3, H, T, DH]; its k and v rows are
 // kv_step(T, H) and 2 kv_step(T, H) further.
-__device__ __forceinline__ size_t in_off(int b, int h, int T, int H) { return ((size_t)b * 3 * H + h) * T * D; }
-__device__ __forceinline__ size_t kv_step(int T, int H) { return (size_t)H * T * D; }
-// (b, h)'s first row in out or dout [B, H, T, D].
-__device__ __forceinline__ size_t out_off(int b, int h, int T, int H) { return ((size_t)b * H + h) * T * D; }
+template <int DH>
+__device__ __forceinline__ size_t in_off(int b, int h, int T, int H) { return ((size_t)b * 3 * H + h) * T * DH; }
+template <int DH>
+__device__ __forceinline__ size_t kv_step(int T, int H) { return (size_t)H * T * DH; }
+// (b, h)'s first row in out or dout [B, H, T, DH].
+template <int DH>
+__device__ __forceinline__ size_t out_off(int b, int h, int T, int H) { return ((size_t)b * H + h) * T * DH; }
+
+// The softmax scale: 1 / 8 folded in as a constant (FIXED, DH = 64), else
+// the argument.
+template <int DH, bool FIXED>
+__device__ __forceinline__ float scale_of(float scale) {
+  static_assert(!FIXED || DH == 64, "the fixed scale is D = 64's");
+  return FIXED ? SCALE : scale;
+}
 
 // ---------------------------------------------------------------- forward
 
+template <int DH>
 size_t fwd_bytes(int T) {
   const int Tp = round_up(T, TILE);
-  return ALIGN + 2 * TILE_BYTES + (size_t)2 * Tp * ROW + Tp * sizeof(float);
+  return ALIGN + 2 * Tile<DH>::BYTES + (size_t)2 * Tp * Tile<DH>::ROWB + Tp * sizeof(float);
 }
 
 // grid (H / hg, B): block (x, b) owns heads [x * hg, (x + 1) * hg) of row b.
+template <typename E, int DH, bool FIXED>
 __global__ void __launch_bounds__(NT)
-hm_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, bf16* __restrict__ out,
-              float* __restrict__ stats, int T, int H, int hg, uint32_t seed, uint32_t thr, float inv, int dropout) {
+hm_fwd_kernel(const E* __restrict__ qkv, const float* __restrict__ key_bias, E* __restrict__ out,
+              float* __restrict__ stats, int T, int H, int hg, uint32_t seed, uint32_t thr, float inv, int dropout,
+              float scale) {
+  using L = Tile<DH>;
+  constexpr int TB = L::BYTES, NP = L::NP;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align_smem(smem_raw);
   const int Tp = round_up(T, TILE), ntl = Tp / TILE;
-  unsigned char* Qs = sm;                        // [2][TILE] query tiles
-  unsigned char* Ks = Qs + 2 * TILE_BYTES;       // [Tp] keys
-  unsigned char* Vs = Ks + (size_t)Tp * ROW;     // [Tp] values
-  float* kb = reinterpret_cast<float*>(Vs + (size_t)Tp * ROW);  // [Tp] key bias * log2(e)
+  unsigned char* Qs = sm;                          // [2][TILE] query tiles
+  unsigned char* Ks = Qs + 2 * TB;                 // [Tp] keys
+  unsigned char* Vs = Ks + (size_t)Tp * L::ROWB;   // [Tp] values
+  float* kb = reinterpret_cast<float*>(Vs + (size_t)Tp * L::ROWB);  // [Tp] key bias * log2(e)
   const uint32_t sQ = smem_addr(Qs), sK = smem_addr(Ks), sV = smem_addr(Vs);
 
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
-  const float c1 = SCALE * LOG2E;
+  const float c1 = scale_of<DH, FIXED>(scale) * LOG2E;
   load_key_bias(kb, key_bias + (size_t)b * T, T, Tp);
 
   for (int h = blockIdx.x * hg; h < (blockIdx.x + 1) * hg; ++h) {
-    const bf16 *qsrc = qkv + in_off(b, h, T, H), *ksrc = qsrc + kv_step(T, H), *vsrc = ksrc + kv_step(T, H);
+    const E *qsrc = qkv + in_off<DH>(b, h, T, H), *ksrc = qsrc + kv_step<DH>(T, H), *vsrc = ksrc + kv_step<DH>(T, H);
     const uint32_t bh = (uint32_t)(b * H + h);
     __syncthreads();  // no warp still reads the last pair's tiles
-    issue_tile(sQ, qsrc, 0, T, D);
+    issue_tile_v<E, DH>(sQ, qsrc, 0, T, DH);
     cp_commit();
     for (int kt = 0; kt < ntl; ++kt) {
-      issue_tile(sK + kt * TILE_BYTES, ksrc, kt * TILE, T, D);
-      issue_tile(sV + kt * TILE_BYTES, vsrc, kt * TILE, T, D);
+      issue_tile_v<E, DH>(sK + kt * TB, ksrc, kt * TILE, T, DH);
+      issue_tile_v<E, DH>(sV + kt * TB, vsrc, kt * TILE, T, DH);
       cp_commit();
     }
 
     for (int qt = 0; qt < ntl; ++qt) {
       const int buf = qt & 1;
       if (qt > 0) __syncthreads();  // every warp is done with the buffer the prefetch overwrites
-      if (qt + 1 < ntl) issue_tile(sQ + (buf ^ 1) * TILE_BYTES, qsrc, (qt + 1) * TILE, T, D);
+      if (qt + 1 < ntl) issue_tile_v<E, DH>(sQ + (buf ^ 1) * TB, qsrc, (qt + 1) * TILE, T, DH);
       cp_commit();
       if (qt > 0) {
         cp_wait<1>();
@@ -98,8 +126,8 @@ hm_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, 
         __syncthreads();
       }
       const int row[2] = {qt * TILE + warp * 16 + g, qt * TILE + warp * 16 + g + 8};
-      float o[32];
-      zero(o);
+      float o[NP][32];
+      zero_t(o);
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
       for (int kt = 0; kt < ntl; ++kt) {
@@ -111,7 +139,7 @@ hm_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, 
         }
         float s[32];
         wg_fence();
-        product_ss(s, sQ + buf * TILE_BYTES, sK + kt * TILE_BYTES);
+        product_ss_v<E, DH>(s, sQ + buf * TB, sK + kt * TB);
         wg_commit();
         wg_wait();
         reg_fence(s);
@@ -140,10 +168,11 @@ hm_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, 
         for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            o[4 * nt + e] *= alpha[e >> 1];
-            const float p = exp2f(s[4 * nt + e] - mnew[e >> 1]);
-            l[e >> 1] += p;
-            s[4 * nt + e] = p;
+#pragma unroll
+            for (int p = 0; p < NP; ++p) o[p][4 * nt + e] *= alpha[e >> 1];
+            const float pr = exp2f(s[4 * nt + e] - mnew[e >> 1]);
+            l[e >> 1] += pr;
+            s[4 * nt + e] = pr;
           }
         }
         if (dropout) {
@@ -157,12 +186,12 @@ hm_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, 
           }
         }
         uint32_t pa[4][4];
-        to_a(pa, s);
+        to_a_v<E>(pa, s);
         wg_fence();
-        product_rs(o, pa, sV + kt * TILE_BYTES);
+        product_rs_v<E, DH>(o, pa, sV + kt * TB);
         wg_commit();
         wg_wait();
-        reg_fence(o);
+        reg_fence_t(o);
         reg_fence(pa);
       }
 
@@ -175,14 +204,19 @@ hm_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, 
         sc[r] = inv / l[r];
         ok[r] = row[r] < T;
       }
-      bf16* ob = out + out_off(b, h, T, H);
+      E* ob = out + out_off<DH>(b, h, T, H);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int c = nt * 8 + 2 * tq;
-        if (ok[0]) *reinterpret_cast<uint32_t*>(ob + (size_t)row[0] * D + c) = pack_bf16(o[4 * nt] * sc[0], o[4 * nt + 1] * sc[0]);
-        if (ok[1])
-          *reinterpret_cast<uint32_t*>(ob + (size_t)row[1] * D + c) = pack_bf16(o[4 * nt + 2] * sc[1], o[4 * nt + 3] * sc[1]);
-      }
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int c = p * 64 + nt * 8 + 2 * tq;
+          if (ok[0])
+            *reinterpret_cast<uint32_t*>(ob + (size_t)row[0] * DH + c) =
+                vb::Elem<E>::pack(o[p][4 * nt] * sc[0], o[p][4 * nt + 1] * sc[0]);
+          if (ok[1])
+            *reinterpret_cast<uint32_t*>(ob + (size_t)row[1] * DH + c) =
+                vb::Elem<E>::pack(o[p][4 * nt + 2] * sc[1], o[p][4 * nt + 3] * sc[1]);
+        }
       if (tq == 0) {
 #pragma unroll
         for (int r = 0; r < 2; ++r)
@@ -194,57 +228,62 @@ hm_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, 
 
 // ------------------------------------------------------- backward: dQ pass
 
+template <int DH>
 size_t dq_bytes(int T) {
   const int Tp = round_up(T, TILE);
-  return ALIGN + 4 * TILE_BYTES + (size_t)2 * Tp * ROW + 3 * Tp * sizeof(float);
+  return ALIGN + 4 * Tile<DH>::BYTES + (size_t)2 * Tp * Tile<DH>::ROWB + 3 * Tp * sizeof(float);
 }
 
+template <typename E, int DH, bool FIXED>
 __global__ void __launch_bounds__(NT)
-hm_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, const bf16* __restrict__ dout,
-             const bf16* __restrict__ out, const float* __restrict__ stats, bf16* __restrict__ dqkv,
-             float* __restrict__ delta_g, int T, int H, int hg, uint32_t seed, uint32_t thr, float inv, int dropout) {
+hm_dq_kernel(const E* __restrict__ qkv, const float* __restrict__ key_bias, const E* __restrict__ dout,
+             const E* __restrict__ out, const float* __restrict__ stats, E* __restrict__ dqkv,
+             float* __restrict__ delta_g, int T, int H, int hg, uint32_t seed, uint32_t thr, float inv, int dropout,
+             float scale) {
+  using L = Tile<DH>;
+  constexpr int TB = L::BYTES, NP = L::NP;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align_smem(smem_raw);
   const int Tp = round_up(T, TILE), ntl = Tp / TILE;
-  unsigned char* Qs = sm;                        // [2][TILE]
-  unsigned char* dOs = Qs + 2 * TILE_BYTES;      // [2][TILE]
-  unsigned char* Ks = dOs + 2 * TILE_BYTES;      // [Tp]
-  unsigned char* Vs = Ks + (size_t)Tp * ROW;     // [Tp]
-  float* kb = reinterpret_cast<float*>(Vs + (size_t)Tp * ROW);  // [Tp]
-  float* st = kb + Tp;                           // [Tp] stats of the pair's rows
-  float* dl = st + Tp;                           // [Tp] delta of the pair's rows
+  unsigned char* Qs = sm;                          // [2][TILE]
+  unsigned char* dOs = Qs + 2 * TB;                // [2][TILE]
+  unsigned char* Ks = dOs + 2 * TB;                // [Tp]
+  unsigned char* Vs = Ks + (size_t)Tp * L::ROWB;   // [Tp]
+  float* kb = reinterpret_cast<float*>(Vs + (size_t)Tp * L::ROWB);  // [Tp]
+  float* st = kb + Tp;                             // [Tp] stats of the pair's rows
+  float* dl = st + Tp;                             // [Tp] delta of the pair's rows
   const uint32_t sQ = smem_addr(Qs), sdO = smem_addr(dOs), sK = smem_addr(Ks), sV = smem_addr(Vs);
 
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
-  const float c1 = SCALE * LOG2E;
+  const float sc = scale_of<DH, FIXED>(scale), c1 = sc * LOG2E;
   load_key_bias(kb, key_bias + (size_t)b * T, T, Tp);
 
   for (int h = blockIdx.x * hg; h < (blockIdx.x + 1) * hg; ++h) {
-    const bf16 *qsrc = qkv + in_off(b, h, T, H), *ksrc = qsrc + kv_step(T, H), *vsrc = ksrc + kv_step(T, H);
-    const bf16* dsrc = dout + out_off(b, h, T, H);
+    const E *qsrc = qkv + in_off<DH>(b, h, T, H), *ksrc = qsrc + kv_step<DH>(T, H), *vsrc = ksrc + kv_step<DH>(T, H);
+    const E* dsrc = dout + out_off<DH>(b, h, T, H);
     const uint32_t bh = (uint32_t)(b * H + h);
     const size_t sb = (size_t)bh * T;
     __syncthreads();  // no warp still reads the last pair's tiles or statistics
-    issue_tile(sQ, qsrc, 0, T, D);
-    issue_tile(sdO, dsrc, 0, T, D);
+    issue_tile_v<E, DH>(sQ, qsrc, 0, T, DH);
+    issue_tile_v<E, DH>(sdO, dsrc, 0, T, DH);
     cp_commit();
     for (int kt = 0; kt < ntl; ++kt) {
-      issue_tile(sK + kt * TILE_BYTES, ksrc, kt * TILE, T, D);
-      issue_tile(sV + kt * TILE_BYTES, vsrc, kt * TILE, T, D);
+      issue_tile_v<E, DH>(sK + kt * TB, ksrc, kt * TILE, T, DH);
+      issue_tile_v<E, DH>(sV + kt * TB, vsrc, kt * TILE, T, DH);
       cp_commit();
     }
     // while the tiles land: the pair's statistics and delta
     for (int i = threadIdx.x; i < Tp; i += NT) st[i] = i < T ? stats[sb + i] : 0.f;
-    pair_delta(dsrc, out + out_off(b, h, T, H), D, dl, delta_g + sb, T, Tp);
+    pair_delta_v<E, DH>(dsrc, out + out_off<DH>(b, h, T, H), DH, dl, delta_g + sb, T, Tp);
     __syncthreads();  // statistics and delta are read below before the first tile's barrier
 
     for (int qt = 0; qt < ntl; ++qt) {
       const int buf = qt & 1;
       if (qt > 0) __syncthreads();
       if (qt + 1 < ntl) {
-        issue_tile(sQ + (buf ^ 1) * TILE_BYTES, qsrc, (qt + 1) * TILE, T, D);
-        issue_tile(sdO + (buf ^ 1) * TILE_BYTES, dsrc, (qt + 1) * TILE, T, D);
+        issue_tile_v<E, DH>(sQ + (buf ^ 1) * TB, qsrc, (qt + 1) * TILE, T, DH);
+        issue_tile_v<E, DH>(sdO + (buf ^ 1) * TB, dsrc, (qt + 1) * TILE, T, DH);
       }
       cp_commit();
       if (qt > 0) {
@@ -254,8 +293,8 @@ hm_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, c
       }
       const int row[2] = {qt * TILE + warp * 16 + g, qt * TILE + warp * 16 + g + 8};
       const float strow[2] = {st[row[0]], st[row[1]]}, dlrow[2] = {dl[row[0]], dl[row[1]]};
-      float dq[32];
-      zero(dq);
+      float dq[NP][32];
+      zero_t(dq);
       for (int kt = 0; kt < ntl; ++kt) {
         if (qt == 0) {
           cp_wait_dyn(ntl - kt);
@@ -264,8 +303,8 @@ hm_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, c
         }
         float s[32], dp[32];
         wg_fence();
-        product_ss(s, sQ + buf * TILE_BYTES, sK + kt * TILE_BYTES);
-        product_ss(dp, sdO + buf * TILE_BYTES, sV + kt * TILE_BYTES);
+        product_ss_v<E, DH>(s, sQ + buf * TB, sK + kt * TB);
+        product_ss_v<E, DH>(dp, sdO + buf * TB, sV + kt * TB);
         wg_commit();
         wg_wait();
         reg_fence(s);
@@ -287,16 +326,16 @@ hm_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, c
           }
         }
         uint32_t sa[4][4];
-        to_a(sa, s);
+        to_a_v<E>(sa, s);
         wg_fence();
-        product_rs(dq, sa, sK + kt * TILE_BYTES);
+        product_rs_v<E, DH>(dq, sa, sK + kt * TB);
         wg_commit();
         wg_wait();
-        reg_fence(dq);
+        reg_fence_t(dq);
         reg_fence(sa);
       }
 
-      store_rows(dqkv + in_off(b, h, T, H), dq, SCALE, row[0], row[1], row[0] < T, row[1] < T, D, tq);
+      store_rows_v<E, DH>(dqkv + in_off<DH>(b, h, T, H), dq, sc, row[0], row[1], row[0] < T, row[1] < T, DH, tq);
     }
   }
 }
@@ -304,41 +343,45 @@ hm_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, c
 // --------------------------------------------------- backward: dK, dV pass
 
 // The same tiles and row arrays as the dQ pass, arranged the other way.
-size_t dkv_bytes(int T) { return dq_bytes(T); }
+template <int DH>
+size_t dkv_bytes(int T) { return dq_bytes<DH>(T); }
 
+template <typename E, int DH, bool FIXED>
 __global__ void __launch_bounds__(NT)
-hm_dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, const bf16* __restrict__ dout,
-              const float* __restrict__ stats, const float* __restrict__ delta_g, bf16* __restrict__ dqkv, int T,
-              int H, int hg, uint32_t seed, uint32_t thr, float inv, int dropout) {
+hm_dkv_kernel(const E* __restrict__ qkv, const float* __restrict__ key_bias, const E* __restrict__ dout,
+              const float* __restrict__ stats, const float* __restrict__ delta_g, E* __restrict__ dqkv, int T,
+              int H, int hg, uint32_t seed, uint32_t thr, float inv, int dropout, float scale) {
+  using L = Tile<DH>;
+  constexpr int TB = L::BYTES, NP = L::NP;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align_smem(smem_raw);
   const int Tp = round_up(T, TILE), ntl = Tp / TILE;
-  unsigned char* Ks = sm;                        // [2][TILE] key tiles
-  unsigned char* Vs = Ks + 2 * TILE_BYTES;       // [2][TILE]
-  unsigned char* Qs = Vs + 2 * TILE_BYTES;       // [Tp] all queries
-  unsigned char* dOs = Qs + (size_t)Tp * ROW;    // [Tp]
-  float* kb = reinterpret_cast<float*>(dOs + (size_t)Tp * ROW);  // [Tp]
-  float* st = kb + Tp;                           // [Tp]; padded queries +inf: p = 0
-  float* dl = st + Tp;                           // [Tp]
+  unsigned char* Ks = sm;                          // [2][TILE] key tiles
+  unsigned char* Vs = Ks + 2 * TB;                 // [2][TILE]
+  unsigned char* Qs = Vs + 2 * TB;                 // [Tp] all queries
+  unsigned char* dOs = Qs + (size_t)Tp * L::ROWB;  // [Tp]
+  float* kb = reinterpret_cast<float*>(dOs + (size_t)Tp * L::ROWB);  // [Tp]
+  float* st = kb + Tp;                             // [Tp]; padded queries +inf: p = 0
+  float* dl = st + Tp;                             // [Tp]
   const uint32_t sK = smem_addr(Ks), sV = smem_addr(Vs), sQ = smem_addr(Qs), sdO = smem_addr(dOs);
 
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
-  const float c1 = SCALE * LOG2E;
+  const float sc = scale_of<DH, FIXED>(scale), c1 = sc * LOG2E;
   load_key_bias(kb, key_bias + (size_t)b * T, T, Tp);
 
   for (int h = blockIdx.x * hg; h < (blockIdx.x + 1) * hg; ++h) {
-    const bf16 *qsrc = qkv + in_off(b, h, T, H), *ksrc = qsrc + kv_step(T, H), *vsrc = ksrc + kv_step(T, H);
-    const bf16* dsrc = dout + out_off(b, h, T, H);
+    const E *qsrc = qkv + in_off<DH>(b, h, T, H), *ksrc = qsrc + kv_step<DH>(T, H), *vsrc = ksrc + kv_step<DH>(T, H);
+    const E* dsrc = dout + out_off<DH>(b, h, T, H);
     const uint32_t bh = (uint32_t)(b * H + h);
     const size_t sb = (size_t)bh * T;
     __syncthreads();
-    issue_tile(sK, ksrc, 0, T, D);
-    issue_tile(sV, vsrc, 0, T, D);
+    issue_tile_v<E, DH>(sK, ksrc, 0, T, DH);
+    issue_tile_v<E, DH>(sV, vsrc, 0, T, DH);
     cp_commit();
     for (int qc = 0; qc < ntl; ++qc) {
-      issue_tile(sQ + qc * TILE_BYTES, qsrc, qc * TILE, T, D);
-      issue_tile(sdO + qc * TILE_BYTES, dsrc, qc * TILE, T, D);
+      issue_tile_v<E, DH>(sQ + qc * TB, qsrc, qc * TILE, T, DH);
+      issue_tile_v<E, DH>(sdO + qc * TB, dsrc, qc * TILE, T, DH);
       cp_commit();
     }
     for (int i = threadIdx.x; i < Tp; i += NT) {
@@ -350,8 +393,8 @@ hm_dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, 
       const int buf = kt & 1;
       if (kt > 0) __syncthreads();
       if (kt + 1 < ntl) {
-        issue_tile(sK + (buf ^ 1) * TILE_BYTES, ksrc, (kt + 1) * TILE, T, D);
-        issue_tile(sV + (buf ^ 1) * TILE_BYTES, vsrc, (kt + 1) * TILE, T, D);
+        issue_tile_v<E, DH>(sK + (buf ^ 1) * TB, ksrc, (kt + 1) * TILE, T, DH);
+        issue_tile_v<E, DH>(sV + (buf ^ 1) * TB, vsrc, (kt + 1) * TILE, T, DH);
       }
       cp_commit();
       if (kt > 0) {
@@ -361,9 +404,9 @@ hm_dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, 
       }
       const int key[2] = {kt * TILE + warp * 16 + g, kt * TILE + warp * 16 + g + 8};
       const float kbr[2] = {kb[key[0]], kb[key[1]]};
-      float dk[32], dv[32];
-      zero(dk);
-      zero(dv);
+      float dk[NP][32], dv[NP][32];
+      zero_t(dk);
+      zero_t(dv);
 
       for (int qc = 0; qc < ntl; ++qc) {
         if (kt == 0) {
@@ -374,8 +417,8 @@ hm_dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, 
         // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
         float s[32], dp[32];
         wg_fence();
-        product_ss(s, sK + buf * TILE_BYTES, sQ + qc * TILE_BYTES);
-        product_ss(dp, sV + buf * TILE_BYTES, sdO + qc * TILE_BYTES);
+        product_ss_v<E, DH>(s, sK + buf * TB, sQ + qc * TB);
+        product_ss_v<E, DH>(dp, sV + buf * TB, sdO + qc * TB);
         wg_commit();
         wg_wait();
         reg_fence(s);
@@ -402,70 +445,130 @@ hm_dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, 
           }
         }
         uint32_t pa[4][4], sa[4][4];
-        to_a(pa, s);
-        to_a(sa, dp);
+        to_a_v<E>(pa, s);
+        to_a_v<E>(sa, dp);
         wg_fence();
-        product_rs(dv, pa, sdO + qc * TILE_BYTES);
-        product_rs(dk, sa, sQ + qc * TILE_BYTES);
+        product_rs_v<E, DH>(dv, pa, sdO + qc * TB);
+        product_rs_v<E, DH>(dk, sa, sQ + qc * TB);
         wg_commit();
         wg_wait();
-        reg_fence(dv);
-        reg_fence(dk);
+        reg_fence_t(dv);
+        reg_fence_t(dk);
         reg_fence(pa);
         reg_fence(sa);
       }
 
       const bool ok0 = key[0] < T, ok1 = key[1] < T;
-      bf16* dst = dqkv + in_off(b, h, T, H) + kv_step(T, H);
-      store_rows(dst, dk, SCALE, key[0], key[1], ok0, ok1, D, tq);
-      store_rows(dst + kv_step(T, H), dv, 1.f, key[0], key[1], ok0, ok1, D, tq);
+      E* dst = dqkv + in_off<DH>(b, h, T, H) + kv_step<DH>(T, H);
+      store_rows_v<E, DH>(dst, dk, sc, key[0], key[1], ok0, ok1, DH, tq);
+      store_rows_v<E, DH>(dst + kv_step<DH>(T, H), dv, 1.f, key[0], key[1], ok0, ok1, DH, tq);
     }
   }
 }
 
 // ---------------------------------------------------------------- launches
 
+template <typename E, int DH, bool FIXED>
 const void* kernel_of(int which) {
   switch (which) {
-    case 0: return (const void*)hm_fwd_kernel;
-    case 1: return (const void*)hm_dq_kernel;
-    case 2: return (const void*)hm_dkv_kernel;
+    case 0: return (const void*)hm_fwd_kernel<E, DH, FIXED>;
+    case 1: return (const void*)hm_dq_kernel<E, DH, FIXED>;
+    case 2: return (const void*)hm_dkv_kernel<E, DH, FIXED>;
     default: return nullptr;
   }
 }
 
-size_t bytes_of(int which, int T) { return which == 0 ? fwd_bytes(T) : (which == 1 ? dq_bytes(T) : dkv_bytes(T)); }
+template <int DH>
+size_t bytes_of(int which, int T) {
+  return which == 0 ? fwd_bytes<DH>(T) : (which == 1 ? dq_bytes<DH>(T) : dkv_bytes<DH>(T));
+}
 
+template <int DH>
+size_t smem_bytes(int T) {
+  size_t m = fwd_bytes<DH>(T);
+  if (dq_bytes<DH>(T) > m) m = dq_bytes<DH>(T);
+  return dkv_bytes<DH>(T) > m ? dkv_bytes<DH>(T) : m;
+}
+
+template <typename E, int DH, bool FIXED>
 cudaError_t prepare(int which, int T) {
-  return cudaFuncSetAttribute(kernel_of(which), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes_of(which, T));
+  return cudaFuncSetAttribute(kernel_of<E, DH, FIXED>(which), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes_of<DH>(which, T));
+}
+
+template <typename E, int DH, bool FIXED>
+int launch_fwd(const void* qkv, const void* key_bias, void* out, void* stats, int B, int T, int H, int hg,
+               unsigned int seed, unsigned int threshold, float inv, int dropout, float scale, cudaStream_t s) {
+  if (hg <= 0 || H % hg) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare<E, DH, FIXED>(0, T);
+  if (err != cudaSuccess) return (int)err;
+  hm_fwd_kernel<E, DH, FIXED><<<dim3(H / hg, B), NT, fwd_bytes<DH>(T), s>>>(
+      static_cast<const E*>(qkv), static_cast<const float*>(key_bias), static_cast<E*>(out),
+      static_cast<float*>(stats), T, H, hg, seed, threshold, inv, dropout, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename E, int DH, bool FIXED>
+int launch_bwd(const void* qkv, const void* key_bias, const void* dout, const void* out, const void* stats,
+               void* dqkv, void* delta, int B, int T, int H, int hg_dq, int hg_dkv, unsigned int seed,
+               unsigned int threshold, float inv, int dropout, float scale, cudaStream_t s) {
+  if (hg_dq <= 0 || H % hg_dq || hg_dkv <= 0 || H % hg_dkv) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare<E, DH, FIXED>(1, T);
+  if (err != cudaSuccess) return (int)err;
+  err = prepare<E, DH, FIXED>(2, T);
+  if (err != cudaSuccess) return (int)err;
+  hm_dq_kernel<E, DH, FIXED><<<dim3(H / hg_dq, B), NT, dq_bytes<DH>(T), s>>>(
+      static_cast<const E*>(qkv), static_cast<const float*>(key_bias), static_cast<const E*>(dout),
+      static_cast<const E*>(out), static_cast<const float*>(stats), static_cast<E*>(dqkv),
+      static_cast<float*>(delta), T, H, hg_dq, seed, threshold, inv, dropout, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  hm_dkv_kernel<E, DH, FIXED><<<dim3(H / hg_dkv, B), NT, dkv_bytes<DH>(T), s>>>(
+      static_cast<const E*>(qkv), static_cast<const float*>(key_bias), static_cast<const E*>(dout),
+      static_cast<const float*>(stats), static_cast<const float*>(delta), static_cast<E*>(dqkv), T, H, hg_dkv,
+      seed, threshold, inv, dropout, scale);
+  return (int)cudaGetLastError();
+}
+
+// The form of element type `dtype` (0 bf16, 1 fp16) and head dim dh (64,
+// 128) with the scale an argument: 0 bf16/64, 1 bf16/128, 2 fp16/64, 3
+// fp16/128; -1 for any other.
+int form(int dtype, int dh) {
+  if ((dtype != 0 && dtype != 1) || (dh != 64 && dh != 128)) return -1;
+  return 2 * dtype + (dh == 128);
+}
+
+const void* kernel_of_form(int f, int which) {
+  switch (f) {
+    case 0: return kernel_of<bf16, 64, false>(which);
+    case 1: return kernel_of<bf16, 128, false>(which);
+    case 2: return kernel_of<__half, 64, false>(which);
+    case 3: return kernel_of<__half, 128, false>(which);
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
-// The largest dynamic shared memory of the three kernels at T.
-extern "C" size_t vb_attn_hm_smem_bytes(int T) {
-  size_t m = fwd_bytes(T);
-  if (dq_bytes(T) > m) m = dq_bytes(T);
-  return dkv_bytes(T) > m ? dkv_bytes(T) : m;
-}
+// The largest dynamic shared memory of the three kernels at T (bf16, D = 64).
+extern "C" size_t vb_attn_hm_smem_bytes(int T) { return smem_bytes<64>(T); }
 
-// Kernel `which` (0 forward, 1 dQ pass, 2 dK/dV pass): `what` 0 its
-// registers a thread, 1 its local (spill) bytes a thread, 2 its dynamic
-// shared memory at T, 3 its resident blocks per SM at T. -1 on an error.
+// Kernel `which` (0 forward, 1 dQ pass, 2 dK/dV pass) of bf16 at D = 64:
+// `what` 0 its registers a thread, 1 its local (spill) bytes a thread, 2
+// its dynamic shared memory at T, 3 its resident blocks per SM at T. -1 on
+// an error.
 extern "C" int vb_attn_hm_info(int which, int what, int T) {
-  return kernel_info(kernel_of(which), bytes_of(which, T), what);
+  return kernel_info(kernel_of<bf16, 64, true>(which), bytes_of<64>(which, T), what);
 }
 
+// The bf16, D = 64 entry points (scale 1 / 8, a constant of the kernels);
+// tools that build an earlier tree's source launch them with these
+// signatures.
 extern "C" int vb_attn_hm_fwd(const void* qkv, const void* key_bias, void* out, void* stats, int B, int T, int H,
                               int hg, unsigned int seed, unsigned int threshold, float inv, int dropout,
                               void* stream) {
-  if (hg <= 0 || H % hg) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare(0, T);
-  if (err != cudaSuccess) return (int)err;
-  hm_fwd_kernel<<<dim3(H / hg, B), NT, fwd_bytes(T), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(key_bias), static_cast<bf16*>(out),
-      static_cast<float*>(stats), T, H, hg, seed, threshold, inv, dropout);
-  return (int)cudaGetLastError();
+  return launch_fwd<bf16, 64, true>(qkv, key_bias, out, stats, B, T, H, hg, seed, threshold, inv, dropout, 0.125f,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // delta [B, H, T] fp32 is scratch the caller allocates; hg_dq and hg_dkv
@@ -473,21 +576,54 @@ extern "C" int vb_attn_hm_fwd(const void* qkv, const void* key_bias, void* out, 
 extern "C" int vb_attn_hm_bwd(const void* qkv, const void* key_bias, const void* dout, const void* out,
                               const void* stats, void* dqkv, void* delta, int B, int T, int H, int hg_dq, int hg_dkv,
                               unsigned int seed, unsigned int threshold, float inv, int dropout, void* stream) {
-  if (hg_dq <= 0 || H % hg_dq || hg_dkv <= 0 || H % hg_dkv) return (int)cudaErrorInvalidValue;
+  return launch_bwd<bf16, 64, true>(qkv, key_bias, dout, out, stats, dqkv, delta, B, T, H, hg_dq, hg_dkv, seed,
+                                    threshold, inv, dropout, 0.125f, static_cast<cudaStream_t>(stream));
+}
+
+// Every other form: dtype 0 bf16, 1 fp16; dh the kernel's head dim, 64 or
+// 128 (the caller zero-pads the heads to it); scale the softmax scale of the
+// unpadded head dim. The largest dynamic shared memory of the three kernels
+// at dh and T (0 for a dh not built).
+extern "C" size_t vb_attn_hm_x_smem_bytes(int dh, int T) {
+  return dh == 64 ? smem_bytes<64>(T) : (dh == 128 ? smem_bytes<128>(T) : 0);
+}
+
+extern "C" int vb_attn_hm_x_info(int dtype, int dh, int which, int what, int T) {
+  const int f = form(dtype, dh);
+  if (f < 0) return -1;
+  return kernel_info(kernel_of_form(f, which), dh == 64 ? bytes_of<64>(which, T) : bytes_of<128>(which, T), what);
+}
+
+extern "C" int vb_attn_hm_x_fwd(const void* qkv, const void* key_bias, void* out, void* stats, int B, int T, int H,
+                                int hg, unsigned int seed, unsigned int threshold, float inv, int dropout, int dtype,
+                                int dh, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = prepare(1, T);
-  if (err != cudaSuccess) return (int)err;
-  err = prepare(2, T);
-  if (err != cudaSuccess) return (int)err;
-  hm_dq_kernel<<<dim3(H / hg_dq, B), NT, dq_bytes(T), s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(key_bias), static_cast<const bf16*>(dout),
-      static_cast<const bf16*>(out), static_cast<const float*>(stats), static_cast<bf16*>(dqkv),
-      static_cast<float*>(delta), T, H, hg_dq, seed, threshold, inv, dropout);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  hm_dkv_kernel<<<dim3(H / hg_dkv, B), NT, dkv_bytes(T), s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(key_bias), static_cast<const bf16*>(dout),
-      static_cast<const float*>(stats), static_cast<const float*>(delta), static_cast<bf16*>(dqkv), T, H, hg_dkv,
-      seed, threshold, inv, dropout);
-  return (int)cudaGetLastError();
+#define VB_FWD(E, D) \
+  launch_fwd<E, D, false>(qkv, key_bias, out, stats, B, T, H, hg, seed, threshold, inv, dropout, scale, s)
+  switch (form(dtype, dh)) {
+    case 0: return VB_FWD(bf16, 64);
+    case 1: return VB_FWD(bf16, 128);
+    case 2: return VB_FWD(__half, 64);
+    case 3: return VB_FWD(__half, 128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VB_FWD
+}
+
+extern "C" int vb_attn_hm_x_bwd(const void* qkv, const void* key_bias, const void* dout, const void* out,
+                                const void* stats, void* dqkv, void* delta, int B, int T, int H, int hg_dq,
+                                int hg_dkv, unsigned int seed, unsigned int threshold, float inv, int dropout,
+                                int dtype, int dh, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VB_BWD(E, D)                                                                                              \
+  launch_bwd<E, D, false>(qkv, key_bias, dout, out, stats, dqkv, delta, B, T, H, hg_dq, hg_dkv, seed, threshold, \
+                          inv, dropout, scale, s)
+  switch (form(dtype, dh)) {
+    case 0: return VB_BWD(bf16, 64);
+    case 1: return VB_BWD(bf16, 128);
+    case 2: return VB_BWD(__half, 64);
+    case 3: return VB_BWD(__half, 128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VB_BWD
 }

@@ -1,7 +1,10 @@
-// K1/K2 in fp32: packed-QKV attention forward and backward on fp32
-// tensors, at any head dim D <= 128. Replace, for fp32 inputs,
+// K1/K2, K11/K12 and K13/K14 in fp32: attention forward and backward on
+// fp32 tensors, at any head dim D <= 128. Replace, for fp32 inputs,
 // visualbert_tpu/ops/flash_attention.py::_packed_fwd_kernel (:249) and
-// ::_packed_bwd_kernel (:307), which compute in the input's dtype.
+// ::_packed_bwd_kernel (:307) (K1/K2), ::_fwd_kernel (:71) and ::_bwd_kernel
+// (:93) (K11/K12, heads-major), ::_packed_fwd_sp_kernel (:409) and
+// ::_packed_bwd_sp_kernel (:441) (K13/K14, save-probs), which compute in the
+// input's dtype.
 //
 // Function: flash_attention_packed.cu's (K1/K2's) contract in fp32. qkv [B,
 // T, H*3*D] packed head-major without the QKV projection bias; qb [H*3*D] is
@@ -15,8 +18,14 @@
 // Dropout keeps probability (b, h, i, j) by philox.cuh::attn_philox's bit,
 // word ((i & 1) << 1 | (j & 1)) of the call for (i, j): the masks equal the
 // bf16 and fp16 kernels' at the same seed. The rows, keys and head are
-// addressed through Layout's strides, so heads-major tensors (K11/K12's
-// [B, 3, H, T, D]) can take the same kernels.
+// addressed through Layout's strides: K11/K12 run the same kernels on the
+// heads-major [B, 3, H, T, D] qkv (its bias already added: no qb, no bias
+// gradient) and [B, H, T, D] out. K13/K14 (save-probs, SP) take the packed
+// qkv with its bias added; the forward walks the keys twice (the row
+// statistic, then p = exp2(t - stat), written as bf16 into probs [B, H, T,
+// ldp] before dropout, and P_d V) and writes no statistics; the backward's
+// two passes read p back from those bf16 values in place of exp2(t - stats)
+// and need neither the key bias nor the statistics: K14's contract in fp32.
 //
 // Bound on the H100 at the main path's B=128, T=228, H=12, D=64: 2 (forward)
 // and 4 (backward) products of 2 B H T^2 D = 5.1 GFLOP each at the 67
@@ -41,6 +50,7 @@
 //   one between a 2 x 2 block).
 // - dK/dV pass: the mirror image, 32 keys at a time (4 a warp) against
 //   32-query tiles.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -56,6 +66,7 @@ constexpr int CHUNK = NW * RW;     // rows the block holds at once
 constexpr int KT = 32;             // rows of a streamed tile: one a lane
 constexpr int MAX_D = 128;
 constexpr float LOG2E = 1.4426950408889634f;
+typedef __nv_bfloat16 bf16;
 
 // Element strides: of q's (batch, head, row) and the distance from q to k
 // (and k to v); of out's (batch, head, row); of a head's bias in qb and
@@ -181,6 +192,99 @@ attn_f32_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ qb,
   }
 }
 
+// grid (H, B): K13 in fp32 for pair (b, h): pass 1 takes each row's
+// statistic over every key tile, pass 2 writes p = exp2(t - stat) as bf16
+// (row i of the pair at probs + i * ldp) and accumulates the dropped p times
+// V (p normalised: no final division).
+template <int NC>
+__global__ void __launch_bounds__(NTH)
+attn_f32_sp_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ key_bias, float* __restrict__ out,
+                       bf16* __restrict__ probs, int T, int H, int D, int ldp, Layout L, uint32_t seed, uint32_t thr,
+                       float inv, int dropout, float scale) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                 // [CHUNK][D]
+  float* Ks = Qs + CHUNK * D;       // [KT][D + 1]
+  float* Vs = Ks + KT * (D + 1);    // [KT][D]
+  float* kbs = Vs + KT * D;         // [KT] key bias * log2(e)
+  const int h = blockIdx.x, b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* q = qkv + b * L.qb + h * L.qh;
+  const uint32_t bh = (uint32_t)(b * H + h);
+  bf16* pb = probs + (long long)bh * T * ldp;
+  const float c1 = scale * LOG2E;
+
+  for (int r0 = 0; r0 < T; r0 += CHUNK) {
+    __syncthreads();  // every warp is done with the last chunk's rows
+    load_rows(Qs, D, q, L.qt, nullptr, r0, CHUNK, T, D);
+    float m[RW], l[RW], o[RW][NC];
+#pragma unroll
+    for (int rr = 0; rr < RW; ++rr) {
+      m[rr] = -INFINITY;
+      l[rr] = 0.f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) o[rr][c] = 0.f;
+    }
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int k0 = 0; k0 < T; k0 += KT) {
+        __syncthreads();  // every warp is done with the last tile
+        load_rows(Ks, D + 1, q + L.part, L.qt, nullptr, k0, KT, T, D);
+        if (pass == 1) load_rows(Vs, D, q + 2 * L.part, L.qt, nullptr, k0, KT, T, D);
+        if (threadIdx.x < KT)
+          kbs[threadIdx.x] = k0 + threadIdx.x < T ? key_bias[(long long)b * T + k0 + threadIdx.x] * LOG2E : -INFINITY;
+        __syncthreads();
+        const int j = k0 + lane;
+        float s[RW] = {};
+        for (int d = 0; d < D; ++d) {
+          const float kv = Ks[lane * (D + 1) + d];
+#pragma unroll
+          for (int rr = 0; rr < RW; ++rr) s[rr] += Qs[(warp * RW + rr) * D + d] * kv;
+        }
+        float p[RW];
+#pragma unroll
+        for (int rr = 0; rr < RW; ++rr) {
+          const int i = r0 + warp * RW + rr;
+          const float t = j < T ? s[rr] * c1 + kbs[lane] : -INFINITY;
+          if (pass == 0) {
+            const float mnew = fmaxf(m[rr], warp_max(t));
+            l[rr] = l[rr] * exp2f(m[rr] - mnew) + warp_sum(exp2f(t - mnew));
+            m[rr] = mnew;
+            p[rr] = 0.f;
+          } else {
+            p[rr] = exp2f(t - m[rr]);  // m holds the row statistic in pass 2
+            if (i < T && j < T) pb[(long long)i * ldp + j] = __float2bfloat16(p[rr]);
+            if (dropout && j < T && i < T) p[rr] = keep(seed, bh, i, j, thr) ? p[rr] * inv : 0.f;
+          }
+        }
+        if (pass == 0) continue;
+        const int nk = min(KT, T - k0);
+        for (int jj = 0; jj < nk; ++jj) {
+          float vv[NC];
+#pragma unroll
+          for (int c = 0; c < NC; ++c) vv[c] = lane + 32 * c < D ? Vs[jj * D + lane + 32 * c] : 0.f;
+#pragma unroll
+          for (int rr = 0; rr < RW; ++rr) {
+            const float pj = __shfl_sync(0xffffffffu, p[rr], jj);
+#pragma unroll
+            for (int c = 0; c < NC; ++c) o[rr][c] += pj * vv[c];
+          }
+        }
+      }
+      if (pass == 0) {
+#pragma unroll
+        for (int rr = 0; rr < RW; ++rr) m[rr] += log2f(l[rr]);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < RW; ++rr) {
+      const int i = r0 + warp * RW + rr;
+      if (i >= T) continue;
+      float* orow = out + b * L.ob + h * L.oh + i * L.ot;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        if (lane + 32 * c < D) orow[lane + 32 * c] = o[rr][c];
+    }
+  }
+}
+
 // The block's column sums (each warp's lanes hold columns lane + 32 c of
 // their rows) summed over the warps in order into dst[0 .. D).
 template <int NC>
@@ -198,13 +302,21 @@ __device__ __forceinline__ void block_colsum(const float (&cs)[NC], float* red, 
   }
 }
 
-// grid (H, B): the dQ pass of pair (b, h); also writes delta.
-template <int NC>
+// The saved probability of query i, key j of a pair (row i at pb + i *
+// ldp), 0 past T.
+__device__ __forceinline__ float saved_p(const bf16* __restrict__ pb, int ldp, int i, int j, int T) {
+  return i < T && j < T ? __bfloat162float(pb[(long long)i * ldp + j]) : 0.f;
+}
+
+// grid (H, B): the dQ pass of pair (b, h); also writes delta. SP: p from
+// the saved probabilities (probs, ldp) in place of exp2(t - stats).
+template <int NC, bool SP>
 __global__ void __launch_bounds__(NTH)
 attn_f32_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ qb, const float* __restrict__ key_bias,
                    const float* __restrict__ dout, const float* __restrict__ out, const float* __restrict__ stats,
-                   float* __restrict__ dqkv, float* __restrict__ db_part, float* __restrict__ delta_g, int T, int H,
-                   int D, Layout L, uint32_t seed, uint32_t thr, float inv, int dropout, float scale) {
+                   const bf16* __restrict__ probs, int ldp, float* __restrict__ dqkv, float* __restrict__ db_part,
+                   float* __restrict__ delta_g, int T, int H, int D, Layout L, uint32_t seed, uint32_t thr, float inv,
+                   int dropout, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                    // [CHUNK][D]
   float* dOs = Qs + CHUNK * D;         // [CHUNK][D]
@@ -219,6 +331,7 @@ attn_f32_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ qb, 
   const float* ob = out + b * L.ob + h * L.oh;
   float* dq_out = dqkv + b * L.qb + h * L.qh;
   const uint32_t bh = (uint32_t)(b * H + h);
+  const bf16* pb = SP ? probs + (long long)bh * T * ldp : nullptr;
   const float c1 = scale * LOG2E;
   float cs[NC] = {};
 
@@ -234,7 +347,7 @@ attn_f32_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ qb, 
       if (i < T)
         for (int d = lane; d < D; d += 32) a += dob[(long long)i * L.ot + d] * ob[(long long)i * L.ot + d];
       dl[rr] = warp_sum(a);
-      st[rr] = i < T ? stats[(long long)bh * T + i] : 0.f;
+      st[rr] = !SP && i < T ? stats[(long long)bh * T + i] : 0.f;
       if (i < T && lane == 0) delta_g[(long long)bh * T + i] = dl[rr];
 #pragma unroll
       for (int c = 0; c < NC; ++c) dq[rr][c] = 0.f;
@@ -243,7 +356,7 @@ attn_f32_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ qb, 
       __syncthreads();
       load_rows(Ks, D + 1, q + L.part, L.qt, bq ? bq + L.bpart : nullptr, k0, KT, T, D);
       load_rows(Vs, D + 1, q + 2 * L.part, L.qt, bq ? bq + 2 * L.bpart : nullptr, k0, KT, T, D);
-      if (threadIdx.x < KT)
+      if (!SP && threadIdx.x < KT)
         kbs[threadIdx.x] = k0 + threadIdx.x < T ? key_bias[(long long)b * T + k0 + threadIdx.x] * LOG2E : 0.f;
       __syncthreads();
       const int j = k0 + lane;
@@ -252,7 +365,7 @@ attn_f32_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ qb, 
         const float kv = Ks[lane * (D + 1) + d], vv = Vs[lane * (D + 1) + d];
 #pragma unroll
         for (int rr = 0; rr < RW; ++rr) {
-          s[rr] += Qs[(warp * RW + rr) * D + d] * kv;
+          if (!SP) s[rr] += Qs[(warp * RW + rr) * D + d] * kv;
           dp[rr] += dOs[(warp * RW + rr) * D + d] * vv;
         }
       }
@@ -260,7 +373,7 @@ attn_f32_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ qb, 
 #pragma unroll
       for (int rr = 0; rr < RW; ++rr) {
         const int i = r0 + warp * RW + rr;
-        const float p = j < T ? exp2f(s[rr] * c1 + kbs[lane] - st[rr]) : 0.f;
+        const float p = SP ? saved_p(pb, ldp, i, j, T) : (j < T ? exp2f(s[rr] * c1 + kbs[lane] - st[rr]) : 0.f);
         float d = dp[rr];
         if (dropout && j < T && i < T) d = keep(seed, bh, i, j, thr) ? d * inv : 0.f;
         ds[rr] = p * (d - dl[rr]);  // dS (the scale goes on dQ)
@@ -294,13 +407,15 @@ attn_f32_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ qb, 
   if (db_part) block_colsum(cs, red, db_part + (long long)b * 3 * H * D + h * L.bh, D);
 }
 
-// grid (H, B): the dK/dV pass of pair (b, h), on the dQ pass's delta.
-template <int NC>
+// grid (H, B): the dK/dV pass of pair (b, h), on the dQ pass's delta; SP
+// as the dQ pass's.
+template <int NC, bool SP>
 __global__ void __launch_bounds__(NTH)
 attn_f32_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ qb, const float* __restrict__ key_bias,
                     const float* __restrict__ dout, const float* __restrict__ stats,
-                    const float* __restrict__ delta_g, float* __restrict__ dqkv, float* __restrict__ db_part, int T,
-                    int H, int D, Layout L, uint32_t seed, uint32_t thr, float inv, int dropout, float scale) {
+                    const bf16* __restrict__ probs, int ldp, const float* __restrict__ delta_g,
+                    float* __restrict__ dqkv, float* __restrict__ db_part, int T, int H, int D, Layout L,
+                    uint32_t seed, uint32_t thr, float inv, int dropout, float scale) {
   extern __shared__ float smem[];
   float* Kc = smem;                    // [CHUNK][D] this chunk's keys
   float* Vc = Kc + CHUNK * D;          // [CHUNK][D]
@@ -316,6 +431,7 @@ attn_f32_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ qb,
   const float* dob = dout + b * L.ob + h * L.oh;
   float* dk_out = dqkv + b * L.qb + h * L.qh + L.part;
   const uint32_t bh = (uint32_t)(b * H + h);
+  const bf16* pb = SP ? probs + (long long)bh * T * ldp : nullptr;
   const float c1 = scale * LOG2E;
   float csk[NC] = {}, csv[NC] = {};
 
@@ -323,7 +439,7 @@ attn_f32_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ qb,
     __syncthreads();
     load_rows(Kc, D, q + L.part, L.qt, bq ? bq + L.bpart : nullptr, r0, CHUNK, T, D);
     load_rows(Vc, D, q + 2 * L.part, L.qt, bq ? bq + 2 * L.bpart : nullptr, r0, CHUNK, T, D);
-    if (threadIdx.x < CHUNK)
+    if (!SP && threadIdx.x < CHUNK)
       kbc[threadIdx.x] = r0 + threadIdx.x < T ? key_bias[(long long)b * T + r0 + threadIdx.x] * LOG2E : 0.f;
     float dk[RW][NC], dv[RW][NC];
 #pragma unroll
@@ -336,7 +452,7 @@ attn_f32_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ qb,
       load_rows(dOt, D + 1, dob, L.ot, nullptr, q0, KT, T, D);
       if (threadIdx.x < KT) {
         const int i = q0 + threadIdx.x;
-        stt[threadIdx.x] = i < T ? stats[(long long)bh * T + i] : INFINITY;
+        stt[threadIdx.x] = !SP && i < T ? stats[(long long)bh * T + i] : INFINITY;
         dlt[threadIdx.x] = i < T ? delta_g[(long long)bh * T + i] : 0.f;
       }
       __syncthreads();
@@ -346,7 +462,7 @@ attn_f32_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ qb,
         const float qv = Qt[lane * (D + 1) + d], gv = dOt[lane * (D + 1) + d];
 #pragma unroll
         for (int rr = 0; rr < RW; ++rr) {
-          s[rr] += Kc[(warp * RW + rr) * D + d] * qv;
+          if (!SP) s[rr] += Kc[(warp * RW + rr) * D + d] * qv;
           dp[rr] += Vc[(warp * RW + rr) * D + d] * gv;
         }
       }
@@ -354,7 +470,7 @@ attn_f32_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ qb,
 #pragma unroll
       for (int rr = 0; rr < RW; ++rr) {
         const int j = r0 + warp * RW + rr;
-        const float p = exp2f(s[rr] * c1 + kbc[warp * RW + rr] - stt[lane]);
+        const float p = SP ? saved_p(pb, ldp, i, j, T) : exp2f(s[rr] * c1 + kbc[warp * RW + rr] - stt[lane]);
         float pdrop = p, d = dp[rr];
         if (dropout && j < T && i < T) {
           const bool k = keep(seed, bh, i, j, thr);
@@ -406,30 +522,32 @@ attn_f32_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ qb,
   }
 }
 
-template <int NC>
+template <int NC, bool SP>
 const void* kernel_of(int which) {
   switch (which) {
-    case 0: return (const void*)attn_f32_fwd_kernel<NC>;
-    case 1: return (const void*)attn_f32_dq_kernel<NC>;
-    case 2: return (const void*)attn_f32_dkv_kernel<NC>;
+    case 0: return SP ? (const void*)attn_f32_sp_fwd_kernel<NC> : (const void*)attn_f32_fwd_kernel<NC>;
+    case 1: return (const void*)attn_f32_dq_kernel<NC, SP>;
+    case 2: return (const void*)attn_f32_dkv_kernel<NC, SP>;
     default: return nullptr;
   }
 }
 
+template <bool SP>
 const void* kernel_at(int which, int D) {
   switch ((D + 31) / 32) {
-    case 1: return kernel_of<1>(which);
-    case 2: return kernel_of<2>(which);
-    case 3: return kernel_of<3>(which);
-    case 4: return kernel_of<4>(which);
+    case 1: return kernel_of<1, SP>(which);
+    case 2: return kernel_of<2, SP>(which);
+    case 3: return kernel_of<3, SP>(which);
+    case 4: return kernel_of<4, SP>(which);
     default: return nullptr;
   }
 }
 
 size_t bytes_of(int which, int D) { return which == 0 ? fwd_bytes(D) : bwd_bytes(D); }
 
+template <bool SP>
 cudaError_t prepare(int which, int D) {
-  return cudaFuncSetAttribute(kernel_at(which, D), cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(kernel_at<SP>(which, D), cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes_of(which, D));
 }
 
@@ -439,35 +557,45 @@ Layout packed(int T, int H, int D) {
   return Layout{T * F, 3LL * D, F, D, (long long)T * H * D, D, (long long)H * D, 3LL * D, D};
 }
 
-template <int NC>
-void fwd_at(const float* qkv, const float* qb, const float* key_bias, float* out, float* stats, int B, int T, int H,
-            int D, uint32_t seed, uint32_t thr, float inv, int dropout, float scale, cudaStream_t s) {
-  attn_f32_fwd_kernel<NC><<<dim3(H, B), NTH, fwd_bytes(D), s>>>(qkv, qb, key_bias, out, stats, T, H, D,
-                                                                 packed(T, H, D), seed, thr, inv, dropout, scale);
+// The heads-major layout [B, 3, H, T, D] (out [B, H, T, D]; no qb).
+Layout heads_major(int T, int H, int D) {
+  const long long HTD = (long long)H * T * D;
+  return Layout{3 * HTD, (long long)T * D, D, HTD, HTD, (long long)T * D, D, 0, 0};
 }
 
 template <int NC>
+void fwd_at(const float* qkv, const float* qb, const float* key_bias, float* out, float* stats, int B, int T, int H,
+            int D, Layout L, uint32_t seed, uint32_t thr, float inv, int dropout, float scale, cudaStream_t s) {
+  attn_f32_fwd_kernel<NC><<<dim3(H, B), NTH, fwd_bytes(D), s>>>(qkv, qb, key_bias, out, stats, T, H, D, L, seed, thr,
+                                                                 inv, dropout, scale);
+}
+
+template <int NC>
+void sp_fwd_at(const float* qkv, const float* key_bias, float* out, bf16* probs, int B, int T, int H, int D, int ldp,
+               uint32_t seed, uint32_t thr, float inv, int dropout, float scale, cudaStream_t s) {
+  attn_f32_sp_fwd_kernel<NC><<<dim3(H, B), NTH, fwd_bytes(D), s>>>(qkv, key_bias, out, probs, T, H, D, ldp,
+                                                                    packed(T, H, D), seed, thr, inv, dropout, scale);
+}
+
+// Both passes; SP reads p from probs (ldp) and needs neither key_bias nor
+// stats.
+template <int NC, bool SP>
 cudaError_t bwd_at(const float* qkv, const float* qb, const float* key_bias, const float* dout, const float* out,
-                   const float* stats, float* dqkv, float* db_part, float* delta, int B, int T, int H, int D,
-                   uint32_t seed, uint32_t thr, float inv, int dropout, float scale, cudaStream_t s) {
-  const Layout L = packed(T, H, D);
-  attn_f32_dq_kernel<NC><<<dim3(H, B), NTH, bwd_bytes(D), s>>>(qkv, qb, key_bias, dout, out, stats, dqkv, db_part,
-                                                                delta, T, H, D, L, seed, thr, inv, dropout, scale);
+                   const float* stats, const bf16* probs, int ldp, float* dqkv, float* db_part, float* delta, int B,
+                   int T, int H, int D, Layout L, uint32_t seed, uint32_t thr, float inv, int dropout, float scale,
+                   cudaStream_t s) {
+  attn_f32_dq_kernel<NC, SP><<<dim3(H, B), NTH, bwd_bytes(D), s>>>(qkv, qb, key_bias, dout, out, stats, probs, ldp,
+                                                                    dqkv, db_part, delta, T, H, D, L, seed, thr, inv,
+                                                                    dropout, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_f32_dkv_kernel<NC><<<dim3(H, B), NTH, bwd_bytes(D), s>>>(qkv, qb, key_bias, dout, stats, delta, dqkv, db_part,
-                                                                 T, H, D, L, seed, thr, inv, dropout, scale);
+  attn_f32_dkv_kernel<NC, SP><<<dim3(H, B), NTH, bwd_bytes(D), s>>>(qkv, qb, key_bias, dout, stats, probs, ldp, delta,
+                                                                     dqkv, db_part, T, H, D, L, seed, thr, inv,
+                                                                     dropout, scale);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Kernel `which` (0 forward, 1 dQ pass, 2 dK/dV pass) at head dim D:
-// `what` 0 its registers a thread, 1 its local (spill) bytes, 2 its dynamic
-// shared memory, 3 its resident blocks per SM. -1 on an error or a D
-// outside 1..128.
-extern "C" int vb_attn_f32_info(int which, int what, int D) {
-  const void* fn = D >= 1 && D <= MAX_D ? kernel_at(which, D) : nullptr;
+int info(const void* fn, int which, int what, int D, cudaError_t (*prep)(int, int)) {
   if (fn == nullptr) return -1;
   const size_t bytes = bytes_of(which, D);
   if (what == 0 || what == 1) {
@@ -478,24 +606,62 @@ extern "C" int vb_attn_f32_info(int which, int what, int D) {
   if (what == 2) return (int)bytes;
   if (what == 3) {
     int n = 0;
-    if (prepare(which, D) != cudaSuccess) return -1;
+    if (prep(which, D) != cudaSuccess) return -1;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, NTH, bytes) != cudaSuccess) return -1;
     return n;
   }
   return -1;
 }
 
+int fwd(const float* qkv, const float* qb, const float* key_bias, float* out, float* stats, int B, int T, int H,
+        int D, Layout L, unsigned int seed, unsigned int threshold, float inv, int dropout, float scale,
+        cudaStream_t s) {
+  if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare<false>(0, D);
+  if (err != cudaSuccess) return (int)err;
+  auto* f = (D + 31) / 32 == 1 ? fwd_at<1> : (D + 31) / 32 == 2 ? fwd_at<2> : (D + 31) / 32 == 3 ? fwd_at<3> : fwd_at<4>;
+  f(qkv, qb, key_bias, out, stats, B, T, H, D, L, seed, threshold, inv, dropout, scale, s);
+  return (int)cudaGetLastError();
+}
+
+template <bool SP>
+int bwd(const float* qkv, const float* qb, const float* key_bias, const float* dout, const float* out,
+        const float* stats, const bf16* probs, int ldp, float* dqkv, float* db_part, float* delta, int B, int T, int H,
+        int D, Layout L, unsigned int seed, unsigned int threshold, float inv, int dropout, float scale,
+        cudaStream_t s) {
+  if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare<SP>(1, D);
+  if (err == cudaSuccess) err = prepare<SP>(2, D);
+  if (err != cudaSuccess) return (int)err;
+  auto* f = (D + 31) / 32 == 1   ? bwd_at<1, SP>
+            : (D + 31) / 32 == 2 ? bwd_at<2, SP>
+            : (D + 31) / 32 == 3 ? bwd_at<3, SP>
+                                 : bwd_at<4, SP>;
+  return (int)f(qkv, qb, key_bias, dout, out, stats, probs, ldp, dqkv, db_part, delta, B, T, H, D, L, seed, threshold,
+                inv, dropout, scale, s);
+}
+
+}  // namespace
+
+// Kernel `which` (0 forward, 1 dQ pass, 2 dK/dV pass) at head dim D:
+// `what` 0 its registers a thread, 1 its local (spill) bytes, 2 its dynamic
+// shared memory, 3 its resident blocks per SM. -1 on an error or a D
+// outside 1..128. K11/K12 run these kernels on their own strides.
+extern "C" int vb_attn_f32_info(int which, int what, int D) {
+  return info(D >= 1 && D <= MAX_D ? kernel_at<false>(which, D) : nullptr, which, what, D, prepare<false>);
+}
+
+// The same of the save-probs kernels (K13/K14 in fp32).
+extern "C" int vb_attn_f32_sp_info(int which, int what, int D) {
+  return info(D >= 1 && D <= MAX_D ? kernel_at<true>(which, D) : nullptr, which, what, D, prepare<true>);
+}
+
 extern "C" int vb_attn_f32_fwd(const void* qkv, const void* qb, const void* key_bias, void* out, void* stats, int B,
                                int T, int H, int D, unsigned int seed, unsigned int threshold, float inv, int dropout,
                                float scale, void* stream) {
-  if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare(0, D);
-  if (err != cudaSuccess) return (int)err;
-  auto* f = (D + 31) / 32 == 1 ? fwd_at<1> : (D + 31) / 32 == 2 ? fwd_at<2> : (D + 31) / 32 == 3 ? fwd_at<3> : fwd_at<4>;
-  f(static_cast<const float*>(qkv), static_cast<const float*>(qb), static_cast<const float*>(key_bias),
-    static_cast<float*>(out), static_cast<float*>(stats), B, T, H, D, seed, threshold, inv, dropout, scale,
-    static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  return fwd(static_cast<const float*>(qkv), static_cast<const float*>(qb), static_cast<const float*>(key_bias),
+             static_cast<float*>(out), static_cast<float*>(stats), B, T, H, D, packed(T, H, D), seed, threshold, inv,
+             dropout, scale, static_cast<cudaStream_t>(stream));
 }
 
 // db_part [B, H*3*D] and delta [B, H, T] are scratch the caller allocates.
@@ -503,13 +669,61 @@ extern "C" int vb_attn_f32_bwd(const void* qkv, const void* qb, const void* key_
                                const void* out, const void* stats, void* dqkv, void* db_part, void* delta, int B,
                                int T, int H, int D, unsigned int seed, unsigned int threshold, float inv, int dropout,
                                float scale, void* stream) {
-  if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare(1, D);
-  if (err == cudaSuccess) err = prepare(2, D);
+  return bwd<false>(static_cast<const float*>(qkv), static_cast<const float*>(qb),
+                    static_cast<const float*>(key_bias), static_cast<const float*>(dout),
+                    static_cast<const float*>(out), static_cast<const float*>(stats), nullptr, 0,
+                    static_cast<float*>(dqkv), static_cast<float*>(db_part), static_cast<float*>(delta), B, T, H, D,
+                    packed(T, H, D), seed, threshold, inv, dropout, scale, static_cast<cudaStream_t>(stream));
+}
+
+// K11 in fp32: qkv [B, 3, H, T, D] (bias added), out [B, H, T, D], stats
+// [B, H, T].
+extern "C" int vb_attn_f32_hm_fwd(const void* qkv, const void* key_bias, void* out, void* stats, int B, int T, int H,
+                                  int D, unsigned int seed, unsigned int threshold, float inv, int dropout,
+                                  float scale, void* stream) {
+  return fwd(static_cast<const float*>(qkv), nullptr, static_cast<const float*>(key_bias), static_cast<float*>(out),
+             static_cast<float*>(stats), B, T, H, D, heads_major(T, H, D), seed, threshold, inv, dropout, scale,
+             static_cast<cudaStream_t>(stream));
+}
+
+// K12 in fp32: dqkv [B, 3, H, T, D]; delta [B, H, T] is scratch.
+extern "C" int vb_attn_f32_hm_bwd(const void* qkv, const void* key_bias, const void* dout, const void* out,
+                                  const void* stats, void* dqkv, void* delta, int B, int T, int H, int D,
+                                  unsigned int seed, unsigned int threshold, float inv, int dropout, float scale,
+                                  void* stream) {
+  return bwd<false>(static_cast<const float*>(qkv), nullptr, static_cast<const float*>(key_bias),
+                    static_cast<const float*>(dout), static_cast<const float*>(out),
+                    static_cast<const float*>(stats), nullptr, 0, static_cast<float*>(dqkv), nullptr,
+                    static_cast<float*>(delta), B, T, H, D, heads_major(T, H, D), seed, threshold, inv, dropout,
+                    scale, static_cast<cudaStream_t>(stream));
+}
+
+// K13 in fp32: qkv [B, T, H*3*D] with the bias added, out [B, T, H*D],
+// probs [B, H, T, ldp] bf16 storage of the [B, H, T, T] probabilities.
+extern "C" int vb_attn_f32_sp_fwd(const void* qkv, const void* key_bias, void* out, void* probs, int B, int T, int H,
+                                  int D, int ldp, unsigned int seed, unsigned int threshold, float inv, int dropout,
+                                  float scale, void* stream) {
+  if (D < 1 || D > MAX_D || ldp < T) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare<true>(0, D);
   if (err != cudaSuccess) return (int)err;
-  auto* f = (D + 31) / 32 == 1 ? bwd_at<1> : (D + 31) / 32 == 2 ? bwd_at<2> : (D + 31) / 32 == 3 ? bwd_at<3> : bwd_at<4>;
-  return (int)f(static_cast<const float*>(qkv), static_cast<const float*>(qb), static_cast<const float*>(key_bias),
-                static_cast<const float*>(dout), static_cast<const float*>(out), static_cast<const float*>(stats),
-                static_cast<float*>(dqkv), static_cast<float*>(db_part), static_cast<float*>(delta), B, T, H, D,
-                seed, threshold, inv, dropout, scale, static_cast<cudaStream_t>(stream));
+  auto* f = (D + 31) / 32 == 1   ? sp_fwd_at<1>
+            : (D + 31) / 32 == 2 ? sp_fwd_at<2>
+            : (D + 31) / 32 == 3 ? sp_fwd_at<3>
+                                 : sp_fwd_at<4>;
+  f(static_cast<const float*>(qkv), static_cast<const float*>(key_bias), static_cast<float*>(out),
+    static_cast<bf16*>(probs), B, T, H, D, ldp, seed, threshold, inv, dropout, scale,
+    static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+// K14 in fp32: dqkv [B, T, H*3*D] from the saved probabilities (row stride
+// ldp); delta [B, H, T] is scratch.
+extern "C" int vb_attn_f32_sp_bwd(const void* qkv, const void* probs, const void* dout, const void* out, void* dqkv,
+                                  void* delta, int B, int T, int H, int D, int ldp, unsigned int seed,
+                                  unsigned int threshold, float inv, int dropout, float scale, void* stream) {
+  if (ldp < T) return (int)cudaErrorInvalidValue;
+  return bwd<true>(static_cast<const float*>(qkv), nullptr, nullptr, static_cast<const float*>(dout),
+                   static_cast<const float*>(out), nullptr, static_cast<const bf16*>(probs), ldp,
+                   static_cast<float*>(dqkv), nullptr, static_cast<float*>(delta), B, T, H, D, packed(T, H, D), seed,
+                   threshold, inv, dropout, scale, static_cast<cudaStream_t>(stream));
 }

@@ -52,13 +52,25 @@
 // 5. wgmma: S = Q K^T (K13's two passes), dP = dO V^T and dP^T = V dO^T
 //    take both operands from shared memory; O += P_d V, dQ += dS K, dV +=
 //    P_d^T dO, dK += dS^T Q take P_d or dS from registers.
+// 6. Element types and head dims, as K1/K2's step 5 and K11/K12's: the
+//    bodies are templates on E (bf16 or fp16) and DH (64 or 128), the heads
+//    zero-padded by the wrapper to DH and the scale the unpadded D's. The
+//    probabilities stay bf16 in every form (the JAX kernel writes them as
+//    bf16 whatever the dtype) and a p tile is 64 keys wide whatever DH, so
+//    steps 3 and 4 do not change; P_d and dS are rounded to E before their
+//    products. FIXED is bf16 at DH = 64 with the scale 1 / 8 a constant,
+//    and at bf16, DH = 64 the bodies call their former helpers
+//    (hopper_attn.cuh's *_v): the main path's form (vb_attn_sp_fwd / _bwd)
+//    compiles as before the templates; the other forms (vb_attn_sp_x_*)
+//    take the scale as an argument. fp32 runs
+//    flash_attention_f32.cu's save-probs SIMT kernels.
 #include "hopper_attn.cuh"
 
 namespace {
 
 using namespace vb_hopper;
 
-constexpr int STAGE_BYTES = 16 * ROW;  // one warp's 16 p rows of a tile
+constexpr int STAGE_BYTES = 16 * ROW;  // one warp's 16 p rows of a tile (64 bf16 keys a row)
 
 // Four 8 x 8 bf16 matrices from shared memory, lane l giving the address of
 // row l % 8 of matrix l / 8; TRANS loads each transposed.
@@ -136,53 +148,65 @@ __device__ __forceinline__ void store_p(bf16* __restrict__ pb, const unsigned ch
   }
 }
 
+// The softmax scale: 1 / 8 folded in as a constant (FIXED, DH = 64), else
+// the argument.
+template <int DH, bool FIXED>
+__device__ __forceinline__ float scale_of(float scale) {
+  static_assert(!FIXED || DH == 64, "the fixed scale is D = 64's");
+  return FIXED ? SCALE : scale;
+}
+
 // ---------------------------------------------------------------- K13
 
+template <int DH>
 size_t fwd_bytes(int T) {
   const int Tp = round_up(T, TILE);
-  return ALIGN + 3 * TILE_BYTES + (size_t)2 * Tp * ROW + Tp * sizeof(float);
+  return ALIGN + 2 * Tile<DH>::BYTES + TILE_BYTES + (size_t)2 * Tp * Tile<DH>::ROWB + Tp * sizeof(float);
 }
 
 // grid (H / hg, B): block (x, b) owns heads [x * hg, (x + 1) * hg) of row b.
+template <typename E, int DH, bool FIXED>
 __global__ void __launch_bounds__(NT)
-attn_sp_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias, bf16* __restrict__ out,
+attn_sp_fwd_kernel(const E* __restrict__ qkv, const float* __restrict__ key_bias, E* __restrict__ out,
                    bf16* __restrict__ probs, int T, int H, int hg, int ldp, uint32_t seed, uint32_t thr, float inv,
-                   int dropout) {
+                   int dropout, float scale) {
+  using L = Tile<DH>;
+  constexpr int TB = L::BYTES, NP = L::NP;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align_smem(smem_raw);
   const int Tp = round_up(T, TILE), ntl = Tp / TILE;
-  unsigned char* Qs = sm;                        // [2][TILE] query tiles
-  unsigned char* Ks = Qs + 2 * TILE_BYTES;       // [Tp] keys
-  unsigned char* Vs = Ks + (size_t)Tp * ROW;     // [Tp] values
-  unsigned char* Ps = Vs + (size_t)Tp * ROW;     // [4][16] each warp's staged p rows
+  unsigned char* Qs = sm;                          // [2][TILE] query tiles
+  unsigned char* Ks = Qs + 2 * TB;                 // [Tp] keys
+  unsigned char* Vs = Ks + (size_t)Tp * L::ROWB;   // [Tp] values
+  unsigned char* Ps = Vs + (size_t)Tp * L::ROWB;   // [4][16] each warp's staged p rows
   float* kb = reinterpret_cast<float*>(Ps + TILE_BYTES);  // [Tp] key bias * log2(e)
   const uint32_t sQ = smem_addr(Qs), sK = smem_addr(Ks), sV = smem_addr(Vs);
 
-  const int b = blockIdx.y, F = 3 * H * D, ldo = H * D;
+  const int b = blockIdx.y, F = 3 * H * DH, ldo = H * DH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
-  const float c1 = SCALE * LOG2E;
-  const bf16* base = qkv + (size_t)b * T * F;
+  const float c1 = scale_of<DH, FIXED>(scale) * LOG2E;
+  const E* base = qkv + (size_t)b * T * F;
   unsigned char* stage = Ps + warp * STAGE_BYTES;
   load_key_bias(kb, key_bias + (size_t)b * T, T, Tp);
 
   for (int h = blockIdx.x * hg; h < (blockIdx.x + 1) * hg; ++h) {
-    const bf16 *qsrc = base + 3 * h * D, *ksrc = qsrc + D, *vsrc = qsrc + 2 * D;
+    const E *qsrc = base + 3 * h * DH, *ksrc = qsrc + DH, *vsrc = qsrc + 2 * DH;
     const uint32_t bh = (uint32_t)(b * H + h);
     bf16* pb = probs + (size_t)bh * T * ldp;
     __syncthreads();  // no warp still reads the last pair's tiles
-    issue_tile(sQ, qsrc, 0, T, F);
+    issue_tile_v<E, DH>(sQ, qsrc, 0, T, F);
     cp_commit();
     for (int kt = 0; kt < ntl; ++kt) {
-      issue_tile(sK + kt * TILE_BYTES, ksrc, kt * TILE, T, F);
-      issue_tile(sV + kt * TILE_BYTES, vsrc, kt * TILE, T, F);
+      issue_tile_v<E, DH>(sK + kt * TB, ksrc, kt * TILE, T, F);
+      issue_tile_v<E, DH>(sV + kt * TB, vsrc, kt * TILE, T, F);
       cp_commit();
     }
 
     for (int qt = 0; qt < ntl; ++qt) {
       const int buf = qt & 1;
-      const uint32_t sq = sQ + buf * TILE_BYTES;
+      const uint32_t sq = sQ + buf * TB;
       if (qt > 0) __syncthreads();  // every warp is done with the buffer the prefetch overwrites
-      if (qt + 1 < ntl) issue_tile(sQ + (buf ^ 1) * TILE_BYTES, qsrc, (qt + 1) * TILE, T, F);
+      if (qt + 1 < ntl) issue_tile_v<E, DH>(sQ + (buf ^ 1) * TB, qsrc, (qt + 1) * TILE, T, F);
       cp_commit();
       if (qt > 0) {
         cp_wait<1>();
@@ -204,7 +228,7 @@ attn_sp_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_b
         }
         float s[32];
         wg_fence();
-        product_ss(s, sq, sK + kt * TILE_BYTES);
+        product_ss_v<E, DH>(s, sq, sK + kt * TB);
         wg_commit();
         wg_wait();
         reg_fence(s);
@@ -241,12 +265,12 @@ attn_sp_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_b
       }
 
       // pass 2: p, its bf16 store, dropout, P_d . V
-      float o[32];
-      zero(o);
+      float o[NP][32];
+      zero_t(o);
       for (int kt = 0; kt < ntl; ++kt) {
         float s[32];
         wg_fence();
-        product_ss(s, sq, sK + kt * TILE_BYTES);
+        product_ss_v<E, DH>(s, sq, sK + kt * TB);
         wg_commit();
         wg_wait();
         reg_fence(s);
@@ -274,63 +298,69 @@ attn_sp_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_b
           }
         }
         uint32_t pa[4][4];
-        to_a(pa, s);
+        to_a_v<E>(pa, s);
         wg_fence();
-        product_rs(o, pa, sV + kt * TILE_BYTES);
+        product_rs_v<E, DH>(o, pa, sV + kt * TB);
         wg_commit();
         store_p(pb, stage, r0, k0, T, ldp, lane);  // while P_d . V runs
         wg_wait();
-        reg_fence(o);
+        reg_fence_t(o);
         reg_fence(pa);
       }
-      store_rows(out + (size_t)b * T * ldo + h * D, o, 1.f, row[0], row[1], row[0] < T, row[1] < T, ldo, tq);
+      store_rows_v<E, DH>(out + (size_t)b * T * ldo + h * DH, o, 1.f, row[0], row[1], row[0] < T, row[1] < T, ldo,
+                          tq);
     }
   }
 }
 
 // ------------------------------------------------------- K14: dQ pass
 
+template <int DH>
 size_t dq_bytes(int T) {
   const int Tp = round_up(T, TILE);
-  return ALIGN + 4 * TILE_BYTES + (size_t)2 * Tp * ROW + Tp * sizeof(float);
+  return ALIGN + 2 * Tile<DH>::BYTES + 2 * TILE_BYTES + (size_t)2 * Tp * Tile<DH>::ROWB + Tp * sizeof(float);
 }
 
 // Step n = qt * ntl + kt walks query tile qt against key tile kt; p tile n
 // lands a step ahead (ring of two), key tile kt + 1 during step (0, kt),
 // dO tile qt + 1 during step (qt, 0).
+template <typename E, int DH, bool FIXED>
 __global__ void __launch_bounds__(NT)
-attn_sp_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ probs, const bf16* __restrict__ dout,
-                      const bf16* __restrict__ out, bf16* __restrict__ dqkv, float* __restrict__ delta_g, int T,
-                      int H, int hg, int ldp, uint32_t seed, uint32_t thr, float inv, int dropout) {
+attn_sp_bwd_dq_kernel(const E* __restrict__ qkv, const bf16* __restrict__ probs, const E* __restrict__ dout,
+                      const E* __restrict__ out, E* __restrict__ dqkv, float* __restrict__ delta_g, int T, int H,
+                      int hg, int ldp, uint32_t seed, uint32_t thr, float inv, int dropout, float scale) {
+  using L = Tile<DH>;
+  constexpr int TB = L::BYTES, NP = L::NP;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align_smem(smem_raw);
   const int Tp = round_up(T, TILE), ntl = Tp / TILE, nsteps = ntl * ntl;
-  unsigned char* dOs = sm;                       // [2][TILE]
-  unsigned char* Ps = dOs + 2 * TILE_BYTES;      // [2][TILE] p tiles
-  unsigned char* Ks = Ps + 2 * TILE_BYTES;       // [Tp]
-  unsigned char* Vs = Ks + (size_t)Tp * ROW;     // [Tp]
-  float* dl = reinterpret_cast<float*>(Vs + (size_t)Tp * ROW);  // [Tp] delta of the pair's rows
+  unsigned char* dOs = sm;                         // [2][TILE]
+  unsigned char* Ps = dOs + 2 * TB;                // [2][TILE] p tiles
+  unsigned char* Ks = Ps + 2 * TILE_BYTES;         // [Tp]
+  unsigned char* Vs = Ks + (size_t)Tp * L::ROWB;   // [Tp]
+  float* dl = reinterpret_cast<float*>(Vs + (size_t)Tp * L::ROWB);  // [Tp] delta of the pair's rows
   const uint32_t sdO = smem_addr(dOs), sP = smem_addr(Ps), sK = smem_addr(Ks), sV = smem_addr(Vs);
 
-  const int b = blockIdx.y, F = 3 * H * D, ldo = H * D;
+  const int b = blockIdx.y, F = 3 * H * DH, ldo = H * DH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
-  const bf16* base = qkv + (size_t)b * T * F;
+  const float sc = scale_of<DH, FIXED>(scale);
+  const E* base = qkv + (size_t)b * T * F;
 
   for (int h = blockIdx.x * hg; h < (blockIdx.x + 1) * hg; ++h) {
-    const bf16 *ksrc = base + (3 * h + 1) * D, *vsrc = ksrc + D;
-    const bf16* dsrc = dout + (size_t)b * T * ldo + h * D;
+    const E *ksrc = base + (3 * h + 1) * DH, *vsrc = ksrc + DH;
+    const E* dsrc = dout + (size_t)b * T * ldo + h * DH;
     const uint32_t bh = (uint32_t)(b * H + h);
     const bf16* pb = probs + (size_t)bh * T * ldp;
     __syncthreads();  // no warp still reads the last pair's tiles or delta
-    issue_tile(sdO, dsrc, 0, T, ldo);
-    issue_tile(sK, ksrc, 0, T, F);
-    issue_tile(sV, vsrc, 0, T, F);
+    issue_tile_v<E, DH>(sdO, dsrc, 0, T, ldo);
+    issue_tile_v<E, DH>(sK, ksrc, 0, T, F);
+    issue_tile_v<E, DH>(sV, vsrc, 0, T, F);
     issue_p(sP, pb, 0, 0, T, ldp);
     cp_commit();
     // while the tiles land: the pair's delta (read after the first barrier)
-    pair_delta(dsrc, out + (size_t)b * T * ldo + h * D, ldo, dl, delta_g + (size_t)bh * T, T, Tp);
+    pair_delta_v<E, DH>(dsrc, out + (size_t)b * T * ldo + h * DH, ldo, dl, delta_g + (size_t)bh * T, T, Tp);
 
-    float dq[32];
+    float dq[NP][32];
     for (int n = 0; n < nsteps; ++n) {
       const int qt = n / ntl, kt = n - qt * ntl;
       __syncthreads();  // every warp is done with the buffers the copies below overwrite
@@ -339,10 +369,10 @@ attn_sp_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ pro
         issue_p(sP + ((n + 1) & 1) * TILE_BYTES, pb, nq * TILE, (n + 1 - nq * ntl) * TILE, T, ldp);
       }
       if (qt == 0 && kt + 1 < ntl) {
-        issue_tile(sK + (kt + 1) * TILE_BYTES, ksrc, (kt + 1) * TILE, T, F);
-        issue_tile(sV + (kt + 1) * TILE_BYTES, vsrc, (kt + 1) * TILE, T, F);
+        issue_tile_v<E, DH>(sK + (kt + 1) * TB, ksrc, (kt + 1) * TILE, T, F);
+        issue_tile_v<E, DH>(sV + (kt + 1) * TB, vsrc, (kt + 1) * TILE, T, F);
       }
-      if (kt == 0 && qt + 1 < ntl) issue_tile(sdO + ((qt + 1) & 1) * TILE_BYTES, dsrc, (qt + 1) * TILE, T, ldo);
+      if (kt == 0 && qt + 1 < ntl) issue_tile_v<E, DH>(sdO + ((qt + 1) & 1) * TB, dsrc, (qt + 1) * TILE, T, ldo);
       cp_commit();
       cp_wait<1>();  // everything but this step's copies
       fence_async();
@@ -350,11 +380,11 @@ attn_sp_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ pro
 
       const int row[2] = {qt * TILE + warp * 16 + g, qt * TILE + warp * 16 + g + 8};
       const float dlrow[2] = {dl[row[0]], dl[row[1]]};
-      if (kt == 0) zero(dq);
+      if (kt == 0) zero_t(dq);
       float dp[32];
       uint32_t pr[8][2];
       wg_fence();
-      product_ss(dp, sdO + (qt & 1) * TILE_BYTES, sV + kt * TILE_BYTES);  // dP = dO V^T
+      product_ss_v<E, DH>(dp, sdO + (qt & 1) * TB, sV + kt * TB);  // dP = dO V^T
       wg_commit();
       load_p_frag<false>(pr, sP + (n & 1) * TILE_BYTES, warp, lane);
       wg_wait();
@@ -376,61 +406,67 @@ attn_sp_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ pro
         }
       }
       uint32_t sa[4][4];
-      to_a(sa, dp);
+      to_a_v<E>(sa, dp);
       wg_fence();
-      product_rs(dq, sa, sK + kt * TILE_BYTES);
+      product_rs_v<E, DH>(dq, sa, sK + kt * TB);
       wg_commit();
       wg_wait();
-      reg_fence(dq);
+      reg_fence_t(dq);
       reg_fence(sa);
       if (kt == ntl - 1)
-        store_rows(dqkv + (size_t)b * T * F + 3 * h * D, dq, SCALE, row[0], row[1], row[0] < T, row[1] < T, F, tq);
+        store_rows_v<E, DH>(dqkv + (size_t)b * T * F + 3 * h * DH, dq, sc, row[0], row[1], row[0] < T, row[1] < T, F,
+                            tq);
     }
   }
 }
 
 // --------------------------------------------------- K14: dK, dV pass
 
+template <int DH>
 size_t dkv_bytes(int T) {
   const int Tp = round_up(T, TILE);
-  return ALIGN + 4 * TILE_BYTES + (size_t)2 * Tp * ROW + Tp * sizeof(float);
+  return ALIGN + 2 * Tile<DH>::BYTES + 2 * TILE_BYTES + (size_t)2 * Tp * Tile<DH>::ROWB + Tp * sizeof(float);
 }
 
 // Step n = kt * ntl + qc walks key tile kt against query tile qc; p tile
 // (qc, kt) lands a step ahead (ring of two), query tile qc + 1 (Q and dO)
 // during step (0, qc), value tile kt + 1 during step (kt, 0).
+template <typename E, int DH, bool FIXED>
 __global__ void __launch_bounds__(NT)
-attn_sp_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ probs, const bf16* __restrict__ dout,
-                       const float* __restrict__ delta_g, bf16* __restrict__ dqkv, int T, int H, int hg, int ldp,
-                       uint32_t seed, uint32_t thr, float inv, int dropout) {
+attn_sp_bwd_dkv_kernel(const E* __restrict__ qkv, const bf16* __restrict__ probs, const E* __restrict__ dout,
+                       const float* __restrict__ delta_g, E* __restrict__ dqkv, int T, int H, int hg, int ldp,
+                       uint32_t seed, uint32_t thr, float inv, int dropout, float scale) {
+  using L = Tile<DH>;
+  constexpr int TB = L::BYTES, NP = L::NP;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align_smem(smem_raw);
   const int Tp = round_up(T, TILE), ntl = Tp / TILE, nsteps = ntl * ntl;
-  unsigned char* Vs = sm;                        // [2][TILE] value tiles
-  unsigned char* Ps = Vs + 2 * TILE_BYTES;       // [2][TILE] p tiles
-  unsigned char* Qs = Ps + 2 * TILE_BYTES;       // [Tp] all queries
-  unsigned char* dOs = Qs + (size_t)Tp * ROW;    // [Tp]
-  float* dl = reinterpret_cast<float*>(dOs + (size_t)Tp * ROW);  // [Tp] delta of every query
+  unsigned char* Vs = sm;                          // [2][TILE] value tiles
+  unsigned char* Ps = Vs + 2 * TB;                 // [2][TILE] p tiles
+  unsigned char* Qs = Ps + 2 * TILE_BYTES;         // [Tp] all queries
+  unsigned char* dOs = Qs + (size_t)Tp * L::ROWB;  // [Tp]
+  float* dl = reinterpret_cast<float*>(dOs + (size_t)Tp * L::ROWB);  // [Tp] delta of every query
   const uint32_t sV = smem_addr(Vs), sP = smem_addr(Ps), sQ = smem_addr(Qs), sdO = smem_addr(dOs);
 
-  const int b = blockIdx.y, F = 3 * H * D, ldo = H * D;
+  const int b = blockIdx.y, F = 3 * H * DH, ldo = H * DH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
-  const bf16* base = qkv + (size_t)b * T * F;
+  const float sc = scale_of<DH, FIXED>(scale);
+  const E* base = qkv + (size_t)b * T * F;
 
   for (int h = blockIdx.x * hg; h < (blockIdx.x + 1) * hg; ++h) {
-    const bf16 *qsrc = base + 3 * h * D, *vsrc = qsrc + 2 * D;
-    const bf16* dsrc = dout + (size_t)b * T * ldo + h * D;
+    const E *qsrc = base + 3 * h * DH, *vsrc = qsrc + 2 * DH;
+    const E* dsrc = dout + (size_t)b * T * ldo + h * DH;
     const uint32_t bh = (uint32_t)(b * H + h);
     const bf16* pb = probs + (size_t)bh * T * ldp;
     __syncthreads();
-    issue_tile(sV, vsrc, 0, T, F);
-    issue_tile(sQ, qsrc, 0, T, F);
-    issue_tile(sdO, dsrc, 0, T, ldo);
+    issue_tile_v<E, DH>(sV, vsrc, 0, T, F);
+    issue_tile_v<E, DH>(sQ, qsrc, 0, T, F);
+    issue_tile_v<E, DH>(sdO, dsrc, 0, T, ldo);
     issue_p(sP, pb, 0, 0, T, ldp);
     cp_commit();
     for (int i = threadIdx.x; i < Tp; i += NT) dl[i] = i < T ? delta_g[(size_t)bh * T + i] : 0.f;
 
-    float dk[32], dv[32];
+    float dk[NP][32], dv[NP][32];
     for (int n = 0; n < nsteps; ++n) {
       const int kt = n / ntl, qc = n - kt * ntl;
       __syncthreads();
@@ -439,10 +475,10 @@ attn_sp_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ pr
         issue_p(sP + ((n + 1) & 1) * TILE_BYTES, pb, (n + 1 - nk * ntl) * TILE, nk * TILE, T, ldp);
       }
       if (kt == 0 && qc + 1 < ntl) {
-        issue_tile(sQ + (qc + 1) * TILE_BYTES, qsrc, (qc + 1) * TILE, T, F);
-        issue_tile(sdO + (qc + 1) * TILE_BYTES, dsrc, (qc + 1) * TILE, T, ldo);
+        issue_tile_v<E, DH>(sQ + (qc + 1) * TB, qsrc, (qc + 1) * TILE, T, F);
+        issue_tile_v<E, DH>(sdO + (qc + 1) * TB, dsrc, (qc + 1) * TILE, T, ldo);
       }
-      if (qc == 0 && kt + 1 < ntl) issue_tile(sV + ((kt + 1) & 1) * TILE_BYTES, vsrc, (kt + 1) * TILE, T, F);
+      if (qc == 0 && kt + 1 < ntl) issue_tile_v<E, DH>(sV + ((kt + 1) & 1) * TB, vsrc, (kt + 1) * TILE, T, F);
       cp_commit();
       cp_wait<1>();
       fence_async();
@@ -450,14 +486,14 @@ attn_sp_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ pr
 
       const int key[2] = {kt * TILE + warp * 16 + g, kt * TILE + warp * 16 + g + 8};
       if (qc == 0) {
-        zero(dk);
-        zero(dv);
+        zero_t(dk);
+        zero_t(dv);
       }
       // dP^T = V dO^T: 64 keys x 64 queries
       float dp[32], s[32];
       uint32_t pr[8][2];
       wg_fence();
-      product_ss(dp, sV + (kt & 1) * TILE_BYTES, sdO + qc * TILE_BYTES);
+      product_ss_v<E, DH>(dp, sV + (kt & 1) * TB, sdO + qc * TB);
       wg_commit();
       load_p_frag<true>(pr, sP + (n & 1) * TILE_BYTES, warp, lane);
       wg_wait();
@@ -484,22 +520,22 @@ attn_sp_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ pr
         }
       }
       uint32_t pa[4][4], sa[4][4];
-      to_a(pa, s);
-      to_a(sa, dp);
+      to_a_v<E>(pa, s);
+      to_a_v<E>(sa, dp);
       wg_fence();
-      product_rs(dv, pa, sdO + qc * TILE_BYTES);
-      product_rs(dk, sa, sQ + qc * TILE_BYTES);
+      product_rs_v<E, DH>(dv, pa, sdO + qc * TB);
+      product_rs_v<E, DH>(dk, sa, sQ + qc * TB);
       wg_commit();
       wg_wait();
-      reg_fence(dv);
-      reg_fence(dk);
+      reg_fence_t(dv);
+      reg_fence_t(dk);
       reg_fence(pa);
       reg_fence(sa);
       if (qc == ntl - 1) {
         const bool ok0 = key[0] < T, ok1 = key[1] < T;
-        bf16* dst = dqkv + (size_t)b * T * F + 3 * h * D;
-        store_rows(dst + D, dk, SCALE, key[0], key[1], ok0, ok1, F, tq);
-        store_rows(dst + 2 * D, dv, 1.f, key[0], key[1], ok0, ok1, F, tq);
+        E* dst = dqkv + (size_t)b * T * F + 3 * h * DH;
+        store_rows_v<E, DH>(dst + DH, dk, sc, key[0], key[1], ok0, ok1, F, tq);
+        store_rows_v<E, DH>(dst + 2 * DH, dv, 1.f, key[0], key[1], ok0, ok1, F, tq);
       }
     }
   }
@@ -507,50 +543,115 @@ attn_sp_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ pr
 
 // ---------------------------------------------------------------- launches
 
+template <typename E, int DH, bool FIXED>
 const void* kernel_of(int which) {
   switch (which) {
-    case 0: return (const void*)attn_sp_fwd_kernel;
-    case 1: return (const void*)attn_sp_bwd_dq_kernel;
-    case 2: return (const void*)attn_sp_bwd_dkv_kernel;
+    case 0: return (const void*)attn_sp_fwd_kernel<E, DH, FIXED>;
+    case 1: return (const void*)attn_sp_bwd_dq_kernel<E, DH, FIXED>;
+    case 2: return (const void*)attn_sp_bwd_dkv_kernel<E, DH, FIXED>;
     default: return nullptr;
   }
 }
 
-size_t bytes_of(int which, int T) { return which == 0 ? fwd_bytes(T) : (which == 1 ? dq_bytes(T) : dkv_bytes(T)); }
+template <int DH>
+size_t bytes_of(int which, int T) {
+  return which == 0 ? fwd_bytes<DH>(T) : (which == 1 ? dq_bytes<DH>(T) : dkv_bytes<DH>(T));
+}
 
+template <int DH>
+size_t smem_bytes(int T) {
+  size_t m = fwd_bytes<DH>(T);
+  if (dq_bytes<DH>(T) > m) m = dq_bytes<DH>(T);
+  return dkv_bytes<DH>(T) > m ? dkv_bytes<DH>(T) : m;
+}
+
+template <typename E, int DH, bool FIXED>
 cudaError_t prepare(int which, int T) {
-  return cudaFuncSetAttribute(kernel_of(which), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes_of(which, T));
+  return cudaFuncSetAttribute(kernel_of<E, DH, FIXED>(which), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes_of<DH>(which, T));
 }
 
 bool bad_layout(int T, int H, int hg, int ldp) { return hg <= 0 || H % hg || ldp < T || ldp % 8; }
 
+template <typename E, int DH, bool FIXED>
+int launch_fwd(const void* qkv, const void* key_bias, void* out, void* probs, int B, int T, int H, int hg, int ldp,
+               unsigned int seed, unsigned int threshold, float inv, int dropout, float scale, cudaStream_t s) {
+  if (bad_layout(T, H, hg, ldp)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare<E, DH, FIXED>(0, T);
+  if (err != cudaSuccess) return (int)err;
+  attn_sp_fwd_kernel<E, DH, FIXED><<<dim3(H / hg, B), NT, fwd_bytes<DH>(T), s>>>(
+      static_cast<const E*>(qkv), static_cast<const float*>(key_bias), static_cast<E*>(out),
+      static_cast<bf16*>(probs), T, H, hg, ldp, seed, threshold, inv, dropout, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename E, int DH, bool FIXED>
+int launch_bwd(const void* qkv, const void* probs, const void* dout, const void* out, void* dqkv, void* delta, int B,
+               int T, int H, int hg_dq, int hg_dkv, int ldp, int passes, unsigned int seed, unsigned int threshold,
+               float inv, int dropout, float scale, cudaStream_t s) {
+  if (bad_layout(T, H, hg_dq, ldp) || bad_layout(T, H, hg_dkv, ldp) || passes < 1 || passes > 3)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare<E, DH, FIXED>(1, T);
+  if (err != cudaSuccess) return (int)err;
+  err = prepare<E, DH, FIXED>(2, T);
+  if (err != cudaSuccess) return (int)err;
+  if (passes & 1) {
+    attn_sp_bwd_dq_kernel<E, DH, FIXED><<<dim3(H / hg_dq, B), NT, dq_bytes<DH>(T), s>>>(
+        static_cast<const E*>(qkv), static_cast<const bf16*>(probs), static_cast<const E*>(dout),
+        static_cast<const E*>(out), static_cast<E*>(dqkv), static_cast<float*>(delta), T, H, hg_dq, ldp, seed,
+        threshold, inv, dropout, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (passes & 2) {
+    attn_sp_bwd_dkv_kernel<E, DH, FIXED><<<dim3(H / hg_dkv, B), NT, dkv_bytes<DH>(T), s>>>(
+        static_cast<const E*>(qkv), static_cast<const bf16*>(probs), static_cast<const E*>(dout),
+        static_cast<const float*>(delta), static_cast<E*>(dqkv), T, H, hg_dkv, ldp, seed, threshold, inv, dropout,
+        scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The form of element type `dtype` (0 bf16, 1 fp16) and head dim dh (64,
+// 128) with the scale an argument: 0 bf16/64, 1 bf16/128, 2 fp16/64, 3
+// fp16/128; -1 for any other.
+int form(int dtype, int dh) {
+  if ((dtype != 0 && dtype != 1) || (dh != 64 && dh != 128)) return -1;
+  return 2 * dtype + (dh == 128);
+}
+
+const void* kernel_of_form(int f, int which) {
+  switch (f) {
+    case 0: return kernel_of<bf16, 64, false>(which);
+    case 1: return kernel_of<bf16, 128, false>(which);
+    case 2: return kernel_of<__half, 64, false>(which);
+    case 3: return kernel_of<__half, 128, false>(which);
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
-// The largest dynamic shared memory of the three kernels at T.
-extern "C" size_t vb_attn_sp_smem_bytes(int T) {
-  size_t m = fwd_bytes(T);
-  if (dq_bytes(T) > m) m = dq_bytes(T);
-  return dkv_bytes(T) > m ? dkv_bytes(T) : m;
-}
+// The largest dynamic shared memory of the three kernels at T (bf16, D = 64).
+extern "C" size_t vb_attn_sp_smem_bytes(int T) { return smem_bytes<64>(T); }
 
-// Kernel `which` (0 K13, 1 K14's dQ pass, 2 its dK/dV pass): `what` 0 its
-// registers a thread, 1 its local (spill) bytes a thread, 2 its dynamic
-// shared memory at T, 3 its resident blocks per SM at T. -1 on an error.
+// Kernel `which` (0 K13, 1 K14's dQ pass, 2 its dK/dV pass) of bf16 at D =
+// 64: `what` 0 its registers a thread, 1 its local (spill) bytes a thread, 2
+// its dynamic shared memory at T, 3 its resident blocks per SM at T. -1 on
+// an error.
 extern "C" int vb_attn_sp_info(int which, int what, int T) {
-  return kernel_info(kernel_of(which), bytes_of(which, T), what);
+  return kernel_info(kernel_of<bf16, 64, true>(which), bytes_of<64>(which, T), what);
 }
 
-// probs: [B, H, T, ldp] storage of the [B, H, T, T] probabilities.
+// The bf16, D = 64 entry points (scale 1 / 8, a constant of the kernels);
+// tools that build an earlier tree's source launch them with these
+// signatures. probs: [B, H, T, ldp] storage of the [B, H, T, T]
+// probabilities.
 extern "C" int vb_attn_sp_fwd(const void* qkv, const void* key_bias, void* out, void* probs, int B, int T, int H,
                               int hg, int ldp, unsigned int seed, unsigned int threshold, float inv, int dropout,
                               void* stream) {
-  if (bad_layout(T, H, hg, ldp)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare(0, T);
-  if (err != cudaSuccess) return (int)err;
-  attn_sp_fwd_kernel<<<dim3(H / hg, B), NT, fwd_bytes(T), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(key_bias), static_cast<bf16*>(out),
-      static_cast<bf16*>(probs), T, H, hg, ldp, seed, threshold, inv, dropout);
-  return (int)cudaGetLastError();
+  return launch_fwd<bf16, 64, true>(qkv, key_bias, out, probs, B, T, H, hg, ldp, seed, threshold, inv, dropout,
+                                    0.125f, static_cast<cudaStream_t>(stream));
 }
 
 // delta [B, H, T] fp32 is scratch the caller allocates, written by the dQ
@@ -560,25 +661,55 @@ extern "C" int vb_attn_sp_fwd(const void* qkv, const void* key_bias, void* out, 
 extern "C" int vb_attn_sp_bwd(const void* qkv, const void* probs, const void* dout, const void* out, void* dqkv,
                               void* delta, int B, int T, int H, int hg_dq, int hg_dkv, int ldp, int passes,
                               unsigned int seed, unsigned int threshold, float inv, int dropout, void* stream) {
-  if (bad_layout(T, H, hg_dq, ldp) || bad_layout(T, H, hg_dkv, ldp) || passes < 1 || passes > 3)
-    return (int)cudaErrorInvalidValue;
+  return launch_bwd<bf16, 64, true>(qkv, probs, dout, out, dqkv, delta, B, T, H, hg_dq, hg_dkv, ldp, passes, seed,
+                                    threshold, inv, dropout, 0.125f, static_cast<cudaStream_t>(stream));
+}
+
+// Every other form: dtype 0 bf16, 1 fp16; dh the kernel's head dim, 64 or
+// 128 (the caller zero-pads the heads to it); scale the softmax scale of the
+// unpadded head dim; the probabilities bf16 in every form. The largest
+// dynamic shared memory of the three kernels at dh and T (0 for a dh not
+// built).
+extern "C" size_t vb_attn_sp_x_smem_bytes(int dh, int T) {
+  return dh == 64 ? smem_bytes<64>(T) : (dh == 128 ? smem_bytes<128>(T) : 0);
+}
+
+extern "C" int vb_attn_sp_x_info(int dtype, int dh, int which, int what, int T) {
+  const int f = form(dtype, dh);
+  if (f < 0) return -1;
+  return kernel_info(kernel_of_form(f, which), dh == 64 ? bytes_of<64>(which, T) : bytes_of<128>(which, T), what);
+}
+
+extern "C" int vb_attn_sp_x_fwd(const void* qkv, const void* key_bias, void* out, void* probs, int B, int T, int H,
+                                int hg, int ldp, unsigned int seed, unsigned int threshold, float inv, int dropout,
+                                int dtype, int dh, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = prepare(1, T);
-  if (err != cudaSuccess) return (int)err;
-  err = prepare(2, T);
-  if (err != cudaSuccess) return (int)err;
-  if (passes & 1) {
-    attn_sp_bwd_dq_kernel<<<dim3(H / hg_dq, B), NT, dq_bytes(T), s>>>(
-        static_cast<const bf16*>(qkv), static_cast<const bf16*>(probs), static_cast<const bf16*>(dout),
-        static_cast<const bf16*>(out), static_cast<bf16*>(dqkv), static_cast<float*>(delta), T, H, hg_dq, ldp, seed,
-        threshold, inv, dropout);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+#define VB_FWD(E, D) \
+  launch_fwd<E, D, false>(qkv, key_bias, out, probs, B, T, H, hg, ldp, seed, threshold, inv, dropout, scale, s)
+  switch (form(dtype, dh)) {
+    case 0: return VB_FWD(bf16, 64);
+    case 1: return VB_FWD(bf16, 128);
+    case 2: return VB_FWD(__half, 64);
+    case 3: return VB_FWD(__half, 128);
+    default: return (int)cudaErrorInvalidValue;
   }
-  if (passes & 2) {
-    attn_sp_bwd_dkv_kernel<<<dim3(H / hg_dkv, B), NT, dkv_bytes(T), s>>>(
-        static_cast<const bf16*>(qkv), static_cast<const bf16*>(probs), static_cast<const bf16*>(dout),
-        static_cast<const float*>(delta), static_cast<bf16*>(dqkv), T, H, hg_dkv, ldp, seed, threshold, inv, dropout);
+#undef VB_FWD
+}
+
+extern "C" int vb_attn_sp_x_bwd(const void* qkv, const void* probs, const void* dout, const void* out, void* dqkv,
+                                void* delta, int B, int T, int H, int hg_dq, int hg_dkv, int ldp, int passes,
+                                unsigned int seed, unsigned int threshold, float inv, int dropout, int dtype, int dh,
+                                float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VB_BWD(E, D)                                                                                                \
+  launch_bwd<E, D, false>(qkv, probs, dout, out, dqkv, delta, B, T, H, hg_dq, hg_dkv, ldp, passes, seed, threshold, \
+                          inv, dropout, scale, s)
+  switch (form(dtype, dh)) {
+    case 0: return VB_BWD(bf16, 64);
+    case 1: return VB_BWD(bf16, 128);
+    case 2: return VB_BWD(__half, 64);
+    case 3: return VB_BWD(__half, 128);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef VB_BWD
 }

@@ -558,6 +558,69 @@ __device__ __forceinline__ void pair_delta_t(const E* __restrict__ dout, const E
   }
 }
 
+// ------------------------------- the bf16, D = 64 form of K11-K14's bodies
+//
+// K11-K14's bodies are templates on <E, DH> (flash_attention.cu,
+// flash_attention_sp.cu). At bf16 and DH = 64 they call the helpers their
+// bodies called before the templates (issue_tile, product_ss, product_rs,
+// to_a, pair_delta, store_rows), so that form compiles to the machine code
+// it had; the *_t helpers (index arithmetic over DH / 8 chunks, loads
+// interleaved with the sums) compile to other code. Every other form calls
+// the *_t helpers.
+
+template <typename E, int DH>
+constexpr bool kMainForm = std::is_same<E, bf16>::value && DH == 64;
+
+template <typename E, int DH>
+__device__ __forceinline__ void issue_tile_v(uint32_t dst, const E* __restrict__ src, int t0, int T, int ld) {
+  if constexpr (kMainForm<E, DH>)
+    issue_tile(dst, src, t0, T, ld);
+  else
+    issue_tile_t<E, DH>(dst, src, t0, T, ld);
+}
+
+template <typename E, int DH>
+__device__ __forceinline__ void product_ss_v(float (&d)[32], uint32_t a, uint32_t b) {
+  if constexpr (kMainForm<E, DH>)
+    product_ss(d, a, b);
+  else
+    product_ss_t<E, DH>(d, a, b);
+}
+
+template <typename E, int DH>
+__device__ __forceinline__ void product_rs_v(float (&d)[Tile<DH>::NP][32], const uint32_t (&a)[4][4], uint32_t b) {
+  if constexpr (kMainForm<E, DH>)
+    product_rs(d[0], a, b);
+  else
+    product_rs_t<E, DH>(d, a, b);
+}
+
+template <typename E>
+__device__ __forceinline__ void to_a_v(uint32_t (&a)[4][4], const float (&s)[32]) {
+  if constexpr (std::is_same<E, bf16>::value)
+    to_a(a, s);
+  else
+    to_a_t<E>(a, s);
+}
+
+template <typename E, int DH>
+__device__ __forceinline__ void pair_delta_v(const E* __restrict__ dout, const E* __restrict__ out, int ld, float* dl,
+                                             float* __restrict__ delta_g, int T, int Tp) {
+  if constexpr (kMainForm<E, DH>)
+    pair_delta(dout, out, ld, dl, delta_g, T, Tp);
+  else
+    pair_delta_t<E, DH>(dout, out, ld, dl, delta_g, T, Tp);
+}
+
+template <typename E, int DH>
+__device__ __forceinline__ void store_rows_v(E* __restrict__ dst, const float (&acc)[Tile<DH>::NP][32], float scale,
+                                             int row0, int row1, bool ok0, bool ok1, int ld, int tq) {
+  if constexpr (kMainForm<E, DH>)
+    store_rows(dst, acc[0], scale, row0, row1, ok0, ok1, ld, tq);
+  else
+    store_rows_t<E, DH>(dst, acc, scale, row0, row1, ok0, ok1, ld, tq);
+}
+
 // ------------------------------------------------------------- launches
 
 // Of kernel fn (nullptr: -1) at `bytes` of dynamic shared memory: `what` 0

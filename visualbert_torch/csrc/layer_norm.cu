@@ -82,6 +82,28 @@
 //   count is fixed for a given card and shape and repeats are bit for bit.
 //   Small blocks (4 warps) keep a block of the previous launch that still
 //   runs on an SM from taking a large share of it.
+//
+// Any width (the JAX kernels take any H as one row block). The design above
+// takes H a multiple of 8 up to 1024 (its 16-byte loads need 16-byte rows;
+// 32 lanes x 8 elements x MAX_CHUNKS), and those widths keep it and its
+// machine code. Every other width up to MAX_WIDTH = 4096 (ALBERT-xxlarge's
+// hidden width) runs the any-width pair (ln_fwd_any_kernel,
+// ln_bwd_any_kernel), a first design that is right and simple:
+// - H not a multiple of 8 up to 1024: a warp a row as above, each lane's
+//   8-element chunks loaded and stored element by element with the row's
+//   tail masked (rows are not 16-byte aligned, so the wrapper does not ask
+//   for alignment); K9's keep bits are ceil(H / 8) bytes a row, byte j for
+//   elements 8 j .. 8 j + 7 of the row, the tail's high bits 0, and each
+//   chunk draws the Philox calls that cover its elements (up to three: a
+//   chunk starts at any element of the flattened tensor).
+// - H above 1024: the block's 4 warps own a row (ANY_CHUNKS chunks a
+//   thread, the row sums through shared memory in warp order), with 16-byte
+//   loads when H is a multiple of 8 and element loads otherwise.
+// - The backward walks its rows with plain loads (no ring); each thread
+//   keeps its chunks' dscale/dbias partials, the block writes one partial
+//   row ([2, H] fp32: the warps' partials added in warp order when a warp
+//   owns a row, each thread's own columns when the block does) and the
+//   reduce pass sums the rows in a fixed order, as above.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -101,6 +123,9 @@ constexpr int WARPS = 4;          // rows in flight per block (forward); warps p
 constexpr int STAGES = VB_LN_STAGES;  // the backward's ring stages a warp
 constexpr int MAX_CHUNKS = 4;     // 8-element chunks per lane: H <= 32 * 8 * 4 = 1024
 constexpr int REDUCE_ROWS = 16;    // thread rows of the partial-row sum
+constexpr int WARP_WIDTH = 32 * 8 * MAX_CHUNKS;  // the widest row a warp owns: 1024
+constexpr int ANY_CHUNKS = 4;     // 8-element chunks a thread in the any-width forms
+constexpr int MAX_WIDTH = WARPS * 32 * 8 * ANY_CHUNKS;  // the widest row: 4096
 static_assert(STAGES >= 2, "the ring needs a stage to compute and one in flight");
 
 struct LnArgs {
@@ -516,6 +541,346 @@ __global__ void __launch_bounds__(32 * REDUCE_ROWS) ln_bwd_reduce_kernel(const f
     dbias[i - H] = acc;
 }
 
+// ------------------------------------------------------- the any-width forms
+
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void from_f(__half* p, float v) { *p = __float2half(v); }
+__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
+
+// The n (<= 8) elements at p into v, zeros past n: one 16-byte load (two
+// for fp32) with VEC (n == 8 on a 16-byte boundary), else element loads.
+template <bool VEC, typename T>
+__device__ __forceinline__ void load_n(const T* p, float* v, int n) {
+  if (VEC) {
+    load8(p, v);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = k < n ? to_f(p[k]) : 0.f;
+}
+
+template <bool VEC, typename T>
+__device__ __forceinline__ void store_n(T* p, const float* v, int n) {
+  if (VEC) {
+    store8(p, v);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    if (k < n) from_f(p + k, v[k]);
+}
+
+// Bit k set when element e0 + k (k < n) of the flattened tensor is kept:
+// word e % 4 of the Philox call at counter e / 4, for the up to three calls
+// that cover [e0, e0 + n).
+__device__ __forceinline__ unsigned keep_bits_at(long long e0, int n, uint32_t seed, uint32_t threshold) {
+  unsigned bits = 0;
+  const long long q1 = (e0 + n - 1) >> 2;
+  for (long long q = e0 >> 2; q <= q1; ++q) {
+    const uint4 r = vb::philox4x32_10(make_uint4((uint32_t)q, (uint32_t)(q >> 32), 0u, 1u), make_uint2(seed, 0u));
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long k = 4 * q + i - e0;
+      if (k >= 0 && k < n && w[i] >= threshold) bits |= 1u << k;
+    }
+  }
+  return bits;
+}
+
+// The sum of v over the WPR warps that own a row (WPR 1: the warp's shuffle
+// sum; else through red[WARPS] in warp order, every thread of the block
+// calling it together).
+template <int WPR>
+__device__ __forceinline__ float row_sum(float v, float* red) {
+  v = warp_sum(v);
+  if (WPR == 1) return v;
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();  // the last call's readers are done with red
+  if ((threadIdx.x & 31) == 0) red[warp] = v;
+  __syncthreads();
+  float t = 0.f;
+  const int w0 = warp / WPR * WPR;
+#pragma unroll
+  for (int w = 0; w < WPR; ++w) t += red[w0 + w];
+  return t;
+}
+
+// Where a thread of the any-width forms works: WPR warps own a row, the
+// block WARPS / WPR rows; t is the thread's place among its row's threads,
+// its chunks t, t + 32 WPR, ...
+template <int WPR>
+struct AnyPlace {
+  int t, group;
+  __device__ __forceinline__ AnyPlace()
+      : t((threadIdx.x >> 5) % WPR * 32 + (threadIdx.x & 31)), group((threadIdx.x >> 5) / WPR) {}
+};
+
+// K7 (DROPOUT false) and K9 at any width: WPR warps a row; VEC with H a
+// multiple of 8 (16-byte rows).
+template <typename T, bool DROPOUT, bool VEC, int WPR>
+__global__ void __launch_bounds__(WARPS * 32) ln_fwd_any_kernel(const LnArgs a) {
+  __shared__ float red[WARPS];
+  const AnyPlace<WPR> at;
+  const long long row = (long long)blockIdx.x * (WARPS / WPR) + at.group;
+  if (row >= a.N) return;  // the whole row's warps
+  const int chunks = (a.H + 7) >> 3;
+  float s[ANY_CHUNKS][8];
+  unsigned kb[ANY_CHUNKS];
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < ANY_CHUNKS; ++c) {
+    const int ch = at.t + 32 * WPR * c;
+    if (ch < chunks) {
+      const int n = min(8, a.H - 8 * ch);
+      const long long off = row * a.H + ch * 8;
+      float xv[8], rv[8];
+      load_n<VEC>(static_cast<const T*>(a.x) + off, xv, n);
+      load_n<VEC>(static_cast<const T*>(a.res) + off, rv, n);
+      kb[c] = DROPOUT ? keep_bits_at(off, n, a.seed, a.threshold) : 0xffu;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float v = DROPOUT ? ((kb[c] >> k & 1u) ? xv[k] / a.keep_prob : 0.f) : xv[k];
+        s[c][k] = k < n ? v + rv[k] : 0.f;
+        sum += s[c][k];
+      }
+    }
+  }
+  const float mu = row_sum<WPR>(sum, red) / a.H;
+  float sq = 0.f;
+#pragma unroll
+  for (int c = 0; c < ANY_CHUNKS; ++c) {
+    const int ch = at.t + 32 * WPR * c;
+    if (ch < chunks) {
+      const int n = min(8, a.H - 8 * ch);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float d = k < n ? s[c][k] - mu : 0.f;
+        sq += d * d;
+      }
+    }
+  }
+  const float rstd = rsqrtf(row_sum<WPR>(sq, red) / a.H + a.eps);
+#pragma unroll
+  for (int c = 0; c < ANY_CHUNKS; ++c) {
+    const int ch = at.t + 32 * WPR * c;
+    if (ch < chunks) {
+      const int n = min(8, a.H - 8 * ch);
+      float sc[8], bi[8], out[8];
+      load_n<VEC>(a.scale + ch * 8, sc, n);
+      load_n<VEC>(a.bias + ch * 8, bi, n);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) out[k] = (s[c][k] - mu) * rstd * sc[k] + bi[k];
+      store_n<VEC>(static_cast<T*>(a.y) + row * a.H + ch * 8, out, n);
+    }
+  }
+  if (DROPOUT) {
+#pragma unroll
+    for (int c = 0; c < ANY_CHUNKS; ++c) {
+      const int ch = at.t + 32 * WPR * c;
+      if (ch < chunks) a.bits[row * chunks + ch] = (uint8_t)kb[c];
+    }
+  }
+  if (at.t == 0) {
+    a.mu[row] = mu;
+    a.rstd[row] = rstd;
+  }
+}
+
+// K8 (DROPOUT false) and K10 at any width: the block's row groups walk rows
+// blockIdx.x * (WARPS / WPR) + group, then every gridDim.x * (WARPS / WPR)
+// further, with plain loads; dx (and dres), and the block's partial row of
+// dscale, dbias. Dynamic shared memory: any_bwd_smem_bytes(H, WPR).
+template <typename T, bool DROPOUT, bool VEC, int WPR>
+__global__ void __launch_bounds__(WARPS * 32) ln_bwd_any_kernel(const LnArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ float red[WARPS];
+  const AnyPlace<WPR> at;
+  const int chunks = (a.H + 7) >> 3;
+  const long long stride = (long long)gridDim.x * (WARPS / WPR);
+  const float rcp = 1.f / a.keep_prob;
+  float gs[ANY_CHUNKS][8], gb[ANY_CHUNKS][8];
+#pragma unroll
+  for (int c = 0; c < ANY_CHUNKS; ++c)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) gs[c][k] = gb[c][k] = 0.f;
+
+  // a block's row groups take the same number of turns when WPR == WARPS
+  // (one group), so every thread reaches row_sum's barriers together
+  for (long long row = (long long)blockIdx.x * (WARPS / WPR) + at.group; row < a.N; row += stride) {
+    const float m = a.mu[row], r = a.rstd[row];
+    float xh[ANY_CHUNKS][8];
+    unsigned kb[ANY_CHUNKS];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int c = 0; c < ANY_CHUNKS; ++c) {
+      const int ch = at.t + 32 * WPR * c;
+      if (ch < chunks) {
+        const int n = min(8, a.H - 8 * ch);
+        const long long off = row * a.H + ch * 8;
+        float xv[8], rv[8], dv[8], sc[8];
+        load_n<VEC>(static_cast<const T*>(a.x) + off, xv, n);
+        load_n<VEC>(static_cast<const T*>(a.res) + off, rv, n);
+        load_n<VEC>(static_cast<const T*>(a.dy) + off, dv, n);
+        load_n<VEC>(a.scale + ch * 8, sc, n);
+        kb[c] = DROPOUT ? (unsigned)a.bits[row * chunks + ch] : 0xffu;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float v = DROPOUT ? ((kb[c] >> k & 1u) ? div_by(xv[k], a.keep_prob, rcp) : 0.f) : xv[k];
+          xh[c][k] = k < n ? (v + rv[k] - m) * r : 0.f;
+          const float g = __fmul_rn(dv[k], sc[k]);  // rounded, as the plain version's g
+          s1 += g;
+          s2 += g * xh[c][k];
+          gs[c][k] += dv[k] * xh[c][k];
+          gb[c][k] += dv[k];
+        }
+      }
+    }
+    const float m1 = row_sum<WPR>(s1, red) / a.H, m2 = row_sum<WPR>(s2, red) / a.H;
+#pragma unroll
+    for (int c = 0; c < ANY_CHUNKS; ++c) {
+      const int ch = at.t + 32 * WPR * c;
+      if (ch < chunks) {
+        const int n = min(8, a.H - 8 * ch);
+        const long long off = row * a.H + ch * 8;
+        float dv[8], sc[8], ds[8], dx[8];
+        load_n<VEC>(static_cast<const T*>(a.dy) + off, dv, n);
+        load_n<VEC>(a.scale + ch * 8, sc, n);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          ds[k] = r * (__fmul_rn(dv[k], sc[k]) - m1 - xh[c][k] * m2);
+          dx[k] = DROPOUT ? ((kb[c] >> k & 1u) ? div_by(ds[k], a.keep_prob, rcp) : 0.f) : ds[k];
+        }
+        store_n<VEC>(static_cast<T*>(a.y) + off, dx, n);
+        if (a.dres != nullptr) store_n<VEC>(static_cast<T*>(a.dres) + off, ds, n);
+      }
+    }
+  }
+
+  float* part = a.part + (long long)blockIdx.x * 2 * a.H;
+  if (WPR == WARPS) {
+    // the block owns each row: every thread writes its own columns
+#pragma unroll
+    for (int c = 0; c < ANY_CHUNKS; ++c) {
+      const int ch = at.t + 32 * WPR * c;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int i = ch * 8 + k;
+        if (ch < chunks && i < a.H) {
+          part[i] = gs[c][k];
+          part[a.H + i] = gb[c][k];
+        }
+      }
+    }
+    return;
+  }
+  // the warps' partials added in warp order in shared memory ([2, H] fp32)
+  float* acc = reinterpret_cast<float*>(smem);
+  const int warp = threadIdx.x >> 5;
+  for (int w = 0; w < WARPS; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int c = 0; c < ANY_CHUNKS; ++c) {
+        const int ch = at.t + 32 * WPR * c;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int i = ch * 8 + k;
+          if (ch < chunks && i < a.H) {
+            acc[i] = (w == 0 ? 0.f : acc[i]) + gs[c][k];
+            acc[a.H + i] = (w == 0 ? 0.f : acc[a.H + i]) + gb[c][k];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < 2 * a.H; i += blockDim.x) part[i] = acc[i];
+}
+
+// The any-width backward's dynamic shared memory: the block's [2, H] fp32
+// partial row when warps own rows, none when the block does.
+__host__ __device__ constexpr int any_bwd_smem_bytes(int H, int wpr) { return wpr == 1 ? 2 * H * 4 : 0; }
+
+// The form of width H: 0 the vector form (a warp a row, H a multiple of 8
+// up to WARP_WIDTH), 1 a warp a row with element loads (other widths up to
+// WARP_WIDTH), 2 a block a row with 16-byte loads (H a multiple of 8 above
+// WARP_WIDTH), 3 a block a row with element loads; -1 outside 1..MAX_WIDTH.
+int width_form(int H) {
+  if (H < 1 || H > MAX_WIDTH) return -1;
+  if (H <= WARP_WIDTH) return H % 8 ? 1 : 0;
+  return H % 8 ? 3 : 2;
+}
+
+// Calls L<T, VEC, WPR>::run(args...) for the any-width form f (1-3) of dtype.
+template <template <typename, bool, int> class L, typename... Args>
+int dispatch_any(int dtype, int f, Args... args) {
+#define VB_ANY(T)                                        \
+  switch (f) {                                           \
+    case 1: return L<T, false, 1>::run(args...);         \
+    case 2: return L<T, true, WARPS>::run(args...);      \
+    case 3: return L<T, false, WARPS>::run(args...);     \
+    default: return (int)cudaErrorInvalidValue;          \
+  }
+  switch (dtype) {
+    case kBf16: VB_ANY(__nv_bfloat16)
+    case kFp16: VB_ANY(__half)
+    case kFp32: VB_ANY(float)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VB_ANY
+}
+
+template <typename T, bool VEC, int WPR>
+struct FwdAny {
+  static int run(const LnArgs& a, bool dropout, cudaStream_t st) {
+    const unsigned blocks = (unsigned)((a.N + WARPS / WPR - 1) / (WARPS / WPR));
+    if (dropout)
+      ln_fwd_any_kernel<T, true, VEC, WPR><<<blocks, WARPS * 32, 0, st>>>(a);
+    else
+      ln_fwd_any_kernel<T, false, VEC, WPR><<<blocks, WARPS * 32, 0, st>>>(a);
+    return 0;
+  }
+};
+
+template <typename T, bool VEC, int WPR>
+struct BwdAny {
+  static int run(const LnArgs& a, int P, bool dropout, cudaStream_t st) {
+    const size_t smem = any_bwd_smem_bytes(a.H, WPR);
+    if (dropout)
+      ln_bwd_any_kernel<T, true, VEC, WPR><<<P, WARPS * 32, smem, st>>>(a);
+    else
+      ln_bwd_any_kernel<T, false, VEC, WPR><<<P, WARPS * 32, smem, st>>>(a);
+    return 0;
+  }
+};
+
+// One of K7-K10 at width H in an any-width form: as Info below; `what` 4
+// the rows a block owns.
+template <typename T, bool VEC, int WPR>
+struct InfoAny {
+  static int run(int kernel, int what, int H) {
+    const bool bwd = kernel == 8 || kernel == 10;
+    const void* fn = kernel == 7    ? (const void*)ln_fwd_any_kernel<T, false, VEC, WPR>
+                     : kernel == 8  ? (const void*)ln_bwd_any_kernel<T, false, VEC, WPR>
+                     : kernel == 9  ? (const void*)ln_fwd_any_kernel<T, true, VEC, WPR>
+                                    : (const void*)ln_bwd_any_kernel<T, true, VEC, WPR>;
+    const int smem = bwd ? any_bwd_smem_bytes(H, WPR) : 0;
+    if (what == 0 || what == 1) {
+      cudaFuncAttributes attr;
+      if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess) return -1;
+      return what == 0 ? attr.numRegs : (int)attr.localSizeBytes;
+    }
+    if (what == 2) return smem;
+    if (what == 4) return WARPS / WPR;
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, WARPS * 32, smem) != cudaSuccess) return -1;
+    return n;
+  }
+};
+
 // Calls L<T, NC>::run(args...) with NC = the lanes' chunk count for H.
 template <template <typename, int> class L, typename T, typename... Args>
 int dispatch_nc(int H, Args... args) {
@@ -612,25 +977,27 @@ struct Info {
 }  // namespace
 
 // What the wrapper needs to check inputs and plan the backward: 0 the
-// widest row the kernels take, 1 the rows (warps) of a block, 2 the
-// backward's ring stages a warp.
+// widest row a warp owns (wider rows are a block's), 1 the warps of a block
+// (a warp-a-row form's rows a block), 2 the vector backward's ring stages a
+// warp, 3 the widest row the kernels take.
 extern "C" int vb_ln_geometry(int which) {
-  const int g[3] = {32 * 8 * MAX_CHUNKS, WARPS, STAGES};
-  return which >= 0 && which < 3 ? g[which] : -1;
+  const int g[4] = {WARP_WIDTH, WARPS, STAGES, MAX_WIDTH};
+  return which >= 0 && which < 4 ? g[which] : -1;
 }
 
-// K7-K10 (kernel 7-10) at width H in dtype: 0 registers a thread, 1 local
-// (spilled) bytes a thread, 2 dynamic shared bytes a block, 3 blocks an SM
-// (the backward's grid is that times the SMs); -1 for anything else.
+// K7-K10 (kernel 7-10) at width H in dtype, in the form of that width: 0
+// registers a thread, 1 local (spilled) bytes a thread, 2 dynamic shared
+// bytes a block, 3 blocks an SM (the backward's grid is that times the
+// SMs), 4 the rows a block owns; -1 for anything else.
 extern "C" int vb_ln_info(int kernel, int what, int H, int dtype) {
-  if (kernel < 7 || kernel > 10 || what < 0 || what > 3 || H <= 0 || H % 8 || H > 32 * 8 * MAX_CHUNKS ||
-      dtype < kBf16 || dtype > kFp32)
-    return -1;
-  return dispatch<Info>(dtype, H, kernel, what, H);
+  const int f = width_form(H);
+  if (kernel < 7 || kernel > 10 || what < 0 || what > 4 || f < 0 || dtype < kBf16 || dtype > kFp32) return -1;
+  if (f == 0) return what == 4 ? WARPS : dispatch<Info>(dtype, H, kernel, what, H);
+  return dispatch_any<InfoAny>(dtype, f, kernel, what, H);
 }
 
 // K7 (dropout = 0) and K9 (dropout = 1): y, mu, rstd, and K9's keep bits
-// [N, H / 8] uint8.
+// [N, ceil(H / 8)] uint8.
 extern "C" int vb_ln_fwd(const void* x, const void* res, const void* scale, const void* bias, void* y, void* mu,
                          void* rstd, void* bits, int N, int H, int dtype, float eps, int dropout, unsigned int seed,
                          unsigned int threshold, float keep_prob, void* stream) {
@@ -640,7 +1007,9 @@ extern "C" int vb_ln_fwd(const void* x, const void* res, const void* scale, cons
   a.N = N; a.H = H; a.eps = eps; a.seed = seed; a.threshold = threshold; a.keep_prob = keep_prob;
   a.bits = static_cast<uint8_t*>(bits);
   if (dropout != 0 && bits == nullptr) return (int)cudaErrorInvalidValue;
-  const int code = dispatch<Fwd>(dtype, H, a, dropout != 0, static_cast<cudaStream_t>(stream));
+  const int f = width_form(H);
+  const int code = f == 0 ? dispatch<Fwd>(dtype, H, a, dropout != 0, static_cast<cudaStream_t>(stream))
+                          : dispatch_any<FwdAny>(dtype, f, a, dropout != 0, static_cast<cudaStream_t>(stream));
   if (code != 0) return code;
   return (int)cudaGetLastError();
 }
@@ -660,7 +1029,9 @@ extern "C" int vb_ln_bwd(const void* x, const void* res, const void* scale, cons
   a.N = N; a.H = H; a.seed = seed; a.threshold = threshold; a.keep_prob = keep_prob;
   a.bits = const_cast<uint8_t*>(static_cast<const uint8_t*>(bits));
   if (P < 1 || (dropout != 0 && bits == nullptr)) return (int)cudaErrorInvalidValue;
-  const int code = dispatch<Bwd>(dtype, H, a, P, dropout != 0, st);
+  const int f = width_form(H);
+  const int code = f == 0 ? dispatch<Bwd>(dtype, H, a, P, dropout != 0, st)
+                          : dispatch_any<BwdAny>(dtype, f, a, P, dropout != 0, st);
   if (code != 0) return code;
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -60,6 +60,19 @@ _SIGNATURES = {  # every C entry point of the sources: its argument types
     "vb_attn_sp_info": [_I, _I, _I],
     "vb_attn_sp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
     "vb_attn_sp_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],
+    "vb_attn_hm_x_smem_bytes": [_I, _I],
+    "vb_attn_hm_x_info": [_I, _I, _I, _I, _I],
+    "vb_attn_hm_x_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _I, _I, _I, _F, _P],
+    "vb_attn_hm_x_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I, _I, _I, _F, _P],
+    "vb_attn_sp_x_smem_bytes": [_I, _I],
+    "vb_attn_sp_x_info": [_I, _I, _I, _I, _I],
+    "vb_attn_sp_x_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I, _I, _I, _F, _P],
+    "vb_attn_sp_x_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _I, _I, _F, _P],
+    "vb_attn_f32_sp_info": [_I, _I, _I],
+    "vb_attn_f32_hm_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _I, _F, _P],
+    "vb_attn_f32_hm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _I, _F, _P],
+    "vb_attn_f32_sp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I, _F, _P],
+    "vb_attn_f32_sp_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I, _F, _P],
     "vb_attn_exp_smem_bytes": [_I],
     "vb_attn_exp_info": [_I, _I, _I, _I, _I],
     "vb_attn_exp_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _F, _I, _P],

@@ -47,8 +47,18 @@ kernels, instantiated at D = 64 and 128, a head dim below either
 zero-padded to it (:func:`kernel_head_dim`, :func:`pad_heads`,
 :func:`unpad_heads`; exact, and the softmax scale stays 1/sqrt(D) of the
 unpadded D), and fp32 on the SIMT pair of ``flash_attention_f32.cu`` at any
-D <= 128. Each wrapper counts its launches in ``launches`` and, by form
-(:func:`attention_form`), in ``forms``. K11-K14 take bf16 at D = 64 only.
+D <= 128. K11-K14 take the same dtypes and head dims: bf16 and fp16 on
+their Hopper kernels, instantiated at D = 64 and 128 (the heads-major
+``[B, 3, H, T, D]`` zero-padded to ``[..., Dp]`` by :func:`pad_heads_major`,
+the packed layout by :func:`pad_heads`), and fp32 on the SIMT kernels of
+``flash_attention_f32.cu`` (K11/K12 on the heads-major strides, K13/K14 on
+save-probs kernels of their own); K13's probabilities are bf16 in every
+form. bf16 at D = 64, the main path's form, keeps its entry points
+(``vb_attn_hm_fwd``, ``vb_attn_sp_fwd``...), which tools launch on another
+tree's build; the other bf16 and fp16 forms go through ``vb_attn_hm_x_*``
+and ``vb_attn_sp_x_*`` with the dtype, head dim and scale. Each wrapper
+counts its launches in ``launches`` and, by form (:func:`attention_form`),
+in ``forms``.
 
 The dropout keep bit of probability (b, h, i, j) is a pure function of
 (seed, b, h, i, j) — see ``csrc/philox.cuh::attn_philox`` and its twin
@@ -74,10 +84,10 @@ from visualbert_torch.ops import _build
 from visualbert_torch.ops.philox import MASK32, keep_threshold, philox4x32_10
 
 LOG2E = 1.4426950408889634
-KERNEL_HEAD_DIM = 64  # K11-K14's head dim (bf16 only)
-PACKED_HEAD_DIMS = (64, 128)  # K1/K2's bf16 and fp16 instantiations
-MAX_HEAD_DIM = 128  # K1/K2 in every dtype
-PACKED_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+KERNEL_HEAD_DIM = 64  # the bf16 main forms' head dim (K15/K16 take only it)
+PACKED_HEAD_DIMS = (64, 128)  # the bf16 and fp16 instantiations of K1/K2 and K11-K14
+MAX_HEAD_DIM = 128  # K1/K2 and K11-K14 in every dtype
+PACKED_DTYPES = (torch.bfloat16, torch.float16, torch.float32)  # K1/K2 and K11-K14
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}  # csrc/flash_attention_packed.cu's dtype argument
 MAX_SMEM_BYTES = 232448  # opt-in shared memory per block on sm_90
 
@@ -108,9 +118,21 @@ def unpad_heads(x: torch.Tensor, n_heads: int, parts: int, d: int) -> torch.Tens
     return x.reshape(*lead, n_heads, parts, dp)[..., :d].reshape(*lead, n_heads * parts * d)
 
 
+def pad_heads_major(x: torch.Tensor, dp: int) -> torch.Tensor:
+    """Heads-major [..., D] (qkv [B, 3, H, T, D], out [B, H, T, D]) with
+    each row zero-padded to dp columns (``x`` itself when D = dp)."""
+    d = x.shape[-1]
+    return x if d == dp else torch.nn.functional.pad(x, (0, dp - d))
+
+
+def unpad_heads_major(x: torch.Tensor, d: int) -> torch.Tensor:
+    """The inverse of :func:`pad_heads_major`, contiguous."""
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
+
+
 def attention_form(dtype, d: int) -> str:
-    """The kernel form K1/K2 run heads of dim d in ``dtype`` on: "fp32" (the
-    SIMT pair) or "<dtype> D<instantiated head dim>"."""
+    """The kernel form K1/K2 and K11-K14 run heads of dim d in ``dtype`` on:
+    "fp32" (the SIMT kernels) or "<dtype> D<instantiated head dim>"."""
     if dtype == torch.float32:
         return "fp32"
     return f"{'bf16' if dtype == torch.bfloat16 else 'fp16'} D{kernel_head_dim(d)}"
@@ -251,22 +273,25 @@ def packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads:
     return dqkv, dqkv.float().sum(dim=(0, 1)).to(qb.dtype)
 
 
-def heads_major_attention_fwd_reference(qkv, key_bias, rate: float, seed: int):
+def heads_major_attention_fwd_reference(qkv, key_bias, rate: float, seed: int, scale: Optional[float] = None):
     """Plain version of K11: qkv [B, 3, H, T, D] -> (out [B, H, T, D],
-    stats [B, H, T] fp32)."""
-    return _attention_fwd(*qkv.unbind(1), key_bias, rate, seed)
+    stats [B, H, T] fp32); ``scale`` as K1's."""
+    return _attention_fwd(*qkv.unbind(1), key_bias, rate, seed, scale=scale)
 
 
-def heads_major_attention_bwd_reference(qkv, key_bias, dout, out, stats, rate: float, seed: int):
+def heads_major_attention_bwd_reference(qkv, key_bias, dout, out, stats, rate: float, seed: int,
+                                        scale: Optional[float] = None):
     """Plain version of K12: dqkv [B, 3, H, T, D]."""
-    return torch.stack(_attention_bwd(*qkv.unbind(1), key_bias, dout, out, stats, rate, seed), dim=1)
+    return torch.stack(_attention_bwd(*qkv.unbind(1), key_bias, dout, out, stats, rate, seed, scale=scale), dim=1)
 
 
-def packed_attention_sp_fwd_reference(qkv, key_bias, n_heads: int, rate: float, seed: int):
+def packed_attention_sp_fwd_reference(qkv, key_bias, n_heads: int, rate: float, seed: int,
+                                      scale: Optional[float] = None):
     """Plain version of K13 on the biased packed qkv: (out [B, T, H*D],
-    probs [B, H, T, T] bf16, the normalised pre-dropout p)."""
+    probs [B, H, T, T] bf16, the normalised pre-dropout p); ``scale`` as
+    K1's."""
     q, k, v = _split_heads(qkv, n_heads)
-    t = _scores2(q, k, key_bias)
+    t = _scores2(q, k, key_bias, scale=scale)
     m2 = t.amax(dim=-1, keepdim=True)
     p = torch.exp2(t - (m2 + torch.log2(torch.exp2(t - m2).sum(dim=-1, keepdim=True))))
     probs = p.to(torch.bfloat16)
@@ -276,11 +301,12 @@ def packed_attention_sp_fwd_reference(qkv, key_bias, n_heads: int, rate: float, 
     return _merge_heads(o), probs
 
 
-def packed_attention_sp_bwd_reference(qkv, probs, dout, out, n_heads: int, rate: float, seed: int):
+def packed_attention_sp_bwd_reference(qkv, probs, dout, out, n_heads: int, rate: float, seed: int,
+                                      scale: Optional[float] = None):
     """Plain version of K14: dqkv [B, T, H*3*D] from the saved bf16 probs."""
     q, k, v = _split_heads(qkv, n_heads)
     return _pack_heads(*_attention_bwd_from_p(q, k, v, _heads(dout, n_heads), _heads(out, n_heads),
-                                              probs.float(), rate, seed))
+                                              probs.float(), rate, seed, scale=scale))
 
 
 # --------------------------------------------------------------- wrappers
@@ -319,8 +345,8 @@ def _check(what, smem_fn, T, key_bias, B, *tensors):
 
 
 def _check_packed(what, qkv, key_bias, n_heads, *others, smem_fn, qb=None):
-    """The checks of the bf16, head dim 64 packed kernels (K13/K14, K15/K16),
-    their shared memory from the entry point ``smem_fn`` of T."""
+    """The checks of the bf16, head dim 64 packed kernels (K15/K16), their
+    shared memory from the entry point ``smem_fn`` of T."""
     if qkv.dtype != torch.bfloat16:
         raise ValueError(f"{what}: the kernel takes bf16 qkv, got {qkv.dtype}")
     B, T, F = qkv.shape
@@ -354,6 +380,46 @@ def _check_packed_any(what, qkv, key_bias, n_heads, *others, qb):
     dp = kernel_head_dim(d)
     smem = None if qkv.dtype == torch.float32 else (lambda lib, t: lib.vb_attn_packed_x_smem_bytes(dp, t))
     return _check(what, smem, T, key_bias, B, qkv, *others, qb)
+
+
+def _main_form(dtype, d: int) -> bool:
+    """Whether K11-K14 run heads of dim d in ``dtype`` on their bf16, D = 64
+    entry points (the main path's form, the scale a constant)."""
+    return dtype == torch.bfloat16 and d == KERNEL_HEAD_DIM
+
+
+def _variant_smem(dtype, d: int, main: str, x: str):
+    """The shared-memory function of T (None for fp32) of K11-K14's form of
+    ``dtype`` and head dim d: the entry point ``main`` at bf16 D = 64, else
+    ``x`` at the instantiated head dim."""
+    if dtype == torch.float32:
+        return None
+    if _main_form(dtype, d):
+        return lambda lib, t: getattr(lib, main)(t)
+    dp = kernel_head_dim(d)
+    return lambda lib, t: getattr(lib, x)(dp, t)
+
+
+def _check_variant_dtype(what, qkv, d: int):
+    if qkv.dtype not in PACKED_DTYPES:
+        raise ValueError(f"{what}: the kernels take bf16, fp16 or fp32 qkv, got {qkv.dtype}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{what}: the kernels take head dims up to {MAX_HEAD_DIM}, got {d}")
+
+
+def _check_sp(what, qkv, key_bias, n_heads, *others):
+    """K13/K14's checks in every form: dtype, head dim, shapes, and (bf16,
+    fp16) the shared memory of T."""
+    B, T, F = qkv.shape
+    if F % (3 * n_heads):
+        raise ValueError(f"{what}: F={F} does not split into 3 x {n_heads} heads")
+    d = F // (3 * n_heads)
+    _check_variant_dtype(what, qkv, d)
+    for t in others:
+        if t.dtype != qkv.dtype or t.shape != (B, T, F // 3):
+            raise ValueError(f"{what}: dout and out must be [{B}, {T}, {F // 3}] {qkv.dtype}")
+    smem = _variant_smem(qkv.dtype, d, "vb_attn_sp_smem_bytes", "vb_attn_sp_x_smem_bytes")
+    return _check(what, smem, T, key_bias, B, qkv, *others)
 
 
 def _check_stats(what, stats, B, H, T):
@@ -420,6 +486,18 @@ def hm_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
 def sp_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
     """hg of K13's kernel and of K14's two passes (``vb_attn_sp_info``)."""
     return _kernel_head_groups(lib, "vb_attn_sp_info", "K13/K14", B, H, T, device)
+
+
+def hm_x_head_groups(lib, dtype, dp: int, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
+    """hg of K11's kernel and of K12's two passes in another bf16 or fp16
+    form at the instantiated head dim dp (``vb_attn_hm_x_info``)."""
+    return _kernel_head_groups(lib, "vb_attn_hm_x_info", "K11/K12", B, H, T, device, (_DTYPE_CODE[dtype], dp))
+
+
+def sp_x_head_groups(lib, dtype, dp: int, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
+    """hg of K13's kernel and of K14's two passes in another bf16 or fp16
+    form at the instantiated head dim dp (``vb_attn_sp_x_info``)."""
+    return _kernel_head_groups(lib, "vb_attn_sp_x_info", "K13/K14", B, H, T, device, (_DTYPE_CODE[dtype], dp))
 
 
 def launch_packed_fwd(lib, qkv, qb, key_bias, n_heads: int, rate: float, seed: int, hg: int):
@@ -579,20 +657,23 @@ packed_attention_bwd.forms = {}
 
 
 def _check_heads_major(what, qkv, key_bias, *others):
-    if qkv.dtype != torch.bfloat16:
-        raise ValueError(f"{what}: the kernel takes bf16 qkv, got {qkv.dtype}")
-    if qkv.dim() != 5 or qkv.shape[1] != 3 or qkv.shape[4] != KERNEL_HEAD_DIM:
-        raise ValueError(f"{what}: qkv must be [B, 3, H, T, {KERNEL_HEAD_DIM}], got {tuple(qkv.shape)}")
+    """K11/K12's checks in every form: dtype, head dim, shapes, and (bf16,
+    fp16) the shared memory of T."""
+    if qkv.dim() != 5 or qkv.shape[1] != 3:
+        raise ValueError(f"{what}: qkv must be [B, 3, H, T, D], got {tuple(qkv.shape)}")
     B, _, H, T, d = qkv.shape
+    _check_variant_dtype(what, qkv, d)
     for t in others:
         if t.dtype != qkv.dtype or t.shape != (B, H, T, d):
             raise ValueError(f"{what}: dout and out must be [{B}, {H}, {T}, {d}] {qkv.dtype}")
-    return _check(what, lambda lib, t: lib.vb_attn_hm_smem_bytes(t), T, key_bias, B, qkv, *others)
+    smem = _variant_smem(qkv.dtype, d, "vb_attn_hm_smem_bytes", "vb_attn_hm_x_smem_bytes")
+    return _check(what, smem, T, key_bias, B, qkv, *others)
 
 
 def launch_hm_fwd(lib, qkv, key_bias, rate: float, seed: int, hg: int):
-    """K11's kernel from ``lib`` (the kernel library, or another build of its
-    source) on checked inputs, hg heads a block: (CUDA code, out, stats)."""
+    """K11's kernel in bf16 at D = 64 from ``lib`` (the kernel library, or
+    another build of its source) on checked inputs, hg heads a block: (CUDA
+    code, out, stats)."""
     B, _, H, T, d = qkv.shape
     out = torch.empty((B, H, T, d), dtype=qkv.dtype, device=qkv.device)
     stats = torch.empty((B, H, T), dtype=torch.float32, device=qkv.device)
@@ -602,7 +683,8 @@ def launch_hm_fwd(lib, qkv, key_bias, rate: float, seed: int, hg: int):
 
 
 def launch_hm_bwd(lib, qkv, key_bias, dout, out, stats, rate: float, seed: int, hg_dq: int, hg_dkv: int):
-    """K12's two kernels from ``lib`` on checked inputs: (CUDA code, dqkv)."""
+    """K12's two kernels in bf16 at D = 64 from ``lib`` on checked inputs:
+    (CUDA code, dqkv)."""
     B, _, H, T, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((B, H, T), dtype=torch.float32, device=qkv.device)
@@ -612,40 +694,113 @@ def launch_hm_bwd(lib, qkv, key_bias, dout, out, stats, rate: float, seed: int, 
     return code, dqkv
 
 
+def launch_hm_x_fwd(lib, qkv, key_bias, rate: float, seed: int, hg: int, scale: float):
+    """K11's kernel in bf16 or fp16 at the instantiated head dim of qkv (the
+    heads already padded to it), softmax scale ``scale``: (CUDA code, out,
+    stats)."""
+    B, _, H, T, dp = qkv.shape
+    out = torch.empty((B, H, T, dp), dtype=qkv.dtype, device=qkv.device)
+    stats = torch.empty((B, H, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_hm_x_fwd(qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), stats.data_ptr(), B, T, H, hg,
+                                *_seed_args(rate, seed), _DTYPE_CODE[qkv.dtype], dp, float(scale),
+                                _build.stream_ptr(qkv.device))
+    return code, out, stats
+
+
+def launch_hm_x_bwd(lib, qkv, key_bias, dout, out, stats, rate: float, seed: int, hg_dq: int, hg_dkv: int,
+                    scale: float):
+    """K12's two kernels in bf16 or fp16 at the instantiated head dim, as
+    :func:`launch_hm_x_fwd`: (CUDA code, dqkv)."""
+    B, _, H, T, dp = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_hm_x_bwd(qkv.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), out.data_ptr(),
+                                stats.data_ptr(), dqkv.data_ptr(), delta.data_ptr(), B, T, H, hg_dq, hg_dkv,
+                                *_seed_args(rate, seed), _DTYPE_CODE[qkv.dtype], dp, float(scale),
+                                _build.stream_ptr(qkv.device))
+    return code, dqkv
+
+
+def launch_f32_hm_fwd(lib, qkv, key_bias, rate: float, seed: int):
+    """K11's fp32 kernel (``csrc/flash_attention_f32.cu`` on the heads-major
+    strides) on checked inputs, any head dim up to MAX_HEAD_DIM: (CUDA
+    code, out, stats)."""
+    B, _, H, T, d = qkv.shape
+    out = torch.empty((B, H, T, d), dtype=qkv.dtype, device=qkv.device)
+    stats = torch.empty((B, H, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_f32_hm_fwd(qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), stats.data_ptr(), B, T, H, d,
+                                  *_seed_args(rate, seed), 1.0 / math.sqrt(d), _build.stream_ptr(qkv.device))
+    return code, out, stats
+
+
+def launch_f32_hm_bwd(lib, qkv, key_bias, dout, out, stats, rate: float, seed: int):
+    """K12's two fp32 kernels on checked inputs: (CUDA code, dqkv)."""
+    B, _, H, T, d = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_f32_hm_bwd(qkv.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), out.data_ptr(),
+                                  stats.data_ptr(), dqkv.data_ptr(), delta.data_ptr(), B, T, H, d,
+                                  *_seed_args(rate, seed), 1.0 / math.sqrt(d), _build.stream_ptr(qkv.device))
+    return code, dqkv
+
+
 def heads_major_attention_fwd(qkv, key_bias, rate: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K11 wrapper: qkv [B, 3, H, T, D] (bias added) -> (out [B, H, T, D],
-    stats [B, H, T] fp32). q, k and v are read in place from ``qkv``."""
+    stats [B, H, T] fp32). bf16 at D = 64 and fp32 read q, k and v in place
+    from ``qkv``; the other bf16 and fp16 head dims are zero-padded to an
+    instantiated one here and the output cut back."""
     what = "heads-major attention forward (K11)"
     if not _on_cuda(what, qkv):
         return heads_major_attention_fwd_reference(qkv, key_bias, rate, seed)
     lib = _check_heads_major(what, qkv, key_bias)
-    B, _, H, T, _ = qkv.shape
-    hg = hm_head_groups(lib, B, H, T, qkv.device)[0]
-    code, out, stats = launch_hm_fwd(lib, qkv, key_bias, rate, seed, hg)
+    B, _, H, T, d = qkv.shape
+    if qkv.dtype == torch.float32:
+        code, out, stats = launch_f32_hm_fwd(lib, qkv, key_bias, rate, seed)
+    elif _main_form(qkv.dtype, d):
+        hg = hm_head_groups(lib, B, H, T, qkv.device)[0]
+        code, out, stats = launch_hm_fwd(lib, qkv, key_bias, rate, seed, hg)
+    else:
+        dp = kernel_head_dim(d)
+        hg = hm_x_head_groups(lib, qkv.dtype, dp, B, H, T, qkv.device)[0]
+        code, out, stats = launch_hm_x_fwd(lib, pad_heads_major(qkv, dp), key_bias, rate, seed, hg,
+                                           1.0 / math.sqrt(d))
+        out = unpad_heads_major(out, d)
     lib.check(code, what)
-    heads_major_attention_fwd.launches += 1
+    _counted(heads_major_attention_fwd, attention_form(qkv.dtype, d))
     return out, stats
 
 
 heads_major_attention_fwd.launches = 0
+heads_major_attention_fwd.forms = {}
 
 
 def heads_major_attention_bwd(qkv, key_bias, dout, out, stats, rate: float, seed: int) -> torch.Tensor:
-    """K12 wrapper: dqkv [B, 3, H, T, D], written as one tensor."""
+    """K12 wrapper: dqkv [B, 3, H, T, D], written as one tensor, in the forms
+    of :func:`heads_major_attention_fwd`."""
     what = "heads-major attention backward (K12)"
     if not _on_cuda(what, qkv):
         return heads_major_attention_bwd_reference(qkv, key_bias, dout, out, stats, rate, seed)
     lib = _check_heads_major(what, qkv, key_bias, dout, out)
-    B, _, H, T, _ = qkv.shape
+    B, _, H, T, d = qkv.shape
     _check_stats(what, stats, B, H, T)
-    _, hg_dq, hg_dkv = hm_head_groups(lib, B, H, T, qkv.device)
-    code, dqkv = launch_hm_bwd(lib, qkv, key_bias, dout, out, stats, rate, seed, hg_dq, hg_dkv)
+    if qkv.dtype == torch.float32:
+        code, dqkv = launch_f32_hm_bwd(lib, qkv, key_bias, dout, out, stats, rate, seed)
+    elif _main_form(qkv.dtype, d):
+        _, hg_dq, hg_dkv = hm_head_groups(lib, B, H, T, qkv.device)
+        code, dqkv = launch_hm_bwd(lib, qkv, key_bias, dout, out, stats, rate, seed, hg_dq, hg_dkv)
+    else:
+        dp = kernel_head_dim(d)
+        _, hg_dq, hg_dkv = hm_x_head_groups(lib, qkv.dtype, dp, B, H, T, qkv.device)
+        code, dqkv = launch_hm_x_bwd(lib, pad_heads_major(qkv, dp), key_bias, pad_heads_major(dout, dp),
+                                     pad_heads_major(out, dp), stats, rate, seed, hg_dq, hg_dkv, 1.0 / math.sqrt(d))
+        dqkv = unpad_heads_major(dqkv, d)
     lib.check(code, what)
-    heads_major_attention_bwd.launches += 1
+    _counted(heads_major_attention_bwd, attention_form(qkv.dtype, d))
     return dqkv
 
 
 heads_major_attention_bwd.launches = 0
+heads_major_attention_bwd.forms = {}
 
 
 PROBS_ROW_ALIGN = 8  # elements: 16 bytes, K14's copy of a probability chunk
@@ -686,42 +841,88 @@ def padded_probs(probs) -> torch.Tensor:
 
 def packed_attention_sp_fwd(qkv, key_bias, n_heads: int, rate: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K13 wrapper on the biased packed qkv: (out [B, T, H*D], probs
-    [B, H, T, T] bf16). On the card probs is the [B, H, T, T] view of a
-    [B, H, T, probs_row_stride(T)] buffer; K14 reads it in place."""
+    [B, H, T, T] bf16 in every form). On the card probs is the [B, H, T, T]
+    view of a [B, H, T, probs_row_stride(T)] buffer; K14 reads it in place.
+    bf16 and fp16 heads below an instantiated head dim are zero-padded to it
+    here and the output cut back; fp32 runs the SIMT kernel."""
     what = "save-probs attention forward (K13)"
     if not _on_cuda(what, qkv):
         return packed_attention_sp_fwd_reference(qkv, key_bias, n_heads, rate, seed)
-    lib = _check_packed(what, qkv, key_bias, n_heads, smem_fn="vb_attn_sp_smem_bytes")
-    B, T, _ = qkv.shape
-    hg = sp_head_groups(lib, B, n_heads, T, qkv.device)[0]
-    code, out, probs = launch_sp_fwd(lib, qkv, key_bias, n_heads, rate, seed, hg)
+    lib = _check_sp(what, qkv, key_bias, n_heads)
+    B, T, F = qkv.shape
+    d = F // (3 * n_heads)
+    if qkv.dtype == torch.float32:
+        code, out, probs = launch_f32_sp_fwd(lib, qkv, key_bias, n_heads, rate, seed)
+    elif _main_form(qkv.dtype, d):
+        hg = sp_head_groups(lib, B, n_heads, T, qkv.device)[0]
+        code, out, probs = launch_sp_fwd(lib, qkv, key_bias, n_heads, rate, seed, hg)
+    else:
+        dp = kernel_head_dim(d)
+        hg = sp_x_head_groups(lib, qkv.dtype, dp, B, n_heads, T, qkv.device)[0]
+        code, out, probs = launch_sp_x_fwd(lib, pad_heads(qkv, n_heads, 3, dp), key_bias, n_heads, rate, seed, hg,
+                                           1.0 / math.sqrt(d))
+        out = unpad_heads(out, n_heads, 1, d)
     lib.check(code, what)
-    packed_attention_sp_fwd.launches += 1
+    _counted(packed_attention_sp_fwd, attention_form(qkv.dtype, d))
     return out, probs
 
 
 packed_attention_sp_fwd.launches = 0
+packed_attention_sp_fwd.forms = {}
+
+
+def _probs_buffer(qkv, n_heads: int):
+    """K13's [B, H, T, probs_row_stride(T)] bf16 buffer for qkv [B, T, F]."""
+    B, T, _ = qkv.shape
+    return torch.empty((B, n_heads, T, probs_row_stride(T)), dtype=torch.bfloat16, device=qkv.device)
 
 
 def launch_sp_fwd(lib, qkv, key_bias, n_heads: int, rate: float, seed: int, hg: int):
-    """K13's kernel from ``lib`` (the kernel library, or another build of its
-    source) on checked inputs, hg heads a block: (CUDA code, out, probs),
-    probs the [B, H, T, T] view of a [B, H, T, probs_row_stride(T)] buffer."""
+    """K13's kernel in bf16 at D = 64 from ``lib`` (the kernel library, or
+    another build of its source) on checked inputs, hg heads a block: (CUDA
+    code, out, probs), probs the [B, H, T, T] view of a [B, H, T,
+    probs_row_stride(T)] buffer."""
     B, T, F = qkv.shape
-    ldp = probs_row_stride(T)
     out = torch.empty((B, T, F // 3), dtype=qkv.dtype, device=qkv.device)
-    probs = torch.empty((B, n_heads, T, ldp), dtype=torch.bfloat16, device=qkv.device)
+    probs = _probs_buffer(qkv, n_heads)
     code = lib.vb_attn_sp_fwd(qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), probs.data_ptr(),
-                              B, T, n_heads, hg, ldp, *_seed_args(rate, seed), _build.stream_ptr(qkv.device))
+                              B, T, n_heads, hg, probs.shape[-1], *_seed_args(rate, seed),
+                              _build.stream_ptr(qkv.device))
+    return code, out, probs[..., :T]
+
+
+def launch_sp_x_fwd(lib, qkv, key_bias, n_heads: int, rate: float, seed: int, hg: int, scale: float):
+    """K13's kernel in bf16 or fp16 at the instantiated head dim of qkv (the
+    heads already padded to it), softmax scale ``scale``: as
+    :func:`launch_sp_fwd`."""
+    B, T, F = qkv.shape
+    out = torch.empty((B, T, F // 3), dtype=qkv.dtype, device=qkv.device)
+    probs = _probs_buffer(qkv, n_heads)
+    code = lib.vb_attn_sp_x_fwd(qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), probs.data_ptr(),
+                                B, T, n_heads, hg, probs.shape[-1], *_seed_args(rate, seed), _DTYPE_CODE[qkv.dtype],
+                                F // (3 * n_heads), float(scale), _build.stream_ptr(qkv.device))
+    return code, out, probs[..., :T]
+
+
+def launch_f32_sp_fwd(lib, qkv, key_bias, n_heads: int, rate: float, seed: int):
+    """K13's fp32 kernel (``csrc/flash_attention_f32.cu``) on checked inputs,
+    any head dim up to MAX_HEAD_DIM: as :func:`launch_sp_fwd`."""
+    B, T, F = qkv.shape
+    d = F // (3 * n_heads)
+    out = torch.empty((B, T, F // 3), dtype=qkv.dtype, device=qkv.device)
+    probs = _probs_buffer(qkv, n_heads)
+    code = lib.vb_attn_f32_sp_fwd(qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), probs.data_ptr(),
+                                  B, T, n_heads, d, probs.shape[-1], *_seed_args(rate, seed), 1.0 / math.sqrt(d),
+                                  _build.stream_ptr(qkv.device))
     return code, out, probs[..., :T]
 
 
 def launch_sp_bwd(lib, qkv, probs, ldp: int, dout, out, n_heads: int, rate: float, seed: int, hg_dq: int,
                   hg_dkv: int, passes: int = 3, dqkv=None, delta=None):
-    """K14's kernels from ``lib`` on checked inputs, ``probs`` read with row
-    stride ``ldp``: ``passes`` 1 the dQ pass, 2 the dK/dV pass (on the
-    ``delta`` of an earlier dQ pass), 3 both, into ``dqkv`` and ``delta``
-    when given. Returns (CUDA code, dqkv, delta)."""
+    """K14's kernels in bf16 at D = 64 from ``lib`` on checked inputs,
+    ``probs`` read with row stride ``ldp``: ``passes`` 1 the dQ pass, 2 the
+    dK/dV pass (on the ``delta`` of an earlier dQ pass), 3 both, into
+    ``dqkv`` and ``delta`` when given. Returns (CUDA code, dqkv, delta)."""
     B, T, _ = qkv.shape
     dqkv = torch.empty_like(qkv) if dqkv is None else dqkv
     delta = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device) if delta is None else delta
@@ -731,30 +932,68 @@ def launch_sp_bwd(lib, qkv, probs, ldp: int, dout, out, n_heads: int, rate: floa
     return code, dqkv, delta
 
 
+def launch_sp_x_bwd(lib, qkv, probs, ldp: int, dout, out, n_heads: int, rate: float, seed: int, hg_dq: int,
+                    hg_dkv: int, scale: float):
+    """K14's kernels in bf16 or fp16 at the instantiated head dim (qkv, dout
+    and out padded to it), both passes: (CUDA code, dqkv)."""
+    B, T, F = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_sp_x_bwd(qkv.data_ptr(), probs.data_ptr(), dout.data_ptr(), out.data_ptr(), dqkv.data_ptr(),
+                                delta.data_ptr(), B, T, n_heads, hg_dq, hg_dkv, ldp, 3, *_seed_args(rate, seed),
+                                _DTYPE_CODE[qkv.dtype], F // (3 * n_heads), float(scale),
+                                _build.stream_ptr(qkv.device))
+    return code, dqkv
+
+
+def launch_f32_sp_bwd(lib, qkv, probs, ldp: int, dout, out, n_heads: int, rate: float, seed: int):
+    """K14's two fp32 kernels on checked inputs: (CUDA code, dqkv)."""
+    B, T, F = qkv.shape
+    d = F // (3 * n_heads)
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
+    code = lib.vb_attn_f32_sp_bwd(qkv.data_ptr(), probs.data_ptr(), dout.data_ptr(), out.data_ptr(),
+                                  dqkv.data_ptr(), delta.data_ptr(), B, T, n_heads, d, ldp, *_seed_args(rate, seed),
+                                  1.0 / math.sqrt(d), _build.stream_ptr(qkv.device))
+    return code, dqkv
+
+
 def packed_attention_sp_bwd(qkv, probs, dout, out, n_heads: int, rate: float, seed: int) -> torch.Tensor:
     """K14 wrapper: dqkv [B, T, H*3*D] from the saved probabilities, read in
     place in K13's layout (a contiguous tensor at T % 8 != 0 is first copied
-    into it)."""
+    into it), in the forms of :func:`packed_attention_sp_fwd`."""
     what = "save-probs attention backward (K14)"
     if not _on_cuda(what, qkv):
         return packed_attention_sp_bwd_reference(qkv, probs, dout, out, n_heads, rate, seed)
-    B, T, _ = qkv.shape
+    B, T, F = qkv.shape
     # the key bias only enters through the saved probabilities
-    lib = _check_packed(what, qkv, None, n_heads, dout, out, smem_fn="vb_attn_sp_smem_bytes")
+    lib = _check_sp(what, qkv, None, n_heads, dout, out)
     if probs.device != qkv.device:
         raise ValueError(f"{what}: tensors on different devices")
     ldp = probs_layout(probs, B, n_heads, T)
     if ldp is None:
         probs = padded_probs(probs)
         ldp = probs.stride(2)
-    _, hg_dq, hg_dkv = sp_head_groups(lib, B, n_heads, T, qkv.device)
-    code, dqkv, _ = launch_sp_bwd(lib, qkv, probs, ldp, dout, out, n_heads, rate, seed, hg_dq, hg_dkv)
+    d = F // (3 * n_heads)
+    if qkv.dtype == torch.float32:
+        code, dqkv = launch_f32_sp_bwd(lib, qkv, probs, ldp, dout, out, n_heads, rate, seed)
+    elif _main_form(qkv.dtype, d):
+        _, hg_dq, hg_dkv = sp_head_groups(lib, B, n_heads, T, qkv.device)
+        code, dqkv, _ = launch_sp_bwd(lib, qkv, probs, ldp, dout, out, n_heads, rate, seed, hg_dq, hg_dkv)
+    else:
+        dp = kernel_head_dim(d)
+        _, hg_dq, hg_dkv = sp_x_head_groups(lib, qkv.dtype, dp, B, n_heads, T, qkv.device)
+        code, dqkv = launch_sp_x_bwd(lib, pad_heads(qkv, n_heads, 3, dp), probs, ldp, pad_heads(dout, n_heads, 1, dp),
+                                     pad_heads(out, n_heads, 1, dp), n_heads, rate, seed, hg_dq, hg_dkv,
+                                     1.0 / math.sqrt(d))
+        dqkv = unpad_heads(dqkv, n_heads, 3, d)
     lib.check(code, what)
-    packed_attention_sp_bwd.launches += 1
+    _counted(packed_attention_sp_bwd, attention_form(qkv.dtype, d))
     return dqkv
 
 
 packed_attention_sp_bwd.launches = 0
+packed_attention_sp_bwd.forms = {}
 
 
 # ------------------------------------------------------ autograd and ops

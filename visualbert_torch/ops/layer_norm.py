@@ -14,8 +14,8 @@ flattened ``[N, H]`` tensor keeps word ``e % 4`` of Philox at counter
 the kernels' mask bit for bit.
 
 The forward with dropout also returns the mask it drew, packed one bit an
-element (:func:`pack_bits`: ``uint8 [N, H / 8]``, bit ``k`` of byte ``j`` for
-element ``8 j + k``), and the backward takes those bits in place of the
+element (:func:`pack_bits`: ``uint8 [N, ceil(H / 8)]``, bit ``k`` of byte
+``j`` of a row for its element ``8 j + k``), and the backward takes those bits in place of the
 seed: :class:`_DropoutAddLayerNorm` saves them (2.8 MB a call at the main
 path's 29,184 x 768) where the JAX package regenerates the mask from the
 seed. The function is the same, because the bits are.
@@ -33,7 +33,15 @@ K8 and K10 are one Hopper kernel: each warp's rows arrive through a ring
 of asynchronous row copies in shared memory, and the grid is as many blocks
 as fit on the card at once (:func:`bwd_blocks`, from the kernel's occupancy
 query ``vb_ln_info``), each writing one fp32 partial row of dscale and dbias
-that a second pass sums in a fixed order. On CPU tensors the wrappers
+that a second pass sums in a fixed order.
+
+The kernels take every width from 1 to ``vb_ln_geometry(3)`` (4096), each in
+the form of its width (:func:`layer_norm_form`): a multiple of 8 up to 1024
+on the design above ("warp, 16-byte"); another width up to 1024 a warp a
+row with element loads ("warp, element"); wider rows a block of 4 warps a
+row ("block, 16-byte" at a multiple of 8, else "block, element"). Only the
+16-byte forms need 16-byte aligned tensors. Each wrapper counts its
+launches in ``launches`` and, by form, in ``forms``. On CPU tensors the wrappers
 compute the plain versions (the ``*_reference`` functions); on CUDA tensors
 they launch the kernels or raise. :func:`reference_add_layer_norm` and
 :func:`layer_norm_f32` are the unfused path's eager math.
@@ -76,17 +84,23 @@ def keep_mask(shape, rate: float, seed: int, device) -> torch.Tensor:
 
 
 def pack_bits(keep: torch.Tensor) -> torch.Tensor:
-    """A bool ``[N, H]`` mask (H a multiple of 8) as ``uint8 [N, H / 8]``:
-    bit ``k`` of byte ``j`` is element ``8 j + k``, the layout K9 writes
-    (the dropout site's, ``ops/dropout.py::pack_keep``, row by row)."""
+    """A bool ``[N, H]`` mask as ``uint8 [N, ceil(H / 8)]``: bit ``k`` of
+    byte ``j`` of a row is its element ``8 j + k``, the bits past H zero, the
+    layout K9 writes (the dropout site's, ``ops/dropout.py::pack_keep``, row
+    by row, each row padded to a whole byte)."""
     N, H = keep.shape
-    return pack_keep(keep).reshape(N, H // 8)
+    pad = -H % 8
+    if pad:
+        keep = torch.nn.functional.pad(keep, (0, pad))
+    return pack_keep(keep).reshape(N, (H + pad) // 8)
 
 
-def unpack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """:func:`pack_bits`'s inverse: ``uint8 [N, H / 8]`` -> bool ``[N, H]``."""
+def unpack_bits(bits: torch.Tensor, H: Optional[int] = None) -> torch.Tensor:
+    """:func:`pack_bits`'s inverse: ``uint8 [N, ceil(H / 8)]`` -> bool
+    ``[N, H]`` (H the bytes' 8 bits each unless given)."""
     N, B = bits.shape
-    return unpack_keep(bits.reshape(-1), N * 8 * B).reshape(N, 8 * B)
+    H = 8 * B if H is None else H
+    return unpack_keep(bits.reshape(-1), N * 8 * B).reshape(N, 8 * B)[:, :H]
 
 
 def _keep_prob(rate: float) -> torch.Tensor:
@@ -141,7 +155,7 @@ def dropout_add_layer_norm_bwd_reference(x, res, scale, mu, rstd, dy, bits, rate
     """Plain version of K10: (dx, dres, dscale, dbias) with ``dres = ds`` and
     ``dx = where(keep, ds / (1 - rate), 0)`` under the forward's mask, read
     from its packed ``bits``."""
-    keep = unpack_bits(bits)
+    keep = unpack_bits(bits, x.shape[1])
     xd = torch.where(keep, x.float() / _keep_prob(rate).to(x.device), 0.0)
     ds, dscale, dbias = _bwd_plain(xd + res.float(), scale, mu, rstd, dy)
     dx = torch.where(keep, ds / _keep_prob(rate).to(x.device), 0.0)
@@ -157,8 +171,24 @@ def _on_cuda(x, what) -> bool:
     return x.device.type == "cuda"
 
 
+def bits_width(H: int) -> int:
+    """Bytes of a row of K9's keep bits: ceil(H / 8)."""
+    return -(-H // 8)
+
+
+def layer_norm_form(dtype, H: int, warp_width: int = 1024) -> str:
+    """The kernel form K7-K10 run rows of width H in ``dtype`` on: "<dtype>
+    warp, 16-byte" (H a multiple of 8 up to ``warp_width``, the widest row a
+    warp owns: ``vb_ln_geometry(0)``), "<dtype> warp, element", "<dtype>
+    block, 16-byte" or "<dtype> block, element"."""
+    dt = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}[dtype]
+    return f"{dt} {'warp' if H <= warp_width else 'block'}, {'element' if H % 8 else '16-byte'}"
+
+
 def _check_cuda_inputs(what, x, res, scale, *others):
-    """Raise on what the kernels do not take; returns the library."""
+    """Raise on what the kernels do not take; returns the library. Rows
+    that are a multiple of 8 wide run a 16-byte form, which needs 16-byte
+    aligned tensors; the other widths' forms load element by element."""
     lib = _build.library()
     if x.dim() != 2:
         raise ValueError(f"{what}: the kernel takes [N, H] rows, got {tuple(x.shape)}")
@@ -166,9 +196,9 @@ def _check_cuda_inputs(what, x, res, scale, *others):
     if x.dtype not in _DTYPE_CODES or res.dtype != x.dtype:
         raise ValueError(f"{what}: the kernel takes x and res of one dtype among bf16, fp16, fp32, "
                          f"got {x.dtype}, {res.dtype}")
-    if H % 8 or H > lib.vb_ln_geometry(0) or res.shape != x.shape:
-        raise ValueError(f"{what}: the kernel takes [N, H] rows with H a multiple of 8 up to "
-                         f"{lib.vb_ln_geometry(0)}, got x {tuple(x.shape)}, res {tuple(res.shape)}")
+    if not 1 <= H <= lib.vb_ln_geometry(3) or res.shape != x.shape:
+        raise ValueError(f"{what}: the kernel takes [N, H] rows with H up to {lib.vb_ln_geometry(3)}, got x "
+                         f"{tuple(x.shape)}, res {tuple(res.shape)}")
     if scale.shape != (H,) or scale.dtype != torch.float32:
         raise ValueError(f"{what}: scale and bias must be [{H}] float32")
     for t in (x, res, scale) + others:
@@ -176,8 +206,8 @@ def _check_cuda_inputs(what, x, res, scale, *others):
             raise ValueError(f"{what}: tensors on different devices")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: tensors must be 16-byte aligned")
+        if H % 8 == 0 and t.data_ptr() % 16:
+            raise ValueError(f"{what}: tensors must be 16-byte aligned (the 16-byte form of width {H})")
     return lib
 
 
@@ -195,8 +225,8 @@ def _check_bwd(what, x, res, scale, mu, rstd, dy, *bits):
         raise ValueError(f"{what}: mu and rstd must be [{N}] float32")
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"{what}: dy must be [{N}, {H}] {x.dtype}")
-    if bits and (bits[0].shape != (N, H // 8) or bits[0].dtype != torch.uint8):
-        raise ValueError(f"{what}: the keep bits must be [{N}, {H // 8}] uint8, as the forward returns them")
+    if bits and (bits[0].shape != (N, bits_width(H)) or bits[0].dtype != torch.uint8):
+        raise ValueError(f"{what}: the keep bits must be [{N}, {bits_width(H)}] uint8, as the forward returns them")
     return lib
 
 
@@ -218,8 +248,10 @@ def _dropout_args(rate: float, seed: int):
 @functools.lru_cache(maxsize=None)
 def _bwd_geometry(lib, kernel: int, H: int, code: int):
     """(rows a block, blocks an SM) of K8 (kernel 8) or K10 at width H in
-    dtype ``code``: fixed for a library and a card, so queried once."""
-    return lib.vb_ln_geometry(1), lib.vb_ln_info(kernel, 3, H, code)
+    dtype ``code``: a warp a row up to the widest row a warp owns, else a
+    block a row; fixed for a library and a card, so queried once."""
+    rows = lib.vb_ln_geometry(1) if H <= lib.vb_ln_geometry(0) else 1
+    return rows, lib.vb_ln_info(kernel, 3, H, code)
 
 
 def launch_fwd(lib, x, res, scale, bias, eps: float, dropout: bool, rate: float = 0.0, seed: int = 0):
@@ -230,7 +262,7 @@ def launch_fwd(lib, x, res, scale, bias, eps: float, dropout: bool, rate: float 
     y = torch.empty_like(x)
     mu = torch.empty(N, dtype=torch.float32, device=x.device)
     rstd = torch.empty(N, dtype=torch.float32, device=x.device)
-    bits = torch.empty((N, H // 8), dtype=torch.uint8, device=x.device) if dropout else None
+    bits = torch.empty((N, bits_width(H)), dtype=torch.uint8, device=x.device) if dropout else None
     code = lib.vb_ln_fwd(x.data_ptr(), res.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
                          mu.data_ptr(), rstd.data_ptr(), None if bits is None else bits.data_ptr(), N, H,
                          _DTYPE_CODES[x.dtype], float(eps), int(dropout), *_dropout_args(rate, seed),
@@ -268,6 +300,17 @@ def launch_bwd(lib, x, res, scale, mu, rstd, dy, bits, rate: float, sms: int, se
     return err, dx, dres, dscale, dbias
 
 
+@functools.lru_cache(maxsize=None)
+def _form(lib, dtype, H: int) -> str:
+    return layer_norm_form(dtype, H, lib.vb_ln_geometry(0))
+
+
+def _counted(fn, lib, x) -> None:
+    fn.launches += 1
+    form = _form(lib, x.dtype, x.shape[1])
+    fn.forms[form] = fn.forms.get(form, 0) + 1
+
+
 def add_layer_norm_fwd(x, res, scale, bias, eps: float = 1e-12) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K7 wrapper: (y [N, H] in x's dtype, mu [N], rstd [N] fp32)."""
     what = "add + LayerNorm forward (K7)"
@@ -276,11 +319,12 @@ def add_layer_norm_fwd(x, res, scale, bias, eps: float = 1e-12) -> Tuple[torch.T
     lib = _check_fwd(what, x, res, scale, bias)
     code, y, mu, rstd, _ = launch_fwd(lib, x, res, scale, bias, eps, False)
     lib.check(code, what)
-    add_layer_norm_fwd.launches += 1
+    _counted(add_layer_norm_fwd, lib, x)
     return y, mu, rstd
 
 
 add_layer_norm_fwd.launches = 0
+add_layer_norm_fwd.forms = {}
 
 
 def add_layer_norm_bwd(x, res, scale, mu, rstd, dy) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -291,15 +335,16 @@ def add_layer_norm_bwd(x, res, scale, mu, rstd, dy) -> Tuple[torch.Tensor, torch
     lib = _check_bwd(what, x, res, scale, mu, rstd, dy)
     code, dx, _, dscale, dbias = launch_bwd(lib, x, res, scale, mu, rstd, dy, None, 0.0, _build.sm_count(x.device))
     lib.check(code, what)
-    add_layer_norm_bwd.launches += 1
+    _counted(add_layer_norm_bwd, lib, x)
     return dx, dscale, dbias
 
 
 add_layer_norm_bwd.launches = 0
+add_layer_norm_bwd.forms = {}
 
 
 def dropout_add_layer_norm_fwd(x, res, scale, bias, rate: float, seed: int, eps: float = 1e-12):
-    """K9 wrapper: (y, mu, rstd, keep bits [N, H / 8] uint8) of
+    """K9 wrapper: (y, mu, rstd, keep bits [N, ceil(H / 8)] uint8) of
     ``LN(dropout(x) + res)``."""
     what = "dropout + add + LayerNorm forward (K9)"
     if not _on_cuda(x, what):
@@ -307,11 +352,12 @@ def dropout_add_layer_norm_fwd(x, res, scale, bias, rate: float, seed: int, eps:
     lib = _check_fwd(what, x, res, scale, bias)
     code, y, mu, rstd, bits = launch_fwd(lib, x, res, scale, bias, eps, True, rate, seed)
     lib.check(code, what)
-    dropout_add_layer_norm_fwd.launches += 1
+    _counted(dropout_add_layer_norm_fwd, lib, x)
     return y, mu, rstd, bits
 
 
 dropout_add_layer_norm_fwd.launches = 0
+dropout_add_layer_norm_fwd.forms = {}
 
 
 def dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy, bits, rate: float):
@@ -322,11 +368,12 @@ def dropout_add_layer_norm_bwd(x, res, scale, mu, rstd, dy, bits, rate: float):
     lib = _check_bwd(what, x, res, scale, mu, rstd, dy, bits)
     code, *out = launch_bwd(lib, x, res, scale, mu, rstd, dy, bits, rate, _build.sm_count(x.device))
     lib.check(code, what)
-    dropout_add_layer_norm_bwd.launches += 1
+    _counted(dropout_add_layer_norm_bwd, lib, x)
     return tuple(out)
 
 
 dropout_add_layer_norm_bwd.launches = 0
+dropout_add_layer_norm_bwd.forms = {}
 
 
 # ---- autograd ----

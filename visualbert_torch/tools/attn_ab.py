@@ -19,11 +19,18 @@ source is built alone too and launched through this checkout's
 ``launch_exp_*`` (the entry points keep their signatures) at the same
 shapes: every ``VARIANTS`` entry and K16 at hg 6, 4 and 2, forward and
 backward at dropout 0.1, the trees in turns (EXP_ROUNDS rounds of
-``tools/attn_exp.py``'s best of 3 runs of 30 calls). Where the toolkit has
+``tools/attn_exp.py``'s best of 3 runs of 30 calls). Each tree's
+K11/K12 (``csrc/flash_attention.cu``) and K13/K14
+(``csrc/flash_attention_sp.cu``), which share ``hopper_attn.cuh``, are
+built alone too and launched through this checkout's ``launch_hm_*`` and
+``launch_sp_*`` (the bf16, D = 64 entry points keep their signatures) at
+the same shapes, on the same biased q, k, v: each against the plain
+versions within ``chip_smoke.py``'s limits, the two trees bit for bit at
+dropout 0 and 0.1 (each backward on this tree's forward outputs), then
+timed in turns (``tools/attn_steps.py``'s rounds). Where the toolkit has
 ``cuobjdump``, each kernel's machine code (SASS) in the two builds is
-compared instruction by instruction, addresses and encodings dropped: K1/K2
-and, built alone to ``cubin``, K11/K12 (``csrc/flash_attention.cu``) and
-K13/K14 (``csrc/flash_attention_sp.cu``), which share ``hopper_attn.cuh``.
+compared instruction by instruction, addresses and encodings dropped: K1/K2,
+K11/K12 and K13/K14 (their bf16, D = 64 form, whose scale is a constant).
 Every line names the card and its power limit; the last line is the
 numbers as one JSON object. Runs only on the card: without one it exits
 with an error.
@@ -46,7 +53,10 @@ KERNELS = {"forward": "fwd_kernel", "dQ pass": "dq_kernel", "dK/dV pass": "dkv_k
 EXP_SOURCE = SOURCE.parent / "flash_attention_exp.cu"
 EXP_FNS = ("vb_attn_exp_fwd", "vb_attn_exp_bwd")
 EXP_ROUNDS = 2
+HM_OUT_TOL, HM_DQKV_TOL = 1.6e-2, 8e-3  # chip_smoke.py's limits for K11/K12
 # the other sources on hopper_attn.cuh: {source: {kernel: part of its mangled name}}
+# (in a tree whose kernels are templates, of the bf16, D = 64 instantiation
+# with the scale a constant; VARIANT_FORMS skips the others)
 OTHER_SOURCES = {
     "flash_attention.cu": {"K11 forward": "hm_fwd_kernel", "K12 dQ pass": "hm_dq_kernel",
                            "K12 dK/dV pass": "hm_dkv_kernel"},
@@ -63,11 +73,18 @@ def bind(path, fns):
     return lib
 
 
+HM_FNS = ("vb_attn_hm_fwd", "vb_attn_hm_bwd", "vb_attn_hm_info")
+# template arguments of K11-K14's instantiations other than bf16 at D = 64
+# with a constant scale (``Lb0E``: FIXED false); an earlier tree's kernels
+# are not templates and match none
+VARIANT_FORMS = ("Lb0E",)
+
+
 def build(trees):
     """Each tree {name: root} built alone, one nvcc a source, all at once:
     ({name: (packed CDLL, path)}, {name: K15/K16 CDLL}, {name: {other
-    source: cubin path}})."""
-    from visualbert_torch.tools.attn_steps import PACKED_FNS
+    source: (CDLL, path)}})."""
+    from visualbert_torch.tools.attn_steps import PACKED_FNS, SP_FNS
 
     nvcc = _build.find_nvcc()
     out = _build.BUILD_ROOT / "ab"
@@ -75,19 +92,21 @@ def build(trees):
     out.mkdir(parents=True)
     paths = {name: out / f"{name}.so" for name in trees}
     exp_paths = {name: out / f"{name}_exp.so" for name in trees}
-    cubins = {name: {src: out / f"{name}_{Path(src).stem}.cubin" for src in OTHER_SOURCES} for name in trees}
+    others = {name: {src: out / f"{name}_{Path(src).stem}.so" for src in OTHER_SOURCES} for name in trees}
     cmds = []
     for name, root in trees.items():
         flags = [nvcc, *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-I", str(root / SOURCE.parent)]
         cmds.append([*flags, "-shared", str(root / SOURCE), "-o", str(paths[name])])
         cmds.append([*flags, "-shared", str(root / EXP_SOURCE), "-o", str(exp_paths[name])])
-        cmds += [[*flags, "-cubin", str(root / SOURCE.parent / src), "-o", str(cubins[name][src])]
+        cmds += [[*flags, "-shared", str(root / SOURCE.parent / src), "-o", str(others[name][src])]
                  for src in OTHER_SOURCES]
     for cmd, rc, text in _build._run_all(cmds):
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
     libs = {name: (bind(path, PACKED_FNS), path) for name, path in paths.items()}
-    return libs, {name: bind(path, EXP_FNS) for name, path in exp_paths.items()}, cubins
+    fns = {"flash_attention.cu": HM_FNS, "flash_attention_sp.cu": SP_FNS}
+    others = {name: {src: (bind(path, fns[src]), path) for src, path in srcs.items()} for name, srcs in others.items()}
+    return libs, {name: bind(path, EXP_FNS) for name, path in exp_paths.items()}, others
 
 
 # the instantiations of K1/K2 and K4-K6 that earlier trees may not have
@@ -121,7 +140,7 @@ def sass_of(text, kernels=KERNELS, skip=()):
     return out
 
 
-def compare_sass(libs, cubins, card):
+def compare_sass(libs, others, card):
     """Per kernel (K1/K2's three, K11-K14's six): whether the two builds'
     SASS is the same instruction for instruction, and each build's
     instruction count; None without cuobjdump."""
@@ -137,7 +156,9 @@ def compare_sass(libs, cubins, card):
     sass = {name: dump(path, KERNELS) for name, (_, path) in libs.items()}
     for src, kernels in OTHER_SOURCES.items():
         for name in sass:
-            sass[name].update(dump(cubins[name][src], kernels))
+            text = subprocess.run([tool, "-sass", str(others[name][src][1])], capture_output=True, text=True,
+                                  check=True).stdout
+            sass[name].update(sass_of(text, kernels, OTHER_FORMS + VARIANT_FORMS))
     res = {}
     for k in [*KERNELS, *(k for kernels in OTHER_SOURCES.values() for k in kernels)]:
         a, b = sass["this"].get(k, []), sass["other"].get(k, [])
@@ -145,6 +166,110 @@ def compare_sass(libs, cubins, card):
         print(f"sass of the {k}: {len(a)} instructions here, {len(b)} in the other tree, the same: "
               f"{res[k]['same']}  [{card}]", flush=True)
     return res
+
+
+class HmBuild:
+    """K11/K12's three kernels (bf16, D = 64) from one library, called as
+    their wrapper calls them, with the head groups of this build's own
+    occupancy; the interface of tools/attn_steps.py's builds."""
+
+    def __init__(self, name, lib, B, T, n_sm):
+        from visualbert_torch.ops import flash_attention as fa
+        from visualbert_torch.tools.attn_steps import H
+
+        self.name, self.lib = name, lib
+        info = [[lib.vb_attn_hm_info(k, w, T) for w in range(4)] for k in range(3)]
+        if min(i[3] for i in info) < 1:
+            raise RuntimeError(f"{name}: a kernel fits no block an SM at T={T}")
+        self.hg = [fa.head_group(B, H, n_sm, i[3]) for i in info]
+        self.info = info
+
+    def _check(self, code, what):
+        if code != 0:
+            raise RuntimeError(f"{self.name} {what}: CUDA error {code}")
+
+    def fwd(self, qkv5, key_bias, rate, seed):
+        from visualbert_torch.ops.flash_attention import launch_hm_fwd
+
+        code, out, stats = launch_hm_fwd(self.lib, qkv5, key_bias, rate, seed, self.hg[0])
+        self._check(code, "K11")
+        return out, stats
+
+    def bwd(self, qkv5, key_bias, dout4, out, stats, rate, seed):
+        from visualbert_torch.ops.flash_attention import launch_hm_bwd
+
+        code, dqkv = launch_hm_bwd(self.lib, qkv5, key_bias, dout4, out, stats, rate, seed, *self.hg[1:])
+        self._check(code, "K12")
+        return dqkv
+
+    def calls(self, data, rate):
+        from visualbert_torch.tools.attn_steps import SEED
+
+        qkv5, key_bias, dout4 = data
+        out, stats = self.fwd(qkv5, key_bias, rate, SEED)
+        return (lambda: self.fwd(qkv5, key_bias, rate, SEED),
+                lambda: self.bwd(qkv5, key_bias, dout4, out, stats, rate, SEED))
+
+
+def variant_ab(others, data, n_sm, card):
+    """K11/K12 and K13/K14 of both trees on the main path's biased q, k, v:
+    against the plain versions (chip_smoke.py's limits), the trees bit for
+    bit at dropout 0 and 0.1, then timed in turns. Returns {pair: dict(errors,
+    same, times, builds)}."""
+    import torch
+
+    from visualbert_torch.ops import flash_attention as fa
+    from visualbert_torch.tools import attn_steps
+
+    H, SEED = attn_steps.H, attn_steps.SEED
+    qkv, qb, key_bias, dout = data
+    B, T, F = qkv.shape
+    D = F // (3 * H)
+    biased = (qkv + qb).contiguous()
+    hm_data = (biased.view(B, T, H, 3, D).permute(0, 3, 2, 1, 4).contiguous(), key_bias,
+               dout.view(B, T, H, D).permute(0, 2, 1, 3).contiguous())
+    res = {}
+    for pair, cls, src, pdata in (("K11/K12", HmBuild, "flash_attention.cu", hm_data),
+                                  ("K13/K14", attn_steps.SpBuild, "flash_attention_sp.cu", (biased, key_bias, dout))):
+        builds = [cls(name, others[name][src][0], B, T, n_sm) for name in ("this", "other")]
+        for b in builds:
+            print(f"{b.name} {pair}: hg {b.hg}; registers, local bytes, shared bytes, blocks an SM of the forward, "
+                  f"dQ pass, dK/dV pass: {b.info}  [{card}]", flush=True)
+        same = {}
+        if pair == "K13/K14":
+            errors = attn_steps.check_sp(builds, pdata, card)
+            same = {k: v["same_as_built"] for k, v in errors["other"].items()}
+        else:
+            qkv5, kb, dout4 = pdata
+            errors = {}
+            for rate in (0.0, 0.1):
+                out_r, stats_r = fa.heads_major_attention_fwd_reference(qkv5, kb, rate, SEED)
+                dq_r = fa.heads_major_attention_bwd_reference(qkv5, kb, dout4, out_r, stats_r, rate, SEED)
+                got = []
+                for b in builds:
+                    out, stats = b.fwd(qkv5, kb, rate, SEED)
+                    dq = b.bwd(qkv5, kb, dout4, out_r, stats_r, rate, SEED)
+                    torch.cuda.synchronize()
+                    e = dict(out=attn_steps._rel(out, out_r), stats=float((stats - stats_r).abs().max()),
+                             dqkv=attn_steps._rel(dq, dq_r))
+                    errors.setdefault(b.name, {})[f"rate {rate}"] = e
+                    print(f"{b.name} K11/K12 rate {rate}: out {e['out']:.3e} (tol {HM_OUT_TOL}), stats "
+                          f"{e['stats']:.3e} (tol {attn_steps.STATS_TOL}), dqkv {e['dqkv']:.3e} (tol {HM_DQKV_TOL})  "
+                          f"[{card}]", flush=True)
+                    if not (e["out"] <= HM_OUT_TOL and e["stats"] <= attn_steps.STATS_TOL and e["dqkv"] <= HM_DQKV_TOL):
+                        raise SystemExit(f"attn_ab: {b.name} K11/K12 disagree with the plain versions at rate {rate}")
+                    got.append((out, stats, dq))
+                same[f"rate {rate}"] = all(torch.equal(x, y) for x, y in zip(*got))
+                del out_r, stats_r, dq_r, got
+        print(f"{pair}: the two trees' outputs bit for bit: {same}  [{card}]", flush=True)
+        if not all(same.values()):
+            raise SystemExit(f"attn_ab: the two trees' {pair} differ in their outputs")
+        times = attn_steps.time_builds(builds, pdata)
+        attn_steps.print_times(builds, times, card, pair)
+        res[pair] = dict(errors=errors, same=same, times=times, builds={b.name: dict(hg=b.hg, info=b.info)
+                                                                          for b in builds})
+    return res
+
 
 
 def exp_times(exp_libs, data, card):
@@ -213,7 +338,7 @@ def main(argv=None):
     data = packed_attention_inputs(dev)
     B, T, _ = data[0].shape
     t0 = time.perf_counter()
-    libs, exp_libs, cubins = build({"this": _build.CSRC.parent.parent, "other": Path(argv[0]).resolve()})
+    libs, exp_libs, others = build({"this": _build.CSRC.parent.parent, "other": Path(argv[0]).resolve()})
     print(f"attn_ab: B={B} T={T} H={attn_steps.H}; the builds in {time.perf_counter() - t0:.1f} s  [{card}]",
           flush=True)
     builds = [attn_steps.PackedBuild(name, lib, B, T, n_sm) for name, (lib, _) in libs.items()]
@@ -225,10 +350,12 @@ def main(argv=None):
         raise SystemExit("attn_ab: the two trees' K1/K2 differ in their outputs")
     times = attn_steps.time_builds(builds, data)
     attn_steps.print_times(builds, times, card, "K1/K2")
+    variants = variant_ab(others, data, n_sm, card)
     exp = exp_times(exp_libs, data, card)
-    sass = compare_sass(libs, cubins, card)
+    sass = compare_sass(libs, others, card)
     result = dict(card=card, shape=dict(B=B, T=T, H=attn_steps.H), other=str(argv[0]), errors=errors, times=times,
-                  exp_times=exp, builds={b.name: dict(hg=b.hg, info=b.info) for b in builds}, sass=sass)
+                  exp_times=exp, variants=variants, builds={b.name: dict(hg=b.hg, info=b.info) for b in builds},
+                  sass=sass)
     print(json.dumps(result), flush=True)
     return result
 

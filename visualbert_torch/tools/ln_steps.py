@@ -25,7 +25,8 @@ their dx and dres must be bit for bit, dscale and dbias within
 Given the root of another tree of the repository (an earlier commit
 unpacked with ``git archive``), the tool also builds that tree's
 ``layer_norm.cu`` alone, compares the machine code (SASS, ``cuobjdump``, as
-``tools/attn_ab.py`` does) of K7 (every dtype and width) and of the reduce
+``tools/attn_ab.py`` does) of K7-K10's vector forms (every dtype and chunk
+count: the widths that are a multiple of 8 up to 1024) and of the reduce
 pass with this tree's instruction by instruction, and times K7-K10 of both
 trees in turns. That tree's entry points may be the first design's, before
 K9 saved its bits (``FIRST_DESIGN_SIGNATURES``): its K10 then regenerates the
@@ -69,9 +70,12 @@ FIRST_DESIGN_SIGNATURES = {
     "vb_ln_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _U, _U, _F, _P],
     "vb_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _P],
 }
-# K7 (ln_fwd_kernel<T, NC, false>) at every dtype and chunk count, and the
-# reduce pass: part of each mangled name
-SHARED_KERNELS = {f"K7 {t} NC={nc}": f"ln_fwd_kernelI{m}Li{nc}ELb0EE"
+# K7/K9 (ln_fwd_kernel<T, NC, DROPOUT>) and K8/K10 (ln_bwd_kernel<T, NC,
+# DROPOUT>) at every dtype and chunk count, and the reduce pass: part of
+# each mangled name (the any-width forms' kernels match none)
+SHARED_KERNELS = {f"{k} {t} NC={nc}": f"{fn}I{m}Li{nc}ELb{d}EE"
+                  for k, fn, d in (("K7", "ln_fwd_kernel", 0), ("K9", "ln_fwd_kernel", 1),
+                                   ("K8", "ln_bwd_kernel", 0), ("K10", "ln_bwd_kernel", 1))
                   for t, m in (("bf16", "13__nv_bfloat16"), ("fp16", "6__half"), ("fp32", "f"))
                   for nc in (1, 2, 3, 4)}
 SHARED_KERNELS["K8/K10 reduce"] = "ln_bwd_reduce_kernel"
