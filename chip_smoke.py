@@ -99,10 +99,12 @@ non-zero without printing the final line:
    plain version, scaled_dot_product_attention in its dtype and its bound,
    with each kernel's registers, local bytes, shared bytes and blocks an
    SM and the padding's own time; K4-K6 (XENT_FORMS) in bf16 at widths
-   128, 256 and 512, in fp16 and fp32 at 768 and in bf16 and fp16 at 384
-   (zero-padded to 512, the copy of E timed alone) at the main path's N =
-   3072 and V = 30522, likewise (none may spill), beside cuBLAS's products
-   in the same dtype. Then K11/K12 and K13/K14 in the same forms
+   128, 256 and 512, in fp16 and fp32 at 768, in bf16 and fp16 at 384
+   (zero-padded to 512, the copy of E timed alone), on the wide form in
+   bf16 at 2048, fp16 at 2560 (on the fp32 kernels) and fp32 (the tiled
+   kernels) at 1088 and 2048, at the main path's N = 3072 and V = 30522,
+   likewise (none may spill; fp32 K4-K6 called twice must agree bit for
+   bit), beside cuBLAS's products in the same dtype. Then K11/K12 and K13/K14 in the same forms
    (ATTENTION_FORMS) at the main path's [128, 228, 12 heads], dropout 0 and
    0.1, held as K1/K2's forms and K11-K14 are (K13's bf16 probabilities
    within one bf16 ulp in every dtype, K14 fed K13's own output), each
@@ -306,8 +308,8 @@ non-zero without printing the final line:
    (K11/K12 in fp16), tiny() with `"flash_save_probs": true` (K13/K14 in
    fp32) and Megatron-BERT 1.3B's widths (Shoeybi et al. 2019, Table 4: H
    = 2048, A = 32, I = 8192; L cut from 24 to 2) in bf16 with the fused
-   LayerNorm and fast_dropout (K9/K10 a block a row) and
-   `"fused_mlm_xent": false` (its width is above K4-K6's 1024); each run
+   LayerNorm, fast_dropout (K9/K10 a block a row) and the fused
+   cross-entropy (K4-K6 on the wide form, which the run must show); each run
    must be on the card, its losses finite, its launches those of its depth
    and flags (the attention pair L a step, K4-K6 one, the dropout sites or
    K9/K10), every launch of K1/K2, K4-K14 in the kernel form of its dtype
@@ -322,10 +324,11 @@ non-zero without printing the final line:
    rows: mask, site forward, site backward; the fp32 kernels of K1/K2 and
    K4-K6 (csrc/flash_attention_f32.cu, csrc/mlm_xent_f32.cu) are five rows
    more, timed at the main path's shapes in fp32, their launches from
-   phase 27's tiny() run; the forms of K11/K12 (fp16), K13/K14 (fp32) and
-   K9/K10 (bf16, a block a row) that phase 27 drives are six rows more
-   (FORM_KERNELS), timed at phase 3's shapes, their launches from their
-   geometry's run), then {"ok": true, "device": {...}} as the last line.
+   phase 27's tiny() run; the forms of K11/K12 (fp16), K13/K14 (fp32),
+   K9/K10 (bf16, a block a row) and K4-K6 (bf16, the wide form at 2048)
+   that phase 27 drives are nine rows more (FORM_KERNELS), timed at phase
+   3's shapes, their launches from their geometry's run), then {"ok":
+   true, "device": {...}} as the last line.
 """
 
 import contextlib
@@ -448,7 +451,8 @@ SLICE_F32_REL_TOL = 1e-4  # the dropout-off loss check in fp32
 ATTENTION_FORMS = (("float16", 64), ("float32", 64), ("bfloat16", 16), ("float16", 16), ("float32", 16),
                    ("bfloat16", 128), ("float16", 128), ("float32", 128))
 XENT_FORMS = (("bfloat16", 128), ("bfloat16", 256), ("bfloat16", 512), ("float16", 768), ("float32", 768),
-              ("bfloat16", 384), ("float16", 384))
+              ("bfloat16", 384), ("float16", 384), ("bfloat16", 2048), ("float16", 2560), ("float32", 1088),
+              ("float32", 2048))
 # K11-K14 take the forms of ATTENTION_FORMS; K7-K10 at the main path's rows
 # in these (dtype, width) forms: below 64 and odd widths on the element
 # forms, above 1024 on the block forms (Megatron-BERT's 2048, ALBERT-
@@ -472,9 +476,9 @@ GEOMETRIES = (
           max_position_embeddings=128, dtype="float32", use_fused_layer_norm=True, flash_save_probs=True)),
     # depth cut from 24 to 2 layers to fit the phase's time; widths as published
     ("Megatron-BERT 1.3B's widths (Shoeybi et al. 2019, Table 4: H=2048, A=32, I=8192) at L=2 (cut from 24) in "
-     "bf16, the fused LayerNorm, fast_dropout, fused_mlm_xent false (above K4-K6's 1024, ROADMAP C5c)",
+     "bf16, the fused LayerNorm, fast_dropout and the fused cross-entropy (K4-K6 on the wide form)",
      dict(hidden_size=2048, num_hidden_layers=2, num_attention_heads=32, intermediate_size=8192,
-          use_fused_layer_norm=True, fast_dropout=True, fused_mlm_xent=False)),
+          use_fused_layer_norm=True, fast_dropout=True, fused_mlm_xent=True)),
 )
 # the kernel table's rows of the fp32 kernels: (row name, wrapper module,
 # wrapper, source, the TPU kernel it replaces); launches from the tiny run
@@ -487,7 +491,7 @@ F32_KERNELS = (
     ("mlm_xent_dx (fp32)", "mlm_xent", "mlm_xent_dx", "mlm_xent_f32.cu", "visualbert_tpu/ops/mlm_xent.py:145"),
     ("mlm_xent_de (fp32)", "mlm_xent", "mlm_xent_de", "mlm_xent_f32.cu", "visualbert_tpu/ops/mlm_xent.py:170"),
 )
-# the kernel table's rows of K7-K14's forms that phase 27 drives: (row name,
+# the kernel table's rows of K4-K14's forms that phase 27 drives: (row name,
 # wrapper module, wrapper, source, the TPU kernel it replaces, the geometry
 # whose run gives its launches, the phase-3 form whose numbers it takes)
 FORM_KERNELS = (
@@ -503,6 +507,12 @@ FORM_KERNELS = (
      "layer_norm.cu", "visualbert_tpu/ops/layer_norm.py:171", 5, ("bfloat16", 2048)),
     ("dropout_add_layer_norm_bwd (bf16 block, 16-byte)", "layer_norm", "dropout_add_layer_norm_bwd",
      "layer_norm.cu", "visualbert_tpu/ops/layer_norm.py:189", 5, ("bfloat16", 2048)),
+    ("mlm_xent_fwd (bf16 wide H2048)", "mlm_xent", "mlm_xent_fwd", "mlm_xent.cu", "visualbert_tpu/ops/mlm_xent.py:52",
+     5, ("bfloat16", 2048)),
+    ("mlm_xent_dx (bf16 wide H2048)", "mlm_xent", "mlm_xent_dx", "mlm_xent.cu", "visualbert_tpu/ops/mlm_xent.py:145",
+     5, ("bfloat16", 2048)),
+    ("mlm_xent_de (bf16 wide H2048)", "mlm_xent", "mlm_xent_de", "mlm_xent.cu", "visualbert_tpu/ops/mlm_xent.py:170",
+     5, ("bfloat16", 2048)),
 )
 # phase 25: the mesh's runs against the one-process run on the same seeded
 # weights and batch (bf16 model; the ranks sum in another order), each limit
@@ -1742,17 +1752,19 @@ def check_xent_forms(torch, card):
     """K4-K6 in the forms of XENT_FORMS at the main path's N = 3072 rows and
     V = 30522, against their plain versions (fp32 at F32_ABS_TOL /
     F32_REL_TOL, the rest at bf16's limits; argmax as check_xent holds it);
+    fp32 K4-K6 called again on the same inputs must give the same bits;
     each timed beside its plain version, cuBLAS's products of the same
-    dtype (x E^T; with dlog E or dlog^T x) and its bound, with its
-    registers, local bytes (none may spill), shared bytes and blocks an SM;
-    a padded width also with the [V, H_pad] copy of E it makes. Returns the
-    fp32 kernels' table rows at H = 768."""
+    dtype (x E^T; with dlog E or dlog^T x) and its bound, with the N x V x H
+    products its design runs, its registers, local bytes (none may spill),
+    shared bytes and blocks an SM; a padded width also with the [V, H_pad]
+    copy of E it makes. Returns the fp32 kernels' table rows at H = 768 and
+    {(wrapper, dtype, width): row} of every form."""
     from visualbert_torch.ops import _build
     from visualbert_torch.ops import mlm_xent as xe
     from visualbert_torch.tools.main_path import B, N_PRED
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    lib, N, V, rows = _build.library(), B * N_PRED, 30522, {}
+    lib, N, V, rows, form_rows = _build.library(), B * N_PRED, 30522, {}, {}
     for dtype, H in XENT_FORMS:
         x, emb, bias, lab, g = xent_inputs_at(torch, dtype, H, N, V)
         form = xe.xent_form(x.dtype, H)
@@ -1783,6 +1795,14 @@ def check_xent_forms(torch, card):
         if not (e_nll <= t_lse and e_lse <= t_lse and bad_clear == 0 and r_dx <= t_dx and r_de <= t_de
                 and r_db <= t_db):
             raise SystemExit(f"K4-K6 {where} disagree with their plain versions")
+        if dtype == "float32":
+            again = (*xe.mlm_xent_fwd(x, emb, bias, lab), xe.mlm_xent_dx(x, emb, bias, lab, lse_r, g),
+                     *xe.mlm_xent_de(x, emb, bias, lab, lse_r, g))
+            same = [torch.equal(a, b) for a, b in zip((nll, lse, am, dx, de, db), again)]
+            log(f"K4-K6 {where}: a second call's nll, lse, argmax, dx, dE, db bit for bit: {same}")
+            if not all(same):
+                raise SystemExit(f"K4-K6 {where} differ between two calls on the same inputs")
+            del again
         fns = {"mlm_xent_fwd": (xe.mlm_xent_fwd, xe.mlm_xent_fwd_reference, (), max(e_nll, e_lse), 1),
                "mlm_xent_dx": (xe.mlm_xent_dx, xe.mlm_xent_dx_reference, (lse, g), e_dx, 2),
                "mlm_xent_de": (xe.mlm_xent_de, xe.mlm_xent_de_reference, (lse, g), max(e_de, e_db), 2)}
@@ -1794,30 +1814,40 @@ def check_xent_forms(torch, card):
         products = {"mlm_xent_fwd": lambda: torch.matmul(x, emb.t()),
                     "mlm_xent_dx": lambda: (torch.matmul(x, emb.t()), torch.matmul(p, emb)),
                     "mlm_xent_de": lambda: (torch.matmul(x, emb.t()), torch.matmul(p.t(), x))}
+        design = {"mlm_xent_fwd": 1, "mlm_xent_dx": xe.bwd_products(x.dtype, H),
+                  "mlm_xent_de": xe.bwd_products(x.dtype, H)}
         for name, (fn, ref, extra, err, n_mm) in fns.items():
             r = dict(max_abs_err=err, ms=cuda_time_ms(lambda: fn(x, emb, bias, lab, *extra), 5),
                      plain_ms=cuda_time_ms(lambda: ref(x, emb, bias, lab, *extra), 2), library_ms=None,
                      **bound(moved[name], n_mm * gflop * 1e9, peak))
             cublas = cuda_time_ms(products[name], 5)
             log(row_line(f"{name} {where}", r, card)
-                + f"; cuBLAS's {n_mm} product(s) in {dtype} (not the fused function) {cublas:.4f} ms")
+                + f"; cuBLAS's {n_mm} product(s) in {dtype} (not the fused function) {cublas:.4f} ms; the design "
+                  f"runs {design[name]} N x V x H product(s), {design[name] * gflop / r['ms']:.1f} TFLOP/s")
             if dtype == "float32" and H == 768:
                 rows[f"{name} (fp32)"] = r
+            form_rows[(name, dtype, H)] = r
         del p
-        info = {"bfloat16": "vb_xent_info", "float16": "vb_xent_f16_info", "float32": "vb_xent_f32_info"}[dtype]
-        hk = H if dtype == "float32" else xe.kernel_width(H)
+        on_f32 = xe.runs_on_f32(x.dtype, H)
+        hk = H if on_f32 else xe.kernel_width(H)
+        if on_f32:
+            info = lib.vb_xent_f32_info
+        elif xe.is_wide(H):
+            info = lib.vb_xent_wide_info
+        else:
+            info = {"bfloat16": lib.vb_xent_info, "float16": lib.vb_xent_f16_info}[dtype]
         for k, kernel in enumerate(("K5", "K6", "K4")):
-            regs, local, smem, per_sm = (getattr(lib, info)(k, w, hk) for w in range(4))
-            log(f"{kernel} {dtype} at width {hk}: {regs} registers a thread, {local} bytes of local memory, {smem} "
-                f"bytes of shared memory, {per_sm} blocks an SM")
+            regs, local, smem, per_sm = (info(k, w, hk) for w in range(4))
+            log(f"{kernel} {dtype} at width {hk} (form {form}): {regs} registers a thread, {local} bytes of local "
+                f"memory, {smem} bytes of shared memory, {per_sm} blocks an SM")
             if local != 0:
                 raise SystemExit(f"{kernel} {dtype} at width {hk} spills ({local} bytes of local memory)")
-        if dtype != "float32" and hk != H:
+        if not on_f32 and hk != H:
             copy_ms = cuda_time_ms(lambda: xe.pad_width(emb, hk), 10)
             log(f"K4-K6 {where}: each call's [{V}, {hk}] zero-padded copy of E alone {copy_ms:.4f} ms  [{card}]")
         del x, emb, bias, lab, g, nll, lse, am, dx, de, db
         torch.cuda.empty_cache()
-    return rows
+    return rows, form_rows
 
 
 def variant_inputs_at(torch, variant, dtype, D, H=12):
@@ -2058,7 +2088,7 @@ def geometry_forms(cfg, want):
     from visualbert_torch.ops.mlm_xent import xent_form
 
     a_form, l_form = attention_form(cfg.dtype, cfg.head_dim), layer_norm_form(cfg.dtype, cfg.hidden_size)
-    x_form = xent_form(cfg.dtype, cfg.hidden_size) if cfg.fused_mlm_xent else None  # no form above 1024
+    x_form = xent_form(cfg.dtype, cfg.hidden_size) if cfg.fused_mlm_xent else None
     form_of = {0: a_form, 1: a_form, 3: x_form, 4: x_form, 5: x_form, 6: l_form, 7: l_form, 8: l_form, 9: l_form,
                10: a_form, 11: a_form, 12: a_form, 13: a_form}
     return {KERNELS[i][0]: ({f: want[i]} if want[i] else {}) for i, f in form_of.items()}
@@ -2126,6 +2156,9 @@ def run_geometry_cli(torch, card):
             raise SystemExit(f"geometry {label}: non-finite loss")
         if launches != want or forms != want_forms:
             raise SystemExit(f"geometry {label}: launches {launches}, forms {forms}; want {want}, {want_forms}")
+        if cfg.fused_mlm_xent and cfg.hidden_size > 1024 and not all(
+                f.split()[1] == "wide" for k in ("mlm_xent_fwd", "mlm_xent_dx", "mlm_xent_de") for f in forms[k]):
+            raise SystemExit(f"geometry {label}: K4-K6 ran {forms}, not the wide form")
         out[label] = (cfg, forms)
         del trainer, result
         torch.cuda.empty_cache()
@@ -3614,9 +3647,11 @@ def main():
         check_xent(torch, card, labels=labels)
     torch.cuda.empty_cache()
     rows.update(check_attention_forms(torch, card))
-    rows.update(check_xent_forms(torch, card))
+    xent_rows, xent_form_rows = check_xent_forms(torch, card)
+    rows.update(xent_rows)
     t_forms = time.perf_counter()
     form_rows = check_variant_forms(torch, card)
+    form_rows.update(xent_form_rows)
     torch.cuda.empty_cache()
     form_rows.update(check_layer_norm_forms(torch, card))
     torch.cuda.empty_cache()
@@ -3722,7 +3757,7 @@ def main():
     table += [dict(name=name, route="cuda", source=f"visualbert_torch/csrc/{src}", replaces=replaces,
                    launches=tiny_forms[wrapper].get("fp32", 0), **rows[name])
               for name, _, wrapper, src, replaces in F32_KERNELS]
-    # K7-K14's other forms that phase 27 drives: launches from their geometry's run
+    # K4-K14's other forms that phase 27 drives: launches from their geometry's run
     for name, _, wrapper, src, replaces, g, (dtype, width) in FORM_KERNELS:
         form = name[name.index("(") + 1:-1]
         launched = geometries[GEOMETRIES[g][0]][1][wrapper].get(form, 0)

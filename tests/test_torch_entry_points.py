@@ -142,10 +142,20 @@ def test_each_attention_launch_passes_its_signatures_arguments(monkeypatch, name
 class XentLib(RecordingLib):
     """A recording library that also answers ``vb_xent_geometry`` with the
     kernels' tiling at width 768 (K4: 128 rows a block, vocabulary tiles of
-    32; K5/K6: row block 64, vocabulary tile 32, all 768 columns a block)."""
+    32; K5/K6: row block 64, vocabulary tile 32, all 768 columns a block),
+    ``vb_xent_wide_geometry`` with the wide form's (widths in steps of 64;
+    K4: 128 rows, tiles of 64; K5/K6: 64 rows, tiles of 64, 512 columns a
+    block) and ``vb_xent_f32_geometry`` with the fp32 kernels' (128 x 256
+    tiles)."""
 
     def vb_xent_geometry(self, which, hid):
         return (hid, 128, 64, 32, 32, 768)[which]
+
+    def vb_xent_wide_geometry(self, which):
+        return (64, 128, 64, 64, 64, 512)[which]
+
+    def vb_xent_f32_geometry(self, which):
+        return (128, 256)[which]
 
 
 @pytest.mark.parametrize("N,V", [(100, 1000), (3072, 30522), (1, 70)])
@@ -204,9 +214,9 @@ def test_each_xent_backward_launch_passes_its_signatures_arguments(monkeypatch, 
 
 def form_launches():
     """The launches of the bf16/fp16 and fp32 forms of K1/K2, K11-K14 (fp16
-    at head dim 64, fp32 at 48) and K4-K6 (fp16 at width 768, fp32 at 200)
-    on CPU tensors: {entry point: (call on a library, the values its
-    parameters must be given)}."""
+    at head dim 64, fp32 at 48) and K4-K6 (fp16 at width 768, bf16 at 2048
+    on the wide form, fp32 at 200) on CPU tensors: {entry point: (call on a
+    library, the values its parameters must be given)}."""
     from visualbert_torch.ops import mlm_xent as xe
 
     qkv16 = torch.zeros((B, T, 3 * H * D), dtype=torch.float16)
@@ -222,7 +232,10 @@ def form_launches():
     ldp = fa.probs_row_stride(T)
     N, V = 100, 1000
     x16, e16 = torch.zeros((N, 768), dtype=torch.float16), torch.zeros((V, 768), dtype=torch.float16)
+    xw, ew = torch.zeros((N, 2048), dtype=torch.bfloat16), torch.zeros((V, 2048), dtype=torch.bfloat16)
     x32, e32 = torch.zeros((N, 200)), torch.zeros((V, 200))
+    f32 = xe.f32_plan(N, V, 128, 256, 132)
+    wide = xe.dx_plan(N, V, 2048, 64, 64, 512, 132)
     rows, lab = torch.zeros(N), torch.zeros(N, dtype=torch.int32)
     attn = dict(B=B, T=T, H=H)
     return {
@@ -258,11 +271,18 @@ def form_launches():
                            dict(N=N, V=V, hid=768)),
         "vb_xent_f16_de": (lambda lib: xe.launch_de(lib, x16, e16, torch.zeros(V), lab, rows, rows),
                            dict(N=N, V=V, hid=768)),
-        "vb_xent_f32_fwd": (lambda lib: xe.launch_f32_fwd(lib, x32, e32, torch.zeros(V), lab), dict(N=N, V=V, H=200)),
-        "vb_xent_f32_dx": (lambda lib: xe.launch_f32_dx(lib, x32, e32, torch.zeros(V), lab, rows, rows),
-                           dict(N=N, V=V, H=200)),
+        "vb_xent_f32_fwd": (lambda lib: xe.launch_f32_fwd(lib, x32, e32, torch.zeros(V), lab, 132),
+                            dict(N=N, V=V, H=200, S=f32["grid"][1], vbs=f32["per"])),
+        "vb_xent_f32_dx": (lambda lib: xe.launch_f32_dx(lib, x32, e32, torch.zeros(V), lab, rows, rows, 132),
+                           dict(N=N, V=V, H=200, S=f32["grid"][1], vbs=f32["per"])),
         "vb_xent_f32_de": (lambda lib: xe.launch_f32_de(lib, x32, e32, torch.zeros(V), lab, rows, rows),
                            dict(N=N, V=V, H=200)),
+        "vb_xent_wide_fwd": (lambda lib: xe.launch_wide_fwd(lib, xw, ew, torch.zeros(V), lab, 132),
+                             dict(N=N, V=V, hid=2048)),
+        "vb_xent_wide_dx": (lambda lib: xe.launch_wide_dx(lib, xw, ew, torch.zeros(V), lab, rows, rows, 132),
+                            dict(N=N, V=V, hid=2048, S=wide["grid"][2], vbs=wide["per"])),
+        "vb_xent_wide_de": (lambda lib: xe.launch_wide_de(lib, xw, ew, torch.zeros(V), lab, rows, rows),
+                            dict(N=N, V=V, hid=2048)),
     }
 
 

@@ -5,10 +5,11 @@ On CPU tensors the wrappers run their plain versions, the math of every
 kernel form (bf16 and fp16 at a padded head dim or width, fp32). Each is
 held against the JAX function on the same numpy inputs, its Pallas kernel
 in interpret mode: packed attention at head dims 8, 16, 32 and 128 in fp32
-and 64 in fp16, the fused cross-entropy at widths 32, 64, 256 and 384 in
-fp32 and fp16 (forward against ``mlm_xent``, backward against the JAX
-backward kernels with the JAX forward's lse, as ``test_torch_xent.py`` does:
-the JAX op's custom VJP cannot be differentiated, ROADMAP C1). Tolerances:
+and 64 in fp16, the fused cross-entropy at widths 32, 64, 256, 384 and,
+past 1024 (the wide form in fp16), 1088 and 2048 in fp32 and fp16
+(forward against ``mlm_xent``, backward against the JAX backward kernels
+with the JAX forward's lse, as ``test_torch_xent.py`` does: the JAX op's
+custom VJP cannot be differentiated, ROADMAP C1). Tolerances:
 fp32 atol 2e-5 / rtol 1e-4 (the ROADMAP's bar; the two sum the same fp32
 products in another order). fp16: outputs and gradients in fp16 may round
 one fp16 ulp (2^-10 relative) apart where the two frameworks round an
@@ -143,7 +144,7 @@ def xent_inputs(seed, N, H, V):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float16"])
-@pytest.mark.parametrize("H", [32, 64, 256, 384])
+@pytest.mark.parametrize("H", [32, 64, 256, 384, 1088, 2048])
 def test_mlm_xent_matches_jax_at_every_dtype_and_width(dtype, H):
     """nll and argmax of mlm_xent against the JAX op; dx, d embedding and d
     bias of the plain K5/K6 against the JAX backward kernels on the JAX
@@ -176,14 +177,19 @@ def test_mlm_xent_matches_jax_at_every_dtype_and_width(dtype, H):
     np.testing.assert_allclose(db.numpy(), np.asarray(db_j)[0], atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("H", [32, 200, 384, 1000])
+@pytest.mark.parametrize("H", [32, 200, 384, 1000, 1100, 2000])
 def test_padded_widths_give_the_unpadded_cross_entropy(H):
     """K4-K6's plain versions on x and E zero-padded to the kernel's width
-    (pad_width), dx and dE cut back, equal the plain versions at H: the
-    argmax exactly; nll, lse, dx, dE and db as far as fp32 rounding of the
-    longer sums goes (the logits recomputed from them), atol 1e-5."""
+    (pad_width: the next instantiation up to 1024, above it the next
+    multiple of 64, the wide form's), dx and dE cut back, equal the plain
+    versions at H: the argmax exactly; nll, lse, dx, dE and db as far as
+    fp32 rounding of the longer sums goes (the logits recomputed from
+    them), atol 1e-5."""
     w = xe.kernel_width(H)
-    assert w in xe.KERNEL_WIDTHS and w >= H and (w == 128 or xe.KERNEL_WIDTHS[xe.KERNEL_WIDTHS.index(w) - 1] < H)
+    if H > xe.KERNEL_WIDTHS[-1]:
+        assert xe.is_wide(H) and w % xe.WIDE_STEP == 0 and w - xe.WIDE_STEP < H < w
+    else:
+        assert w in xe.KERNEL_WIDTHS and w >= H and (w == 128 or xe.KERNEL_WIDTHS[xe.KERNEL_WIDTHS.index(w) - 1] < H)
     N, V = 24, 300
     x, emb, bias, labels, g = (torch.tensor(a) for a in xent_inputs(H, N, H, V))
     lab = labels.clamp_min(0)
@@ -205,7 +211,9 @@ def test_padded_widths_give_the_unpadded_cross_entropy(H):
 
 @pytest.mark.parametrize("dtype,H,form", [("bfloat16", 768, "bf16 H768"), ("bfloat16", 64, "bf16 H128"),
                                           ("float16", 384, "fp16 H512"), ("float16", 1024, "fp16 H1024"),
-                                          ("float32", 200, "fp32")])
+                                          ("float32", 200, "fp32"), ("bfloat16", 2048, "bf16 wide H2048"),
+                                          ("float16", 1100, "fp16 on fp32"), ("bfloat16", 1025, "bf16 wide H1088"),
+                                          ("float32", 2560, "fp32")])
 def test_each_dtype_and_width_has_its_kernel_form(dtype, H, form):
     assert xe.xent_form(getattr(torch, dtype), H) == form
 

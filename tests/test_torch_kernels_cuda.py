@@ -67,9 +67,12 @@ as above (fp32 within 1e-4 relative, its stats within 1e-4), repeating bit
 for bit, dropping exactly the plain mask's positions, and at D = 128
 taking T up to 256 and refusing 257 (fp32 has no such limit: T = 1024
 runs); K4-K6 in bf16 and fp16 at widths 32 to 1024 (every instantiated
-width and padded ones between) and in fp32 at any width, as above (fp32's
-dx, dE and db within 1e-4 of the largest plain value, nll and lse within
-1e-4), repeating bit for bit, none spilling.
+width and padded ones between), bf16 on the wide form at 1088, 2048 and
+2560, fp16 there on the fp32 kernels, and fp32 at any width (the tiled
+kernels, at 32 to 2048), as
+above (fp32's dx, dE and db within 1e-4 of the largest plain value, nll
+and lse within 1e-4), repeating bit for bit, none spilling, and the first
+of equal maxima taken by the fp32 and the wide forms.
 """
 
 import numpy as np
@@ -919,7 +922,12 @@ def test_xent_geometry_is_the_one_the_plans_are_tested_with(cuda):
                    1024: (1024, 64, 64, 32, 16, 512)}
     assert lib.vb_xent_geometry(0, 640) == -1 and lib.vb_xent_info(0, 0, 640) == -1
     assert lib.vb_xent_info(2, 0, 640) == -1 and lib.vb_xent_info(3, 0, 768) == -1
-    assert lib.vb_xent_f16_info(2, 0, 640) == -1 and lib.vb_xent_f32_info(0, 0, 1025) == -1
+    assert lib.vb_xent_f16_info(2, 0, 640) == -1 and lib.vb_xent_f32_info(0, 0, 0) == -1
+    # tests/test_torch_xent_wide.py plans the fp32 and the wide grids at these
+    assert (lib.vb_xent_f32_geometry(0), lib.vb_xent_f32_geometry(1)) == (128, 256)
+    assert tuple(lib.vb_xent_wide_geometry(w) for w in range(6)) == (64, 128, 64, 64, 64, 512)
+    assert lib.vb_xent_wide_info(0, 0, 1024) == -1 and lib.vb_xent_wide_info(2, 0, 1100) == -1
+    assert lib.vb_xent_wide_info(2, 0, 1088) > 0 and lib.vb_xent_wide_info(3, 0, 2048) == -1
 
 
 def test_xent_argmax_takes_the_first_max(cuda):
@@ -958,12 +966,12 @@ def test_xent_autograd_through_kernels(cuda):
 
 
 def test_xent_rejects_what_the_kernel_does_not_take(cuda):
-    """Widths above 1024 (every width up to it runs, padded where needed),
-    x and E of different dtypes, labels not int32."""
+    """x and E of different widths (every width runs, padded where needed)
+    or dtypes, labels not int32."""
     x, emb, bias, labels, _ = xent_inputs(16, 100, cuda)
     wide = torch.zeros((16, 1100), dtype=x.dtype, device=cuda)
     with pytest.raises(ValueError, match="hidden width"):
-        xe.mlm_xent_fwd(wide, torch.zeros((100, 1100), dtype=x.dtype, device=cuda), bias, labels)
+        xe.mlm_xent_fwd(wide, torch.zeros((100, 1000), dtype=x.dtype, device=cuda), bias, labels)
     with pytest.raises(ValueError, match="bf16"):
         xe.mlm_xent_fwd(x.float(), emb, bias, labels)
     with pytest.raises(ValueError, match="int32"):
@@ -1448,8 +1456,8 @@ def form_xent_inputs(N, V, H, dtype, device, seed=0):
 
 
 XENT_FORM_CASES = ([(dt, H) for dt in (torch.bfloat16, torch.float16)
-                    for H in (32, 64, 128, 200, 256, 384, 512, 640, 768, 1000, 1024)]
-                   + [(torch.float32, H) for H in (32, 64, 200, 768, 1024)])
+                    for H in (32, 64, 128, 200, 256, 384, 512, 640, 768, 1000, 1024, 1088, 2048, 2560)]
+                   + [(torch.float32, H) for H in (32, 64, 200, 768, 1024, 1088, 2048)])
 
 
 @pytest.mark.parametrize("N,V", [(257, 4099), (37, 30522), (1, 70)])
@@ -1477,7 +1485,8 @@ def test_xent_forms_match_plain(cuda, dtype, H, N, V):
 
 
 @pytest.mark.parametrize("dtype,H", [(torch.float16, 768), (torch.bfloat16, 256), (torch.bfloat16, 384),
-                                     (torch.float32, 64), (torch.float32, 768)], ids=str)
+                                     (torch.float32, 64), (torch.float32, 768), (torch.float32, 1088),
+                                     (torch.float32, 2048), (torch.bfloat16, 2048), (torch.float16, 2560)], ids=str)
 def test_xent_forms_repeat_bit_for_bit(cuda, dtype, H):
     x, emb, bias, labels, g = form_xent_inputs(3072, 30522, H, dtype, cuda)
     runs = []
@@ -1490,13 +1499,49 @@ def test_xent_forms_repeat_bit_for_bit(cuda, dtype, H):
 
 
 @pytest.mark.parametrize("info,H", [(i, H) for i in ("vb_xent_info", "vb_xent_f16_info") for H in xe.KERNEL_WIDTHS]
-                         + [("vb_xent_f32_info", H) for H in (32, 768, 1024)])
+                         + [("vb_xent_f32_info", H) for H in (32, 768, 1024, 2048)])
 @pytest.mark.parametrize("kernel", [0, 1, 2])
 def test_xent_forms_do_not_spill(cuda, info, H, kernel):
     lib = _build.library()
     regs, local, smem, per_sm = (getattr(lib, info)(kernel, w, H) for w in range(4))
     assert 0 < regs <= 255 and local == 0
     assert 0 < smem <= 232448 and per_sm >= 1
+
+
+@pytest.mark.parametrize("H", [1088, 2048, 2560])
+@pytest.mark.parametrize("kernel", [0, 1, 2])
+def test_xent_wide_forms_do_not_spill(cuda, H, kernel):
+    lib = _build.library()
+    regs, local, smem, per_sm = (lib.vb_xent_wide_info(kernel, w, H) for w in range(4))
+    assert 0 < regs <= 255 and local == 0
+    assert 0 < smem <= 232448 and per_sm >= 1
+
+
+@pytest.mark.parametrize("dtype,H", [(torch.float32, 768), (torch.float32, 1088), (torch.bfloat16, 2048),
+                                     (torch.float16, 2560), (torch.bfloat16, 1100)], ids=str)
+def test_xent_fp32_and_wide_forms_take_the_first_max(cuda, dtype, H):
+    """Equal logits in one vocabulary tile (5, 9) and in two splits (5,
+    V - 3), with labels of -1 (computed as 0, g = 0) among the rows: the
+    lower index wins, and K5/K6 still match their plain versions."""
+    N, V = 40, 30522
+    x, emb, bias, labels, g = form_xent_inputs(N, V, H, dtype, cuda, seed=7)
+    u = emb[5].float() * 4
+    for v in (5, 9, V - 3):
+        emb[v] = u.to(dtype)
+        bias[v] = 0.25
+    x[:] = emb[5]
+    _, lse, am = xe.mlm_xent_fwd(x, emb, bias, labels)
+    assert am.tolist() == [5] * N
+    _, lse_r, _ = xe.mlm_xent_fwd_reference(x, emb, bias, labels)
+    torch.cuda.synchronize()
+    atol = F32_ABS_TOL if dtype == torch.float32 else XENT_ATOL
+    assert float((lse - lse_r).abs().max()) < atol
+    assert (g == 0).any() and (g > 0).any()
+    dx, (de, db) = xe.mlm_xent_dx(x, emb, bias, labels, lse_r, g), xe.mlm_xent_de(x, emb, bias, labels, lse_r, g)
+    de_r, db_r = xe.mlm_xent_de_reference(x, emb, bias, labels, lse_r, g)
+    rel, db_rel = (F32_REL_TOL, F32_REL_TOL) if dtype == torch.float32 else (REL_TOL, DB_REL_TOL)
+    assert rel_err(dx, xe.mlm_xent_dx_reference(x, emb, bias, labels, lse_r, g)) < rel
+    assert rel_err(de, de_r) < rel and rel_err(db, db_r) < db_rel
 
 
 # ---- K11-K14 and K7-K10 in every dtype, head dim and width ----

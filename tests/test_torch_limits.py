@@ -29,8 +29,6 @@ OUTSIDE = [
      "flash_save_probs", "take head dims up to 128"),
     (dict(use_flash_attention=True, hidden_size=1024, num_attention_heads=4), "use_flash_attention",
      "head dims up to 128"),
-    (dict(fused_mlm_xent=True, hidden_size=1280, num_attention_heads=20), "fused_mlm_xent", "up to 1024"),
-    (dict(fused_mlm_xent=True, use_fused_layer_norm=True, **MEGATRON_1_3B), "fused_mlm_xent", "up to 1024"),
     (dict(use_fused_layer_norm=True, hidden_size=4104, num_attention_heads=8), "use_fused_layer_norm", "up to 4096"),
     (dict(fast_dropout=True, dtype=torch.float64), "fast_dropout", "bf16, fp16 or fp32"),
 ]
@@ -48,13 +46,15 @@ def test_a_config_outside_a_kernel_limit_is_refused_on_cuda(fields, flag, limit)
 
 
 # configs that were refused before the kernels took fp16, fp32, head dims
-# up to 128, cross-entropy widths up to 1024 and LayerNorm widths up to
-# 4096 that are not a multiple of 8
+# up to 128, cross-entropy widths above 1024 (the wide form) and LayerNorm
+# widths up to 4096 that are not a multiple of 8
 NOW_TAKEN = [
     dict(use_flash_attention=True, dtype="float32"),
     dict(use_flash_attention=True, hidden_size=1024, num_attention_heads=8),
     dict(fused_mlm_xent=True, dtype="float32"),
     dict(fused_mlm_xent=True, hidden_size=512, num_attention_heads=8),
+    dict(fused_mlm_xent=True, hidden_size=1280, num_attention_heads=20),
+    dict(fused_mlm_xent=True, use_fused_layer_norm=True, **MEGATRON_1_3B),
     dict(use_flash_attention=True, packed_qkv=False, dtype="float16"),
     dict(use_flash_attention=True, flash_save_probs=True, dtype="float32"),
     dict(use_fused_layer_norm=True, hidden_size=1100, num_attention_heads=11),
@@ -63,7 +63,8 @@ NOW_TAKEN = [
 
 
 @pytest.mark.parametrize("fields", NOW_TAKEN, ids=["K1K2-fp32", "K1K2-head-dim-128", "K4K6-fp32", "K4K6-512",
-                                                   "K11K12-fp16", "K13K14-fp32", "K7K10-1100", "K7K10-1284"])
+                                                   "K4K6-1280", "K4K6-megatron", "K11K12-fp16", "K13K14-fp32",
+                                                   "K7K10-1100", "K7K10-1284"])
 def test_a_config_the_kernels_now_take_is_accepted_on_cuda(fields):
     check_kernel_limits(VisualBertConfig(**fields), CUDA)
 
@@ -87,8 +88,15 @@ def test_the_fused_layer_norm_takes_every_dtype_and_width_up_to_4096(dtype, widt
 
 def test_megatron_widths_pass_with_the_unfused_cross_entropy():
     """Megatron-BERT 1.3B's widths with every kernel flag but the fused
-    cross-entropy (above its 1024, ROADMAP C5c)."""
+    cross-entropy (the unfused decoder takes any width)."""
     check_kernel_limits(VisualBertConfig(**MEGATRON_1_3B, **dict(KERNELS_ON, fused_mlm_xent=False)), CUDA)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_megatron_widths_pass_with_every_kernel_flag(dtype):
+    """Megatron-BERT 1.3B's widths with all four kernel flags: K4-K6 on the
+    wide form (bf16, fp16) or the fp32 kernels."""
+    check_kernel_limits(VisualBertConfig(**MEGATRON_1_3B, **KERNELS_ON, dtype=dtype), CUDA)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
@@ -99,8 +107,9 @@ def test_the_packed_attention_takes_every_dtype_and_head_dim_up_to_128(dtype, he
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
-@pytest.mark.parametrize("width", [32, 64, 128, 200, 256, 384, 512, 640, 768, 1000, 1024])
-def test_the_fused_cross_entropy_takes_every_dtype_and_width_up_to_1024(dtype, width):
+@pytest.mark.parametrize("width", [32, 64, 128, 200, 256, 384, 512, 640, 768, 1000, 1024, 1088, 1280, 2048, 2560,
+                                   4096])
+def test_the_fused_cross_entropy_takes_every_dtype_and_width(dtype, width):
     cfg = VisualBertConfig(hidden_size=width, num_attention_heads=1, dtype=dtype, fused_mlm_xent=True)
     check_kernel_limits(cfg, CUDA)
 

@@ -2,8 +2,9 @@
 left out in turn and timed), without a card: what runs here is the tool's
 refusals and its switches in the source, each one the kernel library never
 sets, the SASS parse it shares with ``tools/attn_ab.py``, which keys the
-kernels both trees share (K5, K6, K5's reduce pass, K4's merge pass), and
-the splits its sweep of K4 times."""
+kernels both trees share (the bf16 K4, K5 and K6 at 768 and 1024, K5's
+reduce pass, K4's merge pass; not the wide form's), and the splits its
+sweep of K4 times."""
 
 import re
 
@@ -64,10 +65,15 @@ def test_the_sass_parse_keys_the_shared_kernels_by_their_mangled_names():
         /*0000*/                   EXIT ;                                  /* 0x000000000000794d */
         Function : _ZN44_GLOBAL__N__x15xent_bwd_kernelILi768ELb0E6__halfEEvPKT1_
         /*0000*/                   NOP ;                                   /* 0x0000000000007918 */
+        Function : _ZN44_GLOBAL__N__x20xent_wide_fwd_kernelI13__nv_bfloat16EEvPKT_
+        /*0000*/                   NOP ;                                   /* 0x0000000000007918 */
+        Function : _ZN44_GLOBAL__N__x20xent_wide_bwd_kernelILb0E13__nv_bfloat16EEvPKT0_
+        /*0000*/                   NOP ;                                   /* 0x0000000000007918 */
     """
     got = sass_of(text, xent_steps.SHARED_KERNELS, OTHER_FORMS)
-    assert got == {"K5, 768": ["MOV R1, c[0x0][0x28]", "BRA `(.L0)"], "K6, 1024": ["EXIT"]}
-    assert not any("fwd_kernel" in key for key in xent_steps.SHARED_KERNELS.values())
+    assert got == {"K5, 768": ["MOV R1, c[0x0][0x28]", "BRA `(.L0)"], "K4, 768": ["EXIT"], "K6, 1024": ["EXIT"]}
+    # the bf16 forms up to 1024 only: no fp16 form, no wide form
+    assert not any("wide" in key or "half" in key for key in xent_steps.SHARED_KERNELS.values())
 
 
 @pytest.mark.parametrize("H,rows", [(768, 128), (1024, 64)])

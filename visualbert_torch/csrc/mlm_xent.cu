@@ -4,8 +4,8 @@
 // mlm_xent.
 //
 // Inputs, at hidden width HID of 768 (bert-base) or 1024 (bert-large), one
-// instantiation each (and 128, 256, 512: see "Widths and element types"
-// below): x [N, HID] bf16 (the MLM transform's output rows), E [V, HID] bf16
+// instantiation each (and 128, 256, 512, and the wide form above 1024: see
+// "Widths and element types" below): x [N, HID] bf16 (the MLM transform's output rows), E [V, HID] bf16
 // (the word-embedding table in the compute dtype, as the decoder weight),
 // bias [V] fp32, labels [N] int32 in [0, V) (the caller maps -1 to 0 and
 // masks those rows), and for the backward lse [N] fp32 and the cotangent
@@ -154,10 +154,12 @@
 // ring's space is the block's x rows, 256 HID bytes); K5/K6 stream 32-row
 // tiles (m64n32 logits, each warpgroup over HID / 128 panels) and a block
 // owns every column (HID / 128 m64n64 accumulators a warpgroup). The
-// wrapper zero-pads any other width up to the next instantiated one
+// wrapper zero-pads any other width up to 1024 to the next instantiated one
 // (ops/mlm_xent.py::pad_width; a zero column adds nothing to a logit) and
-// drops the padded columns of dx and dE. fp32 has its own kernels
-// (mlm_xent_f32.cu).
+// drops the padded columns of dx and dE. Above 1024 the wide form (the
+// last section of this file) takes bf16 at any multiple of 64 at run time,
+// other widths padded to the next; fp16 above 1024 and fp32 run on their
+// own kernels (mlm_xent_f32.cu).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -1005,6 +1007,411 @@ int de(int dtype, const void* x, const void* E, const void* bias, const void* la
   return f->de(x, E, bias, labels, lse, g, N, V, dE, db, static_cast<cudaStream_t>(stream));
 }
 
+// ------------------------------------------------------------ the wide form
+//
+// K4-K6 in bf16 at any width hid above 1024 that is a multiple of 64 (the
+// wrapper zero-pads other widths to the next multiple of 64), templates on
+// the element type built for bf16 (fp16: see Accumulation below); hid is
+// a runtime argument. Simple and right
+// first: nothing of a block is resident, both matrices stream through a
+// cp.async ring in 64-column panels (128 B-swizzled as above), and wgmma
+// reads both operands from shared memory.
+// - K4 (xent_wide_fwd_kernel): a block of two warpgroups takes 128 rows of
+//   x (64 a warpgroup) and a tile of 64 vocabulary rows at a time; each
+//   step of the ring is one panel of both (16 + 8 KB, 4 stages), and each
+//   warpgroup adds its 64 x 64 logits of the panel (an m64n64 accumulator)
+//   until the tile's last panel; then RowStats, the splits' partials and
+//   xent_fwd_merge_kernel as K4's.
+// - K5 / K6 (xent_wide_bwd_kernel): a block keeps 64 rows (K5: of x; K6: of
+//   E) and walks tiles of 64 streamed rows; each warpgroup forms the logits
+//   of 32 of a tile's rows over every panel (m64n32), writes their dlog into
+//   the shared 64 x 64 tile, and multiplies that tile by the tile's panels
+//   of the block's 512 result columns (four m64n64 accumulators a
+//   warpgroup, wgmma_n64_tb), which a second copy brings into shared memory
+//   while the logits run. A block owns 512 columns of dx / dE (the grid's
+//   y; the last range may be shorter), so each range recomputes the
+//   logits: at hid = 2048 four ranges, 4 N V hid products for the logits
+//   and N V hid for the results, 2.5 x the 2 N V hid of the two products.
+//   K5 splits the vocabulary and writes fp32 partials, which
+//   xent_wide_dx_reduce_kernel sums in split order; K6 walks every x tile.
+// - Accumulation. A wgmma chain over all of a wide row (128 k-steps at
+//   2048) rounds differently from an fp32 sum: on the H100 the logits
+//   drifted, lse by 2.3e-5 and db by 6.5e-6 of its largest value at 2048
+//   in bf16, against 1.9e-6 and 7.1e-7 at 1024. So each panel (4 k-steps)
+//   starts a fresh accumulator, which an fp32 add takes into the logits'
+//   running total (K4's starts from the bias): 2.9e-6 and 1.0e-6 at 2048.
+//   fp16 is not taken here: its 22-bit products lose bits inside each k16
+//   step (2560: lse 1.0e-5, db 3.9e-6 of its largest value, a fresh
+//   accumulator a k-step no better), beyond the bf16 limits; the wrapper
+//   runs fp16 above 1024 on the fp32 kernels (mlm_xent_f32.cu), where its
+//   products are exact.
+// Ragged N, V and the last column range are masked as above; E is read in
+// place. No atomics: two calls agree bit for bit.
+
+constexpr int WIDE_MIN = 1088;      // the narrowest wide width: 17 panels (the rings below count on NP >= 3)
+constexpr int WF_ROWS = 128;        // wide K4: x rows a block, 64 a warpgroup
+constexpr int WF_TILE = 64;         // wide K4: vocabulary rows a tile
+constexpr int WF_STAGES = 4;        // wide K4: ring stages, each an x panel and an E panel
+constexpr int WF_PANEL = 128 * 128; // bytes of a 128-row panel of x
+constexpr int WF_STAGE = WF_PANEL + WF_TILE * 128;  // ... and a stage: it and an E panel
+constexpr size_t WF_SMEM = vb_hopper::ALIGN + WF_STAGES * WF_STAGE;
+constexpr int WB_TILE = 64;         // wide K5/K6: streamed rows a tile
+constexpr int WB_COLS = 512;        // wide K5/K6: result columns a block owns
+constexpr int WB_NC = WB_COLS / 128; // ... a warpgroup, in m64n64 accumulators
+constexpr int WB_STAGES = 3;        // wide K5/K6: ring stages, each a resident and a streamed panel
+constexpr int WB_PANEL = 64 * 128;  // bytes of a 64-row panel
+constexpr size_t WB_SMEM = vb_hopper::ALIGN + (WB_STAGES * 2 + WB_COLS / 64) * WB_PANEL + P_BYTES +
+                           2 * RES * sizeof(float);
+static_assert(WF_SMEM <= 232448 && WB_SMEM <= 232448, "a wide block must fit the H100's 227 KB of shared memory");
+
+// Issue the copy of 64-column panel p of rows [r0, r0 + NR) of a [nvalid,
+// hid] matrix into NR swizzled rows at shared address dst; rows past nvalid
+// are zero.
+template <int NR, typename ET>
+__device__ __forceinline__ void issue_panel(uint32_t dst, const ET* __restrict__ src, int r0, int nvalid, int hid,
+                                            int p) {
+#pragma unroll
+  for (int idx = threadIdx.x; idx < NR * 8; idx += NTHREADS) {
+    const int r = idx >> 3, c = idx & 7, row = r0 + r;
+    const bool ok = row < nvalid;
+    vb_hopper::cp_async16(dst + swz(r, c), src + (size_t)(ok ? row : 0) * hid + p * 64 + c * 8, ok);
+  }
+}
+
+// d (64 x 64 fp32) = (acc ? d : 0) + A B^T, both K-major in shared memory.
+template <typename ET>
+__device__ __forceinline__ void wgmma_n64_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  if constexpr (std::is_same<ET, __half>::value)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " VB_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : VB_D32
+        : "l"(a), "l"(b), "r"(acc));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VB_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : VB_D32
+        : "l"(a), "l"(b), "r"(acc));
+}
+
+// grid (cdiv(N, WF_ROWS), S): row blocks x vocabulary splits of `vbs` tiles
+// of WF_TILE rows; writes pf / pi as xent_fwd_kernel does.
+template <typename ET>
+__global__ void __launch_bounds__(NTHREADS, 1)
+xent_wide_fwd_kernel(const ET* __restrict__ x, const ET* __restrict__ E, const float* __restrict__ bias,
+                     const int* __restrict__ labels, int N, int V, int hid, int vbs, float* __restrict__ pf,
+                     int* __restrict__ pi) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t sQ = smem_addr(vb_hopper::align_smem(smem_raw));  // slot b: x panel, then E panel
+  const int tid = threadIdx.x & 127, wg = threadIdx.x >> 7, warp = tid >> 5, lane = threadIdx.x & 31;
+  const int tq = lane & 3, i0 = warp * 16 + (lane >> 2);
+  const int rb = blockIdx.x * WF_ROWS, r0 = rb + wg * RES + i0;  // this thread's rows: r0, r0 + 8
+  const int NP = hid / 64, ntiles = cdiv(V, WF_TILE);
+  const int t0 = blockIdx.y * vbs, t1 = min(ntiles, t0 + vbs), nsteps = (t1 - t0) * NP;
+
+  // step q: panel q % NP of tile t0 + q / NP, into slot b
+  auto issue = [&](int q, int b) {
+    const int t = t0 + q / NP, p = q % NP;
+    const uint32_t dst = sQ + b * WF_STAGE;
+    issue_panel<WF_ROWS, ET>(dst, x, rb, N, hid, p);
+    issue_panel<WF_TILE, ET>(dst + WF_PANEL, E, t * WF_TILE, V, hid, p);
+  };
+
+  RowStats<8> st;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    st.m[h] = -INFINITY;
+    st.l[h] = 0.f;
+    st.ll[h] = 0.f;
+    st.bv[h] = -INFINITY;
+    st.bi[h] = INT_MAX;
+    st.lab[h] = r0 + 8 * h < N ? labels[r0 + 8 * h] : -1;
+  }
+  for (int j = 0; j < WF_STAGES - 1; ++j) {
+    if (j < nsteps) issue(j, j);
+    vb_hopper::cp_commit();
+  }
+  float s[32], z[32];  // a panel's products; the tile's logits so far
+  for (int q = 0, b = 0; q < nsteps; ++q) {
+    const int t = t0 + q / NP, p = q % NP;
+    vb_hopper::cp_wait<WF_STAGES - 2>();
+    vb_hopper::fence_async();
+    __syncthreads();  // step q landed; every thread is done with step q - 1's slot
+    if (q + WF_STAGES - 1 < nsteps) issue(q + WF_STAGES - 1, b == 0 ? WF_STAGES - 1 : b - 1);
+    vb_hopper::cp_commit();
+    if (p == 0) {  // the tile's logits start from its bias
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int v = t * WF_TILE + 8 * nt + 2 * tq;
+        const float b0 = v < V ? bias[v] : 0.f, b1 = v + 1 < V ? bias[v + 1] : 0.f;
+        z[4 * nt] = z[4 * nt + 2] = b0;
+        z[4 * nt + 1] = z[4 * nt + 3] = b1;
+      }
+    }
+    const uint32_t xs = sQ + b * WF_STAGE;
+    const uint64_t da = vb_hopper::desc(xs + wg * RES * 128), db = vb_hopper::desc(xs + WF_PANEL);
+    vb_hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_n64_ss<ET>(s, da + 2 * kk, db + 2 * kk, kk);
+    vb_hopper::wg_commit();
+    vb_hopper::wg_wait();
+    hold(s);
+#pragma unroll
+    for (int k = 0; k < 32; ++k) z[k] += s[k];
+    if (p == NP - 1) st.add(z, t * WF_TILE, V, tq);
+    b = b + 1 == WF_STAGES ? 0 : b + 1;
+  }
+  st.merge_quad();
+  const size_t plane = (size_t)gridDim.y * N, at = (size_t)blockIdx.y * N;
+  if (tq == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (r0 + 8 * h < N) store_partial(pf, pi, plane, at + r0 + 8 * h, st.m[h], st.l[h], st.ll[h], st.bv[h], st.bi[h]);
+}
+
+// K5 (DE false): grid (cdiv(N, RES), cdiv(hid, WB_COLS), S); block (x, y, z)
+// keeps x rows [64 x, 64 x + 64), walks the vocabulary tiles [z vbs, z vbs +
+// vbs) of WB_TILE rows and writes columns [y WB_COLS, y WB_COLS + WB_COLS)
+// of the fp32 partial part [S][N][hid]. K6 (DE true): grid (cdiv(V, RES),
+// cdiv(hid, WB_COLS)); block (x, y) keeps E rows [64 x, 64 x + 64), walks
+// every x tile and writes those rows of dE (its columns) and, for y = 0,
+// of db.
+template <bool DE, typename ET>
+__global__ void __launch_bounds__(NTHREADS, 1)
+xent_wide_bwd_kernel(const ET* __restrict__ x, const ET* __restrict__ E, const float* __restrict__ bias,
+                     const int* __restrict__ labels, const float* __restrict__ lse, const float* __restrict__ gr,
+                     int N, int V, int hid, int vbs, float* __restrict__ part, ET* __restrict__ dE,
+                     float* __restrict__ db) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = vb_hopper::align_smem(smem_raw);
+  const uint32_t sRing = smem_addr(sm);                     // slot b: resident panel, then streamed panel
+  const uint32_t sKeep = sRing + WB_STAGES * 2 * WB_PANEL;  // the tile's panels of the block's columns
+  unsigned char* Pt = sm + (WB_STAGES * 2 + WB_COLS / 64) * WB_PANEL;  // the dlog tile
+  float* red = reinterpret_cast<float*>(Pt + P_BYTES);                 // [2][RES]: K6's db
+  const uint32_t sP = smem_addr(Pt);
+
+  const int r0 = blockIdx.x * RES;
+  const int nres = DE ? V : N, nstr = DE ? N : V;
+  const ET* res = DE ? E : x;
+  const ET* str = DE ? x : E;
+  const int NP = hid / 64, ntiles = cdiv(nstr, WB_TILE);
+  const int t0 = DE ? 0 : blockIdx.z * vbs, t1 = DE ? ntiles : min(ntiles, t0 + vbs), nsteps = (t1 - t0) * NP;
+  const int tid = threadIdx.x & 127, wg = threadIdx.x >> 7, warp = tid >> 5, lane = threadIdx.x & 31;
+  const int tq = lane & 3, i0 = warp * 16 + (lane >> 2);
+  const int pb = blockIdx.y * (WB_COLS / 64), pc = pb + wg * WB_NC;  // the block's / this warpgroup's first panel
+
+  auto issue = [&](int q, int b) {
+    const int t = t0 + q / NP, p = q % NP;
+    const uint32_t dst = sRing + b * 2 * WB_PANEL;
+    issue_panel<RES, ET>(dst, res, r0, nres, hid, p);
+    issue_panel<WB_TILE, ET>(dst + WB_PANEL, str, t * WB_TILE, nstr, hid, p);
+  };
+  auto issue_keep = [&](int t) {
+#pragma unroll
+    for (int j = 0; j < WB_COLS / 64; ++j)
+      if (pb + j < NP) issue_panel<WB_TILE, ET>(sKeep + j * WB_PANEL, str, t * WB_TILE, nstr, hid, pb + j);
+  };
+
+  float rv[2];
+  int rid[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + i0 + 8 * h;
+    if (DE) {
+      rv[h] = r < V ? bias[r] : 0.f;
+      rid[h] = r;
+    } else {
+      rv[h] = r < N ? lse[r] : INFINITY;  // padded rows: p = 0
+      rid[h] = r < N ? labels[r] : -1;
+    }
+  }
+  float acc[WB_NC][32];
+#pragma unroll
+  for (int j = 0; j < WB_NC; ++j) vb_hopper::zero(acc[j]);
+  float dsum[2] = {0.f, 0.f};
+
+  for (int j = 0; j < WB_STAGES - 1; ++j) {
+    if (j < nsteps) issue(j, j);
+    vb_hopper::cp_commit();
+  }
+  float s[16], z[16];
+  for (int q = 0, b = 0; q < nsteps; ++q) {
+    const int t = t0 + q / NP, p = q % NP;
+    if (p == 0) {
+      __syncthreads();  // every thread is done with the last tile's kept panels and dlog tile
+      issue_keep(t);    // lands before the tile's last step: NP - 1 >= WB_STAGES - 2 ring groups follow it
+      vb_hopper::cp_commit();
+    }
+    vb_hopper::cp_wait<WB_STAGES - 2>();
+    vb_hopper::fence_async();
+    __syncthreads();  // step q landed; every thread is done with step q - 1's slot
+    if (q + WB_STAGES - 1 < nsteps) issue(q + WB_STAGES - 1, b == 0 ? WB_STAGES - 1 : b - 1);
+    vb_hopper::cp_commit();
+
+    // this warpgroup's logits: the tile's streamed rows [32 wg, 32 wg + 32),
+    // a panel's products in s, the sum so far in z
+    const uint32_t rs = sRing + b * 2 * WB_PANEL;
+    const uint64_t da = vb_hopper::desc(rs), dq = vb_hopper::desc(rs + WB_PANEL + wg * 32 * 128);
+    vb_hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_n32<ET>(s, da + 2 * kk, dq + 2 * kk, kk);
+    vb_hopper::wg_commit();
+    vb_hopper::wg_wait();
+    hold(s);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) z[k] = p == 0 ? s[k] : z[k] + s[k];
+    b = b + 1 == WB_STAGES ? 0 : b + 1;
+    if (p != NP - 1) continue;
+
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float d[2];
+        const int c = wg * 32 + nt * 8 + 2 * tq;  // tile column of e = 0
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float zz = z[4 * nt + 2 * h + e];
+          const int j = t * WB_TILE + c + e;
+          if (DE) {  // row: vocabulary id rid; column: x row j
+            const bool ok = rid[h] < V && j < N;
+            d[e] = ok ? (expf(zz + rv[h] - lse[j]) - (labels[j] == rid[h] ? 1.f : 0.f)) * gr[j] : 0.f;
+            dsum[h] += d[e];
+          } else {   // row: x row with label rid; column: vocabulary id j
+            d[e] = j < V ? expf(zz + bias[j] - rv[h]) - (rid[h] == j ? 1.f : 0.f) : 0.f;
+          }
+        }
+        *reinterpret_cast<uint32_t*>(Pt + swz(i0 + 8 * h, c >> 3) + (c & 7) * 2) = vb::Elem<ET>::pack(d[0], d[1]);
+      }
+    vb_hopper::fence_async();
+    __syncthreads();  // the dlog tile is whole; the kept panels landed (waited above)
+
+    const uint64_t dp = vb_hopper::desc(sP);
+    vb_hopper::wg_fence();
+#pragma unroll
+    for (int j = 0; j < WB_NC; ++j)
+      if (pc + j < NP) {
+        const uint64_t dk = vb_hopper::desc(sKeep + (wg * WB_NC + j) * WB_PANEL);
+#pragma unroll
+        for (int kk = 0; kk < WB_TILE / 16; ++kk) wgmma_n64_tb<ET>(acc[j], dp + 2 * kk, dk + ((kk * 2048) >> 4));
+      }
+    vb_hopper::wg_commit();
+    vb_hopper::wg_wait();
+#pragma unroll
+    for (int j = 0; j < WB_NC; ++j) hold(acc[j]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + i0 + 8 * h;
+    if (r >= nres) continue;
+#pragma unroll
+    for (int j = 0; j < WB_NC; ++j) {
+      if (pc + j >= NP) continue;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = (pc + j) * 64 + nt * 8 + 2 * tq;
+        const float a = acc[j][4 * nt + 2 * h], c = acc[j][4 * nt + 2 * h + 1];
+        if (DE)
+          *reinterpret_cast<uint32_t*>(dE + (size_t)r * hid + col) = vb::Elem<ET>::pack(a, c);
+        else
+          *reinterpret_cast<float2*>(part + ((size_t)blockIdx.z * N + r) * hid + col) = make_float2(a, c);
+      }
+    }
+  }
+  if (DE) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = dsum[h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (tq == 0) red[wg * RES + i0 + 8 * h] = v;
+    }
+    __syncthreads();
+    const int i = threadIdx.x;
+    if (blockIdx.y == 0 && i < RES && r0 + i < V) db[r0 + i] = red[i] + red[RES + i];
+  }
+}
+
+// dx[n, :] = ET(g[n] * sum_s part[s, n, :]), the splits summed in order, at a
+// runtime (even) width.
+template <typename ET>
+__global__ void xent_wide_dx_reduce_kernel(const float* __restrict__ part, const float* __restrict__ gr, int N,
+                                           int hid, int S, ET* __restrict__ dx) {
+  const size_t total = (size_t)N * hid / 2;
+  for (size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x; q < total; q += (size_t)gridDim.x * blockDim.x) {
+    float2 sum = make_float2(0.f, 0.f);
+    for (int s = 0; s < S; ++s) {
+      const float2 v = reinterpret_cast<const float2*>(part + (size_t)s * N * hid)[q];
+      sum.x += v.x;
+      sum.y += v.y;
+    }
+    const float gn = gr[q * 2 / hid];
+    reinterpret_cast<uint32_t*>(dx)[q] = vb::Elem<ET>::pack(sum.x * gn, sum.y * gn);
+  }
+}
+
+const void* wide_kernel_of(int kernel) {
+  switch (kernel) {
+    case 0: return (const void*)xent_wide_bwd_kernel<false, bf16>;
+    case 1: return (const void*)xent_wide_bwd_kernel<true, bf16>;
+    case 2: return (const void*)xent_wide_fwd_kernel<bf16>;
+    default: return nullptr;
+  }
+}
+
+bool wide_width(int hid) { return hid >= WIDE_MIN && hid % 64 == 0; }
+
+cudaError_t set_smem(const void* fn, size_t bytes) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename ET>
+int wide_fwd(const void* x, const void* E, const void* bias, const void* labels, int N, int V, int hid, int S,
+             int vbs, void* pf, void* pi, void* nll, void* lse, void* am, cudaStream_t st) {
+  cudaError_t err = set_smem((const void*)xent_wide_fwd_kernel<ET>, WF_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  xent_wide_fwd_kernel<ET><<<dim3(cdiv(N, WF_ROWS), S), NTHREADS, WF_SMEM, st>>>(
+      static_cast<const ET*>(x), static_cast<const ET*>(E), static_cast<const float*>(bias),
+      static_cast<const int*>(labels), N, V, hid, vbs, static_cast<float*>(pf), static_cast<int*>(pi));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  xent_fwd_merge_kernel<<<cdiv(N, 128), 128, 0, st>>>(static_cast<const float*>(pf), static_cast<const int*>(pi),
+                                                       N, S, static_cast<float*>(nll), static_cast<float*>(lse),
+                                                       static_cast<int*>(am));
+  return (int)cudaGetLastError();
+}
+
+template <typename ET>
+int wide_dx(const void* x, const void* E, const void* bias, const void* labels, const void* lse, const void* g,
+            int N, int V, int hid, int S, int vbs, void* part, void* dx, cudaStream_t st) {
+  cudaError_t err = set_smem((const void*)xent_wide_bwd_kernel<false, ET>, WB_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  xent_wide_bwd_kernel<false, ET><<<dim3(cdiv(N, RES), cdiv(hid, WB_COLS), S), NTHREADS, WB_SMEM, st>>>(
+      static_cast<const ET*>(x), static_cast<const ET*>(E), static_cast<const float*>(bias),
+      static_cast<const int*>(labels), static_cast<const float*>(lse), nullptr, N, V, hid, vbs,
+      static_cast<float*>(part), nullptr, nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int pairs = cdiv(N * (hid / 2), 256);
+  xent_wide_dx_reduce_kernel<ET><<<pairs < 4096 ? pairs : 4096, 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<const float*>(g), N, hid, S, static_cast<ET*>(dx));
+  return (int)cudaGetLastError();
+}
+
+template <typename ET>
+int wide_de(const void* x, const void* E, const void* bias, const void* labels, const void* lse, const void* g,
+            int N, int V, int hid, void* dE, void* db, cudaStream_t st) {
+  cudaError_t err = set_smem((const void*)xent_wide_bwd_kernel<true, ET>, WB_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  xent_wide_bwd_kernel<true, ET><<<dim3(cdiv(V, RES), cdiv(hid, WB_COLS)), NTHREADS, WB_SMEM, st>>>(
+      static_cast<const ET*>(x), static_cast<const ET*>(E), static_cast<const float*>(bias),
+      static_cast<const int*>(labels), static_cast<const float*>(lse), static_cast<const float*>(g), N, V, hid, 0,
+      nullptr, static_cast<ET*>(dE), static_cast<float*>(db));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The tiling the wrapper needs to check inputs and size the grids and the
@@ -1059,4 +1466,59 @@ extern "C" int vb_xent_f16_dx(const void* x, const void* E, const void* bias, co
 extern "C" int vb_xent_f16_de(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
                               const void* g, int N, int V, int hid, void* dE, void* db, void* stream) {
   return de(1, x, E, bias, labels, lse, g, N, V, hid, dE, db, stream);
+}
+
+// The wide form's tiling, numbered as vb_xent_geometry's: 0 the step of
+// the widths it takes (it takes multiples of 64 from 1088 on), 1 K4's x
+// rows per block, 2 K5/K6's resident rows per block, 3 K4's vocabulary
+// rows per tile, 4 K5/K6's streamed rows per tile, 5 the result columns a
+// K5/K6 block owns.
+extern "C" int vb_xent_wide_geometry(int which) {
+  const int g[6] = {64, WF_ROWS, RES, WF_TILE, WB_TILE, WB_COLS};
+  return which >= 0 && which < 6 ? g[which] : -1;
+}
+
+// K5 (kernel 0), K6 (kernel 1) or K4 (kernel 2) of the wide form (bf16) at
+// width hid: `what` as vb_xent_info's. -1 on an error or a width the form
+// does not take.
+extern "C" int vb_xent_wide_info(int kernel, int what, int hid) {
+  const void* fn = wide_kernel_of(kernel);
+  if (fn == nullptr || !wide_width(hid)) return -1;
+  const size_t bytes = kernel == 2 ? WF_SMEM : WB_SMEM;
+  if (what == 0 || what == 1) {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess) return -1;
+    return what == 0 ? attr.numRegs : (int)attr.localSizeBytes;
+  }
+  if (what == 2) return (int)bytes;
+  if (what == 3) {
+    int n = 0;
+    if (set_smem(fn, bytes) != cudaSuccess) return -1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, NTHREADS, bytes) != cudaSuccess) return -1;
+    return n;
+  }
+  return -1;
+}
+
+// The wide form's entry points (bf16 x, E, dx, dE), with the scratch of
+// vb_xent_fwd / vb_xent_dx.
+extern "C" int vb_xent_wide_fwd(const void* x, const void* E, const void* bias, const void* labels, int N, int V,
+                                int hid, int S, int vbs, void* pf, void* pi, void* nll, void* lse, void* am,
+                                void* stream) {
+  if (!wide_width(hid) || S < 1 || vbs < 1) return (int)cudaErrorInvalidValue;
+  return wide_fwd<bf16>(x, E, bias, labels, N, V, hid, S, vbs, pf, pi, nll, lse, am,
+                        static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int vb_xent_wide_dx(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
+                               const void* g, int N, int V, int hid, int S, int vbs, void* part, void* dx,
+                               void* stream) {
+  if (!wide_width(hid) || S < 1 || vbs < 1) return (int)cudaErrorInvalidValue;
+  return wide_dx<bf16>(x, E, bias, labels, lse, g, N, V, hid, S, vbs, part, dx, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int vb_xent_wide_de(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
+                               const void* g, int N, int V, int hid, void* dE, void* db, void* stream) {
+  if (!wide_width(hid)) return (int)cudaErrorInvalidValue;
+  return wide_de<bf16>(x, E, bias, labels, lse, g, N, V, hid, dE, db, static_cast<cudaStream_t>(stream));
 }

@@ -12,9 +12,10 @@ first step, naming the limit and the flag:
   dim up to 128 (bf16 and fp16 on kernels built at head dims 64 and 128, a
   smaller head dim zero-padded to the next; fp32 on SIMT kernels at any
   head dim);
-* the fused MLM cross-entropy (K4-K6): bf16, fp16 or fp32, hidden width up
-  to 1024 (bf16 and fp16 on kernels built at 128, 256, 512, 768 and 1024,
-  another width zero-padded to the next; fp32 on its own kernels);
+* the fused MLM cross-entropy (K4-K6): bf16, fp16 or fp32 at any hidden
+  width (bf16 and fp16 on kernels built at 128, 256, 512, 768 and 1024 and
+  on the wide form above 1024, another width zero-padded to the next of
+  them or of 64; fp32 on its own tiled kernels);
 * the residual LayerNorm (K7-K10): bf16, fp16 or fp32 at any hidden width
   up to 4096 (ALBERT-xxlarge's; a multiple of 8 up to 1024 on the vector
   kernels, other widths on the any-width forms);
@@ -37,7 +38,7 @@ import torch
 
 from visualbert_torch.ops.dropout import ALIGNMENT, SITE_DTYPES
 from visualbert_torch.ops.flash_attention import MAX_HEAD_DIM, PACKED_DTYPES
-from visualbert_torch.ops.mlm_xent import KERNEL_DTYPES, MAX_WIDTH
+from visualbert_torch.ops.mlm_xent import KERNEL_DTYPES
 
 LAYER_NORM_MAX_WIDTH = 4096  # csrc/layer_norm.cu::MAX_WIDTH: 4 warps x 32 lanes x 8 elements x 4 chunks
 
@@ -71,13 +72,9 @@ def check_kernel_limits(cfg, device) -> None:
     problems = []
     if cfg.use_flash_attention:
         problems += _attention_problems(cfg)
-    if cfg.fused_mlm_xent:
-        if cfg.dtype not in KERNEL_DTYPES:
-            problems.append(f"fused_mlm_xent: the cross-entropy kernels take bf16, fp16 or fp32, the config's "
-                            f"dtype is {cfg.dtype}")
-        if cfg.hidden_size > MAX_WIDTH:
-            problems.append(f"fused_mlm_xent: the cross-entropy kernels take hidden widths up to {MAX_WIDTH}, "
-                            f"the config has {cfg.hidden_size}")
+    if cfg.fused_mlm_xent and cfg.dtype not in KERNEL_DTYPES:
+        problems.append(f"fused_mlm_xent: the cross-entropy kernels take bf16, fp16 or fp32, the config's "
+                        f"dtype is {cfg.dtype}")
     if cfg.use_fused_layer_norm and cfg.hidden_size > LAYER_NORM_MAX_WIDTH:
         problems.append(f"use_fused_layer_norm: the LayerNorm kernels take hidden widths up to "
                         f"{LAYER_NORM_MAX_WIDTH}, the config has {cfg.hidden_size}")

@@ -34,14 +34,21 @@ Kernels (``csrc/mlm_xent.cu``, design notes there):
   vocabulary so that about four blocks per SM run (:func:`splits`): its
   blocks write fp32 partials of dx, which a second pass sums in split order.
 
-The kernels take every dtype and width the JAX kernels take up to H =
-1024: bf16 and fp16 on the Hopper kernels, instantiated at widths 128, 256,
-512, 768 and 1024 (``KERNEL_WIDTHS``), any other width zero-padded to the
-next of them (:func:`kernel_width`, :func:`pad_width`: a zero column adds
-nothing to a logit; the padded columns of dx and dE are dropped), and fp32
-on the SIMT kernels of ``csrc/mlm_xent_f32.cu`` at any width. Each wrapper
-counts its launches in ``launches`` and, by form (:func:`xent_form`), in
-``forms``.
+The kernels take every dtype and width the JAX kernels take: bf16 and fp16
+on the Hopper kernels, instantiated at widths 128, 256, 512, 768 and 1024
+(``KERNEL_WIDTHS``), any other width up to 1024 zero-padded to the next of
+them; bf16 above 1024 on the wide form (``xent_wide_*`` in
+``csrc/mlm_xent.cu``: both matrices streamed in 64-column panels, a K5/K6
+block owning 512 result columns and recomputing its logits for them) at
+any multiple of 64, another width zero-padded to the next multiple of 64
+(:func:`kernel_width`, :func:`pad_width`: a zero column adds nothing to a
+logit; the padded columns of dx and dE are dropped; the padding copies E
+each call); fp32, and fp16 above 1024 (upcast, an fp32 copy of x and E
+each call: :func:`runs_on_f32`), at any width on the tiled SIMT kernels of
+``csrc/mlm_xent_f32.cu`` (128 x 256 tiles of logits, an 8 x 16 register
+block a thread; K4 and K5 split the vocabulary, :func:`f32_plan`). Each
+wrapper counts its launches in ``launches`` and, by form
+(:func:`xent_form`), in ``forms``.
 
 On CPU tensors the wrappers compute the plain versions
 (:func:`mlm_xent_fwd_reference`, :func:`mlm_xent_dx_reference`,
@@ -70,15 +77,32 @@ from visualbert_torch.ops._build import sm_count
 from visualbert_torch.parallel.mesh import all_reduce, gather_slices
 
 KERNEL_WIDTHS = (128, 256, 512, 768, 1024)  # the hidden widths K4-K6 are instantiated for (bf16, fp16)
-MAX_WIDTH = KERNEL_WIDTHS[-1]  # every dtype
+WIDE_STEP = 64  # above KERNEL_WIDTHS[-1] the wide form takes the multiples of this (csrc/mlm_xent.cu)
 KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 _ENTRY = {torch.bfloat16: "vb_xent_", torch.float16: "vb_xent_f16_"}  # the entry points of csrc/mlm_xent.cu
 
 
 def kernel_width(h: int) -> int:
-    """The width at which the bf16 and fp16 kernels run rows of width h
-    (<= MAX_WIDTH): the smallest instantiation that holds it."""
+    """The width at which the bf16 and fp16 kernels run rows of width h: up
+    to 1024 the smallest instantiation that holds it, above it h rounded up
+    to a multiple of WIDE_STEP (the wide form)."""
+    if h > KERNEL_WIDTHS[-1]:
+        return -(-h // WIDE_STEP) * WIDE_STEP
     return next(w for w in KERNEL_WIDTHS if h <= w)
+
+
+def is_wide(h: int) -> bool:
+    """Whether rows of width h are above the instantiated widths: bf16 runs
+    them on the wide form, fp16 on the fp32 kernels."""
+    return h > KERNEL_WIDTHS[-1]
+
+
+def runs_on_f32(dtype, h: int) -> bool:
+    """Whether rows of width h in ``dtype`` run on the fp32 kernels: fp32,
+    and fp16 above 1024, whose 22-bit products the tensor cores' sums
+    round beyond the bf16 limits at such widths (csrc/mlm_xent.cu, the wide
+    form's notes); fp16 products are exact in fp32."""
+    return dtype == torch.float32 or (dtype == torch.float16 and is_wide(h))
 
 
 def pad_width(t: torch.Tensor, w: int) -> torch.Tensor:
@@ -89,10 +113,15 @@ def pad_width(t: torch.Tensor, w: int) -> torch.Tensor:
 
 def xent_form(dtype, h: int) -> str:
     """The kernel form K4-K6 run rows of width h in ``dtype`` on: "fp32" (the
-    SIMT kernels) or "<dtype> H<instantiated width>"."""
+    tiled SIMT kernels), "fp16 on fp32" (fp16 above 1024, upcast),
+    "<dtype> H<instantiated width>" up to 1024, or "bf16 wide H<padded
+    width>" above it."""
     if dtype == torch.float32:
         return "fp32"
-    return f"{'bf16' if dtype == torch.bfloat16 else 'fp16'} H{kernel_width(h)}"
+    if runs_on_f32(dtype, h):
+        return "fp16 on fp32"
+    name = "bf16" if dtype == torch.bfloat16 else "fp16"
+    return f"{name} {'wide ' if is_wide(h) else ''}H{kernel_width(h)}"
 
 
 def _logits(x, emb, bias):
@@ -136,8 +165,8 @@ def _check_cuda_inputs(what, x, emb, bias, labels, *rows):
     if x.dtype not in KERNEL_DTYPES or emb.dtype != x.dtype:
         raise ValueError(f"{what}: the kernels take bf16, fp16 or fp32 x and an embedding of its dtype, got "
                          f"{x.dtype}, {emb.dtype}")
-    if H > MAX_WIDTH or emb.shape != (V, H):
-        raise ValueError(f"{what}: the kernels take hidden widths up to {MAX_WIDTH}, "
+    if emb.shape != (V, H):
+        raise ValueError(f"{what}: x and the embedding must have one hidden width, "
                          f"got x {tuple(x.shape)}, embedding {tuple(emb.shape)}")
     if bias.shape != (V,) or bias.dtype != torch.float32:
         raise ValueError(f"{what}: bias must be [{V}] float32")
@@ -169,12 +198,13 @@ def splits(n_blocks: int, n_tiles: int, sms: int) -> Tuple[int, int]:
     return -(-n_tiles // per), per
 
 
-def fwd_plan(N: int, V: int, H: int, rows: int, tile: int, sms: int) -> dict:
+def fwd_plan(N: int, V: int, H: int, rows: int, tile: int, sms: int, block_tiles: int = FWD_BLOCK_TILES) -> dict:
     """K4's launch at N rows, V vocabulary rows and width H, for the
     kernel's tiling (``rows`` rows of x a block, ``tile`` vocabulary rows a
     tile: ``vb_xent_geometry`` 1, 3) on a card of ``sms`` SMs, one block an
     SM: the splits that give the busiest SM the least work (its waves of
-    blocks times a block's tiles and FWD_BLOCK_TILES), the fewest on a tie.
+    blocks times a block's tiles and ``block_tiles``, a block's fixed cost
+    in tiles' time), the fewest on a tie.
     Returns the grid (row blocks, splits), the tiles a split (``per``; split
     s takes tiles [s per, s per + per)) and the shapes of the partials the
     kernel writes, [4, splits, N] fp32 and [splits, N] int32."""
@@ -183,7 +213,7 @@ def fwd_plan(N: int, V: int, H: int, rows: int, tile: int, sms: int) -> dict:
     for want in range(1, min(n_tiles, 8 * sms) + 1):
         per = -(-n_tiles // want)
         S = -(-n_tiles // per)  # no split empty
-        cost = -(-row_blocks * S // sms) * (per + FWD_BLOCK_TILES)
+        cost = -(-row_blocks * S // sms) * (per + block_tiles)
         if best is None or cost < best[0]:
             best = (cost, S, per)
     _, S, per = best
@@ -193,19 +223,45 @@ def fwd_plan(N: int, V: int, H: int, rows: int, tile: int, sms: int) -> dict:
 def dx_plan(N: int, V: int, H: int, rows: int, tile: int, cols: int, sms: int) -> dict:
     """K5's launch at N rows, V vocabulary rows and width H, for the
     kernel's tiling (``rows`` rows of x a block, ``tile`` vocabulary rows a
-    tile, ``cols`` columns a block: ``vb_xent_geometry`` 2, 4, 5) on a card
-    of ``sms`` SMs: the grid (row blocks, column parts, splits), the tiles a
-    split (``per``; split s takes tiles [s per, s per + per)) and the shape
-    of the fp32 partials the kernel writes, [splits, N, H]."""
-    row_blocks, parts, n_tiles = -(-N // rows), H // cols, -(-V // tile)
+    tile, ``cols`` columns a block, the last part shorter where H is no
+    multiple of it: ``vb_xent_geometry`` 2, 4, 5) on a card of ``sms`` SMs:
+    the grid (row blocks, column parts, splits), the tiles a split (``per``;
+    split s takes tiles [s per, s per + per)) and the shape of the fp32
+    partials the kernel writes, [splits, N, H]."""
+    row_blocks, parts, n_tiles = -(-N // rows), -(-H // cols), -(-V // tile)
     S, per = splits(row_blocks * parts, n_tiles, sms)
     return dict(grid=(row_blocks, parts, S), per=per, tiles=n_tiles, part_shape=(S, N, H))
 
 
 def de_plan(V: int, H: int, rows: int, cols: int) -> dict:
-    """K6's grid (vocabulary blocks of ``rows``, column parts of ``cols``):
-    each block walks every row tile of x itself, so nothing is split."""
-    return dict(grid=(-(-V // rows), H // cols))
+    """K6's grid (vocabulary blocks of ``rows``, column parts of ``cols``,
+    the last shorter where H is no multiple of it): each block walks every
+    row tile of x itself, so nothing is split."""
+    return dict(grid=(-(-V // rows), -(-H // cols)))
+
+
+def f32_plan(N: int, V: int, rows: int, tile: int, slots: int) -> dict:
+    """fp32 K4's and K5's launch (``csrc/mlm_xent_f32.cu``: ``rows`` x rows a
+    block, ``tile`` vocabulary rows a tile, ``vb_xent_f32_geometry`` 0, 1) on
+    ``slots`` resident blocks (SMs x blocks an SM): :func:`fwd_plan`'s
+    splits with no fixed cost a block (a 128 x 256 fp32 tile over H dwarfs
+    a block's set-up): at the main path on 132 slots (one block an SM) 11
+    splits of 24 row blocks, two full waves. K5's fp32 partials are
+    [splits, N, H] at width H. fp32 K6 runs cdiv(V, rows) blocks, each over
+    every row tile of x."""
+    return fwd_plan(N, V, 0, rows, tile, slots, block_tiles=0)
+
+
+def bwd_products(dtype, h: int) -> int:
+    """The N x V x h products K5 (or K6) runs at width h in ``dtype``: the
+    logits and the result once each, plus the logits again for every further
+    column range a block owns (bf16 and fp16 at 1024 and on the wide form:
+    512 columns a block)."""
+    if runs_on_f32(dtype, h):
+        return 2
+    w = kernel_width(h)
+    cols = w if w < KERNEL_WIDTHS[-1] else 512
+    return -(-w // cols) + 1
 
 
 def _device(x, what):
@@ -237,15 +293,48 @@ def launch_fwd(lib, x, emb, bias, labels, sms):
     return code, nll, lse, am
 
 
-def launch_f32_fwd(lib, x, emb, bias, labels):
-    """Launch K4's fp32 kernel (``csrc/mlm_xent_f32.cu``) on checked inputs:
-    (the entry point's code, nll, lse, argmax)."""
+@functools.lru_cache(maxsize=None)
+def _f32_plan_of(lib, kernel: int, N: int, V: int, sms: int) -> dict:
+    """fp32 K4's (kernel 2) or K5's (kernel 0) plan on the card's block
+    slots: its SMs times the kernel's resident blocks an SM."""
+    slots = sms * max(1, lib.vb_xent_f32_info(kernel, 3, 1))
+    return f32_plan(N, V, lib.vb_xent_f32_geometry(0), lib.vb_xent_f32_geometry(1), slots)
+
+
+def launch_f32_fwd(lib, x, emb, bias, labels, sms):
+    """Launch K4's fp32 kernel (``csrc/mlm_xent_f32.cu``) and its merge pass
+    on checked inputs: (the entry point's code, nll, lse, argmax)."""
     (N, H), V = x.shape, emb.shape[0]
+    plan = _f32_plan_of(lib, 2, N, V, sms)
+    pf = torch.empty(plan["pf_shape"], dtype=torch.float32, device=x.device)
+    pi = torch.empty(plan["pi_shape"], dtype=torch.int32, device=x.device)
     nll = torch.empty(N, dtype=torch.float32, device=x.device)
     lse = torch.empty(N, dtype=torch.float32, device=x.device)
     am = torch.empty(N, dtype=torch.int32, device=x.device)
     code = lib.vb_xent_f32_fwd(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), N, V, H,
-                               nll.data_ptr(), lse.data_ptr(), am.data_ptr(), _build.stream_ptr(x.device))
+                               plan["grid"][1], plan["per"], pf.data_ptr(), pi.data_ptr(), nll.data_ptr(),
+                               lse.data_ptr(), am.data_ptr(), _build.stream_ptr(x.device))
+    return code, nll, lse, am
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_fwd_plan_of(lib, N: int, V: int, H: int, sms: int) -> dict:
+    return fwd_plan(N, V, H, lib.vb_xent_wide_geometry(1), lib.vb_xent_wide_geometry(3), sms)
+
+
+def launch_wide_fwd(lib, x, emb, bias, labels, sms):
+    """Launch the wide form's K4 and the merge pass on checked inputs of a
+    width it takes: (the entry point's code, nll, lse, argmax)."""
+    (N, H), V = x.shape, emb.shape[0]
+    plan = _wide_fwd_plan_of(lib, N, V, H, sms)
+    pf = torch.empty(plan["pf_shape"], dtype=torch.float32, device=x.device)
+    pi = torch.empty(plan["pi_shape"], dtype=torch.int32, device=x.device)
+    nll = torch.empty(N, dtype=torch.float32, device=x.device)
+    lse = torch.empty(N, dtype=torch.float32, device=x.device)
+    am = torch.empty(N, dtype=torch.int32, device=x.device)
+    code = lib.vb_xent_wide_fwd(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), N, V, H,
+                                plan["grid"][1], plan["per"], pf.data_ptr(), pi.data_ptr(), nll.data_ptr(),
+                                lse.data_ptr(), am.data_ptr(), _build.stream_ptr(x.device))
     return code, nll, lse, am
 
 
@@ -255,20 +344,23 @@ def _counted(fn, form: str) -> None:
 
 
 def mlm_xent_fwd(x, emb, bias, labels) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K4 wrapper: (nll [N] fp32, lse [N] fp32, argmax [N] int32). The bf16
-    and fp16 kernel writes per-split partial statistics; its second pass
-    merges them in vocabulary order. A width between the instantiated ones
-    runs on x and E zero-padded to the next (a copy of E each call)."""
+    """K4 wrapper: (nll [N] fp32, lse [N] fp32, argmax [N] int32). Each form
+    writes per-split partial statistics; its second pass merges them in
+    vocabulary order. A bf16 or fp16 width between the instantiated ones,
+    or above 1024 no multiple of 64, runs on x and E zero-padded to the
+    next (a copy of E each call); fp16 above 1024 runs on the fp32 kernels
+    (an fp32 copy of x and E each call)."""
     what = "mlm xent forward (K4)"
     if not _device(x, what):
         return mlm_xent_fwd_reference(x, emb, bias, labels)
     lib = _check_cuda_inputs(what, x, emb, bias, labels)
     form = xent_form(x.dtype, x.shape[1])
-    if x.dtype == torch.float32:
-        code, nll, lse, am = launch_f32_fwd(lib, x, emb, bias, labels)
+    if runs_on_f32(x.dtype, x.shape[1]):
+        code, nll, lse, am = launch_f32_fwd(lib, x.float(), emb.float(), bias, labels, sm_count(x.device))
     else:
         w = kernel_width(x.shape[1])
-        code, nll, lse, am = launch_fwd(lib, pad_width(x, w), pad_width(emb, w), bias, labels, sm_count(x.device))
+        launch = launch_wide_fwd if is_wide(w) else launch_fwd
+        code, nll, lse, am = launch(lib, pad_width(x, w), pad_width(emb, w), bias, labels, sm_count(x.device))
     lib.check(code, what)
     _counted(mlm_xent_fwd, form)
     return nll, lse, am
@@ -290,30 +382,50 @@ def launch_dx(lib, x, emb, bias, labels, lse, g, sms):
     return code, dx
 
 
-def launch_f32_dx(lib, x, emb, bias, labels, lse, g):
-    """Launch K5's fp32 kernel on checked inputs: (the entry point's code, dx)."""
+def launch_f32_dx(lib, x, emb, bias, labels, lse, g, sms):
+    """Launch K5's fp32 kernel and its reduce pass on checked inputs: (the
+    entry point's code, dx)."""
     (N, H), V = x.shape, emb.shape[0]
+    plan = _f32_plan_of(lib, 0, N, V, sms)
+    S = plan["grid"][1]
+    part = torch.empty((S, N, H), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     code = lib.vb_xent_f32_dx(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                              g.data_ptr(), N, V, H, dx.data_ptr(), _build.stream_ptr(x.device))
+                              g.data_ptr(), N, V, H, S, plan["per"], part.data_ptr(), dx.data_ptr(),
+                              _build.stream_ptr(x.device))
+    return code, dx
+
+
+def launch_wide_dx(lib, x, emb, bias, labels, lse, g, sms):
+    """Launch the wide form's K5 and its reduce pass on checked inputs: (the
+    entry point's code, dx)."""
+    (N, H), V = x.shape, emb.shape[0]
+    plan = dx_plan(N, V, H, *(lib.vb_xent_wide_geometry(w) for w in (2, 4, 5)), sms)
+    part = torch.empty(plan["part_shape"], dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    code = lib.vb_xent_wide_dx(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                               g.data_ptr(), N, V, H, plan["grid"][2], plan["per"], part.data_ptr(), dx.data_ptr(),
+                               _build.stream_ptr(x.device))
     return code, dx
 
 
 def mlm_xent_dx(x, emb, bias, labels, lse, g) -> torch.Tensor:
-    """K5 wrapper: dx [N, H] in x's dtype. The bf16 and fp16 kernel writes
-    fp32 partials of dx per vocabulary split; its second pass sums them in
-    order. Widths are padded as :func:`mlm_xent_fwd`'s, and dx cut back."""
+    """K5 wrapper: dx [N, H] in x's dtype. Each form writes fp32 partials of
+    dx per vocabulary split; its second pass sums them in order. Widths are
+    padded as :func:`mlm_xent_fwd`'s, and dx cut back."""
     what = "mlm xent dx (K5)"
     if not _device(x, what):
         return mlm_xent_dx_reference(x, emb, bias, labels, lse, g)
     lib = _check_cuda_inputs(what, x, emb, bias, labels, lse, g)
     H = x.shape[1]
     form = xent_form(x.dtype, H)
-    if x.dtype == torch.float32:
-        code, dx = launch_f32_dx(lib, x, emb, bias, labels, lse, g)
+    if runs_on_f32(x.dtype, H):
+        code, dx = launch_f32_dx(lib, x.float(), emb.float(), bias, labels, lse, g, sm_count(x.device))
+        dx = dx.to(x.dtype)
     else:
         w = kernel_width(H)
-        code, dx = launch_dx(lib, pad_width(x, w), pad_width(emb, w), bias, labels, lse, g, sm_count(x.device))
+        launch = launch_wide_dx if is_wide(w) else launch_dx
+        code, dx = launch(lib, pad_width(x, w), pad_width(emb, w), bias, labels, lse, g, sm_count(x.device))
         dx = dx if w == H else dx[:, :H].contiguous()
     lib.check(code, what)
     _counted(mlm_xent_dx, form)
@@ -346,6 +458,17 @@ def launch_f32_de(lib, x, emb, bias, labels, lse, g):
     return code, de, db
 
 
+def launch_wide_de(lib, x, emb, bias, labels, lse, g):
+    """Launch the wide form's K6 on checked inputs: (the entry point's code,
+    d embedding, d bias)."""
+    (N, H), V = x.shape, emb.shape[0]
+    de = torch.empty_like(emb)
+    db = torch.empty(V, dtype=torch.float32, device=x.device)
+    code = lib.vb_xent_wide_de(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                               g.data_ptr(), N, V, H, de.data_ptr(), db.data_ptr(), _build.stream_ptr(x.device))
+    return code, de, db
+
+
 def mlm_xent_de(x, emb, bias, labels, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6 wrapper: (d embedding [V, H] in the embedding's dtype, d bias [V]
     fp32). Widths are padded as :func:`mlm_xent_fwd`'s, and dE cut back."""
@@ -355,11 +478,13 @@ def mlm_xent_de(x, emb, bias, labels, lse, g) -> Tuple[torch.Tensor, torch.Tenso
     lib = _check_cuda_inputs(what, x, emb, bias, labels, lse, g)
     H = x.shape[1]
     form = xent_form(x.dtype, H)
-    if x.dtype == torch.float32:
-        code, de, db = launch_f32_de(lib, x, emb, bias, labels, lse, g)
+    if runs_on_f32(x.dtype, H):
+        code, de, db = launch_f32_de(lib, x.float(), emb.float(), bias, labels, lse, g)
+        de = de.to(emb.dtype)
     else:
         w = kernel_width(H)
-        code, de, db = launch_de(lib, pad_width(x, w), pad_width(emb, w), bias, labels, lse, g)
+        launch = launch_wide_de if is_wide(w) else launch_de
+        code, de, db = launch(lib, pad_width(x, w), pad_width(emb, w), bias, labels, lse, g)
         de = de if w == H else de[:, :H].contiguous()
     lib.check(code, what)
     _counted(mlm_xent_de, form)
@@ -436,7 +561,7 @@ def mlm_xent(x: torch.Tensor, embedding: torch.Tensor, bias: torch.Tensor,
              labels: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row NLL and argmax of the tied-decoder softmax, fused.
 
-    x: [N, H] transformed hidden states (bf16, fp16 or fp32 on the kernel path, H up to 1024);
+    x: [N, H] transformed hidden states (bf16, fp16 or fp32 on the kernel path, any H);
     embedding: [V, H] tied word-embedding table, cast to x's dtype;
     bias: [V] decoder bias, used in fp32; labels: [N] int (-1 entries are
     computed as label 0 and masked by the caller).

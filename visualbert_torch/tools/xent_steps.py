@@ -42,7 +42,11 @@ unpacked with ``git archive``), the tool also builds that tree's
 (K5's and K6's, at both widths, K5's reduce pass and K4's merge pass)
 instruction by instruction, and times that tree's K4 beside this one's in
 the same rounds ("other K4"), launched as its wrapper launched it (its own
-tiling from its ``vb_xent_geometry``, splits for four blocks an SM).
+tiling from its ``vb_xent_geometry``, splits for four blocks an SM), and
+that tree's K4 on this tree's plan ("other K4, this plan"), K5 and K6
+("other K5", "other K6"); K4's SASS is compared at
+both widths too, and both trees' K4-K6 are timed at width 1024 ("at
+1024").
 
 K4 as built is also timed on the splits that fill one to four waves of
 one block an SM, at both widths ("K4 splits"), each printed with the
@@ -94,6 +98,7 @@ BWD_BUILDS = {
 BUILDS = {**FWD_BUILDS, **BWD_BUILDS}
 FNS = ("vb_xent_geometry", "vb_xent_info", "vb_xent_fwd", "vb_xent_dx", "vb_xent_de")
 SHARED_KERNELS = {  # the kernels of mlm_xent.cu that an earlier tree may share: part of each mangled name
+    "K4, 768": "xent_fwd_kernelILi768E", "K4, 1024": "xent_fwd_kernelILi1024E",
     "K5, 768": "xent_bwd_kernelILi768ELb0E", "K6, 768": "xent_bwd_kernelILi768ELb1E",
     "K5, 1024": "xent_bwd_kernelILi1024ELb0E", "K6, 1024": "xent_bwd_kernelILi1024ELb1E",
     "K5 reduce, 768": "xent_dx_reduce_kernelILi768", "K5 reduce, 1024": "xent_dx_reduce_kernelILi1024",
@@ -335,9 +340,18 @@ def main(argv=None):
            "K5": {}, "K6": {}}
     for name in ("as built", *BWD_BUILDS):
         fns["K5"][name], fns["K6"][name] = calls(builds[name], data, sms)
-    if other_lib is not None:  # the other tree's K4 as its wrapper launched it
+    if other_lib is not None:  # the other tree's K4 as its wrapper launched it, its K5 and K6 as built
         fns["K4"]["other K4"] = first_design_call(other_lib, data, sms)
-        builds["other K4"] = other_lib
+        fns["K4"]["other K4, this plan"] = fwd_call(other_lib, data, sms)
+        fns["K5"]["other K5"], fns["K6"]["other K6"] = calls(other_lib, data, sms)
+        for name in ("other K4", "other K4, this plan", "other K5", "other K6"):
+            builds[name] = other_lib
+        # both trees' K4-K6 at width 1024, as this tree's wrappers launch them
+        data_1024 = inputs(torch, dev, 1024)
+        fns["at 1024"] = {}
+        for tree, lib in (("this", built), ("other", other_lib)):
+            fns["at 1024"][f"{tree} K4"] = fwd_call(lib, data_1024, sms)
+            fns["at 1024"][f"{tree} K5"], fns["at 1024"][f"{tree} K6"] = calls(lib, data_1024, sms)
     # K4 as built on other splits, at both widths: what FWD_BLOCK_TILES models
     fns["K4 splits"], splits = {}, {}
     for width_data in (data, inputs(torch, dev, 1024)):
@@ -360,6 +374,9 @@ def main(argv=None):
                 print(f"{k} {name} of {per} tiles, {w} waves, the busiest SM's modelled tiles {tiles}"
                       f"{' (fwd_plan takes it)' if chosen else ''}: {min(ms):.4f}-{max(ms):.4f} ms  [{card}]",
                       flush=True)
+                continue
+            if k == "at 1024":
+                print(f"{k} {name}: {min(ms):.4f}-{max(ms):.4f} ms  [{card}]", flush=True)
                 continue
             print(f"{k} {name}: {min(ms):.4f}-{max(ms):.4f} ms; registers, local bytes, shared bytes, blocks an SM of "
                   f"K5, K6, K4: {info[name]}  [{card}]", flush=True)
