@@ -110,7 +110,10 @@ non-zero without printing the final line:
    within one bf16 ulp in every dtype, K14 fed K13's own output), each
    timed beside its plain version, scaled_dot_product_attention in its
    dtype and its bound, with each kernel's registers, local bytes, shared
-   bytes and blocks an SM; and K7-K10 (LN_FORMS) at the main path's 29,184
+   bytes and blocks an SM (the register-tiled fp32 kernels, K13's forward
+   and the backward of K2, K12 and K14, must not spill; check_f32_masks:
+   each fp32 pair's dropout masks at T = 64 must be the bf16 kernels'
+   at the same seed); and K7-K10 (LN_FORMS) at the main path's 29,184
    rows in bf16 at widths 64, 100, 1030 and 2048, fp16 at 2048 and fp32 at
    100 and 4096 (the warp and block forms, 16-byte and element loads),
    held as K7-K10 are (K9's bits [N, ceil(H / 8)] bit for bit), each timed
@@ -300,7 +303,7 @@ non-zero without printing the final line:
    one epoch of 4 steps whose checkpoint must load back;
 27. (run before 26's table) trains GEOMETRY_EXAMPLES / 128 = 3 steps of
    coco_pretrain through the CLI on synthetic data with
-   configs/coco_pretrain.json's blocks and flags in six model
+   configs/coco_pretrain.json's blocks and flags in eight model
    geometries: the JAX package's tiny() (fp32, head dim 16, width 64, with
    the fused LayerNorm: all four kernel flags), bert-base in fp16,
    BERT-Small (Turc et al. 2019: L = 4, H = 512, A = 8, I = 2048) in bf16,
@@ -309,7 +312,10 @@ non-zero without printing the final line:
    fp32) and Megatron-BERT 1.3B's widths (Shoeybi et al. 2019, Table 4: H
    = 2048, A = 32, I = 8192; L cut from 24 to 2) in bf16 with the fused
    LayerNorm, fast_dropout (K9/K10 a block a row) and the fused
-   cross-entropy (K4-K6 on the wide form, which the run must show); each run
+   cross-entropy (K4-K6 on the wide form, which the run must show), then
+   bert-base in fp32 with the config's blocks and flags as shipped (K1 and
+   the register-tiled fp32 K2, 12 a step; K4-K6 in fp32) and again with
+   `"flash_save_probs": true` (the tiled fp32 K13 and K14); each run
    must be on the card, its losses finite, its launches those of its depth
    and flags (the attention pair L a step, K4-K6 one, the dropout sites or
    K9/K10), every launch of K1/K2, K4-K14 in the kernel form of its dtype
@@ -324,7 +330,8 @@ non-zero without printing the final line:
    rows: mask, site forward, site backward; the fp32 kernels of K1/K2 and
    K4-K6 (csrc/flash_attention_f32.cu, csrc/mlm_xent_f32.cu) are five rows
    more, timed at the main path's shapes in fp32, their launches from
-   phase 27's tiny() run; the forms of K11/K12 (fp16), K13/K14 (fp32),
+   phase 27's bert-base fp32 run; the forms of K11/K12 (fp16), K13/K14 (fp32,
+   launches from the bert-base fp32 save-probs run),
    K9/K10 (bf16, a block a row) and K4-K6 (bf16, the wide form at 2048)
    that phase 27 drives are nine rows more (FORM_KERNELS), timed at phase
    3's shapes, their launches from their geometry's run), then {"ok":
@@ -479,9 +486,14 @@ GEOMETRIES = (
      "bf16, the fused LayerNorm, fast_dropout and the fused cross-entropy (K4-K6 on the wide form)",
      dict(hidden_size=2048, num_hidden_layers=2, num_attention_heads=32, intermediate_size=8192,
           use_fused_layer_norm=True, fast_dropout=True, fused_mlm_xent=True)),
+    # the reference trains in fp32 unless apex's fp16 is on: its numerics on the fp32 kernels
+    ("bert-base in fp32", dict(dtype="float32")),
+    ("bert-base in fp32, flash_save_probs", dict(dtype="float32", flash_save_probs=True)),
 )
+F32_GEOMETRY, F32_SP_GEOMETRY = 6, 7  # the bert-base fp32 runs: the fp32 rows' launches
 # the kernel table's rows of the fp32 kernels: (row name, wrapper module,
-# wrapper, source, the TPU kernel it replaces); launches from the tiny run
+# wrapper, source, the TPU kernel it replaces); launches from the bert-base
+# fp32 run
 F32_KERNELS = (
     ("packed_attention_fwd (fp32)", "flash_attention", "packed_attention_fwd", "flash_attention_f32.cu",
      "visualbert_tpu/ops/flash_attention.py:249"),
@@ -500,9 +512,9 @@ FORM_KERNELS = (
     ("heads_major_attention_bwd (fp16 D64)", "flash_attention", "heads_major_attention_bwd", "flash_attention.cu",
      "visualbert_tpu/ops/flash_attention.py:93", 3, ("float16", 64)),
     ("packed_attention_sp_fwd (fp32)", "flash_attention", "packed_attention_sp_fwd", "flash_attention_f32.cu",
-     "visualbert_tpu/ops/flash_attention.py:409", 4, ("float32", 64)),
+     "visualbert_tpu/ops/flash_attention.py:409", F32_SP_GEOMETRY, ("float32", 64)),
     ("packed_attention_sp_bwd (fp32)", "flash_attention", "packed_attention_sp_bwd", "flash_attention_f32.cu",
-     "visualbert_tpu/ops/flash_attention.py:441", 4, ("float32", 64)),
+     "visualbert_tpu/ops/flash_attention.py:441", F32_SP_GEOMETRY, ("float32", 64)),
     ("dropout_add_layer_norm_fwd (bf16 block, 16-byte)", "layer_norm", "dropout_add_layer_norm_fwd",
      "layer_norm.cu", "visualbert_tpu/ops/layer_norm.py:171", 5, ("bfloat16", 2048)),
     ("dropout_add_layer_norm_bwd (bf16 block, 16-byte)", "layer_norm", "dropout_add_layer_norm_bwd",
@@ -1721,6 +1733,8 @@ def check_attention_forms(torch, card):
                 regs, local, smem, per_sm = (lib.vb_attn_f32_info(k, w, D) for w in range(4))
                 log(f"K1/K2 fp32 at D={D} {kernel}: {per_sm} blocks an SM, {regs} registers a thread, {local} bytes "
                     f"of local memory, {smem} bytes of shared memory")
+                if k > 0 and local != 0:  # the tiled backward (K1's forward is the first design, left alone)
+                    raise SystemExit(f"K2 fp32 at D={D}: the {kernel} spills {local} bytes")
         for name, r in (("packed_attention_fwd", k1), ("packed_attention_bwd", k2)):
             log(row_line(f"{name} {where}", r, card))
         if dtype == "float32" and D == 64:
@@ -1960,15 +1974,39 @@ def check_variant_forms(torch, card):
             peak = FP32_FLOPS if f32 else BF16_FLOPS
             r_f.update(bound(moved[fwd], 2 * gflop * 1e9, peak))
             r_b.update(bound(moved[bwd], 4 * gflop * 1e9, peak))
-            for kernel, i in zip(fa.PACKED_KERNELS, variant_info(lib, fa, variant, dtype, D, T)):
+            for k, (kernel, i) in enumerate(zip(fa.PACKED_KERNELS, variant_info(lib, fa, variant, dtype, D, T))):
                 log(f"{k_fwd}/{k_bwd} {where} {kernel}: {i[0]} registers a thread, {i[1]} bytes of local memory, "
                     f"{i[2]} bytes of shared memory, {i[3]} blocks an SM")
+                if f32 and (k > 0 or variant == "save_probs") and i[1] != 0:  # the register-tiled fp32 kernels
+                    raise SystemExit(f"{k_fwd}/{k_bwd} {where}: the {kernel} spills {i[1]} bytes")
             for name, r in ((fwd, r_f), (bwd, r_b)):
                 log(row_line(f"{name} {where}", r, card))
                 rows[(name, dtype, D)] = r
             del x, key_bias, dout, qkv, qb, dout_p, out, second
             torch.cuda.empty_cache()
     return rows
+
+
+def check_f32_masks(torch, card):
+    """Each fp32 pair's dropout masks (K1/K2, K11/K12, K13/K14) and the bf16
+    K1/K2's at the same seed, on tools/attn_ab.py's mask_data (T = 64 keys,
+    V and dO the identity, so that the zeros of out and of the dK/dV pass's
+    dv are the dropped positions): all must equal the plain mask."""
+    from visualbert_torch.ops import _build
+    from visualbert_torch.ops import flash_attention as fa
+    from visualbert_torch.tools import attn_ab
+
+    same = attn_ab.f32_masks([attn_ab.F32Build("the port", _build.library())], card)["the port"]
+    data = attn_ab.mask_data(torch.bfloat16)
+    qkv, qb, key_bias, dout = data["packed"]
+    rate, seed, H = attn_ab.MASK_RATE, attn_ab.MASK_SEED, data["H"]
+    out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, seed)
+    dqkv, _ = fa.packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, H, rate, seed)
+    torch.cuda.synchronize()
+    same["bf16 K1/K2"] = attn_ab.shows_the_plain_mask("K1/K2", out, dqkv, data)
+    log(f"attention masks at T=64, rate {rate}, equal to the plain mask: {same}  [{card}]")
+    if not all(same.values()):
+        raise SystemExit("the fp32 attention kernels drop other positions than the bf16 kernels")
 
 
 def layer_norm_inputs_at(torch, dtype, H, N):
@@ -3650,6 +3688,7 @@ def main():
     xent_rows, xent_form_rows = check_xent_forms(torch, card)
     rows.update(xent_rows)
     t_forms = time.perf_counter()
+    check_f32_masks(torch, card)
     form_rows = check_variant_forms(torch, card)
     form_rows.update(xent_form_rows)
     torch.cuda.empty_cache()
@@ -3752,10 +3791,10 @@ def main():
     launches[18:20] = runs["as shipped"][0][18:20]
     table = [dict(name=name, route="cuda", source=f"visualbert_torch/csrc/{src}", replaces=replaces, launches=n,
                   **rows[name]) for (name, _, src, replaces), n in zip(KERNELS, launches)]
-    # the fp32 kernels: launches from the tiny geometry's run (fp32)
-    _, tiny_forms = geometries[GEOMETRIES[0][0]]
+    # the fp32 kernels: launches from the bert-base fp32 run
+    _, f32_forms = geometries[GEOMETRIES[F32_GEOMETRY][0]]
     table += [dict(name=name, route="cuda", source=f"visualbert_torch/csrc/{src}", replaces=replaces,
-                   launches=tiny_forms[wrapper].get("fp32", 0), **rows[name])
+                   launches=f32_forms[wrapper].get("fp32", 0), **rows[name])
               for name, _, wrapper, src, replaces in F32_KERNELS]
     # K4-K14's other forms that phase 27 drives: launches from their geometry's run
     for name, _, wrapper, src, replaces, g, (dtype, width) in FORM_KERNELS:

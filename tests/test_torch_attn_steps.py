@@ -121,3 +121,109 @@ def test_the_ab_tool_reads_each_kernels_sass_apart():
     """
     assert attn_ab.sass_of(text) == {"dQ pass": ["LDC R1, c[0x0][0x28]", "@P0 BRA `(.L0)", "BRA `(.L1)"],
                                      "forward": ["BRA `(.L0)"]}
+
+
+@pytest.mark.parametrize("args", [["--f32"], ["--f32", "--f32"], ["--f32", "no-such-checkout"]])
+def test_the_ab_tools_fp32_options_still_take_one_checkout(args):
+    from visualbert_torch.tools import attn_ab
+
+    with pytest.raises(SystemExit, match="another checkout"):
+        attn_ab.main(args)
+    with pytest.raises(SystemExit, match="another checkout"):
+        attn_ab.main(args + [".", "."])
+
+
+def test_the_ab_tools_fp32_part_needs_a_card(monkeypatch):
+    from visualbert_torch.tools import attn_ab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        attn_ab.main([str(_build.CSRC.parent.parent), "--f32"])
+
+
+def test_the_ab_tool_builds_each_trees_fp32_source_alone(monkeypatch, tmp_path):
+    """One nvcc a tree, started together, each on that tree's
+    flash_attention_f32.cu with its own headers; every entry point the
+    launches need is bound."""
+    from visualbert_torch.tools import attn_ab
+
+    cmds, bound = [], {}
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(_build, "_run_all", lambda c: (cmds.extend(c), [(x, 0, "") for x in c])[1])
+    monkeypatch.setattr(attn_ab, "bind", lambda path, fns: bound.setdefault(str(path), fns))
+    this, other = _build.CSRC.parent.parent, tmp_path / "parent"
+    libs = attn_ab.build_f32({"this": this, "other": other})
+    assert set(libs) == {"this", "other"} and len(cmds) == 2
+    by_src = {c[c.index("-shared") + 1]: c for c in cmds}
+    assert set(by_src) == {str(this / attn_ab.F32_SOURCE), str(other / attn_ab.F32_SOURCE)}
+    for root, c in zip((this, other), (by_src[str(this / attn_ab.F32_SOURCE)], by_src[str(other / attn_ab.F32_SOURCE)])):
+        assert c[c.index("-I") + 1] == str(root / attn_ab.SOURCE.parent)
+    assert all(fns == attn_ab.F32_FNS for fns in bound.values()) and len(bound) == 2
+    assert set(attn_ab.F32_FNS) <= set(_build._SIGNATURES)
+
+
+def test_another_trees_fp32_backward_gets_a_row_of_bias_partials_a_batch_row(monkeypatch):
+    """A build without ``vb_attn_f32_geometry`` (blocks that own whole
+    pairs) is launched through WholePairs: the wrapper hands it one row of
+    bias partials a batch row and sums those; this tree's build is used as
+    it is."""
+    import ctypes
+
+    import numpy as np
+
+    from visualbert_torch.ops import flash_attention as fa
+    from visualbert_torch.tools import attn_ab
+
+    class Old:
+        def __init__(self, parts):
+            self.parts = np.ascontiguousarray(parts, dtype=np.float32)
+
+        def vb_attn_f32_bwd(self, *args):
+            ctypes.memmove(args[7], self.parts.ctypes.data, self.parts.nbytes)
+            return 0
+
+    class New:
+        def vb_attn_f32_geometry(self, which):
+            return 64
+
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    B, T, H, D = 2, 228, 2, 8
+    parts = np.random.RandomState(0).randn(B, 1, 3 * H * D)
+    old, new = attn_ab.F32Build("other", Old(parts)), attn_ab.F32Build("this", New())
+    assert isinstance(old.lib, attn_ab.WholePairs) and isinstance(new.lib, New)
+    assert fa.f32_bias_tiles(old.lib, T) == 1 and fa.f32_bias_tiles(new.lib, T) == 4
+    qkv, out = torch.zeros((B, T, 3 * H * D)), torch.zeros((B, T, H * D))
+    data = {"packed": (qkv, torch.zeros(3 * H * D), torch.zeros((B, T)), out), "H": H}
+    dqkv, dqb = old.bwd("K1/K2", data, (out, torch.zeros((B, H, T))), 0.1, 3)
+    np.testing.assert_allclose(dqb.numpy(), parts.sum(axis=(0, 1)), rtol=1e-5, atol=1e-5)
+
+
+def test_the_ab_tool_reads_k1s_fp32_forward_apart():
+    """K1/K11's fp32 forward, by its instantiations, and nothing of the
+    tiled kernels beside it."""
+    from visualbert_torch.tools import attn_ab
+
+    text = """
+        Function : _ZN12_GLOBAL__N_119attn_f32_fwd_kernelILi2EEEvPKfS2_S2_PfS3_iiiNS_6LayoutEjjfiif
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+        /*0010*/              @P0 BRA `(.L_x_4) ;                  /* 0x0000000000000947 */
+        Function : _ZN12_GLOBAL__N_124attn_f32_tiled_dq_kernelILi64ELb0EEEvPKfS2_S2_S2_S2_S2_PK13__nv_bfloat16
+        /*0000*/                   EXIT ;                          /* 0x000000000000794d */
+    """
+    assert attn_ab.sass_of(text, attn_ab.F32_SASS) == {"K1/K11 fp32 forward at 64 columns":
+                                                       ["LDC R1, c[0x0][0x28]", "@P0 BRA `(.L0)"]}
+
+
+@pytest.mark.parametrize("errors,ok", [
+    (dict(out=9e-5, stats=9e-5, dqkv=9e-5, dqb=9e-5), True),
+    (dict(out=9e-5, probs_ulps=1.0, dqkv=9e-5), True),
+    (dict(out=2e-4, stats=0.0, dqkv=0.0), False),
+    (dict(out=0.0, stats=2e-4, dqkv=0.0), False),
+    (dict(out=0.0, probs_ulps=2.0, dqkv=0.0), False),
+    (dict(out=0.0, stats=0.0, dqkv=0.0, dqb=2e-4), False),
+])
+def test_the_ab_tool_holds_the_fp32_kernels_to_chip_smokes_limits(errors, ok):
+    from visualbert_torch.tools import attn_ab
+
+    assert attn_ab.f32_within(errors) is ok

@@ -145,8 +145,9 @@ class XentLib(RecordingLib):
     32; K5/K6: row block 64, vocabulary tile 32, all 768 columns a block),
     ``vb_xent_wide_geometry`` with the wide form's (widths in steps of 64;
     K4: 128 rows, tiles of 64; K5/K6: 64 rows, tiles of 64, 512 columns a
-    block) and ``vb_xent_f32_geometry`` with the fp32 kernels' (128 x 256
-    tiles)."""
+    block), ``vb_xent_f32_geometry`` with the fp32 kernels' (128 x 256
+    tiles) and ``vb_attn_f32_geometry`` with the fp32 attention backward's
+    64-row tiles."""
 
     def vb_xent_geometry(self, which, hid):
         return (hid, 128, 64, 32, 32, 768)[which]
@@ -156,6 +157,9 @@ class XentLib(RecordingLib):
 
     def vb_xent_f32_geometry(self, which):
         return (128, 256)[which]
+
+    def vb_attn_f32_geometry(self, which):
+        return (64,)[which]
 
 
 @pytest.mark.parametrize("N,V", [(100, 1000), (3072, 30522), (1, 70)])

@@ -73,6 +73,15 @@ kernels, at 32 to 2048), as
 above (fp32's dx, dE and db within 1e-4 of the largest plain value, nll
 and lse within 1e-4), repeating bit for bit, none spilling, and the first
 of equal maxima taken by the fp32 and the wide forms.
+
+The register-tiled fp32 kernels (K13's forward and the backward of K2, K12
+and K14, ``csrc/flash_attention_f32.cu``) at T in {1, 63, 64, 65, 228,
+1000} (both sides of a 64-row tile, and above the bf16 kernels' 704) and D
+in {16, 30, 64, 99, 100, 128} (30 and 99 copied 4 bytes a piece), dropout 0 and 0.1, with a key tile wholly masked:
+within 1e-4 of the plain versions (stats 1e-4 absolute), K13's
+probabilities within one bf16 ulp; they repeat bit for bit, do not spill
+(two blocks an SM at D <= 64) and tile the backward by 64 rows; their
+masks are held, with the other forms', by the forms' mask tests above.
 """
 
 import numpy as np
@@ -1384,7 +1393,8 @@ def test_attention_forms_repeat_bit_for_bit(cuda, dtype, D):
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.float16, 128), (torch.float32, 64),
-                                     (torch.float32, 32), (torch.bfloat16, 128)], ids=str)
+                                     (torch.float32, 32), (torch.bfloat16, 128), (torch.float32, 16),
+                                     (torch.float32, 30), (torch.float32, 99), (torch.float32, 100)], ids=str)
 def test_attention_forms_drop_the_plain_mask(cuda, dtype, D):
     """As test_attention_kernels_drop_the_plain_mask, at T = D keys in every
     form: out[i, j] is the dropped p[i, j] and the dK/dV pass's dv[j, i] the
@@ -1622,7 +1632,9 @@ def test_variant_attention_forms_repeat_bit_for_bit(cuda, variant, dtype, D):
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.float16, 128), (torch.float32, 64),
-                                     (torch.float32, 32), (torch.bfloat16, 128), (torch.bfloat16, 16)], ids=str)
+                                     (torch.float32, 32), (torch.bfloat16, 128), (torch.bfloat16, 16),
+                                     (torch.float32, 16), (torch.float32, 30), (torch.float32, 99),
+                                     (torch.float32, 100)], ids=str)
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_variant_attention_forms_drop_the_plain_mask(cuda, variant, dtype, D):
     """At T = 64 keys, V and dO the identity on their first 64 columns (D >=
@@ -1791,3 +1803,111 @@ def test_layer_norm_element_forms_take_unaligned_rows(cuda):
     assert ln.layer_norm_form(torch.float32, 100) == "fp32 warp, element"
     assert ln.layer_norm_form(torch.float16, 2048) == "fp16 block, 16-byte"
     assert ln.layer_norm_form(torch.bfloat16, 1030) == "bf16 block, element"
+
+
+# ---- the register-tiled fp32 kernels: K13's forward, the backward of K2, K12 and K14 ----
+
+F32_TILED_VARIANTS = ["packed", "heads_major", "save_probs"]
+
+
+def f32_tiled_inputs(B, T, H, D, device, seed=0):
+    """fp32 inputs whose key bias masks the last third of row 0's keys and,
+    from T = 192 on, the whole second 64-key tile of row B - 1 (a tile of
+    which every key is masked): (qkv, qb, key_bias, dout)."""
+    qkv, qb, key_bias, dout = form_attention_inputs(B, T, H, D, torch.float32, device, seed)
+    if T >= 192:
+        key_bias[B - 1, 64:128] = -10000.0
+    return qkv, qb, key_bias, dout
+
+
+def f32_tiled_run(variant, qkv, qb, key_bias, dout, H, rate, seed, plain=False):
+    """(forward outputs, backward outputs) of a variant's kernels (or plain
+    versions), the backward on the plain forward's outputs: "packed" K1 and
+    the tiled K2 (dqkv, dqb), "heads_major" K11 and the tiled K12,
+    "save_probs" the tiled K13 and K14."""
+    B, T, F = qkv.shape
+    D = F // (3 * H)
+    if variant == "packed":
+        fwd = fa.packed_attention_fwd_reference if plain else fa.packed_attention_fwd
+        bwd = fa.packed_attention_bwd_reference if plain else fa.packed_attention_bwd
+        out_r, stats_r = fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, seed)
+        return fwd(qkv, qb, key_bias, H, rate, seed), bwd(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, seed)
+    x = (qkv + qb).contiguous()
+    if variant == "heads_major":
+        x5 = x.view(B, T, H, 3, D).permute(0, 3, 2, 1, 4).contiguous()
+        d4 = dout.view(B, T, H, D).permute(0, 2, 1, 3).contiguous()
+        fwd = fa.heads_major_attention_fwd_reference if plain else fa.heads_major_attention_fwd
+        bwd = fa.heads_major_attention_bwd_reference if plain else fa.heads_major_attention_bwd
+        out_r, stats_r = fa.heads_major_attention_fwd_reference(x5, key_bias, rate, seed)
+        return fwd(x5, key_bias, rate, seed), (bwd(x5, key_bias, d4, out_r, stats_r, rate, seed),)
+    fwd = fa.packed_attention_sp_fwd_reference if plain else fa.packed_attention_sp_fwd
+    bwd = fa.packed_attention_sp_bwd_reference if plain else fa.packed_attention_sp_bwd
+    out_r, probs_r = fa.packed_attention_sp_fwd_reference(x, key_bias, H, rate, seed)
+    return fwd(x, key_bias, H, rate, seed), (bwd(x, probs_r, dout, out_r, H, rate, seed),)
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 228, 1000])
+@pytest.mark.parametrize("D", [16, 30, 64, 99, 100, 128])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("variant", F32_TILED_VARIANTS)
+def test_f32_tiled_kernels_match_plain(cuda, variant, D, T, rate):
+    """The tiled fp32 kernels against their plain versions within the fp32
+    limits (chip_smoke.py's F32_REL_TOL / F32_ABS_TOL) at T on both sides of
+    a 64-row tile and above the bf16 kernels' 704, head dims that are not
+    multiples of 32 (100) or of 4 (30, 99: rows copied 4 bytes a piece, not
+    16), a key tile wholly masked;
+    K13's bf16 probabilities within one bf16 ulp, K14 on K13's own output
+    within bf16's limit, and the launches counted in the fp32 form."""
+    B, H = (2, 2) if T <= 228 else (1, 1)
+    qkv, qb, key_bias, dout = f32_tiled_inputs(B, T, H, D, cuda)
+    bwd_fn = {"packed": fa.packed_attention_bwd, "heads_major": fa.heads_major_attention_bwd,
+              "save_probs": fa.packed_attention_sp_bwd}[variant]
+    before = bwd_fn.forms.get("fp32", 0)
+    got_f, got_b = f32_tiled_run(variant, qkv, qb, key_bias, dout, H, rate, 99)
+    want_f, want_b = f32_tiled_run(variant, qkv, qb, key_bias, dout, H, rate, 99, plain=True)
+    torch.cuda.synchronize()
+    assert bwd_fn.forms["fp32"] == before + 1
+    assert rel_err(got_f[0], want_f[0]) < F32_REL_TOL
+    for g, w in zip(got_b, want_b):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert rel_err(g, w) < F32_REL_TOL
+    if variant == "save_probs":
+        probs, probs_r = got_f[1], want_f[1]
+        assert bool(((probs.float() - probs_r.float()).abs() <= bf16_ulps(probs_r)).all())
+        x = (qkv + qb).contiguous()
+        assert rel_err(fa.packed_attention_sp_bwd(x, probs, dout, got_f[0], H, rate, 99), want_b[0]) < REL_TOL
+    else:
+        assert float((got_f[1] - want_f[1]).abs().max()) < F32_ABS_TOL
+
+
+@pytest.mark.parametrize("D", [16, 30, 64, 99, 100])
+@pytest.mark.parametrize("variant", F32_TILED_VARIANTS)
+def test_f32_tiled_kernels_repeat_bit_for_bit(cuda, variant, D):
+    """Every sum runs in a fixed order and nothing is atomic (the bias
+    gradient's partials are summed in one fixed reduction): two calls agree
+    bit for bit."""
+    qkv, qb, key_bias, dout = f32_tiled_inputs(4, 228, 6, D, cuda)
+    runs = [f32_tiled_run(variant, qkv, qb, key_bias, dout, 6, 0.1, 7) for _ in range(2)]
+    torch.cuda.synchronize()
+    (f1, b1), (f2, b2) = runs
+    assert all(torch.equal(a, b) for a, b in zip(f1 + b1, f2 + b2))
+
+
+@pytest.mark.parametrize("D", [8, 16, 32, 64, 100, 128])
+@pytest.mark.parametrize("info", ["vb_attn_f32_info", "vb_attn_f32_sp_info"])
+def test_f32_tiled_kernels_do_not_spill(cuda, info, D):
+    """The tiled kernels (K13's forward, both backward passes in both forms)
+    keep every value in registers, and at D <= 64 two blocks fit an SM."""
+    lib = _build.library()
+    for which in ((0, 1, 2) if info == "vb_attn_f32_sp_info" else (1, 2)):
+        regs, local, smem, per_sm = (getattr(lib, info)(which, w, D) for w in range(4))
+        assert 0 < regs <= 255 and local == 0 and per_sm >= (2 if D <= 64 else 1), (which, regs, local, per_sm)
+
+
+def test_f32_tiled_backward_tiles_64_rows(cuda):
+    """The backward's blocks own 64-row tiles, one row of bias partials
+    each; a head dim outside 1..128 has no kernel."""
+    lib = _build.library()
+    assert lib.vb_attn_f32_geometry(0) == 64 and lib.vb_attn_f32_geometry(1) == -1
+    assert fa.f32_bias_tiles(lib, 228) == 4 and fa.f32_bias_tiles(lib, 64) == 1
+    assert lib.vb_attn_f32_sp_info(0, 0, 129) == -1 and lib.vb_attn_f32_info(1, 0, 0) == -1

@@ -13,8 +13,9 @@
 // stats [B, H, T] = max_j t + log2 sum_j exp2(t - max), t = (q.k) * scale *
 // log2(e) + key_bias * log2(e); the backward rebuilds p = exp2(t - stats)
 // from them and writes dqkv, delta = rowsum(dO * O) [B, H, T] (scratch) and
-// the QKV-bias gradient as per-batch-row partials db_part [B, H*3*D], each
-// row written by one block (the caller sums the rows: no atomics).
+// the QKV-bias gradient as partials db_part [B, ceil(T / 64), H*3*D], one
+// row a (batch row, 64-row tile), each written by one block (the caller sums
+// the rows in a fixed order: no atomics).
 // Dropout keeps probability (b, h, i, j) by philox.cuh::attn_philox's bit,
 // word ((i & 1) << 1 | (j & 1)) of the call for (i, j): the masks equal the
 // bf16 and fp16 kernels' at the same seed. The rows, keys and head are
@@ -23,33 +24,74 @@
 // gradient) and [B, H, T, D] out. K13/K14 (save-probs, SP) take the packed
 // qkv with its bias added; the forward walks the keys twice (the row
 // statistic, then p = exp2(t - stat), written as bf16 into probs [B, H, T,
-// ldp] before dropout, and P_d V) and writes no statistics; the backward's
-// two passes read p back from those bf16 values in place of exp2(t - stats)
-// and need neither the key bias nor the statistics: K14's contract in fp32.
+// ldp] (ldp a multiple of 8) before dropout, and P_d V) and writes no
+// statistics; the backward's two passes read p back from those bf16 values
+// in place of exp2(t - stats) and need neither the key bias nor the
+// statistics: K14's contract in fp32.
 //
-// Bound on the H100 at the main path's B=128, T=228, H=12, D=64: 2 (forward)
-// and 4 (backward) products of 2 B H T^2 D = 5.1 GFLOP each at the 67
-// TFLOP/s of fp32 outside the tensor cores: 0.15 / 0.30 ms; the bytes (fp32:
-// twice the bf16 kernels') take 0.11 / 0.22 ms at 3.35 TB/s. wgmma's TF32
-// keeps a 10-bit mantissa and would not meet fp32's tolerance, and 3xTF32
-// costs three products: these kernels are SIMT.
+// Bound on the H100 at the main path's B=128, T=228, H=12, D=64: 2 (K1), 3
+// (K13: the statistic pass, then the scores again and P V) and 4 (backward)
+// products of 2 B H T^2 D = 5.1 GFLOP each, against a bound of 2 and 4 at
+// the 67 TFLOP/s of fp32 outside the tensor cores: 0.15 / 0.30 ms; the bytes
+// (fp32: twice the bf16 kernels') take 0.11 / 0.22 ms at 3.35 TB/s. wgmma's
+// TF32 keeps a 10-bit mantissa and would not meet fp32's tolerance, and
+// 3xTF32 costs three products: these kernels are SIMT.
 //
-// Design (simple and right first; its speed is later work):
-// - A block of 8 warps owns one (batch row, head) pair, so the bias-gradient
-//   partials of a head are one block's and need no second pass; B * H
-//   blocks (1,536 at the main path).
-// - Forward and dQ pass: the block takes 32 query rows at a time (4 a warp)
-//   and walks 32-key tiles in shared memory (K and V rows padded to D + 1
-//   floats, so that a lane reading its own key's row meets no bank
-//   conflict). Lane l owns key l of the tile for the scores (D fused
-//   multiply-adds over shared memory, the 4 rows' query values broadcast)
-//   and output columns l, l + 32, ... for the products with V or K (the
-//   probability or dS of key jj broadcast by __shfl_sync). An online max
-//   and sum of exp2 per row as in K1; the dropout bit of each (i, j) is
-//   its own Philox call (four times the bf16 kernels' calls, which share
-//   one between a 2 x 2 block).
-// - dK/dV pass: the mirror image, 32 keys at a time (4 a warp) against
-//   32-query tiles.
+// K1/K11's forward (attn_f32_fwd_kernel) is the first design, simple and
+// right; its speed is later work. A block of 8 warps owns one (batch row,
+// head) pair (B * H blocks), takes 32 query rows at a time (4 a warp) and
+// walks 32-key tiles in shared memory (K and V rows padded to D + 1 floats);
+// lane l owns key l of the tile for the scores (D fused multiply-adds over
+// shared memory, the 4 rows' query values broadcast) and output columns l, l
+// + 32, ... for P V (the probability of key jj broadcast by __shfl_sync); an
+// online max and sum of exp2 per row as in K1; one Philox call a (i, j).
+//
+// K13's forward and the backward (K2, K12, K14) are register-tiled, on the
+// model of mlm_xent_f32.cu's GEMM tile:
+// - A block of 256 threads owns a 64-row tile of one (batch row, head) pair:
+//   queries in the forward and the dQ pass, keys in the dK/dV pass; grid
+//   (ceil(T / 64), H, B): 6,144 blocks at the main path. Its rows stay in
+//   shared memory; the other side's rows stream through, 64 a tile (32 in
+//   the dK/dV pass at D > 16, so that two blocks fit an SM at D = 64). The
+//   head dim is padded to DP = 16, 64 or 128 in shared memory and in the
+//   products' output columns only: the scores sum over D rounded up to 4.
+// - Every product runs on one 16 x 16 grid of threads. A score tile (q.k,
+//   dO.v and their transposes) gives each thread a 4 x 4 micro-tile (4 x 2
+//   on 32-row tiles): rows 2 ty + {0, 1, 32, 33}, columns 2 tx + {0, 1, 32,
+//   33}, so that each thread owns whole 2 x 2 blocks of (i, j), and one
+//   attn_philox call serves four keep bits, as in the bf16 kernels. Rows are
+//   staged as they lie (row stride DP + 4 floats, 16-byte aligned): per 4
+//   steps of d a thread reads one float4 of each of its rows and columns,
+//   8 float4 for 64 fused multiply-adds (2 for 16), where the first design
+//   read 5 floats for 4; 4-row column groups a phase hit 4 distinct bank
+//   quads. P V, dS K, dS^T Q and P^T dO take the tile's p, dS (fp32) from
+//   shared memory, [row][column] as the thread wrote them, and multiply
+//   them into 4 rows x D/16 output columns a thread (columns 4 tx + {0..3} +
+//   64 g): one float4 of 4 columns of P and a float4 of the streamed rows
+//   per step, no shuffles.
+// - Copies: rows arrive by cp.async, 16 bytes a piece where D % 4 == 0
+//   (every row of every layout then 16-byte aligned), 4 bytes otherwise,
+//   zero past T and past D (to D rounded up to 4), so that any D <= 128 and
+//   a ragged last tile run unpadded; the streamed tiles through a ring of
+//   two slots, the next tile's copies in flight during this tile's
+//   arithmetic (V, which a tile uses once, through one slot: the forward
+//   copies it during the scores, the dQ pass during the last tile's dS K).
+//   The QKV bias of K2 is added to each tile by the threads that copied it,
+//   once their copies landed.
+// - Row statistics: K13's first pass keeps an online max and sum per
+//   thread and row, merged at its end over the 16 threads of a row by a
+//   fixed butterfly of shuffles; the dQ pass sums delta over 4 threads a
+//   row from dO (shared) and O.
+// - K13 stages the tile's bf16 probabilities in shared memory and writes
+//   them as 16-byte pieces, 128 contiguous bytes a row of the tile.
+// - The bias gradient: each block sums its output columns (its 4 rows, the
+//   lane pair of a column, the 8 warps in order) into its own db_part row.
+// Every sum runs in a fixed order and nothing is atomic: two calls agree bit
+// for bit. Flops: K13 3 products; the backward 7 (the dQ pass computes the
+// scores, dP and dQ, the dK/dV pass the scores and dP again, dV and dK: 5
+// with K14's saved p), against the bound's 4. A 4 x 4 micro-tile reads 2
+// bytes of shared memory a fused multiply-add: at an SM's 128 bytes a clock
+// that, not the fp32 rate, bounds these kernels.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -107,7 +149,6 @@ __device__ __forceinline__ void load_rows(float* dst, int lds, const float* __re
 }
 
 size_t fwd_bytes(int D) { return sizeof(float) * ((size_t)CHUNK * D + KT * (D + 1) + KT * D + KT); }
-size_t bwd_bytes(int D) { return sizeof(float) * ((size_t)2 * CHUNK * D + 2 * KT * (D + 1) + 3 * KT + NW * MAX_D); }
 
 // grid (H, B): block (h, b) owns the pair (b, h).
 template <int NC>
@@ -192,363 +233,676 @@ attn_f32_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ qb,
   }
 }
 
-// grid (H, B): K13 in fp32 for pair (b, h): pass 1 takes each row's
-// statistic over every key tile, pass 2 writes p = exp2(t - stat) as bf16
-// (row i of the pair at probs + i * ldp) and accumulates the dropped p times
-// V (p normalised: no final division).
-template <int NC>
-__global__ void __launch_bounds__(NTH)
-attn_f32_sp_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ key_bias, float* __restrict__ out,
-                       bf16* __restrict__ probs, int T, int H, int D, int ldp, Layout L, uint32_t seed, uint32_t thr,
-                       float inv, int dropout, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [CHUNK][D]
-  float* Ks = Qs + CHUNK * D;       // [KT][D + 1]
-  float* Vs = Ks + KT * (D + 1);    // [KT][D]
-  float* kbs = Vs + KT * D;         // [KT] key bias * log2(e)
-  const int h = blockIdx.x, b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* q = qkv + b * L.qb + h * L.qh;
-  const uint32_t bh = (uint32_t)(b * H + h);
-  bf16* pb = probs + (long long)bh * T * ldp;
-  const float c1 = scale * LOG2E;
+// ---------------------------------------------------------------------------
+// The register-tiled kernels: K13's forward and the backward's two passes.
 
-  for (int r0 = 0; r0 < T; r0 += CHUNK) {
-    __syncthreads();  // every warp is done with the last chunk's rows
-    load_rows(Qs, D, q, L.qt, nullptr, r0, CHUNK, T, D);
-    float m[RW], l[RW], o[RW][NC];
-#pragma unroll
-    for (int rr = 0; rr < RW; ++rr) {
-      m[rr] = -INFINITY;
-      l[rr] = 0.f;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) o[rr][c] = 0.f;
+constexpr int BR = 64;    // rows of a block's own tile: queries (forward, dQ pass) or keys (dK/dV pass)
+constexpr int LDPB = 72;  // bf16 elements a row of a staged probability tile: 64 keys + 8 (144 bytes)
+constexpr int RM = 4;     // rows of a thread's score micro-tile, on a 16 x 16 grid of the NTH threads
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The padded head dim a D runs at: 16 (the JAX package's tiny()), 64 or 128.
+int dp_of(int D) { return D <= 16 ? 16 : D <= 64 ? 64 : 128; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 4 or 16 bytes, or zeros where !valid (src must still be a valid address)
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + NR) of a D-wide matrix (row t at src + t * ld) into dst
+// (row stride LD): 16-byte pieces where vec (D % 4 == 0), else 4-byte ones;
+// zero past T and in the columns [D, D rounded up to 4). Thread t copies
+// pieces t, t + NTH, ...
+template <int NR>
+__device__ __forceinline__ void copy_rows(float* dst, int LD, const float* __restrict__ src, long long ld, int r0,
+                                          int T, int D, bool vec) {
+  if (vec) {
+    const int per = D >> 2;
+    for (int c = threadIdx.x; c < NR * per; c += NTH) {
+      const int r = c / per, k = (c - r * per) << 2;
+      const bool ok = r0 + r < T;
+      cp16(smem_u32(dst + r * LD + k), ok ? src + (long long)(r0 + r) * ld + k : src, ok);
     }
-    for (int pass = 0; pass < 2; ++pass) {
-      for (int k0 = 0; k0 < T; k0 += KT) {
-        __syncthreads();  // every warp is done with the last tile
-        load_rows(Ks, D + 1, q + L.part, L.qt, nullptr, k0, KT, T, D);
-        if (pass == 1) load_rows(Vs, D, q + 2 * L.part, L.qt, nullptr, k0, KT, T, D);
-        if (threadIdx.x < KT)
-          kbs[threadIdx.x] = k0 + threadIdx.x < T ? key_bias[(long long)b * T + k0 + threadIdx.x] * LOG2E : -INFINITY;
-        __syncthreads();
-        const int j = k0 + lane;
-        float s[RW] = {};
-        for (int d = 0; d < D; ++d) {
-          const float kv = Ks[lane * (D + 1) + d];
-#pragma unroll
-          for (int rr = 0; rr < RW; ++rr) s[rr] += Qs[(warp * RW + rr) * D + d] * kv;
-        }
-        float p[RW];
-#pragma unroll
-        for (int rr = 0; rr < RW; ++rr) {
-          const int i = r0 + warp * RW + rr;
-          const float t = j < T ? s[rr] * c1 + kbs[lane] : -INFINITY;
-          if (pass == 0) {
-            const float mnew = fmaxf(m[rr], warp_max(t));
-            l[rr] = l[rr] * exp2f(m[rr] - mnew) + warp_sum(exp2f(t - mnew));
-            m[rr] = mnew;
-            p[rr] = 0.f;
-          } else {
-            p[rr] = exp2f(t - m[rr]);  // m holds the row statistic in pass 2
-            if (i < T && j < T) pb[(long long)i * ldp + j] = __float2bfloat16(p[rr]);
-            if (dropout && j < T && i < T) p[rr] = keep(seed, bh, i, j, thr) ? p[rr] * inv : 0.f;
-          }
-        }
-        if (pass == 0) continue;
-        const int nk = min(KT, T - k0);
-        for (int jj = 0; jj < nk; ++jj) {
-          float vv[NC];
-#pragma unroll
-          for (int c = 0; c < NC; ++c) vv[c] = lane + 32 * c < D ? Vs[jj * D + lane + 32 * c] : 0.f;
-#pragma unroll
-          for (int rr = 0; rr < RW; ++rr) {
-            const float pj = __shfl_sync(0xffffffffu, p[rr], jj);
-#pragma unroll
-            for (int c = 0; c < NC; ++c) o[rr][c] += pj * vv[c];
-          }
-        }
-      }
-      if (pass == 0) {
-#pragma unroll
-        for (int rr = 0; rr < RW; ++rr) m[rr] += log2f(l[rr]);
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < RW; ++rr) {
-      const int i = r0 + warp * RW + rr;
-      if (i >= T) continue;
-      float* orow = out + b * L.ob + h * L.oh + i * L.ot;
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        if (lane + 32 * c < D) orow[lane + 32 * c] = o[rr][c];
+  } else {
+    const int per = (D + 3) & ~3;
+    for (int e = threadIdx.x; e < NR * per; e += NTH) {
+      const int r = e / per, k = e - r * per;
+      const bool ok = r0 + r < T && k < D;
+      cp4(smem_u32(dst + r * LD + k), ok ? src + (long long)(r0 + r) * ld + k : src, ok);
     }
   }
 }
 
-// The block's column sums (each warp's lanes hold columns lane + 32 c of
-// their rows) summed over the warps in order into dst[0 .. D).
-template <int NC>
-__device__ __forceinline__ void block_colsum(const float (&cs)[NC], float* red, float* __restrict__ dst, int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
+// bias[0, D) added to the rows below T of the pieces this thread copied by
+// copy_rows (called once they landed: cp.async's writes are the copying
+// thread's to read after its wait).
+template <int NR>
+__device__ __forceinline__ void add_bias(float* dst, int LD, const float* __restrict__ bias, int r0, int T, int D,
+                                         bool vec) {
+  if (vec) {
+    const int per = D >> 2;
+    for (int c = threadIdx.x; c < NR * per; c += NTH) {
+      const int r = c / per, k = (c - r * per) << 2;
+      if (r0 + r >= T) continue;
+      float4* p = reinterpret_cast<float4*>(dst + r * LD + k);
+      float4 v = *p;
+      v.x += bias[k];
+      v.y += bias[k + 1];
+      v.z += bias[k + 2];
+      v.w += bias[k + 3];
+      *p = v;
+    }
+  } else {
+    const int per = (D + 3) & ~3;
+    for (int e = threadIdx.x; e < NR * per; e += NTH) {
+      const int r = e / per, k = e - r * per;
+      if (r0 + r < T && k < D) dst[r * LD + k] += bias[k];
+    }
+  }
+}
+
+// N values [r0, r0 + N) of a vector (key bias, stats, delta) into dst; zero
+// past T.
+template <int N>
+__device__ __forceinline__ void copy_vec(float* dst, const float* __restrict__ src, int r0, int T) {
+  for (int r = threadIdx.x; r < N; r += NTH) {
+    const bool ok = r0 + r < T;
+    cp4(smem_u32(dst + r), ok ? src + r0 + r : src, ok);
+  }
+}
+
+// The saved probabilities of rows [r0, r0 + NR) and keys [c0, c0 + 64)
+// (row i at pb + i * ldp, ldp a multiple of 8) into dst (row stride LDPB),
+// 16 bytes a piece; zero past T (a piece that starts below T may hold keys
+// of the row's padding: the kernels mask keys past T).
+template <int NR>
+__device__ __forceinline__ void copy_probs(bf16* dst, const bf16* __restrict__ pb, int ldp, int r0, int c0, int T) {
+  for (int c = threadIdx.x; c < NR * 8; c += NTH) {
+    const int r = c >> 3, k = (c & 7) << 3;
+    const bool ok = r0 + r < T && c0 + k < T;
+    cp16(smem_u32(dst + r * LDPB + k), ok ? pb + (long long)(r0 + r) * ldp + c0 + k : pb, ok);
+  }
+}
+
+// This thread's place in the 16 x 16 grid: lane l of warp w is (tx,
+// ty) = ((l & 3) | (l bits 3-4) << 2, (l bit 2) | w << 1), so that each
+// group of 8 lanes (a phase of a 16-byte shared load) spans 4 tx and 2 ty.
+// The lanes of a row (one ty) differ in lane bits 0, 1, 3, 4; the two lanes
+// of a column pair in warp w differ in bit 2.
+struct Place {
+  int tx, ty;
+  __device__ __forceinline__ Place() {
+    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+    tx = (l & 3) | ((l >> 1) & 12);
+    ty = ((l >> 2) & 1) | (w << 1);
+  }
+  // rows and columns of a score micro-tile (a < 4: pairs 32 apart; b
+  // < 4, b < 2 on 32-row tiles)
+  __device__ __forceinline__ int row(int a) const { return 2 * ty + (a & 1) + 32 * (a >> 1); }
+  __device__ __forceinline__ int col(int b) const { return 2 * tx + (b & 1) + 32 * (b >> 1); }
+  // column n of a product's NC = DP / 16 output columns: W = min(NC, 4)
+  // adjacent columns from W tx, in groups 64 apart
+  template <int NC>
+  __device__ __forceinline__ int pcol(int n) const {
+    constexpr int W = NC < 4 ? NC : 4;
+    return W * tx + n % W + 64 * (n / W);
+  }
+};
+
+template <int R, int N>
+__device__ __forceinline__ void zero(float (&acc)[R][N]) {
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
-    if (lane + 32 * c < D) red[warp * MAX_D + lane + 32 * c] = cs[c];
+  for (int a = 0; a < R; ++a)
+#pragma unroll
+    for (int n = 0; n < N; ++n) acc[a][n] = 0.f;
+}
+
+__device__ __forceinline__ float comp(const float4& v, int k) { return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w; }
+
+// s[a][b] = sum_d A[row a][d] B[col b][d] over d < d4, d ascending (rows of
+// both LD floats apart, zero from D to d4).
+template <int NCOL>
+__device__ __forceinline__ void score(float (&s)[RM][NCOL], const float* A, const float* Bm, int LD, int d4,
+                                      const Place& pl) {
+  zero(s);
+#pragma unroll 2
+  for (int d = 0; d < d4; d += 4) {
+    float4 x[RM], y[NCOL];
+#pragma unroll
+    for (int a = 0; a < RM; ++a) x[a] = *reinterpret_cast<const float4*>(A + pl.row(a) * LD + d);
+#pragma unroll
+    for (int b = 0; b < NCOL; ++b) y[b] = *reinterpret_cast<const float4*>(Bm + pl.col(b) * LD + d);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int a = 0; a < RM; ++a)
+#pragma unroll
+        for (int b = 0; b < NCOL; ++b) s[a][b] = fmaf(comp(x[a], k), comp(y[b], k), s[a][b]);
+  }
+}
+
+// acc[a][n] += sum_c X[row a][c] Bs[c][pcol n] over the tile's 16 NCOL
+// columns, c ascending (X's rows 16 NCOL + 4 floats apart, Bs's LD).
+template <int NCOL, int NC>
+__device__ __forceinline__ void product(float (&acc)[RM][NC], const float* X, const float* Bs, int LD,
+                                        const Place& pl) {
+  constexpr int BC = 16 * NCOL, LDX = BC + 4, W = NC < 4 ? NC : 4;
+#pragma unroll 2
+  for (int c = 0; c < BC; c += 4) {
+    float4 x[RM];
+#pragma unroll
+    for (int a = 0; a < RM; ++a) x[a] = *reinterpret_cast<const float4*>(X + pl.row(a) * LDX + c);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float* brow = Bs + (c + k) * LD + W * pl.tx;
+      float v[NC];
+      if (W == 4) {
+#pragma unroll
+        for (int g = 0; g < NC / 4; ++g) {
+          const float4 u = *reinterpret_cast<const float4*>(brow + 64 * g);
+          v[4 * g] = u.x;
+          v[4 * g + 1] = u.y;
+          v[4 * g + 2] = u.z;
+          v[4 * g + 3] = u.w;
+        }
+      } else if (W == 2) {
+        const float2 u = *reinterpret_cast<const float2*>(brow);
+        v[0] = u.x;
+        v[W - 1] = u.y;
+      } else {
+        v[0] = brow[0];
+      }
+#pragma unroll
+      for (int a = 0; a < RM; ++a)
+#pragma unroll
+        for (int n = 0; n < NC; ++n) acc[a][n] = fmaf(comp(x[a], k), v[n], acc[a][n]);
+    }
+  }
+}
+
+// The keep bits of the 2 x 2 block (i + e, j + f), e, f in {0, 1}, i and j
+// even: bit (e << 1 | f), from one attn_philox call.
+__device__ __forceinline__ uint32_t keep4(uint32_t seed, uint32_t bh, int i, int j, uint32_t thr) {
+  const uint4 r = vb::attn_philox(seed, bh, i, j);
+  return (r.x >= thr ? 1u : 0u) | (r.y >= thr ? 2u : 0u) | (r.z >= thr ? 4u : 0u) | (r.w >= thr ? 8u : 0u);
+}
+
+// The rows below T of acc (RM rows x NC columns a thread, rows r0 +
+// row(a)) into dst (row t at dst + t * ld), columns below D.
+template <int NC>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, long long ld, const float (&acc)[RM][NC], int r0,
+                                           int T, int D, bool vec, const Place& pl) {
+  constexpr int W = NC < 4 ? NC : 4;
+#pragma unroll
+  for (int a = 0; a < RM; ++a) {
+    const int t = r0 + pl.row(a);
+    if (t >= T) continue;
+    float* o = dst + (long long)t * ld;
+#pragma unroll
+    for (int g = 0; g < NC / W; ++g) {
+      const int c = pl.pcol<NC>(W * g);
+      if (W == 4 && vec) {
+        if (c < D) *reinterpret_cast<float4*>(o + c) = make_float4(acc[a][4 * g], acc[a][4 * g + 1],
+                                                                    acc[a][4 * g + 2], acc[a][4 * g + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < W; ++e)
+          if (c + e < D) o[c + e] = acc[a][W * g + e];
+      }
+    }
+  }
+}
+
+// The block's column sums of acc over its rows below T into dst[0, D), in a
+// fixed order: a thread's RM rows, the two lanes of a column pair, the
+// warps in order. red: a warp's 16 NC floats of shared memory each, reused
+// once every thread passed the first barrier.
+template <int NC>
+__device__ __forceinline__ void col_sums(const float (&acc)[RM][NC], int r0, int T, float* red,
+                                         float* __restrict__ dst, int D, const Place& pl) {
+  constexpr int DP = 16 * NC;
+  float cs[NC];
+#pragma unroll
+  for (int n = 0; n < NC; ++n) {
+    float v = 0.f;
+#pragma unroll
+    for (int a = 0; a < RM; ++a)
+      if (r0 + pl.row(a) < T) v += acc[a][n];
+    cs[n] = v + __shfl_xor_sync(0xffffffffu, v, 4);
+  }
+  __syncthreads();  // every thread is done with what red holds
+  if (((threadIdx.x >> 2) & 1) == 0) {
+#pragma unroll
+    for (int n = 0; n < NC; ++n) red[(threadIdx.x >> 5) * DP + pl.pcol<NC>(n)] = cs[n];
+  }
   __syncthreads();
   for (int d = threadIdx.x; d < D; d += NTH) {
     float v = 0.f;
-    for (int w = 0; w < NW; ++w) v += red[w * MAX_D + d];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) v += red[w * DP + d];
     dst[d] = v;
   }
 }
 
-// The saved probability of query i, key j of a pair (row i at pb + i *
-// ldp), 0 past T.
-__device__ __forceinline__ float saved_p(const bf16* __restrict__ pb, int ldp, int i, int j, int T) {
-  return i < T && j < T ? __bfloat162float(pb[(long long)i * ldp + j]) : 0.f;
+// Shared memory of the three kernels, in floats (the bf16 probability
+// tiles last). LD: a staged row of D <= DP floats; a tile of 64 rows.
+template <int DP>
+struct FwdSmem {  // K13: Q, K (2 slots), V, the p tile, the key bias (2 slots), the bf16 probabilities
+  static constexpr int LD = DP + 4, TILE = BR * LD, LDX = BR + 4;
+  static constexpr int Q = 0, K = TILE, V = 3 * TILE, X = 4 * TILE, KB = X + BR * LDX, PB = KB + 2 * BR;
+  static constexpr size_t BYTES = sizeof(float) * PB + sizeof(bf16) * BR * LDPB;
+};
+
+template <int DP, bool SP>
+struct DqSmem {  // dO, Q (not SP), K (2 slots), V, dS, the key bias (2 slots), delta; SP: probabilities (2 slots)
+  static constexpr int LD = DP + 4, TILE = BR * LD, LDX = BR + 4;
+  static constexpr int DO = 0, Q = TILE, K = SP ? TILE : 2 * TILE, V = K + 2 * TILE, X = V + TILE,
+                       KB = X + BR * LDX, DL = KB + 2 * BR, PB = DL + BR;
+  static constexpr size_t BYTES = sizeof(float) * PB + (SP ? sizeof(bf16) * 2 * BR * LDPB : 0);
+};
+
+template <int DP, bool SP>
+struct DkvSmem {  // K, V; Q, dO, stats, delta (2 slots of BC rows); P_d^T, dS^T; SP: probabilities (2 slots)
+  static constexpr int NCOL = DP == 16 ? 4 : 2, BC = 16 * NCOL, LD = DP + 4, LDX = BC + 4;
+  static constexpr int K = 0, V = BR * LD, Q = 2 * BR * LD, DO = Q + 2 * BC * LD, XP = DO + 2 * BC * LD,
+                       XS = XP + BR * LDX, ST = XS + BR * LDX, DL = ST + 2 * BC, PB = DL + 2 * BC;
+  static constexpr size_t BYTES = sizeof(float) * PB + (SP ? sizeof(bf16) * 2 * BC * LDPB : 0);
+};
+
+// K13 in fp32. grid (ceil(T / 64), H, B): block (x, h, b) owns queries [64 x,
+// 64 x + 64) of the pair (b, h). Steps 0 .. nt - 1 take the rows' statistic
+// over every key tile, steps nt .. 2 nt - 1 write p = exp2(t - stat) as bf16
+// (row i of the pair at probs + i * ldp) and accumulate the dropped p times
+// V (p normalised: no final division).
+template <int DP>
+__global__ void __launch_bounds__(NTH, DP <= 64 ? 2 : 1)
+attn_f32_tiled_sp_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ key_bias,
+                             float* __restrict__ out, bf16* __restrict__ probs, int T, int H, int D, int ldp, Layout L,
+                             uint32_t seed, uint32_t thr, float inv, int dropout, float scale) {
+  using S = FwdSmem<DP>;
+  constexpr int NC = DP / 16, LD = S::LD, LDX = S::LDX;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* Qs = sm + S::Q;
+  float* Vs = sm + S::V;
+  float* X = sm + S::X;
+  bf16* Pb = reinterpret_cast<bf16*>(sm + S::PB);
+  const Place pl;
+  const int r0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+  const float* q = qkv + b * L.qb + h * L.qh;
+  const float* kbg = key_bias + (long long)b * T;
+  const uint32_t bh = (uint32_t)(b * H + h);
+  bf16* pbg = probs + (long long)bh * T * ldp;
+  const bool vec = (D & 3) == 0;
+  const int d4 = (D + 3) & ~3, nt = cdiv(T, BR);
+  const float c1 = scale * LOG2E;
+  auto issue_k = [&](int step) {  // key tile step % nt and its key bias into slot step & 1
+    const int c0 = (step % nt) * BR;
+    copy_rows<BR>(sm + S::K + (step & 1) * S::TILE, LD, q + L.part, L.qt, c0, T, D, vec);
+    copy_vec<BR>(sm + S::KB + (step & 1) * BR, kbg, c0, T);
+  };
+  copy_rows<BR>(Qs, LD, q, L.qt, r0, T, D, vec);
+  issue_k(0);
+  cp_commit();
+  float m[RM], l[RM], o[RM][NC];
+#pragma unroll
+  for (int a = 0; a < RM; ++a) {
+    m[a] = -INFINITY;
+    l[a] = 0.f;
+  }
+  zero(o);
+  for (int step = 0; step < 2 * nt; ++step) {
+    const int c0 = (step % nt) * BR, slot = step & 1;
+    cp_wait<0>();
+    __syncthreads();  // key tile `step` landed; every thread is done with the last step's tiles
+    if (step >= nt) copy_rows<BR>(Vs, LD, q + 2 * L.part, L.qt, c0, T, D, vec);
+    cp_commit();
+    if (step + 1 < 2 * nt) issue_k(step + 1);
+    cp_commit();
+    float s[RM][4];
+    score(s, Qs, sm + S::K + slot * S::TILE, LD, d4, pl);
+    const float* kb = sm + S::KB + slot * BR;
+    if (step < nt) {  // the statistic: an online max and sum of exp2 per row over this thread's keys
+#pragma unroll
+      for (int a = 0; a < RM; ++a) {
+        float t[4], tm = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          t[c] = c0 + pl.col(c) < T ? fmaf(s[a][c], c1, kb[pl.col(c)] * LOG2E) : -INFINITY;
+          tm = fmaxf(tm, t[c]);
+        }
+        if (tm == -INFINITY) continue;  // every key past T
+        const float mn = fmaxf(m[a], tm);
+        float sum = l[a] * exp2f(m[a] - mn);  // m = -inf only while l = 0
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sum += exp2f(t[c] - mn);
+        l[a] = sum;
+        m[a] = mn;
+      }
+      if (step == nt - 1) {  // merge the 16 threads of a row (a symmetric butterfly: all agree bit for bit)
+#pragma unroll
+        for (int a = 0; a < RM; ++a) {
+#pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+            if (off == 4) continue;
+            const float m2 = __shfl_xor_sync(0xffffffffu, m[a], off), l2 = __shfl_xor_sync(0xffffffffu, l[a], off);
+            const float mn = fmaxf(m[a], m2);
+            if (mn == -INFINITY) continue;
+            l[a] = (m[a] == -INFINITY ? 0.f : l[a] * exp2f(m[a] - mn)) + (m2 == -INFINITY ? 0.f : l2 * exp2f(m2 - mn));
+            m[a] = mn;
+          }
+          m[a] += log2f(l[a]);  // m holds the row statistic from here
+        }
+      }
+      continue;
+    }
+    float p[RM][4];
+#pragma unroll
+    for (int a = 0; a < RM; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        p[a][c] = c0 + pl.col(c) < T ? exp2f(fmaf(s[a][c], c1, kb[pl.col(c)] * LOG2E) - m[a]) : 0.f;
+#pragma unroll
+    for (int a = 0; a < RM; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; c += 2)
+        *reinterpret_cast<__nv_bfloat162*>(Pb + pl.row(a) * LDPB + pl.col(c)) =
+            __floats2bfloat162_rn(p[a][c], p[a][c + 1]);
+#pragma unroll
+    for (int A = 0; A < RM / 2; ++A)
+#pragma unroll
+      for (int C = 0; C < 2; ++C) {
+        const int i = r0 + pl.row(2 * A), j = c0 + pl.col(2 * C);
+        const uint32_t bits = !dropout ? 15u : (i < T && j < T ? keep4(seed, bh, i, j, thr) : 0u);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {
+            float& v = p[2 * A + e][2 * C + f];
+            v = (bits >> ((e << 1) | f)) & 1u ? v * inv : 0.f;
+          }
+      }
+#pragma unroll
+    for (int a = 0; a < RM; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; c += 2)
+        *reinterpret_cast<float2*>(X + pl.row(a) * LDX + pl.col(c)) = make_float2(p[a][c], p[a][c + 1]);
+    cp_wait<1>();
+    __syncthreads();  // V landed; the p tile and the bf16 probabilities are whole
+    for (int c = threadIdx.x; c < BR * 8; c += NTH) {
+      const int r = c >> 3, k = (c & 7) << 3, i = r0 + r;
+      if (i < T && c0 + k < T)
+        *reinterpret_cast<uint4*>(pbg + (long long)i * ldp + c0 + k) =
+            *reinterpret_cast<const uint4*>(Pb + r * LDPB + k);
+    }
+    product<4, NC>(o, X, Vs, LD, pl);
+  }
+  store_rows(out + b * L.ob + h * L.oh, L.ot, o, r0, T, D, vec, pl);
 }
 
-// grid (H, B): the dQ pass of pair (b, h); also writes delta. SP: p from
-// the saved probabilities (probs, ldp) in place of exp2(t - stats).
-template <int NC, bool SP>
-__global__ void __launch_bounds__(NTH)
-attn_f32_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ qb, const float* __restrict__ key_bias,
-                   const float* __restrict__ dout, const float* __restrict__ out, const float* __restrict__ stats,
-                   const bf16* __restrict__ probs, int ldp, float* __restrict__ dqkv, float* __restrict__ db_part,
-                   float* __restrict__ delta_g, int T, int H, int D, Layout L, uint32_t seed, uint32_t thr, float inv,
-                   int dropout, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // [CHUNK][D]
-  float* dOs = Qs + CHUNK * D;         // [CHUNK][D]
-  float* Ks = dOs + CHUNK * D;         // [KT][D + 1]
-  float* Vs = Ks + KT * (D + 1);       // [KT][D + 1]
-  float* kbs = Vs + KT * (D + 1);      // [KT]
-  float* red = kbs + 3 * KT;           // [NW][MAX_D]
-  const int h = blockIdx.x, b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// grid (ceil(T / 64), H, B): the dQ pass of queries [64 x, 64 x + 64) of the
+// pair (b, h); also writes their delta and, given db_part, its row (b, x)'s
+// q part. SP: p from the saved probabilities (probs, ldp) in place of
+// exp2(t - stats).
+template <int DP, bool SP>
+__global__ void __launch_bounds__(NTH, DP <= 64 ? 2 : 1)
+attn_f32_tiled_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ qb,
+                         const float* __restrict__ key_bias, const float* __restrict__ dout,
+                         const float* __restrict__ out, const float* __restrict__ stats,
+                         const bf16* __restrict__ probs, int ldp, float* __restrict__ dqkv,
+                         float* __restrict__ db_part, float* __restrict__ delta_g, int T, int H, int D, Layout L,
+                         uint32_t seed, uint32_t thr, float inv, int dropout, float scale) {
+  using S = DqSmem<DP, SP>;
+  constexpr int NC = DP / 16, LD = S::LD, LDX = S::LDX;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* dOs = sm + S::DO;
+  float* Qs = sm + S::Q;
+  float* Vs = sm + S::V;
+  float* X = sm + S::X;
+  float* dls = sm + S::DL;
+  bf16* Pbs = reinterpret_cast<bf16*>(sm + S::PB);
+  const Place pl;
+  const int r0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
   const float* q = qkv + b * L.qb + h * L.qh;
   const float* bq = qb ? qb + h * L.bh : nullptr;
   const float* dob = dout + b * L.ob + h * L.oh;
   const float* ob = out + b * L.ob + h * L.oh;
-  float* dq_out = dqkv + b * L.qb + h * L.qh;
   const uint32_t bh = (uint32_t)(b * H + h);
-  const bf16* pb = SP ? probs + (long long)bh * T * ldp : nullptr;
+  const bf16* pbg = SP ? probs + (long long)bh * T * ldp : nullptr;
+  const bool vec = (D & 3) == 0;
+  const int d4 = (D + 3) & ~3, nt = cdiv(T, BR);
   const float c1 = scale * LOG2E;
-  float cs[NC] = {};
-
-  for (int r0 = 0; r0 < T; r0 += CHUNK) {
-    __syncthreads();
-    load_rows(Qs, D, q, L.qt, bq, r0, CHUNK, T, D);
-    load_rows(dOs, D, dob, L.ot, nullptr, r0, CHUNK, T, D);
-    float st[RW], dl[RW], dq[RW][NC];
-#pragma unroll
-    for (int rr = 0; rr < RW; ++rr) {
-      const int i = r0 + warp * RW + rr;
-      float a = 0.f;
-      if (i < T)
-        for (int d = lane; d < D; d += 32) a += dob[(long long)i * L.ot + d] * ob[(long long)i * L.ot + d];
-      dl[rr] = warp_sum(a);
-      st[rr] = !SP && i < T ? stats[(long long)bh * T + i] : 0.f;
-      if (i < T && lane == 0) delta_g[(long long)bh * T + i] = dl[rr];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) dq[rr][c] = 0.f;
-    }
-    for (int k0 = 0; k0 < T; k0 += KT) {
-      __syncthreads();
-      load_rows(Ks, D + 1, q + L.part, L.qt, bq ? bq + L.bpart : nullptr, k0, KT, T, D);
-      load_rows(Vs, D + 1, q + 2 * L.part, L.qt, bq ? bq + 2 * L.bpart : nullptr, k0, KT, T, D);
-      if (!SP && threadIdx.x < KT)
-        kbs[threadIdx.x] = k0 + threadIdx.x < T ? key_bias[(long long)b * T + k0 + threadIdx.x] * LOG2E : 0.f;
-      __syncthreads();
-      const int j = k0 + lane;
-      float s[RW] = {}, dp[RW] = {};
-      for (int d = 0; d < D; ++d) {
-        const float kv = Ks[lane * (D + 1) + d], vv = Vs[lane * (D + 1) + d];
-#pragma unroll
-        for (int rr = 0; rr < RW; ++rr) {
-          if (!SP) s[rr] += Qs[(warp * RW + rr) * D + d] * kv;
-          dp[rr] += dOs[(warp * RW + rr) * D + d] * vv;
-        }
-      }
-      float ds[RW];
-#pragma unroll
-      for (int rr = 0; rr < RW; ++rr) {
-        const int i = r0 + warp * RW + rr;
-        const float p = SP ? saved_p(pb, ldp, i, j, T) : (j < T ? exp2f(s[rr] * c1 + kbs[lane] - st[rr]) : 0.f);
-        float d = dp[rr];
-        if (dropout && j < T && i < T) d = keep(seed, bh, i, j, thr) ? d * inv : 0.f;
-        ds[rr] = p * (d - dl[rr]);  // dS (the scale goes on dQ)
-      }
-      const int nk = min(KT, T - k0);
-      for (int jj = 0; jj < nk; ++jj) {
-        float kk[NC];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) kk[c] = lane + 32 * c < D ? Ks[jj * (D + 1) + lane + 32 * c] : 0.f;
-#pragma unroll
-        for (int rr = 0; rr < RW; ++rr) {
-          const float v = __shfl_sync(0xffffffffu, ds[rr], jj);
-#pragma unroll
-          for (int c = 0; c < NC; ++c) dq[rr][c] += v * kk[c];
-        }
-      }
+  auto issue_k = [&](int t) {  // key tile t (K, and the key bias or the probabilities) into slot t & 1
+    copy_rows<BR>(sm + S::K + (t & 1) * S::TILE, LD, q + L.part, L.qt, t * BR, T, D, vec);
+    if (SP)
+      copy_probs<BR>(Pbs + (t & 1) * BR * LDPB, pbg, ldp, r0, t * BR, T);
+    else
+      copy_vec<BR>(sm + S::KB + (t & 1) * BR, key_bias + (long long)b * T, t * BR, T);
+  };
+  copy_rows<BR>(dOs, LD, dob, L.ot, r0, T, D, vec);
+  if (!SP) copy_rows<BR>(Qs, LD, q, L.qt, r0, T, D, vec);
+  cp_commit();
+  issue_k(0);
+  copy_rows<BR>(Vs, LD, q + 2 * L.part, L.qt, 0, T, D, vec);
+  cp_commit();
+  cp_wait<1>();
+  if (!SP && bq) add_bias<BR>(Qs, LD, bq, r0, T, D, vec);
+  __syncthreads();  // dO whole
+  {                 // delta = rowsum(dO * O): 4 adjacent threads a row
+    constexpr int PER = NTH / BR;
+    const int r = threadIdx.x / PER, part = threadIdx.x % PER, i = r0 + r;
+    float a = 0.f;
+    if (i < T) {
+      const float* orow = ob + (long long)i * L.ot;
+      for (int d = part; d < D; d += PER) a = fmaf(dOs[r * LD + d], orow[d], a);
     }
 #pragma unroll
-    for (int rr = 0; rr < RW; ++rr) {
-      const int i = r0 + warp * RW + rr;
-      if (i >= T) continue;
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        if (lane + 32 * c < D) {
-          const float v = dq[rr][c] * scale;
-          dq_out[(long long)i * L.qt + lane + 32 * c] = v;
-          cs[c] += v;
-        }
+    for (int off = 1; off < PER; off <<= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
+    if (part == 0) {
+      dls[r] = a;
+      if (i < T) delta_g[(long long)bh * T + i] = a;
     }
   }
-  if (db_part) block_colsum(cs, red, db_part + (long long)b * 3 * H * D + h * L.bh, D);
+  float st[RM], dl[RM], dq[RM][NC];
+#pragma unroll
+  for (int a = 0; a < RM; ++a) {
+    const int i = r0 + pl.row(a);
+    st[a] = !SP && i < T ? stats[(long long)bh * T + i] : 0.f;
+  }
+  zero(dq);
+  for (int t = 0; t < nt; ++t) {
+    const int c0 = t * BR, slot = t & 1;
+    float* Ks = sm + S::K + slot * S::TILE;
+    cp_wait<0>();
+    if (bq) {
+      add_bias<BR>(Ks, LD, bq + L.bpart, c0, T, D, vec);
+      add_bias<BR>(Vs, LD, bq + 2 * L.bpart, c0, T, D, vec);
+    }
+    __syncthreads();  // key tile t landed and is biased; every thread is done with the last tile
+    if (t == 0) {
+#pragma unroll
+      for (int a = 0; a < RM; ++a) dl[a] = dls[pl.row(a)];
+    }
+    if (t + 1 < nt) issue_k(t + 1);
+    cp_commit();
+    float s[RM][4], dp[RM][4];
+    if (!SP) score(s, Qs, Ks, LD, d4, pl);
+    score(dp, dOs, Vs, LD, d4, pl);
+    const float* kb = sm + S::KB + slot * BR;
+    const bf16* pt = Pbs + slot * BR * LDPB;
+#pragma unroll
+    for (int A = 0; A < RM / 2; ++A)
+#pragma unroll
+      for (int C = 0; C < 2; ++C) {
+        const int i = r0 + pl.row(2 * A), j = c0 + pl.col(2 * C);
+        const uint32_t bits = !dropout ? 15u : (i < T && j < T ? keep4(seed, bh, i, j, thr) : 0u);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {
+            const int a = 2 * A + e, c = 2 * C + f;
+            const bool ok = i + e < T && j + f < T;
+            float p;
+            if (SP)
+              p = ok ? __bfloat162float(pt[pl.row(a) * LDPB + pl.col(c)]) : 0.f;
+            else
+              p = ok ? exp2f(fmaf(s[a][c], c1, kb[pl.col(c)] * LOG2E) - st[a]) : 0.f;
+            const float d = (bits >> ((e << 1) | f)) & 1u ? dp[a][c] * inv : 0.f;
+            dp[a][c] = p * (d - dl[a]);  // dS (the scale goes on dQ)
+          }
+      }
+#pragma unroll
+    for (int a = 0; a < RM; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; c += 2)
+        *reinterpret_cast<float2*>(X + pl.row(a) * LDX + pl.col(c)) = make_float2(dp[a][c], dp[a][c + 1]);
+    __syncthreads();  // dS whole; every thread is done with V
+    if (t + 1 < nt) copy_rows<BR>(Vs, LD, q + 2 * L.part, L.qt, c0 + BR, T, D, vec);
+    cp_commit();
+    product<4, NC>(dq, X, Ks, LD, pl);
+  }
+#pragma unroll
+  for (int a = 0; a < RM; ++a)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) dq[a][n] *= scale;
+  store_rows(dqkv + b * L.qb + h * L.qh, L.qt, dq, r0, T, D, vec, pl);
+  if (db_part)
+    col_sums(dq, r0, T, X, db_part + ((long long)b * gridDim.x + blockIdx.x) * 3 * H * D + h * L.bh, D, pl);
 }
 
-// grid (H, B): the dK/dV pass of pair (b, h), on the dQ pass's delta; SP
-// as the dQ pass's.
-template <int NC, bool SP>
-__global__ void __launch_bounds__(NTH)
-attn_f32_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ qb, const float* __restrict__ key_bias,
-                    const float* __restrict__ dout, const float* __restrict__ stats,
-                    const bf16* __restrict__ probs, int ldp, const float* __restrict__ delta_g,
-                    float* __restrict__ dqkv, float* __restrict__ db_part, int T, int H, int D, Layout L,
-                    uint32_t seed, uint32_t thr, float inv, int dropout, float scale) {
-  extern __shared__ float smem[];
-  float* Kc = smem;                    // [CHUNK][D] this chunk's keys
-  float* Vc = Kc + CHUNK * D;          // [CHUNK][D]
-  float* Qt = Vc + CHUNK * D;          // [KT][D + 1] a query tile
-  float* dOt = Qt + KT * (D + 1);      // [KT][D + 1]
-  float* stt = dOt + KT * (D + 1);     // [KT] stats; +inf past T: p = 0
-  float* dlt = stt + KT;               // [KT]
-  float* kbc = dlt + KT;               // [KT] = [CHUNK] the chunk's key bias * log2(e)
-  float* red = kbc + KT;               // [NW][MAX_D]
-  const int h = blockIdx.x, b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// grid (ceil(T / 64), H, B): the dK/dV pass of keys [64 x, 64 x + 64) of the
+// pair (b, h), on the dQ pass's delta; given db_part, writes its row (b,
+// x)'s k and v parts. SP as the dQ pass's.
+template <int DP, bool SP>
+__global__ void __launch_bounds__(NTH, DP <= 64 ? 2 : 1)
+attn_f32_tiled_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ qb,
+                          const float* __restrict__ key_bias, const float* __restrict__ dout,
+                          const float* __restrict__ stats, const bf16* __restrict__ probs, int ldp,
+                          const float* __restrict__ delta_g, float* __restrict__ dqkv, float* __restrict__ db_part,
+                          int T, int H, int D, Layout L, uint32_t seed, uint32_t thr, float inv, int dropout,
+                          float scale) {
+  using S = DkvSmem<DP, SP>;
+  constexpr int NC = DP / 16, NCOL = S::NCOL, BC = S::BC, LD = S::LD, LDX = S::LDX;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* Ks = sm + S::K;
+  float* Vs = sm + S::V;
+  float* Xp = sm + S::XP;
+  float* Xs = sm + S::XS;
+  bf16* Pbs = reinterpret_cast<bf16*>(sm + S::PB);
+  const Place pl;
+  const int j0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
   const float* q = qkv + b * L.qb + h * L.qh;
   const float* bq = qb ? qb + h * L.bh : nullptr;
   const float* dob = dout + b * L.ob + h * L.oh;
-  float* dk_out = dqkv + b * L.qb + h * L.qh + L.part;
   const uint32_t bh = (uint32_t)(b * H + h);
-  const bf16* pb = SP ? probs + (long long)bh * T * ldp : nullptr;
+  const bf16* pbg = SP ? probs + (long long)bh * T * ldp : nullptr;
+  const bool vec = (D & 3) == 0;
+  const int d4 = (D + 3) & ~3, nq = cdiv(T, BC);
   const float c1 = scale * LOG2E;
-  float csk[NC] = {}, csv[NC] = {};
-
-  for (int r0 = 0; r0 < T; r0 += CHUNK) {
-    __syncthreads();
-    load_rows(Kc, D, q + L.part, L.qt, bq ? bq + L.bpart : nullptr, r0, CHUNK, T, D);
-    load_rows(Vc, D, q + 2 * L.part, L.qt, bq ? bq + 2 * L.bpart : nullptr, r0, CHUNK, T, D);
-    if (!SP && threadIdx.x < CHUNK)
-      kbc[threadIdx.x] = r0 + threadIdx.x < T ? key_bias[(long long)b * T + r0 + threadIdx.x] * LOG2E : 0.f;
-    float dk[RW][NC], dv[RW][NC];
+  auto issue = [&](int t) {  // query tile t (Q, dO, stats or probabilities, delta) into slot t & 1
+    const int i0 = t * BC, slot = t & 1;
+    copy_rows<BC>(sm + S::Q + slot * BC * LD, LD, q, L.qt, i0, T, D, vec);
+    copy_rows<BC>(sm + S::DO + slot * BC * LD, LD, dob, L.ot, i0, T, D, vec);
+    copy_vec<BC>(sm + S::DL + slot * BC, delta_g + (long long)bh * T, i0, T);
+    if (SP)
+      copy_probs<BC>(Pbs + slot * BC * LDPB, pbg, ldp, i0, j0, T);
+    else
+      copy_vec<BC>(sm + S::ST + slot * BC, stats + (long long)bh * T, i0, T);
+  };
+  copy_rows<BR>(Ks, LD, q + L.part, L.qt, j0, T, D, vec);
+  copy_rows<BR>(Vs, LD, q + 2 * L.part, L.qt, j0, T, D, vec);
+  issue(0);
+  cp_commit();
+  float kbr[RM], dk[RM][NC], dv[RM][NC];
 #pragma unroll
-    for (int rr = 0; rr < RW; ++rr)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) dk[rr][c] = dv[rr][c] = 0.f;
-    for (int q0 = 0; q0 < T; q0 += KT) {
-      __syncthreads();
-      load_rows(Qt, D + 1, q, L.qt, bq, q0, KT, T, D);
-      load_rows(dOt, D + 1, dob, L.ot, nullptr, q0, KT, T, D);
-      if (threadIdx.x < KT) {
-        const int i = q0 + threadIdx.x;
-        stt[threadIdx.x] = !SP && i < T ? stats[(long long)bh * T + i] : INFINITY;
-        dlt[threadIdx.x] = i < T ? delta_g[(long long)bh * T + i] : 0.f;
+  for (int a = 0; a < RM; ++a) {
+    const int j = j0 + pl.row(a);
+    kbr[a] = !SP && j < T ? key_bias[(long long)b * T + j] * LOG2E : 0.f;
+  }
+  zero(dk);
+  zero(dv);
+  for (int t = 0; t < nq; ++t) {
+    const int i0 = t * BC, slot = t & 1;
+    const float* Qs = sm + S::Q + slot * BC * LD;
+    const float* dOs = sm + S::DO + slot * BC * LD;
+    cp_wait<0>();
+    if (bq) {
+      if (t == 0) {
+        add_bias<BR>(Ks, LD, bq + L.bpart, j0, T, D, vec);
+        add_bias<BR>(Vs, LD, bq + 2 * L.bpart, j0, T, D, vec);
       }
-      __syncthreads();
-      const int i = q0 + lane;
-      float s[RW] = {}, dp[RW] = {};
-      for (int d = 0; d < D; ++d) {
-        const float qv = Qt[lane * (D + 1) + d], gv = dOt[lane * (D + 1) + d];
+      add_bias<BC>(sm + S::Q + slot * BC * LD, LD, bq, i0, T, D, vec);
+    }
+    __syncthreads();  // query tile t landed and is biased; every thread is done with the last tile
+    if (t + 1 < nq) issue(t + 1);
+    cp_commit();
+    float s[RM][NCOL], dp[RM][NCOL];
+    if (!SP) score(s, Ks, Qs, LD, d4, pl);
+    score(dp, Vs, dOs, LD, d4, pl);
+    const float* st = sm + S::ST + slot * BC;
+    const float* dlt = sm + S::DL + slot * BC;
+    const bf16* pt = Pbs + slot * BC * LDPB;
 #pragma unroll
-        for (int rr = 0; rr < RW; ++rr) {
-          if (!SP) s[rr] += Kc[(warp * RW + rr) * D + d] * qv;
-          dp[rr] += Vc[(warp * RW + rr) * D + d] * gv;
-        }
-      }
-      float pd[RW], ds[RW];
+    for (int A = 0; A < RM / 2; ++A)
 #pragma unroll
-      for (int rr = 0; rr < RW; ++rr) {
-        const int j = r0 + warp * RW + rr;
-        const float p = SP ? saved_p(pb, ldp, i, j, T) : exp2f(s[rr] * c1 + kbc[warp * RW + rr] - stt[lane]);
-        float pdrop = p, d = dp[rr];
-        if (dropout && j < T && i < T) {
-          const bool k = keep(seed, bh, i, j, thr);
-          pdrop = k ? p * inv : 0.f;
-          d = k ? d * inv : 0.f;
-        }
-        pd[rr] = pdrop;
-        ds[rr] = p * (d - dlt[lane]);
-      }
-      const int nq = min(KT, T - q0);
-      for (int ii = 0; ii < nq; ++ii) {
-        float qq[NC], gg[NC];
+      for (int C = 0; C < NCOL / 2; ++C) {
+        const int j = j0 + pl.row(2 * A), i = i0 + pl.col(2 * C);  // rows are keys, columns queries
+        const uint32_t bits = !dropout ? 15u : (i < T && j < T ? keep4(seed, bh, i, j, thr) : 0u);
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const bool ok = lane + 32 * c < D;
-          qq[c] = ok ? Qt[ii * (D + 1) + lane + 32 * c] : 0.f;
-          gg[c] = ok ? dOt[ii * (D + 1) + lane + 32 * c] : 0.f;
-        }
+        for (int e = 0; e < 2; ++e)
 #pragma unroll
-        for (int rr = 0; rr < RW; ++rr) {
-          const float a = __shfl_sync(0xffffffffu, pd[rr], ii), e = __shfl_sync(0xffffffffu, ds[rr], ii);
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            dv[rr][c] += a * gg[c];
-            dk[rr][c] += e * qq[c];
+          for (int f = 0; f < 2; ++f) {
+            const int a = 2 * A + e, c = 2 * C + f;
+            const bool ok = i + f < T && j + e < T;
+            float p;
+            if (SP)
+              p = ok ? __bfloat162float(pt[pl.col(c) * LDPB + pl.row(a)]) : 0.f;
+            else
+              p = ok ? exp2f(fmaf(s[a][c], c1, kbr[a]) - st[pl.col(c)]) : 0.f;
+            const bool kept = (bits >> ((f << 1) | e)) & 1u;
+            const float d = kept ? dp[a][c] * inv : 0.f;
+            dp[a][c] = p * (d - dlt[pl.col(c)]);  // dS^T (the scale goes on dK)
+            s[a][c] = kept ? p * inv : 0.f;       // P_d^T
           }
-        }
       }
-    }
 #pragma unroll
-    for (int rr = 0; rr < RW; ++rr) {
-      const int j = r0 + warp * RW + rr;
-      if (j >= T) continue;
+    for (int a = 0; a < RM; ++a)
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
-        if (lane + 32 * c < D) {
-          const float k = dk[rr][c] * scale, v = dv[rr][c];
-          dk_out[(long long)j * L.qt + lane + 32 * c] = k;
-          dk_out[(long long)j * L.qt + L.part + lane + 32 * c] = v;
-          csk[c] += k;
-          csv[c] += v;
-        }
-    }
+      for (int c = 0; c < NCOL; c += 2) {
+        *reinterpret_cast<float2*>(Xp + pl.row(a) * LDX + pl.col(c)) = make_float2(s[a][c], s[a][c + 1]);
+        *reinterpret_cast<float2*>(Xs + pl.row(a) * LDX + pl.col(c)) = make_float2(dp[a][c], dp[a][c + 1]);
+      }
+    __syncthreads();  // P_d^T and dS^T whole
+    product<NCOL, NC>(dv, Xp, dOs, LD, pl);
+    product<NCOL, NC>(dk, Xs, Qs, LD, pl);
   }
+#pragma unroll
+  for (int a = 0; a < RM; ++a)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) dk[a][n] *= scale;
+  float* dk_out = dqkv + b * L.qb + h * L.qh + L.part;
+  store_rows(dk_out, L.qt, dk, j0, T, D, vec, pl);
+  store_rows(dk_out + L.part, L.qt, dv, j0, T, D, vec, pl);
   if (db_part) {
-    float* part = db_part + (long long)b * 3 * H * D + h * L.bh;
-    block_colsum(csk, red, part + L.bpart, D);
-    block_colsum(csv, red, part + 2 * L.bpart, D);
+    float* part = db_part + ((long long)b * gridDim.x + blockIdx.x) * 3 * H * D + h * L.bh;
+    col_sums(dk, j0, T, Xp, part + L.bpart, D, pl);
+    col_sums(dv, j0, T, Xp, part + 2 * L.bpart, D, pl);
   }
-}
-
-template <int NC, bool SP>
-const void* kernel_of(int which) {
-  switch (which) {
-    case 0: return SP ? (const void*)attn_f32_sp_fwd_kernel<NC> : (const void*)attn_f32_fwd_kernel<NC>;
-    case 1: return (const void*)attn_f32_dq_kernel<NC, SP>;
-    case 2: return (const void*)attn_f32_dkv_kernel<NC, SP>;
-    default: return nullptr;
-  }
-}
-
-template <bool SP>
-const void* kernel_at(int which, int D) {
-  switch ((D + 31) / 32) {
-    case 1: return kernel_of<1, SP>(which);
-    case 2: return kernel_of<2, SP>(which);
-    case 3: return kernel_of<3, SP>(which);
-    case 4: return kernel_of<4, SP>(which);
-    default: return nullptr;
-  }
-}
-
-size_t bytes_of(int which, int D) { return which == 0 ? fwd_bytes(D) : bwd_bytes(D); }
-
-template <bool SP>
-cudaError_t prepare(int which, int D) {
-  return cudaFuncSetAttribute(kernel_at<SP>(which, D), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes_of(which, D));
 }
 
 // The packed layout [B, T, H*3*D] (out [B, T, H*D], qb [H*3*D]).
@@ -570,34 +924,82 @@ void fwd_at(const float* qkv, const float* qb, const float* key_bias, float* out
                                                                  inv, dropout, scale);
 }
 
-template <int NC>
+// K1/K11's forward at head dim D, its dynamic shared memory and threads.
+const void* k1_kernel(int D, size_t* bytes, int* threads) {
+  *bytes = fwd_bytes(D);
+  *threads = NTH;
+  switch ((D + 31) / 32) {
+    case 1: return (const void*)attn_f32_fwd_kernel<1>;
+    case 2: return (const void*)attn_f32_fwd_kernel<2>;
+    case 3: return (const void*)attn_f32_fwd_kernel<3>;
+    case 4: return (const void*)attn_f32_fwd_kernel<4>;
+    default: return nullptr;
+  }
+}
+
+// A tiled kernel (0 K13's forward (SP only), 1 the dQ pass, 2 the dK/dV
+// pass) at padded head dim DP, its dynamic shared memory and threads.
+template <int DP, bool SP>
+const void* tiled_kernel(int which, size_t* bytes, int* threads) {
+  *threads = NTH;
+  switch (which) {
+    case 0: *bytes = FwdSmem<DP>::BYTES; return SP ? (const void*)attn_f32_tiled_sp_fwd_kernel<DP> : nullptr;
+    case 1: *bytes = DqSmem<DP, SP>::BYTES; return (const void*)attn_f32_tiled_dq_kernel<DP, SP>;
+    case 2: *bytes = DkvSmem<DP, SP>::BYTES; return (const void*)attn_f32_tiled_dkv_kernel<DP, SP>;
+    default: return nullptr;
+  }
+}
+
+// Kernel `which` (0 forward, 1 dQ pass, 2 dK/dV pass) at head dim D (1..128)
+// its dynamic shared memory and threads: the forward of K1/K11 (not SP) or
+// K13 (SP), the tiled backward.
+template <bool SP>
+const void* kernel_at(int which, int D, size_t* bytes, int* threads) {
+  if (D < 1 || D > MAX_D) return nullptr;
+  if (!SP && which == 0) return k1_kernel(D, bytes, threads);
+  switch (dp_of(D)) {
+    case 16: return tiled_kernel<16, SP>(which, bytes, threads);
+    case 64: return tiled_kernel<64, SP>(which, bytes, threads);
+    default: return tiled_kernel<128, SP>(which, bytes, threads);
+  }
+}
+
+template <bool SP>
+cudaError_t prepare(int which, int D) {
+  size_t bytes = 0;
+  int threads = 0;
+  const void* fn = kernel_at<SP>(which, D, &bytes, &threads);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int DP>
 void sp_fwd_at(const float* qkv, const float* key_bias, float* out, bf16* probs, int B, int T, int H, int D, int ldp,
                uint32_t seed, uint32_t thr, float inv, int dropout, float scale, cudaStream_t s) {
-  attn_f32_sp_fwd_kernel<NC><<<dim3(H, B), NTH, fwd_bytes(D), s>>>(qkv, key_bias, out, probs, T, H, D, ldp,
-                                                                    packed(T, H, D), seed, thr, inv, dropout, scale);
+  attn_f32_tiled_sp_fwd_kernel<DP><<<dim3(cdiv(T, BR), H, B), NTH, FwdSmem<DP>::BYTES, s>>>(
+      qkv, key_bias, out, probs, T, H, D, ldp, packed(T, H, D), seed, thr, inv, dropout, scale);
 }
 
 // Both passes; SP reads p from probs (ldp) and needs neither key_bias nor
 // stats.
-template <int NC, bool SP>
+template <int DP, bool SP>
 cudaError_t bwd_at(const float* qkv, const float* qb, const float* key_bias, const float* dout, const float* out,
                    const float* stats, const bf16* probs, int ldp, float* dqkv, float* db_part, float* delta, int B,
                    int T, int H, int D, Layout L, uint32_t seed, uint32_t thr, float inv, int dropout, float scale,
                    cudaStream_t s) {
-  attn_f32_dq_kernel<NC, SP><<<dim3(H, B), NTH, bwd_bytes(D), s>>>(qkv, qb, key_bias, dout, out, stats, probs, ldp,
-                                                                    dqkv, db_part, delta, T, H, D, L, seed, thr, inv,
-                                                                    dropout, scale);
+  const dim3 grid(cdiv(T, BR), H, B);
+  attn_f32_tiled_dq_kernel<DP, SP><<<grid, NTH, DqSmem<DP, SP>::BYTES, s>>>(
+      qkv, qb, key_bias, dout, out, stats, probs, ldp, dqkv, db_part, delta, T, H, D, L, seed, thr, inv, dropout,
+      scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_f32_dkv_kernel<NC, SP><<<dim3(H, B), NTH, bwd_bytes(D), s>>>(qkv, qb, key_bias, dout, stats, probs, ldp, delta,
-                                                                     dqkv, db_part, T, H, D, L, seed, thr, inv,
-                                                                     dropout, scale);
+  attn_f32_tiled_dkv_kernel<DP, SP><<<grid, NTH, DkvSmem<DP, SP>::BYTES, s>>>(
+      qkv, qb, key_bias, dout, stats, probs, ldp, delta, dqkv, db_part, T, H, D, L, seed, thr, inv, dropout, scale);
   return cudaGetLastError();
 }
 
-int info(const void* fn, int which, int what, int D, cudaError_t (*prep)(int, int)) {
+int info(const void* fn, size_t bytes, int threads, int which, int what, int D, cudaError_t (*prep)(int, int)) {
   if (fn == nullptr) return -1;
-  const size_t bytes = bytes_of(which, D);
   if (what == 0 || what == 1) {
     cudaFuncAttributes attr;
     if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess) return -1;
@@ -607,7 +1009,7 @@ int info(const void* fn, int which, int what, int D, cudaError_t (*prep)(int, in
   if (what == 3) {
     int n = 0;
     if (prep(which, D) != cudaSuccess) return -1;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, NTH, bytes) != cudaSuccess) return -1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads, bytes) != cudaSuccess) return -1;
     return n;
   }
   return -1;
@@ -633,12 +1035,17 @@ int bwd(const float* qkv, const float* qb, const float* key_bias, const float* d
   cudaError_t err = prepare<SP>(1, D);
   if (err == cudaSuccess) err = prepare<SP>(2, D);
   if (err != cudaSuccess) return (int)err;
-  auto* f = (D + 31) / 32 == 1   ? bwd_at<1, SP>
-            : (D + 31) / 32 == 2 ? bwd_at<2, SP>
-            : (D + 31) / 32 == 3 ? bwd_at<3, SP>
-                                 : bwd_at<4, SP>;
+  auto* f = dp_of(D) == 16 ? bwd_at<16, SP> : dp_of(D) == 64 ? bwd_at<64, SP> : bwd_at<128, SP>;
   return (int)f(qkv, qb, key_bias, dout, out, stats, probs, ldp, dqkv, db_part, delta, B, T, H, D, L, seed, threshold,
                 inv, dropout, scale, s);
+}
+
+template <bool SP>
+int info_of(int which, int what, int D) {
+  size_t bytes = 0;
+  int threads = 0;
+  const void* fn = kernel_at<SP>(which, D, &bytes, &threads);
+  return info(fn, bytes, threads, which, what, D, prepare<SP>);
 }
 
 }  // namespace
@@ -647,14 +1054,14 @@ int bwd(const float* qkv, const float* qb, const float* key_bias, const float* d
 // `what` 0 its registers a thread, 1 its local (spill) bytes, 2 its dynamic
 // shared memory, 3 its resident blocks per SM. -1 on an error or a D
 // outside 1..128. K11/K12 run these kernels on their own strides.
-extern "C" int vb_attn_f32_info(int which, int what, int D) {
-  return info(D >= 1 && D <= MAX_D ? kernel_at<false>(which, D) : nullptr, which, what, D, prepare<false>);
-}
+extern "C" int vb_attn_f32_info(int which, int what, int D) { return info_of<false>(which, what, D); }
 
 // The same of the save-probs kernels (K13/K14 in fp32).
-extern "C" int vb_attn_f32_sp_info(int which, int what, int D) {
-  return info(D >= 1 && D <= MAX_D ? kernel_at<true>(which, D) : nullptr, which, what, D, prepare<true>);
-}
+extern "C" int vb_attn_f32_sp_info(int which, int what, int D) { return info_of<true>(which, what, D); }
+
+// The tiling the wrapper sizes db_part with: 0 the rows of a backward
+// block's tile (db_part holds ceil(T / that) rows a batch row). -1 otherwise.
+extern "C" int vb_attn_f32_geometry(int which) { return which == 0 ? BR : -1; }
 
 extern "C" int vb_attn_f32_fwd(const void* qkv, const void* qb, const void* key_bias, void* out, void* stats, int B,
                                int T, int H, int D, unsigned int seed, unsigned int threshold, float inv, int dropout,
@@ -664,7 +1071,8 @@ extern "C" int vb_attn_f32_fwd(const void* qkv, const void* qb, const void* key_
              dropout, scale, static_cast<cudaStream_t>(stream));
 }
 
-// db_part [B, H*3*D] and delta [B, H, T] are scratch the caller allocates.
+// db_part [B, ceil(T / 64), H*3*D] and delta [B, H, T] are scratch the
+// caller allocates.
 extern "C" int vb_attn_f32_bwd(const void* qkv, const void* qb, const void* key_bias, const void* dout,
                                const void* out, const void* stats, void* dqkv, void* db_part, void* delta, int B,
                                int T, int H, int D, unsigned int seed, unsigned int threshold, float inv, int dropout,
@@ -699,17 +1107,15 @@ extern "C" int vb_attn_f32_hm_bwd(const void* qkv, const void* key_bias, const v
 }
 
 // K13 in fp32: qkv [B, T, H*3*D] with the bias added, out [B, T, H*D],
-// probs [B, H, T, ldp] bf16 storage of the [B, H, T, T] probabilities.
+// probs [B, H, T, ldp] bf16 storage of the [B, H, T, T] probabilities (ldp
+// a multiple of 8, at least T).
 extern "C" int vb_attn_f32_sp_fwd(const void* qkv, const void* key_bias, void* out, void* probs, int B, int T, int H,
                                   int D, int ldp, unsigned int seed, unsigned int threshold, float inv, int dropout,
                                   float scale, void* stream) {
-  if (D < 1 || D > MAX_D || ldp < T) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > MAX_D || ldp < T || ldp % 8) return (int)cudaErrorInvalidValue;
   cudaError_t err = prepare<true>(0, D);
   if (err != cudaSuccess) return (int)err;
-  auto* f = (D + 31) / 32 == 1   ? sp_fwd_at<1>
-            : (D + 31) / 32 == 2 ? sp_fwd_at<2>
-            : (D + 31) / 32 == 3 ? sp_fwd_at<3>
-                                 : sp_fwd_at<4>;
+  auto* f = dp_of(D) == 16 ? sp_fwd_at<16> : dp_of(D) == 64 ? sp_fwd_at<64> : sp_fwd_at<128>;
   f(static_cast<const float*>(qkv), static_cast<const float*>(key_bias), static_cast<float*>(out),
     static_cast<bf16*>(probs), B, T, H, D, ldp, seed, threshold, inv, dropout, scale,
     static_cast<cudaStream_t>(stream));
@@ -717,11 +1123,11 @@ extern "C" int vb_attn_f32_sp_fwd(const void* qkv, const void* key_bias, void* o
 }
 
 // K14 in fp32: dqkv [B, T, H*3*D] from the saved probabilities (row stride
-// ldp); delta [B, H, T] is scratch.
+// ldp, a multiple of 8); delta [B, H, T] is scratch.
 extern "C" int vb_attn_f32_sp_bwd(const void* qkv, const void* probs, const void* dout, const void* out, void* dqkv,
                                   void* delta, int B, int T, int H, int D, int ldp, unsigned int seed,
                                   unsigned int threshold, float inv, int dropout, float scale, void* stream) {
-  if (ldp < T) return (int)cudaErrorInvalidValue;
+  if (ldp < T || ldp % 8) return (int)cudaErrorInvalidValue;
   return bwd<true>(static_cast<const float*>(qkv), nullptr, nullptr, static_cast<const float*>(dout),
                    static_cast<const float*>(out), nullptr, static_cast<const bf16*>(probs), ldp,
                    static_cast<float*>(dqkv), nullptr, static_cast<float*>(delta), B, T, H, D, packed(T, H, D), seed,

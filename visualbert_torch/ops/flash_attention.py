@@ -46,9 +46,13 @@ K1 and K2 take every dtype and head dim the JAX kernels take up to D = 128
 kernels, instantiated at D = 64 and 128, a head dim below either
 zero-padded to it (:func:`kernel_head_dim`, :func:`pad_heads`,
 :func:`unpad_heads`; exact, and the softmax scale stays 1/sqrt(D) of the
-unpadded D), and fp32 on the SIMT pair of ``flash_attention_f32.cu`` at any
-D <= 128. K11-K14 take the same dtypes and head dims: bf16 and fp16 on
-their Hopper kernels, instantiated at D = 64 and 128 (the heads-major
+unpadded D), and fp32 on the SIMT kernels of ``flash_attention_f32.cu`` at
+any D <= 128 (K1/K11's forward a first design; K13's forward and the
+backward of K2, K12 and K14 register-tiled, 64-row tiles of a (batch row,
+head), the bias gradient's partials one row a (batch row, tile):
+:func:`f32_bias_tiles`, :func:`sum_bias_partials`). K11-K14 take the same
+dtypes and head dims: bf16 and fp16 on their Hopper kernels, instantiated
+at D = 64 and 128 (the heads-major
 ``[B, 3, H, T, D]`` zero-padded to ``[..., Dp]`` by :func:`pad_heads_major`,
 the packed layout by :func:`pad_heads`), and fp32 on the SIMT kernels of
 ``flash_attention_f32.cu`` (K11/K12 on the heads-major strides, K13/K14 on
@@ -579,18 +583,32 @@ def launch_f32_fwd(lib, qkv, qb, key_bias, n_heads: int, rate: float, seed: int)
     return code, out, stats
 
 
+def f32_bias_tiles(lib, T: int) -> int:
+    """Rows of bias-gradient partials a batch row of ``lib``'s fp32
+    backward writes: one a tile of T of ``vb_attn_f32_geometry(0)`` rows,
+    each from one block of either pass."""
+    return -(-T // lib.vb_attn_f32_geometry(0))
+
+
+def sum_bias_partials(db_part: torch.Tensor) -> torch.Tensor:
+    """The QKV-bias gradient [F] from the fp32 backward's partials [B,
+    tiles, F]: one reduction over the B x tiles rows, in the same order on
+    every call (no atomics: two calls agree bit for bit)."""
+    return db_part.reshape(-1, db_part.shape[-1]).sum(dim=0)
+
+
 def launch_f32_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: float, seed: int):
     """K2's two fp32 kernels on checked inputs: (CUDA code, dqkv, dqb)."""
     B, T, F = qkv.shape
     d = F // (3 * n_heads)
     dqkv = torch.empty_like(qkv)
-    db_part = torch.empty((B, F), dtype=torch.float32, device=qkv.device)
+    db_part = torch.empty((B, f32_bias_tiles(lib, T), F), dtype=torch.float32, device=qkv.device)
     delta = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
     code = lib.vb_attn_f32_bwd(qkv.data_ptr(), qb.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), out.data_ptr(),
                                stats.data_ptr(), dqkv.data_ptr(), db_part.data_ptr(), delta.data_ptr(),
                                B, T, n_heads, d, *_seed_args(rate, seed), 1.0 / math.sqrt(d),
                                _build.stream_ptr(qkv.device))
-    return code, dqkv, db_part.sum(dim=0)
+    return code, dqkv, sum_bias_partials(db_part)
 
 
 def _counted(fn, form: str) -> None:

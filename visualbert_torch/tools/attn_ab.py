@@ -31,6 +31,24 @@ timed in turns (``tools/attn_steps.py``'s rounds). Where the toolkit has
 ``cuobjdump``, each kernel's machine code (SASS) in the two builds is
 compared instruction by instruction, addresses and encodings dropped: K1/K2,
 K11/K12 and K13/K14 (their bf16, D = 64 form, whose scale is a constant).
+
+The fp32 kernels (``csrc/flash_attention_f32.cu``: K1/K11's forward, K13's
+forward and the backward of K2, K12 and K14), alone with ``--f32``:
+
+    python -m visualbert_torch.tools.attn_ab OTHER_CHECKOUT --f32
+
+Each tree's source is built alone and launched through this checkout's
+``launch_f32_*`` (a build whose backward blocks own whole pairs through
+:class:`WholePairs`) at the main path's B, T and padded keys
+in fp32 at head dims F32_DIMS: every pair against the plain versions within
+``chip_smoke.py``'s fp32 limits at dropout 0 and 0.1 (the two trees sum in
+other orders: their gap is printed, not held), each tree's dropout masks
+against the plain mask at T = 64 (identity V and dO), registers, local
+(spill) bytes, shared bytes and blocks an SM of each kernel, the trees timed
+in turns beside ``scaled_dot_product_attention`` in fp32, and K1/K11's
+forward, which the tiled kernels leave alone, compared instruction by
+instruction.
+
 Every line names the card and its power limit; the last line is the
 numbers as one JSON object. Runs only on the card: without one it exits
 with an error.
@@ -319,6 +337,358 @@ def exp_times(exp_libs, data, card):
     return times
 
 
+F32_SOURCE = SOURCE.parent / "flash_attention_f32.cu"
+F32_FNS = ("vb_attn_f32_fwd", "vb_attn_f32_bwd", "vb_attn_f32_hm_fwd", "vb_attn_f32_hm_bwd", "vb_attn_f32_sp_fwd",
+           "vb_attn_f32_sp_bwd", "vb_attn_f32_info", "vb_attn_f32_sp_info")
+F32_DIMS = (16, 64, 128)  # head dims the fp32 kernels are compared at
+F32_REL_TOL, F32_ABS_TOL = 1e-4, 1e-4  # chip_smoke.py's fp32 limits (out, dqkv, bias gradient; stats)
+F32_ROUNDS = 2
+F32_PAIRS = ("K1/K2", "K11/K12", "K13/K14")
+# K1/K11's fp32 forward, one instantiation a 32-column group of the head dim:
+# its SASS must stay the other tree's
+F32_SASS = {f"K1/K11 fp32 forward at {32 * nc} columns": f"attn_f32_fwd_kernelILi{nc}E" for nc in (1, 2, 3, 4)}
+
+
+def build_f32(trees):
+    """Each tree's ``flash_attention_f32.cu`` built alone ({name: root}),
+    one nvcc a tree, all at once: {name: (CDLL, path)}."""
+    nvcc = _build.find_nvcc()
+    out = _build.BUILD_ROOT / "ab_f32"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    paths = {name: out / f"{re.sub(r'[^A-Za-z0-9_]', '_', name)}_f32.so" for name in trees}
+    cmds = [[nvcc, *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-I",
+             str(root / SOURCE.parent), "-shared", str(root / F32_SOURCE), "-o", str(paths[name])]
+            for name, root in trees.items()]
+    for cmd, rc, text in _build._run_all(cmds):
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+    return {name: (bind(path, F32_FNS), path) for name, path in paths.items()}
+
+
+class WholePairs:
+    """A build of ``flash_attention_f32.cu`` from before its backward was
+    tiled (it has no ``vb_attn_f32_geometry``), for ``launch_f32_bwd``: its
+    blocks own whole (batch row, head) pairs and write one row of bias
+    partials a batch row, a tile longer than any T."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def vb_attn_f32_geometry(self, which):
+        return 1 << 30 if which == 0 else -1
+
+
+def f32_inputs(D, B=None, T=None, H=12):
+    """fp32 inputs at head dim D (main_path's B and T and its padded keys
+    unless given), from RandomState(0): {"packed": (qkv, qb, key_bias,
+    dout), "heads_major": (qkv5 with the bias, key_bias, dout4), "sp": (the
+    biased packed qkv, key_bias, dout), "H": H}."""
+    import numpy as np
+    import torch
+
+    from visualbert_torch.tools import main_path
+
+    B = main_path.B if B is None else B
+    T = main_path.TT + main_path.TV if T is None else T
+    dev, F = torch.device("cuda"), 3 * H * D
+    rng = np.random.RandomState(0)
+    qkv = torch.tensor(rng.randn(B, T, F), dtype=torch.float32, device=dev)
+    qb = torch.tensor(rng.randn(F) * 0.1, dtype=torch.float32, device=dev)
+    mask = np.ones((B, T), np.float32)
+    mask[::3, max(0, min(main_path.TT, T) - 20):min(main_path.TT, T)] = 0
+    mask[1::4, max(1, T - 30):] = 0
+    key_bias = torch.tensor((1.0 - mask) * -10000.0, device=dev)
+    dout = torch.tensor(rng.randn(B, T, H * D), dtype=torch.float32, device=dev)
+    biased = (qkv + qb).contiguous()
+    hm = (biased.view(B, T, H, 3, D).permute(0, 3, 2, 1, 4).contiguous(), key_bias,
+          dout.view(B, T, H, D).permute(0, 2, 1, 3).contiguous())
+    return {"packed": (qkv, qb, key_bias, dout), "heads_major": hm, "sp": (biased, key_bias, dout), "H": H}
+
+
+class F32Build:
+    """One build of ``flash_attention_f32.cu`` called through this
+    checkout's ``launch_f32_*``: each pair's forward and backward."""
+
+    def __init__(self, name, lib):
+        self.name = name
+        self.lib = lib if hasattr(lib, "vb_attn_f32_geometry") else WholePairs(lib)
+
+    def _check(self, code, what):
+        if code != 0:
+            raise RuntimeError(f"{self.name} {what}: CUDA error {code}")
+
+    def info(self, D):
+        """{pair: [[registers, local bytes, shared bytes, blocks an SM] of
+        the forward, dQ pass, dK/dV pass]} at head dim D."""
+        f32 = [[self.lib.vb_attn_f32_info(k, w, D) for w in range(4)] for k in range(3)]
+        sp = [[self.lib.vb_attn_f32_sp_info(k, w, D) for w in range(4)] for k in range(3)]
+        return {"K1/K2": f32, "K11/K12": f32, "K13/K14": sp}
+
+    def fwd(self, pair, data, rate, seed):
+        from visualbert_torch.ops import flash_attention as fa
+
+        if pair == "K1/K2":
+            qkv, qb, key_bias, _ = data["packed"]
+            code, *res = fa.launch_f32_fwd(self.lib, qkv, qb, key_bias, data["H"], rate, seed)
+        elif pair == "K11/K12":
+            qkv5, key_bias, _ = data["heads_major"]
+            code, *res = fa.launch_f32_hm_fwd(self.lib, qkv5, key_bias, rate, seed)
+        else:
+            x, key_bias, _ = data["sp"]
+            code, *res = fa.launch_f32_sp_fwd(self.lib, x, key_bias, data["H"], rate, seed)
+        self._check(code, pair + " forward")
+        return tuple(res)
+
+    def bwd(self, pair, data, fwd_out, rate, seed):
+        """The backward on ``fwd_out`` (out and stats, or out and probs):
+        (dqkv,) or, for K1/K2, (dqkv, dqb)."""
+        from visualbert_torch.ops import flash_attention as fa
+
+        out, second = fwd_out
+        if pair == "K1/K2":
+            qkv, qb, key_bias, dout = data["packed"]
+            code, *res = fa.launch_f32_bwd(self.lib, qkv, qb, key_bias, dout, out, second, data["H"], rate, seed)
+        elif pair == "K11/K12":
+            qkv5, key_bias, dout4 = data["heads_major"]
+            code, *res = fa.launch_f32_hm_bwd(self.lib, qkv5, key_bias, dout4, out, second, rate, seed)
+        else:
+            x, _, dout = data["sp"]
+            code, *res = fa.launch_f32_sp_bwd(self.lib, x, second, second.stride(2), dout, out, data["H"], rate,
+                                              seed)
+        self._check(code, pair + " backward")
+        return tuple(res)
+
+
+def f32_reference(pair, data, rate, seed):
+    """The plain versions of a pair: (forward outputs, backward outputs on
+    them)."""
+    from visualbert_torch.ops import flash_attention as fa
+
+    H = data["H"]
+    if pair == "K1/K2":
+        qkv, qb, key_bias, dout = data["packed"]
+        out, stats = fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, seed)
+        return (out, stats), fa.packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, H, rate, seed)
+    if pair == "K11/K12":
+        qkv5, key_bias, dout4 = data["heads_major"]
+        out, stats = fa.heads_major_attention_fwd_reference(qkv5, key_bias, rate, seed)
+        return (out, stats), (fa.heads_major_attention_bwd_reference(qkv5, key_bias, dout4, out, stats, rate, seed),)
+    x, key_bias, dout = data["sp"]
+    out, probs = fa.packed_attention_sp_fwd_reference(x, key_bias, H, rate, seed)
+    return (out, fa.padded_probs(probs)), (fa.packed_attention_sp_bwd_reference(x, probs, dout, out, H, rate, seed),)
+
+
+def f32_errors(pair, got_fwd, got_bwd, ref_fwd, ref_bwd):
+    """{output: error}: out, dqkv and dqb by max |kernel - plain| / max
+    |plain|, stats absolute, K13's bf16 probabilities in bf16 ulps."""
+    import torch
+
+    from visualbert_torch.tools import attn_steps
+
+    e = dict(out=attn_steps._rel(got_fwd[0], ref_fwd[0]))
+    if pair == "K13/K14":
+        d = (got_fwd[1].float() - ref_fwd[1].float()).abs()
+        ulp = torch.ldexp(torch.ones_like(d), torch.frexp(ref_fwd[1].float().abs().clamp_min(1e-38))[1] - 8)
+        e["probs_ulps"] = float((d / ulp).max())
+    else:
+        e["stats"] = float((got_fwd[1] - ref_fwd[1]).abs().max())
+    e["dqkv"] = attn_steps._rel(got_bwd[0], ref_bwd[0])
+    if len(ref_bwd) > 1:
+        e["dqb"] = attn_steps._rel(got_bwd[1], ref_bwd[1])
+    return e
+
+
+def f32_within(e):
+    return (all(e[k] <= F32_REL_TOL for k in ("out", "dqkv", "dqb") if k in e)
+            and e.get("stats", 0.0) <= F32_ABS_TOL and e.get("probs_ulps", 0.0) <= 1.0)
+
+
+MASK_RATE, MASK_SEED = 0.1, 11  # the dropout of mask_data's runs
+
+
+def mask_data(dtype, D=64, B=3, T=64, H=2):
+    """Inputs on the card whose outputs show the dropout mask, in
+    f32_inputs's form: V and dO the identity on their first T <= D columns,
+    zero biases, so that out[i, j] is the dropped p[i, j] and the dK/dV
+    pass's dv[j, i] the same."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    x = torch.tensor(np.random.RandomState(5).randn(B, T, H, 3, D), dtype=dtype, device=dev)
+    x[:, :, :, 2] = torch.eye(T, D, dtype=dtype, device=dev)[None, :, None]
+    qkv = x.reshape(B, T, 3 * H * D).contiguous()
+    key_bias = torch.zeros((B, T), device=dev)
+    dout = torch.eye(T, D, dtype=dtype, device=dev)[None, :, None].expand(B, T, H, D).reshape(B, T, H * D).contiguous()
+    return {"packed": (qkv, torch.zeros(3 * H * D, dtype=dtype, device=dev), key_bias, dout),
+            "heads_major": (x.permute(0, 3, 2, 1, 4).contiguous(), key_bias,
+                            dout.view(B, T, H, D).permute(0, 2, 1, 3).contiguous()),
+            "sp": (qkv, key_bias, dout), "H": H}
+
+
+def shows_the_plain_mask(pair, out, dqkv, data):
+    """Whether a pair's out and dqkv on ``data`` (mask_data's, dropout
+    MASK_RATE at MASK_SEED) are zero exactly where the plain mask drops."""
+    import torch
+
+    from visualbert_torch.ops import flash_attention as fa
+
+    key_bias = data["sp"][1]
+    (B, T), H = key_bias.shape, data["H"]
+    if pair == "K11/K12":
+        p_d, dv = out[..., :T], dqkv[:, 2, ..., :T].transpose(-1, -2)
+    else:
+        p_d = out.view(B, T, H, -1).permute(0, 2, 1, 3)[..., :T]
+        dv = dqkv.view(B, T, H, 3, -1)[:, :, :, 2].permute(0, 2, 3, 1)[:, :, :T]
+    keep = fa.attention_keep_reference(MASK_SEED, B, H, T, MASK_RATE, key_bias.device)
+    return bool(torch.equal(p_d != 0, keep) and torch.equal(dv != 0, keep))
+
+
+def f32_masks(builds, card):
+    """Each build's dropout masks on mask_data at D = 64, T = 64, in every
+    pair, against the plain (and the bf16 kernels') mask: {name: {pair:
+    equal}}."""
+    import torch
+
+    data, res = mask_data(torch.float32), {}
+    for b in builds:
+        res[b.name] = {}
+        for pair in F32_PAIRS:
+            fo = b.fwd(pair, data, MASK_RATE, MASK_SEED)
+            dq = b.bwd(pair, data, fo, MASK_RATE, MASK_SEED)[0]
+            torch.cuda.synchronize()
+            res[b.name][pair] = shows_the_plain_mask(pair, fo[0], dq, data)
+        print(f"{b.name} fp32 keep masks equal to the plain (bf16 kernels') mask: {res[b.name]}  [{card}]", flush=True)
+    return res
+
+
+def f32_check(builds, D, data, card, seed=5):
+    """Each build against the plain versions at dropout 0 and 0.1 (fp32
+    limits; raises on a disagreement), and the two builds' largest
+    difference (their sums run in other orders: not bit for bit)."""
+    import torch
+
+    from visualbert_torch.tools import attn_steps
+
+    errs = {b.name: {} for b in builds}
+    for pair in F32_PAIRS:
+        for rate in (0.0, 0.1):
+            ref_fwd, ref_bwd = f32_reference(pair, data, rate, seed)
+            got = []
+            for b in builds:
+                fo = b.fwd(pair, data, rate, seed)
+                bo = b.bwd(pair, data, ref_fwd, rate, seed)
+                torch.cuda.synchronize()
+                e = f32_errors(pair, fo, bo, ref_fwd, ref_bwd)
+                errs[b.name][f"{pair} rate {rate}"] = e
+                print(f"{b.name} fp32 {pair} D={D} rate {rate}: " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+                      + f" (limits {F32_REL_TOL} relative, stats {F32_ABS_TOL}, probabilities 1 ulp)  [{card}]",
+                      flush=True)
+                if not f32_within(e):
+                    raise SystemExit(f"attn_ab: {b.name}'s fp32 {pair} at D={D} disagree with the plain versions")
+                got.append((fo[0], bo[0]))
+            if len(got) == 2:
+                gap = max(attn_steps._rel(x, y) for x, y in zip(*got))
+                print(f"fp32 {pair} D={D} rate {rate}: the two builds' out and dqkv differ by at most {gap:.3e} of "
+                      f"the largest value  [{card}]", flush=True)
+            del ref_fwd, ref_bwd, got
+    return errs
+
+
+def f32_times(builds, D, data, card, rate=0.1, seed=5):
+    """Each pair's forward and backward (on its own forward's outputs) at
+    dropout ``rate``, the builds in turns (reversed in every other round) for
+    F32_ROUNDS rounds of tools/attn_exp.py's best of 3 runs of 30 calls,
+    beside scaled_dot_product_attention in fp32 on the same biased q, k, v:
+    {name: {"K1/K2 fwd": [ms a round], ...}, "sdpa": {...}}."""
+    import torch
+
+    from visualbert_torch.tools.attn_exp import best_ms
+
+    times = {b.name: {} for b in builds}
+    for r in range(F32_ROUNDS):
+        for b in (builds if r % 2 == 0 else builds[::-1]):
+            for pair in F32_PAIRS:
+                fo = b.fwd(pair, data, rate, seed)
+                times[b.name].setdefault(f"{pair} fwd", []).append(best_ms(lambda i: b.fwd(pair, data, rate, seed)))
+                times[b.name].setdefault(f"{pair} bwd", []).append(
+                    best_ms(lambda i: b.bwd(pair, data, fo, rate, seed)))
+                del fo
+    q5, key_bias, dout4 = data["heads_major"]
+    q, k, v = (t.contiguous() for t in q5.unbind(1))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = key_bias[:, None, None, :]
+    with torch.no_grad():
+        fwd = best_ms(lambda i: sdpa(q, k, v, attn_mask=mask, dropout_p=rate))
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o = sdpa(*leaves, attn_mask=mask, dropout_p=rate)
+    bwd = best_ms(lambda i: torch.autograd.grad(o, leaves, dout4, retain_graph=True))
+    times["sdpa"] = {"fwd": [fwd], "bwd": [bwd]}
+    base = builds[0].name
+    for b in builds:
+        t = times[b.name]
+        text = "; ".join(f"{k} {min(v):.4f}-{max(v):.4f} ms" + ("" if b.name == base else
+                                                                f" ({min(v) / min(times[base][k]) - 1:+.1%})")
+                         for k, v in t.items())
+        print(f"{b.name} fp32 D={D}, dropout {rate}: {text}  [{card}]", flush=True)
+    print(f"scaled_dot_product_attention fp32 D={D}, dropout {rate}: forward {fwd:.4f} ms, backward {bwd:.4f} ms  "
+          f"[{card}]", flush=True)
+    return times
+
+
+def compare_f32_sass(libs, card):
+    """K1/K11's fp32 forward (F32_SASS) in the two builds, instruction by
+    instruction; None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print(f"sass: no cuobjdump, not compared  [{card}]", flush=True)
+        return None
+    sass = {name: sass_of(subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                                         check=True).stdout, F32_SASS) for name, (_, path) in libs.items()}
+    res = {}
+    for k in F32_SASS:
+        a, b = sass["this"].get(k, []), sass["other"].get(k, [])
+        res[k] = dict(same=bool(a) and a == b, instructions=[len(a), len(b)])
+        print(f"sass of the {k}: {len(a)} instructions here, {len(b)} in the other tree, the same: "
+              f"{res[k]['same']}  [{card}]", flush=True)
+    return res
+
+
+def f32_ab(trees, card):
+    """The fp32 kernels of each tree ({"this": root, "other": root}): built
+    alone, registers, spills, shared bytes and blocks an SM, held against
+    the plain versions and their masks, timed in turns beside SDPA at
+    F32_DIMS; K1/K11's SASS compared between the trees. Returns the
+    numbers."""
+    import torch
+
+    t0 = time.perf_counter()
+    libs = build_f32(trees)
+    print(f"attn_ab fp32: {', '.join(trees)} built in {time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+    builds = [F32Build(name, lib) for name, (lib, _) in libs.items()]
+    res = dict(masks=f32_masks(builds, card), dims={})
+    for D in F32_DIMS:
+        info = {b.name: b.info(D) for b in builds}
+        for b in builds:
+            for pair, kernels in info[b.name].items():
+                print(f"{b.name} fp32 {pair} D={D}: registers, local bytes, shared bytes, blocks an SM of the "
+                      f"forward, dQ pass, dK/dV pass: {kernels}  [{card}]", flush=True)
+        data = f32_inputs(D)
+        errors = f32_check(builds, D, data, card)
+        times = f32_times(builds, D, data, card)
+        res["dims"][D] = dict(info=info, errors=errors, times=times)
+        del data
+        torch.cuda.empty_cache()
+    res["sass"] = compare_f32_sass(libs, card)
+    if not all(all(v.values()) for v in res["masks"].values()):
+        raise SystemExit("attn_ab: an fp32 build drops other positions than the plain mask")
+    return res
+
+
 def main(argv=None):
     import sys
 
@@ -328,17 +698,25 @@ def main(argv=None):
     from visualbert_torch.tools.main_path import card_line, packed_attention_inputs
 
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1 or not (Path(argv[0]) / SOURCE).exists():
-        raise SystemExit(f"attn_ab: takes the root of another checkout that holds {SOURCE}, got {argv}")
+    f32_only = "--f32" in argv
+    rest = [a for a in argv if a != "--f32"]
+    if len(rest) != 1 or not (Path(rest[0]) / SOURCE).exists():
+        raise SystemExit(f"attn_ab: takes the root of another checkout that holds {SOURCE} (and --f32 for the fp32 "
+                         f"kernels alone), got {argv}")
     if not torch.cuda.is_available():
         raise SystemExit("attn_ab: no CUDA device; the kernels run only on the card")
     card = card_line()
+    trees = {"this": _build.CSRC.parent.parent, "other": Path(rest[0]).resolve()}
+    if f32_only:
+        result = dict(card=card, other=str(rest[0]), f32=f32_ab(trees, card))
+        print(json.dumps(result), flush=True)
+        return result
     dev = torch.device("cuda")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     data = packed_attention_inputs(dev)
     B, T, _ = data[0].shape
     t0 = time.perf_counter()
-    libs, exp_libs, others = build({"this": _build.CSRC.parent.parent, "other": Path(argv[0]).resolve()})
+    libs, exp_libs, others = build(trees)
     print(f"attn_ab: B={B} T={T} H={attn_steps.H}; the builds in {time.perf_counter() - t0:.1f} s  [{card}]",
           flush=True)
     builds = [attn_steps.PackedBuild(name, lib, B, T, n_sm) for name, (lib, _) in libs.items()]
@@ -353,9 +731,10 @@ def main(argv=None):
     variants = variant_ab(others, data, n_sm, card)
     exp = exp_times(exp_libs, data, card)
     sass = compare_sass(libs, others, card)
-    result = dict(card=card, shape=dict(B=B, T=T, H=attn_steps.H), other=str(argv[0]), errors=errors, times=times,
+    f32 = f32_ab(trees, card)
+    result = dict(card=card, shape=dict(B=B, T=T, H=attn_steps.H), other=str(rest[0]), errors=errors, times=times,
                   exp_times=exp, variants=variants, builds={b.name: dict(hg=b.hg, info=b.info) for b in builds},
-                  sass=sass)
+                  sass=sass, f32=f32)
     print(json.dumps(result), flush=True)
     return result
 
