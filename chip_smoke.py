@@ -101,10 +101,12 @@ non-zero without printing the final line:
    SM and the padding's own time; K4-K6 (XENT_FORMS) in bf16 at widths
    128, 256 and 512, in fp16 and fp32 at 768, in bf16 and fp16 at 384
    (zero-padded to 512, the copy of E timed alone), on the wide form in
-   bf16 at 2048, fp16 at 2560 (on the fp32 kernels) and fp32 (the tiled
-   kernels) at 1088 and 2048, at the main path's N = 3072 and V = 30522,
-   likewise (none may spill; fp32 K4-K6 called twice must agree bit for
-   bit), beside cuBLAS's products in the same dtype. Then K11/K12 and K13/K14 in the same forms
+   bf16 at 2048 and 2560 (Megatron-BERT 1.3B's and 3.9B's widths; K5/K6 in
+   thread-block clusters, printed with their cluster and TFLOP/s), fp16 at
+   2560 (on the fp32 kernels) and fp32 (the tiled kernels) at 1088 and
+   2048, at the main path's N = 3072 and V = 30522, likewise (none may
+   spill; fp32 and wide bf16 K4-K6 called twice must agree bit for bit),
+   beside cuBLAS's products in the same dtype. Then K11/K12 and K13/K14 in the same forms
    (ATTENTION_FORMS) at the main path's [128, 228, 12 heads], dropout 0 and
    0.1, held as K1/K2's forms and K11-K14 are (K13's bf16 probabilities
    within one bf16 ulp in every dtype, K14 fed K13's own output), each
@@ -458,8 +460,8 @@ SLICE_F32_REL_TOL = 1e-4  # the dropout-off loss check in fp32
 ATTENTION_FORMS = (("float16", 64), ("float32", 64), ("bfloat16", 16), ("float16", 16), ("float32", 16),
                    ("bfloat16", 128), ("float16", 128), ("float32", 128))
 XENT_FORMS = (("bfloat16", 128), ("bfloat16", 256), ("bfloat16", 512), ("float16", 768), ("float32", 768),
-              ("bfloat16", 384), ("float16", 384), ("bfloat16", 2048), ("float16", 2560), ("float32", 1088),
-              ("float32", 2048))
+              ("bfloat16", 384), ("float16", 384), ("bfloat16", 2048), ("bfloat16", 2560), ("float16", 2560),
+              ("float32", 1088), ("float32", 2048))
 # K11-K14 take the forms of ATTENTION_FORMS; K7-K10 at the main path's rows
 # in these (dtype, width) forms: below 64 and odd widths on the element
 # forms, above 1024 on the block forms (Megatron-BERT's 2048, ALBERT-
@@ -1766,7 +1768,12 @@ def check_xent_forms(torch, card):
     """K4-K6 in the forms of XENT_FORMS at the main path's N = 3072 rows and
     V = 30522, against their plain versions (fp32 at F32_ABS_TOL /
     F32_REL_TOL, the rest at bf16's limits; argmax as check_xent holds it);
-    fp32 K4-K6 called again on the same inputs must give the same bits;
+    fp32 and wide bf16 K4-K6 called again on the same inputs must give the
+    same bits (the wide K5/K6 with the cluster each of their blocks is in,
+    the clusters the card runs at once, and the TFLOP/s of their two useful
+    products printed; their db held at DBIAS_TOL to the exact products'
+    (tools/xent_steps.py::db_exact: the plain version's own fp32 sums drift
+    beyond DBIAS_TOL at 2560), its distance to the plain version printed);
     each timed beside its plain version, cuBLAS's products of the same
     dtype (x E^T; with dlog E or dlog^T x) and its bound, with the N x V x H
     products its design runs, its registers, local bytes (none may spill),
@@ -1776,12 +1783,14 @@ def check_xent_forms(torch, card):
     from visualbert_torch.ops import _build
     from visualbert_torch.ops import mlm_xent as xe
     from visualbert_torch.tools.main_path import B, N_PRED
+    from visualbert_torch.tools.xent_steps import db_exact
 
     torch.backends.cuda.matmul.allow_tf32 = False
     lib, N, V, rows, form_rows = _build.library(), B * N_PRED, 30522, {}, {}
     for dtype, H in XENT_FORMS:
         x, emb, bias, lab, g = xent_inputs_at(torch, dtype, H, N, V)
         form = xe.xent_form(x.dtype, H)
+        wide_bf16 = xe.is_wide(H) and not xe.runs_on_f32(x.dtype, H)
         if dtype == "float32":
             t_lse, t_dx, t_de, t_db = F32_ABS_TOL, F32_REL_TOL, F32_REL_TOL, F32_REL_TOL
         else:
@@ -1801,6 +1810,13 @@ def check_xent_forms(torch, card):
         e_dx, r_dx = rel_err(dx, dx_r)
         e_de, r_de = rel_err(de, de_r)
         e_db, r_db = rel_err(db, db_r)
+        if wide_bf16:  # db against the exact products' (tools/xent_steps.py::db_exact)
+            db64 = db_exact(x, emb, bias, lab, lse_r, g)
+            r_plain = rel_err(db_r, db64)[1]
+            e_db, r_db_plain, r_db = *rel_err(db, db_r), rel_err(db, db64)[1]
+            log(f"K6 {where}: db against fp64 products on the same lse {r_db:.3e} (tol {t_db}); the plain "
+                f"version's {r_plain:.3e}; the kernel against the plain version {r_db_plain:.3e}  [{card}]")
+            del db64
         del dx_r, de_r, db_r
         log(f"K4 {where}: nll max_abs_err {e_nll:.3e}, lse max_abs_err {e_lse:.3e} (tol {t_lse}); argmax differs on "
             f"{bad_clear} rows with top-2 gap > {ARGMAX_MARGIN} (must be 0); K5 dx max_abs_err {e_dx:.3e} (rel "
@@ -1809,7 +1825,7 @@ def check_xent_forms(torch, card):
         if not (e_nll <= t_lse and e_lse <= t_lse and bad_clear == 0 and r_dx <= t_dx and r_de <= t_de
                 and r_db <= t_db):
             raise SystemExit(f"K4-K6 {where} disagree with their plain versions")
-        if dtype == "float32":
+        if dtype == "float32" or wide_bf16:
             again = (*xe.mlm_xent_fwd(x, emb, bias, lab), xe.mlm_xent_dx(x, emb, bias, lab, lse_r, g),
                      *xe.mlm_xent_de(x, emb, bias, lab, lse_r, g))
             same = [torch.equal(a, b) for a, b in zip((nll, lse, am, dx, de, db), again)]
@@ -1836,8 +1852,10 @@ def check_xent_forms(torch, card):
                      **bound(moved[name], n_mm * gflop * 1e9, peak))
             cublas = cuda_time_ms(products[name], 5)
             log(row_line(f"{name} {where}", r, card)
-                + f"; cuBLAS's {n_mm} product(s) in {dtype} (not the fused function) {cublas:.4f} ms; the design "
-                  f"runs {design[name]} N x V x H product(s), {design[name] * gflop / r['ms']:.1f} TFLOP/s")
+                + f"; cuBLAS's {n_mm} product(s) in {dtype} (not the fused function) {cublas:.4f} ms, the kernel "
+                  f"{r['ms'] / cublas:.2f}x; the design runs {design[name]} N x V x H product(s), "
+                  f"{design[name] * gflop / r['ms']:.1f} TFLOP/s; {n_mm * gflop / r['ms']:.1f} TFLOP/s on the "
+                  f"{n_mm} useful")
             if dtype == "float32" and H == 768:
                 rows[f"{name} (fp32)"] = r
             form_rows[(name, dtype, H)] = r
@@ -1852,8 +1870,13 @@ def check_xent_forms(torch, card):
             info = {"bfloat16": lib.vb_xent_info, "float16": lib.vb_xent_f16_info}[dtype]
         for k, kernel in enumerate(("K5", "K6", "K4")):
             regs, local, smem, per_sm = (info(k, w, hk) for w in range(4))
+            cluster = ""
+            if wide_bf16 and k < 2:
+                R, panels = xe.wide_cluster(hk, lib.vb_xent_wide_geometry(5))
+                cluster = (f", clusters of {R} blocks ({panels} panels of 64 columns a block), "
+                           f"{info(k, 4, hk)} clusters at once")
             log(f"{kernel} {dtype} at width {hk} (form {form}): {regs} registers a thread, {local} bytes of local "
-                f"memory, {smem} bytes of shared memory, {per_sm} blocks an SM")
+                f"memory, {smem} bytes of shared memory, {per_sm} blocks an SM{cluster}  [{card}]")
             if local != 0:
                 raise SystemExit(f"{kernel} {dtype} at width {hk} spills ({local} bytes of local memory)")
         if not on_f32 and hk != H:

@@ -139,21 +139,29 @@ def test_each_attention_launch_passes_its_signatures_arguments(monkeypatch, name
     assert {"B", "T", "H"} <= set(given) and ({"hg"} <= set(given) or {"hg_dq", "hg_dkv"} <= set(given))
 
 
+WIDE_CLUSTERS = 30  # the wide K5/K6 clusters an H100 runs at once at width 2048
+
+
 class XentLib(RecordingLib):
     """A recording library that also answers ``vb_xent_geometry`` with the
     kernels' tiling at width 768 (K4: 128 rows a block, vocabulary tiles of
     32; K5/K6: row block 64, vocabulary tile 32, all 768 columns a block),
     ``vb_xent_wide_geometry`` with the wide form's (widths in steps of 64;
-    K4: 128 rows, tiles of 64; K5/K6: 64 rows, tiles of 64, 512 columns a
-    block), ``vb_xent_f32_geometry`` with the fp32 kernels' (128 x 256
-    tiles) and ``vb_attn_f32_geometry`` with the fp32 attention backward's
-    64-row tiles."""
+    K4: 128 rows, tiles of 64; K5/K6: 64 rows, tiles of 64, at most 512
+    columns a block and 16 blocks a cluster), ``vb_xent_wide_info``'s
+    clusters at once (WIDE_CLUSTERS), ``vb_xent_f32_geometry`` with the
+    fp32 kernels' (128 x 256 tiles) and ``vb_attn_f32_geometry`` with the
+    fp32 attention backward's 64-row tiles."""
 
     def vb_xent_geometry(self, which, hid):
         return (hid, 128, 64, 32, 32, 768)[which]
 
     def vb_xent_wide_geometry(self, which):
-        return (64, 128, 64, 64, 64, 512)[which]
+        return (64, 128, 64, 64, 64, 512, 16)[which]
+
+    def vb_xent_wide_info(self, kernel, what, hid):
+        assert kernel in (0, 1) and what == 4
+        return WIDE_CLUSTERS
 
     def vb_xent_f32_geometry(self, which):
         return (128, 256)[which]
@@ -239,7 +247,7 @@ def form_launches():
     xw, ew = torch.zeros((N, 2048), dtype=torch.bfloat16), torch.zeros((V, 2048), dtype=torch.bfloat16)
     x32, e32 = torch.zeros((N, 200)), torch.zeros((V, 200))
     f32 = xe.f32_plan(N, V, 128, 256, 132)
-    wide = xe.dx_plan(N, V, 2048, 64, 64, 512, 132)
+    wide = xe.wide_dx_plan(N, V, 2048, 64, 64, 512, WIDE_CLUSTERS)
     rows, lab = torch.zeros(N), torch.zeros(N, dtype=torch.int32)
     attn = dict(B=B, T=T, H=H)
     return {
@@ -283,7 +291,7 @@ def form_launches():
                            dict(N=N, V=V, H=200)),
         "vb_xent_wide_fwd": (lambda lib: xe.launch_wide_fwd(lib, xw, ew, torch.zeros(V), lab, 132),
                              dict(N=N, V=V, hid=2048)),
-        "vb_xent_wide_dx": (lambda lib: xe.launch_wide_dx(lib, xw, ew, torch.zeros(V), lab, rows, rows, 132),
+        "vb_xent_wide_dx": (lambda lib: xe.launch_wide_dx(lib, xw, ew, torch.zeros(V), lab, rows, rows),
                             dict(N=N, V=V, hid=2048, S=wide["grid"][2], vbs=wide["per"])),
         "vb_xent_wide_de": (lambda lib: xe.launch_wide_de(lib, xw, ew, torch.zeros(V), lab, rows, rows),
                             dict(N=N, V=V, hid=2048)),
@@ -407,3 +415,25 @@ def test_layer_norm_launch_at_any_width_plans_rows_and_bits(monkeypatch, kernel,
     ((_, values),) = [(n, a) for n, a in lib.calls if n == "vb_ln_bwd"]
     given = dict(zip(DEFINED["vb_ln_bwd"][3], values))
     assert given["P"] == (250 if H <= 1024 else 396) and given["H"] == H
+
+
+@pytest.mark.parametrize("launch,kernel", [("launch_wide_dx", 0), ("launch_wide_de", 1)])
+def test_a_wide_backward_launch_raises_where_no_cluster_fits(monkeypatch, launch, kernel):
+    """The wide K5/K6 run in thread-block clusters: their launches ask
+    ``vb_xent_wide_info(kernel, 4, width)`` for the clusters the card runs
+    at once and raise, launching nothing, where none fits."""
+    from visualbert_torch.ops import mlm_xent as xe
+
+    class NoRoom(XentLib):
+        def vb_xent_wide_info(self, k, what, hid):
+            assert (k, what, hid) == (kernel, 4, 2048)
+            return 0
+
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    N, V = 100, 1000
+    xw, ew = torch.zeros((N, 2048), dtype=torch.bfloat16), torch.zeros((V, 2048), dtype=torch.bfloat16)
+    rows, lab = torch.zeros(N), torch.zeros(N, dtype=torch.int32)
+    lib = NoRoom()
+    with pytest.raises(RuntimeError, match="no cluster"):
+        getattr(xe, launch)(lib, xw, ew, torch.zeros(V), lab, rows, rows)
+    assert lib.calls == []

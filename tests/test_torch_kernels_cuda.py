@@ -72,7 +72,11 @@ width and padded ones between), bf16 on the wide form at 1088, 2048 and
 kernels, at 32 to 2048), as
 above (fp32's dx, dE and db within 1e-4 of the largest plain value, nll
 and lse within 1e-4), repeating bit for bit, none spilling, and the first
-of equal maxima taken by the fp32 and the wide forms.
+of equal maxima taken by the fp32 and the wide forms. The wide K5/K6 (a
+thread-block cluster a row block) also at H in {1088, 1536, 2048, 2560,
+4160} (4160: a cluster of 9 blocks) x N in {1, 65, 3071} x V in {70, 4099,
+30522}, repeating bit for bit, none spilling, their clusters fitting the
+card.
 
 The register-tiled fp32 kernels (K13's forward and the backward of K2, K12
 and K14, ``csrc/flash_attention_f32.cu``) at T in {1, 63, 64, 65, 228,
@@ -934,7 +938,7 @@ def test_xent_geometry_is_the_one_the_plans_are_tested_with(cuda):
     assert lib.vb_xent_f16_info(2, 0, 640) == -1 and lib.vb_xent_f32_info(0, 0, 0) == -1
     # tests/test_torch_xent_wide.py plans the fp32 and the wide grids at these
     assert (lib.vb_xent_f32_geometry(0), lib.vb_xent_f32_geometry(1)) == (128, 256)
-    assert tuple(lib.vb_xent_wide_geometry(w) for w in range(6)) == (64, 128, 64, 64, 64, 512)
+    assert tuple(lib.vb_xent_wide_geometry(w) for w in range(7)) == (64, 128, 64, 64, 64, 512, 16)
     assert lib.vb_xent_wide_info(0, 0, 1024) == -1 and lib.vb_xent_wide_info(2, 0, 1100) == -1
     assert lib.vb_xent_wide_info(2, 0, 1088) > 0 and lib.vb_xent_wide_info(3, 0, 2048) == -1
 
@@ -1518,13 +1522,78 @@ def test_xent_forms_do_not_spill(cuda, info, H, kernel):
     assert 0 < smem <= 232448 and per_sm >= 1
 
 
-@pytest.mark.parametrize("H", [1088, 2048, 2560])
+@pytest.mark.parametrize("H", [1088, 1536, 2048, 2560, 4160, 8192])
 @pytest.mark.parametrize("kernel", [0, 1, 2])
 def test_xent_wide_forms_do_not_spill(cuda, H, kernel):
     lib = _build.library()
     regs, local, smem, per_sm = (lib.vb_xent_wide_info(kernel, w, H) for w in range(4))
     assert 0 < regs <= 255 and local == 0
     assert 0 < smem <= 232448 and per_sm >= 1
+
+
+# 4160: a cluster of 9 blocks, past the portable 8; 6144 and 8192: 12 and 16, whose blocks sum 5 or 6 and 4 rows
+WIDE_BWD_WIDTHS = (1088, 1536, 2048, 2560, 4160, 6144, 8192)
+
+
+@pytest.mark.parametrize("N,V", [(N, V) for N in (1, 65, 3071) for V in (70, 4099, 30522)])
+@pytest.mark.parametrize("H", WIDE_BWD_WIDTHS)
+def test_xent_wide_backward_matches_plain(cuda, H, N, V):
+    """The wide K5/K6 (a cluster of cdiv(H, 512) blocks forming each tile's
+    logits once) against their plain versions at ragged rows, vocabulary
+    tiles and splits: dx and dE at the bf16 limits of chip_smoke.py (1.2e-2,
+    1.8e-2 of the largest plain value), db at this file's."""
+    x, emb, bias, labels, g = xent_inputs(N, V, cuda, seed=11, H=H)
+    _, lse, _ = xe.mlm_xent_fwd_reference(x, emb, bias, labels)
+    dx = xe.mlm_xent_dx(x, emb, bias, labels, lse, g)
+    de, db = xe.mlm_xent_de(x, emb, bias, labels, lse, g)
+    dx_r = xe.mlm_xent_dx_reference(x, emb, bias, labels, lse, g)
+    de_r, db_r = xe.mlm_xent_de_reference(x, emb, bias, labels, lse, g)
+    torch.cuda.synchronize()
+    assert xe.xent_form(x.dtype, H) == f"bf16 wide H{H}"
+    assert rel_err(dx, dx_r) < 1.2e-2 and rel_err(de, de_r) < 1.8e-2 and rel_err(db, db_r) < DB_REL_TOL
+
+
+@pytest.mark.parametrize("H", [512 * R for R in range(3, 17)] + [5696, 6720, 7232, 7744])
+def test_xent_wide_backward_takes_every_cluster_size(cuda, H):
+    """Every cluster of 3 to 16 blocks (each 512 columns, and at 5696-7744
+    a last block of one panel) splits a tile's rows among its blocks and
+    meets the plain versions, twice bit for bit."""
+    x, emb, bias, labels, g = xent_inputs(65, 4099, cuda, seed=13, H=H)
+    _, lse, _ = xe.mlm_xent_fwd_reference(x, emb, bias, labels)
+    runs = [(xe.mlm_xent_dx(x, emb, bias, labels, lse, g),) + xe.mlm_xent_de(x, emb, bias, labels, lse, g)
+            for _ in range(2)]
+    dx_r = xe.mlm_xent_dx_reference(x, emb, bias, labels, lse, g)
+    de_r, db_r = xe.mlm_xent_de_reference(x, emb, bias, labels, lse, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    dx, de, db = runs[0]
+    assert rel_err(dx, dx_r) < 1.2e-2 and rel_err(de, de_r) < 1.8e-2 and rel_err(db, db_r) < DB_REL_TOL
+
+
+@pytest.mark.parametrize("H", WIDE_BWD_WIDTHS)
+def test_xent_wide_backward_repeats_bit_for_bit(cuda, H):
+    """No atomics: the clusters' order and the exchange's timing cannot
+    change a bit of dx, dE or db."""
+    x, emb, bias, labels, g = xent_inputs(3071, 30522, cuda, seed=12, H=H)
+    _, lse, _ = xe.mlm_xent_fwd_reference(x, emb, bias, labels)
+    runs = [(xe.mlm_xent_dx(x, emb, bias, labels, lse, g),) + xe.mlm_xent_de(x, emb, bias, labels, lse, g)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("H", WIDE_BWD_WIDTHS)
+def test_xent_wide_backward_clusters_fit_the_card(cuda, H):
+    """The card runs some clusters of the wide K5 and K6 at once at every
+    width the form takes (their shared memory, a block an SM); the wrapper
+    plans K5's splits on that count; K4 has no cluster, and no width above
+    8192 is taken."""
+    lib = _build.library()
+    for kernel in (0, 1):
+        n = lib.vb_xent_wide_info(kernel, 4, H)
+        assert n > 0 and xe.wide_clusters(lib, kernel, H) == n
+        assert lib.vb_xent_wide_info(kernel, 3, H) == 1
+    assert lib.vb_xent_wide_info(2, 4, H) == -1 and lib.vb_xent_wide_info(0, 4, 8256) == -1
 
 
 @pytest.mark.parametrize("dtype,H", [(torch.float32, 768), (torch.float32, 1088), (torch.bfloat16, 2048),

@@ -1,16 +1,19 @@
 """The launch plans of K4-K6's fp32 form (``csrc/mlm_xent_f32.cu``) and
-wide form (``csrc/mlm_xent.cu``'s ``xent_wide_*``, bf16 and fp16 above
-width 1024), without a card.
+wide form (``csrc/mlm_xent.cu``'s ``xent_wide_*``, bf16 above width 1024),
+without a card.
 
-``ops/mlm_xent.py::f32_plan``, ``::fwd_plan``, ``::dx_plan`` and
-``::de_plan`` choose the grids and the vocabulary splits in plain Python
-from the kernels' tiling and the SM count; a slip there shows on the card
-only as a row, vocabulary tile or column left out or done twice. Here the
-plans are walked as the kernels walk them, at the main path's N = 3072, V =
-30522 and ragged shapes, at widths 768 (fp32) and 1088, 2048 and 2560 (the
-wide form), on a card of 132 SMs (an H100) and of 8: every (row block,
-vocabulary tile) and every (row block, column range, vocabulary tile) is
-covered exactly once, each split's tiles come after the previous split's
+``ops/mlm_xent.py::f32_plan``, ``::fwd_plan``, ``::wide_cluster``,
+``::wide_dx_plan`` and ``::wide_de_plan`` choose the grids, the wide
+K5/K6's thread-block clusters and the vocabulary splits in plain Python
+from the kernels' tiling and the SM or cluster count; a slip there shows
+on the card only as a row, vocabulary tile or column left out or done
+twice. Here the plans are walked as the kernels walk them, at the main
+path's N = 3072, V = 30522 and ragged shapes, at widths 768 (fp32) and
+1088 to 4160 (the wide form), on a card of 132 SMs (an H100) and of 8, and
+for 30, 8 and 1 clusters at once: every (row block, vocabulary tile) and
+every (row block, column panel, vocabulary tile) is covered exactly once,
+a cluster's blocks share a row block and a split and own the width's
+panels between them, each split's tiles come after the previous split's
 (the merge and reduce passes add the splits in ascending order), no split
 is empty, and the grids have the expected sizes. The tiling is the one
 ``vb_xent_f32_geometry`` and ``vb_xent_wide_geometry`` report on the card
@@ -27,9 +30,11 @@ from visualbert_torch.ops import mlm_xent as xe
 from visualbert_torch.tools import xent_f32_steps
 
 F32_ROWS, F32_TILE = 128, 256  # vb_xent_f32_geometry 0, 1
-# vb_xent_wide_geometry: width step, K4 rows / block, K5/K6 resident rows, K4 tile, K5/K6 tile, columns a block
-WIDE = (64, 128, 64, 64, 64, 512)
+# vb_xent_wide_geometry: width step, K4 rows / block, K5/K6 resident rows, K4 tile, K5/K6 tile, columns a
+# block at most, blocks a cluster at most
+WIDE = (64, 128, 64, 64, 64, 512, 16)
 SMS = (132, 8)
+CLUSTERS = (30, 8, 1)  # K5/K6 clusters a card runs at once (an H100 at 2048: 30)
 VS = (30522, 4099, 70)
 
 
@@ -106,58 +111,119 @@ def test_wide_fwd_plan_covers_every_row_block_and_tile_once(N, H, V, sms):
     assert plan["pf_shape"] == (4, S, N) and plan["pi_shape"] == (S, N)
 
 
-def part_panels(H, y, wg=None):
-    """The 64-column panels column part y (a warpgroup wg of it) owns."""
-    cols = WIDE[5]
-    per_wg = cols // 64 // 2
-    first = y * cols // 64 + (0 if wg is None else wg * per_wg)
-    n = cols // 64 if wg is None else per_wg
-    return [p for p in range(first, first + n) if p < H // 64]
+def block_panels(H, r, wg=None):
+    """The 64-column panels block r of a wide K5/K6 cluster owns (its
+    warpgroup wg's: accumulator j holds panel 2 j + wg of the block's), as
+    csrc/mlm_xent.cu::xent_wide_bwd_kernel works them out."""
+    R, per = xe.wide_cluster(H, WIDE[5])
+    first = r * per
+    own = [first + k for k in range(per) if first + k < H // 64]
+    return own if wg is None else [own[k] for k in range(wg, len(own), 2)]
 
 
-@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("H", list(range(1088, 8193, 64)))
+def test_a_wide_cluster_owns_every_panel_once_within_the_cards_limits(H):
+    """R = cdiv(H, 512) blocks, each at most 8 panels (its four m64n64
+    accumulators a warpgroup), none without a panel, the two warpgroups
+    every other panel; at most 8 blocks (the portable cluster) up to 8 x 512
+    = 4096 columns and 16 (the H100's largest) up to 8192."""
+    R, per = xe.wide_cluster(H, WIDE[5])
+    assert R == -(-H // WIDE[5]) and per <= WIDE[5] // 64
+    assert R <= (8 if H <= 8 * WIDE[5] else WIDE[6])
+    assert all(block_panels(H, r) for r in range(R))
+    assert sorted(p for r in range(R) for wg in (0, 1) for p in block_panels(H, r, wg)) == list(range(H // 64))
+    assert all(len(block_panels(H, r, wg)) <= 4 for r in range(R) for wg in (0, 1))
+
+
+def block_rows(R, r):
+    """The rows of a streamed tile's logits that block r of a cluster of R
+    sums and turns into dlog, [lo, hi), and the stride of the partials it
+    receives from each block (rows a block's slots), as
+    csrc/mlm_xent.cu::xent_wide_bwd_kernel works them out."""
+    rows = WIDE[2]
+    return r * rows // R, (r + 1) * rows // R, -(-rows // R)
+
+
+def row_owner(R, i):
+    """The block of a cluster of R that sums row i: where the kernel sends
+    row i's partials."""
+    return ((i + 1) * R - 1) // WIDE[2]
+
+
+@pytest.mark.parametrize("R", range(xe.wide_cluster(1088, WIDE[5])[0], WIDE[6] + 1))
+def test_a_wide_cluster_sums_every_row_once_at_every_cluster_size(R):
+    """Every row of a tile has one block that sums it, the one its partials
+    go to; each block sums at least 4 rows and at most its slots' stride (no
+    count negative or zero, the mbarriers' byte counts whole), the rows a
+    thread takes (a warp of 8 every eighth, WB_MAXK each) cover each block's,
+    and the R blocks' slots fit the partials' buffer (WB_ROWS + the largest
+    cluster rows of 64)."""
+    rows = WIDE[2]
+    shares = [block_rows(R, r) for r in range(R)]
+    assert [i for lo, hi, _ in shares for i in range(lo, hi)] == list(range(rows))
+    assert all(4 <= hi - lo <= per for lo, hi, per in shares)
+    assert all(shares[row_owner(R, i)][0] <= i < shares[row_owner(R, i)][1] for i in range(rows))
+    # the bytes each block's mbarriers expect a tile: every block's partials of its rows, the others' dlog rows
+    sent = [0] * R
+    for i in range(rows):
+        sent[row_owner(R, i)] += R * 64 * 4
+    assert sent == [R * (hi - lo) * 64 * 4 for lo, hi, _ in shares]
+    assert sum(rows - (hi - lo) for lo, hi, _ in shares) == (R - 1) * rows
+    min_r = xe.wide_cluster(1088, WIDE[5])[0]
+    maxk = (-(-rows // min_r) + 7) // 8
+    assert all(hi - lo <= 8 * maxk for lo, hi, _ in shares)
+    # a receiving block's slot of row i from block src: src per + (i - lo)
+    slots = [src * per + i - lo for lo, hi, per in shares for src in range(R) for i in range(lo, hi)]
+    assert max(slots) < R * shares[0][2] <= rows + WIDE[6]
+
+
+@pytest.mark.parametrize("clusters", CLUSTERS)
 @pytest.mark.parametrize("V", VS)
-@pytest.mark.parametrize("H", [1088, 1152, 2048, 2560])
+@pytest.mark.parametrize("H", [1088, 1152, 2048, 2560, 4160])
 @pytest.mark.parametrize("N", [3072, 257, 37, 1])
-def test_wide_dx_plan_covers_every_row_tile_and_column_once(N, H, V, sms):
-    """K5's block (x, y, z): rows [64 x, +64), the 512 columns of part y
-    (its two warpgroups 256 each; the last part shorter) and the tiles of
-    split z: every (row block, column panel, tile) once; no part is
-    empty."""
+def test_wide_dx_plan_covers_every_row_tile_and_column_once(N, H, V, clusters):
+    """K5's cluster (x, z): rows [64 x, +64) and the tiles of split z, its R
+    blocks (the grid's y, the cluster's whole) the panels of
+    block_panels: every (row block, column panel, tile) once; the blocks of
+    a cluster share its row block and split (the cluster spans y alone)."""
     rows, tile, cols = WIDE[2], WIDE[4], WIDE[5]
-    plan = xe.dx_plan(N, V, H, rows, tile, cols, sms)
-    row_blocks, parts, S = plan["grid"]
+    plan = xe.wide_dx_plan(N, V, H, rows, tile, cols, clusters)
+    row_blocks, R, S = plan["grid"]
     n_tiles = -(-V // tile)
-    assert parts == -(-H // cols) and all(part_panels(H, y) for y in range(parts))
-    panels = [p for y in range(parts) for wg in (0, 1) for p in part_panels(H, y, wg)]
-    assert sorted(panels) == list(range(H // 64))
+    assert plan["cluster"] == (1, R, 1) and (R, plan["panels"]) == xe.wide_cluster(H, cols)
     assert_splits(S, plan["per"], n_tiles)
-    visits = {(x, y, t) for x in range(row_blocks) for y in range(parts)
-              for split in split_tiles(S, plan["per"], n_tiles) for t in split}
-    assert len(visits) == row_blocks * parts * n_tiles
+    visits = [(x, p, t) for x in range(row_blocks) for r in range(R) for p in block_panels(H, r)
+              for split in split_tiles(S, plan["per"], n_tiles) for t in split]
+    assert len(visits) == len(set(visits)) == row_blocks * (H // 64) * n_tiles
     assert covered_once([(x * rows, min(N, x * rows + rows)) for x in range(row_blocks)], N)
     assert plan["part_shape"] == (S, N, H)
 
 
 @pytest.mark.parametrize("V", VS)
-@pytest.mark.parametrize("H", [1088, 2048, 2560])
+@pytest.mark.parametrize("H", [1088, 2048, 2560, 4160])
 def test_wide_de_plan_covers_every_vocabulary_row_and_column_once(H, V):
     rows, cols = WIDE[2], WIDE[5]
-    blocks, parts = xe.de_plan(V, H, rows, cols)["grid"]
+    plan = xe.wide_de_plan(V, H, rows, cols)
+    blocks, R = plan["grid"]
+    assert plan["cluster"] == (1, R, 1) and (R, plan["panels"]) == xe.wide_cluster(H, cols)
     assert covered_once([(x * rows, min(V, x * rows + rows)) for x in range(blocks)], V)
-    assert sorted(p for y in range(parts) for p in part_panels(H, y)) == list(range(H // 64))
+    assert sorted(p for r in range(R) for p in block_panels(H, r)) == list(range(H // 64))
 
 
-@pytest.mark.parametrize("H,dx_grid,de_grid", [(2048, (48, 4, 3), (477, 4)), (2560, (48, 5, 3), (477, 5)),
-                                                (1088, (48, 3, 4), (477, 3))])
-def test_wide_grids_at_the_main_path(H, dx_grid, de_grid):
+@pytest.mark.parametrize("H,clusters,dx_grid,de_grid", [(2048, 30, (48, 4, 5), (477, 4)),
+                                                        (2560, 22, (48, 5, 5), (477, 5)),
+                                                        (1088, 39, (48, 3, 4), (477, 3)),
+                                                        (4160, 9, (48, 9, 3), (477, 9))])
+def test_wide_grids_at_the_main_path(H, clusters, dx_grid, de_grid):
     """At N = 3072, V = 30522 on an H100: K4 24 row blocks of 128 x 11
-    splits of 44 tiles; K5 48 row blocks x the column parts x the splits
-    for about four blocks an SM; K6 477 vocabulary blocks x the parts."""
+    splits of 44 tiles; K5 48 row blocks x a cluster of cdiv(H, 512)
+    blocks x the splits that give the card's clusters (30 at once at 2048,
+    22 at 2560, 39 at 1088, 9 at 4160) the fewest tiles; K6 477 vocabulary
+    blocks x the cluster."""
     fwd = xe.fwd_plan(3072, 30522, H, WIDE[1], WIDE[3], 132)
     assert fwd["grid"] == (24, 11) and fwd["per"] == 44
-    assert xe.dx_plan(3072, 30522, H, WIDE[2], WIDE[4], WIDE[5], 132)["grid"] == dx_grid
-    assert xe.de_plan(30522, H, WIDE[2], WIDE[5])["grid"] == de_grid
+    assert xe.wide_dx_plan(3072, 30522, H, WIDE[2], WIDE[4], WIDE[5], clusters)["grid"] == dx_grid
+    assert xe.wide_de_plan(30522, H, WIDE[2], WIDE[5])["grid"] == de_grid
 
 
 def test_every_width_above_1024_meets_the_wide_forms_smallest():
@@ -173,20 +239,26 @@ def test_every_width_above_1024_meets_the_wide_forms_smallest():
         w = xe.kernel_width(h)
         assert xe.is_wide(h) and w % WIDE[0] == 0 and w >= wide_min and w - WIDE[0] < h <= w
     assert not xe.is_wide(1024) and xe.kernel_width(1024) == 1024
+    # up to a cluster of 16 blocks of 512 columns; wider bf16 rows run on the fp32 kernels
+    assert xe.WIDE_MAX == WIDE[5] * WIDE[6]
+    assert not xe.runs_on_f32(torch.bfloat16, xe.WIDE_MAX) and xe.runs_on_f32(torch.bfloat16, xe.WIDE_MAX + 1)
+    assert xe.xent_form(torch.bfloat16, xe.WIDE_MAX + 1) == "bf16 on fp32"
 
 
 @pytest.mark.parametrize("dtype,H,products", [(torch.float32, 768, 2), (torch.float32, 2048, 2),
                                                (torch.bfloat16, 768, 2), (torch.bfloat16, 1024, 3),
-                                               (torch.bfloat16, 2048, 5), (torch.bfloat16, 2560, 6),
-                                               (torch.bfloat16, 1100, 4), (torch.float16, 1100, 2)])
+                                               (torch.bfloat16, 2048, 2), (torch.bfloat16, 2560, 2),
+                                               (torch.bfloat16, 1100, 2), (torch.float16, 1100, 2),
+                                               (torch.bfloat16, 4160, 2), (torch.bfloat16, 8256, 2)])
 def test_the_backward_forms_recompute_the_logits_once_a_column_range(dtype, H, products):
-    """K5's and K6's N x V x H products: fp32 (and fp16 above 1024, which
-    runs on the fp32 kernels) and the forms up to 768 (a block owns every
-    column) two; 1024 and the bf16 wide form recompute the logits for every
-    further 512-column range (at 2048: 5, 2.5x the 2 of the two
-    products)."""
+    """K5's and K6's N x V x H products: fp32 (and fp16 above 1024 and bf16
+    above 8192, which run on the fp32 kernels) and the forms up to 768 (a
+    block owns every column) two; 1024 recomputes the logits for its second
+    512-column range (3); the bf16 wide form's cluster forms them once over
+    all its ranges (2, at every width it takes)."""
     assert xe.bwd_products(dtype, H) == products
-    assert xe.runs_on_f32(dtype, H) == (dtype == torch.float32 or (dtype == torch.float16 and H > 1024))
+    assert xe.runs_on_f32(dtype, H) == (dtype == torch.float32 or (dtype == torch.float16 and H > 1024)
+                                        or H > xe.WIDE_MAX)
 
 
 def test_the_sources_name_the_tiling_the_plans_assume():
@@ -195,8 +267,16 @@ def test_the_sources_name_the_tiling_the_plans_assume():
     assert re.search(rf"#define VB_F32_NTH {2 * F32_ROWS}\b", f32) and "constexpr int BM = NTH / 2;" in f32
     assert re.search(rf"constexpr int BN = {F32_TILE};", f32)
     wide = (_build.CSRC / "mlm_xent.cu").read_text()
-    for name, value in (("WF_ROWS", WIDE[1]), ("WF_TILE", WIDE[3]), ("WB_TILE", WIDE[4]), ("WB_COLS", WIDE[5])):
+    for name, value in (("WF_ROWS", WIDE[1]), ("WB_ROWS", WIDE[2]), ("WF_TILE", WIDE[3]), ("WB_TILE", WIDE[4]),
+                        ("WB_COLS", WIDE[5]), ("WB_MAX_CLUSTER", WIDE[6])):
         assert re.search(rf"constexpr int {name} = {value};", wide), name
+    # the cluster's split of the width, as wide_cluster plans it, and of a tile's rows, as block_rows does
+    assert "NP = hid / 64, CP = cdiv(NP, R), p0 = rank * CP" in wide
+    assert "int wide_cluster(int hid) { return cdiv(hid / 64, WB_CP); }" in wide
+    assert "per = cdiv(WB_ROWS, R), rlo = rank * WB_ROWS / R, rhi = (rank + 1) * WB_ROWS / R;" in wide
+    assert "owner = ((i + 1) * R - 1) / WB_ROWS;" in wide and "slot = rank * per + i - owner * WB_ROWS / R;" in wide
+    assert "d_bytes = (WB_ROWS - (rhi - rlo)) * 128, p_bytes = R * (rhi - rlo) * 64 * 4;" in wide
+    assert "constexpr int WB_P_BYTES = (WB_ROWS + WB_MAX_CLUSTER) * WB_TILE * 4;" in wide
 
 
 @pytest.mark.parametrize("args,match", [([], "no CUDA device"), (["a"], "takes no arguments")])

@@ -160,6 +160,7 @@
 // last section of this file) takes bf16 at any multiple of 64 at run time,
 // other widths padded to the next; fp16 above 1024 and fp32 run on their
 // own kernels (mlm_xent_f32.cu).
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -1012,41 +1013,90 @@ int de(int dtype, const void* x, const void* E, const void* bias, const void* la
 // K4-K6 in bf16 at any width hid above 1024 that is a multiple of 64 (the
 // wrapper zero-pads other widths to the next multiple of 64), templates on
 // the element type built for bf16 (fp16: see Accumulation below); hid is
-// a runtime argument. Simple and right
-// first: nothing of a block is resident, both matrices stream through a
-// cp.async ring in 64-column panels (128 B-swizzled as above), and wgmma
-// reads both operands from shared memory.
-// - K4 (xent_wide_fwd_kernel): a block of two warpgroups takes 128 rows of
-//   x (64 a warpgroup) and a tile of 64 vocabulary rows at a time; each
-//   step of the ring is one panel of both (16 + 8 KB, 4 stages), and each
-//   warpgroup adds its 64 x 64 logits of the panel (an m64n64 accumulator)
-//   until the tile's last panel; then RowStats, the splits' partials and
+// a runtime argument. They replace the same TPU kernels as the forms above
+// (visualbert_tpu/ops/mlm_xent.py::_fwd_kernel :52, ::_dx_kernel :145,
+// ::_de_kernel :170).
+// - K4 (xent_wide_fwd_kernel), simple and right first: nothing of a block
+//   is resident, both matrices stream through a cp.async ring in 64-column
+//   panels (128 B-swizzled as above), and wgmma reads both operands from
+//   shared memory. A block of two warpgroups takes 128 rows of x (64 a
+//   warpgroup) and a tile of 64 vocabulary rows at a time; each step of the
+//   ring is one panel of both (16 + 8 KB, 4 stages), and each warpgroup
+//   adds its 64 x 64 logits of the panel (an m64n64 accumulator) until the
+//   tile's last panel; then RowStats, the splits' partials and
 //   xent_fwd_merge_kernel as K4's.
-// - K5 / K6 (xent_wide_bwd_kernel): a block keeps 64 rows (K5: of x; K6: of
-//   E) and walks tiles of 64 streamed rows; each warpgroup forms the logits
-//   of 32 of a tile's rows over every panel (m64n32), writes their dlog into
-//   the shared 64 x 64 tile, and multiplies that tile by the tile's panels
-//   of the block's 512 result columns (four m64n64 accumulators a
-//   warpgroup, wgmma_n64_tb), which a second copy brings into shared memory
-//   while the logits run. A block owns 512 columns of dx / dE (the grid's
-//   y; the last range may be shorter), so each range recomputes the
-//   logits: at hid = 2048 four ranges, 4 N V hid products for the logits
-//   and N V hid for the results, 2.5 x the 2 N V hid of the two products.
-//   K5 splits the vocabulary and writes fp32 partials, which
+// - K5 / K6 (xent_wide_bwd_kernel) are bound by their two N V hid products
+//   (at N = 3072, V = 30522, hid = 2048: 0.78 ms at 989 TFLOP/s, against
+//   125 MB of E). The first design, in which a block owned 512 columns,
+//   formed every tile's logits again over the whole width for them (2.5 x
+//   the products at 2048) and copied both operands' panels every tile, ran
+//   at 3 % of that bound (23.73 / 20.72 ms on an NVIDIA H100 80GB HBM3 at
+//   700 W). Here each tile's logits are formed once, by a thread-block
+//   cluster:
+//   * A cluster of R = cdiv(hid, WB_COLS) blocks shares one resident row
+//     block (K5: WB_ROWS rows of x; K6: of E) and K5's vocabulary split;
+//     block r owns the panels [r CP, r CP + CP) of the columns, CP =
+//     cdiv(hid / 64, R) <= WB_CP (the last block may own fewer). It keeps
+//     its panels of the resident rows in shared memory, copied once, and
+//     streams only its panels of each tile of WB_TILE streamed rows through
+//     two stages: one copy feeds both its products, and each streamed byte
+//     is read once a (row block, column range). The copies are TMA's (one
+//     a panel, by one thread, 128 B-swizzled as swz lays tiles out, rows
+//     past the matrix zero), counted on an mbarrier a stage.
+//   * The logits by split K. Each block multiplies its panels into fp32
+//     partial logits of the tile, each panel's products in a fresh
+//     accumulator added in panel order (see Accumulation), and stores each
+//     row's partials into the shared memory of the block that sums that row
+//     (distributed shared memory: st.async, whose bytes that block's
+//     mbarrier counts). Block r sums its share of the tile's rows over the
+//     R blocks' partials in rank order, forms their dlog (the exp, the
+//     one-hot; K6 also the factor g and the db sums), writes it into its
+//     own dlog tile and copies those rows into every other block's by bulk
+//     copies, counted on that block's mbarrier; then each block multiplies
+//     the whole dlog tile by its panels of the streamed tile. Every block
+//     multiplies the same bits and nothing is added by atomics: two calls
+//     agree bit for bit. No cluster barrier runs inside the loop: each
+//     wait is on an mbarrier of the waiting block, and the order of the
+//     exchange keeps every buffer's reuse safe (a block sends a tile's
+//     partials only after the previous tile's dlog arrived, so every block
+//     has summed the previous tile's; it sends its dlog rows only after every
+//     block's partials arrived, each sent after that block's product).
+//   * Shapes. A block keeps 64 resident rows, both warpgroups the same: each
+//     forms half of a tile's logits columns (m64n32) and owns every other
+//     panel of the block's for the result (four m64n64 accumulators, 128
+//     registers). Every wgmma runs on every path, none under a condition,
+//     and no accumulator is live across other code while its wgmma runs
+//     (ptxas would serialize them): a block's panels past its own are
+//     zeros in shared memory and add nothing.
+//   * What bounds it (PERF.md: a build without the exchange, timed on an
+//     NVIDIA H100 80GB HBM3 at 700 W): the exchange's chain of latencies
+//     (partials out, sums, dlog rows out, each waited for before the
+//     product) with the tensor cores idle; without it K5 runs in less than
+//     half its time at 2048. The next tile's copy runs under the whole of
+//     this one.
+//   * Above 8 x 512 = 4096 columns the cluster is larger than the portable
+//     8: the H100 takes 16 (WB_MAX_CLUSTER), so hid up to 8192; wider bf16
+//     rows run on the fp32 kernels. The wrapper raises where
+//     cudaOccupancyMaxActiveClusters finds no room for a cluster
+//     (vb_xent_wide_info's `what` 4); the launch itself returns its error.
+//   K5 splits the vocabulary (ops/mlm_xent.py::wide_dx_plan, from the
+//   clusters that run at once) and writes fp32 partials, which
 //   xent_wide_dx_reduce_kernel sums in split order; K6 walks every x tile.
 // - Accumulation. A wgmma chain over all of a wide row (128 k-steps at
 //   2048) rounds differently from an fp32 sum: on the H100 the logits
 //   drifted, lse by 2.3e-5 and db by 6.5e-6 of its largest value at 2048
-//   in bf16, against 1.9e-6 and 7.1e-7 at 1024. So each panel (4 k-steps)
-//   starts a fresh accumulator, which an fp32 add takes into the logits'
-//   running total (K4's starts from the bias): 2.9e-6 and 1.0e-6 at 2048.
+//   in bf16, against 1.9e-6 and 7.1e-7 at 1024. So K4 starts a fresh
+//   accumulator each panel (4 k-steps), which an fp32 add takes into the
+//   logits' running total (from the bias): 2.9e-6 and 1.0e-6 at 2048; K5's
+//   and K6's logits likewise (each panel in a fresh accumulator, the
+//   panels and then the cluster's blocks summed in fp32, in order).
 //   fp16 is not taken here: its 22-bit products lose bits inside each k16
 //   step (2560: lse 1.0e-5, db 3.9e-6 of its largest value, a fresh
 //   accumulator a k-step no better), beyond the bf16 limits; the wrapper
 //   runs fp16 above 1024 on the fp32 kernels (mlm_xent_f32.cu), where its
 //   products are exact.
 // Ragged N, V and the last column range are masked as above; E is read in
-// place. No atomics: two calls agree bit for bit.
+// place.
 
 constexpr int WIDE_MIN = 1088;      // the narrowest wide width: 17 panels (the rings below count on NP >= 3)
 constexpr int WF_ROWS = 128;        // wide K4: x rows a block, 64 a warpgroup
@@ -1055,13 +1105,23 @@ constexpr int WF_STAGES = 4;        // wide K4: ring stages, each an x panel and
 constexpr int WF_PANEL = 128 * 128; // bytes of a 128-row panel of x
 constexpr int WF_STAGE = WF_PANEL + WF_TILE * 128;  // ... and a stage: it and an E panel
 constexpr size_t WF_SMEM = vb_hopper::ALIGN + WF_STAGES * WF_STAGE;
-constexpr int WB_TILE = 64;         // wide K5/K6: streamed rows a tile
-constexpr int WB_COLS = 512;        // wide K5/K6: result columns a block owns
-constexpr int WB_NC = WB_COLS / 128; // ... a warpgroup, in m64n64 accumulators
-constexpr int WB_STAGES = 3;        // wide K5/K6: ring stages, each a resident and a streamed panel
-constexpr int WB_PANEL = 64 * 128;  // bytes of a 64-row panel
-constexpr size_t WB_SMEM = vb_hopper::ALIGN + (WB_STAGES * 2 + WB_COLS / 64) * WB_PANEL + P_BYTES +
-                           2 * RES * sizeof(float);
+constexpr int WB_ROWS = 64;                 // wide K5/K6: resident rows a block, both warpgroups' 64
+constexpr int WB_COLS = 512;                // ... result columns a block owns at most: 256 a warpgroup
+constexpr int WB_CP = WB_COLS / 64;         // ... in 64-column panels
+constexpr int WB_TILE = 64;                 // ... streamed rows a tile
+constexpr int WB_STAGES = 2;                // ... ring stages, each the block's panels of a streamed tile
+constexpr int WB_MAX_CLUSTER = 16;          // ... blocks a cluster at most: the H100's non-portable limit
+constexpr int WB_RES_BYTES = WB_ROWS * WB_COLS * 2;
+constexpr int WB_STAGE_BYTES = WB_TILE * WB_COLS * 2;
+// a tile's partial logits as the block of each rank receives them: [R][cdiv(WB_ROWS, R)][64] fp32
+constexpr int WB_P_BYTES = (WB_ROWS + WB_MAX_CLUSTER) * WB_TILE * 4;
+constexpr int WB_D_BYTES = WB_ROWS * WB_TILE * 2;  // a tile's dlog, K-major, swizzled
+constexpr int WB_MIN_CLUSTER = (WIDE_MIN / 64 + WB_CP - 1) / WB_CP;  // ... blocks a cluster at least
+// ... rows of a tile a thread sums and turns into dlog: a block takes
+// WB_ROWS / R rows or one more, a warp (of 8) every eighth
+constexpr int WB_MAXK = ((WB_ROWS + WB_MIN_CLUSTER - 1) / WB_MIN_CLUSTER + 7) / 8;
+constexpr size_t WB_SMEM =
+    vb_hopper::ALIGN + WB_RES_BYTES + WB_STAGES * WB_STAGE_BYTES + WB_P_BYTES + WB_D_BYTES + 5 * sizeof(uint64_t);
 static_assert(WF_SMEM <= 232448 && WB_SMEM <= 232448, "a wide block must fit the H100's 227 KB of shared memory");
 
 // Issue the copy of 64-column panel p of rows [r0, r0 + NR) of a [nvalid,
@@ -1170,148 +1230,341 @@ xent_wide_fwd_kernel(const ET* __restrict__ x, const ET* __restrict__ E, const f
       if (r0 + 8 * h < N) store_partial(pf, pi, plane, at + r0 + 8 * h, st.m[h], st.l[h], st.ll[h], st.bv[h], st.bi[h]);
 }
 
-// K5 (DE false): grid (cdiv(N, RES), cdiv(hid, WB_COLS), S); block (x, y, z)
-// keeps x rows [64 x, 64 x + 64), walks the vocabulary tiles [z vbs, z vbs +
-// vbs) of WB_TILE rows and writes columns [y WB_COLS, y WB_COLS + WB_COLS)
-// of the fp32 partial part [S][N][hid]. K6 (DE true): grid (cdiv(V, RES),
-// cdiv(hid, WB_COLS)); block (x, y) keeps E rows [64 x, 64 x + 64), walks
-// every x tile and writes those rows of dE (its columns) and, for y = 0,
-// of db.
+// The thread-block cluster of the wide K5/K6: this block's rank and the
+// cluster's blocks; a barrier of every thread of the cluster's blocks that
+// releases each thread's earlier shared-memory writes and acquires the
+// others'; the address of a shared-memory location of this block in the
+// block of another rank; 8 bytes stored there, counted on that block's
+// mbarrier bar (an address from cluster_addr).
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_blocks() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_async2(uint32_t addr, float a, float b, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(addr),
+               "f"(a), "f"(b), "r"(bar)
+               : "memory");
+}
+// An mbarrier of this block that completes a phase on one arrival and the
+// bytes it expects; that arrival, expecting `bytes`; a wait until phase
+// `parity` completes. A copy of `bytes` (a multiple of 16) of this block's
+// shared memory into another block's (dst, and its mbarrier bar, from
+// cluster_addr), which counts them on that mbarrier; this thread's copies
+// committed as a group; a wait until they have read their sources.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\nfence.mbarrier_init.release.cluster;\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_to_cluster(uint32_t dst, uint32_t src, int bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   dst),
+               "r"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+// Box {c0, c1} (columns, rows) of the 2-D tensor of `map` into shared
+// memory at dst, in the map's swizzle, counted on mbarrier bar.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+// Wait until at most the newest wgmma group is pending.
+__device__ __forceinline__ void wg_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+
+// K5 (DE false): grid (cdiv(N, WB_ROWS), R, S), clusters of (1, R, 1), R =
+// cdiv(hid, WB_COLS); cluster (x, z) keeps x rows [WB_ROWS x, WB_ROWS x +
+// WB_ROWS) and walks the vocabulary tiles [z vbs, z vbs + vbs); its block of
+// rank r writes its panels of the fp32 partial part [S][N][hid]. K6 (DE
+// true): grid (cdiv(V, WB_ROWS), R), the same clusters; cluster x keeps E
+// rows [WB_ROWS x, WB_ROWS x + WB_ROWS) and walks every x tile; block r
+// writes its panels of those rows of dE, and db of the rows it sums.
+// Every wgmma runs on every path (a conditional one is serialized): a
+// block's panels past its own (the last block of a cluster may own fewer
+// than CP) are zeros in shared memory and add nothing.
 template <bool DE, typename ET>
 __global__ void __launch_bounds__(NTHREADS, 1)
-xent_wide_bwd_kernel(const ET* __restrict__ x, const ET* __restrict__ E, const float* __restrict__ bias,
-                     const int* __restrict__ labels, const float* __restrict__ lse, const float* __restrict__ gr,
-                     int N, int V, int hid, int vbs, float* __restrict__ part, ET* __restrict__ dE,
-                     float* __restrict__ db) {
+xent_wide_bwd_kernel(const __grid_constant__ CUtensorMap mres, const __grid_constant__ CUtensorMap mstr,
+                     const float* __restrict__ bias, const int* __restrict__ labels, const float* __restrict__ lse,
+                     const float* __restrict__ gr, int N, int V, int hid, int vbs, float* __restrict__ part,
+                     ET* __restrict__ dE, float* __restrict__ db) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = vb_hopper::align_smem(smem_raw);
-  const uint32_t sRing = smem_addr(sm);                     // slot b: resident panel, then streamed panel
-  const uint32_t sKeep = sRing + WB_STAGES * 2 * WB_PANEL;  // the tile's panels of the block's columns
-  unsigned char* Pt = sm + (WB_STAGES * 2 + WB_COLS / 64) * WB_PANEL;  // the dlog tile
-  float* red = reinterpret_cast<float*>(Pt + P_BYTES);                 // [2][RES]: K6's db
-  const uint32_t sP = smem_addr(Pt);
+  const uint32_t sR = smem_addr(sm);                    // the resident rows: WB_CP panels of WB_ROWS rows
+  const uint32_t sQ = sR + WB_RES_BYTES;                // stages: WB_CP panels of WB_TILE streamed rows
+  const uint32_t sP = sQ + WB_STAGES * WB_STAGE_BYTES;  // partial logits received [R][rhi - rlo][64], swizzled
+  const uint32_t sD = sP + WB_P_BYTES;                  // the dlog tile [WB_ROWS][64], K-major, swizzled
+  // mbarriers: a phase a tile, the dlog tile is whole; the resident panels
+  // have landed; a phase every other tile, stage 0 / 1 has landed; a phase
+  // a tile, every block's partials of this block's rows have arrived
+  const uint32_t dFull = sD + WB_D_BYTES, resFull = dFull + 8, full0 = resFull + 8, pFull = full0 + 16;
+  float* P = reinterpret_cast<float*>(sm + (sP - sR));
 
-  const int r0 = blockIdx.x * RES;
+  const int R = cluster_blocks(), rank = cluster_rank();
+  const int NP = hid / 64, CP = cdiv(NP, R), p0 = rank * CP;
+  const int np = max(0, min(CP, NP - p0));              // this block's panels: p0 .. p0 + np
+  const int r0 = blockIdx.x * WB_ROWS;
   const int nres = DE ? V : N, nstr = DE ? N : V;
-  const ET* res = DE ? E : x;
-  const ET* str = DE ? x : E;
-  const int NP = hid / 64, ntiles = cdiv(nstr, WB_TILE);
-  const int t0 = DE ? 0 : blockIdx.z * vbs, t1 = DE ? ntiles : min(ntiles, t0 + vbs), nsteps = (t1 - t0) * NP;
+  const int ntiles = cdiv(nstr, WB_TILE);
+  const int t0 = DE ? 0 : blockIdx.z * vbs, t1 = DE ? ntiles : min(ntiles, t0 + vbs);
   const int tid = threadIdx.x & 127, wg = threadIdx.x >> 7, warp = tid >> 5, lane = threadIdx.x & 31;
-  const int tq = lane & 3, i0 = warp * 16 + (lane >> 2);
-  const int pb = blockIdx.y * (WB_COLS / 64), pc = pb + wg * WB_NC;  // the block's / this warpgroup's first panel
+  const int g = lane >> 2, tq = lane & 3;
+  // the rows of a tile this block sums: [rlo, rhi), the R blocks' shares
+  // of WB_ROWS as even as they go (at most per, at least 4); this
+  // thread's: rlo + rl + 8 k, at columns jp, jp + 1
+  const int per = cdiv(WB_ROWS, R), rlo = rank * WB_ROWS / R, rhi = (rank + 1) * WB_ROWS / R;
+  const int rl = threadIdx.x >> 5, jp = 2 * lane;
 
-  auto issue = [&](int q, int b) {
-    const int t = t0 + q / NP, p = q % NP;
-    const uint32_t dst = sRing + b * 2 * WB_PANEL;
-    issue_panel<RES, ET>(dst, res, r0, nres, hid, p);
-    issue_panel<WB_TILE, ET>(dst + WB_PANEL, str, t * WB_TILE, nstr, hid, p);
-  };
-  auto issue_keep = [&](int t) {
-#pragma unroll
-    for (int j = 0; j < WB_COLS / 64; ++j)
-      if (pb + j < NP) issue_panel<WB_TILE, ET>(sKeep + j * WB_PANEL, str, t * WB_TILE, nstr, hid, pb + j);
+  // the other blocks' dlog rows and every block's partials of this block's
+  // rows of the first tile are expected
+  const int d_bytes = (WB_ROWS - (rhi - rlo)) * 128, p_bytes = R * (rhi - rlo) * 64 * 4;
+  if (threadIdx.x == 0) {
+    mbar_init(dFull);
+    mbar_expect(dFull, d_bytes);
+    mbar_init(pFull);
+    mbar_expect(pFull, p_bytes);
+    mbar_init(resFull);
+    mbar_init(full0);
+    mbar_init(full0 + 8);
+  }
+  cluster_sync();  // every block's mbarriers are ready before any block signals one
+  // the panels past this block's, zero in the resident rows and the stages
+  for (int idx = threadIdx.x; idx < (WB_CP - np) * (WB_ROWS * 8); idx += NTHREADS) {
+    const int p = np + idx / (WB_ROWS * 8), c = idx % (WB_ROWS * 8);
+    *reinterpret_cast<uint4*>(sm + p * (WB_ROWS * 128) + 16 * c) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int idx = threadIdx.x; idx < WB_STAGES * (WB_CP - np) * (WB_TILE * 8); idx += NTHREADS) {
+    const int b = idx / ((WB_CP - np) * (WB_TILE * 8)), rest = idx % ((WB_CP - np) * (WB_TILE * 8));
+    const int p = np + rest / (WB_TILE * 8), c = rest % (WB_TILE * 8);
+    *reinterpret_cast<uint4*>(sm + WB_RES_BYTES + b * WB_STAGE_BYTES + p * (WB_TILE * 128) + 16 * c) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  // tile t into its stage: this block's panels, one TMA copy each (rows
+  // past the matrix are zeros), by thread 0
+  auto issue_stage = [&](int t) {
+    const int b = (t - t0) % WB_STAGES;
+    const uint32_t dst = sQ + b * WB_STAGE_BYTES, bar = full0 + 8 * b;
+    mbar_expect(bar, np * (WB_TILE * 128));
+    for (int p = 0; p < np; ++p) tma_load_2d(dst + p * (WB_TILE * 128), &mstr, (p0 + p) * 64, t * WB_TILE, bar);
   };
 
-  float rv[2];
-  int rid[2];
+  // per row of this thread: K5 the lse (inf past N: p = 0) and label (-1)
+  // of x row r0 + i; K6 the bias of vocabulary row r0 + i
+  float rv[WB_MAXK], dsum[WB_MAXK];
+  int rid[WB_MAXK];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + i0 + 8 * h;
+  for (int k = 0; k < WB_MAXK; ++k) {
+    const int r = r0 + rlo + rl + 8 * k;
+    dsum[k] = 0.f;
     if (DE) {
-      rv[h] = r < V ? bias[r] : 0.f;
-      rid[h] = r;
+      rv[k] = r < V ? bias[r] : 0.f;
+      rid[k] = r;
     } else {
-      rv[h] = r < N ? lse[r] : INFINITY;  // padded rows: p = 0
-      rid[h] = r < N ? labels[r] : -1;
+      rv[k] = r < N ? lse[r] : INFINITY;
+      rid[k] = r < N ? labels[r] : -1;
     }
   }
-  float acc[WB_NC][32];
-#pragma unroll
-  for (int j = 0; j < WB_NC; ++j) vb_hopper::zero(acc[j]);
-  float dsum[2] = {0.f, 0.f};
 
-  for (int j = 0; j < WB_STAGES - 1; ++j) {
-    if (j < nsteps) issue(j, j);
-    vb_hopper::cp_commit();
+  // this warpgroup's result columns: accumulator j holds panel 2 j + wg of
+  // the block's
+  float acc[4][32];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) vb_hopper::zero(acc[j]);
+
+  if (threadIdx.x == 0) {
+    mbar_expect(resFull, np * (WB_ROWS * 128));
+    for (int p = 0; p < np; ++p) tma_load_2d(sR + p * (WB_ROWS * 128), &mres, (p0 + p) * 64, r0, resFull);
+    issue_stage(t0);
   }
-  float s[16], z[16];
-  for (int q = 0, b = 0; q < nsteps; ++q) {
-    const int t = t0 + q / NP, p = q % NP;
-    if (p == 0) {
-      __syncthreads();  // every thread is done with the last tile's kept panels and dlog tile
-      issue_keep(t);    // lands before the tile's last step: NP - 1 >= WB_STAGES - 2 ring groups follow it
-      vb_hopper::cp_commit();
-    }
-    vb_hopper::cp_wait<WB_STAGES - 2>();
-    vb_hopper::fence_async();
-    __syncthreads();  // step q landed; every thread is done with step q - 1's slot
-    if (q + WB_STAGES - 1 < nsteps) issue(q + WB_STAGES - 1, b == 0 ? WB_STAGES - 1 : b - 1);
-    vb_hopper::cp_commit();
 
-    // this warpgroup's logits: the tile's streamed rows [32 wg, 32 wg + 32),
-    // a panel's products in s, the sum so far in z
-    const uint32_t rs = sRing + b * 2 * WB_PANEL;
-    const uint64_t da = vb_hopper::desc(rs), dq = vb_hopper::desc(rs + WB_PANEL + wg * 32 * 128);
-    vb_hopper::wg_fence();
+  // this warpgroup's partial logits of the tile in `stage` into z: the 64
+  // rows x columns [32 wg, 32 wg + 32), each panel's products in a fresh
+  // accumulator (s0, s1 in turn) added into z in panel order
+  float z[16], s0[16], s1[16];
+  auto logits = [&](uint32_t stage) {
+    const uint64_t da = vb_hopper::desc(sR), dq = vb_hopper::desc(stage + wg * 32 * 128);
+    auto panel = [&](float(&s)[16], int p) {
+      vb_hopper::wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_n32<ET>(s, da + 2 * kk, dq + 2 * kk, kk);
-    vb_hopper::wg_commit();
-    vb_hopper::wg_wait();
-    hold(s);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_n32<ET>(s, da + ((p * (WB_ROWS * 128)) >> 4) + 2 * kk, dq + ((p * (WB_TILE * 128)) >> 4) + 2 * kk,
+                      kk);
+      vb_hopper::wg_commit();
+    };
 #pragma unroll
-    for (int k = 0; k < 16; ++k) z[k] = p == 0 ? s[k] : z[k] + s[k];
-    b = b + 1 == WB_STAGES ? 0 : b + 1;
-    if (p != NP - 1) continue;
-
+    for (int p = 0; p < WB_CP; p += 2) {
+      panel(s0, p);
+      if (p > 0) {  // panel p - 1
+        wg_wait1();
+        hold(s1);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float d[2];
-        const int c = wg * 32 + nt * 8 + 2 * tq;  // tile column of e = 0
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float zz = z[4 * nt + 2 * h + e];
-          const int j = t * WB_TILE + c + e;
-          if (DE) {  // row: vocabulary id rid; column: x row j
-            const bool ok = rid[h] < V && j < N;
-            d[e] = ok ? (expf(zz + rv[h] - lse[j]) - (labels[j] == rid[h] ? 1.f : 0.f)) * gr[j] : 0.f;
-            dsum[h] += d[e];
-          } else {   // row: x row with label rid; column: vocabulary id j
-            d[e] = j < V ? expf(zz + bias[j] - rv[h]) - (rid[h] == j ? 1.f : 0.f) : 0.f;
-          }
-        }
-        *reinterpret_cast<uint32_t*>(Pt + swz(i0 + 8 * h, c >> 3) + (c & 7) * 2) = vb::Elem<ET>::pack(d[0], d[1]);
+        for (int i = 0; i < 16; ++i) z[i] += s1[i];
       }
-    vb_hopper::fence_async();
-    __syncthreads();  // the dlog tile is whole; the kept panels landed (waited above)
-
-    const uint64_t dp = vb_hopper::desc(sP);
-    vb_hopper::wg_fence();
+      panel(s1, p + 1);
+      wg_wait1();  // panel p
+      hold(s0);
 #pragma unroll
-    for (int j = 0; j < WB_NC; ++j)
-      if (pc + j < NP) {
-        const uint64_t dk = vb_hopper::desc(sKeep + (wg * WB_NC + j) * WB_PANEL);
+      for (int i = 0; i < 16; ++i) z[i] = p == 0 ? s0[i] : z[i] + s0[i];
+    }
+    vb_hopper::wg_wait();  // the last panel
+    hold(s1);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) z[i] += s1[i];
+  };
+
+  for (int t = t0; t < t1; ++t) {
+    const uint32_t q = sQ + ((t - t0) % WB_STAGES) * WB_STAGE_BYTES;
+    // the values of tile t's columns jp, jp + 1 (K5: bias; K6: lse, label,
+    // g, zero past N), used once its logits are summed
+    float c0[2], c2[2];
+    int c1[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = t * WB_TILE + jp + e, jj = j < nstr ? j : 0;
+      c0[e] = DE ? lse[jj] : bias[jj];
+      c1[e] = DE ? labels[jj] : 0;
+      c2[e] = DE && j < nstr ? gr[jj] : 0.f;
+    }
+    if (t == t0) {
+      mbar_wait(resFull, 0);
+      vb_hopper::fence_async();  // the zeros past this block's panels
+      __syncthreads();
+    }
+    mbar_wait(full0 + 8 * ((t - t0) % WB_STAGES), ((t - t0) / WB_STAGES) & 1);  // tile t
+    logits(q);
+    __syncthreads();  // both warpgroups are done with tile t - 1's stage
+    if (threadIdx.x == 0 && t + 1 < t1) issue_stage(t + 1);
+    // tile t's partials of each row i to the block that sums it (the rank
+    // whose [rlo, rhi) holds i), as its row (rank, i - that rlo), by stores
+    // that count their bytes on that block's mbarrier. Every block has
+    // summed tile t - 1's: its
+    // dlog rows of tile t - 1 arrived here after that. A block sends its
+    // dlog rows of tile t only once every block's partials of tile t have
+    // arrived, each sent after that block's product of tile t - 1.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = warp * 16 + g + 8 * h, owner = ((i + 1) * R - 1) / WB_ROWS;
+      const int slot = rank * per + i - owner * WB_ROWS / R;
+      const uint32_t bar = cluster_addr(pFull, owner);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int c = wg * 32 + nt * 8 + 2 * tq;
+        st_async2(cluster_addr(sP + 4 * (slot * 64 + (c ^ ((slot & 7) << 3))), owner), z[4 * nt + 2 * h],
+                  z[4 * nt + 2 * h + 1], bar);
+      }
+    }
+    mbar_wait(pFull, (t - t0) & 1);  // every block's partials of this block's rows of tile t have arrived
+    if (threadIdx.x == 0) mbar_expect(pFull, p_bytes);
+
+    // the logits of this block's rows: the R blocks' partials summed in
+    // rank order; their dlog into every block's dlog tile
+    float2 zr[WB_MAXK];
+#pragma unroll
+    for (int k = 0; k < WB_MAXK; ++k) {
+      const int il = rl + 8 * k;
+      zr[k] = make_float2(0.f, 0.f);
+      if (rlo + il < rhi)
+        for (int src = 0; src < R; ++src) {
+          const int slot = src * per + il;
+          const float2 v = *reinterpret_cast<const float2*>(P + slot * 64 + (jp ^ ((slot & 7) << 3)));
+          zr[k].x += v.x;
+          zr[k].y += v.y;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < WB_MAXK; ++k) {
+      const int i = rlo + rl + 8 * k;  // the same in a warp
+      if (i >= rhi) break;
+      float d[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float zz = e ? zr[k].y : zr[k].x;
+        const int j = t * WB_TILE + jp + e;
+        if (DE) {  // row: vocabulary id rid; column: x row j
+          const bool ok = rid[k] < V && j < N;
+          d[e] = ok ? (expf(zz + rv[k] - c0[e]) - (c1[e] == rid[k] ? 1.f : 0.f)) * c2[e] : 0.f;
+          dsum[k] += d[e];
+        } else {   // row: x row with label rid; column: vocabulary id j
+          d[e] = j < V ? expf(zz + c0[e] - rv[k]) - (rid[k] == j ? 1.f : 0.f) : 0.f;
+        }
+      }
+      *reinterpret_cast<uint32_t*>(sm + (sD - sR) + swz(i, jp >> 3) + (jp & 7) * 2) = vb::Elem<ET>::pack(d[0], d[1]);
+    }
+    // this block's dlog rows into every other block's dlog tile, by copies
+    // that count their bytes on that block's mbarrier; every block has
+    // multiplied tile t - 1's dlog (before it sent this block partials)
+    vb_hopper::fence_async();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int qq = 0; qq < R; ++qq)
+        if (qq != rank && rhi > rlo)
+          bulk_to_cluster(cluster_addr(sD + rlo * 128, qq), sD + rlo * 128, (rhi - rlo) * 128,
+                          cluster_addr(dFull, qq));
+      bulk_commit();
+    }
+    mbar_wait(dFull, (t - t0) & 1);  // tile t's dlog is whole
+    if (threadIdx.x == 0) {
+      bulk_wait_read();  // this block's rows may be written again (the next tile's, once its partials arrived)
+      mbar_expect(dFull, d_bytes);
+    }
+
+    // this warpgroup's result columns += dlog . its panels of tile t
+    {
+      const uint64_t dp = vb_hopper::desc(sD);
+      vb_hopper::wg_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint64_t dk = vb_hopper::desc(q + (2 * j + wg) * (WB_TILE * 128));
 #pragma unroll
         for (int kk = 0; kk < WB_TILE / 16; ++kk) wgmma_n64_tb<ET>(acc[j], dp + 2 * kk, dk + ((kk * 2048) >> 4));
       }
-    vb_hopper::wg_commit();
-    vb_hopper::wg_wait();
+      vb_hopper::wg_commit();
+      vb_hopper::wg_wait();
 #pragma unroll
-    for (int j = 0; j < WB_NC; ++j) hold(acc[j]);
+      for (int j = 0; j < 4; ++j) hold(acc[j]);
+    }
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = r0 + i0 + 8 * h;
+    const int r = r0 + warp * 16 + g + 8 * h;
     if (r >= nres) continue;
 #pragma unroll
-    for (int j = 0; j < WB_NC; ++j) {
-      if (pc + j >= NP) continue;
+    for (int j = 0; j < 4; ++j) {
+      const int pj = 2 * j + wg;
+      if (pj >= np) continue;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        const int col = (pc + j) * 64 + nt * 8 + 2 * tq;
+        const int col = (p0 + pj) * 64 + nt * 8 + 2 * tq;
         const float a = acc[j][4 * nt + 2 * h], c = acc[j][4 * nt + 2 * h + 1];
         if (DE)
           *reinterpret_cast<uint32_t*>(dE + (size_t)r * hid + col) = vb::Elem<ET>::pack(a, c);
@@ -1320,17 +1573,17 @@ xent_wide_bwd_kernel(const ET* __restrict__ x, const ET* __restrict__ E, const f
       }
     }
   }
-  if (DE) {
+  if (threadIdx.x == 0) bulk_wait();
+  cluster_sync();  // no block leaves while another may still copy into it
+  if (DE) {  // db of the rows this block summed: each warp's rows, its lanes' columns summed
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v = dsum[h];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      if (tq == 0) red[wg * RES + i0 + 8 * h] = v;
+    for (int k = 0; k < WB_MAXK; ++k) {
+      float v = dsum[k];
+#pragma unroll
+      for (int off = 16; off >= 1; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      const int i = rlo + rl + 8 * k;
+      if (lane == 0 && i < rhi && r0 + i < V) db[r0 + i] = v;
     }
-    __syncthreads();
-    const int i = threadIdx.x;
-    if (blockIdx.y == 0 && i < RES && r0 + i < V) db[r0 + i] = red[i] + red[RES + i];
   }
 }
 
@@ -1361,10 +1614,82 @@ const void* wide_kernel_of(int kernel) {
   }
 }
 
+// The wide K5/K6's cluster at width hid: one block a column range.
+int wide_cluster(int hid) { return cdiv(hid / 64, WB_CP); }
+
 bool wide_width(int hid) { return hid >= WIDE_MIN && hid % 64 == 0; }
 
 cudaError_t set_smem(const void* fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// K5's (kernel 0) or K6's (1) launch attributes, its shared memory and
+// clusters above the portable 8 blocks, set at its first use on a device.
+cudaError_t wide_bwd_attributes(int kernel) {
+  static bool set[2][64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && set[kernel][dev])) return err;
+  const void* fn = wide_kernel_of(kernel);
+  err = set_smem(fn, WB_SMEM);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && dev < 64) set[kernel][dev] = true;
+  return err;
+}
+
+// The TMA map of a [rows, hid] matrix of ET: boxes of 64 columns (128 B,
+// swizzled as swz lays them out) by 64 rows, zeros past the last row.
+template <typename ET>
+cudaError_t wide_map(CUtensorMap* map, const void* ptr, int rows, int hid) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
+                                                             &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)hid, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)hid * sizeof(ET)};
+  const cuuint32_t box[2] = {64, 64}, steps[2] = {1, 1};
+  const CUresult r = encode(map, std::is_same<ET, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            2, const_cast<void*>(ptr), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A launch of K5 or K6 on `grid` in clusters of (1, R, 1); attr is the
+// storage of its one attribute.
+cudaLaunchConfig_t wide_bwd_config(dim3 grid, int R, cudaStream_t st, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = WB_SMEM;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = R;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The clusters of K5 (kernel 0) or K6 (kernel 1) at width hid that the card
+// runs at once (0: none fits), or -1 on an error.
+int wide_active_clusters(int kernel, int hid) {
+  const void* fn = wide_kernel_of(kernel);
+  const int R = wide_cluster(hid);
+  if (fn == nullptr || kernel > 1 || R > WB_MAX_CLUSTER) return -1;
+  if (wide_bwd_attributes(kernel) != cudaSuccess) return -1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = wide_bwd_config(dim3(1, R, 1), R, nullptr, &attr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess) return -1;
+  return n;
 }
 
 template <typename ET>
@@ -1383,17 +1708,33 @@ int wide_fwd(const void* x, const void* E, const void* bias, const void* labels,
   return (int)cudaGetLastError();
 }
 
+// K5 (DE false, grid (cdiv(N, WB_ROWS), R, S)) or K6 (DE true, grid
+// (cdiv(V, WB_ROWS), R)) in clusters of R: where no cluster fits, the
+// launch's own error.
+template <bool DE, typename ET>
+int launch_wide_bwd(int z, const void* x, const void* E, const void* bias, const void* labels, const void* lse,
+                    const void* g, int N, int V, int hid, int vbs, void* part, void* dE, void* db, cudaStream_t st) {
+  const int R = wide_cluster(hid);
+  CUtensorMap mres, mstr;
+  cudaError_t err = wide_bwd_attributes(DE ? 1 : 0);
+  if (err == cudaSuccess) err = wide_map<ET>(&mres, DE ? E : x, DE ? V : N, hid);
+  if (err == cudaSuccess) err = wide_map<ET>(&mstr, DE ? x : E, DE ? N : V, hid);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = wide_bwd_config(dim3(cdiv(DE ? V : N, WB_ROWS), R, z), R, st, &attr);
+  err = cudaLaunchKernelEx(&cfg, xent_wide_bwd_kernel<DE, ET>, mres, mstr, static_cast<const float*>(bias),
+                           static_cast<const int*>(labels), static_cast<const float*>(lse),
+                           static_cast<const float*>(g), N, V, hid, vbs, static_cast<float*>(part),
+                           static_cast<ET*>(dE), static_cast<float*>(db));
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
 template <typename ET>
 int wide_dx(const void* x, const void* E, const void* bias, const void* labels, const void* lse, const void* g,
             int N, int V, int hid, int S, int vbs, void* part, void* dx, cudaStream_t st) {
-  cudaError_t err = set_smem((const void*)xent_wide_bwd_kernel<false, ET>, WB_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  xent_wide_bwd_kernel<false, ET><<<dim3(cdiv(N, RES), cdiv(hid, WB_COLS), S), NTHREADS, WB_SMEM, st>>>(
-      static_cast<const ET*>(x), static_cast<const ET*>(E), static_cast<const float*>(bias),
-      static_cast<const int*>(labels), static_cast<const float*>(lse), nullptr, N, V, hid, vbs,
-      static_cast<float*>(part), nullptr, nullptr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err = launch_wide_bwd<false, ET>(S, x, E, bias, labels, lse, nullptr, N, V, hid, vbs, part, nullptr,
+                                             nullptr, st);
+  if (err != 0) return err;
   const int pairs = cdiv(N * (hid / 2), 256);
   xent_wide_dx_reduce_kernel<ET><<<pairs < 4096 ? pairs : 4096, 256, 0, st>>>(
       static_cast<const float*>(part), static_cast<const float*>(g), N, hid, S, static_cast<ET*>(dx));
@@ -1403,13 +1744,7 @@ int wide_dx(const void* x, const void* E, const void* bias, const void* labels, 
 template <typename ET>
 int wide_de(const void* x, const void* E, const void* bias, const void* labels, const void* lse, const void* g,
             int N, int V, int hid, void* dE, void* db, cudaStream_t st) {
-  cudaError_t err = set_smem((const void*)xent_wide_bwd_kernel<true, ET>, WB_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  xent_wide_bwd_kernel<true, ET><<<dim3(cdiv(V, RES), cdiv(hid, WB_COLS)), NTHREADS, WB_SMEM, st>>>(
-      static_cast<const ET*>(x), static_cast<const ET*>(E), static_cast<const float*>(bias),
-      static_cast<const int*>(labels), static_cast<const float*>(lse), static_cast<const float*>(g), N, V, hid, 0,
-      nullptr, static_cast<ET*>(dE), static_cast<float*>(db));
-  return (int)cudaGetLastError();
+  return launch_wide_bwd<true, ET>(1, x, E, bias, labels, lse, g, N, V, hid, 0, nullptr, dE, db, st);
 }
 
 }  // namespace
@@ -1472,18 +1807,20 @@ extern "C" int vb_xent_f16_de(const void* x, const void* E, const void* bias, co
 // the widths it takes (it takes multiples of 64 from 1088 on), 1 K4's x
 // rows per block, 2 K5/K6's resident rows per block, 3 K4's vocabulary
 // rows per tile, 4 K5/K6's streamed rows per tile, 5 the result columns a
-// K5/K6 block owns.
+// K5/K6 block owns at most (a cluster has cdiv(hid, this) blocks), 6 the
+// blocks a K5/K6 cluster may have.
 extern "C" int vb_xent_wide_geometry(int which) {
-  const int g[6] = {64, WF_ROWS, RES, WF_TILE, WB_TILE, WB_COLS};
-  return which >= 0 && which < 6 ? g[which] : -1;
+  const int g[7] = {64, WF_ROWS, WB_ROWS, WF_TILE, WB_TILE, WB_COLS, WB_MAX_CLUSTER};
+  return which >= 0 && which < 7 ? g[which] : -1;
 }
 
 // K5 (kernel 0), K6 (kernel 1) or K4 (kernel 2) of the wide form (bf16) at
-// width hid: `what` as vb_xent_info's. -1 on an error or a width the form
-// does not take.
+// width hid: `what` as vb_xent_info's, and 4 (K5, K6) the clusters the card
+// runs at once (0: none fits). -1 on an error or a width the form does not
+// take.
 extern "C" int vb_xent_wide_info(int kernel, int what, int hid) {
   const void* fn = wide_kernel_of(kernel);
-  if (fn == nullptr || !wide_width(hid)) return -1;
+  if (fn == nullptr || !wide_width(hid) || (kernel < 2 && wide_cluster(hid) > WB_MAX_CLUSTER)) return -1;
   const size_t bytes = kernel == 2 ? WF_SMEM : WB_SMEM;
   if (what == 0 || what == 1) {
     cudaFuncAttributes attr;
@@ -1497,6 +1834,7 @@ extern "C" int vb_xent_wide_info(int kernel, int what, int hid) {
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, NTHREADS, bytes) != cudaSuccess) return -1;
     return n;
   }
+  if (what == 4 && kernel < 2) return wide_active_clusters(kernel, hid);
   return -1;
 }
 
@@ -1513,12 +1851,12 @@ extern "C" int vb_xent_wide_fwd(const void* x, const void* E, const void* bias, 
 extern "C" int vb_xent_wide_dx(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
                                const void* g, int N, int V, int hid, int S, int vbs, void* part, void* dx,
                                void* stream) {
-  if (!wide_width(hid) || S < 1 || vbs < 1) return (int)cudaErrorInvalidValue;
+  if (!wide_width(hid) || wide_cluster(hid) > WB_MAX_CLUSTER || S < 1 || vbs < 1) return (int)cudaErrorInvalidValue;
   return wide_dx<bf16>(x, E, bias, labels, lse, g, N, V, hid, S, vbs, part, dx, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int vb_xent_wide_de(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
                                const void* g, int N, int V, int hid, void* dE, void* db, void* stream) {
-  if (!wide_width(hid)) return (int)cudaErrorInvalidValue;
+  if (!wide_width(hid) || wide_cluster(hid) > WB_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
   return wide_de<bf16>(x, E, bias, labels, lse, g, N, V, hid, dE, db, static_cast<cudaStream_t>(stream));
 }

@@ -38,13 +38,16 @@ The kernels take every dtype and width the JAX kernels take: bf16 and fp16
 on the Hopper kernels, instantiated at widths 128, 256, 512, 768 and 1024
 (``KERNEL_WIDTHS``), any other width up to 1024 zero-padded to the next of
 them; bf16 above 1024 on the wide form (``xent_wide_*`` in
-``csrc/mlm_xent.cu``: both matrices streamed in 64-column panels, a K5/K6
-block owning 512 result columns and recomputing its logits for them) at
-any multiple of 64, another width zero-padded to the next multiple of 64
-(:func:`kernel_width`, :func:`pad_width`: a zero column adds nothing to a
-logit; the padded columns of dx and dE are dropped; the padding copies E
-each call); fp32, and fp16 above 1024 (upcast, an fp32 copy of x and E
-each call: :func:`runs_on_f32`), at any width on the tiled SIMT kernels of
+``csrc/mlm_xent.cu``: K4 streams both matrices in 64-column panels; K5/K6
+run a thread-block cluster of one block a 512-column range
+(:func:`wide_cluster`), which forms each tile's logits once by split K and
+shares the rounded dlog through distributed shared memory) at any multiple
+of 64 up to 8192 (``WIDE_MAX``), another width zero-padded to the next
+multiple of 64 (:func:`kernel_width`, :func:`pad_width`: a zero column adds
+nothing to a logit; the padded columns of dx and dE are dropped; the
+padding copies E each call); fp32, fp16 above 1024 and bf16 above 8192
+(upcast, an fp32 copy of x and E each call: :func:`runs_on_f32`), at any
+width on the tiled SIMT kernels of
 ``csrc/mlm_xent_f32.cu`` (128 x 256 tiles of logits, an 8 x 16 register
 block a thread; K4 and K5 split the vocabulary, :func:`f32_plan`). Each
 wrapper counts its launches in ``launches`` and, by form
@@ -78,6 +81,7 @@ from visualbert_torch.parallel.mesh import all_reduce, gather_slices
 
 KERNEL_WIDTHS = (128, 256, 512, 768, 1024)  # the hidden widths K4-K6 are instantiated for (bf16, fp16)
 WIDE_STEP = 64  # above KERNEL_WIDTHS[-1] the wide form takes the multiples of this (csrc/mlm_xent.cu)
+WIDE_MAX = 8192  # ... up to this: a K5/K6 cluster of 16 blocks (the H100's most) of 512 columns
 KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 _ENTRY = {torch.bfloat16: "vb_xent_", torch.float16: "vb_xent_f16_"}  # the entry points of csrc/mlm_xent.cu
 
@@ -98,11 +102,13 @@ def is_wide(h: int) -> bool:
 
 
 def runs_on_f32(dtype, h: int) -> bool:
-    """Whether rows of width h in ``dtype`` run on the fp32 kernels: fp32,
-    and fp16 above 1024, whose 22-bit products the tensor cores' sums
-    round beyond the bf16 limits at such widths (csrc/mlm_xent.cu, the wide
-    form's notes); fp16 products are exact in fp32."""
-    return dtype == torch.float32 or (dtype == torch.float16 and is_wide(h))
+    """Whether rows of width h in ``dtype`` run on the fp32 kernels: fp32;
+    fp16 above 1024, whose 22-bit products the tensor cores' sums round
+    beyond the bf16 limits at such widths (csrc/mlm_xent.cu, the wide
+    form's notes; fp16 products are exact in fp32); bf16 above WIDE_MAX,
+    wider than the wide form's largest cluster covers."""
+    return (dtype == torch.float32 or (dtype == torch.float16 and is_wide(h))
+            or (dtype == torch.bfloat16 and h > WIDE_MAX))
 
 
 def pad_width(t: torch.Tensor, w: int) -> torch.Tensor:
@@ -113,14 +119,14 @@ def pad_width(t: torch.Tensor, w: int) -> torch.Tensor:
 
 def xent_form(dtype, h: int) -> str:
     """The kernel form K4-K6 run rows of width h in ``dtype`` on: "fp32" (the
-    tiled SIMT kernels), "fp16 on fp32" (fp16 above 1024, upcast),
-    "<dtype> H<instantiated width>" up to 1024, or "bf16 wide H<padded
-    width>" above it."""
+    tiled SIMT kernels), "fp16 on fp32" or "bf16 on fp32" (fp16 above 1024,
+    bf16 above WIDE_MAX, upcast), "<dtype> H<instantiated width>" up to
+    1024, or "bf16 wide H<padded width>" above it."""
     if dtype == torch.float32:
         return "fp32"
-    if runs_on_f32(dtype, h):
-        return "fp16 on fp32"
     name = "bf16" if dtype == torch.bfloat16 else "fp16"
+    if runs_on_f32(dtype, h):
+        return f"{name} on fp32"
     return f"{name} {'wide ' if is_wide(h) else ''}H{kernel_width(h)}"
 
 
@@ -240,6 +246,48 @@ def de_plan(V: int, H: int, rows: int, cols: int) -> dict:
     return dict(grid=(-(-V // rows), -(-H // cols)))
 
 
+# a wide K5 cluster's fixed cost (its resident panels copied, the ring
+# filled, the first tile's logits), in tiles' time: the splits it picks are
+# timed beside others by tools/xent_steps.py --wide ("wide K5 splits")
+WIDE_BLOCK_TILES = 2
+
+
+def wide_cluster(H: int, cols: int) -> Tuple[int, int]:
+    """The wide K5/K6's cluster at width H (a multiple of 64) for blocks of
+    at most ``cols`` result columns (``vb_xent_wide_geometry`` 5): (R, the
+    64-column panels each block owns). R = cdiv(H, cols) blocks share the
+    panels evenly, block r owning [r P, r P + P), the last the rest; as
+    ``csrc/mlm_xent.cu::xent_wide_bwd_kernel`` works them out."""
+    panels = H // 64
+    R = -(-panels // (cols // 64))
+    return R, -(-panels // R)
+
+
+def wide_dx_plan(N: int, V: int, H: int, rows: int, tile: int, cols: int, clusters: int) -> dict:
+    """The wide K5's launch at N rows, V vocabulary rows and width H, for its
+    tiling (``rows`` resident x rows a cluster, ``tile`` vocabulary rows a
+    tile, at most ``cols`` columns a block: ``vb_xent_wide_geometry`` 2, 4,
+    5) when the card runs ``clusters`` clusters at once
+    (``vb_xent_wide_info(0, 4, H)``): :func:`fwd_plan`'s splits over those
+    cluster slots, WIDE_BLOCK_TILES a cluster's fixed cost. Returns the grid
+    (row blocks, the cluster's R blocks, splits), the cluster's shape
+    (1, R, 1), the panels a block owns, the tiles a split and the shape of
+    the fp32 partials, [splits, N, H]."""
+    R, panels = wide_cluster(H, cols)
+    plan = fwd_plan(N, V, H, rows, tile, clusters, WIDE_BLOCK_TILES)
+    row_blocks, S = plan["grid"]
+    return dict(grid=(row_blocks, R, S), cluster=(1, R, 1), panels=panels, per=plan["per"], tiles=plan["tiles"],
+                part_shape=(S, N, H))
+
+
+def wide_de_plan(V: int, H: int, rows: int, cols: int) -> dict:
+    """The wide K6's grid (vocabulary blocks of ``rows`` a cluster, the
+    cluster's R blocks), the cluster's shape and the panels a block owns:
+    each cluster walks every row tile of x, so nothing is split."""
+    R, panels = wide_cluster(H, cols)
+    return dict(grid=(-(-V // rows), R), cluster=(1, R, 1), panels=panels)
+
+
 def f32_plan(N: int, V: int, rows: int, tile: int, slots: int) -> dict:
     """fp32 K4's and K5's launch (``csrc/mlm_xent_f32.cu``: ``rows`` x rows a
     block, ``tile`` vocabulary rows a tile, ``vb_xent_f32_geometry`` 0, 1) on
@@ -254,12 +302,14 @@ def f32_plan(N: int, V: int, rows: int, tile: int, slots: int) -> dict:
 
 def bwd_products(dtype, h: int) -> int:
     """The N x V x h products K5 (or K6) runs at width h in ``dtype``: the
-    logits and the result once each, plus the logits again for every further
-    column range a block owns (bf16 and fp16 at 1024 and on the wide form:
-    512 columns a block)."""
+    logits and the result once each, plus, at 1024 (bf16, fp16: 512 columns
+    a block), the logits again for the second column range. The wide form's
+    cluster forms each tile's logits once over all its ranges."""
     if runs_on_f32(dtype, h):
         return 2
     w = kernel_width(h)
+    if is_wide(w):
+        return 2
     cols = w if w < KERNEL_WIDTHS[-1] else 512
     return -(-w // cols) + 1
 
@@ -396,11 +446,22 @@ def launch_f32_dx(lib, x, emb, bias, labels, lse, g, sms):
     return code, dx
 
 
-def launch_wide_dx(lib, x, emb, bias, labels, lse, g, sms):
-    """Launch the wide form's K5 and its reduce pass on checked inputs: (the
-    entry point's code, dx)."""
+@functools.lru_cache(maxsize=None)
+def wide_clusters(lib, kernel: int, H: int) -> int:
+    """The clusters of the wide K5 (kernel 0) or K6 (1) at width H that the
+    card runs at once (``vb_xent_wide_info(kernel, 4, H)``); raises where
+    none fits (a launch of such a cluster would fail on its own)."""
+    n = lib.vb_xent_wide_info(kernel, 4, H)
+    if n <= 0:
+        raise RuntimeError(f"mlm xent: no cluster of the wide K{5 + kernel} at width {H} fits the card ({n})")
+    return n
+
+
+def launch_wide_dx(lib, x, emb, bias, labels, lse, g):
+    """Launch the wide form's K5 (a cluster a row block and split) and its
+    reduce pass on checked inputs: (the entry point's code, dx)."""
     (N, H), V = x.shape, emb.shape[0]
-    plan = dx_plan(N, V, H, *(lib.vb_xent_wide_geometry(w) for w in (2, 4, 5)), sms)
+    plan = wide_dx_plan(N, V, H, *(lib.vb_xent_wide_geometry(w) for w in (2, 4, 5)), wide_clusters(lib, 0, H))
     part = torch.empty(plan["part_shape"], dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     code = lib.vb_xent_wide_dx(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
@@ -424,8 +485,8 @@ def mlm_xent_dx(x, emb, bias, labels, lse, g) -> torch.Tensor:
         dx = dx.to(x.dtype)
     else:
         w = kernel_width(H)
-        launch = launch_wide_dx if is_wide(w) else launch_dx
-        code, dx = launch(lib, pad_width(x, w), pad_width(emb, w), bias, labels, lse, g, sm_count(x.device))
+        args = (lib, pad_width(x, w), pad_width(emb, w), bias, labels, lse, g)
+        code, dx = launch_wide_dx(*args) if is_wide(w) else launch_dx(*args, sm_count(x.device))
         dx = dx if w == H else dx[:, :H].contiguous()
     lib.check(code, what)
     _counted(mlm_xent_dx, form)
@@ -459,9 +520,10 @@ def launch_f32_de(lib, x, emb, bias, labels, lse, g):
 
 
 def launch_wide_de(lib, x, emb, bias, labels, lse, g):
-    """Launch the wide form's K6 on checked inputs: (the entry point's code,
-    d embedding, d bias)."""
+    """Launch the wide form's K6 (a cluster a vocabulary block) on checked
+    inputs: (the entry point's code, d embedding, d bias)."""
     (N, H), V = x.shape, emb.shape[0]
+    wide_clusters(lib, 1, H)
     de = torch.empty_like(emb)
     db = torch.empty(V, dtype=torch.float32, device=x.device)
     code = lib.vb_xent_wide_de(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),

@@ -48,6 +48,26 @@ that tree's K4 on this tree's plan ("other K4, this plan"), K5 and K6
 both widths too, and both trees' K4-K6 are timed at width 1024 ("at
 1024").
 
+With ``--wide`` (``python -m visualbert_torch.tools.xent_steps --wide
+[OTHER_CHECKOUT]``) the tool takes the wide form's K5/K6 instead
+(``xent_wide_bwd_kernel``, bf16 above width 1024: a thread-block cluster a
+row block and split): ``csrc/mlm_xent.cu`` built alone and, given another
+checkout, that tree's source alone. At N = 3072, V = 30522 and widths
+WIDE_WIDTHS (1088, 2048, 2560), this tree's and the other tree's K5 and K6
+(both launched on this tree's plan, ``ops/mlm_xent.py::wide_dx_plan``:
+the entry points take the splits) are held to their plain versions
+(chip_smoke.py's limits; db to :func:`db_exact`'s; this tree's must meet
+them and repeat bit for bit, the other's are printed) and timed in turns
+with cuBLAS's two products; at 2048 and 2560 this tree's K5 is also timed
+on each vocabulary split count of WIDE_SPLITS ("wide K5 splits", the
+support for ``ops/mlm_xent.py::WIDE_BLOCK_TILES``), each printed with the
+busiest cluster slot's tiles as ``wide_dx_plan`` models them and which
+one the plan takes. The SASS of the kernels the wide K5/K6 do not reach
+(K4-K6 up to 1024 as SHARED_KERNELS, the wide K4 and the wide reduce pass
+as WIDE_SHARED_KERNELS) is compared with the other tree's. Each tree's
+wide K5/K6 are printed with registers, local bytes, shared bytes, blocks
+an SM and clusters at once.
+
 K4 as built is also timed on the splits that fill one to four waves of
 one block an SM, at both widths ("K4 splits"), each printed with the
 busiest SM's tiles as ``ops/mlm_xent.py::fwd_plan`` models them (a block's
@@ -96,7 +116,13 @@ BWD_BUILDS = {
                                                 "-DVB_XENT_NO_DLOG"],
 }
 BUILDS = {**FWD_BUILDS, **BWD_BUILDS}
-FNS = ("vb_xent_geometry", "vb_xent_info", "vb_xent_fwd", "vb_xent_dx", "vb_xent_de")
+FNS = ("vb_xent_geometry", "vb_xent_info", "vb_xent_fwd", "vb_xent_dx", "vb_xent_de", "vb_xent_wide_geometry",
+       "vb_xent_wide_info", "vb_xent_wide_dx", "vb_xent_wide_de", "vb_error_string")
+WIDE_WIDTHS = (1088, 2048, 2560)
+WIDE_SPLITS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16)  # the wide K5's vocabulary splits the sweep times
+WIDE_SHARED_KERNELS = {  # the wide form's kernels that its K5/K6 do not reach
+    "wide K4": "xent_wide_fwd_kernelI13__nv_bfloat16", "wide K5 reduce": "xent_wide_dx_reduce_kernelI13__nv_bfloat16",
+}
 SHARED_KERNELS = {  # the kernels of mlm_xent.cu that an earlier tree may share: part of each mangled name
     "K4, 768": "xent_fwd_kernelILi768E", "K4, 1024": "xent_fwd_kernelILi1024E",
     "K5, 768": "xent_bwd_kernelILi768ELb0E", "K6, 768": "xent_bwd_kernelILi768ELb1E",
@@ -107,28 +133,32 @@ SHARED_KERNELS = {  # the kernels of mlm_xent.cu that an earlier tree may share:
 
 
 def bind(path):
-    """Load a build of csrc/mlm_xent.cu with the entry points of FNS typed."""
+    """Load a build of csrc/mlm_xent.cu with the entry points of FNS it has
+    typed."""
     lib = ctypes.CDLL(str(path))
     for fn in FNS:
-        getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
-        getattr(lib, fn).restype = ctypes.c_int
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+            getattr(lib, fn).restype = _build.restype(fn)
     return lib
 
 
-def build_all():
-    """Compile csrc/mlm_xent.cu once for each of BUILDS (one nvcc each, all
-    at once); returns ({name: CDLL}, seconds)."""
+def build_all(builds=BUILDS, sources=None):
+    """Compile csrc/mlm_xent.cu once for each of ``builds`` ({name: -D
+    switches}; one nvcc each, all at once), from the directory
+    ``sources[name]`` where given; returns ({name: CDLL}, seconds)."""
     import time
 
     nvcc = _build.find_nvcc()
     out = _build.BUILD_ROOT / "xent_steps"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    paths = {name: out / f"{name.replace(' ', '_').replace(',', '')}.so" for name in BUILDS}
+    paths = {name: out / f"{name.replace(' ', '_').replace(',', '')}.so" for name in builds}
+    src = {name: (sources or {}).get(name, _build.CSRC) for name in builds}
     t0 = time.perf_counter()
     results = _build._run_all([[nvcc, *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, *defines, "-shared", "-I",
-                                str(_build.CSRC), str(_build.CSRC / "mlm_xent.cu"), "-o", str(paths[name])]
-                               for name, defines in BUILDS.items()])
+                                str(src[name]), str(src[name] / "mlm_xent.cu"), "-o", str(paths[name])]
+                               for name, defines in builds.items()])
     seconds = time.perf_counter() - t0
     for cmd, rc, text in results:
         if rc != 0:
@@ -136,9 +166,9 @@ def build_all():
     return {name: bind(p) for name, p in paths.items()}, seconds
 
 
-def compare_sass(other, card):
+def compare_sass(other, card, kernels=SHARED_KERNELS):
     """Build ``other``'s mlm_xent.cu alone and compare the SASS of
-    SHARED_KERNELS with this tree's; ({kernel: (same, instructions here,
+    ``kernels`` with this tree's; ({kernel: (same, instructions here,
     instructions there)}, or None without cuobjdump; the other tree's
     library)."""
     import subprocess
@@ -159,9 +189,9 @@ def compare_sass(other, card):
         print(f"sass: no cuobjdump, not compared  [{card}]", flush=True)
         return None, bind(paths["other"])
     sass = {name: sass_of(subprocess.run([tool, "-sass", str(p)], capture_output=True, text=True,
-                                         check=True).stdout, SHARED_KERNELS, OTHER_FORMS) for name, p in paths.items()}
+                                         check=True).stdout, kernels, OTHER_FORMS) for name, p in paths.items()}
     res = {}
-    for k in SHARED_KERNELS:
+    for k in kernels:
         a, b = sass["this"].get(k, []), sass["other"].get(k, [])
         res[k] = (bool(a) and a == b, len(a), len(b))
         print(f"sass of {k}: {len(a)} instructions here, {len(b)} in {other}, the same: {res[k][0]}  [{card}]",
@@ -188,6 +218,22 @@ def inputs(torch, device, width=H):
     lab = torch.tensor(np.maximum(labels, 0), dtype=torch.int32, device=device)
     _, lse, _ = xe.mlm_xent_fwd_reference(x, emb, bias, lab)
     return x, emb, bias, lab, lse, g
+
+
+def db_exact(x, emb, bias, labels, lse, g):
+    """K6's d bias [V] fp64 with the logits' products summed exactly (in
+    fp64), on the fp32 lse the plain version is given: the wide forms' db
+    is held to this, since the plain version's own fp32 sums of 2560
+    products drift beyond chip_smoke.py's DBIAS_TOL (its db 3.4e-6 from
+    this at 2560, the cluster kernel's 3.1e-7, on an NVIDIA H100 80GB HBM3
+    at 700 W)."""
+    import torch
+
+    lg = torch.matmul(x.double(), emb.double().t()) + bias.double()
+    p = torch.exp(lg - lse.double()[:, None])
+    del lg
+    p[torch.arange(p.shape[0], device=p.device), labels.long()] -= 1.0
+    return (p * g.double()[:, None]).sum(0)
 
 
 def check(code, what):
@@ -285,6 +331,132 @@ def rel(a, b):
     return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-6))
 
 
+def wide_sweep_splits(N, V, rows, tile, clusters):
+    """The wide K5's vocabulary splits of WIDE_SPLITS and the plan's own at
+    N rows and V vocabulary rows, for ``rows`` resident x rows a cluster and
+    ``tile`` vocabulary rows a tile, with ``clusters`` clusters at once: a
+    list of (splits, tiles a split, waves of clusters, the busiest cluster
+    slot's tiles as ops/mlm_xent.py::wide_dx_plan models them), no split
+    empty and no count twice."""
+    from visualbert_torch.ops import mlm_xent as xe
+
+    row_blocks, n_tiles = -(-N // rows), -(-V // tile)
+    planned = xe.wide_dx_plan(N, V, 64, rows, tile, 64, clusters)["grid"][2]
+    out = {}
+    for want in sorted({*WIDE_SPLITS, planned}):
+        per = -(-n_tiles // min(want, n_tiles))
+        S = -(-n_tiles // per)
+        w = -(-row_blocks * S // clusters)
+        out[S] = (S, per, w, w * (per + xe.WIDE_BLOCK_TILES))
+    return list(out.values())
+
+
+def wide_calls(lib, data, S, per):
+    """The wide K5 (on S vocabulary splits of ``per`` tiles) and K6 of one
+    build of csrc/mlm_xent.cu on ``data``."""
+    import torch
+
+    x, emb, bias, lab, lse, g = data
+    (N, H), V = x.shape, emb.shape[0]
+    part = torch.empty((S, N, H), dtype=torch.float32, device=x.device)
+    dx, de = torch.empty_like(x), torch.empty_like(emb)
+    db = torch.empty(V, dtype=torch.float32, device=x.device)
+    stream = _build.stream_ptr(x.device)
+    ptrs = (x.data_ptr(), emb.data_ptr(), bias.data_ptr(), lab.data_ptr(), lse.data_ptr(), g.data_ptr())
+
+    def k5(_):
+        check(lib.vb_xent_wide_dx(*ptrs, N, V, H, S, per, part.data_ptr(), dx.data_ptr(), stream), "wide K5")
+        return dx
+
+    def k6(_):
+        check(lib.vb_xent_wide_de(*ptrs, N, V, H, de.data_ptr(), db.data_ptr(), stream), "wide K6")
+        return de, db
+
+    return k5, k6
+
+
+def wide_main(other, card):
+    """The ``--wide`` mode (see the module's note): prints one line a check
+    and a timing; returns the numbers."""
+    import torch
+
+    from visualbert_torch.ops import mlm_xent as xe
+    from visualbert_torch.tools.attn_exp import best_ms
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    builds = {"this": []}
+    sources = {}
+    if other:
+        from pathlib import Path
+
+        builds["other"] = []
+        sources["other"] = Path(other) / "visualbert_torch" / "csrc"
+    libs, seconds = build_all(builds, sources)
+    print(f"xent_steps --wide: {len(builds)} builds in {seconds:.1f} s  [{card}]", flush=True)
+    sass = None
+    if other:
+        sass, _ = compare_sass(other, card, {**SHARED_KERNELS, **WIDE_SHARED_KERNELS})
+    trees = ("this", "other") if other else ("this",)
+    errors, info, times, splits = {}, {}, {}, {}
+    this = libs["this"]
+    for H in WIDE_WIDTHS:
+        data = inputs(torch, dev, H)
+        N, V = data[0].shape[0], data[1].shape[0]
+        rows, tile, cols = (this.vb_xent_wide_geometry(w) for w in (2, 4, 5))
+        clusters = xe.wide_clusters(this, 0, H)
+        plan = xe.wide_dx_plan(N, V, H, rows, tile, cols, clusters)
+        dx_r = xe.mlm_xent_dx_reference(*data)
+        de_r, db_r = xe.mlm_xent_de_reference(*data)
+        db64 = db_exact(*data)
+        print(f"at {H}: the plain version's db against the exact products' {rel(db_r, db64):.3e}  [{card}]",
+              flush=True)
+        fns = {}
+        for tree in trees:
+            k5, k6 = wide_calls(libs[tree], data, plan["grid"][2], plan["per"])
+            got = (k5(0).clone(),) + tuple(t.clone() for t in k6(0))
+            again = (k5(0),) + k6(0)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            errors[f"{tree} {H}"] = e = (rel(got[0], dx_r), rel(got[1], de_r), rel(got[2], db64), rel(got[2], db_r))
+            info[f"{tree} {H}"] = [[libs[tree].vb_xent_wide_info(k, w, H) for w in range(5)] for k in (0, 1)]
+            print(f"{tree} wide K5/K6 at {H}: dx {e[0]:.3e} (tol {DX_TOL}), dE {e[1]:.3e} (tol {DE_TOL}), db "
+                  f"{e[2]:.3e} against the exact products' (tol {DBIAS_TOL}; {e[3]:.3e} against the plain "
+                  f"version's), two calls bit for bit: {same}; K5 grid {plan['grid']}; K5, K6 "
+                  f"registers, local bytes, shared bytes, blocks an SM, clusters at once {info[f'{tree} {H}']}  "
+                  f"[{card}]", flush=True)
+            if tree == "this" and not (e[0] <= DX_TOL and e[1] <= DE_TOL and e[2] <= DBIAS_TOL and same):
+                raise SystemExit(f"xent_steps: the wide K5/K6 at {H} disagree with their plain versions")
+            fns[f"{tree} K5"], fns[f"{tree} K6"] = k5, k6
+        if H != 1088:  # this K5 on other splits: what WIDE_BLOCK_TILES models
+            for S, per, w, tiles in wide_sweep_splits(N, V, rows, tile, clusters):
+                name = f"wide K5 splits {S}"
+                fns[name] = wide_calls(this, data, S, per)[0]
+                splits[f"{H}: {S} splits"] = (S, per, w, tiles, S == plan["grid"][2])
+        x, emb = data[0], data[1]
+        p = torch.empty((x.shape[0], emb.shape[0]), dtype=x.dtype, device=dev).normal_()
+        fns["cuBLAS K5's products"] = lambda _: (torch.matmul(x, emb.t()), torch.matmul(p, emb))
+        fns["cuBLAS K6's products"] = lambda _: (torch.matmul(x, emb.t()), torch.matmul(p.t(), x))
+        del dx_r, de_r, db_r, db64
+        jobs, t = list(fns), {name: [] for name in fns}
+        for r in range(ROUNDS):
+            for name in (jobs if r % 2 == 0 else jobs[::-1]):
+                t[name].append(best_ms(fns[name]))
+        for name, ms in t.items():
+            extra = ""
+            if name.startswith("wide K5 splits"):
+                S, per, w, tiles, chosen = splits[f"{H}: {name.split()[-1]} splits"]
+                extra = (f" ({per} tiles a split, {w} waves of {clusters} clusters, the busiest slot's modelled "
+                         f"tiles {tiles}{'; wide_dx_plan takes it' if chosen else ''})")
+            print(f"at {H}: {name}{extra}: {min(ms):.4f}-{max(ms):.4f} ms  [{card}]", flush=True)
+        times[H] = t
+        del data, p, fns
+        torch.cuda.empty_cache()
+    result = dict(card=card, errors=errors, info=info, ms=times, sass=sass, splits=splits)
+    print(json.dumps(result), flush=True)
+    return result
+
+
 def main(argv=None):
     """Prints one line a check and a timing; returns the numbers."""
     import torch
@@ -293,11 +465,17 @@ def main(argv=None):
     from visualbert_torch.tools.attn_exp import best_ms
     from visualbert_torch.tools.main_path import card_line
 
-    if argv and len(argv) > 1:
+    argv = list(argv or [])
+    wide = bool(argv) and argv[0] == "--wide"
+    if wide:
+        argv = argv[1:]
+    if len(argv) > 1:
         raise SystemExit(f"xent_steps: takes at most one argument (another checkout), got {argv}")
     if not torch.cuda.is_available():
         raise SystemExit("xent_steps: no CUDA device; the kernels run only on the card")
     card = card_line()
+    if wide:
+        return wide_main(argv[0] if argv else None, card)
     dev = torch.device("cuda")
     sms = xe.sm_count(dev)
     data = inputs(torch, dev)
