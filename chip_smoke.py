@@ -99,13 +99,14 @@ non-zero without printing the final line:
    plain version, scaled_dot_product_attention in its dtype and its bound,
    with each kernel's registers, local bytes, shared bytes and blocks an
    SM and the padding's own time; K4-K6 (XENT_FORMS) in bf16 at widths
-   128, 256 and 512, in fp16 and fp32 at 768, in bf16 and fp16 at 384
-   (zero-padded to 512, the copy of E timed alone), on the wide form in
-   bf16 at 2048 and 2560 (Megatron-BERT 1.3B's and 3.9B's widths; K5/K6 in
-   thread-block clusters, printed with their cluster and TFLOP/s), fp16 at
-   2560 (on the fp32 kernels) and fp32 (the tiled kernels) at 1088 and
+   128, 256, 512 and 1024 (bert-large's), in fp16 and fp32 at 768, in bf16
+   and fp16 at 384 (zero-padded to 512, the copy of E timed alone), on the
+   wide form in bf16 and fp16 at 2048 and 2560 (Megatron-BERT 1.3B's and
+   3.9B's widths; K4 on 128 x 128 tiles fed by a producer warp's TMA,
+   K5/K6 in thread-block clusters, printed with their cluster and TFLOP/s;
+   db held to the exact products') and fp32 (the tiled kernels) at 1088 and
    2048, at the main path's N = 3072 and V = 30522, likewise (none may
-   spill; fp32 and wide bf16 K4-K6 called twice must agree bit for bit),
+   spill; fp32 and wide K4-K6 called twice must agree bit for bit),
    beside cuBLAS's products in the same dtype. Then K11/K12 and K13/K14 in the same forms
    (ATTENTION_FORMS) at the main path's [128, 228, 12 heads], dropout 0 and
    0.1, held as K1/K2's forms and K11-K14 are (K13's bf16 probabilities
@@ -305,7 +306,7 @@ non-zero without printing the final line:
    one epoch of 4 steps whose checkpoint must load back;
 27. (run before 26's table) trains GEOMETRY_EXAMPLES / 128 = 3 steps of
    coco_pretrain through the CLI on synthetic data with
-   configs/coco_pretrain.json's blocks and flags in eight model
+   configs/coco_pretrain.json's blocks and flags in nine model
    geometries: the JAX package's tiny() (fp32, head dim 16, width 64, with
    the fused LayerNorm: all four kernel flags), bert-base in fp16,
    BERT-Small (Turc et al. 2019: L = 4, H = 512, A = 8, I = 2048) in bf16,
@@ -317,7 +318,9 @@ non-zero without printing the final line:
    cross-entropy (K4-K6 on the wide form, which the run must show), then
    bert-base in fp32 with the config's blocks and flags as shipped (K1 and
    the register-tiled fp32 K2, 12 a step; K4-K6 in fp32) and again with
-   `"flash_save_probs": true` (the tiled fp32 K13 and K14); each run
+   `"flash_save_probs": true` (the tiled fp32 K13 and K14), and the
+   Megatron widths again in fp16 (Megatron-BERT's own mixed precision; K4-K6
+   on the fp16 wide form, which the run must show); each run
    must be on the card, its losses finite, its launches those of its depth
    and flags (the attention pair L a step, K4-K6 one, the dropout sites or
    K9/K10), every launch of K1/K2, K4-K14 in the kernel form of its dtype
@@ -334,9 +337,9 @@ non-zero without printing the final line:
    more, timed at the main path's shapes in fp32, their launches from
    phase 27's bert-base fp32 run; the forms of K11/K12 (fp16), K13/K14 (fp32,
    launches from the bert-base fp32 save-probs run),
-   K9/K10 (bf16, a block a row) and K4-K6 (bf16, the wide form at 2048)
-   that phase 27 drives are nine rows more (FORM_KERNELS), timed at phase
-   3's shapes, their launches from their geometry's run), then {"ok":
+   K9/K10 (bf16, a block a row) and K4-K6 (bf16 and fp16, the wide form at
+   2048) that phase 27 drives are twelve rows more (FORM_KERNELS), timed at
+   phase 3's shapes, their launches from their geometry's run), then {"ok":
    true, "device": {...}} as the last line.
 """
 
@@ -460,8 +463,8 @@ SLICE_F32_REL_TOL = 1e-4  # the dropout-off loss check in fp32
 ATTENTION_FORMS = (("float16", 64), ("float32", 64), ("bfloat16", 16), ("float16", 16), ("float32", 16),
                    ("bfloat16", 128), ("float16", 128), ("float32", 128))
 XENT_FORMS = (("bfloat16", 128), ("bfloat16", 256), ("bfloat16", 512), ("float16", 768), ("float32", 768),
-              ("bfloat16", 384), ("float16", 384), ("bfloat16", 2048), ("bfloat16", 2560), ("float16", 2560),
-              ("float32", 1088), ("float32", 2048))
+              ("bfloat16", 1024), ("bfloat16", 384), ("float16", 384), ("bfloat16", 2048), ("bfloat16", 2560),
+              ("float16", 2048), ("float16", 2560), ("float32", 1088), ("float32", 2048))
 # K11-K14 take the forms of ATTENTION_FORMS; K7-K10 at the main path's rows
 # in these (dtype, width) forms: below 64 and odd widths on the element
 # forms, above 1024 on the block forms (Megatron-BERT's 2048, ALBERT-
@@ -491,8 +494,14 @@ GEOMETRIES = (
     # the reference trains in fp32 unless apex's fp16 is on: its numerics on the fp32 kernels
     ("bert-base in fp32", dict(dtype="float32")),
     ("bert-base in fp32, flash_save_probs", dict(dtype="float32", flash_save_probs=True)),
+    # Megatron-BERT trained in fp16 mixed precision: its widths with K4-K6 on the fp16 wide form
+    ("Megatron-BERT 1.3B's widths (Shoeybi et al. 2019, Table 4: H=2048, A=32, I=8192) at L=2 (cut from 24) in "
+     "fp16, the fused LayerNorm, fast_dropout and the fused cross-entropy (K4-K6 on the wide form)",
+     dict(hidden_size=2048, num_hidden_layers=2, num_attention_heads=32, intermediate_size=8192, dtype="float16",
+          use_fused_layer_norm=True, fast_dropout=True, fused_mlm_xent=True)),
 )
 F32_GEOMETRY, F32_SP_GEOMETRY = 6, 7  # the bert-base fp32 runs: the fp32 rows' launches
+F16_WIDE_GEOMETRY = 8  # the Megatron-width fp16 run: the fp16 wide K4-K6 rows' launches
 # the kernel table's rows of the fp32 kernels: (row name, wrapper module,
 # wrapper, source, the TPU kernel it replaces); launches from the bert-base
 # fp32 run
@@ -527,6 +536,12 @@ FORM_KERNELS = (
      5, ("bfloat16", 2048)),
     ("mlm_xent_de (bf16 wide H2048)", "mlm_xent", "mlm_xent_de", "mlm_xent.cu", "visualbert_tpu/ops/mlm_xent.py:170",
      5, ("bfloat16", 2048)),
+    ("mlm_xent_fwd (fp16 wide H2048)", "mlm_xent", "mlm_xent_fwd", "mlm_xent.cu", "visualbert_tpu/ops/mlm_xent.py:52",
+     F16_WIDE_GEOMETRY, ("float16", 2048)),
+    ("mlm_xent_dx (fp16 wide H2048)", "mlm_xent", "mlm_xent_dx", "mlm_xent.cu", "visualbert_tpu/ops/mlm_xent.py:145",
+     F16_WIDE_GEOMETRY, ("float16", 2048)),
+    ("mlm_xent_de (fp16 wide H2048)", "mlm_xent", "mlm_xent_de", "mlm_xent.cu", "visualbert_tpu/ops/mlm_xent.py:170",
+     F16_WIDE_GEOMETRY, ("float16", 2048)),
 )
 # phase 25: the mesh's runs against the one-process run on the same seeded
 # weights and batch (bf16 model; the ranks sum in another order), each limit
@@ -1768,12 +1783,13 @@ def check_xent_forms(torch, card):
     """K4-K6 in the forms of XENT_FORMS at the main path's N = 3072 rows and
     V = 30522, against their plain versions (fp32 at F32_ABS_TOL /
     F32_REL_TOL, the rest at bf16's limits; argmax as check_xent holds it);
-    fp32 and wide bf16 K4-K6 called again on the same inputs must give the
-    same bits (the wide K5/K6 with the cluster each of their blocks is in,
-    the clusters the card runs at once, and the TFLOP/s of their two useful
-    products printed; their db held at DBIAS_TOL to the exact products'
-    (tools/xent_steps.py::db_exact: the plain version's own fp32 sums drift
-    beyond DBIAS_TOL at 2560), its distance to the plain version printed);
+    fp32 and wide (bf16 and fp16) K4-K6 called again on the same inputs must
+    give the same bits (the wide K5/K6 with the cluster each of their blocks
+    is in, the clusters the card runs at once, and the TFLOP/s of their two
+    useful products printed; their db held at DBIAS_TOL to the exact
+    products' (tools/xent_steps.py::db_exact: the plain version's own fp32
+    sums drift beyond DBIAS_TOL at 2560), its distance to the plain version
+    and the plain version's own distance to the exact products printed);
     each timed beside its plain version, cuBLAS's products of the same
     dtype (x E^T; with dlog E or dlog^T x) and its bound, with the N x V x H
     products its design runs, its registers, local bytes (none may spill),
@@ -1790,7 +1806,7 @@ def check_xent_forms(torch, card):
     for dtype, H in XENT_FORMS:
         x, emb, bias, lab, g = xent_inputs_at(torch, dtype, H, N, V)
         form = xe.xent_form(x.dtype, H)
-        wide_bf16 = xe.is_wide(H) and not xe.runs_on_f32(x.dtype, H)
+        wide = xe.is_wide(H) and not xe.runs_on_f32(x.dtype, H)
         if dtype == "float32":
             t_lse, t_dx, t_de, t_db = F32_ABS_TOL, F32_REL_TOL, F32_REL_TOL, F32_REL_TOL
         else:
@@ -1810,7 +1826,7 @@ def check_xent_forms(torch, card):
         e_dx, r_dx = rel_err(dx, dx_r)
         e_de, r_de = rel_err(de, de_r)
         e_db, r_db = rel_err(db, db_r)
-        if wide_bf16:  # db against the exact products' (tools/xent_steps.py::db_exact)
+        if wide:  # db against the exact products' (tools/xent_steps.py::db_exact)
             db64 = db_exact(x, emb, bias, lab, lse_r, g)
             r_plain = rel_err(db_r, db64)[1]
             e_db, r_db_plain, r_db = *rel_err(db, db_r), rel_err(db, db64)[1]
@@ -1825,7 +1841,7 @@ def check_xent_forms(torch, card):
         if not (e_nll <= t_lse and e_lse <= t_lse and bad_clear == 0 and r_dx <= t_dx and r_de <= t_de
                 and r_db <= t_db):
             raise SystemExit(f"K4-K6 {where} disagree with their plain versions")
-        if dtype == "float32" or wide_bf16:
+        if dtype == "float32" or wide:
             again = (*xe.mlm_xent_fwd(x, emb, bias, lab), xe.mlm_xent_dx(x, emb, bias, lab, lse_r, g),
                      *xe.mlm_xent_de(x, emb, bias, lab, lse_r, g))
             same = [torch.equal(a, b) for a, b in zip((nll, lse, am, dx, de, db), again)]
@@ -1865,13 +1881,13 @@ def check_xent_forms(torch, card):
         if on_f32:
             info = lib.vb_xent_f32_info
         elif xe.is_wide(H):
-            info = lib.vb_xent_wide_info
+            info = {"bfloat16": lib.vb_xent_wide_info, "float16": lib.vb_xent_f16_wide_info}[dtype]
         else:
             info = {"bfloat16": lib.vb_xent_info, "float16": lib.vb_xent_f16_info}[dtype]
         for k, kernel in enumerate(("K5", "K6", "K4")):
             regs, local, smem, per_sm = (info(k, w, hk) for w in range(4))
             cluster = ""
-            if wide_bf16 and k < 2:
+            if wide and k < 2:
                 R, panels = xe.wide_cluster(hk, lib.vb_xent_wide_geometry(5))
                 cluster = (f", clusters of {R} blocks ({panels} panels of 64 columns a block), "
                            f"{info(k, 4, hk)} clusters at once")

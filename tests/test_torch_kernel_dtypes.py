@@ -212,8 +212,10 @@ def test_padded_widths_give_the_unpadded_cross_entropy(H):
 @pytest.mark.parametrize("dtype,H,form", [("bfloat16", 768, "bf16 H768"), ("bfloat16", 64, "bf16 H128"),
                                           ("float16", 384, "fp16 H512"), ("float16", 1024, "fp16 H1024"),
                                           ("float32", 200, "fp32"), ("bfloat16", 2048, "bf16 wide H2048"),
-                                          ("float16", 1100, "fp16 on fp32"), ("bfloat16", 1025, "bf16 wide H1088"),
-                                          ("float32", 2560, "fp32")])
+                                          ("float16", 1100, "fp16 wide H1152"), ("bfloat16", 1025, "bf16 wide H1088"),
+                                          ("float32", 2560, "fp32"), ("float16", 2048, "fp16 wide H2048"),
+                                          ("float16", 8192, "fp16 wide H8192"), ("float16", 8193, "fp16 on fp32"),
+                                          ("bfloat16", 8256, "bf16 on fp32")])
 def test_each_dtype_and_width_has_its_kernel_form(dtype, H, form):
     assert xe.xent_form(getattr(torch, dtype), H) == form
 

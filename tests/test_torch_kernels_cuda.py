@@ -67,16 +67,18 @@ as above (fp32 within 1e-4 relative, its stats within 1e-4), repeating bit
 for bit, dropping exactly the plain mask's positions, and at D = 128
 taking T up to 256 and refusing 257 (fp32 has no such limit: T = 1024
 runs); K4-K6 in bf16 and fp16 at widths 32 to 1024 (every instantiated
-width and padded ones between), bf16 on the wide form at 1088, 2048 and
-2560, fp16 there on the fp32 kernels, and fp32 at any width (the tiled
-kernels, at 32 to 2048), as
+width and padded ones between), both on the wide form at 1088, 2048 and
+2560, and fp32 at any width (the tiled kernels, at 32 to 2048), as
 above (fp32's dx, dE and db within 1e-4 of the largest plain value, nll
 and lse within 1e-4), repeating bit for bit, none spilling, and the first
 of equal maxima taken by the fp32 and the wide forms. The wide K5/K6 (a
 thread-block cluster a row block) also at H in {1088, 1536, 2048, 2560,
-4160} (4160: a cluster of 9 blocks) x N in {1, 65, 3071} x V in {70, 4099,
-30522}, repeating bit for bit, none spilling, their clusters fitting the
-card.
+4160, 6144, 8192} (4160: a cluster of 9 blocks) x N in {1, 65, 3071} x V
+in {70, 4099, 30522}, in both dtypes (fp16 also at a padded 1100),
+repeating bit for bit, none spilling, their clusters fitting the card;
+the wide K4 at 1088 to 8192 x N in {1, 200, 3071} x V in {1000, 30522}
+in both dtypes; the wide forms' nll, lse and db held to the exact
+products' where the plain version's fp32 sums drift.
 
 The register-tiled fp32 kernels (K13's forward and the backward of K2, K12
 and K14, ``csrc/flash_attention_f32.cu``) at T in {1, 63, 64, 65, 228,
@@ -938,9 +940,11 @@ def test_xent_geometry_is_the_one_the_plans_are_tested_with(cuda):
     assert lib.vb_xent_f16_info(2, 0, 640) == -1 and lib.vb_xent_f32_info(0, 0, 0) == -1
     # tests/test_torch_xent_wide.py plans the fp32 and the wide grids at these
     assert (lib.vb_xent_f32_geometry(0), lib.vb_xent_f32_geometry(1)) == (128, 256)
-    assert tuple(lib.vb_xent_wide_geometry(w) for w in range(7)) == (64, 128, 64, 64, 64, 512, 16)
-    assert lib.vb_xent_wide_info(0, 0, 1024) == -1 and lib.vb_xent_wide_info(2, 0, 1100) == -1
-    assert lib.vb_xent_wide_info(2, 0, 1088) > 0 and lib.vb_xent_wide_info(3, 0, 2048) == -1
+    assert tuple(lib.vb_xent_wide_geometry(w) for w in range(7)) == (64, 128, 64, 128, 64, 512, 16)
+    assert tuple(lib.vb_xent_f16_wide_geometry(w) for w in range(7)) == (64, 128, 64, 128, 64, 512, 16)
+    for info in (lib.vb_xent_wide_info, lib.vb_xent_f16_wide_info):
+        assert info(0, 0, 1024) == -1 and info(2, 0, 1100) == -1
+        assert info(2, 0, 1088) > 0 and info(3, 0, 2048) == -1
 
 
 def test_xent_argmax_takes_the_first_max(cuda):
@@ -1596,8 +1600,107 @@ def test_xent_wide_backward_clusters_fit_the_card(cuda, H):
     assert lib.vb_xent_wide_info(2, 4, H) == -1 and lib.vb_xent_wide_info(0, 4, 8256) == -1
 
 
+@pytest.mark.parametrize("H", [1088, 1536, 2048, 2560, 4160, 8192])
+@pytest.mark.parametrize("kernel", [0, 1, 2])
+def test_xent_f16_wide_forms_do_not_spill(cuda, H, kernel):
+    """The fp16 wide K5, K6 and K4 (vb_xent_f16_wide_info): no local memory,
+    one block an SM, and (K5, K6) some clusters at once."""
+    lib = _build.library()
+    regs, local, smem, per_sm = (lib.vb_xent_f16_wide_info(kernel, w, H) for w in range(4))
+    assert 0 < regs <= 255 and local == 0
+    assert 0 < smem <= 232448 and per_sm == 1
+    if kernel < 2:
+        assert lib.vb_xent_f16_wide_info(kernel, 4, H) > 0
+        assert xe.wide_clusters(lib, kernel, H, torch.float16) == lib.vb_xent_f16_wide_info(kernel, 4, H)
+
+
+@pytest.mark.parametrize("N,V", [(N, V) for N in (1, 65, 3071) for V in (70, 4099, 30522)])
+@pytest.mark.parametrize("H", WIDE_BWD_WIDTHS + (1100,))
+def test_xent_f16_wide_forms_match_plain(cuda, H, N, V):
+    """fp16 above 1024 on the wide form (not on the fp32 kernels): K4's nll
+    and lse within chip_smoke.py's XENT_TOL (3e-5) of the exact products'
+    (tools/xent_steps.py::fwd_exact: the plain version's own fp32 sums
+    drift past it at 6144 and 8192) and its argmax where the top two
+    logits are apart, K5's dx and K6's dE within the bf16 limits (1.2e-2,
+    1.8e-2 of the largest plain value), db within this file's, at ragged
+    rows, vocabulary tiles and splits and at a padded width (1100, run at
+    1152)."""
+    from visualbert_torch.tools.xent_steps import fwd_exact
+
+    x, emb, bias, labels, g = form_xent_inputs(N, V, H, torch.float16, cuda, seed=17)
+    assert xe.xent_form(x.dtype, H) == f"fp16 wide H{xe.kernel_width(H)}"
+    nll, lse, am = xe.mlm_xent_fwd(x, emb, bias, labels)
+    nll_r, lse_r, am_r = xe.mlm_xent_fwd_reference(x, emb, bias, labels)
+    dx = xe.mlm_xent_dx(x, emb, bias, labels, lse_r, g)
+    de, db = xe.mlm_xent_de(x, emb, bias, labels, lse_r, g)
+    dx_r = xe.mlm_xent_dx_reference(x, emb, bias, labels, lse_r, g)
+    de_r, db_r = xe.mlm_xent_de_reference(x, emb, bias, labels, lse_r, g)
+    nll64, lse64 = fwd_exact(x, emb, bias, labels)
+    torch.cuda.synchronize()
+    assert float((nll - nll64).abs().max()) < 3e-5 and float((lse - lse64).abs().max()) < 3e-5
+    clear = top2_gap(x, emb, bias) > ARGMAX_GAP
+    assert torch.equal(am[clear], am_r[clear])
+    assert dx.dtype == de.dtype == torch.float16 and dx.shape == x.shape and de.shape == emb.shape
+    assert rel_err(dx, dx_r) < 1.2e-2 and rel_err(de, de_r) < 1.8e-2 and rel_err(db, db_r) < DB_REL_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("H", [2048, 2560])
+def test_xent_wide_db_meets_the_exact_products(cuda, dtype, H):
+    """The wide K6's db at the main path's rows and vocabulary within
+    chip_smoke.py's DBIAS_TOL (2e-6 of its largest value) of db with the
+    logits' products summed exactly (tools/xent_steps.py::db_exact, fp64),
+    the yardstick the plain version's own fp32 sums drift from at these
+    widths; and the kernels repeat bit for bit."""
+    from visualbert_torch.tools.xent_steps import db_exact
+
+    x, emb, bias, labels, g = form_xent_inputs(3072, 30522, H, dtype, cuda, seed=1)
+    _, lse, _ = xe.mlm_xent_fwd_reference(x, emb, bias, labels)
+    runs = [xe.mlm_xent_de(x, emb, bias, labels, lse, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert rel_err(runs[0][1], db_exact(x, emb, bias, labels, lse, g)) < 2e-6
+
+
+@pytest.mark.parametrize("N,V", [(N, V) for N in (1, 200, 3071) for V in (1000, 30522)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("H", [1088, 2048, 4160, 8192])
+def test_xent_wide_forward_matches_plain(cuda, H, dtype, N, V):
+    """The wide K4 (128 x 128 tiles by TMA from a producer warp, two
+    consumer warpgroups) at ragged rows (a warpgroup without a row at N = 1)
+    and vocabulary (a last tile of 58 rows at V = 1000): nll and lse within
+    XENT_TOL of the exact products' (tools/xent_steps.py::fwd_exact; the
+    plain version's fp32 sums drift past it at 8192), the argmax where the
+    top two logits are apart, and two calls bit for bit."""
+    from visualbert_torch.tools.xent_steps import fwd_exact
+
+    x, emb, bias, labels, _ = form_xent_inputs(N, V, H, dtype, cuda, seed=19)
+    runs = [xe.mlm_xent_fwd(x, emb, bias, labels) for _ in range(2)]
+    _, _, am_r = xe.mlm_xent_fwd_reference(x, emb, bias, labels)
+    nll64, lse64 = fwd_exact(x, emb, bias, labels)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    nll, lse, am = runs[0]
+    assert float((nll - nll64).abs().max()) < 3e-5 and float((lse - lse64).abs().max()) < 3e-5
+    clear = top2_gap(x, emb, bias) > ARGMAX_GAP
+    assert torch.equal(am[clear], am_r[clear])
+
+
+@pytest.mark.parametrize("H", WIDE_BWD_WIDTHS)
+def test_xent_f16_wide_forms_repeat_bit_for_bit(cuda, H):
+    """No atomics in the fp16 wide K4-K6 either: two calls, the same bits."""
+    x, emb, bias, labels, g = form_xent_inputs(3071, 30522, H, torch.float16, cuda, seed=12)
+    runs = []
+    for _ in range(2):
+        nll, lse, am = xe.mlm_xent_fwd(x, emb, bias, labels)
+        runs.append((nll, lse, am, xe.mlm_xent_dx(x, emb, bias, labels, lse, g))
+                    + xe.mlm_xent_de(x, emb, bias, labels, lse, g))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 @pytest.mark.parametrize("dtype,H", [(torch.float32, 768), (torch.float32, 1088), (torch.bfloat16, 2048),
-                                     (torch.float16, 2560), (torch.bfloat16, 1100)], ids=str)
+                                     (torch.float16, 2560), (torch.bfloat16, 1100), (torch.float16, 1100)], ids=str)
 def test_xent_fp32_and_wide_forms_take_the_first_max(cuda, dtype, H):
     """Equal logits in one vocabulary tile (5, 9) and in two splits (5,
     V - 3), with labels of -1 (computed as 0, g = 0) among the rows: the

@@ -3,9 +3,9 @@ left out in turn and timed), without a card: what runs here is the tool's
 refusals and its switches in the source, each one the kernel library never
 sets, the SASS parse it shares with ``tools/attn_ab.py``, which keys the
 kernels both trees share (the bf16 K4, K5 and K6 at 768 and 1024, K5's
-reduce pass, K4's merge pass; in the wide mode also the wide K4 and the
-wide reduce pass, not the wide K5/K6), and the splits its sweeps of K4 and
-of the wide K5 time."""
+reduce pass, K4's merge pass; in the wide mode every kernel both trees
+build but the wide K4, whatever the path each was built at), and the
+splits its sweeps of K4, the wide K4 and the wide K5 time."""
 
 import re
 
@@ -85,10 +85,21 @@ def test_the_sass_parse_keys_the_shared_kernels_by_their_mangled_names():
     assert got == {"K5, 768": ["MOV R1, c[0x0][0x28]", "BRA `(.L0)"], "K4, 768": ["EXIT"], "K6, 1024": ["EXIT"]}
     # the bf16 forms up to 1024 only: no fp16 form, no wide form
     assert not any("wide" in key or "half" in key for key in xent_steps.SHARED_KERNELS.values())
-    # the wide mode adds the wide K4 and the wide reduce pass, never the wide K5/K6 it changes
-    got = sass_of(text, xent_steps.WIDE_SHARED_KERNELS, OTHER_FORMS)
-    assert got == {"wide K4": ["NOP"]}
-    assert not any("bwd" in key for key in xent_steps.WIDE_SHARED_KERNELS.values())
+    # the wide mode: every function of both builds by its name without the anonymous namespace's tag, which
+    # differs between two paths; all are compared but the wide K4 (WIDE_TAKEN), the wide K5/K6 included
+    here = text.replace("_GLOBAL__N__x", "_GLOBAL__N__f24a70b0_11_mlm_xent_cu_0bf669f9")
+    there = text.replace("_GLOBAL__N__x", "_GLOBAL__N__cd4a2f04_11_mlm_xent_cu_0bf669f9").replace("NOP", "EXIT", 1)
+    funcs = xent_steps.sass_functions(here)
+    assert len(funcs) == 6 and all(name.startswith("_ZN44_GLOBAL__N_") and "f24a70b0" not in name for name in funcs)
+    assert funcs == xent_steps.sass_functions(text.replace("_GLOBAL__N__x", "_GLOBAL__N_"))
+    assert funcs["_ZN44_GLOBAL__N_15xent_bwd_kernelILi768ELb0EEEvPK13__nv_bfloat16"] == [
+        "MOV R1, c[0x0][0x28]", "BRA `(.L0)"]
+    got = xent_steps.compare_all_sass({"this": here, "other": there}, "card")
+    assert got["only_here"] == got["only_there"] == [] and len(got["compared"]) == 5
+    assert not any("xent_wide_fwd_kernel" in name for name in got["compared"])
+    assert {name: same for name, (same, _, _) in got["compared"].items() if not same} == {
+        "_ZN44_GLOBAL__N_15xent_bwd_kernelILi768ELb0E6__halfEEvPKT1_": False}
+    assert got["compared"]["_ZN44_GLOBAL__N_20xent_wide_bwd_kernelILb0E13__nv_bfloat16EEvPKT0_"] == (True, 1, 1)
 
 
 @pytest.mark.parametrize("H,rows", [(768, 128), (1024, 64)])
@@ -114,6 +125,27 @@ def test_the_split_sweep_fills_one_to_four_waves_with_no_split_empty(H, rows, V,
         assert xe.fwd_plan(N, V, H, rows, tile, sms)["grid"][1] in [S for S, *_ in sweep]
 
 
+@pytest.mark.parametrize("H", [1088, 2048, 2560])
+@pytest.mark.parametrize("V", [30522, 4099])
+@pytest.mark.parametrize("N", [3072, 257])
+def test_the_wide_k4_split_sweep_holds_the_plans_splits(N, V, H):
+    """The wide K4's sweep (its 128 x 128 tiling, WIDE_FWD_BLOCK_TILES a
+    block's fixed cost) fills one to four waves of 132 SMs with no split
+    empty and holds the splits the wrapper's plan takes, the cheapest of
+    them as fwd_plan models them."""
+    rows, tile, sms = 128, 128, 132
+    n_tiles = -(-V // tile)
+    sweep = xent_steps.sweep_splits(N, V, rows, tile, sms, xe.WIDE_FWD_BLOCK_TILES)
+    for S, per, w, tiles in sweep:
+        assert (S - 1) * per < n_tiles <= S * per and tiles == w * (per + xe.WIDE_FWD_BLOCK_TILES)
+    plan = xe.fwd_plan(N, V, H, rows, tile, sms, xe.WIDE_FWD_BLOCK_TILES)
+    chosen = [e for e in sweep if e[0] == plan["grid"][1]]
+    if N == 3072 and V == 30522:
+        assert chosen and plan["grid"] == (24, 11)
+    if chosen:
+        assert chosen[0][3] == min(e[3] for e in sweep)
+
+
 @pytest.mark.parametrize("H,clusters", [(2048, 30), (2560, 22), (4160, 9), (2048, 1)])
 @pytest.mark.parametrize("V", [30522, 4099, 70])
 def test_the_wide_split_sweep_holds_the_plans_splits_with_no_split_empty(H, clusters, V):
@@ -132,3 +164,27 @@ def test_the_wide_split_sweep_holds_the_plans_splits_with_no_split_empty(H, clus
     plan = xe.wide_dx_plan(N, V, H, rows, tile, 512, clusters)
     chosen = [e for e in sweep if e[0] == plan["grid"][2]]
     assert chosen and chosen[0][3] == min(e[3] for e in sweep)
+
+
+def test_the_exact_yardsticks_agree_with_the_plain_versions_at_a_narrow_width():
+    """fwd_exact's nll and lse and db_exact's db (the logits' products summed
+    in fp64, what the wide forms are held to) agree with the plain versions
+    where 64 products leave the fp32 sums no room to drift."""
+    import numpy as np
+
+    rng = np.random.RandomState(3)
+    N, V, H = 24, 50, 64
+    x = torch.tensor(rng.randn(N, H), dtype=torch.bfloat16)
+    emb = torch.tensor(rng.randn(V, H) * 0.05, dtype=torch.bfloat16)
+    bias = torch.tensor(rng.randn(V) * 0.1, dtype=torch.float32)
+    labels = torch.tensor(rng.randint(0, V, N), dtype=torch.int32)
+    g = torch.tensor(rng.uniform(0.5, 1.5, N), dtype=torch.float32)
+    nll_r, lse_r, _ = xe.mlm_xent_fwd_reference(x, emb, bias, labels)
+    nll64, lse64 = xent_steps.fwd_exact(x, emb, bias, labels)
+    assert nll64.dtype == lse64.dtype == torch.float64 and nll64.shape == lse64.shape == (N,)
+    torch.testing.assert_close(nll64, nll_r.double(), rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse64, lse_r.double(), rtol=0, atol=1e-5)
+    _, db_r = xe.mlm_xent_de_reference(x, emb, bias, labels, lse_r, g)
+    db64 = xent_steps.db_exact(x, emb, bias, labels, lse_r, g)
+    assert db64.dtype == torch.float64
+    assert float((db64 - db_r.double()).abs().max() / db_r.abs().max()) < 1e-6

@@ -1,13 +1,14 @@
 """The launch plans of K4-K6's fp32 form (``csrc/mlm_xent_f32.cu``) and
-wide form (``csrc/mlm_xent.cu``'s ``xent_wide_*``, bf16 above width 1024),
-without a card.
+wide form (``csrc/mlm_xent.cu``'s ``xent_wide_*``, bf16 and fp16 above
+width 1024), without a card.
 
 ``ops/mlm_xent.py::f32_plan``, ``::fwd_plan``, ``::wide_cluster``,
 ``::wide_dx_plan`` and ``::wide_de_plan`` choose the grids, the wide
 K5/K6's thread-block clusters and the vocabulary splits in plain Python
 from the kernels' tiling and the SM or cluster count; a slip there shows
 on the card only as a row, vocabulary tile or column left out or done
-twice. Here the plans are walked as the kernels walk them, at the main
+twice. Here the plans (and the wide K4's ring of TMA stages, step by
+step) are walked as the kernels walk them, at the main
 path's N = 3072, V = 30522 and ragged shapes, at widths 768 (fp32) and
 1088 to 4160 (the wide form), on a card of 132 SMs (an H100) and of 8, and
 for 30, 8 and 1 clusters at once: every (row block, vocabulary tile) and
@@ -32,7 +33,8 @@ from visualbert_torch.tools import xent_f32_steps
 F32_ROWS, F32_TILE = 128, 256  # vb_xent_f32_geometry 0, 1
 # vb_xent_wide_geometry: width step, K4 rows / block, K5/K6 resident rows, K4 tile, K5/K6 tile, columns a
 # block at most, blocks a cluster at most
-WIDE = (64, 128, 64, 64, 64, 512, 16)
+WIDE = (64, 128, 64, 128, 64, 512, 16)
+WF_STAGES = 6  # the wide K4's ring stages
 SMS = (132, 8)
 CLUSTERS = (30, 8, 1)  # K5/K6 clusters a card runs at once (an H100 at 2048: 30)
 VS = (30522, 4099, 70)
@@ -100,8 +102,11 @@ def test_f32_plan_at_the_main_path(slots, grid, per):
 @pytest.mark.parametrize("H", [1088, 2048, 2560])
 @pytest.mark.parametrize("N", [3072, 257, 1])
 def test_wide_fwd_plan_covers_every_row_block_and_tile_once(N, H, V, sms):
+    """The wide K4's plan (xe._wide_fwd_plan_of's: WIDE_FWD_BLOCK_TILES a
+    block's fixed cost): every (row block, tile) once, the splits in
+    order, none empty."""
     rows, tile = WIDE[1], WIDE[3]
-    plan = xe.fwd_plan(N, V, H, rows, tile, sms)
+    plan = xe.fwd_plan(N, V, H, rows, tile, sms, xe.WIDE_FWD_BLOCK_TILES)
     row_blocks, S = plan["grid"]
     n_tiles = -(-V // tile)
     assert covered_once([(x * rows, min(N, x * rows + rows)) for x in range(row_blocks)], N)
@@ -109,6 +114,68 @@ def test_wide_fwd_plan_covers_every_row_block_and_tile_once(N, H, V, sms):
     visits = [(x, t) for x in range(row_blocks) for split in split_tiles(S, plan["per"], n_tiles) for t in split]
     assert len(visits) == len(set(visits)) == row_blocks * n_tiles
     assert plan["pf_shape"] == (4, S, N) and plan["pi_shape"] == (S, N)
+
+
+def walk_wide_fwd_ring(nsteps, stages=WF_STAGES, producer_first=True):
+    """The wide K4's ring (csrc/mlm_xent.cu::xent_wide_fwd_kernel): the
+    producer warp issues step q into stage q % stages once that stage's
+    empty mbarrier has completed the phase of step q - stages (parity (q /
+    stages - 1) & 1); the consumers wait for the full mbarrier's phase of
+    step q (parity (q / stages) & 1), take it and release the stage (every
+    consumer warp arrives). The two sides alternate, the producer running ahead as
+    far as the ring lets it (``producer_first``) or one step at a time.
+    Returns the (issued, consumed) order of the steps; asserts that nothing
+    waits forever, that a stage is filled only after its last step was
+    released, and that every wait finds its own phase or the one before it
+    (a parity two phases stale would be read as the wrong one)."""
+    full, empty = [0] * stages, [0] * stages  # completed phases of each stage's mbarriers
+    issued, consumed = [], []
+
+    def ready(bars, b, phase):
+        assert bars[b] in (phase, phase + 1), f"stage {b}: phase {bars[b]}, waited for {phase}"
+        return bars[b] == phase + 1
+
+    while len(consumed) < nsteps:
+        moved = False
+        while len(issued) < nsteps:
+            q = len(issued)
+            b = q % stages
+            if q >= stages and not ready(empty, b, q // stages - 1):
+                break
+            full[b] += 1
+            issued.append(q)
+            moved = True
+            if not producer_first:
+                break
+        q = len(consumed)
+        if ready(full, q % stages, q // stages):
+            consumed.append(q)
+            empty[q % stages] += 1
+            moved = True
+        assert moved, f"no side can move at step {q}"
+    return issued, consumed
+
+
+@pytest.mark.parametrize("producer_first", [True, False])
+@pytest.mark.parametrize("V", VS)
+@pytest.mark.parametrize("H", [1088, 1152, 2048, 2560, 4160, 8192])
+@pytest.mark.parametrize("N", [3072, 257, 1])
+def test_the_wide_fwd_ring_takes_every_panel_of_every_tile_once_in_order(N, H, V, producer_first):
+    """Each block of the plan walks its split's tiles panel by panel: every
+    step issued once and in order before it is used, every stage refilled
+    only after its last step was released, the products added in (tile,
+    panel) order with each tile's statistics once after its last panel, at
+    even and odd step counts (17 panels a tile at 1088)."""
+    rows, tile = WIDE[1], WIDE[3]
+    plan = xe.fwd_plan(N, V, H, rows, tile, 132, xe.WIDE_FWD_BLOCK_TILES)
+    NP = H // 64
+    for tiles in split_tiles(plan["grid"][1], plan["per"], plan["tiles"]):
+        nsteps = len(tiles) * NP
+        issued, consumed = walk_wide_fwd_ring(nsteps, producer_first=producer_first)
+        assert issued == consumed == list(range(nsteps))
+        order = [(tiles[q // NP], q % NP) for q in consumed]
+        assert order == [(t, p) for t in tiles for p in range(NP)]
+        assert [t for t, p in order if p == NP - 1] == list(tiles)
 
 
 def block_panels(H, r, wg=None):
@@ -216,12 +283,13 @@ def test_wide_de_plan_covers_every_vocabulary_row_and_column_once(H, V):
                                                         (4160, 9, (48, 9, 3), (477, 9))])
 def test_wide_grids_at_the_main_path(H, clusters, dx_grid, de_grid):
     """At N = 3072, V = 30522 on an H100: K4 24 row blocks of 128 x 11
-    splits of 44 tiles; K5 48 row blocks x a cluster of cdiv(H, 512)
-    blocks x the splits that give the card's clusters (30 at once at 2048,
-    22 at 2560, 39 at 1088, 9 at 4160) the fewest tiles; K6 477 vocabulary
-    blocks x the cluster."""
-    fwd = xe.fwd_plan(3072, 30522, H, WIDE[1], WIDE[3], 132)
-    assert fwd["grid"] == (24, 11) and fwd["per"] == 44
+    splits of 22 tiles of 128 vocabulary rows, 264 blocks, two full waves
+    of 132; K5 48 row blocks x a cluster of cdiv(H,
+    512) blocks x the splits that give the card's clusters (30 at once at
+    2048, 22 at 2560, 39 at 1088, 9 at 4160) the fewest tiles; K6 477
+    vocabulary blocks x the cluster."""
+    fwd = xe.fwd_plan(3072, 30522, H, WIDE[1], WIDE[3], 132, xe.WIDE_FWD_BLOCK_TILES)
+    assert fwd["grid"] == (24, 11) and fwd["per"] == 22
     assert xe.wide_dx_plan(3072, 30522, H, WIDE[2], WIDE[4], WIDE[5], clusters)["grid"] == dx_grid
     assert xe.wide_de_plan(30522, H, WIDE[2], WIDE[5])["grid"] == de_grid
 
@@ -239,26 +307,43 @@ def test_every_width_above_1024_meets_the_wide_forms_smallest():
         w = xe.kernel_width(h)
         assert xe.is_wide(h) and w % WIDE[0] == 0 and w >= wide_min and w - WIDE[0] < h <= w
     assert not xe.is_wide(1024) and xe.kernel_width(1024) == 1024
-    # up to a cluster of 16 blocks of 512 columns; wider bf16 rows run on the fp32 kernels
+    # up to a cluster of 16 blocks of 512 columns; wider bf16 and fp16 rows run on the fp32 kernels
     assert xe.WIDE_MAX == WIDE[5] * WIDE[6]
-    assert not xe.runs_on_f32(torch.bfloat16, xe.WIDE_MAX) and xe.runs_on_f32(torch.bfloat16, xe.WIDE_MAX + 1)
-    assert xe.xent_form(torch.bfloat16, xe.WIDE_MAX + 1) == "bf16 on fp32"
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16")):
+        assert not xe.runs_on_f32(dtype, xe.WIDE_MAX) and xe.runs_on_f32(dtype, xe.WIDE_MAX + 1)
+        assert xe.xent_form(dtype, xe.WIDE_MAX + 1) == f"{name} on fp32"
+        assert xe.xent_form(dtype, xe.WIDE_MAX) == f"{name} wide H{xe.WIDE_MAX}"
+
+
+@pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "bf16"), (torch.float16, "fp16")], ids=str)
+def test_fp16_and_bf16_run_every_width_from_1025_to_8192_on_the_wide_form(dtype, name):
+    """Both half dtypes take the wide form at every width above 1024 up to
+    WIDE_MAX (fp16 no longer on the fp32 kernels), at the next multiple of
+    64, with two N x V x H products in K5 and in K6; fp16 and bf16 above
+    WIDE_MAX and fp32 at every width run on the fp32 kernels."""
+    for h in range(1025, xe.WIDE_MAX + 1):
+        assert not xe.runs_on_f32(dtype, h) and xe.xent_form(dtype, h) == f"{name} wide H{xe.kernel_width(h)}"
+        assert xe.bwd_products(dtype, h) == 2
+    for h in (xe.WIDE_MAX + 1, xe.WIDE_MAX + 64, 12288):
+        assert xe.runs_on_f32(dtype, h) and xe.xent_form(dtype, h) == f"{name} on fp32"
+    assert all(xe.runs_on_f32(torch.float32, h) for h in (64, 1024, 1088, 8192, 8193))
 
 
 @pytest.mark.parametrize("dtype,H,products", [(torch.float32, 768, 2), (torch.float32, 2048, 2),
                                                (torch.bfloat16, 768, 2), (torch.bfloat16, 1024, 3),
                                                (torch.bfloat16, 2048, 2), (torch.bfloat16, 2560, 2),
                                                (torch.bfloat16, 1100, 2), (torch.float16, 1100, 2),
-                                               (torch.bfloat16, 4160, 2), (torch.bfloat16, 8256, 2)])
+                                               (torch.bfloat16, 4160, 2), (torch.bfloat16, 8256, 2),
+                                               (torch.float16, 1024, 3), (torch.float16, 2048, 2),
+                                               (torch.float16, 8256, 2)])
 def test_the_backward_forms_recompute_the_logits_once_a_column_range(dtype, H, products):
-    """K5's and K6's N x V x H products: fp32 (and fp16 above 1024 and bf16
-    above 8192, which run on the fp32 kernels) and the forms up to 768 (a
-    block owns every column) two; 1024 recomputes the logits for its second
-    512-column range (3); the bf16 wide form's cluster forms them once over
-    all its ranges (2, at every width it takes)."""
+    """K5's and K6's N x V x H products: fp32 (and bf16 and fp16 above 8192,
+    which run on the fp32 kernels) and the forms up to 768 (a block owns
+    every column) two; 1024 recomputes the logits for its second 512-column
+    range (3); the wide form's cluster forms them once over all its ranges
+    in bf16 and fp16 (2, at every width it takes)."""
     assert xe.bwd_products(dtype, H) == products
-    assert xe.runs_on_f32(dtype, H) == (dtype == torch.float32 or (dtype == torch.float16 and H > 1024)
-                                        or H > xe.WIDE_MAX)
+    assert xe.runs_on_f32(dtype, H) == (dtype == torch.float32 or H > xe.WIDE_MAX)
 
 
 def test_the_sources_name_the_tiling_the_plans_assume():
@@ -268,8 +353,13 @@ def test_the_sources_name_the_tiling_the_plans_assume():
     assert re.search(rf"constexpr int BN = {F32_TILE};", f32)
     wide = (_build.CSRC / "mlm_xent.cu").read_text()
     for name, value in (("WF_ROWS", WIDE[1]), ("WB_ROWS", WIDE[2]), ("WF_TILE", WIDE[3]), ("WB_TILE", WIDE[4]),
-                        ("WB_COLS", WIDE[5]), ("WB_MAX_CLUSTER", WIDE[6])):
+                        ("WB_COLS", WIDE[5]), ("WB_MAX_CLUSTER", WIDE[6]), ("WF_STAGES", WF_STAGES)):
         assert re.search(rf"constexpr int {name} = {value};", wide), name
+    # the wide K4's grid and ring, as the plan and walk_wide_fwd_ring take them
+    assert "xent_wide_fwd_kernel<ET><<<dim3(cdiv(N, WF_ROWS), S), WF_THREADS, WF_SMEM, st>>>(" in wide
+    assert "if (q >= WF_STAGES) mbar_wait(empty0 + 8 * b, (q / WF_STAGES - 1) & 1);" in wide
+    assert "mbar_wait(full0 + 8 * b, (q / WF_STAGES) & 1);" in wide
+    assert "mbar_init_count(empty0 + 8 * b, NTHREADS / 32);" in wide and "if (lane == 0) mbar_arrive(" in wide
     # the cluster's split of the width, as wide_cluster plans it, and of a tile's rows, as block_rows does
     assert "NP = hid / 64, CP = cdiv(NP, R), p0 = rank * CP" in wide
     assert "int wide_cluster(int hid) { return cdiv(hid / 64, WB_CP); }" in wide

@@ -157,9 +157,9 @@
 // wrapper zero-pads any other width up to 1024 to the next instantiated one
 // (ops/mlm_xent.py::pad_width; a zero column adds nothing to a logit) and
 // drops the padded columns of dx and dE. Above 1024 the wide form (the
-// last section of this file) takes bf16 at any multiple of 64 at run time,
-// other widths padded to the next; fp16 above 1024 and fp32 run on their
-// own kernels (mlm_xent_f32.cu).
+// last section of this file) takes bf16 and fp16 at any multiple of 64 up
+// to 8192 at run time, other widths padded to the next; fp32, and wider
+// rows, run on their own kernels (mlm_xent_f32.cu).
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -667,6 +667,41 @@ struct RowStats {
     }
   }
 
+  // add() on z itself, its columns past V set to -inf in place: no copy of
+  // the tile's values beside them (the wide K4's registers hold two
+  // accumulators besides z).
+  __device__ __forceinline__ void add_in_place(float (&z)[4 * NTC], int v0, int V, int tq) {
+    const int c0 = v0 + 2 * tq;  // column of value i: c0 + 8 (i / 2) + i % 2, ascending with i
+    if (v0 + 8 * NTC > V)        // the last tile
+#pragma unroll
+      for (int i = 0; i < 2 * NTC; ++i)
+        if (c0 + 8 * (i / 2) + i % 2 >= V) z[4 * (i / 2) + i % 2] = z[4 * (i / 2) + 2 + i % 2] = -INFINITY;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float tm = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 2 * NTC; ++i) tm = fmaxf(tm, z[4 * (i / 2) + 2 * h + i % 2]);
+      if (tm == -INFINITY) continue;  // every column past V
+      const int d = lab[h] - c0;      // the label among these columns: d = 8 (i / 2) + i % 2
+      if (d >= 0 && d < 8 * NTC && (d & 6) == 0)
+#pragma unroll
+        for (int i = 0; i < 2 * NTC; ++i)
+          if (d == 8 * (i / 2) + i % 2) ll[h] = z[4 * (i / 2) + 2 * h + i % 2];
+      if (tm > bv[h]) {  // a new best: the first of its equal values, as a strict > over ascending columns
+        bv[h] = tm;
+#pragma unroll
+        for (int i = 2 * NTC - 1; i >= 0; --i)
+          if (z[4 * (i / 2) + 2 * h + i % 2] == tm) bi[h] = c0 + 8 * (i / 2) + i % 2;
+      }
+      const float mn = fmaxf(m[h], tm);
+      float acc = l[h] * exp2f((m[h] - mn) * LOG2E_F);  // m = -inf only while l = 0
+#pragma unroll
+      for (int i = 0; i < 2 * NTC; ++i) acc += exp2f((z[4 * (i / 2) + 2 * h + i % 2] - mn) * LOG2E_F);  // -inf: 0
+      l[h] = acc;
+      m[h] = mn;
+    }
+  }
+
   // Merge the 4 threads of each row (lanes tq = 0..3).
   __device__ __forceinline__ void merge_quad() {
 #pragma unroll
@@ -1010,21 +1045,39 @@ int de(int dtype, const void* x, const void* E, const void* bias, const void* la
 
 // ------------------------------------------------------------ the wide form
 //
-// K4-K6 in bf16 at any width hid above 1024 that is a multiple of 64 (the
-// wrapper zero-pads other widths to the next multiple of 64), templates on
-// the element type built for bf16 (fp16: see Accumulation below); hid is
-// a runtime argument. They replace the same TPU kernels as the forms above
+// K4-K6 in bf16 and fp16 at any width hid above 1024 that is a multiple of
+// 64 (the wrapper zero-pads other widths to the next multiple of 64),
+// templates on the element type; hid is a runtime argument. They replace
+// the same TPU kernels as the forms above
 // (visualbert_tpu/ops/mlm_xent.py::_fwd_kernel :52, ::_dx_kernel :145,
 // ::_de_kernel :170).
-// - K4 (xent_wide_fwd_kernel), simple and right first: nothing of a block
-//   is resident, both matrices stream through a cp.async ring in 64-column
-//   panels (128 B-swizzled as above), and wgmma reads both operands from
-//   shared memory. A block of two warpgroups takes 128 rows of x (64 a
-//   warpgroup) and a tile of 64 vocabulary rows at a time; each step of the
-//   ring is one panel of both (16 + 8 KB, 4 stages), and each warpgroup
-//   adds its 64 x 64 logits of the panel (an m64n64 accumulator) until the
-//   tile's last panel; then RowStats, the splits' partials and
-//   xent_fwd_merge_kernel as K4's.
+// - K4 (xent_wide_fwd_kernel) is bound by its N V hid product (at N = 3072,
+//   V = 30522, hid = 2048: 0.39 ms at 989 TFLOP/s). Its first design
+//   streamed a 64-column panel of 128 x rows and of 64 vocabulary rows a
+//   step through a cp.async ring that all 256 threads fed, and waited for
+//   each panel's products before adding them: 24 KB from L2 for every 1
+//   MFLOP, so L2's rate bound it, and the tensor cores idled through every
+//   add and barrier (1.73 ms at 2048, 22 % of the bound, on an NVIDIA H100
+//   80GB HBM3 at 700 W). Here:
+//   * A tile is 128 x rows by WF_TILE = 128 vocabulary rows, each consumer
+//     warpgroup an m64n128 over its 64 rows: a step (a 64-column panel of
+//     both, 32 KB) feeds 2 MFLOP, a third fewer bytes from L2 a FLOP.
+//   * A producer warp (its lane 0) issues the copies, TMA boxes of a panel
+//     (rows past the matrix zero), into a ring of WF_STAGES stages, each
+//     with a full mbarrier (the bytes that land) and an empty one (an
+//     arrival of every consumer warp once its products of the stage ran):
+//     it refills a stage as soon as both warpgroups have left it, and no
+//     consumer ever waits on a release.
+//   * Each step's products run in a fresh accumulator, waited for, then
+//     added into the tile's logits in fp32 (see Accumulation); the two
+//     consumer warpgroups interleave on the tensor cores, so one's products
+//     run while the other adds, releases, or after a tile's last panel adds
+//     the bias and takes RowStats (in place: add_in_place; the splits'
+//     partials and xent_fwd_merge_kernel as K4's). A second accumulator a
+//     warpgroup, to overlap its own adds, does not fit its registers beside
+//     the tile's logits (255 and a spill, which serializes the wgmmas), nor
+//     did sharing each E panel between two row blocks by TMA multicast run
+//     faster (PERF.md).
 // - K5 / K6 (xent_wide_bwd_kernel) are bound by their two N V hid products
 //   (at N = 3072, V = 30522, hid = 2048: 0.78 ms at 989 TFLOP/s, against
 //   125 MB of E). The first design, in which a block owned 512 columns,
@@ -1075,8 +1128,8 @@ int de(int dtype, const void* x, const void* E, const void* bias, const void* la
 //     half its time at 2048. The next tile's copy runs under the whole of
 //     this one.
 //   * Above 8 x 512 = 4096 columns the cluster is larger than the portable
-//     8: the H100 takes 16 (WB_MAX_CLUSTER), so hid up to 8192; wider bf16
-//     rows run on the fp32 kernels. The wrapper raises where
+//     8: the H100 takes 16 (WB_MAX_CLUSTER), so hid up to 8192; wider rows
+//     run on the fp32 kernels. The wrapper raises where
 //     cudaOccupancyMaxActiveClusters finds no room for a cluster
 //     (vb_xent_wide_info's `what` 4); the launch itself returns its error.
 //   K5 splits the vocabulary (ops/mlm_xent.py::wide_dx_plan, from the
@@ -1087,24 +1140,29 @@ int de(int dtype, const void* x, const void* E, const void* bias, const void* la
 //   drifted, lse by 2.3e-5 and db by 6.5e-6 of its largest value at 2048
 //   in bf16, against 1.9e-6 and 7.1e-7 at 1024. So K4 starts a fresh
 //   accumulator each panel (4 k-steps), which an fp32 add takes into the
-//   logits' running total (from the bias): 2.9e-6 and 1.0e-6 at 2048; K5's
-//   and K6's logits likewise (each panel in a fresh accumulator, the
-//   panels and then the cluster's blocks summed in fp32, in order).
-//   fp16 is not taken here: its 22-bit products lose bits inside each k16
-//   step (2560: lse 1.0e-5, db 3.9e-6 of its largest value, a fresh
-//   accumulator a k-step no better), beyond the bf16 limits; the wrapper
-//   runs fp16 above 1024 on the fp32 kernels (mlm_xent_f32.cu), where its
-//   products are exact.
+//   logits' running total: 2.9e-6 and 1.0e-6 at 2048; K5's and K6's logits
+//   likewise (each panel in a fresh accumulator, the panels and then the
+//   cluster's blocks summed in fp32, in order).
+//   fp16 runs on these kernels too. Its products carry 22 bits against
+//   bf16's 16, and its db at 2560 was once read 3.9e-6 of its largest
+//   value from the plain version's, beyond DBIAS_TOL (2e-6), which sent it
+//   to the fp32 kernels. But the plain version's own fp32 sums of 2560 products
+//   are 3.7e-6 from db with the products summed exactly (fp64,
+//   tools/xent_steps.py::db_exact); the kernels' fp16 db is 3.7e-7 from it
+//   at 2560 and 3.6e-7 at 2048, as near as bf16's (PERF.md): the
+//   yardstick, not the products, was off. The same kernels serve both
+//   dtypes (wgmma's .f16 or .bf16, the TMA maps' element type).
 // Ragged N, V and the last column range are masked as above; E is read in
 // place.
 
-constexpr int WIDE_MIN = 1088;      // the narrowest wide width: 17 panels (the rings below count on NP >= 3)
+constexpr int WIDE_MIN = 1088;      // the narrowest wide width: 17 panels
 constexpr int WF_ROWS = 128;        // wide K4: x rows a block, 64 a warpgroup
-constexpr int WF_TILE = 64;         // wide K4: vocabulary rows a tile
-constexpr int WF_STAGES = 4;        // wide K4: ring stages, each an x panel and an E panel
-constexpr int WF_PANEL = 128 * 128; // bytes of a 128-row panel of x
-constexpr int WF_STAGE = WF_PANEL + WF_TILE * 128;  // ... and a stage: it and an E panel
-constexpr size_t WF_SMEM = vb_hopper::ALIGN + WF_STAGES * WF_STAGE;
+constexpr int WF_TILE = 128;        // wide K4: vocabulary rows a tile, each warpgroup's m64n128
+constexpr int WF_STAGES = 6;        // wide K4: ring stages, each a 64-column panel of the x rows and the tile
+constexpr int WF_THREADS = NTHREADS + 32;  // wide K4: two consumer warpgroups and a producer warp
+constexpr int WF_X_BYTES = WF_ROWS * 128;             // a stage's panel of x
+constexpr int WF_STAGE = WF_X_BYTES + WF_TILE * 128;  // ... and of the tile's E rows
+constexpr size_t WF_SMEM = vb_hopper::ALIGN + WF_STAGES * WF_STAGE + 2 * WF_STAGES * sizeof(uint64_t);
 constexpr int WB_ROWS = 64;                 // wide K5/K6: resident rows a block, both warpgroups' 64
 constexpr int WB_COLS = 512;                // ... result columns a block owns at most: 256 a warpgroup
 constexpr int WB_CP = WB_COLS / 64;         // ... in 64-column panels
@@ -1123,112 +1181,6 @@ constexpr int WB_MAXK = ((WB_ROWS + WB_MIN_CLUSTER - 1) / WB_MIN_CLUSTER + 7) / 
 constexpr size_t WB_SMEM =
     vb_hopper::ALIGN + WB_RES_BYTES + WB_STAGES * WB_STAGE_BYTES + WB_P_BYTES + WB_D_BYTES + 5 * sizeof(uint64_t);
 static_assert(WF_SMEM <= 232448 && WB_SMEM <= 232448, "a wide block must fit the H100's 227 KB of shared memory");
-
-// Issue the copy of 64-column panel p of rows [r0, r0 + NR) of a [nvalid,
-// hid] matrix into NR swizzled rows at shared address dst; rows past nvalid
-// are zero.
-template <int NR, typename ET>
-__device__ __forceinline__ void issue_panel(uint32_t dst, const ET* __restrict__ src, int r0, int nvalid, int hid,
-                                            int p) {
-#pragma unroll
-  for (int idx = threadIdx.x; idx < NR * 8; idx += NTHREADS) {
-    const int r = idx >> 3, c = idx & 7, row = r0 + r;
-    const bool ok = row < nvalid;
-    vb_hopper::cp_async16(dst + swz(r, c), src + (size_t)(ok ? row : 0) * hid + p * 64 + c * 8, ok);
-  }
-}
-
-// d (64 x 64 fp32) = (acc ? d : 0) + A B^T, both K-major in shared memory.
-template <typename ET>
-__device__ __forceinline__ void wgmma_n64_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  if constexpr (std::is_same<ET, __half>::value)
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " VB_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : VB_D32
-        : "l"(a), "l"(b), "r"(acc));
-  else
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VB_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : VB_D32
-        : "l"(a), "l"(b), "r"(acc));
-}
-
-// grid (cdiv(N, WF_ROWS), S): row blocks x vocabulary splits of `vbs` tiles
-// of WF_TILE rows; writes pf / pi as xent_fwd_kernel does.
-template <typename ET>
-__global__ void __launch_bounds__(NTHREADS, 1)
-xent_wide_fwd_kernel(const ET* __restrict__ x, const ET* __restrict__ E, const float* __restrict__ bias,
-                     const int* __restrict__ labels, int N, int V, int hid, int vbs, float* __restrict__ pf,
-                     int* __restrict__ pi) {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t sQ = smem_addr(vb_hopper::align_smem(smem_raw));  // slot b: x panel, then E panel
-  const int tid = threadIdx.x & 127, wg = threadIdx.x >> 7, warp = tid >> 5, lane = threadIdx.x & 31;
-  const int tq = lane & 3, i0 = warp * 16 + (lane >> 2);
-  const int rb = blockIdx.x * WF_ROWS, r0 = rb + wg * RES + i0;  // this thread's rows: r0, r0 + 8
-  const int NP = hid / 64, ntiles = cdiv(V, WF_TILE);
-  const int t0 = blockIdx.y * vbs, t1 = min(ntiles, t0 + vbs), nsteps = (t1 - t0) * NP;
-
-  // step q: panel q % NP of tile t0 + q / NP, into slot b
-  auto issue = [&](int q, int b) {
-    const int t = t0 + q / NP, p = q % NP;
-    const uint32_t dst = sQ + b * WF_STAGE;
-    issue_panel<WF_ROWS, ET>(dst, x, rb, N, hid, p);
-    issue_panel<WF_TILE, ET>(dst + WF_PANEL, E, t * WF_TILE, V, hid, p);
-  };
-
-  RowStats<8> st;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    st.m[h] = -INFINITY;
-    st.l[h] = 0.f;
-    st.ll[h] = 0.f;
-    st.bv[h] = -INFINITY;
-    st.bi[h] = INT_MAX;
-    st.lab[h] = r0 + 8 * h < N ? labels[r0 + 8 * h] : -1;
-  }
-  for (int j = 0; j < WF_STAGES - 1; ++j) {
-    if (j < nsteps) issue(j, j);
-    vb_hopper::cp_commit();
-  }
-  float s[32], z[32];  // a panel's products; the tile's logits so far
-  for (int q = 0, b = 0; q < nsteps; ++q) {
-    const int t = t0 + q / NP, p = q % NP;
-    vb_hopper::cp_wait<WF_STAGES - 2>();
-    vb_hopper::fence_async();
-    __syncthreads();  // step q landed; every thread is done with step q - 1's slot
-    if (q + WF_STAGES - 1 < nsteps) issue(q + WF_STAGES - 1, b == 0 ? WF_STAGES - 1 : b - 1);
-    vb_hopper::cp_commit();
-    if (p == 0) {  // the tile's logits start from its bias
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int v = t * WF_TILE + 8 * nt + 2 * tq;
-        const float b0 = v < V ? bias[v] : 0.f, b1 = v + 1 < V ? bias[v + 1] : 0.f;
-        z[4 * nt] = z[4 * nt + 2] = b0;
-        z[4 * nt + 1] = z[4 * nt + 3] = b1;
-      }
-    }
-    const uint32_t xs = sQ + b * WF_STAGE;
-    const uint64_t da = vb_hopper::desc(xs + wg * RES * 128), db = vb_hopper::desc(xs + WF_PANEL);
-    vb_hopper::wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_n64_ss<ET>(s, da + 2 * kk, db + 2 * kk, kk);
-    vb_hopper::wg_commit();
-    vb_hopper::wg_wait();
-    hold(s);
-#pragma unroll
-    for (int k = 0; k < 32; ++k) z[k] += s[k];
-    if (p == NP - 1) st.add(z, t * WF_TILE, V, tq);
-    b = b + 1 == WF_STAGES ? 0 : b + 1;
-  }
-  st.merge_quad();
-  const size_t plane = (size_t)gridDim.y * N, at = (size_t)blockIdx.y * N;
-  if (tq == 0)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      if (r0 + 8 * h < N) store_partial(pf, pi, plane, at + r0 + 8 * h, st.m[h], st.l[h], st.ll[h], st.bv[h], st.bi[h]);
-}
 
 // The thread-block cluster of the wide K5/K6: this block's rank and the
 // cluster's blocks; a barrier of every thread of the cluster's blocks that
@@ -1300,6 +1252,157 @@ __device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.w
 __device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 // Wait until at most the newest wgmma group is pending.
 __device__ __forceinline__ void wg_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+// An mbarrier of this block that completes a phase on `count` arrivals; an
+// arrival on it.
+__device__ __forceinline__ void mbar_init_count(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\nfence.mbarrier_init.release.cluster;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// The 64 accumulator registers of an m64n128 wgmma: their list in the
+// instruction, and the operands s[0..63] that bind them in place.
+#define VB_R64                                                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, " \
+  "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "  \
+  "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, "  \
+  "%59, %60, %61, %62, %63}"
+#define VB_S64                                                                                                \
+      "+f"(s[0]), "+f"(s[1]), "+f"(s[2]), "+f"(s[3]), "+f"(s[4]), "+f"(s[5]), "+f"(s[6]), "+f"(s[7]),         \
+      "+f"(s[8]), "+f"(s[9]), "+f"(s[10]), "+f"(s[11]), "+f"(s[12]), "+f"(s[13]), "+f"(s[14]), "+f"(s[15]),   \
+      "+f"(s[16]), "+f"(s[17]), "+f"(s[18]), "+f"(s[19]), "+f"(s[20]), "+f"(s[21]), "+f"(s[22]), "+f"(s[23]), \
+      "+f"(s[24]), "+f"(s[25]), "+f"(s[26]), "+f"(s[27]), "+f"(s[28]), "+f"(s[29]), "+f"(s[30]), "+f"(s[31]), \
+      "+f"(s[32]), "+f"(s[33]), "+f"(s[34]), "+f"(s[35]), "+f"(s[36]), "+f"(s[37]), "+f"(s[38]), "+f"(s[39]), \
+      "+f"(s[40]), "+f"(s[41]), "+f"(s[42]), "+f"(s[43]), "+f"(s[44]), "+f"(s[45]), "+f"(s[46]), "+f"(s[47]), \
+      "+f"(s[48]), "+f"(s[49]), "+f"(s[50]), "+f"(s[51]), "+f"(s[52]), "+f"(s[53]), "+f"(s[54]), "+f"(s[55]), \
+      "+f"(s[56]), "+f"(s[57]), "+f"(s[58]), "+f"(s[59]), "+f"(s[60]), "+f"(s[61]), "+f"(s[62]), "+f"(s[63])
+// s (64 x 128 fp32) = A B^T over one 64-column panel, four k-steps, the
+// first from zero: A [64 x 64] and B [128 x 64] K-major in shared memory at
+// descriptors a and b. s is bound in place ("+f"), so the accumulator keeps
+// its registers from one panel to the next and nothing copies it while its
+// products run (ptxas would serialize the wgmmas).
+#define VB_XENT_N128_PANEL(TY)                                                                            \
+  asm volatile(                                                                                           \
+      "{\n.reg .pred z, o;\n.reg .b64 a1, a2, a3, b1, b2, b3;\n"                                          \
+      "setp.ne.b32 z, %66, 0;\nsetp.eq.b32 o, %66, 0;\n"                                                  \
+      "add.s64 a1, %64, 2;\nadd.s64 a2, %64, 4;\nadd.s64 a3, %64, 6;\n"                                   \
+      "add.s64 b1, %65, 2;\nadd.s64 b2, %65, 4;\nadd.s64 b3, %65, 6;\n"                                   \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " VB_R64 ", %64, %65, z, 1, 1, 0, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " VB_R64 ", a1, b1, o, 1, 1, 0, 0;\n"    \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " VB_R64 ", a2, b2, o, 1, 1, 0, 0;\n"    \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " VB_R64 ", a3, b3, o, 1, 1, 0, 0;\n}\n" \
+      : VB_S64                                                                                            \
+      : "l"(a), "l"(b), "r"(0))
+template <typename ET>
+__device__ __forceinline__ void wgmma_n128_panel(float (&s)[64], uint64_t a, uint64_t b) {
+  if constexpr (std::is_same<ET, __half>::value)
+    VB_XENT_N128_PANEL("f16");
+  else
+    VB_XENT_N128_PANEL("bf16");
+}
+#undef VB_XENT_N128_PANEL
+#undef VB_S64
+#undef VB_R64
+
+// The wide K4: grid (row blocks of WF_ROWS, S vocabulary splits of `vbs`
+// tiles of WF_TILE rows), WF_THREADS threads: warpgroups 0 and 1 consume,
+// lane 0 of warp 8 produces; writes pf / pi as xent_fwd_kernel does. Step q
+// of a block is panel q % NP of its split's tile q / NP, in stage q %
+// WF_STAGES.
+template <typename ET>
+__global__ void __launch_bounds__(WF_THREADS, 1)
+xent_wide_fwd_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap me,
+                     const float* __restrict__ bias, const int* __restrict__ labels, int N, int V, int hid, int vbs,
+                     float* __restrict__ pf, int* __restrict__ pi) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t sQ = smem_addr(vb_hopper::align_smem(smem_raw));  // stage b: x panel, then E panel
+  const uint32_t full0 = sQ + WF_STAGES * WF_STAGE, empty0 = full0 + 8 * WF_STAGES;
+  const int tid = threadIdx.x & 127, wg = threadIdx.x >> 7, warp = tid >> 5, lane = threadIdx.x & 31;
+  const int rb = blockIdx.x * WF_ROWS;
+  const int NP = hid / 64, ntiles = cdiv(V, WF_TILE);
+  const int t0 = blockIdx.y * vbs, t1 = min(ntiles, t0 + vbs), nsteps = (t1 - t0) * NP;
+  if (threadIdx.x == 0)
+    for (int b = 0; b < WF_STAGES; ++b) {
+      mbar_init(full0 + 8 * b);
+      mbar_init_count(empty0 + 8 * b, NTHREADS / 32);  // every consumer warp, once its products of the stage ran
+    }
+  __syncthreads();  // the mbarriers are ready
+
+  if (wg == 2) {  // the producer: step q into its stage (a TMA box of x, one of E) once every consumer left it
+    if (lane == 0)
+      for (int q = 0, b = 0, t = t0, p = 0; q < nsteps; ++q) {
+        if (q >= WF_STAGES) mbar_wait(empty0 + 8 * b, (q / WF_STAGES - 1) & 1);
+        const uint32_t dst = sQ + b * WF_STAGE, bar = full0 + 8 * b;
+        mbar_expect(bar, WF_STAGE);
+        tma_load_2d(dst, &mx, p * 64, rb, bar);
+        tma_load_2d(dst + WF_X_BYTES, &me, p * 64, t * WF_TILE, bar);
+        b = b + 1 == WF_STAGES ? 0 : b + 1;
+        if (++p == NP) {
+          p = 0;
+          ++t;
+        }
+      }
+    __syncwarp();
+    return;
+  }
+
+  const int tq = lane & 3, r0 = rb + wg * RES + warp * 16 + (lane >> 2);  // this thread's rows: r0, r0 + 8
+  RowStats<16> st;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    st.m[h] = -INFINITY;
+    st.l[h] = 0.f;
+    st.ll[h] = 0.f;
+    st.bv[h] = -INFINITY;
+    st.bi[h] = INT_MAX;
+    st.lab[h] = r0 + 8 * h < N ? labels[r0 + 8 * h] : -1;
+  }
+  // each step: its products in a fresh accumulator s, once its stage has
+  // landed; the stage released (an arrival of each warp); s added into the
+  // tile's logits z, and after the tile's last panel its bias and then its
+  // statistics. While one warpgroup adds, the other's products run.
+  float s[64], z[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  for (int q = 0, b = 0, t = t0, p = 0; q < nsteps; ++q) {
+    mbar_wait(full0 + 8 * b, (q / WF_STAGES) & 1);
+    const uint32_t xs = sQ + b * WF_STAGE;
+    vb_hopper::wg_fence();
+    wgmma_n128_panel<ET>(s, vb_hopper::desc(xs + wg * RES * 128), vb_hopper::desc(xs + WF_X_BYTES));
+    vb_hopper::wg_commit();
+    vb_hopper::wg_wait();
+    hold(s);
+    if (lane == 0) mbar_arrive(empty0 + 8 * b);
+    b = b + 1 == WF_STAGES ? 0 : b + 1;
+    if (p == 0) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) z[i] = s[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) z[i] += s[i];
+    }
+    if (++p < NP) continue;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      const int v = t * WF_TILE + 8 * nt + 2 * tq;
+      const float b0 = v < V ? bias[v] : 0.f, b1 = v + 1 < V ? bias[v + 1] : 0.f;
+      z[4 * nt] += b0;
+      z[4 * nt + 2] += b0;
+      z[4 * nt + 1] += b1;
+      z[4 * nt + 3] += b1;
+    }
+    st.add_in_place(z, t * WF_TILE, V, tq);
+    p = 0;
+    ++t;
+  }
+  st.merge_quad();
+  const size_t plane = (size_t)gridDim.y * N, at = (size_t)blockIdx.y * N;
+  if (tq == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (r0 + 8 * h < N) store_partial(pf, pi, plane, at + r0 + 8 * h, st.m[h], st.l[h], st.ll[h], st.bv[h], st.bi[h]);
+}
 
 // K5 (DE false): grid (cdiv(N, WB_ROWS), R, S), clusters of (1, R, 1), R =
 // cdiv(hid, WB_COLS); cluster (x, z) keeps x rows [WB_ROWS x, WB_ROWS x +
@@ -1605,13 +1708,15 @@ __global__ void xent_wide_dx_reduce_kernel(const float* __restrict__ part, const
   }
 }
 
-const void* wide_kernel_of(int kernel) {
-  switch (kernel) {
-    case 0: return (const void*)xent_wide_bwd_kernel<false, bf16>;
-    case 1: return (const void*)xent_wide_bwd_kernel<true, bf16>;
-    case 2: return (const void*)xent_wide_fwd_kernel<bf16>;
-    default: return nullptr;
-  }
+// K5 (kernel 0), K6 (1) or K4 (2) of the wide form in bf16 (dtype 0) or
+// fp16 (1), or nullptr.
+const void* wide_kernel_of(int dtype, int kernel) {
+  static const void* const kernels[2][3] = {
+      {(const void*)xent_wide_bwd_kernel<false, bf16>, (const void*)xent_wide_bwd_kernel<true, bf16>,
+       (const void*)xent_wide_fwd_kernel<bf16>},
+      {(const void*)xent_wide_bwd_kernel<false, __half>, (const void*)xent_wide_bwd_kernel<true, __half>,
+       (const void*)xent_wide_fwd_kernel<__half>}};
+  return dtype >= 0 && dtype < 2 && kernel >= 0 && kernel < 3 ? kernels[dtype][kernel] : nullptr;
 }
 
 // The wide K5/K6's cluster at width hid: one block a column range.
@@ -1623,24 +1728,25 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// K5's (kernel 0) or K6's (1) launch attributes, its shared memory and
-// clusters above the portable 8 blocks, set at its first use on a device.
-cudaError_t wide_bwd_attributes(int kernel) {
-  static bool set[2][64] = {};
+// K5's (kernel 0) or K6's (1) launch attributes in `dtype`, its shared
+// memory and clusters above the portable 8 blocks, set at its first use on
+// a device.
+cudaError_t wide_bwd_attributes(int dtype, int kernel) {
+  static bool set[2][2][64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < 64 && set[kernel][dev])) return err;
-  const void* fn = wide_kernel_of(kernel);
+  if (err != cudaSuccess || (dev < 64 && set[dtype][kernel][dev])) return err;
+  const void* fn = wide_kernel_of(dtype, kernel);
   err = set_smem(fn, WB_SMEM);
   if (err == cudaSuccess) err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err == cudaSuccess && dev < 64) set[kernel][dev] = true;
+  if (err == cudaSuccess && dev < 64) set[dtype][kernel][dev] = true;
   return err;
 }
 
 // The TMA map of a [rows, hid] matrix of ET: boxes of 64 columns (128 B,
-// swizzled as swz lays them out) by 64 rows, zeros past the last row.
+// swizzled as swz lays them out) by box_rows rows, zeros past the last row.
 template <typename ET>
-cudaError_t wide_map(CUtensorMap* map, const void* ptr, int rows, int hid) {
+cudaError_t wide_map(CUtensorMap* map, const void* ptr, int rows, int hid, int box_rows = 64) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -1652,7 +1758,7 @@ cudaError_t wide_map(CUtensorMap* map, const void* ptr, int rows, int hid) {
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
   const cuuint64_t dims[2] = {(cuuint64_t)hid, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)hid * sizeof(ET)};
-  const cuuint32_t box[2] = {64, 64}, steps[2] = {1, 1};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows}, steps[2] = {1, 1};
   const CUresult r = encode(map, std::is_same<ET, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                             2, const_cast<void*>(ptr), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -1678,13 +1784,13 @@ cudaLaunchConfig_t wide_bwd_config(dim3 grid, int R, cudaStream_t st, cudaLaunch
   return cfg;
 }
 
-// The clusters of K5 (kernel 0) or K6 (kernel 1) at width hid that the card
-// runs at once (0: none fits), or -1 on an error.
-int wide_active_clusters(int kernel, int hid) {
-  const void* fn = wide_kernel_of(kernel);
+// The clusters of K5 (kernel 0) or K6 (kernel 1) in `dtype` at width hid
+// that the card runs at once (0: none fits), or -1 on an error.
+int wide_active_clusters(int dtype, int kernel, int hid) {
+  const void* fn = wide_kernel_of(dtype, kernel);
   const int R = wide_cluster(hid);
   if (fn == nullptr || kernel > 1 || R > WB_MAX_CLUSTER) return -1;
-  if (wide_bwd_attributes(kernel) != cudaSuccess) return -1;
+  if (wide_bwd_attributes(dtype, kernel) != cudaSuccess) return -1;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = wide_bwd_config(dim3(1, R, 1), R, nullptr, &attr);
   int n = 0;
@@ -1695,11 +1801,14 @@ int wide_active_clusters(int kernel, int hid) {
 template <typename ET>
 int wide_fwd(const void* x, const void* E, const void* bias, const void* labels, int N, int V, int hid, int S,
              int vbs, void* pf, void* pi, void* nll, void* lse, void* am, cudaStream_t st) {
-  cudaError_t err = set_smem((const void*)xent_wide_fwd_kernel<ET>, WF_SMEM);
+  cudaError_t err = vb::once_a_device([] { return set_smem((const void*)xent_wide_fwd_kernel<ET>, WF_SMEM); });
+  CUtensorMap mx, me;
+  if (err == cudaSuccess) err = wide_map<ET>(&mx, x, N, hid, WF_ROWS);
+  if (err == cudaSuccess) err = wide_map<ET>(&me, E, V, hid, WF_TILE);
   if (err != cudaSuccess) return (int)err;
-  xent_wide_fwd_kernel<ET><<<dim3(cdiv(N, WF_ROWS), S), NTHREADS, WF_SMEM, st>>>(
-      static_cast<const ET*>(x), static_cast<const ET*>(E), static_cast<const float*>(bias),
-      static_cast<const int*>(labels), N, V, hid, vbs, static_cast<float*>(pf), static_cast<int*>(pi));
+  xent_wide_fwd_kernel<ET><<<dim3(cdiv(N, WF_ROWS), S), WF_THREADS, WF_SMEM, st>>>(
+      mx, me, static_cast<const float*>(bias), static_cast<const int*>(labels), N, V, hid, vbs,
+      static_cast<float*>(pf), static_cast<int*>(pi));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   xent_fwd_merge_kernel<<<cdiv(N, 128), 128, 0, st>>>(static_cast<const float*>(pf), static_cast<const int*>(pi),
@@ -1716,7 +1825,7 @@ int launch_wide_bwd(int z, const void* x, const void* E, const void* bias, const
                     const void* g, int N, int V, int hid, int vbs, void* part, void* dE, void* db, cudaStream_t st) {
   const int R = wide_cluster(hid);
   CUtensorMap mres, mstr;
-  cudaError_t err = wide_bwd_attributes(DE ? 1 : 0);
+  cudaError_t err = wide_bwd_attributes(std::is_same<ET, __half>::value ? 1 : 0, DE ? 1 : 0);
   if (err == cudaSuccess) err = wide_map<ET>(&mres, DE ? E : x, DE ? V : N, hid);
   if (err == cudaSuccess) err = wide_map<ET>(&mstr, DE ? x : E, DE ? N : V, hid);
   if (err != cudaSuccess) return (int)err;
@@ -1745,6 +1854,52 @@ template <typename ET>
 int wide_de(const void* x, const void* E, const void* bias, const void* labels, const void* lse, const void* g,
             int N, int V, int hid, void* dE, void* db, cudaStream_t st) {
   return launch_wide_bwd<true, ET>(1, x, E, bias, labels, lse, g, N, V, hid, 0, nullptr, dE, db, st);
+}
+
+// The wide form's `what` of K5 (kernel 0), K6 (1) or K4 (2) in `dtype` at
+// width hid, as vb_xent_wide_info documents it.
+int wide_info(int dtype, int kernel, int what, int hid) {
+  const void* fn = wide_kernel_of(dtype, kernel);
+  if (fn == nullptr || !wide_width(hid) || (kernel < 2 && wide_cluster(hid) > WB_MAX_CLUSTER)) return -1;
+  const size_t bytes = kernel == 2 ? WF_SMEM : WB_SMEM;
+  if (what == 0 || what == 1) {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess) return -1;
+    return what == 0 ? attr.numRegs : (int)attr.localSizeBytes;
+  }
+  if (what == 2) return (int)bytes;
+  if (what == 3) {
+    int n = 0;
+    if (set_smem(fn, bytes) != cudaSuccess) return -1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kernel == 2 ? WF_THREADS : NTHREADS, bytes) !=
+        cudaSuccess)
+      return -1;
+    return n;
+  }
+  if (what == 4 && kernel < 2) return wide_active_clusters(dtype, kernel, hid);
+  return -1;
+}
+
+// The wide entry points in ET (bf16 or fp16), their arguments checked.
+template <typename ET>
+int wide_fwd_entry(const void* x, const void* E, const void* bias, const void* labels, int N, int V, int hid, int S,
+                   int vbs, void* pf, void* pi, void* nll, void* lse, void* am, void* stream) {
+  if (!wide_width(hid) || S < 1 || vbs < 1) return (int)cudaErrorInvalidValue;
+  return wide_fwd<ET>(x, E, bias, labels, N, V, hid, S, vbs, pf, pi, nll, lse, am, static_cast<cudaStream_t>(stream));
+}
+
+template <typename ET>
+int wide_dx_entry(const void* x, const void* E, const void* bias, const void* labels, const void* lse, const void* g,
+                  int N, int V, int hid, int S, int vbs, void* part, void* dx, void* stream) {
+  if (!wide_width(hid) || wide_cluster(hid) > WB_MAX_CLUSTER || S < 1 || vbs < 1) return (int)cudaErrorInvalidValue;
+  return wide_dx<ET>(x, E, bias, labels, lse, g, N, V, hid, S, vbs, part, dx, static_cast<cudaStream_t>(stream));
+}
+
+template <typename ET>
+int wide_de_entry(const void* x, const void* E, const void* bias, const void* labels, const void* lse, const void* g,
+                  int N, int V, int hid, void* dE, void* db, void* stream) {
+  if (!wide_width(hid) || wide_cluster(hid) > WB_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  return wide_de<ET>(x, E, bias, labels, lse, g, N, V, hid, dE, db, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -1803,12 +1958,12 @@ extern "C" int vb_xent_f16_de(const void* x, const void* E, const void* bias, co
   return de(1, x, E, bias, labels, lse, g, N, V, hid, dE, db, stream);
 }
 
-// The wide form's tiling, numbered as vb_xent_geometry's: 0 the step of
-// the widths it takes (it takes multiples of 64 from 1088 on), 1 K4's x
-// rows per block, 2 K5/K6's resident rows per block, 3 K4's vocabulary
-// rows per tile, 4 K5/K6's streamed rows per tile, 5 the result columns a
-// K5/K6 block owns at most (a cluster has cdiv(hid, this) blocks), 6 the
-// blocks a K5/K6 cluster may have.
+// The wide form's tiling, numbered as vb_xent_geometry's (the same in bf16
+// and fp16): 0 the step of the widths it takes (it takes multiples of 64
+// from 1088 on), 1 K4's x rows per block, 2 K5/K6's resident rows per
+// block, 3 K4's vocabulary rows per tile, 4 K5/K6's streamed rows per tile,
+// 5 the result columns a K5/K6 block owns at most (a cluster has cdiv(hid,
+// this) blocks), 6 the blocks a K5/K6 cluster may have.
 extern "C" int vb_xent_wide_geometry(int which) {
   const int g[7] = {64, WF_ROWS, WB_ROWS, WF_TILE, WB_TILE, WB_COLS, WB_MAX_CLUSTER};
   return which >= 0 && which < 7 ? g[which] : -1;
@@ -1818,45 +1973,46 @@ extern "C" int vb_xent_wide_geometry(int which) {
 // width hid: `what` as vb_xent_info's, and 4 (K5, K6) the clusters the card
 // runs at once (0: none fits). -1 on an error or a width the form does not
 // take.
-extern "C" int vb_xent_wide_info(int kernel, int what, int hid) {
-  const void* fn = wide_kernel_of(kernel);
-  if (fn == nullptr || !wide_width(hid) || (kernel < 2 && wide_cluster(hid) > WB_MAX_CLUSTER)) return -1;
-  const size_t bytes = kernel == 2 ? WF_SMEM : WB_SMEM;
-  if (what == 0 || what == 1) {
-    cudaFuncAttributes attr;
-    if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess) return -1;
-    return what == 0 ? attr.numRegs : (int)attr.localSizeBytes;
-  }
-  if (what == 2) return (int)bytes;
-  if (what == 3) {
-    int n = 0;
-    if (set_smem(fn, bytes) != cudaSuccess) return -1;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, NTHREADS, bytes) != cudaSuccess) return -1;
-    return n;
-  }
-  if (what == 4 && kernel < 2) return wide_active_clusters(kernel, hid);
-  return -1;
-}
+extern "C" int vb_xent_wide_info(int kernel, int what, int hid) { return wide_info(0, kernel, what, hid); }
 
 // The wide form's entry points (bf16 x, E, dx, dE), with the scratch of
 // vb_xent_fwd / vb_xent_dx.
 extern "C" int vb_xent_wide_fwd(const void* x, const void* E, const void* bias, const void* labels, int N, int V,
                                 int hid, int S, int vbs, void* pf, void* pi, void* nll, void* lse, void* am,
                                 void* stream) {
-  if (!wide_width(hid) || S < 1 || vbs < 1) return (int)cudaErrorInvalidValue;
-  return wide_fwd<bf16>(x, E, bias, labels, N, V, hid, S, vbs, pf, pi, nll, lse, am,
-                        static_cast<cudaStream_t>(stream));
+  return wide_fwd_entry<bf16>(x, E, bias, labels, N, V, hid, S, vbs, pf, pi, nll, lse, am, stream);
 }
 
 extern "C" int vb_xent_wide_dx(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
                                const void* g, int N, int V, int hid, int S, int vbs, void* part, void* dx,
                                void* stream) {
-  if (!wide_width(hid) || wide_cluster(hid) > WB_MAX_CLUSTER || S < 1 || vbs < 1) return (int)cudaErrorInvalidValue;
-  return wide_dx<bf16>(x, E, bias, labels, lse, g, N, V, hid, S, vbs, part, dx, static_cast<cudaStream_t>(stream));
+  return wide_dx_entry<bf16>(x, E, bias, labels, lse, g, N, V, hid, S, vbs, part, dx, stream);
 }
 
 extern "C" int vb_xent_wide_de(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
                                const void* g, int N, int V, int hid, void* dE, void* db, void* stream) {
-  if (!wide_width(hid) || wide_cluster(hid) > WB_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
-  return wide_de<bf16>(x, E, bias, labels, lse, g, N, V, hid, dE, db, static_cast<cudaStream_t>(stream));
+  return wide_de_entry<bf16>(x, E, bias, labels, lse, g, N, V, hid, dE, db, stream);
+}
+
+// The same entry points in fp16 (x, E, dx and dE fp16).
+extern "C" int vb_xent_f16_wide_geometry(int which) { return vb_xent_wide_geometry(which); }
+
+extern "C" int vb_xent_f16_wide_info(int kernel, int what, int hid) { return wide_info(1, kernel, what, hid); }
+
+extern "C" int vb_xent_f16_wide_fwd(const void* x, const void* E, const void* bias, const void* labels, int N, int V,
+                                    int hid, int S, int vbs, void* pf, void* pi, void* nll, void* lse, void* am,
+                                    void* stream) {
+  return wide_fwd_entry<__half>(x, E, bias, labels, N, V, hid, S, vbs, pf, pi, nll, lse, am, stream);
+}
+
+extern "C" int vb_xent_f16_wide_dx(const void* x, const void* E, const void* bias, const void* labels,
+                                   const void* lse, const void* g, int N, int V, int hid, int S, int vbs, void* part,
+                                   void* dx, void* stream) {
+  return wide_dx_entry<__half>(x, E, bias, labels, lse, g, N, V, hid, S, vbs, part, dx, stream);
+}
+
+extern "C" int vb_xent_f16_wide_de(const void* x, const void* E, const void* bias, const void* labels,
+                                   const void* lse, const void* g, int N, int V, int hid, void* dE, void* db,
+                                   void* stream) {
+  return wide_de_entry<__half>(x, E, bias, labels, lse, g, N, V, hid, dE, db, stream);
 }

@@ -92,6 +92,11 @@ _SIGNATURES = {  # every C entry point of the sources: its argument types
     "vb_xent_wide_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "vb_xent_wide_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "vb_xent_wide_de": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "vb_xent_f16_wide_geometry": [_I],
+    "vb_xent_f16_wide_info": [_I, _I, _I],
+    "vb_xent_f16_wide_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "vb_xent_f16_wide_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "vb_xent_f16_wide_de": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "vb_xent_f32_geometry": [_I],
     "vb_xent_f32_info": [_I, _I, _I],
     "vb_xent_f32_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],

@@ -37,16 +37,18 @@ Kernels (``csrc/mlm_xent.cu``, design notes there):
 The kernels take every dtype and width the JAX kernels take: bf16 and fp16
 on the Hopper kernels, instantiated at widths 128, 256, 512, 768 and 1024
 (``KERNEL_WIDTHS``), any other width up to 1024 zero-padded to the next of
-them; bf16 above 1024 on the wide form (``xent_wide_*`` in
-``csrc/mlm_xent.cu``: K4 streams both matrices in 64-column panels; K5/K6
-run a thread-block cluster of one block a 512-column range
+them; bf16 and fp16 above 1024 on the wide form (``xent_wide_*`` in
+``csrc/mlm_xent.cu``: K4 streams 128 x 128 tiles in 64-column panels by
+TMA from a producer warp, its two warpgroups' products interleaving on
+the tensor cores; K5/K6 run a thread-block cluster of one block a
+512-column range
 (:func:`wide_cluster`), which forms each tile's logits once by split K and
 shares the rounded dlog through distributed shared memory) at any multiple
 of 64 up to 8192 (``WIDE_MAX``), another width zero-padded to the next
 multiple of 64 (:func:`kernel_width`, :func:`pad_width`: a zero column adds
 nothing to a logit; the padded columns of dx and dE are dropped; the
-padding copies E each call); fp32, fp16 above 1024 and bf16 above 8192
-(upcast, an fp32 copy of x and E each call: :func:`runs_on_f32`), at any
+padding copies E each call); fp32, and bf16 and fp16 above 8192 (upcast, an
+fp32 copy of x and E each call: :func:`runs_on_f32`), at any
 width on the tiled SIMT kernels of
 ``csrc/mlm_xent_f32.cu`` (128 x 256 tiles of logits, an 8 x 16 register
 block a thread; K4 and K5 split the vocabulary, :func:`f32_plan`). Each
@@ -84,6 +86,7 @@ WIDE_STEP = 64  # above KERNEL_WIDTHS[-1] the wide form takes the multiples of t
 WIDE_MAX = 8192  # ... up to this: a K5/K6 cluster of 16 blocks (the H100's most) of 512 columns
 KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 _ENTRY = {torch.bfloat16: "vb_xent_", torch.float16: "vb_xent_f16_"}  # the entry points of csrc/mlm_xent.cu
+_WIDE_ENTRY = {torch.bfloat16: "vb_xent_wide_", torch.float16: "vb_xent_f16_wide_"}  # ... of its wide form
 
 
 def kernel_width(h: int) -> int:
@@ -96,19 +99,18 @@ def kernel_width(h: int) -> int:
 
 
 def is_wide(h: int) -> bool:
-    """Whether rows of width h are above the instantiated widths: bf16 runs
-    them on the wide form, fp16 on the fp32 kernels."""
+    """Whether rows of width h are above the instantiated widths: bf16 and
+    fp16 run them on the wide form up to WIDE_MAX."""
     return h > KERNEL_WIDTHS[-1]
 
 
 def runs_on_f32(dtype, h: int) -> bool:
-    """Whether rows of width h in ``dtype`` run on the fp32 kernels: fp32;
-    fp16 above 1024, whose 22-bit products the tensor cores' sums round
-    beyond the bf16 limits at such widths (csrc/mlm_xent.cu, the wide
-    form's notes; fp16 products are exact in fp32); bf16 above WIDE_MAX,
-    wider than the wide form's largest cluster covers."""
-    return (dtype == torch.float32 or (dtype == torch.float16 and is_wide(h))
-            or (dtype == torch.bfloat16 and h > WIDE_MAX))
+    """Whether rows of width h in ``dtype`` run on the fp32 kernels: fp32,
+    and bf16 and fp16 above WIDE_MAX, wider than the wide form's largest
+    cluster covers. Below it both half dtypes take the tensor cores: fp16's
+    22-bit products keep db as near the exact products' as bf16's
+    (csrc/mlm_xent.cu, the wide form's notes)."""
+    return dtype == torch.float32 or h > WIDE_MAX
 
 
 def pad_width(t: torch.Tensor, w: int) -> torch.Tensor:
@@ -119,9 +121,9 @@ def pad_width(t: torch.Tensor, w: int) -> torch.Tensor:
 
 def xent_form(dtype, h: int) -> str:
     """The kernel form K4-K6 run rows of width h in ``dtype`` on: "fp32" (the
-    tiled SIMT kernels), "fp16 on fp32" or "bf16 on fp32" (fp16 above 1024,
-    bf16 above WIDE_MAX, upcast), "<dtype> H<instantiated width>" up to
-    1024, or "bf16 wide H<padded width>" above it."""
+    tiled SIMT kernels), "fp16 on fp32" or "bf16 on fp32" (above WIDE_MAX,
+    upcast), "<dtype> H<instantiated width>" up to 1024, or "<dtype> wide
+    H<padded width>" above it."""
     if dtype == torch.float32:
         return "fp32"
     name = "bf16" if dtype == torch.bfloat16 else "fp16"
@@ -304,7 +306,8 @@ def bwd_products(dtype, h: int) -> int:
     """The N x V x h products K5 (or K6) runs at width h in ``dtype``: the
     logits and the result once each, plus, at 1024 (bf16, fp16: 512 columns
     a block), the logits again for the second column range. The wide form's
-    cluster forms each tile's logits once over all its ranges."""
+    cluster forms each tile's logits once over all its ranges, in bf16 and
+    fp16."""
     if runs_on_f32(dtype, h):
         return 2
     w = kernel_width(h)
@@ -367,14 +370,23 @@ def launch_f32_fwd(lib, x, emb, bias, labels, sms):
     return code, nll, lse, am
 
 
+# the wide K4's fixed cost of a block (its ring filled, its last tile's
+# statistics), in its tiles' time (128 vocabulary rows over the whole width)
+WIDE_FWD_BLOCK_TILES = 1
+
+
 @functools.lru_cache(maxsize=None)
 def _wide_fwd_plan_of(lib, N: int, V: int, H: int, sms: int) -> dict:
-    return fwd_plan(N, V, H, lib.vb_xent_wide_geometry(1), lib.vb_xent_wide_geometry(3), sms)
+    """The wide K4's plan: :func:`fwd_plan` on its tiling
+    (``vb_xent_wide_geometry`` 1, 3), WIDE_FWD_BLOCK_TILES a block's fixed
+    cost."""
+    return fwd_plan(N, V, H, lib.vb_xent_wide_geometry(1), lib.vb_xent_wide_geometry(3), sms, WIDE_FWD_BLOCK_TILES)
 
 
 def launch_wide_fwd(lib, x, emb, bias, labels, sms):
-    """Launch the wide form's K4 and the merge pass on checked inputs of a
-    width it takes: (the entry point's code, nll, lse, argmax)."""
+    """Launch the wide form's K4 and the merge pass on checked bf16 or fp16
+    inputs of a width it takes: (the entry point's code, nll, lse,
+    argmax)."""
     (N, H), V = x.shape, emb.shape[0]
     plan = _wide_fwd_plan_of(lib, N, V, H, sms)
     pf = torch.empty(plan["pf_shape"], dtype=torch.float32, device=x.device)
@@ -382,9 +394,9 @@ def launch_wide_fwd(lib, x, emb, bias, labels, sms):
     nll = torch.empty(N, dtype=torch.float32, device=x.device)
     lse = torch.empty(N, dtype=torch.float32, device=x.device)
     am = torch.empty(N, dtype=torch.int32, device=x.device)
-    code = lib.vb_xent_wide_fwd(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), N, V, H,
-                                plan["grid"][1], plan["per"], pf.data_ptr(), pi.data_ptr(), nll.data_ptr(),
-                                lse.data_ptr(), am.data_ptr(), _build.stream_ptr(x.device))
+    code = getattr(lib, _WIDE_ENTRY[x.dtype] + "fwd")(
+        x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), N, V, H, plan["grid"][1], plan["per"],
+        pf.data_ptr(), pi.data_ptr(), nll.data_ptr(), lse.data_ptr(), am.data_ptr(), _build.stream_ptr(x.device))
     return code, nll, lse, am
 
 
@@ -398,8 +410,8 @@ def mlm_xent_fwd(x, emb, bias, labels) -> Tuple[torch.Tensor, torch.Tensor, torc
     writes per-split partial statistics; its second pass merges them in
     vocabulary order. A bf16 or fp16 width between the instantiated ones,
     or above 1024 no multiple of 64, runs on x and E zero-padded to the
-    next (a copy of E each call); fp16 above 1024 runs on the fp32 kernels
-    (an fp32 copy of x and E each call)."""
+    next (a copy of E each call); above WIDE_MAX they run on the fp32
+    kernels (an fp32 copy of x and E each call)."""
     what = "mlm xent forward (K4)"
     if not _device(x, what):
         return mlm_xent_fwd_reference(x, emb, bias, labels)
@@ -447,11 +459,12 @@ def launch_f32_dx(lib, x, emb, bias, labels, lse, g, sms):
 
 
 @functools.lru_cache(maxsize=None)
-def wide_clusters(lib, kernel: int, H: int) -> int:
-    """The clusters of the wide K5 (kernel 0) or K6 (1) at width H that the
-    card runs at once (``vb_xent_wide_info(kernel, 4, H)``); raises where
-    none fits (a launch of such a cluster would fail on its own)."""
-    n = lib.vb_xent_wide_info(kernel, 4, H)
+def wide_clusters(lib, kernel: int, H: int, dtype=torch.bfloat16) -> int:
+    """The clusters of the wide K5 (kernel 0) or K6 (1) in ``dtype`` at width
+    H that the card runs at once (``vb_xent_wide_info(kernel, 4, H)``, or
+    ``vb_xent_f16_wide_info``); raises where none fits (a launch of such a
+    cluster would fail on its own)."""
+    n = getattr(lib, _WIDE_ENTRY[dtype] + "info")(kernel, 4, H)
     if n <= 0:
         raise RuntimeError(f"mlm xent: no cluster of the wide K{5 + kernel} at width {H} fits the card ({n})")
     return n
@@ -459,14 +472,16 @@ def wide_clusters(lib, kernel: int, H: int) -> int:
 
 def launch_wide_dx(lib, x, emb, bias, labels, lse, g):
     """Launch the wide form's K5 (a cluster a row block and split) and its
-    reduce pass on checked inputs: (the entry point's code, dx)."""
+    reduce pass on checked bf16 or fp16 inputs: (the entry point's code,
+    dx)."""
     (N, H), V = x.shape, emb.shape[0]
-    plan = wide_dx_plan(N, V, H, *(lib.vb_xent_wide_geometry(w) for w in (2, 4, 5)), wide_clusters(lib, 0, H))
+    plan = wide_dx_plan(N, V, H, *(lib.vb_xent_wide_geometry(w) for w in (2, 4, 5)),
+                        wide_clusters(lib, 0, H, x.dtype))
     part = torch.empty(plan["part_shape"], dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    code = lib.vb_xent_wide_dx(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                               g.data_ptr(), N, V, H, plan["grid"][2], plan["per"], part.data_ptr(), dx.data_ptr(),
-                               _build.stream_ptr(x.device))
+    code = getattr(lib, _WIDE_ENTRY[x.dtype] + "dx")(
+        x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(), N, V, H,
+        plan["grid"][2], plan["per"], part.data_ptr(), dx.data_ptr(), _build.stream_ptr(x.device))
     return code, dx
 
 
@@ -521,13 +536,14 @@ def launch_f32_de(lib, x, emb, bias, labels, lse, g):
 
 def launch_wide_de(lib, x, emb, bias, labels, lse, g):
     """Launch the wide form's K6 (a cluster a vocabulary block) on checked
-    inputs: (the entry point's code, d embedding, d bias)."""
+    bf16 or fp16 inputs: (the entry point's code, d embedding, d bias)."""
     (N, H), V = x.shape, emb.shape[0]
-    wide_clusters(lib, 1, H)
+    wide_clusters(lib, 1, H, x.dtype)
     de = torch.empty_like(emb)
     db = torch.empty(V, dtype=torch.float32, device=x.device)
-    code = lib.vb_xent_wide_de(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                               g.data_ptr(), N, V, H, de.data_ptr(), db.data_ptr(), _build.stream_ptr(x.device))
+    code = getattr(lib, _WIDE_ENTRY[x.dtype] + "de")(
+        x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(), N, V, H,
+        de.data_ptr(), db.data_ptr(), _build.stream_ptr(x.device))
     return code, de, db
 
 

@@ -49,24 +49,32 @@ both widths too, and both trees' K4-K6 are timed at width 1024 ("at
 1024").
 
 With ``--wide`` (``python -m visualbert_torch.tools.xent_steps --wide
-[OTHER_CHECKOUT]``) the tool takes the wide form's K5/K6 instead
-(``xent_wide_bwd_kernel``, bf16 above width 1024: a thread-block cluster a
-row block and split): ``csrc/mlm_xent.cu`` built alone and, given another
-checkout, that tree's source alone. At N = 3072, V = 30522 and widths
-WIDE_WIDTHS (1088, 2048, 2560), this tree's and the other tree's K5 and K6
-(both launched on this tree's plan, ``ops/mlm_xent.py::wide_dx_plan``:
-the entry points take the splits) are held to their plain versions
-(chip_smoke.py's limits; db to :func:`db_exact`'s; this tree's must meet
-them and repeat bit for bit, the other's are printed) and timed in turns
-with cuBLAS's two products; at 2048 and 2560 this tree's K5 is also timed
-on each vocabulary split count of WIDE_SPLITS ("wide K5 splits", the
-support for ``ops/mlm_xent.py::WIDE_BLOCK_TILES``), each printed with the
-busiest cluster slot's tiles as ``wide_dx_plan`` models them and which
-one the plan takes. The SASS of the kernels the wide K5/K6 do not reach
-(K4-K6 up to 1024 as SHARED_KERNELS, the wide K4 and the wide reduce pass
-as WIDE_SHARED_KERNELS) is compared with the other tree's. Each tree's
-wide K5/K6 are printed with registers, local bytes, shared bytes, blocks
-an SM and clusters at once.
+[OTHER_CHECKOUT]``) the tool takes the wide form instead (``xent_wide_*``,
+bf16 and fp16 above width 1024: K4 a 128 x 128 tile a block, K5/K6 a
+thread-block cluster a row block and split): ``csrc/mlm_xent.cu`` built
+alone and, given another checkout, that tree's source alone. At N = 3072,
+V = 30522 and widths WIDE_WIDTHS (1088, 2048, 2560), in each dtype of
+WIDE_DTYPES, this tree's K4, K5 and K6 are held to their plain versions
+(chip_smoke.py's limits: nll and lse, the argmax where the top two logits
+are apart, dx and dE; db to :func:`db_exact`'s; nll and lse also printed
+against :func:`fwd_exact`'s) and must repeat bit for bit; the other tree's wide kernels (bf16 only where it has no fp16 wide
+form), K5 and K6 on this tree's plan (``ops/mlm_xent.py::wide_dx_plan``:
+the entry points take the splits) and K4 on its own (as its wrapper
+planned it), are held likewise and printed. All are timed in turns with
+cuBLAS's products in the same dtype (K4: ``x @ E^T``; K5, K6: that and
+the second product); in bf16 at 2048 and 2560 this tree's K5 is also
+timed on each vocabulary split count of WIDE_SPLITS ("wide K5 splits",
+the support for ``ops/mlm_xent.py::WIDE_BLOCK_TILES``) and its K4 on the
+splits that fill one to four waves ("wide K4 splits", the support for
+``WIDE_FWD_BLOCK_TILES``), each printed with its busiest slot's tiles as
+the plan models them and which one the plan takes. The SASS of every
+kernel both trees build is compared, but the wide K4 (WIDE_TAKEN, the
+kernel redesigned here): the forms up to 1024 in both dtypes, the merge
+and reduce passes and the bf16 wide K5/K6 must match the other tree's.
+Each tree's wide kernels are printed with registers, local bytes, shared
+bytes, blocks an SM and (K5, K6) clusters at once. At WIDE_EXACT_WIDTHS
+(4160, 6144, 8192) K4 alone is held to :func:`fwd_exact`'s nll and lse
+(XENT_TOL), beside the plain version's own distance from them.
 
 K4 as built is also timed on the splits that fill one to four waves of
 one block an SM, at both widths ("K4 splits"), each printed with the
@@ -90,6 +98,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import shutil
 
 from visualbert_torch.ops import _build
@@ -117,12 +126,13 @@ BWD_BUILDS = {
 }
 BUILDS = {**FWD_BUILDS, **BWD_BUILDS}
 FNS = ("vb_xent_geometry", "vb_xent_info", "vb_xent_fwd", "vb_xent_dx", "vb_xent_de", "vb_xent_wide_geometry",
-       "vb_xent_wide_info", "vb_xent_wide_dx", "vb_xent_wide_de", "vb_error_string")
+       "vb_xent_wide_info", "vb_xent_wide_fwd", "vb_xent_wide_dx", "vb_xent_wide_de", "vb_xent_f16_wide_info",
+       "vb_xent_f16_wide_fwd", "vb_xent_f16_wide_dx", "vb_xent_f16_wide_de", "vb_error_string")
 WIDE_WIDTHS = (1088, 2048, 2560)
+WIDE_DTYPES = ("bfloat16", "float16")
 WIDE_SPLITS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16)  # the wide K5's vocabulary splits the sweep times
-WIDE_SHARED_KERNELS = {  # the wide form's kernels that its K5/K6 do not reach
-    "wide K4": "xent_wide_fwd_kernelI13__nv_bfloat16", "wide K5 reduce": "xent_wide_dx_reduce_kernelI13__nv_bfloat16",
-}
+WIDE_TAKEN = ("xent_wide_fwd_kernel",)  # the kernels the --wide comparison expects to differ: part of each name
+WIDE_EXACT_WIDTHS = (4160, 6144, 8192)  # K4 held to the exact products alone, untimed, at these too
 SHARED_KERNELS = {  # the kernels of mlm_xent.cu that an earlier tree may share: part of each mangled name
     "K4, 768": "xent_fwd_kernelILi768E", "K4, 1024": "xent_fwd_kernelILi1024E",
     "K5, 768": "xent_bwd_kernelILi768ELb0E", "K6, 768": "xent_bwd_kernelILi768ELb1E",
@@ -166,15 +176,12 @@ def build_all(builds=BUILDS, sources=None):
     return {name: bind(p) for name, p in paths.items()}, seconds
 
 
-def compare_sass(other, card, kernels=SHARED_KERNELS):
-    """Build ``other``'s mlm_xent.cu alone and compare the SASS of
-    ``kernels`` with this tree's; ({kernel: (same, instructions here,
-    instructions there)}, or None without cuobjdump; the other tree's
-    library)."""
+def sass_texts(other, card):
+    """Build this tree's and ``other``'s mlm_xent.cu alone: ({"this": SASS,
+    "other": SASS} as ``cuobjdump -sass`` prints them, or None without
+    cuobjdump; the other tree's library)."""
     import subprocess
     from pathlib import Path
-
-    from visualbert_torch.tools.attn_ab import OTHER_FORMS, sass_of
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = _build.BUILD_ROOT / "xent_steps"
@@ -188,20 +195,81 @@ def compare_sass(other, card, kernels=SHARED_KERNELS):
     if not Path(tool).exists():
         print(f"sass: no cuobjdump, not compared  [{card}]", flush=True)
         return None, bind(paths["other"])
-    sass = {name: sass_of(subprocess.run([tool, "-sass", str(p)], capture_output=True, text=True,
-                                         check=True).stdout, kernels, OTHER_FORMS) for name, p in paths.items()}
+    texts = {name: subprocess.run([tool, "-sass", str(p)], capture_output=True, text=True, check=True).stdout
+             for name, p in paths.items()}
+    return texts, bind(paths["other"])
+
+
+def compare_sass(other, card, kernels=SHARED_KERNELS):
+    """Build ``other``'s mlm_xent.cu alone and compare the SASS of
+    ``kernels`` with this tree's; ({kernel: (same, instructions here,
+    instructions there)}, or None without cuobjdump; the other tree's
+    library)."""
+    from visualbert_torch.tools.attn_ab import OTHER_FORMS, sass_of
+
+    texts, other_lib = sass_texts(other, card)
+    if texts is None:
+        return None, other_lib
+    sass = {name: sass_of(text, kernels, OTHER_FORMS) for name, text in texts.items()}
     res = {}
     for k in kernels:
         a, b = sass["this"].get(k, []), sass["other"].get(k, [])
         res[k] = (bool(a) and a == b, len(a), len(b))
         print(f"sass of {k}: {len(a)} instructions here, {len(b)} in {other}, the same: {res[k][0]}  [{card}]",
               flush=True)
-    return res, bind(paths["other"])
+    return res, other_lib
 
 
-def inputs(torch, device, width=H):
-    """chip_smoke.py's K4-K6 inputs at ``width``: x, embedding, bias,
-    labels, g, and the plain lse."""
+def anonymous(name):
+    """A mangled name without its anonymous namespace's tag, which differs
+    between builds of the same source at two paths."""
+    return re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}", "_GLOBAL__N_", name)
+
+
+def sass_functions(text):
+    """{function (:func:`anonymous` name): its instructions} of every function
+    in ``cuobjdump -sass`` output, as ``tools/attn_ab.py::sass_of`` reads
+    them (no addresses or encodings, branch labels renumbered in order of
+    use)."""
+    out, cur, labels = {}, None, {}
+
+    def label(m):
+        return f".L{labels.setdefault(m.group(0), len(labels))}"
+
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur, labels = anonymous(m.group(1)), {}
+            out[cur] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        if m and cur is not None:
+            out[cur].append(re.sub(r"\.L_x_\d+", label, m.group(1)))
+    return out
+
+
+def compare_all_sass(texts, card, taken=WIDE_TAKEN):
+    """Every kernel both trees build, but those whose names hold a part of
+    ``taken``, instruction by instruction: {"compared": {kernel: (same,
+    instructions here, there)}, "only_here": [...], "only_there": [...]};
+    one line a kernel and a summary."""
+    here, there = sass_functions(texts["this"]), sass_functions(texts["other"])
+    compared = {}
+    for name in sorted(set(here) & set(there)):
+        if any(part in name for part in taken):
+            continue
+        compared[name] = (here[name] == there[name], len(here[name]), len(there[name]))
+        print(f"sass of {name}: {len(here[name])} instructions here, {len(there[name])} there, the same: "
+              f"{compared[name][0]}  [{card}]", flush=True)
+    only_here, only_there = sorted(set(here) - set(there)), sorted(set(there) - set(here))
+    print(f"sass: {sum(c[0] for c in compared.values())} of the {len(compared)} kernels both trees build (but "
+          f"{', '.join(taken)}) the same; only here: {only_here}; only there: {only_there}  [{card}]", flush=True)
+    return dict(compared=compared, only_here=only_here, only_there=only_there)
+
+
+def inputs(torch, device, width=H, dtype="bfloat16"):
+    """chip_smoke.py's K4-K6 inputs at ``width`` in ``dtype``: x, embedding,
+    bias, labels, g, and the plain lse."""
     import numpy as np
 
     from visualbert_torch.ops import mlm_xent as xe
@@ -209,8 +277,8 @@ def inputs(torch, device, width=H):
 
     N, V = B * N_PRED, 30522
     rng = np.random.RandomState(1)
-    x = torch.tensor(rng.randn(N, width), dtype=torch.bfloat16, device=device)
-    emb = torch.tensor(rng.randn(V, width) * 0.05, dtype=torch.bfloat16, device=device)
+    x = torch.tensor(rng.randn(N, width), dtype=torch.float32).to(getattr(torch, dtype)).to(device)
+    emb = torch.tensor(rng.randn(V, width) * 0.05, dtype=torch.float32).to(getattr(torch, dtype)).to(device)
     bias = torch.tensor(rng.randn(V) * 0.1, dtype=torch.float32, device=device)
     labels = rng.randint(0, V, N)
     labels[rng.rand(N) < 0.15] = -1
@@ -234,6 +302,19 @@ def db_exact(x, emb, bias, labels, lse, g):
     del lg
     p[torch.arange(p.shape[0], device=p.device), labels.long()] -= 1.0
     return (p * g.double()[:, None]).sum(0)
+
+
+def fwd_exact(x, emb, bias, labels):
+    """K4's (nll, lse) [N] fp64 with the logits' products summed exactly (in
+    fp64): the wide K4's nll and lse are held to these, since the plain
+    version's own fp32 sums of thousands of products drift beyond
+    chip_smoke.py's XENT_TOL at 6144 and 8192 (``--wide`` prints both
+    distances, WIDE_EXACT_WIDTHS)."""
+    import torch
+
+    lg = torch.matmul(x.double(), emb.double().t()) + bias.double()
+    lse = torch.logsumexp(lg, dim=-1)
+    return lse - lg.gather(1, labels.long()[:, None])[:, 0], lse
 
 
 def check(code, what):
@@ -271,12 +352,13 @@ def first_design_call(lib, data, sms):
     return fwd_on(lib, data, *xe.splits(-(-N // rows), -(-V // tile), sms))
 
 
-def sweep_splits(N, V, rows, tile, sms):
+def sweep_splits(N, V, rows, tile, sms, block_tiles=None):
     """The vocabulary splits of K4 at N rows and V vocabulary rows, for a
     tiling of ``rows`` x rows a block and ``tile`` vocabulary rows a tile,
     that fill one to four waves of one block an SM on ``sms`` SMs: a list of
     (splits, tiles a split, waves, the busiest SM's tiles as
-    ops/mlm_xent.py::fwd_plan models them)."""
+    ops/mlm_xent.py::fwd_plan models them with ``block_tiles`` a block's
+    fixed cost, FWD_BLOCK_TILES by default)."""
     from visualbert_torch.ops import mlm_xent as xe
 
     row_blocks, n_tiles = -(-N // rows), -(-V // tile)
@@ -285,7 +367,7 @@ def sweep_splits(N, V, rows, tile, sms):
         per = -(-n_tiles // max(1, waves * sms // row_blocks))
         S = -(-n_tiles // per)  # no split empty
         w = -(-row_blocks * S // sms)
-        out.append((S, per, w, w * (per + xe.FWD_BLOCK_TILES)))
+        out.append((S, per, w, w * (per + (xe.FWD_BLOCK_TILES if block_tiles is None else block_tiles))))
     return out
 
 
@@ -331,6 +413,11 @@ def rel(a, b):
     return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-6))
 
 
+def dist(a, b):
+    """max |a - b| in fp64."""
+    return float((a.double() - b.double()).abs().max())
+
+
 def wide_sweep_splits(N, V, rows, tile, clusters):
     """The wide K5's vocabulary splits of WIDE_SPLITS and the plan's own at
     N rows and V vocabulary rows, for ``rows`` resident x rows a cluster and
@@ -351,10 +438,35 @@ def wide_sweep_splits(N, V, rows, tile, clusters):
     return list(out.values())
 
 
+def wide_fwd_on(lib, data, S, per):
+    """The wide K4 of one build, in ``data``'s dtype, on S vocabulary splits
+    of ``per`` tiles, its partials allocated here as its wrapper allocates
+    them."""
+    import torch
+
+    from visualbert_torch.ops import mlm_xent as xe
+
+    x, emb, bias, lab = data[:4]
+    (N, H), V = x.shape, emb.shape[0]
+    pf = torch.empty((4, S, N), dtype=torch.float32, device=x.device)
+    pi = torch.empty((S, N), dtype=torch.int32, device=x.device)
+    out = [torch.empty(N, dtype=dt, device=x.device) for dt in (torch.float32, torch.float32, torch.int32)]
+    entry, stream = getattr(lib, xe._WIDE_ENTRY[x.dtype] + "fwd"), _build.stream_ptr(x.device)
+
+    def k4(_):
+        check(entry(x.data_ptr(), emb.data_ptr(), bias.data_ptr(), lab.data_ptr(), N, V, H, S, per, pf.data_ptr(),
+                    pi.data_ptr(), *(t.data_ptr() for t in out), stream), "wide K4")
+        return out
+
+    return k4
+
+
 def wide_calls(lib, data, S, per):
     """The wide K5 (on S vocabulary splits of ``per`` tiles) and K6 of one
-    build of csrc/mlm_xent.cu on ``data``."""
+    build of csrc/mlm_xent.cu on ``data``, in its dtype."""
     import torch
+
+    from visualbert_torch.ops import mlm_xent as xe
 
     x, emb, bias, lab, lse, g = data
     (N, H), V = x.shape, emb.shape[0]
@@ -363,13 +475,14 @@ def wide_calls(lib, data, S, per):
     db = torch.empty(V, dtype=torch.float32, device=x.device)
     stream = _build.stream_ptr(x.device)
     ptrs = (x.data_ptr(), emb.data_ptr(), bias.data_ptr(), lab.data_ptr(), lse.data_ptr(), g.data_ptr())
+    prefix = xe._WIDE_ENTRY[x.dtype]
 
     def k5(_):
-        check(lib.vb_xent_wide_dx(*ptrs, N, V, H, S, per, part.data_ptr(), dx.data_ptr(), stream), "wide K5")
+        check(getattr(lib, prefix + "dx")(*ptrs, N, V, H, S, per, part.data_ptr(), dx.data_ptr(), stream), "wide K5")
         return dx
 
     def k6(_):
-        check(lib.vb_xent_wide_de(*ptrs, N, V, H, de.data_ptr(), db.data_ptr(), stream), "wide K6")
+        check(getattr(lib, prefix + "de")(*ptrs, N, V, H, de.data_ptr(), db.data_ptr(), stream), "wide K6")
         return de, db
 
     return k5, k6
@@ -384,9 +497,9 @@ def wide_main(other, card):
     from visualbert_torch.tools.attn_exp import best_ms
 
     dev = torch.device("cuda")
+    sms = xe.sm_count(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
-    builds = {"this": []}
-    sources = {}
+    builds, sources = {"this": []}, {}
     if other:
         from pathlib import Path
 
@@ -396,62 +509,114 @@ def wide_main(other, card):
     print(f"xent_steps --wide: {len(builds)} builds in {seconds:.1f} s  [{card}]", flush=True)
     sass = None
     if other:
-        sass, _ = compare_sass(other, card, {**SHARED_KERNELS, **WIDE_SHARED_KERNELS})
-    trees = ("this", "other") if other else ("this",)
+        texts, _ = sass_texts(other, card)
+        sass = compare_all_sass(texts, card) if texts is not None else None
     errors, info, times, splits = {}, {}, {}, {}
     this = libs["this"]
     for H in WIDE_WIDTHS:
-        data = inputs(torch, dev, H)
-        N, V = data[0].shape[0], data[1].shape[0]
-        rows, tile, cols = (this.vb_xent_wide_geometry(w) for w in (2, 4, 5))
-        clusters = xe.wide_clusters(this, 0, H)
-        plan = xe.wide_dx_plan(N, V, H, rows, tile, cols, clusters)
-        dx_r = xe.mlm_xent_dx_reference(*data)
-        de_r, db_r = xe.mlm_xent_de_reference(*data)
-        db64 = db_exact(*data)
-        print(f"at {H}: the plain version's db against the exact products' {rel(db_r, db64):.3e}  [{card}]",
-              flush=True)
-        fns = {}
-        for tree in trees:
-            k5, k6 = wide_calls(libs[tree], data, plan["grid"][2], plan["per"])
-            got = (k5(0).clone(),) + tuple(t.clone() for t in k6(0))
-            again = (k5(0),) + k6(0)
-            torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            errors[f"{tree} {H}"] = e = (rel(got[0], dx_r), rel(got[1], de_r), rel(got[2], db64), rel(got[2], db_r))
-            info[f"{tree} {H}"] = [[libs[tree].vb_xent_wide_info(k, w, H) for w in range(5)] for k in (0, 1)]
-            print(f"{tree} wide K5/K6 at {H}: dx {e[0]:.3e} (tol {DX_TOL}), dE {e[1]:.3e} (tol {DE_TOL}), db "
-                  f"{e[2]:.3e} against the exact products' (tol {DBIAS_TOL}; {e[3]:.3e} against the plain "
-                  f"version's), two calls bit for bit: {same}; K5 grid {plan['grid']}; K5, K6 "
-                  f"registers, local bytes, shared bytes, blocks an SM, clusters at once {info[f'{tree} {H}']}  "
-                  f"[{card}]", flush=True)
-            if tree == "this" and not (e[0] <= DX_TOL and e[1] <= DE_TOL and e[2] <= DBIAS_TOL and same):
-                raise SystemExit(f"xent_steps: the wide K5/K6 at {H} disagree with their plain versions")
-            fns[f"{tree} K5"], fns[f"{tree} K6"] = k5, k6
-        if H != 1088:  # this K5 on other splits: what WIDE_BLOCK_TILES models
-            for S, per, w, tiles in wide_sweep_splits(N, V, rows, tile, clusters):
-                name = f"wide K5 splits {S}"
-                fns[name] = wide_calls(this, data, S, per)[0]
-                splits[f"{H}: {S} splits"] = (S, per, w, tiles, S == plan["grid"][2])
-        x, emb = data[0], data[1]
-        p = torch.empty((x.shape[0], emb.shape[0]), dtype=x.dtype, device=dev).normal_()
-        fns["cuBLAS K5's products"] = lambda _: (torch.matmul(x, emb.t()), torch.matmul(p, emb))
-        fns["cuBLAS K6's products"] = lambda _: (torch.matmul(x, emb.t()), torch.matmul(p.t(), x))
-        del dx_r, de_r, db_r, db64
-        jobs, t = list(fns), {name: [] for name in fns}
-        for r in range(ROUNDS):
-            for name in (jobs if r % 2 == 0 else jobs[::-1]):
-                t[name].append(best_ms(fns[name]))
-        for name, ms in t.items():
-            extra = ""
-            if name.startswith("wide K5 splits"):
-                S, per, w, tiles, chosen = splits[f"{H}: {name.split()[-1]} splits"]
-                extra = (f" ({per} tiles a split, {w} waves of {clusters} clusters, the busiest slot's modelled "
-                         f"tiles {tiles}{'; wide_dx_plan takes it' if chosen else ''})")
-            print(f"at {H}: {name}{extra}: {min(ms):.4f}-{max(ms):.4f} ms  [{card}]", flush=True)
-        times[H] = t
-        del data, p, fns
-        torch.cuda.empty_cache()
+        for dtype in WIDE_DTYPES:
+            data = inputs(torch, dev, H, dtype)
+            x, emb, bias, lab = data[:4]
+            N, V = x.shape[0], emb.shape[0]
+            rows, tile, cols = (this.vb_xent_wide_geometry(w) for w in (2, 4, 5))
+            clusters = xe.wide_clusters(this, 0, H, x.dtype)
+            plan = xe.wide_dx_plan(N, V, H, rows, tile, cols, clusters)
+            nll_r, lse_r, am_r = xe.mlm_xent_fwd_reference(x, emb, bias, lab)
+            top = torch.topk(xe._logits(x, emb, bias), 2, dim=-1).values
+            clear = (top[:, 0] - top[:, 1]) > 1e-3
+            del top
+            dx_r = xe.mlm_xent_dx_reference(*data)
+            de_r, db_r = xe.mlm_xent_de_reference(*data)
+            db64 = db_exact(*data)
+            nll64, lse64 = fwd_exact(x, emb, bias, lab)
+            at = f"{dtype} at {H}"
+            print(f"{at}: the plain version against the exact products: db {rel(db_r, db64):.3e}, nll "
+                  f"{dist(nll_r, nll64):.3e}, lse {dist(lse_r, lse64):.3e}  [{card}]", flush=True)
+            prefix = xe._WIDE_ENTRY[x.dtype]
+            fns = {}
+            for tree in (t for t in libs if hasattr(libs[t], prefix + "fwd")):
+                lib = libs[tree]
+                fwd = (xe._wide_fwd_plan_of(lib, N, V, H, sms) if tree == "this"  # the other as its wrapper planned
+                       else xe.fwd_plan(N, V, H, lib.vb_xent_wide_geometry(1), lib.vb_xent_wide_geometry(3), sms))
+                k4 = wide_fwd_on(lib, data, fwd["grid"][1], fwd["per"])
+                k5, k6 = wide_calls(lib, data, plan["grid"][2], plan["per"])
+                got = tuple(t.clone() for t in k4(0)) + (k5(0).clone(),) + tuple(t.clone() for t in k6(0))
+                again = tuple(k4(0)) + (k5(0),) + k6(0)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                nll, lse, am, dx, de, db = got
+                bad = int(((am != am_r) & clear).sum())
+                e = (float((nll - nll_r).abs().max()), float((lse - lse_r).abs().max()), rel(dx, dx_r),
+                     rel(de, de_r), rel(db, db64), rel(db, db_r), dist(nll, nll64), dist(lse, lse64))
+                errors[f"{tree} {at}"] = e + (bad,)
+                infos = getattr(lib, prefix + "info")
+                info[f"{tree} {at}"] = [[infos(k, w, H) for w in range(5 if k < 2 else 4)] for k in (0, 1, 2)]
+                print(f"{tree} wide K4-K6 {at}: nll {e[0]:.3e}, lse {e[1]:.3e} (tol {XENT_TOL}; against the exact "
+                      f"products' {e[6]:.3e}, {e[7]:.3e}), argmax differs on "
+                      f"{bad} rows with a top-2 gap > 1e-3; dx {e[2]:.3e} (tol {DX_TOL}), dE {e[3]:.3e} (tol "
+                      f"{DE_TOL}), db {e[4]:.3e} against the exact products' (tol {DBIAS_TOL}; {e[5]:.3e} against "
+                      f"the plain version's); two calls bit for bit: {same}; K4 grid {fwd['grid']}, K5 grid "
+                      f"{plan['grid']}; K5, K6, K4 registers, local bytes, shared bytes, blocks an SM (clusters at "
+                      f"once) {info[f'{tree} {at}']}  [{card}]", flush=True)
+                if tree == "this" and not (max(e[:2]) <= XENT_TOL and bad == 0 and e[2] <= DX_TOL
+                                           and e[3] <= DE_TOL and e[4] <= DBIAS_TOL and same):
+                    raise SystemExit(f"xent_steps: the wide K4-K6 {at} disagree with their plain versions")
+                fns[f"{tree} K4"], fns[f"{tree} K5"], fns[f"{tree} K6"] = k4, k5, k6
+            del dx_r, de_r, db_r, db64, clear, nll64, lse64
+            if dtype == "bfloat16" and H != 1088:
+                # this K5 on other splits: what WIDE_BLOCK_TILES models
+                for S, per, w, tiles in wide_sweep_splits(N, V, rows, tile, clusters):
+                    fns[f"wide K5 splits {S}"] = wide_calls(this, data, S, per)[0]
+                    splits[f"{H}: K5 {S} splits"] = (S, per, w, tiles, S == plan["grid"][2])
+                # this K4 on the splits of one to four waves: what WIDE_FWD_BLOCK_TILES models
+                f_rows, f_tile = this.vb_xent_wide_geometry(1), this.vb_xent_wide_geometry(3)
+                chosen = xe._wide_fwd_plan_of(this, N, V, H, sms)["grid"][1]
+                for S, per, w, tiles in sweep_splits(N, V, f_rows, f_tile, sms, xe.WIDE_FWD_BLOCK_TILES):
+                    fns[f"wide K4 splits {S}"] = wide_fwd_on(this, data, S, per)
+                    splits[f"{H}: K4 {S} splits"] = (S, per, w, tiles, S == chosen)
+            p = torch.empty((N, V), dtype=x.dtype, device=dev).normal_()
+            fns["cuBLAS K4's product"] = lambda _: torch.matmul(x, emb.t())
+            fns["cuBLAS K5's products"] = lambda _: (torch.matmul(x, emb.t()), torch.matmul(p, emb))
+            fns["cuBLAS K6's products"] = lambda _: (torch.matmul(x, emb.t()), torch.matmul(p.t(), x))
+            jobs, t = list(fns), {name: [] for name in fns}
+            for r in range(ROUNDS):
+                for name in (jobs if r % 2 == 0 else jobs[::-1]):
+                    t[name].append(best_ms(fns[name]))
+            for name, ms in t.items():
+                extra = ""
+                if "splits" in name:
+                    kernel = name.split()[1]
+                    S, per, w, tiles, chosen = splits[f"{H}: {kernel} {name.split()[-1]} splits"]
+                    slots = f"{clusters} clusters" if kernel == "K5" else f"{sms} SMs"
+                    extra = (f" ({per} tiles a split, {w} waves of {slots}, the busiest slot's modelled tiles "
+                             f"{tiles}{'; the plan takes it' if chosen else ''})")
+                print(f"{at}: {name}{extra}: {min(ms):.4f}-{max(ms):.4f} ms  [{card}]", flush=True)
+            times[f"{dtype} {H}"] = t
+            del data, x, emb, bias, lab, p, fns
+            torch.cuda.empty_cache()
+    # K4 alone at the widest clusters: held to the exact products (the plain version's fp32 sums drift)
+    for H in WIDE_EXACT_WIDTHS:
+        for dtype in WIDE_DTYPES:
+            x, emb, bias, lab = inputs(torch, dev, H, dtype)[:4]
+            N, V = x.shape[0], emb.shape[0]
+            nll64, lse64 = fwd_exact(x, emb, bias, lab)
+            nll_r, lse_r, _ = xe.mlm_xent_fwd_reference(x, emb, bias, lab)
+            at = f"{dtype} at {H}"
+            line = [f"the plain version nll {dist(nll_r, nll64):.3e}, lse {dist(lse_r, lse64):.3e}"]
+            prefix = xe._WIDE_ENTRY[x.dtype]
+            for tree in (t for t in libs if hasattr(libs[t], prefix + "fwd")):
+                lib = libs[tree]
+                fwd = (xe._wide_fwd_plan_of(lib, N, V, H, sms) if tree == "this"
+                       else xe.fwd_plan(N, V, H, lib.vb_xent_wide_geometry(1), lib.vb_xent_wide_geometry(3), sms))
+                nll, lse, _ = wide_fwd_on(lib, (x, emb, bias, lab), fwd["grid"][1], fwd["per"])(0)
+                torch.cuda.synchronize()
+                errors[f"{tree} K4 {at}"] = e = (dist(nll, nll64), dist(lse, lse64))
+                line.append(f"{tree} K4 nll {e[0]:.3e}, lse {e[1]:.3e}")
+                if tree == "this" and max(e) > XENT_TOL:
+                    raise SystemExit(f"xent_steps: the wide K4 {at} misses the exact products")
+            print(f"{at}, against the exact products (tol {XENT_TOL}): {'; '.join(line)}  [{card}]", flush=True)
+            del x, emb, bias, lab, nll64, lse64, nll_r, lse_r
+            torch.cuda.empty_cache()
     result = dict(card=card, errors=errors, info=info, ms=times, sass=sass, splits=splits)
     print(json.dumps(result), flush=True)
     return result
