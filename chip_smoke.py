@@ -93,12 +93,16 @@ non-zero without printing the final line:
    the site kernels through their wrappers and nothing else.
    Then K1/K2's and K4-K6's other forms: K1/K2 (ATTENTION_FORMS) in fp16
    and fp32 at the main path's [128, 228, 12 x 64], and in bf16, fp16 and
-   fp32 at head dim 16 (bf16 and fp16 zero-padded to 64) and 128, at
-   dropout 0 and 0.1, fp32 within F32_REL_TOL / F32_ABS_TOL of its plain
-   version and the rest within the bf16 limits, each timed beside its
-   plain version, scaled_dot_product_attention in its dtype and its bound,
-   with each kernel's registers, local bytes, shared bytes and blocks an
-   SM and the padding's own time; K4-K6 (XENT_FORMS) in bf16 at widths
+   fp32 at head dim 16 (bf16 and fp16: K1 zero-padded to 64, K2 on its
+   unpadded D16 form), in bf16 and fp16 at 32 (K2 on its D32 form) and at
+   128, at dropout 0 and 0.1, fp32 within F32_REL_TOL / F32_ABS_TOL of its
+   plain version and the rest within the bf16 limits, two calls giving
+   the same bits, each timed beside its plain version,
+   scaled_dot_product_attention in its dtype and its bound (the
+   redesigned forms also beside EARLIER_DESIGN_MS), with each kernel's
+   registers, local bytes, shared bytes, blocks an SM, heads a block and
+   T limit and the padding's own time (the fp32 kernels and K2's forms at
+   16 and 32 may not spill); K4-K6 (XENT_FORMS) in bf16 at widths
    128, 256, 512 and 1024 (bert-large's), in fp16 and fp32 at 768, in bf16
    and fp16 at 384 (zero-padded to 512, the copy of E timed alone), on the
    wide form in bf16 and fp16 at 2048 and 2560 (Megatron-BERT 1.3B's and
@@ -113,8 +117,8 @@ non-zero without printing the final line:
    within one bf16 ulp in every dtype, K14 fed K13's own output), each
    timed beside its plain version, scaled_dot_product_attention in its
    dtype and its bound, with each kernel's registers, local bytes, shared
-   bytes and blocks an SM (the register-tiled fp32 kernels, K13's forward
-   and the backward of K2, K12 and K14, must not spill; check_f32_masks:
+   bytes and blocks an SM (the register-tiled fp32 kernels, every forward
+   and backward, must not spill; check_f32_masks:
    each fp32 pair's dropout masks at T = 64 must be the bf16 kernels'
    at the same seed); and K7-K10 (LN_FORMS) at the main path's 29,184
    rows in bf16 at widths 64, 100, 1030 and 2048, fp16 at 2048 and fp32 at
@@ -306,7 +310,7 @@ non-zero without printing the final line:
    one epoch of 4 steps whose checkpoint must load back;
 27. (run before 26's table) trains GEOMETRY_EXAMPLES / 128 = 3 steps of
    coco_pretrain through the CLI on synthetic data with
-   configs/coco_pretrain.json's blocks and flags in nine model
+   configs/coco_pretrain.json's blocks and flags in ten model
    geometries: the JAX package's tiny() (fp32, head dim 16, width 64, with
    the fused LayerNorm: all four kernel flags), bert-base in fp16,
    BERT-Small (Turc et al. 2019: L = 4, H = 512, A = 8, I = 2048) in bf16,
@@ -320,12 +324,14 @@ non-zero without printing the final line:
    the register-tiled fp32 K2, 12 a step; K4-K6 in fp32) and again with
    `"flash_save_probs": true` (the tiled fp32 K13 and K14), and the
    Megatron widths again in fp16 (Megatron-BERT's own mixed precision; K4-K6
-   on the fp16 wide form, which the run must show); each run
+   on the fp16 wide form, which the run must show), and TinyBERT-4 (Jiao et
+   al. 2020: L = 4, H = 312, A = 12, I = 1200) in bf16 (heads of 26: K1
+   padded to 64, K2 on its "bf16 D32" form); each run
    must be on the card, its losses finite, its launches those of its depth
    and flags (the attention pair L a step, K4-K6 one, the dropout sites or
    K9/K10), every launch of K1/K2, K4-K14 in the kernel form of its dtype
    and widths; each prints its median step time and peak memory, and the
-   phase its time;
+   phase its time and the bert-base fp32 step beside BERT_BASE_F32_STEP_MS;
 26. prints the kernel table as one JSON line (launches from phase 6: the
    fused-LayerNorm main path's STEPS steps, for K7/K8 its dropout-0 step,
    for K11-K14 the runs with their settings, for K15/K16 the tools' run,
@@ -337,8 +343,9 @@ non-zero without printing the final line:
    more, timed at the main path's shapes in fp32, their launches from
    phase 27's bert-base fp32 run; the forms of K11/K12 (fp16), K13/K14 (fp32,
    launches from the bert-base fp32 save-probs run),
-   K9/K10 (bf16, a block a row) and K4-K6 (bf16 and fp16, the wide form at
-   2048) that phase 27 drives are twelve rows more (FORM_KERNELS), timed at
+   K9/K10 (bf16, a block a row), K4-K6 (bf16 and fp16, the wide form at
+   2048) and K2 (bf16 D32) that phase 27 drives are thirteen rows more
+   (FORM_KERNELS), timed at
    phase 3's shapes, their launches from their geometry's run), then {"ok":
    true, "device": {...}} as the last line.
 """
@@ -461,7 +468,17 @@ SLICE_F32_REL_TOL = 1e-4  # the dropout-off loss check in fp32
 # the forms of phase 3: (dtype, head dim) of K1/K2 at the main path's B, T
 # and 12 heads; (dtype, width) of K4-K6 at its N and V
 ATTENTION_FORMS = (("float16", 64), ("float32", 64), ("bfloat16", 16), ("float16", 16), ("float32", 16),
-                   ("bfloat16", 128), ("float16", 128), ("float32", 128))
+                   ("bfloat16", 128), ("float16", 128), ("float32", 128), ("bfloat16", 32), ("float16", 32))
+# K2 at D = 16 on the route that zero-padded the heads to 64, and K1/K11's
+# fp32 forward of the first design (a block a pair, 32-key tiles), at
+# ATTENTION_FORMS' shapes, dropout 0.1: this script's last readings of them
+# on an NVIDIA H100 80GB HBM3 at 700 W, each printed beside its redesign
+EARLIER_DESIGN_MS = {("packed_attention_bwd", "bfloat16", 16): 1.1397, ("packed_attention_bwd", "float16", 16): 1.1122,
+                     ("packed_attention_fwd", "float32", 16): 1.5734, ("packed_attention_fwd", "float32", 64): 2.6246,
+                     ("packed_attention_fwd", "float32", 128): 3.8901,
+                     ("heads_major_attention_fwd", "float32", 16): 1.5450,
+                     ("heads_major_attention_fwd", "float32", 64): 2.5727,
+                     ("heads_major_attention_fwd", "float32", 128): 3.8412}
 XENT_FORMS = (("bfloat16", 128), ("bfloat16", 256), ("bfloat16", 512), ("float16", 768), ("float32", 768),
               ("bfloat16", 1024), ("bfloat16", 384), ("float16", 384), ("bfloat16", 2048), ("bfloat16", 2560),
               ("float16", 2048), ("float16", 2560), ("float32", 1088), ("float32", 2048))
@@ -499,9 +516,14 @@ GEOMETRIES = (
      "fp16, the fused LayerNorm, fast_dropout and the fused cross-entropy (K4-K6 on the wide form)",
      dict(hidden_size=2048, num_hidden_layers=2, num_attention_heads=32, intermediate_size=8192, dtype="float16",
           use_fused_layer_norm=True, fast_dropout=True, fused_mlm_xent=True)),
+    # heads of 26 (312 / 12): K2 on its "bf16 D32" form, K1 padded to 64
+    ("TinyBERT-4 (Jiao et al. 2020: L=4, H=312, A=12, I=1200) in bf16",
+     dict(hidden_size=312, num_hidden_layers=4, num_attention_heads=12, intermediate_size=1200)),
 )
 F32_GEOMETRY, F32_SP_GEOMETRY = 6, 7  # the bert-base fp32 runs: the fp32 rows' launches
 F16_WIDE_GEOMETRY = 8  # the Megatron-width fp16 run: the fp16 wide K4-K6 rows' launches
+TINYBERT_GEOMETRY = 9  # the TinyBERT-4 run: K2's "bf16 D32" row's launches
+BERT_BASE_F32_STEP_MS = 525.42  # phase 27's bert-base fp32 median step on the first-design K1 forward (H100, 700 W)
 # the kernel table's rows of the fp32 kernels: (row name, wrapper module,
 # wrapper, source, the TPU kernel it replaces); launches from the bert-base
 # fp32 run
@@ -518,6 +540,8 @@ F32_KERNELS = (
 # wrapper module, wrapper, source, the TPU kernel it replaces, the geometry
 # whose run gives its launches, the phase-3 form whose numbers it takes)
 FORM_KERNELS = (
+    ("packed_attention_bwd (bf16 D32)", "flash_attention", "packed_attention_bwd", "flash_attention_packed.cu",
+     "visualbert_tpu/ops/flash_attention.py:307", TINYBERT_GEOMETRY, ("bfloat16", 32)),
     ("heads_major_attention_fwd (fp16 D64)", "flash_attention", "heads_major_attention_fwd", "flash_attention.cu",
      "visualbert_tpu/ops/flash_attention.py:71", 3, ("float16", 64)),
     ("heads_major_attention_bwd (fp16 D64)", "flash_attention", "heads_major_attention_bwd", "flash_attention.cu",
@@ -1680,24 +1704,36 @@ def sdpa_ms_in(torch, qkv, qb, key_bias, dout, H, rate):
     return fwd, bwd
 
 
-def check_attention_forms(torch, card):
+def earlier_design_line(key, ms, card):
+    """A redesigned form's time beside EARLIER_DESIGN_MS's reading of it."""
+    if key in EARLIER_DESIGN_MS:
+        was = EARLIER_DESIGN_MS[key]
+        log(f"{key[0]} {key[1]} D={key[2]}: {ms:.4f} ms, the earlier design's {was:.4f} ms: {was / ms:.2f}x  [{card}]")
+
+
+def check_attention_forms(torch, card, main_k2_ms):
     """K1/K2 in the forms of ATTENTION_FORMS at the main path's B, T and 12
     heads, dropout 0 and 0.1, against their plain versions (fp32 at
-    F32_REL_TOL / F32_ABS_TOL, the rest at bf16's limits); each timed at
-    dropout 0.1 beside its plain version, scaled_dot_product_attention in
-    the same dtype and its bound (the unpadded head dim's bytes and
-    products), with each bf16/fp16 kernel's registers, local bytes, shared
-    bytes and blocks an SM. Returns the fp32 kernels' table rows at D = 64."""
+    F32_REL_TOL / F32_ABS_TOL, the rest at bf16's limits), two calls giving
+    the same bits; each timed at dropout 0.1 beside its plain version,
+    scaled_dot_product_attention in the same dtype and its bound (the
+    unpadded head dim's bytes and products), with each kernel's registers,
+    local bytes, shared bytes and blocks an SM (bf16/fp16: K1's and K2's
+    forms apart, each with its heads a block and T limit); the fp32 kernels
+    and K2's forms at 16 and 32 may not spill; K2 at 16 and 32 printed
+    beside SDPA and the D = 64 K2 of this call (bf16: the main path's,
+    ``main_k2_ms``). Returns the fp32 kernels' table rows at D = 64 and
+    {(wrapper, dtype, D): row} of every form."""
     from visualbert_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 plain versions in fp32 (PyTorch's default)
-    H, rows = 12, {}
+    H, rows, form_rows = 12, {}, {}
     for dtype, D in ATTENTION_FORMS:
         qkv, qb, key_bias, dout = attention_inputs_at(torch, dtype, D, H)
         B, T, F = qkv.shape
         form = fa.attention_form(qkv.dtype, D)
         t_out, t_st, t_dq, t_db = form_tols(dtype)
-        where = f"{dtype} D={D} [{B}, {T}, {F}] (form {form})"
+        where = f"{dtype} D={D} [{B}, {T}, {F}] (forms {form}, K2 {fa.bwd_attention_form(qkv.dtype, D)})"
         k1, k2 = dict(max_abs_err=0.0), dict(max_abs_err=0.0)
         for rate in (0.0, 0.1):
             out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, 99)
@@ -1718,6 +1754,16 @@ def check_attention_forms(torch, card):
             k2["max_abs_err"] = max(k2["max_abs_err"], e_dq)
         del out_r, dqkv_r, dqkv
         rate = 0.1
+        runs = []
+        for _ in range(2):
+            o1, s1 = fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, 5)
+            runs.append((o1, s1) + fa.packed_attention_bwd(qkv, qb, key_bias, dout, o1, s1, H, rate, 5))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        log(f"K1/K2 {where} rate {rate}: two calls give the same bits: {same}")
+        if not same:
+            raise SystemExit(f"K1/K2 {where}: two calls differ")
+        del runs, o1, s1
         k1["ms"] = cuda_time_ms(lambda: fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, 5), 10)
         k1["plain_ms"] = cuda_time_ms(lambda: fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, 5), 3)
         k2["ms"] = cuda_time_ms(lambda: fa.packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, H, rate, 5), 10)
@@ -1729,36 +1775,49 @@ def check_attention_forms(torch, card):
         k1.update(bound(nbytes(qkv, qb, key_bias, out, stats), 2 * gflop * 1e9, peak))
         # K2 writes dqkv and dqb: qkv's and qb's sizes
         k2.update(bound(nbytes(qkv, qb, key_bias, dout, out, stats, qkv, qb), 4 * gflop * 1e9, peak))
+        from visualbert_torch.ops import _build
+
+        lib = _build.library()
         if dtype != "float32":
-            from visualbert_torch.ops import _build
-
-            lib, dp = _build.library(), fa.kernel_head_dim(D)
             code = 0 if dtype == "bfloat16" else 1
-            hgs = fa.packed_x_head_groups(lib, qkv.dtype, dp, B, H, T, qkv.device)
-            for k, (kernel, hg) in enumerate(zip(fa.PACKED_KERNELS, hgs)):
-                regs, local, smem, per_sm = (lib.vb_attn_packed_x_info(code, dp, k, w, T) for w in range(4))
-                log(f"K1/K2 {dtype} at head dim {dp} {kernel}: hg {hg}, {per_sm} blocks an SM, {regs} registers a "
-                    f"thread, {local} bytes of local memory, {smem} bytes of shared memory at T={T}")
-            if dp != D:
-                pad_ms = cuda_time_ms(lambda: fa.pad_heads(qkv, H, 3, dp), 10)
-                log(f"K1/K2 {where}: the wrapper's zero-padding of qkv to D={dp} alone {pad_ms:.4f} ms  [{card}]")
+            for pair, dp, ks in (("K1", fa.kernel_head_dim(D), (0,)), ("K2", fa.bwd_head_dim(D), (1, 2))):
+                hgs = fa.packed_x_head_groups(lib, qkv.dtype, dp, B, H, T, qkv.device)
+                limit = max(t for t in range(64, 8192, 64)
+                            if lib.vb_attn_packed_x_smem_bytes(dp, t) <= fa.MAX_SMEM_BYTES)
+                for k in ks:
+                    regs, local, smem, per_sm = (lib.vb_attn_packed_x_info(code, dp, k, w, T) for w in range(4))
+                    log(f"{pair} {dtype} at head dim {dp} {fa.PACKED_KERNELS[k]}: hg {hgs[k]}, {per_sm} blocks an "
+                        f"SM, {regs} registers a thread, {local} bytes of local memory, {smem} bytes of shared "
+                        f"memory at T={T}; T up to {limit}")
+                    if dp < fa.KERNEL_HEAD_DIM and local != 0:
+                        raise SystemExit(f"K2 {dtype} at head dim {dp}: the {fa.PACKED_KERNELS[k]} spills {local} "
+                                         f"bytes")
+                if dp != D:
+                    pad_ms = cuda_time_ms(lambda: fa.pad_heads(qkv, H, 3, dp), 10)
+                    log(f"{pair} {where}: the wrapper's zero-padding of qkv to D={dp} alone {pad_ms:.4f} ms  [{card}]")
         else:
-            from visualbert_torch.ops import _build
-
-            lib = _build.library()
             for k, kernel in enumerate(fa.PACKED_KERNELS):
                 regs, local, smem, per_sm = (lib.vb_attn_f32_info(k, w, D) for w in range(4))
                 log(f"K1/K2 fp32 at D={D} {kernel}: {per_sm} blocks an SM, {regs} registers a thread, {local} bytes "
                     f"of local memory, {smem} bytes of shared memory")
-                if k > 0 and local != 0:  # the tiled backward (K1's forward is the first design, left alone)
-                    raise SystemExit(f"K2 fp32 at D={D}: the {kernel} spills {local} bytes")
+                if local != 0:
+                    raise SystemExit(f"K1/K2 fp32 at D={D}: the {kernel} spills {local} bytes")
         for name, r in (("packed_attention_fwd", k1), ("packed_attention_bwd", k2)):
             log(row_line(f"{name} {where}", r, card))
+            earlier_design_line((name, dtype, D), r["ms"], card)
+            form_rows[(name, dtype, D)] = r
         if dtype == "float32" and D == 64:
             rows["packed_attention_fwd (fp32)"], rows["packed_attention_bwd (fp32)"] = k1, k2
         del qkv, qb, key_bias, dout, out, stats
         torch.cuda.empty_cache()
-    return rows
+    for dtype in ("bfloat16", "float16"):
+        k2 = {D: form_rows[("packed_attention_bwd", dtype, D)] for D in (16, 32)}
+        d64 = main_k2_ms if dtype == "bfloat16" else form_rows[("packed_attention_bwd", dtype, 64)]["ms"]
+        log(f"K2 {dtype}: D=16 {k2[16]['ms']:.4f} ms (SDPA {k2[16]['library_ms']:.4f}, "
+            f"{k2[16]['ms'] / k2[16]['library_ms']:.2f}x), D=32 {k2[32]['ms']:.4f} ms (SDPA "
+            f"{k2[32]['library_ms']:.4f}, {k2[32]['ms'] / k2[32]['library_ms']:.2f}x), D=64 {d64:.4f} ms in this "
+            f"call: D=32 {'faster' if k2[32]['ms'] < d64 else 'not faster'} than D=64  [{card}]")
+    return rows, form_rows
 
 
 def xent_inputs_at(torch, dtype, H, N, V=30522):
@@ -2016,10 +2075,11 @@ def check_variant_forms(torch, card):
             for k, (kernel, i) in enumerate(zip(fa.PACKED_KERNELS, variant_info(lib, fa, variant, dtype, D, T))):
                 log(f"{k_fwd}/{k_bwd} {where} {kernel}: {i[0]} registers a thread, {i[1]} bytes of local memory, "
                     f"{i[2]} bytes of shared memory, {i[3]} blocks an SM")
-                if f32 and (k > 0 or variant == "save_probs") and i[1] != 0:  # the register-tiled fp32 kernels
+                if f32 and i[1] != 0:  # the register-tiled fp32 kernels
                     raise SystemExit(f"{k_fwd}/{k_bwd} {where}: the {kernel} spills {i[1]} bytes")
             for name, r in ((fwd, r_f), (bwd, r_b)):
                 log(row_line(f"{name} {where}", r, card))
+                earlier_design_line((name, dtype, D), r["ms"], card)
                 rows[(name, dtype, D)] = r
             del x, key_bias, dout, qkv, qb, dout_p, out, second
             torch.cuda.empty_cache()
@@ -2160,13 +2220,14 @@ def geometry_forms(cfg, want):
     """{wrapper name: {form: launches}} that a run of ``want`` launches (the
     LABELS order) at ``cfg``'s dtype and widths must count, for every
     wrapper that counts forms (K1, K2, K4-K14)."""
-    from visualbert_torch.ops.flash_attention import attention_form
+    from visualbert_torch.ops.flash_attention import attention_form, bwd_attention_form
     from visualbert_torch.ops.layer_norm import layer_norm_form
     from visualbert_torch.ops.mlm_xent import xent_form
 
     a_form, l_form = attention_form(cfg.dtype, cfg.head_dim), layer_norm_form(cfg.dtype, cfg.hidden_size)
+    b_form = bwd_attention_form(cfg.dtype, cfg.head_dim)
     x_form = xent_form(cfg.dtype, cfg.hidden_size) if cfg.fused_mlm_xent else None
-    form_of = {0: a_form, 1: a_form, 3: x_form, 4: x_form, 5: x_form, 6: l_form, 7: l_form, 8: l_form, 9: l_form,
+    form_of = {0: a_form, 1: b_form, 3: x_form, 4: x_form, 5: x_form, 6: l_form, 7: l_form, 8: l_form, 9: l_form,
                10: a_form, 11: a_form, 12: a_form, 13: a_form}
     return {KERNELS[i][0]: ({f: want[i]} if want[i] else {}) for i, f in form_of.items()}
 
@@ -2179,7 +2240,7 @@ def run_geometry_cli(torch, card):
     K1/K2, K4-K6, K7-K10 and K11-K14 in the form of its dtype and widths
     (geometry_forms). Prints each run's
     median step time (steps 2.., a step timed with a synchronise on either
-    side) and peak memory. Returns {label: (config, forms)}."""
+    side) and peak memory. Returns {label: (config, forms, median step ms)}."""
     from visualbert_torch.tools.main_path import CONFIG
     from visualbert_torch.train.trainer import Trainer
     from visualbert_torch.utils.config_io import load_config_file
@@ -2236,7 +2297,7 @@ def run_geometry_cli(torch, card):
         if cfg.fused_mlm_xent and cfg.hidden_size > 1024 and not all(
                 f.split()[1] == "wide" for k in ("mlm_xent_fwd", "mlm_xent_dx", "mlm_xent_de") for f in forms[k]):
             raise SystemExit(f"geometry {label}: K4-K6 ran {forms}, not the wide form")
-        out[label] = (cfg, forms)
+        out[label] = (cfg, forms, med * 1e3)
         del trainer, result
         torch.cuda.empty_cache()
     return out
@@ -3723,13 +3784,15 @@ def main():
     for labels in unsup_xent_labels() + (e2e_xent_labels(),):
         check_xent(torch, card, labels=labels)
     torch.cuda.empty_cache()
-    rows.update(check_attention_forms(torch, card))
+    attention_rows, attention_form_rows = check_attention_forms(torch, card, rows["packed_attention_bwd"]["ms"])
+    rows.update(attention_rows)
     xent_rows, xent_form_rows = check_xent_forms(torch, card)
     rows.update(xent_rows)
     t_forms = time.perf_counter()
     check_f32_masks(torch, card)
     form_rows = check_variant_forms(torch, card)
     form_rows.update(xent_form_rows)
+    form_rows.update(attention_form_rows)
     torch.cuda.empty_cache()
     form_rows.update(check_layer_norm_forms(torch, card))
     torch.cuda.empty_cache()
@@ -3815,6 +3878,8 @@ def main():
     t_geo = time.perf_counter()
     geometries = run_geometry_cli(torch, card)
     log(f"phase 27, {len(GEOMETRIES)} geometries: {time.perf_counter() - t_geo:.1f} s  [{card}]")
+    log(f"phase 27 bert-base fp32: median step {geometries[GEOMETRIES[F32_GEOMETRY][0]][2]:.2f} ms, "
+        f"{BERT_BASE_F32_STEP_MS:.2f} ms on the first-design fp32 K1 forward  [{card}]")
 
     # launches: the fused-LayerNorm main path's STEPS steps; K7/K8 from its
     # dropout-0 step; K11/K12 and K13/K14 from the runs with their settings;
@@ -3831,7 +3896,7 @@ def main():
     table = [dict(name=name, route="cuda", source=f"visualbert_torch/csrc/{src}", replaces=replaces, launches=n,
                   **rows[name]) for (name, _, src, replaces), n in zip(KERNELS, launches)]
     # the fp32 kernels: launches from the bert-base fp32 run
-    _, f32_forms = geometries[GEOMETRIES[F32_GEOMETRY][0]]
+    _, f32_forms, _ = geometries[GEOMETRIES[F32_GEOMETRY][0]]
     table += [dict(name=name, route="cuda", source=f"visualbert_torch/csrc/{src}", replaces=replaces,
                    launches=f32_forms[wrapper].get("fp32", 0), **rows[name])
               for name, _, wrapper, src, replaces in F32_KERNELS]

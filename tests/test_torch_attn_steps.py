@@ -201,17 +201,19 @@ def test_another_trees_fp32_backward_gets_a_row_of_bias_partials_a_batch_row(mon
 
 def test_the_ab_tool_reads_k1s_fp32_forward_apart():
     """K1/K11's fp32 forward, by its instantiations, and nothing of the
-    tiled kernels beside it."""
+    other tiled kernels beside it (K13's forward, the backward)."""
     from visualbert_torch.tools import attn_ab
 
     text = """
-        Function : _ZN12_GLOBAL__N_119attn_f32_fwd_kernelILi2EEEvPKfS2_S2_PfS3_iiiNS_6LayoutEjjfiif
+        Function : _ZN12_GLOBAL__N_125attn_f32_tiled_fwd_kernelILi64EEEvPKfS2_S2_PfS3_iiiNS_6LayoutEjjfiif
         /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
         /*0010*/              @P0 BRA `(.L_x_4) ;                  /* 0x0000000000000947 */
+        Function : _ZN12_GLOBAL__N_128attn_f32_tiled_sp_fwd_kernelILi64EEEvPKfS2_PfP13__nv_bfloat16iiiiNS_6LayoutE
+        /*0000*/                   BRA `(.L_x_1) ;                 /* 0x0000000000000947 */
         Function : _ZN12_GLOBAL__N_124attn_f32_tiled_dq_kernelILi64ELb0EEEvPKfS2_S2_S2_S2_S2_PK13__nv_bfloat16
         /*0000*/                   EXIT ;                          /* 0x000000000000794d */
     """
-    assert attn_ab.sass_of(text, attn_ab.F32_SASS) == {"K1/K11 fp32 forward at 64 columns":
+    assert attn_ab.sass_of(text, attn_ab.F32_SASS) == {"K1/K11 fp32 forward at DP 64":
                                                        ["LDC R1, c[0x0][0x28]", "@P0 BRA `(.L0)"]}
 
 

@@ -16,8 +16,8 @@ one fp16 ulp (2^-10 relative) apart where the two frameworks round an
 intermediate (the biased q, k, v, p, dS, dlog) at another place, so rtol
 4e-3 with atol 4e-3 of the largest entry; fp32 statistics of fp16 products
 (nll, lse, stats) atol 1e-4. The zero-padding the bf16 and fp16 kernels
-take (``pad_heads``, ``pad_width``) is held to the unpadded plain version:
-the padded columns add exact zeros. Last, one ``VisualBertForTask`` at the
+take (``pad_heads``, ``pad_width``; K2's head dims of 16 and 32 too) is
+held to the unpadded plain version: the padded columns add exact zeros. Last, one ``VisualBertForTask`` at the
 JAX package's ``tiny()`` geometry with all four kernel flags against the JAX
 model on the same exported weights. The kernels themselves are tested on
 the card (tests/test_torch_kernels_cuda.py)."""
@@ -94,7 +94,7 @@ def test_packed_attention_matches_jax_at_every_dtype_and_head_dim(dtype, D):
     assert_close(b.grad.float().numpy(), db_j, dtype, "dqkv_bias")
 
 
-@pytest.mark.parametrize("D,dp", [(8, 64), (16, 64), (32, 64), (96, 128)])
+@pytest.mark.parametrize("D,dp", [(8, 64), (16, 64), (32, 64), (96, 128), (8, 16), (26, 32)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_padded_heads_give_the_unpadded_attention(D, dp, rate):
     """K1/K2's plain versions on heads zero-padded to the kernel's head dim
@@ -129,6 +129,19 @@ def test_padded_heads_give_the_unpadded_attention(D, dp, rate):
 def test_each_dtype_and_head_dim_has_its_kernel_form(dtype, D, form):
     assert fa.attention_form(getattr(torch, dtype), D) == form
     assert fa.kernel_head_dim(D) == (64 if D <= 64 else 128)
+
+
+@pytest.mark.parametrize("D", [1, 8, 16, 17, 26, 32, 33, 48, 64, 96, 128])
+@pytest.mark.parametrize("dtype,name", [("bfloat16", "bf16"), ("float16", "fp16")])
+def test_the_backward_has_its_own_forms_below_64(dtype, name, D):
+    """K2 runs bf16 and fp16 heads of 16 and 32 unpadded and pads a head dim
+    to the next of 16, 32, 64, 128; K1 (and K11-K14) keep 64 and 128."""
+    dp = 16 if D <= 16 else 32 if D <= 32 else 64 if D <= 64 else 128
+    assert fa.bwd_head_dim(D) == dp
+    assert fa.bwd_attention_form(getattr(torch, dtype), D) == f"{name} D{dp}"
+    assert fa.kernel_head_dim(D) == (64 if D <= 64 else 128)
+    assert fa.attention_form(getattr(torch, dtype), D) == f"{name} D{fa.kernel_head_dim(D)}"
+    assert fa.bwd_attention_form(torch.float32, D) == "fp32"
 
 
 def xent_inputs(seed, N, H, V):

@@ -62,7 +62,10 @@ grids with; K4's argmax takes the first of equal maxima.
 The other forms of K1/K2 and K4-K6 (``tests/test_torch_kernel_dtypes.py``
 holds their plain versions against JAX on the CPU): K1/K2 in bf16, fp16
 and fp32 at head dims 8, 16, 32, 64, 96 and 128 (bf16 and fp16 zero-padded
-to the kernels' 64 or 128), dropout 0 and 0.1, against the plain versions
+to the kernels' 64 or 128; K2's to 16 or 32 below 33, where its small-row
+forms run: also at 26, at T = 1, 65, 228 and their largest, above 704,
+each refusing one more; their two products checked alone against fp32
+matmul; no spill), dropout 0 and 0.1, against the plain versions
 as above (fp32 within 1e-4 relative, its stats within 1e-4), repeating bit
 for bit, dropping exactly the plain mask's positions, and at D = 128
 taking T up to 256 and refusing 257 (fp32 has no such limit: T = 1024
@@ -80,8 +83,9 @@ the wide K4 at 1088 to 8192 x N in {1, 200, 3071} x V in {1000, 30522}
 in both dtypes; the wide forms' nll, lse and db held to the exact
 products' where the plain version's fp32 sums drift.
 
-The register-tiled fp32 kernels (K13's forward and the backward of K2, K12
-and K14, ``csrc/flash_attention_f32.cu``) at T in {1, 63, 64, 65, 228,
+The register-tiled fp32 kernels (K1/K11's and K13's forwards and the
+backward of K2, K12 and K14, ``csrc/flash_attention_f32.cu``; K1/K11's
+forward also at D in {1, 26}) at T in {1, 63, 64, 65, 228,
 1000} (both sides of a 64-row tile, and above the bf16 kernels' 704) and D
 in {16, 30, 64, 99, 100, 128} (30 and 99 copied 4 bytes a piece), dropout 0 and 0.1, with a key tile wholly masked:
 within 1e-4 of the plain versions (stats 1e-4 absolute), K13's
@@ -1389,7 +1393,9 @@ def test_attention_forms_match_plain(cuda, dtype, D, B, T, H, rate):
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.bfloat16, 128), (torch.float16, 16),
-                                     (torch.float32, 64), (torch.float32, 96)], ids=str)
+                                     (torch.float32, 64), (torch.float32, 96), (torch.bfloat16, 16),
+                                     (torch.bfloat16, 26), (torch.float16, 26), (torch.bfloat16, 32),
+                                     (torch.float16, 32)], ids=str)
 def test_attention_forms_repeat_bit_for_bit(cuda, dtype, D):
     qkv, qb, key_bias, dout = form_attention_inputs(4, 228, 6, D, dtype, cuda)
     runs = []
@@ -1402,7 +1408,9 @@ def test_attention_forms_repeat_bit_for_bit(cuda, dtype, D):
 
 @pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.float16, 128), (torch.float32, 64),
                                      (torch.float32, 32), (torch.bfloat16, 128), (torch.float32, 16),
-                                     (torch.float32, 30), (torch.float32, 99), (torch.float32, 100)], ids=str)
+                                     (torch.float32, 30), (torch.float32, 99), (torch.float32, 100),
+                                     (torch.bfloat16, 16), (torch.float16, 16), (torch.bfloat16, 32),
+                                     (torch.float16, 32)], ids=str)
 def test_attention_forms_drop_the_plain_mask(cuda, dtype, D):
     """As test_attention_kernels_drop_the_plain_mask, at T = D keys in every
     form: out[i, j] is the dropped p[i, j] and the dK/dV pass's dv[j, i] the
@@ -1977,7 +1985,7 @@ def test_layer_norm_element_forms_take_unaligned_rows(cuda):
     assert ln.layer_norm_form(torch.bfloat16, 1030) == "bf16 block, element"
 
 
-# ---- the register-tiled fp32 kernels: K13's forward, the backward of K2, K12 and K14 ----
+# ---- the register-tiled fp32 kernels: the forwards of K1/K11 and K13, the backward of K2, K12 and K14 ----
 
 F32_TILED_VARIANTS = ["packed", "heads_major", "save_probs"]
 
@@ -2068,10 +2076,11 @@ def test_f32_tiled_kernels_repeat_bit_for_bit(cuda, variant, D):
 @pytest.mark.parametrize("D", [8, 16, 32, 64, 100, 128])
 @pytest.mark.parametrize("info", ["vb_attn_f32_info", "vb_attn_f32_sp_info"])
 def test_f32_tiled_kernels_do_not_spill(cuda, info, D):
-    """The tiled kernels (K13's forward, both backward passes in both forms)
-    keep every value in registers, and at D <= 64 two blocks fit an SM."""
+    """The tiled kernels (K1/K11's and K13's forwards, both backward passes in
+    both forms) keep every value in registers, and at D <= 64 two blocks fit
+    an SM."""
     lib = _build.library()
-    for which in ((0, 1, 2) if info == "vb_attn_f32_sp_info" else (1, 2)):
+    for which in (0, 1, 2):
         regs, local, smem, per_sm = (getattr(lib, info)(which, w, D) for w in range(4))
         assert 0 < regs <= 255 and local == 0 and per_sm >= (2 if D <= 64 else 1), (which, regs, local, per_sm)
 
@@ -2083,3 +2092,110 @@ def test_f32_tiled_backward_tiles_64_rows(cuda):
     assert lib.vb_attn_f32_geometry(0) == 64 and lib.vb_attn_f32_geometry(1) == -1
     assert fa.f32_bias_tiles(lib, 228) == 4 and fa.f32_bias_tiles(lib, 64) == 1
     assert lib.vb_attn_f32_sp_info(0, 0, 129) == -1 and lib.vb_attn_f32_info(1, 0, 0) == -1
+
+
+# ---- K2 at head dims 16 and 32 (bf16, fp16) on the small-row tiles; K1/K11's one-pass fp32 forward ----
+
+SMALL_DTYPES = [torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("dtype", SMALL_DTYPES, ids=str)
+def test_small_row_products_match_matmul(cuda, dtype, D):
+    """One m64nDk16 product with the transposed (MN-major) operand in the
+    32 B / 64 B swizzle (a @ b, four k-steps) and one K-major product over
+    D (q @ b^T), alone: products of bf16 or fp16 values are exact in fp32,
+    so they agree with fp32 matmul up to the order of the sums."""
+    rng = np.random.RandomState(D)
+    a, b, q = (torch.tensor(rng.randn(*shape), dtype=dtype, device=cuda) for shape in ((64, 64), (64, D), (64, D)))
+    code, ab, qb = fa.launch_small_products(_build.library(), a, b, q)
+    torch.cuda.synchronize()
+    assert code == 0
+    want_ab, want_qb = a.float() @ b.float(), q.float() @ b.float().t()
+    assert float((ab - want_ab).abs().max()) <= 1e-5 * float(want_ab.abs().max())
+    assert float((qb - want_qb).abs().max()) <= 1e-5 * float(want_qb.abs().max())
+
+
+def small_head_limit(lib, dp):
+    """The largest T whose K2 passes fit a block's shared memory at dp."""
+    return max(t for t in range(64, 8192, 64) if lib.vb_attn_packed_x_smem_bytes(dp, t) <= fa.MAX_SMEM_BYTES)
+
+
+@pytest.mark.parametrize("T", [1, 65, 228, "limit"])
+@pytest.mark.parametrize("D", [8, 16, 26, 32])
+@pytest.mark.parametrize("dtype", SMALL_DTYPES, ids=str)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_small_head_backward_matches_plain(cuda, dtype, D, T, rate):
+    """K2 at head dims up to 32 runs on its "D16" / "D32" form (heads of 16
+    and 32 in place, 8 and 26 zero-padded to them) against its plain version
+    within bf16's limits, at T = 1, 65, 228 and the form's largest T, which
+    is above the D = 64 form's 704."""
+    lib = _build.library()
+    dp = fa.bwd_head_dim(D)
+    if T == "limit":
+        T = small_head_limit(lib, dp)
+        assert T > 704
+    B, H = (2, 3) if T <= 228 else (1, 2)
+    qkv, qb, key_bias, dout = form_attention_inputs(B, T, H, D, dtype, cuda)
+    out_r, stats_r = fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, 99)
+    form = fa.bwd_attention_form(dtype, D)
+    before = fa.packed_attention_bwd.forms.get(form, 0)
+    dqkv, dqb = fa.packed_attention_bwd(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 99)
+    dqkv_r, dqb_r = fa.packed_attention_bwd_reference(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 99)
+    torch.cuda.synchronize()
+    assert form == f"{'bf16' if dtype == torch.bfloat16 else 'fp16'} D{dp}" and dp == (16 if D <= 16 else 32)
+    assert fa.packed_attention_bwd.forms[form] == before + 1
+    assert dqkv.dtype == dtype and dqkv.shape == qkv.shape and dqb.shape == qb.shape
+    assert rel_err(dqkv, dqkv_r) < REL_TOL
+    assert rel_err(dqb, dqb_r) < REL_TOL
+
+
+@pytest.mark.parametrize("dtype", SMALL_DTYPES, ids=str)
+def test_small_head_backward_refuses_past_its_limit(cuda, dtype):
+    lib = _build.library()
+    for dp in (16, 32):
+        limit = small_head_limit(lib, dp)
+        qkv, qb, key_bias, dout = form_attention_inputs(1, limit + 1, 1, dp, dtype, cuda)
+        stats = torch.zeros((1, 1, limit + 1), device=cuda)
+        with pytest.raises(ValueError, match=f"T up to {limit}"):
+            fa.packed_attention_bwd(qkv, qb, key_bias, dout, dout, stats, 1, 0.0, 0)
+
+
+@pytest.mark.parametrize("dp", [16, 32])
+@pytest.mark.parametrize("dtype", SMALL_DTYPES, ids=str)
+def test_small_head_backward_does_not_spill(cuda, dtype, dp):
+    """The dQ and dK/dV passes at dh 16 and 32 keep every value in
+    registers and fit blocks an SM at the main path's T; there is no
+    forward at these head dims."""
+    lib = _build.library()
+    code = 0 if dtype == torch.bfloat16 else 1
+    for which in (1, 2):
+        regs, local, smem, per_sm = (lib.vb_attn_packed_x_info(code, dp, which, w, 228) for w in range(4))
+        assert 0 < regs <= 255 and local == 0 and per_sm >= 1, (which, regs, local, per_sm)
+        assert smem < lib.vb_attn_packed_x_smem_bytes(64, 228)
+    assert lib.vb_attn_packed_x_info(code, dp, 0, 0, 228) == -1
+
+
+@pytest.mark.parametrize("T", [37, 228])
+@pytest.mark.parametrize("D", [1, 16, 26, 64, 100, 128])
+@pytest.mark.parametrize("variant", ["packed", "heads_major"])
+def test_f32_one_pass_forward_matches_plain(cuda, variant, D, T):
+    """K1/K11's register-tiled fp32 forward (one pass over the keys, an
+    online max and sum) against the plain versions within the fp32 limits
+    at ragged T, a wholly masked key tile at T = 228 and dropout 0.1, two
+    calls bit for bit, and no spill at D's padded head dim."""
+    B, H = 2, 3
+    qkv, qb, key_bias, _ = f32_tiled_inputs(B, T, H, D, cuda)
+    if variant == "packed":
+        args, fwd, plain = (qkv, qb, key_bias, H), fa.packed_attention_fwd, fa.packed_attention_fwd_reference
+    else:
+        x5 = (qkv + qb).view(B, T, H, 3, D).permute(0, 3, 2, 1, 4).contiguous()
+        args, fwd, plain = (x5, key_bias), fa.heads_major_attention_fwd, fa.heads_major_attention_fwd_reference
+    runs = [fwd(*args, 0.1, 5) for _ in range(2)]
+    want = plain(*args, 0.1, 5)
+    torch.cuda.synchronize()
+    assert rel_err(runs[0][0], want[0]) < F32_REL_TOL
+    assert float((runs[0][1] - want[1]).abs().max()) < F32_ABS_TOL
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    regs, local, smem, per_sm = (_build.library().vb_attn_f32_info(0, w, D) for w in range(4))
+    assert 0 < regs <= 255 and local == 0 and per_sm >= (2 if D <= 64 else 1)

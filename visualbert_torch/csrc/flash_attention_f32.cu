@@ -37,17 +37,8 @@
 // TF32 keeps a 10-bit mantissa and would not meet fp32's tolerance, and
 // 3xTF32 costs three products: these kernels are SIMT.
 //
-// K1/K11's forward (attn_f32_fwd_kernel) is the first design, simple and
-// right; its speed is later work. A block of 8 warps owns one (batch row,
-// head) pair (B * H blocks), takes 32 query rows at a time (4 a warp) and
-// walks 32-key tiles in shared memory (K and V rows padded to D + 1 floats);
-// lane l owns key l of the tile for the scores (D fused multiply-adds over
-// shared memory, the 4 rows' query values broadcast) and output columns l, l
-// + 32, ... for P V (the probability of key jj broadcast by __shfl_sync); an
-// online max and sum of exp2 per row as in K1; one Philox call a (i, j).
-//
-// K13's forward and the backward (K2, K12, K14) are register-tiled, on the
-// model of mlm_xent_f32.cu's GEMM tile:
+// Every kernel is register-tiled, on the model of mlm_xent_f32.cu's GEMM
+// tile:
 // - A block of 256 threads owns a 64-row tile of one (batch row, head) pair:
 //   queries in the forward and the dQ pass, keys in the dK/dV pass; grid
 //   (ceil(T / 64), H, B): 6,144 blocks at the main path. Its rows stay in
@@ -62,9 +53,9 @@
 //   attn_philox call serves four keep bits, as in the bf16 kernels. Rows are
 //   staged as they lie (row stride DP + 4 floats, 16-byte aligned): per 4
 //   steps of d a thread reads one float4 of each of its rows and columns,
-//   8 float4 for 64 fused multiply-adds (2 for 16), where the first design
-//   read 5 floats for 4; 4-row column groups a phase hit 4 distinct bank
-//   quads. P V, dS K, dS^T Q and P^T dO take the tile's p, dS (fp32) from
+//   8 float4 for 64 fused multiply-adds (2 for 16), where one key a lane
+//   over rows padded to D + 1 floats read 5 floats for 4; 4-row column
+//   groups a phase hit 4 distinct bank quads. P V, dS K, dS^T Q and P^T dO take the tile's p, dS (fp32) from
 //   shared memory, [row][column] as the thread wrote them, and multiply
 //   them into 4 rows x D/16 output columns a thread (columns 4 tx + {0..3} +
 //   64 g): one float4 of 4 columns of P and a float4 of the streamed rows
@@ -77,11 +68,19 @@
 //   arithmetic (V, which a tile uses once, through one slot: the forward
 //   copies it during the scores, the dQ pass during the last tile's dS K).
 //   The QKV bias of K2 is added to each tile by the threads that copied it,
-//   once their copies landed.
+//   once their copies landed; K1's forward adds Q's and folds K's and V's
+//   into its row constants (below).
 // - Row statistics: K13's first pass keeps an online max and sum per
 //   thread and row, merged at its end over the 16 threads of a row by a
 //   fixed butterfly of shuffles; the dQ pass sums delta over 4 threads a
 //   row from dO (shared) and O.
+// - K1/K11's forward walks the keys once: each key tile's row max is merged
+//   over the row's 16 threads by that butterfly (every thread of a row then
+//   holds the same max), the thread's share of the row sum and its O rows
+//   are scaled by exp2(m_old - m_new), and the tile's dropped p goes
+//   through shared memory into P V; at the end the 16 shares of the sum are
+//   merged the same way, out = O inv / l and stats = m + log2 l. Two
+//   products, where K13 makes three.
 // - K13 stages the tile's bf16 probabilities in shared memory and writes
 //   them as 16-byte pieces, 128 contiguous bytes a row of the tile.
 // - The bias gradient: each block sums its output columns (its 4 rows, the
@@ -103,9 +102,6 @@ namespace {
 
 constexpr int NW = 8;              // warps a block
 constexpr int NTH = NW * 32;
-constexpr int RW = 4;              // rows a warp holds at once
-constexpr int CHUNK = NW * RW;     // rows the block holds at once
-constexpr int KT = 32;             // rows of a streamed tile: one a lane
 constexpr int MAX_D = 128;
 constexpr float LOG2E = 1.4426950408889634f;
 typedef __nv_bfloat16 bf16;
@@ -118,120 +114,6 @@ struct Layout {
   long long ob, oh, ot;
   long long bh, bpart;
 };
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ bool keep(uint32_t seed, uint32_t bh, int i, int j, uint32_t thr) {
-  const uint4 r = vb::attn_philox(seed, bh, i, j);
-  return vb::philox_word(r, ((i & 1) << 1) | (j & 1)) >= thr;
-}
-
-// rows [r0, r0 + n) of a D-wide matrix (row t at src + t * ld, plus bias
-// when given) into dst with row stride lds; rows past T are zero.
-__device__ __forceinline__ void load_rows(float* dst, int lds, const float* __restrict__ src, long long ld,
-                                          const float* __restrict__ bias, int r0, int n, int T, int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < n; r += NW) {
-    const int t = r0 + r;
-    for (int d = lane; d < D; d += 32)
-      dst[r * lds + d] = t < T ? src[(long long)t * ld + d] + (bias ? bias[d] : 0.f) : 0.f;
-  }
-}
-
-size_t fwd_bytes(int D) { return sizeof(float) * ((size_t)CHUNK * D + KT * (D + 1) + KT * D + KT); }
-
-// grid (H, B): block (h, b) owns the pair (b, h).
-template <int NC>
-__global__ void __launch_bounds__(NTH)
-attn_f32_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ qb, const float* __restrict__ key_bias,
-                    float* __restrict__ out, float* __restrict__ stats, int T, int H, int D, Layout L, uint32_t seed,
-                    uint32_t thr, float inv, int dropout, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [CHUNK][D]
-  float* Ks = Qs + CHUNK * D;       // [KT][D + 1]
-  float* Vs = Ks + KT * (D + 1);    // [KT][D]
-  float* kbs = Vs + KT * D;         // [KT] key bias * log2(e)
-  const int h = blockIdx.x, b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* q = qkv + b * L.qb + h * L.qh;
-  const float* bq = qb ? qb + h * L.bh : nullptr;
-  const uint32_t bh = (uint32_t)(b * H + h);
-  const float c1 = scale * LOG2E;
-
-  for (int r0 = 0; r0 < T; r0 += CHUNK) {
-    __syncthreads();  // every warp is done with the last chunk's rows
-    load_rows(Qs, D, q, L.qt, bq, r0, CHUNK, T, D);
-    float o[RW][NC], m[RW], l[RW];
-#pragma unroll
-    for (int rr = 0; rr < RW; ++rr) {
-      m[rr] = -INFINITY;
-      l[rr] = 0.f;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) o[rr][c] = 0.f;
-    }
-    for (int k0 = 0; k0 < T; k0 += KT) {
-      __syncthreads();  // every warp is done with the last tile
-      load_rows(Ks, D + 1, q + L.part, L.qt, bq ? bq + L.bpart : nullptr, k0, KT, T, D);
-      load_rows(Vs, D, q + 2 * L.part, L.qt, bq ? bq + 2 * L.bpart : nullptr, k0, KT, T, D);
-      if (threadIdx.x < KT)
-        kbs[threadIdx.x] = k0 + threadIdx.x < T ? key_bias[(long long)b * T + k0 + threadIdx.x] * LOG2E : -INFINITY;
-      __syncthreads();
-      const int j = k0 + lane;
-      float s[RW] = {};
-      for (int d = 0; d < D; ++d) {
-        const float kv = Ks[lane * (D + 1) + d];
-#pragma unroll
-        for (int rr = 0; rr < RW; ++rr) s[rr] += Qs[(warp * RW + rr) * D + d] * kv;
-      }
-      float p[RW];
-#pragma unroll
-      for (int rr = 0; rr < RW; ++rr) {
-        const int i = r0 + warp * RW + rr;
-        const float t = j < T ? s[rr] * c1 + kbs[lane] : -INFINITY;
-        const float mnew = fmaxf(m[rr], warp_max(t));
-        const float alpha = exp2f(m[rr] - mnew);
-        p[rr] = exp2f(t - mnew);
-        l[rr] = l[rr] * alpha + warp_sum(p[rr]);
-        m[rr] = mnew;
-        if (dropout && j < T && i < T && !keep(seed, bh, i, j, thr)) p[rr] = 0.f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) o[rr][c] *= alpha;
-      }
-      const int nk = min(KT, T - k0);
-      for (int jj = 0; jj < nk; ++jj) {
-        float vv[NC];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) vv[c] = lane + 32 * c < D ? Vs[jj * D + lane + 32 * c] : 0.f;
-#pragma unroll
-        for (int rr = 0; rr < RW; ++rr) {
-          const float pj = __shfl_sync(0xffffffffu, p[rr], jj);
-#pragma unroll
-          for (int c = 0; c < NC; ++c) o[rr][c] += pj * vv[c];
-        }
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < RW; ++rr) {
-      const int i = r0 + warp * RW + rr;
-      if (i >= T) continue;
-      const float sc = inv / l[rr];
-      float* orow = out + b * L.ob + h * L.oh + i * L.ot;
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        if (lane + 32 * c < D) orow[lane + 32 * c] = o[rr][c] * sc;
-      if (lane == 0) stats[(long long)bh * T + i] = m[rr] + log2f(l[rr]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The register-tiled kernels: K13's forward and the backward's two passes.
@@ -500,10 +382,11 @@ __device__ __forceinline__ void col_sums(const float (&acc)[RM][NC], int r0, int
 // Shared memory of the three kernels, in floats (the bf16 probability
 // tiles last). LD: a staged row of D <= DP floats; a tile of 64 rows.
 template <int DP>
-struct FwdSmem {  // K13: Q, K (2 slots), V, the p tile, the key bias (2 slots), the bf16 probabilities
+struct FwdSmem {  // Q, K (2 slots), V, the p tile, the key bias (2 slots); K13: the bf16 probabilities
   static constexpr int LD = DP + 4, TILE = BR * LD, LDX = BR + 4;
   static constexpr int Q = 0, K = TILE, V = 3 * TILE, X = 4 * TILE, KB = X + BR * LDX, PB = KB + 2 * BR;
   static constexpr size_t BYTES = sizeof(float) * PB + sizeof(bf16) * BR * LDPB;
+  static constexpr size_t K1_BYTES = sizeof(float) * PB;  // K1/K11's forward: no probabilities
 };
 
 template <int DP, bool SP>
@@ -649,6 +532,167 @@ attn_f32_tiled_sp_fwd_kernel(const float* __restrict__ qkv, const float* __restr
             *reinterpret_cast<const uint4*>(Pb + r * LDPB + k);
     }
     product<4, NC>(o, X, Vs, LD, pl);
+  }
+  store_rows(out + b * L.ob + h * L.oh, L.ot, o, r0, T, D, vec, pl);
+}
+
+// The max over the 16 threads of a score row (the lanes that differ in bits
+// 0, 1, 3 and 4), or their sum: a symmetric butterfly, so that every thread
+// of the row holds the same bits.
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1)
+    if (off != 4) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1)
+    if (off != 4) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// K1 and K11 in fp32 (K1's contract; qb null for K11's biased heads-major
+// qkv). grid (ceil(T / 64), H, B): block (x, h, b) owns queries [64 x, 64 x
+// + 64) of the pair (b, h) and walks the key tiles once with an online max
+// and sum: per tile the row max over the row's 16 threads, O and the
+// thread's share l of the row sum scaled by exp2(m_old - m_new), p =
+// exp2(t - m_new), the dropped p into P V. out = O inv / l over the row's
+// merged l, stats = m + log2 l. K1's QKV bias: Q's is added to the query
+// tile once; K's and V's take no pass over the key tiles (a pass a tile
+// stalled the block between a tile's landing and its barrier: at DP = 128,
+// one block an SM, 22 % of the call). q.(k + bk) = q.k + q.bk, the second
+// term a constant of the row, added to each score before it is scaled (so
+// that t rounds once at the key bias's magnitude, as with the biased k);
+// sum_j p_j (v_j + bv) = P V + (sum_j p_j) bv, with the kept p under
+// dropout, whose sum the threads keep in shares beside l.
+template <int DP>
+__global__ void __launch_bounds__(NTH, DP <= 64 ? 2 : 1)
+attn_f32_tiled_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ qb,
+                          const float* __restrict__ key_bias, float* __restrict__ out, float* __restrict__ stats, int T,
+                          int H, int D, Layout L, uint32_t seed, uint32_t thr, float inv, int dropout, float scale) {
+  using S = FwdSmem<DP>;
+  constexpr int NC = DP / 16, LD = S::LD, LDX = S::LDX;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* Qs = sm + S::Q;
+  float* Vs = sm + S::V;
+  float* X = sm + S::X;
+  const Place pl;
+  const int r0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+  const float* q = qkv + b * L.qb + h * L.qh;
+  const float* bq = qb ? qb + h * L.bh : nullptr;
+  const float* kbg = key_bias + (long long)b * T;
+  const uint32_t bh = (uint32_t)(b * H + h);
+  const bool vec = (D & 3) == 0;
+  const int d4 = (D + 3) & ~3, nt = cdiv(T, BR);
+  const float c1 = scale * LOG2E;
+  auto issue_k = [&](int t) {  // key tile t and its key bias into slot t & 1
+    copy_rows<BR>(sm + S::K + (t & 1) * S::TILE, LD, q + L.part, L.qt, t * BR, T, D, vec);
+    copy_vec<BR>(sm + S::KB + (t & 1) * BR, kbg, t * BR, T);
+  };
+  copy_rows<BR>(Qs, LD, q, L.qt, r0, T, D, vec);
+  issue_k(0);
+  cp_commit();
+  const bool kept_sum = bq && dropout;  // the shares lk of sum_j kept p_j, for V's bias
+  float m[RM], l[RM], lk[RM], qk[RM], o[RM][NC];
+#pragma unroll
+  for (int a = 0; a < RM; ++a) {
+    m[a] = -INFINITY;
+    l[a] = lk[a] = qk[a] = 0.f;
+  }
+  zero(o);
+  for (int t = 0; t < nt; ++t) {
+    const int c0 = t * BR, slot = t & 1;
+    float* Ks = sm + S::K + slot * S::TILE;
+    cp_wait<0>();
+    if (bq && t == 0) add_bias<BR>(Qs, LD, bq, r0, T, D, vec);
+    __syncthreads();  // key tile t landed (the query tile biased); every thread is done with the last tile's V and p
+    if (bq && t == 0) {  // q.bk of each of the thread's rows: the row's 16 threads take every 16th column
+      const float* bk = bq + L.bpart;
+#pragma unroll
+      for (int a = 0; a < RM; ++a) {
+        float v = 0.f;
+        for (int d = pl.tx; d < D; d += 16) v = fmaf(Qs[pl.row(a) * LD + d], bk[d], v);
+        qk[a] = row_sum(v);
+      }
+    }
+    copy_rows<BR>(Vs, LD, q + 2 * L.part, L.qt, c0, T, D, vec);
+    cp_commit();
+    if (t + 1 < nt) issue_k(t + 1);
+    cp_commit();
+    float s[RM][4];
+    score(s, Qs, Ks, LD, d4, pl);
+    const float* kb = sm + S::KB + slot * BR;
+    float alpha[RM];
+#pragma unroll
+    for (int a = 0; a < RM; ++a) {
+      float tm = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[a][c] = c0 + pl.col(c) < T ? fmaf(s[a][c] + qk[a], c1, kb[pl.col(c)] * LOG2E) : -INFINITY;
+        tm = fmaxf(tm, s[a][c]);
+      }
+      const float mn = fmaxf(m[a], row_max(tm));
+      const float ms = mn == -INFINITY ? 0.f : mn;  // a row with no finite score yet: p = 0, alpha = 0
+      alpha[a] = exp2f(m[a] - ms);
+      m[a] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[a][c] = exp2f(s[a][c] - ms);
+        sum += s[a][c];
+      }
+      l[a] = fmaf(l[a], alpha[a], sum);
+    }
+    if (dropout) {
+#pragma unroll
+      for (int A = 0; A < RM / 2; ++A)
+#pragma unroll
+        for (int C = 0; C < 2; ++C) {
+          const int i = r0 + pl.row(2 * A), j = c0 + pl.col(2 * C);
+          const uint32_t bits = i < T && j < T ? keep4(seed, bh, i, j, thr) : 0u;
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int f = 0; f < 2; ++f)
+              if (!((bits >> ((e << 1) | f)) & 1u)) s[2 * A + e][2 * C + f] = 0.f;
+        }
+    }
+    if (kept_sum) {
+#pragma unroll
+      for (int a = 0; a < RM; ++a) lk[a] = fmaf(lk[a], alpha[a], (s[a][0] + s[a][1]) + (s[a][2] + s[a][3]));
+    }
+#pragma unroll
+    for (int a = 0; a < RM; ++a) {
+#pragma unroll
+      for (int c = 0; c < 4; c += 2)
+        *reinterpret_cast<float2*>(X + pl.row(a) * LDX + pl.col(c)) = make_float2(s[a][c], s[a][c + 1]);
+#pragma unroll
+      for (int n = 0; n < NC; ++n) o[a][n] *= alpha[a];
+    }
+    cp_wait<1>();
+    __syncthreads();  // V landed; the p tile is whole
+    product<4, NC>(o, X, Vs, LD, pl);
+  }
+  float* st = stats + (long long)bh * T;
+  const float* bv = bq ? bq + 2 * L.bpart : nullptr;
+#pragma unroll
+  for (int a = 0; a < RM; ++a) {
+    l[a] = row_sum(l[a]);
+    if (bq) {
+      const float w = kept_sum ? row_sum(lk[a]) : l[a];
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        const int c = pl.pcol<NC>(n);
+        if (c < D) o[a][n] = fmaf(w, bv[c], o[a][n]);
+      }
+    }
+    const float sc = inv / l[a];
+#pragma unroll
+    for (int n = 0; n < NC; ++n) o[a][n] *= sc;
+    const int i = r0 + pl.row(a);
+    if (pl.tx == 0 && i < T) st[i] = m[a] + log2f(l[a]);
   }
   store_rows(out + b * L.ob + h * L.oh, L.ot, o, r0, T, D, vec, pl);
 }
@@ -917,33 +961,16 @@ Layout heads_major(int T, int H, int D) {
   return Layout{3 * HTD, (long long)T * D, D, HTD, HTD, (long long)T * D, D, 0, 0};
 }
 
-template <int NC>
-void fwd_at(const float* qkv, const float* qb, const float* key_bias, float* out, float* stats, int B, int T, int H,
-            int D, Layout L, uint32_t seed, uint32_t thr, float inv, int dropout, float scale, cudaStream_t s) {
-  attn_f32_fwd_kernel<NC><<<dim3(H, B), NTH, fwd_bytes(D), s>>>(qkv, qb, key_bias, out, stats, T, H, D, L, seed, thr,
-                                                                 inv, dropout, scale);
-}
-
-// K1/K11's forward at head dim D, its dynamic shared memory and threads.
-const void* k1_kernel(int D, size_t* bytes, int* threads) {
-  *bytes = fwd_bytes(D);
-  *threads = NTH;
-  switch ((D + 31) / 32) {
-    case 1: return (const void*)attn_f32_fwd_kernel<1>;
-    case 2: return (const void*)attn_f32_fwd_kernel<2>;
-    case 3: return (const void*)attn_f32_fwd_kernel<3>;
-    case 4: return (const void*)attn_f32_fwd_kernel<4>;
-    default: return nullptr;
-  }
-}
-
-// A tiled kernel (0 K13's forward (SP only), 1 the dQ pass, 2 the dK/dV
-// pass) at padded head dim DP, its dynamic shared memory and threads.
+// A tiled kernel (0 the forward: K13's (SP) or K1/K11's, 1 the dQ pass, 2
+// the dK/dV pass) at padded head dim DP, its dynamic shared memory and
+// threads.
 template <int DP, bool SP>
 const void* tiled_kernel(int which, size_t* bytes, int* threads) {
   *threads = NTH;
   switch (which) {
-    case 0: *bytes = FwdSmem<DP>::BYTES; return SP ? (const void*)attn_f32_tiled_sp_fwd_kernel<DP> : nullptr;
+    case 0:
+      *bytes = SP ? FwdSmem<DP>::BYTES : FwdSmem<DP>::K1_BYTES;
+      return SP ? (const void*)attn_f32_tiled_sp_fwd_kernel<DP> : (const void*)attn_f32_tiled_fwd_kernel<DP>;
     case 1: *bytes = DqSmem<DP, SP>::BYTES; return (const void*)attn_f32_tiled_dq_kernel<DP, SP>;
     case 2: *bytes = DkvSmem<DP, SP>::BYTES; return (const void*)attn_f32_tiled_dkv_kernel<DP, SP>;
     default: return nullptr;
@@ -952,11 +979,10 @@ const void* tiled_kernel(int which, size_t* bytes, int* threads) {
 
 // Kernel `which` (0 forward, 1 dQ pass, 2 dK/dV pass) at head dim D (1..128)
 // its dynamic shared memory and threads: the forward of K1/K11 (not SP) or
-// K13 (SP), the tiled backward.
+// K13 (SP), the backward.
 template <bool SP>
 const void* kernel_at(int which, int D, size_t* bytes, int* threads) {
   if (D < 1 || D > MAX_D) return nullptr;
-  if (!SP && which == 0) return k1_kernel(D, bytes, threads);
   switch (dp_of(D)) {
     case 16: return tiled_kernel<16, SP>(which, bytes, threads);
     case 64: return tiled_kernel<64, SP>(which, bytes, threads);
@@ -971,6 +997,13 @@ cudaError_t prepare(int which, int D) {
   const void* fn = kernel_at<SP>(which, D, &bytes, &threads);
   if (fn == nullptr) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int DP>
+void fwd_at(const float* qkv, const float* qb, const float* key_bias, float* out, float* stats, int B, int T, int H,
+            int D, Layout L, uint32_t seed, uint32_t thr, float inv, int dropout, float scale, cudaStream_t s) {
+  attn_f32_tiled_fwd_kernel<DP><<<dim3(cdiv(T, BR), H, B), NTH, FwdSmem<DP>::K1_BYTES, s>>>(
+      qkv, qb, key_bias, out, stats, T, H, D, L, seed, thr, inv, dropout, scale);
 }
 
 template <int DP>
@@ -1021,7 +1054,7 @@ int fwd(const float* qkv, const float* qb, const float* key_bias, float* out, fl
   if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
   cudaError_t err = prepare<false>(0, D);
   if (err != cudaSuccess) return (int)err;
-  auto* f = (D + 31) / 32 == 1 ? fwd_at<1> : (D + 31) / 32 == 2 ? fwd_at<2> : (D + 31) / 32 == 3 ? fwd_at<3> : fwd_at<4>;
+  auto* f = dp_of(D) == 16 ? fwd_at<16> : dp_of(D) == 64 ? fwd_at<64> : fwd_at<128>;
   f(qkv, qb, key_bias, out, stats, B, T, H, D, L, seed, threshold, inv, dropout, scale, s);
   return (int)cudaGetLastError();
 }

@@ -71,6 +71,21 @@
 //    a pair, so T is limited to about half of DH = 64's; the wrapper checks
 //    vb_attn_packed_x_smem_bytes. fp32 has its own kernels
 //    (flash_attention_f32.cu): wgmma's TF32 would not hold fp32's tolerance.
+// 6. The backward at head dims 16 and 32 (bf16, fp16), unpadded. Padded to
+//    64, most of the backward's product work multiplied zeros (S and dP 4
+//    k-steps where D / 16 do, dQ, dK, dV m64n64 where m64nD does), its
+//    K/V (Q/dO) rows took 128 B of shared memory where 2 D bytes do, and
+//    the wrapper's pads of qkv, qb, dout and out and cuts of dqkv and dqb
+//    cost about a fifth of the call. The two passes are the same bodies on
+//    hopper_attn.cuh's small-row tiles (its *_t helpers call the *_s ones
+//    at these DH): rows of 32 or 64 bytes in the 32 B or 64 B swizzle, S
+//    and dP in D / 16
+//    k-steps, dQ, dK and dV m64n16k16 or m64n32k16 with D / 2 accumulators a
+//    thread; the wrapper pads a D below 16 to 16 and one in (16, 32) to 32.
+//    Smaller rows and registers fit more blocks an SM, and the T limit
+//    rises. The Philox draw of each pass (about 0.11 ms at the main path's
+//    shapes) does not shrink with D. K1 keeps its D = 64 route at these
+//    head dims; vb_attn_packed_x_probe runs one product of each kind alone.
 // tools/attn_steps.py builds this source again with step 2 or step 3 left
 // out (-DVB_PACKED_PHILOX_PER_ROW, -DVB_PACKED_SYNC_LOADS, switches of that
 // header) and times each build beside this one; the library never defines
@@ -256,7 +271,7 @@ packed_dq_kernel(const E* __restrict__ qkv, const E* __restrict__ qb, const floa
                  E* __restrict__ dqkv, float* __restrict__ db_part, float* __restrict__ delta_g, int T, int H,
                  int hg, uint32_t seed, uint32_t thr, float inv, int dropout, float scale) {
   using L = Tile<DH>;
-  constexpr int TB = L::BYTES, NP = L::NP;
+  constexpr int TB = L::BYTES, NP = L::NP, NA = L::NA;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align_smem(smem_raw);
   const int Tp = round_up(T, TILE), ntl = Tp / TILE;
@@ -314,7 +329,7 @@ packed_dq_kernel(const E* __restrict__ qkv, const E* __restrict__ qb, const floa
       }
       const int row[2] = {qt * TILE + warp * 16 + g, qt * TILE + warp * 16 + g + 8};
       const float strow[2] = {st[row[0]], st[row[1]]}, dlrow[2] = {dl[row[0]], dl[row[1]]};
-      float dq[NP][32];
+      float dq[NP][NA];
       zero_t(dq);
       for (int kt = 0; kt < ntl; ++kt) {
         if (qt == 0) {
@@ -386,7 +401,7 @@ packed_dkv_kernel(const E* __restrict__ qkv, const E* __restrict__ qb, const flo
                   E* __restrict__ dqkv, float* __restrict__ db_part, int T, int H, int hg, uint32_t seed,
                   uint32_t thr, float inv, int dropout, float scale) {
   using L = Tile<DH>;
-  constexpr int TB = L::BYTES, NP = L::NP;
+  constexpr int TB = L::BYTES, NP = L::NP, NA = L::NA;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align_smem(smem_raw);
   const int Tp = round_up(T, TILE), ntl = Tp / TILE;
@@ -446,7 +461,7 @@ packed_dkv_kernel(const E* __restrict__ qkv, const E* __restrict__ qb, const flo
       }
       const int key[2] = {kt * TILE + warp * 16 + g, kt * TILE + warp * 16 + g + 8};
       const float kbr[2] = {kb[key[0]], kb[key[1]]};
-      float dk[NP][32], dv[NP][32];
+      float dk[NP][NA], dv[NP][NA];
       zero_t(dk);
       zero_t(dv);
 
@@ -524,10 +539,16 @@ packed_dkv_kernel(const E* __restrict__ qkv, const E* __restrict__ qb, const flo
 
 // ---------------------------------------------------------------- launches
 
+// Head dims 16 and 32 have the backward's two passes and no forward (K1
+// runs them zero-padded to 64): kernel 0 is nullptr there, its bytes 0.
 template <typename E, int DH>
 const void* kernel_of(int which) {
   switch (which) {
-    case 0: return (const void*)packed_fwd_kernel<E, DH>;
+    case 0:
+      if constexpr (Tile<DH>::SMALL)
+        return nullptr;
+      else
+        return (const void*)packed_fwd_kernel<E, DH>;
     case 1: return (const void*)packed_dq_kernel<E, DH>;
     case 2: return (const void*)packed_dkv_kernel<E, DH>;
     default: return nullptr;
@@ -536,14 +557,30 @@ const void* kernel_of(int which) {
 
 template <int DH>
 size_t bytes_of(int which, int T) {
-  return which == 0 ? fwd_bytes<DH>(T) : (which == 1 ? dq_bytes<DH>(T) : dkv_bytes<DH>(T));
+  if (which == 0) {
+    if constexpr (Tile<DH>::SMALL)
+      return 0;
+    else
+      return fwd_bytes<DH>(T);
+  }
+  return which == 1 ? dq_bytes<DH>(T) : dkv_bytes<DH>(T);
 }
 
 template <int DH>
 size_t smem_bytes(int T) {
-  size_t m = fwd_bytes<DH>(T);
+  size_t m = bytes_of<DH>(0, T);
   if (dq_bytes<DH>(T) > m) m = dq_bytes<DH>(T);
   return dkv_bytes<DH>(T) > m ? dkv_bytes<DH>(T) : m;
+}
+
+size_t bytes_at(int dh, int which, int T) {
+  switch (dh) {
+    case 16: return bytes_of<16>(which, T);
+    case 32: return bytes_of<32>(which, T);
+    case 64: return bytes_of<64>(which, T);
+    case 128: return bytes_of<128>(which, T);
+    default: return 0;
+  }
 }
 
 template <typename E, int DH>
@@ -589,10 +626,17 @@ int launch_bwd(const void* qkv, const void* qb, const void* key_bias, const void
 }
 
 // The instantiation of element type `dtype` (0 bf16, 1 fp16) and head dim
-// DH (64, 128): 0 bf16/64, 1 bf16/128, 2 fp16/64, 3 fp16/128; -1 for any other.
+// DH (64, 128; 16, 32 the backward only): 0 bf16/64, 1 bf16/128, 2 fp16/64,
+// 3 fp16/128, 4 bf16/16, 5 bf16/32, 6 fp16/16, 7 fp16/32; -1 for any other.
 int form(int dtype, int dh) {
-  if ((dtype != 0 && dtype != 1) || (dh != 64 && dh != 128)) return -1;
-  return 2 * dtype + (dh == 128);
+  if (dtype != 0 && dtype != 1) return -1;
+  switch (dh) {
+    case 64: return 2 * dtype;
+    case 128: return 2 * dtype + 1;
+    case 16: return 4 + 2 * dtype;
+    case 32: return 5 + 2 * dtype;
+    default: return -1;
+  }
 }
 
 const void* kernel_of_form(int f, int which) {
@@ -601,7 +645,68 @@ const void* kernel_of_form(int f, int which) {
     case 1: return kernel_of<bf16, 128>(which);
     case 2: return kernel_of<__half, 64>(which);
     case 3: return kernel_of<__half, 128>(which);
+    case 4: return kernel_of<bf16, 16>(which);
+    case 5: return kernel_of<bf16, 32>(which);
+    case 6: return kernel_of<__half, 16>(which);
+    case 7: return kernel_of<__half, 32>(which);
     default: return nullptr;
+  }
+}
+
+// The small-row products alone (one block): d1 [64 x DH] fp32 = a b through
+// product_rs_s (a [64 x 64] from registers, b [64 x DH] the MN-major
+// operand) and d2 [64 x 64] fp32 = q b^T through product_ss_s (q, b K-major);
+// a, b, q in E with contiguous rows.
+template <typename E, int DH>
+__global__ void __launch_bounds__(NT)
+small_product_kernel(const E* __restrict__ a, const E* __restrict__ b, const E* __restrict__ q, float* __restrict__ d1,
+                     float* __restrict__ d2) {
+  __shared__ unsigned char smem_raw[ALIGN + 2 * Tile<DH>::BYTES];
+  unsigned char* sm = align_smem(smem_raw);
+  const uint32_t sB = smem_addr(sm), sQ = sB + Tile<DH>::BYTES;
+  issue_tile_s<E, DH>(sB, b, 0, TILE, DH);
+  issue_tile_s<E, DH>(sQ, q, 0, TILE, DH);
+  cp_commit();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int row[2] = {warp * 16 + g, warp * 16 + g + 8};
+  float s[32];  // a's rows in the accumulator layout
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 v = vb::Elem<E>::unpack(*reinterpret_cast<const uint32_t*>(a + row[r] * TILE + nt * 8 + 2 * tq));
+      s[4 * nt + 2 * r] = v.x;
+      s[4 * nt + 2 * r + 1] = v.y;
+    }
+  uint32_t fa[4][4];
+  to_a_t<E>(fa, s);
+  cp_wait<0>();
+  fence_async();
+  __syncthreads();
+  float o[DH / 2], st[32];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  wg_fence();
+  product_rs_s<E, DH>(o, fa, sB);
+  product_ss_s<E, DH>(st, sQ, sB);
+  wg_commit();
+  wg_wait();
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) asm volatile("" : "+f"(o[i])::"memory");
+  reg_fence(st);
+  reg_fence(fa);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int nt = 0; nt < DH / 8; ++nt) {
+      d1[row[r] * DH + nt * 8 + 2 * tq] = o[4 * nt + 2 * r];
+      d1[row[r] * DH + nt * 8 + 2 * tq + 1] = o[4 * nt + 2 * r + 1];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      d2[row[r] * TILE + nt * 8 + 2 * tq] = st[4 * nt + 2 * r];
+      d2[row[r] * TILE + nt * 8 + 2 * tq + 1] = st[4 * nt + 2 * r + 1];
+    }
   }
 }
 
@@ -641,14 +746,42 @@ extern "C" int vb_attn_packed_bwd(const void* qkv, const void* qb, const void* k
 // caller zero-pads the heads to it); scale the softmax scale of the unpadded
 // head dim. The largest dynamic shared memory of the three kernels at dh and
 // T (0 for a dh not built).
+// dh 16 and 32 build the backward only: their forward's info is -1 and
+// vb_attn_packed_x_fwd refuses them.
 extern "C" size_t vb_attn_packed_x_smem_bytes(int dh, int T) {
-  return dh == 64 ? smem_bytes<64>(T) : (dh == 128 ? smem_bytes<128>(T) : 0);
+  switch (dh) {
+    case 16: return smem_bytes<16>(T);
+    case 32: return smem_bytes<32>(T);
+    case 64: return smem_bytes<64>(T);
+    case 128: return smem_bytes<128>(T);
+    default: return 0;
+  }
 }
 
 extern "C" int vb_attn_packed_x_info(int dtype, int dh, int which, int what, int T) {
   const int f = form(dtype, dh);
   if (f < 0) return -1;
-  return kernel_info(kernel_of_form(f, which), dh == 64 ? bytes_of<64>(which, T) : bytes_of<128>(which, T), what);
+  return kernel_info(kernel_of_form(f, which), bytes_at(dh, which, T), what);
+}
+
+// One m64nDHk16 product of each kind the dh 16 and 32 backward runs, alone
+// (small_product_kernel), for a card test of the small-row layouts.
+extern "C" int vb_attn_packed_x_probe(const void* a, const void* b, const void* q, void* d1, void* d2, int dtype,
+                                      int dh, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VB_PROBE(E, D)                                                                             \
+  small_product_kernel<E, D><<<1, NT, 0, s>>>(static_cast<const E*>(a), static_cast<const E*>(b), \
+                                              static_cast<const E*>(q), static_cast<float*>(d1),  \
+                                              static_cast<float*>(d2))
+  switch (form(dtype, dh)) {
+    case 4: VB_PROBE(bf16, 16); break;
+    case 5: VB_PROBE(bf16, 32); break;
+    case 6: VB_PROBE(__half, 16); break;
+    case 7: VB_PROBE(__half, 32); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VB_PROBE
+  return (int)cudaGetLastError();
 }
 
 extern "C" int vb_attn_packed_x_fwd(const void* qkv, const void* qb, const void* key_bias, void* out, void* stats,
@@ -679,6 +812,10 @@ extern "C" int vb_attn_packed_x_bwd(const void* qkv, const void* qb, const void*
     case 1: return VB_BWD(bf16, 128);
     case 2: return VB_BWD(__half, 64);
     case 3: return VB_BWD(__half, 128);
+    case 4: return VB_BWD(bf16, 16);
+    case 5: return VB_BWD(bf16, 32);
+    case 6: return VB_BWD(__half, 16);
+    case 7: return VB_BWD(__half, 32);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef VB_BWD

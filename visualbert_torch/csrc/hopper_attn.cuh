@@ -14,6 +14,8 @@
 // this header): a row of DH elements is DH / 64 panels of 128 B, each panel
 // of a tile the layout above, and wgmma's element type is the kernel's
 // (.f16 in place of .bf16, the same shapes and swizzle: both are 2 bytes).
+// K2 also takes head dims 16 and 32 on rows of their own size (the small-row
+// tiles below, in the 32 B and 64 B swizzles).
 //
 // Two switches leave a design step out for tools/attn_steps.py's builds;
 // the kernel library never defines either: VB_PACKED_SYNC_LOADS makes every
@@ -364,15 +366,20 @@ __device__ __forceinline__ void pair_delta(const bf16* __restrict__ dout, const 
 // Tile<DH>: a tile of 64 rows x DH elements is NP = DH / 64 panels of 64
 // rows x 128 B (each the 8 KB layout above), panel p at + p * TILE_BYTES;
 // chunk c of a row (c < DH / 8) lies in panel c / 8 at swz(r, c % 8). An
-// accumulator over DH output columns is NP 64 x 64 accumulators.
+// accumulator over DH output columns is NP 64 x 64 accumulators. At DH =
+// 16 and 32 (K2's small rows, the *_s helpers below) a tile is one panel of
+// 32 or 64 B rows and an accumulator one 64 x DH tile of DH / 2 floats a
+// thread; the *_t helpers call the *_s ones there.
 
 template <int DH>
 struct Tile {
-  static_assert(DH % 64 == 0 && DH <= 128, "K1/K2 take head dims of 64 and 128");
-  static constexpr int NP = DH / 64;                 // panels of a row
+  static_assert(DH == 16 || DH == 32 || DH == 64 || DH == 128, "K1/K2 take head dims of 16, 32, 64 and 128");
+  static constexpr bool SMALL = DH < 64;             // small rows
+  static constexpr int NP = SMALL ? 1 : DH / 64;     // panels of a row; accumulator tiles
+  static constexpr int NA = SMALL ? DH / 2 : 32;     // accumulator floats a thread of each
   static constexpr int CH = DH / 8;                  // 16-byte chunks of a row
   static constexpr int ROWB = DH * 2;                // bytes of a row
-  static constexpr int BYTES = NP * TILE_BYTES;      // bytes of a 64-row tile
+  static constexpr int BYTES = TILE * ROWB;          // bytes of a 64-row tile
 };
 
 template <typename E>
@@ -402,26 +409,186 @@ __device__ __forceinline__ void wgmma_rs_e(float (&d)[32], const uint32_t (&a)[4
   }
 }
 
+// ------------------------------------- small rows: head dims 16 and 32
+//
+// A head dim of 16 or 32 keeps its rows as they lie: 32 or 64 bytes, one
+// row of wgmma's 32 B or 64 B swizzle, with no zero columns. Chunk c (16
+// bytes) of row r of a tile lies at r * ROWB + ((c ^ (r >> SH) % CH) << 4):
+// address bits 4.. XORed with bits 7.., as the hardware reads the 32 B
+// (bit 4 with bit 7) and 64 B (bits 4-5 with bits 7-8) swizzles; the
+// pattern repeats every 8 rows (256 or 512 bytes), so a tile needs only that
+// alignment. The descriptor gives both byte offsets as 8 rows' bytes: the
+// K-major operands (S = Q K^T, dP = dO V^T) step 32 bytes a k-step of 16
+// along the row (DH / 16 k-steps); the MN-major ones (the rows of K, V, Q,
+// dO as B of P V-type products, N = DH, one swizzle row wide) step 16 rows
+// a k-step. Those products are m64n16k16 or m64n32k16 with DH / 2 fp32
+// accumulators a thread, in the m64n64 layout's first DH / 8 n-tiles.
+
+template <int DH>
+struct Small {
+  static_assert(DH == 16 || DH == 32, "the small-row tiles take head dims of 16 and 32");
+  static constexpr int SH = DH == 16 ? 2 : 1;            // row bits above the row's 128-byte line
+  static constexpr int GROUP = 8 * DH * 2;               // bytes of 8 rows: the descriptor's byte offsets
+  static constexpr uint64_t LAYOUT = DH == 16 ? 3 : 2;   // the descriptor's 32 B or 64 B swizzle
+};
+
+template <int DH>
+__device__ __forceinline__ uint32_t swz_s(int r, int c) {
+  return (uint32_t)(r * Tile<DH>::ROWB + ((c ^ ((r >> Small<DH>::SH) & (Tile<DH>::CH - 1))) << 4));
+}
+
+template <int DH>
+__device__ __forceinline__ uint64_t desc_s(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(Small<DH>::GROUP >> 4) << 16) |
+         ((uint64_t)(Small<DH>::GROUP >> 4) << 32) | (Small<DH>::LAYOUT << 62);
+}
+
+#define VB_D8 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+#define VB_D16                                                                                                \
+  VB_D8, "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define VB_RS_N16(T)                                                                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                                              \
+               "wgmma.mma_async.sync.aligned.m64n16k16.f32." T "." T                                     \
+               " {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"            \
+               : VB_D8                                                                                   \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+#define VB_RS_N32(T)                                                                                         \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                                   \
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32." T "." T                                          \
+               " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, "   \
+               "%19}, %20, p, 1, 1, 1;\n}\n"                                                                  \
+               : VB_D16                                                                                       \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+// d (64 x DH fp32) += A B, A [64 x 16] in E from registers, B [16 x DH] the
+// transposed (MN-major) operand: 16 rows of DH contiguous elements.
+template <typename E, int DH>
+__device__ __forceinline__ void wgmma_rs_s(float (&d)[DH / 2], const uint32_t (&a)[4], uint64_t b) {
+  constexpr bool F16 = std::is_same<E, __half>::value;
+  if constexpr (DH == 16) {
+    if constexpr (F16)
+      VB_RS_N16("f16");
+    else
+      VB_RS_N16("bf16");
+  } else {
+    if constexpr (F16)
+      VB_RS_N32("f16");
+    else
+      VB_RS_N32("bf16");
+  }
+}
+#undef VB_RS_N16
+#undef VB_RS_N32
+
+// S (64 x 64) = A B^T over DH: A and B 64-row small-row tiles.
+template <typename E, int DH>
+__device__ __forceinline__ void product_ss_s(float (&d)[32], uint32_t a, uint32_t b) {
+  const uint64_t da = desc_s<DH>(a), db = desc_s<DH>(b);
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss_e<E>(d, da + 2 * kk, db + 2 * kk, kk);
+}
+
+// d += A B: A from registers (4 k-steps of 16 rows of B), B the 64-row
+// small-row tile at shared address b.
+template <typename E, int DH>
+__device__ __forceinline__ void product_rs_s(float (&d)[DH / 2], const uint32_t (&a)[4][4], uint32_t b) {
+  const uint64_t db = desc_s<DH>(b);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) wgmma_rs_s<E, DH>(d, a[c], db + c * ((16 * Tile<DH>::ROWB) >> 4));
+}
+
+template <typename E, int DH>
+__device__ __forceinline__ void issue_tile_s(uint32_t dst, const E* __restrict__ src, int t0, int T, int ld) {
+  constexpr int CH = Tile<DH>::CH;
+#pragma unroll
+  for (int idx = threadIdx.x; idx < TILE * CH; idx += NT) {
+    const int r = idx / CH, c = idx % CH, t = t0 + r;
+    cp_async16(dst + swz_s<DH>(r, c), src + (size_t)(t < T ? t : 0) * ld + c * 8, t < T);
+  }
+}
+
+template <typename E, int DH>
+__device__ __forceinline__ void add_bias_s(unsigned char* tile, uint4 bias, int t0, int T) {
+  constexpr int CH = Tile<DH>::CH;
+  const uint32_t* y = reinterpret_cast<const uint32_t*>(&bias);
+#pragma unroll
+  for (int idx = threadIdx.x; idx < TILE * CH; idx += NT) {
+    const int r = idx / CH, c = idx % CH;
+    if (t0 + r < T) {
+      uint4* p = reinterpret_cast<uint4*>(tile + swz_s<DH>(r, c));
+      uint4 v = *p;
+      uint32_t* x = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = vb::Elem<E>::unpack(x[e]), b = vb::Elem<E>::unpack(y[e]);
+        x[e] = vb::Elem<E>::pack(a.x + b.x, a.y + b.y);
+      }
+      *p = v;
+    }
+  }
+}
+
+template <typename E, int DH>
+__device__ __forceinline__ void colsum_add_s(const float (&acc)[DH / 2], float scale, bool ok0, bool ok1, float* red,
+                                             int warp, int g, int tq) {
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = (ok0 ? vb::Elem<E>::round(acc[4 * nt + e] * scale) : 0.f) +
+                (ok1 ? vb::Elem<E>::round(acc[4 * nt + 2 + e] * scale) : 0.f);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) red[warp * DH + nt * 8 + 2 * tq + e] += v;
+    }
+  }
+}
+
+template <typename E, int DH>
+__device__ __forceinline__ void store_rows_s(E* __restrict__ dst, const float (&acc)[DH / 2], float scale, int row0,
+                                             int row1, bool ok0, bool ok1, int ld, int tq) {
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt) {
+    const int c = nt * 8 + 2 * tq;
+    if (ok0)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)row0 * ld + c) =
+          vb::Elem<E>::pack(acc[4 * nt] * scale, acc[4 * nt + 1] * scale);
+    if (ok1)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)row1 * ld + c) =
+          vb::Elem<E>::pack(acc[4 * nt + 2] * scale, acc[4 * nt + 3] * scale);
+  }
+}
+
 // S (64 x 64) = A B^T over DH: A and B 64-row tiles of DH at shared addresses.
 template <typename E, int DH>
 __device__ __forceinline__ void product_ss_t(float (&d)[32], uint32_t a, uint32_t b) {
+  if constexpr (Tile<DH>::SMALL) {
+    product_ss_s<E, DH>(d, a, b);
+  } else {
 #pragma unroll
-  for (int p = 0; p < Tile<DH>::NP; ++p) {
-    const uint64_t da = desc(a + p * TILE_BYTES), db = desc(b + p * TILE_BYTES);
+    for (int p = 0; p < Tile<DH>::NP; ++p) {
+      const uint64_t da = desc(a + p * TILE_BYTES), db = desc(b + p * TILE_BYTES);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss_e<E>(d, da + 2 * kk, db + 2 * kk, p | kk);
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_e<E>(d, da + 2 * kk, db + 2 * kk, p | kk);
+    }
   }
 }
 
 // d[p] += A B[:, panel p] for every output panel p: A from registers (4
 // k-steps of 16 rows of B), B the 64-row tile of DH at shared address b.
 template <typename E, int DH>
-__device__ __forceinline__ void product_rs_t(float (&d)[Tile<DH>::NP][32], const uint32_t (&a)[4][4], uint32_t b) {
+__device__ __forceinline__ void product_rs_t(float (&d)[Tile<DH>::NP][Tile<DH>::NA], const uint32_t (&a)[4][4],
+                                             uint32_t b) {
+  if constexpr (Tile<DH>::SMALL) {
+    product_rs_s<E, DH>(d[0], a, b);
+  } else {
 #pragma unroll
-  for (int p = 0; p < Tile<DH>::NP; ++p) {
-    const uint64_t db = desc(b + p * TILE_BYTES);
+    for (int p = 0; p < Tile<DH>::NP; ++p) {
+      const uint64_t db = desc(b + p * TILE_BYTES);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) wgmma_rs_e<E>(d[p], a[c], db + c * (2048 >> 4));
+      for (int c = 0; c < 4; ++c) wgmma_rs_e<E>(d[p], a[c], db + c * (2048 >> 4));
+    }
   }
 }
 
@@ -437,26 +604,44 @@ __device__ __forceinline__ void to_a_t(uint32_t (&a)[4][4], const float (&s)[32]
   }
 }
 
-template <int NP>
-__device__ __forceinline__ void reg_fence_t(float (&d)[NP][32]) {
+template <int NP, int NA>
+__device__ __forceinline__ void reg_fence_t(float (&d)[NP][NA]) {
 #pragma unroll
-  for (int p = 0; p < NP; ++p) reg_fence(d[p]);
+  for (int p = 0; p < NP; ++p) {
+    if constexpr (NA == 32) {
+      reg_fence(d[p]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(d[p][i])::"memory");
+    }
+  }
 }
 
-template <int NP>
-__device__ __forceinline__ void zero_t(float (&d)[NP][32]) {
+template <int NP, int NA>
+__device__ __forceinline__ void zero_t(float (&d)[NP][NA]) {
 #pragma unroll
-  for (int p = 0; p < NP; ++p) zero(d[p]);
+  for (int p = 0; p < NP; ++p) {
+    if constexpr (NA == 32) {
+      zero(d[p]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) d[p][i] = 0.f;
+    }
+  }
 }
 
 // issue_tile for rows of DH elements: thread x copies chunk x % CH of its rows.
 template <typename E, int DH>
 __device__ __forceinline__ void issue_tile_t(uint32_t dst, const E* __restrict__ src, int t0, int T, int ld) {
   constexpr int CH = Tile<DH>::CH;
+  if constexpr (Tile<DH>::SMALL) {
+    issue_tile_s<E, DH>(dst, src, t0, T, ld);
+  } else {
 #pragma unroll
-  for (int idx = threadIdx.x; idx < TILE * CH; idx += NT) {
-    const int r = idx / CH, c = idx % CH, t = t0 + r;
-    cp_async16(dst + (c >> 3) * TILE_BYTES + swz(r, c & 7), src + (size_t)(t < T ? t : 0) * ld + c * 8, t < T);
+    for (int idx = threadIdx.x; idx < TILE * CH; idx += NT) {
+      const int r = idx / CH, c = idx % CH, t = t0 + r;
+      cp_async16(dst + (c >> 3) * TILE_BYTES + swz(r, c & 7), src + (size_t)(t < T ? t : 0) * ld + c * 8, t < T);
+    }
   }
 }
 
@@ -464,20 +649,24 @@ __device__ __forceinline__ void issue_tile_t(uint32_t dst, const E* __restrict__
 template <typename E, int DH>
 __device__ __forceinline__ void add_bias_t(unsigned char* tile, uint4 bias, int t0, int T) {
   constexpr int CH = Tile<DH>::CH;
-  const uint32_t* y = reinterpret_cast<const uint32_t*>(&bias);
+  if constexpr (Tile<DH>::SMALL) {
+    add_bias_s<E, DH>(tile, bias, t0, T);
+  } else {
+    const uint32_t* y = reinterpret_cast<const uint32_t*>(&bias);
 #pragma unroll
-  for (int idx = threadIdx.x; idx < TILE * CH; idx += NT) {
-    const int r = idx / CH, c = idx % CH;
-    if (t0 + r < T) {
-      uint4* p = reinterpret_cast<uint4*>(tile + (c >> 3) * TILE_BYTES + swz(r, c & 7));
-      uint4 v = *p;
-      uint32_t* x = reinterpret_cast<uint32_t*>(&v);
+    for (int idx = threadIdx.x; idx < TILE * CH; idx += NT) {
+      const int r = idx / CH, c = idx % CH;
+      if (t0 + r < T) {
+        uint4* p = reinterpret_cast<uint4*>(tile + (c >> 3) * TILE_BYTES + swz(r, c & 7));
+        uint4 v = *p;
+        uint32_t* x = reinterpret_cast<uint32_t*>(&v);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 a = vb::Elem<E>::unpack(x[e]), b = vb::Elem<E>::unpack(y[e]);
-        x[e] = vb::Elem<E>::pack(a.x + b.x, a.y + b.y);
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = vb::Elem<E>::unpack(x[e]), b = vb::Elem<E>::unpack(y[e]);
+          x[e] = vb::Elem<E>::pack(a.x + b.x, a.y + b.y);
+        }
+        *p = v;
       }
-      *p = v;
     }
   }
 }
@@ -490,40 +679,48 @@ __device__ __forceinline__ uint4 bias_chunk_t(const E* __restrict__ qb, int h, i
 // colsum_add over DH columns: red[warp * DH + col] += the column sums over
 // this warp's valid rows of E(acc * scale); the g == 0 lanes own the columns.
 template <typename E, int DH>
-__device__ __forceinline__ void colsum_add_t(const float (&acc)[Tile<DH>::NP][32], float scale, bool ok0, bool ok1,
-                                             float* red, int warp, int g, int tq) {
+__device__ __forceinline__ void colsum_add_t(const float (&acc)[Tile<DH>::NP][Tile<DH>::NA], float scale, bool ok0,
+                                             bool ok1, float* red, int warp, int g, int tq) {
+  if constexpr (Tile<DH>::SMALL) {
+    colsum_add_s<E, DH>(acc[0], scale, ok0, ok1, red, warp, g, tq);
+  } else {
 #pragma unroll
-  for (int p = 0; p < Tile<DH>::NP; ++p)
+    for (int p = 0; p < Tile<DH>::NP; ++p)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float v = (ok0 ? vb::Elem<E>::round(acc[p][4 * nt + e] * scale) : 0.f) +
-                  (ok1 ? vb::Elem<E>::round(acc[p][4 * nt + 2 + e] * scale) : 0.f);
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (g == 0) red[warp * DH + p * 64 + nt * 8 + 2 * tq + e] += v;
+        for (int e = 0; e < 2; ++e) {
+          float v = (ok0 ? vb::Elem<E>::round(acc[p][4 * nt + e] * scale) : 0.f) +
+                    (ok1 ? vb::Elem<E>::round(acc[p][4 * nt + 2 + e] * scale) : 0.f);
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (g == 0) red[warp * DH + p * 64 + nt * 8 + 2 * tq + e] += v;
+        }
       }
-    }
+  }
 }
 
 // store_rows over DH columns, in E.
 template <typename E, int DH>
-__device__ __forceinline__ void store_rows_t(E* __restrict__ dst, const float (&acc)[Tile<DH>::NP][32], float scale,
-                                             int row0, int row1, bool ok0, bool ok1, int ld, int tq) {
+__device__ __forceinline__ void store_rows_t(E* __restrict__ dst, const float (&acc)[Tile<DH>::NP][Tile<DH>::NA],
+                                             float scale, int row0, int row1, bool ok0, bool ok1, int ld, int tq) {
+  if constexpr (Tile<DH>::SMALL) {
+    store_rows_s<E, DH>(dst, acc[0], scale, row0, row1, ok0, ok1, ld, tq);
+  } else {
 #pragma unroll
-  for (int p = 0; p < Tile<DH>::NP; ++p)
+    for (int p = 0; p < Tile<DH>::NP; ++p)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int c = p * 64 + nt * 8 + 2 * tq;
-      if (ok0)
-        *reinterpret_cast<uint32_t*>(dst + (size_t)row0 * ld + c) =
-            vb::Elem<E>::pack(acc[p][4 * nt] * scale, acc[p][4 * nt + 1] * scale);
-      if (ok1)
-        *reinterpret_cast<uint32_t*>(dst + (size_t)row1 * ld + c) =
-            vb::Elem<E>::pack(acc[p][4 * nt + 2] * scale, acc[p][4 * nt + 3] * scale);
-    }
+      for (int nt = 0; nt < 8; ++nt) {
+        const int c = p * 64 + nt * 8 + 2 * tq;
+        if (ok0)
+          *reinterpret_cast<uint32_t*>(dst + (size_t)row0 * ld + c) =
+              vb::Elem<E>::pack(acc[p][4 * nt] * scale, acc[p][4 * nt + 1] * scale);
+        if (ok1)
+          *reinterpret_cast<uint32_t*>(dst + (size_t)row1 * ld + c) =
+              vb::Elem<E>::pack(acc[p][4 * nt + 2] * scale, acc[p][4 * nt + 3] * scale);
+      }
+  }
 }
 
 // pair_delta over DH columns in E (two threads a row, DH / 2 columns each).

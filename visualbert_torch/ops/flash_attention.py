@@ -43,14 +43,16 @@ step by step); on CUDA tensors they launch the kernels or raise.
 
 K1 and K2 take every dtype and head dim the JAX kernels take up to D = 128
 (the JAX wrapper asserts only ``F % 3H == 0``): bf16 and fp16 on the Hopper
-kernels, instantiated at D = 64 and 128, a head dim below either
-zero-padded to it (:func:`kernel_head_dim`, :func:`pad_heads`,
-:func:`unpad_heads`; exact, and the softmax scale stays 1/sqrt(D) of the
-unpadded D), and fp32 on the SIMT kernels of ``flash_attention_f32.cu`` at
-any D <= 128 (K1/K11's forward a first design; K13's forward and the
-backward of K2, K12 and K14 register-tiled, 64-row tiles of a (batch row,
-head), the bias gradient's partials one row a (batch row, tile):
-:func:`f32_bias_tiles`, :func:`sum_bias_partials`). K11-K14 take the same
+kernels, K1 instantiated at D = 64 and 128 and K2 also at 16 and 32 (rows
+of their own size, read in place), a head dim below an instantiation
+zero-padded to it (:func:`kernel_head_dim`, :func:`bwd_head_dim`,
+:func:`pad_heads`, :func:`unpad_heads`; exact, and the softmax scale stays
+1/sqrt(D) of the unpadded D), and fp32 on the SIMT kernels of
+``flash_attention_f32.cu`` at any D <= 128 (all register-tiled, 64-row
+tiles of a (batch row, head): K1/K11's forward in one pass over the keys,
+K13's in two, the backward of K2, K12 and K14; the bias gradient's
+partials one row a (batch row, tile): :func:`f32_bias_tiles`,
+:func:`sum_bias_partials`). K11-K14 take the same
 dtypes and head dims: bf16 and fp16 on their Hopper kernels, instantiated
 at D = 64 and 128 (the heads-major
 ``[B, 3, H, T, D]`` zero-padded to ``[..., Dp]`` by :func:`pad_heads_major`,
@@ -62,7 +64,7 @@ form. bf16 at D = 64, the main path's form, keeps its entry points
 tree's build; the other bf16 and fp16 forms go through ``vb_attn_hm_x_*``
 and ``vb_attn_sp_x_*`` with the dtype, head dim and scale. Each wrapper
 counts its launches in ``launches`` and, by form (:func:`attention_form`),
-in ``forms``.
+in ``forms`` (K2 by :func:`bwd_attention_form`).
 
 The dropout keep bit of probability (b, h, i, j) is a pure function of
 (seed, b, h, i, j) — see ``csrc/philox.cuh::attn_philox`` and its twin
@@ -90,6 +92,7 @@ from visualbert_torch.ops.philox import MASK32, keep_threshold, philox4x32_10
 LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIM = 64  # the bf16 main forms' head dim (K15/K16 take only it)
 PACKED_HEAD_DIMS = (64, 128)  # the bf16 and fp16 instantiations of K1/K2 and K11-K14
+BWD_HEAD_DIMS = (16, 32, 64, 128)  # K2's bf16 and fp16 instantiations: 16 and 32 on rows of their own size
 MAX_HEAD_DIM = 128  # K1/K2 and K11-K14 in every dtype
 PACKED_DTYPES = (torch.bfloat16, torch.float16, torch.float32)  # K1/K2 and K11-K14
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}  # csrc/flash_attention_packed.cu's dtype argument
@@ -100,6 +103,21 @@ def kernel_head_dim(d: int) -> int:
     """The head dim at which K1/K2's bf16 and fp16 kernels run heads of dim
     d (<= MAX_HEAD_DIM): the smallest instantiation that holds it."""
     return next(dp for dp in PACKED_HEAD_DIMS if d <= dp)
+
+
+def bwd_head_dim(d: int) -> int:
+    """The head dim at which K2's bf16 and fp16 kernels run heads of dim d
+    (<= MAX_HEAD_DIM): the smallest of BWD_HEAD_DIMS that holds it, so that
+    heads of 16 and 32 run unpadded."""
+    return next(dp for dp in BWD_HEAD_DIMS if d <= dp)
+
+
+def bwd_attention_form(dtype, d: int) -> str:
+    """The kernel form K2 runs heads of dim d in ``dtype`` on: "fp32" or
+    "<dtype> D<bwd_head_dim(d)>" (K1 and K11-K14: :func:`attention_form`)."""
+    if dtype == torch.float32:
+        return "fp32"
+    return f"{'bf16' if dtype == torch.bfloat16 else 'fp16'} D{bwd_head_dim(d)}"
 
 
 def pad_heads(x: torch.Tensor, n_heads: int, parts: int, dp: int) -> torch.Tensor:
@@ -366,10 +384,10 @@ def _check_packed(what, qkv, key_bias, n_heads, *others, smem_fn, qb=None):
     return _check(what, lambda lib, t: getattr(lib, smem_fn)(t), T, key_bias, B, qkv, *others)
 
 
-def _check_packed_any(what, qkv, key_bias, n_heads, *others, qb):
+def _check_packed_any(what, qkv, key_bias, n_heads, *others, qb, head_dim=kernel_head_dim):
     """K1/K2's checks in every form: a dtype of PACKED_DTYPES, head dim up
     to MAX_HEAD_DIM, shapes, and (bf16, fp16) the shared memory of T at the
-    instantiated head dim."""
+    instantiated head dim ``head_dim(D)`` (K2: :func:`bwd_head_dim`)."""
     if qkv.dtype not in PACKED_DTYPES:
         raise ValueError(f"{what}: the kernels take bf16, fp16 or fp32 qkv, got {qkv.dtype}")
     B, T, F = qkv.shape
@@ -381,7 +399,7 @@ def _check_packed_any(what, qkv, key_bias, n_heads, *others, qb):
             raise ValueError(f"{what}: dout and out must be [{B}, {T}, {F // 3}] {qkv.dtype}")
     if qb.shape != (F,) or qb.dtype != qkv.dtype:
         raise ValueError(f"{what}: qkv_bias must be [{F}] {qkv.dtype}, got {tuple(qb.shape)} {qb.dtype}")
-    dp = kernel_head_dim(d)
+    dp = head_dim(d)
     smem = None if qkv.dtype == torch.float32 else (lambda lib, t: lib.vb_attn_packed_x_smem_bytes(dp, t))
     return _check(what, smem, T, key_bias, B, qkv, *others, qb)
 
@@ -452,17 +470,22 @@ PACKED_KERNELS = ("forward", "dQ pass", "dK/dV pass")
 _head_groups = {}
 
 
-def _kernel_head_groups(lib, info: str, label: str, B: int, H: int, T: int, device, form=()) -> Tuple[int, int, int]:
+def _kernel_head_groups(lib, info: str, label: str, B: int, H: int, T: int, device, form=(),
+                        kernels=(0, 1, 2)) -> Tuple[int, int, int]:
     """hg of a forward kernel and of its backward's two passes at this shape
     on ``device``, from each kernel's resident blocks per SM (the CUDA
     occupancy query ``info``, after the ``form`` arguments it takes, at its
-    shared memory for T); computed once a (kernel pair, form, B, H, T,
+    shared memory for T); None for a kernel not in ``kernels`` (a form
+    without a forward); computed once a (kernel pair, form, B, H, T,
     device)."""
     key = (info, form, B, H, T, device.index)
     if key not in _head_groups:
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
         out = []
         for k, kernel in enumerate(PACKED_KERNELS):
+            if k not in kernels:
+                out.append(None)
+                continue
             per_sm = getattr(lib, info)(*form, k, 3, T)
             if per_sm < 1:
                 raise RuntimeError(f"{label} {kernel}: no block fits an SM at T={T}")
@@ -478,8 +501,11 @@ def packed_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, i
 
 def packed_x_head_groups(lib, dtype, dp: int, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
     """hg of K1's kernel and of K2's two passes in bf16 or fp16 at the
-    instantiated head dim dp (``vb_attn_packed_x_info``)."""
-    return _kernel_head_groups(lib, "vb_attn_packed_x_info", "K1/K2", B, H, T, device, (_DTYPE_CODE[dtype], dp))
+    instantiated head dim dp (``vb_attn_packed_x_info``); at dp 16 and 32,
+    which build K2 alone, K1's is None."""
+    kernels = (1, 2) if dp < KERNEL_HEAD_DIM else (0, 1, 2)
+    return _kernel_head_groups(lib, "vb_attn_packed_x_info", "K1/K2", B, H, T, device, (_DTYPE_CODE[dtype], dp),
+                               kernels)
 
 
 def hm_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
@@ -570,6 +596,19 @@ def launch_packed_x_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads: int, 
     return code, dqkv, db_part.sum(dim=0).to(qb.dtype)
 
 
+def launch_small_products(lib, a, b, q):
+    """The two products K2 runs at head dims 16 and 32, alone, on the small-
+    row tiles (``vb_attn_packed_x_probe``, one block): a [64, 64], b and q
+    [64, D] (D 16 or 32) in bf16 or fp16 on the card -> (CUDA code, a @ b,
+    q @ b^T) in fp32; b is the transposed operand of the first."""
+    d = b.shape[1]
+    d1 = torch.empty((64, d), dtype=torch.float32, device=a.device)
+    d2 = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    code = lib.vb_attn_packed_x_probe(a.data_ptr(), b.data_ptr(), q.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+                                      _DTYPE_CODE[a.dtype], d, _build.stream_ptr(a.device))
+    return code, d1, d2
+
+
 def launch_f32_fwd(lib, qkv, qb, key_bias, n_heads: int, rate: float, seed: int):
     """K1's fp32 kernel (``csrc/flash_attention_f32.cu``) on checked inputs,
     any head dim up to MAX_HEAD_DIM: (CUDA code, out, stats)."""
@@ -646,19 +685,22 @@ packed_attention_fwd.forms = {}
 
 def packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: float, seed: int):
     """K2 wrapper: (dqkv [B, T, H*3*D], dqb [H*3*D] in qb's dtype), in the
-    forms of :func:`packed_attention_fwd`."""
+    forms of :func:`bwd_attention_form`: bf16 and fp16 heads of 16 and 32
+    (and 64, 128) read in place, the others zero-padded to the next of
+    BWD_HEAD_DIMS here and the gradients cut back; fp32 on the SIMT
+    kernels."""
     what = "packed attention backward (K2)"
     if not _on_cuda(what, qkv):
         return packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed)
-    lib = _check_packed_any(what, qkv, key_bias, n_heads, dout, out, qb=qb)
+    lib = _check_packed_any(what, qkv, key_bias, n_heads, dout, out, qb=qb, head_dim=bwd_head_dim)
     B, T, F = qkv.shape
     _check_stats(what, stats, B, n_heads, T)
     d = F // (3 * n_heads)
-    form = attention_form(qkv.dtype, d)
+    form = bwd_attention_form(qkv.dtype, d)
     if qkv.dtype == torch.float32:
         code, dqkv, dqb = launch_f32_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed)
     else:
-        dp = kernel_head_dim(d)
+        dp = bwd_head_dim(d)
         _, hg_dq, hg_dkv = packed_x_head_groups(lib, qkv.dtype, dp, B, n_heads, T, qkv.device)
         code, dqkv, dqb = launch_packed_x_bwd(
             lib, pad_heads(qkv, n_heads, 3, dp), pad_heads(qb, n_heads, 3, dp), key_bias,

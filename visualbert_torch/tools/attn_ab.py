@@ -27,10 +27,15 @@ built alone too and launched through this checkout's ``launch_hm_*`` and
 the same shapes, on the same biased q, k, v: each against the plain
 versions within ``chip_smoke.py``'s limits, the two trees bit for bit at
 dropout 0 and 0.1 (each backward on this tree's forward outputs), then
-timed in turns (``tools/attn_steps.py``'s rounds). Where the toolkit has
-``cuobjdump``, each kernel's machine code (SASS) in the two builds is
-compared instruction by instruction, addresses and encodings dropped: K1/K2,
-K11/K12 and K13/K14 (their bf16, D = 64 form, whose scale is a constant).
+timed in turns (``tools/attn_steps.py``'s rounds). K2 at head dims 16 and
+32 (bf16, fp16: SMALL_FORMS) is launched on this tree's small-row form and
+on the other tree's route, padded to 64 as its wrapper did (the pads and
+cuts timed with it), each against the plain version, in turns. Where the
+toolkit has ``cuobjdump``, the machine code (SASS) of every kernel both
+trees build (K1/K2 in bf16 and fp16 at 64 and 128, K11-K14 in every form,
+K15/K16) is compared instruction by instruction, addresses and encodings
+dropped (``tools/xent_steps.py::compare_all_sass``); kernels one tree alone
+builds are listed.
 
 The fp32 kernels (``csrc/flash_attention_f32.cu``: K1/K11's forward, K13's
 forward and the backward of K2, K12 and K14), alone with ``--f32``:
@@ -45,9 +50,9 @@ in fp32 at head dims F32_DIMS: every pair against the plain versions within
 other orders: their gap is printed, not held), each tree's dropout masks
 against the plain mask at T = 64 (identity V and dO), registers, local
 (spill) bytes, shared bytes and blocks an SM of each kernel, the trees timed
-in turns beside ``scaled_dot_product_attention`` in fp32, and K1/K11's
-forward, which the tiled kernels leave alone, compared instruction by
-instruction.
+in turns beside ``scaled_dot_product_attention`` in fp32, and every kernel
+both trees build compared instruction by instruction (K1/K11's forward,
+F32_SASS, also printed apart).
 
 Every line names the card and its power limit; the last line is the
 numbers as one JSON object. Runs only on the card: without one it exits
@@ -72,15 +77,7 @@ EXP_SOURCE = SOURCE.parent / "flash_attention_exp.cu"
 EXP_FNS = ("vb_attn_exp_fwd", "vb_attn_exp_bwd")
 EXP_ROUNDS = 2
 HM_OUT_TOL, HM_DQKV_TOL = 1.6e-2, 8e-3  # chip_smoke.py's limits for K11/K12
-# the other sources on hopper_attn.cuh: {source: {kernel: part of its mangled name}}
-# (in a tree whose kernels are templates, of the bf16, D = 64 instantiation
-# with the scale a constant; VARIANT_FORMS skips the others)
-OTHER_SOURCES = {
-    "flash_attention.cu": {"K11 forward": "hm_fwd_kernel", "K12 dQ pass": "hm_dq_kernel",
-                           "K12 dK/dV pass": "hm_dkv_kernel"},
-    "flash_attention_sp.cu": {"K13 forward": "attn_sp_fwd_kernel", "K14 dQ pass": "attn_sp_bwd_dq_kernel",
-                              "K14 dK/dV pass": "attn_sp_bwd_dkv_kernel"},
-}
+OTHER_SOURCES = ("flash_attention.cu", "flash_attention_sp.cu")  # K11/K12, K13/K14: also on hopper_attn.cuh
 
 
 def bind(path, fns):
@@ -92,16 +89,13 @@ def bind(path, fns):
 
 
 HM_FNS = ("vb_attn_hm_fwd", "vb_attn_hm_bwd", "vb_attn_hm_info")
-# template arguments of K11-K14's instantiations other than bf16 at D = 64
-# with a constant scale (``Lb0E``: FIXED false); an earlier tree's kernels
-# are not templates and match none
-VARIANT_FORMS = ("Lb0E",)
+PACKED_X_FNS = ("vb_attn_packed_x_bwd", "vb_attn_packed_x_info")  # K2's other forms (SMALL_FORMS)
 
 
 def build(trees):
     """Each tree {name: root} built alone, one nvcc a source, all at once:
     ({name: (packed CDLL, path)}, {name: K15/K16 CDLL}, {name: {other
-    source: (CDLL, path)}})."""
+    source: (CDLL, path)}}, {name: [every library's path]})."""
     from visualbert_torch.tools.attn_steps import PACKED_FNS, SP_FNS
 
     nvcc = _build.find_nvcc()
@@ -121,15 +115,11 @@ def build(trees):
     for cmd, rc, text in _build._run_all(cmds):
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
-    libs = {name: (bind(path, PACKED_FNS), path) for name, path in paths.items()}
+    libs = {name: (bind(path, PACKED_FNS + PACKED_X_FNS), path) for name, path in paths.items()}
     fns = {"flash_attention.cu": HM_FNS, "flash_attention_sp.cu": SP_FNS}
+    sass_paths = {name: [paths[name], exp_paths[name], *others[name].values()] for name in trees}
     others = {name: {src: (bind(path, fns[src]), path) for src, path in srcs.items()} for name, srcs in others.items()}
-    return libs, {name: bind(path, EXP_FNS) for name, path in exp_paths.items()}, others
-
-
-# the instantiations of K1/K2 and K4-K6 that earlier trees may not have
-# (fp16, head dim 128): compare_sass and tools/xent_steps.py skip them
-OTHER_FORMS = ("6__half", "Li128E")
+    return libs, {name: bind(path, EXP_FNS) for name, path in exp_paths.items()}, others, sass_paths
 
 
 def sass_of(text, kernels=KERNELS, skip=()):
@@ -158,31 +148,105 @@ def sass_of(text, kernels=KERNELS, skip=()):
     return out
 
 
-def compare_sass(libs, others, card):
-    """Per kernel (K1/K2's three, K11-K14's six): whether the two builds'
-    SASS is the same instruction for instruction, and each build's
-    instruction count; None without cuobjdump."""
+def sass_texts(paths):
+    """{tree: the ``cuobjdump -sass`` text of its libraries} ({tree: [paths]});
+    None without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
+        return None
+    return {name: "\n".join(subprocess.run([tool, "-sass", str(p)], capture_output=True, text=True, check=True).stdout
+                            for p in ps) for name, ps in paths.items()}
+
+
+def compare_sass(paths, card):
+    """Every kernel both trees build (``paths``: {tree: [its libraries]}),
+    instruction by instruction, and the kernels one tree alone builds
+    (``tools/xent_steps.py::compare_all_sass``); None without cuobjdump."""
+    from visualbert_torch.tools.xent_steps import compare_all_sass
+
+    texts = sass_texts(paths)
+    if texts is None:
         print(f"sass: no cuobjdump, not compared  [{card}]", flush=True)
         return None
+    return compare_all_sass(texts, card, taken=())
 
-    def dump(path, kernels):
-        return sass_of(subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
-                                      check=True).stdout, kernels, OTHER_FORMS)
 
-    sass = {name: dump(path, KERNELS) for name, (_, path) in libs.items()}
-    for src, kernels in OTHER_SOURCES.items():
-        for name in sass:
-            text = subprocess.run([tool, "-sass", str(others[name][src][1])], capture_output=True, text=True,
-                                  check=True).stdout
-            sass[name].update(sass_of(text, kernels, OTHER_FORMS + VARIANT_FORMS))
-    res = {}
-    for k in [*KERNELS, *(k for kernels in OTHER_SOURCES.values() for k in kernels)]:
-        a, b = sass["this"].get(k, []), sass["other"].get(k, [])
-        res[k] = dict(same=bool(a) and a == b, instructions=[len(a), len(b)])
-        print(f"sass of the {k}: {len(a)} instructions here, {len(b)} in the other tree, the same: "
-              f"{res[k]['same']}  [{card}]", flush=True)
+# the instantiations of K1/K2 and K4-K6 that earlier trees may not have
+# (fp16, head dim 128): tools/xent_steps.py skips them
+OTHER_FORMS = ("6__half", "Li128E")
+
+
+SMALL_FORMS = (("bfloat16", 16), ("float16", 16), ("bfloat16", 32), ("float16", 32))
+
+
+def small_head_inputs(dtype, D, H, rate, seed):
+    """K2's inputs at the main path's B and T in ``dtype`` at head dim D
+    (f32_inputs's key bias), with the plain forward's out and stats and the
+    plain backward: (qkv, qb, key_bias, dout, out, stats, (dqkv, dqb))."""
+    import torch
+
+    from visualbert_torch.ops import flash_attention as fa
+
+    qkv, qb, key_bias, dout = f32_inputs(D, H=H)["packed"]
+    dt = getattr(torch, dtype)
+    qkv, qb, dout = qkv.to(dt), qb.to(dt), dout.to(dt)
+    out, stats = fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, seed)
+    want = fa.packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, H, rate, seed)
+    return qkv, qb, key_bias, dout, out, stats, want
+
+
+def small_forms_ab(libs, n_sm, card, rate=0.1):
+    """K2 in SMALL_FORMS at the main path's B, T and 12 heads, dropout
+    ``rate``: this tree's form at the head dim (unpadded) and the other
+    tree's route (heads zero-padded to 64, its D = 64 form, the gradients
+    cut back, pads and cuts in its time), each against the plain version
+    within ``attn_steps``'s dqkv and bias-gradient limits, then timed in
+    turns (tools/attn_exp.py's best of 3 runs of 30 calls, F32_ROUNDS
+    rounds): {form: {tree: dict(errors, ms)}}."""
+    import math
+
+    import torch
+
+    from visualbert_torch.ops import flash_attention as fa
+    from visualbert_torch.tools import attn_steps
+    from visualbert_torch.tools.attn_exp import best_ms
+
+    H, seed, res = attn_steps.H, attn_steps.SEED, {}
+    for dtype, D in SMALL_FORMS:
+        qkv, qb, key_bias, dout, out, stats, want = small_head_inputs(dtype, D, H, rate, seed)
+        B, T, _ = qkv.shape
+        code = 0 if dtype == "bfloat16" else 1
+        calls, form = {}, f"{dtype} D={D}"
+        for name, (lib, _) in libs.items():
+            dp = D if name == "this" else 64
+            hg = [fa.head_group(B, H, n_sm, lib.vb_attn_packed_x_info(code, dp, k, 3, T)) for k in (1, 2)]
+
+            def call(lib=lib, dp=dp, hg=hg, name=name):
+                c, dq, db = fa.launch_packed_x_bwd(lib, fa.pad_heads(qkv, H, 3, dp), fa.pad_heads(qb, H, 3, dp),
+                                                   key_bias, fa.pad_heads(dout, H, 1, dp), fa.pad_heads(out, H, 1, dp),
+                                                   stats, H, rate, seed, *hg, 1.0 / math.sqrt(D))
+                if c != 0:
+                    raise RuntimeError(f"{name} K2 {form}: CUDA error {c}")
+                return fa.unpad_heads(dq, H, 3, D), fa.unpad_heads(db, H, 3, D)
+
+            dq, db = call()
+            torch.cuda.synchronize()
+            e = dict(dqkv=attn_steps._rel(dq, want[0]), dqb=attn_steps._rel(db, want[1]))
+            print(f"{name} K2 {form} (head dim {dp}, hg {hg}): dqkv {e['dqkv']:.3e} (tol {attn_steps.DQKV_TOL}), "
+                  f"dqb {e['dqb']:.3e} (tol {attn_steps.DB_TOL})  [{card}]", flush=True)
+            if not (e["dqkv"] <= attn_steps.DQKV_TOL and e["dqb"] <= attn_steps.DB_TOL):
+                raise SystemExit(f"attn_ab: {name}'s K2 {form} disagrees with the plain version")
+            calls[name] = call
+            res.setdefault(form, {})[name] = dict(errors=e, hg=hg, ms=[])
+        for r in range(F32_ROUNDS):
+            for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+                res[form][name]["ms"].append(best_ms(lambda i, c=calls[name]: c()))
+        a, b = res[form]["this"]["ms"], res[form]["other"]["ms"]
+        print(f"K2 {form}, dropout {rate}: {min(a):.4f}-{max(a):.4f} ms here (unpadded), {min(b):.4f}-{max(b):.4f} "
+              f"ms in the other tree (padded to 64, pads and cuts included): {min(b) / min(a):.2f}x  [{card}]",
+              flush=True)
+        del qkv, qb, key_bias, dout, out, stats, want
+        torch.cuda.empty_cache()
     return res
 
 
@@ -344,9 +408,8 @@ F32_DIMS = (16, 64, 128)  # head dims the fp32 kernels are compared at
 F32_REL_TOL, F32_ABS_TOL = 1e-4, 1e-4  # chip_smoke.py's fp32 limits (out, dqkv, bias gradient; stats)
 F32_ROUNDS = 2
 F32_PAIRS = ("K1/K2", "K11/K12", "K13/K14")
-# K1/K11's fp32 forward, one instantiation a 32-column group of the head dim:
-# its SASS must stay the other tree's
-F32_SASS = {f"K1/K11 fp32 forward at {32 * nc} columns": f"attn_f32_fwd_kernelILi{nc}E" for nc in (1, 2, 3, 4)}
+# K1/K11's fp32 forward, one instantiation a padded head dim, printed apart
+F32_SASS = {f"K1/K11 fp32 forward at DP {dp}": f"attn_f32_tiled_fwd_kernelILi{dp}E" for dp in (16, 64, 128)}
 
 
 def build_f32(trees):
@@ -641,20 +704,22 @@ def f32_times(builds, D, data, card, rate=0.1, seed=5):
 
 
 def compare_f32_sass(libs, card):
-    """K1/K11's fp32 forward (F32_SASS) in the two builds, instruction by
-    instruction; None without cuobjdump."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
+    """Every fp32 kernel both builds have, instruction by instruction
+    (``tools/xent_steps.py::compare_all_sass``), and K1/K11's forward
+    (F32_SASS) in each; None without cuobjdump."""
+    from visualbert_torch.tools.xent_steps import compare_all_sass
+
+    texts = sass_texts({name: [path] for name, (_, path) in libs.items()})
+    if texts is None:
         print(f"sass: no cuobjdump, not compared  [{card}]", flush=True)
         return None
-    sass = {name: sass_of(subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
-                                         check=True).stdout, F32_SASS) for name, (_, path) in libs.items()}
-    res = {}
+    res = dict(all=compare_all_sass(texts, card, taken=()), k1={})
+    sass = {name: sass_of(text, F32_SASS) for name, text in texts.items()}
     for k in F32_SASS:
         a, b = sass["this"].get(k, []), sass["other"].get(k, [])
-        res[k] = dict(same=bool(a) and a == b, instructions=[len(a), len(b)])
+        res["k1"][k] = dict(same=bool(a) and a == b, instructions=[len(a), len(b)])
         print(f"sass of the {k}: {len(a)} instructions here, {len(b)} in the other tree, the same: "
-              f"{res[k]['same']}  [{card}]", flush=True)
+              f"{res['k1'][k]['same']}  [{card}]", flush=True)
     return res
 
 
@@ -716,7 +781,7 @@ def main(argv=None):
     data = packed_attention_inputs(dev)
     B, T, _ = data[0].shape
     t0 = time.perf_counter()
-    libs, exp_libs, others = build(trees)
+    libs, exp_libs, others, sass_paths = build(trees)
     print(f"attn_ab: B={B} T={T} H={attn_steps.H}; the builds in {time.perf_counter() - t0:.1f} s  [{card}]",
           flush=True)
     builds = [attn_steps.PackedBuild(name, lib, B, T, n_sm) for name, (lib, _) in libs.items()]
@@ -729,12 +794,13 @@ def main(argv=None):
     times = attn_steps.time_builds(builds, data)
     attn_steps.print_times(builds, times, card, "K1/K2")
     variants = variant_ab(others, data, n_sm, card)
+    small = small_forms_ab(libs, n_sm, card)
     exp = exp_times(exp_libs, data, card)
-    sass = compare_sass(libs, others, card)
+    sass = compare_sass(sass_paths, card)
     f32 = f32_ab(trees, card)
     result = dict(card=card, shape=dict(B=B, T=T, H=attn_steps.H), other=str(rest[0]), errors=errors, times=times,
                   exp_times=exp, variants=variants, builds={b.name: dict(hg=b.hg, info=b.info) for b in builds},
-                  sass=sass, f32=f32)
+                  small_forms=small, sass=sass, f32=f32)
     print(json.dumps(result), flush=True)
     return result
 
