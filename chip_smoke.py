@@ -117,7 +117,10 @@ non-zero without printing the final line:
    within one bf16 ulp in every dtype, K14 fed K13's own output), each
    timed beside its plain version, scaled_dot_product_attention in its
    dtype and its bound, with each kernel's registers, local bytes, shared
-   bytes and blocks an SM (the register-tiled fp32 kernels, every forward
+   bytes and blocks an SM (bf16 and fp16 with each kernel's head dim, heads
+   a block and T limit; K12 and K14 at D = 16 and 32 run on their small-row
+   forms, which must not spill, and print beside SDPA and their padded
+   route's earlier reading; the register-tiled fp32 kernels, every forward
    and backward, must not spill; check_f32_masks:
    each fp32 pair's dropout masks at T = 64 must be the bf16 kernels'
    at the same seed); and K7-K10 (LN_FORMS) at the main path's 29,184
@@ -310,7 +313,7 @@ non-zero without printing the final line:
    one epoch of 4 steps whose checkpoint must load back;
 27. (run before 26's table) trains GEOMETRY_EXAMPLES / 128 = 3 steps of
    coco_pretrain through the CLI on synthetic data with
-   configs/coco_pretrain.json's blocks and flags in ten model
+   configs/coco_pretrain.json's blocks and flags in twelve model
    geometries: the JAX package's tiny() (fp32, head dim 16, width 64, with
    the fused LayerNorm: all four kernel flags), bert-base in fp16,
    BERT-Small (Turc et al. 2019: L = 4, H = 512, A = 8, I = 2048) in bf16,
@@ -326,7 +329,9 @@ non-zero without printing the final line:
    Megatron widths again in fp16 (Megatron-BERT's own mixed precision; K4-K6
    on the fp16 wide form, which the run must show), and TinyBERT-4 (Jiao et
    al. 2020: L = 4, H = 312, A = 12, I = 1200) in bf16 (heads of 26: K1
-   padded to 64, K2 on its "bf16 D32" form); each run
+   padded to 64, K2 on its "bf16 D32" form), again with `"packed_qkv":
+   false` (K11 padded, K12 on "bf16 D32") and with `"flash_save_probs":
+   true` (K13 padded, K14 on "bf16 D32"); each run
    must be on the card, its losses finite, its launches those of its depth
    and flags (the attention pair L a step, K4-K6 one, the dropout sites or
    K9/K10), every launch of K1/K2, K4-K14 in the kernel form of its dtype
@@ -344,7 +349,8 @@ non-zero without printing the final line:
    phase 27's bert-base fp32 run; the forms of K11/K12 (fp16), K13/K14 (fp32,
    launches from the bert-base fp32 save-probs run),
    K9/K10 (bf16, a block a row), K4-K6 (bf16 and fp16, the wide form at
-   2048) and K2 (bf16 D32) that phase 27 drives are thirteen rows more
+   2048) and K2, K12 and K14 (bf16 D32) that phase 27 drives are fifteen
+   rows more
    (FORM_KERNELS), timed at
    phase 3's shapes, their launches from their geometry's run), then {"ok":
    true, "device": {...}} as the last line.
@@ -469,16 +475,25 @@ SLICE_F32_REL_TOL = 1e-4  # the dropout-off loss check in fp32
 # and 12 heads; (dtype, width) of K4-K6 at its N and V
 ATTENTION_FORMS = (("float16", 64), ("float32", 64), ("bfloat16", 16), ("float16", 16), ("float32", 16),
                    ("bfloat16", 128), ("float16", 128), ("float32", 128), ("bfloat16", 32), ("float16", 32))
-# K2 at D = 16 on the route that zero-padded the heads to 64, and K1/K11's
-# fp32 forward of the first design (a block a pair, 32-key tiles), at
-# ATTENTION_FORMS' shapes, dropout 0.1: this script's last readings of them
-# on an NVIDIA H100 80GB HBM3 at 700 W, each printed beside its redesign
+# K2 at D = 16 and K12 and K14 at D = 16 and 32 on the route that
+# zero-padded the heads to 64, and K1/K11's fp32 forward of the first design
+# (a block a pair, 32-key tiles), at ATTENTION_FORMS' shapes, dropout 0.1:
+# this script's last readings of them on an NVIDIA H100 80GB HBM3 at 700 W,
+# each printed beside its redesign
 EARLIER_DESIGN_MS = {("packed_attention_bwd", "bfloat16", 16): 1.1397, ("packed_attention_bwd", "float16", 16): 1.1122,
                      ("packed_attention_fwd", "float32", 16): 1.5734, ("packed_attention_fwd", "float32", 64): 2.6246,
                      ("packed_attention_fwd", "float32", 128): 3.8901,
                      ("heads_major_attention_fwd", "float32", 16): 1.5450,
                      ("heads_major_attention_fwd", "float32", 64): 2.5727,
-                     ("heads_major_attention_fwd", "float32", 128): 3.8412}
+                     ("heads_major_attention_fwd", "float32", 128): 3.8412,
+                     ("heads_major_attention_bwd", "bfloat16", 16): 0.9748,
+                     ("heads_major_attention_bwd", "float16", 16): 0.9798,
+                     ("heads_major_attention_bwd", "bfloat16", 32): 1.0790,
+                     ("heads_major_attention_bwd", "float16", 32): 1.0786,
+                     ("packed_attention_sp_bwd", "bfloat16", 16): 0.9555,
+                     ("packed_attention_sp_bwd", "float16", 16): 0.9592,
+                     ("packed_attention_sp_bwd", "bfloat16", 32): 1.0496,
+                     ("packed_attention_sp_bwd", "float16", 32): 1.0530}
 XENT_FORMS = (("bfloat16", 128), ("bfloat16", 256), ("bfloat16", 512), ("float16", 768), ("float32", 768),
               ("bfloat16", 1024), ("bfloat16", 384), ("float16", 384), ("bfloat16", 2048), ("bfloat16", 2560),
               ("float16", 2048), ("float16", 2560), ("float32", 1088), ("float32", 2048))
@@ -519,10 +534,17 @@ GEOMETRIES = (
     # heads of 26 (312 / 12): K2 on its "bf16 D32" form, K1 padded to 64
     ("TinyBERT-4 (Jiao et al. 2020: L=4, H=312, A=12, I=1200) in bf16",
      dict(hidden_size=312, num_hidden_layers=4, num_attention_heads=12, intermediate_size=1200)),
+    # the same heads through the other attention pairs: K12 / K14 on "bf16 D32", K11 / K13 padded to 64
+    ("TinyBERT-4 in bf16, packed_qkv false",
+     dict(hidden_size=312, num_hidden_layers=4, num_attention_heads=12, intermediate_size=1200, packed_qkv=False)),
+    ("TinyBERT-4 in bf16, flash_save_probs",
+     dict(hidden_size=312, num_hidden_layers=4, num_attention_heads=12, intermediate_size=1200,
+          flash_save_probs=True)),
 )
 F32_GEOMETRY, F32_SP_GEOMETRY = 6, 7  # the bert-base fp32 runs: the fp32 rows' launches
 F16_WIDE_GEOMETRY = 8  # the Megatron-width fp16 run: the fp16 wide K4-K6 rows' launches
 TINYBERT_GEOMETRY = 9  # the TinyBERT-4 run: K2's "bf16 D32" row's launches
+TINYBERT_HM_GEOMETRY, TINYBERT_SP_GEOMETRY = 10, 11  # K12's and K14's "bf16 D32" rows' launches
 BERT_BASE_F32_STEP_MS = 525.42  # phase 27's bert-base fp32 median step on the first-design K1 forward (H100, 700 W)
 # the kernel table's rows of the fp32 kernels: (row name, wrapper module,
 # wrapper, source, the TPU kernel it replaces); launches from the bert-base
@@ -542,6 +564,10 @@ F32_KERNELS = (
 FORM_KERNELS = (
     ("packed_attention_bwd (bf16 D32)", "flash_attention", "packed_attention_bwd", "flash_attention_packed.cu",
      "visualbert_tpu/ops/flash_attention.py:307", TINYBERT_GEOMETRY, ("bfloat16", 32)),
+    ("heads_major_attention_bwd (bf16 D32)", "flash_attention", "heads_major_attention_bwd", "flash_attention.cu",
+     "visualbert_tpu/ops/flash_attention.py:93", TINYBERT_HM_GEOMETRY, ("bfloat16", 32)),
+    ("packed_attention_sp_bwd (bf16 D32)", "flash_attention", "packed_attention_sp_bwd", "flash_attention_sp.cu",
+     "visualbert_tpu/ops/flash_attention.py:441", TINYBERT_SP_GEOMETRY, ("bfloat16", 32)),
     ("heads_major_attention_fwd (fp16 D64)", "flash_attention", "heads_major_attention_fwd", "flash_attention.cu",
      "visualbert_tpu/ops/flash_attention.py:71", 3, ("float16", 64)),
     ("heads_major_attention_bwd (fp16 D64)", "flash_attention", "heads_major_attention_bwd", "flash_attention.cu",
@@ -1980,13 +2006,30 @@ def variant_inputs_at(torch, variant, dtype, D, H=12):
 
 def variant_info(lib, fa, variant, dtype, D, T):
     """[registers, local bytes, shared bytes, blocks an SM] of the forward,
-    dQ pass and dK/dV pass of a K11-K14 form."""
+    dQ pass and dK/dV pass of a K11-K14 form: the forward at
+    kernel_head_dim(D), the backward's passes at bwd_head_dim(D)."""
     if dtype == "float32":
         info = lib.vb_attn_f32_info if variant == "heads_major" else lib.vb_attn_f32_sp_info
         return [[info(k, w, D) for w in range(4)] for k in range(3)]
-    dp = fa.kernel_head_dim(D)
     info = lib.vb_attn_hm_x_info if variant == "heads_major" else lib.vb_attn_sp_x_info
-    return [[info(0 if dtype == "bfloat16" else 1, dp, k, w, T) for w in range(4)] for k in range(3)]
+    dps = (fa.kernel_head_dim(D), fa.bwd_head_dim(D), fa.bwd_head_dim(D))
+    return [[info(0 if dtype == "bfloat16" else 1, dp, k, w, T) for w in range(4)] for k, dp in enumerate(dps)]
+
+
+def variant_geometry(lib, fa, variant, x, D):
+    """{kernel: (instantiated head dim, hg, T limit)} of a bf16 or fp16
+    K11-K14 form on x: the forward at kernel_head_dim(D), the backward's
+    two passes at bwd_head_dim(D) (their own shared memory and occupancy)."""
+    B, T = (x.shape[0], x.shape[3]) if variant == "heads_major" else x.shape[:2]
+    H = x.shape[2] if variant == "heads_major" else x.shape[2] // (3 * D)
+    pre = "hm" if variant == "heads_major" else "sp"
+    groups = fa.hm_x_head_groups if variant == "heads_major" else fa.sp_x_head_groups
+    smem = getattr(lib, f"vb_attn_{pre}_x_smem_bytes")
+    out = {}
+    for k, dp in enumerate((fa.kernel_head_dim(D), fa.bwd_head_dim(D), fa.bwd_head_dim(D))):
+        hg = groups(lib, x.dtype, dp, B, H, T, x.device)[k]
+        out[fa.PACKED_KERNELS[k]] = (dp, hg, max(t for t in range(64, 8192, 64) if smem(dp, t) <= fa.MAX_SMEM_BYTES))
+    return out
 
 
 def check_variant_forms(torch, card):
@@ -1999,7 +2042,11 @@ def check_variant_forms(torch, card):
     version, scaled_dot_product_attention in the same dtype and its bound
     (the unpadded head dim's bytes, as the JAX functions move them, and
     products), printed with each kernel's registers, local bytes, shared
-    bytes and blocks an SM. Returns {(wrapper name, dtype, D): table row}."""
+    bytes and blocks an SM (bf16, fp16: also its instantiated head dim,
+    heads a block and T limit; K12's and K14's small forms at D <= 32 may
+    not spill), and K12 / K14 at D = 16 and 32 beside SDPA and their padded
+    route's reading (EARLIER_DESIGN_MS). Returns {(wrapper name, dtype, D):
+    table row}."""
     from visualbert_torch.ops import _build
     from visualbert_torch.ops import flash_attention as fa
 
@@ -2017,7 +2064,8 @@ def check_variant_forms(torch, card):
             else:
                 t_out, t_bwd = (F32_REL_TOL, F32_REL_TOL) if f32 else (SP_OUT_TOL, SP_DQKV_TOL)
             t_st = F32_ABS_TOL if f32 else STATS_TOL
-            where = f"{dtype} D={D} B={B} T={T} H={H} (form {fa.attention_form(x.dtype, D)})"
+            where = (f"{dtype} D={D} B={B} T={T} H={H} (forms {fa.attention_form(x.dtype, D)}, "
+                     f"{k_bwd} {fa.bwd_attention_form(x.dtype, D)})")
             r_f, r_b = dict(max_abs_err=0.0), dict(max_abs_err=0.0)
             for rate in (0.0, 0.1):
                 r_own = 0.0
@@ -2072,10 +2120,16 @@ def check_variant_forms(torch, card):
             peak = FP32_FLOPS if f32 else BF16_FLOPS
             r_f.update(bound(moved[fwd], 2 * gflop * 1e9, peak))
             r_b.update(bound(moved[bwd], 4 * gflop * 1e9, peak))
+            geometry = {} if f32 else variant_geometry(lib, fa, variant, x, D)
             for k, (kernel, i) in enumerate(zip(fa.PACKED_KERNELS, variant_info(lib, fa, variant, dtype, D, T))):
-                log(f"{k_fwd}/{k_bwd} {where} {kernel}: {i[0]} registers a thread, {i[1]} bytes of local memory, "
+                at = ""
+                if kernel in geometry:
+                    dp, hg, limit = geometry[kernel]
+                    at = f" at head dim {dp}: hg {hg}, T up to {limit},"
+                log(f"{k_fwd}/{k_bwd} {where} {kernel}{at} {i[0]} registers a thread, {i[1]} bytes of local memory, "
                     f"{i[2]} bytes of shared memory, {i[3]} blocks an SM")
-                if f32 and i[1] != 0:  # the register-tiled fp32 kernels
+                small = not f32 and k > 0 and fa.bwd_head_dim(D) < fa.KERNEL_HEAD_DIM
+                if (f32 or small) and i[1] != 0:  # the register-tiled fp32 kernels, K12's and K14's small forms
                     raise SystemExit(f"{k_fwd}/{k_bwd} {where}: the {kernel} spills {i[1]} bytes")
             for name, r in ((fwd, r_f), (bwd, r_b)):
                 log(row_line(f"{name} {where}", r, card))
@@ -2083,6 +2137,14 @@ def check_variant_forms(torch, card):
                 rows[(name, dtype, D)] = r
             del x, key_bias, dout, qkv, qb, dout_p, out, second
             torch.cuda.empty_cache()
+    for bwd, k_bwd in (("heads_major_attention_bwd", "K12"), ("packed_attention_sp_bwd", "K14")):
+        for dtype in ("bfloat16", "float16"):
+            text = []
+            for D in (16, 32):
+                r, was = rows[(bwd, dtype, D)], EARLIER_DESIGN_MS[(bwd, dtype, D)]
+                text.append(f"D={D} {r['ms']:.4f} ms (SDPA {r['library_ms']:.4f}, {r['ms'] / r['library_ms']:.2f}x; "
+                            f"padded to 64 {was:.4f}, {was / r['ms']:.2f}x)")
+            log(f"{k_bwd} {dtype} on its small-row forms: " + "; ".join(text) + f"  [{card}]")
     return rows
 
 
@@ -2228,7 +2290,7 @@ def geometry_forms(cfg, want):
     b_form = bwd_attention_form(cfg.dtype, cfg.head_dim)
     x_form = xent_form(cfg.dtype, cfg.hidden_size) if cfg.fused_mlm_xent else None
     form_of = {0: a_form, 1: b_form, 3: x_form, 4: x_form, 5: x_form, 6: l_form, 7: l_form, 8: l_form, 9: l_form,
-               10: a_form, 11: a_form, 12: a_form, 13: a_form}
+               10: a_form, 11: b_form, 12: a_form, 13: b_form}
     return {KERNELS[i][0]: ({f: want[i]} if want[i] else {}) for i, f in form_of.items()}
 
 

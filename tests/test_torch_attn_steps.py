@@ -229,3 +229,66 @@ def test_the_ab_tool_holds_the_fp32_kernels_to_chip_smokes_limits(errors, ok):
     from visualbert_torch.tools import attn_ab
 
     assert attn_ab.f32_within(errors) is ok
+
+
+def test_the_ab_tool_binds_each_backwards_small_form_entry_points(monkeypatch, tmp_path):
+    """Each tree's packed, heads-major and save-probs sources are built
+    alone, and the entry points that launch K2's, K12's and K14's other
+    forms (their small-row forms here, the padded route in another tree)
+    are bound with the library's signatures."""
+    from visualbert_torch.tools import attn_ab
+
+    cmds, bound = [], {}
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(_build, "_run_all", lambda c: (cmds.extend(c), [(x, 0, "") for x in c])[1])
+    monkeypatch.setattr(attn_ab, "bind", lambda path, fns: bound.setdefault(str(path), fns))
+    attn_ab.build({"this": _build.CSRC.parent.parent, "other": tmp_path / "parent"})
+    assert len(cmds) == 2 * (2 + len(attn_ab.OTHER_SOURCES))
+    for fns in (attn_ab.PACKED_X_FNS, attn_ab.HM_X_FNS, attn_ab.SP_X_FNS):
+        assert sum(set(fns) <= set(b) for b in bound.values()) == 2
+        assert set(fns) <= set(_build._SIGNATURES)
+
+
+def small_cpu_inputs(D, H=12):
+    """A stand-in for attn_ab.f32_inputs on the CPU at B = 2, T = 37 (a
+    row's last keys masked), in its "packed" form."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    B, T, F = 2, 37, 3 * H * D
+    qkv = torch.tensor(rng.randn(B, T, F), dtype=torch.float32)
+    qb = torch.tensor(rng.randn(F) * 0.1, dtype=torch.float32)
+    key_bias = torch.zeros(B, T)
+    key_bias[0, -5:] = -10000.0
+    return {"packed": (qkv, qb, key_bias, torch.tensor(rng.randn(B, T, H * D), dtype=torch.float32))}
+
+
+@pytest.mark.parametrize("dp", ["unpadded", 64])
+@pytest.mark.parametrize("dtype,D", [("bfloat16", 16), ("float16", 32)])
+@pytest.mark.parametrize("pair", ["K2", "K12", "K14"])
+def test_the_ab_tool_runs_each_backward_unpadded_and_padded_as_its_wrapper(monkeypatch, pair, dtype, D, dp):
+    """small_forms_ab's calls without a card: each backward's inputs on the
+    plain forward's outputs (K12 heads-major, K14 on K13's probabilities in
+    their row layout), zero-padded to the head dim a tree runs (D here, 64
+    in the other tree) at the unpadded D's scale and the gradients cut back,
+    give the plain backward's outputs; the launches are stand-ins that run
+    the plain versions on what they are given."""
+    from visualbert_torch.tools import attn_ab
+
+    monkeypatch.setattr(attn_ab, "f32_inputs", lambda D, H=12: small_cpu_inputs(D, H))
+    monkeypatch.setattr(fa, "launch_packed_x_bwd", lambda lib, qkv, qb, kb, dout, out, stats, H, rate, seed, a, b,
+                        scale: (0,) + fa.packed_attention_bwd_reference(qkv, qb, kb, dout, out, stats, H, rate, seed,
+                                                                         scale=scale))
+    monkeypatch.setattr(fa, "launch_hm_x_bwd", lambda lib, qkv, kb, dout, out, stats, rate, seed, a, b, scale: (
+        0, fa.heads_major_attention_bwd_reference(qkv, kb, dout, out, stats, rate, seed, scale=scale)))
+    monkeypatch.setattr(fa, "launch_sp_x_bwd", lambda lib, qkv, probs, ldp, dout, out, H, rate, seed, a, b, scale: (
+        0, fa.packed_attention_sp_bwd_reference(qkv, probs, dout, out, H, rate, seed, scale=scale)))
+    H, head_dim = 3, D if dp == "unpadded" else dp
+    d, want = attn_ab.small_pair_inputs(pair, dtype, D, H, 0.1, 5)
+    assert ("probs" in d) == (pair == "K14") and ("stats" in d) == (pair != "K14")
+    code, got = attn_ab.small_pair_call(pair, None, d, H, 0.1, 5, D, head_dim, (1, 1))
+    errors, ok = attn_ab.small_pair_errors(pair, got, want)
+    assert code == 0 and ok and set(errors) == ({"dqkv", "dqb"} if pair == "K2" else {"dqkv"})
+    assert got[0].shape == want[0].shape and got[0].dtype == getattr(torch, dtype)
+    assert errors["dqkv"] <= 1e-6

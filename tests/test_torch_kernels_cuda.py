@@ -92,6 +92,14 @@ within 1e-4 of the plain versions (stats 1e-4 absolute), K13's
 probabilities within one bf16 ulp; they repeat bit for bit, do not spill
 (two blocks an SM at D <= 64) and tile the backward by 64 rows; their
 masks are held, with the other forms', by the forms' mask tests above.
+
+K12 and K14 at head dims up to 32 in bf16 and fp16 (their small-row forms,
+as K2's: 16 and 32 in place, 8 and 26 padded) at T in {1, 65, 228} and
+each form's largest (above 704, on the plain forward's outputs), dropout 0
+and 0.1, within bf16's limit of their plain versions, K14 also on K13's
+own probabilities; each launch counted in its form; they repeat bit for
+bit, drop the plain mask's positions, refuse one T past their limit, do
+not spill, and build no forward at those head dims.
 """
 
 import numpy as np
@@ -1778,15 +1786,19 @@ def test_variant_attention_forms_match_plain(cuda, variant, dtype, D, B, T, H, r
     within one bf16 ulp of its plain value in every dtype; K14 fed K13's own
     probabilities and output within bf16's limit in every dtype (a
     probability one bf16 ulp from the plain one moves dqkv by more than
-    fp32's bar); each launch counted in its form."""
+    fp32's bar); each launch counted in its form: the forward's by
+    attention_form, the backward's by bwd_attention_form (K12 and K14 run
+    heads up to 32 on their small-row forms)."""
     qkv, key_bias, dout = variant_inputs(variant, B, T, H, D, dtype, cuda)
     fwd_fn = fa.heads_major_attention_fwd if variant == "heads_major" else fa.packed_attention_sp_fwd
-    form = fa.attention_form(dtype, D)
-    before = fwd_fn.forms.get(form, 0)
+    bwd_fn = fa.heads_major_attention_bwd if variant == "heads_major" else fa.packed_attention_sp_bwd
+    form, bwd_form = fa.attention_form(dtype, D), fa.bwd_attention_form(dtype, D)
+    before, before_bwd = fwd_fn.forms.get(form, 0), bwd_fn.forms.get(bwd_form, 0)
     (out, second), dqkv = variant_run(variant, qkv, key_bias, dout, H, rate, 99)
     (out_r, second_r), dqkv_r = variant_run(variant, qkv, key_bias, dout, H, rate, 99, plain=True)
     torch.cuda.synchronize()
     assert fwd_fn.forms[form] == before + 1
+    assert bwd_fn.forms[bwd_form] == before_bwd + 1
     assert out.dtype == dtype and out.shape == out_r.shape and dqkv.dtype == dtype and dqkv.shape == qkv.shape
     rel, st = (F32_REL_TOL, F32_ABS_TOL) if dtype == torch.float32 else (REL_TOL, STATS_ATOL)
     assert rel_err(out, out_r) < rel
@@ -1814,7 +1826,7 @@ def test_variant_attention_forms_repeat_bit_for_bit(cuda, variant, dtype, D):
 @pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.float16, 128), (torch.float32, 64),
                                      (torch.float32, 32), (torch.bfloat16, 128), (torch.bfloat16, 16),
                                      (torch.float32, 16), (torch.float32, 30), (torch.float32, 99),
-                                     (torch.float32, 100)], ids=str)
+                                     (torch.float32, 100), (torch.float16, 32), (torch.bfloat16, 8)], ids=str)
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_variant_attention_forms_drop_the_plain_mask(cuda, variant, dtype, D):
     """At T = 64 keys, V and dO the identity on their first 64 columns (D >=
@@ -2174,6 +2186,128 @@ def test_small_head_backward_does_not_spill(cuda, dtype, dp):
         assert 0 < regs <= 255 and local == 0 and per_sm >= 1, (which, regs, local, per_sm)
         assert smem < lib.vb_attn_packed_x_smem_bytes(64, 228)
     assert lib.vb_attn_packed_x_info(code, dp, 0, 0, 228) == -1
+
+
+# ---- K12 and K14 at head dims 16 and 32 (bf16, fp16) on the small-row tiles ----
+
+# variant: (its backward wrapper, the shared-memory query, the info query)
+SMALL_VARIANT_BWD = {"heads_major": ("heads_major_attention_bwd", "vb_attn_hm_x_smem_bytes", "vb_attn_hm_x_info"),
+                     "save_probs": ("packed_attention_sp_bwd", "vb_attn_sp_x_smem_bytes", "vb_attn_sp_x_info")}
+
+
+def small_variant_limit(lib, variant, dp):
+    """The largest T whose K12 (heads_major) or K14 (save_probs) passes fit
+    a block's shared memory at dp."""
+    smem = getattr(lib, SMALL_VARIANT_BWD[variant][1])
+    return max(t for t in range(64, 8192, 64) if smem(dp, t) <= fa.MAX_SMEM_BYTES)
+
+
+def small_variant_bwd(variant, qkv, key_bias, dout, H, rate, seed, plain=False):
+    """The backward (kernel or plain) on the plain forward's outputs, the
+    plain forward's (out, stats or probs), and, at T <= 704, the kernel
+    chain's dqkv: K14 fed K13's own probabilities and output (None for
+    heads_major or past K13's limit)."""
+    if variant == "heads_major":
+        out_r, second_r = fa.heads_major_attention_fwd_reference(qkv, key_bias, rate, seed)
+        bwd = fa.heads_major_attention_bwd_reference if plain else fa.heads_major_attention_bwd
+        return bwd(qkv, key_bias, dout, out_r, second_r, rate, seed), (out_r, second_r), None
+    out_r, second_r = fa.packed_attention_sp_fwd_reference(qkv, key_bias, H, rate, seed)
+    bwd = fa.packed_attention_sp_bwd_reference if plain else fa.packed_attention_sp_bwd
+    dqkv = bwd(qkv, second_r, dout, out_r, H, rate, seed)
+    own = None
+    if not plain and qkv.shape[1] <= 704:
+        out, probs = fa.packed_attention_sp_fwd(qkv, key_bias, H, rate, seed)
+        own = fa.packed_attention_sp_bwd(qkv, probs, dout, out, H, rate, seed)
+    return dqkv, (out_r, second_r), own
+
+
+@pytest.mark.parametrize("T", [1, 65, 228, "limit"])
+@pytest.mark.parametrize("D", [8, 16, 26, 32])
+@pytest.mark.parametrize("dtype", SMALL_DTYPES, ids=str)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_small_variant_backward_matches_plain(cuda, variant, dtype, D, T, rate):
+    """K12 and K14 at head dims up to 32 run on their "D16" / "D32" forms
+    (heads of 16 and 32 in place, 8 and 26 zero-padded to them) against
+    their plain versions within bf16's limit, at T = 1, 65, 228 and the
+    form's largest T (above the forwards' 704: the backward on the plain
+    forward's outputs there); K14 also fed K13's own probabilities and
+    output (its D = 64 route) up to 704; each launch counted in its form."""
+    lib = _build.library()
+    dp = fa.bwd_head_dim(D)
+    if T == "limit":
+        T = small_variant_limit(lib, variant, dp)
+        assert T > 704
+    B, H = (2, 3) if T <= 228 else (1, 2)
+    qkv, key_bias, dout = variant_inputs(variant, B, T, H, D, dtype, cuda)
+    bwd_fn = getattr(fa, SMALL_VARIANT_BWD[variant][0])
+    form = fa.bwd_attention_form(dtype, D)
+    before = bwd_fn.forms.get(form, 0)
+    dqkv, _, own = small_variant_bwd(variant, qkv, key_bias, dout, H, rate, 99)
+    dqkv_r, _, _ = small_variant_bwd(variant, qkv, key_bias, dout, H, rate, 99, plain=True)
+    torch.cuda.synchronize()
+    assert form == f"{'bf16' if dtype == torch.bfloat16 else 'fp16'} D{dp}" and dp == (16 if D <= 16 else 32)
+    assert bwd_fn.forms[form] == before + (1 if own is None else 2)
+    assert dqkv.dtype == dtype and dqkv.shape == qkv.shape
+    assert rel_err(dqkv, dqkv_r) < REL_TOL
+    if variant == "save_probs":
+        assert (own is None) == (T > 704)
+        if own is not None:
+            assert rel_err(own, dqkv_r) < REL_TOL
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 16), (torch.float16, 32), (torch.bfloat16, 26),
+                                     (torch.float16, 8)], ids=str)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_small_variant_backward_repeats_bit_for_bit(cuda, variant, dtype, D):
+    qkv, key_bias, dout = variant_inputs(variant, 4, 228, 6, D, dtype, cuda)
+    runs = [small_variant_bwd(variant, qkv, key_bias, dout, 6, 0.1, 7) for _ in range(2)]
+    torch.cuda.synchronize()
+    (d1, _, o1), (d2, _, o2) = runs
+    assert torch.equal(d1, d2)
+    assert (o1 is None and o2 is None) or torch.equal(o1, o2)
+
+
+@pytest.mark.parametrize("dtype", SMALL_DTYPES, ids=str)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_small_variant_backward_refuses_past_its_limit(cuda, variant, dtype):
+    """One T past each small form's limit is refused with the limit named
+    (the forward, on its D = 64 form, refuses past 704 before that)."""
+    lib = _build.library()
+    bwd_fn = getattr(fa, SMALL_VARIANT_BWD[variant][0])
+    for dp in (16, 32):
+        limit = small_variant_limit(lib, variant, dp)
+        T = limit + 1
+        qkv, key_bias, dout = variant_inputs(variant, 1, T, 1, dp, dtype, cuda)
+        with pytest.raises(ValueError, match=f"T up to {limit}"):
+            if variant == "heads_major":
+                bwd_fn(qkv, key_bias, dout, dout, torch.zeros((1, 1, T), device=cuda), 0.0, 0)
+            else:
+                bwd_fn(qkv, torch.zeros((1, 1, T, T), dtype=torch.bfloat16, device=cuda), dout, dout, 1, 0.0, 0)
+
+
+@pytest.mark.parametrize("dp", [16, 32])
+@pytest.mark.parametrize("dtype", SMALL_DTYPES, ids=str)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_small_variant_backward_does_not_spill(cuda, variant, dtype, dp):
+    """K12's and K14's dQ and dK/dV passes at dh 16 and 32 keep every value
+    in registers and fit blocks an SM at the main path's T; there is no
+    forward at these head dims: its info is -1 and its entry point refuses
+    them."""
+    lib = _build.library()
+    info, smem = getattr(lib, SMALL_VARIANT_BWD[variant][2]), getattr(lib, SMALL_VARIANT_BWD[variant][1])
+    code = 0 if dtype == torch.bfloat16 else 1
+    for which in (1, 2):
+        regs, local, shared, per_sm = (info(code, dp, which, w, 228) for w in range(4))
+        assert 0 < regs <= 255 and local == 0 and per_sm >= 1, (which, regs, local, per_sm)
+        assert shared < smem(64, 228)
+    assert info(code, dp, 0, 0, 228) == -1
+    qkv, key_bias, _ = variant_inputs(variant, 1, 37, 2, dp, dtype, cuda)
+    if variant == "heads_major":
+        code, *_ = fa.launch_hm_x_fwd(lib, qkv, key_bias, 0.0, 0, 1, 1.0)
+    else:
+        code, *_ = fa.launch_sp_x_fwd(lib, qkv, key_bias, 2, 0.0, 0, 1, 1.0)
+    assert code != 0
 
 
 @pytest.mark.parametrize("T", [37, 228])

@@ -1,7 +1,11 @@
 """The CUDA kernels' limits, refused where a model meets its device
-(``visualbert_torch/ops/limits.py::check_kernel_limits``), and the head
-group K1/K2 take a block (``ops/flash_attention.py::head_group``). Neither
-needs a card: ``torch.device("cuda")`` is only a name here."""
+(``visualbert_torch/ops/limits.py::check_kernel_limits``) or where a
+wrapper meets a sequence length (the heads-major and save-probs attention's
+T, checked against the shared memory of each wrapper's own form), and the
+head group K1/K2 take a block (``ops/flash_attention.py::head_group``).
+None needs a card: ``torch.device("cuda")`` is only a name here, and the
+T checks run against a stand-in for the kernel library's shared-memory
+queries."""
 
 import math
 
@@ -9,6 +13,7 @@ import pytest
 import torch
 
 from visualbert_torch.config import OptimizerConfig, TrainConfig, VisualBertConfig
+from visualbert_torch.ops import flash_attention as fa
 from visualbert_torch.ops.flash_attention import head_group
 from visualbert_torch.ops.limits import check_kernel_limits
 from visualbert_torch.tasks import registry
@@ -134,6 +139,58 @@ def test_the_task_runner_and_the_main_path_refuse_at_build():
     cfg = parse_task_config({"task": "coco_pretrain", "model": block})
     with pytest.raises(ValueError, match="use_flash_attention"):
         registry._trainer(cfg, None, "cuda")
+
+
+class SmemQueries:
+    """A stand-in for the kernel library's shared-memory queries of K11-K14's
+    other forms: 4 * dp bytes a row of T at head dim dp (the kernels' grow
+    likewise with both), each head dim asked recorded."""
+
+    def __init__(self):
+        self.asked = []
+
+    def _bytes(self, dp, t):
+        self.asked.append(dp)
+        return 4 * dp * t
+
+    vb_attn_hm_x_smem_bytes = vb_attn_sp_x_smem_bytes = _bytes
+
+
+def longest_t(dp):
+    return fa.MAX_SMEM_BYTES // (4 * dp)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("D,dp", [(8, 16), (16, 16), (26, 32), (32, 32)])
+@pytest.mark.parametrize("variant", ["heads_major", "save_probs"])
+def test_the_variant_backwards_refuse_t_at_their_own_head_dim(monkeypatch, variant, D, dp, dtype):
+    """Below 33 the backwards K12 and K14 check T against their small-row
+    form's shared memory (head dim 16 or 32) and name that form's limit; the
+    forwards K11 and K13 check it against the D = 64 form's, a shorter limit
+    that bounds the path as a whole. The wrappers are made to take CPU
+    tensors for CUDA ones; each refuses before it would launch."""
+    lib = SmemQueries()
+    monkeypatch.setattr(fa._build, "library", lambda: lib)
+    monkeypatch.setattr(fa, "_on_cuda", lambda what, x: True)
+    H, T = 2, longest_t(dp) + 1
+    key_bias = torch.zeros((1, T))
+    if variant == "heads_major":
+        qkv, dout = torch.zeros((1, 3, H, T, D), dtype=dtype), torch.zeros((1, H, T, D), dtype=dtype)
+        fwd = lambda: fa.heads_major_attention_fwd(qkv, key_bias, 0.0, 0)  # noqa: E731
+        stats = torch.zeros((1, H, T))
+        bwd = lambda: fa.heads_major_attention_bwd(qkv, key_bias, dout, dout, stats, 0.0, 0)  # noqa: E731
+    else:
+        qkv, dout = torch.zeros((1, T, 3 * H * D), dtype=dtype), torch.zeros((1, T, H * D), dtype=dtype)
+        probs = torch.zeros((1, H, 1, 1), dtype=torch.bfloat16)
+        fwd = lambda: fa.packed_attention_sp_fwd(qkv, key_bias, H, 0.0, 0)  # noqa: E731
+        bwd = lambda: fa.packed_attention_sp_bwd(qkv, probs, dout, dout, H, 0.0, 0)  # noqa: E731
+    with pytest.raises(ValueError, match=f"takes T up to {longest_t(dp)}$"):
+        bwd()
+    assert set(lib.asked) == {dp}
+    lib.asked.clear()
+    with pytest.raises(ValueError, match=f"takes T up to {longest_t(64)}$"):
+        fwd()
+    assert set(lib.asked) == {64} and longest_t(64) < longest_t(dp)
 
 
 def waves(B, H, hg, slots):

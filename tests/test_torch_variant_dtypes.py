@@ -9,7 +9,9 @@ inputs, its Pallas kernel in interpret mode, dropout off:
 
 * the heads-major attention (``flash_attention_heads_major``) forward and
   backward against ``flash_attention(..., heads_major=True)`` and
-  ``jax.vjp``, in fp32 at head dims 8, 16, 32 and 128 and in fp16 at 64;
+  ``jax.vjp``, in fp32 at head dims 8, 16, 32 and 128 and in fp16 at 64,
+  26 and 32 (the head dims at which the backwards K12 and K14 run on small
+  rows: 26 padded to 32, 32 in place);
 * the save-probs attention (``flash_attention_packed(...,
   save_probs=True)``) at the same dtypes and head dims: out against the JAX
   op, each saved bf16 probability within one bf16 ulp of the JAX kernel's,
@@ -25,8 +27,10 @@ two frameworks round an intermediate at another place); the LayerNorm's
 bf16 outputs within one bf16 ulp at |v| < 4 (atol 1/64) and its fp32
 gradients at ``tests/test_torch_layer_norm.py``'s 2e-4 / 1e-3. The
 zero-padding the bf16 and fp16 kernels take (``pad_heads_major``,
-``pad_heads``, D = 8, 16, 32, 96 to 64 or 128) is held to the unpadded
-plain version at dropout 0 and 0.1, ``pack_bits`` / ``unpack_bits`` round
+``pad_heads``, D = 8, 16, 32, 96 to 64 or 128; the backwards' 8 to 16 and
+26 to 32) is held to the unpadded plain version at dropout 0 and 0.1, the
+forwards K11/K13 count their forms by ``attention_form`` and the backwards
+K12/K14 by ``bwd_attention_form``, ``pack_bits`` / ``unpack_bits`` round
 trip at widths no multiple of 8, and ``tiny()`` with ``packed_qkv: false``
 or ``flash_save_probs: true`` and the other kernel flags on matches the JAX
 model on the same exported weights. The kernels themselves are tested on
@@ -58,7 +62,8 @@ F16_RTOL, F16_ATOL_OF_MAX = 4e-3, 4e-3
 LN_GRAD_ATOL, LN_GRAD_RTOL = 2e-4, 1e-3
 BF16_ATOL = 1.0 / 64
 SP_GRAD_TOL = 1e-2  # tests/test_torch_attention_variants.py's: bf16 probabilities on both sides
-FORMS = [("float32", 8), ("float32", 16), ("float32", 32), ("float32", 128), ("float16", 64)]
+FORMS = [("float32", 8), ("float32", 16), ("float32", 32), ("float32", 128), ("float16", 64), ("float16", 26),
+         ("float16", 32)]
 
 
 def assert_close(got, want, dtype, err_msg=""):
@@ -152,7 +157,7 @@ def test_save_probs_attention_matches_jax_at_every_dtype_and_head_dim(dtype, D):
         assert np.abs(got - want).max() <= SP_GRAD_TOL * np.abs(want).max()
 
 
-@pytest.mark.parametrize("D,dp", [(8, 64), (16, 64), (32, 64), (96, 128)])
+@pytest.mark.parametrize("D,dp", [(8, 64), (16, 64), (32, 64), (96, 128), (8, 16), (26, 32)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_padded_heads_major_heads_give_the_unpadded_attention(D, dp, rate):
     """K11/K12's plain versions on [B, 3, H, T, D] zero-padded to the
@@ -178,7 +183,7 @@ def test_padded_heads_major_heads_give_the_unpadded_attention(D, dp, rate):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("D,dp", [(8, 64), (16, 64), (32, 64), (96, 128)])
+@pytest.mark.parametrize("D,dp", [(8, 64), (16, 64), (32, 64), (96, 128), (8, 16), (26, 32)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_padded_save_probs_heads_give_the_unpadded_attention(D, dp, rate):
     """K13/K14's plain versions on the packed qkv zero-padded per head
@@ -210,6 +215,22 @@ def test_each_variant_form_is_named_and_padded_to_its_kernel(dtype, D, form):
     x = torch.zeros((1, 3, 2, 5, D))
     assert fa.pad_heads_major(x, fa.kernel_head_dim(D)).shape[-1] == fa.kernel_head_dim(D)
     assert fa.pad_heads_major(x, D) is x and fa.unpad_heads_major(x, D) is x
+
+
+@pytest.mark.parametrize("dtype,name", [("bfloat16", "bf16"), ("float16", "fp16")])
+@pytest.mark.parametrize("D,dp", [(8, 16), (16, 16), (26, 32), (32, 32)])
+def test_the_variant_backwards_have_their_own_forms_below_64(dtype, name, D, dp):
+    """Below 64 the backwards K12 and K14 run on their small-row forms
+    (heads of 16 and 32 in place, 8 and 26 padded to 16 and 32), counted by
+    bwd_attention_form, while the forwards K11 and K13 keep the D = 64 form
+    (attention_form); fp32 is one form for both."""
+    td = getattr(torch, dtype)
+    assert fa.bwd_head_dim(D) == dp and fa.bwd_attention_form(td, D) == f"{name} D{dp}"
+    assert fa.kernel_head_dim(D) == 64 and fa.attention_form(td, D) == f"{name} D64"
+    assert fa.bwd_attention_form(torch.float32, D) == fa.attention_form(torch.float32, D) == "fp32"
+    x = torch.zeros((1, 3, 2, 5, D))
+    assert fa.pad_heads_major(x, dp).shape == (1, 3, 2, 5, dp)
+    assert fa.pad_heads(torch.zeros((1, 5, 3 * 2 * D)), 2, 3, dp).shape == (1, 5, 3 * 2 * dp)
 
 
 # ---- K7-K10 ----

@@ -625,20 +625,7 @@ int launch_bwd(const void* qkv, const void* qb, const void* key_bias, const void
   return (int)cudaGetLastError();
 }
 
-// The instantiation of element type `dtype` (0 bf16, 1 fp16) and head dim
-// DH (64, 128; 16, 32 the backward only): 0 bf16/64, 1 bf16/128, 2 fp16/64,
-// 3 fp16/128, 4 bf16/16, 5 bf16/32, 6 fp16/16, 7 fp16/32; -1 for any other.
-int form(int dtype, int dh) {
-  if (dtype != 0 && dtype != 1) return -1;
-  switch (dh) {
-    case 64: return 2 * dtype;
-    case 128: return 2 * dtype + 1;
-    case 16: return 4 + 2 * dtype;
-    case 32: return 5 + 2 * dtype;
-    default: return -1;
-  }
-}
-
+// Kernel `which` of form f (hopper_attn.cuh's attn_form numbers the forms).
 const void* kernel_of_form(int f, int which) {
   switch (f) {
     case 0: return kernel_of<bf16, 64>(which);
@@ -759,7 +746,7 @@ extern "C" size_t vb_attn_packed_x_smem_bytes(int dh, int T) {
 }
 
 extern "C" int vb_attn_packed_x_info(int dtype, int dh, int which, int what, int T) {
-  const int f = form(dtype, dh);
+  const int f = attn_form(dtype, dh);
   if (f < 0) return -1;
   return kernel_info(kernel_of_form(f, which), bytes_at(dh, which, T), what);
 }
@@ -773,7 +760,7 @@ extern "C" int vb_attn_packed_x_probe(const void* a, const void* b, const void* 
   small_product_kernel<E, D><<<1, NT, 0, s>>>(static_cast<const E*>(a), static_cast<const E*>(b), \
                                               static_cast<const E*>(q), static_cast<float*>(d1),  \
                                               static_cast<float*>(d2))
-  switch (form(dtype, dh)) {
+  switch (attn_form(dtype, dh)) {
     case 4: VB_PROBE(bf16, 16); break;
     case 5: VB_PROBE(bf16, 32); break;
     case 6: VB_PROBE(__half, 16); break;
@@ -789,7 +776,7 @@ extern "C" int vb_attn_packed_x_fwd(const void* qkv, const void* qb, const void*
                                     int dropout, int dtype, int dh, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VB_FWD(E, D) launch_fwd<E, D>(qkv, qb, key_bias, out, stats, B, T, H, hg, seed, threshold, inv, dropout, scale, s)
-  switch (form(dtype, dh)) {
+  switch (attn_form(dtype, dh)) {
     case 0: return VB_FWD(bf16, 64);
     case 1: return VB_FWD(bf16, 128);
     case 2: return VB_FWD(__half, 64);
@@ -807,7 +794,7 @@ extern "C" int vb_attn_packed_x_bwd(const void* qkv, const void* qb, const void*
 #define VB_BWD(E, D)                                                                                                \
   launch_bwd<E, D>(qkv, qb, key_bias, dout, out, stats, dqkv, db_part, delta, B, T, H, hg_dq, hg_dkv, seed, threshold, \
                    inv, dropout, scale, s)
-  switch (form(dtype, dh)) {
+  switch (attn_form(dtype, dh)) {
     case 0: return VB_BWD(bf16, 64);
     case 1: return VB_BWD(bf16, 128);
     case 2: return VB_BWD(__half, 64);

@@ -64,6 +64,15 @@
 //    compiles as before the templates; the other forms (vb_attn_sp_x_*)
 //    take the scale as an argument. fp32 runs
 //    flash_attention_f32.cu's save-probs SIMT kernels.
+// 7. K14 at head dims 16 and 32 (bf16, fp16), unpadded, as K2's step 6
+//    (flash_attention_packed.cu): the same two pass bodies on
+//    hopper_attn.cuh's small-row tiles (rows of 32 or 64 bytes in the 32 B
+//    or 64 B swizzle; a packed row's stride F = 3 H D and dO's H D keep
+//    every 16-byte chunk aligned), dP in D / 16 k-steps, dQ, dK and dV
+//    m64n16k16 or m64n32k16 with D / 2 accumulators a thread. The p tile
+//    stays 64 keys wide and bf16 (steps 3 and 4 unchanged). The wrapper pads
+//    a head dim below 16 to 16 and one in (16, 32) to 32; K13 keeps its D =
+//    64 route there, so no forward is built at these head dims.
 #include "hopper_attn.cuh"
 
 namespace {
@@ -360,7 +369,7 @@ attn_sp_bwd_dq_kernel(const E* __restrict__ qkv, const bf16* __restrict__ probs,
     // while the tiles land: the pair's delta (read after the first barrier)
     pair_delta_v<E, DH>(dsrc, out + (size_t)b * T * ldo + h * DH, ldo, dl, delta_g + (size_t)bh * T, T, Tp);
 
-    float dq[NP][32];
+    float dq[NP][L::NA];
     for (int n = 0; n < nsteps; ++n) {
       const int qt = n / ntl, kt = n - qt * ntl;
       __syncthreads();  // every warp is done with the buffers the copies below overwrite
@@ -466,7 +475,7 @@ attn_sp_bwd_dkv_kernel(const E* __restrict__ qkv, const bf16* __restrict__ probs
     cp_commit();
     for (int i = threadIdx.x; i < Tp; i += NT) dl[i] = i < T ? delta_g[(size_t)bh * T + i] : 0.f;
 
-    float dk[NP][32], dv[NP][32];
+    float dk[NP][L::NA], dv[NP][L::NA];
     for (int n = 0; n < nsteps; ++n) {
       const int kt = n / ntl, qc = n - kt * ntl;
       __syncthreads();
@@ -543,10 +552,16 @@ attn_sp_bwd_dkv_kernel(const E* __restrict__ qkv, const bf16* __restrict__ probs
 
 // ---------------------------------------------------------------- launches
 
+// Head dims 16 and 32 have K14's two passes and no forward (K13 runs them
+// zero-padded to 64): kernel 0 is nullptr there, its bytes 0.
 template <typename E, int DH, bool FIXED>
 const void* kernel_of(int which) {
   switch (which) {
-    case 0: return (const void*)attn_sp_fwd_kernel<E, DH, FIXED>;
+    case 0:
+      if constexpr (Tile<DH>::SMALL)
+        return nullptr;
+      else
+        return (const void*)attn_sp_fwd_kernel<E, DH, FIXED>;
     case 1: return (const void*)attn_sp_bwd_dq_kernel<E, DH, FIXED>;
     case 2: return (const void*)attn_sp_bwd_dkv_kernel<E, DH, FIXED>;
     default: return nullptr;
@@ -555,14 +570,30 @@ const void* kernel_of(int which) {
 
 template <int DH>
 size_t bytes_of(int which, int T) {
-  return which == 0 ? fwd_bytes<DH>(T) : (which == 1 ? dq_bytes<DH>(T) : dkv_bytes<DH>(T));
+  if (which == 0) {
+    if constexpr (Tile<DH>::SMALL)
+      return 0;
+    else
+      return fwd_bytes<DH>(T);
+  }
+  return which == 1 ? dq_bytes<DH>(T) : dkv_bytes<DH>(T);
 }
 
 template <int DH>
 size_t smem_bytes(int T) {
-  size_t m = fwd_bytes<DH>(T);
+  size_t m = bytes_of<DH>(0, T);
   if (dq_bytes<DH>(T) > m) m = dq_bytes<DH>(T);
   return dkv_bytes<DH>(T) > m ? dkv_bytes<DH>(T) : m;
+}
+
+size_t bytes_at(int dh, int which, int T) {
+  switch (dh) {
+    case 16: return bytes_of<16>(which, T);
+    case 32: return bytes_of<32>(which, T);
+    case 64: return bytes_of<64>(which, T);
+    case 128: return bytes_of<128>(which, T);
+    default: return 0;
+  }
 }
 
 template <typename E, int DH, bool FIXED>
@@ -612,20 +643,17 @@ int launch_bwd(const void* qkv, const void* probs, const void* dout, const void*
   return (int)cudaGetLastError();
 }
 
-// The form of element type `dtype` (0 bf16, 1 fp16) and head dim dh (64,
-// 128) with the scale an argument: 0 bf16/64, 1 bf16/128, 2 fp16/64, 3
-// fp16/128; -1 for any other.
-int form(int dtype, int dh) {
-  if ((dtype != 0 && dtype != 1) || (dh != 64 && dh != 128)) return -1;
-  return 2 * dtype + (dh == 128);
-}
-
+// Kernel `which` of form f (hopper_attn.cuh's attn_form numbers the forms).
 const void* kernel_of_form(int f, int which) {
   switch (f) {
     case 0: return kernel_of<bf16, 64, false>(which);
     case 1: return kernel_of<bf16, 128, false>(which);
     case 2: return kernel_of<__half, 64, false>(which);
     case 3: return kernel_of<__half, 128, false>(which);
+    case 4: return kernel_of<bf16, 16, false>(which);
+    case 5: return kernel_of<bf16, 32, false>(which);
+    case 6: return kernel_of<__half, 16, false>(which);
+    case 7: return kernel_of<__half, 32, false>(which);
     default: return nullptr;
   }
 }
@@ -669,15 +697,22 @@ extern "C" int vb_attn_sp_bwd(const void* qkv, const void* probs, const void* do
 // 128 (the caller zero-pads the heads to it); scale the softmax scale of the
 // unpadded head dim; the probabilities bf16 in every form. The largest
 // dynamic shared memory of the three kernels at dh and T (0 for a dh not
-// built).
+// built). dh 16 and 32 build K14's two passes only: their forward's info is
+// -1 and vb_attn_sp_x_fwd refuses them.
 extern "C" size_t vb_attn_sp_x_smem_bytes(int dh, int T) {
-  return dh == 64 ? smem_bytes<64>(T) : (dh == 128 ? smem_bytes<128>(T) : 0);
+  switch (dh) {
+    case 16: return smem_bytes<16>(T);
+    case 32: return smem_bytes<32>(T);
+    case 64: return smem_bytes<64>(T);
+    case 128: return smem_bytes<128>(T);
+    default: return 0;
+  }
 }
 
 extern "C" int vb_attn_sp_x_info(int dtype, int dh, int which, int what, int T) {
-  const int f = form(dtype, dh);
+  const int f = attn_form(dtype, dh);
   if (f < 0) return -1;
-  return kernel_info(kernel_of_form(f, which), dh == 64 ? bytes_of<64>(which, T) : bytes_of<128>(which, T), what);
+  return kernel_info(kernel_of_form(f, which), bytes_at(dh, which, T), what);
 }
 
 extern "C" int vb_attn_sp_x_fwd(const void* qkv, const void* key_bias, void* out, void* probs, int B, int T, int H,
@@ -686,7 +721,7 @@ extern "C" int vb_attn_sp_x_fwd(const void* qkv, const void* key_bias, void* out
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VB_FWD(E, D) \
   launch_fwd<E, D, false>(qkv, key_bias, out, probs, B, T, H, hg, ldp, seed, threshold, inv, dropout, scale, s)
-  switch (form(dtype, dh)) {
+  switch (attn_form(dtype, dh)) {
     case 0: return VB_FWD(bf16, 64);
     case 1: return VB_FWD(bf16, 128);
     case 2: return VB_FWD(__half, 64);
@@ -704,11 +739,15 @@ extern "C" int vb_attn_sp_x_bwd(const void* qkv, const void* probs, const void* 
 #define VB_BWD(E, D)                                                                                                \
   launch_bwd<E, D, false>(qkv, probs, dout, out, dqkv, delta, B, T, H, hg_dq, hg_dkv, ldp, passes, seed, threshold, \
                           inv, dropout, scale, s)
-  switch (form(dtype, dh)) {
+  switch (attn_form(dtype, dh)) {
     case 0: return VB_BWD(bf16, 64);
     case 1: return VB_BWD(bf16, 128);
     case 2: return VB_BWD(__half, 64);
     case 3: return VB_BWD(__half, 128);
+    case 4: return VB_BWD(bf16, 16);
+    case 5: return VB_BWD(bf16, 32);
+    case 6: return VB_BWD(__half, 16);
+    case 7: return VB_BWD(__half, 32);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef VB_BWD

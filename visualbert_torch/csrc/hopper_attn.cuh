@@ -14,8 +14,8 @@
 // this header): a row of DH elements is DH / 64 panels of 128 B, each panel
 // of a tile the layout above, and wgmma's element type is the kernel's
 // (.f16 in place of .bf16, the same shapes and swizzle: both are 2 bytes).
-// K2 also takes head dims 16 and 32 on rows of their own size (the small-row
-// tiles below, in the 32 B and 64 B swizzles).
+// The backwards K2, K12 and K14 also take head dims 16 and 32 on rows of
+// their own size (the small-row tiles below, in the 32 B and 64 B swizzles).
 //
 // Two switches leave a design step out for tools/attn_steps.py's builds;
 // the kernel library never defines either: VB_PACKED_SYNC_LOADS makes every
@@ -367,9 +367,9 @@ __device__ __forceinline__ void pair_delta(const bf16* __restrict__ dout, const 
 // rows x 128 B (each the 8 KB layout above), panel p at + p * TILE_BYTES;
 // chunk c of a row (c < DH / 8) lies in panel c / 8 at swz(r, c % 8). An
 // accumulator over DH output columns is NP 64 x 64 accumulators. At DH =
-// 16 and 32 (K2's small rows, the *_s helpers below) a tile is one panel of
-// 32 or 64 B rows and an accumulator one 64 x DH tile of DH / 2 floats a
-// thread; the *_t helpers call the *_s ones there.
+// 16 and 32 (the backwards' small rows, the *_s helpers below) a tile is
+// one panel of 32 or 64 B rows and an accumulator one 64 x DH tile of DH /
+// 2 floats a thread; the *_t helpers call the *_s ones there.
 
 template <int DH>
 struct Tile {
@@ -763,7 +763,9 @@ __device__ __forceinline__ void pair_delta_t(const E* __restrict__ dout, const E
 // to_a, pair_delta, store_rows), so that form compiles to the machine code
 // it had; the *_t helpers (index arithmetic over DH / 8 chunks, loads
 // interleaved with the sums) compile to other code. Every other form calls
-// the *_t helpers.
+// the *_t helpers; K12's and K14's passes also at DH = 16 and 32, where the
+// accumulators are [1][DH / 2] (Tile<DH>::NA) and the *_t helpers call the
+// *_s ones. At DH >= 64 NA is 32: the types the helpers took before.
 
 template <typename E, int DH>
 constexpr bool kMainForm = std::is_same<E, bf16>::value && DH == 64;
@@ -785,7 +787,8 @@ __device__ __forceinline__ void product_ss_v(float (&d)[32], uint32_t a, uint32_
 }
 
 template <typename E, int DH>
-__device__ __forceinline__ void product_rs_v(float (&d)[Tile<DH>::NP][32], const uint32_t (&a)[4][4], uint32_t b) {
+__device__ __forceinline__ void product_rs_v(float (&d)[Tile<DH>::NP][Tile<DH>::NA], const uint32_t (&a)[4][4],
+                                             uint32_t b) {
   if constexpr (kMainForm<E, DH>)
     product_rs(d[0], a, b);
   else
@@ -810,8 +813,8 @@ __device__ __forceinline__ void pair_delta_v(const E* __restrict__ dout, const E
 }
 
 template <typename E, int DH>
-__device__ __forceinline__ void store_rows_v(E* __restrict__ dst, const float (&acc)[Tile<DH>::NP][32], float scale,
-                                             int row0, int row1, bool ok0, bool ok1, int ld, int tq) {
+__device__ __forceinline__ void store_rows_v(E* __restrict__ dst, const float (&acc)[Tile<DH>::NP][Tile<DH>::NA],
+                                             float scale, int row0, int row1, bool ok0, bool ok1, int ld, int tq) {
   if constexpr (kMainForm<E, DH>)
     store_rows(dst, acc[0], scale, row0, row1, ok0, ok1, ld, tq);
   else
@@ -819,6 +822,21 @@ __device__ __forceinline__ void store_rows_v(E* __restrict__ dst, const float (&
 }
 
 // ------------------------------------------------------------- launches
+
+// The instantiation of K1/K2's, K11/K12's and K13/K14's bf16 and fp16
+// kernels of element type `dtype` (0 bf16, 1 fp16) and head dim dh (64, 128;
+// 16, 32 the backward only): 0 bf16/64, 1 bf16/128, 2 fp16/64, 3 fp16/128,
+// 4 bf16/16, 5 bf16/32, 6 fp16/16, 7 fp16/32; -1 for any other.
+inline int attn_form(int dtype, int dh) {
+  if (dtype != 0 && dtype != 1) return -1;
+  switch (dh) {
+    case 64: return 2 * dtype;
+    case 128: return 2 * dtype + 1;
+    case 16: return 4 + 2 * dtype;
+    case 32: return 5 + 2 * dtype;
+    default: return -1;
+  }
+}
 
 // Of kernel fn (nullptr: -1) at `bytes` of dynamic shared memory: `what` 0
 // its registers a thread, 1 its local (spill) bytes a thread, 2 `bytes`, 3

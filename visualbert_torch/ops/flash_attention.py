@@ -44,8 +44,8 @@ step by step); on CUDA tensors they launch the kernels or raise.
 K1 and K2 take every dtype and head dim the JAX kernels take up to D = 128
 (the JAX wrapper asserts only ``F % 3H == 0``): bf16 and fp16 on the Hopper
 kernels, K1 instantiated at D = 64 and 128 and K2 also at 16 and 32 (rows
-of their own size, read in place), a head dim below an instantiation
-zero-padded to it (:func:`kernel_head_dim`, :func:`bwd_head_dim`,
+of their own size, read in place; so are K12 and K14), a head dim below an
+instantiation zero-padded to it (:func:`kernel_head_dim`, :func:`bwd_head_dim`,
 :func:`pad_heads`, :func:`unpad_heads`; exact, and the softmax scale stays
 1/sqrt(D) of the unpadded D), and fp32 on the SIMT kernels of
 ``flash_attention_f32.cu`` at any D <= 128 (all register-tiled, 64-row
@@ -54,9 +54,11 @@ K13's in two, the backward of K2, K12 and K14; the bias gradient's
 partials one row a (batch row, tile): :func:`f32_bias_tiles`,
 :func:`sum_bias_partials`). K11-K14 take the same
 dtypes and head dims: bf16 and fp16 on their Hopper kernels, instantiated
-at D = 64 and 128 (the heads-major
-``[B, 3, H, T, D]`` zero-padded to ``[..., Dp]`` by :func:`pad_heads_major`,
-the packed layout by :func:`pad_heads`), and fp32 on the SIMT kernels of
+at D = 64 and 128, the backwards K12 and K14 also at 16 and 32 as K2 (the
+heads-major ``[B, 3, H, T, D]`` zero-padded to ``[..., Dp]`` by
+:func:`pad_heads_major`, the packed layout by :func:`pad_heads`; the
+forwards at :func:`kernel_head_dim`, the backwards at :func:`bwd_head_dim`),
+and fp32 on the SIMT kernels of
 ``flash_attention_f32.cu`` (K11/K12 on the heads-major strides, K13/K14 on
 save-probs kernels of their own); K13's probabilities are bf16 in every
 form. bf16 at D = 64, the main path's form, keeps its entry points
@@ -64,7 +66,11 @@ form. bf16 at D = 64, the main path's form, keeps its entry points
 tree's build; the other bf16 and fp16 forms go through ``vb_attn_hm_x_*``
 and ``vb_attn_sp_x_*`` with the dtype, head dim and scale. Each wrapper
 counts its launches in ``launches`` and, by form (:func:`attention_form`),
-in ``forms`` (K2 by :func:`bwd_attention_form`).
+in ``forms`` (K2, K12 and K14 by :func:`bwd_attention_form`). The
+backwards' small forms take a longer T than the forwards (each wrapper
+checks its own shared memory), but a training step runs both: the
+forwards' limits (704 at D <= 64) bound the packed, heads-major and
+save-probs paths as a whole.
 
 The dropout keep bit of probability (b, h, i, j) is a pure function of
 (seed, b, h, i, j) — see ``csrc/philox.cuh::attn_philox`` and its twin
@@ -92,7 +98,7 @@ from visualbert_torch.ops.philox import MASK32, keep_threshold, philox4x32_10
 LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIM = 64  # the bf16 main forms' head dim (K15/K16 take only it)
 PACKED_HEAD_DIMS = (64, 128)  # the bf16 and fp16 instantiations of K1/K2 and K11-K14
-BWD_HEAD_DIMS = (16, 32, 64, 128)  # K2's bf16 and fp16 instantiations: 16 and 32 on rows of their own size
+BWD_HEAD_DIMS = (16, 32, 64, 128)  # K2's, K12's and K14's bf16 and fp16 instantiations: 16 and 32 on small rows
 MAX_HEAD_DIM = 128  # K1/K2 and K11-K14 in every dtype
 PACKED_DTYPES = (torch.bfloat16, torch.float16, torch.float32)  # K1/K2 and K11-K14
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}  # csrc/flash_attention_packed.cu's dtype argument
@@ -106,15 +112,16 @@ def kernel_head_dim(d: int) -> int:
 
 
 def bwd_head_dim(d: int) -> int:
-    """The head dim at which K2's bf16 and fp16 kernels run heads of dim d
-    (<= MAX_HEAD_DIM): the smallest of BWD_HEAD_DIMS that holds it, so that
-    heads of 16 and 32 run unpadded."""
+    """The head dim at which the backwards' (K2, K12, K14) bf16 and fp16
+    kernels run heads of dim d (<= MAX_HEAD_DIM): the smallest of
+    BWD_HEAD_DIMS that holds it, so that heads of 16 and 32 run unpadded."""
     return next(dp for dp in BWD_HEAD_DIMS if d <= dp)
 
 
 def bwd_attention_form(dtype, d: int) -> str:
-    """The kernel form K2 runs heads of dim d in ``dtype`` on: "fp32" or
-    "<dtype> D<bwd_head_dim(d)>" (K1 and K11-K14: :func:`attention_form`)."""
+    """The kernel form the backwards K2, K12 and K14 run heads of dim d in
+    ``dtype`` on: "fp32" or "<dtype> D<bwd_head_dim(d)>" (the forwards K1,
+    K11 and K13: :func:`attention_form`)."""
     if dtype == torch.float32:
         return "fp32"
     return f"{'bf16' if dtype == torch.bfloat16 else 'fp16'} D{bwd_head_dim(d)}"
@@ -153,8 +160,9 @@ def unpad_heads_major(x: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def attention_form(dtype, d: int) -> str:
-    """The kernel form K1/K2 and K11-K14 run heads of dim d in ``dtype`` on:
-    "fp32" (the SIMT kernels) or "<dtype> D<instantiated head dim>"."""
+    """The kernel form the forwards K1, K11 and K13 run heads of dim d in
+    ``dtype`` on: "fp32" (the SIMT kernels) or "<dtype> D<instantiated head
+    dim>" (the backwards: :func:`bwd_attention_form`)."""
     if dtype == torch.float32:
         return "fp32"
     return f"{'bf16' if dtype == torch.bfloat16 else 'fp16'} D{kernel_head_dim(d)}"
@@ -410,15 +418,16 @@ def _main_form(dtype, d: int) -> bool:
     return dtype == torch.bfloat16 and d == KERNEL_HEAD_DIM
 
 
-def _variant_smem(dtype, d: int, main: str, x: str):
+def _variant_smem(dtype, d: int, main: str, x: str, head_dim=kernel_head_dim):
     """The shared-memory function of T (None for fp32) of K11-K14's form of
     ``dtype`` and head dim d: the entry point ``main`` at bf16 D = 64, else
-    ``x`` at the instantiated head dim."""
+    ``x`` at the instantiated head dim ``head_dim(d)`` (the backwards:
+    :func:`bwd_head_dim`)."""
     if dtype == torch.float32:
         return None
     if _main_form(dtype, d):
         return lambda lib, t: getattr(lib, main)(t)
-    dp = kernel_head_dim(d)
+    dp = head_dim(d)
     return lambda lib, t: getattr(lib, x)(dp, t)
 
 
@@ -429,9 +438,10 @@ def _check_variant_dtype(what, qkv, d: int):
         raise ValueError(f"{what}: the kernels take head dims up to {MAX_HEAD_DIM}, got {d}")
 
 
-def _check_sp(what, qkv, key_bias, n_heads, *others):
+def _check_sp(what, qkv, key_bias, n_heads, *others, head_dim=kernel_head_dim):
     """K13/K14's checks in every form: dtype, head dim, shapes, and (bf16,
-    fp16) the shared memory of T."""
+    fp16) the shared memory of T at ``head_dim(D)`` (K14:
+    :func:`bwd_head_dim`)."""
     B, T, F = qkv.shape
     if F % (3 * n_heads):
         raise ValueError(f"{what}: F={F} does not split into 3 x {n_heads} heads")
@@ -440,7 +450,7 @@ def _check_sp(what, qkv, key_bias, n_heads, *others):
     for t in others:
         if t.dtype != qkv.dtype or t.shape != (B, T, F // 3):
             raise ValueError(f"{what}: dout and out must be [{B}, {T}, {F // 3}] {qkv.dtype}")
-    smem = _variant_smem(qkv.dtype, d, "vb_attn_sp_smem_bytes", "vb_attn_sp_x_smem_bytes")
+    smem = _variant_smem(qkv.dtype, d, "vb_attn_sp_smem_bytes", "vb_attn_sp_x_smem_bytes", head_dim)
     return _check(what, smem, T, key_bias, B, qkv, *others)
 
 
@@ -499,13 +509,18 @@ def packed_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, i
     return _kernel_head_groups(lib, "vb_attn_packed_info", "K1/K2", B, H, T, device)
 
 
+def _built_kernels(dp: int) -> Tuple[int, ...]:
+    """The kernels (PACKED_KERNELS' indices) each pair builds at the
+    instantiated head dim dp: the backward's two passes alone at 16 and 32."""
+    return (1, 2) if dp < KERNEL_HEAD_DIM else (0, 1, 2)
+
+
 def packed_x_head_groups(lib, dtype, dp: int, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
     """hg of K1's kernel and of K2's two passes in bf16 or fp16 at the
     instantiated head dim dp (``vb_attn_packed_x_info``); at dp 16 and 32,
     which build K2 alone, K1's is None."""
-    kernels = (1, 2) if dp < KERNEL_HEAD_DIM else (0, 1, 2)
     return _kernel_head_groups(lib, "vb_attn_packed_x_info", "K1/K2", B, H, T, device, (_DTYPE_CODE[dtype], dp),
-                               kernels)
+                               _built_kernels(dp))
 
 
 def hm_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
@@ -520,14 +535,18 @@ def sp_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
 
 def hm_x_head_groups(lib, dtype, dp: int, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
     """hg of K11's kernel and of K12's two passes in another bf16 or fp16
-    form at the instantiated head dim dp (``vb_attn_hm_x_info``)."""
-    return _kernel_head_groups(lib, "vb_attn_hm_x_info", "K11/K12", B, H, T, device, (_DTYPE_CODE[dtype], dp))
+    form at the instantiated head dim dp (``vb_attn_hm_x_info``); at dp 16
+    and 32, which build K12 alone, K11's is None."""
+    return _kernel_head_groups(lib, "vb_attn_hm_x_info", "K11/K12", B, H, T, device, (_DTYPE_CODE[dtype], dp),
+                               _built_kernels(dp))
 
 
 def sp_x_head_groups(lib, dtype, dp: int, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
     """hg of K13's kernel and of K14's two passes in another bf16 or fp16
-    form at the instantiated head dim dp (``vb_attn_sp_x_info``)."""
-    return _kernel_head_groups(lib, "vb_attn_sp_x_info", "K13/K14", B, H, T, device, (_DTYPE_CODE[dtype], dp))
+    form at the instantiated head dim dp (``vb_attn_sp_x_info``); at dp 16
+    and 32, which build K14 alone, K13's is None."""
+    return _kernel_head_groups(lib, "vb_attn_sp_x_info", "K13/K14", B, H, T, device, (_DTYPE_CODE[dtype], dp),
+                               _built_kernels(dp))
 
 
 def launch_packed_fwd(lib, qkv, qb, key_bias, n_heads: int, rate: float, seed: int, hg: int):
@@ -716,9 +735,10 @@ packed_attention_bwd.launches = 0
 packed_attention_bwd.forms = {}
 
 
-def _check_heads_major(what, qkv, key_bias, *others):
+def _check_heads_major(what, qkv, key_bias, *others, head_dim=kernel_head_dim):
     """K11/K12's checks in every form: dtype, head dim, shapes, and (bf16,
-    fp16) the shared memory of T."""
+    fp16) the shared memory of T at ``head_dim(D)`` (K12:
+    :func:`bwd_head_dim`)."""
     if qkv.dim() != 5 or qkv.shape[1] != 3:
         raise ValueError(f"{what}: qkv must be [B, 3, H, T, D], got {tuple(qkv.shape)}")
     B, _, H, T, d = qkv.shape
@@ -726,7 +746,7 @@ def _check_heads_major(what, qkv, key_bias, *others):
     for t in others:
         if t.dtype != qkv.dtype or t.shape != (B, H, T, d):
             raise ValueError(f"{what}: dout and out must be [{B}, {H}, {T}, {d}] {qkv.dtype}")
-    smem = _variant_smem(qkv.dtype, d, "vb_attn_hm_smem_bytes", "vb_attn_hm_x_smem_bytes")
+    smem = _variant_smem(qkv.dtype, d, "vb_attn_hm_smem_bytes", "vb_attn_hm_x_smem_bytes", head_dim)
     return _check(what, smem, T, key_bias, B, qkv, *others)
 
 
@@ -836,11 +856,13 @@ heads_major_attention_fwd.forms = {}
 
 def heads_major_attention_bwd(qkv, key_bias, dout, out, stats, rate: float, seed: int) -> torch.Tensor:
     """K12 wrapper: dqkv [B, 3, H, T, D], written as one tensor, in the forms
-    of :func:`heads_major_attention_fwd`."""
+    of :func:`bwd_attention_form`: bf16 and fp16 heads of 16 and 32 (and 64,
+    128) read in place, the others zero-padded to the next of BWD_HEAD_DIMS
+    here and the gradient cut back; fp32 on the SIMT kernels."""
     what = "heads-major attention backward (K12)"
     if not _on_cuda(what, qkv):
         return heads_major_attention_bwd_reference(qkv, key_bias, dout, out, stats, rate, seed)
-    lib = _check_heads_major(what, qkv, key_bias, dout, out)
+    lib = _check_heads_major(what, qkv, key_bias, dout, out, head_dim=bwd_head_dim)
     B, _, H, T, d = qkv.shape
     _check_stats(what, stats, B, H, T)
     if qkv.dtype == torch.float32:
@@ -849,13 +871,13 @@ def heads_major_attention_bwd(qkv, key_bias, dout, out, stats, rate: float, seed
         _, hg_dq, hg_dkv = hm_head_groups(lib, B, H, T, qkv.device)
         code, dqkv = launch_hm_bwd(lib, qkv, key_bias, dout, out, stats, rate, seed, hg_dq, hg_dkv)
     else:
-        dp = kernel_head_dim(d)
+        dp = bwd_head_dim(d)
         _, hg_dq, hg_dkv = hm_x_head_groups(lib, qkv.dtype, dp, B, H, T, qkv.device)
         code, dqkv = launch_hm_x_bwd(lib, pad_heads_major(qkv, dp), key_bias, pad_heads_major(dout, dp),
                                      pad_heads_major(out, dp), stats, rate, seed, hg_dq, hg_dkv, 1.0 / math.sqrt(d))
         dqkv = unpad_heads_major(dqkv, d)
     lib.check(code, what)
-    _counted(heads_major_attention_bwd, attention_form(qkv.dtype, d))
+    _counted(heads_major_attention_bwd, bwd_attention_form(qkv.dtype, d))
     return dqkv
 
 
@@ -1021,13 +1043,16 @@ def launch_f32_sp_bwd(lib, qkv, probs, ldp: int, dout, out, n_heads: int, rate: 
 def packed_attention_sp_bwd(qkv, probs, dout, out, n_heads: int, rate: float, seed: int) -> torch.Tensor:
     """K14 wrapper: dqkv [B, T, H*3*D] from the saved probabilities, read in
     place in K13's layout (a contiguous tensor at T % 8 != 0 is first copied
-    into it), in the forms of :func:`packed_attention_sp_fwd`."""
+    into it), in the forms of :func:`bwd_attention_form`: bf16 and fp16 heads
+    of 16 and 32 (and 64, 128) read in place, the others zero-padded to the
+    next of BWD_HEAD_DIMS here and the gradient cut back; fp32 on the SIMT
+    kernels."""
     what = "save-probs attention backward (K14)"
     if not _on_cuda(what, qkv):
         return packed_attention_sp_bwd_reference(qkv, probs, dout, out, n_heads, rate, seed)
     B, T, F = qkv.shape
     # the key bias only enters through the saved probabilities
-    lib = _check_sp(what, qkv, None, n_heads, dout, out)
+    lib = _check_sp(what, qkv, None, n_heads, dout, out, head_dim=bwd_head_dim)
     if probs.device != qkv.device:
         raise ValueError(f"{what}: tensors on different devices")
     ldp = probs_layout(probs, B, n_heads, T)
@@ -1041,14 +1066,14 @@ def packed_attention_sp_bwd(qkv, probs, dout, out, n_heads: int, rate: float, se
         _, hg_dq, hg_dkv = sp_head_groups(lib, B, n_heads, T, qkv.device)
         code, dqkv, _ = launch_sp_bwd(lib, qkv, probs, ldp, dout, out, n_heads, rate, seed, hg_dq, hg_dkv)
     else:
-        dp = kernel_head_dim(d)
+        dp = bwd_head_dim(d)
         _, hg_dq, hg_dkv = sp_x_head_groups(lib, qkv.dtype, dp, B, n_heads, T, qkv.device)
         code, dqkv = launch_sp_x_bwd(lib, pad_heads(qkv, n_heads, 3, dp), probs, ldp, pad_heads(dout, n_heads, 1, dp),
                                      pad_heads(out, n_heads, 1, dp), n_heads, rate, seed, hg_dq, hg_dkv,
                                      1.0 / math.sqrt(d))
         dqkv = unpad_heads(dqkv, n_heads, 3, d)
     lib.check(code, what)
-    _counted(packed_attention_sp_bwd, attention_form(qkv.dtype, d))
+    _counted(packed_attention_sp_bwd, bwd_attention_form(qkv.dtype, d))
     return dqkv
 
 

@@ -27,10 +27,11 @@ built alone too and launched through this checkout's ``launch_hm_*`` and
 the same shapes, on the same biased q, k, v: each against the plain
 versions within ``chip_smoke.py``'s limits, the two trees bit for bit at
 dropout 0 and 0.1 (each backward on this tree's forward outputs), then
-timed in turns (``tools/attn_steps.py``'s rounds). K2 at head dims 16 and
-32 (bf16, fp16: SMALL_FORMS) is launched on this tree's small-row form and
-on the other tree's route, padded to 64 as its wrapper did (the pads and
-cuts timed with it), each against the plain version, in turns. Where the
+timed in turns (``tools/attn_steps.py``'s rounds). The backwards K2, K12
+and K14 at head dims 16 and 32 (bf16, fp16: SMALL_FORMS; SMALL_PAIRS) are
+launched on this tree's small-row forms and on the other tree's route,
+padded to 64 as its wrapper did (the pads and cuts timed with it), each on
+the plain forward's outputs and against the plain backward, in turns. Where the
 toolkit has ``cuobjdump``, the machine code (SASS) of every kernel both
 trees build (K1/K2 in bf16 and fp16 at 64 and 128, K11-K14 in every form,
 K15/K16) is compared instruction by instruction, addresses and encodings
@@ -77,6 +78,7 @@ EXP_SOURCE = SOURCE.parent / "flash_attention_exp.cu"
 EXP_FNS = ("vb_attn_exp_fwd", "vb_attn_exp_bwd")
 EXP_ROUNDS = 2
 HM_OUT_TOL, HM_DQKV_TOL = 1.6e-2, 8e-3  # chip_smoke.py's limits for K11/K12
+SP_DQKV_TOL = 8e-3  # chip_smoke.py's limit for K14
 OTHER_SOURCES = ("flash_attention.cu", "flash_attention_sp.cu")  # K11/K12, K13/K14: also on hopper_attn.cuh
 
 
@@ -89,7 +91,10 @@ def bind(path, fns):
 
 
 HM_FNS = ("vb_attn_hm_fwd", "vb_attn_hm_bwd", "vb_attn_hm_info")
-PACKED_X_FNS = ("vb_attn_packed_x_bwd", "vb_attn_packed_x_info")  # K2's other forms (SMALL_FORMS)
+# the backwards' other forms (SMALL_FORMS): K2's, K12's, K14's
+PACKED_X_FNS = ("vb_attn_packed_x_bwd", "vb_attn_packed_x_info")
+HM_X_FNS = ("vb_attn_hm_x_bwd", "vb_attn_hm_x_info")
+SP_X_FNS = ("vb_attn_sp_x_bwd", "vb_attn_sp_x_info")
 
 
 def build(trees):
@@ -116,7 +121,7 @@ def build(trees):
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
     libs = {name: (bind(path, PACKED_FNS + PACKED_X_FNS), path) for name, path in paths.items()}
-    fns = {"flash_attention.cu": HM_FNS, "flash_attention_sp.cu": SP_FNS}
+    fns = {"flash_attention.cu": HM_FNS + HM_X_FNS, "flash_attention_sp.cu": SP_FNS + SP_X_FNS}
     sass_paths = {name: [paths[name], exp_paths[name], *others[name].values()] for name in trees}
     others = {name: {src: (bind(path, fns[src]), path) for src, path in srcs.items()} for name, srcs in others.items()}
     return libs, {name: bind(path, EXP_FNS) for name, path in exp_paths.items()}, others, sass_paths
@@ -177,6 +182,10 @@ OTHER_FORMS = ("6__half", "Li128E")
 
 
 SMALL_FORMS = (("bfloat16", 16), ("float16", 16), ("bfloat16", 32), ("float16", 32))
+# the backwards with small-row forms: (their library's source, None for the
+# packed source; their info entry point)
+SMALL_PAIRS = {"K2": (None, "vb_attn_packed_x_info"), "K12": ("flash_attention.cu", "vb_attn_hm_x_info"),
+               "K14": ("flash_attention_sp.cu", "vb_attn_sp_x_info")}
 
 
 def small_head_inputs(dtype, D, H, rate, seed):
@@ -195,16 +204,77 @@ def small_head_inputs(dtype, D, H, rate, seed):
     return qkv, qb, key_bias, dout, out, stats, want
 
 
-def small_forms_ab(libs, n_sm, card, rate=0.1):
-    """K2 in SMALL_FORMS at the main path's B, T and 12 heads, dropout
-    ``rate``: this tree's form at the head dim (unpadded) and the other
-    tree's route (heads zero-padded to 64, its D = 64 form, the gradients
-    cut back, pads and cuts in its time), each against the plain version
-    within ``attn_steps``'s dqkv and bias-gradient limits, then timed in
-    turns (tools/attn_exp.py's best of 3 runs of 30 calls, F32_ROUNDS
-    rounds): {form: {tree: dict(errors, ms)}}."""
+def small_pair_inputs(pair, dtype, D, H, rate, seed):
+    """The backward ``pair``'s inputs on small_head_inputs's numbers (K12:
+    the biased q, k, v heads-major; K14: the biased packed qkv with the
+    plain forward's probabilities in K13's row layout), the plain forward's
+    outputs among them, and the plain backward's outputs: (inputs, want)."""
+    from visualbert_torch.ops import flash_attention as fa
+
+    qkv, qb, key_bias, dout, out, stats, want = small_head_inputs(dtype, D, H, rate, seed)
+    if pair == "K2":
+        return dict(qkv=qkv, qb=qb, key_bias=key_bias, dout=dout, out=out, stats=stats), want
+    B, T, _ = qkv.shape
+    x = (qkv + qb).contiguous()
+    if pair == "K12":
+        x5 = x.view(B, T, H, 3, D).permute(0, 3, 2, 1, 4).contiguous()
+        d4 = dout.view(B, T, H, D).permute(0, 2, 1, 3).contiguous()
+        o4, st = fa.heads_major_attention_fwd_reference(x5, key_bias, rate, seed)
+        want = (fa.heads_major_attention_bwd_reference(x5, key_bias, d4, o4, st, rate, seed),)
+        return dict(qkv=x5, key_bias=key_bias, dout=d4, out=o4, stats=st), want
+    o, probs = fa.packed_attention_sp_fwd_reference(x, key_bias, H, rate, seed)
+    want = (fa.packed_attention_sp_bwd_reference(x, probs, dout, o, H, rate, seed),)
+    return dict(qkv=x, key_bias=key_bias, dout=dout, out=o, probs=fa.padded_probs(probs)), want
+
+
+def small_pair_call(pair, lib, d, H, rate, seed, D, dp, hg):
+    """The backward ``pair`` from ``lib`` at head dim dp on small_pair_inputs's
+    ``d`` (zero-padded to dp and the gradients cut back, as the wrappers do):
+    (CUDA code, (dqkv,) or for K2 (dqkv, dqb))."""
     import math
 
+    from visualbert_torch.ops import flash_attention as fa
+
+    scale = 1.0 / math.sqrt(D)
+    if pair == "K2":
+        c, dq, db = fa.launch_packed_x_bwd(lib, fa.pad_heads(d["qkv"], H, 3, dp), fa.pad_heads(d["qb"], H, 3, dp),
+                                           d["key_bias"], fa.pad_heads(d["dout"], H, 1, dp),
+                                           fa.pad_heads(d["out"], H, 1, dp), d["stats"], H, rate, seed, *hg, scale)
+        return c, (fa.unpad_heads(dq, H, 3, D), fa.unpad_heads(db, H, 3, D))
+    if pair == "K12":
+        c, dq = fa.launch_hm_x_bwd(lib, fa.pad_heads_major(d["qkv"], dp), d["key_bias"],
+                                   fa.pad_heads_major(d["dout"], dp), fa.pad_heads_major(d["out"], dp), d["stats"],
+                                   rate, seed, *hg, scale)
+        return c, (fa.unpad_heads_major(dq, D),)
+    probs = d["probs"]
+    c, dq = fa.launch_sp_x_bwd(lib, fa.pad_heads(d["qkv"], H, 3, dp), probs, probs.stride(2),
+                               fa.pad_heads(d["dout"], H, 1, dp), fa.pad_heads(d["out"], H, 1, dp), H, rate, seed,
+                               *hg, scale)
+    return c, (fa.unpad_heads(dq, H, 3, D),)
+
+
+def small_pair_errors(pair, got, want):
+    """{output: error} and whether all are within their limits: dqkv (and
+    K2's dqb) by max |kernel - plain| / max |plain|, at attn_steps's limits
+    for K2, chip_smoke.py's for K12 and K14."""
+    from visualbert_torch.tools import attn_steps
+
+    e = dict(dqkv=attn_steps._rel(got[0], want[0]))
+    if pair == "K2":
+        e["dqb"] = attn_steps._rel(got[1], want[1])
+        return e, e["dqkv"] <= attn_steps.DQKV_TOL and e["dqb"] <= attn_steps.DB_TOL
+    return e, e["dqkv"] <= (HM_DQKV_TOL if pair == "K12" else SP_DQKV_TOL)
+
+
+def small_forms_ab(libs, others, n_sm, card, rate=0.1):
+    """K2, K12 and K14 (SMALL_PAIRS) in SMALL_FORMS at the main path's B, T
+    and 12 heads, dropout ``rate``, on the plain forward's outputs: this
+    tree's form at the head dim (unpadded) and the other tree's route (heads
+    zero-padded to 64, its D = 64 form, the gradients cut back, pads and
+    cuts in its time), each against the plain backward (small_pair_errors's
+    limits), then timed in turns (tools/attn_exp.py's best of 3 runs of 30
+    calls, F32_ROUNDS rounds): {"<pair> <dtype> D=<D>": {tree: dict(errors,
+    hg, ms)}}."""
     import torch
 
     from visualbert_torch.ops import flash_attention as fa
@@ -212,41 +282,42 @@ def small_forms_ab(libs, n_sm, card, rate=0.1):
     from visualbert_torch.tools.attn_exp import best_ms
 
     H, seed, res = attn_steps.H, attn_steps.SEED, {}
-    for dtype, D in SMALL_FORMS:
-        qkv, qb, key_bias, dout, out, stats, want = small_head_inputs(dtype, D, H, rate, seed)
-        B, T, _ = qkv.shape
-        code = 0 if dtype == "bfloat16" else 1
-        calls, form = {}, f"{dtype} D={D}"
-        for name, (lib, _) in libs.items():
-            dp = D if name == "this" else 64
-            hg = [fa.head_group(B, H, n_sm, lib.vb_attn_packed_x_info(code, dp, k, 3, T)) for k in (1, 2)]
+    for pair, (src, info) in SMALL_PAIRS.items():
+        for dtype, D in SMALL_FORMS:
+            d, want = small_pair_inputs(pair, dtype, D, H, rate, seed)
+            B, T = d["key_bias"].shape
+            code = 0 if dtype == "bfloat16" else 1
+            calls, form = {}, f"{pair} {dtype} D={D}"
+            for name in ("this", "other"):
+                lib = libs[name][0] if src is None else others[name][src][0]
+                dp = D if name == "this" else 64
+                hg = [fa.head_group(B, H, n_sm, getattr(lib, info)(code, dp, k, 3, T)) for k in (1, 2)]
 
-            def call(lib=lib, dp=dp, hg=hg, name=name):
-                c, dq, db = fa.launch_packed_x_bwd(lib, fa.pad_heads(qkv, H, 3, dp), fa.pad_heads(qb, H, 3, dp),
-                                                   key_bias, fa.pad_heads(dout, H, 1, dp), fa.pad_heads(out, H, 1, dp),
-                                                   stats, H, rate, seed, *hg, 1.0 / math.sqrt(D))
-                if c != 0:
-                    raise RuntimeError(f"{name} K2 {form}: CUDA error {c}")
-                return fa.unpad_heads(dq, H, 3, D), fa.unpad_heads(db, H, 3, D)
+                def call(lib=lib, dp=dp, hg=hg, name=name):
+                    c, got = small_pair_call(pair, lib, d, H, rate, seed, D, dp, hg)
+                    if c != 0:
+                        raise RuntimeError(f"{name} {form}: CUDA error {c}")
+                    return got
 
-            dq, db = call()
-            torch.cuda.synchronize()
-            e = dict(dqkv=attn_steps._rel(dq, want[0]), dqb=attn_steps._rel(db, want[1]))
-            print(f"{name} K2 {form} (head dim {dp}, hg {hg}): dqkv {e['dqkv']:.3e} (tol {attn_steps.DQKV_TOL}), "
-                  f"dqb {e['dqb']:.3e} (tol {attn_steps.DB_TOL})  [{card}]", flush=True)
-            if not (e["dqkv"] <= attn_steps.DQKV_TOL and e["dqb"] <= attn_steps.DB_TOL):
-                raise SystemExit(f"attn_ab: {name}'s K2 {form} disagrees with the plain version")
-            calls[name] = call
-            res.setdefault(form, {})[name] = dict(errors=e, hg=hg, ms=[])
-        for r in range(F32_ROUNDS):
-            for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
-                res[form][name]["ms"].append(best_ms(lambda i, c=calls[name]: c()))
-        a, b = res[form]["this"]["ms"], res[form]["other"]["ms"]
-        print(f"K2 {form}, dropout {rate}: {min(a):.4f}-{max(a):.4f} ms here (unpadded), {min(b):.4f}-{max(b):.4f} "
-              f"ms in the other tree (padded to 64, pads and cuts included): {min(b) / min(a):.2f}x  [{card}]",
-              flush=True)
-        del qkv, qb, key_bias, dout, out, stats, want
-        torch.cuda.empty_cache()
+                got = call()
+                torch.cuda.synchronize()
+                e, ok = small_pair_errors(pair, got, want)
+                print(f"{name} {form} (head dim {dp}, hg {hg}): " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+                      + f"  [{card}]", flush=True)
+                if not ok:
+                    raise SystemExit(f"attn_ab: {name}'s {form} disagrees with the plain version")
+                calls[name] = call
+                res.setdefault(form, {})[name] = dict(errors=e, hg=hg, ms=[])
+                del got
+            for r in range(F32_ROUNDS):
+                for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+                    res[form][name]["ms"].append(best_ms(lambda i, c=calls[name]: c()))
+            a, b = res[form]["this"]["ms"], res[form]["other"]["ms"]
+            print(f"{form}, dropout {rate}: {min(a):.4f}-{max(a):.4f} ms here (unpadded), {min(b):.4f}-{max(b):.4f} "
+                  f"ms in the other tree (padded to 64, pads and cuts included): {min(b) / min(a):.2f}x  [{card}]",
+                  flush=True)
+            del d, want, calls
+            torch.cuda.empty_cache()
     return res
 
 
@@ -794,7 +865,7 @@ def main(argv=None):
     times = attn_steps.time_builds(builds, data)
     attn_steps.print_times(builds, times, card, "K1/K2")
     variants = variant_ab(others, data, n_sm, card)
-    small = small_forms_ab(libs, n_sm, card)
+    small = small_forms_ab(libs, others, n_sm, card)
     exp = exp_times(exp_libs, data, card)
     sass = compare_sass(sass_paths, card)
     f32 = f32_ab(trees, card)
