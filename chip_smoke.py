@@ -95,7 +95,9 @@ non-zero without printing the final line:
    and fp32 at the main path's [128, 228, 12 x 64], and in bf16, fp16 and
    fp32 at head dim 16 (bf16 and fp16: K1 zero-padded to 64, K2 on its
    unpadded D16 form), in bf16 and fp16 at 32 (K2 on its D32 form) and at
-   128, at dropout 0 and 0.1, fp32 within F32_REL_TOL / F32_ABS_TOL of its
+   128 (K2 on its streamed two-warpgroup passes, which must not spill,
+   also at STREAMED_LONG_T, past the limit the passes had while they held a
+   head's rows), at dropout 0 and 0.1, fp32 within F32_REL_TOL / F32_ABS_TOL of its
    plain version and the rest within the bf16 limits, two calls giving
    the same bits, each timed beside its plain version,
    scaled_dot_product_attention in its dtype and its bound (the
@@ -118,9 +120,9 @@ non-zero without printing the final line:
    timed beside its plain version, scaled_dot_product_attention in its
    dtype and its bound, with each kernel's registers, local bytes, shared
    bytes and blocks an SM (bf16 and fp16 with each kernel's head dim, heads
-   a block and T limit; K12 and K14 at D = 16 and 32 run on their small-row
-   forms, which must not spill, and print beside SDPA and their padded
-   route's earlier reading; the register-tiled fp32 kernels, every forward
+   a block and T limit; K12, K13 and K14 at D = 16 and 32 run on their
+   small-row forms, which must not spill, and print beside SDPA and their
+   padded route's earlier reading; the register-tiled fp32 kernels, every forward
    and backward, must not spill; check_f32_masks:
    each fp32 pair's dropout masks at T = 64 must be the bf16 kernels'
    at the same seed); and K7-K10 (LN_FORMS) at the main path's 29,184
@@ -331,7 +333,7 @@ non-zero without printing the final line:
    al. 2020: L = 4, H = 312, A = 12, I = 1200) in bf16 (heads of 26: K1
    padded to 64, K2 on its "bf16 D32" form), again with `"packed_qkv":
    false` (K11 padded, K12 on "bf16 D32") and with `"flash_save_probs":
-   true` (K13 padded, K14 on "bf16 D32"); each run
+   true` (K13 and K14 on "bf16 D32"); each run
    must be on the card, its losses finite, its launches those of its depth
    and flags (the attention pair L a step, K4-K6 one, the dropout sites or
    K9/K10), every launch of K1/K2, K4-K14 in the kernel form of its dtype
@@ -349,8 +351,8 @@ non-zero without printing the final line:
    phase 27's bert-base fp32 run; the forms of K11/K12 (fp16), K13/K14 (fp32,
    launches from the bert-base fp32 save-probs run),
    K9/K10 (bf16, a block a row), K4-K6 (bf16 and fp16, the wide form at
-   2048) and K2, K12 and K14 (bf16 D32) that phase 27 drives are fifteen
-   rows more
+   2048) and K2, K12, K13 and K14 (bf16 D32) that phase 27 drives are
+   sixteen rows more
    (FORM_KERNELS), timed at
    phase 3's shapes, their launches from their geometry's run), then {"ok":
    true, "device": {...}} as the last line.
@@ -475,11 +477,12 @@ SLICE_F32_REL_TOL = 1e-4  # the dropout-off loss check in fp32
 # and 12 heads; (dtype, width) of K4-K6 at its N and V
 ATTENTION_FORMS = (("float16", 64), ("float32", 64), ("bfloat16", 16), ("float16", 16), ("float32", 16),
                    ("bfloat16", 128), ("float16", 128), ("float32", 128), ("bfloat16", 32), ("float16", 32))
-# K2 at D = 16 and K12 and K14 at D = 16 and 32 on the route that
-# zero-padded the heads to 64, and K1/K11's fp32 forward of the first design
-# (a block a pair, 32-key tiles), at ATTENTION_FORMS' shapes, dropout 0.1:
-# this script's last readings of them on an NVIDIA H100 80GB HBM3 at 700 W,
-# each printed beside its redesign
+# K2 at D = 16 and K12, K13 and K14 at D = 16 and 32 on the route that
+# zero-padded the heads to 64, K2 at D = 128 on its passes that held a
+# head's rows (one warpgroup a block), and K1/K11's fp32 forward of the
+# first design (a block a pair, 32-key tiles), at ATTENTION_FORMS' shapes,
+# dropout 0.1: this script's last readings of them on an NVIDIA H100 80GB
+# HBM3 at 700 W, each printed beside its redesign
 EARLIER_DESIGN_MS = {("packed_attention_bwd", "bfloat16", 16): 1.1397, ("packed_attention_bwd", "float16", 16): 1.1122,
                      ("packed_attention_fwd", "float32", 16): 1.5734, ("packed_attention_fwd", "float32", 64): 2.6246,
                      ("packed_attention_fwd", "float32", 128): 3.8901,
@@ -493,7 +496,16 @@ EARLIER_DESIGN_MS = {("packed_attention_bwd", "bfloat16", 16): 1.1397, ("packed_
                      ("packed_attention_sp_bwd", "bfloat16", 16): 0.9555,
                      ("packed_attention_sp_bwd", "float16", 16): 0.9592,
                      ("packed_attention_sp_bwd", "bfloat16", 32): 1.0496,
-                     ("packed_attention_sp_bwd", "float16", 32): 1.0530}
+                     ("packed_attention_sp_bwd", "float16", 32): 1.0530,
+                     ("packed_attention_sp_fwd", "bfloat16", 16): 0.4706,
+                     ("packed_attention_sp_fwd", "float16", 16): 0.4814,
+                     ("packed_attention_sp_fwd", "bfloat16", 32): 0.5162,
+                     ("packed_attention_sp_fwd", "float16", 32): 0.5265,
+                     ("packed_attention_bwd", "bfloat16", 128): 2.1757,
+                     ("packed_attention_bwd", "float16", 128): 2.0320}
+# K2 at D = 128 is also held at this T (B = 8, 12 heads), past 256, the
+# limit its passes had while they held a head's rows in shared memory
+STREAMED_LONG_T = 512
 XENT_FORMS = (("bfloat16", 128), ("bfloat16", 256), ("bfloat16", 512), ("float16", 768), ("float32", 768),
               ("bfloat16", 1024), ("bfloat16", 384), ("float16", 384), ("bfloat16", 2048), ("bfloat16", 2560),
               ("float16", 2048), ("float16", 2560), ("float32", 1088), ("float32", 2048))
@@ -534,7 +546,7 @@ GEOMETRIES = (
     # heads of 26 (312 / 12): K2 on its "bf16 D32" form, K1 padded to 64
     ("TinyBERT-4 (Jiao et al. 2020: L=4, H=312, A=12, I=1200) in bf16",
      dict(hidden_size=312, num_hidden_layers=4, num_attention_heads=12, intermediate_size=1200)),
-    # the same heads through the other attention pairs: K12 / K14 on "bf16 D32", K11 / K13 padded to 64
+    # the same heads through the other attention pairs: K12 / K13 / K14 on "bf16 D32", K11 padded to 64
     ("TinyBERT-4 in bf16, packed_qkv false",
      dict(hidden_size=312, num_hidden_layers=4, num_attention_heads=12, intermediate_size=1200, packed_qkv=False)),
     ("TinyBERT-4 in bf16, flash_save_probs",
@@ -544,7 +556,7 @@ GEOMETRIES = (
 F32_GEOMETRY, F32_SP_GEOMETRY = 6, 7  # the bert-base fp32 runs: the fp32 rows' launches
 F16_WIDE_GEOMETRY = 8  # the Megatron-width fp16 run: the fp16 wide K4-K6 rows' launches
 TINYBERT_GEOMETRY = 9  # the TinyBERT-4 run: K2's "bf16 D32" row's launches
-TINYBERT_HM_GEOMETRY, TINYBERT_SP_GEOMETRY = 10, 11  # K12's and K14's "bf16 D32" rows' launches
+TINYBERT_HM_GEOMETRY, TINYBERT_SP_GEOMETRY = 10, 11  # K12's and K13/K14's "bf16 D32" rows' launches
 BERT_BASE_F32_STEP_MS = 525.42  # phase 27's bert-base fp32 median step on the first-design K1 forward (H100, 700 W)
 # the kernel table's rows of the fp32 kernels: (row name, wrapper module,
 # wrapper, source, the TPU kernel it replaces); launches from the bert-base
@@ -568,6 +580,8 @@ FORM_KERNELS = (
      "visualbert_tpu/ops/flash_attention.py:93", TINYBERT_HM_GEOMETRY, ("bfloat16", 32)),
     ("packed_attention_sp_bwd (bf16 D32)", "flash_attention", "packed_attention_sp_bwd", "flash_attention_sp.cu",
      "visualbert_tpu/ops/flash_attention.py:441", TINYBERT_SP_GEOMETRY, ("bfloat16", 32)),
+    ("packed_attention_sp_fwd (bf16 D32)", "flash_attention", "packed_attention_sp_fwd", "flash_attention_sp.cu",
+     "visualbert_tpu/ops/flash_attention.py:409", TINYBERT_SP_GEOMETRY, ("bfloat16", 32)),
     ("heads_major_attention_fwd (fp16 D64)", "flash_attention", "heads_major_attention_fwd", "flash_attention.cu",
      "visualbert_tpu/ops/flash_attention.py:71", 3, ("float16", 64)),
     ("heads_major_attention_bwd (fp16 D64)", "flash_attention", "heads_major_attention_bwd", "flash_attention.cu",
@@ -1690,15 +1704,19 @@ def form_tols(dtype):
     return OUT_TOL, STATS_TOL, DQKV_TOL, DB_TOL
 
 
-def attention_inputs_at(torch, dtype, D, H=12):
+def attention_inputs_at(torch, dtype, D, H=12, B=None, T=None):
     """K1/K2's inputs at the main path's B, T and key bias
-    (tools/main_path.py::packed_attention_inputs) in ``dtype`` at head dim
-    D: qkv [B, T, H*3*D], qb, key_bias, dout, from RandomState(0)."""
+    (tools/main_path.py::packed_attention_inputs), or at the B and T given
+    (the text's padding then ends at T / 2), in ``dtype`` at head dim D:
+    qkv [B, T, H*3*D], qb, key_bias, dout, from RandomState(0)."""
     import numpy as np
 
     from visualbert_torch.tools import main_path
 
-    B, TT, T = main_path.B, main_path.TT, main_path.TT + main_path.TV
+    if T is None:
+        B, TT, T = main_path.B, main_path.TT, main_path.TT + main_path.TV
+    else:
+        TT = T // 2
     F = 3 * H * D
     dev, dt = card_device(torch), getattr(torch, dtype)
     rng = np.random.RandomState(0)
@@ -1808,14 +1826,18 @@ def check_attention_forms(torch, card, main_k2_ms):
             code = 0 if dtype == "bfloat16" else 1
             for pair, dp, ks in (("K1", fa.kernel_head_dim(D), (0,)), ("K2", fa.bwd_head_dim(D), (1, 2))):
                 hgs = fa.packed_x_head_groups(lib, qkv.dtype, dp, B, H, T, qkv.device)
-                limit = max(t for t in range(64, 8192, 64)
-                            if lib.vb_attn_packed_x_smem_bytes(dp, t) <= fa.MAX_SMEM_BYTES)
+                streamed = pair == "K2" and dp == fa.STREAMED_HEAD_DIM
+                # K1's check holds all three kernels' bytes (its forward bounds the path), K2's its passes'
+                smem = ((lambda t: lib.vb_attn_packed_x_smem_bytes(dp, t)) if pair == "K1" else
+                        (lambda t: max(lib.vb_attn_packed_x_info(code, dp, k, 2, t) for k in ks)))
+                limit = max(t for t in range(64, 8192, 64) if smem(t) <= fa.MAX_SMEM_BYTES)
                 for k in ks:
-                    regs, local, smem, per_sm = (lib.vb_attn_packed_x_info(code, dp, k, w, T) for w in range(4))
-                    log(f"{pair} {dtype} at head dim {dp} {fa.PACKED_KERNELS[k]}: hg {hgs[k]}, {per_sm} blocks an "
-                        f"SM, {regs} registers a thread, {local} bytes of local memory, {smem} bytes of shared "
-                        f"memory at T={T}; T up to {limit}")
-                    if dp < fa.KERNEL_HEAD_DIM and local != 0:
+                    regs, local, nsmem, per_sm = (lib.vb_attn_packed_x_info(code, dp, k, w, T) for w in range(4))
+                    grid = ("a block a (128 rows, head, batch row), two warpgroups" if streamed else f"hg {hgs[k]}")
+                    log(f"{pair} {dtype} at head dim {dp} {fa.PACKED_KERNELS[k]}: {grid}, {per_sm} blocks an "
+                        f"SM, {regs} registers a thread, {local} bytes of local memory, {nsmem} bytes of shared "
+                        f"memory at T={T}; T up to {limit}" + (" (the same bytes at every T)" if streamed else ""))
+                    if (dp < fa.KERNEL_HEAD_DIM or streamed) and local != 0:
                         raise SystemExit(f"K2 {dtype} at head dim {dp}: the {fa.PACKED_KERNELS[k]} spills {local} "
                                          f"bytes")
                 if dp != D:
@@ -1837,6 +1859,13 @@ def check_attention_forms(torch, card, main_k2_ms):
         del qkv, qb, key_bias, dout, out, stats
         torch.cuda.empty_cache()
     for dtype in ("bfloat16", "float16"):
+        check_streamed_long_t(torch, card, dtype)
+        r = form_rows[("packed_attention_bwd", dtype, 128)]
+        was = EARLIER_DESIGN_MS[("packed_attention_bwd", dtype, 128)]
+        log(f"K2 {dtype} D=128 on its streamed passes: {r['ms']:.4f} ms (SDPA {r['library_ms']:.4f}, "
+            f"{r['ms'] / r['library_ms']:.2f}x; the passes that held a head's rows {was:.4f} ms, "
+            f"{was / r['ms']:.2f}x)  [{card}]")
+    for dtype in ("bfloat16", "float16"):
         k2 = {D: form_rows[("packed_attention_bwd", dtype, D)] for D in (16, 32)}
         d64 = main_k2_ms if dtype == "bfloat16" else form_rows[("packed_attention_bwd", dtype, 64)]["ms"]
         log(f"K2 {dtype}: D=16 {k2[16]['ms']:.4f} ms (SDPA {k2[16]['library_ms']:.4f}, "
@@ -1844,6 +1873,38 @@ def check_attention_forms(torch, card, main_k2_ms):
             f"{k2[32]['library_ms']:.4f}, {k2[32]['ms'] / k2[32]['library_ms']:.2f}x), D=64 {d64:.4f} ms in this "
             f"call: D=32 {'faster' if k2[32]['ms'] < d64 else 'not faster'} than D=64  [{card}]")
     return rows, form_rows
+
+
+def check_streamed_long_t(torch, card, dtype):
+    """K2 at D = 128 in ``dtype`` at T = STREAMED_LONG_T (B = 8, 12 heads),
+    past K1's limit and the 256 its passes took while they held a head's
+    rows, on the plain forward's outputs: dqkv and the bias gradient within
+    bf16's limits at dropout 0 and 0.1, two calls giving the same bits,
+    timed beside scaled_dot_product_attention's backward."""
+    from visualbert_torch.ops import flash_attention as fa
+
+    H, B, T = 12, 8, STREAMED_LONG_T
+    qkv, qb, key_bias, dout = attention_inputs_at(torch, dtype, 128, H, B, T)
+    where = f"K2 {dtype} D=128 [{B}, {T}, {qkv.shape[-1]}] ({fa.bwd_attention_form(qkv.dtype, 128)})"
+    for rate in (0.0, 0.1):
+        out_r, stats_r = fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, 99)
+        runs = [fa.packed_attention_bwd(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 99) for _ in range(2)]
+        dqkv_r, dqb_r = fa.packed_attention_bwd_reference(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 99)
+        torch.cuda.synchronize()
+        (dqkv, dqb), again = runs
+        e_dq, r_dq = rel_err(dqkv, dqkv_r)
+        e_db, r_db = rel_err(dqb, dqb_r)
+        same = all(torch.equal(a, b) for a, b in zip(runs[0], again))
+        log(f"{where} rate {rate}: dqkv max_abs_err {e_dq:.3e} (rel {r_dq:.3e}, tol {DQKV_TOL}); dqkv_bias "
+            f"max_abs_err {e_db:.3e} (rel {r_db:.3e}, tol {DB_TOL}); two calls give the same bits: {same}")
+        if not (r_dq <= DQKV_TOL and r_db <= DB_TOL and same):
+            raise SystemExit(f"{where} disagrees with its plain version at rate {rate}, or two calls differ")
+        del runs, dqkv, dqb, again, dqkv_r, dqb_r
+    ms = cuda_time_ms(lambda: fa.packed_attention_bwd(qkv, qb, key_bias, dout, out_r, stats_r, H, 0.1, 5), 10)
+    _, sdpa = sdpa_ms_in(torch, qkv, qb, key_bias, dout, H, 0.1)
+    log(f"{where} rate 0.1: {ms:.4f} ms, SDPA's backward {sdpa:.4f} ms ({ms / sdpa:.2f}x)  [{card}]")
+    del qkv, qb, key_bias, dout, out_r, stats_r
+    torch.cuda.empty_cache()
 
 
 def xent_inputs_at(torch, dtype, H, N, V=30522):
@@ -2004,21 +2065,27 @@ def variant_inputs_at(torch, variant, dtype, D, H=12):
     return x, key_bias, dout_v, qkv, qb, dout
 
 
+def variant_fwd_head_dim(fa, variant, D):
+    """The head dim a K11 (kernel_head_dim) or K13 (bwd_head_dim, its own
+    small-row forms below 64) form's forward runs D at."""
+    return fa.kernel_head_dim(D) if variant == "heads_major" else fa.bwd_head_dim(D)
+
+
 def variant_info(lib, fa, variant, dtype, D, T):
     """[registers, local bytes, shared bytes, blocks an SM] of the forward,
     dQ pass and dK/dV pass of a K11-K14 form: the forward at
-    kernel_head_dim(D), the backward's passes at bwd_head_dim(D)."""
+    variant_fwd_head_dim, the backward's passes at bwd_head_dim(D)."""
     if dtype == "float32":
         info = lib.vb_attn_f32_info if variant == "heads_major" else lib.vb_attn_f32_sp_info
         return [[info(k, w, D) for w in range(4)] for k in range(3)]
     info = lib.vb_attn_hm_x_info if variant == "heads_major" else lib.vb_attn_sp_x_info
-    dps = (fa.kernel_head_dim(D), fa.bwd_head_dim(D), fa.bwd_head_dim(D))
+    dps = (variant_fwd_head_dim(fa, variant, D), fa.bwd_head_dim(D), fa.bwd_head_dim(D))
     return [[info(0 if dtype == "bfloat16" else 1, dp, k, w, T) for w in range(4)] for k, dp in enumerate(dps)]
 
 
 def variant_geometry(lib, fa, variant, x, D):
     """{kernel: (instantiated head dim, hg, T limit)} of a bf16 or fp16
-    K11-K14 form on x: the forward at kernel_head_dim(D), the backward's
+    K11-K14 form on x: the forward at variant_fwd_head_dim, the backward's
     two passes at bwd_head_dim(D) (their own shared memory and occupancy)."""
     B, T = (x.shape[0], x.shape[3]) if variant == "heads_major" else x.shape[:2]
     H = x.shape[2] if variant == "heads_major" else x.shape[2] // (3 * D)
@@ -2026,7 +2093,7 @@ def variant_geometry(lib, fa, variant, x, D):
     groups = fa.hm_x_head_groups if variant == "heads_major" else fa.sp_x_head_groups
     smem = getattr(lib, f"vb_attn_{pre}_x_smem_bytes")
     out = {}
-    for k, dp in enumerate((fa.kernel_head_dim(D), fa.bwd_head_dim(D), fa.bwd_head_dim(D))):
+    for k, dp in enumerate((variant_fwd_head_dim(fa, variant, D), fa.bwd_head_dim(D), fa.bwd_head_dim(D))):
         hg = groups(lib, x.dtype, dp, B, H, T, x.device)[k]
         out[fa.PACKED_KERNELS[k]] = (dp, hg, max(t for t in range(64, 8192, 64) if smem(dp, t) <= fa.MAX_SMEM_BYTES))
     return out
@@ -2043,10 +2110,10 @@ def check_variant_forms(torch, card):
     (the unpadded head dim's bytes, as the JAX functions move them, and
     products), printed with each kernel's registers, local bytes, shared
     bytes and blocks an SM (bf16, fp16: also its instantiated head dim,
-    heads a block and T limit; K12's and K14's small forms at D <= 32 may
-    not spill), and K12 / K14 at D = 16 and 32 beside SDPA and their padded
-    route's reading (EARLIER_DESIGN_MS). Returns {(wrapper name, dtype, D):
-    table row}."""
+    heads a block and T limit; K12's, K13's and K14's small forms at D <= 32
+    may not spill), and K12 / K13 / K14 at D = 16 and 32 beside SDPA and
+    their padded route's reading (EARLIER_DESIGN_MS). Returns {(wrapper
+    name, dtype, D): table row}."""
     from visualbert_torch.ops import _build
     from visualbert_torch.ops import flash_attention as fa
 
@@ -2064,7 +2131,8 @@ def check_variant_forms(torch, card):
             else:
                 t_out, t_bwd = (F32_REL_TOL, F32_REL_TOL) if f32 else (SP_OUT_TOL, SP_DQKV_TOL)
             t_st = F32_ABS_TOL if f32 else STATS_TOL
-            where = (f"{dtype} D={D} B={B} T={T} H={H} (forms {fa.attention_form(x.dtype, D)}, "
+            fwd_form = fa.attention_form if variant == "heads_major" else fa.sp_attention_form
+            where = (f"{dtype} D={D} B={B} T={T} H={H} (forms {fwd_form(x.dtype, D)}, "
                      f"{k_bwd} {fa.bwd_attention_form(x.dtype, D)})")
             r_f, r_b = dict(max_abs_err=0.0), dict(max_abs_err=0.0)
             for rate in (0.0, 0.1):
@@ -2128,8 +2196,8 @@ def check_variant_forms(torch, card):
                     at = f" at head dim {dp}: hg {hg}, T up to {limit},"
                 log(f"{k_fwd}/{k_bwd} {where} {kernel}{at} {i[0]} registers a thread, {i[1]} bytes of local memory, "
                     f"{i[2]} bytes of shared memory, {i[3]} blocks an SM")
-                small = not f32 and k > 0 and fa.bwd_head_dim(D) < fa.KERNEL_HEAD_DIM
-                if (f32 or small) and i[1] != 0:  # the register-tiled fp32 kernels, K12's and K14's small forms
+                small = not f32 and (k > 0 or variant == "save_probs") and fa.bwd_head_dim(D) < fa.KERNEL_HEAD_DIM
+                if (f32 or small) and i[1] != 0:  # the register-tiled fp32 kernels, K12-K14's small forms
                     raise SystemExit(f"{k_fwd}/{k_bwd} {where}: the {kernel} spills {i[1]} bytes")
             for name, r in ((fwd, r_f), (bwd, r_b)):
                 log(row_line(f"{name} {where}", r, card))
@@ -2137,7 +2205,8 @@ def check_variant_forms(torch, card):
                 rows[(name, dtype, D)] = r
             del x, key_bias, dout, qkv, qb, dout_p, out, second
             torch.cuda.empty_cache()
-    for bwd, k_bwd in (("heads_major_attention_bwd", "K12"), ("packed_attention_sp_bwd", "K14")):
+    for bwd, k_bwd in (("heads_major_attention_bwd", "K12"), ("packed_attention_sp_fwd", "K13"),
+                       ("packed_attention_sp_bwd", "K14")):
         for dtype in ("bfloat16", "float16"):
             text = []
             for D in (16, 32):
@@ -2282,15 +2351,16 @@ def geometry_forms(cfg, want):
     """{wrapper name: {form: launches}} that a run of ``want`` launches (the
     LABELS order) at ``cfg``'s dtype and widths must count, for every
     wrapper that counts forms (K1, K2, K4-K14)."""
-    from visualbert_torch.ops.flash_attention import attention_form, bwd_attention_form
+    from visualbert_torch.ops.flash_attention import attention_form, bwd_attention_form, sp_attention_form
     from visualbert_torch.ops.layer_norm import layer_norm_form
     from visualbert_torch.ops.mlm_xent import xent_form
 
     a_form, l_form = attention_form(cfg.dtype, cfg.head_dim), layer_norm_form(cfg.dtype, cfg.hidden_size)
     b_form = bwd_attention_form(cfg.dtype, cfg.head_dim)
+    sp_form = sp_attention_form(cfg.dtype, cfg.head_dim)
     x_form = xent_form(cfg.dtype, cfg.hidden_size) if cfg.fused_mlm_xent else None
     form_of = {0: a_form, 1: b_form, 3: x_form, 4: x_form, 5: x_form, 6: l_form, 7: l_form, 8: l_form, 9: l_form,
-               10: a_form, 11: b_form, 12: a_form, 13: b_form}
+               10: a_form, 11: b_form, 12: sp_form, 13: b_form}
     return {KERNELS[i][0]: ({f: want[i]} if want[i] else {}) for i, f in form_of.items()}
 
 

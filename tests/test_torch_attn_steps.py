@@ -292,3 +292,41 @@ def test_the_ab_tool_runs_each_backward_unpadded_and_padded_as_its_wrapper(monke
     assert code == 0 and ok and set(errors) == ({"dqkv", "dqb"} if pair == "K2" else {"dqkv"})
     assert got[0].shape == want[0].shape and got[0].dtype == getattr(torch, dtype)
     assert errors["dqkv"] <= 1e-6
+
+
+def test_another_trees_d128_backward_gets_a_row_of_bias_partials_a_batch_row(monkeypatch):
+    """K2 at head dim 128 of a build without ``vb_attn_packed_x_bias_rows``
+    (its passes held a head's rows, a block a batch row) goes through
+    BiasRows: the wrapper hands it one row of bias partials a batch row and
+    sums those; a build with the entry point keeps its own rows."""
+    import ctypes
+
+    import numpy as np
+
+    from visualbert_torch.ops import flash_attention as fa
+    from visualbert_torch.tools import attn_ab
+
+    class Old:
+        def __init__(self, parts):
+            self.parts = np.ascontiguousarray(parts, dtype=np.float32)
+
+        def vb_attn_packed_x_bwd(self, *args):
+            ctypes.memmove(args[7], self.parts.ctypes.data, self.parts.nbytes)
+            return 0
+
+    class New:
+        def vb_attn_packed_x_bias_rows(self, dh, T):
+            return -(-T // 128)
+
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    B, T, H, D = 2, 228, 1, 128
+    parts = np.random.RandomState(1).randn(B, 1, 3 * H * D)
+    old, new = attn_ab.BiasRows(Old(parts)), attn_ab.BiasRows(New())
+    assert fa.packed_bias_rows(old, D, T) == 1 and fa.packed_bias_rows(new, D, T) == 2
+    qkv, qb = torch.zeros((B, T, 3 * H * D), dtype=torch.bfloat16), torch.zeros(3 * H * D, dtype=torch.bfloat16)
+    out = torch.zeros((B, T, H * D), dtype=torch.bfloat16)
+    code, dqkv, dqb = fa.launch_packed_x_bwd(old, qkv, qb, torch.zeros((B, T)), out, out, torch.zeros((B, H, T)), H,
+                                             0.1, 3, 1, 1, 1.0 / 128 ** 0.5)
+    assert code == 0 and dqb.dtype == torch.bfloat16
+    np.testing.assert_allclose(dqb.float().numpy(), parts.sum(axis=(0, 1)), rtol=1e-2, atol=1e-2)
+    assert attn_ab.STREAMED_SHAPES[0] == (128, 228) and max(T for _, T in attn_ab.STREAMED_SHAPES) <= 256

@@ -5,7 +5,7 @@ On CPU tensors the wrappers run their plain versions, the math of every
 kernel form (bf16 and fp16 at a padded head dim or width, fp32). Each is
 held against the JAX function on the same numpy inputs, its Pallas kernel
 in interpret mode: packed attention at head dims 8, 16, 32 and 128 in fp32
-and 64 in fp16, the fused cross-entropy at widths 32, 64, 256, 384 and,
+and 64, 96 and 128 (K2's streamed form) in fp16, the fused cross-entropy at widths 32, 64, 256, 384 and,
 past 1024 (the wide form in fp16), 1088 and 2048 in fp32 and fp16
 (forward against ``mlm_xent``, backward against the JAX backward kernels
 with the JAX forward's lse, as ``test_torch_xent.py`` does: the JAX op's
@@ -69,7 +69,7 @@ def attention_inputs(seed, B=2, T=21, H=2, D=16):
 
 
 @pytest.mark.parametrize("dtype,D", [("float32", 8), ("float32", 16), ("float32", 32), ("float32", 128),
-                                     ("float16", 64)])
+                                     ("float16", 64), ("float16", 96), ("float16", 128)])
 def test_packed_attention_matches_jax_at_every_dtype_and_head_dim(dtype, D):
     """out, dqkv and the qkv-bias gradient of flash_attention_packed (the
     plain K1/K2 of that form) against the JAX op, dropout off."""

@@ -1443,24 +1443,79 @@ def test_attention_forms_drop_the_plain_mask(cuda, dtype, D):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_attention_at_head_dim_128_takes_t_up_to_256(cuda, dtype):
-    """At D = 128 a K/V row takes twice D = 64's shared memory: T = 256
-    runs, 257 is refused with the limit named; fp32 has no such limit."""
-    qkv, qb, key_bias, dout = form_attention_inputs(1, 256, 2, 128, dtype, cuda)
+    """At D = 128 K1's forward holds a head's K/V rows, twice D = 64's
+    shared memory: its longest T (above 256, the limit the backward's
+    passes set before they streamed their tiles) runs and one more is
+    refused with the limit named; K2's streamed passes hold no T's rows and
+    take T past K1's limit (on the plain forward's outputs); fp32 has no
+    such limit."""
+    lib = _build.library()
+    longest = max(t for t in range(1, 1024) if lib.vb_attn_packed_x_smem_bytes(128, t) <= fa.MAX_SMEM_BYTES)
+    assert longest > 256
+    qkv, qb, key_bias, dout = form_attention_inputs(1, longest, 2, 128, dtype, cuda)
     out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, 2, 0.0, 0)
     out_r, _ = fa.packed_attention_fwd_reference(qkv, qb, key_bias, 2, 0.0, 0)
     torch.cuda.synchronize()
     assert rel_err(out, out_r) < REL_TOL
-    qkv, qb, key_bias, dout = form_attention_inputs(1, 257, 2, 128, dtype, cuda)
-    for what in (lambda: fa.packed_attention_fwd(qkv, qb, key_bias, 2, 0.0, 0),
-                 lambda: fa.packed_attention_bwd(qkv, qb, key_bias, dout, dout, key_bias.view(1, 1, -1).expand(1, 2, 257)
-                                                 .contiguous(), 2, 0.0, 0)):
-        with pytest.raises(ValueError, match="T up to 256"):
-            what()
+    T = longest + 1
+    qkv, qb, key_bias, dout = form_attention_inputs(1, T, 2, 128, dtype, cuda)
+    with pytest.raises(ValueError, match=f"T up to {longest}"):
+        fa.packed_attention_fwd(qkv, qb, key_bias, 2, 0.0, 0)
+    out_r, stats_r = fa.packed_attention_fwd_reference(qkv, qb, key_bias, 2, 0.0, 0)
+    dqkv, dqb = fa.packed_attention_bwd(qkv, qb, key_bias, dout, out_r, stats_r, 2, 0.0, 0)
+    dqkv_r, dqb_r = fa.packed_attention_bwd_reference(qkv, qb, key_bias, dout, out_r, stats_r, 2, 0.0, 0)
+    torch.cuda.synchronize()
+    assert rel_err(dqkv, dqkv_r) < REL_TOL and rel_err(dqb, dqb_r) < REL_TOL
     qkv, qb, key_bias, dout = form_attention_inputs(1, 1024, 1, 128, torch.float32, cuda)
     out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, 1, 0.0, 0)
     out_r, stats_r = fa.packed_attention_fwd_reference(qkv, qb, key_bias, 1, 0.0, 0)
     torch.cuda.synchronize()
     assert rel_err(out, out_r) < F32_REL_TOL and float((stats - stats_r).abs().max()) < F32_ABS_TOL
+
+
+# ---- K2 at head dim 128 (bf16, fp16): the streamed two-warpgroup passes ----
+
+
+@pytest.mark.parametrize("B,T,H", [(4, 228, 6), (2, 512, 4), (1, 1024, 3), (3, 37, 2), (2, 129, 2)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_streamed_backward_at_head_dim_128_matches_plain(cuda, dtype, B, T, H, rate):
+    """K2 at D = 128 (a block a 128 rows of one (batch row, head), K/V or
+    Q/dO resident, the other operand streamed through a TMA ring into two
+    consumer warpgroups) against its plain version within bf16's limits, at
+    the main path's T = 228 and at T = 512 and 1024, past K1's limit (on the
+    plain forward's outputs), with the bias gradient summed from the
+    blocks' partials; two calls give the same bits."""
+    qkv, qb, key_bias, dout = form_attention_inputs(B, T, H, 128, dtype, cuda)
+    out_r, stats_r = fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, 99)
+    form = fa.bwd_attention_form(dtype, 128)
+    before = fa.packed_attention_bwd.forms.get(form, 0)
+    runs = [fa.packed_attention_bwd(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 99) for _ in range(2)]
+    dqkv_r, dqb_r = fa.packed_attention_bwd_reference(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 99)
+    torch.cuda.synchronize()
+    (dqkv, dqb), (dqkv2, dqb2) = runs
+    assert fa.packed_attention_bwd.forms[form] == before + 2
+    assert dqkv.dtype == dtype and dqkv.shape == qkv.shape and dqb.shape == qb.shape
+    assert rel_err(dqkv, dqkv_r) < REL_TOL
+    assert rel_err(dqb, dqb_r) < REL_TOL
+    assert torch.equal(dqkv, dqkv2) and torch.equal(dqb, dqb2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_streamed_backward_at_head_dim_128_does_not_spill(cuda, dtype):
+    """Both streamed passes keep every value in registers (two warpgroups,
+    up to 255 a thread), one block an SM, the same shared memory at every T;
+    their bias partials are one row a 128-row block, as the wrapper sizes
+    them."""
+    lib = _build.library()
+    code = 0 if dtype == torch.bfloat16 else 1
+    for which in (1, 2):
+        regs, local, smem, per_sm = (lib.vb_attn_packed_x_info(code, 128, which, w, 228) for w in range(4))
+        assert 0 < regs <= 255 and local == 0 and per_sm == 1, (which, regs, local, per_sm)
+        assert lib.vb_attn_packed_x_info(code, 128, which, 2, 4096) == smem <= fa.MAX_SMEM_BYTES
+    for T in (1, 128, 129, 228, 1024):
+        assert lib.vb_attn_packed_x_bias_rows(128, T) == fa.packed_bias_rows(lib, 128, T) == -(-T // 128)
+        assert lib.vb_attn_packed_x_bias_rows(64, T) == fa.packed_bias_rows(lib, 64, T) == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8], ids=str)
@@ -1786,13 +1841,14 @@ def test_variant_attention_forms_match_plain(cuda, variant, dtype, D, B, T, H, r
     within one bf16 ulp of its plain value in every dtype; K14 fed K13's own
     probabilities and output within bf16's limit in every dtype (a
     probability one bf16 ulp from the plain one moves dqkv by more than
-    fp32's bar); each launch counted in its form: the forward's by
-    attention_form, the backward's by bwd_attention_form (K12 and K14 run
-    heads up to 32 on their small-row forms)."""
+    fp32's bar); each launch counted in its form: K11's by attention_form,
+    K13's by sp_attention_form, the backward's by bwd_attention_form (K12,
+    K13 and K14 run heads up to 32 on their small-row forms)."""
     qkv, key_bias, dout = variant_inputs(variant, B, T, H, D, dtype, cuda)
     fwd_fn = fa.heads_major_attention_fwd if variant == "heads_major" else fa.packed_attention_sp_fwd
     bwd_fn = fa.heads_major_attention_bwd if variant == "heads_major" else fa.packed_attention_sp_bwd
-    form, bwd_form = fa.attention_form(dtype, D), fa.bwd_attention_form(dtype, D)
+    form_of = fa.attention_form if variant == "heads_major" else fa.sp_attention_form
+    form, bwd_form = form_of(dtype, D), fa.bwd_attention_form(dtype, D)
     before, before_bwd = fwd_fn.forms.get(form, 0), bwd_fn.forms.get(bwd_form, 0)
     (out, second), dqkv = variant_run(variant, qkv, key_bias, dout, H, rate, 99)
     (out_r, second_r), dqkv_r = variant_run(variant, qkv, key_bias, dout, H, rate, 99, plain=True)
@@ -2204,9 +2260,9 @@ def small_variant_limit(lib, variant, dp):
 
 def small_variant_bwd(variant, qkv, key_bias, dout, H, rate, seed, plain=False):
     """The backward (kernel or plain) on the plain forward's outputs, the
-    plain forward's (out, stats or probs), and, at T <= 704, the kernel
-    chain's dqkv: K14 fed K13's own probabilities and output (None for
-    heads_major or past K13's limit)."""
+    plain forward's (out, stats or probs), and the kernel chain's dqkv: K14
+    fed K13's own probabilities and output (None for heads_major; K13 runs
+    on its small-row form, whose limit is K14's)."""
     if variant == "heads_major":
         out_r, second_r = fa.heads_major_attention_fwd_reference(qkv, key_bias, rate, seed)
         bwd = fa.heads_major_attention_bwd_reference if plain else fa.heads_major_attention_bwd
@@ -2215,7 +2271,7 @@ def small_variant_bwd(variant, qkv, key_bias, dout, H, rate, seed, plain=False):
     bwd = fa.packed_attention_sp_bwd_reference if plain else fa.packed_attention_sp_bwd
     dqkv = bwd(qkv, second_r, dout, out_r, H, rate, seed)
     own = None
-    if not plain and qkv.shape[1] <= 704:
+    if not plain:
         out, probs = fa.packed_attention_sp_fwd(qkv, key_bias, H, rate, seed)
         own = fa.packed_attention_sp_bwd(qkv, probs, dout, out, H, rate, seed)
     return dqkv, (out_r, second_r), own
@@ -2230,9 +2286,10 @@ def test_small_variant_backward_matches_plain(cuda, variant, dtype, D, T, rate):
     """K12 and K14 at head dims up to 32 run on their "D16" / "D32" forms
     (heads of 16 and 32 in place, 8 and 26 zero-padded to them) against
     their plain versions within bf16's limit, at T = 1, 65, 228 and the
-    form's largest T (above the forwards' 704: the backward on the plain
-    forward's outputs there); K14 also fed K13's own probabilities and
-    output (its D = 64 route) up to 704; each launch counted in its form."""
+    form's largest T (above the D = 64 forms' 704: the backward on the
+    plain forward's outputs); K14 also fed K13's own probabilities and
+    output (K13 on its small-row form too, at every T); each launch counted
+    in its form."""
     lib = _build.library()
     dp = fa.bwd_head_dim(D)
     if T == "limit":
@@ -2251,9 +2308,41 @@ def test_small_variant_backward_matches_plain(cuda, variant, dtype, D, T, rate):
     assert dqkv.dtype == dtype and dqkv.shape == qkv.shape
     assert rel_err(dqkv, dqkv_r) < REL_TOL
     if variant == "save_probs":
-        assert (own is None) == (T > 704)
-        if own is not None:
-            assert rel_err(own, dqkv_r) < REL_TOL
+        assert own is not None and rel_err(own, dqkv_r) < REL_TOL
+
+
+@pytest.mark.parametrize("T", [1, 65, 228, "limit"])
+@pytest.mark.parametrize("D", [8, 16, 26, 32])
+@pytest.mark.parametrize("dtype", SMALL_DTYPES, ids=str)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_small_save_probs_forward_matches_plain(cuda, dtype, D, T, rate):
+    """K13 at head dims up to 32 runs on its "D16" / "D32" form (heads of
+    16 and 32 in place, 8 and 26 zero-padded to them), counted by
+    sp_attention_form, against its plain version: out within bf16's limit,
+    every bf16 probability within one bf16 ulp of its plain value, in K14's
+    row layout, and K14 fed K13's own output within bf16's limit, at T = 1,
+    65, 228 and the form's largest T (above the D = 64 form's 704)."""
+    lib = _build.library()
+    dp = fa.bwd_head_dim(D)
+    if T == "limit":
+        T = small_variant_limit(lib, "save_probs", dp)
+        assert T > 704
+    B, H = (2, 3) if T <= 228 else (1, 2)
+    qkv, key_bias, dout = variant_inputs("save_probs", B, T, H, D, dtype, cuda)
+    form = fa.sp_attention_form(dtype, D)
+    before = fa.packed_attention_sp_fwd.forms.get(form, 0)
+    out, probs = fa.packed_attention_sp_fwd(qkv, key_bias, H, rate, 99)
+    out_r, probs_r = fa.packed_attention_sp_fwd_reference(qkv, key_bias, H, rate, 99)
+    own = fa.packed_attention_sp_bwd(qkv, probs, dout, out, H, rate, 99)
+    dqkv_r = fa.packed_attention_sp_bwd_reference(qkv, probs_r, dout, out_r, H, rate, 99)
+    torch.cuda.synchronize()
+    assert form == f"{'bf16' if dtype == torch.bfloat16 else 'fp16'} D{dp}"
+    assert fa.packed_attention_sp_fwd.forms[form] == before + 1
+    assert out.dtype == dtype and out.shape == out_r.shape and probs.shape == (B, H, T, T)
+    assert probs.stride(2) == fa.probs_row_stride(T)
+    assert rel_err(out, out_r) < REL_TOL
+    assert bool(((probs.float() - probs_r.float()).abs() <= bf16_ulps(probs_r)).all())
+    assert rel_err(own, dqkv_r) < REL_TOL
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 16), (torch.float16, 32), (torch.bfloat16, 26),
@@ -2272,7 +2361,8 @@ def test_small_variant_backward_repeats_bit_for_bit(cuda, variant, dtype, D):
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_small_variant_backward_refuses_past_its_limit(cuda, variant, dtype):
     """One T past each small form's limit is refused with the limit named
-    (the forward, on its D = 64 form, refuses past 704 before that)."""
+    (K11, on its D = 64 form, refuses past 704 before that; K13 on its
+    small-row form at K14's limit)."""
     lib = _build.library()
     bwd_fn = getattr(fa, SMALL_VARIANT_BWD[variant][0])
     for dp in (16, 32):
@@ -2291,9 +2381,9 @@ def test_small_variant_backward_refuses_past_its_limit(cuda, variant, dtype):
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_small_variant_backward_does_not_spill(cuda, variant, dtype, dp):
     """K12's and K14's dQ and dK/dV passes at dh 16 and 32 keep every value
-    in registers and fit blocks an SM at the main path's T; there is no
-    forward at these head dims: its info is -1 and its entry point refuses
-    them."""
+    in registers and fit blocks an SM at the main path's T; so does K13's
+    forward there, whose entry point takes these head dims; K11 has no
+    forward at them: its info is -1 and its entry point refuses them."""
     lib = _build.library()
     info, smem = getattr(lib, SMALL_VARIANT_BWD[variant][2]), getattr(lib, SMALL_VARIANT_BWD[variant][1])
     code = 0 if dtype == torch.bfloat16 else 1
@@ -2301,13 +2391,17 @@ def test_small_variant_backward_does_not_spill(cuda, variant, dtype, dp):
         regs, local, shared, per_sm = (info(code, dp, which, w, 228) for w in range(4))
         assert 0 < regs <= 255 and local == 0 and per_sm >= 1, (which, regs, local, per_sm)
         assert shared < smem(64, 228)
-    assert info(code, dp, 0, 0, 228) == -1
     qkv, key_bias, _ = variant_inputs(variant, 1, 37, 2, dp, dtype, cuda)
     if variant == "heads_major":
+        assert info(code, dp, 0, 0, 228) == -1
         code, *_ = fa.launch_hm_x_fwd(lib, qkv, key_bias, 0.0, 0, 1, 1.0)
+        assert code != 0
     else:
+        regs, local, shared, per_sm = (info(code, dp, 0, w, 228) for w in range(4))
+        assert 0 < regs <= 255 and local == 0 and per_sm >= 1 and shared < smem(64, 228), (regs, local, per_sm)
         code, *_ = fa.launch_sp_x_fwd(lib, qkv, key_bias, 2, 0.0, 0, 1, 1.0)
-    assert code != 0
+        torch.cuda.synchronize()
+        assert code == 0
 
 
 @pytest.mark.parametrize("T", [37, 228])

@@ -166,9 +166,11 @@ def longest_t(dp):
 def test_the_variant_backwards_refuse_t_at_their_own_head_dim(monkeypatch, variant, D, dp, dtype):
     """Below 33 the backwards K12 and K14 check T against their small-row
     form's shared memory (head dim 16 or 32) and name that form's limit; the
-    forwards K11 and K13 check it against the D = 64 form's, a shorter limit
-    that bounds the path as a whole. The wrappers are made to take CPU
-    tensors for CUDA ones; each refuses before it would launch."""
+    heads-major forward K11 checks it against the D = 64 form's, a shorter
+    limit that bounds that path as a whole, while the save-probs forward K13
+    runs on its own small-row form and checks the same head dim as K14 (the
+    save-probs path is bounded by the two together). The wrappers are made to
+    take CPU tensors for CUDA ones; each refuses before it would launch."""
     lib = SmemQueries()
     monkeypatch.setattr(fa._build, "library", lambda: lib)
     monkeypatch.setattr(fa, "_on_cuda", lambda what, x: True)
@@ -188,9 +190,10 @@ def test_the_variant_backwards_refuse_t_at_their_own_head_dim(monkeypatch, varia
         bwd()
     assert set(lib.asked) == {dp}
     lib.asked.clear()
-    with pytest.raises(ValueError, match=f"takes T up to {longest_t(64)}$"):
+    fwd_dp = 64 if variant == "heads_major" else dp
+    with pytest.raises(ValueError, match=f"takes T up to {longest_t(fwd_dp)}$"):
         fwd()
-    assert set(lib.asked) == {64} and longest_t(64) < longest_t(dp)
+    assert set(lib.asked) == {fwd_dp} and longest_t(64) < longest_t(dp)
 
 
 def waves(B, H, hg, slots):
@@ -215,3 +218,91 @@ def test_head_group_reproduces_the_hg_sweep_ordering():
     assert head_group(128, 12, 132, 2) == 6
     assert head_group(96, 12, 132, 2) == 1
     assert all(head_group(B, 12, 132, 2) != 4 for B in (128, 256))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("D,dp", [(8, 16), (16, 16), (26, 32), (32, 32)])
+def test_the_save_probs_forward_takes_t_up_to_its_small_form(monkeypatch, D, dp, dtype):
+    """K13 at head dims up to 32 runs on its own small-row form: its check
+    takes T up to that form's limit (longer than the D = 64 form's) and
+    names it one past it."""
+    lib = SmemQueries()
+    monkeypatch.setattr(fa._build, "library", lambda: lib)
+    H = 2
+    for T, ok in ((longest_t(dp), True), (longest_t(dp) + 1, False)):
+        qkv = torch.zeros((1, T, 3 * H * D), dtype=dtype)
+        if ok:
+            assert fa._check_sp("K13", qkv, torch.zeros((1, T)), H) is lib
+        else:
+            with pytest.raises(ValueError, match=f"takes T up to {longest_t(dp)}$"):
+                fa._check_sp("K13", qkv, torch.zeros((1, T)), H)
+    assert set(lib.asked) == {dp} and longest_t(dp) > longest_t(64)
+
+
+class PackedQueries:
+    """A stand-in for the packed kernels' shared-memory queries: K1's
+    forward grows with T (4 * dp bytes a row of T), K2's two passes at head
+    dim 128 (the streamed ones) hold a fixed STREAMED_BYTES whatever T, and
+    at the other head dims grow as the forward does."""
+
+    STREAMED_BYTES = 207944
+
+    def _bytes(self, dp, k, t):
+        if k > 0 and dp == fa.STREAMED_HEAD_DIM:
+            return self.STREAMED_BYTES
+        return 4 * dp * t
+
+    def vb_attn_packed_x_info(self, code, dp, k, what, t):
+        assert what == 2
+        return self._bytes(dp, k, t)
+
+    def vb_attn_packed_x_smem_bytes(self, dp, t):
+        return max(self._bytes(dp, k, t) for k in range(3))
+
+
+class WouldLaunch(Exception):
+    pass
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("D", [96, 128])
+def test_k2_at_head_dim_128_refuses_no_t_and_k1_names_its_limit(monkeypatch, D, dtype):
+    """At head dim 128 (96 padded to it) K2's streamed passes keep no T's
+    rows in shared memory: the backward passes its checks at any T and goes
+    on to its launch. K1's forward still holds a head's keys: it refuses one
+    T past its limit and names it, and that limit bounds the packed path."""
+    lib = PackedQueries()
+    monkeypatch.setattr(fa._build, "library", lambda: lib)
+    monkeypatch.setattr(fa, "_on_cuda", lambda what, x: True)
+
+    def would_launch(*args):
+        raise WouldLaunch()
+
+    monkeypatch.setattr(fa, "packed_x_head_groups", would_launch)
+    monkeypatch.setattr(fa, "launch_packed_x_bwd", would_launch)
+    H, k1_limit = 2, fa.MAX_SMEM_BYTES // (4 * 128)
+    for T in (k1_limit + 1, 4 * k1_limit):
+        qkv, qb = torch.zeros((1, T, 3 * H * D), dtype=dtype), torch.zeros(3 * H * D, dtype=dtype)
+        key_bias, dout, stats = torch.zeros((1, T)), torch.zeros((1, T, H * D), dtype=dtype), torch.zeros((1, H, T))
+        with pytest.raises(WouldLaunch):
+            fa.packed_attention_bwd(qkv, qb, key_bias, dout, dout, stats, H, 0.0, 0)
+        with pytest.raises(ValueError, match=f"forward \\(K1\\).*takes T up to {k1_limit}$"):
+            fa.packed_attention_fwd(qkv, qb, key_bias, H, 0.0, 0)
+    qkv = torch.zeros((1, k1_limit, 3 * H * D), dtype=dtype)
+    with pytest.raises(WouldLaunch):
+        fa.packed_attention_fwd(qkv, qkv[0, 0], torch.zeros((1, k1_limit)), H, 0.0, 0)
+
+
+@pytest.mark.parametrize("D,dp", [(16, 16), (26, 32), (64, 64)])
+def test_k2_below_128_keeps_its_limit(monkeypatch, D, dp):
+    """Below 128 K2's passes hold a head's rows as before: one T past their
+    limit is refused with it named."""
+    lib = PackedQueries()
+    monkeypatch.setattr(fa._build, "library", lambda: lib)
+    monkeypatch.setattr(fa, "_on_cuda", lambda what, x: True)
+    H, T = 2, fa.MAX_SMEM_BYTES // (4 * dp) + 1
+    qkv, qb = torch.zeros((1, T, 3 * H * D)), torch.zeros(3 * H * D)
+    qkv, qb = qkv.to(torch.bfloat16), qb.to(torch.bfloat16)
+    dout = torch.zeros((1, T, H * D), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"backward \\(K2\\).*takes T up to {T - 1}$"):
+        fa.packed_attention_bwd(qkv, qb, torch.zeros((1, T)), dout, dout, torch.zeros((1, H, T)), H, 0.0, 0)

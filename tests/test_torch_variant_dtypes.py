@@ -10,8 +10,9 @@ inputs, its Pallas kernel in interpret mode, dropout off:
 * the heads-major attention (``flash_attention_heads_major``) forward and
   backward against ``flash_attention(..., heads_major=True)`` and
   ``jax.vjp``, in fp32 at head dims 8, 16, 32 and 128 and in fp16 at 64,
-  26 and 32 (the head dims at which the backwards K12 and K14 run on small
-  rows: 26 padded to 32, 32 in place);
+  26, 32 and 16 (the head dims at which the backwards K12 and K14 and the
+  save-probs forward K13 run on small rows: 26 padded to 32, 16 and 32 in
+  place);
 * the save-probs attention (``flash_attention_packed(...,
   save_probs=True)``) at the same dtypes and head dims: out against the JAX
   op, each saved bf16 probability within one bf16 ulp of the JAX kernel's,
@@ -27,10 +28,11 @@ two frameworks round an intermediate at another place); the LayerNorm's
 bf16 outputs within one bf16 ulp at |v| < 4 (atol 1/64) and its fp32
 gradients at ``tests/test_torch_layer_norm.py``'s 2e-4 / 1e-3. The
 zero-padding the bf16 and fp16 kernels take (``pad_heads_major``,
-``pad_heads``, D = 8, 16, 32, 96 to 64 or 128; the backwards' 8 to 16 and
-26 to 32) is held to the unpadded plain version at dropout 0 and 0.1, the
-forwards K11/K13 count their forms by ``attention_form`` and the backwards
-K12/K14 by ``bwd_attention_form``, ``pack_bits`` / ``unpack_bits`` round
+``pad_heads``, D = 8, 16, 32, 96 to 64 or 128; the backwards' and K13's 8
+to 16 and 26 to 32) is held to the unpadded plain version at dropout 0 and
+0.1, the forward K11 counts its forms by ``attention_form``, K13 by
+``sp_attention_form`` and the backwards K12/K14 by ``bwd_attention_form``,
+``pack_bits`` / ``unpack_bits`` round
 trip at widths no multiple of 8, and ``tiny()`` with ``packed_qkv: false``
 or ``flash_save_probs: true`` and the other kernel flags on matches the JAX
 model on the same exported weights. The kernels themselves are tested on
@@ -63,7 +65,7 @@ LN_GRAD_ATOL, LN_GRAD_RTOL = 2e-4, 1e-3
 BF16_ATOL = 1.0 / 64
 SP_GRAD_TOL = 1e-2  # tests/test_torch_attention_variants.py's: bf16 probabilities on both sides
 FORMS = [("float32", 8), ("float32", 16), ("float32", 32), ("float32", 128), ("float16", 64), ("float16", 26),
-         ("float16", 32)]
+         ("float16", 32), ("float16", 16)]
 
 
 def assert_close(got, want, dtype, err_msg=""):
@@ -222,15 +224,34 @@ def test_each_variant_form_is_named_and_padded_to_its_kernel(dtype, D, form):
 def test_the_variant_backwards_have_their_own_forms_below_64(dtype, name, D, dp):
     """Below 64 the backwards K12 and K14 run on their small-row forms
     (heads of 16 and 32 in place, 8 and 26 padded to 16 and 32), counted by
-    bwd_attention_form, while the forwards K11 and K13 keep the D = 64 form
-    (attention_form); fp32 is one form for both."""
+    bwd_attention_form, and so does the save-probs forward K13, counted by
+    sp_attention_form, while the heads-major forward K11 keeps the D = 64
+    form (attention_form); fp32 is one form for all."""
     td = getattr(torch, dtype)
     assert fa.bwd_head_dim(D) == dp and fa.bwd_attention_form(td, D) == f"{name} D{dp}"
+    assert fa.sp_attention_form(td, D) == f"{name} D{dp}"
     assert fa.kernel_head_dim(D) == 64 and fa.attention_form(td, D) == f"{name} D64"
     assert fa.bwd_attention_form(torch.float32, D) == fa.attention_form(torch.float32, D) == "fp32"
+    assert fa.sp_attention_form(torch.float32, D) == "fp32"
     x = torch.zeros((1, 3, 2, 5, D))
     assert fa.pad_heads_major(x, dp).shape == (1, 3, 2, 5, dp)
     assert fa.pad_heads(torch.zeros((1, 5, 3 * 2 * D)), 2, 3, dp).shape == (1, 5, 3 * 2 * dp)
+
+
+@pytest.mark.parametrize("D", [8, 16, 17, 26, 32, 33, 48, 64, 96, 128])
+@pytest.mark.parametrize("dtype,name", [("bfloat16", "bf16"), ("float16", "fp16")])
+def test_the_save_probs_forward_has_its_own_forms(dtype, name, D):
+    """K13 runs bf16 and fp16 heads of 16 and 32 in place and pads a head
+    dim to the next of 16, 32, 64, 128, as K14 does (sp_attention_form, the
+    head dim K13's wrapper pads to); K1 and K11 (attention_form) keep
+    padding to 64 below 64."""
+    td = getattr(torch, dtype)
+    dp = 16 if D <= 16 else 32 if D <= 32 else 64 if D <= 64 else 128
+    assert fa.sp_attention_form(td, D) == fa.bwd_attention_form(td, D) == f"{name} D{dp}"
+    assert fa.attention_form(td, D) == f"{name} D{64 if D <= 64 else 128}"
+    qkv = torch.arange(2 * 5 * 3 * 2 * D, dtype=torch.float32).reshape(2, 5, 3 * 2 * D).to(td)
+    padded = fa.pad_heads(qkv, 2, 3, dp)
+    assert padded.shape == (2, 5, 3 * 2 * dp) and torch.equal(fa.unpad_heads(padded, 2, 3, D), qkv)
 
 
 # ---- K7-K10 ----

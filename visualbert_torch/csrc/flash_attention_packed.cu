@@ -67,9 +67,10 @@
 //    to 128 (ops/flash_attention.py::pad_heads) and passes the softmax
 //    scale 1 / sqrt(D) of the unpadded D: zero columns add nothing to QK^T
 //    and give zero output columns, and the dropout bits are indexed by (b,
-//    h, i, j), not by D. At DH = 128 a K/V row takes 512 B of shared memory
-//    a pair, so T is limited to about half of DH = 64's; the wrapper checks
-//    vb_attn_packed_x_smem_bytes. fp32 has its own kernels
+//    h, i, j), not by D. At DH = 128 K1's K/V row takes 512 B of shared
+//    memory a pair, so its T is limited to about half of DH = 64's (the
+//    wrapper checks vb_attn_packed_x_smem_bytes; K2 streams there, step 7).
+//    fp32 has its own kernels
 //    (flash_attention_f32.cu): wgmma's TF32 would not hold fp32's tolerance.
 // 6. The backward at head dims 16 and 32 (bf16, fp16), unpadded. Padded to
 //    64, most of the backward's product work multiplied zeros (S and dP 4
@@ -86,10 +87,50 @@
 //    rises. The Philox draw of each pass (about 0.11 ms at the main path's
 //    shapes) does not shrink with D. K1 keeps its D = 64 route at these
 //    head dims; vb_attn_packed_x_probe runs one product of each kind alone.
+// 7. The backward at head dim 128 (bf16, fp16), streamed through two
+//    warpgroups. Held as steps 1-5 hold it, a pair's K and V (Q and dO) took 2
+//    Tp x 256 B of shared memory, about 200 KB at T = 228: one 4-warp block an
+//    SM, one warpgroup alone to hide its wgmma waits, the exp2 and the Philox
+//    draw, T capped at 256, and the dK/dV pass spilled at the 255-register
+//    cap. Now a block owns 128 rows of one (batch row, head): the dK/dV pass's
+//    128 keys with their K and V, the dQ pass's 128 queries with their Q and
+//    dO, resident (each warpgroup biases its own 64 rows once they land),
+//    while the other operand's 64-row tiles (Q and dO with their stats and
+//    delta; K and V with their key bias) stream through a SB_STAGES-stage ring
+//    of TMA copies (3-D tensor maps [B, T, width], so rows past T land as
+//    zeros). Each streamed tile serves two warpgroups' rows, and shared memory
+//    no longer grows with T (no T limit; K1's forward bounds the path). Both
+//    warpgroups bias a landed Q (K, V) tile, half each, and meet at the block
+//    barrier before any wgmma reads it; right after it thread 0 refills the
+//    stage every thread has left (the step before) with the step SB_STAGES on,
+//    so the mbarriers need no empty side. Each warpgroup draws a step's keep
+//    bits (step_keep_bits, Philox once per 2x2 block) between issuing its S
+//    and dP products and waiting for them, so the integer work runs beside the
+//    tensor cores, and while one warpgroup's products run the other does its
+//    exp2. At T = 228 (4 steps) a block's fixed costs (its first copies, the
+//    resident bias, the stores and column sums) are a large part of a pass
+//    (tools/attn_streamed_steps.py splits them off); blocks that stayed on
+//    their SM and walked several such items, their resident rows double-
+//    buffered and so a ring of 2 stages, paid more a step and were no faster
+//    at T = 228 and slower above it. Two warpgroups alone keep the
+//    255-register cap: a block of more than 8 warps puts 3 warps on an SM sub-
+//    partition, whose 16 K registers then allow 168 a thread, and ptxas
+//    allocates to that cap whatever setmaxnreg asks later (with nvcc 12.9 a
+//    producer warp or warpgroup with setmaxnreg left both passes spilling),
+//    while the dK/dV pass's dK and dV (128 fp32 a thread), S^T and dP^T (64),
+//    the two register operands and the keep bits take about 250: the streamed
+//    tiles' bias chunks are read again each step (L1) rather than held. No
+//    atomics: dQ, dK and dV rows are each written by one block, and the QKV-
+//    bias gradient's partials are one row a (batch row, 128-row block),
+//    db_part [B, cdiv(T, 128), H*3*D] (vb_attn_packed_x_bias_rows), which the
+//    caller sums in a fixed order; Philox stays once per 2x2 block, key-major
+//    in the dK/dV pass.
 // tools/attn_steps.py builds this source again with step 2 or step 3 left
 // out (-DVB_PACKED_PHILOX_PER_ROW, -DVB_PACKED_SYNC_LOADS, switches of that
 // header) and times each build beside this one; the library never defines
 // either.
+#include <cudaTypedefs.h>
+
 #include "hopper_attn.cuh"
 
 namespace {
@@ -537,10 +578,408 @@ packed_dkv_kernel(const E* __restrict__ qkv, const E* __restrict__ qb, const flo
   }
 }
 
+// ------------------------------------ backward at DH = 128: streamed (step 7)
+
+constexpr int SB_DH = 128;                  // the streamed form's head dim
+constexpr int SB_ROWS = 2 * TILE;           // a block's own rows: a 64-row tile a warpgroup
+constexpr int SB_STAGES = 4;                // ring stages of streamed tiles
+constexpr int SB_THREADS = 2 * NT;          // two warpgroups; thread 0 also issues the copies
+constexpr int SB_TILE = Tile<SB_DH>::BYTES;  // a 64-row tile: two 8 KB panels (TMA boxes)
+constexpr int SB_STAGE = 2 * SB_TILE;       // a stage: two streamed tiles
+constexpr int SB_RES = 4 * SB_TILE;         // the resident rows: two operands x two warpgroups' tiles
+constexpr int SB_VEC = 2 * TILE;            // floats of a stage's row vectors (two of 64)
+constexpr int SB_RED = 2 * 8 * SB_DH;       // floats of the column sums: two outputs x 8 warps
+constexpr int SB_BARS = SB_STAGES + 1;      // a full mbarrier a stage, the resident rows'
+constexpr size_t SB_BYTES =
+    ALIGN + SB_RES + SB_STAGES * SB_STAGE + (SB_STAGES * SB_VEC + SB_RED) * sizeof(float) + SB_BARS * sizeof(uint64_t);
+static_assert(SB_BYTES <= 232448, "a streamed block must fit the H100's 227 KB of shared memory");
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The shared memory of a streamed block: the resident tiles (operand k of
+// warpgroup w at res + (2 k + w) * SB_TILE), the ring (stage s at ring + s *
+// SB_STAGE, its two tiles SB_TILE apart), the stages' row vectors, the
+// column sums and the mbarriers (full s, resident: one arrival each, which
+// expects the bytes that land).
+struct StreamedSmem {
+  unsigned char* res;
+  unsigned char* ring;
+  float* vec;
+  float* red;
+  uint32_t bars;
+  __device__ explicit StreamedSmem(unsigned char* sm)
+      : res(sm),
+        ring(sm + SB_RES),
+        vec(reinterpret_cast<float*>(sm + SB_RES + SB_STAGES * SB_STAGE)),
+        red(vec + SB_STAGES * SB_VEC),
+        bars(smem_addr(red + SB_RED)) {}
+  __device__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ uint32_t resident() const { return bars + 8 * SB_STAGES; }
+};
+
+// The streamed operands of a pass: two maps and the first element of the
+// head's block in each, and the two row vectors a stage carries.
+template <typename V0, typename V1>
+struct Stream {
+  const void* map[2];
+  int col[2];
+  V0 v0;
+  V1 v1;
+};
+
+template <typename V0, typename V1>
+__device__ __forceinline__ Stream<V0, V1> make_stream(const void* m0, int c0, const void* m1, int c1, V0 v0, V1 v1) {
+  return Stream<V0, V1>{{m0, m1}, {c0, c1}, v0, v1};
+}
+
+// Step n's copies into stage n % SB_STAGES (nothing past the last step),
+// once no thread reads that stage any more: its row vectors by the block's
+// first 64 threads (vec(s)[i] = v0(64 n + i), vec(s)[64 + i] = v1(64 n +
+// i); read at step n, after at least one more block barrier), its two
+// tiles by thread 0 (operand k: elements col[k] .. + 127 of map[k], rows 64
+// n .. of matrix b), counted on full(s).
+template <typename S>
+__device__ __forceinline__ void load_step(const StreamedSmem& sm, int n, int ntl, int b, const S& st) {
+  if (n >= ntl) return;
+  const int s = n % SB_STAGES;
+  if (threadIdx.x < TILE) {
+    float* v = sm.vec + s * SB_VEC;
+    v[threadIdx.x] = st.v0(n * TILE + (int)threadIdx.x);
+    v[TILE + threadIdx.x] = st.v1(n * TILE + (int)threadIdx.x);
+  }
+  if (threadIdx.x == 0) {
+    const uint32_t dst = smem_addr(sm.ring) + s * SB_STAGE;
+    mbar_expect(sm.full(s), SB_STAGE);
+    for (int k = 0; k < 2; ++k)
+      for (int p = 0; p < 2; ++p)
+        tma_load_3d(dst + k * SB_TILE + p * TILE_BYTES, st.map[k], st.col[k] + 64 * p, n * TILE, b, sm.full(s));
+  }
+}
+
+// The block's first copies: thread 0 makes the mbarriers (every thread
+// waits for that at the block barrier inside), then the resident tiles
+// (operand k: elements rc[k] .. + 127 of map rm[k], rows r0 .. r0 + 127 of
+// matrix b) and the first SB_STAGES steps.
+template <typename S>
+__device__ __forceinline__ void load_first(const StreamedSmem& sm, const void* const (&rm)[2], const int (&rc)[2],
+                                           int r0, int b, int ntl, const S& st) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SB_STAGES; ++s) mbar_init(sm.full(s), 1);
+    mbar_init(sm.resident(), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();  // the mbarriers are ready
+  if (threadIdx.x == 0) {
+    const uint32_t res = smem_addr(sm.res);
+    mbar_expect(sm.resident(), SB_RES);
+    for (int k = 0; k < 2; ++k)
+      for (int w = 0; w < 2; ++w)
+        for (int p = 0; p < 2; ++p)
+          tma_load_3d(res + (2 * k + w) * SB_TILE + p * TILE_BYTES, rm[k], rc[k] + 64 * p, r0 + TILE * w, b,
+                      sm.resident());
+  }
+  for (int n = 0; n < SB_STAGES; ++n) load_step(sm, n, ntl, b, st);
+}
+
+// The dQ pass at DH = 128. grid (cdiv(T, 128), H, B): block (x, h, b) owns
+// queries [128 x, 128 x + 128) of head h of batch row b, their Q (biased)
+// and dO resident, and streams every 64-key K and V tile (biased by both
+// warpgroups once it lands) with its key bias. Writes dQ, delta of its rows
+// and the Q part of db_part's row (b, x).
+template <typename E>
+__global__ void __launch_bounds__(SB_THREADS, 1)
+streamed_dq_kernel(const __grid_constant__ CUtensorMap mqkv, const __grid_constant__ CUtensorMap mdo,
+                   const E* __restrict__ qb, const float* __restrict__ key_bias, const E* __restrict__ dout,
+                   const E* __restrict__ out, const float* __restrict__ stats, E* __restrict__ dqkv,
+                   float* __restrict__ db_part, float* __restrict__ delta_g, int T, int H, uint32_t seed,
+                   uint32_t thr, float inv, int dropout, float scale) {
+  constexpr int DH = SB_DH;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const StreamedSmem sm(align_smem(smem_raw));
+  const int x = blockIdx.x, h = blockIdx.y, b = blockIdx.z, F = 3 * H * DH, ldo = H * DH, ntl = cdiv(T, TILE);
+  const uint32_t bh = (uint32_t)(b * H + h);
+  const float* kbg = key_bias + (size_t)b * T;
+  // resident: Q (k = 0) and dO (k = 1); streamed: K and V with the key bias
+  const auto st = make_stream(
+      &mqkv, (3 * h + 1) * DH, &mqkv, (3 * h + 2) * DH,
+      [=](int t) { return t < T ? kbg[t] * LOG2E : -INFINITY; }, [](int) { return 0.f; });
+  {
+    const void* const rm[2] = {&mqkv, &mdo};
+    const int rc[2] = {3 * h * DH, h * DH};
+    load_first(sm, rm, rc, x * SB_ROWS, b, ntl, st);
+  }
+  const int w = threadIdx.x / NT, tid = threadIdx.x & (NT - 1);
+  const int warp = tid >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
+  const int row[2] = {x * SB_ROWS + w * TILE + warp * 16 + g, x * SB_ROWS + w * TILE + warp * 16 + g + 8};
+  const bool ok[2] = {row[0] < T, row[1] < T};
+  const float c1 = scale * LOG2E;
+  float strow[2], dlrow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // delta = rowsum(dO * O): the row's 4 lanes take 32 columns each
+    float acc = 0.f;
+    if (ok[r]) {
+      const size_t at = ((size_t)b * T + row[r]) * ldo + h * DH + 32 * tq;
+      const uint4* pd = reinterpret_cast<const uint4*>(dout + at);
+      const uint4* po = reinterpret_cast<const uint4*>(out + at);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint4 a = pd[k], c = po[k];
+        const uint32_t* u = reinterpret_cast<const uint32_t*>(&a);
+        const uint32_t* v = reinterpret_cast<const uint32_t*>(&c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 p = vb::Elem<E>::unpack(u[e]), q = vb::Elem<E>::unpack(v[e]);
+          acc += p.x * q.x;
+          acc += p.y * q.y;
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dlrow[r] = acc;
+    strow[r] = ok[r] ? stats[(size_t)bh * T + row[r]] : 0.f;
+    if (ok[r] && tq == 0) delta_g[(size_t)bh * T + row[r]] = acc;
+  }
+  for (int i = threadIdx.x; i < 8 * DH; i += SB_THREADS) sm.red[i] = 0.f;
+  const uint4 bq = bias_chunk_by(qb, h, 0, tid);
+  unsigned char* qs = sm.res + w * SB_TILE;
+  const uint32_t sQ = smem_addr(qs), sdO = smem_addr(sm.res + (2 + w) * SB_TILE);
+  mbar_wait(sm.resident(), 0);
+  add_bias_by<E>(qs, bq, x * SB_ROWS + w * TILE, T, tid, NT);  // this warpgroup's own Q rows
+
+  float dq[2][32];
+  zero_t(dq);
+  for (int n = 0; n < ntl; ++n) {
+    const int s = n % SB_STAGES;
+    unsigned char* ks = sm.ring + s * SB_STAGE;
+    const uint32_t sK = smem_addr(ks), sV = sK + SB_TILE;
+    mbar_wait(sm.full(s), (n / SB_STAGES) & 1);
+    add_bias_by<E>(ks, bias_chunk_by(qb, h, 1, threadIdx.x), n * TILE, T, threadIdx.x, SB_THREADS);
+    add_bias_by<E>(ks + SB_TILE, bias_chunk_by(qb, h, 2, threadIdx.x), n * TILE, T, threadIdx.x, SB_THREADS);
+    fence_async();
+    __syncthreads();  // the tiles are biased; every thread is done with step n - 1's stage
+    if (n > 0) load_step(sm, n - 1 + SB_STAGES, ntl, b, st);
+    float sc[32], dp[32];
+    wg_fence();
+    product_ss_t<E, DH>(sc, sQ, sK);   // S = Q K^T
+    product_ss_t<E, DH>(dp, sdO, sV);  // dP = dO V^T
+    wg_commit();
+    const uint32_t keep = dropout ? step_keep_bits<false>(seed, bh, row[0], row[1], n * TILE + 2 * tq, par, thr, T)
+                                  : 0xFFFFFFFFu;  // while the products run
+    wg_wait();
+    reg_fence(sc);
+    reg_fence(dp);
+    const float* kb = sm.vec + s * SB_VEC;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int jl = nt * 8 + 2 * tq;
+      const uint32_t bits = keep >> (4 * nt);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = exp2f(sc[4 * nt + e] * c1 + kb[jl + (e & 1)] - strow[r]);
+        float d = dp[4 * nt + e];
+        if (dropout) d = ((bits >> e) & 1u) ? d * inv : 0.f;
+        sc[4 * nt + e] = p * (d - dlrow[r]);  // dS (the scale goes on dQ)
+      }
+    }
+    uint32_t sa[4][4];
+    to_a_t<E>(sa, sc);
+    wg_fence();
+    product_rs_t<E, DH>(dq, sa, sK);
+    wg_commit();
+    wg_wait();
+    reg_fence_t(dq);
+    reg_fence(sa);
+  }
+  store_rows_t<E, DH>(dqkv + (size_t)b * T * F + 3 * h * DH, dq, scale, row[0], row[1], ok[0], ok[1], F, tq);
+  colsum_add_t<E, DH>(dq, scale, ok[0], ok[1], sm.red, threadIdx.x >> 5, g, tq);
+  __syncthreads();
+  if (threadIdx.x < DH) {
+    float v = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v += sm.red[k * DH + threadIdx.x];
+    db_part[((size_t)b * gridDim.x + x) * F + 3 * h * DH + threadIdx.x] = v;
+  }
+}
+
+// The dK/dV pass at DH = 128. grid (cdiv(T, 128), H, B): block (x, h, b)
+// owns keys [128 x, 128 x + 128), their K and V resident (each warpgroup
+// biases its own 64), and streams every 64-query Q tile (biased by both
+// warpgroups once it lands) and dO tile with their stats and delta. Writes
+// dK, dV of its keys and their parts of db_part's row (b, x).
+template <typename E>
+__global__ void __launch_bounds__(SB_THREADS, 1)
+streamed_dkv_kernel(const __grid_constant__ CUtensorMap mqkv, const __grid_constant__ CUtensorMap mdo,
+                    const E* __restrict__ qb, const float* __restrict__ key_bias, const float* __restrict__ stats,
+                    const float* __restrict__ delta_g, E* __restrict__ dqkv, float* __restrict__ db_part, int T,
+                    int H, uint32_t seed, uint32_t thr, float inv, int dropout, float scale) {
+  constexpr int DH = SB_DH;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const StreamedSmem sm(align_smem(smem_raw));
+  const int x = blockIdx.x, h = blockIdx.y, b = blockIdx.z, F = 3 * H * DH, ntl = cdiv(T, TILE);
+  const uint32_t bh = (uint32_t)(b * H + h);
+  const float *stg = stats + (size_t)bh * T, *dlg = delta_g + (size_t)bh * T;
+  // resident: K (k = 0) and V (k = 1); streamed: Q and dO with their stats
+  // and delta (padded queries: stats +inf, so p = 0, and delta 0)
+  const auto st = make_stream(
+      &mqkv, 3 * h * DH, &mdo, h * DH, [=](int t) { return t < T ? stg[t] : INFINITY; },
+      [=](int t) { return t < T ? dlg[t] : 0.f; });
+  {
+    const void* const rm[2] = {&mqkv, &mqkv};
+    const int rc[2] = {(3 * h + 1) * DH, (3 * h + 2) * DH};
+    load_first(sm, rm, rc, x * SB_ROWS, b, ntl, st);
+  }
+  const int w = threadIdx.x / NT, tid = threadIdx.x & (NT - 1);
+  const int warp = tid >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, par = g & 1;
+  const int key[2] = {x * SB_ROWS + w * TILE + warp * 16 + g, x * SB_ROWS + w * TILE + warp * 16 + g + 8};
+  const bool ok[2] = {key[0] < T, key[1] < T};
+  const float c1 = scale * LOG2E;
+  const float kbr[2] = {ok[0] ? key_bias[(size_t)b * T + key[0]] * LOG2E : -INFINITY,
+                        ok[1] ? key_bias[(size_t)b * T + key[1]] * LOG2E : -INFINITY};
+  for (int i = threadIdx.x; i < 2 * 8 * DH; i += SB_THREADS) sm.red[i] = 0.f;
+  const uint4 bk = bias_chunk_by(qb, h, 1, tid), bv = bias_chunk_by(qb, h, 2, tid);
+  unsigned char *ks = sm.res + w * SB_TILE, *vs = sm.res + (2 + w) * SB_TILE;
+  const uint32_t sK = smem_addr(ks), sV = smem_addr(vs);
+  mbar_wait(sm.resident(), 0);
+  add_bias_by<E>(ks, bk, x * SB_ROWS + w * TILE, T, tid, NT);  // this warpgroup's own K and V rows
+  add_bias_by<E>(vs, bv, x * SB_ROWS + w * TILE, T, tid, NT);
+
+  float dk[2][32], dv[2][32];
+  zero_t(dk);
+  zero_t(dv);
+  for (int n = 0; n < ntl; ++n) {
+    const int s = n % SB_STAGES;
+    unsigned char* qs = sm.ring + s * SB_STAGE;
+    const uint32_t sQ = smem_addr(qs), sdO = sQ + SB_TILE;
+    mbar_wait(sm.full(s), (n / SB_STAGES) & 1);
+    add_bias_by<E>(qs, bias_chunk_by(qb, h, 0, threadIdx.x), n * TILE, T, threadIdx.x, SB_THREADS);
+    fence_async();
+    __syncthreads();  // the Q tile is biased; every thread is done with step n - 1's stage
+    if (n > 0) load_step(sm, n - 1 + SB_STAGES, ntl, b, st);
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+    float sc[32], dp[32];
+    wg_fence();
+    product_ss_t<E, DH>(sc, sK, sQ);
+    product_ss_t<E, DH>(dp, sV, sdO);
+    wg_commit();
+    const uint32_t keep = dropout ? step_keep_bits<true>(seed, bh, key[0], key[1], n * TILE + 2 * tq, par, thr, T)
+                                  : 0xFFFFFFFFu;  // while the products run
+    wg_wait();
+    reg_fence(sc);
+    reg_fence(dp);
+    const float *stv = sm.vec + s * SB_VEC, *dl = stv + TILE;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int il = nt * 8 + 2 * tq;  // queries n * 64 + il, + 1
+      const uint32_t bits = keep >> (4 * nt);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = il + (e & 1);
+        const float p = exp2f(sc[4 * nt + e] * c1 + kbr[e >> 1] - stv[i]);
+        float pd = p, d = dp[4 * nt + e];
+        if (dropout) {
+          const bool kept = (bits >> e) & 1u;
+          pd = kept ? p * inv : 0.f;
+          d = kept ? d * inv : 0.f;
+        }
+        sc[4 * nt + e] = pd;
+        dp[4 * nt + e] = p * (d - dl[i]);
+      }
+    }
+    uint32_t pa[4][4], sa[4][4];
+    to_a_t<E>(pa, sc);
+    to_a_t<E>(sa, dp);
+    wg_fence();
+    product_rs_t<E, DH>(dv, pa, sdO);
+    product_rs_t<E, DH>(dk, sa, sQ);
+    wg_commit();
+    wg_wait();
+    reg_fence_t(dv);
+    reg_fence_t(dk);
+    reg_fence(pa);
+    reg_fence(sa);
+  }
+  E* dst = dqkv + (size_t)b * T * F + 3 * h * DH;
+  store_rows_t<E, DH>(dst + DH, dk, scale, key[0], key[1], ok[0], ok[1], F, tq);
+  store_rows_t<E, DH>(dst + 2 * DH, dv, 1.f, key[0], key[1], ok[0], ok[1], F, tq);
+  colsum_add_t<E, DH>(dk, scale, ok[0], ok[1], sm.red, threadIdx.x >> 5, g, tq);
+  colsum_add_t<E, DH>(dv, 1.f, ok[0], ok[1], sm.red + 8 * DH, threadIdx.x >> 5, g, tq);
+  __syncthreads();
+  const int k = threadIdx.x / DH, c = threadIdx.x % DH;  // k 0: dK's column c, 1: dV's
+  float v = 0.f;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) v += sm.red[(8 * k + q) * DH + c];
+  db_part[((size_t)b * gridDim.x + x) * F + (3 * h + 1 + k) * DH + c] = v;
+}
+
+// libcuda's cuTensorMapEncodeTiled, looked up once; nullptr where the
+// lookup fails.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }();
+  return encode;
+}
+
+// The TMA map of B matrices of T rows x `width` elements of E (rows `width`
+// elements apart, matrices T rows apart): boxes of 64 elements (128 B,
+// swizzled as swz lays them out) x 64 rows of one matrix, zeros past row T.
+template <typename E>
+cudaError_t rows_map(CUtensorMap* map, const void* ptr, int B, int T, int width) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * sizeof(E), (cuuint64_t)T * width * sizeof(E)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)TILE, 1}, steps[3] = {1, 1, 1};
+  const CUresult r = encode(map, std::is_same<E, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            3, const_cast<void*>(ptr), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename E>
+int launch_streamed_bwd(const void* qkv, const void* qb, const void* key_bias, const void* dout, const void* out,
+                        const void* stats, void* dqkv, void* db_part, void* delta, int B, int T, int H,
+                        unsigned int seed, unsigned int threshold, float inv, int dropout, float scale,
+                        cudaStream_t s) {
+  const void* fns[2] = {(const void*)streamed_dq_kernel<E>, (const void*)streamed_dkv_kernel<E>};
+  for (const void* fn : fns) {
+    const cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SB_BYTES);
+    if (err != cudaSuccess) return (int)err;
+  }
+  CUtensorMap mqkv, mdo;
+  cudaError_t err = rows_map<E>(&mqkv, qkv, B, T, 3 * H * SB_DH);
+  if (err == cudaSuccess) err = rows_map<E>(&mdo, dout, B, T, H * SB_DH);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(cdiv(T, SB_ROWS), H, B);
+  streamed_dq_kernel<E><<<grid, SB_THREADS, SB_BYTES, s>>>(
+      mqkv, mdo, static_cast<const E*>(qb), static_cast<const float*>(key_bias), static_cast<const E*>(dout),
+      static_cast<const E*>(out), static_cast<const float*>(stats), static_cast<E*>(dqkv),
+      static_cast<float*>(db_part), static_cast<float*>(delta), T, H, seed, threshold, inv, dropout, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  streamed_dkv_kernel<E><<<grid, SB_THREADS, SB_BYTES, s>>>(
+      mqkv, mdo, static_cast<const E*>(qb), static_cast<const float*>(key_bias), static_cast<const float*>(stats),
+      static_cast<const float*>(delta), static_cast<E*>(dqkv), static_cast<float*>(db_part), T, H, seed, threshold,
+      inv, dropout, scale);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------- launches
 
 // Head dims 16 and 32 have the backward's two passes and no forward (K1
-// runs them zero-padded to 64): kernel 0 is nullptr there, its bytes 0.
+// runs them zero-padded to 64): kernel 0 is nullptr there, its bytes 0. At
+// 128 the backward's passes are the streamed kernels.
 template <typename E, int DH>
 const void* kernel_of(int which) {
   switch (which) {
@@ -549,8 +988,16 @@ const void* kernel_of(int which) {
         return nullptr;
       else
         return (const void*)packed_fwd_kernel<E, DH>;
-    case 1: return (const void*)packed_dq_kernel<E, DH>;
-    case 2: return (const void*)packed_dkv_kernel<E, DH>;
+    case 1:
+      if constexpr (DH == SB_DH)
+        return (const void*)streamed_dq_kernel<E>;
+      else
+        return (const void*)packed_dq_kernel<E, DH>;
+    case 2:
+      if constexpr (DH == SB_DH)
+        return (const void*)streamed_dkv_kernel<E>;
+      else
+        return (const void*)packed_dkv_kernel<E, DH>;
     default: return nullptr;
   }
 }
@@ -563,14 +1010,21 @@ size_t bytes_of(int which, int T) {
     else
       return fwd_bytes<DH>(T);
   }
+  if constexpr (DH == SB_DH) return SB_BYTES;
   return which == 1 ? dq_bytes<DH>(T) : dkv_bytes<DH>(T);
+}
+
+// Threads a block of kernel `which` at DH.
+template <int DH>
+int threads_of(int which) {
+  return DH == SB_DH && which > 0 ? SB_THREADS : NT;
 }
 
 template <int DH>
 size_t smem_bytes(int T) {
   size_t m = bytes_of<DH>(0, T);
-  if (dq_bytes<DH>(T) > m) m = dq_bytes<DH>(T);
-  return dkv_bytes<DH>(T) > m ? dkv_bytes<DH>(T) : m;
+  if (bytes_of<DH>(1, T) > m) m = bytes_of<DH>(1, T);
+  return bytes_of<DH>(2, T) > m ? bytes_of<DH>(2, T) : m;
 }
 
 size_t bytes_at(int dh, int which, int T) {
@@ -582,6 +1036,8 @@ size_t bytes_at(int dh, int which, int T) {
     default: return 0;
   }
 }
+
+int threads_at(int dh, int which) { return dh == SB_DH ? threads_of<SB_DH>(which) : NT; }
 
 template <typename E, int DH>
 cudaError_t prepare(int which, int T) {
@@ -607,22 +1063,27 @@ int launch_bwd(const void* qkv, const void* qb, const void* key_bias, const void
                const void* stats, void* dqkv, void* db_part, void* delta, int B, int T, int H, int hg_dq, int hg_dkv,
                unsigned int seed, unsigned int threshold, float inv, int dropout, float scale, cudaStream_t s) {
   if (hg_dq <= 0 || H % hg_dq || hg_dkv <= 0 || H % hg_dkv) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare<E, DH>(1, T);
-  if (err != cudaSuccess) return (int)err;
-  err = prepare<E, DH>(2, T);
-  if (err != cudaSuccess) return (int)err;
-  packed_dq_kernel<E, DH><<<dim3(H / hg_dq, B), NT, dq_bytes<DH>(T), s>>>(
-      static_cast<const E*>(qkv), static_cast<const E*>(qb), static_cast<const float*>(key_bias),
-      static_cast<const E*>(dout), static_cast<const E*>(out), static_cast<const float*>(stats),
-      static_cast<E*>(dqkv), static_cast<float*>(db_part), static_cast<float*>(delta), T, H, hg_dq, seed,
-      threshold, inv, dropout, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  packed_dkv_kernel<E, DH><<<dim3(H / hg_dkv, B), NT, dkv_bytes<DH>(T), s>>>(
-      static_cast<const E*>(qkv), static_cast<const E*>(qb), static_cast<const float*>(key_bias),
-      static_cast<const E*>(dout), static_cast<const float*>(stats), static_cast<const float*>(delta),
-      static_cast<E*>(dqkv), static_cast<float*>(db_part), T, H, hg_dkv, seed, threshold, inv, dropout, scale);
-  return (int)cudaGetLastError();
+  if constexpr (DH == SB_DH) {  // a block a (128 rows, head, batch row): the head groups are not used
+    return launch_streamed_bwd<E>(qkv, qb, key_bias, dout, out, stats, dqkv, db_part, delta, B, T, H, seed,
+                                  threshold, inv, dropout, scale, s);
+  } else {
+    cudaError_t err = prepare<E, DH>(1, T);
+    if (err != cudaSuccess) return (int)err;
+    err = prepare<E, DH>(2, T);
+    if (err != cudaSuccess) return (int)err;
+    packed_dq_kernel<E, DH><<<dim3(H / hg_dq, B), NT, dq_bytes<DH>(T), s>>>(
+        static_cast<const E*>(qkv), static_cast<const E*>(qb), static_cast<const float*>(key_bias),
+        static_cast<const E*>(dout), static_cast<const E*>(out), static_cast<const float*>(stats),
+        static_cast<E*>(dqkv), static_cast<float*>(db_part), static_cast<float*>(delta), T, H, hg_dq, seed,
+        threshold, inv, dropout, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    packed_dkv_kernel<E, DH><<<dim3(H / hg_dkv, B), NT, dkv_bytes<DH>(T), s>>>(
+        static_cast<const E*>(qkv), static_cast<const E*>(qb), static_cast<const float*>(key_bias),
+        static_cast<const E*>(dout), static_cast<const float*>(stats), static_cast<const float*>(delta),
+        static_cast<E*>(dqkv), static_cast<float*>(db_part), T, H, hg_dkv, seed, threshold, inv, dropout, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 // Kernel `which` of form f (hopper_attn.cuh's attn_form numbers the forms).
@@ -729,12 +1190,13 @@ extern "C" int vb_attn_packed_bwd(const void* qkv, const void* qb, const void* k
                               threshold, inv, dropout, 0.125f, static_cast<cudaStream_t>(stream));
 }
 
-// Every form: dtype 0 bf16, 1 fp16; dh the kernel's head dim, 64 or 128 (the
-// caller zero-pads the heads to it); scale the softmax scale of the unpadded
-// head dim. The largest dynamic shared memory of the three kernels at dh and
-// T (0 for a dh not built).
-// dh 16 and 32 build the backward only: their forward's info is -1 and
-// vb_attn_packed_x_fwd refuses them.
+// Every form: dtype 0 bf16, 1 fp16; dh the kernel's head dim, 16, 32, 64 or
+// 128 (the caller zero-pads the heads to it); scale the softmax scale of
+// the unpadded head dim. The largest dynamic shared memory of the three
+// kernels at dh and T (0 for a dh not built). dh 16 and 32 build the
+// backward only: their forward's info is -1 and vb_attn_packed_x_fwd
+// refuses them. At 128 the backward's passes (step 7) take the same bytes
+// at every T and 384 threads a block; their hg arguments are not used.
 extern "C" size_t vb_attn_packed_x_smem_bytes(int dh, int T) {
   switch (dh) {
     case 16: return smem_bytes<16>(T);
@@ -748,7 +1210,15 @@ extern "C" size_t vb_attn_packed_x_smem_bytes(int dh, int T) {
 extern "C" int vb_attn_packed_x_info(int dtype, int dh, int which, int what, int T) {
   const int f = attn_form(dtype, dh);
   if (f < 0) return -1;
-  return kernel_info(kernel_of_form(f, which), bytes_at(dh, which, T), what);
+  return kernel_info(kernel_of_form(f, which), bytes_at(dh, which, T), what, threads_at(dh, which));
+}
+
+// Rows of fp32 bias-gradient partials the backward at head dim dh writes a
+// batch row at T: one a 128-row block of either pass at 128 (the streamed
+// passes), else one (db_part [B, rows, H*3*dh]); 0 for a dh not built.
+extern "C" int vb_attn_packed_x_bias_rows(int dh, int T) {
+  if (attn_form(0, dh) < 0) return 0;
+  return dh == SB_DH ? cdiv(T, SB_ROWS) : 1;
 }
 
 // One m64nDHk16 product of each kind the dh 16 and 32 backward runs, alone

@@ -64,15 +64,19 @@
 //    compiles as before the templates; the other forms (vb_attn_sp_x_*)
 //    take the scale as an argument. fp32 runs
 //    flash_attention_f32.cu's save-probs SIMT kernels.
-// 7. K14 at head dims 16 and 32 (bf16, fp16), unpadded, as K2's step 6
-//    (flash_attention_packed.cu): the same two pass bodies on
-//    hopper_attn.cuh's small-row tiles (rows of 32 or 64 bytes in the 32 B
-//    or 64 B swizzle; a packed row's stride F = 3 H D and dO's H D keep
-//    every 16-byte chunk aligned), dP in D / 16 k-steps, dQ, dK and dV
-//    m64n16k16 or m64n32k16 with D / 2 accumulators a thread. The p tile
-//    stays 64 keys wide and bf16 (steps 3 and 4 unchanged). The wrapper pads
-//    a head dim below 16 to 16 and one in (16, 32) to 32; K13 keeps its D =
-//    64 route there, so no forward is built at these head dims.
+// 7. K13 and K14 at head dims 16 and 32 (bf16, fp16), unpadded, as K2's
+//    step 6 (flash_attention_packed.cu): the same bodies on hopper_attn.cuh's
+//    small-row tiles (rows of 32 or 64 bytes in the 32 B or 64 B swizzle; a
+//    packed row's stride F = 3 H D and dO's H D keep every 16-byte chunk
+//    aligned). K13's S = Q K^T (both passes) and K14's dP take D / 16
+//    k-steps; K13's O += P_d V and K14's dQ, dK and dV are m64n16k16 or
+//    m64n32k16 with D / 2 accumulators a thread. The p tile stays 64 keys
+//    wide and bf16, so the stage, store_p, ldmatrix and Philox (steps 3 and
+//    4) do not change. Padded to 64, K13 ran both passes' QK^T in 4 k-steps
+//    and P_d V as m64n64 over zero columns, and held K and V rows of 128 B;
+//    its shared memory now grows by 4 D bytes a key, so its T limit rises
+//    with K14's (the larger of the three kernels' bytes bounds both). The
+//    wrapper pads a head dim below 16 to 16 and one in (16, 32) to 32.
 #include "hopper_attn.cuh"
 
 namespace {
@@ -274,7 +278,7 @@ attn_sp_fwd_kernel(const E* __restrict__ qkv, const float* __restrict__ key_bias
       }
 
       // pass 2: p, its bf16 store, dropout, P_d . V
-      float o[NP][32];
+      float o[NP][L::NA];
       zero_t(o);
       for (int kt = 0; kt < ntl; ++kt) {
         float s[32];
@@ -552,16 +556,10 @@ attn_sp_bwd_dkv_kernel(const E* __restrict__ qkv, const bf16* __restrict__ probs
 
 // ---------------------------------------------------------------- launches
 
-// Head dims 16 and 32 have K14's two passes and no forward (K13 runs them
-// zero-padded to 64): kernel 0 is nullptr there, its bytes 0.
 template <typename E, int DH, bool FIXED>
 const void* kernel_of(int which) {
   switch (which) {
-    case 0:
-      if constexpr (Tile<DH>::SMALL)
-        return nullptr;
-      else
-        return (const void*)attn_sp_fwd_kernel<E, DH, FIXED>;
+    case 0: return (const void*)attn_sp_fwd_kernel<E, DH, FIXED>;
     case 1: return (const void*)attn_sp_bwd_dq_kernel<E, DH, FIXED>;
     case 2: return (const void*)attn_sp_bwd_dkv_kernel<E, DH, FIXED>;
     default: return nullptr;
@@ -570,18 +568,12 @@ const void* kernel_of(int which) {
 
 template <int DH>
 size_t bytes_of(int which, int T) {
-  if (which == 0) {
-    if constexpr (Tile<DH>::SMALL)
-      return 0;
-    else
-      return fwd_bytes<DH>(T);
-  }
-  return which == 1 ? dq_bytes<DH>(T) : dkv_bytes<DH>(T);
+  return which == 0 ? fwd_bytes<DH>(T) : which == 1 ? dq_bytes<DH>(T) : dkv_bytes<DH>(T);
 }
 
 template <int DH>
 size_t smem_bytes(int T) {
-  size_t m = bytes_of<DH>(0, T);
+  size_t m = fwd_bytes<DH>(T);
   if (dq_bytes<DH>(T) > m) m = dq_bytes<DH>(T);
   return dkv_bytes<DH>(T) > m ? dkv_bytes<DH>(T) : m;
 }
@@ -693,12 +685,11 @@ extern "C" int vb_attn_sp_bwd(const void* qkv, const void* probs, const void* do
                                     threshold, inv, dropout, 0.125f, static_cast<cudaStream_t>(stream));
 }
 
-// Every other form: dtype 0 bf16, 1 fp16; dh the kernel's head dim, 64 or
-// 128 (the caller zero-pads the heads to it); scale the softmax scale of the
-// unpadded head dim; the probabilities bf16 in every form. The largest
-// dynamic shared memory of the three kernels at dh and T (0 for a dh not
-// built). dh 16 and 32 build K14's two passes only: their forward's info is
-// -1 and vb_attn_sp_x_fwd refuses them.
+// Every other form: dtype 0 bf16, 1 fp16; dh the kernel's head dim, 16, 32,
+// 64 or 128 (the caller zero-pads the heads to it); scale the softmax scale
+// of the unpadded head dim; the probabilities bf16 in every form. The
+// largest dynamic shared memory of the three kernels at dh and T (0 for a
+// dh not built).
 extern "C" size_t vb_attn_sp_x_smem_bytes(int dh, int T) {
   switch (dh) {
     case 16: return smem_bytes<16>(T);
@@ -726,6 +717,10 @@ extern "C" int vb_attn_sp_x_fwd(const void* qkv, const void* key_bias, void* out
     case 1: return VB_FWD(bf16, 128);
     case 2: return VB_FWD(__half, 64);
     case 3: return VB_FWD(__half, 128);
+    case 4: return VB_FWD(bf16, 16);
+    case 5: return VB_FWD(bf16, 32);
+    case 6: return VB_FWD(__half, 16);
+    case 7: return VB_FWD(__half, 32);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef VB_FWD

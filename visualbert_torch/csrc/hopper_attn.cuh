@@ -14,8 +14,10 @@
 // this header): a row of DH elements is DH / 64 panels of 128 B, each panel
 // of a tile the layout above, and wgmma's element type is the kernel's
 // (.f16 in place of .bf16, the same shapes and swizzle: both are 2 bytes).
-// The backwards K2, K12 and K14 also take head dims 16 and 32 on rows of
-// their own size (the small-row tiles below, in the 32 B and 64 B swizzles).
+// The backwards K2, K12 and K14 and the save-probs forward K13 also take
+// head dims 16 and 32 on rows of their own size (the small-row tiles below,
+// in the 32 B and 64 B swizzles). K2 at DH = 128 streams its tiles through a
+// TMA ring into two warpgroups (the TMA rings at the end of this header).
 //
 // Two switches leave a design step out for tools/attn_steps.py's builds;
 // the kernel library never defines either: VB_PACKED_SYNC_LOADS makes every
@@ -259,6 +261,21 @@ __device__ __forceinline__ uint32_t keep_bits(uint32_t seed, uint32_t bh, int ro
   const uint32_t mine = row_bits<KEY_MAJOR>(k, par), got = __shfl_xor_sync(0xffffffffu, row_bits<KEY_MAJOR>(k, par ^ 1), 4);
   return par ? (got | (mine << 2)) : (mine | (got << 2));
 #endif
+}
+
+// keep_bits of a 64-column step: the 4 bits of n-tile nt (columns c0 + 8 nt,
+// + 1; c0 = the step's first column + 2 tq) at bits 4 nt .. 4 nt + 3.
+// Computed before a wgmma.wait, the Philox work runs while the products do.
+template <bool KEY_MAJOR>
+__device__ __forceinline__ uint32_t step_keep_bits(uint32_t seed, uint32_t bh, int row0, int row1, int c0, int par,
+                                                   uint32_t thr, int T) {
+  uint32_t k = 0;
+#pragma unroll 4
+  for (int nt = 0; nt < 8; ++nt) {
+    const int c = c0 + 8 * nt;
+    k |= keep_bits<KEY_MAJOR>(seed, bh, row0, row1, c, par, thr, c < T, T) << (4 * nt);
+  }
+  return k;
 }
 
 // ------------------------------------------------------------- epilogues
@@ -763,9 +780,10 @@ __device__ __forceinline__ void pair_delta_t(const E* __restrict__ dout, const E
 // to_a, pair_delta, store_rows), so that form compiles to the machine code
 // it had; the *_t helpers (index arithmetic over DH / 8 chunks, loads
 // interleaved with the sums) compile to other code. Every other form calls
-// the *_t helpers; K12's and K14's passes also at DH = 16 and 32, where the
-// accumulators are [1][DH / 2] (Tile<DH>::NA) and the *_t helpers call the
-// *_s ones. At DH >= 64 NA is 32: the types the helpers took before.
+// the *_t helpers; K12's and K14's passes and K13's forward also at DH = 16
+// and 32, where the accumulators are [1][DH / 2] (Tile<DH>::NA) and the *_t
+// helpers call the *_s ones. At DH >= 64 NA is 32: the types the helpers
+// took before.
 
 template <typename E, int DH>
 constexpr bool kMainForm = std::is_same<E, bf16>::value && DH == 64;
@@ -821,6 +839,88 @@ __device__ __forceinline__ void store_rows_v(E* __restrict__ dst, const float (&
     store_rows_t<E, DH>(dst, acc, scale, row0, row1, ok0, ok1, ld, tq);
 }
 
+// ------------------------------------------ TMA rings on mbarriers
+//
+// Blocks that stream tiles (K2 at DH = 128, flash_attention_packed.cu step
+// 7) keep a ring of stages, each with a full mbarrier: one arrival, which
+// expects the stage's bytes, and the bytes of the TMA copies that land.
+// The tensor maps are encoded on the host (cuTensorMapEncodeTiled through
+// cudaGetDriverEntryPointByVersion), passed as __grid_constant__ kernel
+// parameters and used here by address. A tile that TMA lays down in the 128
+// B swizzle is Tile<DH>'s layout: a box of 64 rows x 64 elements is one 8 KB
+// panel, chunk c of row r at swz(r, c).
+
+// An mbarrier that completes a phase on `count` arrivals (and the bytes its
+// arrivals expect); the fence that makes mbarrier.init visible to the async
+// proxy; an arrival expecting `bytes`; a plain arrival; a wait until phase
+// `parity` completes, which traps (the launch fails with an error) after
+// 2^26 polls that found it open, seconds where a phase takes microseconds,
+// so that a lost arrival ends the kernel instead of holding the card.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) asm volatile("trap;");
+  }
+}
+
+// Box {c0, c1, c2} (elements of a row, rows, matrices) of the 3-D tensor
+// of `map` into shared memory at dst, counted on mbarrier bar; elements past
+// the tensor's extent land as zeros (and their bytes count).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, int c0, int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];"
+      "\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// add_bias_t at DH = 128 by `n` threads of index i (n a multiple of 16):
+// thread i adds its chunk i % 16 of the head's bias (bias_chunk_by) to the
+// rows it walks of a landed tile; rows past T stay as they are.
+template <typename E>
+__device__ __forceinline__ void add_bias_by(unsigned char* tile, uint4 bias, int t0, int T, int i, int n) {
+  constexpr int CH = Tile<128>::CH;
+  const uint32_t* y = reinterpret_cast<const uint32_t*>(&bias);
+#pragma unroll 4
+  for (int idx = i; idx < TILE * CH; idx += n) {
+    const int r = idx / CH, c = idx % CH;
+    if (t0 + r < T) {
+      uint4* p = reinterpret_cast<uint4*>(tile + (c >> 3) * TILE_BYTES + swz(r, c & 7));
+      uint4 v = *p;
+      uint32_t* x = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = vb::Elem<E>::unpack(x[e]), b = vb::Elem<E>::unpack(y[e]);
+        x[e] = vb::Elem<E>::pack(a.x + b.x, a.y + b.y);
+      }
+      *p = v;
+    }
+  }
+}
+
+template <typename E>
+__device__ __forceinline__ uint4 bias_chunk_by(const E* __restrict__ qb, int h, int j, int i) {
+  return *reinterpret_cast<const uint4*>(qb + (3 * h + j) * 128 + (i % Tile<128>::CH) * 8);
+}
+
 // ------------------------------------------------------------- launches
 
 // The instantiation of K1/K2's, K11/K12's and K13/K14's bf16 and fp16
@@ -838,10 +938,11 @@ inline int attn_form(int dtype, int dh) {
   }
 }
 
-// Of kernel fn (nullptr: -1) at `bytes` of dynamic shared memory: `what` 0
-// its registers a thread, 1 its local (spill) bytes a thread, 2 `bytes`, 3
-// its resident blocks per SM. -1 on an error.
-inline int kernel_info(const void* fn, size_t bytes, int what) {
+// Of kernel fn (nullptr: -1) at `bytes` of dynamic shared memory and
+// `threads` a block: `what` 0 its registers a thread, 1 its local (spill)
+// bytes a thread, 2 `bytes`, 3 its resident blocks per SM. -1 on an
+// error.
+inline int kernel_info(const void* fn, size_t bytes, int what, int threads = NT) {
   if (fn == nullptr) return -1;
   if (what == 0 || what == 1) {
     cudaFuncAttributes attr;
@@ -852,7 +953,7 @@ inline int kernel_info(const void* fn, size_t bytes, int what) {
   if (what == 3) {
     int n = 0;
     if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) != cudaSuccess) return -1;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, NT, bytes) != cudaSuccess) return -1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads, bytes) != cudaSuccess) return -1;
     return n;
   }
   return -1;

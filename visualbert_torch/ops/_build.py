@@ -50,6 +50,7 @@ _SIGNATURES = {  # every C entry point of the sources: its argument types
     "vb_attn_packed_x_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _I, _I, _I, _F, _P],
     "vb_attn_packed_x_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I, _I, _I, _F, _P],
     "vb_attn_packed_x_probe": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "vb_attn_packed_x_bias_rows": [_I, _I],
     "vb_attn_f32_info": [_I, _I, _I],
     "vb_attn_f32_geometry": [_I],
     "vb_attn_f32_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _F, _I, _F, _P],

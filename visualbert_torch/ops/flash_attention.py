@@ -44,21 +44,25 @@ step by step); on CUDA tensors they launch the kernels or raise.
 K1 and K2 take every dtype and head dim the JAX kernels take up to D = 128
 (the JAX wrapper asserts only ``F % 3H == 0``): bf16 and fp16 on the Hopper
 kernels, K1 instantiated at D = 64 and 128 and K2 also at 16 and 32 (rows
-of their own size, read in place; so are K12 and K14), a head dim below an
-instantiation zero-padded to it (:func:`kernel_head_dim`, :func:`bwd_head_dim`,
-:func:`pad_heads`, :func:`unpad_heads`; exact, and the softmax scale stays
-1/sqrt(D) of the unpadded D), and fp32 on the SIMT kernels of
-``flash_attention_f32.cu`` at any D <= 128 (all register-tiled, 64-row
-tiles of a (batch row, head): K1/K11's forward in one pass over the keys,
-K13's in two, the backward of K2, K12 and K14; the bias gradient's
+of their own size, read in place; so are K12, K13 and K14), a head dim
+below an instantiation zero-padded to it (:func:`kernel_head_dim`,
+:func:`bwd_head_dim`, :func:`pad_heads`, :func:`unpad_heads`; exact, and the
+softmax scale stays 1/sqrt(D) of the unpadded D), and fp32 on the SIMT
+kernels of ``flash_attention_f32.cu`` at any D <= 128 (all register-tiled,
+64-row tiles of a (batch row, head): K1/K11's forward in one pass over the
+keys, K13's in two, the backward of K2, K12 and K14; the bias gradient's
 partials one row a (batch row, tile): :func:`f32_bias_tiles`,
-:func:`sum_bias_partials`). K11-K14 take the same
-dtypes and head dims: bf16 and fp16 on their Hopper kernels, instantiated
-at D = 64 and 128, the backwards K12 and K14 also at 16 and 32 as K2 (the
-heads-major ``[B, 3, H, T, D]`` zero-padded to ``[..., Dp]`` by
-:func:`pad_heads_major`, the packed layout by :func:`pad_heads`; the
-forwards at :func:`kernel_head_dim`, the backwards at :func:`bwd_head_dim`),
-and fp32 on the SIMT kernels of
+:func:`sum_bias_partials`). K2 at D = STREAMED_HEAD_DIM (128) runs its two
+passes a block a (128 rows, head, batch row), the other operand streamed
+through a TMA ring into two consumer warpgroups: no head groups, no T
+limit (K1's forward bounds the packed path there), and its bias partials
+one row a (batch row, 128-row block) (:func:`packed_bias_rows`). K11-K14
+take the same dtypes and head dims: bf16 and fp16 on their Hopper kernels,
+instantiated at D = 64 and 128, the backwards K12 and K14 and the
+save-probs forward K13 also at 16 and 32 as K2 (the heads-major ``[B, 3,
+H, T, D]`` zero-padded to ``[..., Dp]`` by :func:`pad_heads_major`, the
+packed layout by :func:`pad_heads`; K11 at :func:`kernel_head_dim`, K12, K13
+and K14 at :func:`bwd_head_dim`), and fp32 on the SIMT kernels of
 ``flash_attention_f32.cu`` (K11/K12 on the heads-major strides, K13/K14 on
 save-probs kernels of their own); K13's probabilities are bf16 in every
 form. bf16 at D = 64, the main path's form, keeps its entry points
@@ -66,11 +70,13 @@ form. bf16 at D = 64, the main path's form, keeps its entry points
 tree's build; the other bf16 and fp16 forms go through ``vb_attn_hm_x_*``
 and ``vb_attn_sp_x_*`` with the dtype, head dim and scale. Each wrapper
 counts its launches in ``launches`` and, by form (:func:`attention_form`),
-in ``forms`` (K2, K12 and K14 by :func:`bwd_attention_form`). The
-backwards' small forms take a longer T than the forwards (each wrapper
-checks its own shared memory), but a training step runs both: the
-forwards' limits (704 at D <= 64) bound the packed, heads-major and
-save-probs paths as a whole.
+in ``forms`` (K2, K12 and K14 by :func:`bwd_attention_form`, K13 by
+:func:`sp_attention_form`). The backwards' small forms take a longer T
+than the D = 64 forms (each wrapper checks its own shared memory), but a
+training step runs both: K1's and K11's limits (704 at D <= 64; at 128
+K1's 384 and K11/K12's 256) bound the packed and heads-major paths as a
+whole; the save-probs path at
+D <= 32 is bounded by the larger of K13's and K14's shared memory.
 
 The dropout keep bit of probability (b, h, i, j) is a pure function of
 (seed, b, h, i, j) — see ``csrc/philox.cuh::attn_philox`` and its twin
@@ -100,6 +106,7 @@ KERNEL_HEAD_DIM = 64  # the bf16 main forms' head dim (K15/K16 take only it)
 PACKED_HEAD_DIMS = (64, 128)  # the bf16 and fp16 instantiations of K1/K2 and K11-K14
 BWD_HEAD_DIMS = (16, 32, 64, 128)  # K2's, K12's and K14's bf16 and fp16 instantiations: 16 and 32 on small rows
 MAX_HEAD_DIM = 128  # K1/K2 and K11-K14 in every dtype
+STREAMED_HEAD_DIM = 128  # K2's passes there take a block a (128 rows, head, batch row) and no T limit
 PACKED_DTYPES = (torch.bfloat16, torch.float16, torch.float32)  # K1/K2 and K11-K14
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}  # csrc/flash_attention_packed.cu's dtype argument
 MAX_SMEM_BYTES = 232448  # opt-in shared memory per block on sm_90
@@ -120,11 +127,19 @@ def bwd_head_dim(d: int) -> int:
 
 def bwd_attention_form(dtype, d: int) -> str:
     """The kernel form the backwards K2, K12 and K14 run heads of dim d in
-    ``dtype`` on: "fp32" or "<dtype> D<bwd_head_dim(d)>" (the forwards K1,
-    K11 and K13: :func:`attention_form`)."""
+    ``dtype`` on: "fp32" or "<dtype> D<bwd_head_dim(d)>" (the forwards K1
+    and K11: :func:`attention_form`; K13: :func:`sp_attention_form`)."""
     if dtype == torch.float32:
         return "fp32"
     return f"{'bf16' if dtype == torch.bfloat16 else 'fp16'} D{bwd_head_dim(d)}"
+
+
+def sp_attention_form(dtype, d: int) -> str:
+    """The kernel form the save-probs forward K13 runs heads of dim d in
+    ``dtype`` on: K14's, since K13 is built at every head dim of
+    BWD_HEAD_DIMS too (heads of 16 and 32 in place, 8 padded to 16, 26 to
+    32); K1 and K11 keep :func:`attention_form`."""
+    return bwd_attention_form(dtype, d)
 
 
 def pad_heads(x: torch.Tensor, n_heads: int, parts: int, dp: int) -> torch.Tensor:
@@ -160,9 +175,10 @@ def unpad_heads_major(x: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def attention_form(dtype, d: int) -> str:
-    """The kernel form the forwards K1, K11 and K13 run heads of dim d in
+    """The kernel form the forwards K1 and K11 run heads of dim d in
     ``dtype`` on: "fp32" (the SIMT kernels) or "<dtype> D<instantiated head
-    dim>" (the backwards: :func:`bwd_attention_form`)."""
+    dim>" (the backwards: :func:`bwd_attention_form`; K13:
+    :func:`sp_attention_form`)."""
     if dtype == torch.float32:
         return "fp32"
     return f"{'bf16' if dtype == torch.bfloat16 else 'fp16'} D{kernel_head_dim(d)}"
@@ -392,10 +408,13 @@ def _check_packed(what, qkv, key_bias, n_heads, *others, smem_fn, qb=None):
     return _check(what, lambda lib, t: getattr(lib, smem_fn)(t), T, key_bias, B, qkv, *others)
 
 
-def _check_packed_any(what, qkv, key_bias, n_heads, *others, qb, head_dim=kernel_head_dim):
+def _check_packed_any(what, qkv, key_bias, n_heads, *others, qb, head_dim=kernel_head_dim, kernels=None):
     """K1/K2's checks in every form: a dtype of PACKED_DTYPES, head dim up
     to MAX_HEAD_DIM, shapes, and (bf16, fp16) the shared memory of T at the
-    instantiated head dim ``head_dim(D)`` (K2: :func:`bwd_head_dim`)."""
+    instantiated head dim ``head_dim(D)`` (K2: :func:`bwd_head_dim`): the
+    largest of the three kernels' (K1, whose forward bounds the packed
+    path), or of ``kernels`` (PACKED_KERNELS' indices; K2: its two
+    passes)."""
     if qkv.dtype not in PACKED_DTYPES:
         raise ValueError(f"{what}: the kernels take bf16, fp16 or fp32 qkv, got {qkv.dtype}")
     B, T, F = qkv.shape
@@ -408,7 +427,13 @@ def _check_packed_any(what, qkv, key_bias, n_heads, *others, qb, head_dim=kernel
     if qb.shape != (F,) or qb.dtype != qkv.dtype:
         raise ValueError(f"{what}: qkv_bias must be [{F}] {qkv.dtype}, got {tuple(qb.shape)} {qb.dtype}")
     dp = head_dim(d)
-    smem = None if qkv.dtype == torch.float32 else (lambda lib, t: lib.vb_attn_packed_x_smem_bytes(dp, t))
+    if qkv.dtype == torch.float32:
+        smem = None
+    elif kernels is None:
+        smem = lambda lib, t: lib.vb_attn_packed_x_smem_bytes(dp, t)  # noqa: E731
+    else:
+        code = _DTYPE_CODE[qkv.dtype]
+        smem = lambda lib, t: max(lib.vb_attn_packed_x_info(code, dp, k, 2, t) for k in kernels)  # noqa: E731
     return _check(what, smem, T, key_bias, B, qkv, *others, qb)
 
 
@@ -438,10 +463,11 @@ def _check_variant_dtype(what, qkv, d: int):
         raise ValueError(f"{what}: the kernels take head dims up to {MAX_HEAD_DIM}, got {d}")
 
 
-def _check_sp(what, qkv, key_bias, n_heads, *others, head_dim=kernel_head_dim):
+def _check_sp(what, qkv, key_bias, n_heads, *others, head_dim=bwd_head_dim):
     """K13/K14's checks in every form: dtype, head dim, shapes, and (bf16,
-    fp16) the shared memory of T at ``head_dim(D)`` (K14:
-    :func:`bwd_head_dim`)."""
+    fp16) the shared memory of T at ``head_dim(D)`` (both run at
+    :func:`bwd_head_dim`: the larger of the three kernels' bytes there bounds
+    the save-probs path)."""
     B, T, F = qkv.shape
     if F % (3 * n_heads):
         raise ValueError(f"{what}: F={F} does not split into 3 x {n_heads} heads")
@@ -518,9 +544,11 @@ def _built_kernels(dp: int) -> Tuple[int, ...]:
 def packed_x_head_groups(lib, dtype, dp: int, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
     """hg of K1's kernel and of K2's two passes in bf16 or fp16 at the
     instantiated head dim dp (``vb_attn_packed_x_info``); at dp 16 and 32,
-    which build K2 alone, K1's is None."""
+    which build K2 alone, K1's is None; at STREAMED_HEAD_DIM, whose passes
+    take a block a (128 rows, head, batch row), K2's are None."""
+    kernels = (0,) if dp == STREAMED_HEAD_DIM else _built_kernels(dp)
     return _kernel_head_groups(lib, "vb_attn_packed_x_info", "K1/K2", B, H, T, device, (_DTYPE_CODE[dtype], dp),
-                               _built_kernels(dp))
+                               kernels)
 
 
 def hm_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
@@ -543,10 +571,9 @@ def hm_x_head_groups(lib, dtype, dp: int, B: int, H: int, T: int, device) -> Tup
 
 def sp_x_head_groups(lib, dtype, dp: int, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
     """hg of K13's kernel and of K14's two passes in another bf16 or fp16
-    form at the instantiated head dim dp (``vb_attn_sp_x_info``); at dp 16
-    and 32, which build K14 alone, K13's is None."""
-    return _kernel_head_groups(lib, "vb_attn_sp_x_info", "K13/K14", B, H, T, device, (_DTYPE_CODE[dtype], dp),
-                               _built_kernels(dp))
+    form at the instantiated head dim dp (``vb_attn_sp_x_info``; all three
+    are built at every dp of BWD_HEAD_DIMS)."""
+    return _kernel_head_groups(lib, "vb_attn_sp_x_info", "K13/K14", B, H, T, device, (_DTYPE_CODE[dtype], dp))
 
 
 def launch_packed_fwd(lib, qkv, qb, key_bias, n_heads: int, rate: float, seed: int, hg: int):
@@ -598,13 +625,25 @@ def launch_packed_x_fwd(lib, qkv, qb, key_bias, n_heads: int, rate: float, seed:
     return code, out, stats
 
 
+def packed_bias_rows(lib, dp: int, T: int) -> int:
+    """Rows of bias-gradient partials a batch row of K2's bf16 and fp16
+    passes at head dim dp write: one a 128-row block of either pass at
+    STREAMED_HEAD_DIM (``vb_attn_packed_x_bias_rows``), else one, from
+    blocks that walk a whole batch row."""
+    return lib.vb_attn_packed_x_bias_rows(dp, T) if dp == STREAMED_HEAD_DIM else 1
+
+
 def launch_packed_x_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: float, seed: int, hg_dq: int,
                         hg_dkv: int, scale: float):
     """K2's two kernels in bf16 or fp16 at the instantiated head dim, as
-    :func:`launch_packed_x_fwd`: (CUDA code, dqkv, dqb)."""
+    :func:`launch_packed_x_fwd`: (CUDA code, dqkv, dqb); the bias gradient
+    is the sum of the [B, packed_bias_rows, F] partials the kernels write
+    (:func:`sum_bias_partials`). hg_dq and hg_dkv are not used at
+    STREAMED_HEAD_DIM."""
     B, T, F = qkv.shape
     dqkv = torch.empty_like(qkv)
-    db_part = torch.empty((B, F), dtype=torch.float32, device=qkv.device)
+    db_part = torch.empty((B, packed_bias_rows(lib, F // (3 * n_heads), T), F), dtype=torch.float32,
+                          device=qkv.device)
     delta = torch.empty((B, n_heads, T), dtype=torch.float32, device=qkv.device)
     code = lib.vb_attn_packed_x_bwd(
         qkv.data_ptr(), qb.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), out.data_ptr(),
@@ -612,7 +651,7 @@ def launch_packed_x_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads: int, 
         B, T, n_heads, hg_dq, hg_dkv, *_seed_args(rate, seed), _DTYPE_CODE[qkv.dtype], F // (3 * n_heads),
         float(scale), _build.stream_ptr(qkv.device),
     )
-    return code, dqkv, db_part.sum(dim=0).to(qb.dtype)
+    return code, dqkv, sum_bias_partials(db_part).to(qb.dtype)
 
 
 def launch_small_products(lib, a, b, q):
@@ -649,9 +688,11 @@ def f32_bias_tiles(lib, T: int) -> int:
 
 
 def sum_bias_partials(db_part: torch.Tensor) -> torch.Tensor:
-    """The QKV-bias gradient [F] from the fp32 backward's partials [B,
-    tiles, F]: one reduction over the B x tiles rows, in the same order on
-    every call (no atomics: two calls agree bit for bit)."""
+    """The QKV-bias gradient [F] from a backward's partials [B, rows, F]
+    (the fp32 backward's tiles, :func:`f32_bias_tiles`; K2's in bf16 and
+    fp16, :func:`packed_bias_rows`): one reduction over the B x rows rows,
+    in the same order on every call (no atomics: two calls agree bit for
+    bit)."""
     return db_part.reshape(-1, db_part.shape[-1]).sum(dim=0)
 
 
@@ -711,7 +752,7 @@ def packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, n_heads: int, rate
     what = "packed attention backward (K2)"
     if not _on_cuda(what, qkv):
         return packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed)
-    lib = _check_packed_any(what, qkv, key_bias, n_heads, dout, out, qb=qb, head_dim=bwd_head_dim)
+    lib = _check_packed_any(what, qkv, key_bias, n_heads, dout, out, qb=qb, head_dim=bwd_head_dim, kernels=(1, 2))
     B, T, F = qkv.shape
     _check_stats(what, stats, B, n_heads, T)
     d = F // (3 * n_heads)
@@ -720,7 +761,9 @@ def packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, n_heads: int, rate
         code, dqkv, dqb = launch_f32_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed)
     else:
         dp = bwd_head_dim(d)
-        _, hg_dq, hg_dkv = packed_x_head_groups(lib, qkv.dtype, dp, B, n_heads, T, qkv.device)
+        hg_dq = hg_dkv = 1  # the streamed passes' grid has no head groups
+        if dp != STREAMED_HEAD_DIM:
+            _, hg_dq, hg_dkv = packed_x_head_groups(lib, qkv.dtype, dp, B, n_heads, T, qkv.device)
         code, dqkv, dqb = launch_packed_x_bwd(
             lib, pad_heads(qkv, n_heads, 3, dp), pad_heads(qb, n_heads, 3, dp), key_bias,
             pad_heads(dout, n_heads, 1, dp), pad_heads(out, n_heads, 1, dp), stats, n_heads, rate, seed, hg_dq,
@@ -925,12 +968,13 @@ def packed_attention_sp_fwd(qkv, key_bias, n_heads: int, rate: float, seed: int)
     """K13 wrapper on the biased packed qkv: (out [B, T, H*D], probs
     [B, H, T, T] bf16 in every form). On the card probs is the [B, H, T, T]
     view of a [B, H, T, probs_row_stride(T)] buffer; K14 reads it in place.
-    bf16 and fp16 heads below an instantiated head dim are zero-padded to it
-    here and the output cut back; fp32 runs the SIMT kernel."""
+    In the forms of :func:`sp_attention_form`: bf16 and fp16 heads of 16 and
+    32 (and 64, 128) read in place, the others zero-padded to the next of
+    BWD_HEAD_DIMS here and the output cut back; fp32 runs the SIMT kernel."""
     what = "save-probs attention forward (K13)"
     if not _on_cuda(what, qkv):
         return packed_attention_sp_fwd_reference(qkv, key_bias, n_heads, rate, seed)
-    lib = _check_sp(what, qkv, key_bias, n_heads)
+    lib = _check_sp(what, qkv, key_bias, n_heads, head_dim=bwd_head_dim)
     B, T, F = qkv.shape
     d = F // (3 * n_heads)
     if qkv.dtype == torch.float32:
@@ -939,13 +983,13 @@ def packed_attention_sp_fwd(qkv, key_bias, n_heads: int, rate: float, seed: int)
         hg = sp_head_groups(lib, B, n_heads, T, qkv.device)[0]
         code, out, probs = launch_sp_fwd(lib, qkv, key_bias, n_heads, rate, seed, hg)
     else:
-        dp = kernel_head_dim(d)
+        dp = bwd_head_dim(d)
         hg = sp_x_head_groups(lib, qkv.dtype, dp, B, n_heads, T, qkv.device)[0]
         code, out, probs = launch_sp_x_fwd(lib, pad_heads(qkv, n_heads, 3, dp), key_bias, n_heads, rate, seed, hg,
                                            1.0 / math.sqrt(d))
         out = unpad_heads(out, n_heads, 1, d)
     lib.check(code, what)
-    _counted(packed_attention_sp_fwd, attention_form(qkv.dtype, d))
+    _counted(packed_attention_sp_fwd, sp_attention_form(qkv.dtype, d))
     return out, probs
 
 

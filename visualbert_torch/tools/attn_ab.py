@@ -31,7 +31,11 @@ timed in turns (``tools/attn_steps.py``'s rounds). The backwards K2, K12
 and K14 at head dims 16 and 32 (bf16, fp16: SMALL_FORMS; SMALL_PAIRS) are
 launched on this tree's small-row forms and on the other tree's route,
 padded to 64 as its wrapper did (the pads and cuts timed with it), each on
-the plain forward's outputs and against the plain backward, in turns. Where the
+the plain forward's outputs and against the plain backward, in turns. K2
+at head dim 128 (bf16, fp16) on each tree's form (this tree's streamed
+passes, an earlier tree's passes that held a head's rows; STREAMED_SHAPES,
+on the plain forward's outputs) against the plain backward, then in turns
+(:func:`streamed_ab`). Where the
 toolkit has ``cuobjdump``, the machine code (SASS) of every kernel both
 trees build (K1/K2 in bf16 and fp16 at 64 and 128, K11-K14 in every form,
 K15/K16) is compared instruction by instruction, addresses and encodings
@@ -317,6 +321,84 @@ def small_forms_ab(libs, others, n_sm, card, rate=0.1):
                   f"ms in the other tree (padded to 64, pads and cuts included): {min(b) / min(a):.2f}x  [{card}]",
                   flush=True)
             del d, want, calls
+            torch.cuda.empty_cache()
+    return res
+
+
+# K2 at head dim 128: (B, T) at 12 heads, the main path's and a T that
+# passes which hold a head's rows still take (256 at most)
+STREAMED_SHAPES = ((128, 228), (8, 256))
+
+
+class BiasRows:
+    """A packed build for ``launch_packed_x_bwd`` at head dim 128: its own
+    ``vb_attn_packed_x_bias_rows`` where it has one; a build from before the
+    streamed passes (it has none) writes one row of bias partials a batch
+    row."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def vb_attn_packed_x_bias_rows(self, dh, T):
+        fn = getattr(self.lib, "vb_attn_packed_x_bias_rows", None)
+        return 1 if fn is None else fn(dh, T)
+
+
+def streamed_ab(libs, n_sm, card, rate=0.1):
+    """K2 at head dim 128 in bf16 and fp16 at STREAMED_SHAPES, dropout
+    ``rate``, from each tree's packed build (head groups from its own
+    occupancy query; this tree's streamed passes take none), on the plain
+    forward's outputs: dqkv and dqb against the plain backward within
+    ``attn_steps``'s limits, then the trees timed in turns (best of 3 runs
+    of 30 calls, F32_ROUNDS rounds): {"<dtype> B=<B> T=<T>": {tree:
+    dict(errors, ms)}}."""
+    import math
+
+    import torch
+
+    from visualbert_torch.ops import flash_attention as fa
+    from visualbert_torch.tools import attn_steps
+    from visualbert_torch.tools.attn_exp import best_ms
+
+    H, seed, res = attn_steps.H, attn_steps.SEED, {}
+    for dtype in ("bfloat16", "float16"):
+        code, dt = (0 if dtype == "bfloat16" else 1), getattr(torch, dtype)
+        for B, T in STREAMED_SHAPES:
+            qkv, qb, key_bias, dout = f32_inputs(128, B, T, H)["packed"]
+            qkv, qb, dout = qkv.to(dt), qb.to(dt), dout.to(dt)
+            out, stats = fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, seed)
+            want = fa.packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, H, rate, seed)
+            form, calls = f"{dtype} B={B} T={T}", {}
+            for name, (lib, _) in libs.items():
+                build = BiasRows(lib)
+                hg = [fa.head_group(B, H, n_sm, max(1, lib.vb_attn_packed_x_info(code, 128, k, 3, T))) for k in (1, 2)]
+
+                def call(build=build, hg=hg, name=name):
+                    c, dq, db = fa.launch_packed_x_bwd(build, qkv, qb, key_bias, dout, out, stats, H, rate, seed, *hg,
+                                                       1.0 / math.sqrt(128))
+                    if c != 0:
+                        raise RuntimeError(f"{name} K2 {form}: CUDA error {c}")
+                    return dq, db
+
+                got = call()
+                torch.cuda.synchronize()
+                e = dict(dqkv=attn_steps._rel(got[0], want[0]), dqb=attn_steps._rel(got[1], want[1]))
+                print(f"{name} K2 {form} at head dim 128 (hg {hg}): dqkv {e['dqkv']:.3e}, dqb {e['dqb']:.3e}  "
+                      f"[{card}]", flush=True)
+                if not (e["dqkv"] <= attn_steps.DQKV_TOL and e["dqb"] <= attn_steps.DB_TOL):
+                    raise SystemExit(f"attn_ab: {name}'s K2 {form} at head dim 128 disagrees with the plain version")
+                calls[name] = call
+                res.setdefault(form, {})[name] = dict(errors=e, ms=[])
+            for r in range(F32_ROUNDS):
+                for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+                    res[form][name]["ms"].append(best_ms(lambda i, c=calls[name]: c()))
+            a, b = res[form]["this"]["ms"], res[form]["other"]["ms"]
+            print(f"K2 {form} at head dim 128, dropout {rate}: {min(a):.4f}-{max(a):.4f} ms here, {min(b):.4f}-"
+                  f"{max(b):.4f} ms in the other tree: {min(b) / min(a):.2f}x  [{card}]", flush=True)
+            del qkv, qb, key_bias, dout, out, stats, want, calls
             torch.cuda.empty_cache()
     return res
 
@@ -866,12 +948,13 @@ def main(argv=None):
     attn_steps.print_times(builds, times, card, "K1/K2")
     variants = variant_ab(others, data, n_sm, card)
     small = small_forms_ab(libs, others, n_sm, card)
+    streamed = streamed_ab(libs, n_sm, card)
     exp = exp_times(exp_libs, data, card)
     sass = compare_sass(sass_paths, card)
     f32 = f32_ab(trees, card)
     result = dict(card=card, shape=dict(B=B, T=T, H=attn_steps.H), other=str(rest[0]), errors=errors, times=times,
                   exp_times=exp, variants=variants, builds={b.name: dict(hg=b.hg, info=b.info) for b in builds},
-                  small_forms=small, sass=sass, f32=f32)
+                  small_forms=small, streamed=streamed, sass=sass, f32=f32)
     print(json.dumps(result), flush=True)
     return result
 
