@@ -105,14 +105,16 @@ non-zero without printing the final line:
    registers, local bytes, shared bytes, blocks an SM, heads a block and
    T limit and the padding's own time (the fp32 kernels and K2's forms at
    16 and 32 may not spill); K4-K6 (XENT_FORMS) in bf16 at widths
-   128, 256, 512 and 1024 (bert-large's), in fp16 and fp32 at 768, in bf16
+   128, 256, 512 and 1024 (bert-large's; K5/K6 there on the 1024 form's
+   clusters of two blocks, also in fp16, called twice, printed with their
+   cluster and beside EARLIER_DESIGN_MS), in fp16 and fp32 at 768, in bf16
    and fp16 at 384 (zero-padded to 512, the copy of E timed alone), on the
    wide form in bf16 and fp16 at 2048 and 2560 (Megatron-BERT 1.3B's and
    3.9B's widths; K4 on 128 x 128 tiles fed by a producer warp's TMA,
    K5/K6 in thread-block clusters, printed with their cluster and TFLOP/s;
    db held to the exact products') and fp32 (the tiled kernels) at 1088 and
    2048, at the main path's N = 3072 and V = 30522, likewise (none may
-   spill; fp32 and wide K4-K6 called twice must agree bit for bit),
+   spill; fp32, wide and 1024 K4-K6 called twice must agree bit for bit),
    beside cuBLAS's products in the same dtype. Then K11/K12 and K13/K14 in the same forms
    (ATTENTION_FORMS) at the main path's [128, 228, 12 heads], dropout 0 and
    0.1, held as K1/K2's forms and K11-K14 are (K13's bf16 probabilities
@@ -315,7 +317,7 @@ non-zero without printing the final line:
    one epoch of 4 steps whose checkpoint must load back;
 27. (run before 26's table) trains GEOMETRY_EXAMPLES / 128 = 3 steps of
    coco_pretrain through the CLI on synthetic data with
-   configs/coco_pretrain.json's blocks and flags in twelve model
+   configs/coco_pretrain.json's blocks and flags in thirteen model
    geometries: the JAX package's tiny() (fp32, head dim 16, width 64, with
    the fused LayerNorm: all four kernel flags), bert-base in fp16,
    BERT-Small (Turc et al. 2019: L = 4, H = 512, A = 8, I = 2048) in bf16,
@@ -333,7 +335,10 @@ non-zero without printing the final line:
    al. 2020: L = 4, H = 312, A = 12, I = 1200) in bf16 (heads of 26: K1
    padded to 64, K2 on its "bf16 D32" form), again with `"packed_qkv":
    false` (K11 padded, K12 on "bf16 D32") and with `"flash_save_probs":
-   true` (K13 and K14 on "bf16 D32"); each run
+   true` (K13 and K14 on "bf16 D32"), and bert-large's widths
+   (VisualBertConfig.large: H = 1024, A = 16, I = 4096; L cut from 24 to
+   2) in bf16 with the fused LayerNorm, fast_dropout and the fused
+   cross-entropy (K5/K6 on the 1024 form, "bf16 H1024"); each run
    must be on the card, its losses finite, its launches those of its depth
    and flags (the attention pair L a step, K4-K6 one, the dropout sites or
    K9/K10), every launch of K1/K2, K4-K14 in the kernel form of its dtype
@@ -351,8 +356,9 @@ non-zero without printing the final line:
    phase 27's bert-base fp32 run; the forms of K11/K12 (fp16), K13/K14 (fp32,
    launches from the bert-base fp32 save-probs run),
    K9/K10 (bf16, a block a row), K4-K6 (bf16 and fp16, the wide form at
-   2048) and K2, K12, K13 and K14 (bf16 D32) that phase 27 drives are
-   sixteen rows more
+   2048; K5/K6 in bf16 at 1024, launches from the bert-large run) and
+   K2, K12, K13 and K14 (bf16 D32) that phase 27 drives are eighteen rows
+   more
    (FORM_KERNELS), timed at
    phase 3's shapes, their launches from their geometry's run), then {"ok":
    true, "device": {...}} as the last line.
@@ -502,13 +508,18 @@ EARLIER_DESIGN_MS = {("packed_attention_bwd", "bfloat16", 16): 1.1397, ("packed_
                      ("packed_attention_sp_fwd", "bfloat16", 32): 0.5162,
                      ("packed_attention_sp_fwd", "float16", 32): 0.5265,
                      ("packed_attention_bwd", "bfloat16", 128): 2.1757,
-                     ("packed_attention_bwd", "float16", 128): 2.0320}
+                     ("packed_attention_bwd", "float16", 128): 2.0320,
+                     # K5/K6 at width 1024 on the form that owned 512 columns a block and formed the
+                     # logits twice: bf16 this script's reading, fp16 tools/xent_steps.py --h1024's of
+                     # that build in the same call as the 1024 form (best of its rounds)
+                     ("mlm_xent_dx", "bfloat16", 1024): 3.0922, ("mlm_xent_de", "bfloat16", 1024): 3.0881,
+                     ("mlm_xent_dx", "float16", 1024): 2.9448, ("mlm_xent_de", "float16", 1024): 3.0209}
 # K2 at D = 128 is also held at this T (B = 8, 12 heads), past 256, the
 # limit its passes had while they held a head's rows in shared memory
 STREAMED_LONG_T = 512
 XENT_FORMS = (("bfloat16", 128), ("bfloat16", 256), ("bfloat16", 512), ("float16", 768), ("float32", 768),
               ("bfloat16", 1024), ("bfloat16", 384), ("float16", 384), ("bfloat16", 2048), ("bfloat16", 2560),
-              ("float16", 2048), ("float16", 2560), ("float32", 1088), ("float32", 2048))
+              ("float16", 2048), ("float16", 2560), ("float32", 1088), ("float32", 2048), ("float16", 1024))
 # K11-K14 take the forms of ATTENTION_FORMS; K7-K10 at the main path's rows
 # in these (dtype, width) forms: below 64 and odd widths on the element
 # forms, above 1024 on the block forms (Megatron-BERT's 2048, ALBERT-
@@ -552,11 +563,17 @@ GEOMETRIES = (
     ("TinyBERT-4 in bf16, flash_save_probs",
      dict(hidden_size=312, num_hidden_layers=4, num_attention_heads=12, intermediate_size=1200,
           flash_save_probs=True)),
+    # depth cut from 24 to 2 layers, as the Megatron runs; widths as VisualBertConfig.large ships them
+    ("bert-large's widths (VisualBertConfig.large: H=1024, A=16, I=4096) at L=2 (cut from 24) in bf16, the fused "
+     "LayerNorm, fast_dropout and the fused cross-entropy (K5/K6 on the 1024 form)",
+     dict(hidden_size=1024, num_hidden_layers=2, num_attention_heads=16, intermediate_size=4096,
+          use_fused_layer_norm=True, fast_dropout=True, fused_mlm_xent=True)),
 )
 F32_GEOMETRY, F32_SP_GEOMETRY = 6, 7  # the bert-base fp32 runs: the fp32 rows' launches
 F16_WIDE_GEOMETRY = 8  # the Megatron-width fp16 run: the fp16 wide K4-K6 rows' launches
 TINYBERT_GEOMETRY = 9  # the TinyBERT-4 run: K2's "bf16 D32" row's launches
 TINYBERT_HM_GEOMETRY, TINYBERT_SP_GEOMETRY = 10, 11  # K12's and K13/K14's "bf16 D32" rows' launches
+BERT_LARGE_GEOMETRY = 12  # the bert-large run: K5/K6's "bf16 H1024" rows' launches
 BERT_BASE_F32_STEP_MS = 525.42  # phase 27's bert-base fp32 median step on the first-design K1 forward (H100, 700 W)
 # the kernel table's rows of the fp32 kernels: (row name, wrapper module,
 # wrapper, source, the TPU kernel it replaces); launches from the bert-base
@@ -606,6 +623,10 @@ FORM_KERNELS = (
      F16_WIDE_GEOMETRY, ("float16", 2048)),
     ("mlm_xent_de (fp16 wide H2048)", "mlm_xent", "mlm_xent_de", "mlm_xent.cu", "visualbert_tpu/ops/mlm_xent.py:170",
      F16_WIDE_GEOMETRY, ("float16", 2048)),
+    ("mlm_xent_dx (bf16 H1024)", "mlm_xent", "mlm_xent_dx", "mlm_xent.cu", "visualbert_tpu/ops/mlm_xent.py:145",
+     BERT_LARGE_GEOMETRY, ("bfloat16", 1024)),
+    ("mlm_xent_de (bf16 H1024)", "mlm_xent", "mlm_xent_de", "mlm_xent.cu", "visualbert_tpu/ops/mlm_xent.py:170",
+     BERT_LARGE_GEOMETRY, ("bfloat16", 1024)),
 )
 # phase 25: the mesh's runs against the one-process run on the same seeded
 # weights and batch (bf16 model; the ranks sum in another order), each limit
@@ -1672,8 +1693,12 @@ def xent_design(torch, xe, x, emb, bias, lab, lse, g, card):
     rows, tile, cols = (lib.vb_xent_geometry(w, H) for w in (2, 4, 5))
     fwd_rows, fwd_tile = lib.vb_xent_geometry(1, H), lib.vb_xent_geometry(3, H)
     fwd_plan = xe.fwd_plan(N, V, H, fwd_rows, fwd_tile, sms)
-    dx_plan = xe.dx_plan(N, V, H, rows, tile, cols, sms)
-    de_plan = xe.de_plan(V, H, rows, cols)
+    if H == xe.H1024:  # the 1024 form's cluster: the plans its wrappers take
+        dx_plan = xe.wide_dx_plan(N, V, H, rows, tile, cols, xe.h1024_clusters(lib, 0, x.dtype))
+        de_plan = xe.wide_de_plan(V, H, rows, cols)
+    else:
+        dx_plan = xe.dx_plan(N, V, H, rows, tile, cols, sms)
+        de_plan = xe.de_plan(V, H, rows, cols)
     gflop = 2.0 * N * V * H / 1e9
     for k, number, name, fn, args, n_mm, grid in (
             (2, 4, "mlm_xent_fwd", xe.mlm_xent_fwd, (), 1, f"grid {fwd_plan['grid']} (blocks of {fwd_rows} rows, "
@@ -1752,7 +1777,9 @@ def earlier_design_line(key, ms, card):
     """A redesigned form's time beside EARLIER_DESIGN_MS's reading of it."""
     if key in EARLIER_DESIGN_MS:
         was = EARLIER_DESIGN_MS[key]
-        log(f"{key[0]} {key[1]} D={key[2]}: {ms:.4f} ms, the earlier design's {was:.4f} ms: {was / ms:.2f}x  [{card}]")
+        dim = "H" if key[0].startswith("mlm_xent") else "D"
+        log(f"{key[0]} {key[1]} {dim}={key[2]}: {ms:.4f} ms, the earlier design's {was:.4f} ms: {was / ms:.2f}x  "
+            f"[{card}]")
 
 
 def check_attention_forms(torch, card, main_k2_ms):
@@ -1929,8 +1956,9 @@ def check_xent_forms(torch, card):
     """K4-K6 in the forms of XENT_FORMS at the main path's N = 3072 rows and
     V = 30522, against their plain versions (fp32 at F32_ABS_TOL /
     F32_REL_TOL, the rest at bf16's limits; argmax as check_xent holds it);
-    fp32 and wide (bf16 and fp16) K4-K6 called again on the same inputs must
-    give the same bits (the wide K5/K6 with the cluster each of their blocks
+    fp32, wide and 1024 (bf16 and fp16) K4-K6 called again on the same
+    inputs must give the same bits (the wide and the 1024 K5/K6 with the
+    cluster each of their blocks
     is in, the clusters the card runs at once, and the TFLOP/s of their two
     useful products printed; their db held at DBIAS_TOL to the exact
     products' (tools/xent_steps.py::db_exact: the plain version's own fp32
@@ -1953,6 +1981,8 @@ def check_xent_forms(torch, card):
         x, emb, bias, lab, g = xent_inputs_at(torch, dtype, H, N, V)
         form = xe.xent_form(x.dtype, H)
         wide = xe.is_wide(H) and not xe.runs_on_f32(x.dtype, H)
+        # K5/K6 in thread-block clusters: the wide form and the 1024 form
+        clustered = wide or (not xe.runs_on_f32(x.dtype, H) and xe.kernel_width(H) == xe.H1024)
         if dtype == "float32":
             t_lse, t_dx, t_de, t_db = F32_ABS_TOL, F32_REL_TOL, F32_REL_TOL, F32_REL_TOL
         else:
@@ -1987,7 +2017,7 @@ def check_xent_forms(torch, card):
         if not (e_nll <= t_lse and e_lse <= t_lse and bad_clear == 0 and r_dx <= t_dx and r_de <= t_de
                 and r_db <= t_db):
             raise SystemExit(f"K4-K6 {where} disagree with their plain versions")
-        if dtype == "float32" or wide:
+        if dtype == "float32" or clustered:
             again = (*xe.mlm_xent_fwd(x, emb, bias, lab), xe.mlm_xent_dx(x, emb, bias, lab, lse_r, g),
                      *xe.mlm_xent_de(x, emb, bias, lab, lse_r, g))
             same = [torch.equal(a, b) for a, b in zip((nll, lse, am, dx, de, db), again)]
@@ -2018,6 +2048,7 @@ def check_xent_forms(torch, card):
                   f"{r['ms'] / cublas:.2f}x; the design runs {design[name]} N x V x H product(s), "
                   f"{design[name] * gflop / r['ms']:.1f} TFLOP/s; {n_mm * gflop / r['ms']:.1f} TFLOP/s on the "
                   f"{n_mm} useful")
+            earlier_design_line((name, dtype, H), r["ms"], card)
             if dtype == "float32" and H == 768:
                 rows[f"{name} (fp32)"] = r
             form_rows[(name, dtype, H)] = r
@@ -2033,8 +2064,9 @@ def check_xent_forms(torch, card):
         for k, kernel in enumerate(("K5", "K6", "K4")):
             regs, local, smem, per_sm = (info(k, w, hk) for w in range(4))
             cluster = ""
-            if wide and k < 2:
-                R, panels = xe.wide_cluster(hk, lib.vb_xent_wide_geometry(5))
+            if clustered and k < 2:
+                R, panels = xe.wide_cluster(hk, (lib.vb_xent_wide_geometry(5) if wide
+                                                 else lib.vb_xent_geometry(5, hk)))
                 cluster = (f", clusters of {R} blocks ({panels} panels of 64 columns a block), "
                            f"{info(k, 4, hk)} clusters at once")
             log(f"{kernel} {dtype} at width {hk} (form {form}): {regs} registers a thread, {local} bytes of local "

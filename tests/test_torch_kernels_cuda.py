@@ -52,7 +52,8 @@ repeat bit for bit, drop exactly the plain mask's positions, and refuse T =
 left out, and of K13/K14's with synchronous copies, give the kernels'
 outputs bit for bit. K4-K6 also run at bert-large's
 hidden width of 1024. K4 (``xent_fwd_kernel``: x in wgmma A fragments,
-cp.async ring) and K5/K6 (``xent_bwd_kernel``: wgmma, cp.async) run at
+cp.async ring) and K5/K6 (``xent_bwd_kernel``: wgmma, cp.async; at 1024
+``xent_h1024_bwd_kernel``, a cluster of two blocks, TMA) run at
 every ragged, single and whole row block, vocabulary tile and split of N in
 {3072, 37, 257, 1, 65} and V in {30522, 4099, 70} (width 1024 at N in
 {3072, 37} for K5/K6, at every N for K4), repeat bit for bit, do not spill,
@@ -903,7 +904,7 @@ XENT_BWD_CASES = ([(768, N, V) for N in (3072, 37, 257, 1, 65) for V in (30522, 
 def test_xent_backward_kernels_match_plain(cuda, H, N, V):
     """K5/K6 against their plain versions where a row block, a vocabulary
     tile and a split are ragged, single or whole (the vocabulary tile is 32
-    rows at 768 and 16 at 1024, the row block 64)."""
+    rows at 768 and 64 at 1024, the row block 64)."""
     x, emb, bias, labels, g = xent_inputs(N, V, cuda, seed=3, H=H)
     _, lse_r, _ = xe.mlm_xent_fwd_reference(x, emb, bias, labels)
     dx = xe.mlm_xent_dx(x, emb, bias, labels, lse_r, g)
@@ -946,7 +947,7 @@ def test_xent_geometry_is_the_one_the_plans_are_tested_with(cuda):
     got = {H: tuple(lib.vb_xent_geometry(w, H) for w in range(6)) for H in xe.KERNEL_WIDTHS}
     assert got == {128: (128, 128, 64, 32, 32, 128), 256: (256, 128, 64, 32, 32, 256),
                    512: (512, 128, 64, 32, 32, 512), 768: (768, 128, 64, 32, 32, 768),
-                   1024: (1024, 64, 64, 32, 16, 512)}
+                   1024: (1024, 64, 64, 32, 64, 512)}
     assert lib.vb_xent_geometry(0, 640) == -1 and lib.vb_xent_info(0, 0, 640) == -1
     assert lib.vb_xent_info(2, 0, 640) == -1 and lib.vb_xent_info(3, 0, 768) == -1
     assert lib.vb_xent_f16_info(2, 0, 640) == -1 and lib.vb_xent_f32_info(0, 0, 0) == -1

@@ -6,7 +6,8 @@ tiling and the card's SM count; a slip there shows on the card only as a row
 or vocabulary tile left out or done twice, or a partials buffer of the wrong
 size. Here the plans are walked as the kernels walk them
 (``csrc/mlm_xent.cu::xent_fwd_kernel``, ``::xent_bwd_kernel``) at both
-widths, for the main path's vocabulary and two ragged ones, on a card of 132
+widths (at 1024 the 1024 form's plans, ``wide_dx_plan`` / ``wide_de_plan``),
+for the main path's vocabulary and two ragged ones, on a card of 132
 SMs (an H100) and of 8: every row, vocabulary tile and result column is
 covered exactly once, no split is empty, and the partials have the shape the
 kernel writes. The tiling is the one ``vb_xent_geometry`` reports on the card
@@ -17,8 +18,9 @@ import pytest
 
 from visualbert_torch.ops import mlm_xent as xe
 
-# width -> (rows of a block, streamed rows of a tile, result columns of a block)
-TILING = {768: (64, 32, 768), 1024: (64, 16, 512)}
+# width -> (rows of a block, streamed rows of a tile, result columns of a block); at 1024 a cluster of two
+# blocks of 512 columns shares the 64 rows (the 1024 form, csrc/mlm_xent.cu::xent_h1024_bwd_kernel)
+TILING = {768: (64, 32, 768), 1024: (64, 64, 512)}
 # K4: width -> (x rows of a block, vocabulary rows of a tile)
 FWD_TILING = {768: (128, 32), 1024: (64, 32)}
 SMS = (132, 8)
@@ -81,13 +83,23 @@ def test_fwd_plan_fills_the_card_at_the_main_path(H, grid, per):
     assert grid[0] * grid[1] % 132 == 0
 
 
+def bwd_plan(N, V, H, sms):
+    """K5's plan as its wrapper takes it: dx_plan up to 768; at 1024 the
+    1024 form's, wide_dx_plan over the clusters at once (one block an SM:
+    sms // 2 clusters of two)."""
+    rows, tile, cols = TILING[H]
+    if H == xe.H1024:
+        return xe.wide_dx_plan(N, V, H, rows, tile, cols, sms // 2)
+    return xe.dx_plan(N, V, H, rows, tile, cols, sms)
+
+
 @pytest.mark.parametrize("sms", SMS)
 @pytest.mark.parametrize("V", [30522, 4099, 70])
 @pytest.mark.parametrize("H", sorted(TILING))
 @pytest.mark.parametrize("N", [3072, 257, 37, 1])
 def test_dx_plan_covers_every_row_tile_and_column_once(N, H, V, sms):
     rows, tile, cols = TILING[H]
-    plan = xe.dx_plan(N, V, H, rows, tile, cols, sms)
+    plan = bwd_plan(N, V, H, sms)
     row_blocks, parts, S = plan["grid"]
     per = plan["per"]
     assert covered_once([(x * rows, min(N, x * rows + rows)) for x in range(row_blocks)], N)
@@ -107,7 +119,8 @@ def test_dx_plan_covers_every_row_tile_and_column_once(N, H, V, sms):
 @pytest.mark.parametrize("H", sorted(TILING))
 def test_de_plan_covers_every_vocabulary_row_and_column_once(H, V):
     rows, _, cols = TILING[H]
-    blocks, parts = xe.de_plan(V, H, rows, cols)["grid"]
+    plan = xe.wide_de_plan if H == xe.H1024 else xe.de_plan
+    blocks, parts = plan(V, H, rows, cols)["grid"]
     assert covered_once([(x * rows, min(V, x * rows + rows)) for x in range(blocks)], V)
     assert (blocks - 1) * rows < V
     assert covered_once([(y * cols, y * cols + cols) for y in range(parts)], H)

@@ -19,7 +19,9 @@ from visualbert_torch.tools import xent_steps
 
 @pytest.mark.parametrize("args,match", [([], "no CUDA device"), (["a", "b"], "at most one argument"),
                                         (["--wide"], "no CUDA device"),
-                                        (["--wide", "a", "b"], "at most one argument")])
+                                        (["--wide", "a", "b"], "at most one argument"),
+                                        (["--h1024"], "no CUDA device"), (["--h1024", "a"], "no CUDA device"),
+                                        (["--h1024", "a", "b"], "at most one argument")])
 def test_the_tool_runs_only_on_the_card_and_takes_at_most_a_checkout(monkeypatch, args, match):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match=match):
@@ -37,10 +39,12 @@ def test_every_build_leaves_out_a_step_and_binds_the_entry_points_it_calls():
     assert all(defines for defines in xent_steps.BUILDS.values())
     assert len({tuple(sorted(d)) for d in xent_steps.BUILDS.values()}) == len(xent_steps.BUILDS)
     assert set(xent_steps.FNS) <= set(_build._SIGNATURES)
-    assert xent_steps.BUILDS == {**xent_steps.FWD_BUILDS, **xent_steps.BWD_BUILDS}
-    # K4's switches are K4's alone, K5/K6's theirs: each build times one kernel's steps
+    assert xent_steps.BUILDS == {**xent_steps.FWD_BUILDS, **xent_steps.BWD_BUILDS, **xent_steps.H1024_BUILDS}
+    # K4's switches are K4's alone, K5/K6's theirs, the 1024 form's its own: each build times one kernel's steps
     assert all(d.startswith("-DVB_XENT_FWD_") for ds in xent_steps.FWD_BUILDS.values() for d in ds)
-    assert not any(d.startswith("-DVB_XENT_FWD_") for ds in xent_steps.BWD_BUILDS.values() for d in ds)
+    assert not any(d.startswith(("-DVB_XENT_FWD_", "-DVB_XENT_H1024_")) for ds in xent_steps.BWD_BUILDS.values()
+                   for d in ds)
+    assert all(d.startswith("-DVB_XENT_H1024_") for ds in xent_steps.H1024_BUILDS.values() for d in ds)
     assert set(xent_steps.EXACT_FWD_BUILDS) <= set(xent_steps.FWD_BUILDS)
 
 
@@ -53,6 +57,18 @@ def test_k4s_switches_lie_inside_the_forward_kernel(macro):
     k4 = k4[:k4.index("__global__ void xent_fwd_merge_kernel")]
     header = text[:text.index("// K5 and K6 are one")]
     assert text.count(macro) == k4.count(macro) + header.count(macro)
+
+
+def test_the_1024_phase_stamps_each_find_their_line_once():
+    """``--h1024``'s phase profile writes its clock64 stamps into a copy of
+    the 1024 kernel at lines it finds by their text: each must be there,
+    once, in the kernel's body, in the order of a tile."""
+    text = (_build.CSRC / "mlm_xent.cu").read_text()
+    body = text[text.index("xent_h1024_bwd_kernel(const __grid_constant__"):
+                text.index("// The 1024 form's cluster launch")]
+    at = [body.index(line) for _, line, _ in xent_steps.H1024_PHASES]
+    assert all(body.count(line) == 1 for _, line, _ in xent_steps.H1024_PHASES)
+    assert at == sorted(at) and body.count("  for (int t = t0; t < t1; ++t) {\n") == 1
 
 
 def test_the_wide_backward_has_no_switch():
@@ -72,7 +88,7 @@ def test_the_sass_parse_keys_the_shared_kernels_by_their_mangled_names():
         /*0010*/                   BRA `(.L_x_7) ;                         /* 0x0000000000007947 */
         Function : _ZN44_GLOBAL__N__x15xent_fwd_kernelILi768EEEvPK13__nv_bfloat16
         /*0000*/                   EXIT ;                                  /* 0x000000000000794d */
-        Function : _ZN44_GLOBAL__N__x15xent_bwd_kernelILi1024ELb1EEEvPK13__nv_bfloat16
+        Function : _ZN44_GLOBAL__N__x21xent_h1024_bwd_kernelILb1E13__nv_bfloat16EEv14CUtensorMap_st
         /*0000*/                   EXIT ;                                  /* 0x000000000000794d */
         Function : _ZN44_GLOBAL__N__x15xent_bwd_kernelILi768ELb0E6__halfEEvPKT1_
         /*0000*/                   NOP ;                                   /* 0x0000000000007918 */

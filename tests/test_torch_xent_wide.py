@@ -330,18 +330,18 @@ def test_fp16_and_bf16_run_every_width_from_1025_to_8192_on_the_wide_form(dtype,
 
 
 @pytest.mark.parametrize("dtype,H,products", [(torch.float32, 768, 2), (torch.float32, 2048, 2),
-                                               (torch.bfloat16, 768, 2), (torch.bfloat16, 1024, 3),
+                                               (torch.bfloat16, 768, 2), (torch.bfloat16, 1024, 2),
                                                (torch.bfloat16, 2048, 2), (torch.bfloat16, 2560, 2),
                                                (torch.bfloat16, 1100, 2), (torch.float16, 1100, 2),
                                                (torch.bfloat16, 4160, 2), (torch.bfloat16, 8256, 2),
-                                               (torch.float16, 1024, 3), (torch.float16, 2048, 2),
+                                               (torch.float16, 1024, 2), (torch.float16, 2048, 2),
                                                (torch.float16, 8256, 2)])
 def test_the_backward_forms_recompute_the_logits_once_a_column_range(dtype, H, products):
     """K5's and K6's N x V x H products: fp32 (and bf16 and fp16 above 8192,
     which run on the fp32 kernels) and the forms up to 768 (a block owns
-    every column) two; 1024 recomputes the logits for its second 512-column
-    range (3); the wide form's cluster forms them once over all its ranges
-    in bf16 and fp16 (2, at every width it takes)."""
+    every column) two; the 1024 form's cluster of two 512-column blocks
+    and the wide form's cluster form the logits once over all their ranges
+    in bf16 and fp16 (2, at every width they take)."""
     assert xe.bwd_products(dtype, H) == products
     assert xe.runs_on_f32(dtype, H) == (dtype == torch.float32 or H > xe.WIDE_MAX)
 

@@ -105,14 +105,14 @@
 //   streamed rows), the second product MN-major (B transposed, N = its
 //   columns). Copies are cp.async, 16 bytes a thread.
 // - Ring. Shared memory holds the resident tile (96 KB at 768) and two
-//   streamed tiles: T = 32 rows at 768 (2 x 48 KB), 16 at 1024 (2 x 32 KB,
-//   beside 128 KB resident), 210-215 KB in all. Tile t + 1 is issued right
+//   streamed tiles of T = 32 rows (2 x 48 KB at 768), 210 KB in all. Tile
+//   t + 1 is issued right
 //   after the barrier that opens tile t, with its rows' values (K5: bias;
 //   K6: lse, label, g, by 4-byte cp.async), so its copy runs under both of
 //   tile t's products and no register holds them during the logits.
 // - Products, all wgmma from shared memory. The logits are split by K: each
 //   warpgroup multiplies half of HID's panels into the whole 64 x T tile
-//   (m64n32 at 768, n16 at 1024), hands the other warpgroup its partial
+//   (m64n32), hands the other warpgroup its partial
 //   sums of that warpgroup's half of the columns through shared memory, and
 //   finishes its own half. It writes their bf16 dlog into one shared 64 x T
 //   tile (K-major, swizzled), and after a barrier both warpgroups multiply
@@ -122,15 +122,15 @@
 //   resident tile twice.
 // - Accumulator. 64 rows x 768 fp32 is 384 registers a thread for one
 //   warpgroup: each of the two owns 384 columns, six m64n64 accumulators
-//   (192 registers). At 1024 a block owns 512 of the columns (four n64
-//   accumulators a warpgroup) and the other half is a second block that
-//   recomputes the same logits: the grid's y.
-// - Grid. K5: x = 64-row blocks, y = column halves, z = vocabulary splits of
+//   (192 registers). At 1024 that would be 256 registers a warpgroup, which
+//   do not fit: width 1024 runs on a kernel of its own, a cluster of two
+//   blocks of 512 columns (the 1024 form, below).
+// - Grid. K5: x = 64-row blocks, y = 1, z = vocabulary splits of
 //   `vbs` tiles (blocks run in index order, so the blocks in flight read the
 //   same E range and E comes from L2); each writes an fp32 partial dx of its
 //   split and xent_dx_reduce_kernel sums the partials in split order, scales
 //   by g and rounds. K6: x = 64-vocabulary-row blocks (477 at the main path),
-//   y = column halves; no splits, no partials: x (4.7 MB) stays in L2.
+//   y = 1; no splits, no partials: x (4.7 MB) stays in L2.
 // What bounds this design (tools/xent_steps.py: the source built with a
 // step left out, timed beside the kernels as built): the logits' chain of
 // dependent wgmmas and the one streamed tile in flight per SM take about
@@ -153,7 +153,9 @@
 // thread: 32, 64, 128 at 128, 256, 512) and a 4-tile ring of 32 rows (the
 // ring's space is the block's x rows, 256 HID bytes); K5/K6 stream 32-row
 // tiles (m64n32 logits, each warpgroup over HID / 128 panels) and a block
-// owns every column (HID / 128 m64n64 accumulators a warpgroup). The
+// owns every column (HID / 128 m64n64 accumulators a warpgroup). At 1024
+// K5/K6 run on the 1024 form (a cluster of two blocks, the section before
+// the wide form's). The
 // wrapper zero-pads any other width up to 1024 to the next instantiated one
 // (ops/mlm_xent.py::pad_width; a zero column adds nothing to a logit) and
 // drops the padded columns of dx and dE. Above 1024 the wide form (the
@@ -204,15 +206,16 @@ constexpr int PANEL = RES * 128;  // bytes of a resident panel (64 columns)
 constexpr int P_BYTES = 64 * 128; // the dlog tile: 64 rows x T (<= 64) columns, swizzled
 constexpr int NV = 3;             // values of a streamed row: K5 the bias; K6 lse, label, g
 
-// K5/K6's tiling at hidden width HID (see the header comment).
+// K5/K6's tiling at hidden width HID up to 768 (see the header comment;
+// 1024 has a kernel of its own, xent_h1024_bwd_kernel).
 template <int HID>
 struct Bwd {
   static constexpr int NP = HID / 64;                  // 128 B panels of a [*, HID] row
   static constexpr int KP = NP / 2;                    // ... in each warpgroup's half of the logits
-  static constexpr int T = HID <= 768 ? 32 : 16;       // streamed rows a tile: the logits' n
-  static constexpr int COLS = HID <= 768 ? HID : 512;  // result columns a block owns
+  static constexpr int T = 32;                         // streamed rows a tile: the logits' n
+  static constexpr int COLS = HID;                     // result columns a block owns: all
   static constexpr int CW = COLS / 2;                  // ... a warpgroup owns
-  static constexpr int NC = CW / 64;                   // ... in m64n64 accumulators (1, 2, 4, 6, 4)
+  static constexpr int NC = CW / 64;                   // ... in m64n64 accumulators (1, 2, 4, 6)
   static constexpr int TN = T / 2;                     // logits columns a warpgroup finishes
   static constexpr int XV = TN / 2;                    // partial logits a thread hands the other warpgroup
   static constexpr int RES_BYTES = RES * HID * 2;
@@ -221,7 +224,7 @@ struct Bwd {
                                  (2 * XV * 128 + 2 * NV * T + 2 * RES) * sizeof(float);
 };
 static_assert(Bwd<128>::SMEM <= 232448 && Bwd<256>::SMEM <= 232448 && Bwd<512>::SMEM <= 232448 &&
-                  Bwd<768>::SMEM <= 232448 && Bwd<1024>::SMEM <= 232448,
+                  Bwd<768>::SMEM <= 232448,
               "a K5/K6 block must fit the H100's 227 KB of shared memory");
 
 // Issue the copy of rows [r0, r0 + NR) of a [nvalid, HID] bf16 matrix into NP
@@ -266,21 +269,6 @@ __device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t a, uint64_t b
     VB_XENT_N32("bf16");
 }
 #undef VB_XENT_N32
-#define VB_XENT_N16(TY)                                                                                        \
-  asm volatile(                                                                                                \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                                                             \
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, " \
-      "0, 0;\n}\n"                                                                                              \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])            \
-      : "l"(a), "l"(b), "r"(acc))
-template <typename ET>
-__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t a, uint64_t b, int acc) {
-  if constexpr (std::is_same<ET, __half>::value)
-    VB_XENT_N16("f16");
-  else
-    VB_XENT_N16("bf16");
-}
-#undef VB_XENT_N16
 // d (64 x 64) += A B, A [64 x 16] K-major and B [16 x 64] MN-major (16 rows
 // of 64 contiguous columns: imm-trans-b), both in shared memory.
 template <typename ET>
@@ -318,10 +306,7 @@ __device__ __forceinline__ void logits(float (&s)[Bwd<HID>::T / 2], uint32_t r, 
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t a = dr + ((p * PANEL) >> 4) + 2 * kk, b = dq + ((p * G::T * 128) >> 4) + 2 * kk;
-      if constexpr (G::T == 32)
-        wgmma_n32<ET>(s, a, b, p | kk);
-      else
-        wgmma_n16<ET>(s, a, b, p | kk);
+      wgmma_n32<ET>(s, a, b, p | kk);
     }
 }
 
@@ -962,6 +947,600 @@ int launch_de(const void* x, const void* E, const void* bias, const void* labels
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ cluster helpers
+//
+// What the cluster forms (the 1024 form below and the wide form, the last
+// section) share.
+
+// The thread-block cluster of K5/K6 at 1024 and of the wide K5/K6: this
+// block's rank and the cluster's blocks; a barrier of every thread of the
+// cluster's blocks that releases each thread's earlier shared-memory writes
+// and acquires the others'; the address of a shared-memory location of this
+// block in the block of another rank; 8 bytes stored there, counted on that
+// block's mbarrier bar (an address from cluster_addr).
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_blocks() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_async2(uint32_t addr, float a, float b, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(addr),
+               "f"(a), "f"(b), "r"(bar)
+               : "memory");
+}
+// An mbarrier of this block that completes a phase on one arrival and the
+// bytes it expects; that arrival, expecting `bytes`; a wait until phase
+// `parity` completes. A copy of `bytes` (a multiple of 16) of this block's
+// shared memory into another block's (dst, and its mbarrier bar, from
+// cluster_addr), which counts them on that mbarrier; this thread's copies
+// committed as a group; a wait until they have read their sources.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\nfence.mbarrier_init.release.cluster;\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_to_cluster(uint32_t dst, uint32_t src, int bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   dst),
+               "r"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+// Box {c0, c1} (columns, rows) of the 2-D tensor of `map` into shared
+// memory at dst, in the map's swizzle, counted on mbarrier bar.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+// Wait until at most the newest wgmma group is pending.
+__device__ __forceinline__ void wg_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+// An mbarrier of this block that completes a phase on `count` arrivals; an
+// arrival on it.
+__device__ __forceinline__ void mbar_init_count(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\nfence.mbarrier_init.release.cluster;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// The TMA map of a [rows, hid] matrix of ET: boxes of 64 columns (128 B,
+// swizzled as swz lays them out) by box_rows rows, zeros past the last row.
+template <typename ET>
+cudaError_t wide_map(CUtensorMap* map, const void* ptr, int rows, int hid, int box_rows = 64) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
+                                                             &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)hid, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)hid * sizeof(ET)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows}, steps[2] = {1, 1};
+  const CUresult r = encode(map, std::is_same<ET, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            2, const_cast<void*>(ptr), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------------ the 1024 form
+//
+// K5 and K6 at hidden width 1024 (bert-large's, and every width from 769
+// up that the wrapper zero-pads onto it), bf16 and fp16: xent_h1024_bwd_kernel
+// replaces the same TPU kernels as xent_bwd_kernel
+// (visualbert_tpu/ops/mlm_xent.py::_dx_kernel :145, ::_de_kernel :170).
+// Bound by its two N V 1024 products: at N = 3072, V = 30522, 384 GFLOP,
+// 0.388 ms at 989 TFLOP/s, against 62.5 MB of E.
+// - What it replaces. xent_bwd_kernel at 1024 kept a resident tile of 64 x
+//   1024 (128 KB), which left room for streamed tiles of 16 rows only
+//   (m64n16 logits, the narrowest wgmma), and its accumulator of 64 x 1024
+//   fp32 did not fit a block's registers: a block owned 512 columns and a
+//   second block formed every tile's logits again for the other 512 (three
+//   N V H products, not two), each step's barriers, exchange and dlog math
+//   with the tensor cores idle (3.09 ms, 2.1x cuBLAS's two products, on an
+//   NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
+// - A cluster of two blocks (H_R) shares one resident row block (K5: 64 rows
+//   of x, and K5's vocabulary split; K6: 64 rows of E). Block r keeps the
+//   panels [8 r, 8 r + 8) of the resident rows (64 KB, by TMA, once) and
+//   streams its 8 panels of every tile of 64 streamed rows through two
+//   stages of 64 KB (TMA, one box a panel, counted on an mbarrier a stage):
+//   each streamed byte is read once a (row block, column half), and one
+//   copy feeds both products.
+// - The logits by split K, formed once. Each warpgroup multiplies its 32
+//   columns of the tile (m64n32) over the block's 8 panels, each panel's
+//   four k-steps in a fresh accumulator added into the tile's partial sums
+//   in panel order, two panels in flight. Each thread then stores its 16
+//   partial sums into the other block's shared memory (four 16-byte
+//   st.async, whose bytes that block's mbarrier counts), where the thread of
+//   the same index, which holds the same places of the tile, adds them to
+//   its own: both blocks form the same sums (a sum of two fp32 terms does
+//   not depend on their order), then the bias, and so the whole 64 x 64
+//   dlog tile, each by itself. No dlog row crosses the cluster, and the
+//   exchange is one hop: the wide form's cluster sends partial sums to the
+//   block that owns a row and the dlog rows back. The receive buffer is
+//   one: a block stores a tile's partial sums only after the other has
+//   signalled (a remote arrival on this block's `free` mbarrier, given under
+//   its product) that it read the previous tile's, a whole tile earlier.
+// - Products. The dlog tile (bf16 or fp16, K-major, swizzled) times the
+//   block's panels of the streamed tile, each warpgroup into its four
+//   m64n64 accumulators (the block's panels 2 j + wg, 128 registers),
+//   waited for at the end of the tile. Left running under the next tile's
+//   logits it made ptxas serialize every wgmma of K5 or K6 (C7515: the
+//   kernel ran 1.4x slower, PERF.md). Every wgmma runs on every path, none
+//   under a condition.
+// - What overlaps. Tile t + 1's copy (64 KB, TMA) runs under the whole of
+//   tile t: thread 0 issues it once tile t's second panel is in flight and
+//   a block barrier has shown both warpgroups done with tile t - 1. Thread
+//   0's signal to the other block runs under the product. The exchange, the
+//   dlog math and the two barriers a tile run with the tensor cores idle:
+//   a third stage, which would let them run under the next tile's logits,
+//   does not fit beside the resident rows (PERF.md).
+// - dlog math. Every load (the other block's sums, the columns' values) is
+//   issued before the first store of the dlog tile (one pointer reaches
+//   both, so the stores would order them), and every exp is computed and
+//   then masked: under a condition each was a branch of its own.
+// - Rows' values. Each tile's K5 bias or K6 (lse, label, g) of its 64
+//   streamed rows by 4-byte cp.async into two slots, issued with the tile's
+//   copy and waited for at the barrier of the next tile.
+// - Numerics. Each panel's products in a fresh fp32 accumulator, summed in
+//   panel order, then the two blocks' sums, then the bias; dlog rounded to
+//   the element type before the product; K5's splits summed in split order
+//   by xent_dx_reduce_kernel and scaled by g there; no atomics, so two calls
+//   agree bit for bit. Rows past N and V are zeros from TMA and give dlog 0;
+//   E is read in place.
+// - Grid. K5: (cdiv(N, 64), 2, S) in clusters of (1, 2, 1), S vocabulary
+//   splits chosen from the clusters that run at once (ops/mlm_xent.py,
+//   wide_dx_plan over vb_xent_info(0, 4, 1024)); K6: (cdiv(V, 64), 2), each
+//   cluster over every x tile. The wrapper raises where no cluster fits.
+// Switches for tools/xent_steps.py --h1024, which the kernel library never
+// defines (wrong results, timing only): VB_XENT_H1024_NO_COPY, no stage after
+// a block's first is copied (every tile reads the first); _NO_LOGITS, no
+// logits products (zeros); _NO_EXCHANGE, no partial sums cross the cluster
+// (each block's own); _NO_PRODUCT, no second product.
+
+constexpr int H_R = 2;                          // blocks a cluster
+constexpr int H_CP = 8;                         // 64-column panels a block owns: 512 columns
+constexpr int H_ROWS = 64;                      // resident rows a cluster: wgmma's m64
+constexpr int H_TILE = 64;                      // streamed rows a tile: two warpgroups' m64n32 logits
+constexpr int H_RES_BYTES = H_ROWS * H_CP * 128;     // 64 KB
+constexpr int H_STAGE_BYTES = H_TILE * H_CP * 128;   // 64 KB
+constexpr int H_X_BYTES = H_ROWS * H_TILE * 4;       // the other block's partial logits of a tile, fp32
+constexpr int H_D_BYTES = H_ROWS * H_TILE * 2;       // the dlog tile
+constexpr int H_V_BYTES = 2 * NV * H_TILE * 4;       // two slots of the streamed rows' values
+constexpr size_t H_SMEM = vb_hopper::ALIGN + H_RES_BYTES + 2 * H_STAGE_BYTES + H_X_BYTES + H_D_BYTES + H_V_BYTES +
+                          5 * sizeof(uint64_t);
+static_assert(H_R * H_CP * 64 == 1024 && H_TILE % 16 == 0, "two blocks of 512 columns cover width 1024");
+static_assert(H_SMEM <= 232448, "a 1024 block must fit the H100's 227 KB of shared memory");
+static_assert(NV * H_TILE <= NTHREADS, "a thread copies one value of a tile's rows");
+
+#ifndef VB_XENT_H1024_NO_COPY
+constexpr bool H_COPY = true;
+#else
+constexpr bool H_COPY = false;
+#endif
+#ifndef VB_XENT_H1024_NO_LOGITS
+constexpr bool H_LOGITS = true;
+#else
+constexpr bool H_LOGITS = false;
+#endif
+#ifndef VB_XENT_H1024_NO_EXCHANGE
+constexpr bool H_EXCHANGE = true;
+#else
+constexpr bool H_EXCHANGE = false;
+#endif
+#ifndef VB_XENT_H1024_NO_PRODUCT
+constexpr bool H_PRODUCT = true;
+#else
+constexpr bool H_PRODUCT = false;
+#endif
+
+// 16 bytes stored into another block of the cluster (an address from
+// cluster_addr), counted on that block's mbarrier bar.
+__device__ __forceinline__ void st_async4(uint32_t addr, float a, float b, float c, float d, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(
+                   addr),
+               "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+               : "memory");
+}
+// An arrival on the mbarrier of another block of the cluster (an address
+// from cluster_addr) that releases this block's earlier accesses at the
+// cluster's scope; a wait on this block's mbarrier that acquires them.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// K5 (DE false): grid (cdiv(N, H_ROWS), H_R, S), clusters of (1, H_R, 1);
+// cluster (x, z) keeps x rows [64 x, 64 x + 64) and walks the vocabulary
+// tiles [z vbs, z vbs + vbs); its block of rank r writes its 512 columns of
+// the fp32 partial part [S][N][1024]. K6 (DE true): grid (cdiv(V, H_ROWS),
+// H_R), the same clusters; cluster x keeps E rows [64 x, 64 x + 64) and
+// walks every x tile; block r writes its columns of those rows of dE, and
+// rank 0 their db.
+template <bool DE, typename ET>
+__global__ void __launch_bounds__(NTHREADS, 1)
+xent_h1024_bwd_kernel(const __grid_constant__ CUtensorMap mres, const __grid_constant__ CUtensorMap mstr,
+                      const float* __restrict__ bias, const int* __restrict__ labels, const float* __restrict__ lse,
+                      const float* __restrict__ gr, int N, int V, int vbs, float* __restrict__ part,
+                      ET* __restrict__ dE, float* __restrict__ db) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = vb_hopper::align_smem(smem_raw);
+  const uint32_t sR = smem_addr(sm);                  // the resident rows: H_CP panels of 64 rows
+  const uint32_t sQ = sR + H_RES_BYTES;               // two stages: H_CP panels of H_TILE streamed rows
+  const uint32_t sX = sQ + 2 * H_STAGE_BYTES;         // [4][NTHREADS] float4: the other block's partial logits
+  const uint32_t sD = sX + H_X_BYTES;                 // [64][64] the dlog tile, K-major, swizzled
+  const uint32_t sC = sD + H_D_BYTES;                 // [2 slots][NV][H_TILE] the streamed rows' values
+  // mbarriers: the resident panels landed; stage 0 / 1 landed (a phase every
+  // other tile); the other block's partial logits of a tile arrived (a phase
+  // a tile); the other block read this block's (a phase a tile)
+  const uint32_t resFull = sC + H_V_BYTES, full0 = resFull + 8, xFull = full0 + 16, xFree = xFull + 8;
+  const float* X = reinterpret_cast<const float*>(sm + (sX - sR));
+  const float* cols = reinterpret_cast<const float*>(sm + (sC - sR));
+
+  const int rank = cluster_rank(), p0 = rank * H_CP, other = rank ^ 1;
+  const int r0 = blockIdx.x * H_ROWS;
+  const int nres = DE ? V : N, nstr = DE ? N : V;
+  const int ntiles = cdiv(nstr, H_TILE);
+  const int t0 = DE ? 0 : blockIdx.z * vbs, t1 = DE ? ntiles : min(ntiles, t0 + vbs);
+  const int tid = threadIdx.x & 127, wg = threadIdx.x >> 7, warp = tid >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int i0 = warp * 16 + g;  // this thread's resident rows: i0, i0 + 8
+
+  if (threadIdx.x == 0) {
+    mbar_init(resFull);
+    mbar_init(full0);
+    mbar_init(full0 + 8);
+    mbar_init(xFull);
+    mbar_expect(xFull, H_X_BYTES);
+    mbar_init_count(xFree, 1);
+  }
+  cluster_sync();  // every block's mbarriers are ready before any block signals one
+
+  // tile t into its stage (its 8 panels, one TMA box each, rows past the
+  // matrix zero) by thread 0, and its rows' values into their slot by
+  // cp.async (K5: the bias of each vocabulary row; K6: the lse, label and g
+  // of each x row; zero past the end, where the row's dlog is 0 anyway)
+  auto issue_tile = [&](int t) {
+    const int b = (t - t0) & 1;
+    if (threadIdx.x == 0) {
+      const uint32_t dst = sQ + b * H_STAGE_BYTES, bar = full0 + 8 * b;
+      mbar_expect(bar, H_STAGE_BYTES);
+      for (int p = 0; p < H_CP; ++p) tma_load_2d(dst + p * (H_TILE * 128), &mstr, (p0 + p) * 64, t * H_TILE, bar);
+    }
+    if (threadIdx.x < (DE ? NV : 1) * H_TILE) {
+      const int k = threadIdx.x / H_TILE, c = threadIdx.x % H_TILE, j = t * H_TILE + c, jj = j < nstr ? j : 0;
+      const void* src = DE ? (k == 0 ? (const void*)(lse + jj) : k == 1 ? (const void*)(labels + jj)
+                                                                         : (const void*)(gr + jj))
+                           : (const void*)(bias + jj);
+      cp_async4(sC + 4 * ((b * NV + k) * H_TILE + c), src, j < nstr);
+    }
+    vb_hopper::cp_commit();
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_expect(resFull, H_RES_BYTES);
+    for (int p = 0; p < H_CP; ++p) tma_load_2d(sR + p * (H_ROWS * 128), &mres, (p0 + p) * 64, r0, resFull);
+  }
+  issue_tile(t0);
+
+  // per resident row h of this thread: K5 the lse (inf past N: p = 0) and
+  // label (-1) of x row r0 + i; K6 the bias of vocabulary row r0 + i and a
+  // factor of 1, 0 past V
+  float rv[2], rk[2], dsum[2] = {0.f, 0.f};
+  int rid[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + i0 + 8 * h;
+    rk[h] = r < V ? 1.f : 0.f;
+    if (DE) {
+      rv[h] = r < V ? bias[r] : 0.f;
+      rid[h] = r;
+    } else {
+      rv[h] = r < N ? lse[r] : INFINITY;
+      rid[h] = r < N ? labels[r] : -1;
+    }
+  }
+  // this warpgroup's result columns: accumulator j holds the block's panel 2 j + wg
+  float acc[4][32];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) vb_hopper::zero(acc[j]);
+
+  mbar_wait(resFull, 0);
+  const uint64_t da = vb_hopper::desc(sR);
+  for (int t = t0; t < t1; ++t) {
+    const int b = H_COPY ? (t - t0) & 1 : 0;
+    const uint32_t q = sQ + b * H_STAGE_BYTES;
+    if (H_COPY || t == t0) mbar_wait(full0 + 8 * b, ((t - t0) >> 1) & 1);  // tile t
+
+    // this warpgroup's partial logits of tile t into z: the 64 rows x its
+    // columns [32 wg, 32 wg + 32), each panel's products in a fresh
+    // accumulator (s0, s1 in turn) added into z in panel order
+    float z[16], s0[16], s1[16];
+    const uint64_t dq = vb_hopper::desc(q + wg * 32 * 128);
+    auto panel = [&](float(&s)[16], int p) {
+      vb_hopper::wg_fence();
+      if constexpr (H_LOGITS) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_n32<ET>(s, da + ((p * (H_ROWS * 128)) >> 4) + 2 * kk, dq + ((p * (H_TILE * 128)) >> 4) + 2 * kk, kk);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) s[i] = 0.f;
+      }
+      vb_hopper::wg_commit();
+    };
+    // panel p + 2 is issued as soon as panel p is added in, so two are in
+    // flight while one is added; tile t + 1's copy is issued under panels 1
+    // and 2, once a barrier has shown both warpgroups done with tile t - 1's
+    // stage and dlog tile (each waited for its product at the end of tile t
+    // - 1) and tile t's values landed
+    panel(s0, 0);
+    panel(s1, 1);
+#pragma unroll
+    for (int p = 0; p < H_CP; p += 2) {
+      wg_wait1();  // panel p
+      hold(s0);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) z[i] = p == 0 ? s0[i] : z[i] + s0[i];
+      if (p + 2 < H_CP) panel(s0, p + 2);
+      if (p == 0) {
+        vb_hopper::cp_wait<0>();
+        __syncthreads();
+        if (H_COPY && t + 1 < t1) issue_tile(t + 1);
+      }
+      if (p + 2 < H_CP)
+        wg_wait1();  // panel p + 1
+      else
+        vb_hopper::wg_wait();
+      hold(s1);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) z[i] += s1[i];
+      if (p + 3 < H_CP) panel(s1, p + 3);
+    }
+
+    // the exchange: this thread's 16 partial sums into the other block's
+    // receive buffer, where the thread of the same index there reads them
+    // (the same places of the tile: [4][NTHREADS] float4, 16 bytes a store),
+    // once it has read the previous tile's; then the other block's
+    if constexpr (H_EXCHANGE) {
+      if (t > t0) mbar_wait_cluster(xFree, (t - 1 - t0) & 1);
+      const uint32_t bar = cluster_addr(xFull, other), dst = cluster_addr(sX + 16 * threadIdx.x, other);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        st_async4(dst + k * (16 * NTHREADS), z[4 * k], z[4 * k + 1], z[4 * k + 2], z[4 * k + 3], bar);
+      mbar_wait(xFull, (t - t0) & 1);
+    }
+
+    // the logits of this thread's places: both blocks' sums, then the bias;
+    // their dlog, rounded, into the dlog tile. Every load is issued before
+    // the first store (one pointer reaches both: the stores would order
+    // them). Column nt, e of this thread: c = 32 wg + 8 nt + 2 tq + e.
+    if constexpr (H_EXCHANGE) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float4 o = reinterpret_cast<const float4*>(X)[k * NTHREADS + threadIdx.x];
+        z[4 * k] += o.x;
+        z[4 * k + 1] += o.y;
+        z[4 * k + 2] += o.z;
+        z[4 * k + 3] += o.w;
+      }
+    }
+    const float* cv = cols + ((t - t0) & 1) * NV * H_TILE + wg * 32 + 2 * tq;  // [NV][H_TILE] of tile t
+    float2 c0[4], c1[4], c2[4];  // K5: the bias; K6: the lse, the label (bits) and g of each column pair
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      c0[nt] = *reinterpret_cast<const float2*>(cv + 8 * nt);
+      if (DE) {
+        c1[nt] = *reinterpret_cast<const float2*>(cv + H_TILE + 8 * nt);
+        c2[nt] = *reinterpret_cast<const float2*>(cv + 2 * H_TILE + 8 * nt);
+      }
+    }
+    uint32_t packed[4][2];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float d[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float zz = z[4 * nt + 2 * h + e], cc0 = e ? c0[nt].y : c0[nt].x;
+          const int j = t * H_TILE + wg * 32 + 8 * nt + 2 * tq + e;
+          // the exp of every place, then the mask as a factor of 0 or 1 (p
+          // is finite everywhere): under a condition the compiler sank each
+          // exp into a branch of its own, run one by one
+          if (DE) {  // row: vocabulary id rid; column: x row j (its lse and g 0 past N)
+            const float p = expf(zz + rv[h] - cc0);
+            const int lab = __float_as_int(e ? c1[nt].y : c1[nt].x);
+            d[e] = (p - (lab == rid[h] ? 1.f : 0.f)) * ((e ? c2[nt].y : c2[nt].x) * rk[h]);
+            dsum[h] += d[e];
+          } else {   // row: x row with label rid (lse inf past N: p = 0); column: vocabulary id j
+            const float p = expf(zz + cc0 - rv[h]);
+            d[e] = (p - (rid[h] == j ? 1.f : 0.f)) * (j < V ? 1.f : 0.f);
+          }
+        }
+        packed[nt][h] = vb::Elem<ET>::pack(d[0], d[1]);
+      }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = i0 + 8 * h, c = wg * 32 + nt * 8 + 2 * tq;
+        *reinterpret_cast<uint32_t*>(sm + (sD - sR) + swz(i, c >> 3) + (c & 7) * 2) = packed[nt][h];
+      }
+    vb_hopper::fence_async();
+    __syncthreads();  // the dlog tile is whole; every thread has read the other block's partial sums
+
+    // this warpgroup's result columns += dlog . its panels of tile t
+    vb_hopper::wg_fence();
+    if constexpr (H_PRODUCT) {
+      const uint64_t dp = vb_hopper::desc(sD);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint64_t dk = vb_hopper::desc(q + (2 * j + wg) * (H_TILE * 128));
+#pragma unroll
+        for (int kk = 0; kk < H_TILE / 16; ++kk) wgmma_n64_tb<ET>(acc[j], dp + 2 * kk, dk + ((kk * 2048) >> 4));
+      }
+    }
+    vb_hopper::wg_commit();
+    // the other block may send the next tile's partial sums: this block
+    // expects them first (thread 0, under the product)
+    if (H_EXCHANGE && threadIdx.x == 0 && t + 1 < t1) {
+      mbar_expect(xFull, H_X_BYTES);
+      mbar_arrive_remote(cluster_addr(xFree, other));
+    }
+    // waited for here: left running under the next tile's logits, it made
+    // ptxas serialize every wgmma of the kernel (C7515), K5's or K6's
+    // depending on the rest of the loop
+    vb_hopper::wg_wait();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) hold(acc[j]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + i0 + 8 * h;
+    if (r >= nres) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = (p0 + 2 * j + wg) * 64 + nt * 8 + 2 * tq;
+        const float a = acc[j][4 * nt + 2 * h], c = acc[j][4 * nt + 2 * h + 1];
+        if (DE)
+          *reinterpret_cast<uint32_t*>(dE + (size_t)r * 1024 + col) = vb::Elem<ET>::pack(a, c);
+        else
+          *reinterpret_cast<float2*>(part + ((size_t)blockIdx.z * N + r) * 1024 + col) = make_float2(a, c);
+      }
+  }
+  if (DE && rank == 0) {  // db: both blocks formed the same dlog; each thread's columns, then the warpgroups'
+    float* red = reinterpret_cast<float*>(sm + (sX - sR));  // the receive buffer: nothing arrives any more
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = dsum[h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (tq == 0) red[wg * H_ROWS + i0 + 8 * h] = v;
+    }
+    __syncthreads();
+    const int i = threadIdx.x;
+    if (i < H_ROWS && r0 + i < V) db[r0 + i] = red[i] + red[H_ROWS + i];
+  }
+  cluster_sync();  // no block leaves while the other may still signal it
+}
+
+// The 1024 form's cluster launch: `grid` in clusters of (1, H_R, 1), 256
+// threads, H_SMEM bytes; attr is the storage of its one attribute.
+cudaLaunchConfig_t h1024_config(dim3 grid, cudaStream_t st, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = H_SMEM;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = H_R;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <bool DE, typename ET>
+cudaError_t h1024_attributes() {
+  return vb::once_a_device([] {
+    return cudaFuncSetAttribute(xent_h1024_bwd_kernel<DE, ET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)H_SMEM);
+  });
+}
+
+// The clusters of the 1024 form's K5 (DE false) or K6 that the card runs at
+// once (0: none fits), or -1 on an error.
+template <bool DE, typename ET>
+int h1024_active_clusters() {
+  if (h1024_attributes<DE, ET>() != cudaSuccess) return -1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = h1024_config(dim3(1, H_R, 1), nullptr, &attr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, xent_h1024_bwd_kernel<DE, ET>, &cfg) != cudaSuccess) return -1;
+  return n;
+}
+
+// K5 (DE false, z vocabulary splits) or K6 (DE true) at width 1024: the
+// launch's own error where no cluster fits.
+template <bool DE, typename ET>
+int launch_h1024_bwd(int z, const void* x, const void* E, const void* bias, const void* labels, const void* lse,
+                     const void* g, int N, int V, int vbs, void* part, void* dE, void* db, cudaStream_t st) {
+  CUtensorMap mres, mstr;
+  cudaError_t err = h1024_attributes<DE, ET>();
+  if (err == cudaSuccess) err = wide_map<ET>(&mres, DE ? E : x, DE ? V : N, 1024);
+  if (err == cudaSuccess) err = wide_map<ET>(&mstr, DE ? x : E, DE ? N : V, 1024);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = h1024_config(dim3(cdiv(DE ? V : N, H_ROWS), H_R, z), st, &attr);
+  err = cudaLaunchKernelEx(&cfg, xent_h1024_bwd_kernel<DE, ET>, mres, mstr, static_cast<const float*>(bias),
+                           static_cast<const int*>(labels), static_cast<const float*>(lse),
+                           static_cast<const float*>(g), N, V, vbs, static_cast<float*>(part), static_cast<ET*>(dE),
+                           static_cast<float*>(db));
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+template <typename ET>
+int launch_h1024_dx(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
+                    const void* g, int N, int V, int S, int vbs, void* part, void* dx, cudaStream_t st) {
+  const int err = launch_h1024_bwd<false, ET>(S, x, E, bias, labels, lse, nullptr, N, V, vbs, part, nullptr, nullptr,
+                                              st);
+  if (err != 0) return err;
+  const int quads = cdiv(N * (1024 / 4), 256);
+  xent_dx_reduce_kernel<1024, ET><<<quads < 4096 ? quads : 4096, 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<const float*>(g), N, S, static_cast<ET*>(dx));
+  return (int)cudaGetLastError();
+}
+
+template <typename ET>
+int launch_h1024_de(const void* x, const void* E, const void* bias, const void* labels, const void* lse,
+                    const void* g, int N, int V, void* dE, void* db, cudaStream_t st) {
+  return launch_h1024_bwd<true, ET>(1, x, E, bias, labels, lse, g, N, V, 0, nullptr, dE, db, st);
+}
+
 // The widths the kernels are instantiated for, in order.
 constexpr int WIDTHS[] = {128, 256, 512, 768, 1024};
 
@@ -990,12 +1569,24 @@ Form form_of() {
               launch_de<HID, ET>};
 }
 
+// Width 1024: K4's form, K5/K6 on the 1024 form's cluster kernel.
+template <typename ET>
+Form form_1024() {
+  return Form{{(const void*)xent_h1024_bwd_kernel<false, ET>, (const void*)xent_h1024_bwd_kernel<true, ET>,
+               (const void*)xent_fwd_kernel<1024, ET>},
+              {H_SMEM, H_SMEM, Fwd<1024>::SMEM},
+              {1024, Fwd<1024>::ROWS, H_ROWS, Fwd<1024>::T, H_TILE, H_CP * 64},
+              launch_fwd<1024, ET>,
+              launch_h1024_dx<ET>,
+              launch_h1024_de<ET>};
+}
+
 // The form of width hid in bf16 (dtype 0) or fp16 (1), or nullptr.
 const Form* form(int dtype, int hid) {
   static const Form forms[2][5] = {
-      {form_of<128, bf16>(), form_of<256, bf16>(), form_of<512, bf16>(), form_of<768, bf16>(), form_of<1024, bf16>()},
+      {form_of<128, bf16>(), form_of<256, bf16>(), form_of<512, bf16>(), form_of<768, bf16>(), form_1024<bf16>()},
       {form_of<128, __half>(), form_of<256, __half>(), form_of<512, __half>(), form_of<768, __half>(),
-       form_of<1024, __half>()}};
+       form_1024<__half>()}};
   if (dtype != 0 && dtype != 1) return nullptr;
   for (int w = 0; w < 5; ++w)
     if (WIDTHS[w] == hid) return &forms[dtype][w];
@@ -1019,6 +1610,9 @@ int info(int dtype, int kernel, int what, int hid) {
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, NTHREADS, bytes) != cudaSuccess) return -1;
     return n;
   }
+  if (what == 4 && hid == 1024 && kernel < 2)
+    return dtype == 0 ? (kernel == 0 ? h1024_active_clusters<false, bf16>() : h1024_active_clusters<true, bf16>())
+                      : (kernel == 0 ? h1024_active_clusters<false, __half>() : h1024_active_clusters<true, __half>());
   return -1;
 }
 
@@ -1182,85 +1776,6 @@ constexpr size_t WB_SMEM =
     vb_hopper::ALIGN + WB_RES_BYTES + WB_STAGES * WB_STAGE_BYTES + WB_P_BYTES + WB_D_BYTES + 5 * sizeof(uint64_t);
 static_assert(WF_SMEM <= 232448 && WB_SMEM <= 232448, "a wide block must fit the H100's 227 KB of shared memory");
 
-// The thread-block cluster of the wide K5/K6: this block's rank and the
-// cluster's blocks; a barrier of every thread of the cluster's blocks that
-// releases each thread's earlier shared-memory writes and acquires the
-// others'; the address of a shared-memory location of this block in the
-// block of another rank; 8 bytes stored there, counted on that block's
-// mbarrier bar (an address from cluster_addr).
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return (int)r;
-}
-__device__ __forceinline__ int cluster_blocks() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-  return (int)r;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void st_async2(uint32_t addr, float a, float b, uint32_t bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(addr),
-               "f"(a), "f"(b), "r"(bar)
-               : "memory");
-}
-// An mbarrier of this block that completes a phase on one arrival and the
-// bytes it expects; that arrival, expecting `bytes`; a wait until phase
-// `parity` completes. A copy of `bytes` (a multiple of 16) of this block's
-// shared memory into another block's (dst, and its mbarrier bar, from
-// cluster_addr), which counts them on that mbarrier; this thread's copies
-// committed as a group; a wait until they have read their sources.
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\nfence.mbarrier_init.release.cluster;\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_to_cluster(uint32_t dst, uint32_t src, int bytes, uint32_t bar) {
-  asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   dst),
-               "r"(src), "r"(bytes), "r"(bar)
-               : "memory");
-}
-// Box {c0, c1} (columns, rows) of the 2-D tensor of `map` into shared
-// memory at dst, in the map's swizzle, counted on mbarrier bar.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
-          dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
-__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
-// Wait until at most the newest wgmma group is pending.
-__device__ __forceinline__ void wg_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
-// An mbarrier of this block that completes a phase on `count` arrivals; an
-// arrival on it.
-__device__ __forceinline__ void mbar_init_count(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\nfence.mbarrier_init.release.cluster;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
 // The 64 accumulator registers of an m64n128 wgmma: their list in the
 // instruction, and the operands s[0..63] that bind them in place.
 #define VB_R64                                                                                       \
@@ -1743,30 +2258,6 @@ cudaError_t wide_bwd_attributes(int dtype, int kernel) {
   return err;
 }
 
-// The TMA map of a [rows, hid] matrix of ET: boxes of 64 columns (128 B,
-// swizzled as swz lays them out) by box_rows rows, zeros past the last row.
-template <typename ET>
-cudaError_t wide_map(CUtensorMap* map, const void* ptr, int rows, int hid, int box_rows = 64) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    void* fn = nullptr;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
-                                                             &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)hid, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)hid * sizeof(ET)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows}, steps[2] = {1, 1};
-  const CUresult r = encode(map, std::is_same<ET, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                            2, const_cast<void*>(ptr), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // A launch of K5 or K6 on `grid` in clusters of (1, R, 1); attr is the
 // storage of its one attribute.
 cudaLaunchConfig_t wide_bwd_config(dim3 grid, int R, cudaStream_t st, cudaLaunchAttribute* attr) {
@@ -1907,8 +2398,9 @@ int wide_de_entry(const void* x, const void* E, const void* bias, const void* la
 // The tiling the wrapper needs to check inputs and size the grids and the
 // split partials, at hidden width hid (the same in bf16 and fp16): 0 hid
 // itself if the kernels take it (else -1), 1 K4's x rows per block, 2
-// K5/K6's resident rows per block, 3 K4's vocabulary rows per tile, 4
-// K5/K6's streamed rows per tile, 5 the result columns a K5/K6 block owns.
+// K5/K6's resident rows per block (a cluster's at 1024), 3 K4's vocabulary
+// rows per tile, 4 K5/K6's streamed rows per tile, 5 the result columns a
+// K5/K6 block owns (at 1024 a cluster has 1024 / this blocks).
 extern "C" int vb_xent_geometry(int which, int hid) {
   const Form* f = form(0, hid);
   return f != nullptr && which >= 0 && which < 6 ? f->geometry[which] : -1;
@@ -1916,7 +2408,8 @@ extern "C" int vb_xent_geometry(int which, int hid) {
 
 // K5 (kernel 0), K6 (kernel 1) or K4 (kernel 2) at width hid in bf16: `what`
 // 0 its registers a thread, 1 its local (spill) bytes a thread, 2 its
-// dynamic shared memory, 3 its resident blocks per SM. -1 on an error.
+// dynamic shared memory, 3 its resident blocks per SM, 4 (K5, K6 at 1024)
+// the clusters the card runs at once (0: none fits). -1 on an error.
 extern "C" int vb_xent_info(int kernel, int what, int hid) { return info(0, kernel, what, hid); }
 
 // pf [4][S][N] fp32 and pi [S][N] int32 are scratch the caller allocates: S

@@ -29,10 +29,16 @@ Kernels (``csrc/mlm_xent.cu``, design notes there):
   brings a tile ahead; ``wgmma`` computes each tile's logits once (each
   warpgroup over half of H, partial sums exchanged in shared memory), then,
   from one shared bf16 dlog tile, each warpgroup's half of the result
-  columns. At width 1024 a block owns
-  512 of the columns (:func:`dx_plan`, :func:`de_plan`). K5 splits the
-  vocabulary so that about four blocks per SM run (:func:`splits`): its
-  blocks write fp32 partials of dx, which a second pass sums in split order.
+  columns (:func:`dx_plan`, :func:`de_plan`). K5 splits the vocabulary so
+  that about four blocks per SM run (:func:`splits`): its blocks write fp32
+  partials of dx, which a second pass sums in split order. At width 1024
+  (bert-large's) a block cannot hold the 64 x 1024 accumulator: K5/K6 run
+  on the 1024 form (``xent_h1024_bwd_kernel``), a thread-block cluster of
+  two blocks of 512 columns (:func:`h1024_clusters`; the plans are the wide
+  form's, :func:`wide_dx_plan` and :func:`wide_de_plan`, at its tiling of
+  ``vb_xent_geometry``) that streams 64-row tiles by TMA and forms each
+  tile's logits once: each block its half of K, the partial sums crossing
+  the cluster once, both blocks forming the whole dlog tile.
 
 The kernels take every dtype and width the JAX kernels take: bf16 and fp16
 on the Hopper kernels, instantiated at widths 128, 256, 512, 768 and 1024
@@ -82,6 +88,7 @@ from visualbert_torch.ops._build import sm_count
 from visualbert_torch.parallel.mesh import all_reduce, gather_slices
 
 KERNEL_WIDTHS = (128, 256, 512, 768, 1024)  # the hidden widths K4-K6 are instantiated for (bf16, fp16)
+H1024 = 1024  # ... of which K5/K6 run this one on the 1024 form's cluster (csrc/mlm_xent.cu)
 WIDE_STEP = 64  # above KERNEL_WIDTHS[-1] the wide form takes the multiples of this (csrc/mlm_xent.cu)
 WIDE_MAX = 8192  # ... up to this: a K5/K6 cluster of 16 blocks (the H100's most) of 512 columns
 KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
@@ -229,7 +236,8 @@ def fwd_plan(N: int, V: int, H: int, rows: int, tile: int, sms: int, block_tiles
 
 
 def dx_plan(N: int, V: int, H: int, rows: int, tile: int, cols: int, sms: int) -> dict:
-    """K5's launch at N rows, V vocabulary rows and width H, for the
+    """K5's launch at N rows, V vocabulary rows and a width H up to 768
+    (1024 takes :func:`wide_dx_plan`), for the
     kernel's tiling (``rows`` rows of x a block, ``tile`` vocabulary rows a
     tile, ``cols`` columns a block, the last part shorter where H is no
     multiple of it: ``vb_xent_geometry`` 2, 4, 5) on a card of ``sms`` SMs:
@@ -242,9 +250,10 @@ def dx_plan(N: int, V: int, H: int, rows: int, tile: int, cols: int, sms: int) -
 
 
 def de_plan(V: int, H: int, rows: int, cols: int) -> dict:
-    """K6's grid (vocabulary blocks of ``rows``, column parts of ``cols``,
-    the last shorter where H is no multiple of it): each block walks every
-    row tile of x itself, so nothing is split."""
+    """K6's grid at a width H up to 768 (1024 takes :func:`wide_de_plan`):
+    vocabulary blocks of ``rows``, column parts of ``cols``, the last shorter
+    where H is no multiple of it; each block walks every row tile of x
+    itself, so nothing is split."""
     return dict(grid=(-(-V // rows), -(-H // cols)))
 
 
@@ -304,17 +313,10 @@ def f32_plan(N: int, V: int, rows: int, tile: int, slots: int) -> dict:
 
 def bwd_products(dtype, h: int) -> int:
     """The N x V x h products K5 (or K6) runs at width h in ``dtype``: the
-    logits and the result once each, plus, at 1024 (bf16, fp16: 512 columns
-    a block), the logits again for the second column range. The wide form's
-    cluster forms each tile's logits once over all its ranges, in bf16 and
-    fp16."""
-    if runs_on_f32(dtype, h):
-        return 2
-    w = kernel_width(h)
-    if is_wide(w):
-        return 2
-    cols = w if w < KERNEL_WIDTHS[-1] else 512
-    return -(-w // cols) + 1
+    logits and the result once each, in every form. Up to 768 a block owns
+    every column; the 1024 form's and the wide form's clusters form each
+    tile's logits once over all their column ranges, in bf16 and fp16."""
+    return 2
 
 
 def _device(x, what):
@@ -470,6 +472,33 @@ def wide_clusters(lib, kernel: int, H: int, dtype=torch.bfloat16) -> int:
     return n
 
 
+@functools.lru_cache(maxsize=None)
+def h1024_clusters(lib, kernel: int, dtype=torch.bfloat16) -> int:
+    """The clusters of the 1024 form's K5 (kernel 0) or K6 (1) in ``dtype``
+    that the card runs at once (``vb_xent_info(kernel, 4, 1024)``, or
+    ``vb_xent_f16_info``); raises where none fits (a launch of such a
+    cluster would fail on its own; nothing falls back)."""
+    n = getattr(lib, _ENTRY[dtype] + "info")(kernel, 4, 1024)
+    if n <= 0:
+        raise RuntimeError(f"mlm xent: no cluster of K{5 + kernel} at width 1024 fits the card ({n})")
+    return n
+
+
+def launch_h1024_dx(lib, x, emb, bias, labels, lse, g):
+    """Launch the 1024 form's K5 (a cluster a row block and split) and its
+    reduce pass on checked bf16 or fp16 inputs of width 1024: (the entry
+    point's code, dx)."""
+    (N, H), V = x.shape, emb.shape[0]
+    plan = wide_dx_plan(N, V, H, *(lib.vb_xent_geometry(w, H) for w in (2, 4, 5)),
+                        h1024_clusters(lib, 0, x.dtype))
+    part = torch.empty(plan["part_shape"], dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    code = getattr(lib, _ENTRY[x.dtype] + "dx")(
+        x.data_ptr(), emb.data_ptr(), bias.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(), N, V, H,
+        plan["grid"][2], plan["per"], part.data_ptr(), dx.data_ptr(), _build.stream_ptr(x.device))
+    return code, dx
+
+
 def launch_wide_dx(lib, x, emb, bias, labels, lse, g):
     """Launch the wide form's K5 (a cluster a row block and split) and its
     reduce pass on checked bf16 or fp16 inputs: (the entry point's code,
@@ -501,7 +530,12 @@ def mlm_xent_dx(x, emb, bias, labels, lse, g) -> torch.Tensor:
     else:
         w = kernel_width(H)
         args = (lib, pad_width(x, w), pad_width(emb, w), bias, labels, lse, g)
-        code, dx = launch_wide_dx(*args) if is_wide(w) else launch_dx(*args, sm_count(x.device))
+        if is_wide(w):
+            code, dx = launch_wide_dx(*args)
+        elif w == H1024:
+            code, dx = launch_h1024_dx(*args)
+        else:
+            code, dx = launch_dx(*args, sm_count(x.device))
         dx = dx if w == H else dx[:, :H].contiguous()
     lib.check(code, what)
     _counted(mlm_xent_dx, form)
@@ -534,6 +568,14 @@ def launch_f32_de(lib, x, emb, bias, labels, lse, g):
     return code, de, db
 
 
+def launch_h1024_de(lib, x, emb, bias, labels, lse, g):
+    """Launch the 1024 form's K6 (a cluster a vocabulary block) on checked
+    bf16 or fp16 inputs of width 1024: (the entry point's code, d embedding,
+    d bias)."""
+    h1024_clusters(lib, 1, x.dtype)
+    return launch_de(lib, x, emb, bias, labels, lse, g)
+
+
 def launch_wide_de(lib, x, emb, bias, labels, lse, g):
     """Launch the wide form's K6 (a cluster a vocabulary block) on checked
     bf16 or fp16 inputs: (the entry point's code, d embedding, d bias)."""
@@ -561,7 +603,7 @@ def mlm_xent_de(x, emb, bias, labels, lse, g) -> Tuple[torch.Tensor, torch.Tenso
         de = de.to(emb.dtype)
     else:
         w = kernel_width(H)
-        launch = launch_wide_de if is_wide(w) else launch_de
+        launch = launch_wide_de if is_wide(w) else launch_h1024_de if w == H1024 else launch_de
         code, de, db = launch(lib, pad_width(x, w), pad_width(emb, w), bias, labels, lse, g)
         de = de if w == H else de[:, :H].contiguous()
     lib.check(code, what)

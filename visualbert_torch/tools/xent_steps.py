@@ -76,6 +76,28 @@ bytes, blocks an SM and (K5, K6) clusters at once. At WIDE_EXACT_WIDTHS
 (4160, 6144, 8192) K4 alone is held to :func:`fwd_exact`'s nll and lse
 (XENT_TOL), beside the plain version's own distance from them.
 
+With ``--h1024`` (``python -m visualbert_torch.tools.xent_steps --h1024
+[OTHER_CHECKOUT]``) the tool takes K5/K6 at width 1024, the 1024 form
+(``xent_h1024_bwd_kernel``, a cluster of two blocks of 512 columns):
+``csrc/mlm_xent.cu`` built as it is ("this", ptxas's lines of the cluster
+kernels printed: registers, spills, C7515), with each of H1024_BUILDS'
+steps left out (``-DVB_XENT_H1024_NO_COPY``: no stage after a block's
+first is copied; ``_NO_LOGITS``: no logits products; ``_NO_EXCHANGE``: no
+partial sums cross the cluster; ``_NO_PRODUCT``: no second product; and
+pairs; timing only), once more with the wide form's least width set to 1024
+in a copy of the source ("wide at 1024": the wide K5/K6 at R = 2 on their
+own plan, the first reading this form started from), and, given another
+checkout, that tree's source alone ("other", launched as its wrapper
+launched it). At N = 3072, V = 30522, in bf16 and fp16, this tree's, the
+wide form's and the other tree's K5/K6 are held to the plain versions
+(chip_smoke.py's bars) and must repeat bit for bit, and every build is
+timed in turns with cuBLAS's two products in the same dtype, printed with
+registers, local bytes, shared bytes, blocks an SM and clusters at once;
+the SASS of every kernel both trees build but the 1024 backwards
+(H1024_TAKEN) is compared; and the phases of a tile (H1024_PHASES:
+``clock64`` stamps written into a copy of the source, of the first
+cluster's blocks, median cycles a tile and a phase) are printed.
+
 K4 as built is also timed on the splits that fill one to four waves of
 one block an SM, at both widths ("K4 splits"), each printed with the
 busiest SM's tiles as ``ops/mlm_xent.py::fwd_plan`` models them (a block's
@@ -124,10 +146,26 @@ BWD_BUILDS = {
     "no copy, no logits, no product, no dlog": ["-DVB_XENT_NO_COPY", "-DVB_XENT_NO_LOGITS", "-DVB_XENT_NO_PRODUCT",
                                                 "-DVB_XENT_NO_DLOG"],
 }
-BUILDS = {**FWD_BUILDS, **BWD_BUILDS}
-FNS = ("vb_xent_geometry", "vb_xent_info", "vb_xent_fwd", "vb_xent_dx", "vb_xent_de", "vb_xent_wide_geometry",
+H1024_BUILDS = {  # the 1024 form's (xent_h1024_bwd_kernel) steps left out: --h1024
+    "h1024 no copy": ["-DVB_XENT_H1024_NO_COPY"],
+    "h1024 no logits": ["-DVB_XENT_H1024_NO_LOGITS"],
+    "h1024 no exchange": ["-DVB_XENT_H1024_NO_EXCHANGE"],
+    "h1024 no product": ["-DVB_XENT_H1024_NO_PRODUCT"],
+    "h1024 no logits, no product": ["-DVB_XENT_H1024_NO_LOGITS", "-DVB_XENT_H1024_NO_PRODUCT"],
+    "h1024 no copy, no exchange": ["-DVB_XENT_H1024_NO_COPY", "-DVB_XENT_H1024_NO_EXCHANGE"],
+    "h1024 no copy, no logits, no product": ["-DVB_XENT_H1024_NO_COPY", "-DVB_XENT_H1024_NO_LOGITS",
+                                             "-DVB_XENT_H1024_NO_PRODUCT"],
+}
+BUILDS = {**FWD_BUILDS, **BWD_BUILDS, **H1024_BUILDS}
+FNS = ("vb_xent_geometry", "vb_xent_info", "vb_xent_fwd", "vb_xent_dx", "vb_xent_de", "vb_xent_f16_info",
+       "vb_xent_f16_fwd", "vb_xent_f16_dx", "vb_xent_f16_de", "vb_xent_wide_geometry",
        "vb_xent_wide_info", "vb_xent_wide_fwd", "vb_xent_wide_dx", "vb_xent_wide_de", "vb_xent_f16_wide_info",
        "vb_xent_f16_wide_fwd", "vb_xent_f16_wide_dx", "vb_xent_f16_wide_de", "vb_error_string")
+H1024_DTYPES = ("bfloat16", "float16")
+# the kernels --h1024 expects to differ from the other tree's: part of each name (the old and the new
+# backward at 1024)
+H1024_TAKEN = ("xent_bwd_kernelILi1024", "xent_h1024_bwd_kernel")
+WIDE_MIN_LINE = "constexpr int WIDE_MIN = 1088;"  # --h1024 builds the wide form once more with this at 1024
 WIDE_WIDTHS = (1088, 2048, 2560)
 WIDE_DTYPES = ("bfloat16", "float16")
 WIDE_SPLITS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16)  # the wide K5's vocabulary splits the sweep times
@@ -136,7 +174,7 @@ WIDE_EXACT_WIDTHS = (4160, 6144, 8192)  # K4 held to the exact products alone, u
 SHARED_KERNELS = {  # the kernels of mlm_xent.cu that an earlier tree may share: part of each mangled name
     "K4, 768": "xent_fwd_kernelILi768E", "K4, 1024": "xent_fwd_kernelILi1024E",
     "K5, 768": "xent_bwd_kernelILi768ELb0E", "K6, 768": "xent_bwd_kernelILi768ELb1E",
-    "K5, 1024": "xent_bwd_kernelILi1024ELb0E", "K6, 1024": "xent_bwd_kernelILi1024ELb1E",
+    "K5, 1024": "xent_h1024_bwd_kernelILb0E", "K6, 1024": "xent_h1024_bwd_kernelILb1E",
     "K5 reduce, 768": "xent_dx_reduce_kernelILi768", "K5 reduce, 1024": "xent_dx_reduce_kernelILi1024",
     "K4 merge": "xent_fwd_merge_kernel",
 }
@@ -153,10 +191,12 @@ def bind(path):
     return lib
 
 
-def build_all(builds=BUILDS, sources=None):
+def build_all(builds=BUILDS, sources=None, logs=None):
     """Compile csrc/mlm_xent.cu once for each of ``builds`` ({name: -D
     switches}; one nvcc each, all at once), from the directory
-    ``sources[name]`` where given; returns ({name: CDLL}, seconds)."""
+    ``sources[name]`` where given; returns ({name: CDLL}, seconds), and
+    fills ``logs`` (if given) with each build's nvcc output (ptxas's
+    registers, spills and warnings) and the path of its library."""
     import time
 
     nvcc = _build.find_nvcc()
@@ -170,9 +210,11 @@ def build_all(builds=BUILDS, sources=None):
                                 str(src[name]), str(src[name] / "mlm_xent.cu"), "-o", str(paths[name])]
                                for name, defines in builds.items()])
     seconds = time.perf_counter() - t0
-    for cmd, rc, text in results:
+    for (cmd, rc, text), name in zip(results, builds):
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+        if logs is not None:
+            logs[name] = (text, paths[name])
     return {name: bind(p) for name, p in paths.items()}, seconds
 
 
@@ -392,17 +434,19 @@ def fwd_call(lib, data, sms):
     return fwd
 
 
-def calls(lib, data, sms):
-    """K5 and K6 from one library, launched as their wrappers launch them."""
+def calls(lib, data, sms, h1024=False):
+    """K5 and K6 from one library, launched as their wrappers launch them:
+    this tree's at width 1024 (``h1024``) on the 1024 form's plans, an
+    earlier tree's on its own (``dx_plan`` over its ``vb_xent_geometry``)."""
     from visualbert_torch.ops import mlm_xent as xe
 
     def dx(_):
-        code, out = xe.launch_dx(lib, *data, sms)
+        code, out = xe.launch_h1024_dx(lib, *data) if h1024 else xe.launch_dx(lib, *data, sms)
         check(code, "K5")
         return out
 
     def de(_):
-        code, out, db = xe.launch_de(lib, *data)
+        code, out, db = xe.launch_h1024_de(lib, *data) if h1024 else xe.launch_de(lib, *data)
         check(code, "K6")
         return out, db
 
@@ -622,6 +666,183 @@ def wide_main(other, card):
     return result
 
 
+# the phases of a 1024 tile that h1024_phases stamps: (a line of the kernel
+# the stamp follows, or precedes where "before"), in the tile's order
+H1024_PHASES = (
+    ("full wait", "    if (H_COPY || t == t0) mbar_wait(full0 + 8 * b, ((t - t0) >> 1) & 1);  // tile t\n", False),
+    ("logits", "      if (p + 3 < H_CP) panel(s1, p + 3);\n    }\n", False),
+    ("free wait", "      if (t > t0) mbar_wait_cluster(xFree, (t - 1 - t0) & 1);\n", False),
+    ("exchange", "      mbar_wait(xFull, (t - t0) & 1);\n", False),
+    ("dlog", "    vb_hopper::fence_async();\n    __syncthreads();  // the dlog tile is whole", True),
+    ("barrier", "    __syncthreads();  // the dlog tile is whole; every thread has read the other block's partial sums\n",
+     False),
+    ("product", "    for (int j = 0; j < 4; ++j) hold(acc[j]);\n", False),
+)
+
+
+def h1024_phases(card, tiles=64):
+    """clock64 stamps of the phases of the 1024 form's tiles (H1024_PHASES,
+    thread 0 of each warpgroup of both blocks of the first cluster, its
+    first ``tiles`` tiles) in bf16 at the main path's shapes, from
+    csrc/mlm_xent.cu with the stamps written in (timing only: the stamps
+    change the code around them); prints each (kernel, rank, warpgroup)'s
+    median cycles a tile and a phase; returns them."""
+    import numpy as np
+    import torch
+
+    from visualbert_torch.ops import mlm_xent as xe
+
+    src = (_build.CSRC / "mlm_xent.cu").read_text()
+    a, b = src.index("xent_h1024_bwd_kernel(const __grid_constant__"), src.index("// The 1024 form's cluster launch")
+    body = src[a:b]
+    stamp = ("    if (blockIdx.x == 0 && blockIdx.z == 0 && (threadIdx.x & 127) == 0 && t - t0 < {n}) "
+             "vb_phases[DE][rank][threadIdx.x >> 7][t - t0][{k}] = clock64();\n")
+    for k, (_, line, before) in enumerate(H1024_PHASES):
+        assert body.count(line) == 1, line
+        at = stamp.format(n=tiles, k=k + 1)
+        body = body.replace(line, at + line if before else line + at)
+    top = "  for (int t = t0; t < t1; ++t) {\n"
+    body = body.replace(top, top + stamp.format(n=tiles, k=0), 1)
+    src = (src[:a] + body + src[b:]).replace(
+        "template <bool DE, typename ET>\n__global__ void __launch_bounds__(NTHREADS, 1)\nxent_h1024_bwd_kernel",
+        f"__device__ long long vb_phases[2][2][2][{tiles}][{len(H1024_PHASES) + 1}];\n"
+        "template <bool DE, typename ET>\n__global__ void __launch_bounds__(NTHREADS, 1)\nxent_h1024_bwd_kernel", 1)
+    src += ('\nextern "C" int vb_h1024_phases(void* out) '
+            '{ return (int)cudaMemcpyFromSymbol(out, vb_phases, sizeof(vb_phases)); }\n')
+    d = _build.BUILD_ROOT / "xent_steps_phases"
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(_build.CSRC, d)
+    (d / "mlm_xent.cu").write_text(src)
+    lib = build_all({"phases": []}, {"phases": d})[0]["phases"]
+    lib.vb_h1024_phases.argtypes, lib.vb_h1024_phases.restype = [ctypes.c_void_p], ctypes.c_int
+    dev = torch.device("cuda")
+    data = inputs(torch, dev, 1024, "bfloat16")
+    k5, k6 = calls(lib, data, xe.sm_count(dev), True)
+    k5(0), k6(0)
+    torch.cuda.synchronize()
+    buf = np.zeros((2, 2, 2, tiles, len(H1024_PHASES) + 1), dtype=np.int64)
+    check(lib.vb_h1024_phases(buf.ctypes.data), "phases")
+    out = {}
+    for de in (0, 1):
+        for rank in (0, 1):
+            for wg in (0, 1):
+                s = buf[de, rank, wg]
+                n = int((s[:, 0] > 0).sum())
+                steps = np.diff(s[1:n - 1], axis=1)  # tiles 1 .. n - 2: the first and last are the cluster's ends
+                tile = float(np.median(np.diff(s[1:n, 0])))
+                phases = {name: float(np.median(steps[:, i])) for i, (name, _, _) in enumerate(H1024_PHASES)}
+                out[f"K{5 + de} rank {rank} wg {wg}"] = dict(tile=tile, **phases)
+                print(f"phases K{5 + de} rank {rank} warpgroup {wg}, {n} tiles: median cycles a tile {tile:.0f}; "
+                      + ", ".join(f"{k} {v:.0f}" for k, v in phases.items()) + f"  [{card}]", flush=True)
+    return out
+
+
+def h1024_main(other, card):
+    """The ``--h1024`` mode (see the module's note): prints one line a check
+    and a timing; returns the numbers."""
+    from pathlib import Path
+
+    import torch
+
+    from visualbert_torch.ops import mlm_xent as xe
+    from visualbert_torch.tools.attn_exp import best_ms
+
+    dev = torch.device("cuda")
+    sms = xe.sm_count(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the wide form at 1024: this tree's source with the wide form's least width set to 1024
+    wide_src = _build.BUILD_ROOT / "xent_steps_wide1024"
+    shutil.rmtree(wide_src, ignore_errors=True)
+    shutil.copytree(_build.CSRC, wide_src)
+    text = (wide_src / "mlm_xent.cu").read_text()
+    assert WIDE_MIN_LINE in text, "the wide form's least width moved"
+    (wide_src / "mlm_xent.cu").write_text(text.replace(WIDE_MIN_LINE, "constexpr int WIDE_MIN = 1024;"))
+    builds, sources = {"this": [], "wide at 1024": [], **H1024_BUILDS}, {"wide at 1024": wide_src}
+    if other:
+        builds["other"] = []
+        sources["other"] = Path(other) / "visualbert_torch" / "csrc"
+    logs = {}
+    libs, seconds = build_all(builds, sources, logs)
+    print(f"xent_steps --h1024: {len(builds)} builds in {seconds:.1f} s  [{card}]", flush=True)
+    for name in ("this", "wide at 1024"):
+        for line in logs[name][0].splitlines():
+            if "h1024" in line or "xent_wide_bwd" in line or "wgmma" in line or "spill" in line.lower():
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+    sass = None
+    if other:
+        import subprocess
+
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        if Path(tool).exists():
+            texts = {name: subprocess.run([tool, "-sass", str(logs[tree][1])], capture_output=True, text=True,
+                                          check=True).stdout for name, tree in (("this", "this"), ("other", "other"))}
+            sass = compare_all_sass(texts, card, H1024_TAKEN)
+    errors, info, times = {}, {}, {}
+    this = libs["this"]
+    for dtype in H1024_DTYPES:
+        data = inputs(torch, dev, 1024, dtype)
+        x, emb = data[:2]
+        N, V = x.shape[0], emb.shape[0]
+        prefix = xe._ENTRY[x.dtype]
+        dx_r = xe.mlm_xent_dx_reference(*data)
+        de_r, db_r = xe.mlm_xent_de_reference(*data)
+        fns = {}
+        # this tree's and its step builds on the 1024 form; the wide form at 1024 on its own plan; the
+        # other tree's as its wrapper launched them
+        runs = {name: calls(libs[name], data, sms, True) for name in ("this", *H1024_BUILDS)}
+        wide = libs["wide at 1024"]
+        wplan = xe.wide_dx_plan(N, V, 1024, *(wide.vb_xent_wide_geometry(w) for w in (2, 4, 5)),
+                                xe.wide_clusters(wide, 0, 1024, x.dtype))
+        runs["wide at 1024"] = wide_calls(wide, data, wplan["grid"][2], wplan["per"])
+        if other and hasattr(libs["other"], prefix + "dx"):
+            runs["other"] = calls(libs["other"], data, sms)
+        for name in ("this", "wide at 1024", "other"):
+            if name not in runs:
+                continue
+            k5, k6 = runs[name]
+            got = (k5(0).clone(),) + tuple(t.clone() for t in k6(0))
+            again = (k5(0),) + k6(0)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            e = (rel(got[0], dx_r), rel(got[1], de_r), rel(got[2], db_r))
+            errors[f"{name} {dtype}"] = e + (same,)
+            print(f"{name} K5/K6 {dtype} at 1024 against the plain versions: dx {e[0]:.3e} (tol {DX_TOL}), dE "
+                  f"{e[1]:.3e} (tol {DE_TOL}), db {e[2]:.3e} (tol {DBIAS_TOL}); two calls bit for bit: {same}  "
+                  f"[{card}]", flush=True)
+            if name == "this" and not (e[0] <= DX_TOL and e[1] <= DE_TOL and e[2] <= DBIAS_TOL and same):
+                raise SystemExit(f"xent_steps: K5/K6 {dtype} at 1024 disagree with their plain versions")
+        for name, (k5, k6) in runs.items():
+            fns[f"{name} K5"], fns[f"{name} K6"] = k5, k6
+            lib = libs[name]
+            if name == "wide at 1024":
+                infos = getattr(lib, xe._WIDE_ENTRY[x.dtype] + "info")
+                info[f"{name} {dtype}"] = [[infos(k, w, 1024) for w in range(5)] for k in (0, 1)]
+            elif hasattr(lib, prefix + "info"):
+                infos = getattr(lib, prefix + "info")
+                info[f"{name} {dtype}"] = [[infos(k, w, 1024) for w in range(5 if name != "other" else 4)]
+                                           for k in (0, 1)]
+        del dx_r, de_r, db_r
+        p = torch.empty((N, V), dtype=x.dtype, device=dev).normal_()
+        fns["cuBLAS K5's products"] = lambda _: (torch.matmul(x, emb.t()), torch.matmul(p, emb))
+        fns["cuBLAS K6's products"] = lambda _: (torch.matmul(x, emb.t()), torch.matmul(p.t(), x))
+        jobs, t = list(fns), {name: [] for name in fns}
+        for r in range(ROUNDS):
+            for name in (jobs if r % 2 == 0 else jobs[::-1]):
+                t[name].append(best_ms(fns[name]))
+        for name, ms in t.items():
+            build = name.rsplit(" ", 1)[0]
+            extra = f"; K5, K6 registers, local bytes, shared bytes, blocks an SM (clusters at once) " \
+                    f"{info[f'{build} {dtype}']}" if f"{build} {dtype}" in info and name.endswith("K5") else ""
+            print(f"{dtype} at 1024: {name}: {min(ms):.4f}-{max(ms):.4f} ms{extra}  [{card}]", flush=True)
+        times[dtype] = t
+        del data, x, emb, p, fns, runs
+        torch.cuda.empty_cache()
+    phases = h1024_phases(card)
+    result = dict(card=card, errors=errors, info=info, ms=times, sass=sass, phases=phases)
+    print(json.dumps(result), flush=True)
+    return result
+
+
 def main(argv=None):
     """Prints one line a check and a timing; returns the numbers."""
     import torch
@@ -631,23 +852,25 @@ def main(argv=None):
     from visualbert_torch.tools.main_path import card_line
 
     argv = list(argv or [])
-    wide = bool(argv) and argv[0] == "--wide"
-    if wide:
+    mode = argv[0] if argv and argv[0] in ("--wide", "--h1024") else None
+    if mode:
         argv = argv[1:]
     if len(argv) > 1:
         raise SystemExit(f"xent_steps: takes at most one argument (another checkout), got {argv}")
     if not torch.cuda.is_available():
         raise SystemExit("xent_steps: no CUDA device; the kernels run only on the card")
     card = card_line()
-    if wide:
+    if mode == "--wide":
         return wide_main(argv[0] if argv else None, card)
+    if mode == "--h1024":
+        return h1024_main(argv[0] if argv else None, card)
     dev = torch.device("cuda")
     sms = xe.sm_count(dev)
     data = inputs(torch, dev)
-    libs, seconds = build_all()
+    libs, seconds = build_all({**FWD_BUILDS, **BWD_BUILDS})
     builds = {"as built": _build.library(), **libs}
     N, V = data[0].shape[0], data[1].shape[0]
-    print(f"xent_steps: N={N} V={V} H={H}; {len(BUILDS)} builds in {seconds:.1f} s  [{card}]", flush=True)
+    print(f"xent_steps: N={N} V={V} H={H}; {len(libs)} builds in {seconds:.1f} s  [{card}]", flush=True)
 
     built = builds["as built"]
     dx_fn, de_fn = calls(built, data, sms)
@@ -694,7 +917,7 @@ def main(argv=None):
         fns["at 1024"] = {}
         for tree, lib in (("this", built), ("other", other_lib)):
             fns["at 1024"][f"{tree} K4"] = fwd_call(lib, data_1024, sms)
-            fns["at 1024"][f"{tree} K5"], fns["at 1024"][f"{tree} K6"] = calls(lib, data_1024, sms)
+            fns["at 1024"][f"{tree} K5"], fns["at 1024"][f"{tree} K6"] = calls(lib, data_1024, sms, tree == "this")
     # K4 as built on other splits, at both widths: what FWD_BLOCK_TILES models
     fns["K4 splits"], splits = {}, {}
     for width_data in (data, inputs(torch, dev, 1024)):
