@@ -93,8 +93,8 @@ non-zero without printing the final line:
    the site kernels through their wrappers and nothing else.
    Then K1/K2's and K4-K6's other forms: K1/K2 (ATTENTION_FORMS) in fp16
    and fp32 at the main path's [128, 228, 12 x 64], and in bf16, fp16 and
-   fp32 at head dim 16 (bf16 and fp16: K1 zero-padded to 64, K2 on its
-   unpadded D16 form), in bf16 and fp16 at 32 (K2 on its D32 form) and at
+   fp32 at head dim 16 (bf16 and fp16: K1 and K2 on their unpadded D16
+   forms), in bf16 and fp16 at 32 (on their D32 forms) and at
    128 (K2 on its streamed two-warpgroup passes, which must not spill,
    also at STREAMED_LONG_T, past the limit the passes had while they held a
    head's rows), at dropout 0 and 0.1, fp32 within F32_REL_TOL / F32_ABS_TOL of its
@@ -103,8 +103,10 @@ non-zero without printing the final line:
    scaled_dot_product_attention in its dtype and its bound (the
    redesigned forms also beside EARLIER_DESIGN_MS), with each kernel's
    registers, local bytes, shared bytes, blocks an SM, heads a block and
-   T limit and the padding's own time (the fp32 kernels and K2's forms at
-   16 and 32 may not spill); K4-K6 (XENT_FORMS) in bf16 at widths
+   T limit and the padding's own time (the fp32 kernels and K1's and K2's
+   forms at 16 and 32 may not spill; K1 at 16 and 32 also beside its padded
+   route's earlier reading, the aims of 1.6x that and 1.2x SDPA printed);
+   K4-K6 (XENT_FORMS) in bf16 at widths
    128, 256, 512 and 1024 (bert-large's; K5/K6 there on the 1024 form's
    clusters of two blocks, also in fp16, called twice, printed with their
    cluster and beside EARLIER_DESIGN_MS), in fp16 and fp32 at 768, in bf16
@@ -122,7 +124,7 @@ non-zero without printing the final line:
    timed beside its plain version, scaled_dot_product_attention in its
    dtype and its bound, with each kernel's registers, local bytes, shared
    bytes and blocks an SM (bf16 and fp16 with each kernel's head dim, heads
-   a block and T limit; K12, K13 and K14 at D = 16 and 32 run on their
+   a block and T limit; K11-K14 at D = 16 and 32 run on their
    small-row forms, which must not spill, and print beside SDPA and their
    padded route's earlier reading; the register-tiled fp32 kernels, every forward
    and backward, must not spill; check_f32_masks:
@@ -332,9 +334,9 @@ non-zero without printing the final line:
    `"flash_save_probs": true` (the tiled fp32 K13 and K14), and the
    Megatron widths again in fp16 (Megatron-BERT's own mixed precision; K4-K6
    on the fp16 wide form, which the run must show), and TinyBERT-4 (Jiao et
-   al. 2020: L = 4, H = 312, A = 12, I = 1200) in bf16 (heads of 26: K1
-   padded to 64, K2 on its "bf16 D32" form), again with `"packed_qkv":
-   false` (K11 padded, K12 on "bf16 D32") and with `"flash_save_probs":
+   al. 2020: L = 4, H = 312, A = 12, I = 1200) in bf16 (heads of 26, padded
+   to 32: K1 and K2 on their "bf16 D32" forms), again with `"packed_qkv":
+   false` (K11 and K12 on "bf16 D32") and with `"flash_save_probs":
    true` (K13 and K14 on "bf16 D32"), and bert-large's widths
    (VisualBertConfig.large: H = 1024, A = 16, I = 4096; L cut from 24 to
    2) in bf16 with the fused LayerNorm, fast_dropout and the fused
@@ -357,7 +359,7 @@ non-zero without printing the final line:
    launches from the bert-base fp32 save-probs run),
    K9/K10 (bf16, a block a row), K4-K6 (bf16 and fp16, the wide form at
    2048; K5/K6 in bf16 at 1024, launches from the bert-large run) and
-   K2, K12, K13 and K14 (bf16 D32) that phase 27 drives are eighteen rows
+   K1, K2 and K11-K14 (bf16 D32) that phase 27 drives are twenty rows
    more
    (FORM_KERNELS), timed at
    phase 3's shapes, their launches from their geometry's run), then {"ok":
@@ -483,13 +485,19 @@ SLICE_F32_REL_TOL = 1e-4  # the dropout-off loss check in fp32
 # and 12 heads; (dtype, width) of K4-K6 at its N and V
 ATTENTION_FORMS = (("float16", 64), ("float32", 64), ("bfloat16", 16), ("float16", 16), ("float32", 16),
                    ("bfloat16", 128), ("float16", 128), ("float32", 128), ("bfloat16", 32), ("float16", 32))
-# K2 at D = 16 and K12, K13 and K14 at D = 16 and 32 on the route that
-# zero-padded the heads to 64, K2 at D = 128 on its passes that held a
+# K2 at D = 16 and K1, K11, K12, K13 and K14 at D = 16 and 32 on the route
+# that zero-padded the heads to 64, K2 at D = 128 on its passes that held a
 # head's rows (one warpgroup a block), and K1/K11's fp32 forward of the
 # first design (a block a pair, 32-key tiles), at ATTENTION_FORMS' shapes,
 # dropout 0.1: this script's last readings of them on an NVIDIA H100 80GB
 # HBM3 at 700 W, each printed beside its redesign
-EARLIER_DESIGN_MS = {("packed_attention_bwd", "bfloat16", 16): 1.1397, ("packed_attention_bwd", "float16", 16): 1.1122,
+EARLIER_DESIGN_MS = {("packed_attention_fwd", "bfloat16", 16): 0.4309, ("packed_attention_fwd", "float16", 16): 0.4373,
+                     ("packed_attention_fwd", "bfloat16", 32): 0.4816, ("packed_attention_fwd", "float16", 32): 0.4753,
+                     ("heads_major_attention_fwd", "bfloat16", 16): 0.3823,
+                     ("heads_major_attention_fwd", "float16", 16): 0.3996,
+                     ("heads_major_attention_fwd", "bfloat16", 32): 0.4318,
+                     ("heads_major_attention_fwd", "float16", 32): 0.4510,
+                     ("packed_attention_bwd", "bfloat16", 16): 1.1397, ("packed_attention_bwd", "float16", 16): 1.1122,
                      ("packed_attention_fwd", "float32", 16): 1.5734, ("packed_attention_fwd", "float32", 64): 2.6246,
                      ("packed_attention_fwd", "float32", 128): 3.8901,
                      ("heads_major_attention_fwd", "float32", 16): 1.5450,
@@ -554,10 +562,10 @@ GEOMETRIES = (
      "fp16, the fused LayerNorm, fast_dropout and the fused cross-entropy (K4-K6 on the wide form)",
      dict(hidden_size=2048, num_hidden_layers=2, num_attention_heads=32, intermediate_size=8192, dtype="float16",
           use_fused_layer_norm=True, fast_dropout=True, fused_mlm_xent=True)),
-    # heads of 26 (312 / 12): K2 on its "bf16 D32" form, K1 padded to 64
+    # heads of 26 (312 / 12), padded to 32: K1 and K2 on their "bf16 D32" forms, 4 launches a step each
     ("TinyBERT-4 (Jiao et al. 2020: L=4, H=312, A=12, I=1200) in bf16",
      dict(hidden_size=312, num_hidden_layers=4, num_attention_heads=12, intermediate_size=1200)),
-    # the same heads through the other attention pairs: K12 / K13 / K14 on "bf16 D32", K11 padded to 64
+    # the same heads through the other attention pairs: K11 / K12 and K13 / K14 on "bf16 D32"
     ("TinyBERT-4 in bf16, packed_qkv false",
      dict(hidden_size=312, num_hidden_layers=4, num_attention_heads=12, intermediate_size=1200, packed_qkv=False)),
     ("TinyBERT-4 in bf16, flash_save_probs",
@@ -571,8 +579,8 @@ GEOMETRIES = (
 )
 F32_GEOMETRY, F32_SP_GEOMETRY = 6, 7  # the bert-base fp32 runs: the fp32 rows' launches
 F16_WIDE_GEOMETRY = 8  # the Megatron-width fp16 run: the fp16 wide K4-K6 rows' launches
-TINYBERT_GEOMETRY = 9  # the TinyBERT-4 run: K2's "bf16 D32" row's launches
-TINYBERT_HM_GEOMETRY, TINYBERT_SP_GEOMETRY = 10, 11  # K12's and K13/K14's "bf16 D32" rows' launches
+TINYBERT_GEOMETRY = 9  # the TinyBERT-4 run: K1's and K2's "bf16 D32" rows' launches
+TINYBERT_HM_GEOMETRY, TINYBERT_SP_GEOMETRY = 10, 11  # K11/K12's and K13/K14's "bf16 D32" rows' launches
 BERT_LARGE_GEOMETRY = 12  # the bert-large run: K5/K6's "bf16 H1024" rows' launches
 BERT_BASE_F32_STEP_MS = 525.42  # phase 27's bert-base fp32 median step on the first-design K1 forward (H100, 700 W)
 # the kernel table's rows of the fp32 kernels: (row name, wrapper module,
@@ -591,6 +599,10 @@ F32_KERNELS = (
 # wrapper module, wrapper, source, the TPU kernel it replaces, the geometry
 # whose run gives its launches, the phase-3 form whose numbers it takes)
 FORM_KERNELS = (
+    ("packed_attention_fwd (bf16 D32)", "flash_attention", "packed_attention_fwd", "flash_attention_packed.cu",
+     "visualbert_tpu/ops/flash_attention.py:249", TINYBERT_GEOMETRY, ("bfloat16", 32)),
+    ("heads_major_attention_fwd (bf16 D32)", "flash_attention", "heads_major_attention_fwd", "flash_attention.cu",
+     "visualbert_tpu/ops/flash_attention.py:71", TINYBERT_HM_GEOMETRY, ("bfloat16", 32)),
     ("packed_attention_bwd (bf16 D32)", "flash_attention", "packed_attention_bwd", "flash_attention_packed.cu",
      "visualbert_tpu/ops/flash_attention.py:307", TINYBERT_GEOMETRY, ("bfloat16", 32)),
     ("heads_major_attention_bwd (bf16 D32)", "flash_attention", "heads_major_attention_bwd", "flash_attention.cu",
@@ -1782,6 +1794,12 @@ def earlier_design_line(key, ms, card):
             f"[{card}]")
 
 
+def t_limit(smem, max_bytes):
+    """The longest T (a multiple of 64) whose shared bytes ``smem(T)`` fit
+    ``max_bytes``."""
+    return max(t for t in range(64, 8192, 64) if smem(t) <= max_bytes)
+
+
 def check_attention_forms(torch, card, main_k2_ms):
     """K1/K2 in the forms of ATTENTION_FORMS at the main path's B, T and 12
     heads, dropout 0 and 0.1, against their plain versions (fp32 at
@@ -1790,10 +1808,12 @@ def check_attention_forms(torch, card, main_k2_ms):
     scaled_dot_product_attention in the same dtype and its bound (the
     unpadded head dim's bytes and products), with each kernel's registers,
     local bytes, shared bytes and blocks an SM (bf16/fp16: K1's and K2's
-    forms apart, each with its heads a block and T limit); the fp32 kernels
-    and K2's forms at 16 and 32 may not spill; K2 at 16 and 32 printed
-    beside SDPA and the D = 64 K2 of this call (bf16: the main path's,
-    ``main_k2_ms``). Returns the fp32 kernels' table rows at D = 64 and
+    kernels apart, each with its heads a block and the path's T limit); the
+    fp32 kernels and K1's and K2's forms at 16 and 32 may not spill; K2 at
+    16 and 32 printed beside SDPA and the D = 64 K2 of this call (bf16: the
+    main path's, ``main_k2_ms``), K1 at 16 and 32 beside SDPA and its
+    padded route's reading (EARLIER_DESIGN_MS) against the aims
+    (SMALL_FWD_AIMS). Returns the fp32 kernels' table rows at D = 64 and
     {(wrapper, dtype, D): row} of every form."""
     from visualbert_torch.ops import flash_attention as fa
 
@@ -1804,7 +1824,7 @@ def check_attention_forms(torch, card, main_k2_ms):
         B, T, F = qkv.shape
         form = fa.attention_form(qkv.dtype, D)
         t_out, t_st, t_dq, t_db = form_tols(dtype)
-        where = f"{dtype} D={D} [{B}, {T}, {F}] (forms {form}, K2 {fa.bwd_attention_form(qkv.dtype, D)})"
+        where = f"{dtype} D={D} [{B}, {T}, {F}] (form {form})"
         k1, k2 = dict(max_abs_err=0.0), dict(max_abs_err=0.0)
         for rate in (0.0, 0.1):
             out, stats = fa.packed_attention_fwd(qkv, qb, key_bias, H, rate, 99)
@@ -1851,13 +1871,14 @@ def check_attention_forms(torch, card, main_k2_ms):
         lib = _build.library()
         if dtype != "float32":
             code = 0 if dtype == "bfloat16" else 1
-            for pair, dp, ks in (("K1", fa.kernel_head_dim(D), (0,)), ("K2", fa.bwd_head_dim(D), (1, 2))):
+            dp = fa.kernel_head_dim(D)
+            for pair, ks in (("K1", (0,)), ("K2", (1, 2))):
                 hgs = fa.packed_x_head_groups(lib, qkv.dtype, dp, B, H, T, qkv.device)
                 streamed = pair == "K2" and dp == fa.STREAMED_HEAD_DIM
                 # K1's check holds all three kernels' bytes (its forward bounds the path), K2's its passes'
                 smem = ((lambda t: lib.vb_attn_packed_x_smem_bytes(dp, t)) if pair == "K1" else
                         (lambda t: max(lib.vb_attn_packed_x_info(code, dp, k, 2, t) for k in ks)))
-                limit = max(t for t in range(64, 8192, 64) if smem(t) <= fa.MAX_SMEM_BYTES)
+                limit = t_limit(smem, fa.MAX_SMEM_BYTES)
                 for k in ks:
                     regs, local, nsmem, per_sm = (lib.vb_attn_packed_x_info(code, dp, k, w, T) for w in range(4))
                     grid = ("a block a (128 rows, head, batch row), two warpgroups" if streamed else f"hg {hgs[k]}")
@@ -1865,8 +1886,8 @@ def check_attention_forms(torch, card, main_k2_ms):
                         f"SM, {regs} registers a thread, {local} bytes of local memory, {nsmem} bytes of shared "
                         f"memory at T={T}; T up to {limit}" + (" (the same bytes at every T)" if streamed else ""))
                     if (dp < fa.KERNEL_HEAD_DIM or streamed) and local != 0:
-                        raise SystemExit(f"K2 {dtype} at head dim {dp}: the {fa.PACKED_KERNELS[k]} spills {local} "
-                                         f"bytes")
+                        raise SystemExit(f"{pair} {dtype} at head dim {dp}: the {fa.PACKED_KERNELS[k]} spills "
+                                         f"{local} bytes")
                 if dp != D:
                     pad_ms = cuda_time_ms(lambda: fa.pad_heads(qkv, H, 3, dp), 10)
                     log(f"{pair} {where}: the wrapper's zero-padding of qkv to D={dp} alone {pad_ms:.4f} ms  [{card}]")
@@ -1899,7 +1920,29 @@ def check_attention_forms(torch, card, main_k2_ms):
             f"{k2[16]['ms'] / k2[16]['library_ms']:.2f}x), D=32 {k2[32]['ms']:.4f} ms (SDPA "
             f"{k2[32]['library_ms']:.4f}, {k2[32]['ms'] / k2[32]['library_ms']:.2f}x), D=64 {d64:.4f} ms in this "
             f"call: D=32 {'faster' if k2[32]['ms'] < d64 else 'not faster'} than D=64  [{card}]")
+    small_forward_lines(form_rows, "packed_attention_fwd", "K1", card)
     return rows, form_rows
+
+
+# the small-row forwards' aims (K1, K11 at D = 16 and 32): at least this
+# many times faster than their padded route (EARLIER_DESIGN_MS), at most
+# this many times SDPA's time in the same call; printed, not enforced
+SMALL_FWD_AIMS = (1.6, 1.2)
+
+
+def small_forward_lines(form_rows, wrapper, k, card):
+    """Print the small-row forward ``wrapper`` (K1 or K11) at D = 16 and 32
+    in bf16 and fp16 beside SDPA, its bound and its padded route's reading,
+    and whether each meets SMALL_FWD_AIMS."""
+    for dtype in ("bfloat16", "float16"):
+        text = []
+        for D in (16, 32):
+            r, was = form_rows[(wrapper, dtype, D)], EARLIER_DESIGN_MS[(wrapper, dtype, D)]
+            gain, vs = was / r["ms"], r["ms"] / r["library_ms"]
+            met = gain >= SMALL_FWD_AIMS[0] and vs <= SMALL_FWD_AIMS[1]
+            text.append(f"D={D} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}; SDPA {r['library_ms']:.4f}, {vs:.2f}x; "
+                        f"padded to 64 {was:.4f}, {gain:.2f}x; aims {'met' if met else 'missed'})")
+        log(f"{k} {dtype} on its small-row forms: " + "; ".join(text) + f"  [{card}]")
 
 
 def check_streamed_long_t(torch, card, dtype):
@@ -1912,7 +1955,7 @@ def check_streamed_long_t(torch, card, dtype):
 
     H, B, T = 12, 8, STREAMED_LONG_T
     qkv, qb, key_bias, dout = attention_inputs_at(torch, dtype, 128, H, B, T)
-    where = f"K2 {dtype} D=128 [{B}, {T}, {qkv.shape[-1]}] ({fa.bwd_attention_form(qkv.dtype, 128)})"
+    where = f"K2 {dtype} D=128 [{B}, {T}, {qkv.shape[-1]}] ({fa.attention_form(qkv.dtype, 128)})"
     for rate in (0.0, 0.1):
         out_r, stats_r = fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, 99)
         runs = [fa.packed_attention_bwd(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 99) for _ in range(2)]
@@ -2097,38 +2140,31 @@ def variant_inputs_at(torch, variant, dtype, D, H=12):
     return x, key_bias, dout_v, qkv, qb, dout
 
 
-def variant_fwd_head_dim(fa, variant, D):
-    """The head dim a K11 (kernel_head_dim) or K13 (bwd_head_dim, its own
-    small-row forms below 64) form's forward runs D at."""
-    return fa.kernel_head_dim(D) if variant == "heads_major" else fa.bwd_head_dim(D)
-
-
 def variant_info(lib, fa, variant, dtype, D, T):
     """[registers, local bytes, shared bytes, blocks an SM] of the forward,
-    dQ pass and dK/dV pass of a K11-K14 form: the forward at
-    variant_fwd_head_dim, the backward's passes at bwd_head_dim(D)."""
+    dQ pass and dK/dV pass of a K11-K14 form, all three at
+    kernel_head_dim(D)."""
     if dtype == "float32":
         info = lib.vb_attn_f32_info if variant == "heads_major" else lib.vb_attn_f32_sp_info
         return [[info(k, w, D) for w in range(4)] for k in range(3)]
     info = lib.vb_attn_hm_x_info if variant == "heads_major" else lib.vb_attn_sp_x_info
-    dps = (variant_fwd_head_dim(fa, variant, D), fa.bwd_head_dim(D), fa.bwd_head_dim(D))
-    return [[info(0 if dtype == "bfloat16" else 1, dp, k, w, T) for w in range(4)] for k, dp in enumerate(dps)]
+    dp = fa.kernel_head_dim(D)
+    return [[info(0 if dtype == "bfloat16" else 1, dp, k, w, T) for w in range(4)] for k in range(3)]
 
 
 def variant_geometry(lib, fa, variant, x, D):
     """{kernel: (instantiated head dim, hg, T limit)} of a bf16 or fp16
-    K11-K14 form on x: the forward at variant_fwd_head_dim, the backward's
-    two passes at bwd_head_dim(D) (their own shared memory and occupancy)."""
+    K11-K14 form on x, every kernel at kernel_head_dim(D) (its own
+    occupancy; the limit the path's, by the largest of the three kernels'
+    bytes)."""
     B, T = (x.shape[0], x.shape[3]) if variant == "heads_major" else x.shape[:2]
     H = x.shape[2] if variant == "heads_major" else x.shape[2] // (3 * D)
     pre = "hm" if variant == "heads_major" else "sp"
     groups = fa.hm_x_head_groups if variant == "heads_major" else fa.sp_x_head_groups
-    smem = getattr(lib, f"vb_attn_{pre}_x_smem_bytes")
-    out = {}
-    for k, dp in enumerate((variant_fwd_head_dim(fa, variant, D), fa.bwd_head_dim(D), fa.bwd_head_dim(D))):
-        hg = groups(lib, x.dtype, dp, B, H, T, x.device)[k]
-        out[fa.PACKED_KERNELS[k]] = (dp, hg, max(t for t in range(64, 8192, 64) if smem(dp, t) <= fa.MAX_SMEM_BYTES))
-    return out
+    smem, dp = getattr(lib, f"vb_attn_{pre}_x_smem_bytes"), fa.kernel_head_dim(D)
+    limit = t_limit(lambda t: smem(dp, t), fa.MAX_SMEM_BYTES)
+    hgs = groups(lib, x.dtype, dp, B, H, T, x.device)
+    return {kernel: (dp, hgs[k], limit) for k, kernel in enumerate(fa.PACKED_KERNELS)}
 
 
 def check_variant_forms(torch, card):
@@ -2142,10 +2178,10 @@ def check_variant_forms(torch, card):
     (the unpadded head dim's bytes, as the JAX functions move them, and
     products), printed with each kernel's registers, local bytes, shared
     bytes and blocks an SM (bf16, fp16: also its instantiated head dim,
-    heads a block and T limit; K12's, K13's and K14's small forms at D <= 32
-    may not spill), and K12 / K13 / K14 at D = 16 and 32 beside SDPA and
-    their padded route's reading (EARLIER_DESIGN_MS). Returns {(wrapper
-    name, dtype, D): table row}."""
+    heads a block and T limit; K11-K14's small forms at D <= 32 may not
+    spill), and K11-K14 at D = 16 and 32 beside SDPA and their padded
+    route's reading (EARLIER_DESIGN_MS; K11's against SMALL_FWD_AIMS).
+    Returns {(wrapper name, dtype, D): table row}."""
     from visualbert_torch.ops import _build
     from visualbert_torch.ops import flash_attention as fa
 
@@ -2163,9 +2199,7 @@ def check_variant_forms(torch, card):
             else:
                 t_out, t_bwd = (F32_REL_TOL, F32_REL_TOL) if f32 else (SP_OUT_TOL, SP_DQKV_TOL)
             t_st = F32_ABS_TOL if f32 else STATS_TOL
-            fwd_form = fa.attention_form if variant == "heads_major" else fa.sp_attention_form
-            where = (f"{dtype} D={D} B={B} T={T} H={H} (forms {fwd_form(x.dtype, D)}, "
-                     f"{k_bwd} {fa.bwd_attention_form(x.dtype, D)})")
+            where = f"{dtype} D={D} B={B} T={T} H={H} (form {fa.attention_form(x.dtype, D)})"
             r_f, r_b = dict(max_abs_err=0.0), dict(max_abs_err=0.0)
             for rate in (0.0, 0.1):
                 r_own = 0.0
@@ -2228,8 +2262,8 @@ def check_variant_forms(torch, card):
                     at = f" at head dim {dp}: hg {hg}, T up to {limit},"
                 log(f"{k_fwd}/{k_bwd} {where} {kernel}{at} {i[0]} registers a thread, {i[1]} bytes of local memory, "
                     f"{i[2]} bytes of shared memory, {i[3]} blocks an SM")
-                small = not f32 and (k > 0 or variant == "save_probs") and fa.bwd_head_dim(D) < fa.KERNEL_HEAD_DIM
-                if (f32 or small) and i[1] != 0:  # the register-tiled fp32 kernels, K12-K14's small forms
+                small = not f32 and fa.kernel_head_dim(D) < fa.KERNEL_HEAD_DIM
+                if (f32 or small) and i[1] != 0:  # the register-tiled fp32 kernels, K11-K14's small forms
                     raise SystemExit(f"{k_fwd}/{k_bwd} {where}: the {kernel} spills {i[1]} bytes")
             for name, r in ((fwd, r_f), (bwd, r_b)):
                 log(row_line(f"{name} {where}", r, card))
@@ -2237,6 +2271,7 @@ def check_variant_forms(torch, card):
                 rows[(name, dtype, D)] = r
             del x, key_bias, dout, qkv, qb, dout_p, out, second
             torch.cuda.empty_cache()
+    small_forward_lines(rows, "heads_major_attention_fwd", "K11", card)
     for bwd, k_bwd in (("heads_major_attention_bwd", "K12"), ("packed_attention_sp_fwd", "K13"),
                        ("packed_attention_sp_bwd", "K14")):
         for dtype in ("bfloat16", "float16"):
@@ -2383,16 +2418,14 @@ def geometry_forms(cfg, want):
     """{wrapper name: {form: launches}} that a run of ``want`` launches (the
     LABELS order) at ``cfg``'s dtype and widths must count, for every
     wrapper that counts forms (K1, K2, K4-K14)."""
-    from visualbert_torch.ops.flash_attention import attention_form, bwd_attention_form, sp_attention_form
+    from visualbert_torch.ops.flash_attention import attention_form
     from visualbert_torch.ops.layer_norm import layer_norm_form
     from visualbert_torch.ops.mlm_xent import xent_form
 
     a_form, l_form = attention_form(cfg.dtype, cfg.head_dim), layer_norm_form(cfg.dtype, cfg.hidden_size)
-    b_form = bwd_attention_form(cfg.dtype, cfg.head_dim)
-    sp_form = sp_attention_form(cfg.dtype, cfg.head_dim)
     x_form = xent_form(cfg.dtype, cfg.hidden_size) if cfg.fused_mlm_xent else None
-    form_of = {0: a_form, 1: b_form, 3: x_form, 4: x_form, 5: x_form, 6: l_form, 7: l_form, 8: l_form, 9: l_form,
-               10: a_form, 11: b_form, 12: sp_form, 13: b_form}
+    form_of = {0: a_form, 1: a_form, 3: x_form, 4: x_form, 5: x_form, 6: l_form, 7: l_form, 8: l_form, 9: l_form,
+               10: a_form, 11: a_form, 12: a_form, 13: a_form}
     return {KERNELS[i][0]: ({f: want[i]} if want[i] else {}) for i, f in form_of.items()}
 
 

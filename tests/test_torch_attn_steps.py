@@ -123,7 +123,8 @@ def test_the_ab_tool_reads_each_kernels_sass_apart():
                                      "forward": ["BRA `(.L0)"]}
 
 
-@pytest.mark.parametrize("args", [["--f32"], ["--f32", "--f32"], ["--f32", "no-such-checkout"]])
+@pytest.mark.parametrize("args", [["--only", "f32"], ["--only", "f32", "--only", "f32"],
+                                  ["--only", "f32", "no-such-checkout"]])
 def test_the_ab_tools_fp32_options_still_take_one_checkout(args):
     from visualbert_torch.tools import attn_ab
 
@@ -138,7 +139,20 @@ def test_the_ab_tools_fp32_part_needs_a_card(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
-        attn_ab.main([str(_build.CSRC.parent.parent), "--f32"])
+        attn_ab.main([str(_build.CSRC.parent.parent), "--only", "f32"])
+
+
+@pytest.mark.parametrize("only", ["", "f32,nope", "--f32"])
+def test_the_ab_tool_runs_only_its_own_parts(monkeypatch, only):
+    """--only takes a comma-separated list of PARTS and nothing else; a
+    checkout alone runs them all."""
+    from visualbert_torch.tools import attn_ab
+
+    root = str(_build.CSRC.parent.parent)
+    with pytest.raises(SystemExit, match="--only takes some of"):
+        attn_ab.main([root, "--only", only])
+    assert attn_ab.parse([root]) == (root, attn_ab.PARTS)
+    assert attn_ab.parse(["--only", "small_forwards,sass", root]) == (root, ("small_forwards", "sass"))
 
 
 def test_the_ab_tool_builds_each_trees_fp32_source_alone(monkeypatch, tmp_path):
@@ -233,9 +247,11 @@ def test_the_ab_tool_holds_the_fp32_kernels_to_chip_smokes_limits(errors, ok):
 
 def test_the_ab_tool_binds_each_backwards_small_form_entry_points(monkeypatch, tmp_path):
     """Each tree's packed, heads-major and save-probs sources are built
-    alone, and the entry points that launch K2's, K12's and K14's other
-    forms (their small-row forms here, the padded route in another tree)
-    are bound with the library's signatures."""
+    alone (and, for their machine code alone, the other sources that
+    SASS_ONLY_SOURCES names), and the entry points that launch K1's, K2's,
+    K11's, K12's and K14's other forms (their small-row forms here, the
+    padded route in another tree) are bound with the library's
+    signatures."""
     from visualbert_torch.tools import attn_ab
 
     cmds, bound = [], {}
@@ -244,7 +260,8 @@ def test_the_ab_tool_binds_each_backwards_small_form_entry_points(monkeypatch, t
     monkeypatch.setattr(_build, "_run_all", lambda c: (cmds.extend(c), [(x, 0, "") for x in c])[1])
     monkeypatch.setattr(attn_ab, "bind", lambda path, fns: bound.setdefault(str(path), fns))
     attn_ab.build({"this": _build.CSRC.parent.parent, "other": tmp_path / "parent"})
-    assert len(cmds) == 2 * (2 + len(attn_ab.OTHER_SOURCES))
+    assert len(cmds) == 2 * (2 + len(attn_ab.OTHER_SOURCES) + len(attn_ab.SASS_ONLY_SOURCES))
+    assert sum(str(c[-3]).endswith("mlm_xent.cu") for c in cmds) == 2
     for fns in (attn_ab.PACKED_X_FNS, attn_ab.HM_X_FNS, attn_ab.SP_X_FNS):
         assert sum(set(fns) <= set(b) for b in bound.values()) == 2
         assert set(fns) <= set(_build._SIGNATURES)

@@ -16,7 +16,7 @@ one fp16 ulp (2^-10 relative) apart where the two frameworks round an
 intermediate (the biased q, k, v, p, dS, dlog) at another place, so rtol
 4e-3 with atol 4e-3 of the largest entry; fp32 statistics of fp16 products
 (nll, lse, stats) atol 1e-4. The zero-padding the bf16 and fp16 kernels
-take (``pad_heads``, ``pad_width``; K2's head dims of 16 and 32 too) is
+take (``pad_heads``, ``pad_width``; to head dims of 16 and 32 too) is
 held to the unpadded plain version: the padded columns add exact zeros. Last, one ``VisualBertForTask`` at the
 JAX package's ``tiny()`` geometry with all four kernel flags against the JAX
 model on the same exported weights. The kernels themselves are tested on
@@ -123,25 +123,25 @@ def test_padded_heads_give_the_unpadded_attention(D, dp, rate):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("dtype,D,form", [("bfloat16", 64, "bf16 D64"), ("bfloat16", 16, "bf16 D64"),
+@pytest.mark.parametrize("dtype,D,form", [("bfloat16", 64, "bf16 D64"), ("bfloat16", 16, "bf16 D16"),
                                           ("float16", 96, "fp16 D128"), ("float16", 128, "fp16 D128"),
                                           ("float32", 8, "fp32"), ("float32", 128, "fp32")])
 def test_each_dtype_and_head_dim_has_its_kernel_form(dtype, D, form):
     assert fa.attention_form(getattr(torch, dtype), D) == form
-    assert fa.kernel_head_dim(D) == (64 if D <= 64 else 128)
+    assert fa.kernel_head_dim(D) == (16 if D <= 16 else 32 if D <= 32 else 64 if D <= 64 else 128)
 
 
 @pytest.mark.parametrize("D", [1, 8, 16, 17, 26, 32, 33, 48, 64, 96, 128])
 @pytest.mark.parametrize("dtype,name", [("bfloat16", "bf16"), ("float16", "fp16")])
 def test_the_backward_has_its_own_forms_below_64(dtype, name, D):
-    """K2 runs bf16 and fp16 heads of 16 and 32 unpadded and pads a head dim
-    to the next of 16, 32, 64, 128; K1 (and K11-K14) keep 64 and 128."""
+    """K1 and K2 (and K11-K14) run bf16 and fp16 heads of 16 and 32 unpadded
+    and pad a head dim to the next of 16, 32, 64, 128: one form, named by
+    attention_form, for the forward and the backward."""
     dp = 16 if D <= 16 else 32 if D <= 32 else 64 if D <= 64 else 128
-    assert fa.bwd_head_dim(D) == dp
-    assert fa.bwd_attention_form(getattr(torch, dtype), D) == f"{name} D{dp}"
-    assert fa.kernel_head_dim(D) == (64 if D <= 64 else 128)
-    assert fa.attention_form(getattr(torch, dtype), D) == f"{name} D{fa.kernel_head_dim(D)}"
-    assert fa.bwd_attention_form(torch.float32, D) == "fp32"
+    assert fa.HEAD_DIMS == (16, 32, 64, 128)
+    assert fa.kernel_head_dim(D) == dp
+    assert fa.attention_form(getattr(torch, dtype), D) == f"{name} D{dp}"
+    assert fa.attention_form(torch.float32, D) == "fp32"
 
 
 def xent_inputs(seed, N, H, V):

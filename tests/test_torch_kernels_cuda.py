@@ -1381,7 +1381,7 @@ FORM_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 
 
 @pytest.mark.parametrize("B,T,H", [(2, 130, 4), (4, 228, 12), (1, 1, 2)])
-@pytest.mark.parametrize("D", [8, 16, 32, 64, 96, 128])
+@pytest.mark.parametrize("D", [8, 16, 32, 48, 64, 96, 128])
 @pytest.mark.parametrize("dtype", FORM_DTYPES, ids=str)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_attention_forms_match_plain(cuda, dtype, D, B, T, H, rate):
@@ -1489,7 +1489,7 @@ def test_streamed_backward_at_head_dim_128_matches_plain(cuda, dtype, B, T, H, r
     blocks' partials; two calls give the same bits."""
     qkv, qb, key_bias, dout = form_attention_inputs(B, T, H, 128, dtype, cuda)
     out_r, stats_r = fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, 99)
-    form = fa.bwd_attention_form(dtype, 128)
+    form = fa.attention_form(dtype, 128)
     before = fa.packed_attention_bwd.forms.get(form, 0)
     runs = [fa.packed_attention_bwd(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 99) for _ in range(2)]
     dqkv_r, dqb_r = fa.packed_attention_bwd_reference(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 99)
@@ -1831,7 +1831,7 @@ VARIANTS = ["heads_major", "save_probs"]
 
 
 @pytest.mark.parametrize("B,T,H", [(2, 130, 4), (4, 228, 12), (1, 1, 2)])
-@pytest.mark.parametrize("D", [8, 16, 32, 64, 96, 128])
+@pytest.mark.parametrize("D", [8, 16, 32, 48, 64, 96, 128])
 @pytest.mark.parametrize("dtype", FORM_DTYPES, ids=str)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -1842,14 +1842,14 @@ def test_variant_attention_forms_match_plain(cuda, variant, dtype, D, B, T, H, r
     within one bf16 ulp of its plain value in every dtype; K14 fed K13's own
     probabilities and output within bf16's limit in every dtype (a
     probability one bf16 ulp from the plain one moves dqkv by more than
-    fp32's bar); each launch counted in its form: K11's by attention_form,
-    K13's by sp_attention_form, the backward's by bwd_attention_form (K12,
-    K13 and K14 run heads up to 32 on their small-row forms)."""
+    fp32's bar); each launch counted in its form by attention_form (K11-K14
+    run heads up to 32 on their small-row forms; bf16 at D = 48 holds the
+    D = 64 kernels with a runtime scale, which the main path's fixed form
+    does not reach)."""
     qkv, key_bias, dout = variant_inputs(variant, B, T, H, D, dtype, cuda)
     fwd_fn = fa.heads_major_attention_fwd if variant == "heads_major" else fa.packed_attention_sp_fwd
     bwd_fn = fa.heads_major_attention_bwd if variant == "heads_major" else fa.packed_attention_sp_bwd
-    form_of = fa.attention_form if variant == "heads_major" else fa.sp_attention_form
-    form, bwd_form = form_of(dtype, D), fa.bwd_attention_form(dtype, D)
+    form = bwd_form = fa.attention_form(dtype, D)
     before, before_bwd = fwd_fn.forms.get(form, 0), bwd_fn.forms.get(bwd_form, 0)
     (out, second), dqkv = variant_run(variant, qkv, key_bias, dout, H, rate, 99)
     (out_r, second_r), dqkv_r = variant_run(variant, qkv, key_bias, dout, H, rate, 99, plain=True)
@@ -2185,9 +2185,11 @@ def test_small_row_products_match_matmul(cuda, dtype, D):
     assert float((qb - want_qb).abs().max()) <= 1e-5 * float(want_qb.abs().max())
 
 
-def small_head_limit(lib, dp):
-    """The largest T whose K2 passes fit a block's shared memory at dp."""
-    return max(t for t in range(64, 8192, 64) if lib.vb_attn_packed_x_smem_bytes(dp, t) <= fa.MAX_SMEM_BYTES)
+def t_limit(smem, dp):
+    """The largest T (a multiple of 64) whose kernels at dp fit a block's
+    shared memory by ``smem`` (a ``vb_attn_*_x_smem_bytes`` query: the
+    largest of a pair's three kernels, so the path's limit)."""
+    return max(t for t in range(64, 8192, 64) if smem(dp, t) <= fa.MAX_SMEM_BYTES)
 
 
 @pytest.mark.parametrize("T", [1, 65, 228, "limit"])
@@ -2200,14 +2202,14 @@ def test_small_head_backward_matches_plain(cuda, dtype, D, T, rate):
     within bf16's limits, at T = 1, 65, 228 and the form's largest T, which
     is above the D = 64 form's 704."""
     lib = _build.library()
-    dp = fa.bwd_head_dim(D)
+    dp = fa.kernel_head_dim(D)
     if T == "limit":
-        T = small_head_limit(lib, dp)
+        T = t_limit(lib.vb_attn_packed_x_smem_bytes, dp)
         assert T > 704
     B, H = (2, 3) if T <= 228 else (1, 2)
     qkv, qb, key_bias, dout = form_attention_inputs(B, T, H, D, dtype, cuda)
     out_r, stats_r = fa.packed_attention_fwd_reference(qkv, qb, key_bias, H, rate, 99)
-    form = fa.bwd_attention_form(dtype, D)
+    form = fa.attention_form(dtype, D)
     before = fa.packed_attention_bwd.forms.get(form, 0)
     dqkv, dqb = fa.packed_attention_bwd(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 99)
     dqkv_r, dqb_r = fa.packed_attention_bwd_reference(qkv, qb, key_bias, dout, out_r, stats_r, H, rate, 99)
@@ -2223,7 +2225,7 @@ def test_small_head_backward_matches_plain(cuda, dtype, D, T, rate):
 def test_small_head_backward_refuses_past_its_limit(cuda, dtype):
     lib = _build.library()
     for dp in (16, 32):
-        limit = small_head_limit(lib, dp)
+        limit = t_limit(lib.vb_attn_packed_x_smem_bytes, dp)
         qkv, qb, key_bias, dout = form_attention_inputs(1, limit + 1, 1, dp, dtype, cuda)
         stats = torch.zeros((1, 1, limit + 1), device=cuda)
         with pytest.raises(ValueError, match=f"T up to {limit}"):
@@ -2233,16 +2235,15 @@ def test_small_head_backward_refuses_past_its_limit(cuda, dtype):
 @pytest.mark.parametrize("dp", [16, 32])
 @pytest.mark.parametrize("dtype", SMALL_DTYPES, ids=str)
 def test_small_head_backward_does_not_spill(cuda, dtype, dp):
-    """The dQ and dK/dV passes at dh 16 and 32 keep every value in
-    registers and fit blocks an SM at the main path's T; there is no
-    forward at these head dims."""
+    """The forward and the dQ and dK/dV passes at dh 16 and 32 keep every
+    value in registers and fit blocks an SM at the main path's T, each in
+    less shared memory than at dh 64."""
     lib = _build.library()
     code = 0 if dtype == torch.bfloat16 else 1
-    for which in (1, 2):
+    for which in (0, 1, 2):
         regs, local, smem, per_sm = (lib.vb_attn_packed_x_info(code, dp, which, w, 228) for w in range(4))
         assert 0 < regs <= 255 and local == 0 and per_sm >= 1, (which, regs, local, per_sm)
         assert smem < lib.vb_attn_packed_x_smem_bytes(64, 228)
-    assert lib.vb_attn_packed_x_info(code, dp, 0, 0, 228) == -1
 
 
 # ---- K12 and K14 at head dims 16 and 32 (bf16, fp16) on the small-row tiles ----
@@ -2250,13 +2251,6 @@ def test_small_head_backward_does_not_spill(cuda, dtype, dp):
 # variant: (its backward wrapper, the shared-memory query, the info query)
 SMALL_VARIANT_BWD = {"heads_major": ("heads_major_attention_bwd", "vb_attn_hm_x_smem_bytes", "vb_attn_hm_x_info"),
                      "save_probs": ("packed_attention_sp_bwd", "vb_attn_sp_x_smem_bytes", "vb_attn_sp_x_info")}
-
-
-def small_variant_limit(lib, variant, dp):
-    """The largest T whose K12 (heads_major) or K14 (save_probs) passes fit
-    a block's shared memory at dp."""
-    smem = getattr(lib, SMALL_VARIANT_BWD[variant][1])
-    return max(t for t in range(64, 8192, 64) if smem(dp, t) <= fa.MAX_SMEM_BYTES)
 
 
 def small_variant_bwd(variant, qkv, key_bias, dout, H, rate, seed, plain=False):
@@ -2292,14 +2286,14 @@ def test_small_variant_backward_matches_plain(cuda, variant, dtype, D, T, rate):
     output (K13 on its small-row form too, at every T); each launch counted
     in its form."""
     lib = _build.library()
-    dp = fa.bwd_head_dim(D)
+    dp = fa.kernel_head_dim(D)
     if T == "limit":
-        T = small_variant_limit(lib, variant, dp)
+        T = t_limit(getattr(lib, SMALL_VARIANT_BWD[variant][1]), dp)
         assert T > 704
     B, H = (2, 3) if T <= 228 else (1, 2)
     qkv, key_bias, dout = variant_inputs(variant, B, T, H, D, dtype, cuda)
     bwd_fn = getattr(fa, SMALL_VARIANT_BWD[variant][0])
-    form = fa.bwd_attention_form(dtype, D)
+    form = fa.attention_form(dtype, D)
     before = bwd_fn.forms.get(form, 0)
     dqkv, _, own = small_variant_bwd(variant, qkv, key_bias, dout, H, rate, 99)
     dqkv_r, _, _ = small_variant_bwd(variant, qkv, key_bias, dout, H, rate, 99, plain=True)
@@ -2319,18 +2313,18 @@ def test_small_variant_backward_matches_plain(cuda, variant, dtype, D, T, rate):
 def test_small_save_probs_forward_matches_plain(cuda, dtype, D, T, rate):
     """K13 at head dims up to 32 runs on its "D16" / "D32" form (heads of
     16 and 32 in place, 8 and 26 zero-padded to them), counted by
-    sp_attention_form, against its plain version: out within bf16's limit,
+    attention_form, against its plain version: out within bf16's limit,
     every bf16 probability within one bf16 ulp of its plain value, in K14's
     row layout, and K14 fed K13's own output within bf16's limit, at T = 1,
     65, 228 and the form's largest T (above the D = 64 form's 704)."""
     lib = _build.library()
-    dp = fa.bwd_head_dim(D)
+    dp = fa.kernel_head_dim(D)
     if T == "limit":
-        T = small_variant_limit(lib, "save_probs", dp)
+        T = t_limit(getattr(lib, SMALL_VARIANT_BWD["save_probs"][1]), dp)
         assert T > 704
     B, H = (2, 3) if T <= 228 else (1, 2)
     qkv, key_bias, dout = variant_inputs("save_probs", B, T, H, D, dtype, cuda)
-    form = fa.sp_attention_form(dtype, D)
+    form = fa.attention_form(dtype, D)
     before = fa.packed_attention_sp_fwd.forms.get(form, 0)
     out, probs = fa.packed_attention_sp_fwd(qkv, key_bias, H, rate, 99)
     out_r, probs_r = fa.packed_attention_sp_fwd_reference(qkv, key_bias, H, rate, 99)
@@ -2362,12 +2356,11 @@ def test_small_variant_backward_repeats_bit_for_bit(cuda, variant, dtype, D):
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_small_variant_backward_refuses_past_its_limit(cuda, variant, dtype):
     """One T past each small form's limit is refused with the limit named
-    (K11, on its D = 64 form, refuses past 704 before that; K13 on its
-    small-row form at K14's limit)."""
+    (K11 and K13 on their small-row forms at K12's and K14's limits)."""
     lib = _build.library()
     bwd_fn = getattr(fa, SMALL_VARIANT_BWD[variant][0])
     for dp in (16, 32):
-        limit = small_variant_limit(lib, variant, dp)
+        limit = t_limit(getattr(lib, SMALL_VARIANT_BWD[variant][1]), dp)
         T = limit + 1
         qkv, key_bias, dout = variant_inputs(variant, 1, T, 1, dp, dtype, cuda)
         with pytest.raises(ValueError, match=f"T up to {limit}"):
@@ -2381,28 +2374,102 @@ def test_small_variant_backward_refuses_past_its_limit(cuda, variant, dtype):
 @pytest.mark.parametrize("dtype", SMALL_DTYPES, ids=str)
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_small_variant_backward_does_not_spill(cuda, variant, dtype, dp):
-    """K12's and K14's dQ and dK/dV passes at dh 16 and 32 keep every value
-    in registers and fit blocks an SM at the main path's T; so does K13's
-    forward there, whose entry point takes these head dims; K11 has no
-    forward at them: its info is -1 and its entry point refuses them."""
+    """K12's and K14's dQ and dK/dV passes and K11's and K13's forwards at
+    dh 16 and 32 keep every value in registers and fit blocks an SM at the
+    main path's T, each in less shared memory than at dh 64; the forwards'
+    entry points take these head dims."""
     lib = _build.library()
     info, smem = getattr(lib, SMALL_VARIANT_BWD[variant][2]), getattr(lib, SMALL_VARIANT_BWD[variant][1])
     code = 0 if dtype == torch.bfloat16 else 1
-    for which in (1, 2):
+    for which in (0, 1, 2):
         regs, local, shared, per_sm = (info(code, dp, which, w, 228) for w in range(4))
         assert 0 < regs <= 255 and local == 0 and per_sm >= 1, (which, regs, local, per_sm)
         assert shared < smem(64, 228)
     qkv, key_bias, _ = variant_inputs(variant, 1, 37, 2, dp, dtype, cuda)
     if variant == "heads_major":
-        assert info(code, dp, 0, 0, 228) == -1
         code, *_ = fa.launch_hm_x_fwd(lib, qkv, key_bias, 0.0, 0, 1, 1.0)
-        assert code != 0
     else:
-        regs, local, shared, per_sm = (info(code, dp, 0, w, 228) for w in range(4))
-        assert 0 < regs <= 255 and local == 0 and per_sm >= 1 and shared < smem(64, 228), (regs, local, per_sm)
         code, *_ = fa.launch_sp_x_fwd(lib, qkv, key_bias, 2, 0.0, 0, 1, 1.0)
-        torch.cuda.synchronize()
-        assert code == 0
+    torch.cuda.synchronize()
+    assert code == 0
+
+
+# ---- K1 and K11 at head dims 16 and 32 (bf16, fp16) on the small-row tiles ----
+
+# variant: (its forward wrapper, the plain version, the shared-memory query, the info query)
+SMALL_FWD = {"packed": ("packed_attention_fwd", "packed_attention_fwd_reference", "vb_attn_packed_x_smem_bytes",
+                        "vb_attn_packed_x_info"),
+             "heads_major": ("heads_major_attention_fwd", "heads_major_attention_fwd_reference",
+                             "vb_attn_hm_x_smem_bytes", "vb_attn_hm_x_info")}
+
+
+def small_fwd_run(variant, x, qb, key_bias, H, rate, seed, plain=False):
+    """(out, stats) of K1 (packed: qkv and its deferred bias) or K11
+    (heads_major: the biased [B, 3, H, T, D]), or of their plain versions."""
+    fn = getattr(fa, SMALL_FWD[variant][1 if plain else 0])
+    if variant == "packed":
+        return fn(x, qb, key_bias, H, rate, seed)
+    return fn(x, key_bias, rate, seed)
+
+
+def small_fwd_inputs(variant, B, T, H, D, dtype, device):
+    """(x, qb or None, key_bias) of K1 or K11 from form_attention_inputs."""
+    qkv, qb, key_bias, _ = form_attention_inputs(B, T, H, D, dtype, device)
+    if variant == "packed":
+        return qkv, qb, key_bias
+    return (qkv + qb).view(B, T, H, 3, D).permute(0, 3, 2, 1, 4).contiguous(), None, key_bias
+
+
+@pytest.mark.parametrize("T", [37, 228, "limit"])
+@pytest.mark.parametrize("D", [8, 16, 26, 32])
+@pytest.mark.parametrize("dtype", SMALL_DTYPES, ids=str)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("variant", ["packed", "heads_major"])
+def test_small_forward_matches_plain(cuda, variant, dtype, D, T, rate):
+    """K1 and K11 at head dims up to 32 run on their "D16" / "D32" forms
+    (heads of 16 and 32 in place, 8 and 26 zero-padded to them), counted by
+    attention_form, against their plain versions within bf16's limits (out,
+    and the fp32 stats within 1e-4), at T = 37, 228 and the path's largest
+    T (the backward's limit, past the D = 64 forms' 704); two calls give the
+    same bits, and the kernel keeps every value in registers."""
+    lib = _build.library()
+    dp = fa.kernel_head_dim(D)
+    if T == "limit":
+        T = t_limit(getattr(lib, SMALL_FWD[variant][2]), dp)
+        assert T > 704
+    B, H = (2, 3) if T <= 228 else (1, 2)
+    x, qb, key_bias = small_fwd_inputs(variant, B, T, H, D, dtype, cuda)
+    fn = getattr(fa, SMALL_FWD[variant][0])
+    form = fa.attention_form(dtype, D)
+    before = fn.forms.get(form, 0)
+    runs = [small_fwd_run(variant, x, qb, key_bias, H, rate, 99) for _ in range(2)]
+    out_r, stats_r = small_fwd_run(variant, x, qb, key_bias, H, rate, 99, plain=True)
+    torch.cuda.synchronize()
+    (out, stats), (out2, stats2) = runs
+    assert form == f"{'bf16' if dtype == torch.bfloat16 else 'fp16'} D{dp}" and dp == (16 if D <= 16 else 32)
+    assert fn.forms[form] == before + 2
+    assert out.dtype == dtype and out.shape == out_r.shape and stats.shape == stats_r.shape
+    assert rel_err(out, out_r) < REL_TOL
+    assert float((stats - stats_r).abs().max()) < STATS_ATOL
+    assert torch.equal(out, out2) and torch.equal(stats, stats2)
+    info = getattr(lib, SMALL_FWD[variant][3])
+    code = 0 if dtype == torch.bfloat16 else 1
+    regs, local, smem, per_sm = (info(code, dp, 0, w, T) for w in range(4))
+    assert 0 < regs <= 255 and local == 0 and per_sm >= 1, (regs, local, per_sm)
+
+
+@pytest.mark.parametrize("dtype", SMALL_DTYPES, ids=str)
+@pytest.mark.parametrize("variant", ["packed", "heads_major"])
+def test_small_forward_refuses_past_the_path_limit(cuda, variant, dtype):
+    """One T past the path's limit at dh 16 and 32 (the backward's, which
+    the forward's check takes as the largest of the three kernels') is
+    refused by the forward with that limit named."""
+    lib = _build.library()
+    for dp in (16, 32):
+        limit = t_limit(getattr(lib, SMALL_FWD[variant][2]), dp)
+        x, qb, key_bias = small_fwd_inputs(variant, 1, limit + 1, 1, dp, dtype, cuda)
+        with pytest.raises(ValueError, match=f"T up to {limit}"):
+            small_fwd_run(variant, x, qb, key_bias, 1, 0.0, 0)
 
 
 @pytest.mark.parametrize("T", [37, 228])

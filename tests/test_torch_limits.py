@@ -165,12 +165,11 @@ def longest_t(dp):
 @pytest.mark.parametrize("variant", ["heads_major", "save_probs"])
 def test_the_variant_backwards_refuse_t_at_their_own_head_dim(monkeypatch, variant, D, dp, dtype):
     """Below 33 the backwards K12 and K14 check T against their small-row
-    form's shared memory (head dim 16 or 32) and name that form's limit; the
-    heads-major forward K11 checks it against the D = 64 form's, a shorter
-    limit that bounds that path as a whole, while the save-probs forward K13
-    runs on its own small-row form and checks the same head dim as K14 (the
-    save-probs path is bounded by the two together). The wrappers are made to
-    take CPU tensors for CUDA ones; each refuses before it would launch."""
+    form's shared memory (head dim 16 or 32) and name that form's limit; so
+    do the forwards K11 and K13, which run on small-row forms of their own
+    at the same head dim (each path is bounded by its three kernels
+    together). The wrappers are made to take CPU tensors for CUDA ones; each
+    refuses before it would launch."""
     lib = SmemQueries()
     monkeypatch.setattr(fa._build, "library", lambda: lib)
     monkeypatch.setattr(fa, "_on_cuda", lambda what, x: True)
@@ -190,7 +189,7 @@ def test_the_variant_backwards_refuse_t_at_their_own_head_dim(monkeypatch, varia
         bwd()
     assert set(lib.asked) == {dp}
     lib.asked.clear()
-    fwd_dp = 64 if variant == "heads_major" else dp
+    fwd_dp = dp
     with pytest.raises(ValueError, match=f"takes T up to {longest_t(fwd_dp)}$"):
         fwd()
     assert set(lib.asked) == {fwd_dp} and longest_t(64) < longest_t(dp)
@@ -243,11 +242,16 @@ class PackedQueries:
     """A stand-in for the packed kernels' shared-memory queries: K1's
     forward grows with T (4 * dp bytes a row of T), K2's two passes at head
     dim 128 (the streamed ones) hold a fixed STREAMED_BYTES whatever T, and
-    at the other head dims grow as the forward does."""
+    at the other head dims grow as the forward does; each head dim asked
+    recorded."""
 
     STREAMED_BYTES = 207944
 
+    def __init__(self):
+        self.asked = []
+
     def _bytes(self, dp, k, t):
+        self.asked.append(dp)
         if k > 0 and dp == fa.STREAMED_HEAD_DIM:
             return self.STREAMED_BYTES
         return 4 * dp * t
@@ -296,7 +300,9 @@ def test_k2_at_head_dim_128_refuses_no_t_and_k1_names_its_limit(monkeypatch, D, 
 @pytest.mark.parametrize("D,dp", [(16, 16), (26, 32), (64, 64)])
 def test_k2_below_128_keeps_its_limit(monkeypatch, D, dp):
     """Below 128 K2's passes hold a head's rows as before: one T past their
-    limit is refused with it named."""
+    limit is refused with it named. K1's forward asks the same head dim (at
+    16 and 32 its own small-row form, no longer 64) and names the same
+    limit."""
     lib = PackedQueries()
     monkeypatch.setattr(fa._build, "library", lambda: lib)
     monkeypatch.setattr(fa, "_on_cuda", lambda what, x: True)
@@ -306,3 +312,86 @@ def test_k2_below_128_keeps_its_limit(monkeypatch, D, dp):
     dout = torch.zeros((1, T, H * D), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=f"backward \\(K2\\).*takes T up to {T - 1}$"):
         fa.packed_attention_bwd(qkv, qb, torch.zeros((1, T)), dout, dout, torch.zeros((1, H, T)), H, 0.0, 0)
+    assert set(lib.asked) == {dp}
+    lib.asked.clear()
+    with pytest.raises(ValueError, match=f"forward \\(K1\\).*takes T up to {T - 1}$"):
+        fa.packed_attention_fwd(qkv, qb, torch.zeros((1, T)), H, 0.0, 0)
+    assert set(lib.asked) == {dp}
+
+
+def round_up(t, m=64):
+    return -(-t // m) * m
+
+
+class SourceBytes:
+    """A stand-in for the shared-memory queries that computes each kernel's
+    dynamic shared memory as its source does (fwd_bytes, dq_bytes,
+    dkv_bytes of csrc/flash_attention_packed.cu and csrc/flash_attention.cu
+    at head dims 16 and 32: a 1 KB alignment pad, 64-row tiles of 2 dp
+    bytes a row, K and V rows of all Tp = T rounded up to 64 keys, fp32
+    rows of Tp and, in K2's passes, the bias-gradient column sums)."""
+
+    def _packed(self, dp, k, t):
+        tp, tile = round_up(t), 64 * 2 * dp
+        if k == 0:
+            return 1024 + 2 * tile + 2 * tp * 2 * dp + 4 * tp
+        return 1024 + 4 * tile + 2 * tp * 2 * dp + 4 * (3 * tp + (4 if k == 1 else 8) * dp)
+
+    def _hm(self, dp, k, t):
+        tp, tile = round_up(t), 64 * 2 * dp
+        if k == 0:
+            return 1024 + 2 * tile + 2 * tp * 2 * dp + 4 * tp
+        return 1024 + 4 * tile + 2 * tp * 2 * dp + 4 * 3 * tp
+
+    def vb_attn_packed_x_smem_bytes(self, dp, t):
+        return max(self._packed(dp, k, t) for k in range(3))
+
+    def vb_attn_packed_x_info(self, code, dp, k, what, t):
+        assert what == 2
+        return self._packed(dp, k, t)
+
+    def vb_attn_hm_x_smem_bytes(self, dp, t):
+        return max(self._hm(dp, k, t) for k in range(3))
+
+
+# the backwards' limits at head dims 16 and 32 (K2's passes, K12's passes):
+# with the forwards on their own small-row forms these bound the two paths
+SMALL_PATH_LIMITS = {("packed", 16): 2880, ("packed", 32): 1472, ("heads_major", 16): 2880,
+                     ("heads_major", 32): 1536}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("D,dp", [(16, 16), (26, 32), (32, 32)])
+@pytest.mark.parametrize("variant", ["packed", "heads_major"])
+def test_the_small_forwards_take_t_past_704_up_to_the_backwards_limit(monkeypatch, variant, D, dp, dtype):
+    """At head dims up to 32 the forwards K1 and K11 hold K and V rows of 2
+    dp bytes, so their own limit lies past their backward's; their checks
+    take the largest of the three kernels' bytes: T past the D = 64 forms'
+    704 runs up to the backward's limit (2880 / 1472 packed, 2880 / 1536
+    heads-major) and one T past it is refused with that limit named."""
+    lib = SourceBytes()
+    monkeypatch.setattr(fa._build, "library", lambda: lib)
+    monkeypatch.setattr(fa, "_on_cuda", lambda what, x: True)
+
+    def would_launch(*args):
+        raise WouldLaunch()
+
+    monkeypatch.setattr(fa, "packed_x_head_groups", would_launch)
+    monkeypatch.setattr(fa, "hm_x_head_groups", would_launch)
+    limit, H = SMALL_PATH_LIMITS[(variant, dp)], 2
+    fwd_alone = max(t for t in range(1, 4096) if (lib._packed if variant == "packed" else lib._hm)(dp, 0, t)
+                    <= fa.MAX_SMEM_BYTES)
+    assert fwd_alone > limit > 704
+
+    def forward(T):
+        key_bias = torch.zeros((1, T))
+        if variant == "packed":
+            qkv = torch.zeros((1, T, 3 * H * D), dtype=dtype)
+            return fa.packed_attention_fwd(qkv, qkv[0, 0], key_bias, H, 0.0, 0)
+        return fa.heads_major_attention_fwd(torch.zeros((1, 3, H, T, D), dtype=dtype), key_bias, 0.0, 0)
+
+    for T in (705, limit):
+        with pytest.raises(WouldLaunch):
+            forward(T)
+    with pytest.raises(ValueError, match=f"forward \\(K1?1\\).*takes T up to {limit}$"):
+        forward(limit + 1)

@@ -1,8 +1,8 @@
 """Head dims below 64 and K1/K11's fp32 forward order, on the CPU against
 the JAX package.
 
-K2 runs bf16 and fp16 heads of 16 and 32 on kernels of those head dims
-(``bwd_head_dim``; 26, TinyBERT-4's, padded to 32), and K1/K11's fp32
+K1/K2 run bf16 and fp16 heads of 16 and 32 on kernels of those head dims
+(``kernel_head_dim``; 26, TinyBERT-4's, padded to 32), and K1/K11's fp32
 forward walks the key tiles once with an online max and sum. On CPU tensors
 the wrappers run their plain versions, which are held here against the JAX
 op (its Pallas kernel in interpret mode) at head dims 26 and 32 in fp32 and
@@ -63,7 +63,7 @@ def inputs(seed, B, T, H, D):
 def test_small_heads_match_jax(dtype, D):
     """out, dqkv and the qkv-bias gradient of flash_attention_packed (the
     plain K1/K2) against the JAX op at a small head dim, dropout off; the
-    backward's form there is K2's unpadded "D32" (fp16) or fp32."""
+    pair's form there is the unpadded "D32" (fp16) or fp32."""
     B, T, H = 2, 37, 3
     qkv, qb, bias, dout = inputs(D, B, T, H, D)
     jd = jnp.dtype(dtype)
@@ -79,7 +79,7 @@ def test_small_heads_match_jax(dtype, D):
     b = torch.tensor(qb).to(td).requires_grad_(True)
     out_t = fa.flash_attention_packed(x, H, torch.tensor(bias), qkv_bias=b)
     out_t.backward(torch.tensor(dout).to(td))
-    assert fa.bwd_attention_form(td, D) == ("fp32" if dtype == "float32" else "fp16 D32")
+    assert fa.attention_form(td, D) == ("fp32" if dtype == "float32" else "fp16 D32")
     assert_close(out_t.detach().float().numpy(), out_j, dtype, "out")
     assert_close(x.grad.float().numpy(), dx_j, dtype, "dqkv")
     assert_close(b.grad.float().numpy(), db_j, dtype, "dqkv_bias")

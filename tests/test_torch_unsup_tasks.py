@@ -263,3 +263,23 @@ def test_main_path_ab_reports_a_failed_tree(tmp_path):
 
     with pytest.raises(SystemExit, match="failed"):
         main_path_ab.run_tree(str(tmp_path))
+
+
+@pytest.mark.parametrize("args,match", [(["tmp/parent"], "tinybert_ab: needs a CUDA device"), ([], "usage"),
+                                        (["a", "b"], "usage")])
+def test_tinybert_ab_runs_only_on_the_card(monkeypatch, args, match):
+    """tools/tinybert_ab.py, which holds phase 27's TinyBERT-4 runs of this
+    tree against another checkout's, refuses without a card or with other
+    than one checkout; its child is Python that names the three TinyBERT-4
+    geometries of chip_smoke.py."""
+    import torch
+
+    import chip_smoke
+    from visualbert_torch.tools import tinybert_ab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match=match):
+        tinybert_ab.main(args)
+    compile(tinybert_ab.CHILD, "tinybert_ab", "exec")
+    assert sum(g[0].startswith("TinyBERT-4") for g in chip_smoke.GEOMETRIES) == 3
+    assert tinybert_ab.EXAMPLES % 128 == 0

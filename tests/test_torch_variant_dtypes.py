@@ -28,11 +28,9 @@ two frameworks round an intermediate at another place); the LayerNorm's
 bf16 outputs within one bf16 ulp at |v| < 4 (atol 1/64) and its fp32
 gradients at ``tests/test_torch_layer_norm.py``'s 2e-4 / 1e-3. The
 zero-padding the bf16 and fp16 kernels take (``pad_heads_major``,
-``pad_heads``, D = 8, 16, 32, 96 to 64 or 128; the backwards' and K13's 8
-to 16 and 26 to 32) is held to the unpadded plain version at dropout 0 and
-0.1, the forward K11 counts its forms by ``attention_form``, K13 by
-``sp_attention_form`` and the backwards K12/K14 by ``bwd_attention_form``,
-``pack_bits`` / ``unpack_bits`` round
+``pad_heads``, D = 8, 16, 32, 96 to 64 or 128; 8 to 16 and 26 to 32) is
+held to the unpadded plain version at dropout 0 and 0.1, K11-K14 count
+their forms by ``attention_form``, ``pack_bits`` / ``unpack_bits`` round
 trip at widths no multiple of 8, and ``tiny()`` with ``packed_qkv: false``
 or ``flash_save_probs: true`` and the other kernel flags on matches the JAX
 model on the same exported weights. The kernels themselves are tested on
@@ -210,7 +208,7 @@ def test_padded_save_probs_heads_give_the_unpadded_attention(D, dp, rate):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("dtype,D,form", [("bfloat16", 64, "bf16 D64"), ("float16", 16, "fp16 D64"),
+@pytest.mark.parametrize("dtype,D,form", [("bfloat16", 64, "bf16 D64"), ("float16", 16, "fp16 D16"),
                                           ("bfloat16", 96, "bf16 D128"), ("float32", 7, "fp32")])
 def test_each_variant_form_is_named_and_padded_to_its_kernel(dtype, D, form):
     assert fa.attention_form(getattr(torch, dtype), D) == form
@@ -222,17 +220,12 @@ def test_each_variant_form_is_named_and_padded_to_its_kernel(dtype, D, form):
 @pytest.mark.parametrize("dtype,name", [("bfloat16", "bf16"), ("float16", "fp16")])
 @pytest.mark.parametrize("D,dp", [(8, 16), (16, 16), (26, 32), (32, 32)])
 def test_the_variant_backwards_have_their_own_forms_below_64(dtype, name, D, dp):
-    """Below 64 the backwards K12 and K14 run on their small-row forms
-    (heads of 16 and 32 in place, 8 and 26 padded to 16 and 32), counted by
-    bwd_attention_form, and so does the save-probs forward K13, counted by
-    sp_attention_form, while the heads-major forward K11 keeps the D = 64
-    form (attention_form); fp32 is one form for all."""
+    """Below 64 K11-K14, forwards and backwards, run on their small-row
+    forms (heads of 16 and 32 in place, 8 and 26 padded to 16 and 32), all
+    counted by attention_form; fp32 is one form for all."""
     td = getattr(torch, dtype)
-    assert fa.bwd_head_dim(D) == dp and fa.bwd_attention_form(td, D) == f"{name} D{dp}"
-    assert fa.sp_attention_form(td, D) == f"{name} D{dp}"
-    assert fa.kernel_head_dim(D) == 64 and fa.attention_form(td, D) == f"{name} D64"
-    assert fa.bwd_attention_form(torch.float32, D) == fa.attention_form(torch.float32, D) == "fp32"
-    assert fa.sp_attention_form(torch.float32, D) == "fp32"
+    assert fa.kernel_head_dim(D) == dp and fa.attention_form(td, D) == f"{name} D{dp}"
+    assert fa.attention_form(torch.float32, D) == "fp32"
     x = torch.zeros((1, 3, 2, 5, D))
     assert fa.pad_heads_major(x, dp).shape == (1, 3, 2, 5, dp)
     assert fa.pad_heads(torch.zeros((1, 5, 3 * 2 * D)), 2, 3, dp).shape == (1, 5, 3 * 2 * dp)
@@ -242,13 +235,12 @@ def test_the_variant_backwards_have_their_own_forms_below_64(dtype, name, D, dp)
 @pytest.mark.parametrize("dtype,name", [("bfloat16", "bf16"), ("float16", "fp16")])
 def test_the_save_probs_forward_has_its_own_forms(dtype, name, D):
     """K13 runs bf16 and fp16 heads of 16 and 32 in place and pads a head
-    dim to the next of 16, 32, 64, 128, as K14 does (sp_attention_form, the
-    head dim K13's wrapper pads to); K1 and K11 (attention_form) keep
-    padding to 64 below 64."""
+    dim to the next of 16, 32, 64, 128 (kernel_head_dim, the head dim its
+    wrapper pads to), as K1, K2, K11, K12 and K14 do: one form name for
+    all (attention_form)."""
     td = getattr(torch, dtype)
     dp = 16 if D <= 16 else 32 if D <= 32 else 64 if D <= 64 else 128
-    assert fa.sp_attention_form(td, D) == fa.bwd_attention_form(td, D) == f"{name} D{dp}"
-    assert fa.attention_form(td, D) == f"{name} D{64 if D <= 64 else 128}"
+    assert fa.kernel_head_dim(D) == dp and fa.attention_form(td, D) == f"{name} D{dp}"
     qkv = torch.arange(2 * 5 * 3 * 2 * D, dtype=torch.float32).reshape(2, 5, 3 * 2 * D).to(td)
     padded = fa.pad_heads(qkv, 2, 3, dp)
     assert padded.shape == (2, 5, 3 * 2 * dp) and torch.equal(fa.unpad_heads(padded, 2, 3, D), qkv)

@@ -25,7 +25,9 @@
 // 989 TFLOP/s, and with dropout on Philox's integer work, about 0.12 ms of
 // the card's 32-bit multiply rate per pass that regenerates the mask.
 //
-// The design is K1/K2's, steps 1-4 of flash_attention_packed.cu, on
+// The design follows K1/K2's list of steps (flash_attention_packed.cu),
+// numbered as there; step 7, K2's streamed passes at 128, is K2's alone.
+// 1-4. K1/K2's steps 1-4, on
 // hopper_attn.cuh's building blocks: one warpgroup a block owns one batch
 // row x hg heads and loads each head's K and V (Q and dO in the dK/dV pass)
 // once, walking every 64-row tile; Philox once per 2x2 block, shared by lane
@@ -38,10 +40,10 @@
 // H100: the dK/dV pass 248 registers instead of 250, K1 at dropout 0 2-3 %
 // slower).
 //
-// Element types and head dims (K1/K2's step 5): the bodies are templates on
-// the element type E (bf16 or fp16) and the head dim DH (64 or 128), on
-// hopper_attn.cuh's Tile<DH> and *_t helpers; the wrapper zero-pads a
-// smaller head dim to the next ([B, 3, H, T, D] -> [..., DH]) and passes the
+// 5. Element types and head dims (K1/K2's step 5): the bodies are templates on
+// the element type E (bf16 or fp16) and the head dim DH (16, 32, 64 or 128),
+// on hopper_attn.cuh's Tile<DH> and *_t helpers; the wrapper zero-pads a
+// head dim to the next of them ([B, 3, H, T, D] -> [..., DH]) and passes the
 // unpadded D's softmax scale. FIXED instantiates bf16 at DH = 64 with the
 // scale 1 / 8 a constant, and at bf16, DH = 64 the bodies call the helpers
 // they called before the templates (hopper_attn.cuh's *_v): the main
@@ -50,14 +52,28 @@
 // forms (vb_attn_hm_x_*) take the scale as an argument. fp32 runs
 // flash_attention_f32.cu's SIMT kernels on this layout's strides.
 //
-// K12 at head dims 16 and 32 (bf16, fp16), unpadded, as K2's step 6
+// 6. K12 at head dims 16 and 32 (bf16, fp16), unpadded, as K2's step 6
 // (flash_attention_packed.cu): the same two pass bodies on hopper_attn.cuh's
 // small-row tiles (a heads-major row of 16 or 32 elements is 32 or 64
 // contiguous bytes, one row of the 32 B or 64 B swizzle), S and dP in D /
 // 16 k-steps, dQ, dK and dV m64n16k16 or m64n32k16 with D / 2 accumulators
 // a thread. The wrapper pads a head dim below 16 to 16 and one in (16, 32)
-// to 32 (ops/flash_attention.py::bwd_head_dim); K11 keeps its D = 64 route
-// there, so no forward is built at these head dims.
+// to 32 (ops/flash_attention.py::kernel_head_dim).
+//
+// 8. K11 at head dims 16 and 32 (bf16, fp16), unpadded, as K1's step 8
+//    (flash_attention_packed.cu): the forward body on the small-row tiles,
+//    S = QK^T in D / 16 k-steps, O += P_d V m64n16k16 or m64n32k16 into D /
+//    2 accumulators a thread. As there, O is rescaled by alpha in a loop of
+//    its own over its D / 8 n-tiles (hopper_attn.cuh::rescale_s; indexed by
+//    S's 8 n-tiles it would run past the array into local memory), each row
+//    is stored with its own inv / l (store_rows_s), and a head's K and V
+//    rows take 2 D bytes each: T reaches about 3,300 at D = 16 and 1,660 at
+//    D = 32, past K12's 2880 / 1536, which now bound the heads-major path
+//    at these head dims (the wrapper checks the largest of the three
+//    kernels' bytes). Padded to 64, K11 ran 4 k-steps of QK^T, m64n64 of P_d
+//    V over zero columns and 128 B rows, and the wrapper padded qkv and cut
+//    the output. A heads-major row of 16 or 32 elements is 32 or 64
+//    contiguous bytes, so a 64-row tile is one contiguous run, as at D = 64.
 #include "hopper_attn.cuh"
 
 namespace {
@@ -135,7 +151,7 @@ hm_fwd_kernel(const E* __restrict__ qkv, const float* __restrict__ key_bias, E* 
         __syncthreads();
       }
       const int row[2] = {qt * TILE + warp * 16 + g, qt * TILE + warp * 16 + g + 8};
-      float o[NP][32];
+      float o[NP][L::NA];
       zero_t(o);
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
@@ -173,12 +189,15 @@ hm_fwd_kernel(const E* __restrict__ qkv, const float* __restrict__ key_bias, E* 
           m[r] = mnew[r];
           l[r] *= alpha[r];
         }
+        if constexpr (L::SMALL) rescale_s<DH>(o[0], alpha);  // step 8: O's D / 8 n-tiles, not S's 8
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
+            if constexpr (!L::SMALL) {
 #pragma unroll
-            for (int p = 0; p < NP; ++p) o[p][4 * nt + e] *= alpha[e >> 1];
+              for (int p = 0; p < NP; ++p) o[p][4 * nt + e] *= alpha[e >> 1];
+            }
             const float pr = exp2f(s[4 * nt + e] - mnew[e >> 1]);
             l[e >> 1] += pr;
             s[4 * nt + e] = pr;
@@ -214,18 +233,22 @@ hm_fwd_kernel(const E* __restrict__ qkv, const float* __restrict__ key_bias, E* 
         ok[r] = row[r] < T;
       }
       E* ob = out + out_off<DH>(b, h, T, H);
+      if constexpr (L::SMALL) {
+        store_rows_s<E, DH>(ob, o[0], sc, row[0], row[1], ok[0], ok[1], DH, tq);
+      } else {
 #pragma unroll
-      for (int p = 0; p < NP; ++p)
+        for (int p = 0; p < NP; ++p)
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int c = p * 64 + nt * 8 + 2 * tq;
-          if (ok[0])
-            *reinterpret_cast<uint32_t*>(ob + (size_t)row[0] * DH + c) =
-                vb::Elem<E>::pack(o[p][4 * nt] * sc[0], o[p][4 * nt + 1] * sc[0]);
-          if (ok[1])
-            *reinterpret_cast<uint32_t*>(ob + (size_t)row[1] * DH + c) =
-                vb::Elem<E>::pack(o[p][4 * nt + 2] * sc[1], o[p][4 * nt + 3] * sc[1]);
-        }
+          for (int nt = 0; nt < 8; ++nt) {
+            const int c = p * 64 + nt * 8 + 2 * tq;
+            if (ok[0])
+              *reinterpret_cast<uint32_t*>(ob + (size_t)row[0] * DH + c) =
+                  vb::Elem<E>::pack(o[p][4 * nt] * sc[0], o[p][4 * nt + 1] * sc[0]);
+            if (ok[1])
+              *reinterpret_cast<uint32_t*>(ob + (size_t)row[1] * DH + c) =
+                  vb::Elem<E>::pack(o[p][4 * nt + 2] * sc[1], o[p][4 * nt + 3] * sc[1]);
+          }
+      }
       if (tq == 0) {
 #pragma unroll
         for (int r = 0; r < 2; ++r)
@@ -477,16 +500,10 @@ hm_dkv_kernel(const E* __restrict__ qkv, const float* __restrict__ key_bias, con
 
 // ---------------------------------------------------------------- launches
 
-// Head dims 16 and 32 have K12's two passes and no forward (K11 runs them
-// zero-padded to 64): kernel 0 is nullptr there, its bytes 0.
 template <typename E, int DH, bool FIXED>
 const void* kernel_of(int which) {
   switch (which) {
-    case 0:
-      if constexpr (Tile<DH>::SMALL)
-        return nullptr;
-      else
-        return (const void*)hm_fwd_kernel<E, DH, FIXED>;
+    case 0: return (const void*)hm_fwd_kernel<E, DH, FIXED>;
     case 1: return (const void*)hm_dq_kernel<E, DH, FIXED>;
     case 2: return (const void*)hm_dkv_kernel<E, DH, FIXED>;
     default: return nullptr;
@@ -495,13 +512,7 @@ const void* kernel_of(int which) {
 
 template <int DH>
 size_t bytes_of(int which, int T) {
-  if (which == 0) {
-    if constexpr (Tile<DH>::SMALL)
-      return 0;
-    else
-      return fwd_bytes<DH>(T);
-  }
-  return which == 1 ? dq_bytes<DH>(T) : dkv_bytes<DH>(T);
+  return which == 0 ? fwd_bytes<DH>(T) : which == 1 ? dq_bytes<DH>(T) : dkv_bytes<DH>(T);
 }
 
 template <int DH>
@@ -608,11 +619,10 @@ extern "C" int vb_attn_hm_bwd(const void* qkv, const void* key_bias, const void*
                                     threshold, inv, dropout, 0.125f, static_cast<cudaStream_t>(stream));
 }
 
-// Every other form: dtype 0 bf16, 1 fp16; dh the kernel's head dim, 64 or
-// 128 (the caller zero-pads the heads to it); scale the softmax scale of the
-// unpadded head dim. The largest dynamic shared memory of the three kernels
-// at dh and T (0 for a dh not built). dh 16 and 32 build K12's two passes
-// only: their forward's info is -1 and vb_attn_hm_x_fwd refuses them.
+// Every other form: dtype 0 bf16, 1 fp16; dh the kernel's head dim, 16, 32,
+// 64 or 128 (the caller zero-pads the heads to it); scale the softmax scale
+// of the unpadded head dim. The largest dynamic shared memory of the three
+// kernels at dh and T (0 for a dh not built).
 extern "C" size_t vb_attn_hm_x_smem_bytes(int dh, int T) {
   switch (dh) {
     case 16: return smem_bytes<16>(T);
@@ -640,6 +650,10 @@ extern "C" int vb_attn_hm_x_fwd(const void* qkv, const void* key_bias, void* out
     case 1: return VB_FWD(bf16, 128);
     case 2: return VB_FWD(__half, 64);
     case 3: return VB_FWD(__half, 128);
+    case 4: return VB_FWD(bf16, 16);
+    case 5: return VB_FWD(bf16, 32);
+    case 6: return VB_FWD(__half, 16);
+    case 7: return VB_FWD(__half, 32);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef VB_FWD

@@ -63,8 +63,9 @@
 //    as the JAX kernel's p.astype(x.dtype)) and the head dim DH (64 or 128:
 //    a row is DH / 64 swizzled 128 B panels, every product loops over them,
 //    and the accumulators of O, dQ, dK and dV are DH / 64 m64n64 tiles).
-//    The wrapper zero-pads a head dim below 64 to 64 and one in (64, 128)
-//    to 128 (ops/flash_attention.py::pad_heads) and passes the softmax
+//    The wrapper zero-pads a head dim in (32, 64) to 64 and one in (64,
+//    128) to 128 (ops/flash_attention.py::pad_heads; below 32, steps 6 and
+//    8) and passes the softmax
 //    scale 1 / sqrt(D) of the unpadded D: zero columns add nothing to QK^T
 //    and give zero output columns, and the dropout bits are indexed by (b,
 //    h, i, j), not by D. At DH = 128 K1's K/V row takes 512 B of shared
@@ -85,8 +86,8 @@
 //    thread; the wrapper pads a D below 16 to 16 and one in (16, 32) to 32.
 //    Smaller rows and registers fit more blocks an SM, and the T limit
 //    rises. The Philox draw of each pass (about 0.11 ms at the main path's
-//    shapes) does not shrink with D. K1 keeps its D = 64 route at these
-//    head dims; vb_attn_packed_x_probe runs one product of each kind alone.
+//    shapes) does not shrink with D. vb_attn_packed_x_probe runs one product
+//    of each kind alone.
 // 7. The backward at head dim 128 (bf16, fp16), streamed through two
 //    warpgroups. Held as steps 1-5 hold it, a pair's K and V (Q and dO) took 2
 //    Tp x 256 B of shared memory, about 200 KB at T = 228: one 4-warp block an
@@ -125,6 +126,37 @@
 //    db_part [B, cdiv(T, 128), H*3*D] (vb_attn_packed_x_bias_rows), which the
 //    caller sums in a fixed order; Philox stays once per 2x2 block, key-major
 //    in the dK/dV pass.
+// 8. The forward at head dims 16 and 32 (bf16, fp16), unpadded, as step 6
+//    made the backward. Padded to 64, K1 ran QK^T in 4 k-steps where D / 16
+//    do, O += P_d V as m64n64 over zero columns where m64nD does, held K and
+//    V rows of 128 B where 2 D bytes do, and the wrapper padded qkv and qb
+//    and cut the output on every call. The body is the same one on the
+//    small-row tiles: S = QK^T in D / 16 k-steps (64 keys wide whatever D,
+//    so the softmax, Philox and P's register fragments do not change), O +=
+//    P_d V m64n16k16 or m64n32k16 into D / 2 fp32 accumulators a thread.
+//    Where it differs, and why:
+//    - The online softmax. The body makes one pass over the keys and
+//      rescales O by alpha = exp2(m_old - m_new) as each key tile raises a
+//      row's max; at D = 64 that multiply rides in the loop over S's 8
+//      n-tiles (O has 8 too), but at D / 2 accumulators O has D / 8, so
+//      there it is a loop of its own over them (hopper_attn.cuh::rescale_s,
+//      the row of element i being (i >> 1) & 1). Indexed by S's n-tiles it
+//      would run past the array and land O in local memory: the card tests
+//      and chip_smoke.py hold the forms' local bytes to 0.
+//    - The epilogue stores D / 8 n-tiles a row, each row scaled by its own
+//      inv / l (store_rows_s).
+//    - The deferred bias: issue_tile_s and add_bias_s walk a tile's 32 B or
+//      64 B rows in the same order (chunk idx % CH of row idx / CH, idx =
+//      threadIdx.x + k * 128), and 128 is a multiple of CH, so the thread
+//      that adds a chunk's bias (bias_chunk_t: chunk threadIdx.x % CH) is
+//      the one whose cp.async copied it, and the first Q tile's add waits
+//      on its own group as at D = 64 (the group order does not depend on D).
+//    - Shared memory: 2 Tp (2 D) + 4 Tp bytes and two Q tiles, so T reaches
+//      about 3,300 at D = 16 and 1,660 at D = 32; the backward's passes
+//      (2880 / 1472) now bound the packed path at these head dims, and the
+//      wrapper checks the largest of the three kernels' bytes. Fewer bytes
+//      and registers also fit more blocks an SM, so head_group picks other
+//      head groups than at D = 64.
 // tools/attn_steps.py builds this source again with step 2 or step 3 left
 // out (-DVB_PACKED_PHILOX_PER_ROW, -DVB_PACKED_SYNC_LOADS, switches of that
 // header) and times each build beside this one; the library never defines
@@ -194,7 +226,7 @@ packed_fwd_kernel(const E* __restrict__ qkv, const E* __restrict__ qb, const flo
         __syncthreads();
       }
       const int row[2] = {qt * TILE + warp * 16 + g, qt * TILE + warp * 16 + g + 8};
-      float o[NP][32];
+      float o[NP][L::NA];
       zero_t(o);
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
@@ -235,12 +267,15 @@ packed_fwd_kernel(const E* __restrict__ qkv, const E* __restrict__ qb, const flo
           m[r] = mnew[r];
           l[r] *= alpha[r];
         }
+        if constexpr (L::SMALL) rescale_s<DH>(o[0], alpha);  // step 8: O's D / 8 n-tiles, not S's 8
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
+            if constexpr (!L::SMALL) {
 #pragma unroll
-            for (int p = 0; p < NP; ++p) o[p][4 * nt + e] *= alpha[e >> 1];
+              for (int p = 0; p < NP; ++p) o[p][4 * nt + e] *= alpha[e >> 1];
+            }
             const float pr = exp2f(s[4 * nt + e] - mnew[e >> 1]);
             l[e >> 1] += pr;
             s[4 * nt + e] = pr;
@@ -276,18 +311,22 @@ packed_fwd_kernel(const E* __restrict__ qkv, const E* __restrict__ qb, const flo
         ok[r] = row[r] < T;
       }
       E* ob = out + (size_t)b * T * ldo + h * DH;
+      if constexpr (L::SMALL) {
+        store_rows_s<E, DH>(ob, o[0], sc, row[0], row[1], ok[0], ok[1], ldo, tq);
+      } else {
 #pragma unroll
-      for (int p = 0; p < NP; ++p)
+        for (int p = 0; p < NP; ++p)
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int c = p * 64 + nt * 8 + 2 * tq;
-          if (ok[0])
-            *reinterpret_cast<uint32_t*>(ob + (size_t)row[0] * ldo + c) =
-                vb::Elem<E>::pack(o[p][4 * nt] * sc[0], o[p][4 * nt + 1] * sc[0]);
-          if (ok[1])
-            *reinterpret_cast<uint32_t*>(ob + (size_t)row[1] * ldo + c) =
-                vb::Elem<E>::pack(o[p][4 * nt + 2] * sc[1], o[p][4 * nt + 3] * sc[1]);
-        }
+          for (int nt = 0; nt < 8; ++nt) {
+            const int c = p * 64 + nt * 8 + 2 * tq;
+            if (ok[0])
+              *reinterpret_cast<uint32_t*>(ob + (size_t)row[0] * ldo + c) =
+                  vb::Elem<E>::pack(o[p][4 * nt] * sc[0], o[p][4 * nt + 1] * sc[0]);
+            if (ok[1])
+              *reinterpret_cast<uint32_t*>(ob + (size_t)row[1] * ldo + c) =
+                  vb::Elem<E>::pack(o[p][4 * nt + 2] * sc[1], o[p][4 * nt + 3] * sc[1]);
+          }
+      }
       if (tq == 0) {
 #pragma unroll
         for (int r = 0; r < 2; ++r)
@@ -977,17 +1016,11 @@ int launch_streamed_bwd(const void* qkv, const void* qb, const void* key_bias, c
 
 // ---------------------------------------------------------------- launches
 
-// Head dims 16 and 32 have the backward's two passes and no forward (K1
-// runs them zero-padded to 64): kernel 0 is nullptr there, its bytes 0. At
-// 128 the backward's passes are the streamed kernels.
+// At 128 the backward's passes are the streamed kernels.
 template <typename E, int DH>
 const void* kernel_of(int which) {
   switch (which) {
-    case 0:
-      if constexpr (Tile<DH>::SMALL)
-        return nullptr;
-      else
-        return (const void*)packed_fwd_kernel<E, DH>;
+    case 0: return (const void*)packed_fwd_kernel<E, DH>;
     case 1:
       if constexpr (DH == SB_DH)
         return (const void*)streamed_dq_kernel<E>;
@@ -1004,12 +1037,7 @@ const void* kernel_of(int which) {
 
 template <int DH>
 size_t bytes_of(int which, int T) {
-  if (which == 0) {
-    if constexpr (Tile<DH>::SMALL)
-      return 0;
-    else
-      return fwd_bytes<DH>(T);
-  }
+  if (which == 0) return fwd_bytes<DH>(T);
   if constexpr (DH == SB_DH) return SB_BYTES;
   return which == 1 ? dq_bytes<DH>(T) : dkv_bytes<DH>(T);
 }
@@ -1193,10 +1221,9 @@ extern "C" int vb_attn_packed_bwd(const void* qkv, const void* qb, const void* k
 // Every form: dtype 0 bf16, 1 fp16; dh the kernel's head dim, 16, 32, 64 or
 // 128 (the caller zero-pads the heads to it); scale the softmax scale of
 // the unpadded head dim. The largest dynamic shared memory of the three
-// kernels at dh and T (0 for a dh not built). dh 16 and 32 build the
-// backward only: their forward's info is -1 and vb_attn_packed_x_fwd
-// refuses them. At 128 the backward's passes (step 7) take the same bytes
-// at every T and 384 threads a block; their hg arguments are not used.
+// kernels at dh and T (0 for a dh not built). At 128 the backward's passes
+// (step 7) take the same bytes at every T and 384 threads a block; their hg
+// arguments are not used.
 extern "C" size_t vb_attn_packed_x_smem_bytes(int dh, int T) {
   switch (dh) {
     case 16: return smem_bytes<16>(T);
@@ -1251,6 +1278,10 @@ extern "C" int vb_attn_packed_x_fwd(const void* qkv, const void* qb, const void*
     case 1: return VB_FWD(bf16, 128);
     case 2: return VB_FWD(__half, 64);
     case 3: return VB_FWD(__half, 128);
+    case 4: return VB_FWD(bf16, 16);
+    case 5: return VB_FWD(bf16, 32);
+    case 6: return VB_FWD(__half, 16);
+    case 7: return VB_FWD(__half, 32);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef VB_FWD

@@ -14,10 +14,10 @@
 // this header): a row of DH elements is DH / 64 panels of 128 B, each panel
 // of a tile the layout above, and wgmma's element type is the kernel's
 // (.f16 in place of .bf16, the same shapes and swizzle: both are 2 bytes).
-// The backwards K2, K12 and K14 and the save-probs forward K13 also take
-// head dims 16 and 32 on rows of their own size (the small-row tiles below,
-// in the 32 B and 64 B swizzles). K2 at DH = 128 streams its tiles through a
-// TMA ring into two warpgroups (the TMA rings at the end of this header).
+// Every bf16 and fp16 kernel of K1/K2 and K11-K14 also takes head dims 16
+// and 32 on rows of their own size (the small-row tiles below, in the 32 B
+// and 64 B swizzles). K2 at DH = 128 streams its tiles through a TMA ring
+// into two warpgroups (the TMA rings at the end of this header).
 //
 // Two switches leave a design step out for tools/attn_steps.py's builds;
 // the kernel library never defines either: VB_PACKED_SYNC_LOADS makes every
@@ -384,7 +384,7 @@ __device__ __forceinline__ void pair_delta(const bf16* __restrict__ dout, const 
 // rows x 128 B (each the 8 KB layout above), panel p at + p * TILE_BYTES;
 // chunk c of a row (c < DH / 8) lies in panel c / 8 at swz(r, c % 8). An
 // accumulator over DH output columns is NP 64 x 64 accumulators. At DH =
-// 16 and 32 (the backwards' small rows, the *_s helpers below) a tile is
+// 16 and 32 (the small rows, the *_s helpers below) a tile is
 // one panel of 32 or 64 B rows and an accumulator one 64 x DH tile of DH /
 // 2 floats a thread; the *_t helpers call the *_s ones there.
 
@@ -562,19 +562,31 @@ __device__ __forceinline__ void colsum_add_s(const float (&acc)[DH / 2], float s
   }
 }
 
+// The accumulator's rows row0 and row1 to dst in E, each times its own
+// scale (sc[0], sc[1]).
 template <typename E, int DH>
-__device__ __forceinline__ void store_rows_s(E* __restrict__ dst, const float (&acc)[DH / 2], float scale, int row0,
-                                             int row1, bool ok0, bool ok1, int ld, int tq) {
+__device__ __forceinline__ void store_rows_s(E* __restrict__ dst, const float (&acc)[DH / 2], const float (&sc)[2],
+                                             int row0, int row1, bool ok0, bool ok1, int ld, int tq) {
 #pragma unroll
   for (int nt = 0; nt < DH / 8; ++nt) {
     const int c = nt * 8 + 2 * tq;
     if (ok0)
       *reinterpret_cast<uint32_t*>(dst + (size_t)row0 * ld + c) =
-          vb::Elem<E>::pack(acc[4 * nt] * scale, acc[4 * nt + 1] * scale);
+          vb::Elem<E>::pack(acc[4 * nt] * sc[0], acc[4 * nt + 1] * sc[0]);
     if (ok1)
       *reinterpret_cast<uint32_t*>(dst + (size_t)row1 * ld + c) =
-          vb::Elem<E>::pack(acc[4 * nt + 2] * scale, acc[4 * nt + 3] * scale);
+          vb::Elem<E>::pack(acc[4 * nt + 2] * sc[1], acc[4 * nt + 3] * sc[1]);
   }
+}
+
+// The one-pass forwards' (K1, K11) online softmax on a small-row
+// accumulator: every value times its row's alpha (element i of a thread's
+// DH / 2 lies in its row (i >> 1) & 1: row0 or row1); their epilogue is
+// store_rows_s with each row's own scale (inv / l of that row).
+template <int DH>
+__device__ __forceinline__ void rescale_s(float (&acc)[DH / 2], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 }
 
 // S (64 x 64) = A B^T over DH: A and B 64-row tiles of DH at shared addresses.
@@ -723,7 +735,7 @@ template <typename E, int DH>
 __device__ __forceinline__ void store_rows_t(E* __restrict__ dst, const float (&acc)[Tile<DH>::NP][Tile<DH>::NA],
                                              float scale, int row0, int row1, bool ok0, bool ok1, int ld, int tq) {
   if constexpr (Tile<DH>::SMALL) {
-    store_rows_s<E, DH>(dst, acc[0], scale, row0, row1, ok0, ok1, ld, tq);
+    store_rows_s<E, DH>(dst, acc[0], {scale, scale}, row0, row1, ok0, ok1, ld, tq);
   } else {
 #pragma unroll
     for (int p = 0; p < Tile<DH>::NP; ++p)
@@ -780,10 +792,9 @@ __device__ __forceinline__ void pair_delta_t(const E* __restrict__ dout, const E
 // to_a, pair_delta, store_rows), so that form compiles to the machine code
 // it had; the *_t helpers (index arithmetic over DH / 8 chunks, loads
 // interleaved with the sums) compile to other code. Every other form calls
-// the *_t helpers; K12's and K14's passes and K13's forward also at DH = 16
-// and 32, where the accumulators are [1][DH / 2] (Tile<DH>::NA) and the *_t
-// helpers call the *_s ones. At DH >= 64 NA is 32: the types the helpers
-// took before.
+// the *_t helpers, also at DH = 16 and 32, where the accumulators are
+// [1][DH / 2] (Tile<DH>::NA) and the *_t helpers call the *_s ones. At DH >=
+// 64 NA is 32: the types the helpers took before.
 
 template <typename E, int DH>
 constexpr bool kMainForm = std::is_same<E, bf16>::value && DH == 64;
@@ -925,8 +936,8 @@ __device__ __forceinline__ uint4 bias_chunk_by(const E* __restrict__ qb, int h, 
 
 // The instantiation of K1/K2's, K11/K12's and K13/K14's bf16 and fp16
 // kernels of element type `dtype` (0 bf16, 1 fp16) and head dim dh (64, 128;
-// 16, 32 the backward only): 0 bf16/64, 1 bf16/128, 2 fp16/64, 3 fp16/128,
-// 4 bf16/16, 5 bf16/32, 6 fp16/16, 7 fp16/32; -1 for any other.
+// 16, 32 on small rows): 0 bf16/64, 1 bf16/128, 2 fp16/64, 3 fp16/128, 4
+// bf16/16, 5 bf16/32, 6 fp16/16, 7 fp16/32; -1 for any other.
 inline int attn_form(int dtype, int dh) {
   if (dtype != 0 && dtype != 1) return -1;
   switch (dh) {

@@ -43,11 +43,11 @@ step by step); on CUDA tensors they launch the kernels or raise.
 
 K1 and K2 take every dtype and head dim the JAX kernels take up to D = 128
 (the JAX wrapper asserts only ``F % 3H == 0``): bf16 and fp16 on the Hopper
-kernels, K1 instantiated at D = 64 and 128 and K2 also at 16 and 32 (rows
-of their own size, read in place; so are K12, K13 and K14), a head dim
+kernels, instantiated at D = 16, 32, 64 and 128 (HEAD_DIMS; at 16 and 32
+on rows of their own size, read in place; so are K11-K14), a head dim
 below an instantiation zero-padded to it (:func:`kernel_head_dim`,
-:func:`bwd_head_dim`, :func:`pad_heads`, :func:`unpad_heads`; exact, and the
-softmax scale stays 1/sqrt(D) of the unpadded D), and fp32 on the SIMT
+:func:`pad_heads`, :func:`unpad_heads`; exact, and the softmax scale stays
+1/sqrt(D) of the unpadded D), and fp32 on the SIMT
 kernels of ``flash_attention_f32.cu`` at any D <= 128 (all register-tiled,
 64-row tiles of a (batch row, head): K1/K11's forward in one pass over the
 keys, K13's in two, the backward of K2, K12 and K14; the bias gradient's
@@ -57,26 +57,24 @@ passes a block a (128 rows, head, batch row), the other operand streamed
 through a TMA ring into two consumer warpgroups: no head groups, no T
 limit (K1's forward bounds the packed path there), and its bias partials
 one row a (batch row, 128-row block) (:func:`packed_bias_rows`). K11-K14
-take the same dtypes and head dims: bf16 and fp16 on their Hopper kernels,
-instantiated at D = 64 and 128, the backwards K12 and K14 and the
-save-probs forward K13 also at 16 and 32 as K2 (the heads-major ``[B, 3,
-H, T, D]`` zero-padded to ``[..., Dp]`` by :func:`pad_heads_major`, the
-packed layout by :func:`pad_heads`; K11 at :func:`kernel_head_dim`, K12, K13
-and K14 at :func:`bwd_head_dim`), and fp32 on the SIMT kernels of
+take the same dtypes and head dims: bf16 and fp16 on their Hopper kernels
+at the same instantiations (the heads-major ``[B, 3, H, T, D]``
+zero-padded to ``[..., Dp]`` by :func:`pad_heads_major`, the packed layout
+by :func:`pad_heads`, Dp = :func:`kernel_head_dim` (D)), and fp32 on the SIMT kernels of
 ``flash_attention_f32.cu`` (K11/K12 on the heads-major strides, K13/K14 on
 save-probs kernels of their own); K13's probabilities are bf16 in every
 form. bf16 at D = 64, the main path's form, keeps its entry points
 (``vb_attn_hm_fwd``, ``vb_attn_sp_fwd``...), which tools launch on another
 tree's build; the other bf16 and fp16 forms go through ``vb_attn_hm_x_*``
 and ``vb_attn_sp_x_*`` with the dtype, head dim and scale. Each wrapper
-counts its launches in ``launches`` and, by form (:func:`attention_form`),
-in ``forms`` (K2, K12 and K14 by :func:`bwd_attention_form`, K13 by
-:func:`sp_attention_form`). The backwards' small forms take a longer T
-than the D = 64 forms (each wrapper checks its own shared memory), but a
-training step runs both: K1's and K11's limits (704 at D <= 64; at 128
-K1's 384 and K11/K12's 256) bound the packed and heads-major paths as a
-whole; the save-probs path at
-D <= 32 is bounded by the larger of K13's and K14's shared memory.
+counts its launches in ``launches`` and, by form (:func:`attention_form`:
+"bf16 D32", "fp16 D64", "fp32"...), in ``forms``. A training step runs a
+pair's forward and backward, so each forward's wrapper and K11-K14's
+backwards check T against the largest of their pair's three kernels'
+shared memory (K2 against its own passes', which at 128 take any T): at D
+<= 32 the backwards' passes bound every path (T up to 2880 / 1472 packed,
+2880 / 1536 heads-major, 3072 / 1536 save-probs at 16 / 32), at 64 the
+forwards (704), at 128 K1 (384) and K11/K12 (256).
 
 The dropout keep bit of probability (b, h, i, j) is a pure function of
 (seed, b, h, i, j) — see ``csrc/philox.cuh::attn_philox`` and its twin
@@ -103,8 +101,7 @@ from visualbert_torch.ops.philox import MASK32, keep_threshold, philox4x32_10
 
 LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIM = 64  # the bf16 main forms' head dim (K15/K16 take only it)
-PACKED_HEAD_DIMS = (64, 128)  # the bf16 and fp16 instantiations of K1/K2 and K11-K14
-BWD_HEAD_DIMS = (16, 32, 64, 128)  # K2's, K12's and K14's bf16 and fp16 instantiations: 16 and 32 on small rows
+HEAD_DIMS = (16, 32, 64, 128)  # the bf16 and fp16 instantiations of K1/K2 and K11-K14: 16 and 32 on small rows
 MAX_HEAD_DIM = 128  # K1/K2 and K11-K14 in every dtype
 STREAMED_HEAD_DIM = 128  # K2's passes there take a block a (128 rows, head, batch row) and no T limit
 PACKED_DTYPES = (torch.bfloat16, torch.float16, torch.float32)  # K1/K2 and K11-K14
@@ -113,33 +110,10 @@ MAX_SMEM_BYTES = 232448  # opt-in shared memory per block on sm_90
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim at which K1/K2's bf16 and fp16 kernels run heads of dim
-    d (<= MAX_HEAD_DIM): the smallest instantiation that holds it."""
-    return next(dp for dp in PACKED_HEAD_DIMS if d <= dp)
-
-
-def bwd_head_dim(d: int) -> int:
-    """The head dim at which the backwards' (K2, K12, K14) bf16 and fp16
-    kernels run heads of dim d (<= MAX_HEAD_DIM): the smallest of
-    BWD_HEAD_DIMS that holds it, so that heads of 16 and 32 run unpadded."""
-    return next(dp for dp in BWD_HEAD_DIMS if d <= dp)
-
-
-def bwd_attention_form(dtype, d: int) -> str:
-    """The kernel form the backwards K2, K12 and K14 run heads of dim d in
-    ``dtype`` on: "fp32" or "<dtype> D<bwd_head_dim(d)>" (the forwards K1
-    and K11: :func:`attention_form`; K13: :func:`sp_attention_form`)."""
-    if dtype == torch.float32:
-        return "fp32"
-    return f"{'bf16' if dtype == torch.bfloat16 else 'fp16'} D{bwd_head_dim(d)}"
-
-
-def sp_attention_form(dtype, d: int) -> str:
-    """The kernel form the save-probs forward K13 runs heads of dim d in
-    ``dtype`` on: K14's, since K13 is built at every head dim of
-    BWD_HEAD_DIMS too (heads of 16 and 32 in place, 8 padded to 16, 26 to
-    32); K1 and K11 keep :func:`attention_form`."""
-    return bwd_attention_form(dtype, d)
+    """The head dim at which the bf16 and fp16 kernels of K1/K2 and K11-K14
+    run heads of dim d (<= MAX_HEAD_DIM): the smallest of HEAD_DIMS that
+    holds it, so that heads of 16, 32, 64 and 128 run unpadded."""
+    return next(dp for dp in HEAD_DIMS if d <= dp)
 
 
 def pad_heads(x: torch.Tensor, n_heads: int, parts: int, dp: int) -> torch.Tensor:
@@ -175,10 +149,9 @@ def unpad_heads_major(x: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def attention_form(dtype, d: int) -> str:
-    """The kernel form the forwards K1 and K11 run heads of dim d in
-    ``dtype`` on: "fp32" (the SIMT kernels) or "<dtype> D<instantiated head
-    dim>" (the backwards: :func:`bwd_attention_form`; K13:
-    :func:`sp_attention_form`)."""
+    """The kernel form every attention kernel (K1/K2, K11-K14) runs heads of
+    dim d in ``dtype`` on: "fp32" (the SIMT kernels) or "<dtype>
+    D<kernel_head_dim(d)>"."""
     if dtype == torch.float32:
         return "fp32"
     return f"{'bf16' if dtype == torch.bfloat16 else 'fp16'} D{kernel_head_dim(d)}"
@@ -408,13 +381,13 @@ def _check_packed(what, qkv, key_bias, n_heads, *others, smem_fn, qb=None):
     return _check(what, lambda lib, t: getattr(lib, smem_fn)(t), T, key_bias, B, qkv, *others)
 
 
-def _check_packed_any(what, qkv, key_bias, n_heads, *others, qb, head_dim=kernel_head_dim, kernels=None):
+def _check_packed_any(what, qkv, key_bias, n_heads, *others, qb, kernels=None):
     """K1/K2's checks in every form: a dtype of PACKED_DTYPES, head dim up
     to MAX_HEAD_DIM, shapes, and (bf16, fp16) the shared memory of T at the
-    instantiated head dim ``head_dim(D)`` (K2: :func:`bwd_head_dim`): the
-    largest of the three kernels' (K1, whose forward bounds the packed
-    path), or of ``kernels`` (PACKED_KERNELS' indices; K2: its two
-    passes)."""
+    instantiated head dim :func:`kernel_head_dim` (D): the largest of the
+    three kernels' (K1: a step runs all three), or of ``kernels``
+    (PACKED_KERNELS' indices; K2: its two passes, which at
+    STREAMED_HEAD_DIM take any T)."""
     if qkv.dtype not in PACKED_DTYPES:
         raise ValueError(f"{what}: the kernels take bf16, fp16 or fp32 qkv, got {qkv.dtype}")
     B, T, F = qkv.shape
@@ -426,7 +399,7 @@ def _check_packed_any(what, qkv, key_bias, n_heads, *others, qb, head_dim=kernel
             raise ValueError(f"{what}: dout and out must be [{B}, {T}, {F // 3}] {qkv.dtype}")
     if qb.shape != (F,) or qb.dtype != qkv.dtype:
         raise ValueError(f"{what}: qkv_bias must be [{F}] {qkv.dtype}, got {tuple(qb.shape)} {qb.dtype}")
-    dp = head_dim(d)
+    dp = kernel_head_dim(d)
     if qkv.dtype == torch.float32:
         smem = None
     elif kernels is None:
@@ -443,16 +416,16 @@ def _main_form(dtype, d: int) -> bool:
     return dtype == torch.bfloat16 and d == KERNEL_HEAD_DIM
 
 
-def _variant_smem(dtype, d: int, main: str, x: str, head_dim=kernel_head_dim):
+def _variant_smem(dtype, d: int, main: str, x: str):
     """The shared-memory function of T (None for fp32) of K11-K14's form of
-    ``dtype`` and head dim d: the entry point ``main`` at bf16 D = 64, else
-    ``x`` at the instantiated head dim ``head_dim(d)`` (the backwards:
-    :func:`bwd_head_dim`)."""
+    ``dtype`` and head dim d, the largest of the pair's three kernels': the
+    entry point ``main`` at bf16 D = 64, else ``x`` at the instantiated head
+    dim :func:`kernel_head_dim` (d)."""
     if dtype == torch.float32:
         return None
     if _main_form(dtype, d):
         return lambda lib, t: getattr(lib, main)(t)
-    dp = head_dim(d)
+    dp = kernel_head_dim(d)
     return lambda lib, t: getattr(lib, x)(dp, t)
 
 
@@ -463,11 +436,10 @@ def _check_variant_dtype(what, qkv, d: int):
         raise ValueError(f"{what}: the kernels take head dims up to {MAX_HEAD_DIM}, got {d}")
 
 
-def _check_sp(what, qkv, key_bias, n_heads, *others, head_dim=bwd_head_dim):
+def _check_sp(what, qkv, key_bias, n_heads, *others):
     """K13/K14's checks in every form: dtype, head dim, shapes, and (bf16,
-    fp16) the shared memory of T at ``head_dim(D)`` (both run at
-    :func:`bwd_head_dim`: the larger of the three kernels' bytes there bounds
-    the save-probs path)."""
+    fp16) the shared memory of T at :func:`kernel_head_dim` (D): the largest
+    of the three kernels' bytes there bounds the save-probs path."""
     B, T, F = qkv.shape
     if F % (3 * n_heads):
         raise ValueError(f"{what}: F={F} does not split into 3 x {n_heads} heads")
@@ -476,7 +448,7 @@ def _check_sp(what, qkv, key_bias, n_heads, *others, head_dim=bwd_head_dim):
     for t in others:
         if t.dtype != qkv.dtype or t.shape != (B, T, F // 3):
             raise ValueError(f"{what}: dout and out must be [{B}, {T}, {F // 3}] {qkv.dtype}")
-    smem = _variant_smem(qkv.dtype, d, "vb_attn_sp_smem_bytes", "vb_attn_sp_x_smem_bytes", head_dim)
+    smem = _variant_smem(qkv.dtype, d, "vb_attn_sp_smem_bytes", "vb_attn_sp_x_smem_bytes")
     return _check(what, smem, T, key_bias, B, qkv, *others)
 
 
@@ -511,9 +483,9 @@ def _kernel_head_groups(lib, info: str, label: str, B: int, H: int, T: int, devi
     """hg of a forward kernel and of its backward's two passes at this shape
     on ``device``, from each kernel's resident blocks per SM (the CUDA
     occupancy query ``info``, after the ``form`` arguments it takes, at its
-    shared memory for T); None for a kernel not in ``kernels`` (a form
-    without a forward); computed once a (kernel pair, form, B, H, T,
-    device)."""
+    shared memory for T); None for a kernel not in ``kernels`` (K2's
+    streamed passes, which take no head groups); computed once a (kernel
+    pair, form, B, H, T, device)."""
     key = (info, form, B, H, T, device.index)
     if key not in _head_groups:
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
@@ -535,18 +507,12 @@ def packed_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, i
     return _kernel_head_groups(lib, "vb_attn_packed_info", "K1/K2", B, H, T, device)
 
 
-def _built_kernels(dp: int) -> Tuple[int, ...]:
-    """The kernels (PACKED_KERNELS' indices) each pair builds at the
-    instantiated head dim dp: the backward's two passes alone at 16 and 32."""
-    return (1, 2) if dp < KERNEL_HEAD_DIM else (0, 1, 2)
-
-
 def packed_x_head_groups(lib, dtype, dp: int, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
     """hg of K1's kernel and of K2's two passes in bf16 or fp16 at the
-    instantiated head dim dp (``vb_attn_packed_x_info``); at dp 16 and 32,
-    which build K2 alone, K1's is None; at STREAMED_HEAD_DIM, whose passes
-    take a block a (128 rows, head, batch row), K2's are None."""
-    kernels = (0,) if dp == STREAMED_HEAD_DIM else _built_kernels(dp)
+    instantiated head dim dp (``vb_attn_packed_x_info``); at
+    STREAMED_HEAD_DIM, whose passes take a block a (128 rows, head, batch
+    row), K2's are None."""
+    kernels = (0,) if dp == STREAMED_HEAD_DIM else (0, 1, 2)
     return _kernel_head_groups(lib, "vb_attn_packed_x_info", "K1/K2", B, H, T, device, (_DTYPE_CODE[dtype], dp),
                                kernels)
 
@@ -563,16 +529,13 @@ def sp_head_groups(lib, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
 
 def hm_x_head_groups(lib, dtype, dp: int, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
     """hg of K11's kernel and of K12's two passes in another bf16 or fp16
-    form at the instantiated head dim dp (``vb_attn_hm_x_info``); at dp 16
-    and 32, which build K12 alone, K11's is None."""
-    return _kernel_head_groups(lib, "vb_attn_hm_x_info", "K11/K12", B, H, T, device, (_DTYPE_CODE[dtype], dp),
-                               _built_kernels(dp))
+    form at the instantiated head dim dp (``vb_attn_hm_x_info``)."""
+    return _kernel_head_groups(lib, "vb_attn_hm_x_info", "K11/K12", B, H, T, device, (_DTYPE_CODE[dtype], dp))
 
 
 def sp_x_head_groups(lib, dtype, dp: int, B: int, H: int, T: int, device) -> Tuple[int, int, int]:
     """hg of K13's kernel and of K14's two passes in another bf16 or fp16
-    form at the instantiated head dim dp (``vb_attn_sp_x_info``; all three
-    are built at every dp of BWD_HEAD_DIMS)."""
+    form at the instantiated head dim dp (``vb_attn_sp_x_info``)."""
     return _kernel_head_groups(lib, "vb_attn_sp_x_info", "K13/K14", B, H, T, device, (_DTYPE_CODE[dtype], dp))
 
 
@@ -655,7 +618,7 @@ def launch_packed_x_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads: int, 
 
 
 def launch_small_products(lib, a, b, q):
-    """The two products K2 runs at head dims 16 and 32, alone, on the small-
+    """The two products the kernels run at head dims 16 and 32, alone, on the small-
     row tiles (``vb_attn_packed_x_probe``, one block): a [64, 64], b and q
     [64, D] (D 16 or 32) in bf16 or fp16 on the card -> (CUDA code, a @ b,
     q @ b^T) in fp32; b is the transposed operand of the first."""
@@ -716,8 +679,9 @@ def _counted(fn, form: str) -> None:
 
 
 def packed_attention_fwd(qkv, qb, key_bias, n_heads: int, rate: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 wrapper: (out [B, T, H*D], stats [B, H, T] fp32). bf16 and fp16
-    heads below an instantiated head dim are zero-padded to it here and the
+    """K1 wrapper: (out [B, T, H*D], stats [B, H, T] fp32), in the forms of
+    :func:`attention_form`: bf16 and fp16 heads of 16, 32, 64 and 128 read
+    in place, the others zero-padded to the next of HEAD_DIMS here and the
     output cut back; fp32 runs the SIMT kernel."""
     what = "packed attention forward (K1)"
     if not _on_cuda(what, qkv):
@@ -744,23 +708,21 @@ packed_attention_fwd.forms = {}
 
 
 def packed_attention_bwd(qkv, qb, key_bias, dout, out, stats, n_heads: int, rate: float, seed: int):
-    """K2 wrapper: (dqkv [B, T, H*3*D], dqb [H*3*D] in qb's dtype), in the
-    forms of :func:`bwd_attention_form`: bf16 and fp16 heads of 16 and 32
-    (and 64, 128) read in place, the others zero-padded to the next of
-    BWD_HEAD_DIMS here and the gradients cut back; fp32 on the SIMT
-    kernels."""
+    """K2 wrapper: (dqkv [B, T, H*3*D], dqb [H*3*D] in qb's dtype), in K1's
+    forms (heads padded to the next of HEAD_DIMS here and the gradients cut
+    back); fp32 on the SIMT kernels."""
     what = "packed attention backward (K2)"
     if not _on_cuda(what, qkv):
         return packed_attention_bwd_reference(qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed)
-    lib = _check_packed_any(what, qkv, key_bias, n_heads, dout, out, qb=qb, head_dim=bwd_head_dim, kernels=(1, 2))
+    lib = _check_packed_any(what, qkv, key_bias, n_heads, dout, out, qb=qb, kernels=(1, 2))
     B, T, F = qkv.shape
     _check_stats(what, stats, B, n_heads, T)
     d = F // (3 * n_heads)
-    form = bwd_attention_form(qkv.dtype, d)
+    form = attention_form(qkv.dtype, d)
     if qkv.dtype == torch.float32:
         code, dqkv, dqb = launch_f32_bwd(lib, qkv, qb, key_bias, dout, out, stats, n_heads, rate, seed)
     else:
-        dp = bwd_head_dim(d)
+        dp = kernel_head_dim(d)
         hg_dq = hg_dkv = 1  # the streamed passes' grid has no head groups
         if dp != STREAMED_HEAD_DIM:
             _, hg_dq, hg_dkv = packed_x_head_groups(lib, qkv.dtype, dp, B, n_heads, T, qkv.device)
@@ -778,10 +740,10 @@ packed_attention_bwd.launches = 0
 packed_attention_bwd.forms = {}
 
 
-def _check_heads_major(what, qkv, key_bias, *others, head_dim=kernel_head_dim):
+def _check_heads_major(what, qkv, key_bias, *others):
     """K11/K12's checks in every form: dtype, head dim, shapes, and (bf16,
-    fp16) the shared memory of T at ``head_dim(D)`` (K12:
-    :func:`bwd_head_dim`)."""
+    fp16) the shared memory of T at :func:`kernel_head_dim` (D), the largest
+    of the three kernels'."""
     if qkv.dim() != 5 or qkv.shape[1] != 3:
         raise ValueError(f"{what}: qkv must be [B, 3, H, T, D], got {tuple(qkv.shape)}")
     B, _, H, T, d = qkv.shape
@@ -789,7 +751,7 @@ def _check_heads_major(what, qkv, key_bias, *others, head_dim=kernel_head_dim):
     for t in others:
         if t.dtype != qkv.dtype or t.shape != (B, H, T, d):
             raise ValueError(f"{what}: dout and out must be [{B}, {H}, {T}, {d}] {qkv.dtype}")
-    smem = _variant_smem(qkv.dtype, d, "vb_attn_hm_smem_bytes", "vb_attn_hm_x_smem_bytes", head_dim)
+    smem = _variant_smem(qkv.dtype, d, "vb_attn_hm_smem_bytes", "vb_attn_hm_x_smem_bytes")
     return _check(what, smem, T, key_bias, B, qkv, *others)
 
 
@@ -869,9 +831,10 @@ def launch_f32_hm_bwd(lib, qkv, key_bias, dout, out, stats, rate: float, seed: i
 
 def heads_major_attention_fwd(qkv, key_bias, rate: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K11 wrapper: qkv [B, 3, H, T, D] (bias added) -> (out [B, H, T, D],
-    stats [B, H, T] fp32). bf16 at D = 64 and fp32 read q, k and v in place
-    from ``qkv``; the other bf16 and fp16 head dims are zero-padded to an
-    instantiated one here and the output cut back."""
+    stats [B, H, T] fp32). fp32 and bf16 and fp16 heads of 16, 32, 64 and
+    128 read q, k and v in place from ``qkv``; the other bf16 and fp16 head
+    dims are zero-padded to the next of HEAD_DIMS here and the output cut
+    back."""
     what = "heads-major attention forward (K11)"
     if not _on_cuda(what, qkv):
         return heads_major_attention_fwd_reference(qkv, key_bias, rate, seed)
@@ -898,14 +861,13 @@ heads_major_attention_fwd.forms = {}
 
 
 def heads_major_attention_bwd(qkv, key_bias, dout, out, stats, rate: float, seed: int) -> torch.Tensor:
-    """K12 wrapper: dqkv [B, 3, H, T, D], written as one tensor, in the forms
-    of :func:`bwd_attention_form`: bf16 and fp16 heads of 16 and 32 (and 64,
-    128) read in place, the others zero-padded to the next of BWD_HEAD_DIMS
-    here and the gradient cut back; fp32 on the SIMT kernels."""
+    """K12 wrapper: dqkv [B, 3, H, T, D], written as one tensor, in K11's
+    forms (heads padded as there and the gradient cut back); fp32 on the
+    SIMT kernels."""
     what = "heads-major attention backward (K12)"
     if not _on_cuda(what, qkv):
         return heads_major_attention_bwd_reference(qkv, key_bias, dout, out, stats, rate, seed)
-    lib = _check_heads_major(what, qkv, key_bias, dout, out, head_dim=bwd_head_dim)
+    lib = _check_heads_major(what, qkv, key_bias, dout, out)
     B, _, H, T, d = qkv.shape
     _check_stats(what, stats, B, H, T)
     if qkv.dtype == torch.float32:
@@ -914,13 +876,13 @@ def heads_major_attention_bwd(qkv, key_bias, dout, out, stats, rate: float, seed
         _, hg_dq, hg_dkv = hm_head_groups(lib, B, H, T, qkv.device)
         code, dqkv = launch_hm_bwd(lib, qkv, key_bias, dout, out, stats, rate, seed, hg_dq, hg_dkv)
     else:
-        dp = bwd_head_dim(d)
+        dp = kernel_head_dim(d)
         _, hg_dq, hg_dkv = hm_x_head_groups(lib, qkv.dtype, dp, B, H, T, qkv.device)
         code, dqkv = launch_hm_x_bwd(lib, pad_heads_major(qkv, dp), key_bias, pad_heads_major(dout, dp),
                                      pad_heads_major(out, dp), stats, rate, seed, hg_dq, hg_dkv, 1.0 / math.sqrt(d))
         dqkv = unpad_heads_major(dqkv, d)
     lib.check(code, what)
-    _counted(heads_major_attention_bwd, bwd_attention_form(qkv.dtype, d))
+    _counted(heads_major_attention_bwd, attention_form(qkv.dtype, d))
     return dqkv
 
 
@@ -968,13 +930,13 @@ def packed_attention_sp_fwd(qkv, key_bias, n_heads: int, rate: float, seed: int)
     """K13 wrapper on the biased packed qkv: (out [B, T, H*D], probs
     [B, H, T, T] bf16 in every form). On the card probs is the [B, H, T, T]
     view of a [B, H, T, probs_row_stride(T)] buffer; K14 reads it in place.
-    In the forms of :func:`sp_attention_form`: bf16 and fp16 heads of 16 and
-    32 (and 64, 128) read in place, the others zero-padded to the next of
-    BWD_HEAD_DIMS here and the output cut back; fp32 runs the SIMT kernel."""
+    In the forms of :func:`attention_form`: bf16 and fp16 heads of 16, 32,
+    64 and 128 read in place, the others zero-padded to the next of
+    HEAD_DIMS here and the output cut back; fp32 runs the SIMT kernel."""
     what = "save-probs attention forward (K13)"
     if not _on_cuda(what, qkv):
         return packed_attention_sp_fwd_reference(qkv, key_bias, n_heads, rate, seed)
-    lib = _check_sp(what, qkv, key_bias, n_heads, head_dim=bwd_head_dim)
+    lib = _check_sp(what, qkv, key_bias, n_heads)
     B, T, F = qkv.shape
     d = F // (3 * n_heads)
     if qkv.dtype == torch.float32:
@@ -983,13 +945,13 @@ def packed_attention_sp_fwd(qkv, key_bias, n_heads: int, rate: float, seed: int)
         hg = sp_head_groups(lib, B, n_heads, T, qkv.device)[0]
         code, out, probs = launch_sp_fwd(lib, qkv, key_bias, n_heads, rate, seed, hg)
     else:
-        dp = bwd_head_dim(d)
+        dp = kernel_head_dim(d)
         hg = sp_x_head_groups(lib, qkv.dtype, dp, B, n_heads, T, qkv.device)[0]
         code, out, probs = launch_sp_x_fwd(lib, pad_heads(qkv, n_heads, 3, dp), key_bias, n_heads, rate, seed, hg,
                                            1.0 / math.sqrt(d))
         out = unpad_heads(out, n_heads, 1, d)
     lib.check(code, what)
-    _counted(packed_attention_sp_fwd, sp_attention_form(qkv.dtype, d))
+    _counted(packed_attention_sp_fwd, attention_form(qkv.dtype, d))
     return out, probs
 
 
@@ -1087,16 +1049,14 @@ def launch_f32_sp_bwd(lib, qkv, probs, ldp: int, dout, out, n_heads: int, rate: 
 def packed_attention_sp_bwd(qkv, probs, dout, out, n_heads: int, rate: float, seed: int) -> torch.Tensor:
     """K14 wrapper: dqkv [B, T, H*3*D] from the saved probabilities, read in
     place in K13's layout (a contiguous tensor at T % 8 != 0 is first copied
-    into it), in the forms of :func:`bwd_attention_form`: bf16 and fp16 heads
-    of 16 and 32 (and 64, 128) read in place, the others zero-padded to the
-    next of BWD_HEAD_DIMS here and the gradient cut back; fp32 on the SIMT
-    kernels."""
+    into it), in K13's forms (heads padded as there and the gradient cut
+    back); fp32 on the SIMT kernels."""
     what = "save-probs attention backward (K14)"
     if not _on_cuda(what, qkv):
         return packed_attention_sp_bwd_reference(qkv, probs, dout, out, n_heads, rate, seed)
     B, T, F = qkv.shape
     # the key bias only enters through the saved probabilities
-    lib = _check_sp(what, qkv, None, n_heads, dout, out, head_dim=bwd_head_dim)
+    lib = _check_sp(what, qkv, None, n_heads, dout, out)
     if probs.device != qkv.device:
         raise ValueError(f"{what}: tensors on different devices")
     ldp = probs_layout(probs, B, n_heads, T)
@@ -1110,14 +1070,14 @@ def packed_attention_sp_bwd(qkv, probs, dout, out, n_heads: int, rate: float, se
         _, hg_dq, hg_dkv = sp_head_groups(lib, B, n_heads, T, qkv.device)
         code, dqkv, _ = launch_sp_bwd(lib, qkv, probs, ldp, dout, out, n_heads, rate, seed, hg_dq, hg_dkv)
     else:
-        dp = bwd_head_dim(d)
+        dp = kernel_head_dim(d)
         _, hg_dq, hg_dkv = sp_x_head_groups(lib, qkv.dtype, dp, B, n_heads, T, qkv.device)
         code, dqkv = launch_sp_x_bwd(lib, pad_heads(qkv, n_heads, 3, dp), probs, ldp, pad_heads(dout, n_heads, 1, dp),
                                      pad_heads(out, n_heads, 1, dp), n_heads, rate, seed, hg_dq, hg_dkv,
                                      1.0 / math.sqrt(d))
         dqkv = unpad_heads(dqkv, n_heads, 3, d)
     lib.check(code, what)
-    _counted(packed_attention_sp_bwd, bwd_attention_form(qkv.dtype, d))
+    _counted(packed_attention_sp_bwd, attention_form(qkv.dtype, d))
     return dqkv
 
 

@@ -9,9 +9,9 @@ first step, naming the limit and the flag:
 * every attention form (``use_flash_attention``: the packed K1/K2 as
   shipped, the heads-major K11/K12 with ``packed_qkv`` false, the
   save-probs K13/K14 with ``flash_save_probs``): bf16, fp16 or fp32, head
-  dim up to 128 (bf16 and fp16 on kernels built at head dims 64 and 128,
-  the backwards' (K2, K12, K14) and K13's also at 16 and 32, a smaller head
-  dim zero-padded to the next; fp32 on SIMT kernels at any head dim);
+  dim up to 128 (bf16 and fp16 on kernels built at head dims 16, 32, 64 and
+  128, another head dim zero-padded to the next; fp32 on SIMT kernels at any
+  head dim);
 * the fused MLM cross-entropy (K4-K6): bf16, fp16 or fp32 at any hidden
   width (bf16 and fp16 on kernels built at 128, 256, 512, 768 and 1024 and
   on the wide form above 1024, another width zero-padded to the next of
@@ -29,12 +29,12 @@ width, so nothing is checked there. The sequence length is checked when a
 kernel is called: the data, not the config, sets it (bf16 and fp16
 attention at head dims above 64 runs on the kernels built at 128, where
 K1's forward holds a head's keys in shared memory and takes T up to about
-half of what 64 takes, while K2's streamed passes take any T; the
-backwards' forms at 16 and 32, and K13's, take about four and two times
-64's; a step runs the forward too, so K1's and K11's limits (704 at head
-dims up to 64; at 128 K1's 384 and K11/K12's 256) bound the packed and
-heads-major paths as a whole, and the save-probs path at 16 and 32 takes the larger of K13's and
-K14's shared memory; the wrapper names the limit).
+half of what 64 takes, while K2's streamed passes take any T; the forms at
+16 and 32 take about four and two times 64's. A step runs a pair's forward
+and backward, so each path takes T up to the least of its three kernels'
+limits: at head dims up to 32 the backwards' (2880 / 1472 packed, 2880 /
+1536 heads-major, 3072 / 1536 save-probs at 16 / 32), at 64 704, at 128
+K1's 384 and K11/K12's 256; the wrapper names the limit).
 """
 
 from __future__ import annotations

@@ -35,19 +35,29 @@ the plain forward's outputs and against the plain backward, in turns. K2
 at head dim 128 (bf16, fp16) on each tree's form (this tree's streamed
 passes, an earlier tree's passes that held a head's rows; STREAMED_SHAPES,
 on the plain forward's outputs) against the plain backward, then in turns
-(:func:`streamed_ab`). Where the
+(:func:`streamed_ab`). The forwards K1 and K11 at head dims 16 and 32
+(bf16, fp16: SMALL_FORMS; SMALL_FWD_PAIRS) on this tree's small-row forms
+and on the other tree's route, padded to 64 as its wrapper did, each
+against the plain forward, in turns beside
+``scaled_dot_product_attention`` (:func:`small_forwards_ab`). Where the
 toolkit has ``cuobjdump``, the machine code (SASS) of every kernel both
-trees build (K1/K2 in bf16 and fp16 at 64 and 128, K11-K14 in every form,
-K15/K16) is compared instruction by instruction, addresses and encodings
-dropped (``tools/xent_steps.py::compare_all_sass``); kernels one tree alone
-builds are listed.
+trees build (K1/K2 in bf16 and fp16 at every head dim, K11-K14 in every
+form, K15/K16, and beside them the kernels of ``mlm_xent.cu``, which
+includes hopper_attn.cuh too, and of the fp32 ``flash_attention_f32.cu``:
+SASS_ONLY_SOURCES) is compared instruction by instruction, addresses and
+encodings dropped (``tools/xent_steps.py::compare_all_sass``); kernels one
+tree alone builds are listed.
 
-The fp32 kernels (``csrc/flash_attention_f32.cu``: K1/K11's forward, K13's
-forward and the backward of K2, K12 and K14), alone with ``--f32``:
+A run takes every part of PARTS in that order; ``--only`` takes some of
+them, comma-separated (those above the fp32 part share one build of the
+trees), for example K1's and K11's small forms against the other tree's
+padded route and the SASS alone:
 
-    python -m visualbert_torch.tools.attn_ab OTHER_CHECKOUT --f32
+    python -m visualbert_torch.tools.attn_ab OTHER_CHECKOUT --only small_forwards,sass
 
-Each tree's source is built alone and launched through this checkout's
+The fp32 part (``--only f32``; ``csrc/flash_attention_f32.cu``: K1/K11's
+forward, K13's forward and the backward of K2, K12 and K14): each tree's
+source is built alone and launched through this checkout's
 ``launch_f32_*`` (a build whose backward blocks own whole pairs through
 :class:`WholePairs`) at the main path's B, T and padded keys
 in fp32 at head dims F32_DIMS: every pair against the plain versions within
@@ -96,15 +106,19 @@ def bind(path, fns):
 
 HM_FNS = ("vb_attn_hm_fwd", "vb_attn_hm_bwd", "vb_attn_hm_info")
 # the backwards' other forms (SMALL_FORMS): K2's, K12's, K14's
-PACKED_X_FNS = ("vb_attn_packed_x_bwd", "vb_attn_packed_x_info")
-HM_X_FNS = ("vb_attn_hm_x_bwd", "vb_attn_hm_x_info")
+PACKED_X_FNS = ("vb_attn_packed_x_fwd", "vb_attn_packed_x_bwd", "vb_attn_packed_x_info")
+HM_X_FNS = ("vb_attn_hm_x_fwd", "vb_attn_hm_x_bwd", "vb_attn_hm_x_info")
+# built for their machine code alone: the other source that includes
+# hopper_attn.cuh (K4-K6) and the fp32 attention kernels
+SASS_ONLY_SOURCES = ("mlm_xent.cu", "flash_attention_f32.cu")
 SP_X_FNS = ("vb_attn_sp_x_bwd", "vb_attn_sp_x_info")
 
 
 def build(trees):
     """Each tree {name: root} built alone, one nvcc a source, all at once:
     ({name: (packed CDLL, path)}, {name: K15/K16 CDLL}, {name: {other
-    source: (CDLL, path)}}, {name: [every library's path]})."""
+    source: (CDLL, path)}}, {name: [every library's path, SASS_ONLY_SOURCES'
+    too]})."""
     from visualbert_torch.tools.attn_steps import PACKED_FNS, SP_FNS
 
     nvcc = _build.find_nvcc()
@@ -114,6 +128,7 @@ def build(trees):
     paths = {name: out / f"{name}.so" for name in trees}
     exp_paths = {name: out / f"{name}_exp.so" for name in trees}
     others = {name: {src: out / f"{name}_{Path(src).stem}.so" for src in OTHER_SOURCES} for name in trees}
+    sass_only = {name: [out / f"{name}_{Path(src).stem}.so" for src in SASS_ONLY_SOURCES] for name in trees}
     cmds = []
     for name, root in trees.items():
         flags = [nvcc, *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-I", str(root / SOURCE.parent)]
@@ -121,12 +136,14 @@ def build(trees):
         cmds.append([*flags, "-shared", str(root / EXP_SOURCE), "-o", str(exp_paths[name])])
         cmds += [[*flags, "-shared", str(root / SOURCE.parent / src), "-o", str(others[name][src])]
                  for src in OTHER_SOURCES]
+        cmds += [[*flags, "-shared", str(root / SOURCE.parent / src), "-o", str(path)]
+                 for src, path in zip(SASS_ONLY_SOURCES, sass_only[name])]
     for cmd, rc, text in _build._run_all(cmds):
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
     libs = {name: (bind(path, PACKED_FNS + PACKED_X_FNS), path) for name, path in paths.items()}
     fns = {"flash_attention.cu": HM_FNS + HM_X_FNS, "flash_attention_sp.cu": SP_FNS + SP_X_FNS}
-    sass_paths = {name: [paths[name], exp_paths[name], *others[name].values()] for name in trees}
+    sass_paths = {name: [paths[name], exp_paths[name], *others[name].values(), *sass_only[name]] for name in trees}
     others = {name: {src: (bind(path, fns[src]), path) for src, path in srcs.items()} for name, srcs in others.items()}
     return libs, {name: bind(path, EXP_FNS) for name, path in exp_paths.items()}, others, sass_paths
 
@@ -321,6 +338,93 @@ def small_forms_ab(libs, others, n_sm, card, rate=0.1):
                   f"ms in the other tree (padded to 64, pads and cuts included): {min(b) / min(a):.2f}x  [{card}]",
                   flush=True)
             del d, want, calls
+            torch.cuda.empty_cache()
+    return res
+
+
+# the forwards with small-row forms since this tree: (their library's
+# source, None for the packed source; their info entry point)
+SMALL_FWD_PAIRS = {"K1": (None, "vb_attn_packed_x_info"), "K11": ("flash_attention.cu", "vb_attn_hm_x_info")}
+
+
+def small_fwd_call(pair, lib, d, H, rate, seed, D, dp, hg):
+    """The forward ``pair`` from ``lib`` at head dim dp on small_pair_inputs's
+    ``d`` (zero-padded to dp and the output cut back, as the wrappers do):
+    (CUDA code, out, stats)."""
+    import math
+
+    from visualbert_torch.ops import flash_attention as fa
+
+    scale = 1.0 / math.sqrt(D)
+    if pair == "K1":
+        c, out, stats = fa.launch_packed_x_fwd(lib, fa.pad_heads(d["qkv"], H, 3, dp), fa.pad_heads(d["qb"], H, 3, dp),
+                                               d["key_bias"], H, rate, seed, hg, scale)
+        return c, fa.unpad_heads(out, H, 1, D), stats
+    c, out, stats = fa.launch_hm_x_fwd(lib, fa.pad_heads_major(d["qkv"], dp), d["key_bias"], rate, seed, hg, scale)
+    return c, fa.unpad_heads_major(out, D), stats
+
+
+def small_forwards_ab(libs, others, n_sm, card, rate=0.1):
+    """K1 and K11 (SMALL_FWD_PAIRS) in SMALL_FORMS at the main path's B, T
+    and 12 heads, dropout ``rate``: this tree's form at the head dim
+    (unpadded) and the other tree's route (heads zero-padded to 64, its D =
+    64 form, the output cut back, pads and cuts in its time), each against
+    the plain forward (attn_steps's OUT_TOL and STATS_TOL), then timed in
+    turns (tools/attn_exp.py's best of 3 runs of 30 calls, F32_ROUNDS
+    rounds) beside scaled_dot_product_attention on the same biased q, k, v
+    in the same dtype: {"<pair> <dtype> D=<D>": {tree: dict(errors, hg, ms),
+    "sdpa_ms": [...]}}."""
+    import torch
+
+    from visualbert_torch.ops import flash_attention as fa
+    from visualbert_torch.tools import attn_steps
+    from visualbert_torch.tools.attn_exp import best_ms
+
+    H, seed, res = attn_steps.H, attn_steps.SEED, {}
+    for pair, (src, info) in SMALL_FWD_PAIRS.items():
+        for dtype, D in SMALL_FORMS:
+            d, _ = small_pair_inputs("K2" if pair == "K1" else "K12", dtype, D, H, rate, seed)
+            B, T = d["key_bias"].shape
+            want = (d["out"], d["stats"])  # the plain forward's
+            q, k, v = fa._split_heads(d["qkv"] + d["qb"], H) if pair == "K1" else d["qkv"].unbind(1)
+            q, k, v = (t.contiguous() for t in (q, k, v))
+            mask = d["key_bias"].to(q.dtype)[:, None, None, :]
+            code = 0 if dtype == "bfloat16" else 1
+            calls, form = {}, f"{pair} {dtype} D={D}"
+            for name in ("this", "other"):
+                lib = libs[name][0] if src is None else others[name][src][0]
+                dp = D if name == "this" else 64
+                hg = fa.head_group(B, H, n_sm, getattr(lib, info)(code, dp, 0, 3, T))
+
+                def call(lib=lib, dp=dp, hg=hg, name=name):
+                    c, out, stats = small_fwd_call(pair, lib, d, H, rate, seed, D, dp, hg)
+                    if c != 0:
+                        raise RuntimeError(f"{name} {form}: CUDA error {c}")
+                    return out, stats
+
+                out, stats = call()
+                torch.cuda.synchronize()
+                e = dict(out=attn_steps._rel(out, want[0]), stats=float((stats - want[1]).abs().max()))
+                print(f"{name} {form} (head dim {dp}, hg {hg}): out {e['out']:.3e} (tol {attn_steps.OUT_TOL}), "
+                      f"stats {e['stats']:.3e} (tol {attn_steps.STATS_TOL})  [{card}]", flush=True)
+                if not (e["out"] <= attn_steps.OUT_TOL and e["stats"] <= attn_steps.STATS_TOL):
+                    raise SystemExit(f"attn_ab: {name}'s {form} disagrees with the plain version")
+                calls[name] = call
+                res.setdefault(form, {})[name] = dict(errors=e, hg=hg, ms=[])
+                del out, stats
+            res[form]["sdpa_ms"] = []
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            calls["sdpa"] = lambda: sdpa(q, k, v, attn_mask=mask, dropout_p=rate)
+            with torch.no_grad():
+                for r in range(F32_ROUNDS):
+                    for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+                        ms = best_ms(lambda i, c=calls[name]: c())
+                        (res[form]["sdpa_ms"] if name == "sdpa" else res[form][name]["ms"]).append(ms)
+            a, b, c = res[form]["this"]["ms"], res[form]["other"]["ms"], res[form]["sdpa_ms"]
+            print(f"{form}, dropout {rate}: {min(a):.4f}-{max(a):.4f} ms here (unpadded), {min(b):.4f}-{max(b):.4f} "
+                  f"ms in the other tree (padded to 64, pads and cuts included): {min(b) / min(a):.2f}x; SDPA "
+                  f"{min(c):.4f}-{max(c):.4f} ms: {min(a) / min(c):.2f}x SDPA's  [{card}]", flush=True)
+            del d, want, calls, q, k, v
             torch.cuda.empty_cache()
     return res
 
@@ -907,6 +1011,28 @@ def f32_ab(trees, card):
     return res
 
 
+# the parts of a run, in its order: K1/K2 at the main path's shapes, K11-K14
+# (variant_ab), the backwards' small forms, the forwards' small forms,
+# K2's streamed passes, K15/K16, the SASS, the fp32 kernels (f32_ab)
+PARTS = ("k1k2", "variants", "small_forms", "small_forwards", "streamed", "exp", "sass", "f32")
+
+
+def parse(argv):
+    """(the other checkout, the parts to run) of attn_ab's arguments:
+    OTHER_CHECKOUT [--only PART,PART,...]."""
+    rest, parts = list(argv), PARTS
+    while "--only" in rest:
+        i = rest.index("--only")
+        parts = tuple(rest[i + 1].split(",")) if i + 1 < len(rest) else ()
+        del rest[i:i + 2]
+    if len(rest) != 1 or not (Path(rest[0]) / SOURCE).exists():
+        raise SystemExit(f"attn_ab: takes the root of another checkout that holds {SOURCE} (and --only with some "
+                         f"of {','.join(PARTS)}), got {argv}")
+    if not parts or not set(parts) <= set(PARTS):
+        raise SystemExit(f"attn_ab: --only takes some of {','.join(PARTS)}, got {argv}")
+    return rest[0], parts
+
+
 def main(argv=None):
     import sys
 
@@ -915,46 +1041,47 @@ def main(argv=None):
     from visualbert_torch.tools import attn_steps
     from visualbert_torch.tools.main_path import card_line, packed_attention_inputs
 
-    argv = sys.argv[1:] if argv is None else argv
-    f32_only = "--f32" in argv
-    rest = [a for a in argv if a != "--f32"]
-    if len(rest) != 1 or not (Path(rest[0]) / SOURCE).exists():
-        raise SystemExit(f"attn_ab: takes the root of another checkout that holds {SOURCE} (and --f32 for the fp32 "
-                         f"kernels alone), got {argv}")
+    other, parts = parse(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         raise SystemExit("attn_ab: no CUDA device; the kernels run only on the card")
     card = card_line()
-    trees = {"this": _build.CSRC.parent.parent, "other": Path(rest[0]).resolve()}
-    if f32_only:
-        result = dict(card=card, other=str(rest[0]), f32=f32_ab(trees, card))
-        print(json.dumps(result), flush=True)
-        return result
-    dev = torch.device("cuda")
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    data = packed_attention_inputs(dev)
-    B, T, _ = data[0].shape
-    t0 = time.perf_counter()
-    libs, exp_libs, others, sass_paths = build(trees)
-    print(f"attn_ab: B={B} T={T} H={attn_steps.H}; the builds in {time.perf_counter() - t0:.1f} s  [{card}]",
-          flush=True)
-    builds = [attn_steps.PackedBuild(name, lib, B, T, n_sm) for name, (lib, _) in libs.items()]
-    for b in builds:
-        print(f"{b.name}: hg {b.hg}; registers, local bytes, shared bytes, blocks an SM of the forward, dQ pass, "
-              f"dK/dV pass: {b.info}  [{card}]", flush=True)
-    errors = attn_steps.check(builds, data, card)
-    if not all(e["same_as_built"] for e in errors["other"].values()):
-        raise SystemExit("attn_ab: the two trees' K1/K2 differ in their outputs")
-    times = attn_steps.time_builds(builds, data)
-    attn_steps.print_times(builds, times, card, "K1/K2")
-    variants = variant_ab(others, data, n_sm, card)
-    small = small_forms_ab(libs, others, n_sm, card)
-    streamed = streamed_ab(libs, n_sm, card)
-    exp = exp_times(exp_libs, data, card)
-    sass = compare_sass(sass_paths, card)
-    f32 = f32_ab(trees, card)
-    result = dict(card=card, shape=dict(B=B, T=T, H=attn_steps.H), other=str(rest[0]), errors=errors, times=times,
-                  exp_times=exp, variants=variants, builds={b.name: dict(hg=b.hg, info=b.info) for b in builds},
-                  small_forms=small, streamed=streamed, sass=sass, f32=f32)
+    trees = {"this": _build.CSRC.parent.parent, "other": Path(other).resolve()}
+    result = dict(card=card, other=str(other))
+    if set(parts) - {"f32"}:
+        dev = torch.device("cuda")
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        data = packed_attention_inputs(dev)
+        B, T, _ = data[0].shape
+        t0 = time.perf_counter()
+        libs, exp_libs, others, sass_paths = build(trees)
+        print(f"attn_ab: B={B} T={T} H={attn_steps.H}; the builds in {time.perf_counter() - t0:.1f} s  [{card}]",
+              flush=True)
+        result["shape"] = dict(B=B, T=T, H=attn_steps.H)
+    if "k1k2" in parts:
+        builds = [attn_steps.PackedBuild(name, lib, B, T, n_sm) for name, (lib, _) in libs.items()]
+        for b in builds:
+            print(f"{b.name}: hg {b.hg}; registers, local bytes, shared bytes, blocks an SM of the forward, dQ "
+                  f"pass, dK/dV pass: {b.info}  [{card}]", flush=True)
+        errors = attn_steps.check(builds, data, card)
+        if not all(e["same_as_built"] for e in errors["other"].values()):
+            raise SystemExit("attn_ab: the two trees' K1/K2 differ in their outputs")
+        times = attn_steps.time_builds(builds, data)
+        attn_steps.print_times(builds, times, card, "K1/K2")
+        result.update(errors=errors, times=times, builds={b.name: dict(hg=b.hg, info=b.info) for b in builds})
+    if "variants" in parts:
+        result["variants"] = variant_ab(others, data, n_sm, card)
+    if "small_forms" in parts:
+        result["small_forms"] = small_forms_ab(libs, others, n_sm, card)
+    if "small_forwards" in parts:
+        result["small_forwards"] = small_forwards_ab(libs, others, n_sm, card)
+    if "streamed" in parts:
+        result["streamed"] = streamed_ab(libs, n_sm, card)
+    if "exp" in parts:
+        result["exp_times"] = exp_times(exp_libs, data, card)
+    if "sass" in parts:
+        result["sass"] = compare_sass(sass_paths, card)
+    if "f32" in parts:
+        result["f32"] = f32_ab(trees, card)
     print(json.dumps(result), flush=True)
     return result
 

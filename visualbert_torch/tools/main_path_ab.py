@@ -33,34 +33,42 @@ print("AB " + json.dumps(out), flush=True)
 """
 
 
-def run_tree(tree: str) -> dict:
-    """The median steps of ``tree``'s main path, from a process of its own."""
-    proc = subprocess.run([sys.executable, "-c", CHILD], cwd=tree, capture_output=True, text=True, timeout=1800)
+def run_tree(tree: str, child: str = CHILD, tool: str = "main_path_ab") -> dict:
+    """The numbers that ``child`` prints on its "AB " line, run in a process
+    of its own from ``tree`` (by default the median steps of its main
+    path)."""
+    proc = subprocess.run([sys.executable, "-c", child], cwd=tree, capture_output=True, text=True, timeout=1800)
     lines = [line for line in proc.stdout.splitlines() if line.startswith("AB ")]
     if proc.returncode or not lines:
-        raise SystemExit(f"main_path_ab: the run in {tree} failed:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        raise SystemExit(f"{tool}: the run in {tree} failed:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     return json.loads(lines[-1][3:])
 
 
-def main(argv=None):
-    argv = sys.argv[1:] if argv is None else argv
+def in_turns(argv, child: str, tool: str):
+    """Run ``child`` from another checkout (``argv``'s one entry) and from
+    this tree in the order other, this, this, other on the card, print each
+    run and then {"card", "runs"} as one JSON line; returns the runs."""
     if len(argv) != 1:
-        raise SystemExit("usage: python -m visualbert_torch.tools.main_path_ab <another checkout>")
+        raise SystemExit(f"usage: python -m visualbert_torch.tools.{tool} <another checkout>")
     import torch
 
     if not torch.cuda.is_available():
-        raise SystemExit("main_path_ab: needs a CUDA device")
+        raise SystemExit(f"{tool}: needs a CUDA device")
     from visualbert_torch.tools.main_path import card_line
 
     other = os.path.abspath(argv[0])
     card = card_line()
     runs = []
     for name, tree in (("other", other), ("this", REPO), ("this", REPO), ("other", other)):
-        r = dict(tree=name, **run_tree(tree))
+        r = dict(tree=name, **run_tree(tree, child, tool))
         runs.append(r)
-        print(f"{name} ({tree}): " + ", ".join(f"{k} {v:.2f} ms" for k, v in r.items() if k != "tree")
-              + f"  [{card}]", flush=True)
+        print(f"{name} ({tree}): {json.dumps({k: v for k, v in r.items() if k != 'tree'})}  [{card}]", flush=True)
     print(json.dumps({"card": card, "runs": runs}), flush=True)
+    return runs
+
+
+def main(argv=None):
+    in_turns(sys.argv[1:] if argv is None else argv, CHILD, "main_path_ab")
 
 
 if __name__ == "__main__":
